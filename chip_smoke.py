@@ -4,21 +4,36 @@
 
 Phases, each printed as it ends; any failure raises and the exit code is not 0:
 
-1. Device: name, power limit, versions; build the flash-forward kernel from
-   ``osufusion_tpu_torch/csrc`` with nvcc for sm_90a.
-2. Kernel vs its plain PyTorch version at the serving path's attention shapes
-   (B=2 under CFG, H=16, D=64, bf16): relative L2 and largest error against
-   their bounds, a planted fault that the bound must catch, and CUDA-event
-   times.
-3. The full-width UNet (dim_h=128, default config, seeded weights) forward at
+1. Device: name, power limit, versions; build the flash kernels from
+   ``osufusion_tpu_torch/csrc`` with nvcc for sm_90a, all sources at once.
+2. Forward kernel vs its plain PyTorch version at the serving path's attention
+   shapes (B=2 under CFG, H=16, D=64, bf16): relative L2 and largest error
+   against their bounds, a planted fault that the bound must catch,
+   CUDA-event times, and at the level-0 shape rope +
+   ``scaled_dot_product_attention`` under a dense band mask as a yardstick.
+3. Training kernels at the training path's four shapes (B=4, H=16, D=64,
+   global, T = 4096 ... 512): the forward with its LSE and the fused backward
+   (dq, dk, dv) vs their plain fp32 versions, a planted fault (an LSE off by
+   0.05) above the bound, CUDA-event times, and rope +
+   ``scaled_dot_product_attention`` as a yardstick that the port never calls.
+4. The full-width UNet (dim_h=128, default config, seeded weights) forward at
    B=1, T=8192: bf16 on the GPU through the kernel vs fp32 on the CPU through
    the plain path.
-4. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
+5. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
    CFG 2.0; 60 s with two samples), each an ``.osz`` holding the returned
    ``.osu`` texts with hit objects, with the kernel launched once per
-   attention site of the path.
+   attention site of the path; then the sampled signal through the kernels
+   vs through the plain attention vs a denoiser that predicts zero.
+6. Gradient check at the training width (dim_h=512, weights random
+   everywhere, T=4096): loss and backward in bf16 through the kernels vs
+   float32 through the plain versions, both on the GPU.
+7. Training: ``osufusion_tpu_torch.trainer.train`` on the dummy dataset at
+   dim_h=512, B=4, T=4096, full bf16, 6 steps without rematerialisation and 6
+   under ``save-attn``, each with a save and a resume half way; launches per
+   step counted; then the ``model.safetensors`` it wrote is loaded by
+   ``serve.load_model`` and serves a 60 s song.
 
-The line before the last is a JSON record of the kernel; the last line is
+The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero before printing either.
 """
@@ -26,9 +41,11 @@ non-zero before printing either.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -48,12 +65,43 @@ import torch
 # single error, which a fault confined to a few rows shows first.
 REL_TOL = 1e-2
 ABS_TOL = 1e-2
+# the yardstick call rotates q and k in bf16 before its own bf16 products: two
+# more roundings than the kernel, so it is held to twice the bound
+LIBRARY_REL_TOL = 2e-2
 FAULT_TILE = 64  # keys in the kernel's KV tile: the global shape's planted fault drops the last one
 # bf16 UNet on the GPU vs fp32 UNet on the CPU: relative L2 error of the
 # output. Every layer rounds its activations to bf16 (~4e-3 relative); over
 # ~100 layers with residual paths that compounds to ~1e-2
 UNET_REL_TOL = 5e-2
 ATTN_SHAPES = [(24576, 4096), (12288, 2048), (6144, 1024), (3072, 512), (4096, None)]
+# the training kernels vs their plain fp32 versions on the same bf16 inputs.
+# Forward: o as above; the LSE is a sum of 64 products of bf16-rounded q (2^-9
+# relative) with logits of a few units, so a few 1e-3 absolute. Backward: p,
+# ds, q and do enter the tensor cores in bf16, so each of dq, dk, dv carries a
+# few 1e-3 relative L2; the largest single error is bounded relative to the
+# gradient's largest entry. The planted fault shifts the LSE by LSE_FAULT in
+# base 2, which scales p, hence all three gradients, by 2^-0.05 (3.4e-2).
+LSE_TOL = 2e-2
+BWD_REL_TOL = 1e-2
+BWD_ABS_TOL = 1e-2  # times the reference gradient's largest magnitude
+LSE_FAULT = 0.05
+TRAIN_B, TRAIN_SHAPES = 4, (4096, 2048, 1024, 512)
+# bf16 loss and gradients through the kernels vs fp32 through the plain
+# versions at dim_h=512: every layer rounds activations and gradients to bf16,
+# which compounds over ~100 layers each way
+GRAD_REL_TOL = 1e-1
+LOSS_REL_TOL = 2e-2
+# the served UNet's final conv, as a share of its lecun scale (serving_weights)
+SERVE_FINAL_SCALE = 1e-3
+# the sampled signal through the kernels vs through the plain attention, both
+# bf16 on the GPU, after 50 DDIM steps: the two attentions differ by a few 1e-3
+# per site, which the clipped x0 prediction at the noisiest steps amplifies; and
+# the least distance of either from the trajectory of a denoiser that predicts
+# zero, so that the first is small against the denoiser's own contribution
+SAMPLER_REL_TOL = 5e-2
+SAMPLER_MIN_EFFECT = 2e-1
+PEAK_FLOPS = 989e12  # H100 SXM, dense bf16
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 SR = 22050
 # a .osu hit object line: x,y,time,type,hitsound[,...]
 HIT_OBJECT = re.compile(r"^-?\d+(\.\d+)?,-?\d+(\.\d+)?,\d+(\.\d+)?,\d+,\d+")
@@ -93,9 +141,21 @@ def phase_device() -> tuple[str, str]:
     torch.backends.cudnn.allow_tf32 = False
     _log("[device] fp32 matmul and cuDNN conv TF32: off")
     t0 = time.perf_counter()
-    lib = build_kernels(verbose=True)
-    _log(f"[build] {lib.name} (nvcc, sm_90a) ready in {time.perf_counter() - t0:.2f} s")
+    libs = build_kernels(verbose=True)
+    _log(f"[build] {', '.join(lib.name for lib in libs.values())} (nvcc, sm_90a) ready in {time.perf_counter() - t0:.2f} s")
     return name, smi
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least milliseconds the card could take, and what sets it."""
+    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def _attn_bytes(B: int, T: int, H: int, D: int, big: int, small: int, stats: int) -> int:
+    """Bytes of ``big`` (B,T,H,D) and ``small`` (B,T,D) bf16 tensors, ``stats``
+    (B,T,H) fp32 vectors and the two (T,D) fp32 tables, each moved once."""
+    return B * T * H * D * 2 * big + B * T * D * 2 * small + B * T * H * 4 * stats + 2 * T * D * 4
 
 
 def _rel(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -103,6 +163,8 @@ def _rel(x: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def phase_kernel() -> dict:
+    import torch.nn.functional as F
+
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops.attention import gqa_attention
     from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
@@ -128,7 +190,7 @@ def phase_kernel() -> dict:
             fault = fa.flash_attention_reference(qf, kf, vf, window - 2, rope)
         fault_rel = _rel(fault, ref)
         del ref, fault, qf, kf, vf
-        k_rot = apply_rope(k.reshape(B, T, D).float(), *rope).to(torch.bfloat16)
+        k_rot = fa.rotated_k(k.reshape(B, T, D), *rope)
         v3 = v.reshape(B, T, D).contiguous()
         plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, window, rope), 3)
         kernel_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v3, *rope, -1 if window is None else window, D**-0.5), 20)
@@ -144,7 +206,27 @@ def phase_kernel() -> dict:
             failures.append(f"T={T} window={window}: planted fault {fault_rel:.3e} would pass REL_TOL {REL_TOL}")
         worst = max(worst, err)
         if level0 is None:
-            level0 = {"ms": kernel_ms, "plain_ms": min(plain_ms, plain_ms2)}
+            # every (query, key) pair inside the window, two products of 2*D each
+            w2 = window // 2
+            pairs = sum(min(T - 1, t + w2) - max(0, t - w2) + 1 for t in range(T))
+            bound_ms, bound_by = _bound(4 * B * H * D * pairs, _attn_bytes(B, T, H, D, 2, 2, 0))
+            # yardstick only: rope on q and k, then PyTorch's fused attention under a dense
+            # (T, T) band mask, which visits every tile, the masked ones too
+            idx = torch.arange(T, device="cuda", dtype=torch.int32)
+            band = (idx[:, None] - idx[None, :]).abs() <= w2
+
+            def library():
+                qr, kr = apply_rope(q, *rope).transpose(1, 2), apply_rope(k, *rope).transpose(1, 2)
+                return F.scaled_dot_product_attention(qr, kr, v.transpose(1, 2), attn_mask=band, enable_gqa=True).transpose(1, 2)
+
+            lib_rel, library_ms = _rel(library(), out.float()), _cuda_ms(library, 3)
+            _log(f"[kernel] T={T} window={window}: rope+SDPA with a band mask {library_ms:.3f} ms, vs kernel rel L2 {lib_rel:.1e}; "
+                 f"bound {bound_ms:.3f} ms by {bound_by}")
+            if not lib_rel < LIBRARY_REL_TOL:
+                failures.append(f"T={T} window={window}: rope+SDPA with a band mask differs from the kernel by {lib_rel:.3e}")
+            del idx, band
+            level0 = {"ms": kernel_ms, "plain_ms": min(plain_ms, plain_ms2), "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
         del q, k, v, out, k_rot, v3
         torch.cuda.empty_cache()
     if failures:
@@ -152,10 +234,89 @@ def phase_kernel() -> dict:
     return {"max_abs_err": worst, **level0}
 
 
+def phase_train_kernels() -> tuple[dict, dict]:
+    """K1 with its LSE and K2 vs their plain versions; returns their records
+    at the level-0 shape (errors: the worst over the four shapes)."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
+
+    B, H, D = TRAIN_B, 16, 64
+    scale = D**-0.5
+    failures, fwd_rec, bwd_rec, fwd_worst, bwd_worst = [], None, None, 0.0, 0.0
+    for i, T in enumerate(TRAIN_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, T, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        cos, sin = rope_tables(T, D, scale_base=float(T), device="cuda")
+        k_rot = fa.rotated_k(k, cos, sin)
+
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+        dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        refs = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)
+        faults = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref + LSE_FAULT, do, cos, sin)
+
+        o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        fwd_worst = max(fwd_worst, o_err)
+        if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(lse).all()):
+            failures.append(f"forward T={T}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+        parts = []
+        for name, got, ref, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+            rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+            fault_rel = _rel(fault, ref)
+            bwd_worst = max(bwd_worst, err)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+            if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all()):
+                failures.append(f"backward T={T}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+            if not fault_rel > BWD_REL_TOL:
+                failures.append(f"backward T={T}: planted fault in {name} {fault_rel:.3e} would pass {BWD_REL_TOL}")
+        del o_ref, lse_ref, refs, faults
+
+        fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 20)
+        bwd_ms = _cuda_ms(lambda: fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale), 10)
+        fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 2)
+        bwd_plain_ms = _cuda_ms(lambda: fa.flash_bwd_reference(q, k_rot, v, o, lse, do, cos, sin), 2)
+
+        # yardstick only: rope on q and k, then PyTorch's fused attention and its backward
+        def library_forward(q_in, k_in, v_in):
+            qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+            kr = apply_rope(k_in, cos, sin)[:, None]
+            return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
+
+        lib_fwd_ms = _cuda_ms(lambda: library_forward(q, k, v), 10)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = library_forward(*leaves)
+        lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 10)
+        lib_rel = _rel(lib_out, o.float())
+        del lib_out, leaves
+
+        product = 2 * B * H * T * T * D
+        fwd_bound, fwd_by = _bound(2 * product, _attn_bytes(B, T, H, D, 2, 2, 1))
+        bwd_bound, bwd_by = _bound(5 * product, _attn_bytes(B, T, H, D, 4, 4, 1))  # q o do dq; k v dk dv; lse
+        _log(f"[train kernels] T={T}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e}, lse max abs {lse_err:.3e} "
+             f"(tol {LSE_TOL}); backward {'; '.join(parts)} (tol {BWD_REL_TOL})")
+        _log(f"[train kernels] T={T}: forward {fwd_ms:.3f} ms (bound {fwd_bound:.3f} by {fwd_by}; plain {fwd_plain_ms:.3f}; "
+             f"rope+SDPA {lib_fwd_ms:.3f}, vs kernel rel L2 {lib_rel:.1e}); backward {bwd_ms:.3f} ms (bound {bwd_bound:.3f} "
+             f"by {bwd_by}; plain {bwd_plain_ms:.3f}; rope+SDPA backward {lib_bwd_ms:.3f})")
+        if fwd_rec is None:
+            fwd_rec = {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": lib_fwd_ms}
+            bwd_rec = {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": lib_bwd_ms}
+        del q, k, v, do, o, lse, dq, dk, dv, k_rot
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("training kernels vs plain: " + "; ".join(failures))
+    return {"max_abs_err": fwd_worst, **fwd_rec}, {"max_abs_err": bwd_worst, **bwd_rec}
+
+
 def build_unet_pair():
     """The default config at dim_h=128: seeded fp32 weights on the CPU and a
     bf16 copy on the GPU. final_conv is zero at init; it gets seeded weights
-    so the output depends on everything before it."""
+    so the output depends on everything before it. Returns (serving model,
+    CPU UNet, its GPU copy)."""
     from osufusion_tpu_torch.config import Config, ModelConfig
     from osufusion_tpu_torch.models import build_model
 
@@ -241,7 +402,23 @@ def check_osz(data: bytes, osu_texts: list[str], n_maps: int) -> list[int]:
     return hits
 
 
+def serving_weights(model):
+    """The UNet that the serving phases serve: seeded weights, random
+    everywhere, with the final conv drawn at SERVE_FINAL_SCALE of its lecun
+    scale, so the sampled signal depends on the whole denoiser, the CFG mix
+    and the kernels (``phase_sampler_check`` holds it to that). At the full
+    lecun scale an untrained denoiser saturates the DDIM trajectory to one
+    sign per channel, and the decoder takes no map with fewer than two
+    onsets."""
+    params = model.init_params(seed=0, device="cuda", dtype=torch.float32)
+    randomize_everywhere(params, seed=1)
+    with torch.no_grad():
+        params.final_conv.weight.mul_(SERVE_FINAL_SCALE)
+    return params.to(model.model_cfg.compute_dtype).eval()
+
+
 def phase_serve(model, params) -> int:
+    """Serve two requests; returns the kernel launches of both."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.serve import LENGTH_BUCKET, generate_beatmap
 
@@ -294,24 +471,230 @@ def phase_sampler_latency(model, params) -> None:
     _log(f"[sampler] 24576 frames, DDIM-50, CFG 2.0, B=1: {times[0]:.3f} s, {times[1]:.3f} s per map")
 
 
+def phase_sampler_check(model, params, workdir: Path) -> None:
+    """The sampler's output is the denoiser's: on a 60 s song (8192 padded
+    frames, DDIM-50, CFG 2.0) the signal sampled through the kernels agrees
+    with the one sampled through the plain attention on the GPU, and both lie
+    far from the trajectory of a denoiser that predicts zero."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.audio import load_audio
+    from osufusion_tpu_torch.nn import blocks
+    from osufusion_tpu_torch.nn.unet import A_PAD_VALUE
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.serve import LENGTH_BUCKET
+
+    wav = workdir / "song_check.wav"
+    synth_song(wav, 60.0, seed=ord("b"))
+    spec = load_audio(wav, device="cuda")
+    a = F.pad(spec, (0, LENGTH_BUCKET - spec.shape[-1]), value=A_PAD_VALUE)[None]
+    c = torch.zeros((1, 5), device="cuda")
+    x0 = torch.randn((1, 6, LENGTH_BUCKET), generator=torch.Generator().manual_seed(0)).cuda()
+    plain, zero = copy.deepcopy(params), copy.deepcopy(params)
+    for module in plain.modules():
+        if isinstance(module, blocks.Attention):
+            module.sdpa = fa.flash_attention_reference
+    with torch.no_grad():
+        zero.final_conv.weight.zero_()
+        zero.final_conv.bias.zero_()
+    before = fa.flash_fwd.launches
+    signals = [model.sample(p, a, c, x=x0, cond_scale=2.0, sampling_timesteps=50) for p in (params, plain, zero)]
+    launches = fa.flash_fwd.launches - before
+    through_kernels, through_plain, zero_eps = signals
+    rel_plain, rel_zero = _rel(through_kernels, through_plain), _rel(through_kernels, zero_eps)
+    flipped = ((through_kernels > 0) != (zero_eps > 0)).float().mean().item()
+    _log(f"[sampler check] {LENGTH_BUCKET} frames, DDIM-50, CFG 2.0: signal through the kernels vs through the plain attention "
+         f"rel L2 {rel_plain:.3e} (bound {SAMPLER_REL_TOL}); vs a zero-predicting denoiser {rel_zero:.3e} (at least "
+         f"{SAMPLER_MIN_EFFECT}), {flipped:.2%} of the signs differ; kernel launches {launches}")
+    if not all(torch.isfinite(x).all() for x in signals):
+        raise AssertionError("sampler check: non-finite signal")
+    if not (rel_plain < SAMPLER_REL_TOL and rel_zero > SAMPLER_MIN_EFFECT):
+        raise AssertionError(f"sampler check: kernels vs plain {rel_plain:.3e}, vs zero-predicting {rel_zero:.3e}")
+
+
+def randomize_everywhere(unet, seed: int) -> None:
+    """Make every parameter random: biases N(0, 0.1), norm scales 1 + N(0, 0.1),
+    a lecun-scaled final conv. A fresh model's final conv is zero, so every
+    gradient behind it would be zero too."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+            elif p.ndim == 1 and name.endswith("weight"):
+                p.copy_(1.0 + torch.randn(p.shape, generator=g) * 0.1)
+        w = unet.final_conv.weight
+        w.copy_(torch.randn(w.shape, generator=g) / w.shape[1] ** 0.5)
+
+
+def _flat_grads(unet, only=None) -> torch.Tensor:
+    return torch.cat([p.grad.float().flatten() for n, p in unet.named_parameters() if only is None or only(n)])
+
+
+def phase_grad_check() -> None:
+    """dim_h=512, B=2, T=4096: bf16 through the kernels vs fp32 through the
+    plain versions (under block remat, which changes no gradient and keeps the
+    fp32 logits of only one block alive), both on the GPU."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.nn import blocks
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    B, T = 2, 4096
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.uniform(-1, 1, (B, 5)).astype(np.float32)).cuda()
+    orig_len = torch.tensor([T, T - 700], device="cuda")
+    noise = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    t = torch.tensor([100, 700], device="cuda")
+    cond_mask = torch.tensor([True, False], device="cuda")
+
+    model32 = build_model(ModelConfig(dim_h=512, dtype="float32", remat=True, remat_mode="block"), DiffusionConfig())
+    ref = model32.init_params(seed=5, device="cpu")
+    randomize_everywhere(ref, seed=6)
+    model16 = build_model(ModelConfig(dim_h=512), DiffusionConfig())
+    net = model16.init_params(seed=0, device="cpu")
+    net.load_state_dict(ref.state_dict())
+    ref, net = ref.cuda().train(), net.cuda().train()
+
+    def run(model, params):
+        params.zero_grad(set_to_none=True)
+        loss = model.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    loss16 = run(model16, net)
+    launches = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
+    g16 = _flat_grads(net)
+    is_attn = lambda n: ".attn.to_" in n
+    g16_attn = _flat_grads(net, is_attn)
+    # the plain versions on the GPU: every attention module is handed the plain function
+    for module in (*net.modules(), *ref.modules()):
+        if isinstance(module, blocks.Attention):
+            module.sdpa = fa.flash_attention_reference
+    loss16_plain = run(model16, net)
+    g16_plain = _flat_grads(net)
+    loss32 = run(model32, ref)
+    g32, g32_attn = _flat_grads(ref), _flat_grads(ref, is_attn)
+    rel_all = ((g16 - g32).norm() / g32.norm()).item()
+    rel_attn = ((g16_attn - g32_attn).norm() / g32_attn.norm()).item()
+    rel_plain = ((g16_plain - g32).norm() / g32.norm()).item()
+    rel_loss = abs(loss16 - loss32) / abs(loss32)
+    _log(f"[grad check] dim_h=512 B={B} T={T}: loss bf16/kernels {loss16:.6f}, bf16/plain {loss16_plain:.6f}, fp32/plain {loss32:.6f} "
+         f"(rel {rel_loss:.3e}, bound {LOSS_REL_TOL}); gradient rel L2 vs fp32/plain: bf16/kernels {rel_all:.3e}, attention "
+         f"projections alone {rel_attn:.3e} (bound {GRAD_REL_TOL}); bf16/plain {rel_plain:.3e} (bf16's own share); "
+         f"|grad| {g32.norm().item():.3e}; launches forward {launches[0]}, backward {launches[1]}")
+    if not (np.isfinite(loss16) and torch.isfinite(g16).all()):
+        raise AssertionError("gradient check: non-finite loss or gradient through the kernels")
+    if not (rel_loss < LOSS_REL_TOL and rel_all < GRAD_REL_TOL and rel_attn < GRAD_REL_TOL):
+        raise AssertionError(f"gradient check: loss rel {rel_loss:.3e}, gradient rel L2 {rel_all:.3e}, attention {rel_attn:.3e}")
+    sites = 3 * sum(net.cfg.num_layer_blocks) + net.cfg.num_middle_transformers
+    if launches != (sites, sites):
+        raise AssertionError(f"gradient check launched forward/backward {launches}, expected {sites} each")
+
+
+def phase_train(workdir: Path) -> tuple[int, int]:
+    """The trainer at the production cell, 6 steps per remat mode with a save
+    and a resume half way; returns (forward-with-LSE, backward) launches."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.trainer import train
+    from osufusion_tpu_torch.utils.serialization import load_safetensors
+
+    steps, half = 6, 3
+    totals = [0, 0]
+    for remat in ("none", "save-attn"):
+        project = workdir / f"train_{remat}"
+        cfg = Config(
+            model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode="save-attn"),
+            # dummy samples are 1024..4096 frames at this segment length, padded to 4096
+            train=TrainConfig(project_dir=str(project), dataset_mode="dummy", segment_length=2048, batch_size=4,
+                              full_bf16=True, total_steps=half, warmup_steps=2, save_every=half, num_workers=2, seed=0),
+        )
+        sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+        history = train(cfg)
+        history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=steps, resume="latest")))
+        torch.cuda.synchronize()
+        fwd, bwd, plain_fwd = fa.flash_fwd.lse_launches, fa.flash_bwd.launches, fa.flash_fwd.launches - fa.flash_fwd.lse_launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        totals[0] += fwd
+        totals[1] += bwd
+        seconds = sorted(h["seconds"] for h in history[2:])
+        median = statistics.median(seconds)
+        _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps (save and resume at {half}): "
+             f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
+             f"{median:.4f} s/step (median of steps 3..{steps}: {[round(x, 4) for x in seconds]}); peak memory {peak:.2f} GiB; "
+             f"launches per step: forward with LSE {fwd / steps:g}, backward {bwd / steps:g} (sites {sites})")
+        if [h["step"] for h in history] != list(range(1, steps + 1)):
+            raise AssertionError(f"train {remat}: steps {[h['step'] for h in history]}, expected 1..{steps} across the resume")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+            raise AssertionError(f"train {remat}: non-finite loss or grad_norm")
+        if not all(h["grad_norm"] > 0 for h in history[1:]):
+            raise AssertionError(f"train {remat}: grad_norm not positive after step 1")
+        if (fwd, bwd, plain_fwd) != (sites * steps, sites * steps, 0):
+            raise AssertionError(f"train {remat}: launches forward-with-LSE {fwd}, backward {bwd}, forward without LSE "
+                                 f"{plain_fwd}; expected {sites * steps}, {sites * steps}, 0")
+        trained = load_safetensors(project / "model.safetensors")
+        if not np.abs(trained["params/final_conv/kernel"]).max() > 0:
+            raise AssertionError(f"train {remat}: the final conv did not move from zero")
+    return totals[0], totals[1]
+
+
+def phase_serve_trained(workdir: Path) -> None:
+    """Close the loop: the checkpoint the trainer wrote serves a 60 s song."""
+    from osufusion_tpu_torch.serve import generate_beatmap, load_model
+
+    model, params = load_model(workdir / "train_save-attn" / "model.safetensors")
+    wav = workdir / "song_c.wav"
+    synth_song(wav, 60.0, seed=ord("c"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, osu_texts = generate_beatmap(model, params, wav, title="smoke c", sampling_timesteps=50, cond_scale=2.0, seed=0)
+    latency = time.perf_counter() - t0
+    hits = check_osz(data, osu_texts, 1)
+    _log(f"[serve trained] dim_h={params.cfg.dim_h} checkpoint from the trainer, 60 s song, DDIM-50, CFG 2.0: "
+         f"{latency:.3f} s end to end; {len(data)} byte .osz; hit objects {hits}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
     name, _ = phase_device()
     kernel = phase_kernel()
+    fwd_lse, bwd = phase_train_kernels()
     model, cpu, gpu = build_unet_pair()
     phase_unet(cpu, gpu)
     del cpu
-    launches = phase_serve(model, gpu)
-    phase_sampler_latency(model, gpu)
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "osufusion_tpu/ops/pallas_attention.py:208", "launches": launches,
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
-    }]}), flush=True)
+    del gpu
+    served = serving_weights(model)
+    launches = phase_serve(model, served)
+    phase_sampler_latency(model, served)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sampler_check(model, served, Path(tmp))
+    del model, served
+    torch.cuda.empty_cache()
+    phase_grad_check()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lse_launches, bwd_launches = phase_train(Path(tmp))
+        phase_serve_trained(Path(tmp))
+    if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
+        raise AssertionError("the port imported jax or the JAX package")
+    fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
+                  "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
+        {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
+        {"name": "flash_bwd", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": bwd_launches, **bwd},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -4,6 +4,11 @@
 // forward-only serving form. Semantics: key s is attended by query t iff
 // |t - s| <= window / 2 (window < 0: every key). q arrives raw and is rotated
 // here; k arrives already rotated; the output is softmax(q k^T * scale) v.
+// With a non-null lse pointer (the training form) the kernel also writes, per
+// (b, t, h) row, the base-2 log-sum-exp of its own logits q k^T * scale *
+// log2(e), fp32, flat (B, T*H) in t-major order: what the backward kernel
+// (flash_bwd.cu) recomputes the probabilities from. Serving passes null and
+// pays nothing for it.
 //
 // Layout and work split:
 //  * q and o are (B, T, H, D) contiguous, so for one batch element the
@@ -24,9 +29,13 @@
 //    the window (or past the end of the sequence) are masked.
 //
 // Bound: compute (see ops/flash_attention.py). Shared memory rows are padded to
-// 72 bf16 (144 bytes) so fragment loads and ldmatrix hit distinct banks.
+// 72 bf16 (144 bytes) so fragment loads and ldmatrix hit distinct banks. The
+// launch bounds ask for two blocks per SM (55 KB of shared memory and at most
+// 128 registers a thread each): one block's softmax overlaps the other's
+// products, which is worth more than the few spilled bytes it costs.
 //
-// C ABI (loaded with ctypes): flash_fwd_bf16 returns cudaGetLastError().
+// C ABI (loaded with ctypes): flash_fwd_bf16 returns cudaGetLastError(); lse
+// may be null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,11 +87,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)  // 128 registers a thread, so two blocks share an SM
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ cos_t,
-                 const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, int T, int S, int H,
-                 int window, float scale) {
+                 const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int T, int S, int H, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
   __nv_bfloat16* Ks = Qs + BM * LDS;                                // [2][BN][LDS]
@@ -295,18 +304,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     if (row_b < rows)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * D + col) = pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
   }
+  if (lse != nullptr && tg == 0) {  // the 4 threads of a group hold the same row statistics
+    float* lb = lse + (size_t)b * rows;
+    if (row_a < rows) lb[row_a] = m[0] + log2f(l[0]);
+    if (row_b < rows) lb[row_b] = m[1] + log2f(l[1]);
+  }
 }
 
 }  // namespace
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
-                              void* o, int B, int T, int S, int H, int window, float scale, void* stream) {
+                              void* o, void* lse, int B, int T, int S, int H, int window, float scale,
+                              void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T * H + BM - 1) / BM, B);
   flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<__nv_bfloat16*>(o), T, S, H, window, scale);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, window, scale);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,21 @@
 
 The surface mirrors the JAX package: channel-first (B, C, N) tensors at the
 API edge, and methods that take the denoiser as ``params``. Here ``params`` is
-the ``UNet`` module itself, which holds its weights, on its device and in its
-compute dtype (``init_params``, or ``serve.load_model`` for a checkpoint).
+the ``UNet`` module itself, which holds its weights on its device
+(``init_params``, or ``serve.load_model`` for a checkpoint).
+
+Precision: the module computes in the dtype of its parameters. Serving and
+``full_bf16`` training hold the parameters in the config's compute dtype.
+Mixed-precision training holds them in float32 and runs the forward under
+``torch.autocast`` to the compute dtype (``compute_context``): convolutions
+and matrix products then take bf16 operands, norms keep float32 statistics,
+and the gradients arrive in float32.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import torch
 
@@ -23,6 +33,19 @@ def to_channel_first(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, orig_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """MSE over valid frames only: the squared error summed over frames
+    t < orig_len, over (valid frames x C), the denominator at least 1."""
+    se = (pred - target) ** 2  # (B, T, C)
+    if orig_len is None:
+        return se.mean()
+    _, T, C = se.shape
+    mask = (torch.arange(T, device=se.device)[None, :] < orig_len[:, None]).to(se.dtype)  # (B, T)
+    num = (se * mask[..., None]).sum()
+    den = mask.sum() * C
+    return num / den.clamp(min=1.0)
+
+
 class GenerativeModel:
     """Base: owns the configuration and builds the denoiser (UNet only)."""
 
@@ -36,13 +59,27 @@ class GenerativeModel:
         self.model_cfg = model_cfg
         self.cfg = diffusion_cfg
 
-    def init_params(self, seed: int = 0, device=None) -> UNet:
-        """A UNet with weights drawn from ``seed`` (the global RNG state is
-        left as it was), on ``device`` in the config's compute dtype."""
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+    def init_params(self, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None) -> UNet:
+        """A UNet with weights drawn as the JAX package's ``init`` draws them
+        (``UNet.reset_parameters``) from a generator seeded with ``seed``; the
+        global RNG state is left as it was. The module is built without
+        storage and drawn once, in float32 on ``device`` with that device's
+        generator (so a seed gives one set of weights per device type), then
+        cast to ``dtype`` or without it the config's compute dtype."""
+        device = torch.device(device or "cpu")
+        with torch.device("meta"):
             unet = UNet(self.model_cfg)
-        return unet.to(device=device, dtype=self.model_cfg.compute_dtype).eval()
+        unet = unet.to_empty(device=device)
+        unet.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+        return unet.to(dtype=dtype or self.model_cfg.compute_dtype).eval()
+
+    def compute_context(self, params: UNet):
+        """Autocast to the config's compute dtype when the parameters are held
+        in a wider one (mixed precision); otherwise nothing."""
+        compute = self.model_cfg.compute_dtype
+        if params.dtype == compute or compute == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device_type=params.null_cond.device.type, dtype=compute)
 
     def encode_audio(self, params: UNet, a_cf: torch.Tensor) -> torch.Tensor:
         """(B, 96, N) -> audio features (channel-last), reused across sampling steps."""

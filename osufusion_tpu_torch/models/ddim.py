@@ -26,6 +26,13 @@ def ddim_timesteps(train_timesteps: int, sampling_timesteps: int) -> np.ndarray:
     return ts[::-1].copy()
 
 
+def add_noise(x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor, acp: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0): sqrt(a_t) x + sqrt(1 - a_t) noise. t: (B,) integer;
+    ``acp`` lives on x's device."""
+    a_t = acp[t].reshape(-1, *([1] * (x.ndim - 1)))
+    return torch.sqrt(a_t) * x + torch.sqrt(1.0 - a_t) * noise
+
+
 def ddim_step(
     x: torch.Tensor,
     eps: torch.Tensor,

@@ -1,6 +1,8 @@
-"""DDIM diffusion model (``osufusion_tpu/models/diffusion.py``): the sampler
-encodes the audio once, runs CFG as one doubled batch, and steps DDIM in a
-Python loop under ``torch.inference_mode()``."""
+"""DDIM diffusion model (``osufusion_tpu/models/diffusion.py``): the
+epsilon-prediction loss (t ~ U{0..train_timesteps-1}, conditioning dropped
+with ``cond_drop_prob``, MSE against the noise over valid frames), and the
+sampler, which encodes the audio once, runs CFG as one doubled batch, and
+steps DDIM in a Python loop under ``torch.inference_mode()``."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from typing import Optional
 import torch
 
 from osufusion_tpu_torch.models import ddim
-from osufusion_tpu_torch.models.base import GenerativeModel, to_channel_first, to_channel_last
+from osufusion_tpu_torch.models.base import GenerativeModel, masked_mse, to_channel_first, to_channel_last
 from osufusion_tpu_torch.nn.unet import UNet
 
 
@@ -18,8 +20,33 @@ class DiffusionModel(GenerativeModel):
         super().__init__(model_cfg, diffusion_cfg)
         self.acp = ddim.alphas_cumprod(diffusion_cfg.train_timesteps, diffusion_cfg.beta_start, diffusion_cfg.beta_end)
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("the diffusion loss is not ported yet (ROADMAP.md, queue 1: training)")
+    def loss(
+        self,
+        params: UNet,
+        generator: torch.Generator,  # on x's device
+        x: torch.Tensor,  # (B, 6, N) channel-first
+        a: torch.Tensor,  # (B, 96, N)
+        c: torch.Tensor,  # (B, 5)
+        orig_len: Optional[torch.Tensor] = None,  # (B,) valid frames
+    ) -> torch.Tensor:
+        """The training loss (a float32 scalar) with noise, timesteps and the
+        conditioning mask drawn from ``generator``."""
+        B = x.shape[0]
+        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        t = torch.randint(0, self.cfg.train_timesteps, (B,), generator=generator, device=x.device)
+        cond_mask = torch.rand((B,), generator=generator, device=x.device) < 1.0 - self.cfg.cond_drop_prob
+        return self.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
+
+    def loss_from_draws(self, params: UNet, x, a, c, orig_len, noise, t, cond_mask) -> torch.Tensor:
+        """``loss`` with its random draws handed in: noise (B, 6, N)
+        channel-first like x, t (B,) integer, cond_mask (B,) bool."""
+        if x.shape[-1] != a.shape[-1]:
+            raise ValueError(f"x and a must have the same sequence length; got {x.shape[-1]} and {a.shape[-1]}")
+        x, a, noise = to_channel_last(x), to_channel_last(a), to_channel_last(noise)
+        x_noisy = ddim.add_noise(x, noise, t, self.acp.to(x.device))
+        with self.compute_context(params):
+            pred = params(x_noisy, a, t, c, cond_mask)
+        return masked_mse(pred, noise, orig_len)
 
     @torch.inference_mode()
     def sample(

@@ -17,9 +17,21 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from osufusion_tpu_torch.ops.attention import sdpa
 from osufusion_tpu_torch.ops.rope import rope_tables
+
+
+def remat(module: nn.Module, *args):
+    """Call ``module`` under rematerialisation (``jax.checkpoint`` in the JAX
+    package): its activations are dropped after the forward and recomputed in
+    the backward. Non-reentrant, so an argument may be None; no RNG state is
+    kept, because no module draws random numbers. Without a gradient it is a
+    plain call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -217,13 +229,16 @@ class ResidualBlock(nn.Module):
 class Attention(nn.Module):
     """Pre-LN MQA/GQA self-attention with length-rescaled RoPE. The residual
     adds the attention output to the NORMALIZED input, as the JAX block does.
-    The window (= context_len) engages only when T > context_len."""
+    The window (= context_len) engages only when T > context_len.
+    ``self.sdpa`` is the attention function, ``ops.attention.sdpa``; a check
+    that wants the plain version on the GPU sets it on the module."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 16, kv_heads: int = 1,
                  context_len: int = 4096, local: bool = True) -> None:
         super().__init__()
         self.dim_head, self.heads, self.kv_heads = dim_head, heads, kv_heads
         self.context_len, self.local = context_len, local
+        self.sdpa = sdpa
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
         self.to_q = nn.Linear(dim, dim_head * heads, bias=False)
         self.to_kv = nn.Linear(dim, dim_head * kv_heads * 2, bias=False)
@@ -238,7 +253,7 @@ class Attention(nn.Module):
         v = v.reshape(B, T, self.kv_heads, self.dim_head)
         rope = rope_tables(T, self.dim_head, scale_base=self.context_len, device=x.device)
         window = self.context_len if (self.local and T > self.context_len) else None
-        out = sdpa(q, k, v, window, rope)
+        out = self.sdpa(q, k, v, window, rope)
         return x + self.to_out(out.reshape(B, T, self.heads * self.dim_head))
 
 
@@ -255,14 +270,18 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Attention (inner residual), then the FF residual."""
+    """Attention (inner residual), then the FF residual. ``remat_ff``
+    rematerialises the feed-forward alone; the attention module stays outside,
+    so its kernel's saved output and LSE serve the backward."""
 
     def __init__(self, dim: int, ff_mult: int = 2, attn_dim_head: int = 64, attn_heads: int = 16,
-                 attn_kv_heads: int = 1, attn_context_len: int = 4096, attn_local: bool = True) -> None:
+                 attn_kv_heads: int = 1, attn_context_len: int = 4096, attn_local: bool = True,
+                 remat_ff: bool = False) -> None:
         super().__init__()
+        self.remat_ff = remat_ff
         self.attn = Attention(dim, attn_dim_head, attn_heads, attn_kv_heads, attn_context_len, attn_local)
         self.ff = FeedForward(dim, ff_mult)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.attn(x)
-        return self.ff(x) + x
+        return (remat(self.ff, x) if self.remat_ff else self.ff(x)) + x

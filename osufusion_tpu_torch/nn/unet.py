@@ -5,8 +5,16 @@ time and difficulty, channel-last (B, T, C) at its public calls.
 ``encode_audio`` is a separate call, so a sampler encodes the spectrogram once
 per generation. Conditioning is an explicit boolean ``cond_mask``: rows where
 it is False take the learned ``null_cond`` (CFG's unconditional branch).
-Serving runs no rematerialisation, so the JAX package's remat plans have no
-counterpart here.
+
+Rematerialisation follows the JAX package's plans (``cfg.remat``,
+``cfg.remat_mode``) through ``torch.utils.checkpoint``: ``block`` wraps each
+UNet block whole, so the backward runs the attention forward kernel again;
+``save-attn`` wraps the resnets and feed-forwards one by one and leaves the
+attention modules outside, so the kernel's saved output and LSE serve the
+backward; ``ff`` and ``resnet`` wrap only those. One mode holds for every
+level and for the audio stack: the plans that need a checkpoint policy
+(``save-attn-out``, ``resnet-dots``), and with them the per-level ``mixed``
+plan and the audio stack's override, raise until they are ported.
 """
 
 from __future__ import annotations
@@ -22,33 +30,73 @@ from osufusion_tpu_torch.nn.blocks import (
     CondEmbedding,
     CrossEmbedLayer,
     Downsample,
+    GroupNorm1,
     ParallelConvOut,
     ResidualBlock,
     TimeEmbedding,
     TransformerBlock,
     Upsample,
     conv_cl,
+    remat,
 )
 
 X_PAD_VALUE = -1.0
 A_PAD_VALUE = -23.0
+# standard deviation of a unit normal truncated at +/- 2 (the constant flax's
+# variance_scaling divides by)
+TRUNCATED_STD = 0.87962566103423978
+
+
+REMAT_MODES = ("none", "block", "save-attn", "ff", "resnet")
+
+
+def remat_mode(cfg: ModelConfig) -> str:
+    """The one remat mode of the whole model. The per-level plan (``mixed``
+    with ``cfg.remat_level_modes``) and the audio stack's override
+    (``cfg.audio_remat_mode``) raise with the policy-based modes they exist
+    for, until those are ported."""
+    if not cfg.remat:
+        return "none"
+    if cfg.remat_mode in ("save-attn-out", "resnet-dots", "mixed") or cfg.audio_remat_mode:
+        what = f"audio_remat_mode {cfg.audio_remat_mode!r}" if cfg.audio_remat_mode else f"remat mode {cfg.remat_mode!r}"
+        raise NotImplementedError(
+            f"{what} belongs to the per-level, policy-based remat plans, which are not ported yet "
+            "(ROADMAP.md, queue 1, item 10a: save-attn-out / mixed with the windowed backward kernels)"
+        )
+    if cfg.remat_mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode: {cfg.remat_mode!r}")
+    return cfg.remat_mode
+
+
+def _remat_plan(cfg: ModelConfig) -> Tuple[bool, str]:
+    """(wrap the whole block, inner mode): inner is "none", "inner" (resnets
+    and FFs, save-attn), "ff" or "resnet"."""
+    mode = remat_mode(cfg)
+    if mode == "block":
+        return True, "none"
+    return False, {"save-attn": "inner"}.get(mode, mode)
 
 
 class UNetBlock(nn.Module):
     """init resnet -> N x (resnet -> transformer) -> down/up sampler.
     ``dim_x`` is the width of the incoming x (an up block's x arrives
-    concatenated with its skip). Returns (sampled_x, pre_sample_x)."""
+    concatenated with its skip). Returns (sampled_x, pre_sample_x).
+    ``remat_plan`` is ``_remat_plan``'s pair."""
 
     def __init__(self, dim_x: int, dim_in: int, dim_out: int, dim_cond: Optional[int], layer_idx: int,
-                 num_layers: int, num_blocks: int, down_block: bool, cfg: ModelConfig, context_len: int) -> None:
+                 num_layers: int, num_blocks: int, down_block: bool, cfg: ModelConfig, context_len: int,
+                 remat_plan: Tuple[bool, str] = (False, "none")) -> None:
         super().__init__()
         self.num_blocks = num_blocks
+        self.remat_block, inner = remat_plan
+        self.remat_resnets = inner in ("inner", "resnet")
         self.init_resnet = ResidualBlock(dim_x, dim_in, dim_cond)
         for i in range(num_blocks):
             self.add_module(f"resnet_{i}", ResidualBlock(dim_in, dim_in, dim_cond))
             self.add_module(f"transformer_{i}", TransformerBlock(
                 dim_in, attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
                 attn_kv_heads=cfg.attn_kv_heads, attn_context_len=context_len, attn_local=cfg.attn_local,
+                remat_ff=inner in ("inner", "ff"),
             ))
         if layer_idx < num_layers - 1:
             self.sampler = (Downsample if down_block else Upsample)(dim_in, dim_out)
@@ -57,9 +105,17 @@ class UNetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 c: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.init_resnet(x, t, c)
+        if self.remat_block:
+            return remat(self._forward, x, t, c)
+        return self._forward(x, t, c)
+
+    def _resnet(self, block: ResidualBlock, x, t, c) -> torch.Tensor:
+        return remat(block, x, t, c) if self.remat_resnets else block(x, t, c)
+
+    def _forward(self, x, t, c) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self._resnet(self.init_resnet, x, t, c)
         for i in range(self.num_blocks):
-            x = getattr(self, f"resnet_{i}")(x, t, c)
+            x = self._resnet(getattr(self, f"resnet_{i}"), x, t, c)
             x = getattr(self, f"transformer_{i}")(x)
         return self.sampler(x), x
 
@@ -80,7 +136,7 @@ class AudioEncoder(nn.Module):
         for i in range(n):
             self.add_module(f"layer_{i}", UNetBlock(
                 dims_h[i], dims_h[i], dims_h[i + 1], None, i, n, cfg.num_layer_blocks[i], True, cfg,
-                self.AUDIO_ATTN_CONTEXT_LEN // (2**i),
+                self.AUDIO_ATTN_CONTEXT_LEN // (2**i), _remat_plan(cfg),
             ))
 
     def forward(self, a: torch.Tensor) -> torch.Tensor:
@@ -109,21 +165,25 @@ class UNet(nn.Module):
         self.audio_encoder = AudioEncoder(cfg)
         self.time_mlp = TimeEmbedding(dim_emb)
         self.cond_mlp = CondEmbedding(cfg.dim_in_c, dim_emb)
-        self.null_cond = nn.Parameter(torch.randn(dim_emb))
+        self.null_cond = nn.Parameter(torch.zeros(dim_emb))  # drawn by reset_parameters
 
         dim_cond = 2 * dim_emb
         for i in range(n):
             self.add_module(f"down_{i}", UNetBlock(
                 dims_h[i], dims_h[i], dims_h[i + 1], dim_cond, i, n, cfg.num_layer_blocks[i], True, cfg,
-                cfg.attn_context_len // (2**i),
+                cfg.attn_context_len // (2**i), _remat_plan(cfg),
             ))
         top = dims_h[-1]
         bottleneck_ctx = cfg.attn_context_len // (2 ** (n - 1))
         self.middle_resnet1 = ResidualBlock(2 * top, top, dim_cond)  # x concat audio features
+        # the middle follows the inner plan: its resnets are never
+        # rematerialised, its feed-forwards under save-attn and ff
+        mid_inner = _remat_plan(cfg)[1]
         for i in range(cfg.num_middle_transformers):
             self.add_module(f"middle_transformer_{i}", TransformerBlock(
                 top, attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
                 attn_kv_heads=cfg.attn_kv_heads, attn_context_len=bottleneck_ctx, attn_local=cfg.attn_local,
+                remat_ff=mid_inner in ("inner", "ff"),
             ))
         self.middle_resnet2 = ResidualBlock(top, top, dim_cond)
 
@@ -132,13 +192,32 @@ class UNet(nn.Module):
             dim_in, dim_out = dims_h[n - i], dims_h[n - 1 - i]
             self.add_module(f"up_{i}", UNetBlock(
                 dim_in + dim_out, dim_in, dim_out, dim_cond, i, n, blocks_rev[i], False, cfg,
-                cfg.attn_context_len // (2 ** (n - i - 1)),
+                cfg.attn_context_len // (2 ** (n - i - 1)), _remat_plan(cfg),
             ))
 
         self.final_resnet = ResidualBlock(2 * cfg.dim_h, cfg.dim_h, dim_cond)
         self.final_conv = nn.Conv1d(cfg.dim_h, cfg.dim_in_x, 1)
-        nn.init.zeros_(self.final_conv.weight)
-        nn.init.zeros_(self.final_conv.bias)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw every parameter as the JAX package's ``init`` does: conv and
+        dense kernels from flax's ``lecun_normal`` (a normal truncated at two
+        standard deviations and rescaled to variance 1 / fan_in, fan_in =
+        kernel size x input channels), biases zero, norms at (1, 0),
+        ``null_cond`` from N(0, 1), the final conv zero."""
+        for module in self.modules():
+            if isinstance(module, (nn.Conv1d, nn.Linear)):
+                fan_in = module.weight[0].numel()
+                std = fan_in**-0.5 / TRUNCATED_STD
+                nn.init.trunc_normal_(module.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, (nn.LayerNorm, GroupNorm1)):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+        self.null_cond.normal_(generator=generator)
+        self.final_conv.weight.zero_()
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,8 +1,9 @@
 """Attention dispatch and the plain grouped-query attention
 (``osufusion_tpu/ops/attention.py``).
 
-``sdpa`` sends a CUDA tensor to the hand-written flash-forward kernel and a
-CPU tensor to the plain version; there is no other branch. ``gqa_attention``
+``sdpa`` sends a CUDA tensor to the hand-written flash kernels (through their
+``torch.autograd.Function`` when it needs a gradient) and a CPU tensor to the
+plain version with native autograd; there is no other branch. ``gqa_attention``
 is that plain version's math: KV heads stay un-repeated, logits and softmax
 are float32, and queries are taken in chunks so a full-song sequence never
 materialises a (B, H, T, S) logits tensor.

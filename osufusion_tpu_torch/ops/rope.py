@@ -33,3 +33,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     return x * cos + rotate_half(x) * sin
+
+
+def unapply_rope(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``apply_rope``: a gradient in the rotated frame back
+    into the raw frame, ``g cos - rotate_half(g sin)``."""
+    if g.ndim == 4:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    cos = cos.to(g.dtype)
+    sin = sin.to(g.dtype)
+    return g * cos - rotate_half(g * sin)

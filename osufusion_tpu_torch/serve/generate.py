@@ -2,8 +2,8 @@
 (``osufusion_tpu/serve/generate.py``).
 
 The spectrogram, the sampler and the UNet run on the model's device; the
-decode to ``.osu`` text runs on the host with the JAX package's framework-free
-codec. Initial noise comes from a CPU ``torch.Generator`` seeded with
+decode to ``.osu`` text runs on the host with this package's copy of the
+codec (``codec/decode.py``). Initial noise comes from a CPU ``torch.Generator`` seeded with
 ``seed``, so a seed gives the same noise on every device.
 """
 
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from osufusion_tpu.codec.decode import Metadata, decode_beatmap
+from osufusion_tpu_torch.codec.decode import Metadata, decode_beatmap
 from osufusion_tpu_torch.audio import frame_times, load_audio, normalize_context
 from osufusion_tpu_torch.config import Config, ModelConfig
 from osufusion_tpu_torch.models import build_model

@@ -1,6 +1,7 @@
-"""Read a ``.safetensors`` file with numpy alone: an 8-byte little-endian
-header length, a JSON header of {name: {dtype, shape, data_offsets}}, then
-the raw little-endian buffers. bfloat16 tensors come back as float32."""
+"""Read and write a ``.safetensors`` file with numpy alone: an 8-byte
+little-endian header length, a JSON header of {name: {dtype, shape,
+data_offsets}}, then the raw little-endian buffers. bfloat16 tensors come
+back as float32."""
 
 from __future__ import annotations
 
@@ -47,3 +48,26 @@ def load_safetensors(path: Path) -> Dict[str, np.ndarray]:
             raise ValueError(f"{path}: tensor {name!r} holds {arr.size} values for shape {shape}")
         out[name] = arr.reshape(shape).copy()
     return out
+
+
+def save_safetensors(tensors: Dict[str, np.ndarray], path: Path) -> None:
+    """Write {name: array} as a safetensors file: names sorted, buffers
+    C-contiguous little-endian, the header padded with spaces to a multiple
+    of 8 bytes. Raises ValueError on a dtype the format table lacks."""
+    codes = {np.dtype(v): k for k, v in _DTYPES.items()}
+    header, buffers, offset = {}, [], 0
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        if arr.dtype not in codes:
+            raise ValueError(f"tensor {name!r} has unsupported dtype {arr.dtype}")
+        buf = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": codes[arr.dtype], "shape": list(arr.shape), "data_offsets": [offset, offset + len(buf)]}
+        buffers.append(buf)
+        offset += len(buf)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for buf in buffers:
+            f.write(buf)

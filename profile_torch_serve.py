@@ -1,6 +1,8 @@
-"""Where the time of the PyTorch port's serving path goes, on one NVIDIA GPU.
+"""Where the time of the PyTorch port's serving path, or of one training
+step, goes on one NVIDIA GPU.
 
     python3 profile_torch_serve.py [--groupnorm fused|torch]
+    python3 profile_torch_serve.py --train [--remat none|block|save-attn|ff|resnet] [--precision full-bf16|bf16]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -16,6 +18,12 @@ At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 ``--groupnorm torch`` swaps the port's ``GroupNorm1`` for
 ``nn.functional.group_norm`` with one group on (B, C, T), the form it
 replaced, so the two can be compared in one call.
+
+``--train`` profiles the production training cell instead (dim_h=512, default
+config, B=4, T=4096, seeded weights random everywhere, random batch): s/step
+by the host clock around synchronised steps, peak device memory, the
+attention kernels' launches per step, device time by kernel over one step
+(torch.profiler), and the device's idle share of that step.
 """
 
 from __future__ import annotations
@@ -51,8 +59,9 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_table(fn) -> None:
-    """Profile one call of fn; print device time by kernel name."""
+def kernel_table(fn, what: str = "one UNet call") -> float:
+    """Profile one call of fn; print device time by kernel name and return
+    the summed device time in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,27 +72,79 @@ def kernel_table(fn) -> None:
         host_ms = (time.perf_counter() - t0) * 1e3
     total_us, count = defaultdict(float), defaultdict(int)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels and copies only: an annotation range on the device's timeline
+        # (the optimizer's step) spans kernels that are counted already
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             total_us[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
     device_ms = sum(total_us.values()) / 1e3
-    print(f"[profile] one UNet call: {device_ms:.3f} ms of device kernels in {sum(count.values())} launches; "
+    print(f"[profile] {what}: {device_ms:.3f} ms of device kernels in {sum(count.values())} launches; "
           f"host {host_ms:.3f} ms (profiler on)")
     if not total_us:
         print("[profile] the profiler recorded no device time")
-        return
+        return device_ms
     for name, us in sorted(total_us.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / device_ms:5.1f} % {count[name]:5d}x  {name[:110]}")
+    return device_ms
+
+
+def profile_train(remat: str, precision: str) -> None:
+    """One training step at the production cell, through ``train/loop.py``."""
+    import dataclasses
+
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.train.loop import init_state, make_train_step
+
+    B, T = 4, 4096
+    cfg = Config(
+        model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode=remat if remat != "none" else "save-attn"),
+        train=TrainConfig(batch_size=B, full_bf16=precision == "full-bf16", lr=1e-5, warmup_steps=2, total_steps=100),
+    )
+    model = build_model(cfg.model, cfg.diffusion)
+    state = init_state(model, cfg, "cuda")
+    # the final conv is zero at init, which would zero every gradient behind it
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        w = state.params.final_conv.weight
+        w.copy_(torch.randn(w.shape, generator=g, device="cuda") / cfg.model.dim_h**0.5)
+    step = make_train_step(model, cfg)
+    rng = np.random.default_rng(0)
+    batch = (rng.standard_normal((B, 6, T)).astype(np.float32), rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32),
+             rng.uniform(-1, 1, (B, 5)).astype(np.float32), np.array([T, T - 500, T - 1000, T // 2], np.int32))
+    batch = tuple(torch.from_numpy(b).cuda() for b in batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[1]
+    print(f"[train] dim_h=512 B={B} T={T} {precision} remat={remat}: {step_s:.4f} s/step (median of {times}); "
+          f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, backward {fa.flash_bwd.launches // 3}")
+    device_ms = kernel_table(lambda: step(state, batch), "one training step")
+    print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
 
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--groupnorm", choices=["fused", "torch"], default="fused")
+    p.add_argument("--train", action="store_true", help="profile one training step instead of the serving path")
+    p.add_argument("--remat", choices=["none", "block", "save-attn", "ff", "resnet"], default="none")
+    p.add_argument("--precision", choices=["full-bf16", "bf16"], default="full-bf16")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
 
-    from osufusion_tpu.codec.decode import Metadata, decode_beatmap
+    from osufusion_tpu_torch.codec.decode import Metadata, decode_beatmap
     from osufusion_tpu_torch.audio import frame_times
     from osufusion_tpu_torch.audio.vqt import log_vqt
     from osufusion_tpu_torch.config import Config, ModelConfig
@@ -95,6 +156,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}")
+    if args.train:
+        profile_train(args.remat, args.precision)
+        return
 
     cfg = Config(model=ModelConfig(dim_h=128))
     model = build_model(cfg.model, cfg.diffusion)

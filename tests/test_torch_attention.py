@@ -14,6 +14,10 @@ from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import gqa_attention, sdpa
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
 
+# the sizes here are tiny, and the suite runs several workers at once: a few
+# threads each keep them from fighting over the cores
+torch.set_num_threads(2)
+
 # exact mode: both sides fp32 with fp32 softmax; only the summation order
 # differs (online exp2 softmax over KV blocks vs one softmax per row)
 EXACT_TOL = 2e-5

@@ -12,6 +12,10 @@ from osufusion_tpu.nn import blocks as jb
 from osufusion_tpu_torch.nn import blocks as tb
 from tests.torch_helpers import load_jax_params, random_variables
 
+# the sizes here are tiny, and the suite runs several workers at once: a few
+# threads each keep them from fighting over the cores
+torch.set_num_threads(2)
+
 # fp32 on both sides; the differences are summation order (conv as shifted
 # matmuls vs cuDNN/MKL, one-pass vs two-pass norm variance), ~1e-6 relative
 TOL = 1e-4

@@ -1,5 +1,6 @@
-"""The hand-written CUDA flash-forward kernel against its plain PyTorch version,
-at small shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
+"""The hand-written CUDA flash kernels (forward, forward with its LSE, fused
+backward, and the autograd Function that joins them) against their plain
+PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
-from osufusion_tpu_torch.ops.rope import rope_tables
+from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 
 # bf16 output of a softmax-weighted mean of N(0, 1) values: one bf16 rounding
 # of o (~2^-9 relative) plus bf16 q/p operands inside the kernel
@@ -59,3 +60,80 @@ def test_flash_fwd_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(q, torch.cat([k, k], dim=2), torch.cat([v, v], dim=2), None, rope)
     with pytest.raises(ValueError):
         fa.flash_fwd(q, k[:, :, 0], v[:, ::2, 0], *rope, -1, 0.125)
+
+
+# forward with LSE and fused backward against the fp32 plain versions on the
+# same bf16 inputs: p, ds, q and do enter the tensor cores in bf16 (2^-9
+# relative each), so every output carries a few 1e-3 relative L2; the LSE is a
+# sum of 64 such products of magnitude ~1. bf16 rules out gradcheck.
+REL_TOL = 1e-2
+LSE_TOL = 2e-2
+TRAIN_SHAPES = [(1, 100, 3), (2, 192, 5), (2, 512, 16), (4, 4096, 16)]
+
+
+def _train_inputs(B, T, H, device):
+    g = torch.Generator(device=device).manual_seed(T + H)
+    q, do = (torch.randn((B, T, H, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, T, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, do, rope_tables(T, 64, scale_base=float(T), device=device)
+
+
+def _rel(x, ref):
+    return ((x.float() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", TRAIN_SHAPES)
+def test_flash_fwd_with_lse_and_flash_bwd_match_plain(cuda, B, T, H):
+    q, k, v, do, (cos, sin) = _train_inputs(B, T, H, cuda)
+    k_rot = apply_rope(k.float(), cos, sin).to(torch.bfloat16)
+    launches = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
+    dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.lse_launches, fa.flash_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125))  # the LSE store changes nothing else
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+
+
+@pytest.mark.cuda
+def test_function_gradients_match_autograd_through_plain(cuda):
+    B, T, H = 2, 320, 16
+    q, k, v, do, rope = _train_inputs(B, T, H, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k[:, :, None], v[:, :, None])]
+    out = fa.flash_attention(*leaves, None, rope)
+    out.backward(do)
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    fa.flash_attention_reference(*ref_leaves, None, rope).backward(do.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
+        assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
+    # the Function hands out its LSE, and takes no gradient for it
+    o, lse = fa.FlashAttentionFunction.apply(leaves[0], k, v, *rope)
+    assert lse.shape == (B, T * H) and not lse.requires_grad and o.requires_grad
+
+
+@pytest.mark.cuda
+def test_windowed_site_under_a_gradient_raises_on_the_gpu(cuda):
+    q, k, v, _, _ = _train_inputs(1, 256, 4, cuda)
+    rope = rope_tables(256, 64, scale_base=64.0, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention(q.requires_grad_(True), k[:, :, None], v[:, :, None], 64, rope)
+    with torch.no_grad():  # without a gradient the windowed forward runs
+        assert fa.flash_attention(q, k[:, :, None], v[:, :, None], 64, rope).shape == q.shape
+
+
+@pytest.mark.cuda
+def test_flash_bwd_rejects_what_it_does_not_take(cuda):
+    q, k, v, do, (cos, sin) = _train_inputs(1, 128, 4, cuda)
+    lse = torch.zeros((1, 128 * 4), device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_bwd(q, k, v, q, lse, do.float(), cos, sin, 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_bwd(q, k, v, q, lse[:, :-1], do, cos, sin, 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_bwd(q, k, v, q, lse, do.transpose(1, 2).contiguous().transpose(1, 2), cos, sin, 0.125)

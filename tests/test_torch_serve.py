@@ -22,6 +22,10 @@ from osufusion_tpu_torch.serve import generate_beatmap, load_model
 from osufusion_tpu_torch.utils.serialization import load_safetensors
 from tests.torch_helpers import random_variables
 
+# the sizes here are tiny, and the suite runs several workers at once: a few
+# threads each keep them from fighting over the cores
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(dim_h=96, dim_h_mult=(1, 2), num_layer_blocks=(1, 1), num_middle_transformers=1,
             attn_heads=2, attn_context_len=64, dtype="float32")

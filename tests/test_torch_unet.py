@@ -20,6 +20,10 @@ from osufusion_tpu_torch.models import ddim
 from osufusion_tpu_torch.nn.unet import UNet
 from tests.torch_helpers import load_jax_params, random_variables
 
+# the sizes here are tiny, and the suite runs several workers at once: a few
+# threads each keep them from fighting over the cores
+torch.set_num_threads(2)
+
 TINY = dict(
     dim_h=96, dim_h_mult=(1, 2), num_layer_blocks=(1, 1), num_middle_transformers=1,
     attn_heads=2, attn_context_len=64, dtype="float32",
@@ -118,3 +122,52 @@ def test_unported_options_raise():
     model = build_model(ModelConfig(**TINY), DiffusionConfig())
     with pytest.raises(NotImplementedError):
         model.sample(None, torch.zeros(1, 96, 8), torch.zeros(1, 5), x=torch.zeros(1, 6, 8), method="dpmpp-2m")
+
+
+def test_init_params_draws_as_the_jax_package_does():
+    """Fresh parameters follow flax's initialisers: every conv and dense
+    kernel a truncated normal of variance 1 / fan_in (fan_in = kernel size x
+    input channels), biases zero, norms at (1, 0), ``null_cond`` ~ N(0, 1),
+    the final conv zero; seeded, and the global RNG is left alone."""
+    model = build_model(ModelConfig(**TINY), DiffusionConfig())
+    before = torch.random.get_rng_state()
+    params = model.init_params(seed=0, device="cpu")
+    assert torch.equal(before, torch.random.get_rng_state())
+    again, other = model.init_params(seed=0, device="cpu"), model.init_params(seed=1, device="cpu")
+    checked = 0
+    for (name, p), q, r in zip(params.named_parameters(), again.parameters(), other.parameters()):
+        assert torch.equal(p, q), name
+        if name.startswith("final_conv"):
+            assert not p.any(), name
+        elif name == "null_cond":
+            # 384 draws: the sample standard deviation is within 4 sigma = 15 % of 1
+            assert abs(p.std().item() - 1.0) < 0.15 and abs(p.mean().item()) < 0.25
+            assert not torch.equal(p, r)
+        elif p.ndim >= 2:
+            fan_in = p[0].numel()
+            limit = 2 * fan_in**-0.5 / 0.87962566103423978
+            assert p.abs().max().item() <= limit * (1 + 1e-6), name  # truncated at two sigma of the wider normal
+            if p.numel() >= 4096:  # enough draws for 5 %: the sample std of n draws scatters by ~0.6 / sqrt(n)
+                assert p.std().item() == pytest.approx(fan_in**-0.5, rel=0.05), name
+                checked += 1
+            assert not torch.equal(p, r), name
+        elif name.endswith("bias"):
+            assert not p.any(), name
+        else:  # LayerNorm / GroupNorm scale
+            assert (p == 1).all(), name
+    assert checked > 20
+    # the same statistic on the JAX package's own init, kernel by kernel
+    jmodel = jax_build_model(JModelConfig(**TINY), JDiffusionConfig())
+    from osufusion_tpu.utils.serialization import flatten_params
+    from osufusion_tpu_torch.utils.convert import jax_flat_from_state_dict
+
+    want = flatten_params(jmodel.init_params(jax.random.PRNGKey(0)))
+    got = jax_flat_from_state_dict(params.state_dict())
+    assert set(got) == set(want)
+    for name, value in want.items():
+        value = np.asarray(value)
+        assert got[name].shape == value.shape, name
+        if name.endswith("kernel") and value.size >= 4096 and "final_conv" not in name:
+            assert got[name].std() == pytest.approx(value.std(), rel=0.08), name
+        elif name.endswith(("bias", "scale")):
+            np.testing.assert_array_equal(got[name], value, err_msg=name)
