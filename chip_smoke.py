@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as it ends; any failure raises and the exit code is not 0:
+Phases, each printed as it ends (with the seconds since the start); any
+failure raises and the exit code is not 0:
 
 1. Device: name, power limit, versions; build the flash kernels from
    ``osufusion_tpu_torch/csrc`` with nvcc for sm_90a, all sources at once.
@@ -11,27 +12,41 @@ Phases, each printed as it ends; any failure raises and the exit code is not 0:
    against their bounds, a planted fault that the bound must catch,
    CUDA-event times, and at the level-0 shape rope +
    ``scaled_dot_product_attention`` under a dense band mask as a yardstick.
-3. Training kernels at the training path's four shapes (B=4, H=16, D=64,
-   global, T = 4096 ... 512): the forward with its LSE and the fused backward
-   (dq, dk, dv) vs their plain fp32 versions, a planted fault (an LSE off by
-   0.05) above the bound, CUDA-event times, and rope +
+3. Training kernels at the T=4096 training path's four shapes (B=4, H=16,
+   D=64, global, T = 4096 ... 512): the forward with its LSE and the fused
+   backward (dq, dk, dv) vs their plain fp32 versions, a planted fault (an LSE
+   off by 0.05) above the bound, CUDA-event times, and rope +
    ``scaled_dot_product_attention`` as a yardstick that the port never calls.
-4. The full-width UNet (dim_h=128, default config, seeded weights) forward at
+4. Windowed training kernels at the full-song path's four shapes (B=1, H=16,
+   D=64, (T, W) = (65536, 4096) ... (8192, 512)): the windowed forward with
+   its LSE and the split backward (``flash_bwd_dq``, ``flash_bwd_dkv``) vs
+   their plain fp32 versions, two planted faults (a window one key short, an
+   LSE off by 0.05) above the bounds, the gradients bit-identical across two
+   launches, CUDA-event times, and at the level-0 shape rope +
+   ``scaled_dot_product_attention`` under a dense band mask, forward and
+   backward, as the yardstick.
+5. The full-width UNet (dim_h=128, default config, seeded weights) forward at
    B=1, T=8192: bf16 on the GPU through the kernel vs fp32 on the CPU through
    the plain path.
-5. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
+6. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
    CFG 2.0; 60 s with two samples), each an ``.osz`` holding the returned
    ``.osu`` texts with hit objects, with the kernel launched once per
    attention site of the path; then the sampled signal through the kernels
    vs through the plain attention vs a denoiser that predicts zero.
-6. Gradient check at the training width (dim_h=512, weights random
-   everywhere, T=4096): loss and backward in bf16 through the kernels vs
-   float32 through the plain versions, both on the GPU.
-7. Training: ``osufusion_tpu_torch.trainer.train`` on the dummy dataset at
-   dim_h=512, B=4, T=4096, full bf16, 6 steps without rematerialisation and 6
+7. Gradient checks at the training width (dim_h=512, weights random
+   everywhere): loss and backward in bf16 through the kernels vs float32
+   through the plain versions, both on the GPU, at T=4096 (every site global)
+   and at T=16384 (every site windowed).
+8. Training: ``osufusion_tpu_torch.trainer.train`` on the dummy dataset at
+   dim_h=512, B=4, T=4096, full bf16, 4 steps without rematerialisation and 4
    under ``save-attn``, each with a save and a resume half way; launches per
    step counted; then the ``model.safetensors`` it wrote is loaded by
    ``serve.load_model`` and serves a 60 s song.
+9. Full-song training: the same trainer at dim_h=512, B=1, T=65536, full bf16,
+   4 steps under the ``mixed`` remat plan with a save and a resume half way,
+   then 2 steps each under ``save-attn-out``, ``block`` and no
+   rematerialisation: s/step, peak memory, and the launches per step that
+   each plan implies (every site windowed: none of the global backward).
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -86,6 +101,10 @@ BWD_REL_TOL = 1e-2
 BWD_ABS_TOL = 1e-2  # times the reference gradient's largest magnitude
 LSE_FAULT = 0.05
 TRAIN_B, TRAIN_SHAPES = 4, (4096, 2048, 1024, 512)
+# the full-song training path's sites, B=1: (T, window) per level. A window one
+# key short on each side drops 2 of a query's W+1 pairs, about sqrt(2 / (W+1))
+# of each gradient's relative L2 (2.2e-2 at W = 4096): above BWD_REL_TOL
+FULLSONG_SHAPES = ((65536, 4096), (32768, 2048), (16384, 1024), (8192, 512))
 # bf16 loss and gradients through the kernels vs fp32 through the plain
 # versions at dim_h=512: every layer rounds activations and gradients to bf16,
 # which compounds over ~100 layers each way
@@ -107,8 +126,11 @@ SR = 22050
 HIT_OBJECT = re.compile(r"^-?\d+(\.\d+)?,-?\d+(\.\d+)?,\d+(\.\d+)?,\d+,\d+")
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"{msg} [{time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
 def _cuda_ms(fn, n: int) -> float:
@@ -168,6 +190,7 @@ def phase_kernel() -> dict:
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops.attention import gqa_attention
     from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
+    from osufusion_tpu_torch.utils.flops import attention_flops
 
     B, H, D = 2, 16, 64
     worst, level0, failures = 0.0, None, []
@@ -195,8 +218,8 @@ def phase_kernel() -> dict:
         plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, window, rope), 3)
         kernel_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v3, *rope, -1 if window is None else window, D**-0.5), 20)
         plain_ms2 = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, window, rope), 3)
-        keys = T if window is None else window + 1
-        tflops = 4 * B * T * H * keys * D / (kernel_ms * 1e-3) / 1e12
+        flops = attention_flops("forward", B, T, H, D, window)
+        tflops = flops / (kernel_ms * 1e-3) / 1e12
         _log(f"[kernel] T={T} window={window}: rel L2 err {rel:.3e} (tol {REL_TOL}; planted fault {fault_rel:.3e}); "
              f"max abs err {err:.3e} (tol {ABS_TOL}); kernel {kernel_ms:.3f} ms ({tflops:.1f} TFLOP/s); "
              f"plain bf16 {plain_ms:.3f} / {plain_ms2:.3f} ms")
@@ -206,10 +229,8 @@ def phase_kernel() -> dict:
             failures.append(f"T={T} window={window}: planted fault {fault_rel:.3e} would pass REL_TOL {REL_TOL}")
         worst = max(worst, err)
         if level0 is None:
-            # every (query, key) pair inside the window, two products of 2*D each
             w2 = window // 2
-            pairs = sum(min(T - 1, t + w2) - max(0, t - w2) + 1 for t in range(T))
-            bound_ms, bound_by = _bound(4 * B * H * D * pairs, _attn_bytes(B, T, H, D, 2, 2, 0))
+            bound_ms, bound_by = _bound(flops, _attn_bytes(B, T, H, D, 2, 2, 0))
             # yardstick only: rope on q and k, then PyTorch's fused attention under a dense
             # (T, T) band mask, which visits every tile, the masked ones too
             idx = torch.arange(T, device="cuda", dtype=torch.int32)
@@ -241,6 +262,7 @@ def phase_train_kernels() -> tuple[dict, dict]:
 
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
+    from osufusion_tpu_torch.utils.flops import attention_flops
 
     B, H, D = TRAIN_B, 16, 64
     scale = D**-0.5
@@ -294,9 +316,9 @@ def phase_train_kernels() -> tuple[dict, dict]:
         lib_rel = _rel(lib_out, o.float())
         del lib_out, leaves
 
-        product = 2 * B * H * T * T * D
-        fwd_bound, fwd_by = _bound(2 * product, _attn_bytes(B, T, H, D, 2, 2, 1))
-        bwd_bound, bwd_by = _bound(5 * product, _attn_bytes(B, T, H, D, 4, 4, 1))  # q o do dq; k v dk dv; lse
+        fwd_bound, fwd_by = _bound(attention_flops("forward", B, T, H, D, None), _attn_bytes(B, T, H, D, 2, 2, 1))
+        bwd_bound, bwd_by = _bound(attention_flops("backward_fused", B, T, H, D, None),
+                                   _attn_bytes(B, T, H, D, 4, 4, 1))  # q o do dq; k v dk dv; lse
         _log(f"[train kernels] T={T}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e}, lse max abs {lse_err:.3e} "
              f"(tol {LSE_TOL}); backward {'; '.join(parts)} (tol {BWD_REL_TOL})")
         _log(f"[train kernels] T={T}: forward {fwd_ms:.3f} ms (bound {fwd_bound:.3f} by {fwd_by}; plain {fwd_plain_ms:.3f}; "
@@ -310,6 +332,120 @@ def phase_train_kernels() -> tuple[dict, dict]:
     if failures:
         raise AssertionError("training kernels vs plain: " + "; ".join(failures))
     return {"max_abs_err": fwd_worst, **fwd_rec}, {"max_abs_err": bwd_worst, **bwd_rec}
+
+
+def phase_windowed_kernels() -> tuple[dict, dict, dict]:
+    """K1 windowed with its LSE and the split backward pair vs their plain
+    versions at the full-song path's shapes; returns the three records at the
+    level-0 shape (errors: the worst over the four shapes)."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    B, H, D = 1, 16, 64
+    scale = D**-0.5
+    failures, records, worst = [], None, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for i, (T, W) in enumerate(FULLSONG_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, T, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        cos, sin = rope_tables(T, D, scale_base=float(W), device="cuda")
+        k_rot = fa.rotated_k(k, cos, sin)
+
+        def backward():
+            dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
+            return (dq, *fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale))
+
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True)
+        grads = backward()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+            failures.append(f"T={T} W={W}: dq, dk or dv differ between two launches on the same inputs")
+
+        def plain_backward(window, lse_in):
+            return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
+                    *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
+
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W)
+        refs = plain_backward(W, lse_ref)
+        # planted faults, in the plain version: a window one key short on each side; an LSE off by LSE_FAULT
+        short, shifted = plain_backward(W - 2, lse_ref), plain_backward(W, lse_ref + LSE_FAULT)
+        o_short = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W - 2)[0]
+
+        o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+        lse_err, o_fault = (lse - lse_ref).abs().max().item(), _rel(o_short, o_ref)
+        worst["fwd"] = max(worst["fwd"], o_err)
+        if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(lse).all()):
+            failures.append(f"forward T={T} W={W}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+        if not o_fault > REL_TOL:
+            failures.append(f"forward T={T} W={W}: planted fault {o_fault:.3e} would pass {REL_TOL}")
+        parts = []
+        for name, got, ref, f_short, f_lse in zip(("dq", "dk", "dv"), grads, refs, short, shifted):
+            rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+            rel_short, rel_lse = _rel(f_short, ref), _rel(f_lse, ref)
+            key = "dq" if name == "dq" else "dkv"
+            worst[key] = max(worst[key], err)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (faults: window {rel_short:.3e}, lse {rel_lse:.3e})")
+            if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all()):
+                failures.append(f"backward T={T} W={W}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+            if not min(rel_short, rel_lse) > BWD_REL_TOL:
+                failures.append(f"backward T={T} W={W}: planted faults in {name} {rel_short:.3e}, {rel_lse:.3e} would pass {BWD_REL_TOL}")
+        del o_ref, refs, short, shifted, o_short, grads
+
+        fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True), 20)
+        delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)[1]
+        dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale), 10)
+        dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale), 10)
+        fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W), 1)
+        dq_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_ref, do, cos, sin, W), 1)
+        dkv_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_ref, do, cos, sin, W), 1)
+        bounds = {
+            "fwd": _bound(attention_flops("forward", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 2, 1)),  # q o; k v; lse
+            "dq": _bound(attention_flops("backward_dq", B, T, H, D, W), _attn_bytes(B, T, H, D, 4, 2, 2)),  # q o do dq; k v; lse delta
+            "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 6, 2)),  # q do; k v, dk dv in fp32; lse delta
+        }
+        _log(f"[windowed kernels] T={T} W={W}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault:.3e}), lse max abs "
+             f"{lse_err:.3e}; backward {'; '.join(parts)}; two launches bit-identical")
+        _log(f"[windowed kernels] T={T} W={W}: forward with LSE {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f} by {bounds['fwd'][1]}; "
+             f"plain {fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by {bounds['dq'][1]}; plain {dq_plain_ms:.3f}); "
+             f"dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f} by {bounds['dkv'][1]}; plain {dkv_plain_ms:.3f})")
+        if records is None:
+            # yardstick only: rope on q and k, then PyTorch's fused attention under a dense (T, T)
+            # band mask, and its backward; both visit every tile, the masked ones too
+            idx = torch.arange(T, device="cuda", dtype=torch.int32)
+            band = (idx[:, None] - idx[None, :]).abs() <= W // 2
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+            def library(q_in, k_in, v_in):
+                qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+                kr = apply_rope(k_in, cos, sin)[:, None]
+                return F.scaled_dot_product_attention(qr, kr, v_in[:, None], attn_mask=band, enable_gqa=True).transpose(1, 2)
+
+            with torch.no_grad():
+                lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 2)
+            lib_out = library(*leaves)
+            lib_rel = _rel(lib_out, o.float())
+            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 2)
+            _log(f"[windowed kernels] T={T} W={W}: rope+SDPA with a band mask forward {lib_fwd_ms:.3f} ms, vs kernel rel L2 "
+                 f"{lib_rel:.1e}; its backward {lib_bwd_ms:.3f} ms (the pair: {dq_ms + dkv_ms:.3f} ms)")
+            if not lib_rel < LIBRARY_REL_TOL:
+                failures.append(f"T={T} W={W}: rope+SDPA with a band mask differs from the kernel by {lib_rel:.3e}")
+            del idx, band, leaves, lib_out
+            # the one library backward yields dq, dk and dv: each kernel of the pair is set beside the whole of it
+            records = [
+                {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "library_ms": lib_fwd_ms},
+                {"ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": lib_bwd_ms},
+                {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "library_ms": lib_bwd_ms},
+            ]
+            for rec, key in zip(records, ("fwd", "dq", "dkv")):
+                rec["bound_ms"], rec["bound_by"] = bounds[key]
+        del q, k, v, do, o, lse, lse_ref, delta, k_rot
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("windowed training kernels vs plain: " + "; ".join(failures))
+    return tuple({"max_abs_err": worst[key], **rec} for rec, key in zip(records, ("fwd", "dq", "dkv")))
 
 
 def build_unet_pair():
@@ -527,28 +663,41 @@ def randomize_everywhere(unet, seed: int) -> None:
         w.copy_(torch.randn(w.shape, generator=g) / w.shape[1] ** 0.5)
 
 
+def _reset_launches(fa) -> None:
+    fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+
+
+def _launches(fa) -> dict:
+    """Launches since ``_reset_launches``, by kernel form."""
+    return {"forward": fa.flash_fwd.launches - fa.flash_fwd.lse_launches, "forward_lse": fa.flash_fwd.lse_launches,
+            "backward_fused": fa.flash_bwd.launches, "backward_dq": fa.flash_bwd_dq.launches,
+            "backward_dkv": fa.flash_bwd_dkv.launches}
+
+
 def _flat_grads(unet, only=None) -> torch.Tensor:
     return torch.cat([p.grad.float().flatten() for n, p in unet.named_parameters() if only is None or only(n)])
 
 
-def phase_grad_check() -> None:
-    """dim_h=512, B=2, T=4096: bf16 through the kernels vs fp32 through the
-    plain versions (under block remat, which changes no gradient and keeps the
-    fp32 logits of only one block alive), both on the GPU."""
+def phase_grad_check(B: int, T: int) -> None:
+    """dim_h=512: bf16 through the kernels vs fp32 through the plain versions
+    (under block remat, which changes no gradient and keeps the fp32 logits
+    of only one block alive), both on the GPU. At T=4096 every attention site
+    is global, at T=16384 every one is windowed."""
     from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.nn import blocks
+    from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
 
-    B, T = 2, 4096
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
     a = torch.from_numpy(rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32)).cuda()
     c = torch.from_numpy(rng.uniform(-1, 1, (B, 5)).astype(np.float32)).cuda()
-    orig_len = torch.tensor([T, T - 700], device="cuda")
+    orig_len = torch.tensor([T, T - 700][:B], device="cuda")
     noise = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
-    t = torch.tensor([100, 700], device="cuda")
-    cond_mask = torch.tensor([True, False], device="cuda")
+    t = torch.tensor([100, 700][:B], device="cuda")
+    cond_mask = torch.tensor([True, False][:B], device="cuda")
 
     model32 = build_model(ModelConfig(dim_h=512, dtype="float32", remat=True, remat_mode="block"), DiffusionConfig())
     ref = model32.init_params(seed=5, device="cpu")
@@ -565,16 +714,19 @@ def phase_grad_check() -> None:
         torch.cuda.synchronize()
         return loss.item()
 
-    fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    _reset_launches(fa)
     loss16 = run(model16, net)
-    launches = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
+    launches = _launches(fa)
     g16 = _flat_grads(net)
     is_attn = lambda n: ".attn.to_" in n
     g16_attn = _flat_grads(net, is_attn)
-    # the plain versions on the GPU: every attention module is handed the plain function
+    # the plain versions on the GPU: every attention module is handed the plain function, and the
+    # bf16 model too now runs under block remat, or its fp32 logits of all 39 sites would stay alive
     for module in (*net.modules(), *ref.modules()):
         if isinstance(module, blocks.Attention):
             module.sdpa = fa.flash_attention_reference
+        elif isinstance(module, UNetBlock):
+            module.remat_block = "block"
     loss16_plain = run(model16, net)
     g16_plain = _flat_grads(net)
     loss32 = run(model32, ref)
@@ -586,64 +738,122 @@ def phase_grad_check() -> None:
     _log(f"[grad check] dim_h=512 B={B} T={T}: loss bf16/kernels {loss16:.6f}, bf16/plain {loss16_plain:.6f}, fp32/plain {loss32:.6f} "
          f"(rel {rel_loss:.3e}, bound {LOSS_REL_TOL}); gradient rel L2 vs fp32/plain: bf16/kernels {rel_all:.3e}, attention "
          f"projections alone {rel_attn:.3e} (bound {GRAD_REL_TOL}); bf16/plain {rel_plain:.3e} (bf16's own share); "
-         f"|grad| {g32.norm().item():.3e}; launches forward {launches[0]}, backward {launches[1]}")
+         f"|grad| {g32.norm().item():.3e}; launches {launches}")
     if not (np.isfinite(loss16) and torch.isfinite(g16).all()):
         raise AssertionError("gradient check: non-finite loss or gradient through the kernels")
     if not (rel_loss < LOSS_REL_TOL and rel_all < GRAD_REL_TOL and rel_attn < GRAD_REL_TOL):
         raise AssertionError(f"gradient check: loss rel {rel_loss:.3e}, gradient rel L2 {rel_all:.3e}, attention {rel_attn:.3e}")
     sites = 3 * sum(net.cfg.num_layer_blocks) + net.cfg.num_middle_transformers
-    if launches != (sites, sites):
-        raise AssertionError(f"gradient check launched forward/backward {launches}, expected {sites} each")
+    windowed = T > net.cfg.attn_context_len
+    expected = {"forward": 0, "forward_lse": sites, "backward_fused": 0 if windowed else sites,
+                "backward_dq": sites if windowed else 0, "backward_dkv": sites if windowed else 0}
+    if launches != expected:
+        raise AssertionError(f"gradient check launched {launches}, expected {expected}")
 
 
-def phase_train(workdir: Path) -> tuple[int, int]:
-    """The trainer at the production cell, 6 steps per remat mode with a save
-    and a resume half way; returns (forward-with-LSE, backward) launches."""
-    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+def _train_with_resume(cfg, steps: int, label: str) -> tuple[list[dict], dict, float]:
+    """``trainer.train`` for ``steps`` steps, across a save and a resume half
+    way when ``cfg.train.save_every`` says so; checks the steps, the losses
+    and that the final conv moved. Returns (history, launches, peak GiB)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.trainer import train
     from osufusion_tpu_torch.utils.serialization import load_safetensors
 
-    steps, half = 6, 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fa)
+    history = train(cfg)
+    if cfg.train.total_steps < steps:
+        history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=steps, resume="latest")))
+    torch.cuda.synchronize()
+    launches, peak = _launches(fa), torch.cuda.max_memory_allocated() / 2**30
+    if [h["step"] for h in history] != list(range(1, steps + 1)):
+        raise AssertionError(f"{label}: steps {[h['step'] for h in history]}, expected 1..{steps} across the resume")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"{label}: non-finite loss or grad_norm")
+    if not all(h["grad_norm"] > 0 for h in history[1:]):
+        raise AssertionError(f"{label}: grad_norm not positive after step 1")
+    trained = load_safetensors(Path(cfg.train.project_dir) / "model.safetensors")
+    if not np.abs(trained["params/final_conv/kernel"]).max() > 0:
+        raise AssertionError(f"{label}: the final conv did not move from zero")
+    return history, launches, peak
+
+
+def phase_train(workdir: Path) -> tuple[int, int]:
+    """The trainer at the production cell, 4 steps per remat mode with a save
+    and a resume half way; returns (forward-with-LSE, backward) launches."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    steps, half = 4, 2
     totals = [0, 0]
     for remat in ("none", "save-attn"):
-        project = workdir / f"train_{remat}"
         cfg = Config(
             model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode="save-attn"),
             # dummy samples are 1024..4096 frames at this segment length, padded to 4096
-            train=TrainConfig(project_dir=str(project), dataset_mode="dummy", segment_length=2048, batch_size=4,
-                              full_bf16=True, total_steps=half, warmup_steps=2, save_every=half, num_workers=2, seed=0),
+            train=TrainConfig(project_dir=str(workdir / f"train_{remat}"), dataset_mode="dummy", segment_length=2048,
+                              batch_size=4, full_bf16=True, total_steps=half, warmup_steps=2, save_every=half,
+                              num_workers=2, seed=0),
         )
         sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
-        history = train(cfg)
-        history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=steps, resume="latest")))
-        torch.cuda.synchronize()
-        fwd, bwd, plain_fwd = fa.flash_fwd.lse_launches, fa.flash_bwd.launches, fa.flash_fwd.launches - fa.flash_fwd.lse_launches
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        totals[0] += fwd
-        totals[1] += bwd
-        seconds = sorted(h["seconds"] for h in history[2:])
-        median = statistics.median(seconds)
+        history, launches, peak = _train_with_resume(cfg, steps, f"train {remat}")
+        totals[0] += launches["forward_lse"]
+        totals[1] += launches["backward_fused"]
+        seconds = [h["seconds"] for h in history[1:]]
         _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps (save and resume at {half}): "
              f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
-             f"{median:.4f} s/step (median of steps 3..{steps}: {[round(x, 4) for x in seconds]}); peak memory {peak:.2f} GiB; "
-             f"launches per step: forward with LSE {fwd / steps:g}, backward {bwd / steps:g} (sites {sites})")
-        if [h["step"] for h in history] != list(range(1, steps + 1)):
-            raise AssertionError(f"train {remat}: steps {[h['step'] for h in history]}, expected 1..{steps} across the resume")
-        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
-            raise AssertionError(f"train {remat}: non-finite loss or grad_norm")
-        if not all(h["grad_norm"] > 0 for h in history[1:]):
-            raise AssertionError(f"train {remat}: grad_norm not positive after step 1")
-        if (fwd, bwd, plain_fwd) != (sites * steps, sites * steps, 0):
-            raise AssertionError(f"train {remat}: launches forward-with-LSE {fwd}, backward {bwd}, forward without LSE "
-                                 f"{plain_fwd}; expected {sites * steps}, {sites * steps}, 0")
-        trained = load_safetensors(project / "model.safetensors")
-        if not np.abs(trained["params/final_conv/kernel"]).max() > 0:
-            raise AssertionError(f"train {remat}: the final conv did not move from zero")
+             f"{statistics.median(seconds):.4f} s/step (median of steps 2..{steps}: {[round(x, 4) for x in seconds]}); "
+             f"peak memory {peak:.2f} GiB; launches over {steps} steps {launches} (sites {sites})")
+        expected = {"forward": 0, "forward_lse": sites * steps, "backward_fused": sites * steps, "backward_dq": 0, "backward_dkv": 0}
+        if launches != expected:
+            raise AssertionError(f"train {remat}: launches {launches}, expected {expected}")
     return totals[0], totals[1]
+
+
+# remat plan -> (steps, attention forwards that its backward runs again, per
+# step). Levels 2 and 3 are ``block`` under ``mixed`` with the default levels:
+# their 18 sites (audio, down and up stacks) run again; under ``block`` all 36
+# sites inside UNet blocks do. The three middle transformers are in no block.
+FULLSONG_PLANS = {"mixed": (4, 18), "save-attn-out": (2, 0), "block": (2, 36), "none": (2, 0)}
+FULLSONG_T = 65536
+
+
+def phase_fullsong_train(workdir: Path) -> dict:
+    """The trainer at the full-song cell (dim_h=512, B=1, T=65536, full bf16,
+    every attention site windowed) under each plan of FULLSONG_PLANS, ``mixed``
+    with a save and a resume half way; returns ``mixed``'s launches."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    losses, mixed_launches = {}, None
+    for plan, (steps, again) in FULLSONG_PLANS.items():
+        resume = plan == "mixed"
+        cfg = Config(
+            model=ModelConfig(dim_h=512, remat=plan != "none", remat_mode=plan if plan != "none" else "save-attn"),
+            # dummy samples are 16384..65536 frames at this segment length, padded to 65536
+            train=TrainConfig(project_dir=str(workdir / f"fullsong_{plan}"), dataset_mode="dummy",
+                              segment_length=FULLSONG_T // 2, batch_size=1, full_bf16=True,
+                              total_steps=steps // 2 if resume else steps, warmup_steps=2,
+                              save_every=steps // 2 if resume else 0, num_workers=2, seed=0),
+        )
+        sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+        history, launches, peak = _train_with_resume(cfg, steps, f"full-song {plan}")
+        losses[plan] = [h["loss"] for h in history]
+        _log(f"[full-song {plan}] dim_h=512 B=1 T={FULLSONG_T} full bf16, {steps} steps"
+             f"{' (save and resume at ' + str(steps // 2) + ')' if resume else ''}: "
+             f"loss {[round(x, 4) for x in losses[plan]]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
+             f"s/step {[round(h['seconds'], 4) for h in history]}; peak memory {peak:.2f} GiB; "
+             f"launches over {steps} steps {launches} (sites {sites}, {again} run again per step)")
+        expected = {"forward": 0, "forward_lse": (sites + again) * steps, "backward_fused": 0,
+                    "backward_dq": sites * steps, "backward_dkv": sites * steps}
+        if launches != expected:
+            raise AssertionError(f"full-song {plan}: launches {launches}, expected {expected}")
+        if resume:
+            mixed_launches = launches
+    # the same seed gives every plan the same batches and draws, and a plan changes no arithmetic
+    for plan, values in losses.items():
+        for got, want in zip(values, losses["mixed"]):
+            if abs(got - want) > 5e-4 * abs(want):
+                raise AssertionError(f"full-song {plan}: loss {values} differs from mixed's {losses['mixed']}")
+    return mixed_launches
 
 
 def phase_serve_trained(workdir: Path) -> None:
@@ -669,6 +879,7 @@ def main() -> int:
     name, _ = phase_device()
     kernel = phase_kernel()
     fwd_lse, bwd = phase_train_kernels()
+    fwd_lse_windowed, bwd_dq, bwd_dkv = phase_windowed_kernels()
     model, cpu, gpu = build_unet_pair()
     phase_unet(cpu, gpu)
     del cpu
@@ -679,21 +890,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_sampler_check(model, served, Path(tmp))
     del model, served
-    torch.cuda.empty_cache()
-    phase_grad_check()
+    for B, T in ((2, 4096), (1, 16384)):
+        torch.cuda.empty_cache()
+        phase_grad_check(B, T)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         lse_launches, bwd_launches = phase_train(Path(tmp))
         phase_serve_trained(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        fullsong = phase_fullsong_train(Path(tmp))
     if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
         raise AssertionError("the port imported jax or the JAX package")
     fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
                   "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
+    windowed_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu"}
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
         {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
         {"name": "flash_bwd", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": bwd_launches, **bwd},
+        {"name": "flash_fwd_lse_windowed", **fwd_source, "launches": fullsong["forward_lse"], **fwd_lse_windowed},
+        {"name": "flash_bwd_dq", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:435",
+         "launches": fullsong["backward_dq"], **bwd_dq},
+        {"name": "flash_bwd_dkv", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:507",
+         "launches": fullsong["backward_dkv"], **bwd_dkv},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,8 +2,8 @@
 written to the same ``config.json``, with a torch dtype table.
 
 The fields, their defaults and the JSON round trip are those of the JAX
-package, so one checkpoint directory serves both. Only the fields the serving
-path reads have an effect here; the rest ride along unchanged.
+package, so one checkpoint directory serves both. Only the fields the ported
+paths read have an effect here; the rest ride along unchanged.
 """
 
 from __future__ import annotations

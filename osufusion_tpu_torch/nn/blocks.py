@@ -11,27 +11,43 @@ at first call are constructor arguments here.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from osufusion_tpu_torch.ops.attention import sdpa
 from osufusion_tpu_torch.ops.rope import rope_tables
 
+# Rematerialisation policies (``jax.checkpoint``'s ``policy``): the outputs of
+# the listed operations are kept from the forward, everything else is computed
+# again in the backward. They see what the dispatcher sees, which is why the
+# attention is a ``torch.library.custom_op``.
+# ``save_only_these_names("flash_o", "flash_lse")``: the attention's o, LSE and
+# rotated k stay, so the backward never runs the attention forward again
+KEEP_ATTENTION_OUTPUTS = functools.partial(
+    create_selective_checkpoint_contexts, [torch.ops.osufusion_tpu_torch.flash_attention.default])
+# ``dots_saveable``: convolutions (matrix products in the JAX package) and matrix products
+_aten = torch.ops.aten
+KEEP_DOTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [_aten.convolution.default, _aten.mm.default, _aten.addmm.default, _aten.bmm.default])
 
-def remat(module: nn.Module, *args):
+
+def remat(module: Callable, *args, policy: Optional[Callable] = None):
     """Call ``module`` under rematerialisation (``jax.checkpoint`` in the JAX
     package): its activations are dropped after the forward and recomputed in
-    the backward. Non-reentrant, so an argument may be None; no RNG state is
-    kept, because no module draws random numbers. Without a gradient it is a
-    plain call."""
+    the backward, except what ``policy`` (one of the above) keeps.
+    Non-reentrant, so an argument may be None; no RNG state is kept, because
+    no module draws random numbers. Without a gradient it is a plain call."""
     if not torch.is_grad_enabled():
         return module(*args)
-    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+    kwargs = {} if policy is None else {"context_fn": policy}
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:

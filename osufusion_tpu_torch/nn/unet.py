@@ -9,12 +9,16 @@ it is False take the learned ``null_cond`` (CFG's unconditional branch).
 Rematerialisation follows the JAX package's plans (``cfg.remat``,
 ``cfg.remat_mode``) through ``torch.utils.checkpoint``: ``block`` wraps each
 UNet block whole, so the backward runs the attention forward kernel again;
-``save-attn`` wraps the resnets and feed-forwards one by one and leaves the
-attention modules outside, so the kernel's saved output and LSE serve the
-backward; ``ff`` and ``resnet`` wrap only those. One mode holds for every
-level and for the audio stack: the plans that need a checkpoint policy
-(``save-attn-out``, ``resnet-dots``), and with them the per-level ``mixed``
-plan and the audio stack's override, raise until they are ported.
+``save-attn-out`` wraps it whole too but keeps each attention's output and LSE
+(a checkpoint policy), so the backward re-runs the projections and
+convolutions and never the attention forward; ``save-attn`` wraps the resnets
+and feed-forwards one by one and leaves the attention modules outside, so
+everything the attention saved serves the backward; ``ff`` and ``resnet`` wrap
+only those; ``resnet-dots`` wraps the resnets and keeps the outputs of their
+convolutions and matrix products. ``mixed`` gives each width level its own
+mode (``cfg.remat_level_modes``; ``down_i``, the audio stack's ``layer_i`` and
+the up block of the same width share level i), and ``cfg.audio_remat_mode``
+overrides the audio stack's as a whole.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from torch import nn
 
 from osufusion_tpu_torch.config import ModelConfig
 from osufusion_tpu_torch.nn.blocks import (
+    KEEP_ATTENTION_OUTPUTS,
+    KEEP_DOTS,
     CondEmbedding,
     CrossEmbedLayer,
     Downsample,
@@ -47,34 +53,36 @@ A_PAD_VALUE = -23.0
 TRUNCATED_STD = 0.87962566103423978
 
 
-REMAT_MODES = ("none", "block", "save-attn", "ff", "resnet")
+REMAT_MODES = ("none", "block", "save-attn", "save-attn-out", "ff", "resnet", "resnet-dots")
 
 
-def remat_mode(cfg: ModelConfig) -> str:
-    """The one remat mode of the whole model. The per-level plan (``mixed``
-    with ``cfg.remat_level_modes``) and the audio stack's override
-    (``cfg.audio_remat_mode``) raise with the policy-based modes they exist
-    for, until those are ported."""
+def level_remat_mode(cfg: ModelConfig, level: int, audio: bool = False) -> str:
+    """The remat mode at width level ``level`` (0 = widest). Under
+    ``remat_mode="mixed"`` it is ``remat_level_modes[level]`` (missing entries
+    repeat the last); every other mode holds for all levels. The audio stack
+    (``audio=True``) takes ``cfg.audio_remat_mode`` when that is set."""
     if not cfg.remat:
         return "none"
-    if cfg.remat_mode in ("save-attn-out", "resnet-dots", "mixed") or cfg.audio_remat_mode:
-        what = f"audio_remat_mode {cfg.audio_remat_mode!r}" if cfg.audio_remat_mode else f"remat mode {cfg.remat_mode!r}"
-        raise NotImplementedError(
-            f"{what} belongs to the per-level, policy-based remat plans, which are not ported yet "
-            "(ROADMAP.md, queue 1, item 10a: save-attn-out / mixed with the windowed backward kernels)"
-        )
-    if cfg.remat_mode not in REMAT_MODES:
-        raise ValueError(f"unknown remat mode: {cfg.remat_mode!r}")
-    return cfg.remat_mode
+    if audio and cfg.audio_remat_mode:
+        mode = cfg.audio_remat_mode
+    elif cfg.remat_mode != "mixed":
+        mode = cfg.remat_mode
+    else:
+        modes = cfg.remat_level_modes or ("save-attn",)
+        mode = modes[min(level, len(modes) - 1)]
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode: {mode!r}")
+    return mode
 
 
-def _remat_plan(cfg: ModelConfig) -> Tuple[bool, str]:
-    """(wrap the whole block, inner mode): inner is "none", "inner" (resnets
-    and FFs, save-attn), "ff" or "resnet"."""
-    mode = remat_mode(cfg)
-    if mode == "block":
-        return True, "none"
-    return False, {"save-attn": "inner"}.get(mode, mode)
+def _remat_plan(cfg: ModelConfig, level: int = 0, audio: bool = False) -> Tuple[str, str]:
+    """(how the whole block is wrapped, inner mode) at width level ``level``.
+    The first is "none", "block" or "save-attn-out"; inner is "none", "inner"
+    (resnets and FFs: save-attn), "ff", "resnet" or "resnet-dots"."""
+    mode = level_remat_mode(cfg, level, audio)
+    if mode in ("block", "save-attn-out"):
+        return mode, "none"
+    return "none", {"save-attn": "inner"}.get(mode, mode)
 
 
 class UNetBlock(nn.Module):
@@ -83,13 +91,16 @@ class UNetBlock(nn.Module):
     concatenated with its skip). Returns (sampled_x, pre_sample_x).
     ``remat_plan`` is ``_remat_plan``'s pair."""
 
+    BLOCK_POLICY = {"block": None, "save-attn-out": KEEP_ATTENTION_OUTPUTS}
+
     def __init__(self, dim_x: int, dim_in: int, dim_out: int, dim_cond: Optional[int], layer_idx: int,
                  num_layers: int, num_blocks: int, down_block: bool, cfg: ModelConfig, context_len: int,
-                 remat_plan: Tuple[bool, str] = (False, "none")) -> None:
+                 remat_plan: Tuple[str, str] = ("none", "none")) -> None:
         super().__init__()
         self.num_blocks = num_blocks
         self.remat_block, inner = remat_plan
-        self.remat_resnets = inner in ("inner", "resnet")
+        self.remat_resnets = inner in ("inner", "resnet", "resnet-dots")
+        self.resnet_policy = KEEP_DOTS if inner == "resnet-dots" else None
         self.init_resnet = ResidualBlock(dim_x, dim_in, dim_cond)
         for i in range(num_blocks):
             self.add_module(f"resnet_{i}", ResidualBlock(dim_in, dim_in, dim_cond))
@@ -105,12 +116,12 @@ class UNetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None,
                 c: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.remat_block:
-            return remat(self._forward, x, t, c)
+        if self.remat_block != "none":
+            return remat(self._forward, x, t, c, policy=self.BLOCK_POLICY[self.remat_block])
         return self._forward(x, t, c)
 
     def _resnet(self, block: ResidualBlock, x, t, c) -> torch.Tensor:
-        return remat(block, x, t, c) if self.remat_resnets else block(x, t, c)
+        return remat(block, x, t, c, policy=self.resnet_policy) if self.remat_resnets else block(x, t, c)
 
     def _forward(self, x, t, c) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self._resnet(self.init_resnet, x, t, c)
@@ -136,7 +147,7 @@ class AudioEncoder(nn.Module):
         for i in range(n):
             self.add_module(f"layer_{i}", UNetBlock(
                 dims_h[i], dims_h[i], dims_h[i + 1], None, i, n, cfg.num_layer_blocks[i], True, cfg,
-                self.AUDIO_ATTN_CONTEXT_LEN // (2**i), _remat_plan(cfg),
+                self.AUDIO_ATTN_CONTEXT_LEN // (2**i), _remat_plan(cfg, i, audio=True),
             ))
 
     def forward(self, a: torch.Tensor) -> torch.Tensor:
@@ -171,14 +182,14 @@ class UNet(nn.Module):
         for i in range(n):
             self.add_module(f"down_{i}", UNetBlock(
                 dims_h[i], dims_h[i], dims_h[i + 1], dim_cond, i, n, cfg.num_layer_blocks[i], True, cfg,
-                cfg.attn_context_len // (2**i), _remat_plan(cfg),
+                cfg.attn_context_len // (2**i), _remat_plan(cfg, i),
             ))
         top = dims_h[-1]
         bottleneck_ctx = cfg.attn_context_len // (2 ** (n - 1))
         self.middle_resnet1 = ResidualBlock(2 * top, top, dim_cond)  # x concat audio features
-        # the middle follows the inner plan: its resnets are never
-        # rematerialised, its feed-forwards under save-attn and ff
-        mid_inner = _remat_plan(cfg)[1]
+        # the middle follows the narrowest level's inner plan: its resnets are
+        # never rematerialised, its feed-forwards under save-attn and ff
+        mid_inner = _remat_plan(cfg, n - 1)[1]
         for i in range(cfg.num_middle_transformers):
             self.add_module(f"middle_transformer_{i}", TransformerBlock(
                 top, attn_dim_head=cfg.attn_dim_head, attn_heads=cfg.attn_heads,
@@ -189,10 +200,11 @@ class UNet(nn.Module):
 
         blocks_rev = tuple(reversed(cfg.num_layer_blocks))
         for i in range(n):
+            # up block i sits at width level n - 1 - i (the last is the widest)
             dim_in, dim_out = dims_h[n - i], dims_h[n - 1 - i]
             self.add_module(f"up_{i}", UNetBlock(
                 dim_in + dim_out, dim_in, dim_out, dim_cond, i, n, blocks_rev[i], False, cfg,
-                cfg.attn_context_len // (2 ** (n - i - 1)), _remat_plan(cfg),
+                cfg.attn_context_len // (2 ** (n - i - 1)), _remat_plan(cfg, n - 1 - i),
             ))
 
         self.final_resnet = ResidualBlock(2 * cfg.dim_h, cfg.dim_h, dim_cond)

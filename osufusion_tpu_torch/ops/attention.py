@@ -1,19 +1,21 @@
 """Attention dispatch and the plain grouped-query attention
 (``osufusion_tpu/ops/attention.py``).
 
-``sdpa`` sends a CUDA tensor to the hand-written flash kernels (through their
-``torch.autograd.Function`` when it needs a gradient) and a CPU tensor to the
-plain version with native autograd; there is no other branch. ``gqa_attention``
-is that plain version's math: KV heads stay un-repeated, logits and softmax
-are float32, and queries are taken in chunks so a full-song sequence never
-materialises a (B, H, T, S) logits tensor.
+``sdpa`` sends a CUDA tensor to the hand-written flash kernels, and so it does
+an MQA self-attention site on the CPU that needs a gradient: both go through
+``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
+so a rematerialisation policy that keeps the op's outputs is the same on both
+devices. Any other CPU tensor takes the plain forward with native autograd.
+``gqa_attention`` is that plain forward's math: KV heads stay un-repeated,
+logits and softmax are float32, and queries are taken in chunks so a
+full-song sequence never materialises a (B, H, T, S) logits tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, needs_gradient
 
 # queries per chunk of the plain path: bounds its logits to
 # (B, H, QUERY_CHUNK, keys) however long the sequence is
@@ -29,7 +31,7 @@ def sdpa(
 ) -> torch.Tensor:
     """Rotary-embedded attention, optionally windowed (each query sees keys
     within +/- window/2). Returns (B, T, H, D) in q's dtype."""
-    if q.is_cuda:
+    if q.is_cuda or (needs_gradient(q, k, v) and k.shape[2] == 1 and k.shape[1] == q.shape[1]):
         return flash_attention(q, k, v, window, rope)
     return flash_attention_reference(q, k, v, window, rope)
 

@@ -3,6 +3,13 @@
     python -m osufusion_tpu_torch.trainer --dummy-dataset --segment-length 2048 \\
         --full-bf16 --total-steps 6 --warmup-steps 2 --project-dir runs/smoke
 
+and at full-song length (dummy samples of 16384 to 65536 frames, padded to
+65536, where every attention site is windowed), under the per-level plan:
+
+    python -m osufusion_tpu_torch.trainer --dummy-dataset --segment-length 32768 \\
+        --batch-size 1 --full-bf16 --gradient-checkpointing \\
+        --gradient-checkpointing-mode mixed --total-steps 4 --project-dir runs/fullsong
+
 ``train(cfg)`` builds the model, resumes a checkpoint if asked, streams
 batches from ``train/data.py``, steps ``train/loop.py``, saves and prunes
 checkpoints with the data position beside them, and at the end writes
@@ -12,11 +19,11 @@ package (``serve.load_model``) and in the JAX package alike.
 Flags whose feature is not ported raise ``NotImplementedError`` naming the
 ROADMAP.md queue item: ``--model-backbone dit|mmdit``, ``--model-type
 rectified-flow``, ``--mixed-precision fp16|fp8``, ``--opt-moments int8``, any
-mesh other than one device, the multi-host flags, the remat modes
-``save-attn-out``, ``resnet-dots`` and ``mixed``, and the periodic sample
-(``--sample-audio``). On the GPU a sequence longer than the attention context
-(4096 frames at level 0) meets windowed attention, whose backward kernels are
-not ported either: that raises at the first such site.
+mesh other than one device, the multi-host flags, and the periodic sample
+(``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
+``mixed`` with ``--gradient-checkpointing-levels`` included; the audio stack's
+override is ``model.audio_remat_mode`` of the config, which has no flag, as in
+the JAX package.
 
 One difference in behaviour: dummy batches are always padded to the mode's
 longest length (2 x ``--segment-length``), which the JAX trainer does only in
@@ -159,10 +166,15 @@ def parse_args(argv=None) -> Config:
         choices=["block", "save-attn", "save-attn-out", "ff", "resnet", "resnet-dots", "mixed"],
         default="save-attn",
         help="remat granularity when --gradient-checkpointing is on (block = whole UNet blocks, the attention "
-        "kernel runs again in the backward; save-attn = resnets and FFs, the kernel's output and LSE stay; "
-        "ff = FFs only; resnet = resnets only)",
+        "kernel runs again in the backward; save-attn-out = whole blocks, but each attention's output and LSE "
+        "stay; save-attn = resnets and FFs, everything the attention saved stays; ff = FFs only; resnet = "
+        "resnets only; resnet-dots = resnets, the outputs of their convolutions and matrix products stay; "
+        "mixed = a mode per width level from --gradient-checkpointing-levels)",
     )
-    p.add_argument("--gradient-checkpointing-levels", type=str, default="save-attn-out,block,block,block")
+    p.add_argument(
+        "--gradient-checkpointing-levels", type=str, default="save-attn-out,block,block,block",
+        help='comma-separated modes for mode "mixed", widest level first; missing entries repeat the last',
+    )
     p.add_argument("--gradient-accumulation-steps", type=int, default=1)
     p.add_argument("--clip-grad-norm", type=float, default=0.0)
     p.add_argument("--model-dim", type=int, default=512)

@@ -2,7 +2,8 @@
 step, goes on one NVIDIA GPU.
 
     python3 profile_torch_serve.py [--groupnorm fused|torch]
-    python3 profile_torch_serve.py --train [--remat none|block|save-attn|ff|resnet] [--precision full-bf16|bf16]
+    python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
+        [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -19,9 +20,10 @@ At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 ``nn.functional.group_norm`` with one group on (B, C, T), the form it
 replaced, so the two can be compared in one call.
 
-``--train`` profiles the production training cell instead (dim_h=512, default
-config, B=4, T=4096, seeded weights random everywhere, random batch): s/step
-by the host clock around synchronised steps, peak device memory, the
+``--train`` profiles a training cell instead (dim_h=512, default config,
+seeded weights random everywhere, random batch; B=4, T=4096 unless told
+otherwise: ``--batch 1 --frames 65536 --remat mixed`` is the full-song cell):
+s/step by the host clock around synchronised steps, peak device memory, the
 attention kernels' launches per step, device time by kernel over one step
 (torch.profiler), and the device's idle share of that step.
 """
@@ -88,18 +90,16 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
     return device_ms
 
 
-def profile_train(remat: str, precision: str) -> None:
-    """One training step at the production cell, through ``train/loop.py``."""
-    import dataclasses
-
+def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int) -> None:
+    """One training step at dim_h=512, through ``train/loop.py``."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.train.loop import init_state, make_train_step
 
-    B, T = 4, 4096
     cfg = Config(
-        model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode=remat if remat != "none" else "save-attn"),
+        model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode=remat if remat != "none" else "save-attn",
+                          remat_level_modes=levels),
         train=TrainConfig(batch_size=B, full_bf16=precision == "full-bf16", lr=1e-5, warmup_steps=2, total_steps=100),
     )
     model = build_model(cfg.model, cfg.diffusion)
@@ -112,7 +112,7 @@ def profile_train(remat: str, precision: str) -> None:
     step = make_train_step(model, cfg)
     rng = np.random.default_rng(0)
     batch = (rng.standard_normal((B, 6, T)).astype(np.float32), rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32),
-             rng.uniform(-1, 1, (B, 5)).astype(np.float32), np.array([T, T - 500, T - 1000, T // 2], np.int32))
+             rng.uniform(-1, 1, (B, 5)).astype(np.float32), np.array([T, T - 500, T - 1000, T // 2][:B], np.int32))
     batch = tuple(torch.from_numpy(b).cuda() for b in batch)
 
     torch.cuda.reset_peak_memory_stats()
@@ -120,6 +120,7 @@ def profile_train(remat: str, precision: str) -> None:
         step(state, batch)
     torch.cuda.synchronize()
     fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -127,9 +128,11 @@ def profile_train(remat: str, precision: str) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = sorted(times)[1]
-    print(f"[train] dim_h=512 B={B} T={T} {precision} remat={remat}: {step_s:.4f} s/step (median of {times}); "
+    plan = f"{remat} ({','.join(levels)})" if remat == "mixed" else remat
+    print(f"[train] dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}); "
           f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, backward {fa.flash_bwd.launches // 3}")
+          f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, fused backward {fa.flash_bwd.launches // 3}, "
+          f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}")
     device_ms = kernel_table(lambda: step(state, batch), "one training step")
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
@@ -138,7 +141,11 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--groupnorm", choices=["fused", "torch"], default="fused")
     p.add_argument("--train", action="store_true", help="profile one training step instead of the serving path")
-    p.add_argument("--remat", choices=["none", "block", "save-attn", "ff", "resnet"], default="none")
+    p.add_argument("--remat", default="none",
+                   choices=["none", "block", "save-attn", "save-attn-out", "ff", "resnet", "resnet-dots", "mixed"])
+    p.add_argument("--remat-levels", default="save-attn-out,save-attn-out,block,block", help="per-level modes of --remat mixed")
+    p.add_argument("--batch", type=int, default=4, help="--train: batch size (at most 4)")
+    p.add_argument("--frames", type=int, default=4096, help="--train: sequence length")
     p.add_argument("--precision", choices=["full-bf16", "bf16"], default="full-bf16")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -157,7 +164,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}")
     if args.train:
-        profile_train(args.remat, args.precision)
+        profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames)
         return
 
     cfg = Config(model=ModelConfig(dim_h=128))

@@ -108,7 +108,8 @@ def test_function_and_wrappers_raise_on_cpu_tensors(inputs):
     q, k, v, do = (torch.from_numpy(x) for x in inputs)
     cos, sin = rope_tables(T, D, scale_base=float(T))
     with pytest.raises(ValueError, match="CUDA"):
-        fa.FlashAttentionFunction.apply(q.bfloat16(), k.reshape(B, T, D).bfloat16(), v.reshape(B, T, D).bfloat16(), cos, sin)
+        fa.flash_fwd(q.bfloat16(), k.reshape(B, T, D).bfloat16(), v.reshape(B, T, D).bfloat16(), cos, sin, -1, D**-0.5,
+                     return_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_bwd(q.bfloat16(), k.reshape(B, T, D).bfloat16(), v.reshape(B, T, D).bfloat16(), q.bfloat16(),
                      torch.zeros(B, T * H), do.bfloat16(), cos, sin, D**-0.5)
@@ -116,17 +117,15 @@ def test_function_and_wrappers_raise_on_cpu_tensors(inputs):
         fa.flash_attention(q, k, v, None, (cos, sin))
 
 
-def test_windowed_site_under_a_gradient_raises():
-    """The guard the GPU dispatch calls before it builds the autograd node."""
-    fa.require_backward_kernel(None)  # a global site passes
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 2"):
-        fa.require_backward_kernel(4096)
-
-
 def test_cpu_dispatch_keeps_native_autograd(inputs):
-    """On the CPU sdpa is the plain forward, differentiable by autograd, at a
-    windowed site too."""
+    """On the CPU sdpa is differentiable by autograd, at a windowed site too:
+    through the plain versions of the kernels for MQA self-attention, through
+    the plain forward otherwise."""
     q, k, v, _ = (torch.from_numpy(x).requires_grad_(True) for x in inputs)
     out = sdpa(q, k, v, 64, rope_tables(T, D, scale_base=64.0))
+    out.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    q, k, v, _ = (torch.from_numpy(x).requires_grad_(True) for x in inputs)
+    out = sdpa(q, k.repeat(1, 1, 2, 1), v.repeat(1, 1, 2, 1), 64, rope_tables(T, D, scale_base=64.0))  # two KV heads
     out.sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))

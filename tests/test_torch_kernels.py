@@ -1,6 +1,6 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
-backward, and the autograd Function that joins them) against their plain
-PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
+global backward, the windowed dq / dkv pair, and the differentiable op that
+joins them) against their plain PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -112,19 +112,95 @@ def test_function_gradients_match_autograd_through_plain(cuda):
     for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
         assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
         assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
-    # the Function hands out its LSE, and takes no gradient for it
-    o, lse = fa.FlashAttentionFunction.apply(leaves[0], k, v, *rope)
-    assert lse.shape == (B, T * H) and not lse.requires_grad and o.requires_grad
+    # the op hands out its LSE and the rotated k, and takes no gradient for them
+    o, lse, k_rot = fa.flash_attention_op(leaves[0], k, v, *rope, -1)
+    assert lse.shape == (B, T * H) and not lse.requires_grad and not k_rot.requires_grad and o.requires_grad
+
+
+# (B, T, H, window): a window whose edges cut KV tiles and 128-row blocks at
+# H = 3 and 5, a short last block, T not a multiple of 64, and the production
+# head count
+WINDOWED_SHAPES = [(2, 200, 3, 32), (1, 333, 5, 100), (2, 1024, 16, 256), (1, 2048, 16, 128)]
 
 
 @pytest.mark.cuda
-def test_windowed_site_under_a_gradient_raises_on_the_gpu(cuda):
-    q, k, v, _, _ = _train_inputs(1, 256, 4, cuda)
-    rope = rope_tables(256, 64, scale_base=64.0, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fa.flash_attention(q.requires_grad_(True), k[:, :, None], v[:, :, None], 64, rope)
-    with torch.no_grad():  # without a gradient the windowed forward runs
-        assert fa.flash_attention(q, k[:, :, None], v[:, :, None], 64, rope).shape == q.shape
+@pytest.mark.parametrize("B,T,H,window", WINDOWED_SHAPES)
+def test_windowed_forward_with_lse_and_split_backward_match_plain(cuda, B, T, H, window):
+    q, k, v, do, _ = _train_inputs(B, T, H, cuda)
+    cos, sin = rope_tables(T, 64, scale_base=float(window), device=cuda)
+    k_rot = fa.rotated_k(k, cos, sin)
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, 0.125, return_lse=True)
+    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, 0.125)
+    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, window, 0.125)
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, window, 0.125))  # the LSE store changes nothing else
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    assert (delta - (do.float() * o.float()).sum(-1).reshape(B, -1)).abs().max().item() < 1e-3
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
+    refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+    # no atomics anywhere in the pair: a second launch repeats every bit
+    dq2, delta2 = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, 0.125)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k_rot, v, lse, delta2, do, cos, sin, window, 0.125)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+def test_split_backward_at_a_global_site_matches_the_fused_kernel(cuda):
+    """window = -1 sweeps every key: the pair then computes what ``flash_bwd`` does."""
+    q, k, v, do, (cos, sin) = _train_inputs(2, 320, 16, cuda)
+    k_rot = fa.rotated_k(k, cos, sin)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
+    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, 0.125)
+    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, -1, 0.125)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)):
+        assert _rel(got, ref.float()) < REL_TOL, f"{name}: rel L2 {_rel(got, ref.float())}"
+
+
+@pytest.mark.cuda
+def test_windowed_site_under_a_gradient_runs_the_split_kernels(cuda):
+    B, T, H, window = 2, 320, 16, 64
+    q, k, v, do, _ = _train_inputs(B, T, H, cuda)
+    rope = rope_tables(T, 64, scale_base=float(window), device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k[:, :, None], v[:, :, None])]
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    fa.flash_attention(*leaves, window, rope).backward(do)
+    after = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    fa.flash_attention_reference(*ref_leaves, window, rope).backward(do.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
+        assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
+    # a window that covers the sequence is the global path: the fused backward
+    fa.flash_attention(*leaves, T, rope).backward(do)
+    assert fa.flash_bwd.launches == before[3] + 1 and fa.flash_bwd_dq.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+def test_windowed_backward_rejects_what_it_does_not_take(cuda):
+    q, k, v, do, (cos, sin) = _train_inputs(1, 128, 4, cuda)
+    stats = torch.zeros((1, 128 * 4), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_dq(q.cpu(), k.cpu(), v.cpu(), q.cpu(), stats.cpu(), do.cpu(), cos.cpu(), sin.cpu(), 32, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_dkv(q, k, v, stats, stats.cpu(), do, cos, sin, 32, 0.125)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_bwd_dq(q, k, v, q, stats, do.float(), cos, sin, 32, 0.125)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_bwd_dkv(q, k, v, stats, stats.bfloat16(), do, cos, sin, 32, 0.125)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_bwd_dq(q, k, v, q, stats, do, cos, sin, -2, 0.125)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_bwd_dkv(q, k, v, stats, stats, do, cos, sin, -2, 0.125)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_fwd(q, k, v, cos, sin, -2, 0.125, return_lse=True)
 
 
 @pytest.mark.cuda

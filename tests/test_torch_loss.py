@@ -110,30 +110,117 @@ def test_loss_and_gradients_match_jax(setup, case):
         np.testing.assert_allclose(grads[name], value, rtol=GRAD_RTOL, atol=GRAD_ATOL * max(1.0, scale), err_msg=name)
 
 
-@pytest.mark.parametrize("mode", ["block", "save-attn", "ff", "resnet"])
+def test_loss_and_gradients_at_a_windowed_length_match_jax(setup):
+    """Four times the attention context (256 frames against 64, and 128
+    against 32 at level 1): every trunk site is windowed, so the port's
+    gradients come from the plain windowed dq / dkv versions; the JAX package
+    runs its windowed attention as it does on the CPU. The plan is ``mixed``,
+    which changes no gradient."""
+    variables = setup[0]
+    n = 4 * TINY["attn_context_len"]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 6, n)).astype(np.float32)
+    a = rng.normal(-10.0, 3.0, (1, 96, n)).astype(np.float32)
+    c = rng.uniform(-1, 1, (1, 5)).astype(np.float32)
+    orig_len = np.array([n - 37], np.int32)
+    key = jax.random.PRNGKey(5)
+    k_noise, k_t, k_drop = jax.random.split(key, 3)
+    noise = np.asarray(jax.random.normal(k_noise, (1, n, 6), jnp.float32)).transpose(0, 2, 1)
+    draws = (torch.from_numpy(noise.copy()), torch.from_numpy(np.array(jax.random.randint(k_t, (1,), 0, 1000))),
+             torch.from_numpy(np.array(jax.random.bernoulli(k_drop, 0.5, (1,)))))
+    jmodel = jax_build_model(JModelConfig(**TINY), JDiffusionConfig())
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jmodel.loss))(
+        variables, key, jnp.asarray(x), jnp.asarray(a), jnp.asarray(c), jnp.asarray(orig_len))
+    loss, grads = _port_loss_and_grads(variables, tuple(torch.from_numpy(v) for v in (x, a, c)), torch.from_numpy(orig_len),
+                                       draws, remat=True, remat_mode="mixed")
+    assert loss == pytest.approx(float(want_loss), rel=LOSS_TOL)
+    want_flat = flatten_params(want_grads)
+    scale = max(np.abs(v).max() for v in want_flat.values())
+    for name, value in want_flat.items():
+        np.testing.assert_allclose(grads[name], value, rtol=GRAD_RTOL, atol=GRAD_ATOL * max(1.0, scale), err_msg=name)
+
+
+REMAT_CASES = {
+    "block": dict(remat_mode="block"),
+    "save-attn": dict(remat_mode="save-attn"),
+    "ff": dict(remat_mode="ff"),
+    "resnet": dict(remat_mode="resnet"),
+    "save-attn-out": dict(remat_mode="save-attn-out"),
+    "resnet-dots": dict(remat_mode="resnet-dots"),
+    "mixed": dict(remat_mode="mixed"),  # the default levels: save-attn-out at level 0 and 1 (there are two here)
+    "mixed-audio-block": dict(remat_mode="mixed", audio_remat_mode="block"),
+    "mixed-short-levels": dict(remat_mode="mixed", remat_level_modes=("resnet-dots",)),  # the last entry repeats
+    "mixed-per-level": dict(remat_mode="mixed", remat_level_modes=("save-attn-out", "block")),
+}
+
+
+@pytest.mark.parametrize("mode", list(REMAT_CASES))
 def test_remat_modes_leave_the_gradients_unchanged(setup, mode):
     variables, batch, orig_len, draws, _ = setup
     loss0, grads0 = _port_loss_and_grads(variables, batch, orig_len, draws)
-    loss1, grads1 = _port_loss_and_grads(variables, batch, orig_len, draws, remat=True, remat_mode=mode)
+    loss1, grads1 = _port_loss_and_grads(variables, batch, orig_len, draws, remat=True, **REMAT_CASES[mode])
     assert loss1 == loss0
     for name, value in grads0.items():
         # the same operations in the same order, run twice: equal to the last bit or nearly
         np.testing.assert_allclose(grads1[name], value, rtol=1e-6, atol=1e-8, err_msg=name)
 
 
-@pytest.mark.parametrize("mode", ["save-attn-out", "resnet-dots", "mixed"])
-def test_unported_remat_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        UNet(ModelConfig(**TINY, remat=True, remat_mode=mode))
+def test_remat_plan_per_level():
+    """``level_remat_mode`` and ``_remat_plan`` as the JAX package resolves
+    them: one mode for all levels, ``mixed`` per level with the last entry
+    repeating, the audio stack's override, and nothing without ``remat``."""
+    from osufusion_tpu.nn.unet import level_remat_mode as jax_level_remat_mode
+    from osufusion_tpu_torch.nn.unet import _remat_plan, level_remat_mode
+
+    cases = [
+        dict(remat=False, remat_mode="mixed"),
+        dict(remat=True, remat_mode="save-attn"),
+        dict(remat=True, remat_mode="mixed"),
+        dict(remat=True, remat_mode="mixed", remat_level_modes=("save-attn-out", "resnet-dots")),
+        dict(remat=True, remat_mode="mixed", remat_level_modes=()),
+        dict(remat=True, remat_mode="block", audio_remat_mode="save-attn-out"),
+    ]
+    for kw in cases:
+        for level in range(4):
+            for audio in (False, True):
+                want = jax_level_remat_mode(JModelConfig(**kw), level, audio=audio)
+                assert level_remat_mode(ModelConfig(**kw), level, audio=audio) == want, (kw, level, audio)
+    mixed = ModelConfig(remat=True, remat_mode="mixed")
+    assert [_remat_plan(mixed, i) for i in range(4)] == [("save-attn-out", "none")] * 2 + [("block", "none")] * 2
+    assert _remat_plan(ModelConfig(remat=True, remat_mode="save-attn")) == ("none", "inner")
+    assert _remat_plan(ModelConfig(remat=True, remat_mode="resnet-dots"), 3) == ("none", "resnet-dots")
+    for kw in (dict(remat_mode="save-attn-in"), dict(remat_mode="mixed", remat_level_modes=("block", "mixed")),
+               dict(remat_mode="block", audio_remat_mode="all")):
+        with pytest.raises(ValueError, match="unknown remat mode"):
+            UNet(ModelConfig(**TINY, remat=True, **kw))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(remat_mode="mixed", remat_level_modes=("block", "save-attn")),  # every level ported: per-level plans wait all the same
-    dict(remat_mode="save-attn", audio_remat_mode="block"),
-], ids=["mixed-ported-levels", "audio-override"])
-def test_per_level_remat_plans_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 10a"):
-        UNet(ModelConfig(**TINY, remat=True, **kw))
+# attention sites of the tiny UNet: one transformer in each of the two audio,
+# down and up blocks, and one in the middle
+SITES = 7
+
+
+@pytest.mark.parametrize("mode,again", [
+    ("none", 0), ("save-attn", 0), ("save-attn-out", 0), ("resnet-dots", 0),
+    ("block", 6),  # every site inside a UNet block runs again in the backward; the middle one is in no block
+    ("mixed-per-level", 3),  # level 1 is block: its audio, down and up sites run again
+], ids=lambda v: str(v))
+def test_attention_forwards_per_step_follow_the_remat_plan(setup, monkeypatch, mode, again):
+    """Under ``save-attn-out`` the policy keeps each attention's outputs, so a
+    loss and its backward run the attention forward once per site, as without
+    rematerialisation; under ``block`` the backward runs it again."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    forward = fa.flash_fwd_lse_reference
+    monkeypatch.setattr(fa, "flash_fwd_lse_reference", lambda *args: calls.append(args[-1]) or forward(*args))
+    variables, batch, orig_len, draws, _ = setup
+    kw = {} if mode == "none" else dict(remat=True, **REMAT_CASES.get(mode, dict(remat_mode=mode)))
+    _port_loss_and_grads(variables, batch, orig_len, draws, **kw)
+    assert len(calls) == SITES + again
+    # N = 90 frames (46 at level 1) is longer than the trunk's context at both levels: those sites are
+    # windowed; the audio stack's context is pinned to 4096, so its sites are global
+    assert sorted(set(calls)) == [-1, TINY["attn_context_len"] // 2, TINY["attn_context_len"]]
 
 
 def test_public_loss_draws_from_the_generator(setup):

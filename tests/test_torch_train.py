@@ -243,13 +243,47 @@ def test_precision_modes_take_a_finite_step(precision):
     (["--sample-audio", "song.wav"], "sample"),
     (["--model-backbone", "dit"], "dit"),
     (["--model-type", "rectified-flow"], "rectified"),
-    (["--gradient-checkpointing", "--gradient-checkpointing-mode", "mixed"], "item 10a"),
 ])
 def test_unported_flags_raise_naming_the_roadmap(tmp_path, flags, match):
     cfg = parse_args(["--dummy-dataset", "--project-dir", str(tmp_path), *flags])
     with pytest.raises(NotImplementedError, match=match) as info:
         train(cfg, device="cpu")
     assert "ROADMAP.md" in str(info.value)
+
+
+@pytest.mark.parametrize("flags,plans", [
+    (["--gradient-checkpointing-mode", "save-attn-out"], [("save-attn-out", "none")] * 4),
+    (["--gradient-checkpointing-mode", "resnet-dots"], [("none", "resnet-dots")] * 4),
+    (["--gradient-checkpointing-mode", "mixed"], [("save-attn-out", "none")] + [("block", "none")] * 3),  # the flag's default levels
+    (["--gradient-checkpointing-mode", "mixed", "--gradient-checkpointing-levels", "resnet,save-attn"],
+     [("none", "resnet")] + [("none", "inner")] * 3),
+], ids=["save-attn-out", "resnet-dots", "mixed", "mixed-levels"])
+def test_remat_flags_reach_the_model(tmp_path, flags, plans):
+    from osufusion_tpu_torch.nn.unet import _remat_plan
+
+    cfg = parse_args(["--dummy-dataset", "--project-dir", str(tmp_path), "--gradient-checkpointing", *flags])
+    assert [_remat_plan(cfg.model, level) for level in range(4)] == plans
+    assert Config.from_json(cfg.to_json()).model == cfg.model  # and survive config.json
+    off = parse_args(["--dummy-dataset", "--project-dir", str(tmp_path), *flags])
+    assert [_remat_plan(off.model, level) for level in range(4)] == [("none", "none")] * 4
+
+
+def test_trainer_takes_steps_under_the_mixed_plan_at_a_windowed_length(tmp_path):
+    """Samples of 64 to 256 frames padded to 256, four times the attention
+    context: every trunk site is windowed, level 0 under ``save-attn-out``,
+    level 1 under ``block``, the audio stack under its own override."""
+    cfg = _tiny_train_config(tmp_path, total_steps=2)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, segment_length=128))
+    model_cfg = dataclasses.replace(cfg.model, remat=True, remat_mode="mixed", remat_level_modes=("save-attn-out", "block"),
+                                    audio_remat_mode="resnet-dots")
+    plain = train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, project_dir=str(tmp_path / "plain"))), device="cpu")
+    history = train(dataclasses.replace(cfg, model=model_cfg), device="cpu")
+    assert [h["step"] for h in history] == [1, 2] and loop.checkpoint_steps(tmp_path) == [2]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history) and history[1]["grad_norm"] > 0
+    # a remat plan changes no arithmetic: the same seed takes the same steps without it
+    for got, want in zip(history, plain):
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-6) and got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+    assert Config.load(tmp_path / "config.json").model == model_cfg
 
 
 def test_multi_host_flags_raise():
