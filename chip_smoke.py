@@ -47,6 +47,30 @@ failure raises and the exit code is not 0:
    then 2 steps each under ``save-attn-out``, ``block`` and no
    rematerialisation: s/step, peak memory, and the launches per step that
    each plan implies (every site windowed: none of the global backward).
+10. Halo kernels, the attention of sequence-parallel training, at each
+    rank's shapes for a T=65536 song (B=1, H=16, D=64, bf16): (shards, T_local,
+    W) = (4, 16384, 4096), (4, 2048, 512) and (2, 32768, 4096), each at the
+    first, an interior and the last shard: the forward with its LSE, dq and
+    dk/dv over the slab vs their plain fp32 versions, dk/dv exactly zero at the
+    slab rows outside the song, two planted faults above the bound (a window
+    one key short; one key past the song's start or end admitted, over the rows
+    that see it), the gradients bit-identical across two launches, CUDA-event
+    times, and at level 0 ``scaled_dot_product_attention`` under a dense
+    (T_local, T_local + W) band-and-bounds mask, forward and backward, as the
+    yardstick.
+11. Composition: the four shards of a T=65536, W=4096 song, each slab cut
+    from the song's rotated k and v with zeros past the ends as the exchange
+    delivers them, through the halo kernels; o and dq joined, each slab's dk
+    and dv added back onto its rows; against the single-card windowed kernels
+    (forward with LSE, dq, dkv) on the whole song.
+12. Sequence-parallel training: ``trainer.train`` in two processes under
+    torchrun's environment (``--mesh-seq 2``), each holding half of the frames
+    of the full-song cell (dim_h=512, B=1, T=65536, full bf16, ``mixed``): one
+    step, a save, a resume, a second step; s/step, peak memory and launches
+    per rank, and step 1's loss against phase 9's one-card trainer at the same
+    seed. One card per process over NCCL where two or more are visible; with
+    one card both processes share it over gloo, whose collectives go through
+    host memory.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -147,6 +171,8 @@ def _cuda_ms(fn, n: int) -> float:
 
 
 def phase_device() -> tuple[str, str]:
+    import torch.distributed  # noqa: F401  (the port's parallel package needs it)
+
     from torch.utils.cpp_extension import CUDA_HOME
 
     from osufusion_tpu_torch.ops.flash_attention import build_kernels
@@ -817,23 +843,29 @@ FULLSONG_PLANS = {"mixed": (4, 18), "save-attn-out": (2, 0), "block": (2, 36), "
 FULLSONG_T = 65536
 
 
-def phase_fullsong_train(workdir: Path) -> dict:
-    """The trainer at the full-song cell (dim_h=512, B=1, T=65536, full bf16,
-    every attention site windowed) under each plan of FULLSONG_PLANS, ``mixed``
-    with a save and a resume half way; returns ``mixed``'s launches."""
+def _fullsong_config(plan: str, project_dir: Path, steps: int, save_every: int, mesh_seq: int = 1):
+    """The full-song cell under remat plan ``plan``, to ``steps`` steps."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
 
+    return Config(
+        model=ModelConfig(dim_h=512, remat=plan != "none", remat_mode=plan if plan != "none" else "save-attn"),
+        # dummy samples are 16384..65536 frames at this segment length, padded to 65536
+        train=TrainConfig(project_dir=str(project_dir), dataset_mode="dummy", segment_length=FULLSONG_T // 2,
+                          batch_size=1, full_bf16=True, total_steps=steps, warmup_steps=2, save_every=save_every,
+                          num_workers=2, seed=0, mesh_seq=mesh_seq),
+    )
+
+
+def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
+    """The trainer at the full-song cell (dim_h=512, B=1, T=65536, full bf16,
+    every attention site windowed) under each plan of FULLSONG_PLANS, ``mixed``
+    with a save and a resume half way; returns ``mixed``'s launches and
+    losses."""
     losses, mixed_launches = {}, None
     for plan, (steps, again) in FULLSONG_PLANS.items():
         resume = plan == "mixed"
-        cfg = Config(
-            model=ModelConfig(dim_h=512, remat=plan != "none", remat_mode=plan if plan != "none" else "save-attn"),
-            # dummy samples are 16384..65536 frames at this segment length, padded to 65536
-            train=TrainConfig(project_dir=str(workdir / f"fullsong_{plan}"), dataset_mode="dummy",
-                              segment_length=FULLSONG_T // 2, batch_size=1, full_bf16=True,
-                              total_steps=steps // 2 if resume else steps, warmup_steps=2,
-                              save_every=steps // 2 if resume else 0, num_workers=2, seed=0),
-        )
+        cfg = _fullsong_config(plan, workdir / f"fullsong_{plan}", steps // 2 if resume else steps,
+                               steps // 2 if resume else 0)
         sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
         history, launches, peak = _train_with_resume(cfg, steps, f"full-song {plan}")
         losses[plan] = [h["loss"] for h in history]
@@ -853,7 +885,316 @@ def phase_fullsong_train(workdir: Path) -> dict:
         for got, want in zip(values, losses["mixed"]):
             if abs(got - want) > 5e-4 * abs(want):
                 raise AssertionError(f"full-song {plan}: loss {values} differs from mixed's {losses['mixed']}")
-    return mixed_launches
+    return mixed_launches, losses["mixed"]
+
+
+# the halo kernels' shapes for a T=65536 song: (shards, T_local, W) at level 0
+# of four and of two shards and at level 3 of four; each at its first, second
+# and last shard
+HALO_SONG = 65536
+HALO_SHAPES = ((4, 16384, 4096), (4, 2048, 512), (2, 32768, 4096))
+
+
+def _halo_bytes(T: int, S: int, H: int, D: int, rows: int, slabs: int, stats: int, f32_slabs: int = 0) -> int:
+    """Bytes of ``rows`` (T, H, D) and ``slabs`` (S, D) bf16 tensors,
+    ``f32_slabs`` (S, D) fp32 ones and ``stats`` (T, H) fp32 vectors, B=1,
+    each moved once."""
+    return T * H * D * 2 * rows + S * D * (2 * slabs + 4 * f32_slabs) + T * H * 4 * stats
+
+
+def phase_halo_kernels() -> tuple[dict, dict, dict]:
+    """K4, K5a and K5b vs their plain versions at every shard of HALO_SHAPES;
+    returns their records at the four-shard level-0 second shard (errors: the
+    worst over every case)."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.utils.flops import halo_flops
+
+    H, D = 16, 64
+    scale = D**-0.5
+    failures, records, worst = [], None, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for shards, T, W in HALO_SHAPES:
+        t_song = T * shards
+        for shard in sorted({0, 1, shards - 1}):
+            g0 = shard * T
+            frame = (W, g0, t_song)
+            label = f"{shards} shards, T_local={T} W={W} shard {shard}"
+            g = torch.Generator(device="cuda").manual_seed(400 + shard + T)
+            q, do = (torch.randn((1, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+            # the slab rows outside the song hold random values: the kernels must not look at them
+            k, v = (torch.randn((1, T + W, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+
+            def backward():
+                dq, delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)
+                return (dq, *ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, scale))
+
+            o, lse = ha.halo_fwd(q, k, v, *frame, scale)
+            grads = backward()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+                failures.append(f"{label}: dq, dk or dv differ between two launches on the same inputs")
+
+            def plain(k_in, v_in, window, g0_in, song):
+                o_p, lse_p = ha.halo_fwd_reference(q, k_in, v_in, window, g0_in, song)
+                return (o_p, lse_p, ha.halo_bwd_dq_reference(q, k_in, v_in, o_p, lse_p, do, window, g0_in, song),
+                        *ha.halo_bwd_dkv_reference(q, k_in, v_in, o_p, lse_p, do, window, g0_in, song))
+
+            o_ref, lse_ref, *refs = plain(k, v, *frame)
+            # planted faults, in the plain version: a window one key short on each side (the same
+            # frame, one slab row less each side); one key outside the song admitted at its start or end
+            short = plain(k[:, 1:-1], v[:, 1:-1], W - 2, g0, t_song)
+            short_rel = [_rel(short[0], o_ref), _rel(short[2], refs[0]),
+                         _rel(short[3], refs[1][:, 1:-1]), _rel(short[4], refs[2][:, 1:-1])]
+            del short
+            o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            worst["fwd"] = max(worst["fwd"], o_err)
+            if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(lse).all()):
+                failures.append(f"forward {label}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+            parts = []
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+                rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+                key = "dq" if name == "dq" else "dkv"
+                worst[key] = max(worst[key], err)
+                parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f}")
+                if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all()):
+                    failures.append(f"backward {label}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+            lo, hi = ha.slab_bounds(T, *frame)
+            if any(t[:, :lo].any() or t[:, hi:].any() for t in grads[1:]):
+                failures.append(f"{label}: dk or dv not zero at the slab rows outside the song [{lo}, {hi})")
+            if not min(short_rel) > REL_TOL:
+                failures.append(f"{label}: planted short window {short_rel} would pass {REL_TOL}")
+            edge = ""
+            if shard in (0, shards - 1):
+                # admit the key just outside the song; measured over the rows whose window reaches it
+                bad = plain(k, v, W, g0 + 1, t_song) if shard == 0 else plain(k, v, W, g0, t_song + 1)
+                rows = slice(0, W // 2) if shard == 0 else slice(T - W // 2, T)
+                edge_rel = [_rel(bad[0][:, rows], o_ref[:, rows]), _rel(bad[2][:, rows], refs[0][:, rows])]
+                kernel_rel = [_rel(o[:, rows], o_ref[:, rows]), _rel(grads[0][:, rows], refs[0][:, rows])]
+                edge = (f"; edge rows: kernel o/dq rel L2 {kernel_rel[0]:.3e}/{kernel_rel[1]:.3e}, planted key past the "
+                        f"song {edge_rel[0]:.3e}/{edge_rel[1]:.3e}")
+                del bad
+                if not max(kernel_rel) < REL_TOL:
+                    failures.append(f"{label}: the rows at the song's edge err by {kernel_rel}")
+                if not min(edge_rel) > REL_TOL:
+                    failures.append(f"{label}: planted key past the song's edge {edge_rel} would pass {REL_TOL}")
+
+            fwd_ms = _cuda_ms(lambda: ha.halo_fwd(q, k, v, *frame, scale), 20)
+            delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
+            dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 10)
+            dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, scale), 10)
+            fwd_plain_ms = _cuda_ms(lambda: ha.halo_fwd_reference(q, k, v, *frame), 1)
+            dq_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dq_reference(q, k, v, o, lse_ref, do, *frame), 1)
+            dkv_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dkv_reference(q, k, v, o, lse_ref, do, *frame), 1)
+            S = T + W
+            bounds = {  # q o; k v; lse / q o do dq; k v; lse delta / q do; k v; lse delta; dk dv in fp32
+                "fwd": _bound(halo_flops("forward", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 1)),
+                "dq": _bound(halo_flops("backward_dq", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 4, 2, 2)),
+                "dkv": _bound(halo_flops("backward_dkv", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 2, f32_slabs=2)),
+            }
+            _log(f"[halo kernels] {label}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e}, lse max abs {lse_err:.3e}; "
+                 f"backward {'; '.join(parts)}; planted short window {', '.join(f'{x:.3e}' for x in short_rel)}{edge}; "
+                 f"slab rows outside the song zero; two launches bit-identical")
+            _log(f"[halo kernels] {label}: forward {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f} by {bounds['fwd'][1]}; plain "
+                 f"{fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f}; plain {dq_plain_ms:.3f}); dkv "
+                 f"{dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}; plain {dkv_plain_ms:.3f})")
+            if W == 4096 and shard == 1:
+                # yardstick only: PyTorch's fused attention on the same rotated inputs under a dense
+                # (T_local, T_local + W) band-and-bounds mask, and its backward; both visit every tile
+                t_idx = torch.arange(T, device="cuda")[:, None]
+                s_idx = torch.arange(S, device="cuda")[None, :]
+                mask = (s_idx >= t_idx) & (s_idx <= t_idx + W) & (s_idx >= lo) & (s_idx < hi)
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+                def library(q_in, k_in, v_in):
+                    return F.scaled_dot_product_attention(q_in.transpose(1, 2), k_in[:, None], v_in[:, None],
+                                                          attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+                with torch.no_grad():
+                    lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 2)
+                lib_out = library(*leaves)
+                lib_rel = _rel(lib_out, o.float())
+                lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 2)
+                _log(f"[halo kernels] {label}: SDPA with a band-and-bounds mask forward {lib_fwd_ms:.3f} ms, vs kernel rel L2 "
+                     f"{lib_rel:.1e}; its backward {lib_bwd_ms:.3f} ms (dq + dkv: {dq_ms + dkv_ms:.3f} ms)")
+                if not lib_rel < LIBRARY_REL_TOL:
+                    failures.append(f"{label}: SDPA with a band-and-bounds mask differs from the kernel by {lib_rel:.3e}")
+                del mask, leaves, lib_out, t_idx, s_idx
+                if shards == 4:
+                    # the one library backward yields dq, dk and dv: each kernel of the pair is set beside the whole of it
+                    records = {"fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "library_ms": lib_fwd_ms},
+                               "dq": {"ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": lib_bwd_ms},
+                               "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "library_ms": lib_bwd_ms}}
+                    for key, rec in records.items():
+                        rec["bound_ms"], rec["bound_by"] = bounds[key]
+            del q, k, v, do, o, lse, grads, o_ref, lse_ref, refs, delta
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("halo kernels vs plain: " + "; ".join(failures))
+    return tuple({"max_abs_err": worst[key], **records[key]} for key in ("fwd", "dq", "dkv"))
+
+
+def phase_halo_composition() -> None:
+    """The halo kernels over the four shards of a song against the
+    single-card windowed kernels on the whole song."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
+
+    T, W, shards, H, D = HALO_SONG, 4096, 4, 16, 64
+    scale, w2, t_local = D**-0.5, W // 2, T // shards
+    g = torch.Generator(device="cuda").manual_seed(500)
+    q, do = (torch.randn((1, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, T, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    cos, sin = rope_tables(T, D, scale_base=float(W), device="cuda")
+    k_rot = fa.rotated_k(k, cos, sin)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True)
+    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale)
+
+    q_rot = apply_rope(q.float(), cos, sin).to(torch.bfloat16)
+    k_pad, v_pad = (F.pad(t, (0, 0, w2, w2)) for t in (k_rot, v))  # the exchange's zeros past the ends
+    o_parts, lse_parts, dq_parts = [], [], []
+    dk_slab = torch.zeros((1, T + W, D), device="cuda")
+    dv_slab = torch.zeros_like(dk_slab)
+    for g0 in range(0, T, t_local):
+        frame = (W, g0, T)
+        q_s, do_s = q_rot[:, g0 : g0 + t_local].contiguous(), do[:, g0 : g0 + t_local].contiguous()
+        k_s, v_s = k_pad[:, g0 : g0 + t_local + W].contiguous(), v_pad[:, g0 : g0 + t_local + W].contiguous()
+        o_s, lse_s = ha.halo_fwd(q_s, k_s, v_s, *frame, scale)
+        dq_s, delta_s = ha.halo_bwd_dq(q_s, k_s, v_s, o_s, lse_s, do_s, *frame, scale)
+        dk_s, dv_s = ha.halo_bwd_dkv(q_s, k_s, v_s, lse_s, delta_s, do_s, *frame, scale)
+        o_parts.append(o_s)
+        lse_parts.append(lse_s)
+        dq_parts.append(dq_s)
+        dk_slab[:, g0 : g0 + t_local + W] += dk_s  # each slab's gradient back onto its home rows
+        dv_slab[:, g0 : g0 + t_local + W] += dv_s
+    torch.cuda.synchronize()
+    got = {"o": torch.cat(o_parts, dim=1), "dq": unapply_rope(torch.cat(dq_parts, dim=1).float(), cos, sin),
+           "dk": dk_slab[:, w2 : w2 + T], "dv": dv_slab[:, w2 : w2 + T]}
+    rels = {name: _rel(got[name], want.float()) for name, want in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv))}
+    lse_err = (torch.cat(lse_parts, dim=1) - lse).abs().max().item()
+    outside = max(t.abs().max().item() for t in (dk_slab[:, :w2], dk_slab[:, w2 + T :], dv_slab[:, :w2], dv_slab[:, w2 + T :]))
+    _log(f"[halo composition] {shards} shards of T={T} W={W} through the halo kernels vs the single-card windowed kernels: "
+         f"rel L2 {', '.join(f'{n} {r:.3e}' for n, r in rels.items())} (bound {REL_TOL}); lse max abs {lse_err:.3e}; "
+         f"dk, dv past the song's ends {outside:.1e}")
+    if not (max(rels.values()) < REL_TOL and lse_err < LSE_TOL and outside == 0.0):
+        raise AssertionError(f"halo composition: rel L2 {rels}, lse max abs {lse_err:.3e}, dk/dv past the ends {outside}")
+
+
+SEQ_SHARDS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _halo_counts(ha, reset: bool = False) -> dict:
+    if reset:
+        ha.halo_fwd.launches = ha.halo_bwd_dq.launches = ha.halo_bwd_dkv.launches = 0
+    return {"halo_fwd": ha.halo_fwd.launches, "halo_bwd_dq": ha.halo_bwd_dq.launches, "halo_bwd_dkv": ha.halo_bwd_dkv.launches}
+
+
+def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
+    """One process of phase 12, in torchrun's environment: every count set to
+    0, ``trainer.train`` for one step with a save, again from the checkpoint
+    for a second step, the counts read; (rank, error, result) put on
+    ``results``."""
+    import os
+    import traceback
+
+    os.environ.update({"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": str(SEQ_SHARDS),
+                       "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(SEQ_SHARDS)})
+    try:
+        import torch.distributed as dist
+
+        from osufusion_tpu_torch.ops import flash_attention as fa
+        from osufusion_tpu_torch.ops import halo_attention as ha
+        from osufusion_tpu_torch.parallel.distributed import local_device
+        from osufusion_tpu_torch.trainer import train
+
+        cfg = _fullsong_config("mixed", Path(project_dir), steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
+        torch.cuda.set_device(local_device())
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa)
+        _halo_counts(ha, reset=True)
+        history = train(cfg)
+        history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2, resume="latest")))
+        torch.cuda.synchronize()
+        launches = {**_halo_counts(ha), **_launches(fa)}
+        results.put((rank, None, {"history": history, "launches": launches, "backend": dist.get_backend(),
+                                  "device": str(local_device()), "peak": torch.cuda.max_memory_allocated() / 2**30}))
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails on it
+        results.put((rank, traceback.format_exc(), None))
+
+
+def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
+    """Sequence-parallel training in SEQ_SHARDS processes (phase 12); returns
+    rank 0's launches over its two steps."""
+    import multiprocessing
+    import queue as queue_module
+
+    cfg = _fullsong_config("mixed", workdir / "seq", steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
+    sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+    steps, again = 2, FULLSONG_PLANS["mixed"][1]
+    expected = {"halo_fwd": (sites + again) * steps, "halo_bwd_dq": sites * steps, "halo_bwd_dkv": sites * steps,
+                "forward": 0, "forward_lse": 0, "backward_fused": 0, "backward_dq": 0, "backward_dkv": 0}
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    torch.cuda.empty_cache()
+    procs = [ctx.Process(target=_seq_rank, args=(r, port, str(workdir / "seq"), results)) for r in range(SEQ_SHARDS)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + 900
+    try:
+        while len(got) < SEQ_SHARDS:
+            try:
+                rank, error, value = results.get(timeout=5)
+            except queue_module.Empty:
+                if time.monotonic() > deadline or any(p.exitcode is not None and r not in got for r, p in enumerate(procs)):
+                    raise AssertionError(f"sequence-parallel training: ranks {sorted(set(range(SEQ_SHARDS)) - set(got))} "
+                                         f"did not report (exit codes {[p.exitcode for p in procs]})") from None
+                continue
+            if error is not None:
+                raise AssertionError(f"sequence-parallel rank {rank}:\n{error}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for rank, r in sorted(got.items()):
+        history = r["history"]
+        _log(f"[seq train] rank {rank} of {SEQ_SHARDS} on {r['device']} ({r['backend']}; {torch.cuda.device_count()} card(s) "
+             f"visible): dim_h=512 B=1 T={FULLSONG_T} ({FULLSONG_T // SEQ_SHARDS} frames a rank) full bf16 mixed, 2 steps "
+             f"(save and resume at 1): loss {[round(h['loss'], 5) for h in history]}; grad_norm "
+             f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 3) for h in history]}; "
+             f"peak memory {r['peak']:.2f} GiB; launches over 2 steps {r['launches']} (expected {expected})")
+        if [h["step"] for h in history] != [1, 2]:
+            raise AssertionError(f"sequence-parallel rank {rank}: steps {[h['step'] for h in history]}, expected [1, 2]")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in history):
+            raise AssertionError(f"sequence-parallel rank {rank}: non-finite or zero loss or grad_norm {history}")
+        if r["launches"] != expected:
+            raise AssertionError(f"sequence-parallel rank {rank}: launches {r['launches']}, expected {expected}")
+    losses = [[(h["loss"], h["grad_norm"]) for h in r["history"]] for r in got.values()]
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"the sequence-parallel ranks report different losses or norms: {losses}")
+    rel = abs(losses[0][0][0] - one_card_losses[0]) / abs(one_card_losses[0])
+    _log(f"[seq train] step 1 loss {losses[0][0][0]:.6f} vs one card {one_card_losses[0]:.6f} (phase 9, same seed and batch): "
+         f"rel {rel:.3e} (bound {LOSS_REL_TOL})")
+    if not rel < LOSS_REL_TOL:
+        raise AssertionError(f"sequence-parallel step 1 loss {losses[0][0][0]} vs one card {one_card_losses[0]}")
+    return got[0]["launches"]
 
 
 def phase_serve_trained(workdir: Path) -> None:
@@ -876,10 +1217,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    name, _ = phase_device()
+    name, smi = phase_device()
     kernel = phase_kernel()
     fwd_lse, bwd = phase_train_kernels()
     fwd_lse_windowed, bwd_dq, bwd_dkv = phase_windowed_kernels()
+    halo_fwd, halo_dq, halo_dkv = phase_halo_kernels()
+    phase_halo_composition()
     model, cpu, gpu = build_unet_pair()
     phase_unet(cpu, gpu)
     del cpu
@@ -898,12 +1241,16 @@ def main() -> int:
         lse_launches, bwd_launches = phase_train(Path(tmp))
         phase_serve_trained(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        fullsong = phase_fullsong_train(Path(tmp))
+        fullsong, fullsong_losses = phase_fullsong_train(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = phase_seq_train(Path(tmp), fullsong_losses)
     if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
         raise AssertionError("the port imported jax or the JAX package")
+    _log(f"[device] nvidia-smi: {smi}")  # again here, so that the end of the output names the card too
     fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
                   "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
     windowed_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu"}
+    halo_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_halo.cu"}
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
         {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
@@ -914,6 +1261,12 @@ def main() -> int:
          "launches": fullsong["backward_dq"], **bwd_dq},
         {"name": "flash_bwd_dkv", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:507",
          "launches": fullsong["backward_dkv"], **bwd_dkv},
+        {"name": "halo_fwd", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:938",
+         "launches": seq["halo_fwd"], **halo_fwd},
+        {"name": "halo_bwd_dq", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1054",
+         "launches": seq["halo_bwd_dq"], **halo_dq},
+        {"name": "halo_bwd_dkv", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1099",
+         "launches": seq["halo_bwd_dkv"], **halo_dkv},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

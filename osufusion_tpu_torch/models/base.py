@@ -23,6 +23,7 @@ import torch
 
 from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
 from osufusion_tpu_torch.nn.unet import UNet
+from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_sum
 
 
 def to_channel_last(x: torch.Tensor) -> torch.Tensor:
@@ -35,8 +36,17 @@ def to_channel_first(x: torch.Tensor) -> torch.Tensor:
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, orig_len: Optional[torch.Tensor]) -> torch.Tensor:
     """MSE over valid frames only: the squared error summed over frames
-    t < orig_len, over (valid frames x C), the denominator at least 1."""
+    t < orig_len, over (valid frames x C), the denominator at least 1.
+
+    Under a sequence shard pred and target hold this rank's frames: the mask
+    takes their global indices and both sums run over the group. The value is
+    the song's loss on every rank; its gradient is this rank's share, its own
+    frames' error over the song's denominator, so that the shares' gradients
+    sum to the loss's (``parallel/sequence.py``)."""
     se = (pred - target) ** 2  # (B, T, C)
+    shard = active_shard()
+    if shard is not None:
+        return _sharded_mse(se, orig_len, shard)
     if orig_len is None:
         return se.mean()
     _, T, C = se.shape
@@ -44,6 +54,18 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, orig_len: Optional[torc
     num = (se * mask[..., None]).sum()
     den = mask.sum() * C
     return num / den.clamp(min=1.0)
+
+
+def _sharded_mse(se: torch.Tensor, orig_len: Optional[torch.Tensor], shard) -> torch.Tensor:
+    _, T, C = se.shape
+    if orig_len is None:
+        num, den = se.sum(), se.numel() * shard.count
+    else:
+        frames = torch.arange(shard.g0(T), shard.g0(T) + T, device=se.device)
+        mask = (frames[None, :] < orig_len[:, None]).to(se.dtype)  # (B, T)
+        num, den = (se * mask[..., None]).sum(), all_reduce_sum(mask.sum() * C, shard).clamp(min=1.0)
+    share = num / den
+    return share + (all_reduce_sum(share.detach(), shard) - share.detach())
 
 
 class GenerativeModel:

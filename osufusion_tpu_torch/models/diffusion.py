@@ -13,6 +13,7 @@ import torch
 from osufusion_tpu_torch.models import ddim
 from osufusion_tpu_torch.models.base import GenerativeModel, masked_mse, to_channel_first, to_channel_last
 from osufusion_tpu_torch.nn.unet import UNet
+from osufusion_tpu_torch.parallel.sequence import active_shard, frames_of
 
 
 class DiffusionModel(GenerativeModel):
@@ -30,9 +31,16 @@ class DiffusionModel(GenerativeModel):
         orig_len: Optional[torch.Tensor] = None,  # (B,) valid frames
     ) -> torch.Tensor:
         """The training loss (a float32 scalar) with noise, timesteps and the
-        conditioning mask drawn from ``generator``."""
+        conditioning mask drawn from ``generator``. Under a sequence shard x
+        and a hold this rank's frames; the noise is drawn for the whole song,
+        as on one device, and this rank takes its frames, so n ranks with one
+        generator state make the one-device step's draws."""
         B = x.shape[0]
-        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        shard = active_shard()
+        song = x.shape if shard is None else (*x.shape[:-1], x.shape[-1] * shard.count)
+        noise = torch.randn(song, generator=generator, device=x.device, dtype=x.dtype)
+        if shard is not None:
+            noise = frames_of(noise, shard, dim=-1)
         t = torch.randint(0, self.cfg.train_timesteps, (B,), generator=generator, device=x.device)
         cond_mask = torch.rand((B,), generator=generator, device=x.device) < 1.0 - self.cfg.cond_drop_prob
         return self.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)

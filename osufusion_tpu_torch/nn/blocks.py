@@ -7,6 +7,14 @@ a ``state_dict`` by renaming leaves and transposing kernels
 (``utils/convert.py``). ``MatmulConv`` becomes ``nn.Conv1d``: its shifted-matmul
 form exists only for the TPU's matrix unit. Input widths the flax modules infer
 at first call are constructor arguments here.
+
+Under a sequence shard (``parallel/sequence.py``) the modules hold this rank's
+frames, and the steps that cross a shard boundary are written out, each exact
+against the one-device op: a padding convolution exchanges k // 2 frames with
+the neighbours and pads nothing; ``Downsample`` takes one frame from the right
+neighbour and reflects only at the song's end; GroupNorm's statistics,
+GlobalContext's softmax over T and the squeeze-excite mean are sums over the
+group; attention uses the song's length for its RoPE tables and its window.
 """
 
 from __future__ import annotations
@@ -22,15 +30,18 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from osufusion_tpu_torch.ops.attention import sdpa
 from osufusion_tpu_torch.ops.rope import rope_tables
+from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_max, all_reduce_sum, exchange_halo
 
 # Rematerialisation policies (``jax.checkpoint``'s ``policy``): the outputs of
 # the listed operations are kept from the forward, everything else is computed
 # again in the backward. They see what the dispatcher sees, which is why the
 # attention is a ``torch.library.custom_op``.
 # ``save_only_these_names("flash_o", "flash_lse")``: the attention's o, LSE and
-# rotated k stay, so the backward never runs the attention forward again
+# rotated k stay (the halo op's o and LSE at a sequence-sharded site), so the
+# backward never runs the attention forward again
 KEEP_ATTENTION_OUTPUTS = functools.partial(
-    create_selective_checkpoint_contexts, [torch.ops.osufusion_tpu_torch.flash_attention.default])
+    create_selective_checkpoint_contexts,
+    [torch.ops.osufusion_tpu_torch.flash_attention.default, torch.ops.osufusion_tpu_torch.halo_attention.default])
 # ``dots_saveable``: convolutions (matrix products in the JAX package) and matrix products
 _aten = torch.ops.aten
 KEEP_DOTS = functools.partial(
@@ -51,8 +62,18 @@ def remat(module: Callable, *args, policy: Optional[Callable] = None):
 
 
 def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a (B, C, T) convolution to channel-last x."""
-    return conv(x.transpose(1, 2)).transpose(1, 2)
+    """Apply a (B, C, T) convolution to channel-last x. Under a sequence
+    shard a padding convolution takes its padding from the neighbours."""
+    shard = active_shard()
+    pad = conv.padding[0]
+    if shard is None or pad == 0:
+        return conv(x.transpose(1, 2)).transpose(1, 2)
+    return valid_conv(conv, exchange_halo(x, pad, pad, shard))
+
+
+def valid_conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` without its padding on channel-last x."""
+    return F.conv1d(x.transpose(1, 2), conv.weight, conv.bias, conv.stride).transpose(1, 2)
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -110,8 +131,16 @@ class CrossEmbedLayer(nn.Module):
             self.add_module(f"Conv_{idx}", nn.Conv1d(dim_in, dim_scale, kernel, padding=kernel // 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xt = x.transpose(1, 2)
-        return torch.cat([getattr(self, f"Conv_{i}")(xt) for i in range(self.n)], dim=1).transpose(1, 2)
+        convs = [getattr(self, f"Conv_{i}") for i in range(self.n)]
+        shard = active_shard()
+        if shard is None:
+            xt = x.transpose(1, 2)
+            return torch.cat([conv(xt) for conv in convs], dim=1).transpose(1, 2)
+        # one exchange of the widest kernel's halo serves every kernel
+        halo = max(conv.padding[0] for conv in convs)
+        xe = exchange_halo(x, halo, halo, shard)
+        cut = [halo - conv.padding[0] for conv in convs]
+        return torch.cat([valid_conv(conv, xe[:, c : xe.shape[1] - c]) for conv, c in zip(convs, cut)], dim=-1)
 
 
 class Downsample(nn.Module):
@@ -122,7 +151,17 @@ class Downsample(nn.Module):
         self.Conv_0 = nn.Conv1d(dim_in, dim_out, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_0(F.pad(x.transpose(1, 2), (0, 1), mode="reflect")).transpose(1, 2)
+        shard = active_shard()
+        if shard is None:
+            return self.Conv_0(F.pad(x.transpose(1, 2), (0, 1), mode="reflect")).transpose(1, 2)
+        if x.shape[1] % 2:
+            raise ValueError(f"a sequence shard of {x.shape[1]} frames cannot be halved")
+        x_ext = exchange_halo(x, 0, 1, shard)  # every rank sends its first frame left
+        if shard.index == shard.count - 1:
+            # the song's end reflects; the exchange stays in the graph, so that its
+            # backward, which takes the left neighbour's gradient, runs here too
+            x_ext = torch.cat([x_ext[:, :-1], x[:, -2:-1]], dim=1)
+        return valid_conv(self.Conv_0, x_ext)
 
 
 class Upsample(nn.Module):
@@ -145,8 +184,7 @@ class ParallelConvOut(nn.Module):
         self.Conv_1 = nn.Conv1d(dim_in, dim_out, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xt = x.transpose(1, 2)
-        return (self.Conv_0(xt) + self.Conv_1(xt)).transpose(1, 2)
+        return conv_cl(self.Conv_0, x) + conv_cl(self.Conv_1, x)
 
 
 class GlobalContext(nn.Module):
@@ -161,8 +199,16 @@ class GlobalContext(nn.Module):
         self.Dense_2 = nn.Linear(inner, dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = torch.softmax(self.Dense_0(x).float(), dim=1).to(x.dtype)  # (B, T, 1)
-        pooled = torch.einsum("btc,btk->bkc", x, w)  # (B, 1, C)
+        logits = self.Dense_0(x).float()  # (B, T, 1)
+        shard = active_shard()
+        if shard is None:
+            w = torch.softmax(logits, dim=1).to(x.dtype)
+            pooled = torch.einsum("btc,btk->bkc", x, w)  # (B, 1, C)
+        else:  # the softmax over the song's frames, and the pooled sum, over the group
+            e = torch.exp(logits - all_reduce_max(logits.amax(dim=1, keepdim=True), shard))
+            w = (e / all_reduce_sum(e.sum(dim=1, keepdim=True), shard)).to(x.dtype)
+            part = torch.einsum("btc,btk->bkc", x, w)
+            pooled = all_reduce_sum(part.float(), shard).to(part.dtype)
         return torch.sigmoid(self.Dense_2(F.silu(self.Dense_1(pooled))))
 
 
@@ -176,7 +222,12 @@ class SqueezeExcite(nn.Module):
         self.Dense_1 = nn.Linear(inner, dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pooled = x.mean(dim=1, keepdim=True)
+        shard = active_shard()
+        if shard is None:
+            pooled = x.mean(dim=1, keepdim=True)
+        else:
+            total = all_reduce_sum(x.float().sum(dim=1, keepdim=True), shard)
+            pooled = (total / (x.shape[1] * shard.count)).to(x.dtype)
         return torch.sigmoid(self.Dense_1(F.silu(self.Dense_0(pooled))))
 
 
@@ -195,7 +246,13 @@ class GroupNorm1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+        shard = active_shard()
+        if shard is None:
+            var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+        else:  # two passes over the group, as var_mean's own numerics: the mean, then centred squares
+            n = xf.shape[1] * xf.shape[2] * shard.count
+            mean = all_reduce_sum(xf.sum(dim=(1, 2), keepdim=True), shard) / n
+            var = all_reduce_sum((xf - mean).square().sum(dim=(1, 2), keepdim=True), shard) / n
         y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
         return y.to(x.dtype)
 
@@ -245,7 +302,8 @@ class ResidualBlock(nn.Module):
 class Attention(nn.Module):
     """Pre-LN MQA/GQA self-attention with length-rescaled RoPE. The residual
     adds the attention output to the NORMALIZED input, as the JAX block does.
-    The window (= context_len) engages only when T > context_len.
+    The window (= context_len) engages only when T > context_len, T the
+    song's length (under a sequence shard, every shard's frames together).
     ``self.sdpa`` is the attention function, ``ops.attention.sdpa``; a check
     that wants the plain version on the GPU sets it on the module."""
 
@@ -267,8 +325,10 @@ class Attention(nn.Module):
         k, v = self.to_kv(x).chunk(2, dim=-1)
         k = k.reshape(B, T, self.kv_heads, self.dim_head)
         v = v.reshape(B, T, self.kv_heads, self.dim_head)
-        rope = rope_tables(T, self.dim_head, scale_base=self.context_len, device=x.device)
-        window = self.context_len if (self.local and T > self.context_len) else None
+        shard = active_shard()
+        t_song = T * shard.count if shard is not None else T
+        rope = rope_tables(t_song, self.dim_head, scale_base=self.context_len, device=x.device)
+        window = self.context_len if (self.local and t_song > self.context_len) else None
         out = self.sdpa(q, k, v, window, rope)
         return x + self.to_out(out.reshape(B, T, self.heads * self.dim_head))
 

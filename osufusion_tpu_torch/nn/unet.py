@@ -19,6 +19,11 @@ convolutions and matrix products. ``mixed`` gives each width level its own
 mode (``cfg.remat_level_modes``; ``down_i``, the audio stack's ``layer_i`` and
 the up block of the same width share level i), and ``cfg.audio_remat_mode``
 overrides the audio stack's as a whole.
+
+Under a sequence shard (``parallel/sequence.py``) x and a hold this rank's
+frames of the song. The song's length must then be a multiple of the shard
+count times 2^depth, so that no level's shard is cut and nothing is padded:
+one rank cannot pad the song's end for the others.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from osufusion_tpu_torch.nn.blocks import (
     conv_cl,
     remat,
 )
+from osufusion_tpu_torch.parallel.sequence import active_shard
 
 X_PAD_VALUE = -1.0
 A_PAD_VALUE = -23.0
@@ -236,8 +242,16 @@ class UNet(nn.Module):
         return self.null_cond.dtype
 
     def _pad_len(self, n: int) -> int:
+        """Frames to pad a sequence of n frames with; under a sequence shard n
+        is this rank's and the answer is 0, or a ValueError."""
         mult = 2**self.n
-        return (mult - n % mult) % mult
+        shard = active_shard()
+        if shard is None:
+            return (mult - n % mult) % mult
+        if n % mult:
+            raise ValueError(f"a sequence-sharded song of {n * shard.count} frames must be a multiple of "
+                             f"{shard.count} shards x 2^{self.n} = {shard.count * mult} frames")
+        return 0
 
     def encode_audio(self, a: torch.Tensor) -> torch.Tensor:
         """(B, T, 96) spectrogram -> bottleneck features (B, T/2^(d-1), top_dim).

@@ -6,7 +6,12 @@ an MQA self-attention site on the CPU that needs a gradient: both go through
 ``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
 so a rematerialisation policy that keeps the op's outputs is the same on both
 devices. Any other CPU tensor takes the plain forward with native autograd.
-``gqa_attention`` is that plain forward's math: KV heads stay un-repeated,
+Under a sequence shard (``parallel/sequence.py``) a windowed site that the
+halo kernels take runs them on this rank's frames; any other site gathers the
+whole sequence, attends as on one device and keeps this rank's rows, which is
+what GSPMD does in the JAX package where no sharded kernel applies (the
+ring attention of global sites is still to port, ROADMAP.md queue 2, K6).
+``gqa_attention`` is the plain forward's math: KV heads stay un-repeated,
 logits and softmax are float32, and queries are taken in chunks so a
 full-song sequence never materialises a (B, H, T, S) logits tensor.
 """
@@ -16,6 +21,14 @@ from __future__ import annotations
 import torch
 
 from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, needs_gradient
+from osufusion_tpu_torch.ops.rope import apply_rope
+from osufusion_tpu_torch.parallel.sequence import (
+    active_shard,
+    all_gather_frames,
+    frames_of,
+    seq_parallel_available,
+    sequence_parallel_attention,
+)
 
 # queries per chunk of the plain path: bounds its logits to
 # (B, H, QUERY_CHUNK, keys) however long the sequence is
@@ -30,7 +43,22 @@ def sdpa(
     rope: tuple,  # (cos, sin) tables (T, D)
 ) -> torch.Tensor:
     """Rotary-embedded attention, optionally windowed (each query sees keys
-    within +/- window/2). Returns (B, T, H, D) in q's dtype."""
+    within +/- window/2). Returns (B, T, H, D) in q's dtype. Under a sequence
+    shard q, k and v hold this rank's frames and the tables cover the whole
+    song."""
+    shard = active_shard()
+    if shard is None:
+        return _local_sdpa(q, k, v, window, rope)
+    if seq_parallel_available(q.shape[1], window, q.shape[-1], k.shape[2], shard.count):
+        cos, sin = (frames_of(t, shard, dim=0).float() for t in rope)
+        q_rot = apply_rope(q.float(), cos, sin).to(q.dtype)
+        k_rot = apply_rope(k[:, :, 0].float(), cos, sin).to(k.dtype)
+        return sequence_parallel_attention(q_rot, k_rot, v[:, :, 0], window, shard)
+    whole = (all_gather_frames(t, shard) for t in (q, k, v))
+    return frames_of(_local_sdpa(*whole, window, rope), shard)
+
+
+def _local_sdpa(q, k, v, window, rope) -> torch.Tensor:
     if q.is_cuda or (needs_gradient(q, k, v) and k.shape[2] == 1 and k.shape[1] == q.shape[1]):
         return flash_attention(q, k, v, window, rope)
     return flash_attention_reference(q, k, v, window, rope)

@@ -51,7 +51,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # library name -> source; each becomes a shared library of its own
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed")}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "flash_halo")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -104,6 +104,12 @@ _ENTRY_POINTS = {
     "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q k v do lse delta cos sin dk dv | B T S H window | scale | stream
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # q k v o lse | B T H window g0 t_global | scale | stream
+    "halo_fwd_bf16": ("flash_halo", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # q k v do o lse delta dq | B T H window g0 t_global | scale | stream
+    "halo_bwd_dq_bf16": ("flash_halo", [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # q k v do lse delta dk dv | B T H window g0 t_global | scale | stream
+    "halo_bwd_dkv_bf16": ("flash_halo", [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
 }
 
 
@@ -451,12 +457,19 @@ def flash_fwd_lse_reference(
 ):
     """Plain version of ``flash_fwd(..., return_lse=True)`` in fp32:
     (o (B, T, H, D), lse2 (B, T*H)), the logits in the exp2 domain."""
-    B, T, H, D = q.shape
     qs = _scaled_rotated_q(q, cos, sin)
-    kf, vf = k_rot.float(), v.float()
-    o = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, T, H), dtype=torch.float32, device=q.device)
-    for rows, keys, outside in _query_chunks(T, kf.shape[1], window, q.device):
+    return forward_chunks(qs, k_rot, v, _query_chunks(q.shape[1], k_rot.shape[1], window, q.device))
+
+
+def forward_chunks(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunks):
+    """The forward's arithmetic in fp32 over ``chunks`` of (rows, keys,
+    outside), as ``_query_chunks`` yields them: o (B, T, H, D) and the base-2
+    LSE (B, T*H) of the exp2-domain logits qs k^T. Every row must see a key."""
+    B, T, H, D = qs.shape
+    kf, vf = k.float(), v.float()
+    o = torch.empty((B, T, H, D), dtype=torch.float32, device=qs.device)
+    lse = torch.empty((B, T, H), dtype=torch.float32, device=qs.device)
+    for rows, keys, outside in chunks:
         s2 = torch.einsum("bthd,bsd->bths", qs[:, rows], kf[:, keys])
         if outside is not None:
             s2 = s2.masked_fill(outside, -torch.inf)
@@ -468,21 +481,27 @@ def flash_fwd_lse_reference(
     return o, lse.reshape(B, T * H)
 
 
-def _backward_chunks(q, k_rot, v, o, lse, do, cos, sin, window):
-    """What both windowed backward kernels recompute, per chunk of query rows:
-    (rows, keys, qs, k, do, p, ds) with p = exp2(qs k^T - lse2), zero outside
-    the window, and ds = p (do v^T - rowsum(do o)); all fp32."""
-    B, T, H, D = q.shape
-    qs = _scaled_rotated_q(q, cos, sin)
-    kf, vf, dof = k_rot.float(), v.float(), do.float()
+def backward_chunks(qs, k, v, o, lse, do, chunks):
+    """What the split backward kernels recompute, per chunk of query rows of
+    ``chunks`` (as ``forward_chunks`` takes them): (rows, keys, qs, k, do, p,
+    ds) with p = exp2(qs k^T - lse2), zero outside the window, and ds = p (do
+    v^T - rowsum(do o)); all fp32."""
+    B, T, H, D = qs.shape
+    kf, vf, dof = k.float(), v.float(), do.float()
     lse3 = lse.reshape(B, T, H, 1)
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
-    for rows, keys, outside in _query_chunks(T, kf.shape[1], window, q.device):
+    for rows, keys, outside in chunks:
         p = torch.exp2(torch.einsum("bthd,bsd->bths", qs[:, rows], kf[:, keys]) - lse3[:, rows])
         if outside is not None:
             p = p.masked_fill(outside, 0.0)
         ds = p * (torch.einsum("bthd,bsd->bths", dof[:, rows], vf[:, keys]) - delta[:, rows])
         yield rows, keys, qs[:, rows], kf[:, keys], dof[:, rows], p, ds
+
+
+def _backward_chunks(q, k_rot, v, o, lse, do, cos, sin, window):
+    """``backward_chunks`` at a self-attention site with fused q-RoPE."""
+    chunks = _query_chunks(q.shape[1], k_rot.shape[1], window, q.device)
+    return backward_chunks(_scaled_rotated_q(q, cos, sin), k_rot, v, o, lse, do, chunks)
 
 
 def flash_bwd_dq_reference(

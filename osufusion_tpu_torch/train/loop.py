@@ -1,6 +1,7 @@
-"""The training loop on one device (``osufusion_tpu/train/loop.py``): AdamW
-with a linear-warmup half-cosine schedule, gradient accumulation, optional
-clipping, grad-norm telemetry, checkpoints with pruning and resume.
+"""The training loop (``osufusion_tpu/train/loop.py``): AdamW with a
+linear-warmup half-cosine schedule, gradient accumulation, optional clipping,
+grad-norm telemetry, checkpoints with pruning and resume; on one device, or
+sequence-parallel over the processes of a ``seq`` group.
 
 What differs from the JAX package, and why:
 
@@ -24,7 +25,13 @@ What differs from the JAX package, and why:
   ``checkpoints/<step>/state.pt``, holding parameters, optimizer state, step
   and generator state; the JAX package writes Orbax directories. The data
   position file is the JAX package's ``{"epoch", "index"}`` json.
-- One device: no mesh, no optimizer-state sharding, no multi-host.
+- Sequence parallelism (``--mesh-seq N``) is eager too: every rank of the
+  ``seq`` group takes its frames of the same padded batch (the JAX step's
+  ``batch_shardings``), runs the loss and its backward under the ambient
+  shard (the JAX step's ``set_mesh``; ``parallel/sequence.py``), and sums its
+  gradients over the group, so that every rank holds the whole loss's
+  gradient and clips and steps the same. Data and tensor parallelism, and
+  optimizer-state sharding, are not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from osufusion_tpu_torch.config import Config
 from osufusion_tpu_torch.models.base import GenerativeModel
 from osufusion_tpu_torch.nn.unet import UNet
+from osufusion_tpu_torch.parallel.sequence import SeqShard, all_reduce_, frames_of, sequence_sharding
 
 # optax.adamw's defaults
 ADAMW_BETAS = (0.9, 0.999)
@@ -85,9 +93,14 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError("fp8 training is not ported yet (ROADMAP.md, queue 1: ops/quant.py)")
     if cfg.train.mixed_precision not in ("no", "bf16"):
         raise ValueError(f"unknown mixed precision mode: {cfg.train.mixed_precision!r}")
-    if cfg.train.mesh_model != 1 or cfg.train.mesh_seq != 1 or cfg.train.mesh_data not in (-1, 1):
+    if cfg.train.mesh_model != 1:
         raise NotImplementedError(
-            "training runs on one device; meshes are not ported yet (ROADMAP.md, queue 1: parallel/)")
+            "tensor parallelism (--mesh-model) is not ported yet (ROADMAP.md, queue 1: parallel/mesh.py param_shardings)")
+    if cfg.train.mesh_data not in (-1, 1):
+        raise NotImplementedError(
+            "data parallelism (--mesh-data) with ZeRO-1 is not ported yet (ROADMAP.md, queue 1, item 16)")
+    if cfg.train.mesh_seq < 1:
+        raise ValueError(f"--mesh-seq must be at least 1, got {cfg.train.mesh_seq}")
 
 
 def make_optimizer(cfg: Config, params: UNet) -> torch.optim.Optimizer:
@@ -112,7 +125,28 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
 
 
-def make_train_step(model: GenerativeModel, cfg: Config):
+def shard_frames(batch, shard: SeqShard, multiple: int):
+    """This shard's frames of the frame axis (the last) of x and a; c and
+    orig_len whole. The padded length must split into ``shard.count`` shards
+    of a multiple of ``multiple`` (2^depth) frames each."""
+    x, a, c, orig_len = batch
+    n = x.shape[-1]
+    if n % (shard.count * multiple):
+        raise ValueError(f"a batch of {n} frames does not split into {shard.count} sequence shards of a multiple of "
+                         f"{multiple} frames: pad it to a multiple of {shard.count * multiple}")
+    return frames_of(x, shard, dim=-1), frames_of(a, shard, dim=-1), c, orig_len
+
+
+def sum_gradients(params: UNet, shard: SeqShard) -> None:
+    """Sum every gradient over the group in place, in fp32."""
+    for p in params.parameters():
+        if p.grad is not None:
+            summed = all_reduce_(p.grad.float(), shard)
+            if summed is not p.grad:
+                p.grad.copy_(summed)
+
+
+def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShard] = None):
     """Build ``step(state, batch, draws=None) -> metrics``.
 
     ``batch`` is (x, a, c, orig_len) as numpy arrays or tensors, (B, ...) or,
@@ -121,7 +155,8 @@ def make_train_step(model: GenerativeModel, cfg: Config):
     ``grad_norm`` (before clipping) and ``lr`` (the rate this step used).
     ``draws``, one (noise, t, cond_mask) per micro-batch, replaces the
     generator's draws: the tests use it to hold both packages to the same
-    random numbers."""
+    random numbers. With ``shard`` every rank of its group passes the same
+    whole batch (and draws) and takes its frames."""
     check_supported(cfg)
     schedule = make_lr_schedule(cfg)
     accum = max(1, cfg.train.gradient_accumulation_steps)
@@ -138,14 +173,22 @@ def make_train_step(model: GenerativeModel, cfg: Config):
 
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=device)
-        for i in range(accum):
-            x, a, c, orig_len = (b[i] for b in batch)
-            if draws is None:
-                loss = model.loss(params, state.generator, x, a, c, orig_len)
-            else:
-                loss = model.loss_from_draws(params, x, a, c, orig_len, *draws[i])
-            (loss / accum).backward()
-            loss_sum += loss.detach()
+        with sequence_sharding(shard):
+            for i in range(accum):
+                x, a, c, orig_len = (b[i] for b in batch)
+                if shard is not None:
+                    x, a, c, orig_len = shard_frames((x, a, c, orig_len), shard, 2 ** len(model.model_cfg.dim_h_mult))
+                if draws is None:
+                    loss = model.loss(params, state.generator, x, a, c, orig_len)
+                else:
+                    noise, t, cond_mask = draws[i]
+                    if shard is not None:
+                        noise = frames_of(noise, shard, dim=-1)
+                    loss = model.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
+                (loss / accum).backward()
+                loss_sum += loss.detach()
+        if shard is not None:
+            sum_gradients(params, shard)
 
         grads = [p.grad for p in params.parameters() if p.grad is not None]
         grad_norm = global_norm(grads)

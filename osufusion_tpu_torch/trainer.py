@@ -16,10 +16,22 @@ checkpoints with the data position beside them, and at the end writes
 ``model.safetensors`` under the flax names, so the result serves in this
 package (``serve.load_model``) and in the JAX package alike.
 
+and sequence-parallel over N processes, one per GPU (``parallel/sequence.py``;
+the padded length must be a multiple of N x 2^depth):
+
+    torchrun --standalone --nproc-per-node 2 -m osufusion_tpu_torch.trainer \
+        --mesh-seq 2 --dummy-dataset --segment-length 32768 --batch-size 1 \
+        --full-bf16 --gradient-checkpointing --gradient-checkpointing-mode mixed
+
+The JAX package's multi-host flags (``--coordinator``, ``--num-processes``,
+``--process-id``, the process id being the global rank) or torchrun's
+environment reach ``parallel/distributed.py::maybe_initialize``. Rank 0 writes
+the checkpoints, the data position, the metrics and the final export.
+
 Flags whose feature is not ported raise ``NotImplementedError`` naming the
 ROADMAP.md queue item: ``--model-backbone dit|mmdit``, ``--model-type
-rectified-flow``, ``--mixed-precision fp16|fp8``, ``--opt-moments int8``, any
-mesh other than one device, the multi-host flags, and the periodic sample
+rectified-flow``, ``--mixed-precision fp16|fp8``, ``--opt-moments int8``,
+``--mesh-data`` and ``--mesh-model`` above 1, and the periodic sample
 (``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
 ``mixed`` with ``--gradient-checkpointing-levels`` included; the audio stack's
 override is ``model.audio_remat_mode`` of the config, which has no flag, as in
@@ -42,8 +54,17 @@ import torch
 
 from osufusion_tpu_torch.config import Config, DiffusionConfig, ModelConfig, TrainConfig
 from osufusion_tpu_torch.models import build_model
+from osufusion_tpu_torch.parallel.distributed import (
+    barrier,
+    is_main_process,
+    local_device,
+    maybe_initialize,
+    process_count,
+)
+from osufusion_tpu_torch.parallel.mesh import make_mesh
 from osufusion_tpu_torch.train import data as D
 from osufusion_tpu_torch.train.loop import (
+    check_supported,
     init_state,
     load_data_state,
     make_train_step,
@@ -63,36 +84,58 @@ def save_model_safetensors(params, path: Path) -> None:
 
 
 def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
-    """Run the loop to ``cfg.train.total_steps`` on ``device`` (the first GPU
-    without it; a CPU only when asked). Returns each step's metrics
-    ({"step", "loss", "grad_norm", "lr", "seconds"}) for callers that check a
-    run; the CLI ignores them."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("training runs on an NVIDIA GPU; none is visible (pass device='cpu' to run on the CPU)")
-        device = "cuda"
+    """Run the loop to ``cfg.train.total_steps`` on ``device`` (without it the
+    GPU of this process, ``parallel/distributed.py::local_device``; a CPU only
+    when asked, with gloo between processes). Under torchrun (or after
+    ``maybe_initialize``) every process runs this, one shard each of
+    ``--mesh-seq``. Returns each step's metrics ({"step", "loss", "grad_norm",
+    "lr", "seconds"}) for callers that check a run; the CLI ignores them."""
+    check_supported(cfg)
     if cfg.train.sample_audio is not None:
         raise NotImplementedError(
             "the periodic sample during training is not ported yet (ROADMAP.md, queue 1, item 12: sample_step with models/dpm.py)")
-    print("Initializing...")
+    mode = cfg.train.dataset_mode
+    bucket = min(D.BUCKET, max(64, cfg.train.segment_length))
+    pad_to = D.process_invariant_pad(mode, cfg.train.segment_length, cfg.train.max_length) if mode == "dummy" else None
+    multiple = cfg.train.mesh_seq * 2 ** len(cfg.model.dim_h_mult)
+    if pad_to is not None and cfg.train.mesh_seq > 1 and (-(-pad_to // bucket) * bucket) % multiple:
+        raise ValueError(f"batches of {-(-pad_to // bucket) * bucket} frames do not split into --mesh-seq "
+                         f"{cfg.train.mesh_seq} shards of a multiple of 2^{len(cfg.model.dim_h_mult)} frames: "
+                         f"the padded length must be a multiple of {multiple}")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("training runs on an NVIDIA GPU; none is visible (pass device='cpu' to run on the CPU)")
+        device = local_device()
+        torch.cuda.set_device(device)
+    maybe_initialize(backend="gloo" if str(device) == "cpu" else None)
+    if process_count() != cfg.train.mesh_seq:
+        raise ValueError(f"--mesh-seq {cfg.train.mesh_seq} runs one process per shard, this run has {process_count()} "
+                         f"(data parallelism over more is not ported, ROADMAP.md queue 1, item 16): "
+                         f"torchrun --nproc-per-node {cfg.train.mesh_seq} -m osufusion_tpu_torch.trainer ...")
+    shard = make_mesh(data=1, model=1, seq=cfg.train.mesh_seq).seq_shard()
+    main = is_main_process()
+    say = print if main else (lambda *args, **kwargs: None)
+
+    say("Initializing...")
     project_dir = Path(cfg.train.project_dir)
-    project_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(project_dir / "config.json")
+    if main:
+        project_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save(project_dir / "config.json")
 
     model = build_model(cfg.model, cfg.diffusion)
     state = init_state(model, cfg, device)
     n_params = sum(p.numel() for p in state.params.parameters())
-    print(f"model: {cfg.diffusion.objective} dim_h={cfg.model.dim_h} ({n_params / 1e6:.1f}M params) on {device}")
-    step_fn = make_train_step(model, cfg)
+    say(f"model: {cfg.diffusion.objective} dim_h={cfg.model.dim_h} ({n_params / 1e6:.1f}M params) on {device}"
+        + (f", sequence-parallel over {shard.count} processes" if shard is not None else ""))
+    step_fn = make_train_step(model, cfg, shard)
 
     if cfg.train.resume is not None:
         state = restore_checkpoint(project_dir, state)
         if cfg.train.reset_steps:
             state.step = 0
-        print(f"resumed at step {state.step}")
+        say(f"resumed at step {state.step}")
 
-    print("Loading dataset...")
-    mode = cfg.train.dataset_mode
+    say("Loading dataset...")
     paths = sorted(Path(cfg.train.dataset_dir).rglob("*.map.npz")) if mode != "dummy" else []
     if cfg.train.max_length > 0 and paths:
         paths = D.filter_dataset(paths, cfg.train.max_length)
@@ -101,18 +144,16 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
         segment_sr=cfg.train.segment_sr, sample_density=cfg.train.sample_density,
     )
     accum = max(1, cfg.train.gradient_accumulation_steps)
-    bucket = min(D.BUCKET, max(64, cfg.train.segment_length))
     data_state = load_data_state(project_dir, current_step=state.step) if cfg.train.resume else None
-    pad_to = D.process_invariant_pad(mode, cfg.train.segment_length, cfg.train.max_length) if mode == "dummy" else None
     batches = D.DataPipeline(
         dataset, cfg.train.batch_size * accum, bucket=bucket, num_workers=cfg.train.num_workers,
         start=data_state, pad_to=pad_to,
     )
 
-    logger = MetricLogger(project_dir)
+    logger = MetricLogger(project_dir) if main else None
     losses: list[float] = []
     history: list[dict] = []
-    print("Training...")
+    say("Training...")
     t_last = time.time()
     while state.step < cfg.train.total_steps:
         batch = next(batches)
@@ -128,22 +169,27 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
 
         dt = time.time() - t_last
         t_last = time.time()
-        print(f"step {state.step} loss={loss:.5f} avg={avg_loss:.5f} norm={norm:.4f} lr={lr:.2e} ({dt:.2f}s)", flush=True)
-        logger.log({"loss": loss, "total_norm": norm, "lr": lr}, step=state.step)
+        say(f"step {state.step} loss={loss:.5f} avg={avg_loss:.5f} norm={norm:.4f} lr={lr:.2e} ({dt:.2f}s)", flush=True)
         history.append({"step": state.step, "loss": loss, "grad_norm": norm, "lr": lr, "seconds": dt})
+        if main:
+            logger.log({"loss": loss, "total_norm": norm, "lr": lr}, step=state.step)
 
         if cfg.train.save_every > 0 and state.step % cfg.train.save_every == 0:
-            logger.log({"save_loss": avg_loss}, step=state.step)
-            save_checkpoint(project_dir, state, cfg.train.max_num_checkpoints)
-            save_data_state(project_dir, state.step, batches)
+            if main:  # every rank holds the same state
+                logger.log({"save_loss": avg_loss}, step=state.step)
+                save_checkpoint(project_dir, state, cfg.train.max_num_checkpoints)
+                save_data_state(project_dir, state.step, batches)
+            barrier()
 
-    save_model_safetensors(state.params, project_dir / "model.safetensors")
-    logger.close()
-    print("Done.")
+    if main:
+        save_model_safetensors(state.params, project_dir / "model.safetensors")
+        logger.close()
+    barrier()
+    say("Done.")
     return history
 
 
-def parse_args(argv=None) -> Config:
+def _parser() -> ArgumentParser:
     p = ArgumentParser()
     p.add_argument("--project-dir", type=str, default="runs/default")
     p.add_argument("--dataset-dir", type=str, default="data")
@@ -198,11 +244,16 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--coordinator", type=str, default=None, help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    args = p.parse_args(argv)
+    return p
 
-    if args.coordinator is not None or args.num_processes not in (None, 1) or args.process_id not in (None, 0):
-        raise NotImplementedError("multi-host training is not ported yet (ROADMAP.md, queue 1: parallel/distributed.py)")
 
+def parse_args(argv=None) -> Config:
+    """The run's configuration from the command line (the launch flags are
+    ``main``'s)."""
+    return config_from_args(_parser().parse_args(argv))
+
+
+def config_from_args(args) -> Config:
     if args.dummy_dataset:
         mode = "dummy"
     elif args.full_sequence:
@@ -260,5 +311,13 @@ def parse_args(argv=None) -> Config:
     return Config(model=model, diffusion=diffusion, train=train_cfg)
 
 
+def main(argv=None) -> None:
+    """The CLI: join the other processes (the launch flags or torchrun's
+    environment), then train."""
+    args = _parser().parse_args(argv)
+    maybe_initialize(args.coordinator, args.num_processes, args.process_id)
+    train(config_from_args(args))
+
+
 if __name__ == "__main__":
-    train(parse_args())
+    main()

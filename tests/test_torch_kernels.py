@@ -1,6 +1,7 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
-global backward, the windowed dq / dkv pair, and the differentiable op that
-joins them) against their plain PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
+global backward, the windowed dq / dkv pair, the halo forward / dq / dkv of
+sequence parallelism, and the differentiable ops that join them) against
+their plain PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
+from osufusion_tpu_torch.ops import halo_attention as ha
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 
 # bf16 output of a softmax-weighted mean of N(0, 1) values: one bf16 rounding
@@ -213,3 +215,80 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
         fa.flash_bwd(q, k, v, q, lse[:, :-1], do, cos, sin, 0.125)
     with pytest.raises(ValueError):
         fa.flash_bwd(q, k, v, q, lse, do.transpose(1, 2).contiguous().transpose(1, 2), cos, sin, 0.125)
+
+
+# (B, T_local, H, window, shards, shard): the first, an interior and the last
+# of four shards; the largest halo (window / 2 == T_local); a window that no
+# tile divides at H = 3 and a T_local that is no multiple of 64; one shard
+# that is the whole song
+HALO_CASES = [(1, 256, 16, 128, 4, s) for s in range(4)] + [
+    (1, 128, 16, 256, 4, 0), (1, 128, 16, 256, 4, 3), (2, 200, 3, 100, 3, 1), (2, 200, 3, 100, 3, 2),
+    (1, 300, 5, 64, 1, 0),
+]
+
+
+def _halo_inputs(B, T, H, window, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((B, T, H, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    # slab rows outside the song hold random values too: the kernels must not look at them
+    k, v = (torch.randn((B, T + window, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,window,shards,shard", HALO_CASES)
+def test_halo_kernels_match_plain(cuda, B, T, H, window, shards, shard):
+    q, k, v, do = _halo_inputs(B, T, H, window, cuda, seed=T + shard)
+    frame = (window, shard * T, shards * T)
+    before = (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
+    o, lse = ha.halo_fwd(q, k, v, *frame, 0.125)
+    dq, delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
+    dk, dv = ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, 0.125)
+    torch.cuda.synchronize()
+    assert (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, *frame)
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, *frame),
+            *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, *frame))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+    lo, hi = ha.slab_bounds(T, *frame)
+    for grad in (dk, dv):  # the slab rows outside the song get no gradient at all
+        assert not grad[:, :lo].any() and not grad[:, hi:].any()
+    dq2, delta2 = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
+    dk2, dv2 = ha.halo_bwd_dkv(q, k, v, lse, delta2, do, *frame, 0.125)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+def test_halo_op_under_a_gradient_runs_the_halo_kernels(cuda):
+    B, T, H, window = 1, 256, 16, 128
+    q, k, v, do = _halo_inputs(B, T, H, window, cuda, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
+    ha.halo_flash_attention(*leaves, window, T, 4 * T).backward(do)
+    assert (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    ha.halo_fwd_reference(*ref_leaves, window, T, 4 * T)[0].backward(do.float())  # autograd through the plain forward
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
+        assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
+
+
+@pytest.mark.cuda
+def test_halo_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _halo_inputs(1, 128, 4, 64, cuda, seed=0)
+    stats = torch.zeros((1, 128 * 4), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        ha.halo_fwd(q.cpu(), k.cpu(), v.cpu(), 64, 0, 256, 0.125)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ha.halo_bwd_dq(q, k, v, q, stats, do.float(), 64, 0, 256, 0.125)
+    with pytest.raises(ValueError, match="float32"):
+        ha.halo_bwd_dkv(q, k, v, stats, stats.bfloat16(), do, 64, 0, 256, 0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        ha.halo_fwd(q, k[:, :-2], v[:, :-2], 64, 0, 256, 0.125)
+    with pytest.raises(ValueError, match="even"):
+        ha.halo_fwd(q, k[:, :-1], v[:, :-1], 63, 0, 256, 0.125)
+    with pytest.raises(ValueError, match="inside the song"):
+        ha.halo_fwd(q, k, v, 64, 200, 256, 0.125)

@@ -240,6 +240,7 @@ def test_precision_modes_take_a_finite_step(precision):
     (["--mixed-precision", "fp8"], "fp8"),
     (["--opt-moments", "int8"], "quant_opt"),
     (["--mesh-model", "2"], "parallel"),
+    (["--mesh-data", "2"], "item 16"),
     (["--sample-audio", "song.wav"], "sample"),
     (["--model-backbone", "dit"], "dit"),
     (["--model-type", "rectified-flow"], "rectified"),
@@ -286,9 +287,49 @@ def test_trainer_takes_steps_under_the_mixed_plan_at_a_windowed_length(tmp_path)
     assert Config.load(tmp_path / "config.json").model == model_cfg
 
 
-def test_multi_host_flags_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        parse_args(["--coordinator", "host:1234", "--num-processes", "2", "--process-id", "0"])
+LAUNCH_ENV = ("OSUFUSION_COORDINATOR", "OSUFUSION_NUM_PROCESSES", "OSUFUSION_PROCESS_ID", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+@pytest.mark.parametrize("how", ["flags", "osufusion-env", "torchrun-env"])
+def test_launch_settings_reach_maybe_initialize(tmp_path, monkeypatch, how):
+    """The JAX package's multi-host flags, their environment variables and
+    torchrun's environment all reach ``init_process_group`` through the CLI
+    (gloo here: this machine has no GPU), before the run starts."""
+    import torch.distributed as dist
+
+    from osufusion_tpu_torch import trainer
+
+    calls = []
+    for name in LAUNCH_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(trainer, "train", lambda cfg: calls.append(cfg))
+    argv = ["--dummy-dataset", "--project-dir", str(tmp_path), "--mesh-seq", "2"]
+    if how == "flags":
+        argv += ["--coordinator", "host0:1234", "--num-processes", "2", "--process-id", "1"]
+    elif how == "osufusion-env":
+        for name, value in (("COORDINATOR", "host0:1234"), ("NUM_PROCESSES", "2"), ("PROCESS_ID", "1")):
+            monkeypatch.setenv(f"OSUFUSION_{name}", value)
+    else:
+        for name, value in (("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1"), ("LOCAL_WORLD_SIZE", "2")):
+            monkeypatch.setenv(name, value)
+    trainer.main(argv)
+    (backend, kw), cfg = calls
+    method = "env://" if how == "torchrun-env" else "tcp://host0:1234"
+    assert backend == "gloo" and kw == {"init_method": method, "world_size": 2, "rank": 1}
+    assert cfg.train.mesh_seq == 2
+
+
+def test_sequence_parallel_length_must_split(tmp_path):
+    """Dummy batches of 64 frames do not split into 3 shards of a multiple of
+    2^4 frames: the trainer says so before it starts any process group."""
+    cfg = parse_args(["--dummy-dataset", "--project-dir", str(tmp_path), "--segment-length", "32", "--mesh-seq", "3"])
+    with pytest.raises(ValueError, match="multiple of 48"):
+        train(cfg, device="cpu")
+    with pytest.raises(ValueError, match="--mesh-seq 2 runs one process per shard"):  # 64 splits in two; one process
+        train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mesh_seq=2)), device="cpu")
 
 
 def test_trained_checkpoint_serves_in_both_packages(tmp_path):
