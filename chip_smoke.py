@@ -72,6 +72,28 @@ failure raises and the exit code is not 0:
     one card both processes share it over gloo, whose collectives go through
     host memory.
 
+13. Grouped kernels, the attention of the DiT and MMDiT backbones (D=64,
+    bf16, no rotary tables): the forward with its LSE and the fused backward
+    in their grouped form (k, v (B, T, Kv, D)) vs their plain fp32 versions at
+    DiT's training site (B=4, T=4096, H=Kv=8), MMDiT's packed site (B=4,
+    T=2048, H=8, Kv=2), a ragged length (B=4, T=4000, H=Kv=8), and, forward
+    only, a DiT serving a 180 s song under CFG (B=2, T=24576, H=Kv=8): two
+    planted faults above the bound (query head h against the wrong KV head:
+    h % Kv instead of h // G, at full MHA the next head; an LSE off by 0.05),
+    CUDA-event times, the bound, and ``scaled_dot_product_attention`` with
+    ``enable_gqa``, forward and backward, as the yardstick.
+14. Gradient checks of DiT and MMDiT at dim_h=512, depth 12, B=2, T=4096
+    (weights random everywhere): bf16 through the kernels vs fp32 through the
+    plain versions, both on the GPU.
+15. DiT and MMDiT training: ``trainer.train`` on the dummy dataset at
+    dim_h=512, depth 12, 8 heads, B=4, T=4096, full bf16, 4 steps with a save
+    and a resume half way, without and with ``--gradient-checkpointing``:
+    s/step, peak memory, MFU, and the grouped kernels' launches per step.
+16. DiT serving: the ``model.safetensors`` the DiT trainer wrote, loaded by
+    ``serve.load_model``, serves a 60 s song (DDIM-50, CFG 2.0) to an ``.osz``
+    that parses; the grouped forward runs without its LSE once per site and
+    step.
+
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero before printing either.
@@ -691,6 +713,7 @@ def randomize_everywhere(unet, seed: int) -> None:
 
 def _reset_launches(fa) -> None:
     fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    fa.flash_fwd.grouped_launches = fa.flash_bwd.grouped_launches = 0
     fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
 
 
@@ -698,7 +721,8 @@ def _launches(fa) -> dict:
     """Launches since ``_reset_launches``, by kernel form."""
     return {"forward": fa.flash_fwd.launches - fa.flash_fwd.lse_launches, "forward_lse": fa.flash_fwd.lse_launches,
             "backward_fused": fa.flash_bwd.launches, "backward_dq": fa.flash_bwd_dq.launches,
-            "backward_dkv": fa.flash_bwd_dkv.launches}
+            "backward_dkv": fa.flash_bwd_dkv.launches, "forward_grouped": fa.flash_fwd.grouped_launches,
+            "backward_grouped": fa.flash_bwd.grouped_launches}
 
 
 def _flat_grads(unet, only=None) -> torch.Tensor:
@@ -772,15 +796,17 @@ def phase_grad_check(B: int, T: int) -> None:
     sites = 3 * sum(net.cfg.num_layer_blocks) + net.cfg.num_middle_transformers
     windowed = T > net.cfg.attn_context_len
     expected = {"forward": 0, "forward_lse": sites, "backward_fused": 0 if windowed else sites,
-                "backward_dq": sites if windowed else 0, "backward_dkv": sites if windowed else 0}
+                "backward_dq": sites if windowed else 0, "backward_dkv": sites if windowed else 0,
+                "forward_grouped": 0, "backward_grouped": 0}
     if launches != expected:
         raise AssertionError(f"gradient check launched {launches}, expected {expected}")
 
 
-def _train_with_resume(cfg, steps: int, label: str) -> tuple[list[dict], dict, float]:
+def _train_with_resume(cfg, steps: int, label: str, final: str = "final_conv/kernel") -> tuple[list[dict], dict, float]:
     """``trainer.train`` for ``steps`` steps, across a save and a resume half
     way when ``cfg.train.save_every`` says so; checks the steps, the losses
-    and that the final conv moved. Returns (history, launches, peak GiB)."""
+    and that ``final``, a zero-initialised leaf of the output layer, moved.
+    Returns (history, launches, peak GiB)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.trainer import train
     from osufusion_tpu_torch.utils.serialization import load_safetensors
@@ -800,8 +826,8 @@ def _train_with_resume(cfg, steps: int, label: str) -> tuple[list[dict], dict, f
     if not all(h["grad_norm"] > 0 for h in history[1:]):
         raise AssertionError(f"{label}: grad_norm not positive after step 1")
     trained = load_safetensors(Path(cfg.train.project_dir) / "model.safetensors")
-    if not np.abs(trained["params/final_conv/kernel"]).max() > 0:
-        raise AssertionError(f"{label}: the final conv did not move from zero")
+    if not np.abs(trained[f"params/{final}"]).max() > 0:
+        raise AssertionError(f"{label}: the output layer's {final} did not move from zero")
     return history, launches, peak
 
 
@@ -829,7 +855,8 @@ def phase_train(workdir: Path) -> tuple[int, int]:
              f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
              f"{statistics.median(seconds):.4f} s/step (median of steps 2..{steps}: {[round(x, 4) for x in seconds]}); "
              f"peak memory {peak:.2f} GiB; launches over {steps} steps {launches} (sites {sites})")
-        expected = {"forward": 0, "forward_lse": sites * steps, "backward_fused": sites * steps, "backward_dq": 0, "backward_dkv": 0}
+        expected = {"forward": 0, "forward_lse": sites * steps, "backward_fused": sites * steps, "backward_dq": 0, "backward_dkv": 0,
+                    "forward_grouped": 0, "backward_grouped": 0}
         if launches != expected:
             raise AssertionError(f"train {remat}: launches {launches}, expected {expected}")
     return totals[0], totals[1]
@@ -875,7 +902,7 @@ def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
              f"s/step {[round(h['seconds'], 4) for h in history]}; peak memory {peak:.2f} GiB; "
              f"launches over {steps} steps {launches} (sites {sites}, {again} run again per step)")
         expected = {"forward": 0, "forward_lse": (sites + again) * steps, "backward_fused": 0,
-                    "backward_dq": sites * steps, "backward_dkv": sites * steps}
+                    "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
         if launches != expected:
             raise AssertionError(f"full-song {plan}: launches {launches}, expected {expected}")
         if resume:
@@ -1146,7 +1173,8 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
     sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
     steps, again = 2, FULLSONG_PLANS["mixed"][1]
     expected = {"halo_fwd": (sites + again) * steps, "halo_bwd_dq": sites * steps, "halo_bwd_dkv": sites * steps,
-                "forward": 0, "forward_lse": 0, "backward_fused": 0, "backward_dq": 0, "backward_dkv": 0}
+                "forward": 0, "forward_lse": 0, "backward_fused": 0, "backward_dq": 0, "backward_dkv": 0,
+                "forward_grouped": 0, "backward_grouped": 0}
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
@@ -1213,6 +1241,262 @@ def phase_serve_trained(workdir: Path) -> None:
          f"{latency:.3f} s end to end; {len(data)} byte .osz; hit objects {hits}")
 
 
+# the grouped forms of K1 and K2 (DiT, MMDiT; D=64, no rotary tables): (label,
+# B, T, H, Kv, with the backward). DiT's training site; MMDiT's packed [audio;
+# osu] site (4096 frames in patches of 4: 1024 tokens a stream); a length no
+# tile divides; a DiT serving a 180 s song (24576 padded frames) under CFG
+GROUPED_SHAPES = (("DiT train", 4, 4096, 8, 8, True), ("MMDiT train", 4, 2048, 8, 2, True),
+                  ("ragged", 4, 4000, 8, 8, True), ("DiT serve", 2, 24576, 8, 8, False))
+# the transformer cells: dim_h=512, depth 12, heads of 64, B=4, T=4096 (the
+# JAX package's bench cells); MMDiT with 2 KV heads and patches of 4
+TRANSFORMER = dict(dim_h=512, depth=12, attn_heads=8, attn_kv_heads=2, patch_size=4)
+
+
+def _grouped_bytes(B: int, T: int, H: int, Kv: int, D: int, rows: int, keys: int, f32_keys: int, stats: int) -> int:
+    """Bytes of ``rows`` (B,T,H,D) and ``keys`` (B,T,Kv,D) bf16 tensors,
+    ``f32_keys`` (B,T,Kv,D) fp32 ones and ``stats`` (B,T,H) fp32 vectors, each
+    moved once (no tables)."""
+    return B * T * H * D * 2 * rows + B * T * Kv * D * (2 * keys + 4 * f32_keys) + B * T * H * 4 * stats
+
+
+def phase_grouped_kernels() -> tuple[dict, dict, dict]:
+    """K1 and K2 in their grouped form vs their plain versions at
+    GROUPED_SHAPES; returns the records of the forward with its LSE and of the
+    backward at DiT's training site, and of the forward without its LSE at the
+    serving site (errors: the worst over the shapes)."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    D = 64
+    scale = D**-0.5
+    failures, records, worst = [], {}, {"fwd": 0.0, "bwd": 0.0}
+    for i, (label, B, T, H, Kv, backward) in enumerate(GROUPED_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, T, Kv, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        G = H // Kv
+        # planted fault: query head h against KV head h % Kv instead of h // G (at full MHA, where the
+        # two agree, against the next head)
+        wrong = torch.arange(H, device="cuda") % Kv if G > 1 else (torch.arange(H, device="cuda") + 1) % H
+        where = f"{label} (B={B} T={T} H={H} Kv={Kv})"
+
+        o, lse = fa.flash_fwd(q, k, v, None, None, -1, scale, return_lse=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k, v, None, None)
+        o_fault = fa.flash_fwd_lse_reference(q, k[:, :, wrong], v[:, :, wrong], None, None)[0]
+        o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+        lse_err, head_fault = (lse - lse_ref).abs().max().item(), _rel(o_fault, o_ref)
+        del o_fault
+        worst["fwd"] = max(worst["fwd"], o_err)
+        if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(lse).all()):
+            failures.append(f"forward {where}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+        if not head_fault > REL_TOL:
+            failures.append(f"forward {where}: planted head fault {head_fault:.3e} would pass {REL_TOL}")
+        parts = []
+        if backward:
+            dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, None, None, scale)
+            torch.cuda.synchronize()
+            refs = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, None, None)
+            faults = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref + LSE_FAULT, do, None, None)
+            for name, got, ref, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+                rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+                fault_rel = _rel(fault, ref)
+                worst["bwd"] = max(worst["bwd"], err)
+                parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (lse fault {fault_rel:.3e})")
+                if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all()):
+                    failures.append(f"backward {where}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+                if not fault_rel > BWD_REL_TOL:
+                    failures.append(f"backward {where}: planted lse fault in {name} {fault_rel:.3e} would pass {BWD_REL_TOL}")
+            del refs, faults, dq, dk, dv
+        del o_ref, lse_ref
+        _log(f"[grouped kernels] {where}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} (head fault {head_fault:.3e}), "
+             f"lse max abs {lse_err:.3e}" + (f"; backward {'; '.join(parts)}" if parts else ""))
+
+        # times: the forward as the path runs it (with its LSE in training, without in serving)
+        fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k, v, None, None, -1, scale, return_lse=backward), 10)
+        fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k, v, None, None), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # yardstick only, never called by the port
+        with torch.no_grad():
+            lib_fwd_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True), 10)
+        fwd_bound = _bound(attention_flops("forward", B, T, H, D, None),
+                           _grouped_bytes(B, T, H, Kv, D, 2, 2, 0, 1 if backward else 0))  # q o; k v; lse
+        line = (f"[grouped kernels] {where}: forward{' with LSE' if backward else ''} {fwd_ms:.3f} ms (bound "
+                f"{fwd_bound[0]:.3f} by {fwd_bound[1]}; plain {fwd_plain_ms:.3f}; SDPA {lib_fwd_ms:.3f})")
+        rec = {"fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                       "library_ms": lib_fwd_ms}}
+        if backward:
+            bwd_ms = _cuda_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do, None, None, scale), 10)
+            bwd_plain_ms = _cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, o, lse, do, None, None), 2)
+            leaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt, vt)]
+            lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True)
+            lib_rel = _rel(lib_out.transpose(1, 2), o.float())
+            dot = do.transpose(1, 2)
+            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True), 10)
+            del lib_out, leaves
+            bwd_bound = _bound(attention_flops("backward_fused", B, T, H, D, None),
+                               _grouped_bytes(B, T, H, Kv, D, 4, 2, 2, 1))  # q o do dq; k v; dk dv in fp32; lse
+            line += (f"; backward {bwd_ms:.3f} ms (bound {bwd_bound[0]:.3f} by {bwd_bound[1]}; plain {bwd_plain_ms:.3f}; "
+                     f"SDPA backward {lib_bwd_ms:.3f}); SDPA vs kernel rel L2 {lib_rel:.1e}")
+            if not lib_rel < LIBRARY_REL_TOL:
+                failures.append(f"{where}: SDPA differs from the kernel by {lib_rel:.3e}")
+            rec["bwd"] = {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                          "library_ms": lib_bwd_ms}
+        _log(line)
+        if label == "DiT train":
+            records["fwd_lse"], records["bwd"] = rec["fwd"], rec["bwd"]
+        elif label == "DiT serve":
+            records["fwd"] = rec["fwd"]
+        del q, k, v, do, o, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("grouped kernels vs plain: " + "; ".join(failures))
+    return ({"max_abs_err": worst["fwd"], **records["fwd_lse"]}, {"max_abs_err": worst["bwd"], **records["bwd"]},
+            {"max_abs_err": worst["fwd"], **records["fwd"]})
+
+
+def randomize_transformer(net, seed: int) -> None:
+    """Make every parameter of a DiT or MMDiT random: biases N(0, 0.1),
+    RMSNorm gammas 1 + N(0, 0.1), and the kernels that start at zero (the
+    adaLN modulations, the output layers) N(0, 0.5 / fan_in): a fresh model's
+    zero gates would zero every attention gradient."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+            elif name.endswith("gamma"):
+                p.copy_(1.0 + torch.randn(p.shape, generator=g) * 0.1)
+            elif p.ndim >= 2 and not p.any():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5 / p[0].numel() ** 0.5)
+
+
+def phase_transformer_grad_check(backbone: str, B: int = 2, T: int = 4096) -> None:
+    """DiT or MMDiT at the training width: loss and backward in bf16 through
+    the kernels vs fp32 through the plain versions (under block remat, which
+    keeps the fp32 logits of one block alive), both on the GPU."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.uniform(-1, 1, (B, 5)).astype(np.float32)).cuda()
+    orig_len = torch.tensor([T, T - 700][:B], device="cuda")
+    noise = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    t = torch.tensor([100, 700][:B], device="cuda")
+    cond_mask = torch.tensor([True, False][:B], device="cuda")
+
+    model32 = build_model(ModelConfig(backbone=backbone, dtype="float32", remat=True, **TRANSFORMER), DiffusionConfig())
+    ref = model32.init_params(seed=5, device="cpu")
+    randomize_transformer(ref, seed=6)
+    model16 = build_model(ModelConfig(backbone=backbone, **TRANSFORMER), DiffusionConfig())
+    net = model16.init_params(seed=0, device="cpu")
+    net.load_state_dict(ref.state_dict())
+    ref, net = ref.cuda().train(), net.cuda().train()
+    for module in ref.modules():
+        if hasattr(module, "sdpa"):
+            module.sdpa = fa.flash_attention_reference
+
+    def run(model, params):
+        params.zero_grad(set_to_none=True)
+        loss = model.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                                       for p in params.parameters()])
+
+    _reset_launches(fa)
+    loss16, g16 = run(model16, net)
+    launches = _launches(fa)
+    loss32, g32 = run(model32, ref)
+    rel_all = ((g16 - g32).norm() / g32.norm()).item()
+    rel_loss = abs(loss16 - loss32) / abs(loss32)
+    depth = TRANSFORMER["depth"]
+    _log(f"[grad check {backbone}] dim_h=512 depth {depth} B={B} T={T}: loss bf16/kernels {loss16:.6f}, fp32/plain "
+         f"{loss32:.6f} (rel {rel_loss:.3e}, bound {LOSS_REL_TOL}); gradient rel L2 {rel_all:.3e} (bound {GRAD_REL_TOL}); "
+         f"|grad| {g32.norm().item():.3e}; launches {launches}")
+    if not (np.isfinite(loss16) and torch.isfinite(g16).all()):
+        raise AssertionError(f"gradient check {backbone}: non-finite loss or gradient through the kernels")
+    if not (rel_loss < LOSS_REL_TOL and rel_all < GRAD_REL_TOL):
+        raise AssertionError(f"gradient check {backbone}: loss rel {rel_loss:.3e}, gradient rel L2 {rel_all:.3e}")
+    expected = {"forward": 0, "forward_lse": depth, "backward_fused": depth, "backward_dq": 0, "backward_dkv": 0,
+                "forward_grouped": depth, "backward_grouped": depth}
+    if launches != expected:
+        raise AssertionError(f"gradient check {backbone} launched {launches}, expected {expected}")
+
+
+def phase_transformer_train(backbone: str, workdir: Path) -> dict:
+    """The trainer at the transformer cell, 4 steps with a save and a resume
+    half way, without and with block remat; returns the launches of both runs
+    together."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
+
+    steps, half, B, T = 4, 2, 4, 4096
+    flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}[backbone]
+    totals = {}
+    for remat in (False, True):
+        cfg = Config(
+            model=ModelConfig(backbone=backbone, remat=remat, **TRANSFORMER),
+            # dummy samples are 1024..4096 frames at this segment length, padded to 4096
+            train=TrainConfig(project_dir=str(workdir / f"{backbone}_{'remat' if remat else 'none'}"), dataset_mode="dummy",
+                              segment_length=T // 2, batch_size=B, full_bf16=True, total_steps=half, warmup_steps=2,
+                              save_every=half, num_workers=2, seed=0),
+        )
+        # MMDiT's output layer and the projection before it both start at zero: only the last bias can move
+        history, launches, peak = _train_with_resume(cfg, steps, f"train {backbone}",
+                                                     final="out/bias" if backbone == "mmdit" else "postprocess/kernel")
+        seconds = [h["seconds"] for h in history[1:]]
+        s_step = statistics.median(seconds)
+        mfu = 3 * flops(cfg.model, B, T) / s_step / PEAK_FLOPS
+        depth = cfg.model.depth
+        again = depth if remat else 0
+        _log(f"[train {backbone} {'remat' if remat else 'none'}] dim_h=512 depth {depth} B={B} T={T} full bf16, {steps} steps "
+             f"(save and resume at {half}): loss {[round(h['loss'], 4) for h in history]}; grad_norm "
+             f"{[round(h['grad_norm'], 4) for h in history]}; {s_step:.4f} s/step (median of steps 2..{steps}: "
+             f"{[round(x, 4) for x in seconds]}); MFU {mfu:.4f} (3 x {flops(cfg.model, B, T) / 1e12:.3f} TFLOP a step "
+             f"at {PEAK_FLOPS / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} GiB; launches over {steps} steps {launches}")
+        expected = {"forward": 0, "forward_lse": (depth + again) * steps, "backward_fused": depth * steps,
+                    "backward_dq": 0, "backward_dkv": 0, "forward_grouped": (depth + again) * steps,
+                    "backward_grouped": depth * steps}
+        if launches != expected:
+            raise AssertionError(f"train {backbone}: launches {launches}, expected {expected}")
+        for key, n in launches.items():
+            totals[key] = totals.get(key, 0) + n
+    return totals
+
+
+def phase_serve_dit(workdir: Path) -> int:
+    """The DiT checkpoint the trainer wrote serves a 60 s song; returns the
+    grouped forward's launches."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.serve import generate_beatmap, load_model
+
+    model, params = load_model(workdir / "dit_none" / "model.safetensors")
+    steps = 50
+    wav = workdir / "song_d.wav"
+    synth_song(wav, 60.0, seed=ord("d"))
+    _reset_launches(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, osu_texts = generate_beatmap(model, params, wav, title="smoke d", sampling_timesteps=steps, cond_scale=2.0, seed=0)
+    latency = time.perf_counter() - t0
+    launches = _launches(fa)
+    hits = check_osz(data, osu_texts, 1)
+    expected = {"forward": params.cfg.depth * steps, "forward_lse": 0, "backward_fused": 0, "backward_dq": 0,
+                "backward_dkv": 0, "forward_grouped": params.cfg.depth * steps, "backward_grouped": 0}
+    _log(f"[serve dit] {type(params).__name__} dim_h={params.cfg.dim_h} depth {params.cfg.depth} checkpoint from the "
+         f"trainer, 60 s song, DDIM-{steps}, CFG 2.0: {latency:.3f} s end to end; {len(data)} byte .osz; hit objects "
+         f"{hits}; launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"serve dit: launches {launches}, expected {expected}")
+    return launches["forward_grouped"]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU", file=sys.stderr)
@@ -1244,6 +1528,16 @@ def main() -> int:
         fullsong, fullsong_losses = phase_fullsong_train(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         seq = phase_seq_train(Path(tmp), fullsong_losses)
+    grouped_fwd_lse, grouped_bwd, grouped_fwd = phase_grouped_kernels()
+    for backbone in ("dit", "mmdit"):
+        torch.cuda.empty_cache()
+        phase_transformer_grad_check(backbone)
+    grouped_train = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for backbone in ("dit", "mmdit"):
+            for key, n in phase_transformer_train(backbone, Path(tmp)).items():
+                grouped_train[key] = grouped_train.get(key, 0) + n
+        grouped_serve = phase_serve_dit(Path(tmp))
     if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
         raise AssertionError("the port imported jax or the JAX package")
     _log(f"[device] nvidia-smi: {smi}")  # again here, so that the end of the output names the card too
@@ -1267,6 +1561,11 @@ def main() -> int:
          "launches": seq["halo_bwd_dq"], **halo_dq},
         {"name": "halo_bwd_dkv", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1099",
          "launches": seq["halo_bwd_dkv"], **halo_dkv},
+        {"name": "flash_fwd_grouped", **fwd_source, "launches": grouped_serve, **grouped_fwd},
+        {"name": "flash_fwd_lse_grouped", **fwd_source, "launches": grouped_train["forward_grouped"], **grouped_fwd_lse},
+        {"name": "flash_bwd_grouped", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": grouped_train["backward_grouped"],
+         **grouped_bwd},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,13 +1,16 @@
-// Global MQA flash-attention backward with fused q-RoPE, for Hopper (sm_90a).
+// Global flash-attention backward with fused q-RoPE, for Hopper (sm_90a):
+// MQA, GQA and full MHA.
 //
 // Replaces osufusion_tpu/ops/pallas_attention.py::_bwd_fused_kernel (launched
 // by _flash_bwd_fused): one sweep that recomputes the probabilities from the
 // forward's log-sum-exp and does the five products s, dp, dv, dk, dq.
 //
-// Inputs: raw q (B, T, H, D) bf16, pre-rotated k and v (B, S, D) bf16, do and
-// o (B, T, H, D) bf16, lse2 (B, T*H) fp32 in t-major order, the cos/sin tables
-// (T, D) fp32. lse2 is the base-2 log-sum-exp of the forward's logits
-// s2 = q_rot k_rot^T * scale * log2(e). A first small kernel writes
+// Inputs: raw q (B, T, H, D) bf16, pre-rotated k and v (B, S, Kv, D) bf16
+// (query head h reads KV head h / G, G = H / Kv), do and o (B, T, H, D) bf16,
+// lse2 (B, T*H) fp32 in t-major order, the cos/sin tables (T, D) fp32, or
+// none (DiT/MMDiT: then q is not rotated and dq not un-rotated). lse2 is the
+// base-2 log-sum-exp of the forward's logits s2 = q_rot k_rot^T * scale *
+// log2(e). A first small kernel writes
 // delta = rowsum(do * o) into a (B, T*H) fp32 scratch buffer (one pass over
 // do and o, eight threads a row), which the JAX package leaves to XLA.
 //
@@ -26,10 +29,15 @@
 //             g cos - rot_half(g sin), before it leaves the registers.
 //
 // Layout and work split (the card's own, not the TPU kernel's):
-//  * One block per (batch element, KV tile of BN = 64 keys). It keeps dk and
-//    dv of its tile for ALL heads in registers (MQA: both sum over heads and
-//    query rows; the (timestep, head) pairs are T*H contiguous rows of q) and
-//    sweeps the query rows in tiles of BM = 64. Blocks share nothing except dq.
+//  * One block per (batch element, KV head, KV tile of BN = 64 keys). It
+//    keeps dk and dv of its tile in registers (both sum over the query rows
+//    of the KV head's group) and sweeps those T*G rows in tiles of BM = 64:
+//    group row r is timestep r / G, head kv * G + r % G. At MQA (Kv = 1) the
+//    rows are the T*H contiguous rows of q and that form is compiled apart
+//    (GROUPED = false), so its code is the MQA kernel's; at full MHA (G = 1,
+//    DiT) a block sweeps the T timesteps of one head. The grid's second axis
+//    over (batch, KV head) stands in for the TPU kernel's timestep fold.
+//    Blocks share nothing except dq.
 //  * dq: each block adds its contribution with fp32 atomicAdd (two floats at
 //    a time) into a zeroed (B, T, H, D) fp32 buffer. The TPU version has no
 //    atomics and writes one partial per KV block instead; that stack is not
@@ -47,8 +55,8 @@
 //    query tile: the simple single stage stays until a measurement asks for
 //    more.
 //
-// Bound: compute (5 products of 2*T*S*H*D each per batch element against
-// q/do/dq traffic of a few hundred bytes per row). dk and dv leave in fp32;
+// Bound: compute (5 products of 2*T*S*D each per batch element and query
+// head, against q/do/dq traffic of a few hundred bytes per row). dk and dv leave in fp32;
 // the wrapper un-rotates dk and casts.
 //
 // C ABI (loaded with ctypes): flash_bwd_bf16 returns cudaGetLastError().
@@ -65,12 +73,13 @@ constexpr int SMEM_BYTES = 6 * TILE * 2;  // k, v; qs, do, p, ds
 
 static_assert(BM == BN, "one tile size serves k, v, qs, do, p and ds");
 
+template <bool GROUPED, bool ROPE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  const float* __restrict__ cos_t, const float* __restrict__ sin_t, float* __restrict__ dq,
-                 float* __restrict__ dk, float* __restrict__ dv, int T, int S, int H, float scale) {
+                 float* __restrict__ dk, float* __restrict__ dv, int T, int S, int H, int Kv, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][LDS]
   __nv_bfloat16* Vs = Ks + BN * LDS;                                // [BN][LDS]
@@ -79,9 +88,12 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __nv_bfloat16* Ps = Os + TILE;                                    // [BM][LDS] p, rows x keys
   __nv_bfloat16* Gs = Ps + TILE;                                    // [BM][LDS] ds, rows x keys
 
-  const int b = blockIdx.y;
+  const int b = GROUPED ? blockIdx.y / Kv : blockIdx.y;
+  const int kv = GROUPED ? blockIdx.y % Kv : 0;
+  const int G = GROUPED ? H / Kv : H;  // heads of the group: its rows are T*G
+  const int kvs = GROUPED ? Kv : 1;    // KV heads of a key row
   const int s0 = blockIdx.x * BN;
-  const int rows = T * H;
+  const int rows = T * G;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -91,15 +103,16 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int mr = lane & 7;   // ldmatrix: row of that matrix
   const int wr = warp * 16;  // this warp's rows of a query tile, and its keys of dk/dv
 
-  const __nv_bfloat16* qb = q + (size_t)b * rows * D;
-  const __nv_bfloat16* dob = dout + (size_t)b * rows * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * D;
-  const float* lseb = lse + (size_t)b * rows;
-  const float* deltab = delta + (size_t)b * rows;
-  float* dqb = dq + (size_t)b * rows * D;
+  const size_t row0 = (size_t)b * T * H + kv * G;  // the group's first (timestep, head) row
+  const __nv_bfloat16* qb = q + row0 * D;
+  const __nv_bfloat16* dob = dout + row0 * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * S * kvs + kv) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * S * kvs + kv) * D;
+  const float* lseb = lse + row0;
+  const float* deltab = delta + row0;
+  float* dqb = dq + row0 * D;
 
-  copy_kv_tile<THREADS>(Ks, Vs, kb, vb, s0, S, tid);
+  copy_kv_tile<THREADS>(Ks, Vs, kb, vb, s0, S, tid, kvs * D);
   cp_async_commit();
   const bool kv_tail = s0 + BN > S;
 
@@ -117,15 +130,16 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const int r0 = it * BM;
 
     // stage do (copied as is) and qs (rotated in fp32, as the forward does)
-    copy_rows<BM, THREADS>(Os, dob, r0, rows, tid);
+    copy_rows<BM, THREADS, GROUPED>(Os, dob, r0, rows, tid, G, H);
     cp_async_commit();
     // this thread's two fragment rows and their statistics; a row past the
     // end gets lse = +inf, so its p and ds are zero
     const int row_a = r0 + wr + g;
     const int row_b = row_a + 8;
-    const float lse_r[2] = {row_a < rows ? lseb[row_a] : INFINITY, row_b < rows ? lseb[row_b] : INFINITY};
-    const float delta_r[2] = {row_a < rows ? deltab[row_a] : 0.f, row_b < rows ? deltab[row_b] : 0.f};
-    stage_qs<BM, THREADS>(Qs, qb, cos_t, sin_t, r0, rows, H, qscale, tid);
+    const int mem_a = group_row<GROUPED>(row_a, G, H), mem_b = group_row<GROUPED>(row_b, G, H);
+    const float lse_r[2] = {row_a < rows ? lseb[mem_a] : INFINITY, row_b < rows ? lseb[mem_b] : INFINITY};
+    const float delta_r[2] = {row_a < rows ? deltab[mem_a] : 0.f, row_b < rows ? deltab[mem_b] : 0.f};
+    stage_qs<BM, THREADS, GROUPED, ROPE>(Qs, qb, cos_t, sin_t, r0, rows, H, qscale, tid, G);
     cp_async_wait<0>();  // do of this tile; on the first tile k and v too
     __syncthreads();
 
@@ -195,22 +209,26 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int i = 0; i < 2; ++i) {
       const int row = i == 0 ? row_a : row_b;
       if (row < rows) {
-        const float* cr = cos_t + (size_t)(row / H) * D;
-        const float* sr = sin_t + (size_t)(row / H) * D;
-        float* dst = dqb + (size_t)row * D;
+        float* dst = dqb + (size_t)(i == 0 ? mem_a : mem_b) * D;
 #pragma unroll
         for (int dt = 0; dt < D / 16; ++dt) {
           const int col = dt * 8 + 2 * tg;
-          const float2 c_lo = *reinterpret_cast<const float2*>(cr + col);
-          const float2 c_hi = *reinterpret_cast<const float2*>(cr + col + D / 2);
-          const float2 s_lo = *reinterpret_cast<const float2*>(sr + col);
-          const float2 s_hi = *reinterpret_cast<const float2*>(sr + col + D / 2);
           const float g_lo0 = dq_acc[dt][2 * i], g_lo1 = dq_acc[dt][2 * i + 1];
           const float g_hi0 = dq_acc[dt + D / 16][2 * i], g_hi1 = dq_acc[dt + D / 16][2 * i + 1];
-          const float2 lo = make_float2((g_lo0 * c_lo.x + g_hi0 * s_hi.x) * scale,
-                                        (g_lo1 * c_lo.y + g_hi1 * s_hi.y) * scale);
-          const float2 hi = make_float2((g_hi0 * c_hi.x - g_lo0 * s_lo.x) * scale,
-                                        (g_hi1 * c_hi.y - g_lo1 * s_lo.y) * scale);
+          float2 lo, hi;
+          if (ROPE) {
+            const float* cr = cos_t + (size_t)(row / G) * D;
+            const float* sr = sin_t + (size_t)(row / G) * D;
+            const float2 c_lo = *reinterpret_cast<const float2*>(cr + col);
+            const float2 c_hi = *reinterpret_cast<const float2*>(cr + col + D / 2);
+            const float2 s_lo = *reinterpret_cast<const float2*>(sr + col);
+            const float2 s_hi = *reinterpret_cast<const float2*>(sr + col + D / 2);
+            lo = make_float2((g_lo0 * c_lo.x + g_hi0 * s_hi.x) * scale, (g_lo1 * c_lo.y + g_hi1 * s_hi.y) * scale);
+            hi = make_float2((g_hi0 * c_hi.x - g_lo0 * s_lo.x) * scale, (g_hi1 * c_hi.y - g_lo1 * s_lo.y) * scale);
+          } else {
+            lo = make_float2(g_lo0 * scale, g_lo1 * scale);
+            hi = make_float2(g_hi0 * scale, g_hi1 * scale);
+          }
           atomicAdd(reinterpret_cast<float2*>(dst + col), lo);
           atomicAdd(reinterpret_cast<float2*>(dst + col + D / 2), hi);
         }
@@ -242,39 +260,45 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   const int key_a = s0 + wr + g;
   const int key_b = key_a + 8;
-  float* dkb = dk + (size_t)b * S * D;
-  float* dvb = dv + (size_t)b * S * D;
+  const int ld = kvs * D;  // elements from one key to the next of dk and dv
+  float* dkb = dk + ((size_t)b * S * kvs + kv) * D;
+  float* dvb = dv + ((size_t)b * S * kvs + kv) * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * tg;
     if (key_a < S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_a * D + col) = make_float2(dk_acc[dt][0] * LN2, dk_acc[dt][1] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_a * D + col) = make_float2(dv_acc[dt][0], dv_acc[dt][1]);
+      *reinterpret_cast<float2*>(dkb + (size_t)key_a * ld + col) = make_float2(dk_acc[dt][0] * LN2, dk_acc[dt][1] * LN2);
+      *reinterpret_cast<float2*>(dvb + (size_t)key_a * ld + col) = make_float2(dv_acc[dt][0], dv_acc[dt][1]);
     }
     if (key_b < S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_b * D + col) = make_float2(dk_acc[dt][2] * LN2, dk_acc[dt][3] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_b * D + col) = make_float2(dv_acc[dt][2], dv_acc[dt][3]);
+      *reinterpret_cast<float2*>(dkb + (size_t)key_b * ld + col) = make_float2(dk_acc[dt][2] * LN2, dk_acc[dt][3] * LN2);
+      *reinterpret_cast<float2*>(dvb + (size_t)key_b * ld + col) = make_float2(dv_acc[dt][2], dv_acc[dt][3]);
     }
   }
 }
 
 }  // namespace
 
-// delta is scratch that the first kernel fills; dq must arrive zeroed.
+// delta is scratch that the first kernel fills; dq must arrive zeroed. Kv KV
+// heads (H % Kv == 0, checked by the caller); cos_t and sin_t null for no
+// rotary embedding.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* o,
                               const void* lse, void* delta, const void* cos_t, const void* sin_t, void* dq, void* dk,
-                              void* dv, int B, int T, int S, int H, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+                              void* dv, int B, int T, int S, int H, int Kv, float scale, void* stream) {
+  const bool rope = cos_t != nullptr;
+  auto kernel = Kv > 1 ? (rope ? flash_bwd_kernel<true, true> : flash_bwd_kernel<true, false>)
+                       : (rope ? flash_bwd_kernel<false, true> : flash_bwd_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = launch_delta(dout, o, delta, (size_t)B * T * H, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BN - 1) / BN, B);
-  flash_bwd_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+  const dim3 grid((S + BN - 1) / BN, B * Kv);
+  kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), T,
-      S, H, scale);
+      S, H, Kv, scale);
   return (int)cudaGetLastError();
 }

@@ -1,27 +1,35 @@
-// Windowed MQA flash-attention forward with fused q-RoPE, for Hopper (sm_90a).
+// Flash-attention forward with fused q-RoPE, for Hopper (sm_90a): MQA, GQA
+// and full MHA, windowed or global.
 //
-// Replaces osufusion_tpu/ops/pallas_attention.py::_fwd_kernel in its
-// forward-only serving form. Semantics: key s is attended by query t iff
-// |t - s| <= window / 2 (window < 0: every key). q arrives raw and is rotated
-// here; k arrives already rotated; the output is softmax(q k^T * scale) v.
-// With a non-null lse pointer (the training form) the kernel also writes, per
-// (b, t, h) row, the base-2 log-sum-exp of its own logits q k^T * scale *
-// log2(e), fp32, flat (B, T*H) in t-major order: what the backward kernel
-// (flash_bwd.cu) recomputes the probabilities from. Serving passes null and
-// pays nothing for it.
+// Replaces osufusion_tpu/ops/pallas_attention.py::_fwd_kernel (launched by
+// _flash_fwd), in its serving, training and DiT/MMDiT forms. Semantics: key s
+// is attended by query t iff |t - s| <= window / 2 (window < 0: every key).
+// With tables, q arrives raw and is rotated here and k arrives already
+// rotated; without them (DiT/MMDiT: null tables) q is only scaled. The output
+// is softmax(q k^T * scale) v, query head h reading KV head h / G (G = H / Kv
+// heads a group). With a non-null lse pointer (the training form) the kernel
+// also writes, per (b, t, h) row, the base-2 log-sum-exp of its own logits
+// q k^T * scale * log2(e), fp32, flat (B, T*H) in t-major order: what the
+// backward kernel (flash_bwd.cu) recomputes the probabilities from. Serving
+// passes null and pays nothing for it.
 //
 // Layout and work split:
-//  * q and o are (B, T, H, D) contiguous, so for one batch element the
-//    (timestep, head) pairs are T*H contiguous rows of D. A block owns BM = 128
-//    such rows (8 timesteps x 16 heads at H = 16: the MQA head fold), and each
-//    of its 8 warps owns 16 rows. Any H works: a row's timestep is row / H.
-//  * k and v are (B, S, D). A block walks the KV tiles of BN = 64 keys that
-//    intersect [t_lo - w/2, t_hi + w/2] inside its own loop (blocks share no
-//    state), copying the next tile into the second shared-memory stage with
-//    cp.async while the current one is used. Each staged tile serves all the
-//    block's heads.
-//  * q is rotated once, on load, in fp32, with scale * log2(e) folded in, and
-//    kept in registers as mma A fragments for the whole KV sweep.
+//  * q and o are (B, T, H, D) contiguous. A block owns BM = 128 (timestep,
+//    head) rows of one KV group: group row r is timestep r / G, head
+//    kv * G + r % G. At MQA (Kv = 1) the group is every head and its rows are
+//    the T*H contiguous rows of q (8 timesteps x 16 heads at H = 16: the head
+//    fold), and that form is compiled apart (GROUPED = false), so its code is
+//    the MQA kernel's; at full MHA (G = 1, DiT) a block is 128 consecutive
+//    timesteps of one head. The grid's second axis runs over (batch, KV head):
+//    that is what the card has in place of the TPU kernel's timestep fold.
+//    Each of the block's 8 warps owns 16 rows.
+//  * k and v are (B, S, Kv, D). A block walks the KV tiles of BN = 64 keys of
+//    its KV head that intersect [t_lo - w/2, t_hi + w/2] inside its own loop
+//    (blocks share no state), copying the next tile into the second
+//    shared-memory stage with cp.async while the current one is used. Each
+//    staged tile serves all the block's rows.
+//  * q is rotated once (ROPE), on load, in fp32, with scale * log2(e) folded
+//    in, and kept in registers as mma A fragments for the whole KV sweep.
 //  * Both products are mma.sync m16n8k16 bf16 -> fp32. The S accumulator of
 //    QK^T is re-packed in registers as the A operand of PV (FlashAttention-2);
 //    V's B operand comes from ldmatrix.trans.
@@ -35,7 +43,7 @@
 // products, which is worth more than the few spilled bytes it costs.
 //
 // C ABI (loaded with ctypes): flash_fwd_bf16 returns cudaGetLastError(); lse
-// may be null.
+// may be null, and cos_t / sin_t are null together or not at all.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,34 +95,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <bool GROUPED, bool ROPE>
 __global__ void __launch_bounds__(THREADS, 2)  // 128 registers a thread, so two blocks share an SM
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ cos_t,
                  const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int T, int S, int H, int window, float scale) {
+                 int T, int S, int H, int Kv, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
   __nv_bfloat16* Ks = Qs + BM * LDS;                                // [2][BN][LDS]
   __nv_bfloat16* Vs = Ks + 2 * BN * LDS;                            // [2][BN][LDS]
 
-  const int b = blockIdx.y;
-  const int rows = T * H;
+  const int b = GROUPED ? blockIdx.y / Kv : blockIdx.y;
+  const int kv = GROUPED ? blockIdx.y % Kv : 0;
+  const int G = GROUPED ? H / Kv : H;  // heads of the group: its rows are T*G
+  const int rows = T * G;
+  const int kvs = GROUPED ? Kv : 1;  // KV heads of a key row
+  const int ld = kvs * D;            // elements from one key to the next
   const int r0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane >> 2;   // mma group: fragment row (and row + 8)
   const int tg = lane & 3;   // thread in group: fragment column pair
+  // (timestep, head) row of q, o and lse that group row r is
+  auto mem = [&](int r) { return GROUPED ? (r / G) * H + r % G : r; };
 
-  const __nv_bfloat16* qb = q + (size_t)b * rows * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * D;
-  __nv_bfloat16* ob = o + (size_t)b * rows * D;
+  const __nv_bfloat16* qb = q + ((size_t)b * T * H + kv * G) * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * S * kvs + kv) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * S * kvs + kv) * D;
+  __nv_bfloat16* ob = o + ((size_t)b * T * H + kv * G) * D;
 
   const bool local = window >= 0;
   const int w2 = window / 2;
-  const int t_lo = r0 / H;
-  const int t_hi = (min(r0 + BM, rows) - 1) / H;
+  const int t_lo = r0 / G;
+  const int t_hi = (min(r0 + BM, rows) - 1) / G;
   const int kv_lo = local ? max(0, t_lo - w2) : 0;
   const int kv_hi = local ? min(S, t_hi + w2 + 1) : S;
   const int n_tiles = (kv_hi - kv_lo + BN - 1) / BN;
@@ -125,7 +140,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       const int col = (c % (D / 8)) * 8;
       const int s = s0 + r;
       const bool ok = s < S;
-      const size_t off = (size_t)(ok ? s : 0) * D + col;
+      const size_t off = (size_t)(ok ? s : 0) * ld + col;
       cp_async16(Ks + (stage * BN + r) * LDS + col, kb + off, ok);
       cp_async16(Vs + (stage * BN + r) * LDS + col, vb + off, ok);
     }
@@ -143,18 +158,27 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const int row = r0 + r;
     float lo[8], hi[8];
     if (row < rows) {
-      const uint4 ql = *reinterpret_cast<const uint4*>(qb + (size_t)row * D + col);
-      const uint4 qh = *reinterpret_cast<const uint4*>(qb + (size_t)row * D + col + D / 2);
+      const __nv_bfloat16* qr = qb + (size_t)mem(row) * D;
+      const uint4 ql = *reinterpret_cast<const uint4*>(qr + col);
+      const uint4 qh = *reinterpret_cast<const uint4*>(qr + col + D / 2);
       const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(&ql);
       const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(&qh);
-      const float* cr = cos_t + (size_t)(row / H) * D;
-      const float* sr = sin_t + (size_t)(row / H) * D;
+      if (ROPE) {
+        const float* cr = cos_t + (size_t)(row / G) * D;
+        const float* sr = sin_t + (size_t)(row / G) * D;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float a = __bfloat162float(xl[j]);
-        const float h = __bfloat162float(xh[j]);
-        lo[j] = (a * cr[col + j] - h * sr[col + j]) * qscale;
-        hi[j] = (h * cr[col + D / 2 + j] + a * sr[col + D / 2 + j]) * qscale;
+        for (int j = 0; j < 8; ++j) {
+          const float a = __bfloat162float(xl[j]);
+          const float h = __bfloat162float(xh[j]);
+          lo[j] = (a * cr[col + j] - h * sr[col + j]) * qscale;
+          hi[j] = (h * cr[col + D / 2 + j] + a * sr[col + D / 2 + j]) * qscale;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          lo[j] = __bfloat162float(xl[j]) * qscale;
+          hi[j] = __bfloat162float(xh[j]) * qscale;
+        }
       }
     } else {
 #pragma unroll
@@ -182,7 +206,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
   }
   // timesteps of this thread's two fragment rows
-  const int tq[2] = {(r0 + wr + g) / H, (r0 + wr + g + 8) / H};
+  const int tq[2] = {(r0 + wr + g) / G, (r0 + wr + g + 8) / G};
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
@@ -296,32 +320,38 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
   const int row_a = r0 + wr + g;
   const int row_b = row_a + 8;
+  const size_t mem_a = mem(row_a), mem_b = mem(row_b);
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + 2 * tg;
     if (row_a < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row_a * D + col) = pack_bf16(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(ob + mem_a * D + col) = pack_bf16(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
     if (row_b < rows)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row_b * D + col) = pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+      *reinterpret_cast<uint32_t*>(ob + mem_b * D + col) = pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
   }
   if (lse != nullptr && tg == 0) {  // the 4 threads of a group hold the same row statistics
-    float* lb = lse + (size_t)b * rows;
-    if (row_a < rows) lb[row_a] = m[0] + log2f(l[0]);
-    if (row_b < rows) lb[row_b] = m[1] + log2f(l[1]);
+    float* lb = lse + (size_t)b * T * H + kv * G;
+    if (row_a < rows) lb[mem_a] = m[0] + log2f(l[0]);
+    if (row_b < rows) lb[mem_b] = m[1] + log2f(l[1]);
   }
 }
 
 }  // namespace
 
+// Kv KV heads (H % Kv == 0, checked by the caller); cos_t and sin_t null for
+// no rotary embedding.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
-                              void* o, void* lse, int B, int T, int S, int H, int window, float scale,
+                              void* o, void* lse, int B, int T, int S, int H, int Kv, int window, float scale,
                               void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const bool rope = cos_t != nullptr;
+  auto kernel = Kv > 1 ? (rope ? flash_fwd_kernel<true, true> : flash_fwd_kernel<true, false>)
+                       : (rope ? flash_fwd_kernel<false, true> : flash_fwd_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T * H + BM - 1) / BM, B);
-  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((T * (H / Kv) + BM - 1) / BM, B * Kv);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, window, scale);
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, Kv, window, scale);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,11 @@
 
 The surface mirrors the JAX package: channel-first (B, C, N) tensors at the
 API edge, and methods that take the denoiser as ``params``. Here ``params`` is
-the ``UNet`` module itself, which holds its weights on its device
-(``init_params``, or ``serve.load_model`` for a checkpoint).
+the denoiser module itself (``UNet``, ``DiT`` or ``MMDiT``, as
+``ModelConfig.backbone`` names it), which holds its weights on its device
+(``init_params``, or ``serve.load_model`` for a checkpoint). Only the UNet has
+an audio encoder to run once per generation; the transformers read the raw
+spectrogram at every call.
 
 Precision: the module computes in the dtype of its parameters. Serving and
 ``full_bf16`` training hold the parameters in the config's compute dtype.
@@ -21,9 +24,22 @@ from typing import Optional
 
 import torch
 
+from torch import nn
+
 from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+from osufusion_tpu_torch.nn.dit import DiT
+from osufusion_tpu_torch.nn.mmdit import MMDiT
 from osufusion_tpu_torch.nn.unet import UNet
 from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_sum
+
+BACKBONES = {"unet": UNet, "dit": DiT, "mmdit": MMDiT}
+
+
+def denoiser_class(cfg: ModelConfig) -> type[nn.Module]:
+    """The module class of ``cfg.backbone``."""
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone: {cfg.backbone}")
+    return BACKBONES[cfg.backbone]
 
 
 def to_channel_last(x: torch.Tensor) -> torch.Tensor:
@@ -69,33 +85,30 @@ def _sharded_mse(se: torch.Tensor, orig_len: Optional[torch.Tensor], shard) -> t
 
 
 class GenerativeModel:
-    """Base: owns the configuration and builds the denoiser (UNet only)."""
+    """Base: owns the configuration and builds the denoiser."""
 
     def __init__(self, model_cfg: ModelConfig, diffusion_cfg: DiffusionConfig) -> None:
-        if model_cfg.backbone in ("dit", "mmdit"):
-            raise NotImplementedError(
-                f"backbone {model_cfg.backbone!r} is not ported yet (ROADMAP.md, queue 1: nn/dit.py and nn/mmdit.py)"
-            )
-        if model_cfg.backbone != "unet":
-            raise ValueError(f"unknown backbone: {model_cfg.backbone}")
+        denoiser_class(model_cfg)
         self.model_cfg = model_cfg
         self.cfg = diffusion_cfg
+        # only the UNet has a separable audio encoder to hoist out of samplers
+        self.has_audio_encoder = model_cfg.backbone == "unet"
 
-    def init_params(self, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None) -> UNet:
-        """A UNet with weights drawn as the JAX package's ``init`` draws them
-        (``UNet.reset_parameters``) from a generator seeded with ``seed``; the
-        global RNG state is left as it was. The module is built without
+    def init_params(self, seed: int = 0, device=None, dtype: Optional[torch.dtype] = None) -> nn.Module:
+        """The denoiser with weights drawn as the JAX package's ``init`` draws
+        them (its ``reset_parameters``) from a generator seeded with ``seed``;
+        the global RNG state is left as it was. The module is built without
         storage and drawn once, in float32 on ``device`` with that device's
         generator (so a seed gives one set of weights per device type), then
         cast to ``dtype`` or without it the config's compute dtype."""
         device = torch.device(device or "cpu")
         with torch.device("meta"):
-            unet = UNet(self.model_cfg)
-        unet = unet.to_empty(device=device)
-        unet.reset_parameters(torch.Generator(device=device).manual_seed(seed))
-        return unet.to(dtype=dtype or self.model_cfg.compute_dtype).eval()
+            net = denoiser_class(self.model_cfg)(self.model_cfg)
+        net = net.to_empty(device=device)
+        net.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+        return net.to(dtype=dtype or self.model_cfg.compute_dtype).eval()
 
-    def compute_context(self, params: UNet):
+    def compute_context(self, params: nn.Module):
         """Autocast to the config's compute dtype when the parameters are held
         in a wider one (mixed precision); otherwise nothing."""
         compute = self.model_cfg.compute_dtype
@@ -103,13 +116,15 @@ class GenerativeModel:
             return contextlib.nullcontext()
         return torch.autocast(device_type=params.null_cond.device.type, dtype=compute)
 
-    def encode_audio(self, params: UNet, a_cf: torch.Tensor) -> torch.Tensor:
-        """(B, 96, N) -> audio features (channel-last), reused across sampling steps."""
-        return params.encode_audio(to_channel_last(a_cf))
+    def encode_audio(self, params: nn.Module, a_cf: torch.Tensor) -> torch.Tensor:
+        """(B, 96, N) -> audio features (channel-last), reused across sampling
+        steps: the UNet's encoder, the spectrogram itself for the transformers."""
+        a = to_channel_last(a_cf)
+        return params.encode_audio(a) if self.has_audio_encoder else a
 
     def _cfg_eps(
         self,
-        params: UNet,
+        params: nn.Module,
         x: torch.Tensor,  # (B, T, C) channel-last
         a_enc: torch.Tensor,
         t: torch.Tensor,  # (B,)

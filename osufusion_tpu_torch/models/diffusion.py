@@ -9,10 +9,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from osufusion_tpu_torch.models import ddim
 from osufusion_tpu_torch.models.base import GenerativeModel, masked_mse, to_channel_first, to_channel_last
-from osufusion_tpu_torch.nn.unet import UNet
 from osufusion_tpu_torch.parallel.sequence import active_shard, frames_of
 
 
@@ -23,7 +23,7 @@ class DiffusionModel(GenerativeModel):
 
     def loss(
         self,
-        params: UNet,
+        params: nn.Module,
         generator: torch.Generator,  # on x's device
         x: torch.Tensor,  # (B, 6, N) channel-first
         a: torch.Tensor,  # (B, 96, N)
@@ -45,7 +45,7 @@ class DiffusionModel(GenerativeModel):
         cond_mask = torch.rand((B,), generator=generator, device=x.device) < 1.0 - self.cfg.cond_drop_prob
         return self.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
 
-    def loss_from_draws(self, params: UNet, x, a, c, orig_len, noise, t, cond_mask) -> torch.Tensor:
+    def loss_from_draws(self, params: nn.Module, x, a, c, orig_len, noise, t, cond_mask) -> torch.Tensor:
         """``loss`` with its random draws handed in: noise (B, 6, N)
         channel-first like x, t (B,) integer, cond_mask (B,) bool."""
         if x.shape[-1] != a.shape[-1]:
@@ -59,7 +59,7 @@ class DiffusionModel(GenerativeModel):
     @torch.inference_mode()
     def sample(
         self,
-        params: UNet,
+        params: nn.Module,
         a: torch.Tensor,  # (B, 96, N)
         c: torch.Tensor,  # (B, 5)
         x: Optional[torch.Tensor] = None,  # (B, 6, N) initial noise

@@ -61,6 +61,19 @@ def remat(module: Callable, *args, policy: Optional[Callable] = None):
     return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
+# standard deviation of a unit normal truncated at +/- 2 (the constant flax's
+# variance_scaling divides by)
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``lecun_normal``, the default kernel init of ``nn.Dense`` and
+    ``nn.Conv``: a normal truncated at two standard deviations and rescaled to
+    variance 1 / fan_in (fan_in = kernel size x input channels)."""
+    std = weight[0].numel() ** -0.5 / TRUNCATED_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def conv_cl(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Apply a (B, C, T) convolution to channel-last x. Under a sequence
     shard a padding convolution takes its padding from the neighbours."""

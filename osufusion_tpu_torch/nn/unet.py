@@ -48,15 +48,13 @@ from osufusion_tpu_torch.nn.blocks import (
     TransformerBlock,
     Upsample,
     conv_cl,
+    lecun_normal_,
     remat,
 )
 from osufusion_tpu_torch.parallel.sequence import active_shard
 
 X_PAD_VALUE = -1.0
 A_PAD_VALUE = -23.0
-# standard deviation of a unit normal truncated at +/- 2 (the constant flax's
-# variance_scaling divides by)
-TRUNCATED_STD = 0.87962566103423978
 
 
 REMAT_MODES = ("none", "block", "save-attn", "save-attn-out", "ff", "resnet", "resnet-dots")
@@ -226,9 +224,7 @@ class UNet(nn.Module):
         ``null_cond`` from N(0, 1), the final conv zero."""
         for module in self.modules():
             if isinstance(module, (nn.Conv1d, nn.Linear)):
-                fan_in = module.weight[0].numel()
-                std = fan_in**-0.5 / TRUNCATED_STD
-                nn.init.trunc_normal_(module.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+                lecun_normal_(module.weight, generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, (nn.LayerNorm, GroupNorm1)):

@@ -1,8 +1,9 @@
 """Attention dispatch and the plain grouped-query attention
 (``osufusion_tpu/ops/attention.py``).
 
-``sdpa`` sends a CUDA tensor to the hand-written flash kernels, and so it does
-an MQA self-attention site on the CPU that needs a gradient: both go through
+``sdpa`` sends a CUDA tensor to the hand-written flash kernels (MQA, GQA and
+full MHA, with or without rotary tables), and so it does a self-attention
+site on the CPU that needs a gradient, MQA or global: both go through
 ``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
 so a rematerialisation policy that keeps the op's outputs is the same on both
 devices. Any other CPU tensor takes the plain forward with native autograd.
@@ -40,12 +41,12 @@ def sdpa(
     k: torch.Tensor,  # (B, S, Kv, D), unrotated
     v: torch.Tensor,  # (B, S, Kv, D)
     window: int | None,
-    rope: tuple,  # (cos, sin) tables (T, D)
+    rope: tuple | None = None,  # (cos, sin) tables (T, D), or None: no rotary embedding (DiT, MMDiT)
 ) -> torch.Tensor:
-    """Rotary-embedded attention, optionally windowed (each query sees keys
-    within +/- window/2). Returns (B, T, H, D) in q's dtype. Under a sequence
-    shard q, k and v hold this rank's frames and the tables cover the whole
-    song."""
+    """Attention, rotary-embedded when given tables, optionally windowed (each
+    query sees keys within +/- window/2). Returns (B, T, H, D) in q's dtype.
+    Under a sequence shard q, k and v hold this rank's frames and the tables
+    cover the whole song."""
     shard = active_shard()
     if shard is None:
         return _local_sdpa(q, k, v, window, rope)
@@ -59,7 +60,9 @@ def sdpa(
 
 
 def _local_sdpa(q, k, v, window, rope) -> torch.Tensor:
-    if q.is_cuda or (needs_gradient(q, k, v) and k.shape[2] == 1 and k.shape[1] == q.shape[1]):
+    T, S, kv = q.shape[1], k.shape[1], k.shape[2]
+    global_site = window is None or S <= window
+    if q.is_cuda or (needs_gradient(q, k, v) and S == T and (kv == 1 or global_site)):
         return flash_attention(q, k, v, window, rope)
     return flash_attention_reference(q, k, v, window, rope)
 

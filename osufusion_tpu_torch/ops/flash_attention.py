@@ -1,19 +1,24 @@
-"""MQA flash attention with fused q-RoPE: the wrappers of the CUDA kernels in
+"""Flash attention with fused q-RoPE: the wrappers of the CUDA kernels in
 ``csrc/``, the differentiable op that joins them, and their plain PyTorch
 versions.
 
 ``flash_fwd`` replaces ``osufusion_tpu/ops/pallas_attention.py::_fwd_kernel``
-(launched by ``_flash_fwd``): all H query heads fold into rows against one
-(B, S, D) KV, q is rotated once per block with the softmax scale folded in,
-and a +/- window/2 sliding window visits only the KV tiles it reaches. In its
-training form (``return_lse=True``) it also returns the base-2 log-sum-exp of
-its logits, flat (B, T*H) in t-major order. The backward recomputes the
+(launched by ``_flash_fwd``): the query heads of each KV head fold into rows
+against that head's keys (MQA: all H against one (B, S, D) KV; DiT's full MHA
+and MMDiT's GQA: k and v (B, S, Kv, D), one block row of the grid per (batch,
+KV head), where the JAX package folds timesteps), q is rotated once per block
+with the softmax scale folded in (or only scaled, without tables), and a +/-
+window/2 sliding window visits only the KV tiles it reaches. In its training
+form (``return_lse=True``) it also returns the base-2 log-sum-exp of its
+logits, flat (B, T*H) in t-major order. The backward recomputes the
 probabilities from that LSE. At a global site ``flash_bwd`` replaces
 ``_bwd_fused_kernel`` (launched by ``_flash_bwd_fused``): the five products in
 one sweep, dq accumulated with fp32 atomics, so it differs in its last bits
 from run to run. At a windowed site the split pair ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` replaces ``_dq_kernel`` and ``_dkv_kernel`` (launched by
-``_flash_bwd``): no atomics, so all three gradients repeat bit for bit.
+``_flash_bwd``): no atomics, so all three gradients repeat bit for bit. The
+pair takes MQA with rotary tables only; its GQA form is still to port
+(ROADMAP.md, queue 2, K3).
 
 What bounds them on an H100: compute. At the serving path's level-0 site (T =
 24576, W = 4096, H = 16, D = 64) each q row meets ~4k keys for 256 bytes of
@@ -41,6 +46,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -96,10 +102,10 @@ def build_kernels(verbose: bool = False) -> dict[str, Path]:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (library, argument types)
 _ENTRY_POINTS = {
-    # q k v cos sin o lse | B T S H window | scale | stream
-    "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 5 + [ctypes.c_float, _PTR]),
-    # q k v do o lse delta cos sin dq dk dv | B T S H | scale | stream
-    "flash_bwd_bf16": ("flash_bwd", [_PTR] * 12 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    # q k v cos sin o lse | B T S H Kv window | scale | stream
+    "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # q k v do o lse delta cos sin dq dk dv | B T S H Kv | scale | stream
+    "flash_bwd_bf16": ("flash_bwd", [_PTR] * 12 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q k v do o lse delta cos sin dq | B T S H window | scale | stream
     "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q k v do lse delta cos sin dk dv | B T S H window | scale | stream
@@ -143,39 +149,68 @@ def _check_window(who: str, window: int) -> None:
         raise ValueError(f"{who}: window must be -1 (global) or >= 0, got {window}")
 
 
+def _kv_heads(who: str, q: torch.Tensor, k: torch.Tensor) -> int:
+    """The KV heads of k: (B, S, D) is MQA, (B, S, Kv, D) any H % Kv == 0."""
+    if q.ndim != 4 or k.ndim not in (3, 4):
+        raise ValueError(f"{who} wants q (B,T,H,D), k/v (B,T,D) or (B,T,Kv,D); got {tuple(q.shape)}, {tuple(k.shape)}")
+    kv = 1 if k.ndim == 3 else k.shape[2]
+    if q.shape[2] % kv:
+        raise ValueError(f"{who}: {q.shape[2]} query heads do not split into {kv} KV heads")
+    return kv
+
+
+def _tables(who: str, cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], T: int, D: int) -> tuple:
+    """The rotary tables as the kernels take them: both (T, D) fp32, or both
+    None (no rotary embedding). Returns the operand checks they need."""
+    if (cos is None) != (sin is None):
+        raise ValueError(f"{who}: cos and sin are both tables or both None")
+    if cos is None:
+        return ()
+    if cos.shape != (T, D) or sin.shape != (T, D):
+        raise ValueError(f"{who}: tables must be ({T}, {D}); got {tuple(cos.shape)}, {tuple(sin.shape)}")
+    return (("cos", cos, torch.float32), ("sin", sin, torch.float32))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_fwd(
     q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) bf16, already rotated
-    v: torch.Tensor,  # (B, T, D) bf16
-    cos: torch.Tensor,  # (T, D) fp32
-    sin: torch.Tensor,  # (T, D) fp32
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16, already rotated
+    v: torch.Tensor,  # k's shape, bf16
+    cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
+    sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     window: int,  # -1 = global
     scale: float,
     return_lse: bool = False,
 ):
     """Launch the forward kernel on the current stream; returns o (B, T, H, D)
     bf16, or with ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2
-    log-sum-exp of the logits q_rot k_rot^T * scale * log2(e). Counts its
-    launches in ``flash_fwd.launches`` (those with the LSE also in
-    ``flash_fwd.lse_launches``)."""
-    if q.ndim != 4 or k.ndim != 3 or v.shape != k.shape:
-        raise ValueError(f"flash_fwd wants q (B,T,H,D), k/v (B,T,D); got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    log-sum-exp of the logits q_rot k_rot^T * scale * log2(e), query head h
+    against KV head h // (H / Kv). Counts its launches in
+    ``flash_fwd.launches`` (those with the LSE also in
+    ``flash_fwd.lse_launches``, those of the grouped form, Kv > 1, in
+    ``flash_fwd.grouped_launches``)."""
+    kv = _kv_heads("flash_fwd", q, k)
     B, T, H, D = q.shape
-    if D != HEAD_DIM or k.shape != (B, T, D) or cos.shape != (T, D) or sin.shape != (T, D):
-        raise ValueError(f"flash_fwd shapes: q {tuple(q.shape)} k {tuple(k.shape)} cos {tuple(cos.shape)}; head dim must be {HEAD_DIM}")
+    if D != HEAD_DIM or v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
+        raise ValueError(f"flash_fwd shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}; "
+                         f"head dim must be {HEAD_DIM}")
+    tables = _tables("flash_fwd", cos, sin, T, D)
     _check_operands("flash_fwd", q.device, (("q", q, torch.bfloat16), ("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
-                                            ("cos", cos, torch.float32), ("sin", sin, torch.float32)))
+                                            *tables))
     _check_window("flash_fwd", window)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device) if return_lse else None
     err = _kernel("flash_fwd_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if return_lse else None,
-        B, T, T, H, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
+        B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd.launches += 1
+    flash_fwd.grouped_launches += kv > 1
     if return_lse:
         flash_fwd.lse_launches += 1
         return o, lse
@@ -184,46 +219,51 @@ def flash_fwd(
 
 flash_fwd.launches = 0
 flash_fwd.lse_launches = 0
+flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
 
 
-def _check_backward(who: str, q, k, v, rows, stats, cos, sin) -> tuple[int, int, int]:
+def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int]:
     """The backward kernels' operands: q and every tensor of ``rows``
-    (B, T, H, D) bf16, k and v (B, T, D) bf16, every tensor of ``stats``
-    (B, T*H) fp32, the tables (T, D) fp32; all contiguous on q's CUDA device.
-    ``rows`` and ``stats`` hold (name, tensor) pairs. Returns (B, T, H)."""
-    if q.ndim != 4 or k.ndim != 3:
-        raise ValueError(f"{who} wants q (B,T,H,D), k/v (B,T,D); got {tuple(q.shape)}, {tuple(k.shape)}")
+    (B, T, H, D) bf16, k and v (B, T, D) bf16 (``grouped``: or (B, T, Kv,
+    D)), every tensor of ``stats`` (B, T*H) fp32, the tables (T, D) fp32
+    (``grouped``: or both None); all contiguous on q's CUDA device. ``rows``
+    and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv)."""
+    kv = _kv_heads(who, q, k)
+    if not grouped and (k.ndim != 3 or cos is None):
+        raise ValueError(f"{who} takes MQA (k (B,T,D)) with rotary tables; got k {tuple(k.shape)}, "
+                         f"tables {'none' if cos is None else 'given'} (the GQA form is ROADMAP.md, queue 2, K3)")
     B, T, H, D = q.shape
-    shapes = [(k, (B, T, D)), (v, (B, T, D)), (cos, (T, D)), (sin, (T, D)),
-              *((t, q.shape) for _, t in rows), *((t, (B, T * H)) for _, t in stats)]
-    if D != HEAD_DIM or any(t.shape != shape for t, shape in shapes):
-        raise ValueError(f"{who} shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} cos {tuple(cos.shape)} "
+    shapes = [(v, k.shape), *((t, q.shape) for _, t in rows), *((t, (B, T * H)) for _, t in stats)]
+    if D != HEAD_DIM or k.shape[:2] != (B, T) or k.shape[-1] != D or any(t.shape != shape for t, shape in shapes):
+        raise ValueError(f"{who} shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats)) + f"; head dim must be {HEAD_DIM}")
+    tables = _tables(who, cos, sin, T, D)
     bf16, f32 = torch.bfloat16, torch.float32
     _check_operands(who, q.device, (("q", q, bf16), ("k", k, bf16), ("v", v, bf16), *((n, t, bf16) for n, t in rows),
-                                    *((n, t, f32) for n, t in stats), ("cos", cos, f32), ("sin", sin, f32)))
-    return B, T, H
+                                    *((n, t, f32) for n, t in stats), *tables))
+    return B, T, H, kv
 
 
 def flash_bwd(
     q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) bf16, already rotated
-    v: torch.Tensor,  # (B, T, D) bf16
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16, already rotated
+    v: torch.Tensor,  # k's shape, bf16
     o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
     do: torch.Tensor,  # (B, T, H, D) bf16
-    cos: torch.Tensor,  # (T, D) fp32
-    sin: torch.Tensor,  # (T, D) fp32
+    cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
+    sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ):
     """Launch the global backward kernel on the current stream. Returns
     (dq, dk_rot, dv): dq (B, T, H, D) bf16 in the raw q's frame, dk_rot
-    (B, T, D) fp32 still in the rotated frame, dv (B, T, D) fp32.
+    (k's shape) fp32 still in the rotated frame, dv (k's shape) fp32.
     The library's entry point runs a small kernel for ``delta = rowsum(do *
     o)`` (scratch allocated here) and then the sweep; dq is accumulated by the
     sweep's atomics in a zeroed fp32 buffer and cast once. Counts its launches
-    in ``flash_bwd.launches``."""
-    B, T, H = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin)
+    in ``flash_bwd.launches`` (those of the grouped form, Kv > 1, also in
+    ``flash_bwd.grouped_launches``)."""
+    B, T, H, kv = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin, grouped=True)
     f32 = torch.float32
     delta = torch.empty((B, T * H), dtype=f32, device=q.device)
     dq = torch.zeros(q.shape, dtype=f32, device=q.device)
@@ -231,16 +271,18 @@ def flash_bwd(
     dv = torch.empty(v.shape, dtype=f32, device=q.device)
     err = _kernel("flash_bwd_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, T, H, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, T, H, kv, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     flash_bwd.launches += 1
+    flash_bwd.grouped_launches += kv > 1
     return dq.to(torch.bfloat16), dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.grouped_launches = 0  # of them, the grouped form (Kv > 1)
 
 
 def flash_bwd_dq(
@@ -260,7 +302,7 @@ def flash_bwd_dq(
     (the same bits from run to run), and ``delta = rowsum(do * o)`` (B, T*H)
     fp32, which the library's entry point fills with a small kernel first and
     ``flash_bwd_dkv`` takes. Counts its launches in ``flash_bwd_dq.launches``."""
-    B, T, H = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin)
+    B, T, H, _ = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin)
     _check_window("flash_bwd_dq", window)
     delta = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
@@ -293,7 +335,7 @@ def flash_bwd_dkv(
     """Launch the windowed dk/dv kernel on the current stream. Returns
     (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated frame.
     Counts its launches in ``flash_bwd_dkv.launches``."""
-    B, T, H = _check_backward("flash_bwd_dkv", q, k, v, (("do", do),), (("lse", lse), ("delta", delta)), cos, sin)
+    B, T, H, _ = _check_backward("flash_bwd_dkv", q, k, v, (("do", do),), (("lse", lse), ("delta", delta)), cos, sin)
     _check_window("flash_bwd_dkv", window)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -312,47 +354,50 @@ flash_bwd_dkv.launches = 0
 
 
 def rotated_k(k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """k (B, S, D) with the rotary embedding applied, as the kernels take it:
-    k is 16x smaller than q at MQA, so it is rotated once outside, in fp32."""
+    """k (B, S, D) or (B, S, Kv, D) with the rotary embedding applied, as the
+    kernels take it: k is H / Kv times smaller than q, so it is rotated once
+    outside, in fp32."""
     return apply_rope(k.float(), cos, sin).to(k.dtype)
 
 
 @torch.library.custom_op("osufusion_tpu_torch::flash_attention", mutates_args=())
 def flash_attention_op(
     q: torch.Tensor,  # (B, T, H, D) raw
-    k: torch.Tensor,  # (B, T, D) raw
-    v: torch.Tensor,  # (B, T, D)
-    cos: torch.Tensor,  # (T, D) fp32; the tables get no gradient
-    sin: torch.Tensor,
+    k: torch.Tensor,  # (B, T, D) (MQA) or (B, T, Kv, D), raw
+    v: torch.Tensor,  # k's shape
+    cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding; the tables get no gradient
+    sin: Optional[torch.Tensor],
     window: int,  # -1 = global
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """MQA attention with rotary embedding, differentiable in q, k and v.
-    Returns (o, lse2, k_rot): the backward's residuals beside q and v, so a
-    rematerialisation policy that keeps this op's outputs never runs the
-    forward again; lse2 and k_rot are not differentiable. CUDA tensors (bf16,
-    contiguous, or the wrappers raise) go forward through ``flash_fwd`` with
-    its LSE and backward through ``flash_bwd`` (global) or ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` (windowed); CPU tensors through the plain versions of the
-    same. Every cast in here is explicit, so it computes the same under
-    ``torch.autocast``."""
-    k_rot = rotated_k(k, cos, sin)
+    """Self-attention, with rotary embedding when given tables, differentiable
+    in q, k and v. Returns (o, lse2, k_rot): the backward's residuals beside q
+    and v, so a rematerialisation policy that keeps this op's outputs never
+    runs the forward again; lse2 and k_rot are not differentiable, and k_rot
+    is empty without tables (the backward then keeps k itself). CUDA tensors
+    (bf16, contiguous, or the wrappers raise) go forward through ``flash_fwd``
+    with its LSE and backward through ``flash_bwd`` (global) or
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (windowed, MQA with tables); CPU
+    tensors through the plain versions of the same. Every cast in here is
+    explicit, so it computes the same under ``torch.autocast``."""
+    k_rot = k if cos is None else rotated_k(k, cos, sin)
     if q.is_cuda:
         o, lse = flash_fwd(q, k_rot, v, cos, sin, window, q.shape[-1] ** -0.5, return_lse=True)
     else:
         o, lse = flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
-    return o.to(q.dtype), lse, k_rot
+    return o.to(q.dtype), lse, k.new_empty(0) if cos is None else k_rot
 
 
 @flash_attention_op.register_fake
 def _(q, k, v, cos, sin, window):
     B, T, H, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, T * H), dtype=torch.float32), torch.empty_like(k)
+    return (torch.empty_like(q), q.new_empty((B, T * H), dtype=torch.float32),
+            k.new_empty(0) if cos is None else torch.empty_like(k))
 
 
 def _save_residuals(ctx, inputs, output) -> None:
-    q, _, v, cos, sin, window = inputs
+    q, k, v, cos, sin, window = inputs
     o, lse, k_rot = output
-    ctx.save_for_backward(q, k_rot, v, o, lse, cos, sin)
+    ctx.save_for_backward(q, k if cos is None else k_rot, v, o, lse, cos, sin)
     ctx.window = window
     ctx.mark_non_differentiable(lse, k_rot)
     ctx.set_materialize_grads(False)
@@ -371,7 +416,8 @@ def _attention_backward(ctx, do, _dlse, _dk_rot):
     else:
         dq = flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, ctx.window)
         dk_rot, dv = flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, ctx.window)
-    dk = unapply_rope(dk_rot, cos, sin)  # adjoint of k's rotation, fp32 on the small rank-3 tensor
+    # adjoint of k's rotation, fp32 on the small tensor
+    dk = dk_rot if cos is None else unapply_rope(dk_rot, cos, sin)
     return dq.to(q.dtype), dk.to(k_rot.dtype), dv.to(v.dtype), None, None, None
 
 
@@ -387,38 +433,50 @@ def flash_attention(
     k: torch.Tensor,  # (B, S, Kv, D), unrotated
     v: torch.Tensor,  # (B, S, Kv, D)
     window: int | None,
-    rope: tuple,  # (cos, sin) tables (T, D) fp32
+    rope: Optional[tuple],  # (cos, sin) tables (T, D) fp32, or None: no rotary embedding
 ) -> torch.Tensor:
-    """Rotary-embedded MQA self-attention (Kv == 1, S == T, else ValueError),
-    windowed to +/- window/2 when the window is shorter than the sequence.
-    Under a gradient it is ``flash_attention_op``: the kernels for CUDA
-    tensors, global and windowed alike, and their plain versions for CPU
-    tensors. Without one it is the forward kernel alone and takes CUDA tensors
-    only (bf16, D == 64)."""
+    """Self-attention (S == T, H % Kv == 0, else ValueError) with rotary
+    embedding when given tables, windowed to +/- window/2 when the window is
+    shorter than the sequence. Query head h reads KV head h // (H / Kv): MQA,
+    GQA and full MHA alike. Under a gradient it is ``flash_attention_op``: the
+    kernels for CUDA tensors and their plain versions for CPU tensors; a
+    windowed site's backward kernels take MQA with tables only, so a windowed
+    GQA site or one without tables under a gradient on the GPU raises. Without
+    a gradient it is the forward kernel alone and takes CUDA tensors only
+    (bf16, D == 64)."""
     B, T, H, D = q.shape
     S, Kv = k.shape[1], k.shape[2]
-    if Kv != 1 or S != T:
-        raise ValueError(f"flash kernel takes MQA self-attention (Kv == 1, S == T); got Kv={Kv}, S={S}, T={T}")
+    if S != T or H % Kv:
+        raise ValueError(f"flash kernels take self-attention with H % Kv == 0; got H={H}, Kv={Kv}, S={S}, T={T}")
     # a window that covers the whole sequence is global attention
     window = -1 if window is None or S <= window else window
-    cos, sin = rope
-    q, k3, v3 = q.contiguous(), k.reshape(B, S, D).contiguous(), v.reshape(B, S, D).contiguous()
-    cos, sin = cos.contiguous(), sin.contiguous()
+    cos, sin = (None, None) if rope is None else (t.contiguous() for t in rope)
+    q = q.contiguous()
+    k_in, v_in = (k.reshape(B, S, D), v.reshape(B, S, D)) if Kv == 1 else (k, v)
+    k_in, v_in = k_in.contiguous(), v_in.contiguous()
     if needs_gradient(q, k, v):
-        return flash_attention_op(q, k3, v3, cos, sin, window)[0]
+        if q.is_cuda and window >= 0 and (Kv > 1 or rope is None):
+            raise ValueError(f"a windowed attention site with {Kv} KV heads{'' if rope else ' and no rotary tables'} "
+                             "has no backward kernel: the windowed dq/dkv kernels take MQA with rotary tables, and "
+                             "their GQA form is still to port (ROADMAP.md, queue 2, K3a/K3b GQA form)")
+        return flash_attention_op(q, k_in, v_in, cos, sin, window)[0]
     if not q.is_cuda:
         raise ValueError(f"flash_attention runs the CUDA kernel; got a tensor on {q.device}")
-    return flash_fwd(q, rotated_k(k3, cos, sin), v3, cos, sin, window, D**-0.5)
+    k_rot = k_in if rope is None else rotated_k(k_in, cos, sin)
+    return flash_fwd(q, k_rot, v_in, cos, sin, window, D**-0.5)
 
 
 def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None, rope: tuple
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None, rope: Optional[tuple]
 ) -> torch.Tensor:
-    """Plain PyTorch version of ``flash_attention``: ``apply_rope`` on q and k,
-    then the grouped attention math with a float32 softmax, in query chunks."""
+    """Plain PyTorch version of ``flash_attention``: ``apply_rope`` on q and k
+    (when given tables), then the grouped attention math with a float32
+    softmax, in query chunks."""
     from osufusion_tpu_torch.ops.attention import gqa_attention
 
-    return gqa_attention(apply_rope(q, *rope), apply_rope(k, *rope), v, window=window)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    return gqa_attention(q, k, v, window=window)
 
 
 # query rows / keys per step of the plain training versions: bounds their
@@ -426,9 +484,48 @@ def flash_attention_reference(
 REFERENCE_CHUNK = 512
 
 
-def _scaled_rotated_q(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """qs = rope(q) * D^-0.5 * log2(e) in fp32: what the kernels hold (there rounded to bf16)."""
-    return apply_rope(q.float(), cos, sin) * (q.shape[-1] ** -0.5 * LOG2E)
+def _scaled_rotated_q(q: torch.Tensor, cos: Optional[torch.Tensor], sin: Optional[torch.Tensor]) -> torch.Tensor:
+    """qs = rope(q) * D^-0.5 * log2(e) in fp32 (without tables, q * D^-0.5 *
+    log2(e)): what the kernels hold (there rounded to bf16)."""
+    qf = q.float() if cos is None else apply_rope(q.float(), cos, sin)
+    return qf * (q.shape[-1] ** -0.5 * LOG2E)
+
+
+def _unrotated(g: torch.Tensor, cos: Optional[torch.Tensor], sin: Optional[torch.Tensor]) -> torch.Tensor:
+    return g if cos is None else unapply_rope(g, cos, sin)
+
+
+# The plain versions at Kv > 1 (k of shape (B, S, Kv, D)): each KV head and
+# its group of G = H / Kv query heads is an MQA problem of its own, so the
+# group is folded into the batch, (B, T, H, ...) -> (B * Kv, T, G, ...), the
+# MQA arithmetic runs, and the result is unfolded. Query head h = kv * G + j.
+def _fold_heads(x: torch.Tensor, kv: int) -> torch.Tensor:
+    B, T, H, *rest = x.shape
+    return x.reshape(B, T, kv, H // kv, *rest).transpose(1, 2).reshape(B * kv, T, H // kv, *rest)
+
+
+def _unfold_heads(x: torch.Tensor, kv: int) -> torch.Tensor:
+    BK, T, G, *rest = x.shape
+    return x.reshape(BK // kv, kv, T, G, *rest).transpose(1, 2).reshape(BK // kv, T, kv * G, *rest).contiguous()
+
+
+def _fold_keys(k: torch.Tensor) -> torch.Tensor:
+    B, S, kv, D = k.shape
+    return k.transpose(1, 2).reshape(B * kv, S, D)
+
+
+def _unfold_keys(k: torch.Tensor, kv: int) -> torch.Tensor:
+    BK, S, D = k.shape
+    return k.reshape(BK // kv, kv, S, D).transpose(1, 2).contiguous()
+
+
+def _fold_stats(lse: torch.Tensor, kv: int, T: int) -> torch.Tensor:
+    B = lse.shape[0]
+    return _fold_heads(lse.reshape(B, T, -1), kv).reshape(B * kv, -1)
+
+
+def _unfold_stats(lse: torch.Tensor, kv: int, T: int) -> torch.Tensor:
+    return _unfold_heads(lse.reshape(lse.shape[0], T, -1), kv).reshape(lse.shape[0] // kv, -1)
 
 
 def _query_chunks(T: int, S: int, window: int, device):
@@ -449,16 +546,19 @@ def _query_chunks(T: int, S: int, window: int, device):
 
 def flash_fwd_lse_reference(
     q: torch.Tensor,  # (B, T, H, D) raw
-    k_rot: torch.Tensor,  # (B, S, D) already rotated
-    v: torch.Tensor,  # (B, S, D)
-    cos: torch.Tensor,
-    sin: torch.Tensor,
+    k_rot: torch.Tensor,  # (B, S, D) or (B, S, Kv, D), already rotated
+    v: torch.Tensor,  # k_rot's shape
+    cos: Optional[torch.Tensor],  # (T, D), or None: no rotary embedding
+    sin: Optional[torch.Tensor],
     window: int = -1,
 ):
     """Plain version of ``flash_fwd(..., return_lse=True)`` in fp32:
     (o (B, T, H, D), lse2 (B, T*H)), the logits in the exp2 domain."""
-    qs = _scaled_rotated_q(q, cos, sin)
-    return forward_chunks(qs, k_rot, v, _query_chunks(q.shape[1], k_rot.shape[1], window, q.device))
+    T, kv = q.shape[1], 1 if k_rot.ndim == 3 else k_rot.shape[2]
+    if k_rot.ndim == 4:
+        q, k_rot, v = _fold_heads(q, kv), _fold_keys(k_rot), _fold_keys(v)
+    o, lse = forward_chunks(_scaled_rotated_q(q, cos, sin), k_rot, v, _query_chunks(T, k_rot.shape[1], window, q.device))
+    return (_unfold_heads(o, kv), _unfold_stats(lse, kv, T)) if kv > 1 else (o, lse)
 
 
 def forward_chunks(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunks):
@@ -504,27 +604,41 @@ def _backward_chunks(q, k_rot, v, o, lse, do, cos, sin, window):
     return backward_chunks(_scaled_rotated_q(q, cos, sin), k_rot, v, o, lse, do, chunks)
 
 
+def _grouped_backward(fn, q, k_rot, v, o, lse, do, cos, sin, *args):
+    """``fn`` (a plain backward of MQA operands) at Kv = k_rot.shape[2] KV
+    heads, by folding each group into the batch: its outputs, dq in q's layout
+    and dk, dv in k_rot's."""
+    kv, T = k_rot.shape[2], q.shape[1]
+    out = fn(_fold_heads(q, kv), _fold_keys(k_rot), _fold_keys(v), _fold_heads(o, kv), _fold_stats(lse, kv, T),
+             _fold_heads(do, kv), cos, sin, *args)
+    return tuple(_unfold_heads(x, kv) if x.ndim == 4 else _unfold_keys(x, kv) for x in out)
+
+
 def flash_bwd_dq_reference(
     q: torch.Tensor,  # (B, T, H, D) raw
-    k_rot: torch.Tensor,  # (B, S, D) already rotated
-    v: torch.Tensor,  # (B, S, D)
+    k_rot: torch.Tensor,  # (B, S, D) or (B, S, Kv, D), already rotated
+    v: torch.Tensor,  # k_rot's shape
     o: torch.Tensor,  # (B, T, H, D)
     lse: torch.Tensor,  # (B, T*H) base-2
     do: torch.Tensor,  # (B, T, H, D)
-    cos: torch.Tensor,
-    sin: torch.Tensor,
+    cos: Optional[torch.Tensor],  # (T, D), or None: no rotary embedding
+    sin: Optional[torch.Tensor],
     window: int,  # -1 = global
 ) -> torch.Tensor:
     """Plain version of ``flash_bwd_dq`` in fp32: dq in the raw q's frame."""
+    if k_rot.ndim == 4:
+        return _grouped_backward(lambda *a: (flash_bwd_dq_reference(*a),), q, k_rot, v, o, lse, do, cos, sin, window)[0]
     dq_rot = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     for rows, _, _, k_c, _, _, ds in _backward_chunks(q, k_rot, v, o, lse, do, cos, sin, window):
         dq_rot[:, rows] = torch.einsum("bths,bsd->bthd", ds, k_c) * q.shape[-1] ** -0.5
-    return unapply_rope(dq_rot, cos, sin)
+    return _unrotated(dq_rot, cos, sin)
 
 
 def flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window: int):
     """Plain version of ``flash_bwd_dkv`` in fp32, on the operands of
     ``flash_bwd_dq_reference``: (dk_rot, still in the rotated frame, dv)."""
+    if k_rot.ndim == 4:
+        return _grouped_backward(flash_bwd_dkv_reference, q, k_rot, v, o, lse, do, cos, sin, window)
     dk_rot = torch.zeros(k_rot.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk_rot)
     for _, keys, qs_c, _, do_c, p, ds in _backward_chunks(q, k_rot, v, o, lse, do, cos, sin, window):
@@ -535,16 +649,18 @@ def flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window: int):
 
 def flash_bwd_reference(
     q: torch.Tensor,  # (B, T, H, D) raw
-    k_rot: torch.Tensor,  # (B, S, D) already rotated
-    v: torch.Tensor,  # (B, S, D)
+    k_rot: torch.Tensor,  # (B, S, D) or (B, S, Kv, D), already rotated
+    v: torch.Tensor,  # k_rot's shape
     o: torch.Tensor,  # (B, T, H, D)
     lse: torch.Tensor,  # (B, T*H) base-2
     do: torch.Tensor,  # (B, T, H, D)
-    cos: torch.Tensor,
-    sin: torch.Tensor,
+    cos: Optional[torch.Tensor],  # (T, D), or None: no rotary embedding
+    sin: Optional[torch.Tensor],
 ):
     """Plain version of ``flash_bwd`` in fp32: the kernel's arithmetic, KV tile
     by KV tile, from the LSE. Returns (dq in the raw q's frame, dk_rot, dv)."""
+    if k_rot.ndim == 4:
+        return _grouped_backward(flash_bwd_reference, q, k_rot, v, o, lse, do, cos, sin)
     B, T, H, D = q.shape
     scale = D**-0.5
     qs = _scaled_rotated_q(q, cos, sin)
@@ -560,4 +676,4 @@ def flash_bwd_reference(
         ds = p * (torch.einsum("bthd,bsd->bths", dof, vt) - delta)
         dk_rot[:, s0 : s0 + REFERENCE_CHUNK] = torch.einsum("bths,bthd->bsd", ds, qs) * LN2
         dq_rot += torch.einsum("bths,bsd->bthd", ds, kt) * scale
-    return unapply_rope(dq_rot, cos, sin), dk_rot, dv
+    return _unrotated(dq_rot, cos, sin), dk_rot, dv

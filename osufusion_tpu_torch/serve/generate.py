@@ -1,7 +1,8 @@
 """End-to-end generation: audio file -> sampled signal -> .osu decode -> .osz
 (``osufusion_tpu/serve/generate.py``).
 
-The spectrogram, the sampler and the UNet run on the model's device; the
+The spectrogram, the sampler and the denoiser (the UNet, DiT or MMDiT that
+the checkpoint's ``config.json`` names) run on the model's device; the
 decode to ``.osu`` text runs on the host with this package's copy of the
 codec (``codec/decode.py``). Initial noise comes from a CPU ``torch.Generator`` seeded with
 ``seed``, so a seed gives the same noise on every device.
@@ -22,7 +23,8 @@ from osufusion_tpu_torch.codec.decode import Metadata, decode_beatmap
 from osufusion_tpu_torch.audio import frame_times, load_audio, normalize_context
 from osufusion_tpu_torch.config import Config, ModelConfig
 from osufusion_tpu_torch.models import build_model
-from osufusion_tpu_torch.nn.unet import A_PAD_VALUE, UNet
+from osufusion_tpu_torch.models.base import denoiser_class
+from osufusion_tpu_torch.nn.unet import A_PAD_VALUE
 from osufusion_tpu_torch.utils.convert import state_dict_from_jax
 from osufusion_tpu_torch.utils.serialization import load_safetensors
 
@@ -32,24 +34,24 @@ LENGTH_BUCKET = 8192
 
 
 def load_model(model_path: Path, config_path: Optional[Path] = None, device="cuda"):
-    """Returns (model, params): a checkpoint written by the JAX trainer
-    (``model.safetensors``) and the ``config.json`` beside it if present,
-    else the defaults at dim_h=128. ``params`` is the UNet on ``device`` in
-    the config's compute dtype."""
+    """Returns (model, params): a checkpoint written by either package's
+    trainer (``model.safetensors``) and the ``config.json`` beside it if
+    present, else the UNet defaults at dim_h=128. ``params`` is the backbone
+    the config names, on ``device`` in the config's compute dtype."""
     model_path = Path(model_path)
     if config_path is None:
         candidate = model_path.parent / "config.json"
         config_path = candidate if candidate.exists() else None
     cfg = Config.load(config_path) if config_path else Config(model=ModelConfig(dim_h=128))
     model = build_model(cfg.model, cfg.diffusion)
-    params = UNet(cfg.model)
+    params = denoiser_class(cfg.model)(cfg.model)
     params.load_state_dict(state_dict_from_jax(load_safetensors(model_path)))
     return model, params.to(device=device, dtype=cfg.model.compute_dtype).eval()
 
 
 def generate_beatmap(
     model,
-    params: UNet,
+    params: torch.nn.Module,
     audio_path: Path,
     title: str = "Unknown",
     artist: str = "Unknown",

@@ -45,10 +45,10 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from osufusion_tpu_torch.config import Config
 from osufusion_tpu_torch.models.base import GenerativeModel
-from osufusion_tpu_torch.nn.unet import UNet
 from osufusion_tpu_torch.parallel.sequence import SeqShard, all_reduce_, frames_of, sequence_sharding
 
 # optax.adamw's defaults
@@ -60,7 +60,7 @@ ADAMW_WEIGHT_DECAY = 1e-4
 @dataclass
 class TrainState:
     step: int
-    params: UNet
+    params: nn.Module  # the denoiser: UNet, DiT or MMDiT
     optimizer: torch.optim.Optimizer
     generator: torch.Generator  # on the parameters' device
 
@@ -101,9 +101,13 @@ def check_supported(cfg: Config) -> None:
             "data parallelism (--mesh-data) with ZeRO-1 is not ported yet (ROADMAP.md, queue 1, item 16)")
     if cfg.train.mesh_seq < 1:
         raise ValueError(f"--mesh-seq must be at least 1, got {cfg.train.mesh_seq}")
+    if cfg.train.mesh_seq > 1 and cfg.model.backbone != "unet":
+        raise NotImplementedError(
+            f"--mesh-seq {cfg.train.mesh_seq} with the {cfg.model.backbone!r} backbone: its global attention sites take "
+            "the ring attention (K6), which is not ported yet (ROADMAP.md, queue 2, K6)")
 
 
-def make_optimizer(cfg: Config, params: UNet) -> torch.optim.Optimizer:
+def make_optimizer(cfg: Config, params: nn.Module) -> torch.optim.Optimizer:
     # the learning rate is set from the schedule before every step
     return torch.optim.AdamW(params.parameters(), lr=0.0, betas=ADAMW_BETAS, eps=ADAMW_EPS,
                              weight_decay=ADAMW_WEIGHT_DECAY)
@@ -137,7 +141,7 @@ def shard_frames(batch, shard: SeqShard, multiple: int):
     return frames_of(x, shard, dim=-1), frames_of(a, shard, dim=-1), c, orig_len
 
 
-def sum_gradients(params: UNet, shard: SeqShard) -> None:
+def sum_gradients(params: nn.Module, shard: SeqShard) -> None:
     """Sum every gradient over the group in place, in fp32."""
     for p in params.parameters():
         if p.grad is not None:
@@ -189,8 +193,11 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
                 loss_sum += loss.detach()
         if shard is not None:
             sum_gradients(params, shard)
+        for p in params.parameters():
+            if p.grad is None:  # a leaf the loss does not reach (MMDiT's last audio stream): optax still decays it
+                p.grad = torch.zeros_like(p)
 
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
+        grads = [p.grad for p in params.parameters()]
         grad_norm = global_norm(grads)
         if clip > 0:
             torch._foreach_mul_(grads, (clip / grad_norm.clamp(min=clip)).to(grads[0].dtype))

@@ -16,8 +16,16 @@ checkpoints with the data position beside them, and at the end writes
 ``model.safetensors`` under the flax names, so the result serves in this
 package (``serve.load_model``) and in the JAX package alike.
 
-and sequence-parallel over N processes, one per GPU (``parallel/sequence.py``;
-the padded length must be a multiple of N x 2^depth):
+The DiT and MMDiT backbones train through the same loop (``--model-depth``,
+``--model-attn-heads`` and ``--model-attn-kv-heads`` size them; heads x 64
+must equal ``--model-dim``):
+
+    python -m osufusion_tpu_torch.trainer --model-backbone dit --model-attn-heads 8 \
+        --dummy-dataset --segment-length 2048 --full-bf16 --total-steps 6 --project-dir runs/dit
+
+and the UNet sequence-parallel over N processes, one per GPU
+(``parallel/sequence.py``; the padded length must be a multiple of N x
+2^depth):
 
     torchrun --standalone --nproc-per-node 2 -m osufusion_tpu_torch.trainer \
         --mesh-seq 2 --dummy-dataset --segment-length 32768 --batch-size 1 \
@@ -29,10 +37,10 @@ environment reach ``parallel/distributed.py::maybe_initialize``. Rank 0 writes
 the checkpoints, the data position, the metrics and the final export.
 
 Flags whose feature is not ported raise ``NotImplementedError`` naming the
-ROADMAP.md queue item: ``--model-backbone dit|mmdit``, ``--model-type
-rectified-flow``, ``--mixed-precision fp16|fp8``, ``--opt-moments int8``,
-``--mesh-data`` and ``--mesh-model`` above 1, and the periodic sample
-(``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
+ROADMAP.md queue item: ``--model-type rectified-flow``, ``--mixed-precision
+fp16|fp8``, ``--opt-moments int8``, ``--mesh-data`` and ``--mesh-model`` above
+1, ``--mesh-seq`` above 1 with ``dit`` or ``mmdit`` (the ring attention, K6),
+and the periodic sample (``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
 ``mixed`` with ``--gradient-checkpointing-levels`` included; the audio stack's
 override is ``model.audio_remat_mode`` of the config, which has no flag, as in
 the JAX package.

@@ -7,7 +7,8 @@ the leaves change name and layout:
 - ``kernel`` (k, in, out) of a conv -> ``weight`` (out, in, k);
 - ``kernel`` (in, out) of a Dense -> ``weight`` (out, in);
 - ``scale`` of a LayerNorm/GroupNorm -> ``weight``;
-- ``bias`` and ``null_cond`` are unchanged.
+- ``bias``, ``null_cond`` and the ``gamma`` (heads, dim) of the DiT/MMDiT
+  ``MultiHeadRMSNorm`` are unchanged.
 
 ``jax_flat_from_state_dict`` is the inverse, so a checkpoint this package
 trains carries the flax names and layouts and serves in both packages.
@@ -19,6 +20,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+# leaves that keep their name and layout
+UNCHANGED = ("bias", "null_cond", "gamma")
 
 
 def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -41,7 +45,7 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        elif leaf not in ("bias", "null_cond"):
+        elif leaf not in UNCHANGED:
             raise ValueError(f"{key}: unknown parameter leaf {leaf!r}")
         out[".".join([*parts[:-1], leaf])] = torch.tensor(value)
     return out
@@ -65,7 +69,7 @@ def jax_flat_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, n
                 leaf = "scale"
             else:
                 raise ValueError(f"{key}: weight of rank {value.ndim}")
-        elif leaf not in ("bias", "null_cond"):
+        elif leaf not in UNCHANGED:
             raise ValueError(f"{key}: unknown parameter leaf {leaf!r}")
         out["/".join(["params", *parts[:-1], leaf])] = np.ascontiguousarray(value)
     return out

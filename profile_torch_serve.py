@@ -4,6 +4,7 @@ step, goes on one NVIDIA GPU.
     python3 profile_torch_serve.py [--groupnorm fused|torch]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
+        [--backbone unet|dit|mmdit]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -25,7 +26,11 @@ seeded weights random everywhere, random batch; B=4, T=4096 unless told
 otherwise: ``--batch 1 --frames 65536 --remat mixed`` is the full-song cell):
 s/step by the host clock around synchronised steps, peak device memory, the
 attention kernels' launches per step, device time by kernel over one step
-(torch.profiler), and the device's idle share of that step.
+(torch.profiler), and the device's idle share of that step. ``--backbone dit``
+or ``mmdit`` profiles the transformer cell (dim_h=512, depth 12, 8 heads of
+64, MMDiT with 2 KV heads; any ``--remat`` other than none rematerialises
+whole blocks), with its MFU (3 x the forward's model FLOPs over the step and
+989 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -90,25 +95,28 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
     return device_ms
 
 
-def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int) -> None:
+def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, backbone: str = "unet") -> None:
     """One training step at dim_h=512, through ``train/loop.py``."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.train.loop import init_state, make_train_step
+    from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
+    transformer = dict(depth=12, attn_heads=8, attn_kv_heads=2) if backbone != "unet" else {}
     cfg = Config(
-        model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode=remat if remat != "none" else "save-attn",
-                          remat_level_modes=levels),
+        model=ModelConfig(dim_h=512, backbone=backbone, remat=remat != "none",
+                          remat_mode=remat if remat != "none" else "save-attn", remat_level_modes=levels, **transformer),
         train=TrainConfig(batch_size=B, full_bf16=precision == "full-bf16", lr=1e-5, warmup_steps=2, total_steps=100),
     )
     model = build_model(cfg.model, cfg.diffusion)
     state = init_state(model, cfg, "cuda")
-    # the final conv is zero at init, which would zero every gradient behind it
-    g = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():
-        w = state.params.final_conv.weight
-        w.copy_(torch.randn(w.shape, generator=g, device="cuda") / cfg.model.dim_h**0.5)
+    if backbone == "unet":
+        # the final conv is zero at init, which would zero every gradient behind it
+        g = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            w = state.params.final_conv.weight
+            w.copy_(torch.randn(w.shape, generator=g, device="cuda") / cfg.model.dim_h**0.5)
     step = make_train_step(model, cfg)
     rng = np.random.default_rng(0)
     batch = (rng.standard_normal((B, 6, T)).astype(np.float32), rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32),
@@ -120,6 +128,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int) -> 
         step(state, batch)
     torch.cuda.synchronize()
     fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
+    fa.flash_fwd.grouped_launches = fa.flash_bwd.grouped_launches = 0
     fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     times = []
     for _ in range(3):
@@ -129,10 +138,13 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int) -> 
         times.append(time.perf_counter() - t0)
     step_s = sorted(times)[1]
     plan = f"{remat} ({','.join(levels)})" if remat == "mixed" else remat
-    print(f"[train] dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}); "
+    flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}.get(backbone)
+    mfu = f"; MFU {3 * flops(cfg.model, B, T) / step_s / 989e12:.4f}" if flops else ""
+    print(f"[train] {backbone} dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}){mfu}; "
           f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, fused backward {fa.flash_bwd.launches // 3}, "
-          f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}")
+          f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}; grouped forward "
+          f"{fa.flash_fwd.grouped_launches // 3}, grouped backward {fa.flash_bwd.grouped_launches // 3}")
     device_ms = kernel_table(lambda: step(state, batch), "one training step")
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
@@ -147,6 +159,7 @@ def main() -> None:
     p.add_argument("--batch", type=int, default=4, help="--train: batch size (at most 4)")
     p.add_argument("--frames", type=int, default=4096, help="--train: sequence length")
     p.add_argument("--precision", choices=["full-bf16", "bf16"], default="full-bf16")
+    p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
@@ -164,7 +177,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}")
     if args.train:
-        profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames)
+        profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
+                      args.backbone)
         return
 
     cfg = Config(model=ModelConfig(dim_h=128))

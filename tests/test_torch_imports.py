@@ -32,6 +32,7 @@ names = ["osufusion_tpu_torch"] + [m.name for m in pkgutil.walk_packages(osufusi
 for name in names:
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN], "a forbidden module was imported"
+assert {{"osufusion_tpu_torch.nn.dit", "osufusion_tpu_torch.nn.mmdit"}} <= set(names), "the transformer backbones"
 print(len(names))
 """
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
-global backward, the windowed dq / dkv pair, the halo forward / dq / dkv of
-sequence parallelism, and the differentiable ops that join them) against
+global backward, each also in its grouped form for DiT and MMDiT, the
+windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
+and the differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
 
@@ -58,8 +59,8 @@ def test_flash_fwd_rejects_what_it_does_not_take(cuda):
     q, k, v, rope = _inputs(1, 128, 4, seed=0, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(q.float(), k.float(), v.float(), None, rope)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, torch.cat([k, k], dim=2), torch.cat([v, v], dim=2), None, rope)
+    with pytest.raises(ValueError):  # 4 query heads do not split into 3 KV heads
+        fa.flash_attention(q, torch.cat([k, k, k], dim=2), torch.cat([v, v, v], dim=2), None, rope)
     with pytest.raises(ValueError):
         fa.flash_fwd(q, k[:, :, 0], v[:, ::2, 0], *rope, -1, 0.125)
 
@@ -292,3 +293,67 @@ def test_halo_kernels_reject_what_they_do_not_take(cuda):
         ha.halo_fwd(q, k[:, :-1], v[:, :-1], 63, 0, 256, 0.125)
     with pytest.raises(ValueError, match="inside the song"):
         ha.halo_fwd(q, k, v, 64, 200, 256, 0.125)
+
+
+# the grouped forms of K1 and K2 (k, v (B, T, Kv, D)): (B, T, H, Kv, rope):
+# DiT's full MHA with a ragged last block, MMDiT's G = 4, an odd group, G = 2
+# with rotary tables, and a length no tile divides
+GROUPED_SHAPES = [(2, 200, 4, 4, False), (1, 333, 8, 2, False), (2, 256, 6, 3, True), (1, 1000, 8, 8, False),
+                  (2, 512, 8, 2, True)]
+
+
+def _grouped_inputs(B, T, H, Kv, rope, device):
+    g = torch.Generator(device=device).manual_seed(T + H + Kv)
+    q, do = (torch.randn((B, T, H, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, T, Kv, 64), generator=g, device=device).to(torch.bfloat16) for _ in range(2))
+    tables = rope_tables(T, 64, scale_base=float(T), device=device) if rope else (None, None)
+    return q, k, v, do, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,rope", GROUPED_SHAPES)
+def test_grouped_forward_with_lse_and_backward_match_plain(cuda, B, T, H, Kv, rope):
+    q, k, v, do, (cos, sin) = _grouped_inputs(B, T, H, Kv, rope, cuda)
+    k_rot = fa.rotated_k(k, cos, sin) if rope else k
+    launches = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
+    dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.lse_launches, fa.flash_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125))  # the LSE store changes nothing else
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32 and dk.shape == k.shape
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+
+
+@pytest.mark.cuda
+def test_grouped_windowed_forward_matches_plain(cuda):
+    """Serving a UNet with two KV heads: the windowed forward in its grouped form."""
+    q, k, v, _, rope = _grouped_inputs(2, 1024, 16, 2, True, cuda)
+    out = fa.flash_attention(q, k, v, 256, rope)
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), 256, rope)
+    assert _rel(out, ref) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_dit_site_under_a_gradient_runs_the_grouped_kernels(cuda):
+    """A DiT site (H == Kv, no tables) through ``flash_attention`` under
+    autograd: one forward with its LSE and one fused backward, the gradients
+    those of autograd through the plain forward; a windowed grouped site has no
+    backward kernel and raises before any launch."""
+    q, k, v, do, _ = _grouped_inputs(2, 320, 8, 8, False, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
+    fa.flash_attention(*leaves, None, None).backward(do)
+    assert (fa.flash_fwd.lse_launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    fa.flash_attention_reference(*ref_leaves, None, None).backward(do.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
+        assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
+    before = fa.flash_fwd.launches
+    with pytest.raises(ValueError, match="K3"):
+        fa.flash_attention(*leaves, 128, None)
+    assert fa.flash_fwd.launches == before

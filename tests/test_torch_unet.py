@@ -117,8 +117,8 @@ def test_ddim_schedule_matches_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         build_model(ModelConfig(**TINY), DiffusionConfig(objective="rectified-flow"))
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(**{**TINY, "backbone": "dit"}), DiffusionConfig())
+    with pytest.raises(ValueError, match="unknown backbone"):
+        build_model(ModelConfig(**{**TINY, "backbone": "vit"}), DiffusionConfig())
     model = build_model(ModelConfig(**TINY), DiffusionConfig())
     with pytest.raises(NotImplementedError):
         model.sample(None, torch.zeros(1, 96, 8), torch.zeros(1, 5), x=torch.zeros(1, 6, 8), method="dpmpp-2m")
