@@ -38,8 +38,8 @@ failure raises and the exit code is not 0:
    through the plain versions, both on the GPU, at T=4096 (every site global)
    and at T=16384 (every site windowed).
 8. Training: ``osufusion_tpu_torch.trainer.train`` on the dummy dataset at
-   dim_h=512, B=4, T=4096, full bf16, 4 steps without rematerialisation and 4
-   under ``save-attn``, each with a save and a resume half way; launches per
+   dim_h=512, B=4, T=4096, full bf16, 4 steps without rematerialisation
+   with a save and a resume half way, and 4 under ``save-attn``; launches per
    step counted; then the ``model.safetensors`` it wrote is loaded by
    ``serve.load_model`` and serves a 60 s song.
 9. Full-song training: the same trainer at dim_h=512, B=1, T=65536, full bf16,
@@ -93,6 +93,12 @@ failure raises and the exit code is not 0:
     ``serve.load_model``, serves a 60 s song (DDIM-50, CFG 2.0) to an ``.osz``
     that parses; the grouped forward runs without its LSE once per site and
     step.
+
+17. Whole-song training of a UNet with two KV heads (``attn_kv_heads=2``,
+    dim_h=512, B=1, T=65536, full bf16, ``mixed``, 2 steps): every site is a
+    windowed GQA site, run once per KV head through the windowed forward with
+    its LSE and the windowed dq / dkv pair: 2 x 39 launches of each of the
+    pair per step, and a finite loss.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -832,26 +838,28 @@ def _train_with_resume(cfg, steps: int, label: str, final: str = "final_conv/ker
 
 
 def phase_train(workdir: Path) -> tuple[int, int]:
-    """The trainer at the production cell, 4 steps per remat mode with a save
-    and a resume half way; returns (forward-with-LSE, backward) launches."""
+    """The trainer at the production cell, 4 steps per remat mode, without
+    remat across a save and a resume half way; returns (forward-with-LSE,
+    backward) launches."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
 
     steps, half = 4, 2
     totals = [0, 0]
     for remat in ("none", "save-attn"):
+        resume = remat == "none"  # one resume is enough: each save writes 1279 M parameters and their AdamW state
         cfg = Config(
             model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode="save-attn"),
             # dummy samples are 1024..4096 frames at this segment length, padded to 4096
             train=TrainConfig(project_dir=str(workdir / f"train_{remat}"), dataset_mode="dummy", segment_length=2048,
-                              batch_size=4, full_bf16=True, total_steps=half, warmup_steps=2, save_every=half,
-                              num_workers=2, seed=0),
+                              batch_size=4, full_bf16=True, total_steps=half if resume else steps, warmup_steps=2,
+                              save_every=half if resume else 0, num_workers=2, seed=0),
         )
         sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
         history, launches, peak = _train_with_resume(cfg, steps, f"train {remat}")
         totals[0] += launches["forward_lse"]
         totals[1] += launches["backward_fused"]
         seconds = [h["seconds"] for h in history[1:]]
-        _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps (save and resume at {half}): "
+        _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps{f' (save and resume at {half})' if resume else ''}: "
              f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
              f"{statistics.median(seconds):.4f} s/step (median of steps 2..{steps}: {[round(x, 4) for x in seconds]}); "
              f"peak memory {peak:.2f} GiB; launches over {steps} steps {launches} (sites {sites})")
@@ -913,6 +921,29 @@ def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
             if abs(got - want) > 5e-4 * abs(want):
                 raise AssertionError(f"full-song {plan}: loss {values} differs from mixed's {losses['mixed']}")
     return mixed_launches, losses["mixed"]
+
+
+def phase_gqa_fullsong_train(workdir: Path) -> dict:
+    """The full-song cell with two KV heads (``--model-attn-kv-heads 2``):
+    every site is a windowed GQA site, which the op runs once per KV head
+    through the windowed forward with its LSE and the windowed dq / dkv pair.
+    2 steps under ``mixed``; returns the launches."""
+    kv, steps = 2, 2
+    cfg = _fullsong_config("mixed", workdir / "fullsong_gqa", steps, 0)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_kv_heads=kv))
+    sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+    again = FULLSONG_PLANS["mixed"][1]
+    history, launches, peak = _train_with_resume(cfg, steps, "full-song GQA")
+    _log(f"[full-song GQA] dim_h=512 B=1 T={FULLSONG_T} attn_kv_heads={kv} full bf16 mixed, {steps} steps: "
+         f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
+         f"s/step {[round(h['seconds'], 4) for h in history]}; peak memory {peak:.2f} GiB; launches {launches} "
+         f"(sites {sites}, {again} run again per step, each once per KV head)")
+    expected = {"forward": 0, "forward_lse": (sites + again) * kv * steps, "backward_fused": 0,
+                "backward_dq": sites * kv * steps, "backward_dkv": sites * kv * steps, "forward_grouped": 0,
+                "backward_grouped": 0}
+    if launches != expected:
+        raise AssertionError(f"full-song GQA: launches {launches}, expected {expected}")
+    return launches
 
 
 # the halo kernels' shapes for a T=65536 song: (shards, T_local, W) at level 0
@@ -1538,6 +1569,8 @@ def main() -> int:
             for key, n in phase_transformer_train(backbone, Path(tmp)).items():
                 grouped_train[key] = grouped_train.get(key, 0) + n
         grouped_serve = phase_serve_dit(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_gqa_fullsong_train(Path(tmp))
     if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
         raise AssertionError("the port imported jax or the JAX package")
     _log(f"[device] nvidia-smi: {smi}")  # again here, so that the end of the output names the card too

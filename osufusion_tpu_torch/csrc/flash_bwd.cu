@@ -10,295 +10,450 @@
 // lse2 (B, T*H) fp32 in t-major order, the cos/sin tables (T, D) fp32, or
 // none (DiT/MMDiT: then q is not rotated and dq not un-rotated). lse2 is the
 // base-2 log-sum-exp of the forward's logits s2 = q_rot k_rot^T * scale *
-// log2(e). A first small kernel writes
-// delta = rowsum(do * o) into a (B, T*H) fp32 scratch buffer (one pass over
-// do and o, eight threads a row), which the JAX package leaves to XLA.
+// log2(e).
 //
 // The maths, with p = exp2(s2 - lse2) the softmax probability:
 //   dv     = p^T do
 //   dp     = do v^T
-//   ds     = p * (dp - delta)           gradient of the natural-log logits
-//   dk_rot = scale * ds^T q_rot
-//   dq_rot = scale * ds k_rot
-// The kernel holds q as qs = q_rot * scale * log2(e) in bf16, rotated in fp32
-// on load exactly as the forward does, so that s2 = qs k_rot^T repeats the
-// forward's logits bit for bit. Hence the constants each output carries:
-//   dv      no factor;
-//   dk_rot  = ln(2) * ds^T qs   (qs already carries scale * log2(e));
-//   dq_rot  = scale * ds k_rot, then un-rotated into the raw q's frame,
-//             g cos - rot_half(g sin), before it leaves the registers.
+//   ds     = p * (dp - delta),  delta = rowsum(do * o)
+//   dk_rot = scale * ds^T q_rot = ln(2) * ds^T qs
+//   dq_rot = scale * ds k_rot, then un-rotated into the raw q's frame
+// with qs = q_rot * scale * log2(e) in bf16, staged with the forward's
+// arithmetic (rope_qs.cuh), so that s2 = qs k_rot^T repeats the forward's
+// logits.
 //
-// Layout and work split (the card's own, not the TPU kernel's):
-//  * One block per (batch element, KV head, KV tile of BN = 64 keys). It
-//    keeps dk and dv of its tile in registers (both sum over the query rows
-//    of the KV head's group) and sweeps those T*G rows in tiles of BM = 64:
-//    group row r is timestep r / G, head kv * G + r % G. At MQA (Kv = 1) the
-//    rows are the T*H contiguous rows of q and that form is compiled apart
-//    (GROUPED = false), so its code is the MQA kernel's; at full MHA (G = 1,
-//    DiT) a block sweeps the T timesteps of one head. The grid's second axis
-//    over (batch, KV head) stands in for the TPU kernel's timestep fold.
-//    Blocks share nothing except dq.
-//  * dq: each block adds its contribution with fp32 atomicAdd (two floats at
-//    a time) into a zeroed (B, T, H, D) fp32 buffer. The TPU version has no
-//    atomics and writes one partial per KV block instead; that stack is not
-//    carried over. The order of the additions varies from run to run, so dq
-//    differs in its last bits between runs.
-//  * Per query tile: s and dp are mma.sync m16n8k16 bf16 -> fp32 with each of
-//    the 4 warps owning 16 rows, every operand fragment read from shared
-//    memory with ldmatrix; p and ds are written to shared memory in
-//    bf16 so that the transposed products (p^T do, ds^T qs) can read them with
-//    ldmatrix.trans, each warp owning 16 keys of dk and dv; dq = ds k_rot uses
-//    the ds accumulators re-packed in registers as the A operand.
-//  * 128 threads and 54 KB of shared memory per block, so two blocks share an
-//    SM (the ~220 registers a thread allow no third) and one's loads overlap
-//    the other's products. There is no second cp.async stage for the next
-//    query tile: the simple single stage stays until a measurement asks for
-//    more.
+// Bound: compute, 5 products of 2 * D FLOP per (query, key) pair against a
+// few hundred bytes per row. The design, in three launches of one entry
+// point (tiles move by TMA, `cp.async.bulk.tensor` and `cp.async.bulk` behind
+// `mbarrier`s; every product is `wgmma.mma_async`; the wrappers are in
+// hopper.cuh):
 //
-// Bound: compute (5 products of 2*T*S*D each per batch element and query
-// head, against q/do/dq traffic of a few hundred bytes per row). dk and dv leave in fp32;
-// the wrapper un-rotates dk and casts.
+//  1. Pre-pass (flash_bwd_prep_kernel), one sweep over the rows: qs (rotated
+//     and scaled once, not once per KV tile), delta, and the LSE, each in
+//     group-major order, (B * Kv, T * G, ...), so that every KV group's rows
+//     are contiguous whatever G is (row r: timestep r / G, head kv * G + r % G);
+//     at Kv > 1 do is copied into that order too (at MQA it already is). The
+//     LSE and delta are padded to whole 64-row tiles with +inf and 0, so a
+//     padded row has p = ds = 0. It also zeroes the fp32 dq buffer.
+//  2. The sweep (flash_bwd_kernel): one block per (batch, KV head, KV tile of
+//     BN = 128 keys). Two consumer warpgroups each keep dk and dv of 64 keys
+//     in fp32 registers; a producer warpgroup (one thread of it, holding 40
+//     registers so that the consumers get 232) streams the group's query tiles
+//     (BM = 64 rows of qs and do by TMA, LSE and delta by bulk copy) through
+//     a ring of NSTAGE stages behind mbarriers. Per tile each warpgroup
+//     computes S^T = K qs^T and dP^T = V do^T (wgmma, keys as M, both
+//     operands in shared memory), so P^T and dS^T come out in registers
+//     already as the A operand of dV += P^T do and dK += dS^T qs (no
+//     shared-memory round trip, no ldmatrix.trans). dS^T goes to shared
+//     memory once; then one warpgroup, the two taking turns tile by tile,
+//     computes dQ = dS K over all 128 keys (wgmma m64n64, dS read MN-major)
+//     and adds it into the fp32 buffer with red.global (atomicAdd of float2):
+//     once per 128 keys. The order of the additions varies from run to run,
+//     so dq differs in its last bits between runs.
+//  3. Post-pass (flash_bwd_dq_kernel): dq = scale * un-rotate(buffer), cast to
+//     bf16, back in (B, T, H, D) order.
 //
-// C ABI (loaded with ctypes): flash_bwd_bf16 returns cudaGetLastError().
+// dk and dv leave in fp32, dk still in the rotated frame; the wrapper
+// un-rotates it on the small tensor.
+//
+// C ABI (loaded with ctypes): flash_bwd_bf16 returns a cudaError_t, or minus
+// the CUresult of a TMA descriptor that failed to encode.
 
-#include "flash_bwd_common.cuh"
+#include <math.h>
+
+#include "hopper.cuh"
+#include "rope_qs.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // (timestep, head) rows per sweep step
-constexpr int WARPS = BM / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE = BM * LDS;  // elements of one staged tile (BN == BM)
-constexpr int SMEM_BYTES = 6 * TILE * 2;  // k, v; qs, do, p, ds
+constexpr int D = 64;                          // head dim
+constexpr int BM = 64;                         // query rows per tile of the sweep
+constexpr int BN = 128;                        // keys per block
+constexpr int NSTAGE = 3;                      // query tiles in flight
+constexpr int CONSUMERS = BN / 64;             // consumer warpgroups, 64 keys each
+constexpr int THREADS = CONSUMERS * 128 + 128;  // and the producer warpgroup
+// registers a thread after the hand-over: the producer keeps few, the
+// consumers take the rest (2 x 128 x 232 + 128 x 40 <= 65536)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int KV_BYTES = BN * D * 2;
+constexpr int ROW_TILE_BYTES = BM * D * 2;
+constexpr int DS_BYTES = BN * BM * 2;
+// K, V; per stage qs, do, lse, delta; two dS buffers; barriers
+constexpr int SMEM_BYTES =
+    1024 + 2 * KV_BYTES + NSTAGE * (2 * ROW_TILE_BYTES + 2 * BM * 4) + 2 * DS_BYTES + (2 * NSTAGE + 1) * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-static_assert(BM == BN, "one tile size serves k, v, qs, do, p and ds");
+// One thread per (group row, 8 columns of the low half and their partners):
+// qs_g, do_g (null at MQA), lse_g, delta_g and the zeroed dq buffer, all in
+// group-major order; rows in [rows, pad) get lse = +inf, delta = 0 and a
+// zeroed dq row.
+template <bool ROPE>
+__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
+                                      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+                                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                                      __nv_bfloat16* __restrict__ qs_g, __nv_bfloat16* __restrict__ do_g,
+                                      float* __restrict__ lse_g, float* __restrict__ delta_g,
+                                      float* __restrict__ dq_acc, int T, int H, int Kv, int pad, float qscale) {
+  // grid: (pad * 4 / 256, B * Kv); pad * 4 is a multiple of 256, so every thread has a row
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int G = H / Kv;
+  const int rows = T * G;
+  const int c = idx % 4;
+  const int r = idx / 4;           // row of the group, < pad
+  const size_t grp = blockIdx.y;   // b * Kv + kv
+  const size_t gr = grp * pad + r;  // (group, row) over the padded rows
+  const int col = c * 8;
+  float part = 0.f;
+  const bool real = r < rows;
+  if (real) {
+    const int b = grp / Kv, kv = grp % Kv;
+    const int t = r / G;
+    const size_t src = ((size_t)b * T + t) * H + kv * G + r % G;  // the (b, t, h) row
+    const size_t dst = grp * rows + r;
+    uint4 lo, hi;
+    rope_qs8<ROPE>(q + src * D, ROPE ? cos_t + (size_t)t * D : nullptr, ROPE ? sin_t + (size_t)t * D : nullptr, col,
+                   qscale, lo, hi);
+    *reinterpret_cast<uint4*>(qs_g + dst * D + col) = lo;
+    *reinterpret_cast<uint4*>(qs_g + dst * D + col + D / 2) = hi;
+    const uint4 d4[2] = {*reinterpret_cast<const uint4*>(dout + src * D + col),
+                         *reinterpret_cast<const uint4*>(dout + src * D + col + D / 2)};
+    const uint4 o4[2] = {*reinterpret_cast<const uint4*>(o + src * D + col),
+                         *reinterpret_cast<const uint4*>(o + src * D + col + D / 2)};
+    if (do_g != nullptr) {
+      *reinterpret_cast<uint4*>(do_g + dst * D + col) = d4[0];
+      *reinterpret_cast<uint4*>(do_g + dst * D + col + D / 2) = d4[1];
+    }
+    const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(d4);
+    const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(o4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 x = __bfloat1622float2(pd[j]);
+      const float2 y = __bfloat1622float2(po[j]);
+      part += x.x * y.x + x.y * y.y;
+    }
+    if (c == 0) lse_g[gr] = lse[src];
+  } else if (c == 0) {
+    lse_g[gr] = INFINITY;
+  }
+  // the four threads of a row are neighbours in one warp (blockDim.x is a multiple of 32)
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  part += __shfl_xor_sync(0xffffffffu, part, 2);
+  if (c == 0) delta_g[gr] = real ? part : 0.f;
+  float4* dz = reinterpret_cast<float4*>(dq_acc + gr * D);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  dz[c * 2] = zero;
+  dz[c * 2 + 1] = zero;
+  dz[D / 8 + c * 2] = zero;
+  dz[D / 8 + c * 2 + 1] = zero;
+}
 
-template <bool GROUPED, bool ROPE>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const float* __restrict__ cos_t, const float* __restrict__ sin_t, float* __restrict__ dq,
-                 float* __restrict__ dk, float* __restrict__ dv, int T, int S, int H, int Kv, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][LDS]
-  __nv_bfloat16* Vs = Ks + BN * LDS;                                // [BN][LDS]
-  __nv_bfloat16* Qs = Vs + TILE;                                    // [BM][LDS] rotated, scaled q
-  __nv_bfloat16* Os = Qs + TILE;                                    // [BM][LDS] do
-  __nv_bfloat16* Ps = Os + TILE;                                    // [BM][LDS] p, rows x keys
-  __nv_bfloat16* Gs = Ps + TILE;                                    // [BM][LDS] ds, rows x keys
+template <bool GROUPED>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+                 const float* __restrict__ lse_g, const float* __restrict__ delta_g, float* __restrict__ dq_acc,
+                 float* __restrict__ dk, float* __restrict__ dv, int T, int S, int H, int Kv, int pad) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);            // [BN][D]
+  __nv_bfloat16* Vs = Ks + BN * D;                                       // [BN][D]
+  __nv_bfloat16* Qs = Vs + BN * D;                                       // [NSTAGE][BM][D]
+  __nv_bfloat16* Os = Qs + NSTAGE * BM * D;                              // [NSTAGE][BM][D] do
+  __nv_bfloat16* Ss = Os + NSTAGE * BM * D;                              // [2][BN][BM] dS^T
+  float* Ls = reinterpret_cast<float*>(Ss + 2 * BN * BM);                // [NSTAGE][BM] lse
+  float* Es = Ls + NSTAGE * BM;                                          // [NSTAGE][BM] delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(Es + NSTAGE * BM);
+  uint64_t* empty = full + NSTAGE;
+  uint64_t* kv_bar = empty + NSTAGE;
 
   const int b = GROUPED ? blockIdx.y / Kv : blockIdx.y;
   const int kv = GROUPED ? blockIdx.y % Kv : 0;
-  const int G = GROUPED ? H / Kv : H;  // heads of the group: its rows are T*G
-  const int kvs = GROUPED ? Kv : 1;    // KV heads of a key row
+  const int grp = blockIdx.y;  // b * Kv + kv
+  const int rows = T * (H / Kv);
   const int s0 = blockIdx.x * BN;
-  const int rows = T * G;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;   // mma group: fragment row (and row + 8)
-  const int tg = lane & 3;   // thread in group: fragment column pair
-  const int mi = lane >> 3;  // ldmatrix: which of the four 8x8 matrices this lane addresses
-  const int mr = lane & 7;   // ldmatrix: row of that matrix
-  const int wr = warp * 16;  // this warp's rows of a query tile, and its keys of dk/dv
+  const int n_tiles = pad / BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  const size_t row0 = (size_t)b * T * H + kv * G;  // the group's first (timestep, head) row
-  const __nv_bfloat16* qb = q + row0 * D;
-  const __nv_bfloat16* dob = dout + row0 * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * kvs + kv) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * kvs + kv) * D;
-  const float* lseb = lse + row0;
-  const float* deltab = delta + row0;
-  float* dqb = dq + row0 * D;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  copy_kv_tile<THREADS>(Ks, Vs, kb, vb, s0, S, tid, kvs * D);
-  cp_async_commit();
-  const bool kv_tail = s0 + BN > S;
-
-  float dv_acc[D / 8][4], dk_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
-    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
+  if (warp >= CONSUMERS * 4) {  // the producer warpgroup; one thread issues every copy
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * KV_BYTES);
+      tma_load_4d(Ks, &kmap, kv_bar, 0, kv, s0, b);
+      tma_load_4d(Vs, &vmap, kv_bar, 0, kv, s0, b);
+      const float* lb = lse_g + (size_t)grp * pad;
+      const float* eb = delta_g + (size_t)grp * pad;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % NSTAGE;
+        mbar_wait(&empty[st], ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * ROW_TILE_BYTES + 2 * BM * 4);
+        tma_load_3d(Qs + st * BM * D, &qmap, &full[st], 0, it * BM, grp);
+        tma_load_3d(Os + st * BM * D, &domap, &full[st], 0, it * BM, grp);
+        bulk_load(Ls + st * BM, lb + it * BM, BM * 4, &full[st]);
+        bulk_load(Es + st * BM, eb + it * BM, BM * 4, &full[st]);
+      }
+    }
+    return;
   }
 
-  const float qscale = scale * LOG2E;
-  const int n_tiles = (rows + BM - 1) / BM;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int r0 = it * BM;
-
-    // stage do (copied as is) and qs (rotated in fp32, as the forward does)
-    copy_rows<BM, THREADS, GROUPED>(Os, dob, r0, rows, tid, G, H);
-    cp_async_commit();
-    // this thread's two fragment rows and their statistics; a row past the
-    // end gets lse = +inf, so its p and ds are zero
-    const int row_a = r0 + wr + g;
-    const int row_b = row_a + 8;
-    const int mem_a = group_row<GROUPED>(row_a, G, H), mem_b = group_row<GROUPED>(row_b, G, H);
-    const float lse_r[2] = {row_a < rows ? lseb[mem_a] : INFINITY, row_b < rows ? lseb[mem_b] : INFINITY};
-    const float delta_r[2] = {row_a < rows ? deltab[mem_a] : 0.f, row_b < rows ? deltab[mem_b] : 0.f};
-    stage_qs<BM, THREADS, GROUPED, ROPE>(Qs, qb, cos_t, sin_t, r0, rows, H, qscale, tid, G);
-    cp_async_wait<0>();  // do of this tile; on the first tile k and v too
-    __syncthreads();
-
-    // s = qs k^T and dp = do v^T for this warp's 16 rows x BN keys
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, Qs, wr, kk, lane);
-      load_a(da, Os, wr, kk, lane);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t kf[4], vf[4];
-        load_b(kf, Ks, np * 16, kk, lane);
-        load_b(vf, Vs, np * 16, kk, lane);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], da, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
-      }
-    }
-
-    // p = exp2(s - lse2), ds = p (dp - delta); both to shared memory in bf16
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[nt][e] - lse_r[e >> 1]);
-        if (kv_tail && s0 + nt * 8 + 2 * tg + (e & 1) >= S) p = 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]);
-      }
-      const int off_a = (wr + g) * LDS + nt * 8 + 2 * tg;
-      const int off_b = off_a + 8 * LDS;
-      *reinterpret_cast<uint32_t*>(Ps + off_a) = pack_bf16(s[nt][0], s[nt][1]);
-      *reinterpret_cast<uint32_t*>(Ps + off_b) = pack_bf16(s[nt][2], s[nt][3]);
-      *reinterpret_cast<uint32_t*>(Gs + off_a) = pack_bf16(dp[nt][0], dp[nt][1]);
-      *reinterpret_cast<uint32_t*>(Gs + off_b) = pack_bf16(dp[nt][2], dp[nt][3]);
-    }
-
-    // dq_rot = ds k for this warp's 16 rows: the ds accumulators of two
-    // adjacent key tiles are the A fragment of one 16-key step
-    float dq_acc[D / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      const uint32_t ga[4] = {pack_bf16(dp[2 * kt][0], dp[2 * kt][1]), pack_bf16(dp[2 * kt][2], dp[2 * kt][3]),
-                              pack_bf16(dp[2 * kt + 1][0], dp[2 * kt + 1][1]),
-                              pack_bf16(dp[2 * kt + 1][2], dp[2 * kt + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, Ks + (kt * 16 + mr + (mi & 1) * 8) * LDS + dd * 16 + (mi >> 1) * 8);
-        mma_bf16(dq_acc[2 * dd], ga, kf[0], kf[1]);
-        mma_bf16(dq_acc[2 * dd + 1], ga, kf[2], kf[3]);
-      }
-    }
-    // un-rotate into the raw q's frame (g cos - rot_half(g sin); columns d and
-    // d + 32 sit in the same thread), apply scale, add into the fp32 buffer
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = i == 0 ? row_a : row_b;
-      if (row < rows) {
-        float* dst = dqb + (size_t)(i == 0 ? mem_a : mem_b) * D;
-#pragma unroll
-        for (int dt = 0; dt < D / 16; ++dt) {
-          const int col = dt * 8 + 2 * tg;
-          const float g_lo0 = dq_acc[dt][2 * i], g_lo1 = dq_acc[dt][2 * i + 1];
-          const float g_hi0 = dq_acc[dt + D / 16][2 * i], g_hi1 = dq_acc[dt + D / 16][2 * i + 1];
-          float2 lo, hi;
-          if (ROPE) {
-            const float* cr = cos_t + (size_t)(row / G) * D;
-            const float* sr = sin_t + (size_t)(row / G) * D;
-            const float2 c_lo = *reinterpret_cast<const float2*>(cr + col);
-            const float2 c_hi = *reinterpret_cast<const float2*>(cr + col + D / 2);
-            const float2 s_lo = *reinterpret_cast<const float2*>(sr + col);
-            const float2 s_hi = *reinterpret_cast<const float2*>(sr + col + D / 2);
-            lo = make_float2((g_lo0 * c_lo.x + g_hi0 * s_hi.x) * scale, (g_lo1 * c_lo.y + g_hi1 * s_hi.y) * scale);
-            hi = make_float2((g_hi0 * c_hi.x - g_lo0 * s_lo.x) * scale, (g_hi1 * c_hi.y - g_lo1 * s_lo.y) * scale);
-          } else {
-            lo = make_float2(g_lo0 * scale, g_lo1 * scale);
-            hi = make_float2(g_hi0 * scale, g_hi1 * scale);
-          }
-          atomicAdd(reinterpret_cast<float2*>(dst + col), lo);
-          atomicAdd(reinterpret_cast<float2*>(dst + col + D / 2), hi);
-        }
-      }
-    }
-    __syncthreads();  // p and ds of every warp are in shared memory
-
-    // dv += p^T do and dk += ds^T qs for this warp's 16 keys, over the tile's rows
-#pragma unroll
-    for (int ks = 0; ks < BM / 16; ++ks) {
-      uint32_t pa[4], ga[4];
-      const int a_off = (ks * 16 + mr + (mi >> 1) * 8) * LDS + wr + (mi & 1) * 8;
-      ldmatrix_x4_trans(pa, Ps + a_off);
-      ldmatrix_x4_trans(ga, Gs + a_off);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bf[4];
-        const int b_off = (ks * 16 + mr + (mi & 1) * 8) * LDS + dd * 16 + (mi >> 1) * 8;
-        ldmatrix_x4_trans(bf, Os + b_off);
-        mma_bf16(dv_acc[2 * dd], pa, bf[0], bf[1]);
-        mma_bf16(dv_acc[2 * dd + 1], pa, bf[2], bf[3]);
-        ldmatrix_x4_trans(bf, Qs + b_off);
-        mma_bf16(dk_acc[2 * dd], ga, bf[0], bf[1]);
-        mma_bf16(dk_acc[2 * dd + 1], ga, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // the tiles just read are the next step's copy targets
-  }
-
-  const int key_a = s0 + wr + g;
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4;  // consumer warpgroup: keys s0 + 64 wg ...
+  const int wi = warp % 4;
+  const int g = lane >> 2;  // accumulator row (and row + 8) in the warp's 16
+  const int tq = lane & 3;  // accumulator column pair
+  const int key_a = s0 + wg * 64 + wi * 16 + g;  // this thread's two keys (rows of S^T, dk, dv)
   const int key_b = key_a + 8;
-  const int ld = kvs * D;  // elements from one key to the next of dk and dv
+  const bool kv_tail = s0 + BN > S;
+  const uint64_t kdesc = desc_kmajor(Ks + wg * 64 * D);  // K of this warpgroup's keys, as A
+  const uint64_t vdesc = desc_kmajor(Vs + wg * 64 * D);
+  const uint64_t kdesc_b = desc_mnmajor(Ks);             // all 128 keys, as dQ's B
+  float* dqb = dq_acc + (size_t)grp * pad * D;
+
+  float dv_acc[32], dk_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % NSTAGE;
+    mbar_wait(&full[st], (it / NSTAGE) & 1);
+    const __nv_bfloat16* Qt = Qs + st * BM * D;
+    const __nv_bfloat16* Ot = Os + st * BM * D;
+
+    // S^T = K qs^T and dP^T = V do^T: this warpgroup's 64 keys x the tile's 64 rows
+    float s[32], dp[32];
+    const uint64_t qdesc = desc_kmajor(Qt), odesc = desc_kmajor(Ot);
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<0, 0>(s, kdesc + 2 * kk, qdesc + 2 * kk, kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64<0, 0>(dp, vdesc + 2 * kk, odesc + 2 * kk, kk);
+    wgmma_commit();
+
+    // p = exp2(s - lse2) (zero past S; a padded row has lse = +inf), ds = p (dp - delta)
+    const float* lt = Ls + st * BM;
+    const float* et = Es + st * BM;
+    wgmma_wait<1>();
+    reg_fence(s);
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * i + 2 * tq);
+      s[4 * i] = exp2f(s[4 * i] - l2.x);
+      s[4 * i + 1] = exp2f(s[4 * i + 1] - l2.y);
+      s[4 * i + 2] = exp2f(s[4 * i + 2] - l2.x);
+      s[4 * i + 3] = exp2f(s[4 * i + 3] - l2.y);
+      if (kv_tail) {
+        if (key_a >= S) s[4 * i] = s[4 * i + 1] = 0.f;
+        if (key_b >= S) s[4 * i + 2] = s[4 * i + 3] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const float2 e2 = *reinterpret_cast<const float2*>(et + 8 * i + 2 * tq);
+      dp[4 * i] = s[4 * i] * (dp[4 * i] - e2.x);
+      dp[4 * i + 1] = s[4 * i + 1] * (dp[4 * i + 1] - e2.y);
+      dp[4 * i + 2] = s[4 * i + 2] * (dp[4 * i + 2] - e2.x);
+      dp[4 * i + 3] = s[4 * i + 3] * (dp[4 * i + 3] - e2.y);
+    }
+
+    // dV += P^T do and dK += dS^T qs: P^T and dS^T are already A fragments
+    // (keys as M, the tile's rows as K); do and qs read MN-major
+    uint32_t pa[BM / 16][4], ga[BM / 16][4];
+#pragma unroll
+    for (int j = 0; j < BM / 16; ++j) {
+      a_frag(pa[j], s + 8 * j);
+      a_frag(ga[j], dp + 8 * j);
+    }
+    const uint64_t qdesc_b = desc_mnmajor(Qt), odesc_b = desc_mnmajor(Ot);
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BM / 16; ++j) wgmma_rs_n64<1>(dv_acc, pa[j], odesc_b + j * (16 * 128 >> 4), 1);
+#pragma unroll
+    for (int j = 0; j < BM / 16; ++j) wgmma_rs_n64<1>(dk_acc, ga[j], qdesc_b + j * (16 * 128 >> 4), 1);
+    wgmma_commit();
+
+    // dS^T to shared memory in bf16: [key][row], rows contiguous and swizzled
+    __nv_bfloat16* St = Ss + (it & 1) * BN * BM;
+    const int kr_a = wg * 64 + wi * 16 + g, kr_b = kr_a + 8;
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      *reinterpret_cast<uint32_t*>(St + sw128(kr_a, i) + 2 * tq) = ga[i / 2][(i & 1) * 2];
+      *reinterpret_cast<uint32_t*>(St + sw128(kr_b, i) + 2 * tq) = ga[i / 2][(i & 1) * 2 + 1];
+    }
+    fence_proxy_async();
+    named_bar_sync(1, CONSUMERS * 128);  // dS^T of all 128 keys is in place
+
+    // dQ = dS K over the block's 128 keys: the warpgroups take turns by tile
+    const bool mine = (it % CONSUMERS) == wg;
+    float dq[32];
+    if (mine) {
+      const uint64_t sdesc = desc_mnmajor(St);
+      reg_fence(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j)
+        wgmma_ss_n64<1, 1>(dq, sdesc + j * (16 * 128 >> 4), kdesc_b + j * (16 * 128 >> 4), j);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    reg_fence(pa);
+    reg_fence(ga);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    if (mine) {
+      reg_fence(dq);
+      const int row_a = it * BM + wi * 16 + g, row_b = row_a + 8;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + 2 * tq;
+        if (row_a < rows) atomicAdd(reinterpret_cast<float2*>(dqb + (size_t)row_a * D + col), make_float2(dq[4 * i], dq[4 * i + 1]));
+        if (row_b < rows)
+          atomicAdd(reinterpret_cast<float2*>(dqb + (size_t)row_b * D + col), make_float2(dq[4 * i + 2], dq[4 * i + 3]));
+      }
+    }
+  }
+
+  const int kvs = GROUPED ? Kv : 1;  // KV heads of a key row
   float* dkb = dk + ((size_t)b * S * kvs + kv) * D;
   float* dvb = dv + ((size_t)b * S * kvs + kv) * D;
+  const size_t ld = (size_t)kvs * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * tq;
     if (key_a < S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_a * ld + col) = make_float2(dk_acc[dt][0] * LN2, dk_acc[dt][1] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_a * ld + col) = make_float2(dv_acc[dt][0], dv_acc[dt][1]);
+      *reinterpret_cast<float2*>(dkb + key_a * ld + col) = make_float2(dk_acc[4 * i] * LN2, dk_acc[4 * i + 1] * LN2);
+      *reinterpret_cast<float2*>(dvb + key_a * ld + col) = make_float2(dv_acc[4 * i], dv_acc[4 * i + 1]);
     }
     if (key_b < S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_b * ld + col) = make_float2(dk_acc[dt][2] * LN2, dk_acc[dt][3] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_b * ld + col) = make_float2(dv_acc[dt][2], dv_acc[dt][3]);
+      *reinterpret_cast<float2*>(dkb + key_b * ld + col) = make_float2(dk_acc[4 * i + 2] * LN2, dk_acc[4 * i + 3] * LN2);
+      *reinterpret_cast<float2*>(dvb + key_b * ld + col) = make_float2(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
     }
   }
 }
 
+// dq (B, T, H, D) bf16 = scale * the un-rotated buffer row (g cos - rot_half(g
+// sin); columns d and d + 32 together), one thread per (row, 8 columns of the
+// low half and their partners)
+template <bool ROPE>
+__global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc, const float* __restrict__ cos_t,
+                                    const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ dq, size_t n_rows,
+                                    int T, int H, int Kv, int pad, float scale) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t row = idx / 4;  // the (b, t, h) row
+  if (row >= n_rows) return;
+  const int col = (idx % 4) * 8;
+  const int h = row % H;
+  const size_t bt = row / H;
+  const int t = bt % T;
+  const size_t b = bt / T;
+  const int G = H / Kv;
+  const float* src = dq_acc + ((b * Kv + h / G) * pad + (size_t)t * G + h % G) * D;
+  float lo[8], hi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float g_lo = src[col + j], g_hi = src[col + D / 2 + j];
+    if (ROPE) {
+      const float* cr = cos_t + (size_t)t * D;
+      const float* sr = sin_t + (size_t)t * D;
+      lo[j] = (g_lo * cr[col + j] + g_hi * sr[col + D / 2 + j]) * scale;
+      hi[j] = (g_hi * cr[col + D / 2 + j] - g_lo * sr[col + j]) * scale;
+    } else {
+      lo[j] = g_lo * scale;
+      hi[j] = g_hi * scale;
+    }
+  }
+  uint4 pl, ph;
+  pl.x = pack_bf16(lo[0], lo[1]); pl.y = pack_bf16(lo[2], lo[3]);
+  pl.z = pack_bf16(lo[4], lo[5]); pl.w = pack_bf16(lo[6], lo[7]);
+  ph.x = pack_bf16(hi[0], hi[1]); ph.y = pack_bf16(hi[2], hi[3]);
+  ph.z = pack_bf16(hi[4], hi[5]); ph.w = pack_bf16(hi[6], hi[7]);
+  *reinterpret_cast<uint4*>(dq + row * D + col) = pl;
+  *reinterpret_cast<uint4*>(dq + row * D + col + D / 2) = ph;
+}
+
+// (D, rows, groups) bf16 rows of a group-major buffer, boxes of BM rows; rows
+// past `rows` arrive as zeros
+int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int groups) {
+  const cuuint64_t dims[3] = {D, (cuuint64_t)rows, (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {D, BM, 1};
+  return make_map_bf16(map, 3, ptr, dims, strides, box);
+}
+
 }  // namespace
 
-// delta is scratch that the first kernel fills; dq must arrive zeroed. Kv KV
-// heads (H % Kv == 0, checked by the caller); cos_t and sin_t null for no
-// rotary embedding.
+// The scratch, allocated by the caller: qs_g (B*Kv, T*G, D) bf16; do_g the
+// same, or null at Kv == 1 (do is then read in place); lse_g and delta_g
+// (B*Kv, pad) fp32 and dq_acc (B*Kv, pad, D) fp32, pad = T*G rounded up to a
+// multiple of 64. Kv KV heads (H % Kv == 0, checked by the caller); cos_t and
+// sin_t null for no rotary embedding.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* o,
-                              const void* lse, void* delta, const void* cos_t, const void* sin_t, void* dq, void* dk,
-                              void* dv, int B, int T, int S, int H, int Kv, float scale, void* stream) {
+                              const void* lse, const void* cos_t, const void* sin_t, void* qs_g, void* do_g,
+                              void* lse_g, void* delta_g, void* dq_acc, void* dq, void* dk, void* dv, int B, int T,
+                              int S, int H, int Kv, float scale, void* stream) {
   const bool rope = cos_t != nullptr;
-  auto kernel = Kv > 1 ? (rope ? flash_bwd_kernel<true, true> : flash_bwd_kernel<true, false>)
-                       : (rope ? flash_bwd_kernel<false, true> : flash_bwd_kernel<false, false>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = launch_delta(dout, o, delta, (size_t)B * T * H, st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BN - 1) / BN, B * Kv);
-  kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), T,
-      S, H, Kv, scale);
+  const int rows = T * (H / Kv);
+  const int pad = (rows + BM - 1) / BM * BM;
+  const int groups = B * Kv;
+  if (Kv > 1 && do_g == nullptr) return (int)cudaErrorInvalidValue;
+  const void* do_rows = Kv > 1 ? do_g : dout;
+
+  CUtensorMap kmap, vmap, qmap, domap;
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = make_kv_map(&kmap, k, B, S, Kv, BN);
+  if (err == 0) err = make_kv_map(&vmap, v, B, S, Kv, BN);
+  if (err == 0) err = make_rows_map(&qmap, qs_g, rows, groups);
+  if (err == 0) err = make_rows_map(&domap, do_rows, rows, groups);
+  if (err != 0) return err;
+
+  auto prep = rope ? flash_bwd_prep_kernel<true> : flash_bwd_prep_kernel<false>;
+  prep<<<dim3(pad * 4 / 256, groups), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(qs_g),
+      Kv > 1 ? static_cast<__nv_bfloat16*>(do_g) : nullptr, static_cast<float*>(lse_g), static_cast<float*>(delta_g),
+      static_cast<float*>(dq_acc), T, H, Kv, pad, scale * LOG2E);
+  if (cudaGetLastError() != cudaSuccess) return (int)cudaErrorLaunchFailure;
+
+  auto kernel = Kv > 1 ? flash_bwd_kernel<true> : flash_bwd_kernel<false>;
+  static std::atomic<unsigned long long> smem_set[2];  // per instance: devices whose limit is raised
+  err = allow_smem(kernel, SMEM_BYTES, dev, smem_set[Kv > 1]);
+  if (err != 0) return err;
+  kernel<<<dim3((S + BN - 1) / BN, groups), THREADS, SMEM_BYTES, st>>>(
+      kmap, vmap, qmap, domap, static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+      static_cast<float*>(dq_acc), static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, pad);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+
+  const size_t n_rows = (size_t)B * T * H;
+  auto post = rope ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
+  post<<<(unsigned)((n_rows * 4 + 255) / 256), 256, 0, st>>>(static_cast<const float*>(dq_acc),
+                                                              static_cast<const float*>(cos_t),
+                                                              static_cast<const float*>(sin_t),
+                                                              static_cast<__nv_bfloat16*>(dq), n_rows, T, H, Kv, pad,
+                                                              scale);
   return (int)cudaGetLastError();
 }

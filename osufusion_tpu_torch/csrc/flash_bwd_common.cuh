@@ -1,4 +1,4 @@
-// What the backward kernels share (flash_bwd.cu, flash_bwd_windowed.cu): the
+// What the mma.sync kernels share (flash_bwd_windowed.cu, flash_halo.cu): the
 // tile geometry, the mma.sync / ldmatrix / cp.async wrappers, the staging of
 // q as the forward holds it, and the small kernel for delta = rowsum(do * o).
 //
@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "rope_qs.cuh"
 
 namespace {
 
@@ -78,99 +80,49 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4], const __nv_bfloat16* ti
 }
 
 // Copy the KV tile of keys s0..s0+BN-1 of one batch element into shared
-// memory with cp.async (no commit); keys at or past S arrive as zeros. ld is
-// the elements from one key to the next (D, or Kv * D for one of Kv heads)
+// memory with cp.async (no commit); keys at or past S arrive as zeros
 template <int NTHREADS>
 __device__ __forceinline__ void copy_kv_tile(__nv_bfloat16* Ks, __nv_bfloat16* Vs, const __nv_bfloat16* kb,
-                                             const __nv_bfloat16* vb, int s0, int S, int tid, int ld = D) {
+                                             const __nv_bfloat16* vb, int s0, int S, int tid) {
   for (int c = tid; c < BN * (D / 8); c += NTHREADS) {
     const int r = c / (D / 8);
     const int col = (c % (D / 8)) * 8;
     const int s = s0 + r;
     const bool ok = s < S;
-    const size_t off = (size_t)(ok ? s : 0) * ld + col;
+    const size_t off = (size_t)(ok ? s : 0) * D + col;
     cp_async16(Ks + r * LDS + col, kb + off, ok);
     cp_async16(Vs + r * LDS + col, vb + off, ok);
   }
 }
 
-// The (timestep, head) row of a (B, T, H, D) tensor that row r of a block's
-// rows is. MQA: the rows are the T*H contiguous rows (r itself). GROUPED: the
-// rows of one KV group, whose G heads sit among the H of every timestep
-// (the pointer already at the group's first head): timestep r / G, head r % G.
-template <bool GROUPED>
-__device__ __forceinline__ int group_row(int r, int G, int H) {
-  return GROUPED ? (r / G) * H + r % G : r;
-}
-
 // Copy ROWS rows of a (rows, D) bf16 matrix starting at row r0 into a padded
 // tile with cp.async (no commit); rows at or past row_end arrive as zeros.
-// GROUPED: the rows of one KV group of G heads among H (group_row)
-template <int ROWS, int NTHREADS, bool GROUPED = false>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0, int row_end, int tid,
-                                          int G = 0, int H = 0) {
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0, int row_end, int tid) {
   for (int c = tid; c < ROWS * (D / 8); c += NTHREADS) {
     const int r = c / (D / 8);
     const int col = (c % (D / 8)) * 8;
     const bool ok = r0 + r < row_end;
-    cp_async16(tile + r * LDS + col, src + (size_t)group_row<GROUPED>(ok ? r0 + r : 0, G, H) * D + col, ok);
+    cp_async16(tile + r * LDS + col, src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
   }
 }
 
 // Stage ROWS (timestep, head) rows of raw q, from row r0 on, as the forward
-// holds them: qs = rope(q) * qscale, rotated in fp32 and rounded to bf16, so
-// that qs k_rot^T repeats the forward's logits bit for bit (without ROPE, qs =
-// q * qscale). Row r belongs to timestep r / H (GROUPED: r / G, the rows of
-// one KV group, group_row). Rows at or past row_end are zeros.
-//   out[d]      = q[d] cos[d] - q[d+32] sin[d]
-//   out[d + 32] = q[d+32] cos[d+32] + q[d] sin[d+32]
-template <int ROWS, int NTHREADS, bool GROUPED = false, bool ROPE = true>
+// holds them (rope_qs.cuh: qs = rope(q) * qscale, rounded to bf16), so that
+// qs k_rot^T repeats the forward's logits. Row r belongs to timestep r / H.
+// Rows at or past row_end are zeros.
+template <int ROWS, int NTHREADS>
 __device__ __forceinline__ void stage_qs(__nv_bfloat16* Qs, const __nv_bfloat16* qb, const float* cos_t,
-                                         const float* sin_t, int r0, int row_end, int H, float qscale, int tid,
-                                         int G = 0) {
+                                         const float* sin_t, int r0, int row_end, int H, float qscale, int tid) {
   for (int c = tid; c < ROWS * (D / 16); c += NTHREADS) {
     const int r = c / (D / 16);
     const int col = (c % (D / 16)) * 8;  // 8 columns of the low half, and their partners
     const int row = r0 + r;
-    float lo[8], hi[8];
+    uint4 pl = make_uint4(0, 0, 0, 0), ph = make_uint4(0, 0, 0, 0);
     if (row < row_end) {
-      const __nv_bfloat16* qr = qb + (size_t)group_row<GROUPED>(row, G, H) * D;
-      const uint4 ql = *reinterpret_cast<const uint4*>(qr + col);
-      const uint4 qh = *reinterpret_cast<const uint4*>(qr + col + D / 2);
-      const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(&ql);
-      const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(&qh);
-      if (ROPE) {
-        // the tables' rows are 256 bytes and col is a multiple of 8: 16-byte loads
-        const int t = row / (GROUPED ? G : H);
-        const float4* cr = reinterpret_cast<const float4*>(cos_t + (size_t)t * D + col);
-        const float4* sr = reinterpret_cast<const float4*>(sin_t + (size_t)t * D + col);
-        const float4 c4[4] = {cr[0], cr[1], cr[D / 8], cr[D / 8 + 1]};  // low half, then its partners
-        const float4 s4[4] = {sr[0], sr[1], sr[D / 8], sr[D / 8 + 1]};
-        const float* cl = reinterpret_cast<const float*>(c4);
-        const float* sl = reinterpret_cast<const float*>(s4);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float a = __bfloat162float(xl[j]);
-          const float h = __bfloat162float(xh[j]);
-          lo[j] = (a * cl[j] - h * sl[j]) * qscale;
-          hi[j] = (h * cl[8 + j] + a * sl[8 + j]) * qscale;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          lo[j] = __bfloat162float(xl[j]) * qscale;
-          hi[j] = __bfloat162float(xh[j]) * qscale;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
+      const size_t t = row / H;
+      rope_qs8<true>(qb + (size_t)row * D, cos_t + t * D, sin_t + t * D, col, qscale, pl, ph);
     }
-    uint4 pl, ph;
-    pl.x = pack_bf16(lo[0], lo[1]); pl.y = pack_bf16(lo[2], lo[3]);
-    pl.z = pack_bf16(lo[4], lo[5]); pl.w = pack_bf16(lo[6], lo[7]);
-    ph.x = pack_bf16(hi[0], hi[1]); ph.y = pack_bf16(hi[2], hi[3]);
-    ph.z = pack_bf16(hi[4], hi[5]); ph.w = pack_bf16(hi[6], hi[7]);
     *reinterpret_cast<uint4*>(Qs + r * LDS + col) = pl;
     *reinterpret_cast<uint4*>(Qs + r * LDS + col + D / 2) = ph;
   }

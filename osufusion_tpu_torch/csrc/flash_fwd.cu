@@ -10,122 +10,87 @@
 // heads a group). With a non-null lse pointer (the training form) the kernel
 // also writes, per (b, t, h) row, the base-2 log-sum-exp of its own logits
 // q k^T * scale * log2(e), fp32, flat (B, T*H) in t-major order: what the
-// backward kernel (flash_bwd.cu) recomputes the probabilities from. Serving
-// passes null and pays nothing for it.
+// backward kernels recompute the probabilities from. Serving passes null and
+// pays nothing for it.
 //
-// Layout and work split:
-//  * q and o are (B, T, H, D) contiguous. A block owns BM = 128 (timestep,
-//    head) rows of one KV group: group row r is timestep r / G, head
-//    kv * G + r % G. At MQA (Kv = 1) the group is every head and its rows are
-//    the T*H contiguous rows of q (8 timesteps x 16 heads at H = 16: the head
-//    fold), and that form is compiled apart (GROUPED = false), so its code is
-//    the MQA kernel's; at full MHA (G = 1, DiT) a block is 128 consecutive
-//    timesteps of one head. The grid's second axis runs over (batch, KV head):
-//    that is what the card has in place of the TPU kernel's timestep fold.
-//    Each of the block's 8 warps owns 16 rows.
-//  * k and v are (B, S, Kv, D). A block walks the KV tiles of BN = 64 keys of
-//    its KV head that intersect [t_lo - w/2, t_hi + w/2] inside its own loop
-//    (blocks share no state), copying the next tile into the second
-//    shared-memory stage with cp.async while the current one is used. Each
-//    staged tile serves all the block's rows.
-//  * q is rotated once (ROPE), on load, in fp32, with scale * log2(e) folded
-//    in, and kept in registers as mma A fragments for the whole KV sweep.
-//  * Both products are mma.sync m16n8k16 bf16 -> fp32. The S accumulator of
-//    QK^T is re-packed in registers as the A operand of PV (FlashAttention-2);
-//    V's B operand comes from ldmatrix.trans.
-//  * Online softmax in fp32 registers, exp2 domain. Only tiles at the edge of
-//    the window (or past the end of the sequence) are masked.
+// Bound: compute (see ops/flash_attention.py): 4 * D FLOP per visited (query,
+// key) pair on the tensor cores, and one exp2 per pair, which at D = 64 costs
+// the SM's special-function units about as long as the pair's products cost
+// its tensor cores. The design keeps both busy and moves every tile by TMA
+// (`cp.async.bulk.tensor` behind `mbarrier`s; every product is
+// `wgmma.mma_async`; the wrappers are in hopper.cuh):
 //
-// Bound: compute (see ops/flash_attention.py). Shared memory rows are padded to
-// 72 bf16 (144 bytes) so fragment loads and ldmatrix hit distinct banks. The
-// launch bounds ask for two blocks per SM (55 KB of shared memory and at most
-// 128 registers a thread each): one block's softmax overlaps the other's
-// products, which is worth more than the few spilled bytes it costs.
+//  * Rows. q and o are (B, T, H, D) contiguous. A block owns BM = 128
+//    (timestep, head) rows of one KV group: group row r is timestep r / G,
+//    head kv * G + r % G. At MQA (Kv = 1) the group is every head and its rows
+//    are the T*H contiguous rows of q, and that form is compiled apart
+//    (GROUPED = false); at full MHA (G = 1, DiT) a block is 128 consecutive
+//    timesteps of one head. The grid's second axis runs over (batch, KV head).
+//  * Warp roles. Two consumer warpgroups own 64 rows each; one producer warp
+//    streams the KV tiles (BN = 128 keys of the block's KV head) that
+//    intersect [t_lo - w/2, t_hi + w/2] by TMA into a ring of NSTAGE stages
+//    behind full / empty mbarriers. k and v are read through a 4-d tensor map
+//    (D, Kv, S, B), so keys past S arrive as zeros.
+//  * q. Each consumer warpgroup rotates its 64 rows once, in fp32 with the
+//    arithmetic of rope_qs.cuh (scale * log2(e) folded in), and stores them
+//    in the 128-byte swizzle that wgmma reads (hopper.cuh), then fences the
+//    async proxy: the logits are qs k_rot^T with the bits of qs that the
+//    windowed backward (flash_bwd_windowed.cu) stages.
+//  * Products. S = qs K^T is wgmma m64n128k16 with both operands in shared
+//    memory (fp32 accumulators, 64 a thread). P, rounded to bf16, stays in
+//    registers as the A operand of O += P V (wgmma m64n64k16, V read
+//    MN-major): no shared-memory round trip.
+//  * Softmax. Online, fp32, exp2 domain, the row statistics shared by the four
+//    threads of a quad. Only tiles at the edge of the window or past S are
+//    masked, and a row that has seen no key yet keeps a zero base.
+//  * Overlap. Each warpgroup issues tile j's scores and tile j-1's P V
+//    together and waits only for the scores, so its softmax of tile j runs
+//    while the tensor cores do the P V; O is rescaled after. The two
+//    warpgroups are not locked together either, so one's softmax also
+//    overlaps the other's products. A stage is released once its P V is done;
+//    NSTAGE = 4 keeps two tiles loading ahead of the two in use.
 //
-// C ABI (loaded with ctypes): flash_fwd_bf16 returns cudaGetLastError(); lse
-// may be null, and cos_t / sin_t are null together or not at all.
+// C ABI (loaded with ctypes): flash_fwd_bf16 returns a cudaError_t, or minus
+// the CUresult of a TMA descriptor that failed to encode; lse may
+// be null, and cos_t / sin_t are null together or not at all.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
+#include "rope_qs.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BM = 128;       // (timestep, head) rows per block
-constexpr int BN = 64;        // keys per KV tile
-constexpr int WARPS = BM / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = D + 8;    // padded shared-memory row, in bf16
-constexpr int SMEM_BYTES = (BM + 4 * BN) * LDS * 2;  // q + 2 stages of k and v
+constexpr int D = 64;                       // head dim
+constexpr int BM = 128;                     // (timestep, head) rows per block
+constexpr int BN = 128;                     // keys per KV tile
+constexpr int NSTAGE = 4;                   // KV tiles in flight
+constexpr int CONSUMERS = BM / 64;          // consumer warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;  // and the producer warp
+constexpr int Q_BYTES = BM * D * 2;
+constexpr int TILE_BYTES = BN * D * 2;
+constexpr int SMEM_BYTES = 1024 + Q_BYTES + 2 * NSTAGE * TILE_BYTES + 2 * NSTAGE * 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !valid
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <bool GROUPED, bool ROPE>
-__global__ void __launch_bounds__(THREADS, 2)  // 128 registers a thread, so two blocks share an SM
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ cos_t,
-                 const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int T, int S, int H, int Kv, int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
-  __nv_bfloat16* Ks = Qs + BM * LDS;                                // [2][BN][LDS]
-  __nv_bfloat16* Vs = Ks + 2 * BN * LDS;                            // [2][BN][LDS]
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const __nv_bfloat16* __restrict__ q, const float* __restrict__ cos_t,
+                 const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
+                 int S, int H, int Kv, int window, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);               // [BM][D], swizzled
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Q_BYTES);     // [NSTAGE][BN][D]
+  __nv_bfloat16* Vs = Ks + NSTAGE * BN * D;                                 // [NSTAGE][BN][D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Q_BYTES + 2 * NSTAGE * TILE_BYTES);
+  uint64_t* empty = full + NSTAGE;
 
   const int b = GROUPED ? blockIdx.y / Kv : blockIdx.y;
   const int kv = GROUPED ? blockIdx.y % Kv : 0;
   const int G = GROUPED ? H / Kv : H;  // heads of the group: its rows are T*G
   const int rows = T * G;
-  const int kvs = GROUPED ? Kv : 1;  // KV heads of a key row
-  const int ld = kvs * D;            // elements from one key to the next
   const int r0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;   // mma group: fragment row (and row + 8)
-  const int tg = lane & 3;   // thread in group: fragment column pair
-  // (timestep, head) row of q, o and lse that group row r is
-  auto mem = [&](int r) { return GROUPED ? (r / G) * H + r % G : r; };
-
-  const __nv_bfloat16* qb = q + ((size_t)b * T * H + kv * G) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * kvs + kv) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * kvs + kv) * D;
-  __nv_bfloat16* ob = o + ((size_t)b * T * H + kv * G) * D;
-
   const bool local = window >= 0;
   const int w2 = window / 2;
   const int t_lo = r0 / G;
@@ -133,203 +98,202 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int kv_lo = local ? max(0, t_lo - w2) : 0;
   const int kv_hi = local ? min(S, t_hi + w2 + 1) : S;
   const int n_tiles = (kv_hi - kv_lo + BN - 1) / BN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  auto load_kv = [&](int stage, int s0) {
-    for (int c = tid; c < BN * (D / 8); c += THREADS) {
-      const int r = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      const int s = s0 + r;
-      const bool ok = s < S;
-      const size_t off = (size_t)(ok ? s : 0) * ld + col;
-      cp_async16(Ks + (stage * BN + r) * LDS + col, kb + off, ok);
-      cp_async16(Vs + (stage * BN + r) * LDS + col, vb + off, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
     }
-    cp_async_commit();
-  };
-
-  load_kv(0, kv_lo);
-
-  // rotate the block's q rows once: out[d] = q[d] cos[d] - q[d+32] sin[d],
-  // out[d+32] = q[d+32] cos[d+32] + q[d] sin[d+32]; times scale * log2(e)
-  const float qscale = scale * LOG2E;
-  for (int c = tid; c < BM * (D / 16); c += THREADS) {
-    const int r = c / (D / 16);
-    const int col = (c % (D / 16)) * 8;  // 8 columns of the low half, and their partners
-    const int row = r0 + r;
-    float lo[8], hi[8];
-    if (row < rows) {
-      const __nv_bfloat16* qr = qb + (size_t)mem(row) * D;
-      const uint4 ql = *reinterpret_cast<const uint4*>(qr + col);
-      const uint4 qh = *reinterpret_cast<const uint4*>(qr + col + D / 2);
-      const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(&ql);
-      const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(&qh);
-      if (ROPE) {
-        const float* cr = cos_t + (size_t)(row / G) * D;
-        const float* sr = sin_t + (size_t)(row / G) * D;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float a = __bfloat162float(xl[j]);
-          const float h = __bfloat162float(xh[j]);
-          lo[j] = (a * cr[col + j] - h * sr[col + j]) * qscale;
-          hi[j] = (h * cr[col + D / 2 + j] + a * sr[col + D / 2 + j]) * qscale;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          lo[j] = __bfloat162float(xl[j]) * qscale;
-          hi[j] = __bfloat162float(xh[j]) * qscale;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
-    }
-    uint4 pl, ph;
-    pl.x = pack_bf16(lo[0], lo[1]); pl.y = pack_bf16(lo[2], lo[3]);
-    pl.z = pack_bf16(lo[4], lo[5]); pl.w = pack_bf16(lo[6], lo[7]);
-    ph.x = pack_bf16(hi[0], hi[1]); ph.y = pack_bf16(hi[2], hi[3]);
-    ph.z = pack_bf16(hi[4], hi[5]); ph.w = pack_bf16(hi[6], hi[7]);
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col) = pl;
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col + D / 2) = ph;
+    fence_barrier_init();
   }
   __syncthreads();
 
-  const int wr = warp * 16;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p0 = Qs + (wr + g) * LDS + kk * 16 + 2 * tg;
-    const __nv_bfloat16* p1 = p0 + 8 * LDS;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+  if (warp == CONSUMERS * 4) {  // producer
+    if (lane == 0) {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % NSTAGE;
+        mbar_wait(&empty[st], ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+        const int s0 = kv_lo + it * BN;
+        tma_load_4d(Ks + st * BN * D, &kmap, &full[st], 0, kv, s0, b);
+        tma_load_4d(Vs + st * BN * D, &vmap, &full[st], 0, kv, s0, b);
+      }
+    }
+    return;
   }
-  // timesteps of this thread's two fragment rows
-  const int tq[2] = {(r0 + wr + g) / G, (r0 + wr + g + 8) / G};
+
+  const int wg = warp / 4;        // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int g = lane >> 2;        // accumulator row (and row + 8) of this thread in its warp's 16
+  const int tq = lane & 3;        // accumulator column pair
+  __nv_bfloat16* Qw = Qs + wg * 64 * D;
+  // (timestep, head) row of q, o and lse that group row r is
+  auto mem = [&](int r) { return GROUPED ? (size_t)(r / G) * H + r % G : (size_t)r; };
+  const __nv_bfloat16* qb = q + ((size_t)b * T * H + kv * G) * D;
+  __nv_bfloat16* ob = o + ((size_t)b * T * H + kv * G) * D;
+
+  // stage this warpgroup's 64 rows as qs, in the swizzled layout
+  const float qscale = scale * LOG2E;
+  for (int c = tid; c < 64 * 4; c += 128) {
+    const int r = c / 4;
+    const int col = (c % 4) * 8;  // 8 columns of the low half, and their partners
+    const int row = r0 + wg * 64 + r;
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = make_uint4(0, 0, 0, 0);
+    if (row < rows) {
+      const size_t t = row / G;
+      rope_qs8<ROPE>(qb + mem(row) * D, ROPE ? cos_t + t * D : nullptr, ROPE ? sin_t + t * D : nullptr, col, qscale,
+                     lo, hi);
+    }
+    *reinterpret_cast<uint4*>(Qw + sw128(r, col / 8)) = lo;
+    *reinterpret_cast<uint4*>(Qw + sw128(r, col / 8 + 4)) = hi;
+  }
+  fence_proxy_async();
+  named_bar_sync(1 + wg, 128);
+
+  const uint64_t qdesc = desc_kmajor(Qw);
+  const int row_a = r0 + wg * 64 + (warp % 4) * 16 + g;
+  const int row_b = row_a + 8;
+  const int tr[2] = {row_a / G, row_b / G};  // timesteps of the thread's two rows
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[32];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float s[64];                // the logits of the tile in hand, then its probabilities
+  uint32_t pa[BN / 16][4];    // the previous tile's probabilities in bf16, the A operand of O += P V
+  float corr[2];
 
-  for (int it = 0; it < n_tiles; ++it) {
+  // mask the logits of tile `it` and fold them into the online softmax:
+  // s becomes p = exp2(s - base), corr the factor that moves O to the new base
+  auto softmax = [&](int it) {
     const int s0 = kv_lo + it * BN;
-    if (it + 1 < n_tiles) {
-      load_kv((it + 1) & 1, s0 + BN);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + (it & 1) * BN * LDS;
-    const __nv_bfloat16* Vt = Vs + (it & 1) * BN * LDS;
-
-    // S = Q K^T for this warp's 16 rows x BN keys (log2-domain logits)
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kp = Kt + (nt * 8 + g) * LDS + kk * 16 + 2 * tg;
-        mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    const bool interior =
-        s0 + BN <= S && (!local || (s0 >= t_hi - w2 && s0 + BN - 1 <= t_lo + w2));
+    const bool interior = s0 + BN <= S && (!local || (s0 >= t_hi - w2 && s0 + BN - 1 <= t_lo + w2));
     if (!interior) {
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
+      for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = s0 + nt * 8 + 2 * tg + (e & 1);
-          const int t = tq[e >> 1];
-          const bool ok = key < S && (!local || abs(t - key) <= w2);
-          if (!ok) s[nt][e] = -INFINITY;
+          const int key = s0 + i * 8 + 2 * tq + (e & 1);
+          const bool ok = key < S && (!local || abs(tr[e >> 1] - key) <= w2);
+          if (!ok) s[4 * i + e] = -INFINITY;
         }
       }
     }
-
-    // online softmax; each row's stats are shared by the 4 threads of a group
+    // each row's statistics are shared by the 4 threads of a quad
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    for (int i = 0; i < BN / 8; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
-    float base[2], corr[2];
+    float base[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // a row with no key yet stays at zero
-      corr[i] = exp2f(m[i] - base[i]);
-      m[i] = mx[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet stays at zero
+      corr[r] = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - base[0]);
-      s[nt][1] = exp2f(s[nt][1] - base[0]);
-      s[nt][2] = exp2f(s[nt][2] - base[1]);
-      s[nt][3] = exp2f(s[nt][3] - base[1]);
-      rs[0] += s[nt][0] + s[nt][1];
-      rs[1] += s[nt][2] + s[nt][3];
+    for (int i = 0; i < BN / 8; ++i) {
+      s[4 * i] = exp2f(s[4 * i] - base[0]);
+      s[4 * i + 1] = exp2f(s[4 * i + 1] - base[0]);
+      s[4 * i + 2] = exp2f(s[4 * i + 2] - base[1]);
+      s[4 * i + 3] = exp2f(s[4 * i + 3] - base[1]);
+      rs[0] += s[4 * i] + s[4 * i + 1];
+      rs[1] += s[4 * i + 2] + s[4 * i + 3];
     }
     l[0] = l[0] * corr[0] + rs[0];  // per-thread partial sums, reduced at the end
     l[1] = l[1] * corr[1] + rs[1];
+  };
+  // S = qs K^T of the tile in stage st (log2-domain logits, 64 rows x 128 keys), issued
+  auto issue_scores = [&](int st) {
+    const uint64_t kdesc = desc_kmajor(Ks + st * BN * D);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n128<0, 0>(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    wgmma_commit();
+  };
+  // O += P V with the previous tile's P (pa) and the V of stage st, issued
+  auto issue_pv = [&](int st) {
+    const uint64_t vdesc = desc_mnmajor(Vs + st * BN * D);
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) wgmma_rs_n64<1>(acc, pa[j], vdesc + j * (16 * 128 >> 4), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  };
 
-    // O += P V: the S accumulators of two adjacent key tiles are the A
-    // fragment of one 16-key step
-    const int mi = lane >> 3;
-    const int mr = lane & 7;
+  // Software pipeline: while the tensor cores run tile it's scores and tile
+  // it - 1's P V, this warpgroup waits only for the scores, then does tile
+  // it's softmax; O is rescaled once P V is done.
+  mbar_wait(&full[0], 0);
+  reg_fence(s);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  reg_fence(s);
+  softmax(0);
 #pragma unroll
-    for (int kt = 0; kt < BN / 16; ++kt) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]), pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                              pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                              pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+  for (int j = 0; j < BN / 16; ++j) a_frag(pa[j], s + 8 * j);
+  for (int it = 1; it < n_tiles; ++it) {
+    const int st = it % NSTAGE, prev = (it - 1) % NSTAGE;
+    mbar_wait(&full[st], (it / NSTAGE) & 1);
+    reg_fence(s);
+    reg_fence(acc);
+    reg_fence(pa);
+    wgmma_fence();
+    issue_scores(st);
+    issue_pv(prev);
+    wgmma_wait<1>();  // the scores (committed first) are in
+    reg_fence(s);
+    softmax(it);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    release(prev);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kt * 16 + mr + (mi & 1) * 8) * LDS + dp * 16 + (mi >> 1) * 8);
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
+    for (int i = 0; i < 8; ++i) {
+      acc[4 * i] *= corr[0];
+      acc[4 * i + 1] *= corr[0];
+      acc[4 * i + 2] *= corr[1];
+      acc[4 * i + 3] *= corr[1];
     }
-    __syncthreads();  // the stage just read is the next iteration's copy target
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) a_frag(pa[j], s + 8 * j);
   }
+  reg_fence(acc);
+  reg_fence(pa);
+  wgmma_fence();
+  issue_pv((n_tiles - 1) % NSTAGE);
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pa);
+  release((n_tiles - 1) % NSTAGE);
 
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
   }
-  const int row_a = r0 + wr + g;
-  const int row_b = row_a + 8;
   const size_t mem_a = mem(row_a), mem_b = mem(row_b);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
+  for (int i = 0; i < 8; ++i) {
+    const int col = i * 8 + 2 * tq;
     if (row_a < rows)
-      *reinterpret_cast<uint32_t*>(ob + mem_a * D + col) = pack_bf16(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(ob + mem_a * D + col) = pack_bf16(acc[4 * i] * inv[0], acc[4 * i + 1] * inv[0]);
     if (row_b < rows)
-      *reinterpret_cast<uint32_t*>(ob + mem_b * D + col) = pack_bf16(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+      *reinterpret_cast<uint32_t*>(ob + mem_b * D + col) = pack_bf16(acc[4 * i + 2] * inv[1], acc[4 * i + 3] * inv[1]);
   }
-  if (lse != nullptr && tg == 0) {  // the 4 threads of a group hold the same row statistics
+  if (lse != nullptr && tq == 0) {  // the 4 threads of a quad hold the same row statistics
     float* lb = lse + (size_t)b * T * H + kv * G;
     if (row_a < rows) lb[mem_a] = m[0] + log2f(l[0]);
     if (row_b < rows) lb[mem_b] = m[1] + log2f(l[1]);
@@ -346,12 +310,18 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const
   const bool rope = cos_t != nullptr;
   auto kernel = Kv > 1 ? (rope ? flash_fwd_kernel<true, true> : flash_fwd_kernel<true, false>)
                        : (rope ? flash_fwd_kernel<false, true> : flash_fwd_kernel<false, false>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  static std::atomic<unsigned long long> smem_set[4];  // per instance: devices whose limit is raised
+  CUtensorMap kmap, vmap;
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = make_kv_map(&kmap, k, B, S, Kv, BN);
+  if (err == 0) err = make_kv_map(&vmap, v, B, S, Kv, BN);
+  if (err == 0) err = allow_smem(kernel, SMEM_BYTES, dev, smem_set[(Kv > 1) * 2 + rope]);
+  if (err != 0) return err;
   const dim3 grid((T * (H / Kv) + BM - 1) / BM, B * Kv);
   kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, Kv, window, scale);
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, Kv, window,
+      scale);
   return (int)cudaGetLastError();
 }

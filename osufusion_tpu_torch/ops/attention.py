@@ -2,11 +2,13 @@
 (``osufusion_tpu/ops/attention.py``).
 
 ``sdpa`` sends a CUDA tensor to the hand-written flash kernels (MQA, GQA and
-full MHA, with or without rotary tables), and so it does a self-attention
-site on the CPU that needs a gradient, MQA or global: both go through
+full MHA, with or without rotary tables), and so it does every self-attention
+site on the CPU that needs a gradient: both go through ``flash_attention``
+(a windowed site with several KV heads once per KV head) and
 ``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
-so a rematerialisation policy that keeps the op's outputs is the same on both
-devices. Any other CPU tensor takes the plain forward with native autograd.
+so one route serves both devices and a rematerialisation policy that keeps
+the op's outputs is the same on both. Any other CPU tensor takes the plain
+forward with native autograd.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
 halo kernels take runs them on this rank's frames; any other site gathers the
 whole sequence, attends as on one device and keeps this rank's rows, which is
@@ -60,9 +62,7 @@ def sdpa(
 
 
 def _local_sdpa(q, k, v, window, rope) -> torch.Tensor:
-    T, S, kv = q.shape[1], k.shape[1], k.shape[2]
-    global_site = window is None or S <= window
-    if q.is_cuda or (needs_gradient(q, k, v) and S == T and (kv == 1 or global_site)):
+    if q.is_cuda or (needs_gradient(q, k, v) and k.shape[1] == q.shape[1]):
         return flash_attention(q, k, v, window, rope)
     return flash_attention_reference(q, k, v, window, rope)
 

@@ -17,18 +17,21 @@ one sweep, dq accumulated with fp32 atomics, so it differs in its last bits
 from run to run. At a windowed site the split pair ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` replaces ``_dq_kernel`` and ``_dkv_kernel`` (launched by
 ``_flash_bwd``): no atomics, so all three gradients repeat bit for bit. The
-pair takes MQA with rotary tables only; its GQA form is still to port
-(ROADMAP.md, queue 2, K3).
+pair takes MQA with rotary tables; ``flash_attention`` runs a windowed GQA
+site once per KV head, as the JAX package does.
 
 What bounds them on an H100: compute. At the serving path's level-0 site (T =
 24576, W = 4096, H = 16, D = 64) each q row meets ~4k keys for 256 bytes of
 q/o traffic, and each KV tile staged in shared memory serves all heads of
 eight timesteps, so the arithmetic intensity is far above the ~295 FLOP/byte
 ridge; the training sites (global at T = 4096 ... 512, windowed at T = 65536
-... 8192) are the same. The design therefore spends its effort on the math:
-every product runs on bf16 tensor cores (``mma.sync`` m16n8k16, fp32
-accumulation), the softmax stays in fp32 registers in the exp2 domain, only
-edge tiles are masked, and tiles are copied with ``cp.async``.
+... 8192) are the same. The forward and the global backward
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) are built for Hopper: tiles
+arrive by TMA behind mbarriers from a producer warp, and warpgroups run every
+product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
+softmax stays in fp32 registers in the exp2 domain and only edge tiles are
+masked. The windowed pair and the halo kernels still use ``mma.sync`` and
+``cp.async`` (``csrc/flash_bwd_common.cuh``).
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
@@ -60,6 +63,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "flash_halo")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
+# query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
+# its group-major scratch is padded to a multiple of it
+BWD_ROW_TILE = 64
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
@@ -104,8 +110,8 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     # q k v cos sin o lse | B T S H Kv window | scale | stream
     "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    # q k v do o lse delta cos sin dq dk dv | B T S H Kv | scale | stream
-    "flash_bwd_bf16": ("flash_bwd", [_PTR] * 12 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # q k v do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | dq dk dv | B T S H Kv | scale | stream
+    "flash_bwd_bf16": ("flash_bwd", [_PTR] * 16 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q k v do o lse delta cos sin dq | B T S H window | scale | stream
     "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q k v do lse delta cos sin dk dv | B T S H window | scale | stream
@@ -175,6 +181,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_launch(who: str, err: int) -> None:
+    """Raise on what a TMA kernel's entry point returned: a cudaError_t, or
+    minus the CUresult of a tensor map that failed to encode."""
+    if err < 0:
+        raise RuntimeError(f"{who}: a TMA tensor map failed to encode (CUresult {-err})")
+    if err:
+        raise RuntimeError(f"{who} kernel launch failed: CUDA error {err}")
+
+
 def flash_fwd(
     q: torch.Tensor,  # (B, T, H, D) bf16, raw
     k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16, already rotated
@@ -207,8 +222,7 @@ def flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.grouped_launches += kv > 1
     if return_lse:
@@ -230,8 +244,9 @@ def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = Fa
     and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv)."""
     kv = _kv_heads(who, q, k)
     if not grouped and (k.ndim != 3 or cos is None):
-        raise ValueError(f"{who} takes MQA (k (B,T,D)) with rotary tables; got k {tuple(k.shape)}, "
-                         f"tables {'none' if cos is None else 'given'} (the GQA form is ROADMAP.md, queue 2, K3)")
+        raise ValueError(f"{who} (K3a/K3b) takes MQA (k (B,T,D)) with rotary tables; got k {tuple(k.shape)}, "
+                         f"tables {'none' if cos is None else 'given'} (flash_attention runs a windowed GQA site "
+                         "per KV head, with identity tables where it has none)")
     B, T, H, D = q.shape
     shapes = [(v, k.shape), *((t, q.shape) for _, t in rows), *((t, (B, T * H)) for _, t in stats)]
     if D != HEAD_DIM or k.shape[:2] != (B, T) or k.shape[-1] != D or any(t.shape != shape for t, shape in shapes):
@@ -255,30 +270,36 @@ def flash_bwd(
     sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ):
-    """Launch the global backward kernel on the current stream. Returns
-    (dq, dk_rot, dv): dq (B, T, H, D) bf16 in the raw q's frame, dk_rot
-    (k's shape) fp32 still in the rotated frame, dv (k's shape) fp32.
-    The library's entry point runs a small kernel for ``delta = rowsum(do *
-    o)`` (scratch allocated here) and then the sweep; dq is accumulated by the
-    sweep's atomics in a zeroed fp32 buffer and cast once. Counts its launches
+    """Launch the global backward on the current stream. Returns (dq, dk_rot,
+    dv): dq (B, T, H, D) bf16 in the raw q's frame, dk_rot (k's shape) fp32
+    still in the rotated frame, dv (k's shape) fp32. The library's entry point
+    runs a pre-pass (qs, delta and the LSE in group-major order, into scratch
+    allocated here), the sweep, whose dq atomics accumulate in an fp32 buffer,
+    and a post-pass that un-rotates, scales and casts dq. Counts its launches
     in ``flash_bwd.launches`` (those of the grouped form, Kv > 1, also in
     ``flash_bwd.grouped_launches``)."""
     B, T, H, kv = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin, grouped=True)
-    f32 = torch.float32
-    delta = torch.empty((B, T * H), dtype=f32, device=q.device)
-    dq = torch.zeros(q.shape, dtype=f32, device=q.device)
-    dk = torch.empty(k.shape, dtype=f32, device=q.device)
-    dv = torch.empty(v.shape, dtype=f32, device=q.device)
+    f32, dev = torch.float32, q.device
+    rows = T * (H // kv)  # rows of one KV group
+    pad = -(-rows // BWD_ROW_TILE) * BWD_ROW_TILE
+    qs_g = torch.empty((B * kv, rows, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    do_g = torch.empty_like(qs_g) if kv > 1 else None  # at MQA do is already in group-major order
+    lse_g = torch.empty((B * kv, pad), dtype=f32, device=dev)
+    delta_g = torch.empty_like(lse_g)
+    dq_acc = torch.empty((B * kv, pad, HEAD_DIM), dtype=f32, device=dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty(k.shape, dtype=f32, device=dev)
+    dv = torch.empty(v.shape, dtype=f32, device=dev)
     err = _kernel("flash_bwd_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, T, H, kv, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin),
+        qs_g.data_ptr(), _ptr(do_g), lse_g.data_ptr(), delta_g.data_ptr(), dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, T, H, kv, scale, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    _check_launch("flash_bwd", err)
     flash_bwd.launches += 1
     flash_bwd.grouped_launches += kv > 1
-    return dq.to(torch.bfloat16), dk, dv
+    return dq, dk, dv
 
 
 flash_bwd.launches = 0
@@ -439,26 +460,32 @@ def flash_attention(
     embedding when given tables, windowed to +/- window/2 when the window is
     shorter than the sequence. Query head h reads KV head h // (H / Kv): MQA,
     GQA and full MHA alike. Under a gradient it is ``flash_attention_op``: the
-    kernels for CUDA tensors and their plain versions for CPU tensors; a
-    windowed site's backward kernels take MQA with tables only, so a windowed
-    GQA site or one without tables under a gradient on the GPU raises. Without
-    a gradient it is the forward kernel alone and takes CUDA tensors only
-    (bf16, D == 64)."""
+    kernels for CUDA tensors and their plain versions for CPU tensors. The
+    windowed backward kernels take MQA with rotary tables, so a windowed site
+    with Kv > 1 runs, on both devices, once per KV head on that head's query
+    heads (as ``osufusion_tpu/ops/pallas_attention.py::flash_attention`` does)
+    and a windowed site without tables gets identity tables (cos = 1, sin =
+    0, which rotate exactly). Without a gradient it is the forward kernel alone
+    and takes CUDA tensors only (bf16, D == 64)."""
     B, T, H, D = q.shape
     S, Kv = k.shape[1], k.shape[2]
     if S != T or H % Kv:
         raise ValueError(f"flash kernels take self-attention with H % Kv == 0; got H={H}, Kv={Kv}, S={S}, T={T}")
     # a window that covers the whole sequence is global attention
     window = -1 if window is None or S <= window else window
+    grad = needs_gradient(q, k, v)
+    if grad and window >= 0 and Kv > 1:
+        G = H // Kv
+        return torch.cat([flash_attention(q[:, :, g * G : (g + 1) * G], k[:, :, g : g + 1], v[:, :, g : g + 1], window, rope)
+                          for g in range(Kv)], dim=2)
+    if grad and window >= 0 and rope is None:
+        rope = (torch.ones((T, D), dtype=torch.float32, device=q.device),
+                torch.zeros((T, D), dtype=torch.float32, device=q.device))
     cos, sin = (None, None) if rope is None else (t.contiguous() for t in rope)
     q = q.contiguous()
     k_in, v_in = (k.reshape(B, S, D), v.reshape(B, S, D)) if Kv == 1 else (k, v)
     k_in, v_in = k_in.contiguous(), v_in.contiguous()
-    if needs_gradient(q, k, v):
-        if q.is_cuda and window >= 0 and (Kv > 1 or rope is None):
-            raise ValueError(f"a windowed attention site with {Kv} KV heads{'' if rope else ' and no rotary tables'} "
-                             "has no backward kernel: the windowed dq/dkv kernels take MQA with rotary tables, and "
-                             "their GQA form is still to port (ROADMAP.md, queue 2, K3a/K3b GQA form)")
+    if grad:
         return flash_attention_op(q, k_in, v_in, cos, sin, window)[0]
     if not q.is_cuda:
         raise ValueError(f"flash_attention runs the CUDA kernel; got a tensor on {q.device}")

@@ -23,9 +23,8 @@ from osufusion_tpu_torch.codec.decode import Metadata, decode_beatmap
 from osufusion_tpu_torch.audio import frame_times, load_audio, normalize_context
 from osufusion_tpu_torch.config import Config, ModelConfig
 from osufusion_tpu_torch.models import build_model
-from osufusion_tpu_torch.models.base import denoiser_class
 from osufusion_tpu_torch.nn.unet import A_PAD_VALUE
-from osufusion_tpu_torch.utils.convert import state_dict_from_jax
+from osufusion_tpu_torch.utils.convert import load_params_lenient
 from osufusion_tpu_torch.utils.serialization import load_safetensors
 
 # pad generated lengths to a multiple of this, as the JAX package does, so
@@ -37,16 +36,19 @@ def load_model(model_path: Path, config_path: Optional[Path] = None, device="cud
     """Returns (model, params): a checkpoint written by either package's
     trainer (``model.safetensors``) and the ``config.json`` beside it if
     present, else the UNet defaults at dim_h=128. ``params`` is the backbone
-    the config names, on ``device`` in the config's compute dtype."""
+    the config names, on ``device`` in the config's compute dtype. The load
+    is lenient, as the JAX package's: the backbone is drawn from seed 0, the
+    checkpoint's leaves that it has with the same shape replace the draws,
+    and missing, unexpected and shape-mismatched keys are reported."""
     model_path = Path(model_path)
     if config_path is None:
         candidate = model_path.parent / "config.json"
         config_path = candidate if candidate.exists() else None
     cfg = Config.load(config_path) if config_path else Config(model=ModelConfig(dim_h=128))
     model = build_model(cfg.model, cfg.diffusion)
-    params = denoiser_class(cfg.model)(cfg.model)
-    params.load_state_dict(state_dict_from_jax(load_safetensors(model_path)))
-    return model, params.to(device=device, dtype=cfg.model.compute_dtype).eval()
+    params = model.init_params(seed=0, device=device, dtype=torch.float32)
+    load_params_lenient(params, load_safetensors(model_path))
+    return model, params.to(dtype=cfg.model.compute_dtype).eval()
 
 
 def generate_beatmap(

@@ -139,9 +139,8 @@ def test_flops_count_every_query_head():
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     """A CPU tensor, heads that do not split into the KV heads, one table
-    without the other; and a windowed grouped site under a gradient has no
-    backward kernel (on the GPU it raises before any work; here the grouped
-    wrappers refuse)."""
+    without the other; and the windowed pair (K3a/K3b) refuses grouped
+    operands (``flash_attention`` runs such a site once per KV head)."""
     q, k, v, do = (torch.from_numpy(x).bfloat16() for x in _inputs(1, 64, 8, 2))
     cos, sin = rope_tables(64, D, scale_base=64.0)
     with pytest.raises(ValueError, match="CUDA"):

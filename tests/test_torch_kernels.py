@@ -2,7 +2,8 @@
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
 and the differentiable ops that join them) against
-their plain PyTorch versions, at small and production shapes. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
+their plain PyTorch versions, at small and production shapes and at the
+edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -341,8 +342,9 @@ def test_grouped_windowed_forward_matches_plain(cuda):
 def test_dit_site_under_a_gradient_runs_the_grouped_kernels(cuda):
     """A DiT site (H == Kv, no tables) through ``flash_attention`` under
     autograd: one forward with its LSE and one fused backward, the gradients
-    those of autograd through the plain forward; a windowed grouped site has no
-    backward kernel and raises before any launch."""
+    those of autograd through the plain forward; a windowed grouped site
+    without tables runs once per KV head through the windowed pair, with
+    identity tables."""
     q, k, v, do, _ = _grouped_inputs(2, 320, 8, 8, False, cuda)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (fa.flash_fwd.lse_launches, fa.flash_bwd.launches)
@@ -353,7 +355,81 @@ def test_dit_site_under_a_gradient_runs_the_grouped_kernels(cuda):
     for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
         assert got.grad.dtype == torch.bfloat16 and got.grad.shape == got.shape
         assert _rel(got.grad, ref.grad) < REL_TOL, f"{name}: rel L2 {_rel(got.grad, ref.grad)}"
-    before = fa.flash_fwd.launches
-    with pytest.raises(ValueError, match="K3"):
-        fa.flash_attention(*leaves, 128, None)
-    assert fa.flash_fwd.launches == before
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    fa.flash_attention(*leaves, 128, None).backward(do)
+    after = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
+    assert after == (before[0] + 8, before[1] + 8, before[2] + 8, before[3])
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    fa.flash_attention_reference(*ref_leaves, 128, None).backward(do.float())
+    for name, got, ref in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert _rel(got.grad, ref.grad) < REL_TOL, f"windowed {name}: rel L2 {_rel(got.grad, ref.grad)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv", [2, 4])
+def test_windowed_gqa_site_under_a_gradient_runs_per_kv_head(cuda, Kv):
+    """A UNet site with Kv > 1 and rotary tables, windowed, under autograd: one
+    windowed forward with its LSE, one dq and one dkv per KV head."""
+    B, T, H, window = 1, 1024, 16, 256
+    q, k, v, do, rope = _grouped_inputs(B, T, H, Kv, True, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    out = fa.flash_attention(*leaves, window, rope)
+    out.backward(do)
+    assert (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(n + Kv for n in before)
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = fa.flash_attention_reference(*ref_leaves, window, rope)
+    ref.backward(do.float())
+    assert _rel(out, ref.detach()) < REL_TOL
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.shape == got.shape and _rel(got.grad, want.grad) < REL_TOL, f"{name}: {_rel(got.grad, want.grad)}"
+
+
+# the edges of the Hopper forward and backward (128-key KV tiles, 128-row
+# forward blocks, 64-row backward tiles): (B, T, H, Kv, rope): lengths past a
+# whole tile (T = 4000, 4097: the last KV tile holds 32 or 1 key), MQA with
+# and without tables, full MHA, and a group of G = 3 heads that no tile divides
+EDGE_SHAPES = [(1, 4000, 16, 1, True), (1, 4097, 16, 1, False), (2, 4097, 8, 8, False), (1, 1000, 12, 4, False),
+               (2, 600, 12, 4, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,rope", EDGE_SHAPES)
+def test_forward_and_backward_at_tile_edges_match_plain(cuda, B, T, H, Kv, rope):
+    q, k, v, do, (cos, sin) = _grouped_inputs(B, T, H, Kv, rope, cuda)
+    if Kv == 1:
+        k, v = k[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+    k_rot = fa.rotated_k(k, cos, sin) if rope else k
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
+    dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125))
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)):
+        assert got.shape == ref.shape and torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: {_rel(got, ref)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [True, False], ids=["tables", "no-tables"])
+def test_windowed_forward_at_a_narrow_level_matches_plain(cuda, rope):
+    """Forms (a) and (d) at the whole-song path's narrowest level (T = 8192,
+    W = 512): the forward alone and with its LSE, and with tables the LSE fed
+    to the unchanged windowed pair (dq, dkv) against the plain versions."""
+    B, T, H, W = 1, 8192, 16, 512
+    q, k, v, do, _ = _train_inputs(B, T, H, cuda)
+    cos, sin = rope_tables(T, 64, scale_base=float(W), device=cuda) if rope else (None, None)
+    k_rot = fa.rotated_k(k, cos, sin) if rope else k
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, 0.125, return_lse=True)
+    assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, W, 0.125))
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W)
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    if not rope:
+        return
+    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, 0.125)
+    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, 0.125)
+    refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, W),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, W))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
