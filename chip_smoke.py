@@ -19,10 +19,11 @@ failure raises and the exit code is not 0:
    ``scaled_dot_product_attention`` as a yardstick that the port never calls.
 4. Windowed training kernels at the full-song path's four shapes (B=1, H=16,
    D=64, (T, W) = (65536, 4096) ... (8192, 512)): the windowed forward with
-   its LSE and the split backward (``flash_bwd_dq``, ``flash_bwd_dkv``) vs
-   their plain fp32 versions, two planted faults (a window one key short, an
-   LSE off by 0.05) above the bounds, the gradients bit-identical across two
-   launches, CUDA-event times, and at the level-0 shape rope +
+   its LSE and the split backward (``flash_bwd_dq`` with its pre-pass,
+   ``flash_bwd_dkv``) vs their plain fp32 versions, two planted faults (a
+   window one key short, an LSE off by 0.05) above the bounds, the gradients
+   bit-identical across two launches, CUDA-event times (the pre-pass alone
+   too), and at the level-0 shape rope +
    ``scaled_dot_product_attention`` under a dense band mask, forward and
    backward, as the yardstick.
 5. The full-width UNet (dim_h=128, default config, seeded weights) forward at
@@ -68,9 +69,12 @@ failure raises and the exit code is not 0:
     of the full-song cell (dim_h=512, B=1, T=65536, full bf16, ``mixed``): one
     step, a save, a resume, a second step; s/step, peak memory and launches
     per rank, and step 1's loss against phase 9's one-card trainer at the same
-    seed. One card per process over NCCL where two or more are visible; with
-    one card both processes share it over gloo, whose collectives go through
-    host memory.
+    seed. Before it, each rank runs one windowed site with two KV heads (T =
+    65536, W = 4096, H = 16) through ``ops.attention.sdpa`` on its frames:
+    forward and backward against the one-card ``flash_attention``, with the
+    halo kernels launched once per KV head. One card per process over NCCL
+    where two or more are visible; with one card both processes share it over
+    gloo, whose collectives go through host memory.
 
 13. Grouped kernels, the attention of the DiT and MMDiT backbones (D=64,
     bf16, no rotary tables): the forward with its LSE and the fused backward
@@ -409,8 +413,8 @@ def phase_windowed_kernels() -> tuple[dict, dict, dict]:
         k_rot = fa.rotated_k(k, cos, sin)
 
         def backward():
-            dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
-            return (dq, *fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale))
+            dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
+            return (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, W))
 
         o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True)
         grads = backward()
@@ -449,22 +453,25 @@ def phase_windowed_kernels() -> tuple[dict, dict, dict]:
         del o_ref, refs, short, shifted, o_short, grads
 
         fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True), 20)
-        delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)[1]
-        dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale), 10)
-        dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale), 10)
+        prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)[1]
+        prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, cos, sin, scale), 10)
+        dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale), 10)  # the pre-pass included
+        dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, W), 10)
         fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W), 1)
         dq_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_ref, do, cos, sin, W), 1)
         dkv_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_ref, do, cos, sin, W), 1)
         bounds = {
             "fwd": _bound(attention_flops("forward", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 2, 1)),  # q o; k v; lse
-            "dq": _bound(attention_flops("backward_dq", B, T, H, D, W), _attn_bytes(B, T, H, D, 4, 2, 2)),  # q o do dq; k v; lse delta
-            "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 6, 2)),  # q do; k v, dk dv in fp32; lse delta
+            # q o do dq, qs out; k v; lse in, lse delta out
+            "dq": _bound(attention_flops("backward_dq", B, T, H, D, W), _attn_bytes(B, T, H, D, 5, 2, 3)),
+            "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 6, 2)),  # qs do; k v, dk dv in fp32; lse delta
         }
         _log(f"[windowed kernels] T={T} W={W}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault:.3e}), lse max abs "
              f"{lse_err:.3e}; backward {'; '.join(parts)}; two launches bit-identical")
         _log(f"[windowed kernels] T={T} W={W}: forward with LSE {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f} by {bounds['fwd'][1]}; "
-             f"plain {fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by {bounds['dq'][1]}; plain {dq_plain_ms:.3f}); "
-             f"dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f} by {bounds['dkv'][1]}; plain {dkv_plain_ms:.3f})")
+             f"plain {fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by "
+             f"{bounds['dq'][1]}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f} "
+             f"by {bounds['dkv'][1]}; plain {dkv_plain_ms:.3f})")
         if records is None:
             # yardstick only: rope on q and k, then PyTorch's fused attention under a dense (T, T)
             # band mask, and its backward; both visit every tile, the masked ones too
@@ -495,7 +502,7 @@ def phase_windowed_kernels() -> tuple[dict, dict, dict]:
             ]
             for rec, key in zip(records, ("fwd", "dq", "dkv")):
                 rec["bound_ms"], rec["bound_by"] = bounds[key]
-        del q, k, v, do, o, lse, lse_ref, delta, k_rot
+        del q, k, v, do, o, lse, lse_ref, prep, k_rot
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("windowed training kernels vs plain: " + "; ".join(failures))
@@ -1110,8 +1117,8 @@ def phase_halo_composition() -> None:
     cos, sin = rope_tables(T, D, scale_base=float(W), device="cuda")
     k_rot = fa.rotated_k(k, cos, sin)
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, scale, return_lse=True)
-    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
-    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, scale)
+    dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, scale)
+    dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, W)
 
     q_rot = apply_rope(q.float(), cos, sin).to(torch.bfloat16)
     k_pad, v_pad = (F.pad(t, (0, 0, w2, w2)) for t in (k_rot, v))  # the exchange's zeros past the ends
@@ -1160,11 +1167,48 @@ def _halo_counts(ha, reset: bool = False) -> dict:
     return {"halo_fwd": ha.halo_fwd.launches, "halo_bwd_dq": ha.halo_bwd_dq.launches, "halo_bwd_dkv": ha.halo_bwd_dkv.launches}
 
 
+# a windowed GQA site of the whole song under the sequence shard: (T, W, H, Kv)
+SEQ_GQA_SITE = (HALO_SONG, 4096, 16, 2)
+
+
+def _seq_gqa_site(shard) -> dict:
+    """One windowed site with two KV heads through ``ops.attention.sdpa`` on
+    this rank's frames, forward and backward, against the one-card
+    ``flash_attention`` on the whole song (seeded alike on every rank):
+    relative L2 of o, dq, dk, dv on this rank's frames, and the halo
+    kernels' launches (once per KV head)."""
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.ops.attention import sdpa
+    from osufusion_tpu_torch.ops.flash_attention import flash_attention
+    from osufusion_tpu_torch.ops.rope import rope_tables
+    from osufusion_tpu_torch.parallel.sequence import frames_of, sequence_sharding
+
+    T, W, H, kv = SEQ_GQA_SITE
+    g = torch.Generator(device="cuda").manual_seed(700)
+    q, do = (torch.randn((1, T, H, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, T, kv, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    rope = rope_tables(T, 64, scale_base=float(W), device="cuda")
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*whole, W, rope)
+    o.backward(do)
+    want = [frames_of(t, shard).float() for t in (o.detach(), *(x.grad for x in whole))]
+    del whole, o
+    local = [frames_of(t, shard).clone().requires_grad_(True) for t in (q, k, v)]
+    _halo_counts(ha, reset=True)
+    with sequence_sharding(shard):
+        o = sdpa(*local, W, rope)
+        o.backward(frames_of(do, shard))
+    torch.cuda.synchronize()
+    launches = _halo_counts(ha)
+    got = (o.detach(), *(x.grad for x in local))
+    return {"launches": launches, "rel": {n: _rel(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}}
+
+
 def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
-    """One process of phase 12, in torchrun's environment: every count set to
-    0, ``trainer.train`` for one step with a save, again from the checkpoint
-    for a second step, the counts read; (rank, error, result) put on
-    ``results``."""
+    """One process of phase 12, in torchrun's environment: a windowed GQA
+    site (``_seq_gqa_site``); then every count set to 0, ``trainer.train``
+    for one step with a save, again from the checkpoint for a second step,
+    the counts read; (rank, error, result) put on ``results``."""
     import os
     import traceback
 
@@ -1175,11 +1219,15 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
 
         from osufusion_tpu_torch.ops import flash_attention as fa
         from osufusion_tpu_torch.ops import halo_attention as ha
-        from osufusion_tpu_torch.parallel.distributed import local_device
+        from osufusion_tpu_torch.parallel.distributed import local_device, maybe_initialize
+        from osufusion_tpu_torch.parallel.mesh import make_mesh
         from osufusion_tpu_torch.trainer import train
 
         cfg = _fullsong_config("mixed", Path(project_dir), steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
         torch.cuda.set_device(local_device())
+        maybe_initialize()
+        gqa = _seq_gqa_site(make_mesh(data=1, model=1, seq=SEQ_SHARDS).seq_shard())
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(fa)
         _halo_counts(ha, reset=True)
@@ -1187,7 +1235,7 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2, resume="latest")))
         torch.cuda.synchronize()
         launches = {**_halo_counts(ha), **_launches(fa)}
-        results.put((rank, None, {"history": history, "launches": launches, "backend": dist.get_backend(),
+        results.put((rank, None, {"history": history, "launches": launches, "backend": dist.get_backend(), "gqa": gqa,
                                   "device": str(local_device()), "peak": torch.cuda.max_memory_allocated() / 2**30}))
         dist.destroy_process_group()
     except Exception:  # reported to the parent, which fails on it
@@ -1232,6 +1280,16 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
             if p.is_alive():
                 p.terminate()
                 p.join()
+    T, W, H, kv = SEQ_GQA_SITE
+    for rank, r in sorted(got.items()):
+        gqa = r["gqa"]
+        _log(f"[seq train] rank {rank}: a windowed site with {kv} KV heads (T={T} W={W} H={H}) under the shard vs one-card "
+             f"flash_attention: rel L2 {', '.join(f'{n} {x:.3e}' for n, x in gqa['rel'].items())} (bound {REL_TOL}); "
+             f"halo launches {gqa['launches']} (once per KV head)")
+        if gqa["launches"] != {"halo_fwd": kv, "halo_bwd_dq": kv, "halo_bwd_dkv": kv}:
+            raise AssertionError(f"sequence-parallel rank {rank}: the GQA site launched {gqa['launches']}, expected {kv} of each")
+        if not max(gqa["rel"].values()) < REL_TOL:
+            raise AssertionError(f"sequence-parallel rank {rank}: the GQA site differs from one card by {gqa['rel']}")
     for rank, r in sorted(got.items()):
         history = r["history"]
         _log(f"[seq train] rank {rank} of {SEQ_SHARDS} on {r['device']} ({r['backend']}; {torch.cuda.device_count()} card(s) "

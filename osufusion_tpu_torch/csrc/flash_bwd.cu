@@ -28,13 +28,14 @@
 // `mbarrier`s; every product is `wgmma.mma_async`; the wrappers are in
 // hopper.cuh):
 //
-//  1. Pre-pass (flash_bwd_prep_kernel), one sweep over the rows: qs (rotated
-//     and scaled once, not once per KV tile), delta, and the LSE, each in
-//     group-major order, (B * Kv, T * G, ...), so that every KV group's rows
-//     are contiguous whatever G is (row r: timestep r / G, head kv * G + r % G);
-//     at Kv > 1 do is copied into that order too (at MQA it already is). The
-//     LSE and delta are padded to whole 64-row tiles with +inf and 0, so a
-//     padded row has p = ds = 0. It also zeroes the fp32 dq buffer.
+//  1. Pre-pass (flash_bwd_prep.cuh, shared with the windowed pair), one
+//     sweep over the rows: qs (rotated and scaled once, not once per KV
+//     tile), delta, and the LSE, each in group-major order, (B * Kv, T * G,
+//     ...), so that every KV group's rows are contiguous whatever G is (row r:
+//     timestep r / G, head kv * G + r % G); at Kv > 1 do is copied into that
+//     order too (at MQA it already is). The LSE and delta are padded to whole
+//     64-row tiles with +inf and 0, so a padded row has p = ds = 0. It also
+//     zeroes the fp32 dq buffer.
 //  2. The sweep (flash_bwd_kernel): one block per (batch, KV head, KV tile of
 //     BN = 128 keys). Two consumer warpgroups each keep dk and dv of 64 keys
 //     in fp32 registers; a producer warpgroup (one thread of it, holding 40
@@ -61,8 +62,8 @@
 
 #include <math.h>
 
+#include "flash_bwd_prep.cuh"
 #include "hopper.cuh"
-#include "rope_qs.cuh"
 
 namespace {
 
@@ -84,70 +85,6 @@ constexpr int SMEM_BYTES =
     1024 + 2 * KV_BYTES + NSTAGE * (2 * ROW_TILE_BYTES + 2 * BM * 4) + 2 * DS_BYTES + (2 * NSTAGE + 1) * 8;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// One thread per (group row, 8 columns of the low half and their partners):
-// qs_g, do_g (null at MQA), lse_g, delta_g and the zeroed dq buffer, all in
-// group-major order; rows in [rows, pad) get lse = +inf, delta = 0 and a
-// zeroed dq row.
-template <bool ROPE>
-__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
-                                      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
-                                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                                      __nv_bfloat16* __restrict__ qs_g, __nv_bfloat16* __restrict__ do_g,
-                                      float* __restrict__ lse_g, float* __restrict__ delta_g,
-                                      float* __restrict__ dq_acc, int T, int H, int Kv, int pad, float qscale) {
-  // grid: (pad * 4 / 256, B * Kv); pad * 4 is a multiple of 256, so every thread has a row
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int G = H / Kv;
-  const int rows = T * G;
-  const int c = idx % 4;
-  const int r = idx / 4;           // row of the group, < pad
-  const size_t grp = blockIdx.y;   // b * Kv + kv
-  const size_t gr = grp * pad + r;  // (group, row) over the padded rows
-  const int col = c * 8;
-  float part = 0.f;
-  const bool real = r < rows;
-  if (real) {
-    const int b = grp / Kv, kv = grp % Kv;
-    const int t = r / G;
-    const size_t src = ((size_t)b * T + t) * H + kv * G + r % G;  // the (b, t, h) row
-    const size_t dst = grp * rows + r;
-    uint4 lo, hi;
-    rope_qs8<ROPE>(q + src * D, ROPE ? cos_t + (size_t)t * D : nullptr, ROPE ? sin_t + (size_t)t * D : nullptr, col,
-                   qscale, lo, hi);
-    *reinterpret_cast<uint4*>(qs_g + dst * D + col) = lo;
-    *reinterpret_cast<uint4*>(qs_g + dst * D + col + D / 2) = hi;
-    const uint4 d4[2] = {*reinterpret_cast<const uint4*>(dout + src * D + col),
-                         *reinterpret_cast<const uint4*>(dout + src * D + col + D / 2)};
-    const uint4 o4[2] = {*reinterpret_cast<const uint4*>(o + src * D + col),
-                         *reinterpret_cast<const uint4*>(o + src * D + col + D / 2)};
-    if (do_g != nullptr) {
-      *reinterpret_cast<uint4*>(do_g + dst * D + col) = d4[0];
-      *reinterpret_cast<uint4*>(do_g + dst * D + col + D / 2) = d4[1];
-    }
-    const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(d4);
-    const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(o4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 x = __bfloat1622float2(pd[j]);
-      const float2 y = __bfloat1622float2(po[j]);
-      part += x.x * y.x + x.y * y.y;
-    }
-    if (c == 0) lse_g[gr] = lse[src];
-  } else if (c == 0) {
-    lse_g[gr] = INFINITY;
-  }
-  // the four threads of a row are neighbours in one warp (blockDim.x is a multiple of 32)
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
-  if (c == 0) delta_g[gr] = real ? part : 0.f;
-  float4* dz = reinterpret_cast<float4*>(dq_acc + gr * D);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  dz[c * 2] = zero;
-  dz[c * 2 + 1] = zero;
-  dz[D / 8 + c * 2] = zero;
-  dz[D / 8 + c * 2 + 1] = zero;
-}
 
 template <bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)

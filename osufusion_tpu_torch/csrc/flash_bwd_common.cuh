@@ -1,6 +1,7 @@
-// What the mma.sync kernels share (flash_bwd_windowed.cu, flash_halo.cu): the
-// tile geometry, the mma.sync / ldmatrix / cp.async wrappers, the staging of
-// q as the forward holds it, and the small kernel for delta = rowsum(do * o).
+// What the halo kernels (flash_halo.cu: K4, K5a, K5b, the last on the
+// mma.sync design) use: the tile geometry, the mma.sync / ldmatrix / cp.async
+// wrappers, and the small kernel for delta = rowsum(do * o). The other flash
+// kernels are built from hopper.cuh.
 //
 // Everything sits in an unnamed namespace, so each library gets its own copy.
 
@@ -10,8 +11,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "rope_qs.cuh"
 
 namespace {
 
@@ -104,27 +103,6 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* tile, const __nv_bfloat
     const int col = (c % (D / 8)) * 8;
     const bool ok = r0 + r < row_end;
     cp_async16(tile + r * LDS + col, src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
-  }
-}
-
-// Stage ROWS (timestep, head) rows of raw q, from row r0 on, as the forward
-// holds them (rope_qs.cuh: qs = rope(q) * qscale, rounded to bf16), so that
-// qs k_rot^T repeats the forward's logits. Row r belongs to timestep r / H.
-// Rows at or past row_end are zeros.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void stage_qs(__nv_bfloat16* Qs, const __nv_bfloat16* qb, const float* cos_t,
-                                         const float* sin_t, int r0, int row_end, int H, float qscale, int tid) {
-  for (int c = tid; c < ROWS * (D / 16); c += NTHREADS) {
-    const int r = c / (D / 16);
-    const int col = (c % (D / 16)) * 8;  // 8 columns of the low half, and their partners
-    const int row = r0 + r;
-    uint4 pl = make_uint4(0, 0, 0, 0), ph = make_uint4(0, 0, 0, 0);
-    if (row < row_end) {
-      const size_t t = row / H;
-      rope_qs8<true>(qb + (size_t)row * D, cos_t + t * D, sin_t + t * D, col, qscale, pl, ph);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col) = pl;
-    *reinterpret_cast<uint4*>(Qs + r * LDS + col + D / 2) = ph;
   }
 }
 

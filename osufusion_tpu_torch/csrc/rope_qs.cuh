@@ -1,9 +1,9 @@
 // The staging of q as every flash kernel that recomputes the forward's
 // probabilities must hold it: qs = rope(q) * qscale in fp32, rounded to bf16,
 // with qscale = scale * log2(e), so that qs k_rot^T is the forward's logit in
-// the exp2 domain. One function serves the forward (flash_fwd.cu), the fused
-// backward's pre-pass (flash_bwd.cu) and the windowed pair
-// (flash_bwd_common.cuh::stage_qs), so all of them hold the same bits. The
+// the exp2 domain. One function serves the forward (flash_fwd.cu) and the
+// backward pre-pass (flash_bwd_prep.cuh) of the fused backward and of the
+// windowed pair, so all of them hold the same bits. The
 // products and sums are rounded one at a time (no fused multiply-add), as the
 // plain version's separate tensor operations are.
 //   out[d]      = q[d] cos[d] - q[d+32] sin[d]

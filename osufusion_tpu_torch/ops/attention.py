@@ -10,10 +10,12 @@ so one route serves both devices and a rematerialisation policy that keeps
 the op's outputs is the same on both. Any other CPU tensor takes the plain
 forward with native autograd.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
-halo kernels take runs them on this rank's frames; any other site gathers the
-whole sequence, attends as on one device and keeps this rank's rows, which is
-what GSPMD does in the JAX package where no sharded kernel applies (the
-ring attention of global sites is still to port, ROADMAP.md queue 2, K6).
+halo kernels take runs them on this rank's frames, once per KV head on that
+head's query heads (as ``osufusion_tpu/parallel/sequence.py`` splits a GQA
+site); any other site gathers the whole sequence, attends as on one device
+and keeps this rank's rows, which is what GSPMD does in the JAX package where
+no sharded kernel applies (the ring attention of global sites is still to
+port, ROADMAP.md queue 2, K6).
 ``gqa_attention`` is the plain forward's math: KV heads stay un-repeated,
 logits and softmax are float32, and queries are taken in chunks so a
 full-song sequence never materialises a (B, H, T, S) logits tensor.
@@ -52,11 +54,14 @@ def sdpa(
     shard = active_shard()
     if shard is None:
         return _local_sdpa(q, k, v, window, rope)
-    if seq_parallel_available(q.shape[1], window, q.shape[-1], k.shape[2], shard.count):
+    if seq_parallel_available(q.shape[1], window, q.shape[-1], shard.count):
         cos, sin = (frames_of(t, shard, dim=0).float() for t in rope)
         q_rot = apply_rope(q.float(), cos, sin).to(q.dtype)
-        k_rot = apply_rope(k[:, :, 0].float(), cos, sin).to(k.dtype)
-        return sequence_parallel_attention(q_rot, k_rot, v[:, :, 0], window, shard)
+        k_rot = apply_rope(k.float(), cos, sin).to(k.dtype)
+        kv, G = k.shape[2], q.shape[2] // k.shape[2]
+        heads = [sequence_parallel_attention(q_rot[:, :, g * G : (g + 1) * G], k_rot[:, :, g], v[:, :, g], window, shard)
+                 for g in range(kv)]
+        return heads[0] if kv == 1 else torch.cat(heads, dim=2)
     whole = (all_gather_frames(t, shard) for t in (q, k, v))
     return frames_of(_local_sdpa(*whole, window, rope), shard)
 

@@ -16,22 +16,26 @@ probabilities from that LSE. At a global site ``flash_bwd`` replaces
 one sweep, dq accumulated with fp32 atomics, so it differs in its last bits
 from run to run. At a windowed site the split pair ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` replaces ``_dq_kernel`` and ``_dkv_kernel`` (launched by
-``_flash_bwd``): no atomics, so all three gradients repeat bit for bit. The
-pair takes MQA with rotary tables; ``flash_attention`` runs a windowed GQA
-site once per KV head, as the JAX package does.
+``_flash_bwd``): the first runs the pre-pass (qs, delta, the padded LSE:
+``WindowedPrep``) and the dq kernel, the second reads that scratch; no
+atomics, so all three gradients repeat bit for bit. The pair takes MQA with
+rotary tables; ``flash_attention`` runs a windowed GQA site once per KV
+head, as the JAX package does.
 
 What bounds them on an H100: compute. At the serving path's level-0 site (T =
 24576, W = 4096, H = 16, D = 64) each q row meets ~4k keys for 256 bytes of
 q/o traffic, and each KV tile staged in shared memory serves all heads of
 eight timesteps, so the arithmetic intensity is far above the ~295 FLOP/byte
 ridge; the training sites (global at T = 4096 ... 512, windowed at T = 65536
-... 8192) are the same. The forward and the global backward
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) are built for Hopper: tiles
-arrive by TMA behind mbarriers from a producer warp, and warpgroups run every
+... 8192) are the same. The forward, the global backward and the windowed
+pair (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
+``csrc/flash_bwd_windowed.cu``) are built for Hopper: tiles arrive by TMA
+behind mbarriers from a producer warp or warpgroup, and warpgroups run every
 product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
 softmax stays in fp32 registers in the exp2 domain and only edge tiles are
-masked. The windowed pair and the halo kernels still use ``mma.sync`` and
-``cp.async`` (``csrc/flash_bwd_common.cuh``).
+masked. Both backward paths start with one pre-pass that rotates and scales
+q once (``csrc/flash_bwd_prep.cuh``). The halo kernels still use
+``mma.sync`` and ``cp.async`` (``csrc/flash_bwd_common.cuh``).
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
@@ -49,7 +53,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,6 +70,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
 # its group-major scratch is padded to a multiple of it
 BWD_ROW_TILE = 64
+# rows per block of the windowed dq kernel (csrc/flash_bwd_windowed.cu,
+# DQ_BM): the windowed pre-pass pads its LSE and delta to a multiple of it
+WINDOWED_ROW_PAD = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
@@ -112,10 +119,12 @@ _ENTRY_POINTS = {
     "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # q k v do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | dq dk dv | B T S H Kv | scale | stream
     "flash_bwd_bf16": ("flash_bwd", [_PTR] * 16 + [_INT] * 5 + [ctypes.c_float, _PTR]),
-    # q k v do o lse delta cos sin dq | B T S H window | scale | stream
-    "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
-    # q k v do lse delta cos sin dk dv | B T S H window | scale | stream
-    "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # q do o lse cos sin | qs_g lse_g delta_g | B T H pad | scale | stream
+    "flash_bwd_windowed_prep_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    # k v do qs_g lse_g delta_g cos sin dq | B T S H pad window | scale | stream
+    "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
+    "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # q k v o lse | B T H window g0 t_global | scale | stream
     "halo_fwd_bf16": ("flash_halo", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # q k v do o lse delta dq | B T H window g0 t_global | scale | stream
@@ -306,6 +315,49 @@ flash_bwd.launches = 0
 flash_bwd.grouped_launches = 0  # of them, the grouped form (Kv > 1)
 
 
+class WindowedPrep(NamedTuple):
+    """What the windowed pair's pre-pass writes (``windowed_prep``) and
+    ``flash_bwd_dkv`` reads: qs (B, T*H, D) bf16, the raw q rotated and scaled
+    by ``scale * log2(e)`` with the forward's arithmetic; lse and delta (B,
+    pad) fp32, pad = T*H rounded up to ``WINDOWED_ROW_PAD``, the pad rows +inf
+    and 0."""
+
+    qs: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+
+
+def _windowed_pad(rows: int) -> int:
+    return -(-rows // WINDOWED_ROW_PAD) * WINDOWED_ROW_PAD
+
+
+def windowed_prep(
+    q: torch.Tensor,  # (B, T, H, D) bf16, raw
+    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
+    do: torch.Tensor,  # (B, T, H, D) bf16
+    cos: torch.Tensor,  # (T, D) fp32
+    sin: torch.Tensor,  # (T, D) fp32
+    scale: float,
+) -> WindowedPrep:
+    """Launch the windowed pair's pre-pass on the current stream (the first
+    launch of ``flash_bwd_dq``): one sweep over the rows that writes qs once,
+    delta = rowsum(do * o) and the padded LSE. Operands as ``flash_bwd_dq``
+    takes them, checked there."""
+    B, T, H, D = q.shape
+    pad = _windowed_pad(T * H)
+    prep = WindowedPrep(torch.empty((B, T * H, D), dtype=torch.bfloat16, device=q.device),
+                        torch.empty((B, pad), dtype=torch.float32, device=q.device),
+                        torch.empty((B, pad), dtype=torch.float32, device=q.device))
+    err = _kernel("flash_bwd_windowed_prep_bf16")(
+        q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        B, T, H, pad, scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check_launch("windowed_prep", err)
+    return prep
+
+
 def flash_bwd_dq(
     q: torch.Tensor,  # (B, T, H, D) bf16, raw
     k: torch.Tensor,  # (B, T, D) bf16, already rotated
@@ -318,55 +370,60 @@ def flash_bwd_dq(
     window: int,  # -1 = global
     scale: float,
 ):
-    """Launch the windowed dq kernel on the current stream. Returns (dq,
-    delta): dq (B, T, H, D) bf16 in the raw q's frame, written once per row
-    (the same bits from run to run), and ``delta = rowsum(do * o)`` (B, T*H)
-    fp32, which the library's entry point fills with a small kernel first and
-    ``flash_bwd_dkv`` takes. Counts its launches in ``flash_bwd_dq.launches``."""
+    """Launch the windowed pre-pass and the dq kernel on the current stream.
+    Returns (dq, prep): dq (B, T, H, D) bf16 in the raw q's frame, written once
+    per row (the same bits from run to run), and the pre-pass's scratch
+    (``WindowedPrep``: qs, the padded LSE, delta), which ``flash_bwd_dkv``
+    takes. Counts its launches in ``flash_bwd_dq.launches``."""
     B, T, H, _ = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin)
     _check_window("flash_bwd_dq", window)
-    delta = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
+    prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
     err = _kernel("flash_bwd_dq_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), dq.data_ptr(),
-        B, T, T, H, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        B, T, T, H, prep.lse.shape[1], window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    _check_launch("flash_bwd_dq", err)
     flash_bwd_dq.launches += 1
-    return dq, delta
+    return dq, prep
 
 
 flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
     k: torch.Tensor,  # (B, T, D) bf16, already rotated
     v: torch.Tensor,  # (B, T, D) bf16
-    lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
-    delta: torch.Tensor,  # (B, T*H) fp32, rowsum(do * o) as flash_bwd_dq returns it
     do: torch.Tensor,  # (B, T, H, D) bf16
-    cos: torch.Tensor,  # (T, D) fp32
-    sin: torch.Tensor,  # (T, D) fp32
+    prep: WindowedPrep,  # flash_bwd_dq's scratch
     window: int,  # -1 = global
-    scale: float,
 ):
     """Launch the windowed dk/dv kernel on the current stream. Returns
-    (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated frame.
-    Counts its launches in ``flash_bwd_dkv.launches``."""
-    B, T, H, _ = _check_backward("flash_bwd_dkv", q, k, v, (("do", do),), (("lse", lse), ("delta", delta)), cos, sin)
-    _check_window("flash_bwd_dkv", window)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated frame, each
+    row written once. Counts its launches in ``flash_bwd_dkv.launches``."""
+    who = "flash_bwd_dkv"
+    if do.ndim != 4 or k.ndim != 3:
+        raise ValueError(f"{who} (K3b) takes MQA: k (B,T,D), do (B,T,H,D); got k {tuple(k.shape)}, do {tuple(do.shape)}")
+    B, T, H, D = do.shape
+    pad = _windowed_pad(T * H)
+    shapes = ((k, (B, T, D)), (v, (B, T, D)), (prep.qs, (B, T * H, D)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
+    if D != HEAD_DIM or any(t.shape != shape for t, shape in shapes):
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)} qs "
+                         f"{tuple(prep.qs.shape)} lse {tuple(prep.lse.shape)} delta {tuple(prep.delta.shape)}; "
+                         f"head dim must be {HEAD_DIM}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    _check_operands(who, do.device, (("do", do, bf16), ("k", k, bf16), ("v", v, bf16), ("qs", prep.qs, bf16),
+                                     ("lse", prep.lse, f32), ("delta", prep.delta, f32)))
+    _check_window(who, window)
+    dk = torch.empty(k.shape, dtype=f32, device=do.device)
+    dv = torch.empty(v.shape, dtype=f32, device=do.device)
     err = _kernel("flash_bwd_dkv_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, T, H, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, T, H, pad, window,
+        torch.cuda.current_stream(do.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    _check_launch(who, err)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -432,8 +489,8 @@ def _attention_backward(ctx, do, _dlse, _dk_rot):
         if ctx.window < 0:
             dq, dk_rot, dv = flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
         else:
-            dq, delta = flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, ctx.window, scale)
-            dk_rot, dv = flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, ctx.window, scale)
+            dq, prep = flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, ctx.window, scale)
+            dk_rot, dv = flash_bwd_dkv(k_rot, v, do, prep, ctx.window)
     else:
         dq = flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, ctx.window)
         dk_rot, dv = flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, ctx.window)

@@ -4,7 +4,7 @@ step, goes on one NVIDIA GPU.
     python3 profile_torch_serve.py [--groupnorm fused|torch]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
-        [--backbone unet|dit|mmdit]
+        [--backbone unet|dit|mmdit] [--kv-heads 1]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -30,7 +30,9 @@ attention kernels' launches per step, device time by kernel over one step
 or ``mmdit`` profiles the transformer cell (dim_h=512, depth 12, 8 heads of
 64, MMDiT with 2 KV heads; any ``--remat`` other than none rematerialises
 whole blocks), with its MFU (3 x the forward's model FLOPs over the step and
-989 TFLOP/s).
+989 TFLOP/s). ``--kv-heads 2`` gives the UNet two KV heads (the whole-song
+cell with it is ``chip_smoke.py``'s phase 17). The kernel table lists the
+largest kernels and every flash and halo kernel below them.
 """
 
 from __future__ import annotations
@@ -90,12 +92,15 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
     if not total_us:
         print("[profile] the profiler recorded no device time")
         return device_ms
-    for name, us in sorted(total_us.items(), key=lambda kv: -kv[1])[:TOP]:
+    ranked = sorted(total_us.items(), key=lambda kv: -kv[1])
+    attention = [(name, us) for name, us in ranked[TOP:] if "flash_" in name or "halo_" in name]
+    for name, us in ranked[:TOP] + attention:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / device_ms:5.1f} % {count[name]:5d}x  {name[:110]}")
     return device_ms
 
 
-def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, backbone: str = "unet") -> None:
+def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, backbone: str = "unet",
+                  kv_heads: int = 1) -> None:
     """One training step at dim_h=512, through ``train/loop.py``."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.models import build_model
@@ -103,7 +108,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     from osufusion_tpu_torch.train.loop import init_state, make_train_step
     from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
-    transformer = dict(depth=12, attn_heads=8, attn_kv_heads=2) if backbone != "unet" else {}
+    transformer = dict(depth=12, attn_heads=8, attn_kv_heads=2) if backbone != "unet" else dict(attn_kv_heads=kv_heads)
     cfg = Config(
         model=ModelConfig(dim_h=512, backbone=backbone, remat=remat != "none",
                           remat_mode=remat if remat != "none" else "save-attn", remat_level_modes=levels, **transformer),
@@ -140,7 +145,8 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     plan = f"{remat} ({','.join(levels)})" if remat == "mixed" else remat
     flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}.get(backbone)
     mfu = f"; MFU {3 * flops(cfg.model, B, T) / step_s / 989e12:.4f}" if flops else ""
-    print(f"[train] {backbone} dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}){mfu}; "
+    kv = f" kv_heads={kv_heads}" if kv_heads > 1 else ""
+    print(f"[train] {backbone}{kv} dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}){mfu}; "
           f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, fused backward {fa.flash_bwd.launches // 3}, "
           f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}; grouped forward "
@@ -160,6 +166,7 @@ def main() -> None:
     p.add_argument("--frames", type=int, default=4096, help="--train: sequence length")
     p.add_argument("--precision", choices=["full-bf16", "bf16"], default="full-bf16")
     p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
+    p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
@@ -178,7 +185,7 @@ def main() -> None:
     print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}")
     if args.train:
         profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
-                      args.backbone)
+                      args.backbone, args.kv_heads)
         return
 
     cfg = Config(model=ModelConfig(dim_h=128))

@@ -42,14 +42,16 @@ def exchange_inputs(n: int, t_local: int = 6):
     return x, weights
 
 
-def attention_inputs(n: int):
-    T, H, D = T_SONG, 2, 64
-    q, k, v, do = seeded(2, 1, T, H, D), seeded(3, 1, T, 1, D), seeded(4, 1, T, 1, D), seeded(5, 1, T, H, D)
+def attention_inputs(n: int, kv: int = 1):
+    """q, do (1, T, 2 kv, D) and k, v (1, T, kv, D): two query heads a KV head."""
+    T, H, D = T_SONG, 2 * kv, 64
+    q, k, v, do = seeded(2, 1, T, H, D), seeded(3, 1, T, kv, D), seeded(4, 1, T, kv, D), seeded(5, 1, T, H, D)
     return q, k, v, do
 
 
-# (window, scale_base of the tables): windowed through the halo kernels; global, gathered
-ATTENTION_SITES = ((64, 64.0), (None, 256.0))
+# (name, window, scale_base of the tables, KV heads): windowed through the halo
+# kernels, with one KV head and with two (run once per KV head); global, gathered
+ATTENTION_SITES = (("halo", 64, 64.0, 1), ("halo-gqa", 64, 64.0, 2), ("global", None, 256.0, 1))
 
 
 def block_modules(seed: int = 0):
@@ -121,14 +123,30 @@ def case_exchange(shard):
 
 
 def case_attention(shard):
-    q, k, v, do = attention_inputs(shard.count)
+    """Per site: o, dq, dk, dv of this rank's frames, and the number of
+    halo-kernel calls (``sequence_parallel_attention``) the site made."""
+    from osufusion_tpu_torch.ops import attention
+
+    halo = attention.sequence_parallel_attention
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return halo(*args)
+
+    attention.sequence_parallel_attention = counted
     out = {}
-    for window, base in ATTENTION_SITES:
-        leaves = [frames_of(t, shard).clone().requires_grad_(True) for t in (q, k, v)]
-        with sequence_sharding(shard):
-            o = sdpa(*leaves, window, rope_tables(T_SONG, 64, scale_base=base))
-            o.backward(frames_of(do, shard))
-        out[window] = (o.detach(), *(t.grad for t in leaves))
+    try:
+        for name, window, base, kv in ATTENTION_SITES:
+            q, k, v, do = attention_inputs(shard.count, kv)
+            leaves = [frames_of(t, shard).clone().requires_grad_(True) for t in (q, k, v)]
+            calls.clear()
+            with sequence_sharding(shard):
+                o = sdpa(*leaves, window, rope_tables(T_SONG, 64, scale_base=base))
+                o.backward(frames_of(do, shard))
+            out[name] = (o.detach(), *(t.grad for t in leaves), len(calls))
+    finally:
+        attention.sequence_parallel_attention = halo
     return out
 
 

@@ -186,7 +186,8 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         fa.flash_fwd(q, k, v, cos, sin, 64, D**-0.5, return_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_bwd_dq(q, k, v, q, stats, do, cos, sin, 64, D**-0.5)
+    prep = fa.WindowedPrep(q.reshape(1, T * H, D), torch.zeros(1, T * H), torch.zeros(1, T * H))
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_bwd_dkv(q, k, v, stats, stats, do, cos, sin, 64, D**-0.5)
+        fa.flash_bwd_dkv(k, v, do, prep, 64)
     with pytest.raises(ValueError, match="CUDA"):  # without a gradient the entry point is the forward kernel alone
         fa.flash_attention(q, k[:, :, None], v[:, :, None], 64, (cos, sin))

@@ -123,8 +123,18 @@ def test_function_gradients_match_autograd_through_plain(cuda):
 
 # (B, T, H, window): a window whose edges cut KV tiles and 128-row blocks at
 # H = 3 and 5, a short last block, T not a multiple of 64, and the production
-# head count
-WINDOWED_SHAPES = [(2, 200, 3, 32), (1, 333, 5, 100), (2, 1024, 16, 256), (1, 2048, 16, 128)]
+# head count; then the edges of the Hopper pair: T = 4000 (dq's last 128-key
+# tile and dkv's last 64-key block hold 32 keys), T = 4097 at H = 7 (one key
+# in the last tile, T*H no multiple of the 64-row tile or of the 128-row
+# block), and a window wider than the song (every tile is at its first or last
+# key tile)
+WINDOWED_SHAPES = [(2, 200, 3, 32), (1, 333, 5, 100), (2, 1024, 16, 256), (1, 2048, 16, 128), (1, 4000, 16, 512),
+                   (1, 4097, 7, 256), (2, 130, 3, 512)]
+
+
+def _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, window):
+    dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, 0.125)
+    return (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window)), prep
 
 
 @pytest.mark.cuda
@@ -135,24 +145,49 @@ def test_windowed_forward_with_lse_and_split_backward_match_plain(cuda, B, T, H,
     k_rot = fa.rotated_k(k, cos, sin)
     before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, 0.125, return_lse=True)
-    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, 0.125)
-    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, window, 0.125)
+    (dq, dk, dv), prep = _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, window)
     torch.cuda.synchronize()
     after = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd.launches)
     assert after == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     assert torch.equal(o, fa.flash_fwd(q, k_rot, v, cos, sin, window, 0.125))  # the LSE store changes nothing else
     assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
-    assert (delta - (do.float() * o.float()).sum(-1).reshape(B, -1)).abs().max().item() < 1e-3
+    # the pre-pass: qs with the forward's bits, delta, and the LSE padded to whole 128-row blocks
+    rows, pad = T * H, prep.lse.shape[1]
+    assert pad % 128 == 0 and pad - 128 < rows <= pad
+    assert torch.equal(prep.qs, fa._scaled_rotated_q(q, cos, sin).to(torch.bfloat16).reshape(B, rows, 64))
+    assert torch.equal(prep.lse[:, :rows], lse) and bool((prep.lse[:, rows:] == torch.inf).all())
+    assert (prep.delta[:, :rows] - (do.float() * o.float()).sum(-1).reshape(B, -1)).abs().max().item() < 1e-3
+    assert not prep.delta[:, rows:].any()
     assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
     refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window),
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window))
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+        # the song's first and last key tiles (dk, dv) and row blocks (dq) on their own
+        for edge in (slice(0, 128), slice(max(0, T - 128), T)):
+            assert _rel(got[:, edge], ref[:, edge]) < REL_TOL, f"{name} at {edge}: rel L2 {_rel(got[:, edge], ref[:, edge])}"
     # no atomics anywhere in the pair: a second launch repeats every bit
-    dq2, delta2 = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, 0.125)
-    dk2, dv2 = fa.flash_bwd_dkv(q, k_rot, v, lse, delta2, do, cos, sin, window, 0.125)
-    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    again, _ = _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, window)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,W", [(16384, 1024), (8192, 512)])
+def test_windowed_backward_at_the_narrow_levels(cuda, T, W):
+    """The whole-song path's two narrowest levels (B = 1, H = 16), where the
+    dkv kernel has the fewest blocks (256 and 128 of 64 keys), against the
+    plain versions."""
+    B, H = 1, 16
+    q, k, v, do, _ = _train_inputs(B, T, H, cuda)
+    cos, sin = rope_tables(T, 64, scale_base=float(W), device=cuda)
+    k_rot = fa.rotated_k(k, cos, sin)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, W, 0.125, return_lse=True)
+    refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, W),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, W))
+    grads, _ = _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, W)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
 
 
 @pytest.mark.cuda
@@ -161,9 +196,9 @@ def test_split_backward_at_a_global_site_matches_the_fused_kernel(cuda):
     q, k, v, do, (cos, sin) = _train_inputs(2, 320, 16, cuda)
     k_rot = fa.rotated_k(k, cos, sin)
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
-    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, 0.125)
-    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, -1, 0.125)
-    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)):
+    fused = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    split, _ = _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, -1)
+    for name, got, ref in zip(("dq", "dk", "dv"), split, fused):
         assert _rel(got, ref.float()) < REL_TOL, f"{name}: rel L2 {_rel(got, ref.float())}"
 
 
@@ -191,18 +226,21 @@ def test_windowed_site_under_a_gradient_runs_the_split_kernels(cuda):
 def test_windowed_backward_rejects_what_it_does_not_take(cuda):
     q, k, v, do, (cos, sin) = _train_inputs(1, 128, 4, cuda)
     stats = torch.zeros((1, 128 * 4), device=cuda)
+    prep = fa.WindowedPrep(q.reshape(1, 128 * 4, 64), stats, stats)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_bwd_dq(q.cpu(), k.cpu(), v.cpu(), q.cpu(), stats.cpu(), do.cpu(), cos.cpu(), sin.cpu(), 32, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_bwd_dkv(q, k, v, stats, stats.cpu(), do, cos, sin, 32, 0.125)
+        fa.flash_bwd_dkv(k, v, do, prep._replace(delta=stats.cpu()), 32)
     with pytest.raises(ValueError, match="bfloat16"):
         fa.flash_bwd_dq(q, k, v, q, stats, do.float(), cos, sin, 32, 0.125)
     with pytest.raises(ValueError, match="float32"):
-        fa.flash_bwd_dkv(q, k, v, stats, stats.bfloat16(), do, cos, sin, 32, 0.125)
+        fa.flash_bwd_dkv(k, v, do, prep._replace(delta=stats.bfloat16()), 32)
+    with pytest.raises(ValueError, match="shapes"):  # the LSE not padded to whole 128-row blocks
+        fa.flash_bwd_dkv(k, v, do, prep._replace(lse=stats[:, :-1]), 32)
     with pytest.raises(ValueError, match="window"):
         fa.flash_bwd_dq(q, k, v, q, stats, do, cos, sin, -2, 0.125)
     with pytest.raises(ValueError, match="window"):
-        fa.flash_bwd_dkv(q, k, v, stats, stats, do, cos, sin, -2, 0.125)
+        fa.flash_bwd_dkv(k, v, do, prep, -2)
     with pytest.raises(ValueError, match="window"):
         fa.flash_fwd(q, k, v, cos, sin, -2, 0.125, return_lse=True)
 
@@ -416,7 +454,7 @@ def test_forward_and_backward_at_tile_edges_match_plain(cuda, B, T, H, Kv, rope)
 def test_windowed_forward_at_a_narrow_level_matches_plain(cuda, rope):
     """Forms (a) and (d) at the whole-song path's narrowest level (T = 8192,
     W = 512): the forward alone and with its LSE, and with tables the LSE fed
-    to the unchanged windowed pair (dq, dkv) against the plain versions."""
+    to the windowed pair (dq, dkv) against the plain versions."""
     B, T, H, W = 1, 8192, 16, 512
     q, k, v, do, _ = _train_inputs(B, T, H, cuda)
     cos, sin = rope_tables(T, 64, scale_base=float(W), device=cuda) if rope else (None, None)
@@ -427,8 +465,7 @@ def test_windowed_forward_at_a_narrow_level_matches_plain(cuda, rope):
     assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
     if not rope:
         return
-    dq, delta = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, W, 0.125)
-    dk, dv = fa.flash_bwd_dkv(q, k_rot, v, lse, delta, do, cos, sin, W, 0.125)
+    (dq, dk, dv), _ = _windowed_backward(q, k_rot, v, o, lse, do, cos, sin, W)
     refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, W),
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, W))
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):

@@ -91,15 +91,20 @@ def test_exchange_halo_and_its_backward(n, tmp_path):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_sequence_parallel_attention_matches_one_process(n, tmp_path):
+    """Each site's o and gradients against one process; a windowed site runs
+    the halo kernels once per KV head (two KV heads: twice), a global one
+    gathers the sequence."""
     got = run_group(n, "attention", tmp_path)
-    q, k, v, do = cases.attention_inputs(n)
-    for window, base in cases.ATTENTION_SITES:
+    for name, window, base, kv in cases.ATTENTION_SITES:
+        q, k, v, do = cases.attention_inputs(n, kv)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out = sdpa(*leaves, window, rope_tables(cases.T_SONG, 64, scale_base=base))
         out.backward(do)
         for i, result in enumerate(got):
-            for name, a, b in zip(("o", "dq", "dk", "dv"), result[window], (out.detach(), *(t.grad for t in leaves))):
-                np.testing.assert_allclose(a, frames(b, n, i).numpy(), **TOL, err_msg=f"window {window}, rank {i}, {name}")
+            *tensors, halo_calls = result[name]
+            assert halo_calls == (kv if window is not None else 0), f"{name}, rank {i}: {halo_calls} halo calls"
+            for grad_name, a, b in zip(("o", "dq", "dk", "dv"), tensors, (out.detach(), *(t.grad for t in leaves))):
+                np.testing.assert_allclose(a, frames(b, n, i).numpy(), **TOL, err_msg=f"{name}, rank {i}, {grad_name}")
 
 
 @pytest.mark.parametrize("n", [2, 4])
