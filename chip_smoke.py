@@ -51,12 +51,14 @@ failure raises and the exit code is not 0:
 10. Halo kernels, the attention of sequence-parallel training, at each
     rank's shapes for a T=65536 song (B=1, H=16, D=64, bf16): (shards, T_local,
     W) = (4, 16384, 4096), (4, 2048, 512) and (2, 32768, 4096), each at the
-    first, an interior and the last shard: the forward with its LSE, dq and
-    dk/dv over the slab vs their plain fp32 versions, dk/dv exactly zero at the
+    first, an interior and the last shard: the forward with its LSE, dq (with
+    the pre-pass it shares with dk/dv) and dk/dv over the slab vs their plain
+    fp32 versions, dk/dv exactly zero at the
     slab rows outside the song, two planted faults above the bound (a window
     one key short; one key past the song's start or end admitted, over the rows
     that see it), the gradients bit-identical across two launches, CUDA-event
-    times, and at level 0 ``scaled_dot_product_attention`` under a dense
+    times (the pre-pass alone too), and at level 0
+    ``scaled_dot_product_attention`` under a dense
     (T_local, T_local + W) band-and-bounds mask, forward and backward, as the
     yardstick.
 11. Composition: the four shards of a T=65536, W=4096 song, each slab cut
@@ -175,6 +177,7 @@ SERVE_FINAL_SCALE = 1e-3
 # zero, so that the first is small against the denoiser's own contribution
 SAMPLER_REL_TOL = 5e-2
 SAMPLER_MIN_EFFECT = 2e-1
+QUEUE_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz: longer than the host takes to queue a timed run
 PEAK_FLOPS = 989e12  # H100 SXM, dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 SR = 22050
@@ -190,10 +193,15 @@ def _log(msg: str) -> None:
 
 
 def _cuda_ms(fn, n: int) -> float:
-    """Mean milliseconds per call of fn over n calls, from CUDA events."""
+    """Mean milliseconds per call of fn over n calls on the card, from CUDA
+    events. The calls are queued behind a kernel that sleeps for QUEUE_CYCLES,
+    so the events bracket the card's work and not the host's enqueueing of it:
+    at a narrow shape a wrapper can take longer on the host than its kernel
+    on the card."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -968,11 +976,12 @@ def _halo_bytes(T: int, S: int, H: int, D: int, rows: int, slabs: int, stats: in
 
 
 def phase_halo_kernels() -> tuple[dict, dict, dict]:
-    """K4, K5a and K5b vs their plain versions at every shard of HALO_SHAPES;
-    returns their records at the four-shard level-0 second shard (errors: the
-    worst over every case)."""
+    """K4, K5a (with the pre-pass it shares with K5b) and K5b vs their plain
+    versions at every shard of HALO_SHAPES; returns their records at the
+    four-shard level-0 second shard (errors: the worst over every case)."""
     import torch.nn.functional as F
 
+    from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.utils.flops import halo_flops
 
@@ -991,8 +1000,8 @@ def phase_halo_kernels() -> tuple[dict, dict, dict]:
             k, v = (torch.randn((1, T + W, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
 
             def backward():
-                dq, delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)
-                return (dq, *ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, scale))
+                dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)
+                return (dq, *ha.halo_bwd_dkv(k, v, do, prep, *frame))
 
             o, lse = ha.halo_fwd(q, k, v, *frame, scale)
             grads = backward()
@@ -1046,24 +1055,27 @@ def phase_halo_kernels() -> tuple[dict, dict, dict]:
                     failures.append(f"{label}: planted key past the song's edge {edge_rel} would pass {REL_TOL}")
 
             fwd_ms = _cuda_ms(lambda: ha.halo_fwd(q, k, v, *frame, scale), 20)
-            delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
-            dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 10)
-            dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, scale), 10)
+            prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
+            prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, None, None, scale), 10)
+            dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 10)  # the pre-pass included
+            dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, prep, *frame), 10)
             fwd_plain_ms = _cuda_ms(lambda: ha.halo_fwd_reference(q, k, v, *frame), 1)
             dq_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dq_reference(q, k, v, o, lse_ref, do, *frame), 1)
             dkv_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dkv_reference(q, k, v, o, lse_ref, do, *frame), 1)
             S = T + W
-            bounds = {  # q o; k v; lse / q o do dq; k v; lse delta / q do; k v; lse delta; dk dv in fp32
+            # q o; k v; lse / q o do dq, qs out; k v; lse in, lse delta out / qs do; k v; lse delta; dk dv in fp32
+            bounds = {
                 "fwd": _bound(halo_flops("forward", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 1)),
-                "dq": _bound(halo_flops("backward_dq", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 4, 2, 2)),
+                "dq": _bound(halo_flops("backward_dq", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 5, 2, 3)),
                 "dkv": _bound(halo_flops("backward_dkv", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 2, f32_slabs=2)),
             }
             _log(f"[halo kernels] {label}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e}, lse max abs {lse_err:.3e}; "
                  f"backward {'; '.join(parts)}; planted short window {', '.join(f'{x:.3e}' for x in short_rel)}{edge}; "
                  f"slab rows outside the song zero; two launches bit-identical")
             _log(f"[halo kernels] {label}: forward {fwd_ms:.3f} ms (bound {bounds['fwd'][0]:.3f} by {bounds['fwd'][1]}; plain "
-                 f"{fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms (bound {bounds['dq'][0]:.3f}; plain {dq_plain_ms:.3f}); dkv "
-                 f"{dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}; plain {dkv_plain_ms:.3f})")
+                 f"{fwd_plain_ms:.3f}); dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound "
+                 f"{bounds['dq'][0]:.3f}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}; "
+                 f"plain {dkv_plain_ms:.3f})")
             if W == 4096 and shard == 1:
                 # yardstick only: PyTorch's fused attention on the same rotated inputs under a dense
                 # (T_local, T_local + W) band-and-bounds mask, and its backward; both visit every tile
@@ -1093,7 +1105,7 @@ def phase_halo_kernels() -> tuple[dict, dict, dict]:
                                "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain_ms, "library_ms": lib_bwd_ms}}
                     for key, rec in records.items():
                         rec["bound_ms"], rec["bound_by"] = bounds[key]
-            del q, k, v, do, o, lse, grads, o_ref, lse_ref, refs, delta
+            del q, k, v, do, o, lse, grads, o_ref, lse_ref, refs, prep
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError("halo kernels vs plain: " + "; ".join(failures))
@@ -1130,8 +1142,8 @@ def phase_halo_composition() -> None:
         q_s, do_s = q_rot[:, g0 : g0 + t_local].contiguous(), do[:, g0 : g0 + t_local].contiguous()
         k_s, v_s = k_pad[:, g0 : g0 + t_local + W].contiguous(), v_pad[:, g0 : g0 + t_local + W].contiguous()
         o_s, lse_s = ha.halo_fwd(q_s, k_s, v_s, *frame, scale)
-        dq_s, delta_s = ha.halo_bwd_dq(q_s, k_s, v_s, o_s, lse_s, do_s, *frame, scale)
-        dk_s, dv_s = ha.halo_bwd_dkv(q_s, k_s, v_s, lse_s, delta_s, do_s, *frame, scale)
+        dq_s, prep_s = ha.halo_bwd_dq(q_s, k_s, v_s, o_s, lse_s, do_s, *frame, scale)
+        dk_s, dv_s = ha.halo_bwd_dkv(k_s, v_s, do_s, prep_s, *frame)
         o_parts.append(o_s)
         lse_parts.append(lse_s)
         dq_parts.append(dq_s)
@@ -1635,7 +1647,7 @@ def main() -> int:
     fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
                   "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
     windowed_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu"}
-    halo_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_halo.cu"}
+    halo_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_halo.cu"}  # K4; K5a/K5b: windowed_source
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
         {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
@@ -1648,9 +1660,9 @@ def main() -> int:
          "launches": fullsong["backward_dkv"], **bwd_dkv},
         {"name": "halo_fwd", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:938",
          "launches": seq["halo_fwd"], **halo_fwd},
-        {"name": "halo_bwd_dq", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1054",
+        {"name": "halo_bwd_dq", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1054",
          "launches": seq["halo_bwd_dq"], **halo_dq},
-        {"name": "halo_bwd_dkv", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1099",
+        {"name": "halo_bwd_dkv", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1099",
          "launches": seq["halo_bwd_dkv"], **halo_dkv},
         {"name": "flash_fwd_grouped", **fwd_source, "launches": grouped_serve, **grouped_fwd},
         {"name": "flash_fwd_lse_grouped", **fwd_source, "launches": grouped_train["forward_grouped"], **grouped_fwd_lse},

@@ -1,7 +1,7 @@
-// What the halo kernels (flash_halo.cu: K4, K5a, K5b, the last on the
-// mma.sync design) use: the tile geometry, the mma.sync / ldmatrix / cp.async
-// wrappers, and the small kernel for delta = rowsum(do * o). The other flash
-// kernels are built from hopper.cuh.
+// What the halo forward (flash_halo.cu, K4) is built from: the tile
+// geometry and the mma.sync / ldmatrix / cp.async wrappers. The halo backward
+// runs on the Hopper pair of flash_bwd_windowed.cu, and every other flash
+// kernel is built from hopper.cuh too, so this header goes with K4's redesign.
 //
 // Everything sits in an unnamed namespace, so each library gets its own copy.
 
@@ -18,7 +18,6 @@ constexpr int D = 64;       // head dim
 constexpr int BN = 64;      // keys per KV tile
 constexpr int LDS = D + 8;  // padded shared-memory row, in bf16 (BN == D, so one pitch serves every tile)
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 static_assert(BN == 64 && D == 64, "fragment loops assume 64-key, 64-wide tiles");
 
@@ -92,51 +91,6 @@ __device__ __forceinline__ void copy_kv_tile(__nv_bfloat16* Ks, __nv_bfloat16* V
     cp_async16(Ks + r * LDS + col, kb + off, ok);
     cp_async16(Vs + r * LDS + col, vb + off, ok);
   }
-}
-
-// Copy ROWS rows of a (rows, D) bf16 matrix starting at row r0 into a padded
-// tile with cp.async (no commit); rows at or past row_end arrive as zeros.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* tile, const __nv_bfloat16* src, int r0, int row_end, int tid) {
-  for (int c = tid; c < ROWS * (D / 8); c += NTHREADS) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    const bool ok = r0 + r < row_end;
-    cp_async16(tile + r * LDS + col, src + (size_t)(ok ? r0 + r : 0) * D + col, ok);
-  }
-}
-
-// delta[r] = sum_d do[r][d] * o[r][d] in fp32: eight threads a row, 16 bytes each
-__global__ void flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ dout, const __nv_bfloat16* __restrict__ o,
-                                       float* __restrict__ delta, size_t n_rows) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t row = idx / (D / 8);
-  float acc = 0.f;
-  if (row < n_rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dout + idx * 8);
-    const uint4 b = *reinterpret_cast<const uint4*>(o + idx * 8);
-    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 x = __bfloat1622float2(pa[j]);
-      const float2 y = __bfloat1622float2(pb[j]);
-      acc += x.x * y.x + x.y * y.y;
-    }
-  }
-  // the eight threads of a row are neighbours in one warp (blockDim.x is a multiple of 32)
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (row < n_rows && (idx & 7) == 0) delta[row] = acc;
-}
-
-// Launch the delta kernel over n_rows rows of do and o on stream st
-inline cudaError_t launch_delta(const void* dout, const void* o, void* delta, size_t n_rows, cudaStream_t st) {
-  const size_t threads = n_rows * (D / 8);
-  flash_bwd_delta_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(o), static_cast<float*>(delta), n_rows);
-  return cudaGetLastError();
 }
 
 }  // namespace

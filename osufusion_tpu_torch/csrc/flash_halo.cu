@@ -1,10 +1,13 @@
 // Windowed MQA flash attention of one sequence shard against its
-// halo-extended keys, for Hopper (sm_90a): the forward with its LSE, dq and
-// dk/dv, all three in this one source.
+// halo-extended keys, for Hopper (sm_90a): the forward with its LSE (K4).
 //
 // Replaces osufusion_tpu/ops/pallas_attention.py::_halo_fwd_kernel (launched
-// by _halo_flash_fwd), ::_halo_dq_kernel and ::_halo_dkv_kernel (both launched
-// by _halo_flash_bwd): the attention of sequence-parallel training.
+// by _halo_flash_fwd), the attention of sequence-parallel training. Its
+// backward, the halo dq and dk/dv (_halo_dq_kernel, _halo_dkv_kernel), is the
+// windowed pair of flash_bwd_windowed.cu in the halo frame, behind the
+// pre-pass of flash_bwd_prep.cuh: it recomputes this kernel's p from the LSE
+// written here, with qs staged to the same bits (rope_qs.cuh without tables
+// rounds q * qscale to bf16 as stage_scaled below does).
 //
 // The halo frame: a rank holds T local query rows (global frames g0 ..
 // g0 + T - 1) and a slab of S = T + W keys whose row s is global frame
@@ -15,62 +18,33 @@
 // every rank and level.
 //
 // Inputs: q (B, T, H, D) bf16 already rotated, k (rotated) and v (B, S, D)
-// bf16, do and o (B, T, H, D) bf16, lse2 (B, T*H) fp32 (the base-2 log-sum-exp
-// that the forward writes, t-major). Every kernel holds q as qs = q * scale *
-// log2(e) rounded to bf16, so the logits qs k^T of the three repeat each other
-// bit for bit. With p = exp2(qs k^T - lse2) and ds = p (do v^T - delta):
-//   o      = p v                   bf16 out, with lse2
-//   dq     = scale * ds k          bf16 out, in q's (rotated) frame
-//   dv     = p^T do                fp32 out, every slab row
-//   dk     = ln(2) * ds^T qs       fp32 out, every slab row
-// Slab rows outside the song get dk = dv = 0: the exchange's backward sends the
-// halo rows' gradients home, and the song's ends have no home.
+// bf16. The kernel holds q as qs = q * scale * log2(e) rounded to bf16; with
+// p = exp2(qs k^T - lse2) it writes o = p v in bf16 and lse2 (B, T*H) fp32,
+// the base-2 log-sum-exp, t-major.
 //
-// Work split, as the single-device windowed kernels (flash_fwd.cu,
-// flash_bwd_windowed.cu), in the halo frame:
-//  * halo_fwd_kernel: one block per 128 flattened (timestep, head) rows, 8
-//    warps of 16; qs in registers as mma A fragments; the block walks the
-//    64-key tiles of [max(lo, t_lo), min(hi, t_hi + W + 1)), the next tile
-//    copied by cp.async while the current one is used, an fp32 online softmax
-//    in the exp2 domain, P re-packed in registers as the A operand of P V.
-//    The visit range is clipped to the song, so no tile is entirely outside
-//    it; a row that has no key yet in a tile keeps a zero base, so no
-//    -inf - -inf is ever taken.
-//  * halo_dq_kernel: the same rows and tiles; qs and do in registers, s and dp
-//    recomputed, ds re-packed as the A operand of ds k. No atomics: each dq
-//    row is written once, the same bits from run to run.
-//  * halo_dkv_kernel: one block per (batch element, 64-key slab tile); dk and
-//    dv of the tile stay in registers while the block sweeps, 64 rows a step,
-//    the query rows of timesteps [k_lo - W, k_hi] in the shard, where [k_lo,
-//    k_hi] are the tile's keys inside the song (none: the tile writes zeros).
-//    p and ds go through shared memory in bf16 for the transposed products.
-//  * Only tiles at the window's edge or at the song's ends are masked; an
-//    interior tile tests neither leg. Every loop bound is derived per block
-//    from its own rows or keys, so a window that no tile size divides visits
-//    exactly the tiles it needs.
+// Work split, as the single-device forward (flash_fwd.cu) in the halo frame,
+// with mma.sync and cp.async (flash_bwd_common.cuh): one block
+// per 128 flattened (timestep, head) rows, 8 warps of 16; qs in registers as
+// mma A fragments; the block walks the 64-key tiles of [max(lo, t_lo), min(hi,
+// t_hi + W + 1)), the next tile copied by cp.async while the current one is
+// used, an fp32 online softmax in the exp2 domain, P re-packed in registers as
+// the A operand of P V. The visit range is clipped to the song, so no tile is
+// entirely outside it; a row that has no key yet in a tile keeps a zero base,
+// so no -inf - -inf is ever taken. Only tiles at the window's edge or at the
+// song's ends are masked; an interior tile tests neither leg.
 //
 // Bound: compute (each q row meets up to W + 1 keys for a few hundred bytes of
 // traffic); the design spends its effort on the math, as flash_fwd.cu does.
 //
-// C ABI (loaded with ctypes): halo_fwd_bf16, halo_bwd_dq_bf16 (which fills
-// delta = rowsum(do * o), scratch (B, T*H) fp32, before the dq kernel) and
-// halo_bwd_dkv_bf16 (which reads that delta). Each returns cudaGetLastError().
+// C ABI (loaded with ctypes): halo_fwd_bf16 returns cudaGetLastError().
 
 #include "flash_bwd_common.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // (timestep, head) rows per forward / dq block
+constexpr int BM = 128;  // (timestep, head) rows per block
 constexpr int ROW_THREADS = BM / 16 * 32;
-constexpr int FWD_SMEM_BYTES = (BM + 4 * BN) * LDS * 2;     // qs; 2 stages of k and v
-constexpr int DQ_SMEM_BYTES = (2 * BM + 4 * BN) * LDS * 2;  // qs, do; 2 stages of k and v
-
-constexpr int KV_BM = 64;  // (timestep, head) rows per dkv sweep step
-constexpr int KV_THREADS = KV_BM / 16 * 32;
-constexpr int KV_TILE = KV_BM * LDS;
-constexpr int KV_SMEM_BYTES = 6 * KV_TILE * 2;  // k, v; qs, do, p, ds
-
-static_assert(KV_BM == BN, "one tile size serves k, v, qs, do, p and ds");
+constexpr int FWD_SMEM_BYTES = (BM + 4 * BN) * LDS * 2;  // qs; 2 stages of k and v
 
 // The halo frame of one launch
 struct Frame {
@@ -109,16 +83,11 @@ __device__ __forceinline__ void stage_scaled(__nv_bfloat16* Qs, const __nv_bfloa
   }
 }
 
-// s = qs k^T (and, with DP, dp = do v^T) for one warp's 16 rows x BN keys
-template <bool DP>
-__device__ __forceinline__ void tile_products(float (&s)[BN / 8][4], float (&dp)[BN / 8][4],
-                                              const uint32_t (&qa)[D / 16][4], const uint32_t (&da)[D / 16][4],
-                                              const __nv_bfloat16* Kt, const __nv_bfloat16* Vt, int lane) {
+// s = qs k^T for one warp's 16 rows x BN keys
+__device__ __forceinline__ void tile_logits(float (&s)[BN / 8][4], const uint32_t (&qa)[D / 16][4],
+                                            const __nv_bfloat16* Kt, int lane) {
 #pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-  }
+  for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
@@ -127,12 +96,6 @@ __device__ __forceinline__ void tile_products(float (&s)[BN / 8][4], float (&dp)
       load_b(kf, Kt, np * 16, kk, lane);
       mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
       mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
-      if (DP) {
-        uint32_t vf[4];
-        load_b(vf, Vt, np * 16, kk, lane);
-        mma_bf16(dp[2 * np], da[kk], vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], da[kk], vf[2], vf[3]);
-      }
     }
   }
 }
@@ -242,8 +205,8 @@ halo_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const __nv_bfloat16* Kt = Ks + (it & 1) * BN * LDS;
     const __nv_bfloat16* Vt = Vs + (it & 1) * BN * LDS;
 
-    float s[BN / 8][4], unused[BN / 8][4];
-    tile_products<false>(s, unused, qa, qa, Kt, Vt, lane);
+    float s[BN / 8][4];
+    tile_logits(s, qa, Kt, lane);
     if (!interior(f, s0, rb.t_lo, rb.t_hi)) {
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
@@ -318,252 +281,6 @@ halo_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
-__global__ void __launch_bounds__(ROW_THREADS, 1)
-halo_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-               Frame f, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
-  __nv_bfloat16* Os = Qs + BM * LDS;                                // [BM][LDS] do
-  __nv_bfloat16* Ks = Os + BM * LDS;                                // [2][BN][LDS]
-  __nv_bfloat16* Vs = Ks + 2 * BN * LDS;                            // [2][BN][LDS]
-
-  const int b = blockIdx.y;
-  const int rows = f.T * f.H;
-  const int r0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int wr = (tid / 32) * 16;
-
-  const __nv_bfloat16* qb = q + (size_t)b * rows * D;
-  const __nv_bfloat16* dob = dout + (size_t)b * rows * D;
-  const __nv_bfloat16* kb = k + (size_t)b * f.S * D;
-  const __nv_bfloat16* vb = v + (size_t)b * f.S * D;
-  const RowBlock rb = row_block(f, r0);
-
-  copy_rows<BM, ROW_THREADS>(Os, dob, r0, rows, tid);
-  copy_kv_tile<ROW_THREADS>(Ks, Vs, kb, vb, rb.kv_lo, f.hi, tid);
-  cp_async_commit();
-  stage_scaled<BM, ROW_THREADS>(Qs, qb, r0, rows, scale * LOG2E, tid);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qa[kk], Qs, wr, kk, lane);
-    load_a(da[kk], Os, wr, kk, lane);
-  }
-  // this thread's two fragment rows; a row past the end gets lse = +inf, so
-  // its p and ds are zero
-  const int row_a = r0 + wr + g;
-  const int row_b = row_a + 8;
-  const int tq[2] = {row_a / f.H, row_b / f.H};
-  const float* lseb = lse + (size_t)b * rows;
-  const float* deltab = delta + (size_t)b * rows;
-  const float lse_r[2] = {row_a < rows ? lseb[row_a] : INFINITY, row_b < rows ? lseb[row_b] : INFINITY};
-  const float delta_r[2] = {row_a < rows ? deltab[row_a] : 0.f, row_b < rows ? deltab[row_b] : 0.f};
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
-
-  for (int it = 0; it < rb.n_tiles; ++it) {
-    const int s0 = rb.kv_lo + it * BN;
-    if (it + 1 < rb.n_tiles) {
-      const int stage = (it + 1) & 1;
-      copy_kv_tile<ROW_THREADS>(Ks + stage * BN * LDS, Vs + stage * BN * LDS, kb, vb, s0 + BN, f.hi, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + (it & 1) * BN * LDS;
-    const __nv_bfloat16* Vt = Vs + (it & 1) * BN * LDS;
-
-    float s[BN / 8][4], dp[BN / 8][4];
-    tile_products<true>(s, dp, qa, da, Kt, Vt, lane);
-    const bool inner = interior(f, s0, rb.t_lo, rb.t_hi);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[nt][e] - lse_r[e >> 1]);
-        if (!inner && !visible(f, tq[e >> 1], s0 + nt * 8 + 2 * tg + (e & 1))) p = 0.f;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]);
-      }
-    }
-    rows_times_tile(dq_acc, dp, Kt, lane);
-    __syncthreads();  // the stage just read is the next iteration's copy target
-  }
-
-  __nv_bfloat16* dqb = dq + (size_t)b * rows * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
-    if (row_a < rows)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_a * D + col) =
-          pack_bf16(dq_acc[dt][0] * scale, dq_acc[dt][1] * scale);
-    if (row_b < rows)
-      *reinterpret_cast<uint32_t*>(dqb + (size_t)row_b * D + col) =
-          pack_bf16(dq_acc[dt][2] * scale, dq_acc[dt][3] * scale);
-  }
-}
-
-__global__ void __launch_bounds__(KV_THREADS, 2)
-halo_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, Frame f, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][LDS]
-  __nv_bfloat16* Vs = Ks + BN * LDS;                                // [BN][LDS]
-  __nv_bfloat16* Qs = Vs + KV_TILE;                                 // [KV_BM][LDS] qs
-  __nv_bfloat16* Os = Qs + KV_TILE;                                 // [KV_BM][LDS] do
-  __nv_bfloat16* Ps = Os + KV_TILE;                                 // [KV_BM][LDS] p, rows x keys
-  __nv_bfloat16* Gs = Ps + KV_TILE;                                 // [KV_BM][LDS] ds, rows x keys
-
-  const int b = blockIdx.y;
-  const int s0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-  const int wr = (tid / 32) * 16;  // this warp's rows of a query tile, and its keys of dk/dv
-
-  const size_t all_rows = (size_t)f.T * f.H;
-  const __nv_bfloat16* qb = q + (size_t)b * all_rows * D;
-  const __nv_bfloat16* dob = dout + (size_t)b * all_rows * D;
-  const __nv_bfloat16* kb = k + (size_t)b * f.S * D;
-  const __nv_bfloat16* vb = v + (size_t)b * f.S * D;
-  const float* lseb = lse + (size_t)b * all_rows;
-  const float* deltab = delta + (size_t)b * all_rows;
-
-  // the tile's keys inside the song, [k_lo, k_hi], and the query rows whose
-  // window reaches them; a tile wholly outside the song sweeps nothing
-  const int k_lo = max(s0, f.lo);
-  const int k_hi = min(s0 + BN, f.hi) - 1;
-  const int row_lo = max(0, k_lo - f.window) * f.H;
-  const int row_hi = (min(f.T - 1, k_hi) + 1) * f.H;
-  const int n_tiles = k_lo <= k_hi && row_hi > row_lo ? (row_hi - row_lo + KV_BM - 1) / KV_BM : 0;
-
-  copy_kv_tile<KV_THREADS>(Ks, Vs, kb, vb, s0, f.S, tid);
-  cp_async_commit();
-
-  float dv_acc[D / 8][4], dk_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dv_acc[dt][0] = dv_acc[dt][1] = dv_acc[dt][2] = dv_acc[dt][3] = 0.f;
-    dk_acc[dt][0] = dk_acc[dt][1] = dk_acc[dt][2] = dk_acc[dt][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int r0 = row_lo + it * KV_BM;
-    copy_rows<KV_BM, KV_THREADS>(Os, dob, r0, row_hi, tid);
-    cp_async_commit();
-    const int row_a = r0 + wr + g;
-    const int row_b = row_a + 8;
-    const float lse_r[2] = {row_a < row_hi ? lseb[row_a] : INFINITY, row_b < row_hi ? lseb[row_b] : INFINITY};
-    const float delta_r[2] = {row_a < row_hi ? deltab[row_a] : 0.f, row_b < row_hi ? deltab[row_b] : 0.f};
-    stage_scaled<KV_BM, KV_THREADS>(Qs, qb, r0, row_hi, scale * LOG2E, tid);
-    cp_async_wait<0>();  // do of this step; on the first step k and v too
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, Qs, wr, kk, lane);
-      load_a(da, Os, wr, kk, lane);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t kf[4], vf[4];
-        load_b(kf, Ks, np * 16, kk, lane);
-        load_b(vf, Vs, np * 16, kk, lane);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], da, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
-      }
-    }
-
-    // p and ds to shared memory in bf16; only a step at the window's edge or
-    // the song's ends is masked
-    const int t_a = r0 / f.H;
-    const int t_b = (min(r0 + KV_BM, row_hi) - 1) / f.H;
-    const bool inner = interior(f, s0, t_a, t_b);
-    const int tq[2] = {row_a / f.H, row_b / f.H};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = s0 + nt * 8 + 2 * tg + (e & 1);
-        float p = exp2f(s[nt][e] - lse_r[e >> 1]);
-        if (!inner && (key < f.lo || !visible(f, tq[e >> 1], key))) p = 0.f;
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]);
-      }
-      const int off_a = (wr + g) * LDS + nt * 8 + 2 * tg;
-      const int off_b = off_a + 8 * LDS;
-      *reinterpret_cast<uint32_t*>(Ps + off_a) = pack_bf16(s[nt][0], s[nt][1]);
-      *reinterpret_cast<uint32_t*>(Ps + off_b) = pack_bf16(s[nt][2], s[nt][3]);
-      *reinterpret_cast<uint32_t*>(Gs + off_a) = pack_bf16(dp[nt][0], dp[nt][1]);
-      *reinterpret_cast<uint32_t*>(Gs + off_b) = pack_bf16(dp[nt][2], dp[nt][3]);
-    }
-    __syncthreads();  // p and ds of every warp are in shared memory
-
-    // dv += p^T do and dk += ds^T qs for this warp's 16 keys, over the step's rows
-#pragma unroll
-    for (int ks = 0; ks < KV_BM / 16; ++ks) {
-      uint32_t pa[4], ga[4];
-      const int a_off = (ks * 16 + mr + (mi >> 1) * 8) * LDS + wr + (mi & 1) * 8;
-      ldmatrix_x4_trans(pa, Ps + a_off);
-      ldmatrix_x4_trans(ga, Gs + a_off);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t bf[4];
-        const int b_off = (ks * 16 + mr + (mi & 1) * 8) * LDS + dd * 16 + (mi >> 1) * 8;
-        ldmatrix_x4_trans(bf, Os + b_off);
-        mma_bf16(dv_acc[2 * dd], pa, bf[0], bf[1]);
-        mma_bf16(dv_acc[2 * dd + 1], pa, bf[2], bf[3]);
-        ldmatrix_x4_trans(bf, Qs + b_off);
-        mma_bf16(dk_acc[2 * dd], ga, bf[0], bf[1]);
-        mma_bf16(dk_acc[2 * dd + 1], ga, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // the tiles just read are the next step's copy targets
-  }
-  cp_async_wait<0>();  // a tile that swept nothing still has its k and v copy in flight
-
-  const int key_a = s0 + wr + g;
-  const int key_b = key_a + 8;
-  float* dkb = dk + (size_t)b * f.S * D;
-  float* dvb = dv + (size_t)b * f.S * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * tg;
-    if (key_a < f.S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_a * D + col) = make_float2(dk_acc[dt][0] * LN2, dk_acc[dt][1] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_a * D + col) = make_float2(dv_acc[dt][0], dv_acc[dt][1]);
-    }
-    if (key_b < f.S) {
-      *reinterpret_cast<float2*>(dkb + (size_t)key_b * D + col) = make_float2(dk_acc[dt][2] * LN2, dk_acc[dt][3] * LN2);
-      *reinterpret_cast<float2*>(dvb + (size_t)key_b * D + col) = make_float2(dv_acc[dt][2], dv_acc[dt][3]);
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int halo_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T, int H,
@@ -575,37 +292,5 @@ extern "C" int halo_fwd_bf16(const void* q, const void* k, const void* v, void* 
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       make_frame(T, H, window, g0, t_global), scale);
-  return (int)cudaGetLastError();
-}
-
-// delta is scratch that this entry point fills before the dq kernel reads it.
-extern "C" int halo_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* o,
-                                const void* lse, void* delta, void* dq, int B, int T, int H, int window, int g0,
-                                int t_global, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(halo_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = launch_delta(dout, o, delta, (size_t)B * T * H, st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T * H + BM - 1) / BM, B);
-  halo_dq_kernel<<<grid, ROW_THREADS, DQ_SMEM_BYTES, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
-      make_frame(T, H, window, g0, t_global), scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int halo_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int B, int T, int H, int window, int g0,
-                                 int t_global, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(halo_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + window + BN - 1) / BN, B);
-  halo_dkv_kernel<<<grid, KV_THREADS, KV_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), make_frame(T, H, window, g0, t_global), scale);
   return (int)cudaGetLastError();
 }

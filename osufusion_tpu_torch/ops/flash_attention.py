@@ -34,7 +34,9 @@ behind mbarriers from a producer warp or warpgroup, and warpgroups run every
 product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
 softmax stays in fp32 registers in the exp2 domain and only edge tiles are
 masked. Both backward paths start with one pre-pass that rotates and scales
-q once (``csrc/flash_bwd_prep.cuh``). The halo kernels still use
+q once (``csrc/flash_bwd_prep.cuh``). The halo backward of sequence
+parallelism (``ops/halo_attention.py``) is the windowed pair in the halo
+frame, behind the same pre-pass; only the halo forward still uses
 ``mma.sync`` and ``cp.async`` (``csrc/flash_bwd_common.cuh``).
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
@@ -127,10 +129,10 @@ _ENTRY_POINTS = {
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # q k v o lse | B T H window g0 t_global | scale | stream
     "halo_fwd_bf16": ("flash_halo", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    # q k v do o lse delta dq | B T H window g0 t_global | scale | stream
-    "halo_bwd_dq_bf16": ("flash_halo", [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    # q k v do lse delta dk dv | B T H window g0 t_global | scale | stream
-    "halo_bwd_dkv_bf16": ("flash_halo", [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
+    "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
+    # k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
+    "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 7 + [_PTR]),
 }
 
 
@@ -317,10 +319,11 @@ flash_bwd.grouped_launches = 0  # of them, the grouped form (Kv > 1)
 
 class WindowedPrep(NamedTuple):
     """What the windowed pair's pre-pass writes (``windowed_prep``) and
-    ``flash_bwd_dkv`` reads: qs (B, T*H, D) bf16, the raw q rotated and scaled
-    by ``scale * log2(e)`` with the forward's arithmetic; lse and delta (B,
-    pad) fp32, pad = T*H rounded up to ``WINDOWED_ROW_PAD``, the pad rows +inf
-    and 0."""
+    ``flash_bwd_dkv`` (or the halo pair's ``halo_bwd_dkv``) reads: qs (B, T*H,
+    D) bf16, the raw q rotated (or, without tables, the rotated q as it came)
+    and scaled by ``scale * log2(e)`` with the forward's arithmetic; lse and
+    delta (B, pad) fp32, pad = T*H rounded up to ``WINDOWED_ROW_PAD``, the pad
+    rows +inf and 0."""
 
     qs: torch.Tensor
     lse: torch.Tensor
@@ -331,26 +334,39 @@ def _windowed_pad(rows: int) -> int:
     return -(-rows // WINDOWED_ROW_PAD) * WINDOWED_ROW_PAD
 
 
+def _check_prep(who: str, prep: WindowedPrep, device, B: int, rows: int) -> None:
+    """The pre-pass scratch as the dk/dv kernels take it: qs (B, rows, D)
+    bf16, lse and delta (B, rows padded to ``WINDOWED_ROW_PAD``) fp32, all
+    contiguous on ``device``."""
+    pad = _windowed_pad(rows)
+    shapes = ((prep.qs, (B, rows, HEAD_DIM)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
+    if any(t.shape != shape for t, shape in shapes):
+        raise ValueError(f"{who} shapes: qs {tuple(prep.qs.shape)} lse {tuple(prep.lse.shape)} delta "
+                         f"{tuple(prep.delta.shape)}; want qs {(B, rows, HEAD_DIM)}, lse and delta {(B, pad)}")
+    _check_operands(who, device, (("qs", prep.qs, torch.bfloat16), ("lse", prep.lse, torch.float32),
+                                  ("delta", prep.delta, torch.float32)))
+
+
 def windowed_prep(
     q: torch.Tensor,  # (B, T, H, D) bf16, raw
     o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
     do: torch.Tensor,  # (B, T, H, D) bf16
-    cos: torch.Tensor,  # (T, D) fp32
-    sin: torch.Tensor,  # (T, D) fp32
+    cos: Optional[torch.Tensor],  # (T, D) fp32, or None: q arrives rotated (the halo pair)
+    sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ) -> WindowedPrep:
     """Launch the windowed pair's pre-pass on the current stream (the first
-    launch of ``flash_bwd_dq``): one sweep over the rows that writes qs once,
-    delta = rowsum(do * o) and the padded LSE. Operands as ``flash_bwd_dq``
-    takes them, checked there."""
+    launch of ``flash_bwd_dq``, and without tables of ``halo_bwd_dq``): one
+    sweep over the rows that writes qs once, delta = rowsum(do * o) and the
+    padded LSE. Operands as those wrappers take them, checked there."""
     B, T, H, D = q.shape
     pad = _windowed_pad(T * H)
     prep = WindowedPrep(torch.empty((B, T * H, D), dtype=torch.bfloat16, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device))
     err = _kernel("flash_bwd_windowed_prep_bf16")(
-        q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin),
         prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         B, T, H, pad, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -406,21 +422,18 @@ def flash_bwd_dkv(
     if do.ndim != 4 or k.ndim != 3:
         raise ValueError(f"{who} (K3b) takes MQA: k (B,T,D), do (B,T,H,D); got k {tuple(k.shape)}, do {tuple(do.shape)}")
     B, T, H, D = do.shape
-    pad = _windowed_pad(T * H)
-    shapes = ((k, (B, T, D)), (v, (B, T, D)), (prep.qs, (B, T * H, D)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
-    if D != HEAD_DIM or any(t.shape != shape for t, shape in shapes):
-        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)} qs "
-                         f"{tuple(prep.qs.shape)} lse {tuple(prep.lse.shape)} delta {tuple(prep.delta.shape)}; "
+    if D != HEAD_DIM or k.shape != (B, T, D) or v.shape != (B, T, D):
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}; "
                          f"head dim must be {HEAD_DIM}")
     bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, do.device, (("do", do, bf16), ("k", k, bf16), ("v", v, bf16), ("qs", prep.qs, bf16),
-                                     ("lse", prep.lse, f32), ("delta", prep.delta, f32)))
+    _check_operands(who, do.device, (("do", do, bf16), ("k", k, bf16), ("v", v, bf16)))
+    _check_prep(who, prep, do.device, B, T * H)
     _check_window(who, window)
     dk = torch.empty(k.shape, dtype=f32, device=do.device)
     dv = torch.empty(v.shape, dtype=f32, device=do.device)
     err = _kernel("flash_bwd_dkv_bf16")(
         k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, T, H, pad, window,
+        dk.data_ptr(), dv.data_ptr(), B, T, T, H, prep.lse.shape[1], window,
         torch.cuda.current_stream(do.device).cuda_stream,
     )
     _check_launch(who, err)

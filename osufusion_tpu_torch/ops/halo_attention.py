@@ -1,12 +1,16 @@
 """Windowed MQA attention of one sequence shard against its halo-extended
 keys, the attention of sequence-parallel training (``parallel/sequence.py``):
-the wrappers of the CUDA kernels in ``csrc/flash_halo.cu``, the
-differentiable op that joins them, and their plain PyTorch versions.
+the wrappers of its CUDA kernels, the differentiable op that joins them, and
+their plain PyTorch versions.
 
 ``halo_fwd`` replaces ``osufusion_tpu/ops/pallas_attention.py::_halo_fwd_kernel``
-(launched by ``_halo_flash_fwd``); ``halo_bwd_dq`` and ``halo_bwd_dkv``
-replace ``_halo_dq_kernel`` and ``_halo_dkv_kernel`` (launched by
-``_halo_flash_bwd``).
+(launched by ``_halo_flash_fwd``; ``csrc/flash_halo.cu``); ``halo_bwd_dq`` and
+``halo_bwd_dkv`` replace ``_halo_dq_kernel`` and ``_halo_dkv_kernel``
+(launched by ``_halo_flash_bwd``): the windowed backward pair of
+``csrc/flash_bwd_windowed.cu`` in the halo frame, after the windowed pair's
+pre-pass without tables (``flash_attention.windowed_prep``), which
+``halo_bwd_dq`` launches first and which writes qs, delta and the padded LSE
+once for both.
 
 The halo frame: a rank holds T local query rows, global frames g0 .. g0+T-1,
 and a slab of S = T + W keys whose row s is global frame g0 - W/2 + s (the
@@ -21,7 +25,7 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_halo.cu``.
+see ``csrc/flash_halo.cu`` and ``csrc/flash_bwd_windowed.cu``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,16 @@ from __future__ import annotations
 import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
-from osufusion_tpu_torch.ops.flash_attention import HEAD_DIM, LN2, LOG2E, _check_operands, _kernel
+from osufusion_tpu_torch.ops.flash_attention import (
+    HEAD_DIM,
+    LN2,
+    LOG2E,
+    WindowedPrep,
+    _check_launch,
+    _check_operands,
+    _check_prep,
+    _kernel,
+)
 
 
 def slab_bounds(T: int, window: int, g0: int, t_global: int) -> tuple[int, int]:
@@ -93,27 +106,29 @@ def halo_bwd_dkv_reference(q, k, v, o, lse, do, window: int, g0: int, t_global: 
     return dk * LN2, dv
 
 
-def _check_halo(who: str, q, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int]:
-    """The kernels' operands: q and every tensor of ``rows`` (B, T, H, D)
-    bf16, k and v (B, T + window, D) bf16, every tensor of ``stats`` (B, T*H)
-    fp32, all contiguous on q's CUDA device; an even window, and a shard
-    inside the song. ``rows`` and ``stats`` hold (name, tensor) pairs.
-    Returns (B, T, H)."""
-    if q.ndim != 4 or k.ndim != 3:
-        raise ValueError(f"{who} wants q (B,T,H,D), k/v (B,T+window,D); got {tuple(q.shape)}, {tuple(k.shape)}")
-    B, T, H, D = q.shape
-    shapes = [(k, (B, T + window, D)), (v, (B, T + window, D)), *((t, q.shape) for _, t in rows),
+def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int]:
+    """The kernels' operands: every tensor of ``rows`` (B, T, H, D) bf16, the
+    first setting the shape, k and v (B, T + window, D) bf16, every tensor of
+    ``stats`` (B, T*H) fp32, all contiguous on the first row tensor's CUDA
+    device; an even window, and a shard inside the song. ``rows`` and
+    ``stats`` hold (name, tensor) pairs. Returns (B, T, H)."""
+    first = rows[0][1]
+    if first.ndim != 4 or k.ndim != 3:
+        raise ValueError(f"{who} wants {rows[0][0]} (B,T,H,D), k/v (B,T+window,D); got {tuple(first.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, T, H, D = first.shape
+    shapes = [(k, (B, T + window, D)), (v, (B, T + window, D)), *((t, first.shape) for _, t in rows),
               *((t, (B, T * H)) for _, t in stats)]
     if D != HEAD_DIM or any(t.shape != shape for t, shape in shapes):
-        raise ValueError(f"{who} shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} "
                          + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats))
                          + f" at window {window}; head dim must be {HEAD_DIM}")
     if window < 2 or window % 2 or not 0 <= g0 <= t_global - T:
         raise ValueError(f"{who}: window must be even and >= 2 and the shard [g0, g0 + T) inside the song; "
                          f"got window {window}, g0 {g0}, T {T}, t_global {t_global}")
     bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, q.device, (("q", q, bf16), ("k", k, bf16), ("v", v, bf16), *((n, t, bf16) for n, t in rows),
-                                    *((n, t, f32) for n, t in stats)))
+    _check_operands(who, first.device, (*((n, t, bf16) for n, t in rows), ("k", k, bf16), ("v", v, bf16),
+                                        *((n, t, f32) for n, t in stats)))
     return B, T, H
 
 
@@ -125,7 +140,7 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     """Launch the halo forward kernel on the current stream; returns (o (B, T,
     H, D) bf16, lse2 (B, T*H) fp32). Counts its launches in
     ``halo_fwd.launches``."""
-    B, T, H = _check_halo("halo_fwd", q, k, v, (), (), window, g0, t_global)
+    B, T, H = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
     err = _kernel("halo_fwd_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -140,39 +155,40 @@ halo_fwd.launches = 0
 
 
 def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale: float):
-    """Launch the halo dq kernel on the current stream. Returns (dq, delta):
-    dq (B, T, H, D) bf16 in q's rotated frame, written once per row (the same
-    bits from run to run), and ``delta = rowsum(do * o)`` (B, T*H) fp32, which
-    the library's entry point fills first and ``halo_bwd_dkv`` takes. Counts
-    its launches in ``halo_bwd_dq.launches``."""
-    B, T, H = _check_halo("halo_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), window, g0, t_global)
-    delta = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
+    """Launch the pre-pass and the halo dq kernel on the current stream.
+    Returns (dq, prep): dq (B, T, H, D) bf16 in q's rotated frame, written
+    once per row (the same bits from run to run), and the pre-pass's scratch
+    (``WindowedPrep``: qs = q * scale * log2(e) in bf16, the padded LSE,
+    delta = rowsum(do * o)), which ``halo_bwd_dkv`` takes. Counts its
+    launches in ``halo_bwd_dq.launches``."""
+    B, T, H = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
+                          window, g0, t_global)
+    prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
-    err = _kernel("halo_bwd_dq_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
-                                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                                      B, T, H, window, g0, t_global, scale, _stream(q))
-    if err:
-        raise RuntimeError(f"halo_bwd_dq kernel launch failed: CUDA error {err}")
+    err = _kernel("halo_bwd_dq_bf16")(
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        dq.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, scale, _stream(q))
+    _check_launch("halo_bwd_dq", err)
     halo_bwd_dq.launches += 1
-    return dq, delta
+    return dq, prep
 
 
 halo_bwd_dq.launches = 0
 
 
-def halo_bwd_dkv(q, k, v, lse, delta, do, window: int, g0: int, t_global: int, scale: float):
-    """Launch the halo dk/dv kernel on the current stream. Returns (dk, dv),
-    both (B, T + window, D) fp32 over the whole slab, halo rows included (zero
-    outside the song). Counts its launches in ``halo_bwd_dkv.launches``."""
-    B, T, H = _check_halo("halo_bwd_dkv", q, k, v, (("do", do),), (("lse", lse), ("delta", delta)),
-                          window, g0, t_global)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+def halo_bwd_dkv(k, v, do, prep: WindowedPrep, window: int, g0: int, t_global: int):
+    """Launch the halo dk/dv kernel on the current stream, on ``halo_bwd_dq``'s
+    scratch (no scale: qs carries it). Returns (dk, dv), both (B, T + window,
+    D) fp32 over the whole slab, halo rows included (zero outside the song),
+    each row written once. Counts its launches in ``halo_bwd_dkv.launches``."""
+    B, T, H = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
+    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=do.device)
     dv = torch.empty_like(dk)
-    err = _kernel("halo_bwd_dkv_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                       delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                       B, T, H, window, g0, t_global, scale, _stream(q))
-    if err:
-        raise RuntimeError(f"halo_bwd_dkv kernel launch failed: CUDA error {err}")
+    err = _kernel("halo_bwd_dkv_bf16")(
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, _stream(do))
+    _check_launch("halo_bwd_dkv", err)
     halo_bwd_dkv.launches += 1
     return dk, dv
 
@@ -222,8 +238,8 @@ def _halo_backward_rule(ctx, do, _dlse):
     if q.is_cuda:
         scale = q.shape[-1] ** -0.5
         do = do.contiguous()
-        dq, delta = halo_bwd_dq(q, k, v, o, lse, do, *ctx.frame, scale)
-        dk, dv = halo_bwd_dkv(q, k, v, lse, delta, do, *ctx.frame, scale)
+        dq, prep = halo_bwd_dq(q, k, v, o, lse, do, *ctx.frame, scale)
+        dk, dv = halo_bwd_dkv(k, v, do, prep, *ctx.frame)
     else:
         dq = halo_bwd_dq_reference(q, k, v, o, lse, do, *ctx.frame)
         dk, dv = halo_bwd_dkv_reference(q, k, v, o, lse, do, *ctx.frame)

@@ -88,7 +88,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"--opt-moments {cfg.train.opt_moments} is not ported yet (ROADMAP.md, queue 1: train/quant_opt.py)")
     if cfg.train.mixed_precision == "fp16":
-        raise NotImplementedError("fp16 training with its static loss scale is not ported yet (ROADMAP.md, queue 1, item 10e)")
+        raise NotImplementedError("fp16 training with its static loss scale is not ported yet (ROADMAP.md, queue 1, item 4)")
     if cfg.train.mixed_precision == "fp8" or cfg.model.quant != "none":
         raise NotImplementedError("fp8 training is not ported yet (ROADMAP.md, queue 1: ops/quant.py)")
     if cfg.train.mixed_precision not in ("no", "bf16"):
@@ -98,7 +98,7 @@ def check_supported(cfg: Config) -> None:
             "tensor parallelism (--mesh-model) is not ported yet (ROADMAP.md, queue 1: parallel/mesh.py param_shardings)")
     if cfg.train.mesh_data not in (-1, 1):
         raise NotImplementedError(
-            "data parallelism (--mesh-data) with ZeRO-1 is not ported yet (ROADMAP.md, queue 1, item 16)")
+            "data parallelism (--mesh-data) with ZeRO-1 is not ported yet (ROADMAP.md, queue 1, item 5)")
     if cfg.train.mesh_seq < 1:
         raise ValueError(f"--mesh-seq must be at least 1, got {cfg.train.mesh_seq}")
     if cfg.train.mesh_seq > 1 and cfg.model.backbone != "unet":

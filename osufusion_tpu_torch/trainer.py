@@ -101,7 +101,7 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
     check_supported(cfg)
     if cfg.train.sample_audio is not None:
         raise NotImplementedError(
-            "the periodic sample during training is not ported yet (ROADMAP.md, queue 1, item 12: sample_step with models/dpm.py)")
+            "the periodic sample during training is not ported yet (ROADMAP.md, queue 1, item 1: sample_step with models/dpm.py)")
     mode = cfg.train.dataset_mode
     bucket = min(D.BUCKET, max(64, cfg.train.segment_length))
     pad_to = D.process_invariant_pad(mode, cfg.train.segment_length, cfg.train.max_length) if mode == "dummy" else None
@@ -118,7 +118,7 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
     maybe_initialize(backend="gloo" if str(device) == "cpu" else None)
     if process_count() != cfg.train.mesh_seq:
         raise ValueError(f"--mesh-seq {cfg.train.mesh_seq} runs one process per shard, this run has {process_count()} "
-                         f"(data parallelism over more is not ported, ROADMAP.md queue 1, item 16): "
+                         f"(data parallelism over more is not ported, ROADMAP.md queue 1, item 5): "
                          f"torchrun --nproc-per-node {cfg.train.mesh_seq} -m osufusion_tpu_torch.trainer ...")
     shard = make_mesh(data=1, model=1, seq=cfg.train.mesh_seq).seq_shard()
     main = is_main_process()

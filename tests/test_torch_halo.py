@@ -155,5 +155,6 @@ def test_halo_kernel_wrappers_raise_on_cpu_tensors():
         ha.halo_fwd(q, k, v, 128, 0, T_SONG, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
         ha.halo_bwd_dq(q, k, v, q, stats, do, 128, 0, T_SONG, 0.125)
+    prep = fa.WindowedPrep(q.reshape(1, T_LOCAL * H, D), stats, stats)  # T_LOCAL * H is whole 128-row blocks
     with pytest.raises(ValueError, match="CUDA"):
-        ha.halo_bwd_dkv(q, k, v, stats, stats, do, 128, 0, T_SONG, 0.125)
+        ha.halo_bwd_dkv(k, v, do, prep, 128, 0, T_SONG)

@@ -260,10 +260,12 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
 # (B, T_local, H, window, shards, shard): the first, an interior and the last
 # of four shards; the largest halo (window / 2 == T_local); a window that no
 # tile divides at H = 3 and a T_local that is no multiple of 64; one shard
-# that is the whole song
+# that is the whole song; a first and a last shard whose halo holds whole
+# 64-key dk/dv blocks outside the song (window / 2 of 256 and 192 slab rows),
+# the last with T_local * H no multiple of the pre-pass's 128-row padding
 HALO_CASES = [(1, 256, 16, 128, 4, s) for s in range(4)] + [
     (1, 128, 16, 256, 4, 0), (1, 128, 16, 256, 4, 3), (2, 200, 3, 100, 3, 1), (2, 200, 3, 100, 3, 2),
-    (1, 300, 5, 64, 1, 0),
+    (1, 300, 5, 64, 1, 0), (1, 384, 16, 512, 4, 0), (2, 424, 5, 384, 4, 3),
 ]
 
 
@@ -282,8 +284,8 @@ def test_halo_kernels_match_plain(cuda, B, T, H, window, shards, shard):
     frame = (window, shard * T, shards * T)
     before = (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
     o, lse = ha.halo_fwd(q, k, v, *frame, 0.125)
-    dq, delta = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
-    dk, dv = ha.halo_bwd_dkv(q, k, v, lse, delta, do, *frame, 0.125)
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, *frame)
     torch.cuda.synchronize()
     assert (ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches) == tuple(n + 1 for n in before)
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, *frame)
@@ -296,8 +298,8 @@ def test_halo_kernels_match_plain(cuda, B, T, H, window, shards, shard):
     lo, hi = ha.slab_bounds(T, *frame)
     for grad in (dk, dv):  # the slab rows outside the song get no gradient at all
         assert not grad[:, :lo].any() and not grad[:, hi:].any()
-    dq2, delta2 = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
-    dk2, dv2 = ha.halo_bwd_dkv(q, k, v, lse, delta2, do, *frame, 0.125)
+    dq2, prep2 = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
+    dk2, dv2 = ha.halo_bwd_dkv(k, v, do, prep2, *frame)
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
@@ -324,8 +326,11 @@ def test_halo_kernels_reject_what_they_do_not_take(cuda):
         ha.halo_fwd(q.cpu(), k.cpu(), v.cpu(), 64, 0, 256, 0.125)
     with pytest.raises(ValueError, match="bfloat16"):
         ha.halo_bwd_dq(q, k, v, q, stats, do.float(), 64, 0, 256, 0.125)
+    prep = fa.WindowedPrep(q.reshape(1, 128 * 4, 64), stats, stats)
     with pytest.raises(ValueError, match="float32"):
-        ha.halo_bwd_dkv(q, k, v, stats, stats.bfloat16(), do, 64, 0, 256, 0.125)
+        ha.halo_bwd_dkv(k, v, do, prep._replace(delta=stats.bfloat16()), 64, 0, 256)
+    with pytest.raises(ValueError, match="shapes"):  # the LSE not padded to whole 128-row blocks
+        ha.halo_bwd_dkv(k, v, do, prep._replace(lse=stats[:, :-1]), 64, 0, 256)
     with pytest.raises(ValueError, match="shapes"):
         ha.halo_fwd(q, k[:, :-2], v[:, :-2], 64, 0, 256, 0.125)
     with pytest.raises(ValueError, match="even"):

@@ -240,7 +240,7 @@ def test_precision_modes_take_a_finite_step(precision):
     (["--mixed-precision", "fp8"], "fp8"),
     (["--opt-moments", "int8"], "quant_opt"),
     (["--mesh-model", "2"], "parallel"),
-    (["--mesh-data", "2"], "item 16"),
+    (["--mesh-data", "2"], "item 5"),
     (["--sample-audio", "song.wav"], "sample"),
     (["--model-backbone", "dit", "--mesh-seq", "2"], "dit"),  # the ring attention (K6) of its global sites
     (["--model-type", "rectified-flow"], "rectified"),
