@@ -6,7 +6,9 @@ Phases, each printed as it ends (with the seconds since the start); any
 failure raises and the exit code is not 0:
 
 1. Device: name, power limit, versions; build the flash kernels from
-   ``osufusion_tpu_torch/csrc`` with nvcc for sm_90a, all sources at once.
+   ``osufusion_tpu_torch/csrc`` with nvcc for sm_90a, all sources at once;
+   ptxas's report, one line per kernel instance (registers, bytes spilled),
+   failing on any spill or any C7512 (wgmma serialised) warning.
 2. Forward kernel vs its plain PyTorch version at the serving path's attention
    shapes (B=2 under CFG, H=16, D=64, bf16): relative L2 and largest error
    against their bounds, a planted fault that the bound must catch,
@@ -113,6 +115,7 @@ non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import io
@@ -229,9 +232,44 @@ def phase_device() -> tuple[str, str]:
     torch.backends.cudnn.allow_tf32 = False
     _log("[device] fp32 matmul and cuDNN conv TF32: off")
     t0 = time.perf_counter()
-    libs = build_kernels(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        libs = build_kernels(verbose=True)
+    print(report.getvalue(), end="", flush=True)
     _log(f"[build] {', '.join(lib.name for lib in libs.values())} (nvcc, sm_90a) ready in {time.perf_counter() - t0:.2f} s")
+    _check_ptxas(report.getvalue())
     return name, smi
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name with its bool template arguments, from ptxas's
+    mangled one (every kernel of ``csrc/`` takes only bools)."""
+    found = re.search(r"([a-z][a-z_]*_kernel)(I(?:Lb[01]E)+E)?", mangled)
+    if found is None:
+        return mangled
+    args = re.findall(r"Lb([01])E", found.group(2) or "")
+    return found.group(1) + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>" if args else "")
+
+
+def _check_ptxas(report: str) -> None:
+    """One line per kernel instance from ptxas's report (registers,
+    spills); raise on any spill or any C7512 (wgmma serialised) warning.
+    Libraries already built leave no report to read."""
+    instances = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = _kernel_name(chunk.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        instances.append((name, int(regs.group(1)) if regs else -1, sum(map(int, spill.groups())) if spill else -1))
+    if not instances:
+        _log("[build] ptxas: no report (the libraries were built before this run)")
+        return
+    _log("[build] ptxas: " + "; ".join(f"{n} {r} registers, {b} B spilled" for n, r, b in instances))
+    serialised = sorted({_kernel_name(m) for m in re.findall(r"C7512\).*?function '(\S+?)'", report)})
+    spilled = [n for n, _, b in instances if b != 0]
+    if spilled or "C7512" in report:
+        raise AssertionError(f"ptxas: spills in {spilled}; C7512 (wgmma serialised): "
+                             f"{serialised or ('in a kernel' if 'C7512' in report else 'none')}")
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -1647,7 +1685,6 @@ def main() -> int:
     fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
                   "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
     windowed_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu"}
-    halo_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_halo.cu"}  # K4; K5a/K5b: windowed_source
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
         {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
@@ -1658,7 +1695,7 @@ def main() -> int:
          "launches": fullsong["backward_dq"], **bwd_dq},
         {"name": "flash_bwd_dkv", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:507",
          "launches": fullsong["backward_dkv"], **bwd_dkv},
-        {"name": "halo_fwd", **halo_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:938",
+        {"name": "halo_fwd", **fwd_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:938",
          "launches": seq["halo_fwd"], **halo_fwd},
         {"name": "halo_bwd_dq", **windowed_source, "replaces": "osufusion_tpu/ops/pallas_attention.py:1054",
          "launches": seq["halo_bwd_dq"], **halo_dq},

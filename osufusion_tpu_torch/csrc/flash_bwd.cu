@@ -45,7 +45,7 @@
 //     computes S^T = K qs^T and dP^T = V do^T (wgmma, keys as M, both
 //     operands in shared memory), so P^T and dS^T come out in registers
 //     already as the A operand of dV += P^T do and dK += dS^T qs (no
-//     shared-memory round trip, no ldmatrix.trans). dS^T goes to shared
+//     shared-memory round trip, no transposing loads). dS^T goes to shared
 //     memory once; then one warpgroup, the two taking turns tile by tile,
 //     computes dQ = dS K over all 128 keys (wgmma m64n64, dS read MN-major)
 //     and adds it into the fp32 buffer with red.global (atomicAdd of float2):

@@ -4,24 +4,25 @@
 // Replaces osufusion_tpu/ops/pallas_attention.py::_dq_kernel and ::_dkv_kernel
 // (both launched by _flash_bwd), the backward of a sliding-window site, and
 // ::_halo_dq_kernel and ::_halo_dkv_kernel (both launched by _halo_flash_bwd),
-// the backward of flash_halo.cu's forward in sequence-parallel training. The
-// two pairs compute the same thing in two frames of the keys (template
-// argument HALO, the frame's numbers in a KeyFrame):
+// the backward of the halo forward (flash_fwd.cu's HALO instance) in
+// sequence-parallel training. The two pairs compute the same thing in two
+// frames of the keys (template argument HALO, the frame's numbers in a
+// KeyFrame of key_frame.cuh):
 //  * single device (HALO = false): key s is attended by query t iff |t - s| <=
 //    window / 2 (integer half, the forward's rule; window < 0: every key);
 //    q arrives raw with the cos/sin tables, k rotated.
 //  * halo (HALO = true): a rank's T local queries against a slab of S = T + W
 //    keys whose row s is the single-device key s - W/2, so t sees s iff
 //    |t - (s - W/2)| <= W/2, and only the slab rows [lo, hi) inside the song
-//    exist (flash_halo.cu's frame: lo = max(0, W/2 - g0), hi = min(S,
+//    exist (key_frame.cuh's halo_frame: lo = max(0, W/2 - g0), hi = min(S,
 //    t_global - g0 + W/2)). q arrives rotated (no tables; dq stays in its
 //    frame), k rotated. Slab rows outside the song get dk = dv = 0.
 //
 // Inputs: q (B, T, H, D) bf16, k and v (B, S, D) bf16, do and o (B, T, H, D)
 // bf16, lse2 (B, T*H) fp32 (the base-2 log-sum-exp that the forward wrote).
 // With qs = q_rot * scale * log2(e) in bf16 (rope_qs.cuh, the forward's bits:
-// flash_fwd.cu's, and flash_halo.cu's stage_scaled, which rounds the same
-// product the same way), p = exp2(qs k_rot^T - lse2) is the forward's
+// flash_fwd.cu stages q with the same function in both frames), p = exp2(qs
+// k_rot^T - lse2) is the forward's
 // probability; a masked key gets p = 0 outright. With ds = p (do v^T - delta),
 // delta = rowsum(do * o):
 //   dq_rot = scale * ds k_rot      un-rotated in registers (halo: not), bf16 out
@@ -86,6 +87,7 @@
 
 #include "flash_bwd_prep.cuh"
 #include "hopper.cuh"
+#include "key_frame.cuh"
 
 namespace {
 
@@ -130,13 +132,6 @@ constexpr float LN2 = 0.6931471805599453f;
 
 static_assert(DQ_BM % ROW_TILE == 0 && DQ_BM % KV_BM == 0, "the row padding serves both kernels' tiles");
 
-// The halo frame's keys (read only where HALO): key s sits at s - off on the
-// queries' diagonal, and only keys in [lo, hi) exist. The single-device frame
-// is {0, 0, S}, fixed at compile time.
-struct KeyFrame {
-  int off, lo, hi;
-};
-
 template <bool HALO>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
@@ -159,13 +154,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
   const int r0 = blockIdx.x * DQ_BM;
   const bool local = window >= 0;
   const int w2 = window / 2;
-  const int off = HALO ? frame.off : 0, key_lo = HALO ? frame.lo : 0, key_hi = HALO ? frame.hi : S;
+  const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
+  const int off = kf.off, key_hi = kf.hi;
   const int t_lo = r0 / H;
   const int t_hi = (min(r0 + DQ_BM, rows) - 1) / H;
-  // the keys the block's rows see; every row sees one (a halo row: its own frame, inside the song)
-  const int kv_lo = local ? max(key_lo, t_lo + off - w2) : key_lo;
-  const int kv_hi = local ? min(key_hi, t_hi + off + w2 + 1) : key_hi;
-  const int n_tiles = (kv_hi - kv_lo + DQ_BN - 1) / DQ_BN;
+  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
+  const int kv_lo = span.lo;
+  const int n_tiles = (span.hi - kv_lo + DQ_BN - 1) / DQ_BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -209,13 +204,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
   // the rows' statistics; the scratch is padded to whole blocks, a pad row has lse = +inf
   const float lse_r[2] = {lse_g[(size_t)b * pad + row_a], lse_g[(size_t)b * pad + row_b]};
   const float delta_r[2] = {delta_g[(size_t)b * pad + row_a], delta_g[(size_t)b * pad + row_b]};
-  // the keys each of the two rows sees, [vis_lo, vis_lo + vis_n]: its window within [key_lo, key_hi), so that
-  // an edge tile masks with one unsigned compare a key (a pad row may get an empty range: its p is 0 anyway)
+  // the keys each of the two rows sees, [vis_lo, vis_lo + vis_n]: its window within the keys that exist, so
+  // that an edge tile masks with one unsigned compare a key (a pad row may get an empty range: its p is 0 anyway)
   int vis_lo[2], vis_n[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    vis_lo[i] = local ? max(key_lo, tr[i] + off - w2) : key_lo;
-    vis_n[i] = (local ? min(key_hi, tr[i] + off + w2 + 1) : key_hi) - 1 - vis_lo[i];
+    const KeySpan seen = keys_seen(kf, local, w2, tr[i], tr[i]);
+    vis_lo[i] = seen.lo;
+    vis_n[i] = seen.hi - 1 - seen.lo;
   }
   const uint64_t qdesc = desc_kmajor(Qs + wg * 64 * D);
   const uint64_t odesc = desc_kmajor(Os + wg * 64 * D);
@@ -382,7 +378,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_cons
   const int s0 = blockIdx.x * KV_BN;
   const bool local = window >= 0;
   const int w2 = window / 2;
-  const int off = HALO ? frame.off : 0, key_lo = HALO ? frame.lo : 0, key_hi = HALO ? frame.hi : S;
+  const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
+  const int off = kf.off, key_lo = kf.lo, key_hi = kf.hi;
   const int s_last = min(S, s0 + KV_BN) - 1;
   // the block's keys that exist, [k_lo, k_hi], and the rows whose window
   // reaches them, from a whole tile on (16-byte aligned for the bulk copies;
@@ -609,13 +606,6 @@ int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int B) {
   const cuuint64_t strides[2] = {D * 2, (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {D, ROW_TILE, 1};
   return make_map_bf16(map, 3, ptr, dims, strides, box);
-}
-
-// The halo frame of a launch (flash_halo.cu's make_frame): slab row s is the
-// single-device key s - W/2, the rows [lo, hi) lie inside the song
-KeyFrame halo_frame(int T, int window, int g0, int t_global) {
-  const int w2 = window / 2, lo = w2 - g0, hi = t_global - g0 + w2;
-  return {w2, lo > 0 ? lo : 0, hi < T + window ? hi : T + window};
 }
 
 // The dq kernel of either frame over S keys: tensor maps, shared memory, launch

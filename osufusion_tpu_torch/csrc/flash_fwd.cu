@@ -1,9 +1,21 @@
 // Flash-attention forward with fused q-RoPE, for Hopper (sm_90a): MQA, GQA
-// and full MHA, windowed or global.
+// and full MHA, windowed or global, on one device or in the halo frame of
+// sequence parallelism.
 //
 // Replaces osufusion_tpu/ops/pallas_attention.py::_fwd_kernel (launched by
-// _flash_fwd), in its serving, training and DiT/MMDiT forms. Semantics: key s
-// is attended by query t iff |t - s| <= window / 2 (window < 0: every key).
+// _flash_fwd), in its serving, training and DiT/MMDiT forms, and
+// ::_halo_fwd_kernel (launched by _halo_flash_fwd), the forward of
+// sequence-parallel training. One body serves both, in two frames of the keys
+// (template argument HALO, the frame's numbers in a KeyFrame of
+// key_frame.cuh), as the windowed backward pair does (flash_bwd_windowed.cu):
+//  * single device (HALO = false, the frame {0, 0, S} fixed at compile
+//    time): key s is attended by query t iff |t - s| <= window / 2 (window <
+//    0: every key).
+//  * halo (HALO = true, MQA, no tables): a rank's T local queries, already
+//    rotated, against a slab of S = T + W keys whose row s is the
+//    single-device key s - W/2, so t sees s iff |t - (s - W/2)| <= W/2 and lo
+//    <= s < hi: only the slab rows inside the song exist (halo_frame). The
+//    rows past hi hold real memory, so the mask tests hi, never S.
 // With tables, q arrives raw and is rotated here and k arrives already
 // rotated; without them (DiT/MMDiT: null tables) q is only scaled. The output
 // is softmax(q k^T * scale) v, query head h reading KV head h / G (G = H / Kv
@@ -28,21 +40,29 @@
 //    timesteps of one head. The grid's second axis runs over (batch, KV head).
 //  * Warp roles. Two consumer warpgroups own 64 rows each; one producer warp
 //    streams the KV tiles (BN = 128 keys of the block's KV head) that
-//    intersect [t_lo - w/2, t_hi + w/2] by TMA into a ring of NSTAGE stages
-//    behind full / empty mbarriers. k and v are read through a 4-d tensor map
-//    (D, Kv, S, B), so keys past S arrive as zeros.
+//    intersect [t_lo - w/2, t_hi + w/2] (halo: shifted by W/2 and clipped to
+//    [lo, hi), so the first box may start anywhere) by TMA into a ring of
+//    NSTAGE stages behind full / empty mbarriers. k and v are read through a
+//    4-d tensor map (D, Kv, S, B), so keys past S arrive as zeros.
 //  * q. Each consumer warpgroup rotates its 64 rows once, in fp32 with the
 //    arithmetic of rope_qs.cuh (scale * log2(e) folded in), and stores them
 //    in the 128-byte swizzle that wgmma reads (hopper.cuh), then fences the
 //    async proxy: the logits are qs k_rot^T with the bits of qs that the
-//    windowed backward (flash_bwd_windowed.cu) stages.
+//    windowed backward's pre-pass (flash_bwd_prep.cuh) stages in either
+//    frame, so the backward recomputes this kernel's p from its LSE.
 //  * Products. S = qs K^T is wgmma m64n128k16 with both operands in shared
 //    memory (fp32 accumulators, 64 a thread). P, rounded to bf16, stays in
 //    registers as the A operand of O += P V (wgmma m64n64k16, V read
 //    MN-major): no shared-memory round trip.
 //  * Softmax. Online, fp32, exp2 domain, the row statistics shared by the four
-//    threads of a quad. Only tiles at the edge of the window or past S are
-//    masked, and a row that has seen no key yet keeps a zero base.
+//    threads of a quad; each exp2 is the special-function unit's instruction
+//    alone (hopper.cuh's exp2_ftz: exp2f added a compare and two multiplies
+//    to each). Only tiles at the edge of the window or past the last key
+//    that exists (S; halo: hi) are masked, each key of them with one unsigned
+//    compare against the keys its row sees (the short-circuit test `key < S
+//    && |t - key| <= w/2` was slower at the windowed sites and no faster at
+//    the others), and a row that has seen no key yet keeps a zero base.
+//    Every real row sees at least one key.
 //  * Overlap. Each warpgroup issues tile j's scores and tile j-1's P V
 //    together and waits only for the scores, so its softmax of tile j runs
 //    while the tensor cores do the P V; O is rescaled after. The two
@@ -50,13 +70,15 @@
 //    overlaps the other's products. A stage is released once its P V is done;
 //    NSTAGE = 4 keeps two tiles loading ahead of the two in use.
 //
-// C ABI (loaded with ctypes): flash_fwd_bf16 returns a cudaError_t, or minus
-// the CUresult of a TMA descriptor that failed to encode; lse may
-// be null, and cos_t / sin_t are null together or not at all.
+// C ABI (loaded with ctypes): flash_fwd_bf16 and halo_fwd_bf16 return a
+// cudaError_t, or minus the CUresult of a TMA descriptor that failed to
+// encode; flash_fwd_bf16's lse may be null, and cos_t / sin_t are null
+// together or not at all.
 
 #include <math.h>
 
 #include "hopper.cuh"
+#include "key_frame.cuh"
 #include "rope_qs.cuh"
 
 namespace {
@@ -72,12 +94,13 @@ constexpr int TILE_BYTES = BN * D * 2;
 constexpr int SMEM_BYTES = 1024 + Q_BYTES + 2 * NSTAGE * TILE_BYTES + 2 * NSTAGE * 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <bool GROUPED, bool ROPE>
+template <bool GROUPED, bool ROPE, bool HALO>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const __nv_bfloat16* __restrict__ q, const float* __restrict__ cos_t,
                  const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
-                 int S, int H, int Kv, int window, float scale) {
+                 int S, int H, int Kv, int window, float scale, KeyFrame frame) {
+  static_assert(!HALO || (!GROUPED && !ROPE), "the halo frame is MQA with q already rotated");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);               // [BM][D], swizzled
@@ -91,13 +114,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   const int G = GROUPED ? H / Kv : H;  // heads of the group: its rows are T*G
   const int rows = T * G;
   const int r0 = blockIdx.x * BM;
-  const bool local = window >= 0;
+  const bool local = HALO || window >= 0;
   const int w2 = window / 2;
+  const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
   const int t_lo = r0 / G;
   const int t_hi = (min(r0 + BM, rows) - 1) / G;
-  const int kv_lo = local ? max(0, t_lo - w2) : 0;
-  const int kv_hi = local ? min(S, t_hi + w2 + 1) : S;
-  const int n_tiles = (kv_hi - kv_lo + BN - 1) / BN;
+  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
+  const int kv_lo = span.lo;
+  const int n_tiles = (span.hi - kv_lo + BN - 1) / BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -155,7 +179,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   const uint64_t qdesc = desc_kmajor(Qw);
   const int row_a = r0 + wg * 64 + (warp % 4) * 16 + g;
   const int row_b = row_a + 8;
-  const int tr[2] = {row_a / G, row_b / G};  // timesteps of the thread's two rows
+  // the keys each of the thread's two rows sees, vis_n of them from vis_lo on (none for a pad row past the
+  // keys), so that an edge tile masks a key with one unsigned compare
+  int vis_lo[2], vis_n[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = (i == 0 ? row_a : row_b) / G;
+    const KeySpan seen = keys_seen(kf, local, w2, t, t);
+    vis_lo[i] = seen.lo;
+    vis_n[i] = max(seen.hi - seen.lo, 0);
+  }
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
@@ -169,16 +202,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   // mask the logits of tile `it` and fold them into the online softmax:
   // s becomes p = exp2(s - base), corr the factor that moves O to the new base
   auto softmax = [&](int it) {
-    const int s0 = kv_lo + it * BN;
-    const bool interior = s0 + BN <= S && (!local || (s0 >= t_hi - w2 && s0 + BN - 1 <= t_lo + w2));
+    const int s0 = kv_lo + it * BN;  // >= kf.lo
+    const bool interior =
+        s0 + BN <= kf.hi && (!local || (s0 - kf.off >= t_hi - w2 && s0 - kf.off + BN - 1 <= t_lo + w2));
     if (!interior) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = s0 + i * 8 + 2 * tq + (e & 1);
-          const bool ok = key < S && (!local || abs(tr[e >> 1] - key) <= w2);
-          if (!ok) s[4 * i + e] = -INFINITY;
+          if ((unsigned)(key - vis_lo[e >> 1]) >= (unsigned)vis_n[e >> 1]) s[4 * i + e] = -INFINITY;
         }
       }
     }
@@ -195,16 +228,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet stays at zero
-      corr[r] = exp2f(m[r] - base[r]);
+      corr[r] = exp2_ftz(m[r] - base[r]);
       m[r] = mx[r];
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
-      s[4 * i] = exp2f(s[4 * i] - base[0]);
-      s[4 * i + 1] = exp2f(s[4 * i + 1] - base[0]);
-      s[4 * i + 2] = exp2f(s[4 * i + 2] - base[1]);
-      s[4 * i + 3] = exp2f(s[4 * i + 3] - base[1]);
+      s[4 * i] = exp2_ftz(s[4 * i] - base[0]);
+      s[4 * i + 1] = exp2_ftz(s[4 * i + 1] - base[0]);
+      s[4 * i + 2] = exp2_ftz(s[4 * i + 2] - base[1]);
+      s[4 * i + 3] = exp2_ftz(s[4 * i + 3] - base[1]);
       rs[0] += s[4 * i] + s[4 * i + 1];
       rs[1] += s[4 * i + 2] + s[4 * i + 3];
     }
@@ -300,6 +333,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   }
 }
 
+// The kernel of one instance over S keys in `frame`: tensor maps, shared memory, launch
+template <bool GROUPED, bool ROPE, bool HALO>
+int launch_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o, void* lse,
+               int B, int T, int S, int H, int Kv, int window, float scale, KeyFrame frame, void* stream) {
+  static std::atomic<unsigned long long> smem_set{0};  // devices whose limit is raised
+  auto kernel = flash_fwd_kernel<GROUPED, ROPE, HALO>;
+  CUtensorMap kmap, vmap;
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = make_kv_map(&kmap, k, B, S, Kv, BN);
+  if (err == 0) err = make_kv_map(&vmap, v, B, S, Kv, BN);
+  if (err == 0) err = allow_smem(kernel, SMEM_BYTES, dev, smem_set);
+  if (err != 0) return err;
+  const dim3 grid((T * (H / Kv) + BM - 1) / BM, B * Kv);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, Kv, window,
+      scale, frame);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Kv KV heads (H % Kv == 0, checked by the caller); cos_t and sin_t null for
@@ -307,21 +361,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
                               void* o, void* lse, int B, int T, int S, int H, int Kv, int window, float scale,
                               void* stream) {
-  const bool rope = cos_t != nullptr;
-  auto kernel = Kv > 1 ? (rope ? flash_fwd_kernel<true, true> : flash_fwd_kernel<true, false>)
-                       : (rope ? flash_fwd_kernel<false, true> : flash_fwd_kernel<false, false>);
-  static std::atomic<unsigned long long> smem_set[4];  // per instance: devices whose limit is raised
-  CUtensorMap kmap, vmap;
-  int dev;
-  int err = bind_device(&dev);
-  if (err == 0) err = make_kv_map(&kmap, k, B, S, Kv, BN);
-  if (err == 0) err = make_kv_map(&vmap, v, B, S, Kv, BN);
-  if (err == 0) err = allow_smem(kernel, SMEM_BYTES, dev, smem_set[(Kv > 1) * 2 + rope]);
-  if (err != 0) return err;
-  const dim3 grid((T * (H / Kv) + BM - 1) / BM, B * Kv);
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), T, S, H, Kv, window,
-      scale);
-  return (int)cudaGetLastError();
+  const KeyFrame frame{0, 0, S};  // unread: the single-device instances fix it at compile time
+  auto launch = Kv > 1 ? (cos_t != nullptr ? launch_fwd<true, true, false> : launch_fwd<true, false, false>)
+                       : (cos_t != nullptr ? launch_fwd<false, true, false> : launch_fwd<false, false, false>);
+  return launch(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, window, scale, frame, stream);
+}
+
+// The halo forward: q (B, T, H, 64) already rotated, the slab k (rotated) and
+// v (B, T + window, 64), the Kv = 1 view of the maps; o and the LSE as
+// flash_fwd_bf16 writes them. window even, the shard [g0, g0 + T) inside a
+// song of t_global frames (checked by the wrapper).
+extern "C" int halo_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T, int H,
+                             int window, int g0, int t_global, float scale, void* stream) {
+  return launch_fwd<false, false, true>(q, k, v, nullptr, nullptr, o, lse, B, T, T + window, H, 1, window, scale,
+                                        halo_frame(T, window, g0, t_global), stream);
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): mbarriers, TMA loads, wgmma shared-memory descriptors and
-// products, and the host-side encoding of TMA tensor maps.
+// flash_bwd.cu, flash_bwd_windowed.cu): mbarriers, TMA loads, wgmma
+// shared-memory descriptors and products, the softmax's exp2, and the
+// host-side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 bytes) in the 128-byte swizzle
 // that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): the 16-byte chunk c of row r
@@ -41,6 +42,16 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit alone (ex2.approx.ftz): exp2f wraps the
+// same instruction in a range test and two multiplies that keep denormal
+// results; a probability below 2^-126 adds nothing to a row sum of at least
+// 1. -inf gives +0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // element offset of (row r, 16-byte chunk c) in a 128-byte-swizzled tile of 64-wide rows
@@ -166,13 +177,14 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// The products: D is a 64-row fp32 accumulator spread over the warpgroup as
-// mma.sync's is over its warp (warp w of the group: rows 16w + lane / 4 and
-// + 8; register 4i + e at column 8i + 2(lane % 4) + e, + 2 for the second
-// row). TA / TB = 1 reads A / B MN-major. scale_d = 0 overwrites D. The A
-// fragment of a 16-wide K step (wgmma_rs) is that accumulator layout of 16
-// columns packed to bf16: registers 8j..8j+7 of an accumulator give the A
-// fragment of its columns 16j..16j+15 (a_frag).
+// The products: D is a 64-row fp32 accumulator spread over the warpgroup,
+// each warp holding 16 rows as a warp-level m16n8 product's accumulator does
+// (warp w of the group: rows 16w + lane / 4 and + 8; register 4i + e at
+// column 8i + 2(lane % 4) + e, + 2 for the second row). TA / TB = 1 reads A /
+// B MN-major. scale_d = 0 overwrites D. The A fragment of a 16-wide K step
+// (wgmma_rs) is that accumulator layout of 16 columns packed to bf16:
+// registers 8j..8j+7 of an accumulator give the A fragment of its columns
+// 16j..16j+15 (a_frag).
 // D (64 x 128, fp32) {+}= A (64 x 16) B (16 x 128), both from shared memory
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {

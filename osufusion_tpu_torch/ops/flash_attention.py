@@ -34,10 +34,10 @@ behind mbarriers from a producer warp or warpgroup, and warpgroups run every
 product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
 softmax stays in fp32 registers in the exp2 domain and only edge tiles are
 masked. Both backward paths start with one pre-pass that rotates and scales
-q once (``csrc/flash_bwd_prep.cuh``). The halo backward of sequence
-parallelism (``ops/halo_attention.py``) is the windowed pair in the halo
-frame, behind the same pre-pass; only the halo forward still uses
-``mma.sync`` and ``cp.async`` (``csrc/flash_bwd_common.cuh``).
+q once (``csrc/flash_bwd_prep.cuh``). The halo kernels of sequence
+parallelism (``ops/halo_attention.py``) are the same bodies in the halo frame
+(``csrc/key_frame.cuh``): the forward is ``csrc/flash_fwd.cu``'s HALO
+instance, the backward the windowed pair's, behind the same pre-pass.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
@@ -66,7 +66,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # library name -> source; each becomes a shared library of its own
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "flash_halo")}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -128,7 +128,7 @@ _ENTRY_POINTS = {
     # k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # q k v o lse | B T H window g0 t_global | scale | stream
-    "halo_fwd_bf16": ("flash_halo", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "halo_fwd_bf16": ("flash_fwd", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
     "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream

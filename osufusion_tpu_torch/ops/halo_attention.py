@@ -4,13 +4,15 @@ the wrappers of its CUDA kernels, the differentiable op that joins them, and
 their plain PyTorch versions.
 
 ``halo_fwd`` replaces ``osufusion_tpu/ops/pallas_attention.py::_halo_fwd_kernel``
-(launched by ``_halo_flash_fwd``; ``csrc/flash_halo.cu``); ``halo_bwd_dq`` and
-``halo_bwd_dkv`` replace ``_halo_dq_kernel`` and ``_halo_dkv_kernel``
-(launched by ``_halo_flash_bwd``): the windowed backward pair of
+(launched by ``_halo_flash_fwd``): the flash forward of ``csrc/flash_fwd.cu``
+in the halo frame. ``halo_bwd_dq`` and ``halo_bwd_dkv`` replace
+``_halo_dq_kernel`` and ``_halo_dkv_kernel`` (launched by
+``_halo_flash_bwd``): the windowed backward pair of
 ``csrc/flash_bwd_windowed.cu`` in the halo frame, after the windowed pair's
 pre-pass without tables (``flash_attention.windowed_prep``), which
 ``halo_bwd_dq`` launches first and which writes qs, delta and the padded LSE
-once for both.
+once for both. The frame's numbers are computed once in C++
+(``csrc/key_frame.cuh``), as ``slab_bounds`` computes them here.
 
 The halo frame: a rank holds T local query rows, global frames g0 .. g0+T-1,
 and a slab of S = T + W keys whose row s is global frame g0 - W/2 + s (the
@@ -25,7 +27,7 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_halo.cu`` and ``csrc/flash_bwd_windowed.cu``.
+see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``.
 """
 
 from __future__ import annotations
@@ -145,8 +147,7 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
     err = _kernel("halo_fwd_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                                    B, T, H, window, g0, t_global, scale, _stream(q))
-    if err:
-        raise RuntimeError(f"halo_fwd kernel launch failed: CUDA error {err}")
+    _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
     return o, lse
 

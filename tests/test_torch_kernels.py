@@ -303,6 +303,42 @@ def test_halo_kernels_match_plain(cuda, B, T, H, window, shards, shard):
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+# (B, T_local, H, window, shards, shard) whose slab holds rows outside the song
+# at its start, at its end, at both (one shard is the whole song), and with
+# T_local * H no multiple of the forward's 128-row blocks
+SLAB_GARBAGE_CASES = [(1, 256, 16, 128, 4, 0), (1, 256, 16, 128, 4, 3), (1, 300, 5, 64, 1, 0), (2, 424, 5, 384, 4, 3)]
+GARBAGE = 30.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,window,shards,shard", SLAB_GARBAGE_CASES)
+def test_halo_kernels_ignore_large_slab_rows_outside_the_song(cuda, B, T, H, window, shards, shard):
+    """The slab rows outside the song hold real memory (TMA zero-fills only
+    past the slab): filled with a large value, a kernel that reads one of
+    them misses the plain version by far more than the bound."""
+    q, k, v, do = _halo_inputs(B, T, H, window, cuda, seed=7 + shard)
+    frame = (window, shard * T, shards * T)
+    lo, hi = ha.slab_bounds(T, *frame)
+    assert lo > 0 or hi < T + window
+    for t in (k, v):
+        t[:, :lo] = GARBAGE
+        t[:, hi:] = GARBAGE
+    o, lse = ha.halo_fwd(q, k, v, *frame, 0.125)
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, 0.125)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, *frame)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, *frame)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel(o, o_ref) < REL_TOL and (lse - lse_ref).abs().max().item() < LSE_TOL
+    dq_ref = ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, *frame)
+    assert _rel(dq, dq_ref) < REL_TOL, f"dq: rel L2 {_rel(dq, dq_ref)}"
+    for grad in (dk, dv):
+        assert not grad[:, :lo].any() and not grad[:, hi:].any()
+    # the frame (window, window / 2, T + window) admits every slab row: the fault this case must catch
+    o_all, _ = ha.halo_fwd_reference(q, k, v, window, window // 2, T + window)
+    assert _rel(o_all, o_ref) > 10 * REL_TOL
+
+
 @pytest.mark.cuda
 def test_halo_op_under_a_gradient_runs_the_halo_kernels(cuda):
     B, T, H, window = 1, 256, 16, 128
