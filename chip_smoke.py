@@ -107,6 +107,27 @@ failure raises and the exit code is not 0:
     windowed GQA site, run once per KV head through the windowed forward with
     its LSE and the windowed dq / dkv pair: 2 x 39 launches of each of the
     pair per step, and a finite loss.
+18. The ring (K6), the global attention of sequence-parallel training, at
+    DiT's site (B=4, T_local=2048, H=Kv=8), MMDiT's (B=4, 1024 packed
+    tokens a rank, H=8, Kv=2) and the UNet crop's level 0 (B=4,
+    T_local=2048, H=16, Kv=1, rotary tables), each over 2 and 4 shards of
+    one sequence run as threads of this process (``LocalRing``): every
+    shard's ring forward (K1 per hop and ``ring_merge``) and backward (one
+    pre-pass, an accumulating sweep per hop, one post-pass) against the same
+    ring through the plain parts, two planted faults above the bounds (the
+    second hop left out of the merge; the second sweep storing instead of
+    adding); at 2 shards one rank's forward and backward, the merge, one
+    sweep, the pre-pass and the post-pass timed alone, the bound, and
+    ``scaled_dot_product_attention`` of the rank's queries against the
+    gathered keys as the yardstick.
+19. Ring training: ``trainer.train`` in two processes (``--mesh-seq 2``,
+    sharing the card over gloo where there is one) for DiT and MMDiT at
+    phase 15's cell and the UNet at phase 8's (dim_h=512, B=4, T=4096, every
+    site global), each one step with a save and a resume for a second: step
+    1's loss against the one-card trainer's (phases 8 and 15), the ranks
+    alike, the ring's launches per step as the sites imply (K1 and the merge
+    twice a site, the pre-pass and the post-pass once, the sweep twice), no
+    whole-sequence gather, peak memory per rank.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -890,10 +911,10 @@ def _train_with_resume(cfg, steps: int, label: str, final: str = "final_conv/ker
     return history, launches, peak
 
 
-def phase_train(workdir: Path) -> tuple[int, int]:
+def phase_train(workdir: Path) -> tuple[int, int, tuple]:
     """The trainer at the production cell, 4 steps per remat mode, without
     remat across a save and a resume half way; returns (forward-with-LSE,
-    backward) launches."""
+    backward) launches and step 1's (loss, grad_norm) without remat."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
 
     steps, half = 4, 2
@@ -909,6 +930,7 @@ def phase_train(workdir: Path) -> tuple[int, int]:
         )
         sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
         history, launches, peak = _train_with_resume(cfg, steps, f"train {remat}")
+        first = (history[0]["loss"], history[0]["grad_norm"]) if remat == "none" else first
         totals[0] += launches["forward_lse"]
         totals[1] += launches["backward_fused"]
         seconds = [h["seconds"] for h in history[1:]]
@@ -920,7 +942,7 @@ def phase_train(workdir: Path) -> tuple[int, int]:
                     "forward_grouped": 0, "backward_grouped": 0}
         if launches != expected:
             raise AssertionError(f"train {remat}: launches {launches}, expected {expected}")
-    return totals[0], totals[1]
+    return totals[0], totals[1], first
 
 
 # remat plan -> (steps, attention forwards that its backward runs again, per
@@ -1567,10 +1589,10 @@ def phase_transformer_grad_check(backbone: str, B: int = 2, T: int = 4096) -> No
         raise AssertionError(f"gradient check {backbone} launched {launches}, expected {expected}")
 
 
-def phase_transformer_train(backbone: str, workdir: Path) -> dict:
+def phase_transformer_train(backbone: str, workdir: Path) -> tuple[dict, tuple]:
     """The trainer at the transformer cell, 4 steps with a save and a resume
     half way, without and with block remat; returns the launches of both runs
-    together."""
+    together and step 1's (loss, grad_norm) without remat."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
@@ -1588,6 +1610,7 @@ def phase_transformer_train(backbone: str, workdir: Path) -> dict:
         # MMDiT's output layer and the projection before it both start at zero: only the last bias can move
         history, launches, peak = _train_with_resume(cfg, steps, f"train {backbone}",
                                                      final="out/bias" if backbone == "mmdit" else "postprocess/kernel")
+        first = (history[0]["loss"], history[0]["grad_norm"]) if not remat else first
         seconds = [h["seconds"] for h in history[1:]]
         s_step = statistics.median(seconds)
         mfu = 3 * flops(cfg.model, B, T) / s_step / PEAK_FLOPS
@@ -1605,7 +1628,7 @@ def phase_transformer_train(backbone: str, workdir: Path) -> dict:
             raise AssertionError(f"train {backbone}: launches {launches}, expected {expected}")
         for key, n in launches.items():
             totals[key] = totals.get(key, 0) + n
-    return totals
+    return totals, first
 
 
 def phase_serve_dit(workdir: Path) -> int:
@@ -1635,6 +1658,464 @@ def phase_serve_dit(workdir: Path) -> int:
     return launches["forward_grouped"]
 
 
+# the ring (K6; phase 18): (label, B, T_local, H, Kv, rotary tables) at DiT's
+# site, MMDiT's (1024 packed tokens a rank) and the UNet crop's level 0, each
+# emulated over n = 2 and n = 4 shards of one sequence of n x T_local frames;
+# times at n = 2, the shards of phase 19
+RING_SHAPES = (("DiT", 4, 2048, 8, 8, False), ("MMDiT", 4, 1024, 8, 2, False),
+               ("UNet crop level 0", 4, 2048, 16, 1, True))
+RING_HOPS = (2, 4)
+RING_TIMED_HOPS = 2
+
+
+class _Ready:
+    """A transfer that has arrived."""
+
+    def __init__(self, value) -> None:
+        self.value = value
+
+    def wait(self):
+        return self.value
+
+
+class _ChunkRotation:
+    """One rank's rotation over chunks of keys and values already on the
+    card, to time that rank alone: the next chunk at each hop; the travelling
+    gradients come back as they went. One per ring call."""
+
+    def __init__(self, chunks: list, rank: int) -> None:
+        self.chunks, self.rank, self.count, self.hop = chunks, rank, len(chunks), 0
+
+    def start(self, t: torch.Tensor, tag: int) -> _Ready:
+        from osufusion_tpu_torch.ops.ring_attention import KV_TAG
+
+        if tag != KV_TAG:
+            return _Ready(t)
+        self.hop += 1
+        return _Ready(self.chunks[(self.rank - self.hop) % self.count])
+
+
+def _ring_faults():
+    """The plain parts with a planted fault each: the second hop's partial
+    left out of the merge; the second sweep storing its dk and dv instead of
+    adding them."""
+    from osufusion_tpu_torch.ops.ring_attention import PlainParts
+
+    class DropHop(PlainParts):
+        def __init__(self) -> None:
+            self.hop = 0
+
+        def merge(self, o_acc, lse_acc, o_j, lse_j, last):
+            self.hop += 1
+            if self.hop == 2:
+                return o_acc, lse_acc, o_acc if last else None
+            return super().merge(o_acc, lse_acc, o_j, lse_j, last)
+
+    class StoreOnce(PlainParts):
+        def __init__(self) -> None:
+            self.hop = 0
+
+        def backward_sweep(self, state, k, v, dk, dv, accumulate):
+            self.hop += 1
+            super().backward_sweep(state, k, v, dk, dv, accumulate and self.hop != 2)
+
+    return DropHop, StoreOnce
+
+
+def _ring_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int):
+    """q, do (B, T, H, 64), k_rot and v ((B, T, 64) at Kv = 1, else (B, T,
+    Kv, 64)) bf16 on the card, k rotated with the song's tables; the tables
+    (T, 64) fp32 or None."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import rope_tables
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, T, H, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    kv_shape = (B, T, 64) if Kv == 1 else (B, T, Kv, 64)
+    k, v = (torch.randn(kv_shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    cos, sin = rope_tables(T, 64, scale_base=float(T), device="cuda") if tables else (None, None)
+    return q, (k if cos is None else fa.rotated_k(k, cos, sin)), v, do, cos, sin
+
+
+def _ring_over(q, k_rot, v, do, cos, sin, n: int, parts=None) -> list:
+    """The ring forward and backward of every one of n shards of the
+    sequence, as threads of this process (``LocalRing``), with the kernels
+    or, given ``parts`` (a class), its parts: (o, lse, dq, dk_rot, dv), the
+    shards' rows joined."""
+    from osufusion_tpu_torch.ops.ring_attention import LocalRing, ring_bwd, ring_fwd
+
+    t = q.shape[1] // n
+
+    def rows(x, r):
+        return None if x is None else x.narrow(0 if x.ndim == 2 else 1, r * t, t).contiguous()
+
+    def rank(r, rotation):
+        own = parts() if parts is not None else None
+        qr, kr, vr, dor, c, s = (rows(x, r) for x in (q, k_rot, v, do, cos, sin))
+        o, lse = ring_fwd(qr, kr, vr, c, s, rotation, own)
+        return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, own))
+
+    results = LocalRing(n).run(rank)
+    torch.cuda.synchronize()
+    return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+
+def phase_ring_kernels() -> dict:
+    """The ring's kernels at RING_SHAPES over RING_HOPS shards against the
+    ring's plain parts, planted faults above the bounds, and per-rank times
+    at RING_TIMED_HOPS; returns DiT's records by part (the errors: the worst
+    over the shapes)."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import ring_attention as ra
+    from osufusion_tpu_torch.ops.rope import apply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops, ring_flops
+
+    D, scale = 64, 64**-0.5
+    drop_hop, store_once = _ring_faults()
+    failures, records = [], {}
+    worst = {"fwd": 0.0, "bwd": 0.0, "merge": 0.0, "sweep": 0.0}
+    for i, (label, B, t, H, Kv, tables) in enumerate(RING_SHAPES):
+        for n in RING_HOPS:
+            where = f"{label} (B={B} T_local={t} H={H} Kv={Kv}{' tables' if tables else ''}) over {n} shards"
+            q, k_rot, v, do, cos, sin = _ring_inputs(B, n * t, H, Kv, tables, seed=800 + 10 * i + n)
+            got = _ring_over(q, k_rot, v, do, cos, sin, n)
+            ref = _ring_over(q, k_rot, v, do, cos, sin, n, ra.PlainParts)
+            o_fault = _ring_over(q, k_rot, v, do, cos, sin, n, drop_hop)[0]
+            bwd_fault = _ring_over(q, k_rot, v, do, cos, sin, n, store_once)[2:]
+            o_rel, o_err = _rel(got[0], ref[0]), (got[0].float() - ref[0]).abs().max().item()
+            lse_err, hop_fault = (got[1] - ref[1]).abs().max().item(), _rel(o_fault, ref[0])
+            worst["fwd"] = max(worst["fwd"], o_err)
+            if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(got[0]).all()):
+                failures.append(f"forward {where}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+            if not hop_fault > REL_TOL:
+                failures.append(f"forward {where}: planted dropped hop {hop_fault:.3e} would pass {REL_TOL}")
+            parts = []
+            for name, a, b, fault in zip(("dq", "dk", "dv"), got[2:], ref[2:], bwd_fault):
+                rel, err, top = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item()
+                fault_rel = _rel(fault, b)
+                worst["bwd"] = max(worst["bwd"], err)
+                parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (stored sweep {fault_rel:.3e})")
+                if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(a).all()):
+                    failures.append(f"backward {where}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+                if name != "dq" and not fault_rel > BWD_REL_TOL:
+                    failures.append(f"backward {where}: planted stored sweep in {name} {fault_rel:.3e} would pass "
+                                    f"{BWD_REL_TOL}")
+            _log(f"[ring kernels] {where}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} (dropped hop {hop_fault:.3e}), "
+                 f"lse max abs {lse_err:.3e}; backward {'; '.join(parts)}")
+            del got, ref, o_fault, bwd_fault
+            if n != RING_TIMED_HOPS:
+                del q, k_rot, v, do
+                torch.cuda.empty_cache()
+                continue
+
+            # rank 0 of n alone, its chunks on the card; then each part alone
+            def rows(x, r):
+                return None if x is None else x.narrow(0 if x.ndim == 2 else 1, r * t, t).contiguous()
+
+            chunks = [torch.stack([rows(k_rot, r), rows(v, r)]) for r in range(n)]
+            q0, k0, v0, do0, c0, s0 = (rows(x, 0) for x in (q, k_rot, v, do, cos, sin))
+            o0, lse0 = ra.ring_fwd(q0, k0, v0, c0, s0, _ChunkRotation(chunks, 0))
+            fwd_ms = _cuda_ms(lambda: ra.ring_fwd(q0, k0, v0, c0, s0, _ChunkRotation(chunks, 0)), 10)
+            bwd_ms = _cuda_ms(lambda: ra.ring_bwd(q0, k0, v0, o0, lse0, do0, c0, s0, _ChunkRotation(chunks, 0)), 10)
+            fwd_plain_ms = _cuda_ms(lambda: ra.ring_fwd(q0, k0, v0, c0, s0, _ChunkRotation(chunks, 0), ra.PlainParts), 2)
+            bwd_plain_ms = _cuda_ms(lambda: ra.ring_bwd(q0, k0, v0, o0, lse0, do0, c0, s0, _ChunkRotation(chunks, 0),
+                                                        ra.PlainParts), 2)
+            # the merge of hop 1 into hop 0's accumulators, and K2's parts on chunk 1, alone
+            o_a, lse_a = fa.flash_fwd(q0, k0, v0, c0, s0, -1, scale, return_lse=True)
+            o_j, lse_j = fa.flash_fwd(q0, rows(k_rot, 1), rows(v, 1), c0, s0, -1, scale, return_lse=True)
+            acc = fa.ring_merge(None, None, o_a, lse_a, False)[:2]
+            merged = fa.ring_merge(acc[0].clone(), acc[1], o_j, lse_j, True)[2]
+            merged_ref = fa.ring_merge_reference(*fa.ring_merge_reference(None, None, o_a, lse_a), o_j, lse_j)[0]
+            merge_err = (merged.float() - merged_ref).abs().max().item()
+            merge_ms = _cuda_ms(lambda: fa.ring_merge(acc[0], acc[1], o_j, lse_j, False), 20)
+            merge_plain_ms = _cuda_ms(lambda: fa.ring_merge_reference(acc[0], acc[1], o_j, lse_j), 5)
+            prep = fa.flash_bwd_prep(q0, k0, v0, o0, lse0, do0, c0, s0, scale)
+            dk, dv = (torch.empty(k0.shape, dtype=torch.float32, device="cuda") for _ in range(2))
+            fa.flash_bwd_sweep(rows(k_rot, 1), rows(v, 1), prep, dk, dv, False)
+            sweep_dq = fa.flash_bwd_post(prep, c0, s0, scale)
+            sweep_ref = fa.flash_bwd_reference(q0, rows(k_rot, 1), rows(v, 1), o0, lse0, do0, c0, s0)
+            # per gradient: (largest error, largest magnitude of the plain gradient)
+            sweep_errs = [((a.float() - b).abs().max().item(), b.abs().max().item())
+                          for a, b in zip((sweep_dq, dk, dv), sweep_ref)]
+            sweep_err = max(err for err, _ in sweep_errs)
+            prep_ms = _cuda_ms(lambda: fa.flash_bwd_prep(q0, k0, v0, o0, lse0, do0, c0, s0, scale), 20)
+            sweep_ms = _cuda_ms(lambda: fa.flash_bwd_sweep(rows(k_rot, 1), rows(v, 1), prep, dk, dv, True), 10)
+            post_ms = _cuda_ms(lambda: fa.flash_bwd_post(prep, c0, s0, scale), 20)
+            # the plain pre-pass (qs, delta) and post-pass (scale, un-rotate, cast) on (B, t, H, D) rows
+            prep_plain_ms = _cuda_ms(lambda: (fa._scaled_rotated_q(q0, c0, s0).to(torch.bfloat16),
+                                              (do0.float() * o0.float()).sum(dim=-1)), 5)
+            dq_rows = sweep_ref[0].float()
+            post_plain_ms = _cuda_ms(lambda: fa._unrotated(dq_rows * scale, c0, s0).to(torch.bfloat16), 5)
+            sweep_plain_ms = _cuda_ms(lambda: fa.flash_bwd_reference(q0, rows(k_rot, 1), rows(v, 1), o0, lse0, do0,
+                                                                     c0, s0), 2)
+            worst["merge"], worst["sweep"] = max(worst["merge"], merge_err), max(worst["sweep"], sweep_err)
+            if not merge_err < ABS_TOL:
+                failures.append(f"merge {where}: max abs {merge_err:.3e} against the plain merge")
+            if not all(err < BWD_ABS_TOL * top for err, top in sweep_errs):
+                failures.append(f"sweep {where}: (max abs, largest) {sweep_errs} against the plain gradients")
+
+            # the yardstick: SDPA of this rank's queries against the gathered keys, never called by the port
+            q_rot = q0 if c0 is None else apply_rope(q0.float(), c0, s0).to(torch.bfloat16)
+            k_all = k_rot if Kv > 1 else k_rot[:, :, None]
+            v_all = v if Kv > 1 else v[:, :, None]
+            leaves = [x.transpose(1, 2).detach().clone().requires_grad_(True) for x in (q_rot, k_all, v_all)]
+            with torch.no_grad():
+                lib_fwd_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, enable_gqa=True), 10)
+            lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True)
+            lib_rel = _rel(lib_out.transpose(1, 2), o0.float())
+            dot = do0.transpose(1, 2)
+            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True), 10)
+            del lib_out, leaves
+            if not lib_rel < LIBRARY_REL_TOL:
+                failures.append(f"{where}: SDPA on the gathered sequence differs from the ring by {lib_rel:.3e}")
+
+            T, tab = n * t, 2 * t * D * 4 if tables else 0
+            row, key = B * t * H * D * 2, B * T * Kv * D * 2  # one rank's rows of (B, t, H, D), the song's k or v, bf16
+            stats = B * t * H * 4
+            fwd_bound = _bound(ring_flops("forward", B, t, n, H, D), 2 * row + 2 * key + stats + tab)  # q o; k v; lse
+            bwd_bound = _bound(ring_flops("backward_fused", B, t, n, H, D),
+                               4 * row + 2 * key + 2 * key // n * 2 + stats + tab)  # q o do dq; k v; dk dv fp32; lse
+            merge_bound = _bound(0, B * t * H * D * (4 + 2 + 4) + 3 * stats)  # o_acc in and out fp32, o_j; three LSEs
+            sweep_bound = _bound(attention_flops("backward_fused", B, t, H, D, None),
+                                 2 * row + 2 * key // n + 2 * key // n * 2 + 2 * stats + B * t * H * D * 4 * 2)
+            prep_bound = _bound(0, 4 * row + stats * 3 + B * t * H * D * 4 + tab)  # q do o; qs; lse; lse delta; dq buffer
+            post_bound = _bound(0, B * t * H * D * 4 + row + tab)
+            _log(f"[ring kernels] {where}, rank 0 alone, ms: forward {fwd_ms:.3f} ({n} x K1 + merge; bound "
+                 f"{fwd_bound[0]:.3f} by {fwd_bound[1]}; plain {fwd_plain_ms:.3f}; SDPA on the gathered keys "
+                 f"{lib_fwd_ms:.3f}); backward {bwd_ms:.3f} (pre-pass, {n} sweeps, post-pass; bound {bwd_bound[0]:.3f}; "
+                 f"plain {bwd_plain_ms:.3f}; SDPA backward {lib_bwd_ms:.3f}); merge {merge_ms:.4f} (bound "
+                 f"{merge_bound[0]:.4f} by bytes; plain {merge_plain_ms:.4f}; max abs {merge_err:.2e}); sweep {sweep_ms:.3f} "
+                 f"(bound {sweep_bound[0]:.3f}; plain one-hop backward {sweep_plain_ms:.3f}; max abs {sweep_err:.2e}, "
+                 f"bound {BWD_ABS_TOL} x the largest); pre-pass {prep_ms:.4f} (bound {prep_bound[0]:.4f}); post-pass {post_ms:.4f} (bound "
+                 f"{post_bound[0]:.4f}; plain pre-pass {prep_plain_ms:.4f}, post-pass {post_plain_ms:.4f}); SDPA vs ring rel L2 {lib_rel:.1e}")
+            if label == "DiT":
+                records = {
+                    "ring_fwd": {"ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                                 "library_ms": lib_fwd_ms},
+                    "ring_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                                 "library_ms": lib_bwd_ms},
+                    "ring_merge": {"ms": merge_ms, "plain_ms": merge_plain_ms, "bound_ms": merge_bound[0],
+                                   "bound_by": merge_bound[1], "library_ms": None},
+                    "flash_bwd_sweep": {"ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound[0],
+                                        "bound_by": sweep_bound[1], "library_ms": None},
+                    "flash_bwd_prep": {"ms": prep_ms, "plain_ms": prep_plain_ms, "bound_ms": prep_bound[0],
+                                       "bound_by": prep_bound[1], "library_ms": None},
+                    "flash_bwd_post": {"ms": post_ms, "plain_ms": post_plain_ms, "bound_ms": post_bound[0],
+                                       "bound_by": post_bound[1], "library_ms": None},
+                }
+            del q, k_rot, v, do, chunks, prep, dk, dv, dq_rows, sweep_ref
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("ring kernels vs plain: " + "; ".join(failures))
+    errors = {"ring_fwd": worst["fwd"], "ring_bwd": worst["bwd"], "ring_merge": worst["merge"],
+              "flash_bwd_sweep": worst["sweep"], "flash_bwd_prep": worst["sweep"], "flash_bwd_post": worst["sweep"]}
+    return {name: {"max_abs_err": errors[name], **rec} for name, rec in records.items()}
+
+
+def _ring_counts(fa, reset: bool = False) -> dict:
+    """The ring's launches (K1 per hop is in ``_launches``'s forward_lse)."""
+    parts = {"merge": fa.ring_merge, "prep": fa.flash_bwd_prep, "sweep": fa.flash_bwd_sweep, "post": fa.flash_bwd_post}
+    if reset:
+        for fn in parts.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in parts.items()}
+
+
+def _ring_cells(project_dir: Path) -> list:
+    """Phase 19's cells, each as its one-card run is configured (phases 15
+    and 8, without remat): (label, config to 1 step with a save, the global
+    attention sites a step)."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    def train_cfg(label):
+        return TrainConfig(project_dir=str(project_dir / label), dataset_mode="dummy", segment_length=2048, batch_size=4,
+                           full_bf16=True, total_steps=1, warmup_steps=2, save_every=1, num_workers=2, seed=0,
+                           mesh_seq=SEQ_SHARDS)
+
+    unet = ModelConfig(dim_h=512, remat=False, remat_mode="save-attn")
+    return [(b, Config(model=ModelConfig(backbone=b, remat=False, **TRANSFORMER), train=train_cfg(b)), TRANSFORMER["depth"])
+            for b in ("dit", "mmdit")] + [
+        ("unet", Config(model=unet, train=train_cfg("unet")), 3 * sum(unet.num_layer_blocks) + unet.num_middle_transformers)]
+
+
+def _sharded_grad_check(backbone: str, shard, B: int = 2, T: int = 4096) -> dict:
+    """Phase 14's check under the shard: DiT or MMDiT at phase 15's width
+    with weights random everywhere (a fresh model's zero gates would leave
+    every attention site out of the loss), its loss and every gradient in
+    bf16 through the ring on this rank's frames (gradients summed over the
+    group) against the same on the whole song on this card through K1 and
+    K2: relative error of the loss and relative L2 of the gradients."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.parallel.sequence import frames_of, sequence_sharding
+    from osufusion_tpu_torch.train.loop import sum_gradients
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.uniform(-1, 1, (B, 5)).astype(np.float32)).cuda()
+    orig_len = torch.tensor([T, T - 700][:B], device="cuda")
+    noise = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    t = torch.tensor([100, 700][:B], device="cuda")
+    cond_mask = torch.tensor([True, False][:B], device="cuda")
+    model = build_model(ModelConfig(backbone=backbone, **TRANSFORMER), DiffusionConfig())
+    net = model.init_params(seed=0, device="cpu", dtype=torch.float32)
+    randomize_transformer(net, seed=6)
+    net = net.to("cuda", torch.bfloat16).train()
+
+    def run(sharded: bool):
+        net.zero_grad(set_to_none=True)
+        with sequence_sharding(shard if sharded else None):
+            xs, as_, ns = ((frames_of(v, shard, dim=-1) for v in (x, a, noise)) if sharded else (x, a, noise))
+            loss = model.loss_from_draws(net, xs, as_, c, orig_len, ns, t, cond_mask)
+            loss.backward()
+        if sharded:
+            sum_gradients(net, shard)
+        torch.cuda.synchronize()
+        return loss.item(), torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten()
+                                       for p in net.parameters()])
+
+    loss1, g1 = run(False)
+    loss_s, g_s = run(True)
+    return {"loss": loss_s, "one_card_loss": loss1, "loss_rel": abs(loss_s - loss1) / abs(loss1),
+            "grad_rel": ((g_s - g1).norm() / g1.norm()).item(), "grad_norm": g1.norm().item()}
+
+
+def _ring_rank(rank: int, port: int, project_dir: str, results) -> None:
+    """One process of phase 19, in torchrun's environment: each cell of
+    ``_ring_cells`` through ``trainer.train``, one step with a save and again
+    from the checkpoint for a second, every count set to 0 before and read
+    after, the whole-sequence gathers counted; (rank, error, results) put on
+    ``results``."""
+    import os
+    import traceback
+
+    os.environ.update({"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": str(SEQ_SHARDS),
+                       "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(SEQ_SHARDS)})
+    try:
+        import torch.distributed as dist
+
+        from osufusion_tpu_torch.ops import attention
+        from osufusion_tpu_torch.ops import flash_attention as fa
+        from osufusion_tpu_torch.parallel.distributed import local_device, maybe_initialize
+        from osufusion_tpu_torch.parallel.mesh import make_mesh
+        from osufusion_tpu_torch.trainer import train
+
+        torch.cuda.set_device(local_device())
+        maybe_initialize()
+        gather = attention.all_gather_frames
+        gathers = []
+
+        def counted(*args):
+            gathers.append(1)
+            return gather(*args)
+
+        attention.all_gather_frames = counted
+        shard = make_mesh(data=1, model=1, seq=SEQ_SHARDS).seq_shard()
+        checks = {b: _sharded_grad_check(b, shard) for b in ("dit", "mmdit")}
+        out = []
+        for label, cfg, _ in _ring_cells(Path(project_dir)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(fa)
+            _ring_counts(fa, reset=True)
+            gathers.clear()
+            history = train(cfg)
+            history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2, resume="latest")))
+            torch.cuda.synchronize()
+            out.append({"label": label, "history": history, "launches": {**_launches(fa), **_ring_counts(fa)},
+                        "gathers": len(gathers), "peak": torch.cuda.max_memory_allocated() / 2**30})
+        results.put((rank, None, {"cells": out, "checks": checks, "backend": dist.get_backend(),
+                                  "device": str(local_device())}))
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails on it
+        results.put((rank, traceback.format_exc(), None))
+
+
+def phase_ring_train(workdir: Path, one_card_losses: dict) -> dict:
+    """Sequence-parallel training of DiT, MMDiT and the UNet crop cell over
+    SEQ_SHARDS processes, every global site through the ring (phase 19):
+    step 1's loss and gradient norm against the one-card trainer's
+    (``one_card_losses``, label -> (loss, grad_norm) of step 1), the ranks
+    alike, the ring's launches per step as the sites imply, no gather; before
+    them, each rank's ``_sharded_grad_check`` of DiT and MMDiT. Returns rank
+    0's ring launches over the three cells."""
+    import multiprocessing
+    import queue as queue_module
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    torch.cuda.empty_cache()
+    procs = [ctx.Process(target=_ring_rank, args=(r, port, str(workdir / "ring"), results)) for r in range(SEQ_SHARDS)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + 900
+    try:
+        while len(got) < SEQ_SHARDS:
+            try:
+                rank, error, value = results.get(timeout=5)
+            except queue_module.Empty:
+                if time.monotonic() > deadline or any(p.exitcode is not None and r not in got for r, p in enumerate(procs)):
+                    raise AssertionError(f"ring training: ranks {sorted(set(range(SEQ_SHARDS)) - set(got))} did not report "
+                                         f"(exit codes {[p.exitcode for p in procs]})") from None
+                continue
+            if error is not None:
+                raise AssertionError(f"ring training rank {rank}:\n{error}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for rank in sorted(got):
+        for backbone, check in got[rank]["checks"].items():
+            _log(f"[ring grad check {backbone}] rank {rank}: dim_h=512 depth {TRANSFORMER['depth']} B=2 T=4096, weights "
+                 f"random everywhere, bf16: loss through the ring {check['loss']:.6f} vs one card {check['one_card_loss']:.6f} "
+                 f"(rel {check['loss_rel']:.3e}, bound {LOSS_REL_TOL}); gradient rel L2 {check['grad_rel']:.3e} (bound "
+                 f"{GRAD_REL_TOL}; |grad| {check['grad_norm']:.3e})")
+            if not (check["loss_rel"] < LOSS_REL_TOL and check["grad_rel"] < GRAD_REL_TOL):
+                raise AssertionError(f"ring grad check {backbone} rank {rank}: {check}")
+    steps, totals = 2, {}
+    for (label, cfg, sites), *cells in zip(_ring_cells(workdir / "ring"), *(got[r]["cells"] for r in sorted(got))):
+        hops = SEQ_SHARDS * sites * steps
+        grouped = hops if cfg.model.backbone != "unet" else 0
+        expected = {"forward": 0, "forward_lse": hops, "backward_fused": 0, "backward_dq": 0, "backward_dkv": 0,
+                    "forward_grouped": grouped, "backward_grouped": 0, "merge": hops, "prep": sites * steps,
+                    "sweep": hops, "post": sites * steps}
+        for rank, cell in enumerate(cells):
+            history = cell["history"]
+            _log(f"[ring train {label}] rank {rank} of {SEQ_SHARDS} on {got[rank]['device']} ({got[rank]['backend']}; "
+                 f"{torch.cuda.device_count()} card(s) visible): dim_h=512 B=4 T=4096 ({4096 // SEQ_SHARDS} frames a rank) "
+                 f"full bf16, 2 steps (save and resume at 1): loss {[round(h['loss'], 5) for h in history]}; grad_norm "
+                 f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 3) for h in history]}; "
+                 f"peak memory {cell['peak']:.2f} GiB; launches over 2 steps {cell['launches']} (expected {expected}); "
+                 f"whole-sequence gathers {cell['gathers']}")
+            if [h["step"] for h in history] != [1, 2]:
+                raise AssertionError(f"ring train {label} rank {rank}: steps {[h['step'] for h in history]}, expected [1, 2]")
+            if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in history):
+                raise AssertionError(f"ring train {label} rank {rank}: non-finite or zero loss or grad_norm {history}")
+            if cell["launches"] != expected or cell["gathers"] != 0:
+                raise AssertionError(f"ring train {label} rank {rank}: launches {cell['launches']}, gathers "
+                                     f"{cell['gathers']}; expected {expected} and none")
+        losses = [[(h["loss"], h["grad_norm"]) for h in cell["history"]] for cell in cells]
+        if any(x != losses[0] for x in losses):
+            raise AssertionError(f"ring train {label}: the ranks report different losses or norms: {losses}")
+        (loss, norm), (loss1, norm1) = losses[0][0], one_card_losses[label]
+        rel, norm_rel = abs(loss - loss1) / abs(loss1), abs(norm - norm1) / abs(norm1)
+        _log(f"[ring train {label}] step 1 loss {loss:.6f} vs one card {loss1:.6f} (same seed and batch): rel {rel:.3e} "
+             f"(bound {LOSS_REL_TOL}); grad_norm {norm:.5f} vs {norm1:.5f}: rel {norm_rel:.3e} (bound {GRAD_REL_TOL})")
+        if not (rel < LOSS_REL_TOL and norm_rel < GRAD_REL_TOL):
+            raise AssertionError(f"ring train {label}: step 1 (loss, grad_norm) {losses[0][0]} vs one card "
+                                 f"{one_card_losses[label]}")
+        for key in ("merge", "prep", "sweep", "post"):
+            totals[key] = totals.get(key, 0) + cells[0]["launches"][key]
+    return totals
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1660,23 +2141,29 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
     torch.cuda.empty_cache()
+    one_card = {}  # step 1's (loss, grad_norm) of each cell that phase 19 runs sharded
     with tempfile.TemporaryDirectory() as tmp:
-        lse_launches, bwd_launches = phase_train(Path(tmp))
+        lse_launches, bwd_launches, one_card["unet"] = phase_train(Path(tmp))
         phase_serve_trained(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         fullsong, fullsong_losses = phase_fullsong_train(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         seq = phase_seq_train(Path(tmp), fullsong_losses)
     grouped_fwd_lse, grouped_bwd, grouped_fwd = phase_grouped_kernels()
+    torch.cuda.empty_cache()
+    ring = phase_ring_kernels()
     for backbone in ("dit", "mmdit"):
         torch.cuda.empty_cache()
         phase_transformer_grad_check(backbone)
     grouped_train = {}
     with tempfile.TemporaryDirectory() as tmp:
         for backbone in ("dit", "mmdit"):
-            for key, n in phase_transformer_train(backbone, Path(tmp)).items():
+            launches_of, one_card[backbone] = phase_transformer_train(backbone, Path(tmp))
+            for key, n in launches_of.items():
                 grouped_train[key] = grouped_train.get(key, 0) + n
         grouped_serve = phase_serve_dit(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        ring_launches = phase_ring_train(Path(tmp), one_card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_gqa_fullsong_train(Path(tmp))
     if any(m in sys.modules for m in ("jax", "flax", "optax", "osufusion_tpu")):
@@ -1685,6 +2172,10 @@ def main() -> int:
     fwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
                   "replaces": "osufusion_tpu/ops/pallas_attention.py:208"}
     windowed_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu"}
+    merge_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/ring_merge.cu",
+                    "replaces": "osufusion_tpu/ops/pallas_attention.py:1310"}
+    bwd_source = {"route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
+                  "replaces": "osufusion_tpu/ops/pallas_attention.py:1338"}
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", **fwd_source, "launches": launches, **kernel},
         {"name": "flash_fwd_lse", **fwd_source, "launches": lse_launches, **fwd_lse},
@@ -1706,6 +2197,14 @@ def main() -> int:
         {"name": "flash_bwd_grouped", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": grouped_train["backward_grouped"],
          **grouped_bwd},
+        # the ring: its forward (K1 per hop + the merge) and backward (pre-pass, a sweep per hop, post-pass) per
+        # rank, and each of its kernels alone; a forward's launches counted by its merges, a backward's by its sweeps
+        {"name": "ring_fwd", **merge_source, "launches": ring_launches["merge"], **ring["ring_fwd"]},
+        {"name": "ring_bwd", **bwd_source, "launches": ring_launches["sweep"], **ring["ring_bwd"]},
+        {"name": "ring_merge", **merge_source, "launches": ring_launches["merge"], **ring["ring_merge"]},
+        {"name": "flash_bwd_prep", **bwd_source, "launches": ring_launches["prep"], **ring["flash_bwd_prep"]},
+        {"name": "flash_bwd_sweep", **bwd_source, "launches": ring_launches["sweep"], **ring["flash_bwd_sweep"]},
+        {"name": "flash_bwd_post", **bwd_source, "launches": ring_launches["post"], **ring["flash_bwd_post"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

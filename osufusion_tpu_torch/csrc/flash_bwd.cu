@@ -23,10 +23,10 @@
 // logits.
 //
 // Bound: compute, 5 products of 2 * D FLOP per (query, key) pair against a
-// few hundred bytes per row. The design, in three launches of one entry
-// point (tiles move by TMA, `cp.async.bulk.tensor` and `cp.async.bulk` behind
-// `mbarrier`s; every product is `wgmma.mma_async`; the wrappers are in
-// hopper.cuh):
+// few hundred bytes per row. The design, in three launches (tiles move by
+// TMA, `cp.async.bulk.tensor` and `cp.async.bulk` behind `mbarrier`s; every
+// product is `wgmma.mma_async`; the wrappers are in hopper.cuh), each with an
+// entry point of its own, which flash_bwd_bf16 calls in a row:
 //
 //  1. Pre-pass (flash_bwd_prep.cuh, shared with the windowed pair), one
 //     sweep over the rows: qs (rotated and scaled once, not once per KV
@@ -57,8 +57,17 @@
 // dk and dv leave in fp32, dk still in the rotated frame; the wrapper
 // un-rotates it on the small tensor.
 //
-// C ABI (loaded with ctypes): flash_bwd_bf16 returns a cudaError_t, or minus
-// the CUresult of a TMA descriptor that failed to encode.
+// The ring (ops/ring_attention.py, the counterpart of
+// osufusion_tpu/ops/pallas_attention.py::_ring_bwd) calls the three apart:
+// the pre-pass once, with the global o, LSE and do (delta is the same for
+// every chunk of keys); one sweep per hop over the chunk that is here, whose
+// dq atomics keep adding into the one fp32 buffer and which, with
+// `accumulate`, adds its dk and dv into the travelling fp32 accumulators
+// instead of storing them (each block owns its keys' rows: a read-modify-
+// write without a race); the post-pass once, after the last sweep.
+//
+// C ABI (loaded with ctypes): every entry point returns a cudaError_t, or
+// minus the CUresult of a TMA descriptor that failed to encode.
 
 #include <math.h>
 
@@ -86,7 +95,7 @@ constexpr int SMEM_BYTES =
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <bool GROUPED>
+template <bool GROUPED, bool ACCUMULATE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
@@ -275,16 +284,26 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   float* dkb = dk + ((size_t)b * S * kvs + kv) * D;
   float* dvb = dv + ((size_t)b * S * kvs + kv) * D;
   const size_t ld = (size_t)kvs * D;
+  // ACCUMULATE: add into what the buffers hold (this block alone owns its keys' rows)
+  auto put = [](float* dst, float x, float y) {
+    float2* p = reinterpret_cast<float2*>(dst);
+    if constexpr (ACCUMULATE) {
+      const float2 old = *p;
+      x += old.x;
+      y += old.y;
+    }
+    *p = make_float2(x, y);
+  };
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = 8 * i + 2 * tq;
     if (key_a < S) {
-      *reinterpret_cast<float2*>(dkb + key_a * ld + col) = make_float2(dk_acc[4 * i] * LN2, dk_acc[4 * i + 1] * LN2);
-      *reinterpret_cast<float2*>(dvb + key_a * ld + col) = make_float2(dv_acc[4 * i], dv_acc[4 * i + 1]);
+      put(dkb + key_a * ld + col, dk_acc[4 * i] * LN2, dk_acc[4 * i + 1] * LN2);
+      put(dvb + key_a * ld + col, dv_acc[4 * i], dv_acc[4 * i + 1]);
     }
     if (key_b < S) {
-      *reinterpret_cast<float2*>(dkb + key_b * ld + col) = make_float2(dk_acc[4 * i + 2] * LN2, dk_acc[4 * i + 3] * LN2);
-      *reinterpret_cast<float2*>(dvb + key_b * ld + col) = make_float2(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+      put(dkb + key_b * ld + col, dk_acc[4 * i + 2] * LN2, dk_acc[4 * i + 3] * LN2);
+      put(dvb + key_b * ld + col, dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
     }
   }
 }
@@ -344,19 +363,36 @@ int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int groups) {
 // same, or null at Kv == 1 (do is then read in place); lse_g and delta_g
 // (B*Kv, pad) fp32 and dq_acc (B*Kv, pad, D) fp32, pad = T*G rounded up to a
 // multiple of 64. Kv KV heads (H % Kv == 0, checked by the caller); cos_t and
-// sin_t null for no rotary embedding.
-extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* o,
-                              const void* lse, const void* cos_t, const void* sin_t, void* qs_g, void* do_g,
-                              void* lse_g, void* delta_g, void* dq_acc, void* dq, void* dk, void* dv, int B, int T,
-                              int S, int H, int Kv, float scale, void* stream) {
-  const bool rope = cos_t != nullptr;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// sin_t (T, D) fp32, or null for no rotary embedding.
+
+// 1. The pre-pass: qs_g, do_g (Kv > 1), lse_g, delta_g, and dq_acc zeroed.
+extern "C" int flash_bwd_prep_bf16(const void* q, const void* dout, const void* o, const void* lse, const void* cos_t,
+                                   const void* sin_t, void* qs_g, void* do_g, void* lse_g, void* delta_g, void* dq_acc,
+                                   int B, int T, int H, int Kv, float scale, void* stream) {
+  if (Kv > 1 && do_g == nullptr) return (int)cudaErrorInvalidValue;
+  int dev;
+  const int err = bind_device(&dev);
+  if (err != 0) return err;
+  const int pad = (T * (H / Kv) + BM - 1) / BM * BM;
+  auto prep = cos_t != nullptr ? flash_bwd_prep_kernel<true> : flash_bwd_prep_kernel<false>;
+  prep<<<dim3(pad * 4 / 256, B * Kv), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(qs_g),
+      Kv > 1 ? static_cast<__nv_bfloat16*>(do_g) : nullptr, static_cast<float*>(lse_g), static_cast<float*>(delta_g),
+      static_cast<float*>(dq_acc), T, H, Kv, pad, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// 2. The sweep over S keys of k and v (B, S, Kv, D) bf16: dq's atomics add into
+// dq_acc; dk and dv (B, S, Kv, D) fp32 are stored, or with `accumulate` added
+// into what they hold. do_rows is do_g at Kv > 1, do itself at Kv == 1.
+extern "C" int flash_bwd_sweep_bf16(const void* k, const void* v, const void* qs_g, const void* do_rows,
+                                    const void* lse_g, const void* delta_g, void* dq_acc, void* dk, void* dv, int B,
+                                    int T, int S, int H, int Kv, int accumulate, void* stream) {
   const int rows = T * (H / Kv);
   const int pad = (rows + BM - 1) / BM * BM;
   const int groups = B * Kv;
-  if (Kv > 1 && do_g == nullptr) return (int)cudaErrorInvalidValue;
-  const void* do_rows = Kv > 1 ? do_g : dout;
-
   CUtensorMap kmap, vmap, qmap, domap;
   int dev;
   int err = bind_device(&dev);
@@ -366,31 +402,42 @@ extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const
   if (err == 0) err = make_rows_map(&domap, do_rows, rows, groups);
   if (err != 0) return err;
 
-  auto prep = rope ? flash_bwd_prep_kernel<true> : flash_bwd_prep_kernel<false>;
-  prep<<<dim3(pad * 4 / 256, groups), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(qs_g),
-      Kv > 1 ? static_cast<__nv_bfloat16*>(do_g) : nullptr, static_cast<float*>(lse_g), static_cast<float*>(delta_g),
-      static_cast<float*>(dq_acc), T, H, Kv, pad, scale * LOG2E);
-  if (cudaGetLastError() != cudaSuccess) return (int)cudaErrorLaunchFailure;
-
-  auto kernel = Kv > 1 ? flash_bwd_kernel<true> : flash_bwd_kernel<false>;
-  static std::atomic<unsigned long long> smem_set[2];  // per instance: devices whose limit is raised
-  err = allow_smem(kernel, SMEM_BYTES, dev, smem_set[Kv > 1]);
+  auto kernel = Kv > 1 ? (accumulate ? flash_bwd_kernel<true, true> : flash_bwd_kernel<true, false>)
+                       : (accumulate ? flash_bwd_kernel<false, true> : flash_bwd_kernel<false, false>);
+  static std::atomic<unsigned long long> smem_set[4];  // per instance: devices whose limit is raised
+  err = allow_smem(kernel, SMEM_BYTES, dev, smem_set[(Kv > 1) * 2 + (accumulate != 0)]);
   if (err != 0) return err;
-  kernel<<<dim3((S + BN - 1) / BN, groups), THREADS, SMEM_BYTES, st>>>(
+  kernel<<<dim3((S + BN - 1) / BN, groups), THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       kmap, vmap, qmap, domap, static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
       static_cast<float*>(dq_acc), static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, pad);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-
-  const size_t n_rows = (size_t)B * T * H;
-  auto post = rope ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
-  post<<<(unsigned)((n_rows * 4 + 255) / 256), 256, 0, st>>>(static_cast<const float*>(dq_acc),
-                                                              static_cast<const float*>(cos_t),
-                                                              static_cast<const float*>(sin_t),
-                                                              static_cast<__nv_bfloat16*>(dq), n_rows, T, H, Kv, pad,
-                                                              scale);
   return (int)cudaGetLastError();
+}
+
+// 3. The post-pass: dq (B, T, H, D) bf16 = scale * the un-rotated dq_acc.
+extern "C" int flash_bwd_post_bf16(const void* dq_acc, const void* cos_t, const void* sin_t, void* dq, int B, int T,
+                                   int H, int Kv, float scale, void* stream) {
+  int dev;
+  const int err = bind_device(&dev);
+  if (err != 0) return err;
+  const int pad = (T * (H / Kv) + BM - 1) / BM * BM;
+  const size_t n_rows = (size_t)B * T * H;
+  auto post = cos_t != nullptr ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
+  post<<<(unsigned)((n_rows * 4 + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dq_acc), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<__nv_bfloat16*>(dq), n_rows, T, H, Kv, pad, scale);
+  return (int)cudaGetLastError();
+}
+
+// The whole backward at one site: the three in a row, the sweep storing dk, dv.
+extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* dout, const void* o,
+                              const void* lse, const void* cos_t, const void* sin_t, void* qs_g, void* do_g,
+                              void* lse_g, void* delta_g, void* dq_acc, void* dq, void* dk, void* dv, int B, int T,
+                              int S, int H, int Kv, float scale, void* stream) {
+  int err = flash_bwd_prep_bf16(q, dout, o, lse, cos_t, sin_t, qs_g, do_g, lse_g, delta_g, dq_acc, B, T, H, Kv, scale,
+                                stream);
+  if (err == 0)
+    err = flash_bwd_sweep_bf16(k, v, qs_g, Kv > 1 ? do_g : dout, lse_g, delta_g, dq_acc, dk, dv, B, T, S, H, Kv, 0,
+                               stream);
+  if (err == 0) err = flash_bwd_post_bf16(dq_acc, cos_t, sin_t, dq, B, T, H, Kv, scale, stream);
+  return err;
 }

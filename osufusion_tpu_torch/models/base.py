@@ -30,6 +30,7 @@ from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
 from osufusion_tpu_torch.nn.dit import DiT
 from osufusion_tpu_torch.nn.mmdit import MMDiT
 from osufusion_tpu_torch.nn.unet import UNet
+from osufusion_tpu_torch.parallel.ring import RING_ROWS
 from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_sum
 
 BACKBONES = {"unet": UNet, "dit": DiT, "mmdit": MMDiT}
@@ -40,6 +41,20 @@ def denoiser_class(cfg: ModelConfig) -> type[nn.Module]:
     if cfg.backbone not in BACKBONES:
         raise ValueError(f"unknown backbone: {cfg.backbone}")
     return BACKBONES[cfg.backbone]
+
+
+def frame_multiple(cfg: ModelConfig) -> int:
+    """What each sequence shard's frames must be a multiple of: the UNet's
+    2^levels (its down-sampling), DiT's ring shard (``RING_ROWS`` frames),
+    MMDiT's whole patches whose packed [audio; osu] tokens fill a ring shard
+    (``patch_size`` x ``RING_ROWS`` / 2 frames). A DiT or MMDiT site then
+    always takes the ring; a UNet level too short for it gathers its
+    sequence."""
+    if cfg.backbone == "dit":
+        return RING_ROWS
+    if cfg.backbone == "mmdit":
+        return cfg.patch_size * RING_ROWS // 2
+    return 2 ** len(cfg.dim_h_mult)
 
 
 def to_channel_last(x: torch.Tensor) -> torch.Tensor:

@@ -37,11 +37,13 @@ from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_max, 
 # again in the backward. They see what the dispatcher sees, which is why the
 # attention is a ``torch.library.custom_op``.
 # ``save_only_these_names("flash_o", "flash_lse")``: the attention's o, LSE and
-# rotated k stay (the halo op's o and LSE at a sequence-sharded site), so the
-# backward never runs the attention forward again
+# rotated k stay (the halo op's o and LSE, or the ring op's o, LSE and rotated
+# k, at a sequence-sharded site), so the backward never runs the attention
+# forward again
 KEEP_ATTENTION_OUTPUTS = functools.partial(
     create_selective_checkpoint_contexts,
-    [torch.ops.osufusion_tpu_torch.flash_attention.default, torch.ops.osufusion_tpu_torch.halo_attention.default])
+    [torch.ops.osufusion_tpu_torch.flash_attention.default, torch.ops.osufusion_tpu_torch.halo_attention.default,
+     torch.ops.osufusion_tpu_torch.ring_attention.default])
 # ``dots_saveable``: convolutions (matrix products in the JAX package) and matrix products
 _aten = torch.ops.aten
 KEEP_DOTS = functools.partial(

@@ -13,9 +13,12 @@ dim_head`` must equal ``dim_h``.
 
 Every attention site is global: on the GPU it runs the flash kernels in their
 full-MHA form (``ops/flash_attention.py``, K1 and K2 with one KV head per
-query head and no rotary tables). ``cfg.remat`` rematerialises whole blocks,
-as ``nn.remat(DiTBlock)`` does; ``remat_mode`` is not read, as in the JAX
-package.
+query head and no rotary tables). Under a sequence shard (``--mesh-seq``)
+each rank holds its frames: the sites run the ring attention
+(``parallel/ring.py``), the stem's convolutions exchange halos and the pooled
+audio statistics are sums over the group. ``cfg.remat`` rematerialises whole
+blocks, as ``nn.remat(DiTBlock)`` does; ``remat_mode`` is not read, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 from osufusion_tpu_torch.config import ModelConfig
 from osufusion_tpu_torch.nn.blocks import CrossEmbedLayer, FeedForward, lecun_normal_, remat, sinusoidal_embedding
 from osufusion_tpu_torch.ops.attention import sdpa
+from osufusion_tpu_torch.parallel.sequence import active_shard, all_reduce_sum
 
 LN_EPS = 1e-6
 
@@ -52,10 +56,19 @@ def check_width(cfg: ModelConfig, backbone: str) -> None:
 
 def pooled_audio(a: torch.Tensor) -> torch.Tensor:
     """(B, T, C) -> (B, 2C): the mean and the unbiased standard deviation over
-    time, statistics in fp32, in a's dtype."""
+    time, statistics in fp32, in a's dtype. Under a sequence shard a holds
+    this rank's frames and the statistics are the whole song's, from sums over
+    the group in two passes (the mean, then the squared deviations from it),
+    as ``var(ddof=1)`` takes them."""
     af = a.float()
-    std = torch.sqrt(af.var(dim=1, correction=1) + 1e-12)
-    return torch.cat([af.mean(dim=1), std], dim=-1).to(a.dtype)
+    shard = active_shard()
+    if shard is None:
+        mean, var = af.mean(dim=1), af.var(dim=1, correction=1)
+    else:
+        n = af.shape[1] * shard.count
+        mean = all_reduce_sum(af.sum(dim=1), shard) / n
+        var = all_reduce_sum((af - mean[:, None]).square().sum(dim=1), shard) / (n - 1)
+    return torch.cat([mean, torch.sqrt(var + 1e-12)], dim=-1).to(a.dtype)
 
 
 def init_dense(layers, kind: str, generator: Optional[torch.Generator]) -> None:

@@ -16,6 +16,15 @@ cropped back.
 On the GPU the packed attention runs the flash kernels in their GQA form
 (``ops/flash_attention.py``, K1 and K2 with one grid row per (batch, KV head)
 and no rotary tables). ``cfg.remat`` rematerialises whole blocks.
+
+Under a sequence shard (``--mesh-seq``) each rank holds its frames and packs
+its own [audio; osu] tokens; the joint attention runs the ring
+(``parallel/ring.py``) over every rank's packed tokens. Attention without
+positional terms gives each query the same output under any order of the
+keys, so this equals the attention over the whole song's packing. The pooled
+audio statistics are sums over the group. The padding to whole patches
+belongs to the whole song: a shard must hold a multiple of the patch, else
+the forward raises.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from osufusion_tpu_torch.nn.dit import (
 )
 from osufusion_tpu_torch.nn.unet import A_PAD_VALUE, X_PAD_VALUE
 from osufusion_tpu_torch.ops.attention import sdpa
+from osufusion_tpu_torch.parallel.sequence import active_shard
 
 
 class PatchEmbedding(nn.Module):
@@ -169,9 +179,12 @@ class MMDiT(nn.Module):
                 cond_mask: Optional[torch.Tensor] = None, audio_encoded: bool = False) -> torch.Tensor:
         B, n, _ = x.shape
         p = self.cfg.patch_size
+        pad_len = (p - n % p) % p
+        if pad_len and active_shard() is not None:
+            raise ValueError(f"a sequence shard of {n} frames is not a multiple of the patch size {p}: the song must "
+                             "split into shards of whole patches")
         x, a = x.to(self.dtype), a.to(self.dtype)
         h_a = self.mlp_a(self.feature_extractor_a(pooled_audio(a)))
-        pad_len = (p - n % p) % p
         if pad_len:
             x = F.pad(x, (0, 0, 0, pad_len), value=X_PAD_VALUE)
             a = F.pad(a, (0, 0, 0, pad_len), value=A_PAD_VALUE)

@@ -12,10 +12,12 @@ forward with native autograd.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
 halo kernels take runs them on this rank's frames, once per KV head on that
 head's query heads (as ``osufusion_tpu/parallel/sequence.py`` splits a GQA
-site); any other site gathers the whole sequence, attends as on one device
-and keeps this rank's rows, which is what GSPMD does in the JAX package where
-no sharded kernel applies (the ring attention of global sites is still to
-port, ROADMAP.md queue 2, K6).
+site); a global site that the ring takes (``parallel/ring.py``: the window
+off or covering the song, shards of a multiple of 64 frames) runs the ring
+attention, every KV head at once, as ``osufusion_tpu/ops/attention.py`` routes
+it; only a site that neither takes gathers the whole sequence, attends as on
+one device and keeps this rank's rows, which is what GSPMD does in the JAX
+package where no sharded kernel applies.
 ``gqa_attention`` is the plain forward's math: KV heads stay un-repeated,
 logits and softmax are float32, and queries are taken in chunks so a
 full-song sequence never materialises a (B, H, T, S) logits tensor.
@@ -27,6 +29,7 @@ import torch
 
 from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, needs_gradient
 from osufusion_tpu_torch.ops.rope import apply_rope
+from osufusion_tpu_torch.parallel.ring import ring_attention, ring_available
 from osufusion_tpu_torch.parallel.sequence import (
     active_shard,
     all_gather_frames,
@@ -62,6 +65,9 @@ def sdpa(
         heads = [sequence_parallel_attention(q_rot[:, :, g * G : (g + 1) * G], k_rot[:, :, g], v[:, :, g], window, shard)
                  for g in range(kv)]
         return heads[0] if kv == 1 else torch.cat(heads, dim=2)
+    B, T, H, D = q.shape
+    if ring_available(T * shard.count, k.shape[1] * shard.count, D, window, shard.count, H, k.shape[2]):
+        return ring_attention(q, k, v, rope, shard)
     whole = (all_gather_frames(t, shard) for t in (q, k, v))
     return frames_of(_local_sdpa(*whole, window, rope), shard)
 

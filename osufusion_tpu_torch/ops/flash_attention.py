@@ -20,7 +20,11 @@ from run to run. At a windowed site the split pair ``flash_bwd_dq`` and
 ``WindowedPrep``) and the dq kernel, the second reads that scratch; no
 atomics, so all three gradients repeat bit for bit. The pair takes MQA with
 rotary tables; ``flash_attention`` runs a windowed GQA site once per KV
-head, as the JAX package does.
+head, as the JAX package does. The ring of sequence parallelism
+(``ops/ring_attention.py``) runs the global backward in its three parts
+(``flash_bwd_prep``, one ``flash_bwd_sweep`` per hop that adds into the
+travelling dk and dv, ``flash_bwd_post``) and merges the forward's hops with
+``ring_merge`` (``csrc/ring_merge.cu``).
 
 What bounds them on an H100: compute. At the serving path's level-0 site (T =
 24576, W = 4096, H = 16, D = 64) each q row meets ~4k keys for 256 bytes of
@@ -66,7 +70,7 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # library name -> source; each becomes a shared library of its own
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed")}
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "ring_merge")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -121,6 +125,14 @@ _ENTRY_POINTS = {
     "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # q k v do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | dq dk dv | B T S H Kv | scale | stream
     "flash_bwd_bf16": ("flash_bwd", [_PTR] * 16 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # q do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | B T H Kv | scale | stream
+    "flash_bwd_prep_bf16": ("flash_bwd", [_PTR] * 11 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    # k v qs_g do_rows lse_g delta_g dq_acc dk dv | B T S H Kv accumulate | stream
+    "flash_bwd_sweep_bf16": ("flash_bwd", [_PTR] * 9 + [_INT] * 6 + [_PTR]),
+    # dq_acc cos sin dq | B T H Kv | scale | stream
+    "flash_bwd_post_bf16": ("flash_bwd", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    # o_acc lse_acc o_j lse_j lse_out o | rows | stream
+    "ring_merge_bf16": ("ring_merge", [_PTR] * 6 + [_INT, _PTR]),
     # q do o lse cos sin | qs_g lse_g delta_g | B T H pad | scale | stream
     "flash_bwd_windowed_prep_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g cos sin dq | B T S H pad window | scale | stream
@@ -315,6 +327,168 @@ def flash_bwd(
 
 flash_bwd.launches = 0
 flash_bwd.grouped_launches = 0  # of them, the grouped form (Kv > 1)
+
+
+class GlobalPrep(NamedTuple):
+    """What the global backward's pre-pass writes (``flash_bwd_prep``) and its
+    sweeps (``flash_bwd_sweep``) and post-pass (``flash_bwd_post``) read, in
+    group-major order (B * Kv, T * G, ...), G = H / Kv: qs (bf16, rotated and
+    scaled by ``scale * log2(e)``), do (do itself at Kv == 1, which is already
+    in that order), lse and delta (fp32, padded to ``BWD_ROW_TILE`` rows with
+    +inf and 0), the fp32 dq buffer that every sweep's atomics add into, and
+    the site's (B, T, H, Kv)."""
+
+    qs: torch.Tensor
+    do: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+    dq_acc: torch.Tensor
+    shape: tuple
+
+
+def flash_bwd_prep(
+    q: torch.Tensor,  # (B, T, H, D) bf16, raw
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16: the site's own keys (for their shape)
+    v: torch.Tensor,  # k's shape, bf16
+    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
+    do: torch.Tensor,  # (B, T, H, D) bf16
+    cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
+    sin: Optional[torch.Tensor],
+    scale: float,
+) -> GlobalPrep:
+    """Launch the global backward's pre-pass on the current stream: qs, do
+    and the LSE in group-major order, delta = rowsum(do * o), and the dq
+    buffer zeroed. Counts its launches in ``flash_bwd_prep.launches``."""
+    B, T, H, kv = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
+                                  grouped=True)
+    f32, dev = torch.float32, q.device
+    rows = T * (H // kv)
+    pad = -(-rows // BWD_ROW_TILE) * BWD_ROW_TILE
+    qs_g = torch.empty((B * kv, rows, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    lse_g = torch.empty((B * kv, pad), dtype=f32, device=dev)
+    prep = GlobalPrep(qs_g, torch.empty_like(qs_g) if kv > 1 else do, lse_g, torch.empty_like(lse_g),
+                      torch.empty((B * kv, pad, HEAD_DIM), dtype=f32, device=dev), (B, T, H, kv))
+    err = _kernel("flash_bwd_prep_bf16")(
+        q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin), qs_g.data_ptr(),
+        prep.do.data_ptr() if kv > 1 else None, lse_g.data_ptr(), prep.delta.data_ptr(), prep.dq_acc.data_ptr(),
+        B, T, H, kv, scale, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_launch("flash_bwd_prep", err)
+    flash_bwd_prep.launches += 1
+    return prep
+
+
+flash_bwd_prep.launches = 0
+
+
+def flash_bwd_sweep(
+    k: torch.Tensor,  # (B, S, D) or (B, S, Kv, D) bf16, already rotated: the chunk of keys that is here
+    v: torch.Tensor,  # k's shape, bf16
+    prep: GlobalPrep,  # flash_bwd_prep's scratch
+    dk: torch.Tensor,  # k's shape, fp32: the chunk's dk_rot (rotated frame)
+    dv: torch.Tensor,  # k's shape, fp32
+    accumulate: bool,
+) -> None:
+    """Launch the global backward's sweep over the keys of k and v on the
+    current stream: its dq atomics add into ``prep.dq_acc``; dk and dv are
+    stored, or with ``accumulate`` added into what they hold. Counts its
+    launches in ``flash_bwd_sweep.launches``."""
+    who = "flash_bwd_sweep"
+    B, T, H, kv = prep.shape
+    if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
+            or k.shape[-1] != HEAD_DIM or dk.shape != k.shape or dv.shape != k.shape:
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
+                         f"want (B={B}, S, {'' if kv == 1 else f'{kv}, '}{HEAD_DIM}) for {H} query heads")
+    dev = prep.qs.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    _check_operands(who, dev, (("k", k, bf16), ("v", v, bf16), ("dk", dk, f32), ("dv", dv, f32)))
+    err = _kernel("flash_bwd_sweep_bf16")(
+        k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        prep.dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, kv, int(accumulate),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_launch(who, err)
+    flash_bwd_sweep.launches += 1
+
+
+flash_bwd_sweep.launches = 0
+
+
+def flash_bwd_post(
+    prep: GlobalPrep,
+    cos: Optional[torch.Tensor],  # (T, D) fp32, the pre-pass's tables, or None
+    sin: Optional[torch.Tensor],
+    scale: float,
+) -> torch.Tensor:
+    """Launch the global backward's post-pass on the current stream, after the
+    last sweep: dq (B, T, H, D) bf16 = scale * the un-rotated dq buffer, in
+    the raw q's frame. Counts its launches in ``flash_bwd_post.launches``."""
+    B, T, H, kv = prep.shape
+    dev = prep.qs.device
+    _check_operands("flash_bwd_post", dev, _tables("flash_bwd_post", cos, sin, T, HEAD_DIM))
+    dq = torch.empty((B, T, H, HEAD_DIM), dtype=torch.bfloat16, device=dev)
+    err = _kernel("flash_bwd_post_bf16")(prep.dq_acc.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr(), B, T, H, kv,
+                                         scale, torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch("flash_bwd_post", err)
+    flash_bwd_post.launches += 1
+    return dq
+
+
+flash_bwd_post.launches = 0
+
+
+def ring_merge(
+    o_acc: Optional[torch.Tensor],  # (B, T, H, D) fp32, or None on the first hop
+    lse_acc: Optional[torch.Tensor],  # (B, T*H) fp32, or None on the first hop
+    o_j: torch.Tensor,  # (B, T, H, D) bf16: this hop's output, normalised over its chunk of keys
+    lse_j: torch.Tensor,  # (B, T*H) fp32: this hop's base-2 LSE
+    last: bool,
+):
+    """Launch the ring's merge on the current stream (``csrc/ring_merge.cu``):
+    the exact fold of one hop's partial into the accumulators. Returns (o_acc,
+    lse, o): o_acc updated in place (allocated on the first hop; not written
+    on the last), lse a new (B, T*H) fp32 tensor, and on the ``last`` hop o,
+    the merged output in bf16 (else None). Counts its launches in
+    ``ring_merge.launches``."""
+    who = "ring_merge"
+    B, T, H, D = o_j.shape
+    if D != HEAD_DIM or lse_j.shape != (B, T * H) or (o_acc is None) != (lse_acc is None) or (
+            o_acc is not None and (o_acc.shape != o_j.shape or lse_acc.shape != lse_j.shape)):
+        raise ValueError(f"{who} shapes: o_j {tuple(o_j.shape)} lse_j {tuple(lse_j.shape)} o_acc "
+                         f"{None if o_acc is None else tuple(o_acc.shape)} lse_acc "
+                         f"{None if lse_acc is None else tuple(lse_acc.shape)}; both accumulators or neither")
+    f32 = torch.float32
+    accumulators = () if o_acc is None else (("o_acc", o_acc, f32), ("lse_acc", lse_acc, f32))
+    _check_operands(who, o_j.device, (("o_j", o_j, torch.bfloat16), ("lse_j", lse_j, f32), *accumulators))
+    first = o_acc is None
+    if first:
+        o_acc = torch.empty(o_j.shape, dtype=f32, device=o_j.device)
+    lse = torch.empty_like(lse_j)
+    o = torch.empty_like(o_j) if last else None
+    err = _kernel("ring_merge_bf16")(o_acc.data_ptr(), None if first else lse_acc.data_ptr(), o_j.data_ptr(),
+                                     lse_j.data_ptr(), lse.data_ptr(), _ptr(o), B * T * H,
+                                     torch.cuda.current_stream(o_j.device).cuda_stream)
+    _check_launch(who, err)
+    ring_merge.launches += 1
+    return o_acc, lse, o
+
+
+ring_merge.launches = 0
+
+
+def ring_merge_reference(o_acc: Optional[torch.Tensor], lse_acc: Optional[torch.Tensor], o_j: torch.Tensor,
+                         lse_j: torch.Tensor):
+    """Plain version of ``ring_merge`` in fp32: (o_acc, lse), the merged
+    output (B, T, H, D) and LSE (B, T*H); on the first hop (accumulators None)
+    o_j and lse_j themselves."""
+    if o_acc is None:
+        return o_j.float(), lse_j.float()
+    B, T, H, _ = o_j.shape
+    m = torch.maximum(lse_acc, lse_j)
+    lse = m + torch.log2(torch.exp2(lse_acc - m) + torch.exp2(lse_j - m))
+    w_acc, w_j = (torch.exp2(part - lse).reshape(B, T, H, 1) for part in (lse_acc, lse_j))
+    return o_acc * w_acc + o_j.float() * w_j, lse
 
 
 class WindowedPrep(NamedTuple):

@@ -13,8 +13,9 @@ written out, each exact against its one-device op:
   the halo kernels of ``ops/halo_attention.py``).
 - ``all_reduce_sum``: the sums behind GroupNorm's statistics, GlobalContext's
   softmax over T, the squeeze-excite mean and the loss.
-- ``all_gather_frames``: the whole sequence, at an attention site that the
-  halo path cannot serve (what GSPMD does there in the JAX package).
+- ``all_gather_frames``: the whole sequence, at an attention site that
+  neither the halo path nor the ring (``parallel/ring.py``) can serve (what
+  GSPMD does there in the JAX package).
 
 Every one of them is differentiable, under one convention: the objective is
 the sum of the rank-local scalars that each rank calls ``backward`` on. The

@@ -48,7 +48,7 @@ import torch
 from torch import nn
 
 from osufusion_tpu_torch.config import Config
-from osufusion_tpu_torch.models.base import GenerativeModel
+from osufusion_tpu_torch.models.base import GenerativeModel, frame_multiple
 from osufusion_tpu_torch.parallel.sequence import SeqShard, all_reduce_, frames_of, sequence_sharding
 
 # optax.adamw's defaults
@@ -101,10 +101,6 @@ def check_supported(cfg: Config) -> None:
             "data parallelism (--mesh-data) with ZeRO-1 is not ported yet (ROADMAP.md, queue 1, item 5)")
     if cfg.train.mesh_seq < 1:
         raise ValueError(f"--mesh-seq must be at least 1, got {cfg.train.mesh_seq}")
-    if cfg.train.mesh_seq > 1 and cfg.model.backbone != "unet":
-        raise NotImplementedError(
-            f"--mesh-seq {cfg.train.mesh_seq} with the {cfg.model.backbone!r} backbone: its global attention sites take "
-            "the ring attention (K6), which is not ported yet (ROADMAP.md, queue 2, K6)")
 
 
 def make_optimizer(cfg: Config, params: nn.Module) -> torch.optim.Optimizer:
@@ -132,7 +128,8 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
 def shard_frames(batch, shard: SeqShard, multiple: int):
     """This shard's frames of the frame axis (the last) of x and a; c and
     orig_len whole. The padded length must split into ``shard.count`` shards
-    of a multiple of ``multiple`` (2^depth) frames each."""
+    of a multiple of ``multiple`` (the backbone's ``frame_multiple``) frames
+    each."""
     x, a, c, orig_len = batch
     n = x.shape[-1]
     if n % (shard.count * multiple):
@@ -181,7 +178,7 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
             for i in range(accum):
                 x, a, c, orig_len = (b[i] for b in batch)
                 if shard is not None:
-                    x, a, c, orig_len = shard_frames((x, a, c, orig_len), shard, 2 ** len(model.model_cfg.dim_h_mult))
+                    x, a, c, orig_len = shard_frames((x, a, c, orig_len), shard, frame_multiple(model.model_cfg))
                 if draws is None:
                     loss = model.loss(params, state.generator, x, a, c, orig_len)
                 else:

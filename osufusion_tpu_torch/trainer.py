@@ -23,13 +23,18 @@ must equal ``--model-dim``):
     python -m osufusion_tpu_torch.trainer --model-backbone dit --model-attn-heads 8 \
         --dummy-dataset --segment-length 2048 --full-bf16 --total-steps 6 --project-dir runs/dit
 
-and the UNet sequence-parallel over N processes, one per GPU
-(``parallel/sequence.py``; the padded length must be a multiple of N x
-2^depth):
+and sequence-parallel over N processes, one per GPU (``parallel/sequence.py``
+and, at global sites, the ring of ``parallel/ring.py``; the padded length
+must be a multiple of N x the backbone's frame multiple: 2^depth for the
+UNet, 64 for DiT, 32 x the patch for MMDiT, ``models/base.py::frame_multiple``):
 
     torchrun --standalone --nproc-per-node 2 -m osufusion_tpu_torch.trainer \
         --mesh-seq 2 --dummy-dataset --segment-length 32768 --batch-size 1 \
         --full-bf16 --gradient-checkpointing --gradient-checkpointing-mode mixed
+
+    torchrun --standalone --nproc-per-node 2 -m osufusion_tpu_torch.trainer \
+        --mesh-seq 2 --model-backbone dit --model-attn-heads 8 --dummy-dataset \
+        --segment-length 2048 --full-bf16 --total-steps 6 --project-dir runs/dit-seq
 
 The JAX package's multi-host flags (``--coordinator``, ``--num-processes``,
 ``--process-id``, the process id being the global rank) or torchrun's
@@ -39,8 +44,7 @@ the checkpoints, the data position, the metrics and the final export.
 Flags whose feature is not ported raise ``NotImplementedError`` naming the
 ROADMAP.md queue item: ``--model-type rectified-flow``, ``--mixed-precision
 fp16|fp8``, ``--opt-moments int8``, ``--mesh-data`` and ``--mesh-model`` above
-1, ``--mesh-seq`` above 1 with ``dit`` or ``mmdit`` (the ring attention, K6),
-and the periodic sample (``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
+1, and the periodic sample (``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
 ``mixed`` with ``--gradient-checkpointing-levels`` included; the audio stack's
 override is ``model.audio_remat_mode`` of the config, which has no flag, as in
 the JAX package.
@@ -62,6 +66,7 @@ import torch
 
 from osufusion_tpu_torch.config import Config, DiffusionConfig, ModelConfig, TrainConfig
 from osufusion_tpu_torch.models import build_model
+from osufusion_tpu_torch.models.base import frame_multiple
 from osufusion_tpu_torch.parallel.distributed import (
     barrier,
     is_main_process,
@@ -105,11 +110,11 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
     mode = cfg.train.dataset_mode
     bucket = min(D.BUCKET, max(64, cfg.train.segment_length))
     pad_to = D.process_invariant_pad(mode, cfg.train.segment_length, cfg.train.max_length) if mode == "dummy" else None
-    multiple = cfg.train.mesh_seq * 2 ** len(cfg.model.dim_h_mult)
+    multiple = cfg.train.mesh_seq * frame_multiple(cfg.model)
     if pad_to is not None and cfg.train.mesh_seq > 1 and (-(-pad_to // bucket) * bucket) % multiple:
         raise ValueError(f"batches of {-(-pad_to // bucket) * bucket} frames do not split into --mesh-seq "
-                         f"{cfg.train.mesh_seq} shards of a multiple of 2^{len(cfg.model.dim_h_mult)} frames: "
-                         f"the padded length must be a multiple of {multiple}")
+                         f"{cfg.train.mesh_seq} shards of a multiple of {frame_multiple(cfg.model)} frames "
+                         f"({cfg.model.backbone}): the padded length must be a multiple of {multiple}")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("training runs on an NVIDIA GPU; none is visible (pass device='cpu' to run on the CPU)")

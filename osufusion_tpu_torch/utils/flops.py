@@ -5,8 +5,9 @@ A kernel is charged the (query, key) pairs its window lets it visit, not the
 full T x S square: at a windowed site that is about T * (W + 1), less the
 keys that the first and last W / 2 queries of a sequence lack; on a sequence
 shard, the pairs of its rows, of which only the first and last shard lack
-keys. Every query head visits its pairs whatever the number of KV heads, so
-the count is the same for MQA, GQA and full MHA (K1 and K2 in their DiT/MMDiT
+keys; on a rank of the ring, the pairs of its rows against the whole song.
+Every query head visits its pairs whatever the number of KV heads, so the
+count is the same for MQA, GQA and full MHA (K1 and K2 in their DiT/MMDiT
 form). This is the count behind the ``bound_ms`` of ``chip_smoke.py``.
 
 ``dit_fwd_flops`` and ``mmdit_fwd_flops`` are the JAX package's model-FLOP
@@ -56,6 +57,14 @@ def halo_flops(kernel: str, B: int, T: int, H: int, D: int, window: int, g0: int
     """Floating-point operations of one launch of the halo kernel ``kernel``
     (``forward``, ``backward_dq`` or ``backward_dkv``) on a shard of T frames."""
     return 2 * D * PRODUCTS[kernel] * B * H * halo_visited_pairs(T, window, g0, t_global)
+
+
+def ring_flops(kernel: str, B: int, t_local: int, n: int, H: int, D: int) -> int:
+    """Floating-point operations of one rank's ring (``ops/ring_attention.py``)
+    over n shards of ``t_local`` frames: its hops together visit every pair of
+    its t_local queries and the song's n * t_local keys; ``kernel`` is
+    ``forward`` (K1 per hop) or ``backward_fused`` (K2's sweep per hop)."""
+    return 2 * D * PRODUCTS[kernel] * B * H * t_local * t_local * n
 
 
 # ------------------------------------------------- transformer backbones

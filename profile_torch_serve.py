@@ -4,7 +4,7 @@ step, goes on one NVIDIA GPU.
     python3 profile_torch_serve.py [--groupnorm fused|torch]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
-        [--backbone unet|dit|mmdit] [--kv-heads 1]
+        [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -31,8 +31,12 @@ or ``mmdit`` profiles the transformer cell (dim_h=512, depth 12, 8 heads of
 64, MMDiT with 2 KV heads; any ``--remat`` other than none rematerialises
 whole blocks), with its MFU (3 x the forward's model FLOPs over the step and
 989 TFLOP/s). ``--kv-heads 2`` gives the UNet two KV heads (the whole-song
-cell with it is ``chip_smoke.py``'s phase 17). The kernel table lists the
-largest kernels and every flash and halo kernel below them.
+cell with it is ``chip_smoke.py``'s phase 17). ``--mesh-seq N`` runs the
+step sequence-parallel in N processes (one card each over NCCL where N are
+visible, else all on one card over gloo), every global site through the ring,
+and reports rank 0's step, memory, launches (the ring's too) and kernel table.
+The kernel table lists the largest kernels and every flash, halo and ring
+kernel below them.
 """
 
 from __future__ import annotations
@@ -93,15 +97,17 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
         print("[profile] the profiler recorded no device time")
         return device_ms
     ranked = sorted(total_us.items(), key=lambda kv: -kv[1])
-    attention = [(name, us) for name, us in ranked[TOP:] if "flash_" in name or "halo_" in name]
+    attention = [(name, us) for name, us in ranked[TOP:] if any(k in name for k in ("flash_", "halo_", "ring_"))]
     for name, us in ranked[:TOP] + attention:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / device_ms:5.1f} % {count[name]:5d}x  {name[:110]}")
     return device_ms
 
 
 def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, backbone: str = "unet",
-                  kv_heads: int = 1) -> None:
-    """One training step at dim_h=512, through ``train/loop.py``."""
+                  kv_heads: int = 1, shard=None) -> None:
+    """One training step at dim_h=512, through ``train/loop.py``; with
+    ``shard``, this rank's part of the sequence-parallel step, reported by
+    rank 0 alone (every rank runs the same steps)."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -116,13 +122,20 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     )
     model = build_model(cfg.model, cfg.diffusion)
     state = init_state(model, cfg, "cuda")
-    if backbone == "unet":
-        # the final conv is zero at init, which would zero every gradient behind it
-        g = torch.Generator(device="cuda").manual_seed(1)
-        with torch.no_grad():
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        if backbone == "unet":
+            # the final conv is zero at init, which would zero every gradient behind it
             w = state.params.final_conv.weight
             w.copy_(torch.randn(w.shape, generator=g, device="cuda") / cfg.model.dim_h**0.5)
-    step = make_train_step(model, cfg)
+        else:
+            # so are the transformers' adaLN gates and output layers, which would leave the attention out of the
+            # loss: the loss then depends on every site, so runs over any number of shards can be compared
+            for w in state.params.parameters():
+                if w.ndim >= 2 and not w.any():
+                    w.copy_(torch.randn(w.shape, generator=g, device="cuda") * 0.5 / w[0].numel() ** 0.5)
+    step = make_train_step(model, cfg, shard)
+    report = shard is None or shard.index == 0
     rng = np.random.default_rng(0)
     batch = (rng.standard_normal((B, 6, T)).astype(np.float32), rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32),
              rng.uniform(-1, 1, (B, 5)).astype(np.float32), np.array([T, T - 500, T - 1000, T // 2][:B], np.int32))
@@ -135,6 +148,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     fa.flash_fwd.launches = fa.flash_fwd.lse_launches = fa.flash_bwd.launches = 0
     fa.flash_fwd.grouped_launches = fa.flash_bwd.grouped_launches = 0
     fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    fa.ring_merge.launches = fa.flash_bwd_prep.launches = fa.flash_bwd_sweep.launches = fa.flash_bwd_post.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -142,10 +156,18 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = sorted(times)[1]
+    if not report:
+        step(state, batch)  # rank 0's profiled step
+        return
     plan = f"{remat} ({','.join(levels)})" if remat == "mixed" else remat
     flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}.get(backbone)
     mfu = f"; MFU {3 * flops(cfg.model, B, T) / step_s / 989e12:.4f}" if flops else ""
     kv = f" kv_heads={kv_heads}" if kv_heads > 1 else ""
+    if shard is not None:
+        mfu = ""  # the model FLOPs are the whole step's, this is one rank's share
+        kv += (f" rank 0 of {shard.count} ({T // shard.count} frames a rank); ring per step: merge "
+               f"{fa.ring_merge.launches // 3}, pre-pass {fa.flash_bwd_prep.launches // 3}, sweep "
+               f"{fa.flash_bwd_sweep.launches // 3}, post-pass {fa.flash_bwd_post.launches // 3}")
     print(f"[train] {backbone}{kv} dim_h=512 B={B} T={T} {precision} remat={plan}: {step_s:.4f} s/step (median of {times}){mfu}; "
           f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, fused backward {fa.flash_bwd.launches // 3}, "
@@ -153,6 +175,29 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
           f"{fa.flash_fwd.grouped_launches // 3}, grouped backward {fa.flash_bwd.grouped_launches // 3}")
     device_ms = kernel_table(lambda: step(state, batch), "one training step")
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
+
+
+def _profile_rank(rank: int, n: int, port: int, args) -> None:
+    """One process of ``--train --mesh-seq n``, in torchrun's environment."""
+    import os
+
+    os.environ.update({"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": str(n), "RANK": str(rank),
+                       "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(n)})
+    import torch.distributed as dist
+
+    from osufusion_tpu_torch.parallel.distributed import local_device, maybe_initialize
+    from osufusion_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(local_device())
+    maybe_initialize()
+    if rank == 0:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        print(f"[device] {smi}; torch {torch.__version__}; {n} processes over {dist.get_backend()} on "
+              f"{torch.cuda.device_count()} card(s)", flush=True)
+    profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
+                  args.backbone, args.kv_heads, make_mesh(data=1, model=1, seq=n).seq_shard())
+    dist.destroy_process_group()
 
 
 def main() -> None:
@@ -167,9 +212,26 @@ def main() -> None:
     p.add_argument("--precision", choices=["full-bf16", "bf16"], default="full-bf16")
     p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
     p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
+    p.add_argument("--mesh-seq", type=int, default=1, help="--train: sequence shards, one process each")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
+    if args.train and args.mesh_seq > 1:
+        import multiprocessing
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_profile_rank, args=(r, args.mesh_seq, port, args)) for r in range(args.mesh_seq)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join()
+        if any(proc.exitcode for proc in procs):
+            raise SystemExit(f"profile_torch_serve: ranks exited with {[proc.exitcode for proc in procs]}")
+        return
 
     from osufusion_tpu_torch.codec.decode import Metadata, decode_beatmap
     from osufusion_tpu_torch.audio import frame_times

@@ -23,7 +23,7 @@ from osufusion_tpu_torch.train import loop
 
 # the JAX package's tiny UNet of test_seq_parallel_train_step_matches_dp: T = 256
 # against a context of 64, so every trunk site is windowed (halo kernels) and
-# the audio stack's sites, pinned to a context of 4096, are global (gathered)
+# the audio stack's sites, pinned to a context of 4096, are global (the ring)
 TINY_UNET = dict(dim_h=32, dim_h_mult=(1, 2), num_layer_blocks=(1, 1), num_middle_transformers=1, attn_dim_head=64,
                  attn_heads=2, attn_kv_heads=1, attn_context_len=64, dtype="float32")
 MIXED = dict(remat=True, remat_mode="mixed", remat_level_modes=("save-attn-out", "block"))
@@ -50,7 +50,7 @@ def attention_inputs(n: int, kv: int = 1):
 
 
 # (name, window, scale_base of the tables, KV heads): windowed through the halo
-# kernels, with one KV head and with two (run once per KV head); global, gathered
+# kernels, with one KV head and with two (run once per KV head); global, the ring
 ATTENTION_SITES = (("halo", 64, 64.0, 1), ("halo-gqa", 64, 64.0, 2), ("global", None, 256.0, 1))
 
 
@@ -186,6 +186,110 @@ def case_trainer(shard, project_dir: str):
     return history
 
 
+# ------------------------------------------------------------------ the ring
+
+# ring attention sites (tests/test_torch_ring.py): name -> (B, T, H, Kv, rotary
+# tables), global (window None); MQA with tables as the UNet's sites, GQA and
+# full MHA without, as MMDiT's and DiT's. Four shards take one batch row (the
+# JAX package's ring in interpret mode is slow), and the full-MHA site T = 512,
+# where the JAX package's full-MHA ring can fold timesteps
+RING_SITES = {"mqa": (2, 256, 2, 1, True), "gqa": (2, 256, 4, 2, False), "mha": (2, 256, 4, 4, False)}
+RING_SITES_4 = {"mqa": (1, 256, 2, 1, True), "gqa": (1, 256, 4, 2, False), "mha": (1, 512, 4, 4, False)}
+ROPE_BASE = 256.0
+# test_ring_train_step_transformer_backbones_match_dp's transformers and
+# test_ring_train_step_matches_dp's UNet (a context of T: every site global)
+RING_TRANSFORMER = dict(dim_h=128, depth=2, patch_size=4, attn_dim_head=64, attn_heads=2, attn_kv_heads=2,
+                        attn_context_len=T_SONG, dtype="float32")
+RING_UNET = dict(attn_context_len=T_SONG)
+
+
+def ring_site_inputs(name: str, sites: dict):
+    """q, k, v, do of a ring site, the whole sequence, from a seed."""
+    B_, T, H, kv, _ = sites[name]
+    rng = np.random.default_rng(30 + len(name) + T)
+    shapes = ((B_, T, H, 64), (B_, T, kv, 64), (B_, T, kv, 64), (B_, T, H, 64))
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for shape in shapes)
+
+
+class RouteCounter:
+    """Counts, while active, the calls of ``ops/attention.py``'s routes under
+    a shard (the ring and the whole-sequence gather) and the forward rings
+    that the ring op runs (``ring_fwd``; a rematerialisation policy that
+    keeps the op's outputs runs none again)."""
+
+    def __enter__(self):
+        from osufusion_tpu_torch.ops import attention, ring_attention
+
+        self.saved = [(attention, "ring_attention"), (attention, "all_gather_frames"), (ring_attention, "ring_fwd")]
+        self.calls = {"ring": 0, "gather": 0, "ring_fwd": 0}
+        for (module, name), key in zip(self.saved, self.calls):
+            setattr(module, name, self._counted(getattr(module, name), key))
+        return self
+
+    def _counted(self, fn, key: str):
+        def counted(*args, **kwargs):
+            self.calls[key] += 1
+            return fn(*args, **kwargs)
+
+        counted.wrapped = fn
+        return counted
+
+    def __exit__(self, *exc):
+        for module, name in self.saved:
+            setattr(module, name, getattr(module, name).wrapped)
+
+    def counts(self) -> dict:
+        return dict(self.calls)
+
+
+def case_ring_sites(shard, sites: dict):
+    """Per site: o, dq, dk, dv of this rank's frames through ``sdpa`` under
+    the shard, and the routes it took."""
+    out = {}
+    for name, (_, T, _, _, tables) in sites.items():
+        q, k, v, do = ring_site_inputs(name, sites)
+        leaves = [frames_of(t, shard).clone().requires_grad_(True) for t in (q, k, v)]
+        with RouteCounter() as routes, sequence_sharding(shard):
+            o = sdpa(*leaves, None, rope_tables(T, 64, scale_base=ROPE_BASE) if tables else None)
+            o.backward(frames_of(do, shard))
+        out[name] = {"grads": (o.detach(), *(t.grad for t in leaves)), "routes": routes.counts()}
+    return out
+
+
+def case_ring_transformer(shard, backbone: str, weights: dict, batch, draws, remat: bool):
+    """The loss and every parameter's gradient (summed over the group) of a
+    transformer backbone on this rank's frames, and the routes its sites took."""
+    model = build_model(ModelConfig(backbone=backbone, remat=remat, **RING_TRANSFORMER), DiffusionConfig())
+    net = model.init_params(seed=0, device="cpu", dtype=torch.float32)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    net.train()
+    x, a, c, orig_len = (torch.from_numpy(np.ascontiguousarray(b)) for b in batch)
+    noise, t, cond_mask = (torch.from_numpy(np.array(d)) for d in draws)
+    x, a = (frames_of(b, shard, dim=-1) for b in (x, a))
+    with RouteCounter() as routes, sequence_sharding(shard):
+        loss = model.loss_from_draws(net, x, a, c, orig_len, frames_of(noise, shard, dim=-1), t, cond_mask)
+        loss.backward()
+    loop.sum_gradients(net, shard)
+    grads = {name: torch.zeros_like(p) if p.grad is None else p.grad for name, p in net.named_parameters()}
+    return {"loss": loss.item(), "grads": grads if shard.index == 0 else None, "routes": routes.counts()}
+
+
+def case_ring(shard, sites: dict, transformers=None):
+    """The ring sites; with ``transformers`` ({backbone: (weights, batch,
+    draws)}) also each backbone's loss and gradients, plain and under block
+    remat, and one AdamW step of the tiny UNet whose every site is global."""
+    out = {"sites": case_ring_sites(shard, sites)}
+    for backbone, (weights, batch, draws) in (transformers or {}).items():
+        for remat in (False, True):
+            out[f"{backbone}-{'remat' if remat else 'plain'}"] = case_ring_transformer(
+                shard, backbone, weights, batch, draws, remat)
+    if transformers:
+        for name, remat in (("unet", {}), ("unet-save-attn-out", dict(remat=True, remat_mode="save-attn-out"))):
+            with RouteCounter() as routes:
+                out[name] = {**case_unet(shard, **RING_UNET, **remat), "routes": routes.counts()}
+    return out
+
+
 CASES = {
     "exchange": case_exchange,
     "attention": case_attention,
@@ -193,6 +297,7 @@ CASES = {
     "unet": case_unet,
     "unet-mixed": lambda shard: case_unet(shard, **MIXED),
     "trainer": case_trainer,
+    "ring": case_ring,
 }
 
 

@@ -33,6 +33,7 @@ for name in names:
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.split(".")[0] in FORBIDDEN], "a forbidden module was imported"
 assert {{"osufusion_tpu_torch.nn.dit", "osufusion_tpu_torch.nn.mmdit"}} <= set(names), "the transformer backbones"
+assert {{"osufusion_tpu_torch.ops.ring_attention", "osufusion_tpu_torch.parallel.ring"}} <= set(names), "the ring"
 print(len(names))
 """
 
@@ -61,7 +62,8 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_torch_serve.py", "tests/test_torch_kernels.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_torch_serve.py", "tests/test_torch_kernels.py",
+                                    "tests/seq_parallel_cases.py"])
 def test_scripts_import_nothing_of_jax(script):
     roots = _imported_roots(ROOT / script)
     assert "torch" in roots and not roots & set(FORBIDDEN)

@@ -511,3 +511,88 @@ def test_windowed_forward_at_a_narrow_level_matches_plain(cuda, rope):
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, W))
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+
+
+# the ring (K6): K2's entry points apart, the merge, and the ring over n shards
+# as threads of this process (``LocalRing``); (B, T, H, Kv, tables)
+RING_SPLIT_SHAPES = [(2, 256, 16, 1, True), (1, 333, 8, 2, False), (2, 200, 4, 4, False)]
+
+
+def _mqa(x, Kv):
+    return x[:, :, 0].contiguous() if Kv == 1 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,rope", RING_SPLIT_SHAPES)
+def test_split_backward_entry_points_match_the_one_call(cuda, B, T, H, Kv, rope):
+    """The pre-pass, a storing sweep and the post-pass give the one-call
+    backward's dk and dv bit for bit (dq up to the order of its atomics); a
+    second, accumulating sweep over the same keys doubles dk and dv exactly."""
+    q, k, v, do, (cos, sin) = _grouped_inputs(B, T, H, Kv, rope, cuda)
+    k, v = _mqa(k, Kv), _mqa(v, Kv)
+    k_rot = fa.rotated_k(k, cos, sin) if rope else k
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, 0.125, return_lse=True)
+    dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    launches = (fa.flash_bwd_prep.launches, fa.flash_bwd_sweep.launches, fa.flash_bwd_post.launches)
+    prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, 0.125)
+    dk2, dv2 = (torch.full(k.shape, float("nan"), device=cuda) for _ in range(2))  # a storing sweep overwrites
+    fa.flash_bwd_sweep(k_rot, v, prep, dk2, dv2, accumulate=False)
+    dq2 = fa.flash_bwd_post(prep, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_prep.launches, fa.flash_bwd_sweep.launches, fa.flash_bwd_post.launches) == tuple(
+        n + 1 for n in launches)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert _rel(dq2, dq.float()) < REL_TOL
+    fa.flash_bwd_sweep(k_rot, v, prep, dk2, dv2, accumulate=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dk2, 2 * dk) and torch.equal(dv2, 2 * dv)
+
+
+@pytest.mark.cuda
+def test_ring_merge_matches_plain(cuda):
+    """Three hops folded by the kernel and by the plain merge; the last writes
+    the bf16 output."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, T, H = 2, 300, 6
+    parts = [(torch.randn((B, T, H, 64), generator=g, device=cuda).to(torch.bfloat16),
+              torch.randn((B, T * H), generator=g, device=cuda) * 4) for _ in range(3)]
+    o_acc = lse = acc_ref = lse_ref = None
+    before = fa.ring_merge.launches
+    for hop, (o_j, lse_j) in enumerate(parts):
+        o_acc, lse, o = fa.ring_merge(o_acc, lse, o_j, lse_j, last=hop == 2)
+        acc_ref, lse_ref = fa.ring_merge_reference(acc_ref, lse_ref, o_j, lse_j)
+    torch.cuda.synchronize()
+    assert fa.ring_merge.launches == before + 3 and o.dtype == torch.bfloat16
+    assert (o.float() - acc_ref).abs().max().item() < TOL and (lse - lse_ref).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B,T,H,Kv,rope", [(2, 2, 1024, 16, 1, True), (4, 1, 1024, 8, 2, False),
+                                             (4, 2, 512, 4, 4, False)])
+def test_ring_over_shards_matches_its_plain_parts(cuda, n, B, T, H, Kv, rope):
+    """The ring forward and backward of every shard (K1 and the merge per hop;
+    the pre-pass, an accumulating sweep per hop, the post-pass) against the
+    same ring through the plain parts."""
+    from osufusion_tpu_torch.ops.ring_attention import LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    q, k, v, do, (cos, sin) = _grouped_inputs(B, T, H, Kv, rope, cuda)
+    k, v = _mqa(k, Kv), _mqa(v, Kv)
+    k_rot = fa.rotated_k(k, cos, sin) if rope else k
+    t = T // n
+
+    def run(parts):
+        def rank(r, rotation):
+            qr, kr, vr, dor = (x[:, r * t : (r + 1) * t].contiguous() for x in (q, k_rot, v, do))
+            c, s = (None, None) if cos is None else (cos[r * t : (r + 1) * t], sin[r * t : (r + 1) * t])
+            o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+            return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+        results = LocalRing(n).run(rank)
+        torch.cuda.synchronize()
+        return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+    got, ref = run(None), run(PlainParts)
+    assert got[0].dtype == got[2].dtype == torch.bfloat16 and got[3].dtype == torch.float32
+    assert _rel(got[0], ref[0]) < REL_TOL and (got[1] - ref[1]).abs().max().item() < LSE_TOL
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+        assert torch.isfinite(a).all() and _rel(a, b) < REL_TOL, f"{name}: rel L2 {_rel(a, b)}"

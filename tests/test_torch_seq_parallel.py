@@ -1,11 +1,11 @@
 """Sequence parallelism on the CPU: gloo groups of 2 and 4 processes, one
 shard of the frame axis each (tests/seq_parallel_cases.py), against one
 process: the halo exchange and its backward at the song's ends, the sharded
-attention (halo kernels' plain versions at a windowed site, the gathered
-sequence at a global one), every UNet block with a cross-shard step, and one
-AdamW step of the tiny UNet (plain and under the ``mixed`` remat plan), whose
-one-process result the other tests hold to the JAX package; the trainer
-across a save and a resume.
+attention (halo kernels' plain versions at a windowed site, the ring's at a
+global one, which tests/test_torch_ring.py holds to the JAX package), every
+UNet block with a cross-shard step, and one AdamW step of the tiny UNet
+(plain and under the ``mixed`` remat plan), whose one-process result the
+other tests hold to the JAX package; the trainer across a save and a resume.
 
 Each group joins through a file store under the test's own directory and
 must report within ``TIMEOUT`` seconds: a rank that waits on a collective

@@ -242,7 +242,6 @@ def test_precision_modes_take_a_finite_step(precision):
     (["--mesh-model", "2"], "parallel"),
     (["--mesh-data", "2"], "item 5"),
     (["--sample-audio", "song.wav"], "sample"),
-    (["--model-backbone", "dit", "--mesh-seq", "2"], "dit"),  # the ring attention (K6) of its global sites
     (["--model-type", "rectified-flow"], "rectified"),
 ])
 def test_unported_flags_raise_naming_the_roadmap(tmp_path, flags, match):
