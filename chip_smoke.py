@@ -32,10 +32,12 @@ failure raises and the exit code is not 0:
    B=1, T=8192: bf16 on the GPU through the kernel vs fp32 on the CPU through
    the plain path.
 6. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
-   CFG 2.0; 60 s with two samples), each an ``.osz`` holding the returned
-   ``.osu`` texts with hit objects, with the kernel launched once per
-   attention site of the path; then the sampled signal through the kernels
-   vs through the plain attention vs a denoiser that predicts zero.
+   CFG 2.0; 60 s with two samples; the 180 s song with DPM-16), each an
+   ``.osz`` holding the returned ``.osu`` texts with hit objects, with the
+   kernel launched once per attention site of the path; then the sampler
+   alone on the 180 s cell (DDIM-50, then DPM-16: phase 20), and the sampled
+   signal through the kernels vs through the plain attention vs a denoiser
+   that predicts zero (DDIM-50, then DPM-16: phase 21).
 7. Gradient checks at the training width (dim_h=512, weights random
    everywhere): loss and backward in bf16 through the kernels vs float32
    through the plain versions, both on the GPU, at T=4096 (every site global)
@@ -129,6 +131,22 @@ failure raises and the exit code is not 0:
     twice a site, the pre-pass and the post-pass once, the sweep twice), no
     whole-sequence gather, peak memory per rank.
 
+20. DPM-Solver++(2M) latency: the 180 s cell of phase 6's sampler (B=1, 24576
+    frames, CFG 2.0, two seeded runs) at DPM-16 right after DDIM-50, in the
+    same process on the same weights: s/map of both, and K1's launches per
+    map held to the audio stack once plus one a site and step.
+21. DPM check: the signal at DPM-16 on the 60 s song through the kernels vs
+    through the plain attention vs a zero-predicting denoiser (phase 6's
+    bounds), and, with no bound, DPM-16's and DDIM-8's distances from
+    DDIM-50 from the same noise.
+22. DPM request: ``python -m osufusion_tpu_torch.inference --sampler dpmpp-2m
+    --steps 16`` in a process of its own on the serving weights saved as
+    ``model.safetensors`` with their ``config.json``; the ``.osz`` parses.
+23. Forms no kernel takes: on the card an fp32 site and a bf16 site with a
+    head dim of 128 raise NotImplementedError naming ROADMAP.md's queue 2
+    "forms" before any launch; a bf16, D=64 site whose window the wrapper
+    refuses, or whose launch fails, raises as well.
+
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero before printing either.
@@ -201,6 +219,9 @@ SERVE_FINAL_SCALE = 1e-3
 # zero, so that the first is small against the denoiser's own contribution
 SAMPLER_REL_TOL = 5e-2
 SAMPLER_MIN_EFFECT = 2e-1
+# DPM-Solver++(2M) at 16 steps: the sampler the JAX package's README recommends
+# for serving, the steps of its cell fullsong_gen_latency_dpmpp-2m16_cfg
+DPM_STEPS = 16
 QUEUE_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz: longer than the host takes to queue a timed run
 PEAK_FLOPS = 989e12  # H100 SXM, dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
@@ -596,6 +617,10 @@ def build_unet_pair():
     return serve_model, cpu, gpu
 
 
+def _unet_sites(cfg) -> int:
+    return 3 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers  # audio, down, up + middle
+
+
 def phase_unet(cpu, gpu) -> None:
     from osufusion_tpu_torch.ops import flash_attention as fa
 
@@ -621,7 +646,7 @@ def phase_unet(cpu, gpu) -> None:
          f"output std {out_cpu.std().item():.3f}")
     if out_gpu.shape != (1, T, 6) or not torch.isfinite(out_gpu).all():
         raise AssertionError(f"UNet output on the GPU: shape {tuple(out_gpu.shape)} or non-finite values")
-    expected = 3 * sum(gpu.cfg.num_layer_blocks) + gpu.cfg.num_middle_transformers  # audio, down, up + middle
+    expected = _unet_sites(gpu.cfg)
     if n_sites != expected:
         raise AssertionError(f"UNet forward launched the kernel {n_sites} times, expected {expected}")
     if not rel < UNET_REL_TOL:
@@ -681,71 +706,94 @@ def serving_weights(model):
     return params.to(model.model_cfg.compute_dtype).eval()
 
 
+def _sampler_name(method: str, steps: int) -> str:
+    return f"{'DPM' if method == 'dpmpp-2m' else 'DDIM'}-{steps}"
+
+
+def _map_launches(model, cfg, method: str, steps: int) -> int:
+    """K1's launches for one map: the audio stack once, then every site of
+    the CFG-doubled UNet call once a step (a DPM grid can be shorter than
+    ``steps`` where timesteps collapse)."""
+    from osufusion_tpu_torch.models.dpm import dpmpp_timesteps
+
+    calls = len(dpmpp_timesteps(steps, model.acp.numpy())) if method == "dpmpp-2m" else steps
+    return sum(cfg.num_layer_blocks) + calls * (2 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers)
+
+
 def phase_serve(model, params) -> int:
-    """Serve two requests; returns the kernel launches of both."""
+    """Serve three requests through ``generate_beatmap``: a 180 s song at
+    DDIM-50, a 60 s song with two samples, and the 180 s song at DPM-16;
+    returns the kernel launches of all three."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.serve import LENGTH_BUCKET, generate_beatmap
 
-    cfg = params.cfg
-    steps = 50
-    per_call = 2 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers
-    expected = sum(cfg.num_layer_blocks) + steps * per_call  # audio stack once, then every step
     total = 0
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for label, seconds, n_samples in (("a", 180.0, 1), ("b", 60.0, 2)):
+        for label, seconds, n_samples, sampler, steps in (("a", 180.0, 1, "ddim", 50), ("b", 60.0, 2, "ddim", 50),
+                                                           ("a", 180.0, 1, "dpmpp-2m", DPM_STEPS)):
             wav = tmp / f"song_{label}.wav"
             synth_song(wav, seconds, seed=ord(label))
+            expected = _map_launches(model, params.cfg, sampler, steps)
             fa.flash_fwd.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             data, osu_texts = generate_beatmap(model, params, wav, title=f"smoke {label}", num_samples=n_samples,
-                                       sampling_timesteps=steps, cond_scale=2.0, seed=0)
+                                               sampling_timesteps=steps, sampler=sampler, cond_scale=2.0, seed=0)
             latency = time.perf_counter() - t0
             launches = fa.flash_fwd.launches
             total += launches
             hits = check_osz(data, osu_texts, n_samples)
             frames = 1 + int(seconds * SR) // 176
             padded = -(-frames // LENGTH_BUCKET) * LENGTH_BUCKET
-            _log(f"[serve {label}] {seconds:.0f} s song, {frames} frames (padded {padded}), DDIM-{steps}, CFG 2.0, "
+            name = _sampler_name(sampler, steps)
+            _log(f"[serve {label}] {seconds:.0f} s song, {frames} frames (padded {padded}), {name}, CFG 2.0, "
                  f"num_samples={n_samples}: {latency:.3f} s end to end; {len(data)} byte .osz; hit objects {hits}; "
                  f"kernel launches {launches} (expected {expected})")
             if launches != expected:
-                raise AssertionError(f"request {label}: {launches} kernel launches, expected {expected}")
+                raise AssertionError(f"request {label} ({name}): {launches} kernel launches, expected {expected}")
     return total
 
 
-def phase_sampler_latency(model, params) -> None:
-    """The sampler alone on the 180 s cell (what the JAX package's bench
-    measures as fullsong_gen_latency_ddim50_cfg), twice."""
+def phase_sampler_latency(model, params, method: str = "ddim", steps: int = 50) -> list[float]:
+    """The sampler alone on the 180 s cell, twice, as the JAX package's bench
+    measures it (fullsong_gen_latency_ddim50_cfg; at DPM-16
+    fullsong_gen_latency_dpmpp-2m16_cfg): B=1, 24576 frames, CFG 2.0, K1's
+    launches per map counted and held to ``_map_launches``. Returns the
+    seconds per map of the two runs."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
     g = torch.Generator().manual_seed(0)
     frames = 24576
     a = (torch.randn((1, 96, frames), generator=g) * 3 - 10).cuda()
     c = (torch.rand((1, 5), generator=g) * 2 - 1).cuda()
-    times = []
+    expected = _map_launches(model, params.cfg, method, steps)
+    times, launches = [], []
     for seed in (1, 2):
         x0 = torch.randn((1, 6, frames), generator=torch.Generator().manual_seed(seed)).cuda()
         torch.cuda.synchronize()
+        fa.flash_fwd.launches = 0
         t0 = time.perf_counter()
-        out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=50)
+        out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=steps, method=method)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        launches.append(fa.flash_fwd.launches)
         if not torch.isfinite(out).all():
             raise AssertionError("sampler output has non-finite values")
-    _log(f"[sampler] 24576 frames, DDIM-50, CFG 2.0, B=1: {times[0]:.3f} s, {times[1]:.3f} s per map")
+    _log(f"[sampler] 24576 frames, {_sampler_name(method, steps)}, CFG 2.0, B=1: {times[0]:.3f} s, {times[1]:.3f} s "
+         f"per map; K1 launches per map {launches} (expected {expected})")
+    if launches != [expected] * 2:
+        raise AssertionError(f"sampler {_sampler_name(method, steps)}: K1 launches per map {launches}, expected {expected}")
+    return times
 
 
-def phase_sampler_check(model, params, workdir: Path) -> None:
-    """The sampler's output is the denoiser's: on a 60 s song (8192 padded
-    frames, DDIM-50, CFG 2.0) the signal sampled through the kernels agrees
-    with the one sampled through the plain attention on the GPU, and both lie
-    far from the trajectory of a denoiser that predicts zero."""
+def check_song(workdir: Path) -> tuple:
+    """The sampler checks' inputs: a 60 s song's spectrogram padded to 8192
+    frames, a neutral context, seeded noise; all on the GPU."""
     import torch.nn.functional as F
 
     from osufusion_tpu_torch.audio import load_audio
-    from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import A_PAD_VALUE
-    from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.serve import LENGTH_BUCKET
 
     wav = workdir / "song_check.wav"
@@ -754,6 +802,19 @@ def phase_sampler_check(model, params, workdir: Path) -> None:
     a = F.pad(spec, (0, LENGTH_BUCKET - spec.shape[-1]), value=A_PAD_VALUE)[None]
     c = torch.zeros((1, 5), device="cuda")
     x0 = torch.randn((1, 6, LENGTH_BUCKET), generator=torch.Generator().manual_seed(0)).cuda()
+    return a, c, x0
+
+
+def phase_sampler_check(model, params, song: tuple, method: str = "ddim", steps: int = 50) -> torch.Tensor:
+    """The sampler's output is the denoiser's: on a 60 s song (``check_song``:
+    8192 padded frames, CFG 2.0) the signal sampled through the kernels agrees
+    with the one sampled through the plain attention on the GPU, and both lie
+    far from the trajectory of a denoiser that predicts zero. Returns the
+    signal through the kernels."""
+    from osufusion_tpu_torch.nn import blocks
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    a, c, x0 = song
     plain, zero = copy.deepcopy(params), copy.deepcopy(params)
     for module in plain.modules():
         if isinstance(module, blocks.Attention):
@@ -762,18 +823,67 @@ def phase_sampler_check(model, params, workdir: Path) -> None:
         zero.final_conv.weight.zero_()
         zero.final_conv.bias.zero_()
     before = fa.flash_fwd.launches
-    signals = [model.sample(p, a, c, x=x0, cond_scale=2.0, sampling_timesteps=50) for p in (params, plain, zero)]
+    signals = [model.sample(p, a, c, x=x0, cond_scale=2.0, sampling_timesteps=steps, method=method)
+               for p in (params, plain, zero)]
     launches = fa.flash_fwd.launches - before
     through_kernels, through_plain, zero_eps = signals
     rel_plain, rel_zero = _rel(through_kernels, through_plain), _rel(through_kernels, zero_eps)
     flipped = ((through_kernels > 0) != (zero_eps > 0)).float().mean().item()
-    _log(f"[sampler check] {LENGTH_BUCKET} frames, DDIM-50, CFG 2.0: signal through the kernels vs through the plain attention "
-         f"rel L2 {rel_plain:.3e} (bound {SAMPLER_REL_TOL}); vs a zero-predicting denoiser {rel_zero:.3e} (at least "
-         f"{SAMPLER_MIN_EFFECT}), {flipped:.2%} of the signs differ; kernel launches {launches}")
+    name = _sampler_name(method, steps)
+    _log(f"[sampler check] {a.shape[-1]} frames, {name}, CFG 2.0: signal through the kernels vs through the plain "
+         f"attention rel L2 {rel_plain:.3e} (bound {SAMPLER_REL_TOL}); vs a zero-predicting denoiser {rel_zero:.3e} (at "
+         f"least {SAMPLER_MIN_EFFECT}), {flipped:.2%} of the signs differ; kernel launches {launches}")
     if not all(torch.isfinite(x).all() for x in signals):
-        raise AssertionError("sampler check: non-finite signal")
+        raise AssertionError(f"sampler check {name}: non-finite signal")
     if not (rel_plain < SAMPLER_REL_TOL and rel_zero > SAMPLER_MIN_EFFECT):
-        raise AssertionError(f"sampler check: kernels vs plain {rel_plain:.3e}, vs zero-predicting {rel_zero:.3e}")
+        raise AssertionError(f"sampler check {name}: kernels vs plain {rel_plain:.3e}, vs zero-predicting {rel_zero:.3e}")
+    return through_kernels
+
+
+def phase_dpm_check(model, params, song: tuple, ddim50: torch.Tensor) -> None:
+    """``phase_sampler_check`` at DPM-16 on the same song and noise, then the
+    control of ``tests/test_samplers.py::test_dpm16_matches_ddim50_decoded_maps``
+    with no bound: how far DPM-16 and DDIM-8 (through the kernels) lie from
+    DDIM-50 (``ddim50``, the DDIM check's signal)."""
+    dpm16 = phase_sampler_check(model, params, song, "dpmpp-2m", DPM_STEPS)
+    a, c, x0 = song
+    ddim8 = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=8)
+    _log(f"[dpm check] {a.shape[-1]} frames, CFG 2.0, the same noise, through the kernels (no bound): DPM-{DPM_STEPS} vs "
+         f"DDIM-50 rel L2 {_rel(dpm16, ddim50):.3e}, max abs {(dpm16 - ddim50).abs().max().item():.3e}; DDIM-8 vs DDIM-50 "
+         f"rel L2 {_rel(ddim8, ddim50):.3e}, max abs {(ddim8 - ddim50).abs().max().item():.3e}")
+    if not torch.isfinite(ddim8).all():
+        raise AssertionError("dpm check: non-finite DDIM-8 signal")
+
+
+def phase_dpm_request(model, params, workdir: Path) -> None:
+    """One request through the command line, ``python -m
+    osufusion_tpu_torch.inference --sampler dpmpp-2m --steps 16``, in a
+    process of its own, serving ``params`` saved as the trainer saves a
+    checkpoint (``model.safetensors`` with its ``config.json``) on a 180 s
+    song; the .osz must parse."""
+    from osufusion_tpu_torch.config import Config
+    from osufusion_tpu_torch.trainer import save_model_safetensors
+
+    Config(model=params.cfg, diffusion=model.cfg).save(workdir / "config.json")
+    save_model_safetensors(params, workdir / "model.safetensors")
+    wav, osz = workdir / "song_request.wav", workdir / "request.osz"
+    synth_song(wav, 180.0, seed=ord("a"))
+    cmd = [sys.executable, "-m", "osufusion_tpu_torch.inference", "--model-path", str(workdir / "model.safetensors"),
+           "--audio", str(wav), "--output", str(osz), "--sampler", "dpmpp-2m", "--steps", str(DPM_STEPS),
+           "--cfg-scale", "2.0"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"dpm request: the command exited {done.returncode}:\n{done.stderr[-4000:]}")
+    data = osz.read_bytes()
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        texts = [z.read(n).decode() for n in z.namelist() if n.endswith(".osu")]
+    hits = check_osz(data, texts, 1)
+    _log(f"[dpm request] python -m osufusion_tpu_torch.inference --sampler dpmpp-2m --steps {DPM_STEPS}, 180 s song, "
+         f"CFG 2.0, a {params.cfg.dim_h}-wide UNet from model.safetensors + config.json: {seconds:.3f} s for the whole "
+         f"process (start, CUDA context, load, sample, decode); {len(data)} byte .osz; hit objects {hits}; "
+         f"{done.stdout.strip().splitlines()[-1]}")
 
 
 def randomize_everywhere(unet, seed: int) -> None:
@@ -873,7 +983,7 @@ def phase_grad_check(B: int, T: int) -> None:
         raise AssertionError("gradient check: non-finite loss or gradient through the kernels")
     if not (rel_loss < LOSS_REL_TOL and rel_all < GRAD_REL_TOL and rel_attn < GRAD_REL_TOL):
         raise AssertionError(f"gradient check: loss rel {rel_loss:.3e}, gradient rel L2 {rel_all:.3e}, attention {rel_attn:.3e}")
-    sites = 3 * sum(net.cfg.num_layer_blocks) + net.cfg.num_middle_transformers
+    sites = _unet_sites(net.cfg)
     windowed = T > net.cfg.attn_context_len
     expected = {"forward": 0, "forward_lse": sites, "backward_fused": 0 if windowed else sites,
                 "backward_dq": sites if windowed else 0, "backward_dkv": sites if windowed else 0,
@@ -928,7 +1038,7 @@ def phase_train(workdir: Path) -> tuple[int, int, tuple]:
                               batch_size=4, full_bf16=True, total_steps=half if resume else steps, warmup_steps=2,
                               save_every=half if resume else 0, num_workers=2, seed=0),
         )
-        sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+        sites = _unet_sites(cfg.model)
         history, launches, peak = _train_with_resume(cfg, steps, f"train {remat}")
         first = (history[0]["loss"], history[0]["grad_norm"]) if remat == "none" else first
         totals[0] += launches["forward_lse"]
@@ -943,6 +1053,66 @@ def phase_train(workdir: Path) -> tuple[int, int, tuple]:
         if launches != expected:
             raise AssertionError(f"train {remat}: launches {launches}, expected {expected}")
     return totals[0], totals[1], first
+
+
+# a CUDA error code that a failed launch returns (cudaErrorLaunchFailure)
+LAUNCH_FAILURE = 719
+
+
+def _all_launches(fa, ha) -> tuple:
+    """Every kernel's launch counter, those of sequence parallelism too."""
+    return (fa.flash_fwd.launches, fa.flash_bwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_prep.launches, fa.flash_bwd_sweep.launches, fa.flash_bwd_post.launches,
+            fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
+
+
+def phase_forms() -> None:
+    """On the card an attention site raises where no kernel serves it, and
+    nothing else runs in its place: through ``ops.attention.sdpa``, an fp32
+    site and a bf16 site with a head dim of 128 raise NotImplementedError
+    naming ROADMAP.md's queue 2 "forms" before any launch; a bf16, D = 64
+    site whose window the wrapper refuses raises ValueError, and one whose
+    kernel launch fails raises RuntimeError."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.ops.attention import sdpa
+    from osufusion_tpu_torch.ops.rope import rope_tables
+
+    B, T, H = 2, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    raised, expected = [], []
+
+    def call(dtype, D, window, error):
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, T, 1, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
+        rope = rope_tables(T, D, scale_base=512.0, device="cuda")
+        expected.append(error.__name__)
+        try:
+            sdpa(q, k, v, window, rope)
+        except error as e:
+            raised.append((error.__name__, str(e)))
+
+    before = _all_launches(fa, ha)
+    call(torch.float32, 64, 256, NotImplementedError)
+    call(torch.bfloat16, 128, None, NotImplementedError)
+    no_launch = _all_launches(fa, ha) == before
+    call(torch.bfloat16, 64, -2, ValueError)  # a window the wrapper refuses
+
+    def failing(entry: str):
+        return lambda *args: LAUNCH_FAILURE
+
+    kernel = fa._kernel
+    fa._kernel = failing
+    try:
+        call(torch.bfloat16, 64, 256, RuntimeError)
+    finally:
+        fa._kernel = kernel
+    _log(f"[forms] sites through ops.attention.sdpa (B={B}, T={T}, H={H}) on the card: {raised}; no launch for the "
+         f"fp32 and D=128 sites: {no_launch}")
+    if [name for name, _ in raised] != expected or not no_launch:
+        raise AssertionError(f"forms: raised {raised}, expected {expected}; no launch {no_launch}")
+    if not all('queue 2, "forms"' in msg for _, msg in raised[:2]):
+        raise AssertionError(f"forms: the NotImplementedError does not name ROADMAP.md's queue 2: {raised[:2]}")
 
 
 # remat plan -> (steps, attention forwards that its backward runs again, per
@@ -976,7 +1146,7 @@ def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
         resume = plan == "mixed"
         cfg = _fullsong_config(plan, workdir / f"fullsong_{plan}", steps // 2 if resume else steps,
                                steps // 2 if resume else 0)
-        sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+        sites = _unet_sites(cfg.model)
         history, launches, peak = _train_with_resume(cfg, steps, f"full-song {plan}")
         losses[plan] = [h["loss"] for h in history]
         _log(f"[full-song {plan}] dim_h=512 B=1 T={FULLSONG_T} full bf16, {steps} steps"
@@ -1006,7 +1176,7 @@ def phase_gqa_fullsong_train(workdir: Path) -> dict:
     kv, steps = 2, 2
     cfg = _fullsong_config("mixed", workdir / "fullsong_gqa", steps, 0)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_kv_heads=kv))
-    sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+    sites = _unet_sites(cfg.model)
     again = FULLSONG_PLANS["mixed"][1]
     history, launches, peak = _train_with_resume(cfg, steps, "full-song GQA")
     _log(f"[full-song GQA] dim_h=512 B=1 T={FULLSONG_T} attn_kv_heads={kv} full bf16 mixed, {steps} steps: "
@@ -1321,7 +1491,7 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
     import queue as queue_module
 
     cfg = _fullsong_config("mixed", workdir / "seq", steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
-    sites = 3 * sum(cfg.model.num_layer_blocks) + cfg.model.num_middle_transformers
+    sites = _unet_sites(cfg.model)
     steps, again = 2, FULLSONG_PLANS["mixed"][1]
     expected = {"halo_fwd": (sites + again) * steps, "halo_bwd_dq": sites * steps, "halo_bwd_dkv": sites * steps,
                 "forward": 0, "forward_lse": 0, "backward_fused": 0, "backward_dq": 0, "backward_dkv": 0,
@@ -1937,7 +2107,7 @@ def _ring_cells(project_dir: Path) -> list:
     unet = ModelConfig(dim_h=512, remat=False, remat_mode="save-attn")
     return [(b, Config(model=ModelConfig(backbone=b, remat=False, **TRANSFORMER), train=train_cfg(b)), TRANSFORMER["depth"])
             for b in ("dit", "mmdit")] + [
-        ("unet", Config(model=unet, train=train_cfg("unet")), 3 * sum(unet.num_layer_blocks) + unet.num_middle_transformers)]
+        ("unet", Config(model=unet, train=train_cfg("unet")), _unet_sites(unet))]
 
 
 def _sharded_grad_check(backbone: str, shard, B: int = 2, T: int = 4096) -> dict:
@@ -2133,10 +2303,17 @@ def main() -> int:
     del gpu
     served = serving_weights(model)
     launches = phase_serve(model, served)
-    phase_sampler_latency(model, served)
+    ddim = phase_sampler_latency(model, served)
+    dpm = phase_sampler_latency(model, served, "dpmpp-2m", DPM_STEPS)
+    _log(f"[sampler] DPM-{DPM_STEPS} vs DDIM-50 in this process, same weights and card: {statistics.mean(dpm):.3f} vs "
+         f"{statistics.mean(ddim):.3f} s per map (mean of two), {statistics.mean(dpm) / statistics.mean(ddim):.3f}x")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_sampler_check(model, served, Path(tmp))
-    del model, served
+        song = check_song(Path(tmp))
+        ddim50 = phase_sampler_check(model, served, song)
+        phase_dpm_check(model, served, song, ddim50)
+        phase_dpm_request(model, served, Path(tmp))
+    del model, served, song, ddim50
+    phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)

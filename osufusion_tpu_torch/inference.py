@@ -2,8 +2,9 @@
 
     python -m osufusion_tpu_torch.inference --model-path run/model.safetensors --audio song.wav
 
-Takes the flags of the repository's root ``inference.py``; only the ``ddim``
-sampler is ported.
+Takes the flags of the repository's root ``inference.py``; the ``ddim`` and
+``dpmpp-2m`` samplers are ported (``midpoint`` samples rectified flow, which
+is not).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from pathlib import Path
 from osufusion_tpu_torch.serve import generate_beatmap, load_model
 
 
-def main() -> None:
+def build_parser() -> ArgumentParser:
     p = ArgumentParser()
     p.add_argument("--model-path", type=Path, required=True)
     p.add_argument("--config-path", type=Path, default=None)
@@ -30,13 +31,22 @@ def main() -> None:
     p.add_argument("--sr", type=float, default=6.0)
     p.add_argument("--num-samples", type=int, default=1)
     p.add_argument("--steps", type=int, default=None)
-    p.add_argument("--sampler", type=str, default=None, choices=["ddim"],
-                   help="only ddim is ported to this package so far")
+    p.add_argument(
+        "--sampler",
+        type=str,
+        default=None,
+        choices=["ddim", "dpmpp-2m"],
+        help="override the model's sampler; dpmpp-2m reaches DDIM quality in ~half the steps",
+    )
     p.add_argument("--cfg-scale", type=float, default=2.0)
     p.add_argument("--bpm", type=float, default=None)
     p.add_argument("--no-beat-snap", action="store_true")
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args()
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
 
     model, params = load_model(args.model_path, args.config_path)
     data, osu_texts = generate_beatmap(

@@ -8,7 +8,10 @@ site on the CPU that needs a gradient: both go through ``flash_attention``
 ``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
 so one route serves both devices and a rematerialisation policy that keeps
 the op's outputs is the same on both. Any other CPU tensor takes the plain
-forward with native autograd.
+forward with native autograd. The kernels take bf16 operands with a head dim
+of 64; a CUDA site of another form (fp32 training, a checkpoint's other
+``attn_dim_head``) raises before any launch, as a kernel instance still to
+write (ROADMAP.md, queue 2, "forms").
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
 halo kernels take runs them on this rank's frames, once per KV head on that
 head's query heads (as ``osufusion_tpu/parallel/sequence.py`` splits a GQA
@@ -27,7 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, needs_gradient
+from osufusion_tpu_torch.ops.flash_attention import (
+    HEAD_DIM,
+    flash_attention,
+    flash_attention_reference,
+    needs_gradient,
+)
 from osufusion_tpu_torch.ops.rope import apply_rope
 from osufusion_tpu_torch.parallel.ring import ring_attention, ring_available
 from osufusion_tpu_torch.parallel.sequence import (
@@ -54,6 +62,9 @@ def sdpa(
     query sees keys within +/- window/2). Returns (B, T, H, D) in q's dtype.
     Under a sequence shard q, k and v hold this rank's frames and the tables
     cover the whole song."""
+    if q.is_cuda and (q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM):
+        raise NotImplementedError(f"no attention kernel takes {q.dtype} operands with head dim {q.shape[-1]} yet "
+                                  "(ROADMAP.md, queue 2, \"forms\"); the kernels take bfloat16 with head dim 64")
     shard = active_shard()
     if shard is None:
         return _local_sdpa(q, k, v, window, rope)

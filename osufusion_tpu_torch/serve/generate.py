@@ -72,7 +72,8 @@ def generate_beatmap(
     seed: int = 0,
     output_path: Optional[Path] = None,
 ) -> Tuple[bytes, list[str]]:
-    """Returns (.osz bytes, list of .osu texts). Writes to output_path if given."""
+    """Returns (.osz bytes, list of .osu texts). Writes to output_path if given.
+    ``sampler`` is ``"ddim"`` (the default) or ``"dpmpp-2m"``."""
     audio_path = Path(audio_path)
     device = params.null_cond.device
     spec = load_audio(audio_path, device=device)  # (96, T)

@@ -106,7 +106,7 @@ def train(cfg: Config, device: Optional[str] = None) -> list[dict]:
     check_supported(cfg)
     if cfg.train.sample_audio is not None:
         raise NotImplementedError(
-            "the periodic sample during training is not ported yet (ROADMAP.md, queue 1, item 1: sample_step with models/dpm.py)")
+            "the periodic sample during training is not ported yet (ROADMAP.md, queue 1, item 9: --sample-audio)")
     mode = cfg.train.dataset_mode
     bucket = min(D.BUCKET, max(64, cfg.train.segment_length))
     pad_to = D.process_invariant_pad(mode, cfg.train.segment_length, cfg.train.max_length) if mode == "dummy" else None

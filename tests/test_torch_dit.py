@@ -45,6 +45,7 @@ B, N = 2, 64
 # softmax of the plain kernels vs one softmax, convolutions, norms), ~1e-6
 # relative on the output; 1e-5 relative L2 is the bound
 FWD_TOL = 1e-5
+SAMPLE_TOL = 1e-4
 # the loss and gradients: ~1e-6 relative on the loss, ~1e-5 on gradient leaves
 # that sum over B * N frames
 LOSS_TOL = 1e-5
@@ -91,6 +92,24 @@ def test_forward_matches_jax(pair, cond, n):
         got = net(*(torch.from_numpy(v) for v in (x, a, t, c, mask))).numpy()
     assert got.shape == want.shape == (B, n, 6)
     assert _rel(got, want) < FWD_TOL
+
+
+def test_dpmpp_sample_matches_jax(pair):
+    """4 DPM-Solver++(2M) steps at CFG 2.0 from the same initial noise (the
+    first-order first and last steps, two second-order steps between): eight
+    forwards, each within FWD_TOL, through an update whose x0 extrapolation
+    weights a step's difference by up to 1 + w1 < 2; SAMPLE_TOL is ten
+    forwards' worth."""
+    backbone, jmodel, variables, model, net = pair
+    _, a, _, c = _inputs(N, seed=2)
+    a_cf = np.ascontiguousarray(a.transpose(0, 2, 1))
+    x0 = np.random.default_rng(3).standard_normal((B, 6, N)).astype(np.float32)
+    want = np.asarray(jmodel.sample(variables, jnp.asarray(a_cf), jnp.asarray(c), x=jnp.asarray(x0), cond_scale=2.0,
+                                    sampling_timesteps=4, method="dpmpp-2m"))
+    got = model.sample(net, torch.from_numpy(a_cf), torch.from_numpy(c), x=torch.from_numpy(x0), cond_scale=2.0,
+                       sampling_timesteps=4, method="dpmpp-2m").numpy()
+    assert got.shape == want.shape == (B, 6, N)
+    assert _rel(got, want) < SAMPLE_TOL
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,8 @@ elsewhere). Imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -596,3 +598,85 @@ def test_ring_over_shards_matches_its_plain_parts(cuda, n, B, T, H, Kv, rope):
     assert _rel(got[0], ref[0]) < REL_TOL and (got[1] - ref[1]).abs().max().item() < LSE_TOL
     for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
         assert torch.isfinite(a).all() and _rel(a, b) < REL_TOL, f"{name}: rel L2 {_rel(a, b)}"
+
+
+# ------------------------------------------------- forms no kernel takes, DPM++
+
+
+def _kernel_launches() -> tuple:
+    return (fa.flash_fwd.launches, fa.flash_bwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_prep.launches, fa.flash_bwd_sweep.launches, fa.flash_bwd_post.launches,
+            fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float16, 64), (torch.bfloat16, 128)],
+                         ids=["fp32", "fp16", "bf16-D128"])
+@pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
+def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
+    """``--mixed-precision no`` (fp32) or a checkpoint's other
+    ``attn_dim_head``: no kernel takes the site, so ``sdpa`` raises before
+    any launch, naming the kernel instances still to write, and runs nothing
+    in their place, forward or under a gradient."""
+    from osufusion_tpu_torch.ops.attention import sdpa
+
+    B, T, H = 2, 1024, 4
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype).requires_grad_(True)
+    k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    rope = rope_tables(T, D, scale_base=512.0, device=cuda)
+    before = _kernel_launches()
+    with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
+        with torch.no_grad():
+            sdpa(q, k, v, window, rope)
+    with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
+        sdpa(q, k, v, window, rope)
+    assert _kernel_launches() == before
+
+
+# the DPM-16 signal through the kernels vs through the plain attention (both
+# bf16 on the card): chip_smoke.py's bound for the sampled signal
+SAMPLER_REL_TOL = 5e-2
+
+
+@pytest.mark.cuda
+def test_dpm16_through_the_kernels_matches_the_plain_attention(cuda):
+    """The serving UNet (dim_h=128, bf16, weights random everywhere with the
+    final conv at 1e-3 of its lecun scale, as chip_smoke.py serves it)
+    samples 8192 frames with DPM-Solver++(2M) at 16 steps and CFG 2.0:
+    through the kernels, one forward a site and step (and the audio stack's
+    once), within SAMPLER_REL_TOL of the same sampler through the plain
+    attention."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.nn import blocks
+
+    model = build_model(ModelConfig(dim_h=128), DiffusionConfig())
+    params = model.init_params(seed=0, device=cuda, dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+            elif p.ndim == 1 and name.endswith("weight"):
+                p.copy_(1.0 + torch.randn(p.shape, generator=g) * 0.1)
+        w = params.final_conv.weight
+        w.copy_(torch.randn(w.shape, generator=g) / w.shape[1] ** 0.5 * 1e-3)
+    params = params.to(torch.bfloat16).eval()
+    plain = copy.deepcopy(params)
+    for module in plain.modules():
+        if isinstance(module, blocks.Attention):
+            module.sdpa = fa.flash_attention_reference
+    N = 8192
+    a = (torch.randn((1, 96, N), generator=g) * 3 - 10).to(cuda)
+    c = (torch.rand((1, 5), generator=g) * 2 - 1).to(cuda)
+    x0 = torch.randn((1, 6, N), generator=g).to(cuda)
+    before = fa.flash_fwd.launches
+    got = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=16, method="dpmpp-2m")
+    torch.cuda.synchronize()
+    launches = fa.flash_fwd.launches - before
+    ref = model.sample(plain, a, c, x=x0, cond_scale=2.0, sampling_timesteps=16, method="dpmpp-2m")
+    cfg = params.cfg
+    assert launches == sum(cfg.num_layer_blocks) + 16 * (2 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers)
+    assert got.shape == (1, 6, N) and torch.isfinite(got).all()
+    assert _rel(got, ref) < SAMPLER_REL_TOL

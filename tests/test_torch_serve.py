@@ -10,6 +10,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from scipy.io import wavfile
 
@@ -41,7 +42,8 @@ def _click_track(path, seconds=3.0, bpm=120.0):
     wavfile.write(path, sr, (np.clip(y, -1, 1) * 32767).astype(np.int16))
 
 
-def test_jax_checkpoint_serves_through_the_port(tmp_path):
+@pytest.mark.parametrize("sampler", [None, "dpmpp-2m"])
+def test_jax_checkpoint_serves_through_the_port(tmp_path, sampler):
     cfg = JConfig(model=JModelConfig(**TINY))
     jmodel = jax_build_model(cfg.model, cfg.diffusion)
     args = (jnp.zeros((1, 32, 6)), jnp.zeros((1, 32, 96)), jnp.zeros((1,)), jnp.zeros((1, 5)), jnp.ones((1,), bool))
@@ -61,7 +63,7 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path):
 
     wav = tmp_path / "song.wav"
     _click_track(wav)
-    data, texts = generate_beatmap(model, params, wav, num_samples=2, sampling_timesteps=2, seed=1,
+    data, texts = generate_beatmap(model, params, wav, num_samples=2, sampling_timesteps=2, sampler=sampler, seed=1,
                                    output_path=tmp_path / "out.osz")
     assert (tmp_path / "out.osz").read_bytes() == data
     with zipfile.ZipFile(io.BytesIO(data)) as z:

@@ -100,6 +100,22 @@ def test_ddim_sample_matches_jax(pair):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
 
 
+def test_dpmpp_sample_matches_jax(pair):
+    """4 DPM-Solver++(2M) steps at CFG 2.0 from the same initial noise: the
+    first-order first step, two second-order middle steps and the
+    first-order last step."""
+    jmodel, variables, tmodel, unet = pair
+    _, a, _, c = _inputs(5)
+    x0 = np.random.default_rng(6).standard_normal((B, 6, N)).astype(np.float32)
+    a_cf = np.ascontiguousarray(a.transpose(0, 2, 1))
+    want = np.asarray(jmodel.sample(variables, jnp.asarray(a_cf), jnp.asarray(c), x=jnp.asarray(x0),
+                                    cond_scale=2.0, sampling_timesteps=4, method="dpmpp-2m"))
+    got = tmodel.sample(unet, torch.from_numpy(a_cf), torch.from_numpy(c), x=torch.from_numpy(x0),
+                        cond_scale=2.0, sampling_timesteps=4, method="dpmpp-2m")
+    assert got.shape == (B, 6, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
 def test_ddim_schedule_matches_jax():
     from osufusion_tpu.models import ddim as jddim
 
@@ -120,8 +136,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="unknown backbone"):
         build_model(ModelConfig(**{**TINY, "backbone": "vit"}), DiffusionConfig())
     model = build_model(ModelConfig(**TINY), DiffusionConfig())
-    with pytest.raises(NotImplementedError):
-        model.sample(None, torch.zeros(1, 96, 8), torch.zeros(1, 5), x=torch.zeros(1, 6, 8), method="dpmpp-2m")
+    with pytest.raises(ValueError, match="unknown sampling method"):
+        model.sample(None, torch.zeros(1, 96, 8), torch.zeros(1, 5), x=torch.zeros(1, 6, 8), method="euler")
 
 
 def test_init_params_draws_as_the_jax_package_does():
