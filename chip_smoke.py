@@ -142,10 +142,35 @@ failure raises and the exit code is not 0:
 22. DPM request: ``python -m osufusion_tpu_torch.inference --sampler dpmpp-2m
     --steps 16`` in a process of its own on the serving weights saved as
     ``model.safetensors`` with their ``config.json``; the ``.osz`` parses.
-23. Forms no kernel takes: on the card an fp32 site and a bf16 site with a
-    head dim of 128 raise NotImplementedError naming ROADMAP.md's queue 2
-    "forms" before any launch; a bf16, D=64 site whose window the wrapper
-    refuses, or whose launch fails, raises as well.
+23. The forms family (``csrc/flash_forms.cu``: fp32 or bf16 operands, D = 64
+    ... 256, every form but bf16 at 64), phase by phase:
+    (f) what still raises, before any launch or gather: fp16 operands and
+    D = 320 through ``ops.attention.sdpa`` raise NotImplementedError naming
+    ROADMAP.md's queue 2 "forms"; a D = 32 site runs the XLA route (rope and
+    the plain attention), launches no kernel and equals the plain attention;
+    a refused window raises ValueError, a failed wgmma or forms launch
+    RuntimeError.
+    Kernel level: every (body, operand type, D) instance, forward with its
+    LSE, pre-pass, dq, dk/dv and post-pass, against its plain fp32 version at
+    B=2, T=4096, H=16 (global, tables), fp32/64 and bf16/128 also windowed
+    (B=1, T=16384, W=2048) and grouped (B=2, T=2048, H=8, Kv=2); planted
+    faults (the last key tile dropped or a window one key short; an LSE off
+    by 0.05) above the bounds (fp32: summation order only; bf16: phase 3's);
+    CUDA-event times beside the bound (fp32 FLOP at 67 TFLOP/s, bf16 at 989),
+    the plain version and rope + SDPA.
+    (b) and (c): fp32 serving and bf16 serving of a UNet with
+    attn_dim_head=128, each the 180 s song through ``generate_beatmap`` at
+    DPM-16, CFG 2.0 (444 forms forwards a map, no wgmma launch), the sampler
+    alone on the 180 s cell (s/map), and phase 21's signal check at 8192
+    frames. (d) the gradients of a dim_h=512 UNet of one block a level (13
+    sites, B=2, T=4096) through the forms kernels at fp32/64 and bf16/128
+    against fp32 through the plain versions. (e) the shard forms at kernel
+    level: the halo instances at phase 10's rank shape (B=1, T_local=16384,
+    W=4096, the second of four shards) and the ring over two shards as
+    threads at phase 18's UNet and DiT rank shapes, fp32/64 and bf16/128,
+    each with planted faults. (a) fp32 crop training: ``trainer.train`` with
+    ``mixed_precision="no"`` at dim_h=512, B=4, T=4096, 2 steps: 39 forms
+    forwards, pre-passes, dq, dk/dv and post-passes a step, no wgmma launch.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -283,14 +308,19 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
+# the template arguments that the kernels of ``csrc/`` take, as the Itanium ABI mangles them: a bool, an
+# int (the forms family's head dim), and the forms family's operand types float and __nv_bfloat16
+_TEMPLATE_ARG = r"Lb[01]E|Li\d+E|f|13__nv_bfloat16"
+
+
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name with its bool template arguments, from ptxas's
-    mangled one (every kernel of ``csrc/`` takes only bools)."""
-    found = re.search(r"([a-z][a-z_]*_kernel)(I(?:Lb[01]E)+E)?", mangled)
+    """A kernel's name with its template arguments, from ptxas's mangled one."""
+    found = re.search(rf"([a-z][a-z_]*_kernel)(I(?:{_TEMPLATE_ARG})+E)?", mangled)
     if found is None:
         return mangled
-    args = re.findall(r"Lb([01])E", found.group(2) or "")
-    return found.group(1) + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>" if args else "")
+    names = {"Lb0E": "false", "Lb1E": "true", "f": "float", "13__nv_bfloat16": "bf16"}
+    args = [names.get(a, a[2:-1]) for a in re.findall(_TEMPLATE_ARG, (found.group(2) or "")[1:-1])]
+    return found.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def _check_ptxas(report: str) -> None:
@@ -813,6 +843,7 @@ def phase_sampler_check(model, params, song: tuple, method: str = "ddim", steps:
     signal through the kernels."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
 
     a, c, x0 = song
     plain, zero = copy.deepcopy(params), copy.deepcopy(params)
@@ -822,10 +853,10 @@ def phase_sampler_check(model, params, song: tuple, method: str = "ddim", steps:
     with torch.no_grad():
         zero.final_conv.weight.zero_()
         zero.final_conv.bias.zero_()
-    before = fa.flash_fwd.launches
+    before = fa.flash_fwd.launches + forms.forms_fwd.launches
     signals = [model.sample(p, a, c, x=x0, cond_scale=2.0, sampling_timesteps=steps, method=method)
                for p in (params, plain, zero)]
-    launches = fa.flash_fwd.launches - before
+    launches = fa.flash_fwd.launches + forms.forms_fwd.launches - before
     through_kernels, through_plain, zero_eps = signals
     rel_plain, rel_zero = _rel(through_kernels, through_plain), _rel(through_kernels, zero_eps)
     flipped = ((through_kernels > 0) != (zero_eps > 0)).float().mean().item()
@@ -1066,13 +1097,231 @@ def _all_launches(fa, ha) -> tuple:
             fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
 
 
-def phase_forms() -> None:
-    """On the card an attention site raises where no kernel serves it, and
-    nothing else runs in its place: through ``ops.attention.sdpa``, an fp32
-    site and a bf16 site with a head dim of 128 raise NotImplementedError
-    naming ROADMAP.md's queue 2 "forms" before any launch; a bf16, D = 64
-    site whose window the wrapper refuses raises ValueError, and one whose
-    kernel launch fails raises RuntimeError."""
+# the forms instances of csrc/flash_forms.cu, (operand dtype, head dim); the main paths run fp32/64 (fp32
+# training and serving) and bf16/128 (a checkpoint's attn_dim_head of 128). bf16/64 exists as an instance
+# too, though the form rule gives that form to the wgmma kernels: it is checked and timed through the forms
+# wrappers directly, beside them.
+FORMS_INSTANCES = [(dt, D) for dt in (torch.float32, torch.bfloat16) for D in (64, 128, 192, 256)]
+FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
+# fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
+# operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
+# ~4096 * 2^-24 = 2.4e-4 relative, its typical error a few 1e-7. The planted faults (the last key tile
+# dropped: ~0.1; an LSE off by LSE_FAULT: 3.4e-2) lie orders of magnitude above. bf16 instances take the
+# D = 64 kernels' bounds (REL_TOL, ABS_TOL, LSE_TOL, BWD_REL_TOL, BWD_ABS_TOL).
+FORMS_F32_REL_TOL = 1e-4
+FORMS_F32_ABS_TOL = 1e-4  # of o absolutely, of a gradient times its largest magnitude
+FORMS_F32_LSE_TOL = 1e-4
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 on the FMA units (NVIDIA's data sheet)
+# the kernel-level site: the crop path's level 0 (B=4, T=4096, H=16, global, tables) at half its batch
+FORMS_SITE = (2, 4096, 16)
+# the main instances' extra sites: windowed MQA with tables, grouped without tables
+FORMS_WINDOWED = (1, 16384, 16, 2048)
+FORMS_GROUPED = (2, 2048, 8, 2)
+
+
+def _dtype_name(dtype) -> str:
+    return {torch.float32: "fp32", torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]
+
+
+def _forms_tols(dtype) -> tuple:
+    """(o rel L2, o max abs, lse max abs, gradient rel L2, gradient max abs as a share of its largest)."""
+    if dtype == torch.float32:
+        return FORMS_F32_REL_TOL, FORMS_F32_ABS_TOL, FORMS_F32_LSE_TOL, FORMS_F32_REL_TOL, FORMS_F32_ABS_TOL
+    return REL_TOL, ABS_TOL, LSE_TOL, BWD_REL_TOL, BWD_ABS_TOL
+
+
+def _forms_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The least milliseconds the card could take: fp32 operations at the FMA rate, bf16 at the tensor cores'."""
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_FLOPS
+    by_ops, by_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def _forms_counts(reset: bool = False) -> dict:
+    """The forms entry points' launch counters (set to 0 first with ``reset``)."""
+    from osufusion_tpu_torch.ops import flash_forms as forms
+
+    fns = {"fwd": forms.forms_fwd, "prep": forms.forms_bwd_prep, "dq": forms.forms_bwd_dq, "dkv": forms.forms_bwd_dkv,
+           "post": forms.forms_bwd_post, "merge": forms.forms_ring_merge}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _attention_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int, D: int = 64,
+                      dtype=torch.bfloat16):
+    """q, do (B, T, H, D), k_rot, k and v ((B, T, D) at Kv = 1, else (B, T, Kv, D)) in ``dtype`` on the card,
+    k_rot rotated with the song's tables (T, D) fp32, or k itself without them (None)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import rope_tables
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype) for _ in range(2))
+    kv_shape = (B, T, D) if Kv == 1 else (B, T, Kv, D)
+    k, v = (torch.randn(kv_shape, generator=g, device="cuda").to(dtype) for _ in range(2))
+    cos, sin = rope_tables(T, D, scale_base=float(T), device="cuda") if tables else (None, None)
+    return q, (k if cos is None else fa.rotated_k(k, cos, sin)), k, v, do, cos, sin
+
+
+def _forms_call(q, k_rot, v, do, cos, sin, window: int):
+    """One site through the forms instance of q's (dtype, D), directly through its wrappers: (o, lse), then
+    the backward's (dq, dk_rot, dv) from them, and the pre-pass's scratch."""
+    from osufusion_tpu_torch.ops import flash_forms as forms
+
+    B, T, H, D = q.shape
+    kv = 1 if k_rot.ndim == 3 else k_rot.shape[2]
+    scale = D**-0.5
+    o = torch.empty_like(q)
+    lse = torch.empty((B, T * H), dtype=torch.float32, device="cuda")
+    forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
+    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+    dk = torch.empty(k_rot.shape, dtype=torch.float32, device="cuda")
+    dv = torch.empty_like(dk)
+    forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
+    forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    return o, lse, forms.forms_bwd_post(prep, cos, sin, scale), dk, dv, prep
+
+
+def _forms_hold(where: str, got: tuple, q, k_rot, v, do, cos, sin, window: int, failures: list) -> tuple[float, str]:
+    """Hold one site's forward and backward (``_forms_call``'s first five) to the plain fp32 versions, with
+    planted faults (forward: the last FAULT_TILE keys dropped, or a window one key short; backward: an LSE off
+    by LSE_FAULT) that must land above the bounds. Returns (the largest error, a log line)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    o_rel_tol, o_abs_tol, lse_tol, g_rel_tol, g_abs_tol = _forms_tols(q.dtype)
+    o, lse, dq, dk, dv = got
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    if window < 0:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+    else:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0]
+
+    def plain_backward(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
+
+    refs, faults = plain_backward(lse_ref), plain_backward(lse_ref + LSE_FAULT)
+    o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+    lse_err, o_fault_rel = (lse - lse_ref).abs().max().item(), _rel(o_fault, o_ref)
+    worst = o_err
+    if not (o_rel < o_rel_tol and o_err < o_abs_tol and lse_err < lse_tol and torch.isfinite(o).all()):
+        failures.append(f"forward {where}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse max abs {lse_err:.3e}")
+    if not o_fault_rel > o_rel_tol:
+        failures.append(f"forward {where}: planted fault {o_fault_rel:.3e} would pass {o_rel_tol}")
+    parts = [f"o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault_rel:.3e}), lse max abs {lse_err:.3e}"]
+    for name, a, b, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+        rel, err, top = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item()
+        fault_rel = _rel(fault, b)
+        worst = max(worst, err)
+        parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+        if not (rel < g_rel_tol and err < g_abs_tol * top and torch.isfinite(a).all()):
+            failures.append(f"backward {where}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+        if not fault_rel > g_rel_tol:
+            failures.append(f"backward {where}: planted fault in {name} {fault_rel:.3e} would pass {g_rel_tol}")
+    return worst, "; ".join(parts) + f" (bounds {o_rel_tol:g}, {g_rel_tol:g})"
+
+
+def phase_forms_kernels() -> dict:
+    """Every forms instance against its plain fp32 version at FORMS_SITE (global, MQA, tables) with planted
+    faults above the bounds, timed by CUDA events beside its bound, its plain version and rope + SDPA; the
+    main instances also at FORMS_WINDOWED and FORMS_GROUPED. Returns {(dtype, D): {body: record}} for the
+    bodies fwd, dq, dkv and the helpers prep, post, merge."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.ops.rope import apply_rope, unapply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    failures, records = [], {}
+    for i, (dt, D) in enumerate(FORMS_INSTANCES):
+        name, size = f"{_dtype_name(dt)}/{D}", torch.finfo(dt).bits // 8
+        sites = [("global", (*FORMS_SITE, 1), -1, True)]
+        if (dt, D) in FORMS_MAIN:
+            B_w, T_w, H_w, W = FORMS_WINDOWED
+            sites += [("windowed", (B_w, T_w, H_w, 1), W, True), ("grouped", FORMS_GROUPED, -1, False)]
+        worst = 0.0
+        for j, (label, (B, T, H, Kv), window, tables) in enumerate(sites):
+            q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, Kv, tables, 1300 + 10 * i + j, D, dt)
+            got = _forms_call(q, k_rot, v, do, cos, sin, window)
+            torch.cuda.synchronize()
+            err, line = _forms_hold(f"{name} {label}", got[:5], q, k_rot, v, do, cos, sin, window, failures)
+            worst = max(worst, err)
+            _log(f"[forms kernels] {name} {label} B={B} T={T} H={H} Kv={Kv}{f' W={window}' if window >= 0 else ''}: {line}")
+            if label != "global":
+                del q, k_rot, k, v, do, got
+                continue
+            o, lse, _, _, _, prep = got
+            scale = D**-0.5
+            ms = {
+                "fwd": _cuda_ms(lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale), 3),
+                "prep": _cuda_ms(lambda: forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale), 5),
+                "dq": _cuda_ms(lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False), 3),
+                "dkv": _cuda_ms(lambda: forms.forms_bwd_dkv(k_rot, v, prep, torch.empty(k.shape, device="cuda"),
+                                                            torch.empty(k.shape, device="cuda"), -1, None, False), 3),
+                "post": _cuda_ms(lambda: forms.forms_bwd_post(prep, cos, sin, scale), 5),
+            }
+            o_acc, lse_acc = o.float(), lse.clone()
+            ms["merge"] = _cuda_ms(lambda: forms.forms_ring_merge(o_acc, lse_acc, o, lse, torch.empty_like(lse), None), 5)
+            plain = {
+                "fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
+                "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                "merge": _cuda_ms(lambda: fa.ring_merge_reference(o_acc, lse_acc, o, lse), 3),
+                "prep": _cuda_ms(lambda: (fa._scaled_rotated_q(q, cos, sin).to(dt), (do.float() * o.float()).sum(-1)), 3),
+                "post": _cuda_ms(lambda: (unapply_rope(prep.dq_acc[:, : T * H].reshape(B, T, H, D), cos, sin)
+                                          * scale).to(dt), 3),
+            }
+
+            # yardstick only: rope on q and k, then PyTorch's fused attention and its backward
+            def library(q_in, k_in, v_in):
+                qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+                kr = apply_rope(k_in, cos, sin)[:, None]
+                return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
+
+            with torch.no_grad():
+                lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 3)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            lib_out = library(*leaves)
+            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 3)
+            del leaves, lib_out
+            rows_bytes, keys_bytes, stats = B * T * H * D * size, B * T * D * size, B * T * H * 4
+            bounds = {
+                "fwd": _forms_bound(attention_flops("forward", B, T, H, D, None), 2 * rows_bytes + 2 * keys_bytes + stats, dt),
+                "dq": _forms_bound(attention_flops("backward_dq", B, T, H, D, None),  # qs do; k v; lse delta; dq fp32
+                                   2 * rows_bytes + 2 * keys_bytes + 2 * stats + B * T * H * D * 4, dt),
+                "dkv": _forms_bound(attention_flops("backward_dkv", B, T, H, D, None),  # qs do; k v; lse delta; dk dv fp32
+                                    2 * rows_bytes + 2 * keys_bytes + 2 * stats + 2 * B * T * D * 4, dt),
+                # q do o; lse; qs; lse delta
+                "prep": _forms_bound(B * T * H * D * 3, 4 * rows_bytes + 3 * stats, dt),
+                "post": _forms_bound(B * T * H * D * 3, B * T * H * D * 4 + rows_bytes + 2 * T * D * 4, dt),  # dq_acc; dq; tables
+                "merge": _forms_bound(B * T * H * (4 * D + 10), B * T * H * D * 8 + rows_bytes + 3 * stats, dt),
+            }
+            library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+            records[(dt, D)] = {
+                body: {"max_abs_err": err, "ms": ms[body],
+                       "plain_ms": plain[body], "bound_ms": bounds[body][0], "bound_by": bounds[body][1],
+                       "library_ms": library_ms.get(body)} for body in ms}
+            _log(f"[forms kernels] {name} B={B} T={T} H={H} global: "
+                 + "; ".join(f"{body} {ms[body]:.3f} ms (bound {bounds[body][0]:.3f} by {bounds[body][1]}, "
+                             f"{bounds[body][0] / ms[body]:.1%}; plain {plain[body]:.3f})" for body in ms)
+                 + f"; rope+SDPA forward {lib_fwd_ms:.3f}, backward {lib_bwd_ms:.3f} ms")
+            del q, k_rot, k, v, do, got, o, lse, prep, o_acc, lse_acc
+            torch.cuda.empty_cache()
+        for rec in records[(dt, D)].values():
+            rec["max_abs_err"] = worst
+    if failures:
+        raise AssertionError("forms kernels vs plain: " + "; ".join(failures))
+    return records
+
+
+def phase_forms_raise() -> None:
+    """(f) What still raises, raises before any launch or gather: through ``ops.attention.sdpa`` on the card,
+    fp16 operands at D = 64 and bf16 at D = 320 raise NotImplementedError naming ROADMAP.md's queue 2
+    "forms". A site whose head dim is not a multiple of 64 (D = 32) launches no kernel and equals the plain
+    attention, as the JAX package sends it to XLA. A bf16, D = 64 site whose window the wrapper refuses
+    raises ValueError; a wgmma or forms launch that fails raises RuntimeError."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.ops.attention import sdpa
@@ -1082,37 +1331,350 @@ def phase_forms() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     raised, expected = [], []
 
-    def call(dtype, D, window, error):
+    def site(dtype, D):
         q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((B, T, 1, D), generator=gen, device="cuda").to(dtype) for _ in range(2))
-        rope = rope_tables(T, D, scale_base=512.0, device="cuda")
+        return q, k, v, rope_tables(T, D, scale_base=512.0, device="cuda")
+
+    def call(dtype, D, window, error):
         expected.append(error.__name__)
         try:
-            sdpa(q, k, v, window, rope)
+            sdpa(*site(dtype, D)[:3], window, site(dtype, D)[3])
         except error as e:
             raised.append((error.__name__, str(e)))
 
-    before = _all_launches(fa, ha)
-    call(torch.float32, 64, 256, NotImplementedError)
-    call(torch.bfloat16, 128, None, NotImplementedError)
-    no_launch = _all_launches(fa, ha) == before
+    def counts():
+        return _all_launches(fa, ha), _forms_counts()
+
+    before = counts()
+    call(torch.float16, 64, 256, NotImplementedError)
+    call(torch.bfloat16, 320, None, NotImplementedError)
+    no_launch = counts() == before
+    q, k, v, rope = site(torch.bfloat16, 32)
+    xla = sdpa(q, k, v, 256, rope)
+    xla_rel = _rel(xla, fa.flash_attention_reference(q, k, v, 256, rope).float())
+    no_launch_xla = counts() == before
     call(torch.bfloat16, 64, -2, ValueError)  # a window the wrapper refuses
-
-    def failing(entry: str):
-        return lambda *args: LAUNCH_FAILURE
-
     kernel = fa._kernel
-    fa._kernel = failing
+    fa._kernel = lambda entry: (lambda *args: LAUNCH_FAILURE)
     try:
         call(torch.bfloat16, 64, 256, RuntimeError)
+        call(torch.float32, 64, 256, RuntimeError)
     finally:
         fa._kernel = kernel
-    _log(f"[forms] sites through ops.attention.sdpa (B={B}, T={T}, H={H}) on the card: {raised}; no launch for the "
-         f"fp32 and D=128 sites: {no_launch}")
-    if [name for name, _ in raised] != expected or not no_launch:
-        raise AssertionError(f"forms: raised {raised}, expected {expected}; no launch {no_launch}")
+    _log(f"[forms raise] sites through ops.attention.sdpa (B={B}, T={T}, H={H}) on the card: {raised}; no launch for "
+         f"fp16/64 and bf16/320: {no_launch}; bf16/32 (the XLA route) vs plain rel L2 {xla_rel:.1e}, no launch: "
+         f"{no_launch_xla}")
+    if [name for name, _ in raised] != expected or not (no_launch and no_launch_xla) or xla_rel != 0.0:
+        raise AssertionError(f"forms raise: raised {raised}, expected {expected}; no launch {no_launch}, "
+                             f"{no_launch_xla}; D=32 vs plain {xla_rel:.3e}")
     if not all('queue 2, "forms"' in msg for _, msg in raised[:2]):
-        raise AssertionError(f"forms: the NotImplementedError does not name ROADMAP.md's queue 2: {raised[:2]}")
+        raise AssertionError(f"forms raise: the NotImplementedError does not name ROADMAP.md's queue 2: {raised[:2]}")
+
+
+def _forms_launch_check(label: str, counts: dict, expected: dict, hopper_moved: bool) -> None:
+    if counts != expected or hopper_moved:
+        raise AssertionError(f"{label}: forms launches {counts}, expected {expected}; wgmma launches moved: {hopper_moved}")
+
+
+def phase_forms_serve(model_cfg, workdir: Path) -> int:
+    """(b) and (c): serving a form that the forms kernels take (a float32 config; a bf16 UNet with
+    attn_dim_head=128), seeded random weights as phase 6's: the 180 s song through ``generate_beatmap`` at
+    DPM-16 and CFG 2.0 (444 forms forwards a map, no wgmma launch), the sampler alone on the 180 s cell
+    (s/map), and at 8192 frames the signal through the kernels held to the plain attention's (phase 21's
+    bounds). Returns the forms forwards of the request and the sampler run."""
+    from osufusion_tpu_torch.config import DiffusionConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.serve import generate_beatmap
+
+    label = f"{model_cfg.dtype} D={model_cfg.attn_dim_head}"
+    model = build_model(model_cfg, DiffusionConfig())
+    params = serving_weights(model)
+    expected = _map_launches(model, params.cfg, "dpmpp-2m", DPM_STEPS)
+    wav = workdir / "song_forms.wav"
+    synth_song(wav, 180.0, seed=ord("a"))
+    hopper = _all_launches(fa, ha)
+    _forms_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, osu_texts = generate_beatmap(model, params, wav, title="smoke forms", num_samples=1,
+                                       sampling_timesteps=DPM_STEPS, sampler="dpmpp-2m", cond_scale=2.0, seed=0)
+    latency = time.perf_counter() - t0
+    request = _forms_counts()
+    hits = check_osz(data, osu_texts, 1)
+    g = torch.Generator().manual_seed(0)
+    frames = 24576
+    a = (torch.randn((1, 96, frames), generator=g) * 3 - 10).cuda()
+    c = (torch.rand((1, 5), generator=g) * 2 - 1).cuda()
+    x0 = torch.randn((1, 6, frames), generator=torch.Generator().manual_seed(1)).cuda()
+    _forms_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=DPM_STEPS, method="dpmpp-2m")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sampler = _forms_counts()
+    _log(f"[forms serve] {label}: 180 s song, DPM-{DPM_STEPS}, CFG 2.0 through generate_beatmap {latency:.3f} s end to "
+         f"end, hit objects {hits}, forms launches {request}; the sampler alone on 24576 frames {seconds:.3f} s/map, "
+         f"forms launches {sampler} (expected {expected} forwards a map)")
+    moved = _all_launches(fa, ha) != hopper
+    want = {"fwd": expected, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+    _forms_launch_check(f"forms serve {label} request", request, want, moved)
+    _forms_launch_check(f"forms serve {label} sampler", sampler, want, moved)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"forms serve {label}: non-finite sampled signal")
+    del a, c, x0, out
+    phase_sampler_check(model, params, check_song(workdir), "dpmpp-2m", DPM_STEPS)
+    return request["fwd"] + sampler["fwd"]
+
+
+def _forms_unet(dim_head: int, dtype: str, remat: bool = False):
+    """A dim_h=512 UNet of one block a level and one middle transformer (13 attention sites)."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+
+    cfg = ModelConfig(dim_h=512, num_layer_blocks=(1, 1, 1, 1), num_middle_transformers=1, attn_dim_head=dim_head,
+                      dtype=dtype, remat=remat, remat_mode="block")
+    return build_model(cfg, DiffusionConfig())
+
+
+# fp32 loss and gradients through the forms kernels vs through the plain versions, both fp32 on the card:
+# the two differ in summation order at 13 attention sites, and cuDNN's fp32 convolutions (no TF32) sum
+# their gradients in an order of their own as well
+FORMS_GRAD_F32_REL_TOL = 1e-3
+
+
+def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096) -> dict:
+    """(d) Gradients through the forms kernels: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
+    site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
+    float32 through the plain versions on the card; forms launches one forward, dq and dk/dv a site, and no
+    wgmma kernel."""
+    from osufusion_tpu_torch.nn import blocks
+    from osufusion_tpu_torch.nn.unet import UNetBlock
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    a = torch.from_numpy(rng.normal(-10.0, 3.0, (B, 96, T)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.uniform(-1, 1, (B, 5)).astype(np.float32)).cuda()
+    orig_len = torch.tensor([T, T - 700][:B], device="cuda")
+    noise = torch.from_numpy(rng.standard_normal((B, 6, T)).astype(np.float32)).cuda()
+    t = torch.tensor([100, 700][:B], device="cuda")
+    cond_mask = torch.tensor([True, False][:B], device="cuda")
+    model32 = _forms_unet(dim_head, "float32", remat=True)
+    ref = model32.init_params(seed=5, device="cpu")
+    randomize_everywhere(ref, seed=6)
+    model = _forms_unet(dim_head, dtype)
+    net = model.init_params(seed=0, device="cpu")
+    net.load_state_dict(ref.state_dict())
+    ref, net = ref.cuda().train(), net.cuda().train()
+    for module in ref.modules():
+        if isinstance(module, blocks.Attention):
+            module.sdpa = fa.flash_attention_reference
+
+    def run(m, params):
+        params.zero_grad(set_to_none=True)
+        loss = m.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item()
+
+    hopper = _all_launches(fa, ha)
+    _forms_counts(reset=True)
+    loss = run(model, net)
+    counts = _forms_counts()
+    moved = _all_launches(fa, ha) != hopper
+    loss32 = run(model32, ref)
+    g, g32 = _flat_grads(net), _flat_grads(ref)
+    is_attn = lambda n: ".attn.to_" in n
+    rel_all = ((g - g32).norm() / g32.norm()).item()
+    rel_attn = ((_flat_grads(net, is_attn) - _flat_grads(ref, is_attn)).norm() / _flat_grads(ref, is_attn).norm()).item()
+    rel_loss = abs(loss - loss32) / abs(loss32)
+    f32 = dtype == "float32"
+    grad_tol, loss_tol = (FORMS_GRAD_F32_REL_TOL, FORMS_GRAD_F32_REL_TOL) if f32 else (GRAD_REL_TOL, LOSS_REL_TOL)
+    sites = _unet_sites(net.cfg)
+    _log(f"[forms grad check] {dtype} D={dim_head}, dim_h=512, 13 sites, B={B} T={T}: loss through the forms kernels "
+         f"{loss:.6f}, fp32 plain {loss32:.6f} (rel {rel_loss:.3e}, bound {loss_tol}); gradient rel L2 {rel_all:.3e}, "
+         f"attention projections alone {rel_attn:.3e} (bound {grad_tol}); forms launches {counts}")
+    if not (np.isfinite(loss) and torch.isfinite(g).all()):
+        raise AssertionError(f"forms grad check {dtype} D={dim_head}: non-finite loss or gradient")
+    if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
+        raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
+                             f"{rel_all:.3e}, attention {rel_attn:.3e}")
+    _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
+                        {"fwd": sites, "prep": sites, "dq": sites, "dkv": sites, "post": sites, "merge": 0}, moved)
+    return counts
+
+
+def phase_forms_train(workdir: Path) -> dict:
+    """(a) fp32 crop training: ``trainer.train`` with ``mixed_precision="no"`` (float32 throughout) at
+    dim_h=512, B=4, T=4096, dummy data, 2 steps, every site global, no rematerialisation: one forms forward,
+    pre-pass, dq, dk/dv and post-pass a site and step, no wgmma launch. Returns the forms launches."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    steps = 2
+    cfg = Config(model=ModelConfig(dim_h=512, dtype="float32"),
+                 train=TrainConfig(project_dir=str(workdir / "train_fp32"), dataset_mode="dummy", segment_length=2048,
+                                   batch_size=4, mixed_precision="no", total_steps=steps, warmup_steps=2, save_every=0,
+                                   num_workers=2, seed=0))
+    sites = _unet_sites(cfg.model)
+    # _train_with_resume sets K1-K3's counters to 0 and returns their launches; the others must not move
+    others = _all_launches(fa, ha)[4:]
+    _forms_counts(reset=True)
+    history, launches, peak = _train_with_resume(cfg, steps, "forms train fp32")
+    counts = _forms_counts()
+    _log(f"[forms train] fp32 (mixed precision no) dim_h=512 B=4 T=4096, {steps} steps: loss "
+         f"{[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
+         f"{[round(h['seconds'], 4) for h in history]} s/step; peak memory {peak:.2f} GiB; forms launches {counts} "
+         f"(sites {sites}); wgmma launches {launches}")
+    _forms_launch_check("forms train fp32", counts, {"fwd": sites * steps, "prep": sites * steps, "dq": sites * steps,
+                                                      "dkv": sites * steps, "post": sites * steps, "merge": 0},
+                        _all_launches(fa, ha)[4:] != others or any(launches.values()))
+    return counts
+
+
+def phase_forms() -> tuple[dict, dict]:
+    """Phase 23, the forms family on the card: (f) what still raises, the kernel-level checks and times of
+    every instance, (b) and (c) serving, (d) gradients, (e) the shard forms, (a) fp32 crop training.
+    Returns the kernel records and, by main instance, each entry point's launches on the paths driven
+    through the port's entry points: (a), (b) or (c), and (d)."""
+    from osufusion_tpu_torch.config import ModelConfig
+
+    phase_forms_raise()
+    records = phase_forms_kernels()
+    runs = {inst: [] for inst in FORMS_MAIN}
+    with tempfile.TemporaryDirectory() as tmp:
+        for inst, cfg in zip(FORMS_MAIN, (ModelConfig(dim_h=128, dtype="float32"), ModelConfig(dim_h=128, attn_dim_head=128))):
+            torch.cuda.empty_cache()
+            runs[inst].append({"fwd": phase_forms_serve(cfg, Path(tmp))})
+    for (dt, D) in FORMS_MAIN:
+        torch.cuda.empty_cache()
+        runs[(dt, D)].append(phase_forms_grad_check(str(dt).split(".")[1], D))
+    torch.cuda.empty_cache()
+    shards = phase_forms_shards()  # kernel level: its launches are not the paths'
+    for inst in FORMS_MAIN:
+        records[inst]["merge"]["max_abs_err"] = shards["merge_err"][inst]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs[FORMS_MAIN[0]].append(phase_forms_train(Path(tmp)))
+    launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
+                for inst, rs in runs.items()}
+    _log(f"[forms] launches on paths (a)-(d) by instance: "
+         + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items()))
+    return records, launches
+
+
+# the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
+# (_fwd_kernel; also _halo_fwd_kernel :938 and the ring's hops), dq (_dq_kernel; also :1054, :575), dk/dv
+# (_dkv_kernel; also :1099, :575), the pre- and post-pass around the fused backward, the ring's merge
+FORMS_REPLACES = {"fwd": 208, "dq": 435, "dkv": 507, "prep": 575, "post": 575, "merge": 1310}
+
+
+def _forms_json(records: dict, launches: dict) -> list:
+    """The kernels line's forms entries: every instance's forward, dq and dk/dv, and the main instances'
+    pre-pass, post-pass and merge, with their launches on paths (a)-(d) (0 where no path runs the
+    instance: the merge runs in the ring alone, which phase 23 drives at kernel level only)."""
+    entries = []
+    for (dt, D), bodies in records.items():
+        for body, rec in bodies.items():
+            if body in ("prep", "post", "merge") and (dt, D) not in FORMS_MAIN:
+                continue
+            entries.append({"name": f"forms_{body}_{_dtype_name(dt)}_d{D}", "route": "cuda",
+                            "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
+                            "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[body]}",
+                            "launches": launches.get((dt, D), {}).get(body, 0), **rec})
+    return entries
+
+
+# (e): phase 10's rank shape (B=1, 16384 frames a rank, W=4096, the second of four shards) and phase 18's
+# UNet and DiT rank shapes over two shards
+FORMS_HALO = (1, 16384, 16, 4096, 4, 1)
+FORMS_RING = (("UNet", 4, 2048, 16, 1, True), ("DiT", 4, 2048, 8, 8, False))
+
+
+def phase_forms_shards() -> dict:
+    """(e) The shard forms at kernel level, with no process group, for each main instance: the halo forward,
+    dq and dk/dv at FORMS_HALO against their plain versions, the slab's rows outside the song random
+    (planted faults: the slab one key off its frame, an LSE off by LSE_FAULT), and the ring over two shards as ``LocalRing``
+    threads at FORMS_RING against its plain parts (planted faults: the second hop left out of the merge, the
+    second sweep storing). Returns the forms launches and the ring's largest error of o (the merge's
+    output), each by instance."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.ops import ring_attention as ra
+
+    drop_hop, store_once = _ring_faults()
+    failures, launches, merge_err = [], {}, {}
+    for i, (dt, D) in enumerate(FORMS_MAIN):
+        name, scale = f"{_dtype_name(dt)}/{D}", D**-0.5
+        o_rel_tol, o_abs_tol, lse_tol, g_rel_tol, g_abs_tol = _forms_tols(dt)
+        _forms_counts(reset=True)
+        B, T, H, W, n, shard = FORMS_HALO
+        g0, t_global = shard * T, n * T
+        g = torch.Generator(device="cuda").manual_seed(1400 + i)
+        q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((B, T + W, D), generator=g, device="cuda").to(dt) for _ in range(2))
+        o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+        dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+        dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+        # planted forward fault: the slab one key off its frame
+        o_shift = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
+        refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
+                *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
+        faults = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref + LSE_FAULT, do, W, g0, t_global),
+                  *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref + LSE_FAULT, do, W, g0, t_global))
+        where = f"halo {name} B={B} T_local={T} W={W} shard {shard + 1} of {n}"
+        o_rel, lse_err, shift_rel = _rel(o, o_ref), (lse - lse_ref).abs().max().item(), _rel(o_shift, o_ref)
+        if not (o_rel < o_rel_tol and lse_err < lse_tol and torch.isfinite(o).all() and shift_rel > o_rel_tol):
+            failures.append(f"{where}: o rel L2 {o_rel:.3e}, lse max abs {lse_err:.3e}, planted fault {shift_rel:.3e}")
+        parts = [f"o rel L2 {o_rel:.3e} (slab shifted {shift_rel:.3e}), lse max abs {lse_err:.3e}"]
+        for part, a, b, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+            rel, fault_rel = _rel(a, b), _rel(fault, b)
+            parts.append(f"{part} rel L2 {rel:.3e} (fault {fault_rel:.3e})")
+            if not (rel < g_rel_tol and torch.isfinite(a).all() and fault_rel > g_rel_tol):
+                failures.append(f"{where}: {part} rel L2 {rel:.3e}, planted fault {fault_rel:.3e}")
+        halo_ms = _cuda_ms(lambda: ha.halo_fwd(q, k, v, W, g0, t_global, scale), 2)
+        halo_bwd_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global,
+                                                                                scale)[1], W, g0, t_global), 2)
+        _log(f"[forms shards] {where}: {'; '.join(parts)}; forward {halo_ms:.3f} ms, backward {halo_bwd_ms:.3f} ms")
+        del q, do, k, v, o, lse, dq, prep, dk, dv, o_ref, lse_ref, o_shift, refs, faults
+        for j, (label, B, t, H, Kv, tables) in enumerate(FORMS_RING):
+            q, k_rot, _, v, do, cos, sin = _attention_inputs(B, 2 * t, H, Kv, tables, 1500 + 10 * i + j, D, dt)
+            got = _ring_over(q, k_rot, v, do, cos, sin, 2)
+            ref = _ring_over(q, k_rot, v, do, cos, sin, 2, ra.PlainParts)
+            hop_fault = _rel(_ring_over(q, k_rot, v, do, cos, sin, 2, drop_hop)[0], ref[0])
+            sweep_faults = _ring_over(q, k_rot, v, do, cos, sin, 2, store_once)[3:]
+            where = f"ring {name} {label} B={B} T_local={t} H={H} Kv={Kv} over 2 shards"
+            o_rel, o_err = _rel(got[0], ref[0]), (got[0].float() - ref[0]).abs().max().item()
+            lse_err = (got[1] - ref[1]).abs().max().item()
+            merge_err[(dt, D)] = max(merge_err.get((dt, D), 0.0), o_err)
+            if not (o_rel < o_rel_tol and o_err < o_abs_tol and lse_err < lse_tol and hop_fault > o_rel_tol):
+                failures.append(f"{where}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse {lse_err:.3e}, "
+                                f"planted dropped hop {hop_fault:.3e}")
+            parts = [f"o rel L2 {o_rel:.3e} max abs {o_err:.3e} (dropped hop {hop_fault:.3e}), lse max abs {lse_err:.3e}"]
+            for part, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+                rel = _rel(a, b)
+                parts.append(f"{part} rel L2 {rel:.3e}")
+                if not (rel < g_rel_tol and torch.isfinite(a).all()):
+                    failures.append(f"{where}: {part} rel L2 {rel:.3e}")
+            for part, fault, b in zip(("dk", "dv"), sweep_faults, ref[3:]):
+                if not _rel(fault, b) > g_rel_tol:
+                    failures.append(f"{where}: planted stored sweep in {part} {_rel(fault, b):.3e} would pass")
+            _log(f"[forms shards] {where}: {'; '.join(parts)}")
+            del q, k_rot, v, do, got, ref, sweep_faults
+            torch.cuda.empty_cache()
+        launches[(dt, D)] = _forms_counts()
+        _log(f"[forms shards] {name}: forms launches {launches[(dt, D)]}")
+    if failures:
+        raise AssertionError("forms shards: " + "; ".join(failures))
+    return {"launches": launches, "merge_err": merge_err}
 
 
 # remat plan -> (steps, attention forwards that its backward runs again, per
@@ -1892,21 +2454,6 @@ def _ring_faults():
     return DropHop, StoreOnce
 
 
-def _ring_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int):
-    """q, do (B, T, H, 64), k_rot and v ((B, T, 64) at Kv = 1, else (B, T,
-    Kv, 64)) bf16 on the card, k rotated with the song's tables; the tables
-    (T, 64) fp32 or None."""
-    from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops.rope import rope_tables
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, do = (torch.randn((B, T, H, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    kv_shape = (B, T, 64) if Kv == 1 else (B, T, Kv, 64)
-    k, v = (torch.randn(kv_shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    cos, sin = rope_tables(T, 64, scale_base=float(T), device="cuda") if tables else (None, None)
-    return q, (k if cos is None else fa.rotated_k(k, cos, sin)), v, do, cos, sin
-
-
 def _ring_over(q, k_rot, v, do, cos, sin, n: int, parts=None) -> list:
     """The ring forward and backward of every one of n shards of the
     sequence, as threads of this process (``LocalRing``), with the kernels
@@ -1949,7 +2496,7 @@ def phase_ring_kernels() -> dict:
     for i, (label, B, t, H, Kv, tables) in enumerate(RING_SHAPES):
         for n in RING_HOPS:
             where = f"{label} (B={B} T_local={t} H={H} Kv={Kv}{' tables' if tables else ''}) over {n} shards"
-            q, k_rot, v, do, cos, sin = _ring_inputs(B, n * t, H, Kv, tables, seed=800 + 10 * i + n)
+            q, k_rot, _, v, do, cos, sin = _attention_inputs(B, n * t, H, Kv, tables, seed=800 + 10 * i + n)
             got = _ring_over(q, k_rot, v, do, cos, sin, n)
             ref = _ring_over(q, k_rot, v, do, cos, sin, n, ra.PlainParts)
             o_fault = _ring_over(q, k_rot, v, do, cos, sin, n, drop_hop)[0]
@@ -2313,7 +2860,7 @@ def main() -> int:
         phase_dpm_check(model, served, song, ddim50)
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
-    phase_forms()
+    forms_records, forms_launches = phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -2382,6 +2929,7 @@ def main() -> int:
         {"name": "flash_bwd_prep", **bwd_source, "launches": ring_launches["prep"], **ring["flash_bwd_prep"]},
         {"name": "flash_bwd_sweep", **bwd_source, "launches": ring_launches["sweep"], **ring["flash_bwd_sweep"]},
         {"name": "flash_bwd_post", **bwd_source, "launches": ring_launches["post"], **ring["flash_bwd_post"]},
+        *_forms_json(forms_records, forms_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -42,7 +42,11 @@ def ddim_step(
     clip_sample: bool = True,
 ) -> torch.Tensor:
     """One deterministic DDIM update from timestep t to t_prev (t_prev < 0
-    means the final step, alpha_prev = 1). ``acp`` lives on x's device."""
+    means the final step, alpha_prev = 1). ``acp`` lives on x's device. x and
+    eps are promoted to acp's dtype first, as jnp promotes them (acp[t] is an
+    array there, not a weak scalar), so a bf16 eps is not rounded again."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, eps.dtype), acp.dtype)
+    x, eps = x.to(dtype), eps.to(dtype)
     a_t = acp[t]
     a_prev = acp[t_prev] if t_prev >= 0 else torch.ones_like(a_t)
     x0 = (x - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)

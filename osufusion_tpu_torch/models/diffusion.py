@@ -94,7 +94,7 @@ class DiffusionModel(GenerativeModel):
         acp = self.acp.to(x.device)
         for t, t_prev in zip(ts.tolist(), ts_prev):
             t_b = torch.full((B,), float(t), device=x.device)
-            eps = self._cfg_eps(params, x, a_enc, t_b, c, cond_scale)
+            eps = self._cfg_eps(params, x, a_enc, t_b, c, cond_scale).float()
             x = ddim.ddim_step(x, eps, t, t_prev, acp, self.cfg.clip_sample)
         return to_channel_first(x)
 

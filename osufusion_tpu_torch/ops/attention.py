@@ -8,10 +8,16 @@ site on the CPU that needs a gradient: both go through ``flash_attention``
 ``flash_attention_op``, which runs the kernels' plain versions on CPU tensors,
 so one route serves both devices and a rematerialisation policy that keeps
 the op's outputs is the same on both. Any other CPU tensor takes the plain
-forward with native autograd. The kernels take bf16 operands with a head dim
-of 64; a CUDA site of another form (fp32 training, a checkpoint's other
-``attn_dim_head``) raises before any launch, as a kernel instance still to
-write (ROADMAP.md, queue 2, "forms").
+forward with native autograd. On the card the form rule
+(``ops/flash_forms.py::attention_form``, on the operands' dtype and head dim)
+decides first, before any launch or gather: bf16 with D = 64 runs the wgmma
+kernels; fp32, or bf16 with D = 128, 192 or 256, the forms kernels (fp32
+training, a checkpoint's other ``attn_dim_head``); a head dim that is not a
+multiple of 64 runs what the JAX package runs there, rope and then the plain
+grouped attention with native autograd (the XLA einsum of
+``osufusion_tpu/ops/attention.py``, which no Pallas kernel computes); fp16
+operands and D > 256 raise NotImplementedError naming their ROADMAP.md row.
+The CPU route takes every form, as before.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
 halo kernels take runs them on this rank's frames, once per KV head on that
 head's query heads (as ``osufusion_tpu/parallel/sequence.py`` splits a GQA
@@ -30,12 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from osufusion_tpu_torch.ops.flash_attention import (
-    HEAD_DIM,
-    flash_attention,
-    flash_attention_reference,
-    needs_gradient,
-)
+from osufusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference, needs_gradient
+from osufusion_tpu_torch.ops.flash_forms import attention_form
 from osufusion_tpu_torch.ops.rope import apply_rope
 from osufusion_tpu_torch.parallel.ring import ring_attention, ring_available
 from osufusion_tpu_torch.parallel.sequence import (
@@ -61,10 +63,10 @@ def sdpa(
     """Attention, rotary-embedded when given tables, optionally windowed (each
     query sees keys within +/- window/2). Returns (B, T, H, D) in q's dtype.
     Under a sequence shard q, k and v hold this rank's frames and the tables
-    cover the whole song."""
-    if q.is_cuda and (q.dtype != torch.bfloat16 or q.shape[-1] != HEAD_DIM):
-        raise NotImplementedError(f"no attention kernel takes {q.dtype} operands with head dim {q.shape[-1]} yet "
-                                  "(ROADMAP.md, queue 2, \"forms\"); the kernels take bfloat16 with head dim 64")
+    cover the whole song. On the card a form that nothing serves raises
+    here, before any launch or gather."""
+    if q.is_cuda:
+        attention_form(q.dtype, q.shape[-1])
     shard = active_shard()
     if shard is None:
         return _local_sdpa(q, k, v, window, rope)
@@ -84,9 +86,23 @@ def sdpa(
 
 
 def _local_sdpa(q, k, v, window, rope) -> torch.Tensor:
+    """Attention over the whole sequence at hand: one device's, or the song
+    that a shard has gathered."""
+    if q.is_cuda and attention_form(q.dtype, q.shape[-1]) == "xla":
+        return xla_attention(q, k, v, window, rope)
     if q.is_cuda or (needs_gradient(q, k, v) and k.shape[1] == q.shape[1]):
         return flash_attention(q, k, v, window, rope)
     return flash_attention_reference(q, k, v, window, rope)
+
+
+def xla_attention(q, k, v, window, rope) -> torch.Tensor:
+    """A site whose head dim no kernel tiles, on the card: what the JAX
+    package runs there (``osufusion_tpu/ops/attention.py:93-97``), rope on q
+    and k, then ``gqa_attention`` with native autograd. No Pallas kernel
+    computes this route, so none of the port's kernels does."""
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    return gqa_attention(q, k, v, window=window)
 
 
 def gqa_attention(

@@ -43,6 +43,13 @@ parallelism (``ops/halo_attention.py``) are the same bodies in the halo frame
 (``csrc/key_frame.cuh``): the forward is ``csrc/flash_fwd.cu``'s HALO
 instance, the backward the windowed pair's, behind the same pre-pass.
 
+Those kernels take bf16 operands with D = 64. Every other form that a kernel
+takes (fp32, or bf16 with D in 128, 192, 256: ``flash_forms.attention_form``)
+goes to the forms family (``ops/flash_forms.py``, ``csrc/flash_forms.cu``):
+each wrapper here chooses the entry point by the operands' (dtype, D) through
+``flash_forms.takes_forms``, and the forms family runs every backward as the
+split pre-pass, dq, dk/dv and post-pass.
+
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
 differentiable function over them (a ``torch.library.custom_op``, so that a
@@ -63,14 +70,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from osufusion_tpu_torch.ops import flash_forms as forms
 from osufusion_tpu_torch.ops.rope import apply_rope, unapply_rope
 
-HEAD_DIM = 64
+HEAD_DIM = 64  # the head dim of the wgmma kernels; the forms family's are flash_forms.FORMS_HEAD_DIMS
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # library name -> source; each becomes a shared library of its own
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "ring_merge")}
+SOURCES = {name: _CSRC / f"{name}.cu"
+           for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "ring_merge", "flash_forms")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -145,6 +154,19 @@ _ENTRY_POINTS = {
     "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
     "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 7 + [_PTR]),
+    # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
+    # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
+    "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
+    # q do o lse cos sin | qs_g do_g lse_g delta_g | B T H Kv pad | scale | stream
+    "forms_bwd_prep": ("flash_forms", [_INT] * 2 + [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # k v qs_g do_rows lse_g delta_g dq_acc | B T S H Kv pad window halo g0 t_global accumulate | stream
+    "forms_bwd_dq": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
+    # k v qs_g do_rows lse_g delta_g dk dv | B T S H Kv pad window halo g0 t_global accumulate | stream
+    "forms_bwd_dkv": ("flash_forms", [_INT] * 2 + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
+    # dq_acc cos sin dq | B T H Kv pad | scale | stream
+    "forms_bwd_post": ("flash_forms", [_INT] * 2 + [_PTR] * 4 + [_INT] * 5 + [ctypes.c_float, _PTR]),
+    # o_acc lse_acc o_j lse_j lse_out o | rows | stream
+    "forms_ring_merge": ("flash_forms", [_INT] * 2 + [_PTR] * 6 + [_INT, _PTR]),
 }
 
 
@@ -214,33 +236,36 @@ def _check_launch(who: str, err: int) -> None:
 
 
 def flash_fwd(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16, already rotated
-    v: torch.Tensor,  # k's shape, bf16
+    q: torch.Tensor,  # (B, T, H, D), raw
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D), q's dtype, already rotated
+    v: torch.Tensor,  # k's shape and dtype
     cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
     sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     window: int,  # -1 = global
     scale: float,
     return_lse: bool = False,
 ):
-    """Launch the forward kernel on the current stream; returns o (B, T, H, D)
-    bf16, or with ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2
-    log-sum-exp of the logits q_rot k_rot^T * scale * log2(e), query head h
-    against KV head h // (H / Kv). Counts its launches in
-    ``flash_fwd.launches`` (those with the LSE also in
-    ``flash_fwd.lse_launches``, those of the grouped form, Kv > 1, in
-    ``flash_fwd.grouped_launches``)."""
+    """Launch the forward kernel of q's form (``flash_forms.takes_forms``) on
+    the current stream; returns o (B, T, H, D) in q's dtype, or with
+    ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
+    the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
+    // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
+    (those with the LSE also in ``flash_fwd.lse_launches``, those of the
+    grouped form, Kv > 1, in ``flash_fwd.grouped_launches``), the forms
+    kernel's in ``flash_forms.forms_fwd.launches``."""
     kv = _kv_heads("flash_fwd", q, k)
     B, T, H, D = q.shape
-    if D != HEAD_DIM or v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
-        raise ValueError(f"flash_fwd shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}; "
-                         f"head dim must be {HEAD_DIM}")
+    if v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
+        raise ValueError(f"flash_fwd shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    use_forms = forms.takes_forms("flash_fwd", q)
     tables = _tables("flash_fwd", cos, sin, T, D)
-    _check_operands("flash_fwd", q.device, (("q", q, torch.bfloat16), ("k", k, torch.bfloat16), ("v", v, torch.bfloat16),
-                                            *tables))
+    _check_operands("flash_fwd", q.device, (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype), *tables))
     _check_window("flash_fwd", window)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device) if return_lse else None
+    if use_forms:
+        forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
+        return (o, lse) if return_lse else o
     err = _kernel("flash_fwd_bf16")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
@@ -259,12 +284,13 @@ flash_fwd.lse_launches = 0
 flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
 
 
-def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int]:
+def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, bool]:
     """The backward kernels' operands: q and every tensor of ``rows``
-    (B, T, H, D) bf16, k and v (B, T, D) bf16 (``grouped``: or (B, T, Kv,
-    D)), every tensor of ``stats`` (B, T*H) fp32, the tables (T, D) fp32
+    (B, T, H, D), k and v (B, T, D) (``grouped``: or (B, T, Kv, D)), all in
+    q's dtype, every tensor of ``stats`` (B, T*H) fp32, the tables (T, D) fp32
     (``grouped``: or both None); all contiguous on q's CUDA device. ``rows``
-    and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv)."""
+    and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv, whether the
+    forms family takes q's form)."""
     kv = _kv_heads(who, q, k)
     if not grouped and (k.ndim != 3 or cos is None):
         raise ValueError(f"{who} (K3a/K3b) takes MQA (k (B,T,D)) with rotary tables; got k {tuple(k.shape)}, "
@@ -272,36 +298,47 @@ def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = Fa
                          "per KV head, with identity tables where it has none)")
     B, T, H, D = q.shape
     shapes = [(v, k.shape), *((t, q.shape) for _, t in rows), *((t, (B, T * H)) for _, t in stats)]
-    if D != HEAD_DIM or k.shape[:2] != (B, T) or k.shape[-1] != D or any(t.shape != shape for t, shape in shapes):
+    if k.shape[:2] != (B, T) or k.shape[-1] != D or any(t.shape != shape for t, shape in shapes):
         raise ValueError(f"{who} shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
-                         + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats)) + f"; head dim must be {HEAD_DIM}")
+                         + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats)))
+    use_forms = forms.takes_forms(who, q)
     tables = _tables(who, cos, sin, T, D)
-    bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, q.device, (("q", q, bf16), ("k", k, bf16), ("v", v, bf16), *((n, t, bf16) for n, t in rows),
+    dt, f32 = q.dtype, torch.float32
+    _check_operands(who, q.device, (("q", q, dt), ("k", k, dt), ("v", v, dt), *((n, t, dt) for n, t in rows),
                                     *((n, t, f32) for n, t in stats), *tables))
-    return B, T, H, kv
+    return B, T, H, kv, use_forms
 
 
 def flash_bwd(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16, already rotated
-    v: torch.Tensor,  # k's shape, bf16
-    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    q: torch.Tensor,  # (B, T, H, D), raw
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D), q's dtype, already rotated
+    v: torch.Tensor,  # k's shape and dtype
+    o: torch.Tensor,  # (B, T, H, D), the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
-    do: torch.Tensor,  # (B, T, H, D) bf16
+    do: torch.Tensor,  # (B, T, H, D)
     cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
     sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ):
-    """Launch the global backward on the current stream. Returns (dq, dk_rot,
-    dv): dq (B, T, H, D) bf16 in the raw q's frame, dk_rot (k's shape) fp32
-    still in the rotated frame, dv (k's shape) fp32. The library's entry point
-    runs a pre-pass (qs, delta and the LSE in group-major order, into scratch
-    allocated here), the sweep, whose dq atomics accumulate in an fp32 buffer,
-    and a post-pass that un-rotates, scales and casts dq. Counts its launches
-    in ``flash_bwd.launches`` (those of the grouped form, Kv > 1, also in
-    ``flash_bwd.grouped_launches``)."""
-    B, T, H, kv = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin, grouped=True)
+    """Launch the global backward of q's form on the current stream. Returns
+    (dq, dk_rot, dv): dq (B, T, H, D) in q's dtype and the raw q's frame,
+    dk_rot (k's shape) fp32 still in the rotated frame, dv (k's shape) fp32.
+    The wgmma library's entry point runs a pre-pass (qs, delta and the LSE in
+    group-major order, into scratch allocated here), the sweep, whose dq
+    atomics accumulate in an fp32 buffer, and a post-pass that un-rotates,
+    scales and casts dq; it counts its launches in ``flash_bwd.launches``
+    (those of the grouped form, Kv > 1, also in ``flash_bwd.grouped_launches``).
+    The forms family runs its pre-pass, dq, dk/dv and post-pass kernels, each
+    counted in ``flash_forms``."""
+    B, T, H, kv, use_forms = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
+                                             grouped=True)
+    if use_forms:
+        prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+        dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+        forms.forms_bwd_dq(k, v, prep, -1, None, accumulate=False)
+        forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate=False)
+        return forms.forms_bwd_post(prep, cos, sin, scale), dk, dv
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)  # rows of one KV group
     pad = -(-rows // BWD_ROW_TILE) * BWD_ROW_TILE
@@ -332,11 +369,12 @@ flash_bwd.grouped_launches = 0  # of them, the grouped form (Kv > 1)
 class GlobalPrep(NamedTuple):
     """What the global backward's pre-pass writes (``flash_bwd_prep``) and its
     sweeps (``flash_bwd_sweep``) and post-pass (``flash_bwd_post``) read, in
-    group-major order (B * Kv, T * G, ...), G = H / Kv: qs (bf16, rotated and
-    scaled by ``scale * log2(e)``), do (do itself at Kv == 1, which is already
-    in that order), lse and delta (fp32, padded to ``BWD_ROW_TILE`` rows with
-    +inf and 0), the fp32 dq buffer that every sweep's atomics add into, and
-    the site's (B, T, H, Kv)."""
+    group-major order (B * Kv, T * G, ...), G = H / Kv: qs (in q's dtype,
+    rotated and scaled by ``scale * log2(e)``), do (do itself at Kv == 1,
+    which is already in that order), lse and delta (fp32, padded to
+    ``BWD_ROW_TILE`` rows with +inf and 0), the fp32 dq buffer that every
+    sweep adds into (the wgmma sweep's atomics; the forms dq kernel stores on
+    the first sweep), and the site's (B, T, H, Kv)."""
 
     qs: torch.Tensor
     do: torch.Tensor
@@ -347,21 +385,25 @@ class GlobalPrep(NamedTuple):
 
 
 def flash_bwd_prep(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D) bf16: the site's own keys (for their shape)
-    v: torch.Tensor,  # k's shape, bf16
-    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    q: torch.Tensor,  # (B, T, H, D), raw
+    k: torch.Tensor,  # (B, T, D) or (B, T, Kv, D), q's dtype: the site's own keys (for their shape)
+    v: torch.Tensor,  # k's shape and dtype
+    o: torch.Tensor,  # (B, T, H, D), the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
-    do: torch.Tensor,  # (B, T, H, D) bf16
+    do: torch.Tensor,  # (B, T, H, D)
     cos: Optional[torch.Tensor],  # (T, D) fp32, or None: no rotary embedding
     sin: Optional[torch.Tensor],
     scale: float,
 ) -> GlobalPrep:
-    """Launch the global backward's pre-pass on the current stream: qs, do
-    and the LSE in group-major order, delta = rowsum(do * o), and the dq
-    buffer zeroed. Counts its launches in ``flash_bwd_prep.launches``."""
-    B, T, H, kv = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
-                                  grouped=True)
+    """Launch the global backward's pre-pass of q's form on the current
+    stream: qs, do and the LSE in group-major order, delta = rowsum(do * o),
+    and (wgmma) the dq buffer zeroed. Counts the wgmma pre-pass's launches in
+    ``flash_bwd_prep.launches``, the forms one's in
+    ``flash_forms.forms_bwd_prep.launches``."""
+    B, T, H, kv, use_forms = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
+                                             sin, grouped=True)
+    if use_forms:
+        return forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)
     pad = -(-rows // BWD_ROW_TILE) * BWD_ROW_TILE
@@ -383,18 +425,24 @@ flash_bwd_prep.launches = 0
 
 
 def flash_bwd_sweep(
-    k: torch.Tensor,  # (B, S, D) or (B, S, Kv, D) bf16, already rotated: the chunk of keys that is here
-    v: torch.Tensor,  # k's shape, bf16
+    k: torch.Tensor,  # (B, S, D) or (B, S, Kv, D), qs's dtype, already rotated: the chunk of keys that is here
+    v: torch.Tensor,  # k's shape and dtype
     prep: GlobalPrep,  # flash_bwd_prep's scratch
     dk: torch.Tensor,  # k's shape, fp32: the chunk's dk_rot (rotated frame)
     dv: torch.Tensor,  # k's shape, fp32
     accumulate: bool,
 ) -> None:
     """Launch the global backward's sweep over the keys of k and v on the
-    current stream: its dq atomics add into ``prep.dq_acc``; dk and dv are
-    stored, or with ``accumulate`` added into what they hold. Counts its
-    launches in ``flash_bwd_sweep.launches``."""
+    current stream: dq adds into ``prep.dq_acc`` (the wgmma sweep's atomics;
+    the forms dq kernel stores there unless ``accumulate``); dk and dv are
+    stored, or with ``accumulate`` added into what they hold. Counts the
+    wgmma sweep's launches in ``flash_bwd_sweep.launches``; the forms family
+    launches its dq and dk/dv kernels, counted in ``flash_forms``."""
     who = "flash_bwd_sweep"
+    if forms.takes_forms(who, prep.qs):
+        forms.forms_bwd_dq(k, v, prep, -1, None, accumulate)
+        forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate)
+        return
     B, T, H, kv = prep.shape
     if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
             or k.shape[-1] != HEAD_DIM or dk.shape != k.shape or dv.shape != k.shape:
@@ -422,8 +470,11 @@ def flash_bwd_post(
     scale: float,
 ) -> torch.Tensor:
     """Launch the global backward's post-pass on the current stream, after the
-    last sweep: dq (B, T, H, D) bf16 = scale * the un-rotated dq buffer, in
-    the raw q's frame. Counts its launches in ``flash_bwd_post.launches``."""
+    last sweep: dq (B, T, H, D) in qs's dtype = scale * the un-rotated dq
+    buffer, in the raw q's frame. Counts the wgmma post-pass's launches in
+    ``flash_bwd_post.launches``, the forms one's in ``flash_forms``."""
+    if forms.takes_forms("flash_bwd_post", prep.qs):
+        return forms.forms_bwd_post(prep, cos, sin, scale)
     B, T, H, kv = prep.shape
     dev = prep.qs.device
     _check_operands("flash_bwd_post", dev, _tables("flash_bwd_post", cos, sin, T, HEAD_DIM))
@@ -441,31 +492,36 @@ flash_bwd_post.launches = 0
 def ring_merge(
     o_acc: Optional[torch.Tensor],  # (B, T, H, D) fp32, or None on the first hop
     lse_acc: Optional[torch.Tensor],  # (B, T*H) fp32, or None on the first hop
-    o_j: torch.Tensor,  # (B, T, H, D) bf16: this hop's output, normalised over its chunk of keys
+    o_j: torch.Tensor,  # (B, T, H, D): this hop's output, normalised over its chunk of keys
     lse_j: torch.Tensor,  # (B, T*H) fp32: this hop's base-2 LSE
     last: bool,
 ):
-    """Launch the ring's merge on the current stream (``csrc/ring_merge.cu``):
-    the exact fold of one hop's partial into the accumulators. Returns (o_acc,
-    lse, o): o_acc updated in place (allocated on the first hop; not written
-    on the last), lse a new (B, T*H) fp32 tensor, and on the ``last`` hop o,
-    the merged output in bf16 (else None). Counts its launches in
-    ``ring_merge.launches``."""
+    """Launch the ring's merge of o_j's form on the current stream
+    (``csrc/ring_merge.cu``, or the forms instance): the exact fold of one
+    hop's partial into the accumulators. Returns (o_acc, lse, o): o_acc
+    updated in place (allocated on the first hop; not written on the last),
+    lse a new (B, T*H) fp32 tensor, and on the ``last`` hop o, the merged
+    output in o_j's dtype (else None). Counts the wgmma form's launches in
+    ``ring_merge.launches``, the forms one's in ``flash_forms``."""
     who = "ring_merge"
     B, T, H, D = o_j.shape
-    if D != HEAD_DIM or lse_j.shape != (B, T * H) or (o_acc is None) != (lse_acc is None) or (
+    if lse_j.shape != (B, T * H) or (o_acc is None) != (lse_acc is None) or (
             o_acc is not None and (o_acc.shape != o_j.shape or lse_acc.shape != lse_j.shape)):
         raise ValueError(f"{who} shapes: o_j {tuple(o_j.shape)} lse_j {tuple(lse_j.shape)} o_acc "
                          f"{None if o_acc is None else tuple(o_acc.shape)} lse_acc "
                          f"{None if lse_acc is None else tuple(lse_acc.shape)}; both accumulators or neither")
+    use_forms = forms.takes_forms(who, o_j)
     f32 = torch.float32
     accumulators = () if o_acc is None else (("o_acc", o_acc, f32), ("lse_acc", lse_acc, f32))
-    _check_operands(who, o_j.device, (("o_j", o_j, torch.bfloat16), ("lse_j", lse_j, f32), *accumulators))
+    _check_operands(who, o_j.device, (("o_j", o_j, o_j.dtype), ("lse_j", lse_j, f32), *accumulators))
     first = o_acc is None
     if first:
         o_acc = torch.empty(o_j.shape, dtype=f32, device=o_j.device)
     lse = torch.empty_like(lse_j)
     o = torch.empty_like(o_j) if last else None
+    if use_forms:
+        forms.forms_ring_merge(o_acc, lse_acc, o_j, lse_j, lse, o)
+        return o_acc, lse, o
     err = _kernel("ring_merge_bf16")(o_acc.data_ptr(), None if first else lse_acc.data_ptr(), o_j.data_ptr(),
                                      lse_j.data_ptr(), lse.data_ptr(), _ptr(o), B * T * H,
                                      torch.cuda.current_stream(o_j.device).cuda_stream)
@@ -549,24 +605,31 @@ def windowed_prep(
 
 
 def flash_bwd_dq(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    k: torch.Tensor,  # (B, T, D) bf16, already rotated
-    v: torch.Tensor,  # (B, T, D) bf16
-    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    q: torch.Tensor,  # (B, T, H, D), raw
+    k: torch.Tensor,  # (B, T, D), q's dtype, already rotated
+    v: torch.Tensor,  # (B, T, D), q's dtype
+    o: torch.Tensor,  # (B, T, H, D), the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
-    do: torch.Tensor,  # (B, T, H, D) bf16
+    do: torch.Tensor,  # (B, T, H, D)
     cos: torch.Tensor,  # (T, D) fp32
     sin: torch.Tensor,  # (T, D) fp32
     window: int,  # -1 = global
     scale: float,
 ):
-    """Launch the windowed pre-pass and the dq kernel on the current stream.
-    Returns (dq, prep): dq (B, T, H, D) bf16 in the raw q's frame, written once
-    per row (the same bits from run to run), and the pre-pass's scratch
-    (``WindowedPrep``: qs, the padded LSE, delta), which ``flash_bwd_dkv``
-    takes. Counts its launches in ``flash_bwd_dq.launches``."""
-    B, T, H, _ = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin)
+    """Launch the windowed pre-pass and the dq kernel of q's form on the
+    current stream. Returns (dq, prep): dq (B, T, H, D) in q's dtype and the
+    raw q's frame, written once per row (the same bits from run to run), and
+    the pre-pass's scratch, which ``flash_bwd_dkv`` takes (``WindowedPrep``:
+    qs, the padded LSE, delta; the forms family's pre-pass, dq kernel and
+    post-pass leave a ``GlobalPrep``). Counts the wgmma dq kernel's launches
+    in ``flash_bwd_dq.launches``, the forms kernels' in ``flash_forms``."""
+    B, T, H, _, use_forms = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
+                                            sin)
     _check_window("flash_bwd_dq", window)
+    if use_forms:
+        prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
+        forms.forms_bwd_dq(k, v, prep, window, None, accumulate=False)
+        return forms.forms_bwd_post(prep, cos, sin, scale), prep
     prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
     err = _kernel("flash_bwd_dq_bf16")(
@@ -583,28 +646,33 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(
-    k: torch.Tensor,  # (B, T, D) bf16, already rotated
-    v: torch.Tensor,  # (B, T, D) bf16
-    do: torch.Tensor,  # (B, T, H, D) bf16
-    prep: WindowedPrep,  # flash_bwd_dq's scratch
+    k: torch.Tensor,  # (B, T, D), do's dtype, already rotated
+    v: torch.Tensor,  # (B, T, D), do's dtype
+    do: torch.Tensor,  # (B, T, H, D)
+    prep,  # flash_bwd_dq's scratch: a WindowedPrep, or the forms family's GlobalPrep
     window: int,  # -1 = global
 ):
-    """Launch the windowed dk/dv kernel on the current stream. Returns
-    (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated frame, each
-    row written once. Counts its launches in ``flash_bwd_dkv.launches``."""
+    """Launch the windowed dk/dv kernel of do's form on the current stream.
+    Returns (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated
+    frame, each row written once. Counts the wgmma kernel's launches in
+    ``flash_bwd_dkv.launches``, the forms one's in ``flash_forms``."""
     who = "flash_bwd_dkv"
     if do.ndim != 4 or k.ndim != 3:
         raise ValueError(f"{who} (K3b) takes MQA: k (B,T,D), do (B,T,H,D); got k {tuple(k.shape)}, do {tuple(do.shape)}")
     B, T, H, D = do.shape
-    if D != HEAD_DIM or k.shape != (B, T, D) or v.shape != (B, T, D):
-        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}; "
-                         f"head dim must be {HEAD_DIM}")
-    bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, do.device, (("do", do, bf16), ("k", k, bf16), ("v", v, bf16)))
-    _check_prep(who, prep, do.device, B, T * H)
+    if k.shape != (B, T, D) or v.shape != (B, T, D):
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}")
+    use_forms = forms.takes_forms(who, do)
+    f32 = torch.float32
+    _check_operands(who, do.device, (("do", do, do.dtype), ("k", k, do.dtype), ("v", v, do.dtype)))
     _check_window(who, window)
     dk = torch.empty(k.shape, dtype=f32, device=do.device)
     dv = torch.empty(v.shape, dtype=f32, device=do.device)
+    if use_forms:
+        forms.check_prep(who, prep, B, T, H, 1)
+        forms.forms_bwd_dkv(k, v, prep, dk, dv, window, None, accumulate=False)
+        return dk, dv
+    _check_prep(who, prep, do.device, B, T * H)
     err = _kernel("flash_bwd_dkv_bf16")(
         k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, T, H, prep.lse.shape[1], window,
@@ -639,11 +707,13 @@ def flash_attention_op(
     and v, so a rematerialisation policy that keeps this op's outputs never
     runs the forward again; lse2 and k_rot are not differentiable, and k_rot
     is empty without tables (the backward then keeps k itself). CUDA tensors
-    (bf16, contiguous, or the wrappers raise) go forward through ``flash_fwd``
-    with its LSE and backward through ``flash_bwd`` (global) or
-    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (windowed, MQA with tables); CPU
-    tensors through the plain versions of the same. Every cast in here is
-    explicit, so it computes the same under ``torch.autocast``."""
+    (contiguous, of a form that a kernel takes, or the wrappers raise) go
+    forward through ``flash_fwd`` with its LSE and backward through
+    ``flash_bwd`` (global) or ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    (windowed, MQA with tables), each of which launches the wgmma kernel or
+    the forms kernels by the operands' form; CPU tensors through the plain
+    versions of the same. Every cast in here is explicit, so it computes the
+    same under ``torch.autocast``."""
     k_rot = k if cos is None else rotated_k(k, cos, sin)
     if q.is_cuda:
         o, lse = flash_fwd(q, k_rot, v, cos, sin, window, q.shape[-1] ** -0.5, return_lse=True)
@@ -710,7 +780,8 @@ def flash_attention(
     heads (as ``osufusion_tpu/ops/pallas_attention.py::flash_attention`` does)
     and a windowed site without tables gets identity tables (cos = 1, sin =
     0, which rotate exactly). Without a gradient it is the forward kernel alone
-    and takes CUDA tensors only (bf16, D == 64)."""
+    and takes CUDA tensors only, of a form that a kernel takes
+    (``flash_forms.attention_form``)."""
     B, T, H, D = q.shape
     S, Kv = k.shape[1], k.shape[2]
     if S != T or H % Kv:
@@ -742,12 +813,11 @@ def flash_attention_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of ``flash_attention``: ``apply_rope`` on q and k
     (when given tables), then the grouped attention math with a float32
-    softmax, in query chunks."""
-    from osufusion_tpu_torch.ops.attention import gqa_attention
+    softmax, in query chunks; the function of the JAX package's XLA route,
+    ``ops/attention.py::xla_attention``."""
+    from osufusion_tpu_torch.ops.attention import xla_attention
 
-    if rope is not None:
-        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    return gqa_attention(q, k, v, window=window)
+    return xla_attention(q, k, v, window, rope)
 
 
 # query rows / keys per step of the plain training versions: bounds their

@@ -27,7 +27,11 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``.
+see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``. Those are the
+bf16, D = 64 instances; every other form that a kernel takes runs the forms
+family's kernels in the same frame (``ops/flash_forms.py``,
+``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
+D).
 """
 
 from __future__ import annotations
@@ -35,11 +39,10 @@ from __future__ import annotations
 import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
+from osufusion_tpu_torch.ops import flash_forms as forms
 from osufusion_tpu_torch.ops.flash_attention import (
-    HEAD_DIM,
     LN2,
     LOG2E,
-    WindowedPrep,
     _check_launch,
     _check_operands,
     _check_prep,
@@ -108,12 +111,13 @@ def halo_bwd_dkv_reference(q, k, v, o, lse, do, window: int, g0: int, t_global: 
     return dk * LN2, dv
 
 
-def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int]:
-    """The kernels' operands: every tensor of ``rows`` (B, T, H, D) bf16, the
-    first setting the shape, k and v (B, T + window, D) bf16, every tensor of
-    ``stats`` (B, T*H) fp32, all contiguous on the first row tensor's CUDA
-    device; an even window, and a shard inside the song. ``rows`` and
-    ``stats`` hold (name, tensor) pairs. Returns (B, T, H)."""
+def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int, bool]:
+    """The kernels' operands: every tensor of ``rows`` (B, T, H, D), the
+    first setting the shape and the dtype, k and v (B, T + window, D) in that
+    dtype, every tensor of ``stats`` (B, T*H) fp32, all contiguous on the
+    first row tensor's CUDA device; an even window, and a shard inside the
+    song. ``rows`` and ``stats`` hold (name, tensor) pairs. Returns (B, T, H,
+    whether the forms family takes the form)."""
     first = rows[0][1]
     if first.ndim != 4 or k.ndim != 3:
         raise ValueError(f"{who} wants {rows[0][0]} (B,T,H,D), k/v (B,T+window,D); got {tuple(first.shape)}, "
@@ -121,17 +125,17 @@ def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int
     B, T, H, D = first.shape
     shapes = [(k, (B, T + window, D)), (v, (B, T + window, D)), *((t, first.shape) for _, t in rows),
               *((t, (B, T * H)) for _, t in stats)]
-    if D != HEAD_DIM or any(t.shape != shape for t, shape in shapes):
+    if any(t.shape != shape for t, shape in shapes):
         raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} "
-                         + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats))
-                         + f" at window {window}; head dim must be {HEAD_DIM}")
+                         + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats)) + f" at window {window}")
     if window < 2 or window % 2 or not 0 <= g0 <= t_global - T:
         raise ValueError(f"{who}: window must be even and >= 2 and the shard [g0, g0 + T) inside the song; "
                          f"got window {window}, g0 {g0}, T {T}, t_global {t_global}")
-    bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, first.device, (*((n, t, bf16) for n, t in rows), ("k", k, bf16), ("v", v, bf16),
+    use_forms = forms.takes_forms(who, first)
+    dt, f32 = first.dtype, torch.float32
+    _check_operands(who, first.device, (*((n, t, dt) for n, t in rows), ("k", k, dt), ("v", v, dt),
                                         *((n, t, f32) for n, t in stats)))
-    return B, T, H
+    return B, T, H, use_forms
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -139,12 +143,16 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
-    """Launch the halo forward kernel on the current stream; returns (o (B, T,
-    H, D) bf16, lse2 (B, T*H) fp32). Counts its launches in
-    ``halo_fwd.launches``."""
-    B, T, H = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
+    """Launch the halo forward kernel of q's form on the current stream;
+    returns (o (B, T, H, D) in q's dtype, lse2 (B, T*H) fp32). Counts the
+    wgmma instance's launches in ``halo_fwd.launches``, the forms one's in
+    ``flash_forms.forms_fwd.launches``."""
+    B, T, H, use_forms = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
+    if use_forms:
+        forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
+        return o, lse
     err = _kernel("halo_fwd_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                                    B, T, H, window, g0, t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
@@ -156,14 +164,20 @@ halo_fwd.launches = 0
 
 
 def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale: float):
-    """Launch the pre-pass and the halo dq kernel on the current stream.
-    Returns (dq, prep): dq (B, T, H, D) bf16 in q's rotated frame, written
-    once per row (the same bits from run to run), and the pre-pass's scratch
-    (``WindowedPrep``: qs = q * scale * log2(e) in bf16, the padded LSE,
-    delta = rowsum(do * o)), which ``halo_bwd_dkv`` takes. Counts its
-    launches in ``halo_bwd_dq.launches``."""
-    B, T, H = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
-                          window, g0, t_global)
+    """Launch the pre-pass and the halo dq kernel of q's form on the current
+    stream. Returns (dq, prep): dq (B, T, H, D) in q's dtype and rotated
+    frame, written once per row (the same bits from run to run), and the
+    pre-pass's scratch (``WindowedPrep``: qs = q * scale * log2(e) in bf16,
+    the padded LSE, delta = rowsum(do * o); the forms family's pre-pass, dq
+    kernel and post-pass leave a ``GlobalPrep``), which ``halo_bwd_dkv``
+    takes. Counts the wgmma dq kernel's launches in ``halo_bwd_dq.launches``,
+    the forms kernels' in ``flash_forms``."""
+    B, T, H, use_forms = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
+                                     window, g0, t_global)
+    if use_forms:
+        prep = forms.forms_bwd_prep(q, o, lse, do, None, None, 1, scale)
+        forms.forms_bwd_dq(k, v, prep, window, (g0, t_global), accumulate=False)
+        return forms.forms_bwd_post(prep, None, None, scale), prep
     prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
     err = _kernel("halo_bwd_dq_bf16")(
@@ -177,15 +191,21 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
 halo_bwd_dq.launches = 0
 
 
-def halo_bwd_dkv(k, v, do, prep: WindowedPrep, window: int, g0: int, t_global: int):
-    """Launch the halo dk/dv kernel on the current stream, on ``halo_bwd_dq``'s
-    scratch (no scale: qs carries it). Returns (dk, dv), both (B, T + window,
-    D) fp32 over the whole slab, halo rows included (zero outside the song),
-    each row written once. Counts its launches in ``halo_bwd_dkv.launches``."""
-    B, T, H = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
-    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H)
+def halo_bwd_dkv(k, v, do, prep, window: int, g0: int, t_global: int):
+    """Launch the halo dk/dv kernel of do's form on the current stream, on
+    ``halo_bwd_dq``'s scratch (a ``WindowedPrep``, or the forms family's
+    ``GlobalPrep``; no scale: qs carries it). Returns (dk, dv), both (B, T +
+    window, D) fp32 over the whole slab, halo rows included (zero outside the
+    song), each row written once. Counts the wgmma kernel's launches in
+    ``halo_bwd_dkv.launches``, the forms one's in ``flash_forms``."""
+    B, T, H, use_forms = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
     dk = torch.empty(k.shape, dtype=torch.float32, device=do.device)
     dv = torch.empty_like(dk)
+    if use_forms:
+        forms.check_prep("halo_bwd_dkv", prep, B, T, H, 1)
+        forms.forms_bwd_dkv(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
+        return dk, dv
+    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H)
     err = _kernel("halo_bwd_dkv_bf16")(
         k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, _stream(do))
@@ -209,9 +229,11 @@ def halo_attention_op(
     """Halo attention, differentiable in q, k and v. Returns (o, lse2), the
     backward's residuals beside q, k and v, so a rematerialisation policy that
     keeps this op's outputs never runs the forward again; lse2 is not
-    differentiable. CUDA tensors (bf16, contiguous, or the wrappers raise) go
-    forward through ``halo_fwd`` and backward through ``halo_bwd_dq`` and
-    ``halo_bwd_dkv``; CPU tensors through their plain versions."""
+    differentiable. CUDA tensors (contiguous, of a form that a kernel takes,
+    or the wrappers raise) go forward through ``halo_fwd`` and backward
+    through ``halo_bwd_dq`` and ``halo_bwd_dkv``, each of which launches the
+    wgmma instance or the forms one; CPU tensors through their plain
+    versions."""
     if q.is_cuda:
         o, lse = halo_fwd(q, k, v, window, g0, t_global, q.shape[-1] ** -0.5)
     else:
@@ -253,6 +275,6 @@ halo_attention_op.register_autograd(_halo_backward_rule, setup_context=_save_res
 def halo_flash_attention(q, k, v, window: int, g0: int, t_global: int) -> torch.Tensor:
     """Windowed attention of a rank's rotated q (B, T, H, D) against its
     halo-extended rotated k and v (B, T + window, D); returns o (B, T, H, D)
-    in q's dtype. On CUDA tensors the kernels run (bf16, or they raise), on
-    CPU tensors their plain versions."""
+    in q's dtype. On CUDA tensors the kernels run (of q's form, or they
+    raise), on CPU tensors their plain versions."""
     return halo_attention_op(q.contiguous(), k.contiguous(), v.contiguous(), window, g0, t_global)[0]

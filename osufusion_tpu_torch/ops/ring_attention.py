@@ -8,8 +8,8 @@ and values round the ring, one hop at a time: at hop j a rank holds the chunk
 of rank (i - j) mod n. The forward runs K1 (``flash_fwd``, global, with its
 base-2 LSE) on its queries against the chunk that is here and folds that
 hop's normalised partial into fp32 accumulators by the exact rule on the two
-LSEs (``ring_merge``, ``csrc/ring_merge.cu``); the last hop's merge writes the
-bf16 o. The backward runs K2 in its three parts: the pre-pass once, with the
+LSEs (``ring_merge``, ``csrc/ring_merge.cu``); the last hop's merge writes o
+in q's dtype. The backward runs K2 in its three parts: the pre-pass once, with the
 global o, LSE and do, so that every chunk's probabilities are the globally
 normalised ones; one sweep per hop over the chunk that is here, whose dq
 atomics keep adding into one fp32 buffer and which adds its dk and dv into
@@ -55,7 +55,10 @@ KV_TAG, DKV_TAG = 0, 1
 
 class KernelParts:
     """The ring's parts on CUDA tensors: K1 with its LSE, the merge, and K2's
-    pre-pass, accumulating sweep and post-pass."""
+    pre-pass, accumulating sweep and post-pass, or at every other form that a
+    kernel takes their forms instances (the wrappers choose by the operands'
+    dtype and head dim; the forms sweep is the dq and dk/dv kernels, each
+    storing on the first hop and adding after)."""
 
     @staticmethod
     def forward(q, k, v, cos, sin):
@@ -121,7 +124,7 @@ def ring_fwd(q, k_rot, v, cos, sin, rotation, parts=None):
     """This rank's queries q (B, T, H, D) against every rank's keys: k_rot (B,
     T, D) or (B, T, Kv, D), rotated with this rank's rows of the tables cos,
     sin (T, D) (or None), and v, k_rot's shape. Returns (o, lse): o (B, T, H,
-    D), bf16 from the kernels, fp32 from the plain parts; lse (B, T*H) fp32,
+    D), in q's dtype from the kernels, fp32 from the plain parts; lse (B, T*H) fp32,
     the global base-2 LSE. ``parts`` defaults to the kernels for CUDA tensors
     and the plain versions for CPU tensors."""
     parts = parts or _parts(q)
@@ -140,7 +143,7 @@ def ring_fwd(q, k_rot, v, cos, sin, rotation, parts=None):
 def ring_bwd(q, k_rot, v, o, lse, do, cos, sin, rotation, parts=None):
     """The gradients of ``ring_fwd``'s o, from this rank's o and LSE (the
     global ones) and do: (dq in the raw q's frame, dk_rot in the rotated frame,
-    dv). dq is bf16 from the kernels (fp32 from the plain parts), dk_rot and
+    dv). dq is in q's dtype from the kernels (fp32 from the plain parts), dk_rot and
     dv fp32; each holds every rank's contribution."""
     parts = parts or _parts(q)
     n = rotation.count

@@ -33,13 +33,13 @@ RING_ROWS = 64
 def ring_available(t: int, s: int, d: int, window: Optional[int], n: int, h: int = 1, kv: int = 1) -> bool:
     """Can the ring serve a self-attention site of t frames (the whole song)
     split over n shards? The JAX package's rules: n > 1, t == s, t % n == 0,
-    head dim 64 (the port's kernels take no other), the window off or
-    covering the song, and a shard of a multiple of ``RING_ROWS`` frames.
+    a head dim that is a multiple of 64, the window off or covering the
+    song, and a shard of a multiple of ``RING_ROWS`` frames.
     The JAX package also refuses a full-MHA site (h == kv) whose shard does
     not split into a timestep fold, a tiling rule of the TPU kernel; the port
     has no fold, so h and kv are accepted for the same signature and not
     read."""
-    if n <= 1 or t != s or t % n or d != 64:
+    if n <= 1 or t != s or t % n or d % 64:
         return False
     if window is not None and window < t:
         return False

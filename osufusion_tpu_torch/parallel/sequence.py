@@ -239,14 +239,16 @@ def frames_of(x: torch.Tensor, shard: SeqShard, dim: int = 1) -> torch.Tensor:
 def seq_parallel_available(t_local: int, window: Optional[int], head_dim: int, count: int) -> bool:
     """Can the halo kernels serve a site of ``t_local`` frames a shard? An
     engaged, even window shorter than the song whose halo reaches one
-    neighbour only (``t_local >= window / 2``), head dim 64. The kernels take
-    MQA, so a site with several KV heads runs them once per KV head
+    neighbour only (``t_local >= window / 2``), a head dim that is a multiple
+    of 64, as the JAX package's rule (a form that no kernel instance takes
+    raises before, in ``ops/attention.py::sdpa``). The kernels take MQA, so a
+    site with several KV heads runs them once per KV head
     (``ops/attention.py``); they take any ``t_local`` and ``t_local + window``
     (they mask their ragged tiles). A site they cannot serve gathers the
     sequence."""
     return (
         count > 1 and window is not None and window % 2 == 0 and 0 < window < t_local * count
-        and t_local >= window // 2 and head_dim == 64
+        and t_local >= window // 2 and head_dim % 64 == 0
     )
 
 

@@ -1,7 +1,8 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
-and the differentiable ops that join them) against
+the forms family's instances at fp32 and bf16 with D = 64 ... 256, and the
+differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
+from osufusion_tpu_torch.ops import flash_forms as forms
 from osufusion_tpu_torch.ops import halo_attention as ha
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 
@@ -60,8 +62,8 @@ def test_flash_fwd_matches_plain(cuda, B, T, H, window):
 @pytest.mark.cuda
 def test_flash_fwd_rejects_what_it_does_not_take(cuda):
     q, k, v, rope = _inputs(1, 128, 4, seed=0, device=cuda)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q.float(), k.float(), v.float(), None, rope)
+    with pytest.raises(ValueError):  # q in fp32, k and v in bf16: no kernel takes mixed operands
+        fa.flash_attention(q.float(), k, v, None, rope)
     with pytest.raises(ValueError):  # 4 query heads do not split into 3 KV heads
         fa.flash_attention(q, torch.cat([k, k, k], dim=2), torch.cat([v, v, v], dim=2), None, rope)
     with pytest.raises(ValueError):
@@ -609,15 +611,19 @@ def _kernel_launches() -> tuple:
             fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
 
 
+def _forms_launches() -> tuple:
+    return (forms.forms_fwd.launches, forms.forms_bwd_prep.launches, forms.forms_bwd_dq.launches,
+            forms.forms_bwd_dkv.launches, forms.forms_bwd_post.launches, forms.forms_ring_merge.launches)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.float16, 64), (torch.bfloat16, 128)],
-                         ids=["fp32", "fp16", "bf16-D128"])
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 320)], ids=["fp16", "bf16-D320"])
 @pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
 def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
-    """``--mixed-precision no`` (fp32) or a checkpoint's other
-    ``attn_dim_head``: no kernel takes the site, so ``sdpa`` raises before
-    any launch, naming the kernel instances still to write, and runs nothing
-    in their place, forward or under a gradient."""
+    """fp16 operands, or a head dim above 256: no kernel takes the site, so
+    ``sdpa`` raises before any launch, naming the ROADMAP row of the kernel
+    instances still to write, and runs nothing in their place, forward or
+    under a gradient."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
     B, T, H = 2, 1024, 4
@@ -625,13 +631,13 @@ def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
     q = torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype).requires_grad_(True)
     k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).to(dtype) for _ in range(2))
     rope = rope_tables(T, D, scale_base=512.0, device=cuda)
-    before = _kernel_launches()
+    before = _kernel_launches(), _forms_launches()
     with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
         with torch.no_grad():
             sdpa(q, k, v, window, rope)
     with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
         sdpa(q, k, v, window, rope)
-    assert _kernel_launches() == before
+    assert (_kernel_launches(), _forms_launches()) == before
 
 
 # the DPM-16 signal through the kernels vs through the plain attention (both
@@ -680,3 +686,189 @@ def test_dpm16_through_the_kernels_matches_the_plain_attention(cuda):
     assert launches == sum(cfg.num_layer_blocks) + 16 * (2 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers)
     assert got.shape == (1, 6, N) and torch.isfinite(got).all()
     assert _rel(got, ref) < SAMPLER_REL_TOL
+
+
+# ------------------------------------------------- the forms family (csrc/flash_forms.cu)
+
+FORMS = [(dt, D) for dt in (torch.float32, torch.bfloat16) for D in (64, 128, 192, 256)]
+FORMS_IDS = [f"{'fp32' if dt == torch.float32 else 'bf16'}-D{D}" for dt, D in FORMS]
+# fp32 against the plain fp32 versions: the same arithmetic summed in another
+# order, a few 1e-7 relative at these lengths (the bound leaves room for
+# fp32's worst case over a few hundred keys); bf16: the wgmma kernels' bounds
+F32_REL_TOL, F32_LSE_TOL = 1e-4, 1e-4
+# (B, T, H, Kv, window, tables): MQA global with tables and a ragged last tile,
+# MQA windowed with tables at a length and window no tile divides, grouped
+# (G = 4) global without tables, grouped (G = 2) windowed without tables
+FORMS_SITES = [(2, 200, 3, 1, -1, True), (1, 333, 4, 1, 100, True), (2, 256, 8, 2, -1, False),
+               (1, 300, 6, 3, 64, False)]
+FORMS_SITE_IDS = ["mqa-global", "mqa-windowed", "grouped-global", "grouped-windowed"]
+
+
+def _forms_tols(dtype):
+    return (F32_REL_TOL, F32_LSE_TOL) if dtype == torch.float32 else (REL_TOL, LSE_TOL)
+
+
+def _forms_inputs(B, T, H, Kv, D, dtype, tables, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=device).to(dtype) for _ in range(2))
+    shape = (B, T, D) if Kv == 1 else (B, T, Kv, D)
+    k, v = (torch.randn(shape, generator=g, device=device).to(dtype) for _ in range(2))
+    cos, sin = rope_tables(T, D, scale_base=float(T), device=device) if tables else (None, None)
+    return q, (k if cos is None else fa.rotated_k(k, cos, sin)), v, do, cos, sin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables", FORMS_SITES, ids=FORMS_SITE_IDS)
+@pytest.mark.parametrize("dtype,D", FORMS, ids=FORMS_IDS)
+def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables):
+    """Every instance of the forms family through its wrappers (bf16/64 too,
+    which the form rule gives the wgmma kernels): the forward with its LSE,
+    then the pre-pass, dq, dk/dv and post-pass, against the plain fp32
+    versions; each entry point launched once."""
+    rel_tol, lse_tol = _forms_tols(dtype)
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T)
+    scale = D**-0.5
+    before = _forms_launches()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, T * H), dtype=torch.float32, device=cuda)
+    forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
+    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, Kv, scale)
+    dk = torch.empty(k_rot.shape, dtype=torch.float32, device=cuda)
+    dv = torch.empty_like(dk)
+    forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
+    forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    dq = forms.forms_bwd_post(prep, cos, sin, scale)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_forms_launches(), before)] == [1, 1, 1, 1, 1, 0]
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window))
+    assert o.dtype == dq.dtype == dtype and dk.dtype == torch.float32
+    assert _rel(o, o_ref) < rel_tol and (lse - lse_ref).abs().max().item() < lse_tol
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(a).all() and _rel(a, b) < rel_tol, f"{name}: rel L2 {_rel(a, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 3], ids=["first", "last"])
+@pytest.mark.parametrize("dtype,D", FORMS, ids=FORMS_IDS)
+def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
+    """The forms instances in the halo frame, through the halo wrappers
+    (forms by the operands' form; bf16/64 takes the wgmma instance there):
+    the slab rows outside the song hold large values that the kernels must
+    ignore, and their dk and dv are exact zeros."""
+    B, T, H, W, n = 1, 256, 4, 128, 4
+    rel_tol, lse_tol = _forms_tols(dtype)
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    scale = D**-0.5
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
+            *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
+    assert _rel(o, o_ref) < rel_tol and (lse - lse_ref).abs().max().item() < lse_tol
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(a).all() and _rel(a, b) < rel_tol, f"{name}: rel L2 {_rel(a, b)}"
+    outside = torch.ones(T + W, dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert (dk[:, outside] == 0).all() and (dv[:, outside] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Kv,rope", [(torch.float32, 64, 1, True), (torch.bfloat16, 128, 2, False),
+                                             (torch.float32, 256, 4, False)], ids=["fp32-D64", "bf16-D128", "fp32-D256"])
+def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope):
+    """The ring at a form of the forms family: the kernel parts (the forms
+    forward, merge, pre-pass, dq and dk/dv sweeps storing on the first hop
+    and adding after, post-pass) against the plain parts, over 2 shards."""
+    from osufusion_tpu_torch.ops.ring_attention import LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    n, B, T, H = 2, 1, 512, 8
+    rel_tol, lse_tol = _forms_tols(dtype)
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, n * T, H, Kv, D, dtype, rope, cuda, seed=7)
+
+    def run(parts):
+        def rank(r, rotation):
+            sl = slice(r * T, (r + 1) * T)
+            c, s = (None, None) if cos is None else (cos[sl].contiguous(), sin[sl].contiguous())
+            qr, kr, vr, dor = (x[:, sl].contiguous() for x in (q, k_rot, v, do))
+            o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+            return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+        results = LocalRing(n).run(rank)
+        torch.cuda.synchronize()
+        return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+    before = _kernel_launches(), _forms_launches()
+    got = run(None)
+    assert _kernel_launches() == before[0] and _forms_launches()[5] - before[1][5] == n * n
+    ref = run(PlainParts)
+    assert got[0].dtype == got[2].dtype == dtype and got[3].dtype == torch.float32
+    assert _rel(got[0], ref[0]) < rel_tol and (got[1] - ref[1]).abs().max().item() < lse_tol
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+        assert torch.isfinite(a).all() and _rel(a, b) < rel_tol, f"{name}: rel L2 {_rel(a, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 128)], ids=["fp32-D64", "bf16-D128"])
+@pytest.mark.parametrize("window", [96, None], ids=["windowed", "global"])
+def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window):
+    """``sdpa`` under a gradient at fp32/64 and bf16/128 on the card: the
+    forms kernels and none of the wgmma ones, forward and backward, against
+    autograd through the plain attention in fp32."""
+    from osufusion_tpu_torch.ops.attention import sdpa
+
+    B, T, H = 2, 384, 4
+    rel_tol, _ = _forms_tols(dtype)
+    q, k, v, do, cos, sin = _forms_inputs(B, T, H, 2, D, dtype, True, cuda, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = _kernel_launches(), _forms_launches()
+    out = sdpa(*leaves, window, (cos, sin))
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before[0]
+    # a windowed site runs per KV head (2); a global one once
+    runs = 2 if window is not None else 1
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [runs] * 5 + [0]
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, window, (cos, sin))
+    ref.backward(do.float())
+    assert out.dtype == dtype and _rel(out, ref) < rel_tol
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert a.grad.dtype == dtype and _rel(a.grad, b.grad) < rel_tol, f"d{name}: rel L2 {_rel(a.grad, b.grad)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("grad", [False, True], ids=["forward", "gradient"])
+def test_site_no_kernel_tiles_runs_the_xla_route_on_the_card(cuda, dtype, grad):
+    """A head dim of 32 on the card: what the JAX package sends to XLA, rope
+    and then the plain grouped attention with native autograd; no kernel is
+    launched, and it equals the plain attention."""
+    from osufusion_tpu_torch.ops.attention import sdpa
+
+    B, T, H, D = 2, 256, 4, 32
+    q, k, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, dtype, False, cuda, seed=5)
+    k, v = k[:, :, None], v[:, :, None]
+    rope = rope_tables(T, D, scale_base=256.0, device=cuda)
+    leaves = [t.clone().requires_grad_(grad) for t in (q, k, v)]
+    before = _kernel_launches(), _forms_launches()
+    out = sdpa(*leaves, 64, rope)
+    if grad:
+        out.backward(do)
+    torch.cuda.synchronize()
+    assert (_kernel_launches(), _forms_launches()) == before
+    ref_leaves = [t.clone().requires_grad_(grad) for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, 64, rope)
+    assert torch.equal(out, ref)
+    if grad:
+        ref.backward(do)
+        for a, b in zip(leaves, ref_leaves):
+            assert torch.equal(a.grad, b.grad)

@@ -235,16 +235,14 @@ def test_all_global_unet_step_over_two_shards_matches_one_process(group2, one_pr
         np.testing.assert_allclose(got[0]["params"][name], value.numpy(), **tol, err_msg=name)
 
 
-# (t, s, d, window, n, h, kv): test_ring_availability_rules' cases and the full-MHA one of
-# test_ring_full_mha_timestep_fold, which both packages decide alike
+# (t, s, d, window, n, h, kv): test_ring_availability_rules' cases, the full-MHA one of
+# test_ring_full_mha_timestep_fold and a head dim of 128, which both packages decide alike
 SAME = [(512, 512, 64, 128, 4, 1, 1), (512, 512, 64, 512, 4, 1, 1), (512, 512, 64, None, 4, 1, 1),
         (512, 512, 64, None, 1, 1, 1), (256, 256, 64, None, 8, 1, 1), (512, 256, 64, None, 4, 1, 1),
-        (512, 512, 48, None, 4, 1, 1), (512, 512, 64, None, 2, 4, 4)]
+        (512, 512, 48, None, 4, 1, 1), (512, 512, 64, None, 2, 4, 4), (512, 512, 128, None, 4, 1, 1)]
 # where they differ, by design: the JAX package refuses a full-MHA shard that no
-# timestep fold tiles (a TPU tiling rule; the port has no fold), and takes any
-# head dim that is a multiple of 64 (the port's kernels take 64 alone)
-DIFFERENT = [((256, 256, 64, None, 4, 4, 4), True), ((384, 384, 64, None, 2, 2, 2), True),
-             ((512, 512, 128, None, 4, 1, 1), False)]
+# timestep fold tiles (a TPU tiling rule; the port has no fold)
+DIFFERENT = [((256, 256, 64, None, 4, 4, 4), True), ((384, 384, 64, None, 2, 2, 2), True)]
 
 
 @pytest.mark.parametrize("args", SAME)

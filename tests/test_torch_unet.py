@@ -130,6 +130,25 @@ def test_ddim_schedule_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
+def test_ddim_step_keeps_a_bf16_eps_in_fp32_as_the_jax_package_does():
+    """Serving in bf16 hands the step a bf16 eps and an fp32 x. jnp promotes
+    sqrt(1 - a_t) * eps to fp32 (acp[t] is an fp32 array there, not a weak
+    scalar); the port's step must not round that product to bf16 either, so
+    the two agree to fp32 rounding."""
+    from osufusion_tpu.models import ddim as jddim
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 6)).astype(np.float32)
+    eps = torch.from_numpy(rng.standard_normal((2, 8, 6)).astype(np.float32)).to(torch.bfloat16)
+    acp = ddim.alphas_cumprod(1000)
+    for t, t_prev in ((980, 960), (500, 480), (20, 0), (0, -1)):
+        want = np.asarray(jddim.ddim_step(jnp.asarray(x), jnp.asarray(eps.float().numpy()).astype(jnp.bfloat16), t,
+                                          t_prev, jnp.asarray(acp.numpy())))
+        got = ddim.ddim_step(torch.from_numpy(x), eps, t, t_prev, acp)
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         build_model(ModelConfig(**TINY), DiffusionConfig(objective="rectified-flow"))
