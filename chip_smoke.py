@@ -309,8 +309,8 @@ def phase_device() -> tuple[str, str]:
 
 
 # the template arguments that the kernels of ``csrc/`` take, as the Itanium ABI mangles them: a bool, an
-# int (the forms family's head dim), and the forms family's operand types float and __nv_bfloat16
-_TEMPLATE_ARG = r"Lb[01]E|Li\d+E|f|13__nv_bfloat16"
+# int (a head dim), and the forms family's operand types float, __nv_bfloat16 and __half
+_TEMPLATE_ARG = r"Lb[01]E|Li\d+E|f|13__nv_bfloat16|6__half"
 
 
 def _kernel_name(mangled: str) -> str:
@@ -318,7 +318,7 @@ def _kernel_name(mangled: str) -> str:
     found = re.search(rf"([a-z][a-z_]*_kernel)(I(?:{_TEMPLATE_ARG})+E)?", mangled)
     if found is None:
         return mangled
-    names = {"Lb0E": "false", "Lb1E": "true", "f": "float", "13__nv_bfloat16": "bf16"}
+    names = {"Lb0E": "false", "Lb1E": "true", "f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
     args = [names.get(a, a[2:-1]) for a in re.findall(_TEMPLATE_ARG, (found.group(2) or "")[1:-1])]
     return found.group(1) + (f"<{', '.join(args)}>" if args else "")
 
@@ -1097,11 +1097,13 @@ def _all_launches(fa, ha) -> tuple:
             fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
 
 
-# the forms instances of csrc/flash_forms.cu, (operand dtype, head dim); the main paths run fp32/64 (fp32
-# training and serving) and bf16/128 (a checkpoint's attn_dim_head of 128). bf16/64 exists as an instance
-# too, though the form rule gives that form to the wgmma kernels: it is checked and timed through the forms
-# wrappers directly, beside them.
-FORMS_INSTANCES = [(dt, D) for dt in (torch.float32, torch.bfloat16) for D in (64, 128, 192, 256)]
+# the forms instances of csrc/flash_forms.cu, (operand dtype, head dim): fp32, bf16 and fp16 at D = 64 ...
+# 256, and the chunked instance at bf16/320; the main paths run fp32/64 (fp32 training and serving) and
+# bf16/128's pre-pass and post-pass around K2's sweep. The bf16 forward, dq and
+# dk/dv at D <= 256 exist as instances too, though the form rule gives the forward and the global backward
+# at those forms to the wgmma kernels: they are checked and timed through the forms wrappers directly.
+FORMS_INSTANCES = ([(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
+                   + [(torch.bfloat16, 320)])
 FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
@@ -1316,20 +1318,32 @@ def phase_forms_kernels() -> dict:
     return records
 
 
+# (f): the sites that only the forms family takes: fp16 at every head dim of the forms
+# instances, and each operand dtype at head dims above 256 (the chunked instance); (dtype, D, window)
+FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
+                   + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
+# fp16 against fp32 plain on the same fp16 inputs: P and dS rounded to fp16 (2^-11 relative) where bf16 rounds
+# to 2^-8; the planted faults (an LSE off by LSE_FAULT, the last key tile dropped) lie far above
+FORMS_F16_REL_TOL = 2e-3
+
+
 def phase_forms_raise() -> None:
-    """(f) What still raises, raises before any launch or gather: through ``ops.attention.sdpa`` on the card,
-    fp16 operands at D = 64 and bf16 at D = 320 raise NotImplementedError naming ROADMAP.md's queue 2
-    "forms". A site whose head dim is not a multiple of 64 (D = 32) launches no kernel and equals the plain
-    attention, as the JAX package sends it to XLA. A bf16, D = 64 site whose window the wrapper refuses
-    raises ValueError; a wgmma or forms launch that fails raises RuntimeError."""
+    """(f) Every form that the JAX package runs now runs a kernel on the card: through ``ops.attention.sdpa``
+    under a gradient, fp16 operands at D = 64 ... 256 (windowed) and fp32, bf16 and fp16 at D = 320 and 512
+    (global: the chunked instance) raise nothing, launch the forms forward, pre-pass, dq, dk/dv and
+    post-pass once each (and no wgmma kernel), and hold o and the gradients to autograd through the plain
+    attention in fp32, with a planted fault (the keys of the last tile dropped) above the bound. A site whose
+    head dim is not a multiple of 64 (D = 32) launches no kernel and equals the plain attention, as the JAX
+    package sends it to XLA. A bf16, D = 64 site whose window the wrapper refuses raises ValueError; a wgmma or
+    forms launch that fails raises RuntimeError."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.ops.attention import sdpa
     from osufusion_tpu_torch.ops.rope import rope_tables
 
-    B, T, H = 2, 1024, 16
+    B, T, H = 1, 1024, 4
     gen = torch.Generator(device="cuda").manual_seed(0)
-    raised, expected = [], []
+    raised, expected, failures = [], [], []
 
     def site(dtype, D):
         q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
@@ -1346,10 +1360,43 @@ def phase_forms_raise() -> None:
     def counts():
         return _all_launches(fa, ha), _forms_counts()
 
+    held = []
+    for dt, D, window in FORMS_NEW_SITES:
+        tol = {torch.float32: FORMS_F32_REL_TOL, torch.bfloat16: BWD_REL_TOL, torch.float16: FORMS_F16_REL_TOL}[dt]
+        q, k, v, rope = site(dt, D)
+        do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
+        w = None if window < 0 else window
+        before = counts()
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = sdpa(*leaves, w, rope)
+        out.backward(do)
+        torch.cuda.synchronize()
+        moved = _all_launches(fa, ha) != before[0]
+        runs = {name: n - before[1][name] for name, n in _forms_counts().items()}
+        ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref = fa.flash_attention_reference(*ref_leaves, w, rope)
+        ref.backward(do.float())
+        if w is None:  # planted fault: the values of the last key tile left out of P V
+            v_cut = v.float().clone()
+            v_cut[:, T - FAULT_TILE:] = 0.0
+            fault = fa.flash_attention_reference(q.float(), k.float(), v_cut, None, rope)
+        else:  # a window two keys short
+            fault = fa.flash_attention_reference(q.float(), k.float(), v.float(), w - 2, rope)
+        rels = [_rel(out, ref)] + [_rel(a.grad, b.grad) for a, b in zip(leaves, ref_leaves)]
+        fault_rel = _rel(fault, ref)
+        name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
+        held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
+                    f"{fault_rel:.2e}), forms {runs}")
+        if moved or runs != {"fwd": 1, "prep": 1, "dq": 1, "dkv": 1, "post": 1, "merge": 0}:
+            failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}")
+        if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
+            failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
+        if not fault_rel > tol:
+            failures.append(f"{name}: planted fault {fault_rel:.3e} would pass {tol}")
+        del q, k, v, do, leaves, out, ref_leaves, ref, fault
+    _log(f"[forms raise] sites that raised before, through ops.attention.sdpa under a gradient (B={B}, T={T}, "
+         f"H={H}) vs fp32 plain autograd: " + "; ".join(held))
     before = counts()
-    call(torch.float16, 64, 256, NotImplementedError)
-    call(torch.bfloat16, 320, None, NotImplementedError)
-    no_launch = counts() == before
     q, k, v, rope = site(torch.bfloat16, 32)
     xla = sdpa(q, k, v, 256, rope)
     xla_rel = _rel(xla, fa.flash_attention_reference(q, k, v, 256, rope).float())
@@ -1360,16 +1407,193 @@ def phase_forms_raise() -> None:
     try:
         call(torch.bfloat16, 64, 256, RuntimeError)
         call(torch.float32, 64, 256, RuntimeError)
+        call(torch.bfloat16, 128, 256, RuntimeError)
     finally:
         fa._kernel = kernel
-    _log(f"[forms raise] sites through ops.attention.sdpa (B={B}, T={T}, H={H}) on the card: {raised}; no launch for "
-         f"fp16/64 and bf16/320: {no_launch}; bf16/32 (the XLA route) vs plain rel L2 {xla_rel:.1e}, no launch: "
-         f"{no_launch_xla}")
-    if [name for name, _ in raised] != expected or not (no_launch and no_launch_xla) or xla_rel != 0.0:
-        raise AssertionError(f"forms raise: raised {raised}, expected {expected}; no launch {no_launch}, "
-                             f"{no_launch_xla}; D=32 vs plain {xla_rel:.3e}")
-    if not all('queue 2, "forms"' in msg for _, msg in raised[:2]):
-        raise AssertionError(f"forms raise: the NotImplementedError does not name ROADMAP.md's queue 2: {raised[:2]}")
+    _log(f"[forms raise] bf16/32 (the XLA route) vs plain rel L2 {xla_rel:.1e}, no launch: {no_launch_xla}; raised "
+         f"{raised}")
+    if [name for name, _ in raised] != expected or not no_launch_xla or xla_rel != 0.0:
+        failures.append(f"raised {raised}, expected {expected}; no launch {no_launch_xla}; D=32 vs plain {xla_rel:.3e}")
+    if failures:
+        raise AssertionError("forms raise: " + "; ".join(failures))
+
+
+# K1 and K2 at the head dims above 64: bf16, D = 128, 192, 256, at the forms site (FORMS_SITE: B=2,
+# T=4096, H=16, MQA, global, tables), against the plain versions with the D = 64 kernels' bounds
+WIDE_DIMS = (128, 192, 256)
+
+
+def phase_wide_kernels() -> dict:
+    """K1 with its LSE and the whole global backward (the forms pre-pass, K2's sweep, the forms post-pass) at
+    D = 128, 192 and 256 against their plain fp32 versions with planted faults above the D = 64 kernels'
+    bounds (the forward without its last key tile; the backward from an LSE off by LSE_FAULT), each timed by
+    CUDA events beside its bound, its plain version and rope + SDPA (forward; backward by autograd), and the
+    sweep alone beside its share of the bound; then K1 and K2 at D = 128 at the paths' own sites
+    (WIDE_PATH_SITES) against plain with the same bounds. Returns {D: {"fwd": record, "bwd": record}} of the
+    forms site."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import apply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    t_phase = time.perf_counter()
+    B, T, H = FORMS_SITE
+    failures, records = [], {}
+    for i, D in enumerate(WIDE_DIMS):
+        scale = D**-0.5
+        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 1700 + i, D)
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+        dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+        refs = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)
+        faults = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref + LSE_FAULT, do, cos, sin)
+        o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+        lse_err, o_fault_rel = (lse - lse_ref).abs().max().item(), _rel(o_fault, o_ref)
+        if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(o).all()
+                and o_fault_rel > REL_TOL):
+            failures.append(f"K1 D={D}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse {lse_err:.3e}, fault {o_fault_rel:.3e}")
+        parts, bwd_err = [], 0.0
+        for name, got, ref, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+            rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+            fault_rel = _rel(fault, ref)
+            bwd_err = max(bwd_err, err)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+            if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all() and fault_rel > BWD_REL_TOL):
+                failures.append(f"K2 D={D}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}, fault {fault_rel:.3e}")
+        del o_ref, lse_ref, o_fault, refs, faults, dq, dk, dv
+        fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 10)
+        bwd_ms = _cuda_ms(lambda: fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale), 5)
+        prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
+        dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+        sweep_ms = _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk_s, dv_s, False), 5)
+        del prep, dk_s, dv_s
+        fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1)
+        bwd_plain_ms = _cuda_ms(lambda: fa.flash_bwd_reference(q, k_rot, v, o, lse, do, cos, sin), 1)
+
+        # yardstick only: rope on q and k, then PyTorch's fused attention and its backward
+        def library(q_in, k_in, v_in):
+            qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+            kr = apply_rope(k_in, cos, sin)[:, None]
+            return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
+
+        with torch.no_grad():
+            lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 5)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = library(*leaves)
+        lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 5)
+        del leaves, lib_out
+        fwd_bound = _bound(attention_flops("forward", B, T, H, D, None), _attn_bytes(B, T, H, D, 2, 2, 1))
+        bwd_bound = _bound(attention_flops("backward_fused", B, T, H, D, None), _attn_bytes(B, T, H, D, 4, 4, 1))
+        records[D] = {
+            "fwd": {"max_abs_err": o_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+                    "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms},
+            "bwd": {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+                    "bound_by": bwd_bound[1], "library_ms": lib_bwd_ms},
+        }
+        _log(f"[wide kernels] D={D} B={B} T={T} H={H} global, tables: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} "
+             f"(fault {o_fault_rel:.3e}), lse max abs {lse_err:.3e}; backward {'; '.join(parts)} (bounds {REL_TOL}, "
+             f"{BWD_REL_TOL})")
+        _log(f"[wide kernels] D={D}: K1 {fwd_ms:.3f} ms (bound {fwd_bound[0]:.3f} by {fwd_bound[1]}, "
+             f"{fwd_bound[0] / fwd_ms:.1%}; plain {fwd_plain_ms:.3f}; rope+SDPA {lib_fwd_ms:.3f}); whole backward "
+             f"{bwd_ms:.3f} ms, of it K2's sweep {sweep_ms:.3f} (bound {bwd_bound[0]:.3f} by {bwd_bound[1]}, "
+             f"{bwd_bound[0] / bwd_ms:.1%} whole, {bwd_bound[0] / sweep_ms:.1%} the sweep; plain {bwd_plain_ms:.3f}; "
+             f"rope+SDPA backward {lib_bwd_ms:.3f})")
+        del q, k_rot, k, v, do, cos, sin, o, lse
+        torch.cuda.empty_cache()
+    for i, (label, B, T, H, Kv, window, tables) in enumerate(WIDE_PATH_SITES):
+        _wide_path_site(label, B, T, H, Kv, window, tables, 1750 + i, failures)
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("wide kernels vs plain: " + "; ".join(failures))
+    _log(f"[wide kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# the sites at which the paths of phase 23 run K1 and K2 at D = 128: (label, B, T, H, Kv, window, tables).
+# (g) the DiT step's grouped site (4 heads of 128, H = Kv, no tables; K1 with its LSE and K2); (c) the
+# serving UNet's level 0 under CFG (24576 frames, the level's window, MQA with tables; K1 without its LSE)
+WIDE_PATH_SITES = (("DiT (g)", 4, 4096, 4, 4, -1, False), ("serving (c)", 2, 24576, 16, 1, 4096, True))
+
+
+def _wide_path_site(label: str, B: int, T: int, H: int, Kv: int, window: int, tables: bool, seed: int,
+                    failures: list) -> None:
+    """K1 (and at a global site K2) at D = 128 at one of WIDE_PATH_SITES against the plain fp32 versions, with
+    the bounds and planted faults of ``phase_wide_kernels`` (a windowed forward's fault: the window one key
+    short on each side), and K1 timed by CUDA events."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    D = 128
+    scale = D**-0.5
+    where = f"{label} D={D} B={B} T={T} H={H} Kv={Kv} {'global' if window < 0 else f'W={window}'}"
+    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, Kv, tables, seed, D)
+    del k
+    if window < 0:
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+        grads = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+        fault_k, fault_v, fault_w = k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], window
+    else:  # serving: no LSE, no backward
+        o, lse, grads = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale), None, ()
+        fault_k, fault_v, fault_w = k_rot, v, window - 2
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    o_fault = fa.flash_fwd_lse_reference(q, fault_k, fault_v, cos, sin, fault_w)[0]
+    o_rel, o_err, o_fault_rel = _rel(o, o_ref), (o.float() - o_ref).abs().max().item(), _rel(o_fault, o_ref)
+    lse_err = 0.0 if lse is None else (lse - lse_ref).abs().max().item()
+    del o_fault
+    if not (o_rel < REL_TOL and o_err < ABS_TOL and lse_err < LSE_TOL and torch.isfinite(o).all()
+            and o_fault_rel > REL_TOL):
+        failures.append(f"K1 {where}: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse {lse_err:.3e}, fault {o_fault_rel:.3e}")
+    parts = []
+    if grads:
+        refs = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)
+        faults = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref + LSE_FAULT, do, cos, sin)
+        for name, got, ref, fault in zip(("dq", "dk", "dv"), grads, refs, faults):
+            rel, err, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+            fault_rel = _rel(fault, ref)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+            if not (rel < BWD_REL_TOL and err < BWD_ABS_TOL * top and torch.isfinite(got).all() and fault_rel > BWD_REL_TOL):
+                failures.append(f"K2 {where}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}, fault {fault_rel:.3e}")
+        del refs, faults
+    del o_ref, lse_ref, grads
+    fwd_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=window < 0), 5)
+    _log(f"[wide kernels] {where}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault_rel:.3e}), lse max "
+         f"abs {lse_err:.3e}; backward {'; '.join(parts) or 'none on this path'} (bounds {REL_TOL}, {BWD_REL_TOL}); "
+         f"K1 {fwd_ms:.3f} ms")
+
+
+def phase_wide_dit_train(workdir: Path) -> dict:
+    """A bf16 DiT crop step at a head dim of 128 (dim_h=512, 4 heads of 128, depth 12, B=4, T=4096, full
+    bf16): ``trainer.train`` for 2 steps, K1 (c) with its LSE and K2 (c) at D = 128 once a layer and step,
+    no forms forward, dq or dk/dv. Returns the wgmma launches."""
+    from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    t_phase = time.perf_counter()
+    steps, B, T = 2, 4, 4096
+    model = dict(TRANSFORMER, attn_heads=4, attn_dim_head=128)
+    cfg = Config(model=ModelConfig(backbone="dit", **model),
+                 train=TrainConfig(project_dir=str(workdir / "dit_d128"), dataset_mode="dummy", segment_length=T // 2,
+                                   batch_size=B, full_bf16=True, total_steps=steps, warmup_steps=2, save_every=0,
+                                   num_workers=2, seed=0))
+    others = _all_launches(fa, ha)[4:]
+    _forms_counts(reset=True)
+    history, launches, peak = _train_with_resume(cfg, steps, "train dit D=128", final="postprocess/kernel")
+    counts = _forms_counts()
+    depth = cfg.model.depth
+    _log(f"[wide dit train] DiT dim_h=512, 4 heads of 128, depth {depth}, B={B} T={T} full bf16, {steps} steps: loss "
+         f"{[round(h['loss'], 4) for h in history]}; {[round(h['seconds'], 4) for h in history]} s/step; peak memory "
+         f"{peak:.2f} GiB; launches {launches}; forms launches {counts}; phase {time.perf_counter() - t_phase:.1f} s")
+    expected = {"forward": 0, "forward_lse": depth * steps, "backward_fused": depth * steps, "backward_dq": 0,
+                "backward_dkv": 0, "forward_grouped": depth * steps, "backward_grouped": depth * steps}
+    if launches != expected or _all_launches(fa, ha)[4:] != others:
+        raise AssertionError(f"wide dit train: launches {launches}, expected {expected}")
+    _forms_launch_check("wide dit train", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+                        False)
+    return launches
 
 
 def _forms_launch_check(label: str, counts: dict, expected: dict, hopper_moved: bool) -> None:
@@ -1378,11 +1602,12 @@ def _forms_launch_check(label: str, counts: dict, expected: dict, hopper_moved: 
 
 
 def phase_forms_serve(model_cfg, workdir: Path) -> int:
-    """(b) and (c): serving a form that the forms kernels take (a float32 config; a bf16 UNet with
-    attn_dim_head=128), seeded random weights as phase 6's: the 180 s song through ``generate_beatmap`` at
-    DPM-16 and CFG 2.0 (444 forms forwards a map, no wgmma launch), the sampler alone on the 180 s cell
-    (s/map), and at 8192 frames the signal through the kernels held to the plain attention's (phase 21's
-    bounds). Returns the forms forwards of the request and the sampler run."""
+    """(b) and (c): serving a form beside bf16/64 (a float32 config; a bf16 UNet with attn_dim_head=128),
+    seeded random weights as phase 6's: the 180 s song through ``generate_beatmap`` at DPM-16 and CFG 2.0
+    (444 forwards a map: fp32 the forms forward and no wgmma launch; bf16/128 K1 at D = 128 and no forms
+    launch), the sampler alone on the 180 s cell (s/map), and at 8192 frames the signal through the kernels
+    held to the plain attention's (phase 21's bounds). Returns the forwards of the request and the sampler
+    run (forms forwards at fp32, K1's at bf16/128)."""
     from osufusion_tpu_torch.config import DiffusionConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1395,6 +1620,7 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
     expected = _map_launches(model, params.cfg, "dpmpp-2m", DPM_STEPS)
     wav = workdir / "song_forms.wav"
     synth_song(wav, 180.0, seed=ord("a"))
+    wide = model_cfg.dtype == "bfloat16"  # K1 takes bf16 at D = 128
     hopper = _all_launches(fa, ha)
     _forms_counts(reset=True)
     torch.cuda.synchronize()
@@ -1403,6 +1629,7 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
                                        sampling_timesteps=DPM_STEPS, sampler="dpmpp-2m", cond_scale=2.0, seed=0)
     latency = time.perf_counter() - t0
     request = _forms_counts()
+    k1_request = fa.flash_fwd.launches - hopper[0]
     hits = check_osz(data, osu_texts, 1)
     g = torch.Generator().manual_seed(0)
     frames = 24576
@@ -1410,24 +1637,33 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
     c = (torch.rand((1, 5), generator=g) * 2 - 1).cuda()
     x0 = torch.randn((1, 6, frames), generator=torch.Generator().manual_seed(1)).cuda()
     _forms_counts(reset=True)
+    between = _all_launches(fa, ha)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=DPM_STEPS, method="dpmpp-2m")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     sampler = _forms_counts()
+    after = _all_launches(fa, ha)
+    k1_sampler = after[0] - between[0]
     _log(f"[forms serve] {label}: 180 s song, DPM-{DPM_STEPS}, CFG 2.0 through generate_beatmap {latency:.3f} s end to "
-         f"end, hit objects {hits}, forms launches {request}; the sampler alone on 24576 frames {seconds:.3f} s/map, "
-         f"forms launches {sampler} (expected {expected} forwards a map)")
-    moved = _all_launches(fa, ha) != hopper
-    want = {"fwd": expected, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+         f"end, hit objects {hits}, forms launches {request}, K1 launches {k1_request}; the sampler alone on 24576 "
+         f"frames {seconds:.3f} s/map, forms launches {sampler}, K1 launches {k1_sampler} (expected {expected} "
+         f"forwards a map)")
+    if wide:  # K1 serves every site, nothing else launches
+        want = {"fwd": 0, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+        others = [a - b for a, b in zip(after[1:], hopper[1:])]
+        moved = k1_request != expected or k1_sampler != expected or any(others)
+    else:
+        want = {"fwd": expected, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+        moved = after != hopper
     _forms_launch_check(f"forms serve {label} request", request, want, moved)
     _forms_launch_check(f"forms serve {label} sampler", sampler, want, moved)
     if not torch.isfinite(out).all():
         raise AssertionError(f"forms serve {label}: non-finite sampled signal")
     del a, c, x0, out
     phase_sampler_check(model, params, check_song(workdir), "dpmpp-2m", DPM_STEPS)
-    return request["fwd"] + sampler["fwd"]
+    return k1_request + k1_sampler if wide else request["fwd"] + sampler["fwd"]
 
 
 def _forms_unet(dim_head: int, dtype: str, remat: bool = False):
@@ -1447,10 +1683,12 @@ FORMS_GRAD_F32_REL_TOL = 1e-3
 
 
 def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096) -> dict:
-    """(d) Gradients through the forms kernels: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
+    """(d) Gradients at a form beside bf16/64: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
-    float32 through the plain versions on the card; forms launches one forward, dq and dk/dv a site, and no
-    wgmma kernel."""
+    float32 through the plain versions on the card. fp32: the forms forward, pre-pass, dq, dk/dv and
+    post-pass a site, and no wgmma kernel; bf16 at D = 128: K1 with its LSE and K2 a site (the forms
+    pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv. Returns the launches by
+    entry point (the forms ones, and K1's and K2's as "k1", "k2")."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1486,7 +1724,8 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     _forms_counts(reset=True)
     loss = run(model, net)
     counts = _forms_counts()
-    moved = _all_launches(fa, ha) != hopper
+    wgmma = [a - b for a, b in zip(_all_launches(fa, ha), hopper)]
+    moved = any(wgmma)
     loss32 = run(model32, ref)
     g, g32 = _flat_grads(net), _flat_grads(ref)
     is_attn = lambda n: ".attn.to_" in n
@@ -1504,9 +1743,15 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
                              f"{rel_all:.3e}, attention {rel_attn:.3e}")
+    if f32:
+        _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
+                            {"fwd": sites, "prep": sites, "dq": sites, "dkv": sites, "post": sites, "merge": 0}, moved)
+        return counts
+    # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family
     _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                        {"fwd": sites, "prep": sites, "dq": sites, "dkv": sites, "post": sites, "merge": 0}, moved)
-    return counts
+                        {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                        wgmma != [sites, sites] + [0] * 9)
+    return {**counts, "k1": wgmma[0], "k2": wgmma[1]}
 
 
 def phase_forms_train(workdir: Path) -> dict:
@@ -1538,23 +1783,42 @@ def phase_forms_train(workdir: Path) -> dict:
     return counts
 
 
-def phase_forms() -> tuple[dict, dict]:
-    """Phase 23, the forms family on the card: (f) what still raises, the kernel-level checks and times of
-    every instance, (b) and (c) serving, (d) gradients, (e) the shard forms, (a) fp32 crop training.
-    Returns the kernel records and, by main instance, each entry point's launches on the paths driven
-    through the port's entry points: (a), (b) or (c), and (d)."""
+def phase_forms() -> tuple[dict, dict, dict, dict]:
+    """Phase 23, the forms family and the wide heads on the card: (f) fp16 and D > 256 against plain,
+    the kernel-level checks and times of every forms instance and of K1 and K2 at D = 128 ... 256, (b) and
+    (c) serving, (d) gradients, (g) the bf16 DiT step at D = 128, (e) the shard forms, (a) fp32 crop
+    training. Returns the forms kernel records and, by main instance, each forms entry point's launches on
+    the paths driven through the port's entry points ((a), (b) or (c), (d)); then K1's and K2's records by
+    head dim and their launches at D = 128 on (c), (d) and (g)."""
     from osufusion_tpu_torch.config import ModelConfig
 
+    t0 = time.perf_counter()
     phase_forms_raise()
+    _log(f"[forms] (f) {time.perf_counter() - t0:.1f} s")
     records = phase_forms_kernels()
+    wide_records = phase_wide_kernels()
     runs = {inst: [] for inst in FORMS_MAIN}
+    wide = {"fwd": 0, "bwd": 0}
     with tempfile.TemporaryDirectory() as tmp:
         for inst, cfg in zip(FORMS_MAIN, (ModelConfig(dim_h=128, dtype="float32"), ModelConfig(dim_h=128, attn_dim_head=128))):
             torch.cuda.empty_cache()
-            runs[inst].append({"fwd": phase_forms_serve(cfg, Path(tmp))})
+            served = phase_forms_serve(cfg, Path(tmp))
+            if inst[0] == torch.bfloat16:  # K1 at D = 128 serves this one
+                wide["fwd"] += served
+                runs[inst].append({"fwd": 0})
+            else:
+                runs[inst].append({"fwd": served})
     for (dt, D) in FORMS_MAIN:
         torch.cuda.empty_cache()
-        runs[(dt, D)].append(phase_forms_grad_check(str(dt).split(".")[1], D))
+        counts = phase_forms_grad_check(str(dt).split(".")[1], D)
+        wide["fwd"] += counts.pop("k1", 0)
+        wide["bwd"] += counts.pop("k2", 0)
+        runs[(dt, D)].append(counts)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dit = phase_wide_dit_train(Path(tmp))
+    wide["fwd"] += dit["forward_lse"]
+    wide["bwd"] += dit["backward_fused"]
     torch.cuda.empty_cache()
     shards = phase_forms_shards()  # kernel level: its launches are not the paths'
     for inst in FORMS_MAIN:
@@ -1565,8 +1829,11 @@ def phase_forms() -> tuple[dict, dict]:
     launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
                 for inst, rs in runs.items()}
     _log(f"[forms] launches on paths (a)-(d) by instance: "
-         + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items()))
-    return records, launches
+         + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items())
+         + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}")
+    if not (wide["fwd"] > 0 and wide["bwd"] > 0):
+        raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
+    return records, launches, wide_records, {128: wide}
 
 
 # the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
@@ -1588,6 +1855,20 @@ def _forms_json(records: dict, launches: dict) -> list:
                             "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
                             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[body]}",
                             "launches": launches.get((dt, D), {}).get(body, 0), **rec})
+    return entries
+
+
+def _wide_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of K1 and K2 at D = 128, 192, 256 (phase 23's kernel records), with their
+    launches on the paths of phase 23 ((c) serving, (d) gradients, (g) the DiT step; no path reaches D = 192
+    or 256)."""
+    entries = []
+    for D, rec in records.items():
+        n = launches.get(D, {"fwd": 0, "bwd": 0})
+        entries.append({"name": f"flash_fwd_lse_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd.cu",
+                        "replaces": "osufusion_tpu/ops/pallas_attention.py:208", "launches": n["fwd"], **rec["fwd"]})
+        entries.append({"name": f"flash_bwd_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
+                        "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": n["bwd"], **rec["bwd"]})
     return entries
 
 
@@ -2860,7 +3141,7 @@ def main() -> int:
         phase_dpm_check(model, served, song, ddim50)
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
-    forms_records, forms_launches = phase_forms()
+    forms_records, forms_launches, wide_records, wide_launches = phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -2930,6 +3211,7 @@ def main() -> int:
         {"name": "flash_bwd_sweep", **bwd_source, "launches": ring_launches["sweep"], **ring["flash_bwd_sweep"]},
         {"name": "flash_bwd_post", **bwd_source, "launches": ring_launches["post"], **ring["flash_bwd_post"]},
         *_forms_json(forms_records, forms_launches),
+        *_wide_json(wide_records, wide_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

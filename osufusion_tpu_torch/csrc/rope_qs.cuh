@@ -5,9 +5,9 @@
 // backward pre-pass (flash_bwd_prep.cuh) of the fused backward and of the
 // windowed pair, so all of them hold the same bits. The
 // products and sums are rounded one at a time (no fused multiply-add), as the
-// plain version's separate tensor operations are.
-//   out[d]      = q[d] cos[d] - q[d+32] sin[d]
-//   out[d + 32] = q[d+32] cos[d+32] + q[d] sin[d+32]
+// plain version's separate tensor operations are. With h = D / 2:
+//   out[d]     = q[d] cos[d] - q[d+h] sin[d]
+//   out[d + h] = q[d+h] cos[d+h] + q[d] sin[d+h]
 
 #pragma once
 
@@ -16,20 +16,21 @@
 
 namespace {
 
-// 8 columns col..col+7 of the low half of the raw q row `qr` and their
-// partners at +32, as qs packed to bf16 (lo, hi). cr / sr: the row of the
-// cos / sin tables (fp32, 64 wide) of the row's timestep; unread without ROPE.
-template <bool ROPE>
+// 8 columns col..col+7 of the low half of the raw q row `qr` (D wide) and
+// their partners at +D/2, as qs packed to bf16 (lo, hi). cr / sr: the row of
+// the cos / sin tables (fp32, D wide) of the row's timestep; unread without
+// ROPE.
+template <bool ROPE, int D = 64>
 __device__ __forceinline__ void rope_qs8(const __nv_bfloat16* qr, const float* cr, const float* sr, int col,
                                          float qscale, uint4& lo_out, uint4& hi_out) {
-  constexpr int HALF = 32;
+  constexpr int HALF = D / 2;
   const uint4 ql = *reinterpret_cast<const uint4*>(qr + col);
   const uint4 qh = *reinterpret_cast<const uint4*>(qr + col + HALF);
   const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(&ql);
   const __nv_bfloat16* xh = reinterpret_cast<const __nv_bfloat16*>(&qh);
   float lo[8], hi[8];
   if (ROPE) {
-    // the tables' rows are 256 bytes and col is a multiple of 8: 16-byte loads
+    // the tables' rows are 4 D bytes and col is a multiple of 8: 16-byte loads
     const float4* c4 = reinterpret_cast<const float4*>(cr + col);
     const float4* s4 = reinterpret_cast<const float4*>(sr + col);
     const float4 cv[4] = {c4[0], c4[1], c4[HALF / 4], c4[HALF / 4 + 1]};  // low half, then its partners

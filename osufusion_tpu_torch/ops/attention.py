@@ -10,14 +10,15 @@ so one route serves both devices and a rematerialisation policy that keeps
 the op's outputs is the same on both. Any other CPU tensor takes the plain
 forward with native autograd. On the card the form rule
 (``ops/flash_forms.py::attention_form``, on the operands' dtype and head dim)
-decides first, before any launch or gather: bf16 with D = 64 runs the wgmma
-kernels; fp32, or bf16 with D = 128, 192 or 256, the forms kernels (fp32
-training, a checkpoint's other ``attn_dim_head``); a head dim that is not a
-multiple of 64 runs what the JAX package runs there, rope and then the plain
-grouped attention with native autograd (the XLA einsum of
-``osufusion_tpu/ops/attention.py``, which no Pallas kernel computes); fp16
-operands and D > 256 raise NotImplementedError naming their ROADMAP.md row.
-The CPU route takes every form, as before.
+decides first, before any launch or gather: bf16 with D = 64, 128, 192 or 256
+runs the wgmma kernels forward and at global sites backward (the windowed
+backward pair at D > 64 runs the forms kernels); fp32 and fp16 operands at
+any of those head dims the forms kernels, and a head dim above 256 that is a
+multiple of 64 their chunked instance; a head dim that is not a multiple of
+64 runs what the JAX package runs there, rope and then the plain grouped
+attention with native autograd (the XLA einsum of
+``osufusion_tpu/ops/attention.py``, which no Pallas kernel computes). The CPU
+route takes every form, as before.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the
 halo kernels take runs them on this rank's frames, once per KV head on that
 head's query heads (as ``osufusion_tpu/parallel/sequence.py`` splits a GQA
@@ -63,8 +64,8 @@ def sdpa(
     """Attention, rotary-embedded when given tables, optionally windowed (each
     query sees keys within +/- window/2). Returns (B, T, H, D) in q's dtype.
     Under a sequence shard q, k and v hold this rank's frames and the tables
-    cover the whole song. On the card a form that nothing serves raises
-    here, before any launch or gather."""
+    cover the whole song. On the card an operand dtype that no kernel takes
+    raises here, before any launch or gather."""
     if q.is_cuda:
         attention_form(q.dtype, q.shape[-1])
     shard = active_shard()

@@ -43,10 +43,17 @@ parallelism (``ops/halo_attention.py``) are the same bodies in the halo frame
 (``csrc/key_frame.cuh``): the forward is ``csrc/flash_fwd.cu``'s HALO
 instance, the backward the windowed pair's, behind the same pre-pass.
 
-Those kernels take bf16 operands with D = 64. Every other form that a kernel
-takes (fp32, or bf16 with D in 128, 192, 256: ``flash_forms.attention_form``)
-goes to the forms family (``ops/flash_forms.py``, ``csrc/flash_forms.cu``):
-each wrapper here chooses the entry point by the operands' (dtype, D) through
+Those kernels take bf16 operands. The forward (K1, ``flash_fwd``, and its
+halo instance) and the global backward's sweep (K2, ``flash_bwd`` and the
+ring's ``flash_bwd_sweep``) are templated on the head dim and take D = 64,
+128, 192 and 256; at D > 64 the global backward runs the sweep between the
+forms family's D-generic pre-pass and post-pass (same scratch, dq buffer
+zeroed by the pre-pass). The windowed pair, its halo instances and the ring's merge
+take D = 64. Every other form (fp32 and fp16 operands, bf16 at D > 256, and
+bf16 at D > 64 for the windowed pair, the merge and the global backward's
+pre-pass and post-pass: ``flash_forms.kernel_form``) goes to the forms family
+(``ops/flash_forms.py``, ``csrc/flash_forms.cu``): each wrapper here chooses
+the entry point by the operands' (dtype, D) through
 ``flash_forms.takes_forms``, and the forms family runs every backward as the
 split pre-pass, dq, dk/dv and post-pass.
 
@@ -73,7 +80,7 @@ import torch
 from osufusion_tpu_torch.ops import flash_forms as forms
 from osufusion_tpu_torch.ops.rope import apply_rope, unapply_rope
 
-HEAD_DIM = 64  # the head dim of the wgmma kernels; the forms family's are flash_forms.FORMS_HEAD_DIMS
+HEAD_DIM = 64  # the head dim of every wgmma kernel; K1 and K2's sweep also take flash_forms.WGMMA_HEAD_DIMS
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -130,14 +137,14 @@ def build_kernels(verbose: bool = False) -> dict[str, Path]:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (library, argument types)
 _ENTRY_POINTS = {
-    # q k v cos sin o lse | B T S H Kv window | scale | stream
-    "flash_fwd_bf16": ("flash_fwd", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # D | q k v cos sin o lse | B T S H Kv window | scale | stream
+    "flash_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # q k v do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | dq dk dv | B T S H Kv | scale | stream
     "flash_bwd_bf16": ("flash_bwd", [_PTR] * 16 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | B T H Kv | scale | stream
     "flash_bwd_prep_bf16": ("flash_bwd", [_PTR] * 11 + [_INT] * 4 + [ctypes.c_float, _PTR]),
-    # k v qs_g do_rows lse_g delta_g dq_acc dk dv | B T S H Kv accumulate | stream
-    "flash_bwd_sweep_bf16": ("flash_bwd", [_PTR] * 9 + [_INT] * 6 + [_PTR]),
+    # D | k v qs_g do_rows lse_g delta_g dq_acc dk dv | B T S H Kv accumulate | stream
+    "flash_bwd_sweep_bf16": ("flash_bwd", [_INT] + [_PTR] * 9 + [_INT] * 6 + [_PTR]),
     # dq_acc cos sin dq | B T H Kv | scale | stream
     "flash_bwd_post_bf16": ("flash_bwd", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # o_acc lse_acc o_j lse_j lse_out o | rows | stream
@@ -148,8 +155,8 @@ _ENTRY_POINTS = {
     "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
-    # q k v o lse | B T H window g0 t_global | scale | stream
-    "halo_fwd_bf16": ("flash_fwd", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # D | q k v o lse | B T H window g0 t_global | scale | stream
+    "halo_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
     "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
     # k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
@@ -245,8 +252,9 @@ def flash_fwd(
     scale: float,
     return_lse: bool = False,
 ):
-    """Launch the forward kernel of q's form (``flash_forms.takes_forms``) on
-    the current stream; returns o (B, T, H, D) in q's dtype, or with
+    """Launch the forward kernel of q's form (``flash_forms.takes_forms``: K1
+    at bf16 with D = 64, 128, 192 or 256) on the current stream; returns o
+    (B, T, H, D) in q's dtype, or with
     ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
     the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
     // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
@@ -267,7 +275,7 @@ def flash_fwd(
         forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
         return (o, lse) if return_lse else o
     err = _kernel("flash_fwd_bf16")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
+        D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_fwd", err)
@@ -328,16 +336,24 @@ def flash_bwd(
     atomics accumulate in an fp32 buffer, and a post-pass that un-rotates,
     scales and casts dq; it counts its launches in ``flash_bwd.launches``
     (those of the grouped form, Kv > 1, also in ``flash_bwd.grouped_launches``).
-    The forms family runs its pre-pass, dq, dk/dv and post-pass kernels, each
-    counted in ``flash_forms``."""
+    At D > 64 (bf16) the sweep of that head dim runs between the forms
+    pre-pass and post-pass (counted in ``flash_forms``), the whole still one
+    ``flash_bwd.launches``. The forms family (fp32, fp16, D > 256) runs its
+    pre-pass, dq, dk/dv and post-pass kernels, each counted in
+    ``flash_forms``."""
     B, T, H, kv, use_forms = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
                                              grouped=True)
-    if use_forms:
+    if forms.takes_forms("flash_bwd_prep", q):  # every form but bf16 at D = 64: the forms pre-pass and post-pass
         prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
         dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.empty_like(dk)
-        forms.forms_bwd_dq(k, v, prep, -1, None, accumulate=False)
-        forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate=False)
+        if use_forms:
+            forms.forms_bwd_dq(k, v, prep, -1, None, accumulate=False)
+            forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate=False)
+        else:  # bf16 at D = 128, 192, 256: K2's sweep of that head dim
+            _launch_sweep("flash_bwd", k, v, prep, dk, dv, accumulate=False)
+            flash_bwd.launches += 1
+            flash_bwd.grouped_launches += kv > 1
         return forms.forms_bwd_post(prep, cos, sin, scale), dk, dv
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)  # rows of one KV group
@@ -397,8 +413,9 @@ def flash_bwd_prep(
 ) -> GlobalPrep:
     """Launch the global backward's pre-pass of q's form on the current
     stream: qs, do and the LSE in group-major order, delta = rowsum(do * o),
-    and (wgmma) the dq buffer zeroed. Counts the wgmma pre-pass's launches in
-    ``flash_bwd_prep.launches``, the forms one's in
+    and the dq buffer zeroed. Counts the wgmma pre-pass's launches (bf16 at
+    D = 64) in ``flash_bwd_prep.launches``, the forms one's (every other form;
+    K2's sweep of a head dim above 64 reads it) in
     ``flash_forms.forms_bwd_prep.launches``."""
     B, T, H, kv, use_forms = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
                                              sin, grouped=True)
@@ -424,6 +441,26 @@ def flash_bwd_prep(
 flash_bwd_prep.launches = 0
 
 
+def _launch_sweep(who: str, k, v, prep: GlobalPrep, dk, dv, accumulate: bool) -> None:
+    """Launch K2's sweep of qs's head dim over the keys of k and v (checked
+    here) into ``prep.dq_acc`` and dk, dv."""
+    B, T, H, kv = prep.shape
+    D = prep.qs.shape[-1]
+    if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
+            or k.shape[-1] != D or dk.shape != k.shape or dv.shape != k.shape:
+        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
+                         f"want (B={B}, S, {'' if kv == 1 else f'{kv}, '}{D}) for {H} query heads")
+    dev = prep.qs.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    _check_operands(who, dev, (("k", k, bf16), ("v", v, bf16), ("dk", dk, f32), ("dv", dv, f32)))
+    err = _kernel("flash_bwd_sweep_bf16")(
+        D, k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(),
+        prep.delta.data_ptr(), prep.dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, kv,
+        int(accumulate), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_launch(who, err)
+
+
 def flash_bwd_sweep(
     k: torch.Tensor,  # (B, S, D) or (B, S, Kv, D), qs's dtype, already rotated: the chunk of keys that is here
     v: torch.Tensor,  # k's shape and dtype
@@ -436,27 +473,15 @@ def flash_bwd_sweep(
     current stream: dq adds into ``prep.dq_acc`` (the wgmma sweep's atomics;
     the forms dq kernel stores there unless ``accumulate``); dk and dv are
     stored, or with ``accumulate`` added into what they hold. Counts the
-    wgmma sweep's launches in ``flash_bwd_sweep.launches``; the forms family
-    launches its dq and dk/dv kernels, counted in ``flash_forms``."""
+    wgmma sweep's launches (any head dim) in ``flash_bwd_sweep.launches``;
+    the forms family launches its dq and dk/dv kernels, counted in
+    ``flash_forms``."""
     who = "flash_bwd_sweep"
     if forms.takes_forms(who, prep.qs):
         forms.forms_bwd_dq(k, v, prep, -1, None, accumulate)
         forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate)
         return
-    B, T, H, kv = prep.shape
-    if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
-            or k.shape[-1] != HEAD_DIM or dk.shape != k.shape or dv.shape != k.shape:
-        raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
-                         f"want (B={B}, S, {'' if kv == 1 else f'{kv}, '}{HEAD_DIM}) for {H} query heads")
-    dev = prep.qs.device
-    bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, dev, (("k", k, bf16), ("v", v, bf16), ("dk", dk, f32), ("dv", dv, f32)))
-    err = _kernel("flash_bwd_sweep_bf16")(
-        k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
-        prep.dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, kv, int(accumulate),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check_launch(who, err)
+    _launch_sweep(who, k, v, prep, dk, dv, accumulate)
     flash_bwd_sweep.launches += 1
 
 
@@ -471,8 +496,10 @@ def flash_bwd_post(
 ) -> torch.Tensor:
     """Launch the global backward's post-pass on the current stream, after the
     last sweep: dq (B, T, H, D) in qs's dtype = scale * the un-rotated dq
-    buffer, in the raw q's frame. Counts the wgmma post-pass's launches in
-    ``flash_bwd_post.launches``, the forms one's in ``flash_forms``."""
+    buffer, in the raw q's frame. Counts the wgmma post-pass's launches (bf16
+    at D = 64) in ``flash_bwd_post.launches``, the forms one's (every other
+    form; it serves K2's sweep of a head dim above 64 too) in
+    ``flash_forms``."""
     if forms.takes_forms("flash_bwd_post", prep.qs):
         return forms.forms_bwd_post(prep, cos, sin, scale)
     B, T, H, kv = prep.shape

@@ -1,21 +1,30 @@
 """The form rule of the attention sites on the card, and the wrappers of the
 "forms" kernels (``csrc/flash_forms.cu``).
 
-``attention_form(dtype, head_dim)`` says what serves a CUDA site, as the JAX
-package's dispatch does (``osufusion_tpu/ops/pallas_attention.py::
-flash_attention_available``: any operand dtype and a head dim that is a
-multiple of 64 take the Pallas kernels; ``osufusion_tpu/ops/attention.py``
-sends every other head dim to the XLA einsum):
+The JAX package runs the Pallas kernels at any operand dtype and a head dim
+that is a multiple of 64 (``osufusion_tpu/ops/pallas_attention.py::
+flash_attention_available``), and sends every other head dim to the XLA
+einsum (``osufusion_tpu/ops/attention.py``). On the card the form is decided
+per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
 
-* ``"hopper"``: bf16 operands with D = 64, the wgmma kernels of
-  ``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, ``csrc/flash_bwd_windowed.cu``
-  and ``csrc/ring_merge.cu``;
-* ``"forms"``: fp32 or bf16 operands with D in ``FORMS_HEAD_DIMS``, other than
-  bf16 at 64: this module's kernels, which compute in fp32 on the FMA units;
-* ``"xla"``: D not a multiple of 64, the JAX package's XLA route (rope, then
-  the plain grouped attention with native autograd; ``ops/attention.py``);
-* anything else (fp16 operands, D > 256) raises ``NotImplementedError``
-  naming its ROADMAP.md row.
+* ``"hopper"``: the wgmma kernels. bf16 operands with D = 64 at every wrapper;
+  with D = 128, 192 or 256 at the wrappers of ``WIDE_WGMMA``, whose kernels
+  are templated on D: the forward K1 (``csrc/flash_fwd.cu``: ``flash_fwd``,
+  ``halo_fwd`` and the ring's hops) and the global backward's sweep K2
+  (``csrc/flash_bwd.cu``: ``flash_bwd`` and the ring's ``flash_bwd_sweep``);
+* ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
+  fp32 and fp16 operands at D in ``FORMS_HEAD_DIMS``, and bf16 at D > 64 at
+  the windowed pair (``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` /
+  ``halo_bwd_dkv``), the ring's merge, and the global backward's pre-pass
+  and post-pass (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at D
+  > 64 runs K2's sweep between these two);
+* ``"chunked"``: the forms family's chunked instance, for any operand dtype
+  at a head dim above 256 that is a multiple of 64 (the forward, dq and dk/dv
+  staged 64 columns of the head dim at a time);
+* a head dim that is not a multiple of 64 raises ValueError: no kernel tiles
+  it, and ``attention_form`` gives such a site ``"xla"``, the JAX package's
+  XLA route (rope, then the plain grouped attention with native autograd;
+  ``ops/attention.py``).
 
 Every wrapper of ``ops/flash_attention.py`` and ``ops/halo_attention.py``
 chooses its instance through ``takes_forms``: its own wgmma entry point, or
@@ -36,42 +45,49 @@ import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
 
-# the head dims of the forms instances (csrc/flash_forms.cu's FORMS_DISPATCH)
+# the head dims of the forms instances (csrc/flash_forms.cu's FORMS_DISPATCH); a multiple of 64 above them
+# runs the chunked instance
 FORMS_HEAD_DIMS = (64, 128, 192, 256)
+# the head dims of K1 and K2's sweep (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS; every other wrapper's takes 64
+WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"})
 # operand dtype -> the entry points' type code
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def attention_form(dtype: torch.dtype, head_dim: int) -> str:
-    """What serves an attention site of ``dtype`` operands with head dim
-    ``head_dim`` on the card: "hopper", "forms" or "xla" (see the module's
-    docstring); raises NotImplementedError for a form that nothing serves
-    yet."""
-    if head_dim % 64:
-        return "xla"
-    if dtype == torch.bfloat16 and head_dim == 64:
-        return "hopper"
+def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
+    """What the wrapper ``who`` launches on the card for ``dtype`` operands
+    with head dim ``head_dim``: "hopper", "forms" or "chunked" (see the
+    module's docstring). A head dim that is not a multiple of 64 raises
+    ValueError, a dtype other than fp32, bf16 and fp16 NotImplementedError."""
+    if head_dim <= 0 or head_dim % 64:
+        raise ValueError(f"{who}: no kernel takes head dim {head_dim}; they take multiples of 64")
     if dtype not in _DTYPE_CODE:
-        raise NotImplementedError(
-            f"no attention kernel takes {dtype} operands yet (ROADMAP.md, queue 2, \"forms\": fp16 operands, "
-            "queue 1 item 4); the kernels take float32 and bfloat16")
-    if head_dim not in FORMS_HEAD_DIMS:
-        raise NotImplementedError(
-            f"no attention kernel takes head dim {head_dim} yet (ROADMAP.md, queue 2, \"forms\": D > 256); "
-            f"the kernels take {', '.join(map(str, FORMS_HEAD_DIMS))}")
+        raise NotImplementedError(f"{who}: the attention kernels take float32, bfloat16 and float16 operands, "
+                                  f"not {dtype}")
+    if head_dim > FORMS_HEAD_DIMS[-1]:
+        return "chunked"
+    if dtype == torch.bfloat16 and (head_dim == 64 or (who in WIDE_WGMMA and head_dim in WGMMA_HEAD_DIMS)):
+        return "hopper"
     return "forms"
 
 
+def attention_form(dtype: torch.dtype, head_dim: int) -> str:
+    """What serves the forward of an attention site of ``dtype`` operands
+    with head dim ``head_dim`` on the card: "xla" for a head dim that is not
+    a multiple of 64, else ``kernel_form("flash_fwd", ...)``."""
+    if head_dim % 64:
+        return "xla"
+    return kernel_form("flash_fwd", dtype, head_dim)
+
+
 def takes_forms(who: str, t: torch.Tensor) -> bool:
-    """The kernel instance of ``t``'s (dtype, head dim), by which every
-    wrapper chooses its entry point: False for the wgmma kernels (bf16, D =
-    64), True for the forms family. A head dim that no kernel tiles raises
-    ValueError; fp16 and D > 256 raise NotImplementedError."""
-    form = attention_form(t.dtype, t.shape[-1])
-    if form == "xla":
-        raise ValueError(f"{who}: no kernel takes head dim {t.shape[-1]}; they take multiples of 64 up to "
-                         f"{FORMS_HEAD_DIMS[-1]}")
-    return form == "forms"
+    """The kernel instance of ``t``'s (dtype, head dim) at the wrapper
+    ``who``, by which every wrapper chooses its entry point: False for its
+    wgmma kernel, True for the forms family (the chunked instance included).
+    A head dim that no kernel tiles raises ValueError."""
+    return kernel_form(who, t.dtype, t.shape[-1]) != "hopper"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -119,8 +135,8 @@ def forms_bwd_prep(q, o, lse, do, cos, sin, kv: int, scale: float):
     a ``flash_attention.GlobalPrep`` in group-major order (B * Kv, T * G,
     ...): qs (q's dtype: rope(q) * scale * log2(e), or without tables q
     scaled), do (do itself at Kv == 1), the LSE and delta padded to
-    ``BWD_ROW_TILE`` rows, and an fp32 dq buffer that the first dq sweep
-    stores into. Operands checked by the calling wrapper. Counts in
+    ``BWD_ROW_TILE`` rows, and an fp32 dq buffer, zeroed: K2's sweep adds
+    into it, the forms dq kernel stores on its first sweep. Operands checked by the calling wrapper. Counts in
     ``forms_bwd_prep.launches``."""
     B, T, H, D = q.shape
     rows = T * (H // kv)
@@ -129,7 +145,7 @@ def forms_bwd_prep(q, o, lse, do, cos, sin, kv: int, scale: float):
     qs_g = torch.empty((B * kv, rows, D), dtype=q.dtype, device=dev)
     lse_g = torch.empty((B * kv, pad), dtype=f32, device=dev)
     prep = fa.GlobalPrep(qs_g, torch.empty_like(qs_g) if kv > 1 else do, lse_g, torch.empty_like(lse_g),
-                         torch.empty((B * kv, pad, D), dtype=f32, device=dev), (B, T, H, kv))
+                         torch.zeros((B * kv, pad, D), dtype=f32, device=dev), (B, T, H, kv))
     _check_aligned("forms_bwd_prep", q, o, do)
     err = fa._kernel("forms_bwd_prep")(
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), fa._ptr(cos),

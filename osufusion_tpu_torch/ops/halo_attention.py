@@ -27,8 +27,9 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``. Those are the
-bf16, D = 64 instances; every other form that a kernel takes runs the forms
+see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``. Those take bf16
+operands, the forward at D = 64, 128, 192 and 256 (K1's HALO instances), the
+backward pair at D = 64; every other form that a kernel takes runs the forms
 family's kernels in the same frame (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
 D).
@@ -153,8 +154,8 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     if use_forms:
         forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
         return o, lse
-    err = _kernel("halo_fwd_bf16")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                   B, T, H, window, g0, t_global, scale, _stream(q))
+    err = _kernel("halo_fwd_bf16")(q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   lse.data_ptr(), B, T, H, window, g0, t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
     return o, lse

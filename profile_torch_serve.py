@@ -1,10 +1,10 @@
 """Where the time of the PyTorch port's serving path, or of one training
 step, goes on one NVIDIA GPU.
 
-    python3 profile_torch_serve.py [--groupnorm fused|torch]
+    python3 profile_torch_serve.py [--groupnorm fused|torch] [--dim-head 64] [--dtype bfloat16|float32]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
-        [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1]
+        [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1] [--dim-head 64]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -16,6 +16,11 @@ At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 - s/map of the sampler, two maps;
 - ms of the log-VQT of a 180 s signal on the GPU, and of the host decode of
   one map to .osu text.
+
+``--dim-head`` sets the model's ``attn_dim_head`` (a multiple of 64: 128,
+192, 256 run K1 and K2's wider instances; the transformers then have
+512 / dim_head heads), ``--dtype`` the serving model's parameter dtype
+(float32 runs the forms kernels).
 
 ``--groupnorm torch`` swaps the port's ``GroupNorm1`` for
 ``nn.functional.group_norm`` with one group on (B, C, T), the form it
@@ -104,7 +109,7 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
 
 
 def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, backbone: str = "unet",
-                  kv_heads: int = 1, shard=None) -> None:
+                  kv_heads: int = 1, shard=None, dim_head: int = 64) -> None:
     """One training step at dim_h=512, through ``train/loop.py``; with
     ``shard``, this rank's part of the sequence-parallel step, reported by
     rank 0 alone (every rank runs the same steps)."""
@@ -114,9 +119,10 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     from osufusion_tpu_torch.train.loop import init_state, make_train_step
     from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
-    transformer = dict(depth=12, attn_heads=8, attn_kv_heads=2) if backbone != "unet" else dict(attn_kv_heads=kv_heads)
+    transformer = dict(depth=12, attn_heads=512 // dim_head, attn_kv_heads=2) if backbone != "unet" \
+        else dict(attn_kv_heads=kv_heads)
     cfg = Config(
-        model=ModelConfig(dim_h=512, backbone=backbone, remat=remat != "none",
+        model=ModelConfig(dim_h=512, backbone=backbone, remat=remat != "none", attn_dim_head=dim_head,
                           remat_mode=remat if remat != "none" else "save-attn", remat_level_modes=levels, **transformer),
         train=TrainConfig(batch_size=B, full_bf16=precision == "full-bf16", lr=1e-5, warmup_steps=2, total_steps=100),
     )
@@ -162,7 +168,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     plan = f"{remat} ({','.join(levels)})" if remat == "mixed" else remat
     flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}.get(backbone)
     mfu = f"; MFU {3 * flops(cfg.model, B, T) / step_s / 989e12:.4f}" if flops else ""
-    kv = f" kv_heads={kv_heads}" if kv_heads > 1 else ""
+    kv = (f" kv_heads={kv_heads}" if kv_heads > 1 else "") + (f" dim_head={dim_head}" if dim_head != 64 else "")
     if shard is not None:
         mfu = ""  # the model FLOPs are the whole step's, this is one rank's share
         kv += (f" rank 0 of {shard.count} ({T // shard.count} frames a rank); ring per step: merge "
@@ -196,7 +202,7 @@ def _profile_rank(rank: int, n: int, port: int, args) -> None:
         print(f"[device] {smi}; torch {torch.__version__}; {n} processes over {dist.get_backend()} on "
               f"{torch.cuda.device_count()} card(s)", flush=True)
     profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
-                  args.backbone, args.kv_heads, make_mesh(data=1, model=1, seq=n).seq_shard())
+                  args.backbone, args.kv_heads, make_mesh(data=1, model=1, seq=n).seq_shard(), args.dim_head)
     dist.destroy_process_group()
 
 
@@ -213,6 +219,8 @@ def main() -> None:
     p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
     p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
     p.add_argument("--mesh-seq", type=int, default=1, help="--train: sequence shards, one process each")
+    p.add_argument("--dim-head", type=int, default=64, help="the attention head dim (attn_dim_head)")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16", help="the serving model's dtype")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
@@ -244,13 +252,13 @@ def main() -> None:
         blocks.GroupNorm1.forward = _torch_groupnorm
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}")
+    print(f"[device] {smi}; torch {torch.__version__}; groupnorm {args.groupnorm}; dim_head {args.dim_head}")
     if args.train:
         profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
-                      args.backbone, args.kv_heads)
+                      args.backbone, args.kv_heads, dim_head=args.dim_head)
         return
 
-    cfg = Config(model=ModelConfig(dim_h=128))
+    cfg = Config(model=ModelConfig(dim_h=128, attn_dim_head=args.dim_head, dtype=args.dtype))
     model = build_model(cfg.model, cfg.diffusion)
     params = model.init_params(seed=0, device="cuda")
     g = torch.Generator().manual_seed(0)
@@ -268,7 +276,8 @@ def main() -> None:
             return params(x, a_enc, t, c2, mask, audio_encoded=True)
 
         ms = _cuda_ms(unet_call, CALLS)
-        print(f"[unet] B=2 T={FRAMES}: {ms:.3f} ms per call (CUDA events, mean of {CALLS})")
+        print(f"[unet] {args.dtype} dim_head={args.dim_head} B=2 T={FRAMES}: {ms:.3f} ms per call (CUDA events, mean "
+              f"of {CALLS})")
         kernel_table(unet_call)
 
     for seed in (1, 2):

@@ -1,8 +1,9 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
-the forms family's instances at fp32 and bf16 with D = 64 ... 256, and the
-differentiable ops that join them) against
+the forms family's instances at fp32, bf16 and fp16 with D = 64 ... 256 and
+its chunked instance above, K1 and K2's instances at D = 128, 192 and 256, and
+the differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -616,28 +617,45 @@ def _forms_launches() -> tuple:
             forms.forms_bwd_dkv.launches, forms.forms_bwd_post.launches, forms.forms_ring_merge.launches)
 
 
+# fp16 against the plain fp32 versions on the same fp16 inputs: P and dS are
+# rounded to fp16 (2^-11 relative) where the bf16 kernels round to bf16
+F16_REL_TOL, F16_LSE_TOL = 2e-3, 2e-3
+NO_WGMMA_SITES = [(torch.float16, 64), (torch.float32, 320), (torch.bfloat16, 320)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.bfloat16, 320)], ids=["fp16", "bf16-D320"])
+@pytest.mark.parametrize("dtype,D", NO_WGMMA_SITES, ids=["fp16", "fp32-D320", "bf16-D320"])
 @pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
 def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
-    """fp16 operands, or a head dim above 256: no kernel takes the site, so
-    ``sdpa`` raises before any launch, naming the ROADMAP row of the kernel
-    instances still to write, and runs nothing in their place, forward or
-    under a gradient."""
+    """fp16 operands, or a head dim above 256, which the JAX package runs
+    through Pallas: ``sdpa`` raises nothing and runs the forms family (its
+    fp16 instance, its chunked instance above 256), forward and under a
+    gradient, with the forms launch counters moving and no wgmma kernel
+    launched, and matches autograd through the plain attention in fp32."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
-    B, T, H = 2, 1024, 4
+    B, T, H = 2, 512, 4
+    rel_tol = {torch.float16: F16_REL_TOL, torch.float32: F32_REL_TOL, torch.bfloat16: REL_TOL}[dtype]
     g = torch.Generator(device=cuda).manual_seed(D)
-    q = torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype).requires_grad_(True)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype) for _ in range(2))
     k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).to(dtype) for _ in range(2))
     rope = rope_tables(T, D, scale_base=512.0, device=cuda)
     before = _kernel_launches(), _forms_launches()
-    with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
-        with torch.no_grad():
-            sdpa(q, k, v, window, rope)
-    with pytest.raises(NotImplementedError, match='queue 2, "forms"'):
-        sdpa(q, k, v, window, rope)
-    assert (_kernel_launches(), _forms_launches()) == before
+    with torch.no_grad():
+        fwd = sdpa(q, k, v, window, rope)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, window, rope)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before[0]
+    runs = [a - b for a, b in zip(_forms_launches(), before[1])]
+    assert runs == [2, 1, 1, 1, 1, 0], runs
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, window, rope)
+    ref.backward(do.float())
+    assert fwd.dtype == out.dtype == dtype and _rel(fwd, ref) < rel_tol and _rel(out, ref) < rel_tol
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all() and _rel(a.grad, b.grad) < rel_tol, f"d{name}: {_rel(a.grad, b.grad)}"
 
 
 # the DPM-16 signal through the kernels vs through the plain attention (both
@@ -785,9 +803,11 @@ def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
 @pytest.mark.parametrize("dtype,D,Kv,rope", [(torch.float32, 64, 1, True), (torch.bfloat16, 128, 2, False),
                                              (torch.float32, 256, 4, False)], ids=["fp32-D64", "bf16-D128", "fp32-D256"])
 def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope):
-    """The ring at a form of the forms family: the kernel parts (the forms
-    forward, merge, pre-pass, dq and dk/dv sweeps storing on the first hop
-    and adding after, post-pass) against the plain parts, over 2 shards."""
+    """The ring at a form beside bf16/64: the kernel parts against the plain
+    parts, over 2 shards. fp32: the forms forward, merge, pre-pass, dq and
+    dk/dv sweeps storing on the first hop and adding after, post-pass. bf16
+    at D = 128: K1 per hop and K2's accumulating sweep of that head dim,
+    between the forms pre-pass and post-pass, with the forms merge."""
     from osufusion_tpu_torch.ops.ring_attention import LocalRing, PlainParts, ring_bwd, ring_fwd
 
     n, B, T, H = 2, 1, 512, 8
@@ -808,7 +828,11 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
 
     before = _kernel_launches(), _forms_launches()
     got = run(None)
-    assert _kernel_launches() == before[0] and _forms_launches()[5] - before[1][5] == n * n
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    wgmma = dtype == torch.bfloat16  # K1's hops (flash_fwd) and K2's sweeps (flash_bwd_sweep)
+    assert kernels == [n * n * wgmma, 0, 0, 0, 0, n * n * wgmma, 0, 0, 0, 0, 0], kernels
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [
+        n * n * (not wgmma), n, n * n * (not wgmma), n * n * (not wgmma), n, n * n]
     ref = run(PlainParts)
     assert got[0].dtype == got[2].dtype == dtype and got[3].dtype == torch.float32
     assert _rel(got[0], ref[0]) < rel_tol and (got[1] - ref[1]).abs().max().item() < lse_tol
@@ -820,9 +844,11 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64), (torch.bfloat16, 128)], ids=["fp32-D64", "bf16-D128"])
 @pytest.mark.parametrize("window", [96, None], ids=["windowed", "global"])
 def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window):
-    """``sdpa`` under a gradient at fp32/64 and bf16/128 on the card: the
-    forms kernels and none of the wgmma ones, forward and backward, against
-    autograd through the plain attention in fp32."""
+    """``sdpa`` under a gradient at fp32/64 and bf16/128 on the card, against
+    autograd through the plain attention in fp32. fp32: the forms kernels and
+    none of the wgmma ones, forward and backward. bf16/128: K1 forward; a
+    global site K2's sweep between the forms pre-pass and post-pass, a
+    windowed one the forms dq / dk-dv pair."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
     B, T, H = 2, 384, 4
@@ -833,10 +859,16 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     out = sdpa(*leaves, window, (cos, sin))
     out.backward(do)
     torch.cuda.synchronize()
-    assert _kernel_launches() == before[0]
     # a windowed site runs per KV head (2); a global one once
     runs = 2 if window is not None else 1
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [runs] * 5 + [0]
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    formed = [a - b for a, b in zip(_forms_launches(), before[1])]
+    if dtype == torch.float32:
+        assert kernels == [0] * 11 and formed == [runs] * 5 + [0]
+    elif window is None:  # K1 and K2 (flash_bwd), the forms pre-pass and post-pass around the sweep
+        assert kernels == [1, 1] + [0] * 9 and formed == [0, 1, 0, 0, 1, 0]
+    else:  # K1 per KV head, then the forms pair
+        assert kernels == [runs] + [0] * 10 and formed == [0] + [runs] * 4 + [0]
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, (cos, sin))
     ref.backward(do.float())
@@ -872,3 +904,150 @@ def test_site_no_kernel_tiles_runs_the_xla_route_on_the_card(cuda, dtype, grad):
         ref.backward(do)
         for a, b in zip(leaves, ref_leaves):
             assert torch.equal(a.grad, b.grad)
+
+
+# ------------------------------------------------- K1 and K2 at D = 128, 192, 256 (bf16, wgmma)
+
+WIDE_DIMS = [128, 192, 256]
+# (B, T, H, Kv, window, tables): MQA global with tables (K1 with its LSE, K2), MQA windowed with tables (K1,
+# then the forms dq / dk-dv pair), full MHA without tables (H = Kv = 4, DiT's form), GQA (G = 2) with a
+# ragged last tile
+WIDE_SITES = [(2, 1024, 4, 1, -1, True), (1, 1000, 4, 1, 256, True), (2, 512, 4, 4, -1, False),
+              (1, 333, 8, 4, -1, False)]
+WIDE_SITE_IDS = ["mqa-global", "mqa-windowed", "mha-global", "gqa-ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables", WIDE_SITES, ids=WIDE_SITE_IDS)
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables):
+    """K1 and K2's instances at head dim D through their wrappers, against the
+    plain fp32 versions on the same bf16 inputs with the D = 64 kernels'
+    bounds, and planted faults (the forward without its last KV tile; the
+    backward from an LSE off by 0.05) above them. The forward launches K1,
+    the global backward K2's sweep (``flash_bwd``), the windowed one the
+    forms pair; no forms forward runs."""
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.bfloat16, tables, cuda, seed=D + T)
+    scale = D**-0.5
+    before = _kernel_launches(), _forms_launches()
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    if window < 0:
+        dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+    else:
+        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+        dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, window)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    formed = [a - b for a, b in zip(_forms_launches(), before[1])]
+    assert kernels[0] == 1 and kernels[1] == (window < 0) and sum(kernels[2:]) == 0, kernels
+    assert formed == ([0, 1, 0, 0, 1, 0] if window < 0 else [0, 1, 1, 1, 1, 0]), formed
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    cut = slice(0, T - 64 if window < 0 else T)
+    o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, cut], v[:, cut], cos, sin, window if window < 0 else window - 32)[0]
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse_ref), plain(lse_ref + 0.05)
+    assert o.dtype == dq.dtype == torch.bfloat16 and dk.dtype == torch.float32
+    assert _rel(o, o_ref) < REL_TOL < _rel(o_fault, o_ref)
+    assert (lse - lse_ref).abs().max().item() < LSE_TOL and torch.isfinite(o).all()
+    for name, a, b, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+        assert torch.isfinite(a).all() and _rel(a, b) < REL_TOL < _rel(fault, b), \
+            f"{name}: rel L2 {_rel(a, b)}, planted fault {_rel(fault, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 3], ids=["first", "last"])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_halo_forward_runs_k1(cuda, D, shard):
+    """The halo forward at head dim D runs K1's halo instance (``halo_fwd``),
+    not the forms forward, and matches its plain version with the slab rows
+    outside the song set large; a slab one row off its frame lies above the
+    bound."""
+    B, T, H, W, n = 1, 512, 4, 256, 4
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    before = ha.halo_fwd.launches, forms.forms_fwd.launches
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, D**-0.5)
+    torch.cuda.synchronize()
+    assert (ha.halo_fwd.launches, forms.forms_fwd.launches) == (before[0] + 1, before[1])
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
+    assert _rel(o, o_ref) < REL_TOL < _rel(shifted, o_ref)
+    assert (lse - lse_ref).abs().max().item() < LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
+    """The ring at bf16 and head dim D over 2 and 4 shards: K1 per hop, the
+    forms merge, and K2's sweep of that head dim adding into the travelling
+    dk and dv (and into one dq buffer) between the forms pre-pass and
+    post-pass, against the plain parts; kernel sweeps that store in place of
+    adding lie above the bound."""
+    from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    class StoringSweeps(KernelParts):  # planted fault: every hop's sweep stores its dk and dv
+        @staticmethod
+        def backward_sweep(state, k, v, dk, dv, accumulate):
+            fa.flash_bwd_sweep(k, v, state, dk, dv, False)
+
+    B, T, H = 1, 512, 4
+    for n in (2, 4):
+        q, k_rot, v, do, cos, sin = _forms_inputs(B, n * T, H, Kv, D, torch.bfloat16, rope, cuda, seed=D + n)
+
+        def run(parts):
+            def rank(r, rotation):
+                sl = slice(r * T, (r + 1) * T)
+                c, s = (None, None) if cos is None else (cos[sl].contiguous(), sin[sl].contiguous())
+                qr, kr, vr, dor = (x[:, sl].contiguous() for x in (q, k_rot, v, do))
+                o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+                return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+            results = LocalRing(n).run(rank)
+            torch.cuda.synchronize()
+            return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+        before = fa.flash_fwd.launches, fa.flash_bwd_sweep.launches, forms.forms_fwd.launches
+        got = run(None)
+        assert (fa.flash_fwd.launches - before[0], fa.flash_bwd_sweep.launches - before[1]) == (n * n, n * n)
+        assert forms.forms_fwd.launches == before[2]
+        ref = run(PlainParts)
+        stored = run(StoringSweeps)
+        assert _rel(got[0], ref[0]) < REL_TOL and (got[1] - ref[1]).abs().max().item() < LSE_TOL
+        for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+            assert torch.isfinite(a).all() and _rel(a, b) < REL_TOL, f"n={n} {name}: rel L2 {_rel(a, b)}"
+        assert _rel(stored[4], ref[4]) > REL_TOL
+
+
+@pytest.mark.cuda
+def test_wide_whole_song_gradient_through_k1_and_the_forms_pair(cuda):
+    """A whole-song site at bf16 and D = 128 under a gradient (windowed, MQA
+    with tables, 16384 frames): K1 forward with its LSE feeding the forms dq
+    and dk/dv kernels (through their pre-pass, which reads K1's LSE), against
+    autograd through the plain attention in fp32."""
+    B, T, H, D, W = 1, 16384, 4, 128, 1024
+    q, k, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.bfloat16, False, cuda, seed=11)
+    k, v = k[:, :, None], v[:, :, None]
+    rope = rope_tables(T, D, scale_base=float(T), device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = _kernel_launches(), _forms_launches()
+    out = fa.flash_attention(*leaves, W, rope)
+    out.backward(do)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    assert kernels == [1] + [0] * 10, kernels
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 1, 1, 1, 0]
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, W, rope)
+    ref.backward(do.float())
+    assert _rel(out, ref) < REL_TOL
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all() and _rel(a.grad, b.grad) < REL_TOL, f"d{name}: {_rel(a.grad, b.grad)}"

@@ -96,3 +96,34 @@ def test_no_source_is_left_on_mma_sync(name):
     text = _text(name)
     found = [token for token in ("mma.sync", "ldmatrix", "cp.async.cg") if token in text]
     assert not found, f"{name} still uses {found}"
+
+
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu"])
+def test_k1_and_k2_instantiate_every_wgmma_head_dim(name, D):
+    """K1 (the forward and its halo instance) and K2's sweep dispatch on the
+    head dim they are given to an instance of each of 64, 128, 192, 256, as
+    ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers."""
+    from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS
+
+    assert D in WGMMA_HEAD_DIMS
+    text = _text(name)
+    assert re.search(rf"case {D}: return CALL\({D}\);", text), f"{name} has no instance of head dim {D}"
+
+
+@pytest.mark.parametrize("instance", ["float", "__nv_bfloat16", "__half", "chunked"])
+def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
+    """``FORMS_DISPATCH`` (csrc/flash_forms.cu) serves fp32, bf16 and fp16
+    operands at D = 64 ... 256, and the chunked instance (D = 0 there) at
+    every head dim above 256 that is a multiple of 64, for every type."""
+    text = _text("flash_forms.cu")
+    body = text[text.index("#define FORMS_TYPE"):text.index("#define FORMS_DISPATCH")]
+    dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_fwd')]
+    if instance == "chunked":
+        assert "return CALL(TT, 0);" in body and "D > 256 ? 0 : D" in dispatch
+        for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
+            assert f"{kernel}<" in text, f"{kernel} is never launched"
+    else:
+        assert re.search(rf"FORMS_TYPE\(DTYPE_\w+, {instance}\)", dispatch), f"FORMS_DISPATCH does not name {instance}"
+        for D in (64, 128, 192, 256):
+            assert f"return CALL(TT, {D});" in body
