@@ -29,8 +29,8 @@ failure raises and the exit code is not 0:
    ``scaled_dot_product_attention`` under a dense band mask, forward and
    backward, as the yardstick.
 5. The full-width UNet (dim_h=128, default config, seeded weights) forward at
-   B=1, T=8192: bf16 on the GPU through the kernel vs fp32 on the CPU through
-   the plain path.
+   B=1, T=8192: bf16 through the kernel vs fp32 through the plain attention,
+   both on the GPU (TF32 off; the CPU path is the CPU tests' to hold).
 6. Serving: ``generate_beatmap`` on synthesized songs (180 s with DDIM-50 and
    CFG 2.0; 60 s with two samples; the 180 s song with DPM-16), each an
    ``.osz`` holding the returned ``.osu`` texts with hit objects, with the
@@ -44,14 +44,15 @@ failure raises and the exit code is not 0:
    and at T=16384 (every site windowed).
 8. Training: ``osufusion_tpu_torch.trainer.train`` on the dummy dataset at
    dim_h=512, B=4, T=4096, full bf16, 4 steps without rematerialisation
-   with a save and a resume half way, and 4 under ``save-attn``; launches per
-   step counted; then the ``model.safetensors`` it wrote is loaded by
+   and 4 under ``save-attn`` (phase 15's DiT cell holds the one-card save
+   and resume); launches per step counted; then the ``model.safetensors`` it wrote is loaded by
    ``serve.load_model`` and serves a 60 s song.
 9. Full-song training: the same trainer at dim_h=512, B=1, T=65536, full bf16,
-   4 steps under the ``mixed`` remat plan with a save and a resume half way,
-   then 2 steps each under ``save-attn-out``, ``block`` and no
-   rematerialisation: s/step, peak memory, and the launches per step that
-   each plan implies (every site windowed: none of the global backward).
+   2 steps each under the ``mixed`` remat plan, ``save-attn-out``, ``block``
+   and no rematerialisation (phase 15's DiT cell holds the one-card save
+   and resume):
+   s/step, peak memory, and the launches per step that each plan implies
+   (every site windowed: none of the global backward).
 10. Halo kernels, the attention of sequence-parallel training, at each
     rank's shapes for a T=65536 song (B=1, H=16, D=64, bf16): (shards, T_local,
     W) = (4, 16384, 4096), (4, 2048, 512) and (2, 32768, 4096), each at the
@@ -72,10 +73,10 @@ failure raises and the exit code is not 0:
     (forward with LSE, dq, dkv) on the whole song.
 12. Sequence-parallel training: ``trainer.train`` in two processes under
     torchrun's environment (``--mesh-seq 2``), each holding half of the frames
-    of the full-song cell (dim_h=512, B=1, T=65536, full bf16, ``mixed``): one
-    step, a save, a resume, a second step; s/step, peak memory and launches
-    per rank, and step 1's loss against phase 9's one-card trainer at the same
-    seed. Before it, each rank runs one windowed site with two KV heads (T =
+    of the full-song cell (dim_h=512, B=1, T=65536, full bf16, ``mixed``): two
+    steps (phase 19's DiT cell holds the sharded save and resume); s/step,
+    peak memory and launches per rank, and step 1's loss against phase 9's
+    one-card trainer at the same seed. Before it, each rank runs one windowed site with two KV heads (T =
     65536, W = 4096, H = 16) through ``ops.attention.sdpa`` on its frames:
     forward and backward against the one-card ``flash_attention``, with the
     halo kernels launched once per KV head. One card per process over NCCL
@@ -96,9 +97,10 @@ failure raises and the exit code is not 0:
     (weights random everywhere): bf16 through the kernels vs fp32 through the
     plain versions, both on the GPU.
 15. DiT and MMDiT training: ``trainer.train`` on the dummy dataset at
-    dim_h=512, depth 12, 8 heads, B=4, T=4096, full bf16, 4 steps with a save
-    and a resume half way, without and with ``--gradient-checkpointing``:
-    s/step, peak memory, MFU, and the grouped kernels' launches per step.
+    dim_h=512, depth 12, 8 heads, B=4, T=4096, full bf16, 4 steps without
+    and with ``--gradient-checkpointing``, DiT without it across a save and a
+    resume half way (the one-card cells' one round trip): s/step, peak
+    memory, MFU, and the grouped kernels' launches per step.
 16. DiT serving: the ``model.safetensors`` the DiT trainer wrote, loaded by
     ``serve.load_model``, serves a 60 s song (DDIM-50, CFG 2.0) to an ``.osz``
     that parses; the grouped forward runs without its LSE once per site and
@@ -125,7 +127,7 @@ failure raises and the exit code is not 0:
 19. Ring training: ``trainer.train`` in two processes (``--mesh-seq 2``,
     sharing the card over gloo where there is one) for DiT and MMDiT at
     phase 15's cell and the UNet at phase 8's (dim_h=512, B=4, T=4096, every
-    site global), each one step with a save and a resume for a second: step
+    site global), each two steps, DiT's across a save and a resume: step
     1's loss against the one-card trainer's (phases 8 and 15), the ranks
     alike, the ring's launches per step as the sites imply (K1 and the merge
     twice a site, the pre-pass and the post-pass once, the sweep twice), no
@@ -157,7 +159,15 @@ failure raises and the exit code is not 0:
     faults (the last key tile dropped or a window one key short; an LSE off
     by 0.05) above the bounds (fp32: summation order only; bf16: phase 3's);
     CUDA-event times beside the bound (fp32 FLOP at 67 TFLOP/s, bf16 at 989),
-    the plain version and rope + SDPA.
+    the plain version and rope + SDPA. The wgmma instances above D = 64 (K1,
+    K2 and the windowed pair with its pre-pass, bf16 at D = 128, 192, 256)
+    against their plain versions with the D = 64 kernels' bounds and planted
+    faults: at B=2, T=4096, H=16 (global, tables); K1 and K2 at D = 128 at the
+    DiT (g) and serving (c) sites; K3a / K3b at D = 128 at the whole song's
+    level 0 (B=1, T=65536, W=4096, H=16), each timed beside its bound, its
+    plain version and rope + SDPA's backward (band mask at the windowed
+    site), two launches bit-identical; K5a / K5b at D = 128 at phase 10's
+    four-shard rank shape (B=1, T_local=16384, W=4096, the second shard).
     (b) and (c): fp32 serving and bf16 serving of a UNet with
     attn_dim_head=128, each the 180 s song through ``generate_beatmap`` at
     DPM-16, CFG 2.0 (444 forms forwards a map, no wgmma launch), the sampler
@@ -168,9 +178,16 @@ failure raises and the exit code is not 0:
     level: the halo instances at phase 10's rank shape (B=1, T_local=16384,
     W=4096, the second of four shards) and the ring over two shards as
     threads at phase 18's UNet and DiT rank shapes, fp32/64 and bf16/128,
-    each with planted faults. (a) fp32 crop training: ``trainer.train`` with
+    each with planted faults (bf16/128: the halo pair through K5a / K5b's
+    wgmma instances, no forms dq or dk/dv). (a) fp32 crop training: ``trainer.train`` with
     ``mixed_precision="no"`` at dim_h=512, B=4, T=4096, 2 steps: 39 forms
     forwards, pre-passes, dq, dk/dv and post-passes a step, no wgmma launch.
+
+24. Whole-song training at a head dim of 128: ``trainer.train`` at phase 9's
+    cell with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
+    4096; B=1, T=65536, full bf16, ``mixed``), 2 steps: 39 launches of each
+    of the wgmma windowed pair at D = 128 a step, 57 of K1 with its LSE, no
+    forms forward, dq or dk/dv; s/step, peak memory and a finite loss.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -628,10 +645,10 @@ def phase_windowed_kernels() -> tuple[dict, dict, dict]:
 
 
 def build_unet_pair():
-    """The default config at dim_h=128: seeded fp32 weights on the CPU and a
-    bf16 copy on the GPU. final_conv is zero at init; it gets seeded weights
-    so the output depends on everything before it. Returns (serving model,
-    CPU UNet, its GPU copy)."""
+    """The default config at dim_h=128: seeded fp32 weights, and a bf16 copy
+    on the GPU. final_conv is zero at init; it gets seeded weights so the
+    output depends on everything before it. Returns (serving model, fp32
+    UNet on the CPU, its bf16 GPU copy)."""
     from osufusion_tpu_torch.config import Config, ModelConfig
     from osufusion_tpu_torch.models import build_model
 
@@ -651,9 +668,16 @@ def _unet_sites(cfg) -> int:
     return 3 * sum(cfg.num_layer_blocks) + cfg.num_middle_transformers  # audio, down, up + middle
 
 
-def phase_unet(cpu, gpu) -> None:
+def phase_unet(ref, gpu) -> None:
+    """Phase 5: the bf16 UNet through the kernel against its fp32 weights
+    through the plain attention, on the GPU."""
+    from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.ops import flash_attention as fa
 
+    ref = ref.cuda()
+    for module in ref.modules():
+        if isinstance(module, blocks.Attention):
+            module.sdpa = fa.flash_attention_reference
     rng = np.random.default_rng(0)
     T = 8192
     x = torch.from_numpy(rng.standard_normal((1, T, 6)).astype(np.float32))
@@ -666,21 +690,21 @@ def phase_unet(cpu, gpu) -> None:
         t0 = time.perf_counter()
         out_gpu = gpu(x.cuda(), a.cuda(), t.cuda(), c.cuda(), mask.cuda()).cpu()
         gpu_s = time.perf_counter() - t0
+        n_sites = fa.flash_fwd.launches - before
         t0 = time.perf_counter()
-        out_cpu = cpu(x, a, t, c, mask)
-        cpu_s = time.perf_counter() - t0
-    n_sites = fa.flash_fwd.launches - before
-    rel = ((out_gpu - out_cpu).norm() / out_cpu.norm()).item()
-    _log(f"[unet] dim_h=128 B=1 T={T}: {n_sites} kernel launches; GPU bf16 {gpu_s:.2f} s (first call), "
-         f"CPU fp32 {cpu_s:.2f} s; relative L2 error {rel:.3e} (bound {UNET_REL_TOL}); "
-         f"output std {out_cpu.std().item():.3f}")
+        out_ref = ref(x.cuda(), a.cuda(), t.cuda(), c.cuda(), mask.cuda()).cpu()
+        ref_s = time.perf_counter() - t0
+    rel = ((out_gpu - out_ref).norm() / out_ref.norm()).item()
+    _log(f"[unet] dim_h=128 B=1 T={T}: {n_sites} kernel launches; bf16 through the kernel {gpu_s:.2f} s (first call), "
+         f"fp32 through the plain attention {ref_s:.2f} s, both on the GPU; relative L2 error {rel:.3e} (bound "
+         f"{UNET_REL_TOL}); output std {out_ref.std().item():.3f}")
     if out_gpu.shape != (1, T, 6) or not torch.isfinite(out_gpu).all():
         raise AssertionError(f"UNet output on the GPU: shape {tuple(out_gpu.shape)} or non-finite values")
     expected = _unet_sites(gpu.cfg)
     if n_sites != expected:
         raise AssertionError(f"UNet forward launched the kernel {n_sites} times, expected {expected}")
     if not rel < UNET_REL_TOL:
-        raise AssertionError(f"UNet GPU vs CPU relative error {rel} >= {UNET_REL_TOL}")
+        raise AssertionError(f"UNet bf16 kernel vs fp32 plain relative error {rel} >= {UNET_REL_TOL}")
 
 
 def synth_song(path: Path, seconds: float, seed: int) -> None:
@@ -971,12 +995,13 @@ def phase_grad_check(B: int, T: int) -> None:
     cond_mask = torch.tensor([True, False][:B], device="cuda")
 
     model32 = build_model(ModelConfig(dim_h=512, dtype="float32", remat=True, remat_mode="block"), DiffusionConfig())
-    ref = model32.init_params(seed=5, device="cpu")
+    # drawn on the card: 1279 M parameters twice on the host's generator cost more than the check
+    ref = model32.init_params(seed=5, device="cuda")
     randomize_everywhere(ref, seed=6)
     model16 = build_model(ModelConfig(dim_h=512), DiffusionConfig())
-    net = model16.init_params(seed=0, device="cpu")
+    net = model16.init_params(seed=0, device="cuda")
     net.load_state_dict(ref.state_dict())
-    ref, net = ref.cuda().train(), net.cuda().train()
+    ref, net = ref.train(), net.train()
 
     def run(model, params):
         params.zero_grad(set_to_none=True)
@@ -1030,7 +1055,6 @@ def _train_with_resume(cfg, steps: int, label: str, final: str = "final_conv/ker
     Returns (history, launches, peak GiB)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.trainer import train
-    from osufusion_tpu_torch.utils.serialization import load_safetensors
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1046,28 +1070,44 @@ def _train_with_resume(cfg, steps: int, label: str, final: str = "final_conv/ker
         raise AssertionError(f"{label}: non-finite loss or grad_norm")
     if not all(h["grad_norm"] > 0 for h in history[1:]):
         raise AssertionError(f"{label}: grad_norm not positive after step 1")
-    trained = load_safetensors(Path(cfg.train.project_dir) / "model.safetensors")
-    if not np.abs(trained[f"params/{final}"]).max() > 0:
+    leaf = _safetensors_leaf(Path(cfg.train.project_dir) / "model.safetensors", f"params/{final}")
+    if not np.abs(leaf).max() > 0:
         raise AssertionError(f"{label}: the output layer's {final} did not move from zero")
     return history, launches, peak
 
 
+def _safetensors_leaf(path: Path, name: str) -> np.ndarray:
+    """The one float32 tensor ``name`` of a safetensors file, read from its header's offsets alone (the file
+    of a dim_h=512 model holds ~5 GB that the check does not need)."""
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        info = json.loads(f.read(n))[name]
+        if info["dtype"] != "F32":
+            raise AssertionError(f"{path}: {name} is {info['dtype']}, the trainer writes F32")
+        start, end = info["data_offsets"]
+        f.seek(8 + n + start)
+        return np.frombuffer(f.read(end - start), "<f4").reshape(info["shape"])
+
+
 def phase_train(workdir: Path) -> tuple[int, int, tuple]:
-    """The trainer at the production cell, 4 steps per remat mode, without
-    remat across a save and a resume half way; returns (forward-with-LSE,
-    backward) launches and step 1's (loss, grad_norm) without remat."""
+    """The trainer at the production cell, 4 steps per remat mode; returns
+    (forward-with-LSE, backward) launches and step 1's (loss, grad_norm)
+    without remat."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
 
-    steps, half = 4, 2
+    steps = 4
     totals = [0, 0]
     for remat in ("none", "save-attn"):
-        resume = remat == "none"  # one resume is enough: each save writes 1279 M parameters and their AdamW state
+        # the one-card cells' save and resume is phase 15's DiT cell's: a save here writes 1279 M parameters and
+        # their AdamW state
         cfg = Config(
             model=ModelConfig(dim_h=512, remat=remat != "none", remat_mode="save-attn"),
             # dummy samples are 1024..4096 frames at this segment length, padded to 4096
             train=TrainConfig(project_dir=str(workdir / f"train_{remat}"), dataset_mode="dummy", segment_length=2048,
-                              batch_size=4, full_bf16=True, total_steps=half if resume else steps, warmup_steps=2,
-                              save_every=half if resume else 0, num_workers=2, seed=0),
+                              batch_size=4, full_bf16=True, total_steps=steps, warmup_steps=2, save_every=0,
+                              num_workers=2, seed=0),
         )
         sites = _unet_sites(cfg.model)
         history, launches, peak = _train_with_resume(cfg, steps, f"train {remat}")
@@ -1075,7 +1115,7 @@ def phase_train(workdir: Path) -> tuple[int, int, tuple]:
         totals[0] += launches["forward_lse"]
         totals[1] += launches["backward_fused"]
         seconds = [h["seconds"] for h in history[1:]]
-        _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps{f' (save and resume at {half})' if resume else ''}: "
+        _log(f"[train {remat}] dim_h=512 B=4 T=4096 full bf16, {steps} steps: "
              f"loss {[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
              f"{statistics.median(seconds):.4f} s/step (median of steps 2..{steps}: {[round(x, 4) for x in seconds]}); "
              f"peak memory {peak:.2f} GiB; launches over {steps} steps {launches} (sites {sites})")
@@ -1564,6 +1604,232 @@ def _wide_path_site(label: str, B: int, T: int, H: int, Kv: int, window: int, ta
          f"K1 {fwd_ms:.3f} ms")
 
 
+# the windowed pair (K3a with its pre-pass, K3b) at the head dims above 64, bf16, MQA with tables: (label, B,
+# T, H, window, head dims). The forms site (global) at every head dim of WIDE_DIMS, and the whole-song path's
+# level 0 (B=1, T=65536, W=4096, H=16) at D = 128, the head dim of phase 24's path
+WIDE_PAIR_SITES = (("forms site", *FORMS_SITE, -1, WIDE_DIMS), ("whole song", 1, 65536, 16, 4096, (128,)))
+# K5a / K5b at D = 128: phase 10's four-shard level-0 rank shape, (B, T_local, H, W, shards, shard)
+WIDE_HALO_SHAPE = (1, 16384, 16, 4096, 4, 1)
+
+
+def _pair_records(where: str, grads, refs, faults, failures: list) -> tuple[dict, list]:
+    """dq, dk and dv against the plain versions with the backward bounds; each planted fault (a tuple of dq,
+    dk, dv, or of dq alone) above the bound. Returns the largest error of dq and of dk/dv, and the log parts."""
+    err, parts = {"dq": 0.0, "dkv": 0.0}, []
+    for i, (name, got, ref) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
+        rel, e, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
+        fault_rel = min(_rel(f[i], ref) for f in faults if len(f) > i)
+        key = "dq" if name == "dq" else "dkv"
+        err[key] = max(err[key], e)
+        parts.append(f"{name} rel L2 {rel:.3e} max abs {e:.3e} of {top:.2f} (planted faults >= {fault_rel:.3e})")
+        if not (rel < BWD_REL_TOL and e < BWD_ABS_TOL * top and torch.isfinite(got).all() and fault_rel > BWD_REL_TOL):
+            failures.append(f"{where}: {name} rel L2 {rel:.3e}, max abs {e:.3e} of {top:.3e}, planted fault {fault_rel:.3e}")
+    return err, parts
+
+
+def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, seed: int, failures: list) -> dict:
+    """K3a (with its pre-pass) and K3b at head dim D at one site of WIDE_PAIR_SITES: one launch of each and no
+    forms kernel; dq, dk and dv against the plain fp32 versions on the same inputs (K1's o and LSE) with the
+    D = 64 kernels' bounds, planted faults above them (an LSE off by LSE_FAULT; at a windowed site also the
+    window one key short on each side), two launches bit-identical; CUDA-event times beside the bound, the
+    plain versions and the backward of rope + SDPA (under a dense band mask at a windowed site). Returns
+    {"dq": record, "dkv": record}."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops.rope import apply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    scale = D**-0.5
+    w = None if window < 0 else window
+    where = f"{label} D={D} B={B} T={T} H={H} {'global' if window < 0 else f'W={window}'}"
+    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, seed, D)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+
+    def backward():
+        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+        return (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window))
+
+    def plain(win, lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, win),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, win))
+
+    before, forms_before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches), _forms_counts()
+    grads = backward()
+    torch.cuda.synchronize()
+    launched = (fa.flash_bwd_dq.launches - before[0], fa.flash_bwd_dkv.launches - before[1])
+    if launched != (1, 1) or _forms_counts() != forms_before:
+        failures.append(f"{where}: wgmma dq, dkv launches {launched}, forms launches {_forms_counts()} (before "
+                        f"{forms_before}); want one of each and no forms kernel")
+    if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+        failures.append(f"{where}: dq, dk or dv differ between two launches on the same inputs")
+    faults = [plain(window, lse + LSE_FAULT)] + ([plain(window - 2, lse)] if window >= 0 else [])
+    err, parts = _pair_records(where, grads, plain(window, lse), faults, failures)
+    del grads, faults
+    prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)[1]
+    prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, cos, sin, scale), 5)
+    dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale), 5)  # the pre-pass included
+    dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, window), 5)
+    dq_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
+    dkv_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
+    # yardstick only: rope on q and k, then PyTorch's fused attention (under a dense band mask at a windowed
+    # site, which visits every tile, the masked ones too) and its backward by autograd
+    band = None
+    if window >= 0:
+        idx = torch.arange(T, device="cuda", dtype=torch.int32)
+        band = (idx[:, None] - idx[None, :]).abs() <= window // 2
+        del idx
+
+    def library(q_in, k_in, v_in):
+        qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+        kr = apply_rope(k_in, cos, sin)[:, None]
+        return F.scaled_dot_product_attention(qr, kr, v_in[:, None], attn_mask=band, enable_gqa=True).transpose(1, 2)
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = library(*leaves)
+    lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 2)
+    del leaves, lib_out, band
+    # q o do dq, qs out; k v; lse in, lse delta out / qs do; k v, dk dv in fp32; lse delta
+    bounds = {"dq": _bound(attention_flops("backward_dq", B, T, H, D, w), _attn_bytes(B, T, H, D, 5, 2, 3)),
+              "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, w), _attn_bytes(B, T, H, D, 2, 6, 2))}
+    _log(f"[wide pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
+         f"bit-identical (bounds {BWD_REL_TOL}, {BWD_ABS_TOL} of the largest)")
+    _log(f"[wide pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by "
+         f"{bounds['dq'][1]}, {bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound "
+         f"{bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); the pair {dq_ms + dkv_ms:.3f} "
+         f"ms against rope+SDPA's backward {lib_bwd_ms:.3f} ms")
+    del q, k_rot, k, v, do, cos, sin, o, lse, prep
+    torch.cuda.empty_cache()
+    # the one library backward yields dq, dk and dv: each kernel of the pair is set beside the whole of it
+    return {key: {"max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
+                  "bound_by": bounds[key][1], "library_ms": lib_bwd_ms}
+            for key, ms, plain_ms in (("dq", dq_ms, dq_plain_ms), ("dkv", dkv_ms, dkv_plain_ms))}
+
+
+def _wide_halo_pair(failures: list) -> dict:
+    """K5a (with the pre-pass) and K5b at D = 128 at WIDE_HALO_SHAPE: one wgmma launch of each and no forms
+    kernel; dq, dk and dv against the plain fp32 versions with the backward bounds, planted faults above them
+    (an LSE off by LSE_FAULT; the window one key short on each side, in dq), two launches bit-identical;
+    CUDA-event times beside the bound, the plain versions and SDPA's backward under the dense band-and-bounds
+    mask (phase 10's yardstick). Returns {"dq": record, "dkv": record}."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.utils.flops import halo_flops
+
+    B, T, H, W, n, shard = WIDE_HALO_SHAPE
+    D, S = 128, T + WIDE_HALO_SHAPE[3]
+    scale = D**-0.5
+    frame = (W, shard * T, n * T)
+    where = f"halo D={D} B={B} T_local={T} W={W} shard {shard + 1} of {n}"
+    g = torch.Generator(device="cuda").manual_seed(1790)
+    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    o, lse = ha.halo_fwd(q, k, v, *frame, scale)
+
+    def backward():
+        dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)
+        return (dq, *ha.halo_bwd_dkv(k, v, do, prep, *frame))
+
+    def plain(lse_in):
+        return (ha.halo_bwd_dq_reference(q, k, v, o, lse_in, do, *frame),
+                *ha.halo_bwd_dkv_reference(q, k, v, o, lse_in, do, *frame))
+
+    before, forms_before = (ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches), _forms_counts()
+    grads = backward()
+    torch.cuda.synchronize()
+    launched = (ha.halo_bwd_dq.launches - before[0], ha.halo_bwd_dkv.launches - before[1])
+    if launched != (1, 1) or _forms_counts() != forms_before:
+        failures.append(f"{where}: wgmma dq, dkv launches {launched}, forms launches {_forms_counts()}; want one of "
+                        "each and no forms kernel")
+    if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
+        failures.append(f"{where}: dq, dk or dv differ between two launches on the same inputs")
+    # the window one key short on each side: the same frame, one slab row less at each end
+    short = (ha.halo_bwd_dq_reference(q, k[:, 1:-1], v[:, 1:-1], o, lse, do, W - 2, *frame[1:]),)
+    err, parts = _pair_records(where, grads, plain(lse), [plain(lse + LSE_FAULT), short], failures)
+    del grads, short
+    prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
+    prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, None, None, scale), 5)
+    dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 5)  # the pre-pass included
+    dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, prep, *frame), 5)
+    dq_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dq_reference(q, k, v, o, lse, do, *frame), 1)
+    dkv_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dkv_reference(q, k, v, o, lse, do, *frame), 1)
+    lo, hi = ha.slab_bounds(T, *frame)
+    t_idx = torch.arange(T, device="cuda")[:, None]
+    s_idx = torch.arange(S, device="cuda")[None, :]
+    mask = (s_idx >= t_idx) & (s_idx <= t_idx + W) & (s_idx >= lo) & (s_idx < hi)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(leaves[0].transpose(1, 2), leaves[1][:, None], leaves[2][:, None],
+                                             attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 2)
+    del mask, leaves, lib_out, t_idx, s_idx
+    bounds = {"dq": _bound(halo_flops("backward_dq", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 5, 2, 3)),
+              "dkv": _bound(halo_flops("backward_dkv", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 2, f32_slabs=2))}
+    _log(f"[wide pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
+         "bit-identical")
+    _log(f"[wide pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f}, "
+         f"{bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}, "
+         f"{bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); SDPA's backward under the band-and-bounds mask "
+         f"{lib_bwd_ms:.3f} ms")
+    del q, k, v, do, o, lse, prep
+    torch.cuda.empty_cache()
+    return {key: {"max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
+                  "bound_by": bounds[key][1], "library_ms": lib_bwd_ms}
+            for key, ms, plain_ms in (("dq", dq_ms, dq_plain_ms), ("dkv", dkv_ms, dkv_plain_ms))}
+
+
+def phase_wide_pair_kernels() -> dict:
+    """The windowed pair at the head dims above 64 (phase 23): K3a / K3b at every site of WIDE_PAIR_SITES and
+    K5a / K5b at WIDE_HALO_SHAPE, each against plain (``_wide_pair_site``, ``_wide_halo_pair``). Returns the
+    kernels line's records: {(wrapper, D): record}, K3a / K3b at D = 128 from the whole-song site, at 192
+    and 256 from the forms site."""
+    t_phase = time.perf_counter()
+    failures, records = [], {}
+    for label, B, T, H, window, dims in WIDE_PAIR_SITES:
+        for i, D in enumerate(dims):
+            site = _wide_pair_site(label, B, T, H, window, D, 1770 + i + T, failures)
+            records[("flash_bwd_dq", D)], records[("flash_bwd_dkv", D)] = site["dq"], site["dkv"]
+    halo = _wide_halo_pair(failures)
+    records[("halo_bwd_dq", 128)], records[("halo_bwd_dkv", 128)] = halo["dq"], halo["dkv"]
+    if failures:
+        raise AssertionError("wide windowed pair vs plain: " + "; ".join(failures))
+    _log(f"[wide pair] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def phase_wide_fullsong_train(workdir: Path) -> dict:
+    """Phase 24, whole-song training at a head dim of 128: ``trainer.train`` at phase 9's cell (dim_h=512,
+    B=1, T=65536, full bf16, ``mixed``) with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
+    4096), 2 steps: every site windowed, K1 with its LSE (sites and the 18 that ``mixed`` runs again) and the
+    wgmma windowed pair at D = 128 once a site and step, no forms forward, dq or dk/dv. Returns the
+    launches."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    t_phase = time.perf_counter()
+    steps = 2
+    cfg = _fullsong_config("mixed", workdir / "fullsong_d128", steps, 0)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, attn_dim_head=128))
+    sites, again = _unet_sites(cfg.model), FULLSONG_PLANS["mixed"][1]
+    others = _all_launches(fa, ha)[4:]
+    _forms_counts(reset=True)
+    history, launches, peak = _train_with_resume(cfg, steps, "full-song D=128")
+    counts = _forms_counts()
+    seconds = [h["seconds"] for h in history]
+    _log(f"[full-song D=128] dim_h=512 B=1 T={FULLSONG_T} 16 heads of 128 full bf16 mixed, {steps} steps: loss "
+         f"{[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; s/step "
+         f"{[round(x, 4) for x in seconds]}; peak memory {peak:.2f} GiB; launches {launches} (sites {sites}, {again} run "
+         f"again per step); forms launches {counts}; phase {time.perf_counter() - t_phase:.1f} s")
+    expected = {"forward": 0, "forward_lse": (sites + again) * steps, "backward_fused": 0,
+                "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
+    if launches != expected or _all_launches(fa, ha)[4:] != others:
+        raise AssertionError(f"full-song D=128: launches {launches}, expected {expected}")
+    _forms_launch_check("full-song D=128", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+                        False)
+    return launches
+
+
 def phase_wide_dit_train(workdir: Path) -> dict:
     """A bf16 DiT crop step at a head dim of 128 (dim_h=512, 4 heads of 128, depth 12, B=4, T=4096, full
     bf16): ``trainer.train`` for 2 steps, K1 (c) with its LSE and K2 (c) at D = 128 once a layer and step,
@@ -1703,12 +1969,12 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     t = torch.tensor([100, 700][:B], device="cuda")
     cond_mask = torch.tensor([True, False][:B], device="cuda")
     model32 = _forms_unet(dim_head, "float32", remat=True)
-    ref = model32.init_params(seed=5, device="cpu")
+    ref = model32.init_params(seed=5, device="cuda")
     randomize_everywhere(ref, seed=6)
     model = _forms_unet(dim_head, dtype)
-    net = model.init_params(seed=0, device="cpu")
+    net = model.init_params(seed=0, device="cuda")
     net.load_state_dict(ref.state_dict())
-    ref, net = ref.cuda().train(), net.cuda().train()
+    ref, net = ref.train(), net.train()
     for module in ref.modules():
         if isinstance(module, blocks.Attention):
             module.sdpa = fa.flash_attention_reference
@@ -1783,13 +2049,14 @@ def phase_forms_train(workdir: Path) -> dict:
     return counts
 
 
-def phase_forms() -> tuple[dict, dict, dict, dict]:
+def phase_forms() -> tuple[dict, dict, dict, dict, dict]:
     """Phase 23, the forms family and the wide heads on the card: (f) fp16 and D > 256 against plain,
-    the kernel-level checks and times of every forms instance and of K1 and K2 at D = 128 ... 256, (b) and
-    (c) serving, (d) gradients, (g) the bf16 DiT step at D = 128, (e) the shard forms, (a) fp32 crop
-    training. Returns the forms kernel records and, by main instance, each forms entry point's launches on
-    the paths driven through the port's entry points ((a), (b) or (c), (d)); then K1's and K2's records by
-    head dim and their launches at D = 128 on (c), (d) and (g)."""
+    the kernel-level checks and times of every forms instance, of K1 and K2 at D = 128 ... 256 and of the
+    windowed pair at D = 128 ... 256 (K5a / K5b at 128), (b) and (c) serving, (d) gradients, (g) the bf16
+    DiT step at D = 128, (e) the shard forms, (a) fp32 crop training. Returns the forms kernel records and,
+    by main instance, each forms entry point's launches on the paths driven through the port's entry points
+    ((a), (b) or (c), (d)); then K1's and K2's records by head dim and their launches at D = 128 on (c), (d)
+    and (g); then the windowed pair's records by (wrapper, head dim)."""
     from osufusion_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
@@ -1797,6 +2064,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict]:
     _log(f"[forms] (f) {time.perf_counter() - t0:.1f} s")
     records = phase_forms_kernels()
     wide_records = phase_wide_kernels()
+    pair_records = phase_wide_pair_kernels()
     runs = {inst: [] for inst in FORMS_MAIN}
     wide = {"fwd": 0, "bwd": 0}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1833,7 +2101,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict]:
          + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}")
     if not (wide["fwd"] > 0 and wide["bwd"] > 0):
         raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
-    return records, launches, wide_records, {128: wide}
+    return records, launches, wide_records, {128: wide}, pair_records
 
 
 # the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
@@ -1856,6 +2124,18 @@ def _forms_json(records: dict, launches: dict) -> list:
                             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[body]}",
                             "launches": launches.get((dt, D), {}).get(body, 0), **rec})
     return entries
+
+
+# the Pallas body each entry point of the windowed pair stands in for (osufusion_tpu/ops/pallas_attention.py)
+PAIR_REPLACES = {"flash_bwd_dq": 435, "flash_bwd_dkv": 507, "halo_bwd_dq": 1054, "halo_bwd_dkv": 1099}
+
+
+def _pair_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of the windowed pair above D = 64 (phase 23's records), with their launches
+    on phase 24's whole-song path at D = 128 (no path reaches D = 192 or 256, or the halo pair at 128)."""
+    return [{"name": f"{who}_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed.cu",
+             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{PAIR_REPLACES[who]}",
+             "launches": launches.get((who, D), 0), **rec} for (who, D), rec in records.items()]
 
 
 def _wide_json(records: dict, launches: dict) -> list:
@@ -1883,8 +2163,9 @@ def phase_forms_shards() -> dict:
     dq and dk/dv at FORMS_HALO against their plain versions, the slab's rows outside the song random
     (planted faults: the slab one key off its frame, an LSE off by LSE_FAULT), and the ring over two shards as ``LocalRing``
     threads at FORMS_RING against its plain parts (planted faults: the second hop left out of the merge, the
-    second sweep storing). Returns the forms launches and the ring's largest error of o (the merge's
-    output), each by instance."""
+    second sweep storing). At fp32/64 every launch is a forms kernel's; at bf16/128 the halo pair is the
+    wgmma pair's halo instances K5a / K5b and the forward K1's, with no forms forward, dq or dk/dv. Returns
+    the forms launches and the ring's largest error of o (the merge's output), each by instance."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.ops import ring_attention as ra
@@ -1895,6 +2176,7 @@ def phase_forms_shards() -> dict:
         name, scale = f"{_dtype_name(dt)}/{D}", D**-0.5
         o_rel_tol, o_abs_tol, lse_tol, g_rel_tol, g_abs_tol = _forms_tols(dt)
         _forms_counts(reset=True)
+        halo_before = ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches
         B, T, H, W, n, shard = FORMS_HALO
         g0, t_global = shard * T, n * T
         g = torch.Generator(device="cuda").manual_seed(1400 + i)
@@ -1951,8 +2233,18 @@ def phase_forms_shards() -> dict:
             _log(f"[forms shards] {where}: {'; '.join(parts)}")
             del q, k_rot, v, do, got, ref, sweep_faults
             torch.cuda.empty_cache()
-        launches[(dt, D)] = _forms_counts()
-        _log(f"[forms shards] {name}: forms launches {launches[(dt, D)]}")
+        launches[(dt, D)] = counts = _forms_counts()
+        halo = [a - b for a, b in zip((ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches),
+                                      halo_before)]
+        _log(f"[forms shards] {name}: forms launches {counts}; wgmma halo forward, dq, dk/dv launches {halo}")
+        # bf16/128: the halo pair runs K1's and the windowed pair's wgmma instances, the ring K1 and K2's sweep, so
+        # no forms forward, dq or dk/dv; fp32/64: the forms kernels throughout, no wgmma halo kernel
+        wgmma = dt == torch.bfloat16
+        if wgmma and not (counts["fwd"] == counts["dq"] == counts["dkv"] == 0 and min(halo) > 0):
+            failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want no forms forward, dq or "
+                            "dk/dv and the wgmma halo kernels")
+        if not wgmma and not (not any(halo) and counts["dq"] > 0 and counts["dkv"] > 0):
+            failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want the forms kernels alone")
     if failures:
         raise AssertionError("forms shards: " + "; ".join(failures))
     return {"launches": launches, "merge_err": merge_err}
@@ -1962,7 +2254,7 @@ def phase_forms_shards() -> dict:
 # step). Levels 2 and 3 are ``block`` under ``mixed`` with the default levels:
 # their 18 sites (audio, down and up stacks) run again; under ``block`` all 36
 # sites inside UNet blocks do. The three middle transformers are in no block.
-FULLSONG_PLANS = {"mixed": (4, 18), "save-attn-out": (2, 0), "block": (2, 36), "none": (2, 0)}
+FULLSONG_PLANS = {"mixed": (2, 18), "save-attn-out": (2, 0), "block": (2, 36), "none": (2, 0)}
 FULLSONG_T = 65536
 
 
@@ -1981,19 +2273,16 @@ def _fullsong_config(plan: str, project_dir: Path, steps: int, save_every: int, 
 
 def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
     """The trainer at the full-song cell (dim_h=512, B=1, T=65536, full bf16,
-    every attention site windowed) under each plan of FULLSONG_PLANS, ``mixed``
-    with a save and a resume half way; returns ``mixed``'s launches and
-    losses."""
+    every attention site windowed) under each plan of FULLSONG_PLANS (the
+    one-card save and resume is phase 15's DiT cell's); returns ``mixed``'s
+    launches and losses."""
     losses, mixed_launches = {}, None
     for plan, (steps, again) in FULLSONG_PLANS.items():
-        resume = plan == "mixed"
-        cfg = _fullsong_config(plan, workdir / f"fullsong_{plan}", steps // 2 if resume else steps,
-                               steps // 2 if resume else 0)
+        cfg = _fullsong_config(plan, workdir / f"fullsong_{plan}", steps, 0)
         sites = _unet_sites(cfg.model)
         history, launches, peak = _train_with_resume(cfg, steps, f"full-song {plan}")
         losses[plan] = [h["loss"] for h in history]
-        _log(f"[full-song {plan}] dim_h=512 B=1 T={FULLSONG_T} full bf16, {steps} steps"
-             f"{' (save and resume at ' + str(steps // 2) + ')' if resume else ''}: "
+        _log(f"[full-song {plan}] dim_h=512 B=1 T={FULLSONG_T} full bf16, {steps} steps: "
              f"loss {[round(x, 4) for x in losses[plan]]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
              f"s/step {[round(h['seconds'], 4) for h in history]}; peak memory {peak:.2f} GiB; "
              f"launches over {steps} steps {launches} (sites {sites}, {again} run again per step)")
@@ -2001,7 +2290,7 @@ def phase_fullsong_train(workdir: Path) -> tuple[dict, list]:
                     "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
         if launches != expected:
             raise AssertionError(f"full-song {plan}: launches {launches}, expected {expected}")
-        if resume:
+        if plan == "mixed":
             mixed_launches = launches
     # the same seed gives every plan the same batches and draws, and a plan changes no arithmetic
     for plan, values in losses.items():
@@ -2292,8 +2581,8 @@ def _seq_gqa_site(shard) -> dict:
 def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
     """One process of phase 12, in torchrun's environment: a windowed GQA
     site (``_seq_gqa_site``); then every count set to 0, ``trainer.train``
-    for one step with a save, again from the checkpoint for a second step,
-    the counts read; (rank, error, result) put on ``results``."""
+    for two steps (the sharded cells' save and resume is phase 19's DiT
+    cell's), the counts read; (rank, error, result) put on ``results``."""
     import os
     import traceback
 
@@ -2308,7 +2597,7 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         from osufusion_tpu_torch.parallel.mesh import make_mesh
         from osufusion_tpu_torch.trainer import train
 
-        cfg = _fullsong_config("mixed", Path(project_dir), steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
+        cfg = _fullsong_config("mixed", Path(project_dir), steps=2, save_every=0, mesh_seq=SEQ_SHARDS)
         torch.cuda.set_device(local_device())
         maybe_initialize()
         gqa = _seq_gqa_site(make_mesh(data=1, model=1, seq=SEQ_SHARDS).seq_shard())
@@ -2317,7 +2606,6 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         _reset_launches(fa)
         _halo_counts(ha, reset=True)
         history = train(cfg)
-        history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2, resume="latest")))
         torch.cuda.synchronize()
         launches = {**_halo_counts(ha), **_launches(fa)}
         results.put((rank, None, {"history": history, "launches": launches, "backend": dist.get_backend(), "gqa": gqa,
@@ -2333,7 +2621,7 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
     import multiprocessing
     import queue as queue_module
 
-    cfg = _fullsong_config("mixed", workdir / "seq", steps=1, save_every=1, mesh_seq=SEQ_SHARDS)
+    cfg = _fullsong_config("mixed", workdir / "seq", steps=2, save_every=0, mesh_seq=SEQ_SHARDS)
     sites = _unet_sites(cfg.model)
     steps, again = 2, FULLSONG_PLANS["mixed"][1]
     expected = {"halo_fwd": (sites + again) * steps, "halo_bwd_dq": sites * steps, "halo_bwd_dkv": sites * steps,
@@ -2378,8 +2666,8 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
     for rank, r in sorted(got.items()):
         history = r["history"]
         _log(f"[seq train] rank {rank} of {SEQ_SHARDS} on {r['device']} ({r['backend']}; {torch.cuda.device_count()} card(s) "
-             f"visible): dim_h=512 B=1 T={FULLSONG_T} ({FULLSONG_T // SEQ_SHARDS} frames a rank) full bf16 mixed, 2 steps "
-             f"(save and resume at 1): loss {[round(h['loss'], 5) for h in history]}; grad_norm "
+             f"visible): dim_h=512 B=1 T={FULLSONG_T} ({FULLSONG_T // SEQ_SHARDS} frames a rank) full bf16 mixed, 2 steps: "
+             f"loss {[round(h['loss'], 5) for h in history]}; grad_norm "
              f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 3) for h in history]}; "
              f"peak memory {r['peak']:.2f} GiB; launches over 2 steps {r['launches']} (expected {expected})")
         if [h["step"] for h in history] != [1, 2]:
@@ -2603,9 +2891,10 @@ def phase_transformer_grad_check(backbone: str, B: int = 2, T: int = 4096) -> No
 
 
 def phase_transformer_train(backbone: str, workdir: Path) -> tuple[dict, tuple]:
-    """The trainer at the transformer cell, 4 steps with a save and a resume
-    half way, without and with block remat; returns the launches of both runs
-    together and step 1's (loss, grad_norm) without remat."""
+    """The trainer at the transformer cell, 4 steps without and with block
+    remat, DiT without remat across a save and a resume half way (the one-card
+    cells' one round trip); returns the launches of both runs together and
+    step 1's (loss, grad_norm) without remat."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
@@ -2613,12 +2902,13 @@ def phase_transformer_train(backbone: str, workdir: Path) -> tuple[dict, tuple]:
     flops = {"dit": dit_fwd_flops, "mmdit": mmdit_fwd_flops}[backbone]
     totals = {}
     for remat in (False, True):
+        resume = backbone == "dit" and not remat
         cfg = Config(
             model=ModelConfig(backbone=backbone, remat=remat, **TRANSFORMER),
             # dummy samples are 1024..4096 frames at this segment length, padded to 4096
             train=TrainConfig(project_dir=str(workdir / f"{backbone}_{'remat' if remat else 'none'}"), dataset_mode="dummy",
-                              segment_length=T // 2, batch_size=B, full_bf16=True, total_steps=half, warmup_steps=2,
-                              save_every=half, num_workers=2, seed=0),
+                              segment_length=T // 2, batch_size=B, full_bf16=True, total_steps=half if resume else steps,
+                              warmup_steps=2, save_every=half if resume else 0, num_workers=2, seed=0),
         )
         # MMDiT's output layer and the projection before it both start at zero: only the last bias can move
         history, launches, peak = _train_with_resume(cfg, steps, f"train {backbone}",
@@ -2629,8 +2919,8 @@ def phase_transformer_train(backbone: str, workdir: Path) -> tuple[dict, tuple]:
         mfu = 3 * flops(cfg.model, B, T) / s_step / PEAK_FLOPS
         depth = cfg.model.depth
         again = depth if remat else 0
-        _log(f"[train {backbone} {'remat' if remat else 'none'}] dim_h=512 depth {depth} B={B} T={T} full bf16, {steps} steps "
-             f"(save and resume at {half}): loss {[round(h['loss'], 4) for h in history]}; grad_norm "
+        _log(f"[train {backbone} {'remat' if remat else 'none'}] dim_h=512 depth {depth} B={B} T={T} full bf16, {steps} steps"
+             f"{f' (save and resume at {half})' if resume else ''}: loss {[round(h['loss'], 4) for h in history]}; grad_norm "
              f"{[round(h['grad_norm'], 4) for h in history]}; {s_step:.4f} s/step (median of steps 2..{steps}: "
              f"{[round(x, 4) for x in seconds]}); MFU {mfu:.4f} (3 x {flops(cfg.model, B, T) / 1e12:.3f} TFLOP a step "
              f"at {PEAK_FLOPS / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} GiB; launches over {steps} steps {launches}")
@@ -2923,14 +3213,16 @@ def _ring_counts(fa, reset: bool = False) -> dict:
 
 def _ring_cells(project_dir: Path) -> list:
     """Phase 19's cells, each as its one-card run is configured (phases 15
-    and 8, without remat): (label, config to 1 step with a save, the global
-    attention sites a step)."""
+    and 8, without remat): (label, config, the global attention sites a
+    step). DiT's config runs 1 step with a save (the sharded cells' one save
+    and resume), the others 2 steps."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
 
     def train_cfg(label):
+        resume = label == "dit"
         return TrainConfig(project_dir=str(project_dir / label), dataset_mode="dummy", segment_length=2048, batch_size=4,
-                           full_bf16=True, total_steps=1, warmup_steps=2, save_every=1, num_workers=2, seed=0,
-                           mesh_seq=SEQ_SHARDS)
+                           full_bf16=True, total_steps=1 if resume else 2, warmup_steps=2, save_every=1 if resume else 0,
+                           num_workers=2, seed=0, mesh_seq=SEQ_SHARDS)
 
     unet = ModelConfig(dim_h=512, remat=False, remat_mode="save-attn")
     return [(b, Config(model=ModelConfig(backbone=b, remat=False, **TRANSFORMER), train=train_cfg(b)), TRANSFORMER["depth"])
@@ -2983,10 +3275,10 @@ def _sharded_grad_check(backbone: str, shard, B: int = 2, T: int = 4096) -> dict
 
 def _ring_rank(rank: int, port: int, project_dir: str, results) -> None:
     """One process of phase 19, in torchrun's environment: each cell of
-    ``_ring_cells`` through ``trainer.train``, one step with a save and again
-    from the checkpoint for a second, every count set to 0 before and read
-    after, the whole-sequence gathers counted; (rank, error, results) put on
-    ``results``."""
+    ``_ring_cells`` through ``trainer.train`` for two steps (DiT's one step
+    with a save and again from the checkpoint for a second), every count set
+    to 0 before and read after, the whole-sequence gathers counted; (rank,
+    error, results) put on ``results``."""
     import os
     import traceback
 
@@ -3021,7 +3313,9 @@ def _ring_rank(rank: int, port: int, project_dir: str, results) -> None:
             _ring_counts(fa, reset=True)
             gathers.clear()
             history = train(cfg)
-            history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2, resume="latest")))
+            if cfg.train.total_steps < 2:
+                history += train(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, total_steps=2,
+                                                                                      resume="latest")))
             torch.cuda.synchronize()
             out.append({"label": label, "history": history, "launches": {**_launches(fa), **_ring_counts(fa)},
                         "gathers": len(gathers), "peak": torch.cuda.max_memory_allocated() / 2**30})
@@ -3088,7 +3382,8 @@ def phase_ring_train(workdir: Path, one_card_losses: dict) -> dict:
             history = cell["history"]
             _log(f"[ring train {label}] rank {rank} of {SEQ_SHARDS} on {got[rank]['device']} ({got[rank]['backend']}; "
                  f"{torch.cuda.device_count()} card(s) visible): dim_h=512 B=4 T=4096 ({4096 // SEQ_SHARDS} frames a rank) "
-                 f"full bf16, 2 steps (save and resume at 1): loss {[round(h['loss'], 5) for h in history]}; grad_norm "
+                 f"full bf16, 2 steps{' (save and resume at 1)' if cfg.train.save_every else ''}: loss "
+                 f"{[round(h['loss'], 5) for h in history]}; grad_norm "
                  f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 3) for h in history]}; "
                  f"peak memory {cell['peak']:.2f} GiB; launches over 2 steps {cell['launches']} (expected {expected}); "
                  f"whole-sequence gathers {cell['gathers']}")
@@ -3125,9 +3420,9 @@ def main() -> int:
     fwd_lse_windowed, bwd_dq, bwd_dkv = phase_windowed_kernels()
     halo_fwd, halo_dq, halo_dkv = phase_halo_kernels()
     phase_halo_composition()
-    model, cpu, gpu = build_unet_pair()
-    phase_unet(cpu, gpu)
-    del cpu
+    model, ref, gpu = build_unet_pair()
+    phase_unet(ref, gpu)
+    del ref
     del gpu
     served = serving_weights(model)
     launches = phase_serve(model, served)
@@ -3141,7 +3436,7 @@ def main() -> int:
         phase_dpm_check(model, served, song, ddim50)
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
-    forms_records, forms_launches, wide_records, wide_launches = phase_forms()
+    forms_records, forms_launches, wide_records, wide_launches, pair_records = phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -3152,6 +3447,10 @@ def main() -> int:
         phase_serve_trained(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         fullsong, fullsong_losses = phase_fullsong_train(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        fullsong_d128 = phase_wide_fullsong_train(Path(tmp))
+    pair_launches = {("flash_bwd_dq", 128): fullsong_d128["backward_dq"],
+                     ("flash_bwd_dkv", 128): fullsong_d128["backward_dkv"]}
     with tempfile.TemporaryDirectory() as tmp:
         seq = phase_seq_train(Path(tmp), fullsong_losses)
     grouped_fwd_lse, grouped_bwd, grouped_fwd = phase_grouped_kernels()
@@ -3212,6 +3511,7 @@ def main() -> int:
         {"name": "flash_bwd_post", **bwd_source, "launches": ring_launches["post"], **ring["flash_bwd_post"]},
         *_forms_json(forms_records, forms_launches),
         *_wide_json(wide_records, wide_launches),
+        *_pair_json(pair_records, pair_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -33,35 +33,48 @@
 // traffic): 3 products of 2 * D FLOP per visited (query, key) pair in dq, 4 in
 // dkv, and one exp2 per pair in each. The design (tiles move by TMA,
 // `cp.async.bulk.tensor` and `cp.async.bulk` behind `mbarrier`s; every product
-// is `wgmma.mma_async`; the wrappers are in hopper.cuh):
+// is `wgmma.mma_async`; the wrappers are in hopper.cuh) serves the head dims
+// 64, 128, 192 and 256 (template argument D): every tile is D / 64 swizzle
+// atoms wide (hopper.cuh), loaded as D / 64 TMA boxes; K-major operands step
+// atom to atom, MN-major ones (K in dQ += dS K; qs and do in the dk/dv
+// products) read across atoms by the descriptor's LBO.
 //
-//  * Pre-pass (flash_bwd_prep.cuh, K2's): qs rotated (halo: only scaled) once
-//    per row, delta, and the LSE, t-major (the group-major order at MQA), LSE
-//    and delta padded to whole 128-row blocks with +inf and 0, so a pad row
-//    has p = ds = 0. Both kernels read qs from there: no row is scaled twice.
-//  * flash_bwd_dq_kernel: one block per 128 (timestep, head) rows, as the
-//    forward lays them out. Two consumer warpgroups own 64 rows each; a
-//    producer warpgroup (one thread of it, 40 registers so that the
-//    consumers get 232) loads the block's qs and do once, in the 128-byte
-//    swizzle, then streams the KV tiles of 128 keys that intersect [t_lo -
-//    w/2, t_hi + w/2] through a ring of DQ_NSTAGE stages. Per tile S = qs K^T
-//    and dP = do V^T (wgmma m64n128, both operands in shared memory); ds
-//    stays in registers as the A operand of dQ += dS K (K read MN-major).
-//    While the tensor cores run tile j's S and dP and tile j-1's dQ, the
-//    warpgroup waits only for S and computes p. Only tiles at the window's
+//  * Pre-pass (flash_bwd_prep.cuh, K2's, instanced at each D): qs rotated
+//    (halo: only scaled) once per row, delta, and the LSE, t-major (the
+//    group-major order at MQA), LSE and delta padded to whole 128-row blocks
+//    with +inf and 0, so a pad row has p = ds = 0. Both kernels read qs from
+//    there: no row is scaled twice, and no fp32 dq buffer exists.
+//  * flash_bwd_dq_kernel (struct Dq): one block per BM (timestep, head) rows,
+//    as the forward lays them out, one consumer warpgroup per 64 of them; a
+//    producer warpgroup (one thread of it issues every copy) loads the block's
+//    qs and do once, in the 128-byte swizzle, then streams the KV tiles of BN
+//    keys that intersect [t_lo - w/2, t_hi + w/2] through a ring of NSTAGE
+//    stages. Per tile S = qs K^T and dP = do V^T (wgmma m64nBN, both operands
+//    in shared memory); ds stays in registers as the A operand of dQ += dS K
+//    (wgmma m64nD, K read MN-major). While the tensor cores run tile j's S
+//    and dP and tile j-1's dQ, the warpgroup waits only for S and computes p.
+//    A warpgroup holds dQ (D / 2 fp32 registers a thread), S and dP (BN / 2
+//    each) and dS (BN / 4): D = 64 keeps its first design (BM = 128, BN =
+//    128, 4 stages, producer at 40 registers and consumers at 232 by
+//    setmaxnreg); wider heads take 64-key tiles (S and dP at 128 keys would
+//    not fit beside dQ in 240 registers) and as many stages as fit beside qs
+//    and do in shared memory: D = 128 BM = 128 and 4 stages, D = 192 BM = 128
+//    and 2, D = 256 BM = 64 (qs and do of 128 rows would leave room for one
+//    stage) and 2, its one consumer warpgroup at the 255 registers that 256
+//    threads leave a thread, with no hand-over. Only tiles at the window's
 //    edge or past the last key (S; halo: hi) are masked; the sweep starts at
 //    lo. No atomics and no buffer: each dq row is un-rotated, scaled and
 //    stored once, so dq repeats to the last bit.
-//  * flash_bwd_dkv_kernel: one block per (batch element, KV_BN = 64 keys), two
-//    blocks per SM (so the narrow levels, T = 8192 at B = 1, still fill the
-//    card). Its consumer warpgroup keeps dk and dv of the 64 keys in fp32
-//    registers (232 a thread, by setmaxnreg from a producer warpgroup that
-//    keeps 24); one producer thread streams the 64-row tiles of qs and do
-//    (TMA) and of the LSE and delta (bulk copy) of the timesteps
-//    [s0 - w/2, s_last + w/2] through a ring of KV_NSTAGE stages. Per tile
-//    S^T = K qs^T and dP^T = V do^T put the keys in wgmma's M, so P^T and dS^T
-//    come out in registers already as the A operands of dV += P^T do and dK
-//    += dS^T qs (do and qs read MN-major): no shared-memory round trip, no
+//  * flash_bwd_dkv_kernel (D = 64): one block per (batch element, KV_BN = 64
+//    keys), two blocks per SM (so the narrow levels, T = 8192 at B = 1, still
+//    fill the card). Its consumer warpgroup keeps dk and dv of the 64 keys in
+//    fp32 registers (232 a thread, by setmaxnreg from a producer warpgroup
+//    that keeps 24); one producer thread streams the 64-row tiles of qs and
+//    do (TMA) and of the LSE and delta (bulk copy) of the timesteps [s0 -
+//    w/2, s_last + w/2] through a ring of KV_NSTAGE stages. Per tile S^T = K
+//    qs^T and dP^T = V do^T put the keys in wgmma's M, so P^T and dS^T come
+//    out in registers already as the A operands of dV += P^T do and dK +=
+//    dS^T qs (do and qs read MN-major): no shared-memory round trip, no
 //    transposing loads. Tile j-1's dV, dK run while tile j's p is computed.
 //    Each dk, dv row is written once: the same bits from launch to launch.
 //    Only tiles whose timesteps touch the window's edge, and blocks with
@@ -72,15 +85,29 @@
 //    W - s at the end), about 256 full blocks' work at level 0 for 264 slots
 //    (132 SMs x 2); the light first blocks finish early and take the light
 //    last ones, so the launch order makes about one wave.
+//  * flash_bwd_dkv_split_kernel (D = 128, 192, 256; struct DkvSplit): dk and
+//    dv of 64 keys are D fp32 registers a thread, too many beside the tiles
+//    in flight, so the block's two consumer warpgroups split the products by
+//    kind, as K2's flash_bwd_split_kernel does: warpgroup 0 computes S^T and
+//    P^T and keeps dV, warpgroup 1 dP^T and dS^T and keeps dK (D / 2
+//    registers each); P^T crosses in fp32 through shared memory (two
+//    buffers, one named barrier a tile). Each warpgroup issues tile j's first
+//    product and tile j-1's kept one together and waits only for the first.
+//    64 keys a block, one block an SM (qs and do stages fill shared memory:
+//    4 at D = 128, 3 at 192, 2 at 256): the narrowest whole-song level (T =
+//    8192, B = 1) makes 128 blocks of two consumer warpgroups for 132 SMs,
+//    one wave with 4 SMs idle; level 0 (T = 65536) 1024 blocks, 7.8 waves.
 //  * The pair recomputes s and dp in both kernels (7 products of T*W*H*D
 //    against the fused sweep's 5): that is what the split is (the card's
 //    own; the TPU pair exists because its grid has no atomics).
 //
-// C ABI (loaded with ctypes): flash_bwd_windowed_prep_bf16 fills the scratch
-// that the kernels of either frame read (with tables or, for the halo pair,
-// without); flash_bwd_dq_bf16 and flash_bwd_dkv_bf16 (single device),
-// halo_bwd_dq_bf16 and halo_bwd_dkv_bf16 (halo) return a cudaError_t, or minus
-// the CUresult of a TMA descriptor that failed to encode.
+// C ABI (loaded with ctypes), every entry point taking the head dim first
+// (cudaErrorInvalidValue for one without an instance):
+// flash_bwd_windowed_prep_bf16 fills the scratch that the kernels of either
+// frame read (with tables or, for the halo pair, without);
+// flash_bwd_dq_bf16 and flash_bwd_dkv_bf16 (single device), halo_bwd_dq_bf16
+// and halo_bwd_dkv_bf16 (halo) return a cudaError_t, or minus the CUresult of
+// a TMA descriptor that failed to encode.
 
 #include <limits.h>
 #include <math.h>
@@ -91,21 +118,39 @@
 
 namespace {
 
-constexpr int D = 64;                             // head dim
+constexpr int SMEM_LIMIT = 232448;                // dynamic shared memory a block may take on sm_90
 constexpr int ROW_TILE = 64;                      // rows of a qs / do box of TMA
-constexpr int DQ_BM = 128;                        // (timestep, head) rows per dq block; the row padding
-constexpr int DQ_BN = 128;                        // keys per KV tile of the dq sweep
-constexpr int DQ_NSTAGE = 4;                      // KV tiles in flight
-constexpr int DQ_CONSUMERS = DQ_BM / 64;          // consumer warpgroups, 64 rows each
-constexpr int DQ_THREADS = DQ_CONSUMERS * 128 + 128;  // and the producer warpgroup
-// registers a thread after the hand-over: 2 x 128 x 232 + 128 x 40 <= 65536
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-constexpr int DQ_ROWS_BYTES = DQ_BM * D * 2;
-constexpr int DQ_TILE_BYTES = DQ_BN * D * 2;
-// qs, do; K and V per stage; barriers
-constexpr int DQ_SMEM_BYTES = 1024 + 2 * DQ_ROWS_BYTES + 2 * DQ_NSTAGE * DQ_TILE_BYTES + (2 * DQ_NSTAGE + 1) * 8;
+constexpr int ROW_PAD = 128;                      // the scratch's row padding: a multiple of every dq block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// The dq kernel's instance at head dim D (see the top of this file)
+template <int D>
+struct Dq {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int BM = D <= 192 ? 128 : 64;   // (timestep, head) rows per block
+  static constexpr int BN = D == 64 ? 128 : 64;    // keys per KV tile
+  static constexpr int CONSUMERS = BM / 64;        // consumer warpgroups, 64 rows each
+  static constexpr int THREADS = CONSUMERS * 128 + 128;  // and the producer warpgroup
+  // registers a thread after the hand-over (CONSUMERS x 128 x CONSUMER_REGS + 128 x PRODUCER_REGS <= 65536);
+  // with one consumer warpgroup 256 threads leave every thread 255 and nothing is handed over
+  static constexpr bool HANDOVER = CONSUMERS > 1;
+  static constexpr int PRODUCER_REGS = D == 64 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = D == 64 ? 232 : 240;
+  static constexpr int ROWS_BYTES = BM * D * 2;
+  static constexpr int TILE_BYTES = BN * D * 2;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 2 * ROWS_BYTES - 9 * 8) / (2 * TILE_BYTES);
+  static constexpr int NSTAGE = FIT < 4 ? FIT : 4;  // KV tiles in flight
+  // qs, do; K and V per stage; barriers
+  static constexpr int SMEM_BYTES = 1024 + 2 * ROWS_BYTES + 2 * NSTAGE * TILE_BYTES + (2 * NSTAGE + 1) * 8;
+  static_assert(D % 64 == 0 && NSTAGE >= 2 && SMEM_BYTES <= SMEM_LIMIT, "qs, do and two stages fit shared memory");
+  static_assert(!HANDOVER || CONSUMERS * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536,
+                "the register hand-over fits the register file");
+  static_assert(ROW_PAD % BM == 0 && BM % ROW_TILE == 0, "the row padding serves every dq block");
+};
+
+// The dk/dv kernel at D = 64
+constexpr int D64 = 64;
 constexpr int KV_BN = 64;        // keys per dkv block: one consumer warpgroup
 constexpr int KV_BM = ROW_TILE;  // rows per tile of the dkv sweep
 constexpr int KV_NSTAGE = 4;     // row tiles in flight
@@ -117,84 +162,110 @@ constexpr int KV_BLOCKS_PER_SM = 2;
 // producer is a warpgroup that gives its registers to the consumers
 // (setmaxnreg).
 constexpr int KV_PRODUCER_REGS = 24;
-constexpr int KV_BYTES = KV_BN * D * 2;
-constexpr int KV_ROW_BYTES = KV_BM * D * 2;
+constexpr int KV_CONSUMER_REGS = 232;
+constexpr int KV_BYTES = KV_BN * D64 * 2;
+constexpr int KV_ROW_BYTES = KV_BM * D64 * 2;
 // K, V; per stage qs, do, lse, delta; barriers
 constexpr int KV_SMEM_BYTES =
     1024 + 2 * KV_BYTES + KV_NSTAGE * (2 * KV_ROW_BYTES + 2 * KV_BM * 4) + (2 * KV_NSTAGE + 1) * 8;
 
-static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536 &&
-                  128 * (CONSUMER_REGS + KV_PRODUCER_REGS) <= 65536 / KV_BLOCKS_PER_SM,
+static_assert(128 * (KV_CONSUMER_REGS + KV_PRODUCER_REGS) <= 65536 / KV_BLOCKS_PER_SM,
               "the register hand-over fits the register file");
+static_assert(ROW_PAD % KV_BM == 0, "the row padding serves the dkv tiles");
 
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+// The dk/dv kernel's instance at D = 128, 192, 256 (see the top of this file)
+template <int D>
+struct DkvSplit {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int BN = 64;        // keys per block
+  static constexpr int BM = ROW_TILE;  // rows per tile
+  static constexpr int THREADS = 2 * 128 + 128;  // two consumer warpgroups and the producer warpgroup
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int ROW_BYTES = BM * D * 2;
+  static constexpr int STAGE_BYTES = 2 * ROW_BYTES + 2 * BM * 4;  // qs, do, lse, delta
+  static constexpr int PF_BYTES = 2 * BN * BM * 4;                // P^T in fp32, two buffers
+  static constexpr int FIXED = 1024 + 2 * KV_BYTES + PF_BYTES + 8;
+  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (STAGE_BYTES + 16);
+  static constexpr int NSTAGE = FIT < 4 ? FIT : 4;  // row tiles in flight
+  static constexpr int SMEM_BYTES = FIXED + NSTAGE * (STAGE_BYTES + 16);
+  static_assert(D % 64 == 0 && D > 64 && NSTAGE >= 2 && SMEM_BYTES <= SMEM_LIMIT, "two stages fit shared memory");
+  static_assert(BN == KV_BN, "64 keys a dk/dv block at every head dim");
+  static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 65536, "the hand-over fits the register file");
+};
 
-static_assert(DQ_BM % ROW_TILE == 0 && DQ_BM % KV_BM == 0, "the row padding serves both kernels' tiles");
-
-template <bool HALO>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
+template <int D, bool HALO>
+__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
                     const float* __restrict__ lse_g, const float* __restrict__ delta_g,
                     const float* __restrict__ cos_t, const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ dq,
                     int T, int S, int H, int pad, int window, float scale, KeyFrame frame) {
+  using C = Dq<D>;
+  constexpr int BM = C::BM, BN = C::BN, NSTAGE = C::NSTAGE, ATOMS = C::ATOMS, CONSUMERS = C::CONSUMERS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [DQ_BM][D] qs, swizzled
-  __nv_bfloat16* Os = Qs + DQ_BM * D;                            // [DQ_BM][D] do
-  __nv_bfloat16* Ks = Os + DQ_BM * D;                            // [DQ_NSTAGE][DQ_BN][D]
-  __nv_bfloat16* Vs = Ks + DQ_NSTAGE * DQ_BN * D;                // [DQ_NSTAGE][DQ_BN][D]
-  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + DQ_NSTAGE * DQ_BN * D);
-  uint64_t* empty = full + DQ_NSTAGE;
-  uint64_t* row_bar = empty + DQ_NSTAGE;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [ATOMS][BM][64] qs, swizzled
+  __nv_bfloat16* Os = Qs + BM * D;                               // [ATOMS][BM][64] do
+  __nv_bfloat16* Ks = Os + BM * D;                               // [NSTAGE][ATOMS][BN][64]
+  __nv_bfloat16* Vs = Ks + NSTAGE * BN * D;                      // [NSTAGE][ATOMS][BN][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + NSTAGE * BN * D);
+  uint64_t* empty = full + NSTAGE;
+  uint64_t* row_bar = empty + NSTAGE;
 
   const int b = blockIdx.y;
   const int rows = T * H;
-  const int r0 = blockIdx.x * DQ_BM;
+  const int r0 = blockIdx.x * BM;
   const bool local = window >= 0;
   const int w2 = window / 2;
   const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
   const int off = kf.off, key_hi = kf.hi;
   const int t_lo = r0 / H;
-  const int t_hi = (min(r0 + DQ_BM, rows) - 1) / H;
+  const int t_hi = (min(r0 + BM, rows) - 1) / H;
   const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
   const int kv_lo = span.lo;
-  const int n_tiles = (span.hi - kv_lo + DQ_BN - 1) / DQ_BN;
+  const int n_tiles = (span.hi - kv_lo + BN - 1) / BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < DQ_NSTAGE; ++s) {
+    for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], DQ_CONSUMERS * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
     }
     mbar_init(row_bar, 1);
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp >= DQ_CONSUMERS * 4) {  // the producer warpgroup; one thread issues every copy
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == DQ_CONSUMERS * 4 && lane == 0) {
-      mbar_expect_tx(row_bar, 2 * DQ_ROWS_BYTES);
-      for (int h = 0; h < DQ_BM / ROW_TILE; ++h) {  // rows past T*H arrive as zeros
-        tma_load_3d(Qs + h * ROW_TILE * D, &qmap, row_bar, 0, r0 + h * ROW_TILE, b);
-        tma_load_3d(Os + h * ROW_TILE * D, &domap, row_bar, 0, r0 + h * ROW_TILE, b);
+  if (warp >= CONSUMERS * 4) {  // the producer warpgroup; one thread issues every copy
+    if constexpr (C::HANDOVER) setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      mbar_expect_tx(row_bar, 2 * C::ROWS_BYTES);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        for (int h = 0; h < BM / ROW_TILE; ++h) {  // rows past T*H arrive as zeros
+          tma_load_3d(Qs + a * BM * 64 + h * ROW_TILE * 64, &qmap, row_bar, 64 * a, r0 + h * ROW_TILE, b);
+          tma_load_3d(Os + a * BM * 64 + h * ROW_TILE * 64, &domap, row_bar, 64 * a, r0 + h * ROW_TILE, b);
+        }
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % DQ_NSTAGE;
-        mbar_wait(&empty[st], ((it / DQ_NSTAGE) & 1) ^ 1);
-        mbar_expect_tx(&full[st], 2 * DQ_TILE_BYTES);
-        const int s0 = kv_lo + it * DQ_BN;  // keys past S arrive as zeros
-        tma_load_4d(Ks + st * DQ_BN * D, &kmap, &full[st], 0, 0, s0, b);
-        tma_load_4d(Vs + st * DQ_BN * D, &vmap, &full[st], 0, 0, s0, b);
+        const int st = it % NSTAGE;
+        mbar_wait(&empty[st], ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * C::TILE_BYTES);
+        const int s0 = kv_lo + it * BN;  // keys past S arrive as zeros
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {  // one box per 64 columns of the head dim
+          tma_load_4d(Ks + (st * ATOMS + a) * BN * 64, &kmap, &full[st], 64 * a, 0, s0, b);
+          tma_load_4d(Vs + (st * ATOMS + a) * BN * 64, &vmap, &full[st], 64 * a, 0, s0, b);
+        }
       }
     }
     return;
   }
 
-  setmaxnreg_inc<CONSUMER_REGS>();
+  if constexpr (C::HANDOVER) setmaxnreg_inc<C::CONSUMER_REGS>();
   const int wg = warp / 4;  // consumer warpgroup: rows r0 + 64 wg ...
   const int g = lane >> 2;  // accumulator row (and row + 8) of this thread in its warp's 16
   const int tq = lane & 3;  // accumulator column pair
@@ -213,40 +284,49 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
     vis_lo[i] = seen.lo;
     vis_n[i] = seen.hi - 1 - seen.lo;
   }
-  const uint64_t qdesc = desc_kmajor(Qs + wg * 64 * D);
-  const uint64_t odesc = desc_kmajor(Os + wg * 64 * D);
+  // descriptor steps: 16 columns of K inside an atom, one atom of the rows and of a KV tile, 16 keys of MN-major K
+  constexpr uint64_t K16 = 32 >> 4, ROW_ATOM = BM * 128 >> 4, KV_ATOM = BN * 128 >> 4, STEP16 = 16 * 128 >> 4;
+  constexpr uint32_t LBO = ATOMS == 1 ? 1024 : BN * 128;  // K as B of dQ, N = D across its atoms (unread at 64)
+  const uint64_t qdesc = desc_kmajor(Qs + wg * 64 * 64);
+  const uint64_t odesc = desc_kmajor(Os + wg * 64 * 64);
 
-  float acc[32];  // dq_rot of the warpgroup's 64 rows
+  float acc[D / 2];  // dq_rot of the warpgroup's 64 rows
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  float s[64], dp[64];           // the tile's logits, then p; dp, then ds
-  uint32_t ga[DQ_BN / 16][4];    // ds in bf16, the A operand of dQ += dS K
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BN / 2], dp[BN / 2];  // the tile's logits, then p; dp, then ds
+  uint32_t ga[BN / 16][4];      // ds in bf16, the A operand of dQ += dS K
 
   // S = qs K^T and dP = do V^T of the tile in stage st, issued as two groups
   auto issue_products = [&](int st) {
-    const uint64_t kdesc = desc_kmajor(Ks + st * DQ_BN * D), vdesc = desc_kmajor(Vs + st * DQ_BN * D);
+    const uint64_t kdesc = desc_kmajor(Ks + st * BN * D), vdesc = desc_kmajor(Vs + st * BN * D);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n128<0, 0>(s, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t step = (kk % 4) * K16;
+      wgmma_ss<BN, 0, 0>(s, qdesc + (kk / 4) * ROW_ATOM + step, kdesc + (kk / 4) * KV_ATOM + step, kk);
+    }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n128<0, 0>(dp, odesc + 2 * kk, vdesc + 2 * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t step = (kk % 4) * K16;
+      wgmma_ss<BN, 0, 0>(dp, odesc + (kk / 4) * ROW_ATOM + step, vdesc + (kk / 4) * KV_ATOM + step, kk);
+    }
     wgmma_commit();
   };
   // dQ += dS K with the previous tile's dS (ga) and the K of stage st, issued
   auto issue_dq = [&](int st) {
-    const uint64_t kdesc_b = desc_mnmajor(Ks + st * DQ_BN * D);
+    const uint64_t kdesc_b = desc_mnmajor(Ks + st * BN * D, LBO);
 #pragma unroll
-    for (int j = 0; j < DQ_BN / 16; ++j) wgmma_rs_n64<1>(acc, ga[j], kdesc_b + j * (16 * 128 >> 4), 1);
+    for (int j = 0; j < BN / 16; ++j) wgmma_rs<D, 1>(acc, ga[j], kdesc_b + j * STEP16, 1);
     wgmma_commit();
   };
   // s becomes p = exp2(s - lse2), zero outside the window and at or past
   // key_hi; only a tile at the window's edge or past key_hi is masked
   auto probabilities = [&](int it) {
-    const int s0 = kv_lo + it * DQ_BN;
+    const int s0 = kv_lo + it * BN;
     const bool interior =
-        s0 + DQ_BN <= key_hi && (!local || (s0 - off >= t_hi - w2 && s0 - off + DQ_BN - 1 <= t_lo + w2));
+        s0 + BN <= key_hi && (!local || (s0 - off >= t_hi - w2 && s0 - off + BN - 1 <= t_lo + w2));
 #pragma unroll
-    for (int i = 0; i < DQ_BN / 8; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(s[4 * i + e] - lse_r[e >> 1]);
@@ -261,7 +341,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
   // dp becomes ds = p (dp - delta), then its bf16 A fragments
   auto gradients = [&]() {
 #pragma unroll
-    for (int i = 0; i < DQ_BN / 8; ++i) {
+    for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[4 * i + e] = s[4 * i + e] * (dp[4 * i + e] - delta_r[e >> 1]);
     }
@@ -286,10 +366,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
   reg_fence(dp);
   gradients();
 #pragma unroll
-  for (int j = 0; j < DQ_BN / 16; ++j) a_frag(ga[j], dp + 8 * j);
+  for (int j = 0; j < BN / 16; ++j) a_frag(ga[j], dp + 8 * j);
   for (int it = 1; it < n_tiles; ++it) {
-    const int st = it % DQ_NSTAGE, prev = (it - 1) % DQ_NSTAGE;
-    mbar_wait(&full[st], (it / DQ_NSTAGE) & 1);
+    const int st = it % NSTAGE, prev = (it - 1) % NSTAGE;
+    mbar_wait(&full[st], (it / NSTAGE) & 1);
     reg_fence(s);
     reg_fence(dp);
     reg_fence(acc);
@@ -308,19 +388,19 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
     reg_fence(ga);
     release(prev);
 #pragma unroll
-    for (int j = 0; j < DQ_BN / 16; ++j) a_frag(ga[j], dp + 8 * j);
+    for (int j = 0; j < BN / 16; ++j) a_frag(ga[j], dp + 8 * j);
   }
   reg_fence(acc);
   reg_fence(ga);
   wgmma_fence();
-  issue_dq((n_tiles - 1) % DQ_NSTAGE);
+  issue_dq((n_tiles - 1) % NSTAGE);
   wgmma_wait<0>();
   reg_fence(acc);
   reg_fence(ga);
-  release((n_tiles - 1) % DQ_NSTAGE);
+  release((n_tiles - 1) % NSTAGE);
 
   // un-rotate into the raw q's frame (g cos - rot_half(g sin); columns d and
-  // d + 32 sit in the same thread, registers 4j.. and 4(j + 4)..), apply
+  // d + D/2 sit in the same thread, registers 4j.. and 4(j + D/16)..), apply
   // scale, one bf16 store per row; the halo frame's q was rotated by the
   // caller, so its dq stays in that frame
   __nv_bfloat16* dqb = dq + (size_t)b * rows * D;
@@ -356,12 +436,46 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_const
   }
 }
 
+// The block's rows of a dkv sweep: the keys of the block that exist, [k_lo,
+// k_hi], and the rows whose window reaches them, [row_lo, row_hi), from a
+// whole tile on (16-byte aligned for the bulk copies; the rows before the
+// window are masked). n_tiles is 0 for a block with no key inside [lo, hi).
+struct DkvRows {
+  int s_last, k_lo, k_hi, row_lo, row_hi, n_tiles;
+};
+
+__device__ __forceinline__ DkvRows dkv_rows(const KeyFrame& kf, bool local, int w2, int s0, int block_keys, int S,
+                                            int T, int H, int tile) {
+  DkvRows r;
+  r.s_last = min(S, s0 + block_keys) - 1;
+  r.k_lo = max(s0, kf.lo);
+  r.k_hi = min(r.s_last, kf.hi - 1);
+  r.row_lo = local ? max(0, r.k_lo - kf.off - w2) * H / tile * tile : 0;
+  r.row_hi = (local ? min(T, r.k_hi - kf.off + w2 + 1) : T) * H;
+  r.n_tiles = r.k_lo <= r.k_hi ? (r.row_hi - r.row_lo + tile - 1) / tile : 0;
+  return r;
+}
+
+// a halo block with no key inside the song: dk = dv = 0 for its keys, no sweep
+__device__ __forceinline__ void zero_keys(float* dk, float* dv, int b, int s0, int block_keys, int S, int D,
+                                          int threads) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < block_keys * D / 4; i += threads) {
+    const int key = s0 + i / (D / 4);
+    if (key < S) {
+      reinterpret_cast<float4*>(dk + ((size_t)b * S + key) * D)[i % (D / 4)] = zero;
+      reinterpret_cast<float4*>(dv + ((size_t)b * S + key) * D)[i % (D / 4)] = zero;
+    }
+  }
+}
+
 template <bool HALO>
 __global__ void __launch_bounds__(KV_THREADS, KV_BLOCKS_PER_SM)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                      const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
                      const float* __restrict__ lse_g, const float* __restrict__ delta_g, float* __restrict__ dk,
                      float* __restrict__ dv, int T, int S, int H, int pad, int window, KeyFrame frame) {
+  constexpr int D = D64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [KV_BN][D]
@@ -380,26 +494,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_cons
   const int w2 = window / 2;
   const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
   const int off = kf.off, key_lo = kf.lo, key_hi = kf.hi;
-  const int s_last = min(S, s0 + KV_BN) - 1;
-  // the block's keys that exist, [k_lo, k_hi], and the rows whose window
-  // reaches them, from a whole tile on (16-byte aligned for the bulk copies;
-  // the rows before the window are masked)
-  const int k_lo = max(s0, key_lo), k_hi = min(s_last, key_hi - 1);
-  const int row_lo = local ? max(0, k_lo - off - w2) * H / KV_BM * KV_BM : 0;
-  const int row_hi = (local ? min(T, k_hi - off + w2 + 1) : T) * H;
-  const int n_tiles = k_lo <= k_hi ? (row_hi - row_lo + KV_BM - 1) / KV_BM : 0;
+  const DkvRows span = dkv_rows(kf, local, w2, s0, KV_BN, S, T, H, KV_BM);
+  const int s_last = span.s_last, row_lo = span.row_lo, n_tiles = span.n_tiles;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
   if (HALO && n_tiles <= 0) {  // no key of the block inside the song: zeros, and no sweep
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = threadIdx.x; i < KV_BN * D / 4; i += KV_THREADS) {
-      const int key = s0 + i / (D / 4);
-      if (key < S) {
-        reinterpret_cast<float4*>(dk + ((size_t)b * S + key) * D)[i % (D / 4)] = zero;
-        reinterpret_cast<float4*>(dv + ((size_t)b * S + key) * D)[i % (D / 4)] = zero;
-      }
-    }
+    zero_keys(dk, dv, b, s0, KV_BN, S, D, KV_THREADS);
     return;
   }
 
@@ -435,7 +536,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_cons
     return;
   }
 
-  setmaxnreg_inc<CONSUMER_REGS>();
+  setmaxnreg_inc<KV_CONSUMER_REGS>();
   const int g = lane >> 2;  // accumulator row (and row + 8) in the warp's 16
   const int tq = lane & 3;  // accumulator column pair
   const int key_a = s0 + warp * 16 + g;  // this thread's two keys (rows of S^T, dk, dv)
@@ -599,107 +700,382 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_cons
   }
 }
 
+// The dk/dv kernel at D = 128, 192, 256: one block per (batch element, 64
+// keys). Warpgroup 0 computes S^T = K qs^T and P^T = exp2(S^T - lse2), keeps
+// dV += P^T do and passes P^T (fp32) through shared memory; warpgroup 1
+// computes dP^T = V do^T and dS^T = P^T (dP^T - delta) and keeps dK += dS^T
+// qs. A thread of either holds the same (key, row) entries of its 64 x 64
+// product, so P^T crosses as one register a thread.
+template <int D, bool HALO>
+__global__ void __launch_bounds__(DkvSplit<D>::THREADS, 1)
+flash_bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+                           const float* __restrict__ lse_g, const float* __restrict__ delta_g, float* __restrict__ dk,
+                           float* __restrict__ dv, int T, int S, int H, int pad, int window, KeyFrame frame) {
+  using C = DkvSplit<D>;
+  constexpr int BN = C::BN, BM = C::BM, NSTAGE = C::NSTAGE, ATOMS = C::ATOMS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [ATOMS][BN][64]
+  __nv_bfloat16* Vs = Ks + BN * D;                               // [ATOMS][BN][64]
+  __nv_bfloat16* Qs = Vs + BN * D;                               // [NSTAGE][ATOMS][BM][64] qs
+  __nv_bfloat16* Os = Qs + NSTAGE * BM * D;                      // [NSTAGE][ATOMS][BM][64] do
+  float* Pf = reinterpret_cast<float*>(Os + NSTAGE * BM * D);    // [2][BN * BM / 128][128] P^T
+  float* Ls = Pf + 2 * BN * BM;                                  // [NSTAGE][BM] lse
+  float* Es = Ls + NSTAGE * BM;                                  // [NSTAGE][BM] delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(Es + NSTAGE * BM);
+  uint64_t* empty = full + NSTAGE;
+  uint64_t* kv_bar = empty + NSTAGE;
+
+  const int b = blockIdx.y;
+  const int s0 = blockIdx.x * BN;
+  const bool local = window >= 0;
+  const int w2 = window / 2;
+  const KeyFrame kf = HALO ? frame : KeyFrame{0, 0, S};
+  const int off = kf.off, key_lo = kf.lo, key_hi = kf.hi;
+  const DkvRows span = dkv_rows(kf, local, w2, s0, BN, S, T, H, BM);
+  const int s_last = span.s_last, row_lo = span.row_lo, n_tiles = span.n_tiles;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (HALO && n_tiles <= 0) {  // no key of the block inside the song: zeros, and no sweep
+    zero_keys(dk, dv, b, s0, BN, S, D, C::THREADS);
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp of both warpgroups
+    }
+    mbar_init(kv_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup; one thread issues every copy
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {  // keys past S arrive as zeros
+        tma_load_4d(Ks + a * BN * 64, &kmap, kv_bar, 64 * a, 0, s0, b);
+        tma_load_4d(Vs + a * BN * 64, &vmap, kv_bar, 64 * a, 0, s0, b);
+      }
+      const float* lb = lse_g + (size_t)b * pad;
+      const float* eb = delta_g + (size_t)b * pad;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % NSTAGE;
+        const int r0 = row_lo + it * BM;  // a whole tile below pad: rows past T*H arrive as zeros, lse +inf
+        mbar_wait(&empty[st], ((it / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[st], C::STAGE_BYTES);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(Qs + (st * ATOMS + a) * BM * 64, &qmap, &full[st], 64 * a, r0, b);
+          tma_load_3d(Os + (st * ATOMS + a) * BM * 64, &domap, &full[st], 64 * a, r0, b);
+        }
+        bulk_load(Ls + st * BM, lb + r0, BM * 4, &full[st]);
+        bulk_load(Es + st * BM, eb + r0, BM * 4, &full[st]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int wg = warp / 4;  // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK
+  const int wi = warp % 4;
+  const int tid = threadIdx.x % 128;
+  const int g = lane >> 2;  // accumulator row (and row + 8) in the warp's 16
+  const int tq = lane & 3;  // accumulator column pair
+  const int key_a = s0 + wi * 16 + g;  // this thread's two keys (rows of the products, of dk or dv)
+  const int key_b = key_a + 8;
+  const bool in_a = key_a >= key_lo && key_a < key_hi, in_b = key_b >= key_lo && key_b < key_hi;
+  // the timesteps each key is seen from, as in flash_bwd_dkv_kernel
+  const int vis_n = local ? 2 * w2 : INT_MAX;
+  const int vis_a = !in_a ? 1 << 30 : local ? key_a - off - w2 : 0;
+  const int vis_b = !in_b ? 1 << 30 : local ? key_b - off - w2 : 0;
+  const bool keys_inside = s0 >= key_lo && s0 + BN <= key_hi;
+  // descriptor steps: 16 columns of K inside an atom, one atom of the K / V tile and of a row tile, 16 rows
+  constexpr uint64_t K16 = 32 >> 4, KV_ATOM = BN * 128 >> 4, ROW_ATOM = BM * 128 >> 4, STEP16 = 16 * 128 >> 4;
+  const uint64_t adesc = desc_kmajor(wg == 0 ? Ks : Vs);  // A of the first product: K or V
+  const __nv_bfloat16* Xs = wg == 0 ? Qs : Os;  // B of the first product (K-major): qs or do
+  const __nv_bfloat16* Ys = wg == 0 ? Os : Qs;  // B of the kept product (MN-major, N = D): do or qs
+
+  float acc[D / 2];  // warpgroup 0: dV; 1: dK (times ln 2 at the end)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[32];                // S^T, then P^T (warpgroup 0); dP^T, then dS^T (warpgroup 1)
+  uint32_t fr[BM / 16][4];    // P^T or dS^T in bf16, the A operand of the kept product
+
+  // warpgroup 0: S^T = K qs^T; 1: dP^T = V do^T, of the tile in stage st, issued
+  auto issue_first = [&](int st) {
+    const uint64_t xdesc = desc_kmajor(Xs + st * BM * D);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t step = (kk % 4) * K16;
+      wgmma_ss_n64<0, 0>(s, adesc + (kk / 4) * KV_ATOM + step, xdesc + (kk / 4) * ROW_ATOM + step, kk);
+    }
+    wgmma_commit();
+  };
+  // warpgroup 0: dV += P^T do; 1: dK += dS^T qs, with the previous tile's fr and its stage st, issued
+  auto issue_kept = [&](int st) {
+    const uint64_t ydesc = desc_mnmajor(Ys + st * BM * D, BM * 128);
+#pragma unroll
+    for (int j = 0; j < BM / 16; ++j) wgmma_rs<D, 1>(acc, fr[j], ydesc + j * STEP16, 1);
+    wgmma_commit();
+  };
+  // warpgroup 0: s becomes p = exp2(s - lse2) (zero outside the window and
+  // for a key outside [key_lo, key_hi); a pad row has lse = +inf), written to
+  // the tile's P^T buffer; only a tile whose timesteps touch the window's
+  // edge, or a block with such keys, is masked
+  auto probabilities = [&](int it) {
+    const int st = it % NSTAGE;
+    const int r0 = row_lo + it * BM;
+    const int t_a = r0 / H, t_b = (r0 + BM - 1) / H;
+    const bool interior = keys_inside && (!local || (s_last - off - t_a <= w2 && t_b - (s0 - off) <= w2));
+    const float* lt = Ls + st * BM;
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * i + 2 * tq);
+      s[4 * i] = exp2f(s[4 * i] - l2.x);
+      s[4 * i + 1] = exp2f(s[4 * i + 1] - l2.y);
+      s[4 * i + 2] = exp2f(s[4 * i + 2] - l2.x);
+      s[4 * i + 3] = exp2f(s[4 * i + 3] - l2.y);
+      if (!interior) {
+        const int row = r0 + 8 * i + 2 * tq;  // this thread's two columns: rows row, row + 1
+        const int tx = row / H, ty = (row + 1) / H;
+        if ((unsigned)(tx - vis_a) > (unsigned)vis_n) s[4 * i] = 0.f;
+        if ((unsigned)(ty - vis_a) > (unsigned)vis_n) s[4 * i + 1] = 0.f;
+        if ((unsigned)(tx - vis_b) > (unsigned)vis_n) s[4 * i + 2] = 0.f;
+        if ((unsigned)(ty - vis_b) > (unsigned)vis_n) s[4 * i + 3] = 0.f;
+      }
+    }
+    float* pf = Pf + (it & 1) * BN * BM;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pf[i * 128 + tid] = s[i];
+  };
+  // warpgroup 1: dp becomes ds = p (dp - delta), p read from the tile's P^T buffer
+  auto gradients = [&](int it) {
+    const float* pf = Pf + (it & 1) * BN * BM;
+    const float* et = Es + (it % NSTAGE) * BM;
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) {
+      const float2 e2 = *reinterpret_cast<const float2*>(et + 8 * i + 2 * tq);
+      s[4 * i] = pf[(4 * i) * 128 + tid] * (s[4 * i] - e2.x);
+      s[4 * i + 1] = pf[(4 * i + 1) * 128 + tid] * (s[4 * i + 1] - e2.y);
+      s[4 * i + 2] = pf[(4 * i + 2) * 128 + tid] * (s[4 * i + 2] - e2.x);
+      s[4 * i + 3] = pf[(4 * i + 3) * 128 + tid] * (s[4 * i + 3] - e2.y);
+    }
+  };
+  // P^T or dS^T of the tile in hand: warpgroup 0 computes it, shares it and
+  // meets warpgroup 1 at a named barrier, which then reads it. The P^T
+  // buffers alternate by tile: warpgroup 0 writes a buffer again only after
+  // the next tile's barrier, which warpgroup 1 reaches after reading it.
+  auto first_to_fragments = [&](int it) {
+    if (wg == 0) probabilities(it);
+    named_bar_sync(1, 256);  // P^T of tile it is in place
+    if (wg == 1) gradients(it);
+  };
+  auto fragments = [&]() {
+#pragma unroll
+    for (int j = 0; j < BM / 16; ++j) a_frag(fr[j], s + 8 * j);
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  };
+
+  // Software pipeline: each warpgroup issues tile it's first product and tile
+  // it - 1's kept one together, and waits only for the first.
+  mbar_wait(kv_bar, 0);
+  mbar_wait(&full[0], 0);
+  reg_fence(s);
+  wgmma_fence();
+  issue_first(0);
+  wgmma_wait<0>();
+  reg_fence(s);
+  first_to_fragments(0);
+  fragments();
+  for (int it = 1; it < n_tiles; ++it) {
+    const int st = it % NSTAGE, prev = (it - 1) % NSTAGE;
+    mbar_wait(&full[st], (it / NSTAGE) & 1);
+    reg_fence(s);
+    reg_fence(acc);
+    reg_fence(fr);
+    wgmma_fence();
+    issue_first(st);
+    issue_kept(prev);
+    wgmma_wait<1>();  // the first product (committed first) is in
+    reg_fence(s);
+    first_to_fragments(it);
+    wgmma_wait<0>();  // and the previous tile's kept product: its stage and fr are free
+    reg_fence(acc);
+    reg_fence(fr);
+    release(prev);
+    fragments();
+  }
+  reg_fence(acc);
+  reg_fence(fr);
+  wgmma_fence();
+  issue_kept((n_tiles - 1) % NSTAGE);
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(fr);
+  release((n_tiles - 1) % NSTAGE);
+
+  // warpgroup 0 stores dv, 1 dk (times ln 2); a halo key outside the song gets exact zeros
+  const float mul = wg == 0 ? 1.f : LN2;
+  float* dst = (wg == 0 ? dv : dk) + (size_t)b * S * D;
+  auto put = [&](float* p, bool in, float x, float y) {
+    *reinterpret_cast<float2*>(p) = HALO && !in ? make_float2(0.f, 0.f) : make_float2(x * mul, y * mul);
+  };
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * tq;
+    if (key_a < S) put(dst + (size_t)key_a * D + col, in_a, acc[4 * i], acc[4 * i + 1]);
+    if (key_b < S) put(dst + (size_t)key_b * D + col, in_b, acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
 // (D, rows, B) bf16 rows of a t-major (B, rows, D) buffer, boxes of ROW_TILE
-// rows; rows past `rows` arrive as zeros
-int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int B) {
-  const cuuint64_t dims[3] = {D, (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {D, ROW_TILE, 1};
+// rows and 64 of the head dim (one swizzle atom; a tile of D > 64 loads as D
+// / 64 boxes); rows past `rows` arrive as zeros
+int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int B, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, ROW_TILE, 1};
   return make_map_bf16(map, 3, ptr, dims, strides, box);
 }
 
-// The dq kernel of either frame over S keys: tensor maps, shared memory, launch
-template <bool HALO>
+// The dq kernel of head dim D in either frame over S keys: tensor maps, shared memory, launch
+template <int D, bool HALO>
 int launch_dq(const void* k, const void* v, const void* dout, const void* qs_g, const void* lse_g,
               const void* delta_g, const void* cos_t, const void* sin_t, void* dq, int B, int T, int S, int H, int pad,
               int window, float scale, KeyFrame frame, void* stream) {
-  if (pad % DQ_BM != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
+  using C = Dq<D>;
+  if (pad % ROW_PAD != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> smem_set{0};  // devices whose limit is raised
   CUtensorMap kmap, vmap, qmap, domap;
   int dev;
   int err = bind_device(&dev);
-  if (err == 0) err = make_kv_map(&kmap, k, B, S, 1, DQ_BN);
-  if (err == 0) err = make_kv_map(&vmap, v, B, S, 1, DQ_BN);
-  if (err == 0) err = make_rows_map(&qmap, qs_g, T * H, B);
-  if (err == 0) err = make_rows_map(&domap, dout, T * H, B);
-  if (err == 0) err = allow_smem(flash_bwd_dq_kernel<HALO>, DQ_SMEM_BYTES, dev, smem_set);
+  if (err == 0) err = make_kv_map(&kmap, k, B, S, 1, C::BN, D);
+  if (err == 0) err = make_kv_map(&vmap, v, B, S, 1, C::BN, D);
+  if (err == 0) err = make_rows_map(&qmap, qs_g, T * H, B, D);
+  if (err == 0) err = make_rows_map(&domap, dout, T * H, B, D);
+  if (err == 0) err = allow_smem(flash_bwd_dq_kernel<D, HALO>, C::SMEM_BYTES, dev, smem_set);
   if (err != 0) return err;
-  flash_bwd_dq_kernel<HALO><<<dim3(pad / DQ_BM, B), DQ_THREADS, DQ_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_kernel<D, HALO><<<dim3(pad / C::BM, B), C::THREADS, C::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       kmap, vmap, qmap, domap, static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(dq), T, S, H,
       pad, window, scale, frame);
   return (int)cudaGetLastError();
 }
 
-// The dk/dv kernel of either frame over S keys
-template <bool HALO>
+// The dk/dv kernel of head dim D in either frame over S keys
+template <int D, bool HALO>
 int launch_dkv(const void* k, const void* v, const void* dout, const void* qs_g, const void* lse_g,
                const void* delta_g, void* dk, void* dv, int B, int T, int S, int H, int pad, int window, KeyFrame frame,
                void* stream) {
-  if (pad % DQ_BM != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
+  if (pad % ROW_PAD != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> smem_set{0};  // devices whose limit is raised
+  constexpr int block_keys = KV_BN;  // at every D (DkvSplit::BN)
   CUtensorMap kmap, vmap, qmap, domap;
   int dev;
   int err = bind_device(&dev);
-  if (err == 0) err = make_kv_map(&kmap, k, B, S, 1, KV_BN);
-  if (err == 0) err = make_kv_map(&vmap, v, B, S, 1, KV_BN);
-  if (err == 0) err = make_rows_map(&qmap, qs_g, T * H, B);
-  if (err == 0) err = make_rows_map(&domap, dout, T * H, B);
-  if (err == 0) err = allow_smem(flash_bwd_dkv_kernel<HALO>, KV_SMEM_BYTES, dev, smem_set);
+  if (err == 0) err = make_kv_map(&kmap, k, B, S, 1, block_keys, D);
+  if (err == 0) err = make_kv_map(&vmap, v, B, S, 1, block_keys, D);
+  if (err == 0) err = make_rows_map(&qmap, qs_g, T * H, B, D);
+  if (err == 0) err = make_rows_map(&domap, dout, T * H, B, D);
   if (err != 0) return err;
-  flash_bwd_dkv_kernel<HALO><<<dim3((S + KV_BN - 1) / KV_BN, B), KV_THREADS, KV_SMEM_BYTES,
-                               static_cast<cudaStream_t>(stream)>>>(
-      kmap, vmap, qmap, domap, static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-      static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, pad, window, frame);
+  auto start = [&](auto kernel, int threads, int smem_bytes) {
+    const int e = allow_smem(kernel, smem_bytes, dev, smem_set);
+    if (e != 0) return e;
+    kernel<<<dim3((S + block_keys - 1) / block_keys, B), threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+        kmap, vmap, qmap, domap, static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+        static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, pad, window, frame);
+    return 0;
+  };
+  if constexpr (D == 64)
+    err = start(flash_bwd_dkv_kernel<HALO>, KV_THREADS, KV_SMEM_BYTES);
+  else
+    err = start(flash_bwd_dkv_split_kernel<D, HALO>, DkvSplit<D>::THREADS, DkvSplit<D>::SMEM_BYTES);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The instances of head dim D: CALL(D) for D in 64, 128, 192, 256, else
+// cudaErrorInvalidValue.
+#define WINDOWED_HEAD_DIMS(CALL)                 \
+  switch (D) {                                   \
+    case 64: return CALL(64);                    \
+    case 128: return CALL(128);                  \
+    case 192: return CALL(192);                  \
+    case 256: return CALL(256);                  \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+
 // The scratch, allocated by the caller: qs_g (B, T*H, D) bf16, lse_g and
-// delta_g (B, pad) fp32, pad = T*H rounded up to a multiple of DQ_BM (128).
+// delta_g (B, pad) fp32, pad = T*H rounded up to a multiple of ROW_PAD (128).
 // With null tables (the halo pair: q arrives rotated) q is only scaled.
-extern "C" int flash_bwd_windowed_prep_bf16(const void* q, const void* dout, const void* o, const void* lse,
+extern "C" int flash_bwd_windowed_prep_bf16(int D, const void* q, const void* dout, const void* o, const void* lse,
                                             const void* cos_t, const void* sin_t, void* qs_g, void* lse_g,
                                             void* delta_g, int B, int T, int H, int pad, float scale, void* stream) {
-  if (pad % DQ_BM != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
-  auto prep = cos_t != nullptr ? flash_bwd_prep_kernel<true> : flash_bwd_prep_kernel<false>;
-  prep<<<dim3(pad * 4 / 256, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(qs_g), nullptr, static_cast<float*>(lse_g),
-      static_cast<float*>(delta_g), nullptr, T, H, 1, pad, scale * LOG2E);
-  return (int)cudaGetLastError();
+  if (pad % ROW_PAD != 0 || pad < T * H) return (int)cudaErrorInvalidValue;
+#define CALL(DD)                                                                                                       \
+  [&] {                                                                                                                \
+    auto prep = cos_t != nullptr ? flash_bwd_prep_kernel<DD, true> : flash_bwd_prep_kernel<DD, false>;                 \
+    prep<<<dim3(pad * 4 / 256, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(                                      \
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),                                 \
+        static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),        \
+        static_cast<const float*>(sin_t), static_cast<__nv_bfloat16*>(qs_g), nullptr, static_cast<float*>(lse_g),      \
+        static_cast<float*>(delta_g), nullptr, T, H, 1, pad, scale * LOG2E);                                           \
+    return (int)cudaGetLastError();                                                                                    \
+  }()
+  WINDOWED_HEAD_DIMS(CALL)
+#undef CALL
 }
 
-extern "C" int flash_bwd_dq_bf16(const void* k, const void* v, const void* dout, const void* qs_g,
+extern "C" int flash_bwd_dq_bf16(int D, const void* k, const void* v, const void* dout, const void* qs_g,
                                  const void* lse_g, const void* delta_g, const void* cos_t, const void* sin_t,
                                  void* dq, int B, int T, int S, int H, int pad, int window, float scale,
                                  void* stream) {
-  return launch_dq<false>(k, v, dout, qs_g, lse_g, delta_g, cos_t, sin_t, dq, B, T, S, H, pad, window, scale,
-                          KeyFrame{0, 0, S}, stream);
+#define CALL(DD) \
+  launch_dq<DD, false>(k, v, dout, qs_g, lse_g, delta_g, cos_t, sin_t, dq, B, T, S, H, pad, window, scale, \
+                       KeyFrame{0, 0, S}, stream)
+  WINDOWED_HEAD_DIMS(CALL)
+#undef CALL
 }
 
-extern "C" int flash_bwd_dkv_bf16(const void* k, const void* v, const void* dout, const void* qs_g,
+extern "C" int flash_bwd_dkv_bf16(int D, const void* k, const void* v, const void* dout, const void* qs_g,
                                   const void* lse_g, const void* delta_g, void* dk, void* dv, int B, int T, int S,
                                   int H, int pad, int window, void* stream) {
-  return launch_dkv<false>(k, v, dout, qs_g, lse_g, delta_g, dk, dv, B, T, S, H, pad, window, KeyFrame{0, 0, S},
-                           stream);
+#define CALL(DD) \
+  launch_dkv<DD, false>(k, v, dout, qs_g, lse_g, delta_g, dk, dv, B, T, S, H, pad, window, KeyFrame{0, 0, S}, stream)
+  WINDOWED_HEAD_DIMS(CALL)
+#undef CALL
 }
 
 // The halo pair, on the scratch of the pre-pass without tables: k and v are
 // the slab (B, T + window, D); window even, the shard [g0, g0 + T) inside a
 // song of t_global frames (checked by the wrapper).
-extern "C" int halo_bwd_dq_bf16(const void* k, const void* v, const void* dout, const void* qs_g, const void* lse_g,
-                                const void* delta_g, void* dq, int B, int T, int H, int pad, int window, int g0,
-                                int t_global, float scale, void* stream) {
-  return launch_dq<true>(k, v, dout, qs_g, lse_g, delta_g, nullptr, nullptr, dq, B, T, T + window, H, pad, window,
-                         scale, halo_frame(T, window, g0, t_global), stream);
+extern "C" int halo_bwd_dq_bf16(int D, const void* k, const void* v, const void* dout, const void* qs_g,
+                                const void* lse_g, const void* delta_g, void* dq, int B, int T, int H, int pad,
+                                int window, int g0, int t_global, float scale, void* stream) {
+#define CALL(DD)                                                                                               \
+  launch_dq<DD, true>(k, v, dout, qs_g, lse_g, delta_g, nullptr, nullptr, dq, B, T, T + window, H, pad, window, \
+                      scale, halo_frame(T, window, g0, t_global), stream)
+  WINDOWED_HEAD_DIMS(CALL)
+#undef CALL
 }
 
-extern "C" int halo_bwd_dkv_bf16(const void* k, const void* v, const void* dout, const void* qs_g,
+extern "C" int halo_bwd_dkv_bf16(int D, const void* k, const void* v, const void* dout, const void* qs_g,
                                  const void* lse_g, const void* delta_g, void* dk, void* dv, int B, int T, int H,
                                  int pad, int window, int g0, int t_global, void* stream) {
-  return launch_dkv<true>(k, v, dout, qs_g, lse_g, delta_g, dk, dv, B, T, T + window, H, pad, window,
-                          halo_frame(T, window, g0, t_global), stream);
+#define CALL(DD)                                                                                      \
+  launch_dkv<DD, true>(k, v, dout, qs_g, lse_g, delta_g, dk, dv, B, T, T + window, H, pad, window, \
+                       halo_frame(T, window, g0, t_global), stream)
+  WINDOWED_HEAD_DIMS(CALL)
+#undef CALL
 }

@@ -44,13 +44,14 @@ parallelism (``ops/halo_attention.py``) are the same bodies in the halo frame
 instance, the backward the windowed pair's, behind the same pre-pass.
 
 Those kernels take bf16 operands. The forward (K1, ``flash_fwd``, and its
-halo instance) and the global backward's sweep (K2, ``flash_bwd`` and the
-ring's ``flash_bwd_sweep``) are templated on the head dim and take D = 64,
-128, 192 and 256; at D > 64 the global backward runs the sweep between the
-forms family's D-generic pre-pass and post-pass (same scratch, dq buffer
-zeroed by the pre-pass). The windowed pair, its halo instances and the ring's merge
-take D = 64. Every other form (fp32 and fp16 operands, bf16 at D > 256, and
-bf16 at D > 64 for the windowed pair, the merge and the global backward's
+halo instance), the global backward's sweep (K2, ``flash_bwd`` and the
+ring's ``flash_bwd_sweep``) and the windowed pair with its pre-pass (K3a /
+K3b, ``flash_bwd_dq`` / ``flash_bwd_dkv``, and its halo instances) are
+templated on the head dim and take D = 64, 128, 192 and 256; at D > 64 the
+global backward runs the sweep between the forms family's D-generic
+pre-pass and post-pass (same scratch, dq buffer zeroed by the pre-pass). The
+ring's merge takes D = 64. Every other form (fp32 and fp16 operands, bf16 at
+D > 256, and bf16 at D > 64 for the merge and the global backward's
 pre-pass and post-pass: ``flash_forms.kernel_form``) goes to the forms family
 (``ops/flash_forms.py``, ``csrc/flash_forms.cu``): each wrapper here chooses
 the entry point by the operands' (dtype, D) through
@@ -80,7 +81,8 @@ import torch
 from osufusion_tpu_torch.ops import flash_forms as forms
 from osufusion_tpu_torch.ops.rope import apply_rope, unapply_rope
 
-HEAD_DIM = 64  # the head dim of every wgmma kernel; K1 and K2's sweep also take flash_forms.WGMMA_HEAD_DIMS
+# the head dim of every wgmma kernel; K1, K2's sweep and the windowed pair also take flash_forms.WGMMA_HEAD_DIMS
+HEAD_DIM = 64
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -92,8 +94,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
 # its group-major scratch is padded to a multiple of it
 BWD_ROW_TILE = 64
-# rows per block of the windowed dq kernel (csrc/flash_bwd_windowed.cu,
-# DQ_BM): the windowed pre-pass pads its LSE and delta to a multiple of it
+# the windowed pre-pass pads its LSE and delta to a multiple of this many rows
+# (csrc/flash_bwd_windowed.cu, ROW_PAD): a whole number of the dq kernel's
+# blocks at every head dim (128 rows a block, 64 at D = 256)
 WINDOWED_ROW_PAD = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -149,18 +152,18 @@ _ENTRY_POINTS = {
     "flash_bwd_post_bf16": ("flash_bwd", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # o_acc lse_acc o_j lse_j lse_out o | rows | stream
     "ring_merge_bf16": ("ring_merge", [_PTR] * 6 + [_INT, _PTR]),
-    # q do o lse cos sin | qs_g lse_g delta_g | B T H pad | scale | stream
-    "flash_bwd_windowed_prep_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
-    # k v do qs_g lse_g delta_g cos sin dq | B T S H pad window | scale | stream
-    "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    # k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
-    "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
+    # D | q do o lse cos sin | qs_g lse_g delta_g | B T H pad | scale | stream
+    "flash_bwd_windowed_prep_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    # D | k v do qs_g lse_g delta_g cos sin dq | B T S H pad window | scale | stream
+    "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # D | k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
+    "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # D | q k v o lse | B T H window g0 t_global | scale | stream
     "halo_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    # k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
-    "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
-    # k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
-    "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_PTR] * 8 + [_INT] * 7 + [_PTR]),
+    # D | k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
+    "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
+    # D | k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
+    "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
     # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
     # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
     "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
@@ -591,15 +594,15 @@ def _windowed_pad(rows: int) -> int:
     return -(-rows // WINDOWED_ROW_PAD) * WINDOWED_ROW_PAD
 
 
-def _check_prep(who: str, prep: WindowedPrep, device, B: int, rows: int) -> None:
+def _check_prep(who: str, prep: WindowedPrep, device, B: int, rows: int, D: int) -> None:
     """The pre-pass scratch as the dk/dv kernels take it: qs (B, rows, D)
     bf16, lse and delta (B, rows padded to ``WINDOWED_ROW_PAD``) fp32, all
     contiguous on ``device``."""
     pad = _windowed_pad(rows)
-    shapes = ((prep.qs, (B, rows, HEAD_DIM)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
+    shapes = ((prep.qs, (B, rows, D)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
     if any(t.shape != shape for t, shape in shapes):
         raise ValueError(f"{who} shapes: qs {tuple(prep.qs.shape)} lse {tuple(prep.lse.shape)} delta "
-                         f"{tuple(prep.delta.shape)}; want qs {(B, rows, HEAD_DIM)}, lse and delta {(B, pad)}")
+                         f"{tuple(prep.delta.shape)}; want qs {(B, rows, D)}, lse and delta {(B, pad)}")
     _check_operands(who, device, (("qs", prep.qs, torch.bfloat16), ("lse", prep.lse, torch.float32),
                                   ("delta", prep.delta, torch.float32)))
 
@@ -613,17 +616,18 @@ def windowed_prep(
     sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ) -> WindowedPrep:
-    """Launch the windowed pair's pre-pass on the current stream (the first
-    launch of ``flash_bwd_dq``, and without tables of ``halo_bwd_dq``): one
-    sweep over the rows that writes qs once, delta = rowsum(do * o) and the
-    padded LSE. Operands as those wrappers take them, checked there."""
+    """Launch the windowed pair's pre-pass of q's head dim on the current
+    stream (the first launch of ``flash_bwd_dq``, and without tables of
+    ``halo_bwd_dq``): one sweep over the rows that writes qs once, delta =
+    rowsum(do * o) and the padded LSE; no fp32 dq buffer. Operands as those
+    wrappers take them, checked there."""
     B, T, H, D = q.shape
     pad = _windowed_pad(T * H)
     prep = WindowedPrep(torch.empty((B, T * H, D), dtype=torch.bfloat16, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device))
     err = _kernel("flash_bwd_windowed_prep_bf16")(
-        q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin),
+        D, q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin),
         prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         B, T, H, pad, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -643,9 +647,10 @@ def flash_bwd_dq(
     window: int,  # -1 = global
     scale: float,
 ):
-    """Launch the windowed pre-pass and the dq kernel of q's form on the
-    current stream. Returns (dq, prep): dq (B, T, H, D) in q's dtype and the
-    raw q's frame, written once per row (the same bits from run to run), and
+    """Launch the windowed pre-pass and the dq kernel of q's form (K3a at bf16
+    with D = 64, 128, 192 or 256) on the current stream. Returns (dq, prep):
+    dq (B, T, H, D) in q's dtype and the raw q's frame, written once per row
+    (the same bits from run to run), and
     the pre-pass's scratch, which ``flash_bwd_dkv`` takes (``WindowedPrep``:
     qs, the padded LSE, delta; the forms family's pre-pass, dq kernel and
     post-pass leave a ``GlobalPrep``). Counts the wgmma dq kernel's launches
@@ -660,8 +665,8 @@ def flash_bwd_dq(
     prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
     err = _kernel("flash_bwd_dq_bf16")(
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), dq.data_ptr(),
+        q.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
+        prep.delta.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(),
         B, T, T, H, prep.lse.shape[1], window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_bwd_dq", err)
@@ -699,9 +704,9 @@ def flash_bwd_dkv(
         forms.check_prep(who, prep, B, T, H, 1)
         forms.forms_bwd_dkv(k, v, prep, dk, dv, window, None, accumulate=False)
         return dk, dv
-    _check_prep(who, prep, do.device, B, T * H)
+    _check_prep(who, prep, do.device, B, T * H, D)
     err = _kernel("flash_bwd_dkv_bf16")(
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        D, k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, T, H, prep.lse.shape[1], window,
         torch.cuda.current_stream(do.device).cuda_stream,
     )

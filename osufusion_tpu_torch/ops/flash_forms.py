@@ -10,14 +10,16 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
 * ``"hopper"``: the wgmma kernels. bf16 operands with D = 64 at every wrapper;
   with D = 128, 192 or 256 at the wrappers of ``WIDE_WGMMA``, whose kernels
   are templated on D: the forward K1 (``csrc/flash_fwd.cu``: ``flash_fwd``,
-  ``halo_fwd`` and the ring's hops) and the global backward's sweep K2
-  (``csrc/flash_bwd.cu``: ``flash_bwd`` and the ring's ``flash_bwd_sweep``);
+  ``halo_fwd`` and the ring's hops), the global backward's sweep K2
+  (``csrc/flash_bwd.cu``: ``flash_bwd`` and the ring's ``flash_bwd_sweep``)
+  and the windowed pair with its pre-pass, K3a / K3b and their halo
+  instances K5a / K5b (``csrc/flash_bwd_windowed.cu``: ``flash_bwd_dq`` /
+  ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``);
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
   fp32 and fp16 operands at D in ``FORMS_HEAD_DIMS``, and bf16 at D > 64 at
-  the windowed pair (``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` /
-  ``halo_bwd_dkv``), the ring's merge, and the global backward's pre-pass
-  and post-pass (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at D
-  > 64 runs K2's sweep between these two);
+  the ring's merge and the global backward's pre-pass and post-pass
+  (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at D > 64 runs K2's
+  sweep between these two);
 * ``"chunked"``: the forms family's chunked instance, for any operand dtype
   at a head dim above 256 that is a multiple of 64 (the forward, dq and dk/dv
   staged 64 columns of the head dim at a time);
@@ -48,10 +50,12 @@ from osufusion_tpu_torch.ops import flash_attention as fa
 # the head dims of the forms instances (csrc/flash_forms.cu's FORMS_DISPATCH); a multiple of 64 above them
 # runs the chunked instance
 FORMS_HEAD_DIMS = (64, 128, 192, 256)
-# the head dims of K1 and K2's sweep (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+# the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
+# csrc/flash_bwd_windowed.cu)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 # the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS; every other wrapper's takes 64
-WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"})
+WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
+                        "halo_bwd_dq", "halo_bwd_dkv"})
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -28,9 +28,9 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
 see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``. Those take bf16
-operands, the forward at D = 64, 128, 192 and 256 (K1's HALO instances), the
-backward pair at D = 64; every other form that a kernel takes runs the forms
-family's kernels in the same frame (``ops/flash_forms.py``,
+operands at D = 64, 128, 192 and 256 (K1's HALO instances, and the windowed
+pair's with its pre-pass); every other form that a kernel takes runs the
+forms family's kernels in the same frame (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
 D).
 """
@@ -182,8 +182,8 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
     err = _kernel("halo_bwd_dq_bf16")(
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
-        dq.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, scale, _stream(q))
+        q.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
+        prep.delta.data_ptr(), dq.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, scale, _stream(q))
     _check_launch("halo_bwd_dq", err)
     halo_bwd_dq.launches += 1
     return dq, prep
@@ -206,10 +206,11 @@ def halo_bwd_dkv(k, v, do, prep, window: int, g0: int, t_global: int):
         forms.check_prep("halo_bwd_dkv", prep, B, T, H, 1)
         forms.forms_bwd_dkv(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
         return dk, dv
-    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H)
+    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H, do.shape[-1])
     err = _kernel("halo_bwd_dkv_bf16")(
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, _stream(do))
+        do.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
+        prep.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global,
+        _stream(do))
     _check_launch("halo_bwd_dkv", err)
     halo_bwd_dkv.launches += 1
     return dk, dv

@@ -67,10 +67,11 @@ def test_attention_form_table(dtype, D):
     multiple of 64, XLA at every other head dim; on the card the port runs
     the XLA route where D % 64 != 0 and a kernel everywhere else, nothing
     raising: per wrapper, the wgmma kernels at bf16 with D = 64, and with D =
-    128, 192, 256 for the forward and the global backward's sweep (K1, K2);
-    the forms kernels at fp32 and fp16, and at bf16 with D > 64 for the
-    windowed pair, the ring's merge and the global backward's pre-pass and
-    post-pass; the chunked forms instance at every dtype above D = 256."""
+    128, 192, 256 for the forward, the global backward's sweep and the
+    windowed pair with its halo instances (K1, K2, K3a / K3b, K5a / K5b); the
+    forms kernels at fp32 and fp16, and at bf16 with D > 64 for the ring's
+    merge and the global backward's pre-pass and post-pass; the chunked forms
+    instance at every dtype above D = 256."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
     for who in WRAPPERS:
         if D % 64:
@@ -79,7 +80,12 @@ def test_attention_form_table(dtype, D):
         else:
             assert kernel_form(who, dtype, D) == _expected_form(who, dtype, D), who
     assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
-    assert WIDE_WGMMA == {"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"}
+    assert WIDE_WGMMA == {"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
+                          "halo_bwd_dq", "halo_bwd_dkv"}
+    # no wrapper at bf16 with D <= 256 is left on the forms bodies but the merge and the global pre- and post-pass
+    if dtype == torch.bfloat16 and D in (128, 192, 256):
+        assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "forms"} == {
+            "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
 
 
 def _qkv(T, H, D, seed):
@@ -189,9 +195,11 @@ def test_seq_parallel_available_keeps_the_jax_rule_at_wider_heads(t, window, d, 
 
 
 # (dtype, D, window): the forms kernels' fp16 instance at D = 64 and their chunked instance (D > 256) in fp32
-# and bf16, each windowed and global
+# and bf16, and the windowed pair's bf16 instances at D = 192 and 256 (K3a / K3b), each windowed and global
 WIDE_CASES = [(torch.float16, 64, 64), (torch.float16, 64, None), (torch.float32, 320, 64),
-              (torch.float32, 320, None), (torch.bfloat16, 320, 64), (torch.bfloat16, 320, None)]
+              (torch.float32, 320, None), (torch.bfloat16, 320, 64), (torch.bfloat16, 320, None),
+              (torch.bfloat16, 192, 64), (torch.bfloat16, 192, None), (torch.bfloat16, 256, 64),
+              (torch.bfloat16, 256, None)]
 _JNP = {torch.float16: jnp.float16, torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # Against Pallas in the operands' dtype. fp32 as ATOL / RTOL. fp16 and bf16: the Pallas kernel rounds P to
 # the operands' dtype before P V (and dS before its products), where the plain version keeps fp32, and its
@@ -208,7 +216,8 @@ def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D,
     operands in ``dtype`` at head dim ``D``, computed in fp32, against the JAX
     package's ``pa.flash_attention`` and its vjp on the same operands in that
     dtype, in interpret mode: the functions that the forms kernels' fp16 and
-    chunked instances hold on the card."""
+    chunked instances, and the windowed pair's bf16 instances at D = 192 and
+    256, hold on the card."""
     T, H = 128, 2
     atol, rtol = WIDE_TOLS[dtype]
     rounded = [torch.from_numpy(x).to(dtype) for x in _qkv(T, H, D, seed=D + (window or 0))]

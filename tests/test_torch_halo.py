@@ -37,11 +37,11 @@ CASES = [(w, s) for w in (128, 256) for s in (0, 1, SHARDS - 1)]
 IDS = [f"W{w}-shard{s}" for w, s in CASES]
 
 
-def _inputs(window, seed):
+def _inputs(window, seed, d=D):
     """q (rotated), a slab k / v with random values in the rows outside the
-    song too (both packages must ignore them), and do."""
+    song too (both packages must ignore them), and do, at head dim ``d``."""
     rng = np.random.default_rng(seed)
-    shapes = ((1, T_LOCAL, H, D), (1, T_LOCAL + window, D), (1, T_LOCAL + window, D), (1, T_LOCAL, H, D))
+    shapes = ((1, T_LOCAL, H, d), (1, T_LOCAL + window, d), (1, T_LOCAL + window, d), (1, T_LOCAL, H, d))
     return tuple(rng.standard_normal(s).astype(np.float32) for s in shapes)
 
 
@@ -57,9 +57,8 @@ def _plain(q, k, v, do, window, g0, t_global=T_SONG):
     return o, lse, dq, dk, dv
 
 
-@pytest.mark.parametrize("window,shard", CASES, ids=IDS)
-def test_halo_plain_versions_match_jax_kernels(window, shard):
-    q, k, v, do = _inputs(window, seed=window + shard)
+def _check_against_jax(window, shard, d):
+    q, k, v, do = _inputs(window, seed=window + shard, d=d)
     g0 = shard * T_LOCAL
     o, _, dq, dk, dv = _plain(q, k, v, do, window, g0)
     with pltpu.force_tpu_interpret_mode():
@@ -69,6 +68,18 @@ def test_halo_plain_versions_match_jax_kernels(window, shard):
     np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=FWD_TOL, rtol=FWD_TOL)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("window,shard", CASES, ids=IDS)
+def test_halo_plain_versions_match_jax_kernels(window, shard):
+    _check_against_jax(window, shard, D)
+
+
+@pytest.mark.parametrize("window,shard", CASES, ids=IDS)
+def test_halo_plain_versions_match_jax_kernels_at_head_dim_128(window, shard):
+    """The same at D = 128, the head dim whose halo backward runs K5a / K5b's
+    instances at 128 on the card (and the halo forward K1's)."""
+    _check_against_jax(window, shard, 128)
 
 
 @pytest.mark.parametrize("shards", [2, 4])

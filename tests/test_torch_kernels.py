@@ -2,7 +2,8 @@
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
 the forms family's instances at fp32, bf16 and fp16 with D = 64 ... 256 and
-its chunked instance above, K1 and K2's instances at D = 128, 192 and 256, and
+its chunked instance above, the instances of K1, K2, the windowed pair and
+its halo frame at D = 128, 192 and 256, and
 the differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
@@ -848,7 +849,7 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     autograd through the plain attention in fp32. fp32: the forms kernels and
     none of the wgmma ones, forward and backward. bf16/128: K1 forward; a
     global site K2's sweep between the forms pre-pass and post-pass, a
-    windowed one the forms dq / dk-dv pair."""
+    windowed one the wgmma dq / dk-dv pair (K3a / K3b at D = 128)."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
     B, T, H = 2, 384, 4
@@ -867,8 +868,8 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
         assert kernels == [0] * 11 and formed == [runs] * 5 + [0]
     elif window is None:  # K1 and K2 (flash_bwd), the forms pre-pass and post-pass around the sweep
         assert kernels == [1, 1] + [0] * 9 and formed == [0, 1, 0, 0, 1, 0]
-    else:  # K1 per KV head, then the forms pair
-        assert kernels == [runs] + [0] * 10 and formed == [0] + [runs] * 4 + [0]
+    else:  # K1 per KV head, then the wgmma pair
+        assert kernels == [runs, 0, runs, runs] + [0] * 7 and formed == [0] * 6
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, (cos, sin))
     ref.backward(do.float())
@@ -925,8 +926,9 @@ def test_wide_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables):
     plain fp32 versions on the same bf16 inputs with the D = 64 kernels'
     bounds, and planted faults (the forward without its last KV tile; the
     backward from an LSE off by 0.05) above them. The forward launches K1,
-    the global backward K2's sweep (``flash_bwd``), the windowed one the
-    forms pair; no forms forward runs."""
+    the global backward K2's sweep (``flash_bwd``, between the forms
+    pre-pass and post-pass), the windowed one the wgmma pair K3a / K3b; no
+    forms forward, dq or dk/dv runs."""
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.bfloat16, tables, cuda, seed=D + T)
     scale = D**-0.5
     before = _kernel_launches(), _forms_launches()
@@ -939,8 +941,9 @@ def test_wide_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables):
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
-    assert kernels[0] == 1 and kernels[1] == (window < 0) and sum(kernels[2:]) == 0, kernels
-    assert formed == ([0, 1, 0, 0, 1, 0] if window < 0 else [0, 1, 1, 1, 1, 0]), formed
+    windowed = window >= 0
+    assert kernels == [1, int(not windowed), int(windowed), int(windowed)] + [0] * 7, kernels
+    assert formed == ([0, 1, 0, 0, 1, 0] if window < 0 else [0] * 6), formed
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     cut = slice(0, T - 64 if window < 0 else T)
     o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, cut], v[:, cut], cos, sin, window if window < 0 else window - 32)[0]
@@ -1028,11 +1031,12 @@ def test_wide_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope)
 
 
 @pytest.mark.cuda
-def test_wide_whole_song_gradient_through_k1_and_the_forms_pair(cuda):
+def test_wide_whole_song_gradient_through_k1_and_the_wgmma_pair(cuda):
     """A whole-song site at bf16 and D = 128 under a gradient (windowed, MQA
-    with tables, 16384 frames): K1 forward with its LSE feeding the forms dq
-    and dk/dv kernels (through their pre-pass, which reads K1's LSE), against
-    autograd through the plain attention in fp32."""
+    with tables, 16384 frames): K1 forward with its LSE feeding the wgmma dq
+    and dk/dv kernels (K3a / K3b at D = 128, through their pre-pass, which
+    reads K1's LSE), no forms kernel, against autograd through the plain
+    attention in fp32."""
     B, T, H, D, W = 1, 16384, 4, 128, 1024
     q, k, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.bfloat16, False, cuda, seed=11)
     k, v = k[:, :, None], v[:, :, None]
@@ -1043,11 +1047,101 @@ def test_wide_whole_song_gradient_through_k1_and_the_forms_pair(cuda):
     out.backward(do)
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
-    assert kernels == [1] + [0] * 10, kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 1, 1, 1, 0]
+    assert kernels == [1, 0, 1, 1] + [0] * 7, kernels
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0] * 6
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, W, rope)
     ref.backward(do.float())
     assert _rel(out, ref) < REL_TOL
     for name, a, b in zip("qkv", leaves, ref_leaves):
         assert torch.isfinite(a.grad).all() and _rel(a.grad, b.grad) < REL_TOL, f"d{name}: {_rel(a.grad, b.grad)}"
+
+
+# (B, T, H, window): the whole song's two narrowest levels at B = 1, H = 16 (the dk/dv kernel's fewest blocks),
+# and lengths, head counts and windows that no tile divides (ragged last row block and key block, a window
+# wider than the song, one row block of T * H < 128)
+WIDE_WINDOWED_SHAPES = [(1, 16384, 16, 1024), (1, 8192, 16, 512), (1, 333, 5, 100), (2, 130, 3, 512),
+                        (1, 4097, 7, 256), (2, 1000, 4, -1)]
+WIDE_WINDOWED_IDS = ["T16384-W1024", "T8192-W512", "T333-W100", "T130-W512", "T4097-W256", "T1000-global"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,window", WIDE_WINDOWED_SHAPES, ids=WIDE_WINDOWED_IDS)
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_windowed_pair_matches_plain(cuda, D, B, T, H, window):
+    """K3a (with its pre-pass) and K3b at head dim D through their wrappers:
+    one launch each and no forms kernel; the pre-pass's qs with the
+    forward's bits, the LSE and delta padded; dq, dk and dv against the plain
+    fp32 versions with the D = 64 kernels' bound, the song's first and last
+    row and key blocks on their own; a planted fault (an LSE off by 0.05)
+    above it; and every bit repeated by a second launch (no atomics)."""
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.bfloat16, True, cuda, seed=D + T + H)
+    scale = D**-0.5
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    before = _kernel_launches(), _forms_launches()
+    dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+    dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, window)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    assert kernels == [0, 0, 1, 1] + [0] * 7 and _forms_launches() == before[1], kernels
+    rows, pad = T * H, prep.lse.shape[1]
+    assert pad % 128 == 0 and pad - 128 < rows <= pad
+    # the kernels scale by scale * log2(e) rounded to fp32 from scale in fp32 (exact at D = 64 only)
+    qscale = float(np.float32(np.float32(scale) * np.float32(fa.LOG2E)))
+    assert torch.equal(prep.qs, (apply_rope(q.float(), cos, sin) * qscale).to(torch.bfloat16).reshape(B, rows, D))
+    assert torch.equal(prep.lse[:, :rows], lse) and bool((prep.lse[:, rows:] == torch.inf).all())
+    assert not prep.delta[:, rows:].any()
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse), plain(lse + 0.05)
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
+    for name, got, ref, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+        assert torch.isfinite(got).all() and _rel(got, ref) < REL_TOL < _rel(fault, ref), \
+            f"{name}: rel L2 {_rel(got, ref)}, planted fault {_rel(fault, ref)}"
+        for edge in (slice(0, 128), slice(max(0, T - 128), T)):
+            assert _rel(got[:, edge], ref[:, edge]) < REL_TOL, f"{name} at {edge}: rel L2 {_rel(got[:, edge], ref[:, edge])}"
+    dq2, prep2 = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+    again = (dq2, *fa.flash_bwd_dkv(k_rot, v, do, prep2, window))
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 1, 3], ids=["first", "interior", "last"])
+def test_wide_halo_pair_matches_plain(cuda, shard):
+    """K5a and K5b (the halo instances of the windowed pair) at D = 128 over
+    four shards of a song: the slab rows outside the song hold large values
+    that the kernels must ignore, and their dk and dv are exact zeros; one
+    launch of each wgmma kernel and no forms kernel; the window one key short
+    lies above the bound; a second launch repeats every bit."""
+    B, T, H, W, n, D = 1, 1024, 4, 256, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    scale = D**-0.5
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+    before = _kernel_launches(), _forms_launches()
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    assert kernels == [0] * 9 + [1, 1] and _forms_launches() == before[1], kernels
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o, lse, do, W, g0, t_global),
+            *ha.halo_bwd_dkv_reference(q, k, v, o, lse, do, W, g0, t_global))
+    # planted fault: the window one key short on each side (the slab without its first and last row)
+    fault = ha.halo_bwd_dq_reference(q, k[:, 1:-1], v[:, 1:-1], o, lse, do, W - 2, g0, t_global)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(a).all() and _rel(a, b) < REL_TOL, f"{name}: rel L2 {_rel(a, b)}"
+    assert _rel(fault, refs[0]) > REL_TOL, f"planted fault {_rel(fault, refs[0])}"
+    outside = torch.ones(T + W, dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert (dk[:, outside] == 0).all() and (dv[:, outside] == 0).all()
+    again = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    assert torch.equal(again[0], dq) and all(torch.equal(a, b) for a, b in
+                                             zip(ha.halo_bwd_dkv(k, v, do, again[1], W, g0, t_global), (dk, dv)))
+

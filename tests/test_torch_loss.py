@@ -140,6 +140,44 @@ def test_loss_and_gradients_at_a_windowed_length_match_jax(setup):
         np.testing.assert_allclose(grads[name], value, rtol=GRAD_RTOL, atol=GRAD_ATOL * max(1.0, scale), err_msg=name)
 
 
+def test_loss_and_gradients_at_head_dim_128_and_a_windowed_length_match_jax():
+    """The tiny UNet with ``attn_dim_head=128`` (the head dim of the whole-song
+    bf16/128 path, whose windowed sites run K3a / K3b's instances at 128 on
+    the card) at four times its attention context, so every trunk site is
+    windowed: the port's loss and every gradient leaf in fp32, through the
+    plain windowed versions at D = 128, against the JAX package's with the
+    same weights (``utils/convert.py``'s names) and draws, with the
+    tolerances of the D = 64 tests above."""
+    cfg = dict(TINY, attn_dim_head=128)
+    n = 4 * cfg["attn_context_len"]
+    jmodel = jax_build_model(JModelConfig(**cfg), JDiffusionConfig())
+    args = (jnp.zeros((1, 32, 6)), jnp.zeros((1, 32, 96)), jnp.zeros((1,)), jnp.zeros((1, 5)), jnp.ones((1,), bool))
+    variables = random_variables(jmodel.unet, *args, seed=12)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((1, 6, n)).astype(np.float32)
+    a = rng.normal(-10.0, 3.0, (1, 96, n)).astype(np.float32)
+    c = rng.uniform(-1, 1, (1, 5)).astype(np.float32)
+    orig_len = np.array([n - 21], np.int32)
+    key = jax.random.PRNGKey(9)
+    k_noise, k_t, k_drop = jax.random.split(key, 3)
+    noise = np.asarray(jax.random.normal(k_noise, (1, n, 6), jnp.float32)).transpose(0, 2, 1)
+    draws = (torch.from_numpy(noise.copy()), torch.from_numpy(np.array(jax.random.randint(k_t, (1,), 0, 1000))),
+             torch.from_numpy(np.array(jax.random.bernoulli(k_drop, 0.5, (1,)))))
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jmodel.loss))(
+        variables, key, jnp.asarray(x), jnp.asarray(a), jnp.asarray(c), jnp.asarray(orig_len))
+    model = build_model(ModelConfig(**cfg), DiffusionConfig())
+    params = load_jax_params(UNet(model.model_cfg), variables).train()
+    loss = model.loss_from_draws(params, *(torch.from_numpy(v) for v in (x, a, c)), torch.from_numpy(orig_len), *draws)
+    loss.backward()
+    grads = jax_flat_from_state_dict({name: p.grad for name, p in params.named_parameters()})
+    assert loss.item() == pytest.approx(float(want_loss), rel=LOSS_TOL)
+    want_flat = flatten_params(want_grads)
+    assert set(grads) == set(want_flat)
+    scale = max(np.abs(v).max() for v in want_flat.values())
+    for name, value in want_flat.items():
+        np.testing.assert_allclose(grads[name], value, rtol=GRAD_RTOL, atol=GRAD_ATOL * max(1.0, scale), err_msg=name)
+
+
 REMAT_CASES = {
     "block": dict(remat_mode="block"),
     "save-attn": dict(remat_mode="save-attn"),

@@ -99,14 +99,24 @@ def test_no_source_is_left_on_mma_sync(name):
 
 
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
-@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu"])
+@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_windowed.cu", "flash_bwd_prep.cuh"])
 def test_k1_and_k2_instantiate_every_wgmma_head_dim(name, D):
-    """K1 (the forward and its halo instance) and K2's sweep dispatch on the
-    head dim they are given to an instance of each of 64, 128, 192, 256, as
-    ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers."""
+    """K1 (the forward and its halo instance), K2's sweep and the windowed
+    pair (K3a / K3b and their halo instances) dispatch on the head dim they
+    are given to an instance of each of 64, 128, 192, 256, as
+    ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers; the pre-pass is
+    templated on the head dim, and the windowed pair's entry point
+    instantiates it at each of them."""
     from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS
 
     assert D in WGMMA_HEAD_DIMS
+    if name == "flash_bwd_prep.cuh":
+        assert "template <int D, bool ROPE>" in _text(name)
+        windowed = _text("flash_bwd_windowed.cu")
+        entry = windowed[windowed.index('extern "C" int flash_bwd_windowed_prep_bf16'):]
+        entry = entry[:entry.index('extern "C"', 1)]
+        assert "flash_bwd_prep_kernel<DD, true>" in entry and "WINDOWED_HEAD_DIMS(CALL)" in entry
+        name = "flash_bwd_windowed.cu"
     text = _text(name)
     assert re.search(rf"case {D}: return CALL\({D}\);", text), f"{name} has no instance of head dim {D}"
 
