@@ -144,22 +144,28 @@ failure raises and the exit code is not 0:
 22. DPM request: ``python -m osufusion_tpu_torch.inference --sampler dpmpp-2m
     --steps 16`` in a process of its own on the serving weights saved as
     ``model.safetensors`` with their ``config.json``; the ``.osz`` parses.
-23. The forms family (``csrc/flash_forms.cu``: fp32 or bf16 operands, D = 64
-    ... 256, every form but bf16 at 64), phase by phase:
-    (f) what still raises, before any launch or gather: fp16 operands and
-    D = 320 through ``ops.attention.sdpa`` raise NotImplementedError naming
-    ROADMAP.md's queue 2 "forms"; a D = 32 site runs the XLA route (rope and
-    the plain attention), launches no kernel and equals the plain attention;
-    a refused window raises ValueError, a failed wgmma or forms launch
-    RuntimeError.
-    Kernel level: every (body, operand type, D) instance, forward with its
-    LSE, pre-pass, dq, dk/dv and post-pass, against its plain fp32 version at
-    B=2, T=4096, H=16 (global, tables), fp32/64 and bf16/128 also windowed
-    (B=1, T=16384, W=2048) and grouped (B=2, T=2048, H=8, Kv=2); planted
-    faults (the last key tile dropped or a window one key short; an LSE off
-    by 0.05) above the bounds (fp32: summation order only; bf16: phase 3's);
-    CUDA-event times beside the bound (fp32 FLOP at 67 TFLOP/s, bf16 at 989),
-    the plain version and rope + SDPA. The wgmma instances above D = 64 (K1,
+23. The forms family (``csrc/flash_forms.cu``) and the forms beside bf16/64,
+    phase by phase:
+    (f) the sites that only a forms or fp16 instance takes, through
+    ``ops.attention.sdpa`` under a gradient, against fp32 plain autograd
+    with a planted fault above the bound: fp16 at D = 64 ... 256, windowed
+    (K1 forward, the forms windowed pair backward, no forms forward), and
+    fp32, bf16 and fp16 at D = 320 and 512 (the chunked instance); a D = 32
+    site runs the XLA route (rope and the plain attention), launches no
+    kernel and equals the plain attention; a refused window raises
+    ValueError, a failed bf16, fp16 or forms launch RuntimeError.
+    Kernel level: every forms instance that is built (fp32 at D = 64 ... 256:
+    forward, pre-pass, dq, dk/dv, post-pass, merge; fp16 there: all but the
+    forward, which K1 takes; bf16 there: the pre-pass, post-pass and merge
+    around K2's sweep; the chunked instance at bf16/320) on one site's chain
+    (K1 and K2's sweep where the forms body is not built) against its plain
+    fp32 version at B=2, T=4096, H=16 (global, tables), fp32/64 also windowed
+    (B=1, T=16384, W=2048) and fp32/64 and bf16/128 grouped (B=2, T=2048,
+    H=8, Kv=2); planted faults (the last key tile dropped or a window one key
+    short; an LSE off by 0.05) above the bounds (fp32: summation order only;
+    bf16 and fp16: phase 3's); CUDA-event times beside the bound (fp32 FLOP
+    at 67 TFLOP/s, bf16 and fp16 at 989), the plain version and rope + SDPA.
+    The wgmma instances above D = 64 (K1,
     K2 and the windowed pair with its pre-pass, bf16 at D = 128, 192, 256)
     against their plain versions with the D = 64 kernels' bounds and planted
     faults: at B=2, T=4096, H=16 (global, tables); K1 and K2 at D = 128 at the
@@ -168,13 +174,25 @@ failure raises and the exit code is not 0:
     plain version and rope + SDPA's backward (band mask at the windowed
     site), two launches bit-identical; K5a / K5b at D = 128 at phase 10's
     four-shard rank shape (B=1, T_local=16384, W=4096, the second shard).
-    (b) and (c): fp32 serving and bf16 serving of a UNet with
-    attn_dim_head=128, each the 180 s song through ``generate_beatmap`` at
-    DPM-16, CFG 2.0 (444 forms forwards a map, no wgmma launch), the sampler
-    alone on the 180 s cell (s/map), and phase 21's signal check at 8192
-    frames. (d) the gradients of a dim_h=512 UNet of one block a level (13
-    sites, B=2, T=4096) through the forms kernels at fp32/64 and bf16/128
-    against fp32 through the plain versions. (e) the shard forms at kernel
+    K1 and K2's sweep at fp16, D = 64 ... 256 (``phase_f16_kernels``): K1
+    with its LSE and the whole backward (forms pre-pass, K2's fp16 sweep,
+    forms post-pass) against their plain versions at fp16's bounds with
+    planted faults, at B=2, T=4096, H=16 (global, tables); K1 (a) also at the
+    serving shape (B=2, T=24576, W=4096); each timed beside the same kernel
+    at bf16 on the same values, the bound, the plain version, rope + SDPA at
+    fp16, and the forms fp16 backward (pre-pass, dq, dk/dv, post-pass) it
+    replaces.
+    (b), (c) and (h): fp32 serving, bf16 serving of a UNet with
+    attn_dim_head=128 and fp16 serving of the default UNet (D = 64), each the
+    180 s song through ``generate_beatmap`` at DPM-16, CFG 2.0 (444 forms
+    forwards a map at fp32 and no wgmma launch; 444 K1 launches at bf16/128
+    and fp16 and no other), the sampler alone on the 180 s cell (s/map), and
+    phase 21's signal check at 8192 frames. (d) the gradients of a
+    dim_h=512 UNet of one block a level (13 sites, B=2, T=4096) through the
+    kernels at fp32/64, bf16/128 and fp16/64 against fp32 through the plain
+    versions (fp32: the forms kernels alone; bf16/128 and fp16/64: K1 with its
+    LSE and K2 a site, the forms pre-pass and post-pass around K2's sweep, no
+    forms forward, dq or dk/dv). (e) the shard forms at kernel
     level: the halo instances at phase 10's rank shape (B=1, T_local=16384,
     W=4096, the second of four shards) and the ring over two shards as
     threads at phase 18's UNet and DiT rank shapes, fp32/64 and bf16/128,
@@ -1138,13 +1156,23 @@ def _all_launches(fa, ha) -> tuple:
 
 
 # the forms instances of csrc/flash_forms.cu, (operand dtype, head dim): fp32, bf16 and fp16 at D = 64 ...
-# 256, and the chunked instance at bf16/320; the main paths run fp32/64 (fp32 training and serving) and
-# bf16/128's pre-pass and post-pass around K2's sweep. The bf16 forward, dq and
-# dk/dv at D <= 256 exist as instances too, though the form rule gives the forward and the global backward
-# at those forms to the wgmma kernels: they are checked and timed through the forms wrappers directly.
+# 256, and the chunked instance at bf16/320, each with the bodies it has (_forms_bodies); the main paths run
+# fp32/64 (fp32 training and serving), and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep.
 FORMS_INSTANCES = ([(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
                    + [(torch.bfloat16, 320)])
+# the main instances that the shard forms (e) and the extra kernel-level sites run; fp16/64 runs on (h) and (d)
 FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
+F16_MAIN = (torch.float16, 64)
+FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
+
+
+def _forms_bodies(dtype, D: int) -> tuple:
+    """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one at
+    fp32 and above D = 256; at fp16 with D <= 256 all but the forward (K1 takes it); at bf16 there the pre-pass,
+    post-pass and merge (K1, K2's sweep and the wgmma windowed pair take the rest)."""
+    if dtype == torch.float32 or D > 256:
+        return FORMS_BODIES
+    return FORMS_BODIES[1:] if dtype == torch.float16 else FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
 # ~4096 * 2^-24 = 2.4e-4 relative, its typical error a few 1e-7. The planted faults (the last key tile
@@ -1207,21 +1235,32 @@ def _attention_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int, 
 
 
 def _forms_call(q, k_rot, v, do, cos, sin, window: int):
-    """One site through the forms instance of q's (dtype, D), directly through its wrappers: (o, lse), then
-    the backward's (dq, dk_rot, dv) from them, and the pre-pass's scratch."""
+    """One site through the forms instance of q's (dtype, D), directly through its wrappers, and where the
+    instance has no such body through the wgmma kernel that the route takes (K1 for the forward, K2's sweep
+    for a global site's dq and dk/dv): (o, lse), then the backward's (dq, dk_rot, dv) from them, and the
+    pre-pass's scratch."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
 
     B, T, H, D = q.shape
     kv = 1 if k_rot.ndim == 3 else k_rot.shape[2]
     scale = D**-0.5
-    o = torch.empty_like(q)
-    lse = torch.empty((B, T * H), dtype=torch.float32, device="cuda")
-    forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
+    bodies = _forms_bodies(q.dtype, D)
+    if "fwd" in bodies:
+        o = torch.empty_like(q)
+        lse = torch.empty((B, T * H), dtype=torch.float32, device="cuda")
+        forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
+    else:
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
     prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
     dk = torch.empty(k_rot.shape, dtype=torch.float32, device="cuda")
     dv = torch.empty_like(dk)
-    forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
-    forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    if "dq" in bodies:
+        forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
+        forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    else:
+        assert window < 0, "K2's sweep takes the global sites"
+        fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, accumulate=False)
     return o, lse, forms.forms_bwd_post(prep, cos, sin, scale), dk, dv, prep
 
 
@@ -1266,9 +1305,10 @@ def _forms_hold(where: str, got: tuple, q, k_rot, v, do, cos, sin, window: int, 
 
 def phase_forms_kernels() -> dict:
     """Every forms instance against its plain fp32 version at FORMS_SITE (global, MQA, tables) with planted
-    faults above the bounds, timed by CUDA events beside its bound, its plain version and rope + SDPA; the
-    main instances also at FORMS_WINDOWED and FORMS_GROUPED. Returns {(dtype, D): {body: record}} for the
-    bodies fwd, dq, dkv and the helpers prep, post, merge."""
+    faults above the bounds, on ``_forms_call``'s chain, its bodies timed by CUDA events beside their bounds,
+    their plain versions and rope + SDPA; the main instances also at FORMS_GROUPED, and those with a forms dq
+    at FORMS_WINDOWED. Returns {(dtype, D): {body: record}} for the bodies each instance has of fwd, dq, dkv
+    and the helpers prep, post, merge."""
     import torch.nn.functional as F
 
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1279,10 +1319,12 @@ def phase_forms_kernels() -> dict:
     failures, records = [], {}
     for i, (dt, D) in enumerate(FORMS_INSTANCES):
         name, size = f"{_dtype_name(dt)}/{D}", torch.finfo(dt).bits // 8
+        bodies = _forms_bodies(dt, D)
         sites = [("global", (*FORMS_SITE, 1), -1, True)]
         if (dt, D) in FORMS_MAIN:
             B_w, T_w, H_w, W = FORMS_WINDOWED
-            sites += [("windowed", (B_w, T_w, H_w, 1), W, True), ("grouped", FORMS_GROUPED, -1, False)]
+            sites += [("windowed", (B_w, T_w, H_w, 1), W, True)] * ("dq" in bodies) + [
+                ("grouped", FORMS_GROUPED, -1, False)]
         worst = 0.0
         for j, (label, (B, T, H, Kv), window, tables) in enumerate(sites):
             q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, Kv, tables, 1300 + 10 * i + j, D, dt)
@@ -1296,25 +1338,27 @@ def phase_forms_kernels() -> dict:
                 continue
             o, lse, _, _, _, prep = got
             scale = D**-0.5
-            ms = {
-                "fwd": _cuda_ms(lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale), 3),
-                "prep": _cuda_ms(lambda: forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale), 5),
-                "dq": _cuda_ms(lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False), 3),
-                "dkv": _cuda_ms(lambda: forms.forms_bwd_dkv(k_rot, v, prep, torch.empty(k.shape, device="cuda"),
-                                                            torch.empty(k.shape, device="cuda"), -1, None, False), 3),
-                "post": _cuda_ms(lambda: forms.forms_bwd_post(prep, cos, sin, scale), 5),
-            }
             o_acc, lse_acc = o.float(), lse.clone()
-            ms["merge"] = _cuda_ms(lambda: forms.forms_ring_merge(o_acc, lse_acc, o, lse, torch.empty_like(lse), None), 5)
-            plain = {
-                "fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
-                "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
-                "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
-                "merge": _cuda_ms(lambda: fa.ring_merge_reference(o_acc, lse_acc, o, lse), 3),
-                "prep": _cuda_ms(lambda: (fa._scaled_rotated_q(q, cos, sin).to(dt), (do.float() * o.float()).sum(-1)), 3),
-                "post": _cuda_ms(lambda: (unapply_rope(prep.dq_acc[:, : T * H].reshape(B, T, H, D), cos, sin)
-                                          * scale).to(dt), 3),
+            timed = {
+                "fwd": (lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale), 3),
+                "prep": (lambda: forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale), 5),
+                "dq": (lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False), 3),
+                "dkv": (lambda: forms.forms_bwd_dkv(k_rot, v, prep, torch.empty(k.shape, device="cuda"),
+                                                    torch.empty(k.shape, device="cuda"), -1, None, False), 3),
+                "post": (lambda: forms.forms_bwd_post(prep, cos, sin, scale), 5),
+                "merge": (lambda: forms.forms_ring_merge(o_acc, lse_acc, o, lse, torch.empty_like(lse), None), 5),
             }
+            ms = {body: _cuda_ms(*timed[body]) for body in bodies}
+            plain_timed = {
+                "fwd": (lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
+                "dq": (lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                "dkv": (lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                "merge": (lambda: fa.ring_merge_reference(o_acc, lse_acc, o, lse), 3),
+                "prep": (lambda: (fa._scaled_rotated_q(q, cos, sin).to(dt), (do.float() * o.float()).sum(-1)), 3),
+                "post": (lambda: (unapply_rope(prep.dq_acc[:, : T * H].reshape(B, T, H, D), cos, sin) * scale).to(dt),
+                         3),
+            }
+            plain = {body: _cuda_ms(*plain_timed[body]) for body in bodies}
 
             # yardstick only: rope on q and k, then PyTorch's fused attention and its backward
             def library(q_in, k_in, v_in):
@@ -1322,12 +1366,15 @@ def phase_forms_kernels() -> dict:
                 kr = apply_rope(k_in, cos, sin)[:, None]
                 return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
 
-            with torch.no_grad():
-                lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 3)
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            lib_out = library(*leaves)
-            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 3)
-            del leaves, lib_out
+            lib_fwd_ms = lib_bwd_ms = None
+            if "fwd" in bodies:
+                with torch.no_grad():
+                    lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 3)
+            if "dq" in bodies:
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                lib_out = library(*leaves)
+                lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 3)
+                del leaves, lib_out
             rows_bytes, keys_bytes, stats = B * T * H * D * size, B * T * D * size, B * T * H * 4
             bounds = {
                 "fwd": _forms_bound(attention_flops("forward", B, T, H, D, None), 2 * rows_bytes + 2 * keys_bytes + stats, dt),
@@ -1348,7 +1395,7 @@ def phase_forms_kernels() -> dict:
             _log(f"[forms kernels] {name} B={B} T={T} H={H} global: "
                  + "; ".join(f"{body} {ms[body]:.3f} ms (bound {bounds[body][0]:.3f} by {bounds[body][1]}, "
                              f"{bounds[body][0] / ms[body]:.1%}; plain {plain[body]:.3f})" for body in ms)
-                 + f"; rope+SDPA forward {lib_fwd_ms:.3f}, backward {lib_bwd_ms:.3f} ms")
+                 + f"; rope+SDPA forward {lib_fwd_ms} ms, backward {lib_bwd_ms} ms")
             del q, k_rot, k, v, do, got, o, lse, prep, o_acc, lse_acc
             torch.cuda.empty_cache()
         for rec in records[(dt, D)].values():
@@ -1358,8 +1405,9 @@ def phase_forms_kernels() -> dict:
     return records
 
 
-# (f): the sites that only the forms family takes: fp16 at every head dim of the forms
-# instances, and each operand dtype at head dims above 256 (the chunked instance); (dtype, D, window)
+# (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the forms
+# windowed pair's backward), and each operand dtype at head dims above 256 (the chunked instance); (dtype, D,
+# window)
 FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
                    + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
 # fp16 against fp32 plain on the same fp16 inputs: P and dS rounded to fp16 (2^-11 relative) where bf16 rounds
@@ -1368,14 +1416,15 @@ FORMS_F16_REL_TOL = 2e-3
 
 
 def phase_forms_raise() -> None:
-    """(f) Every form that the JAX package runs now runs a kernel on the card: through ``ops.attention.sdpa``
-    under a gradient, fp16 operands at D = 64 ... 256 (windowed) and fp32, bf16 and fp16 at D = 320 and 512
-    (global: the chunked instance) raise nothing, launch the forms forward, pre-pass, dq, dk/dv and
-    post-pass once each (and no wgmma kernel), and hold o and the gradients to autograd through the plain
-    attention in fp32, with a planted fault (the keys of the last tile dropped) above the bound. A site whose
-    head dim is not a multiple of 64 (D = 32) launches no kernel and equals the plain attention, as the JAX
-    package sends it to XLA. A bf16, D = 64 site whose window the wrapper refuses raises ValueError; a wgmma or
-    forms launch that fails raises RuntimeError."""
+    """(f) Every form that the JAX package runs runs a kernel on the card: through ``ops.attention.sdpa``
+    under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the forms pre-pass, dq, dk/dv
+    and post-pass once each, no forms forward) and fp32, bf16 and fp16 at D = 320 and 512 (global: the
+    chunked instance's forward, pre-pass, dq, dk/dv and post-pass once each, no wgmma kernel) raise nothing,
+    and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
+    keys of the last tile dropped, or a window two keys short) above the bound. A site whose head dim is not
+    a multiple of 64 (D = 32) launches no kernel and equals the plain attention, as the JAX package sends it
+    to XLA. A bf16, D = 64 site whose window the wrapper refuses raises ValueError; a bf16, fp16 or forms
+    launch that fails raises RuntimeError."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.ops.attention import sdpa
@@ -1411,7 +1460,7 @@ def phase_forms_raise() -> None:
         out = sdpa(*leaves, w, rope)
         out.backward(do)
         torch.cuda.synchronize()
-        moved = _all_launches(fa, ha) != before[0]
+        moved = [a - b for a, b in zip(_all_launches(fa, ha), before[0])]
         runs = {name: n - before[1][name] for name, n in _forms_counts().items()}
         ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         ref = fa.flash_attention_reference(*ref_leaves, w, rope)
@@ -1426,15 +1475,17 @@ def phase_forms_raise() -> None:
         fault_rel = _rel(fault, ref)
         name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
         held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
-                    f"{fault_rel:.2e}), forms {runs}")
-        if moved or runs != {"fwd": 1, "prep": 1, "dq": 1, "dkv": 1, "post": 1, "merge": 0}:
+                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}")
+        k1 = dt == torch.float16 and D <= 256  # K1's forward, then the forms windowed pair
+        if moved != [int(k1)] + [0] * 10 or runs != {"fwd": int(not k1), "prep": 1, "dq": 1, "dkv": 1, "post": 1,
+                                                     "merge": 0}:
             failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}")
         if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
             failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
         if not fault_rel > tol:
             failures.append(f"{name}: planted fault {fault_rel:.3e} would pass {tol}")
         del q, k, v, do, leaves, out, ref_leaves, ref, fault
-    _log(f"[forms raise] sites that raised before, through ops.attention.sdpa under a gradient (B={B}, T={T}, "
+    _log(f"[forms raise] fp16 and D > 256 sites through ops.attention.sdpa under a gradient (B={B}, T={T}, "
          f"H={H}) vs fp32 plain autograd: " + "; ".join(held))
     before = counts()
     q, k, v, rope = site(torch.bfloat16, 32)
@@ -1448,6 +1499,7 @@ def phase_forms_raise() -> None:
         call(torch.bfloat16, 64, 256, RuntimeError)
         call(torch.float32, 64, 256, RuntimeError)
         call(torch.bfloat16, 128, 256, RuntimeError)
+        call(torch.float16, 64, 256, RuntimeError)
     finally:
         fa._kernel = kernel
     _log(f"[forms raise] bf16/32 (the XLA route) vs plain rel L2 {xla_rel:.1e}, no launch: {no_launch_xla}; raised "
@@ -1549,6 +1601,151 @@ def phase_wide_kernels() -> dict:
     if failures:
         raise AssertionError("wide kernels vs plain: " + "; ".join(failures))
     _log(f"[wide kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# K1 and K2's sweep at fp16 at the forms site (FORMS_SITE: B=2, T=4096, H=16, MQA, global, tables), D = 64 ...
+# 256, and K1 (a) at the serving site (B=2, T=24576, H=16, W=4096, tables), each beside the same kernel at bf16
+# on the same values. fp16 against fp32 plain on the same fp16 inputs: qs, P and dS rounded to fp16 (2^-11
+# relative) where bf16 rounds to 2^-8, held to (f)'s fp16 bound FORMS_F16_REL_TOL on o's and each gradient's
+# relative L2 and to F16_LSE_TOL on the LSE (its error is a p-weighted mean of the logits' rounding errors,
+# ~1e-4); the planted faults (the last key tile dropped; a window one key short on each side; an LSE off by
+# LSE_FAULT, 3.4e-2 on every gradient) lie far above
+F16_DIMS = (64, 128, 192, 256)
+F16_LSE_TOL = 2e-3
+F16_SERVE_SITE = (2, 24576, 16, 4096)
+
+
+def phase_f16_kernels() -> dict:
+    """K1 with its LSE and the whole global backward (the forms pre-pass, K2's fp16 sweep, the forms
+    post-pass) at fp16 and D = 64 ... 256 against their plain fp32 versions on the same fp16 inputs, with
+    planted faults above the fp16 bounds, each timed by CUDA events beside the same kernels at bf16 on the
+    same values, the bound, the plain version, rope + SDPA at fp16 (forward; backward by autograd) and the
+    forms fp16 backward that the sweep replaces (pre-pass, dq, dk/dv, post-pass); then K1 (a) at the serving
+    site against plain with a window one key short as the planted fault, fp16 beside bf16. Returns {D:
+    {"fwd": record, "bwd": record}} and the serving site's record under "serve"."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.ops.rope import apply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    t_phase = time.perf_counter()
+    B, T, H = FORMS_SITE
+    tol = FORMS_F16_REL_TOL
+    failures, records = [], {}
+
+    def library(q_in, k_in, v_in, cos, sin, mask=None):  # yardstick only: rope, then PyTorch's fused attention
+        qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+        kr = apply_rope(k_in, cos, sin)[:, None]
+        return F.scaled_dot_product_attention(qr, kr, v_in[:, None], attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    for i, D in enumerate(F16_DIMS):
+        scale = D**-0.5
+        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2100 + i, D, torch.float16)
+        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+        dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+        refs = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin)
+        faults = fa.flash_bwd_reference(q, k_rot, v, o_ref, lse_ref + LSE_FAULT, do, cos, sin)
+        o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+        lse_err, o_fault_rel = (lse - lse_ref).abs().max().item(), _rel(o_fault, o_ref)
+        if not (o_rel < tol and lse_err < F16_LSE_TOL and torch.isfinite(o).all() and o_fault_rel > tol):
+            failures.append(f"K1 fp16 D={D}: o rel L2 {o_rel:.3e}, lse {lse_err:.3e}, fault {o_fault_rel:.3e}")
+        parts, bwd_err = [], 0.0
+        for name, got, ref, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+            rel, err, fault_rel = _rel(got, ref), (got.float() - ref).abs().max().item(), _rel(fault, ref)
+            bwd_err = max(bwd_err, err)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} (fault {fault_rel:.3e})")
+            if not (rel < tol and torch.isfinite(got).all() and fault_rel > tol):
+                failures.append(f"K2 fp16 D={D}: {name} rel L2 {rel:.3e}, fault {fault_rel:.3e}")
+        del o_ref, lse_ref, o_fault, refs, faults, dq, dk, dv
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k_rot, v, do))  # the same values at bf16
+        ob, lseb = fa.flash_fwd(qb, kb, vb, cos, sin, -1, scale, return_lse=True)
+        prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
+        prep_b = fa.flash_bwd_prep(qb, kb, vb, ob, lseb, dob, cos, sin, scale)
+        dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+
+        def forms_backward():  # the route that K2's fp16 sweep replaces: the forms pre-pass, dq, dk/dv, post-pass
+            p = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
+            forms.forms_bwd_dq(k_rot, v, p, -1, None, accumulate=False)
+            forms.forms_bwd_dkv(k_rot, v, p, dk_s, dv_s, -1, None, accumulate=False)
+            return forms.forms_bwd_post(p, cos, sin, scale)
+
+        ms = {
+            "fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 10),
+            "fwd_bf16": _cuda_ms(lambda: fa.flash_fwd(qb, kb, vb, cos, sin, -1, scale, return_lse=True), 10),
+            "sweep": _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk_s, dv_s, False), 5),
+            "sweep_bf16": _cuda_ms(lambda: fa.flash_bwd_sweep(kb, vb, prep_b, dk_s, dv_s, False), 5),
+            "bwd": _cuda_ms(lambda: fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale), 5),
+            "forms_bwd": _cuda_ms(forms_backward, 2),
+        }
+        del prep, prep_b, qb, kb, vb, dob, ob, lseb
+        fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1)
+        bwd_plain_ms = _cuda_ms(lambda: fa.flash_bwd_reference(q, k_rot, v, o, lse, do, cos, sin), 1)
+        with torch.no_grad():
+            lib_fwd_ms = _cuda_ms(lambda: library(q, k, v, cos, sin), 5)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_out = library(*leaves, cos, sin)
+        lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 5)
+        del leaves, lib_out
+        fwd_bound = _bound(attention_flops("forward", B, T, H, D, None), _attn_bytes(B, T, H, D, 2, 2, 1))
+        bwd_bound = _bound(attention_flops("backward_fused", B, T, H, D, None), _attn_bytes(B, T, H, D, 4, 4, 1))
+        records[D] = {
+            "fwd": {"max_abs_err": o_err, "ms": ms["fwd"], "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+                    "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms},
+            "bwd": {"max_abs_err": bwd_err, "ms": ms["bwd"], "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0],
+                    "bound_by": bwd_bound[1], "library_ms": lib_bwd_ms},
+        }
+        _log(f"[f16 kernels] D={D} B={B} T={T} H={H} global, tables: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e} "
+             f"(fault {o_fault_rel:.3e}), lse max abs {lse_err:.3e} (bound {F16_LSE_TOL}); backward {'; '.join(parts)} "
+             f"(bound {tol})")
+        _log(f"[f16 kernels] D={D}: K1 fp16 {ms['fwd']:.3f} ms, bf16 {ms['fwd_bf16']:.3f} ms "
+             f"({ms['fwd'] / ms['fwd_bf16']:.3f}x; bound {fwd_bound[0]:.3f} by {fwd_bound[1]}, "
+             f"{fwd_bound[0] / ms['fwd']:.1%}; plain {fwd_plain_ms:.3f}; rope+SDPA fp16 {lib_fwd_ms:.3f}); K2's sweep "
+             f"fp16 {ms['sweep']:.3f} ms, bf16 {ms['sweep_bf16']:.3f} ms ({ms['sweep'] / ms['sweep_bf16']:.3f}x); "
+             f"whole backward fp16 {ms['bwd']:.3f} ms (bound {bwd_bound[0]:.3f} by {bwd_bound[1]}, "
+             f"{bwd_bound[0] / ms['bwd']:.1%}; plain {bwd_plain_ms:.3f}; rope+SDPA fp16 backward {lib_bwd_ms:.3f}) "
+             f"against the forms fp16 backward it replaces {ms['forms_bwd']:.3f} ms "
+             f"({ms['forms_bwd'] / ms['bwd']:.1f}x)")
+        del q, k_rot, k, v, do, cos, sin, o, lse, dk_s, dv_s
+        torch.cuda.empty_cache()
+
+    B, T, H, W = F16_SERVE_SITE
+    D, scale = 64, 64**-0.5
+    q, k_rot, k, v, _, cos, sin = _attention_inputs(B, T, H, 1, True, 2150, D, torch.float16)
+    o = fa.flash_fwd(q, k_rot, v, cos, sin, W, scale)
+    torch.cuda.synchronize()
+    o_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W)[0]
+    o_fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W - 2)[0]
+    o_rel, o_err, o_fault_rel = _rel(o, o_ref), (o.float() - o_ref).abs().max().item(), _rel(o_fault, o_ref)
+    del o_ref, o_fault
+    if not (o_rel < tol and torch.isfinite(o).all() and o_fault_rel > tol):
+        failures.append(f"K1 (a) fp16 serving site: o rel L2 {o_rel:.3e}, fault {o_fault_rel:.3e}")
+    qb, kb, vb = (x.bfloat16() for x in (q, k_rot, v))
+    serve_ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, W, scale), 10)
+    serve_bf16_ms = _cuda_ms(lambda: fa.flash_fwd(qb, kb, vb, cos, sin, W, scale), 10)
+    plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, W), 1)
+    idx = torch.arange(T, device="cuda")
+    band = (idx[:, None] - idx[None, :]).abs() <= W // 2
+    with torch.no_grad():
+        lib_ms = _cuda_ms(lambda: library(q, k, v, cos, sin, band), 3)
+    del band, qb, kb, vb
+    bound = _bound(attention_flops("forward", B, T, H, D, W), _attn_bytes(B, T, H, D, 2, 2, 0))
+    records["serve"] = {"max_abs_err": o_err, "ms": serve_ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": lib_ms}
+    _log(f"[f16 kernels] K1 (a) B={B} T={T} H={H} W={W} D={D}: o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault "
+         f"{o_fault_rel:.3e}, bound {tol}); fp16 {serve_ms:.3f} ms, bf16 {serve_bf16_ms:.3f} ms "
+         f"({serve_ms / serve_bf16_ms:.3f}x; bound {bound[0]:.3f} by {bound[1]}, {bound[0] / serve_ms:.1%}; plain "
+         f"{plain_ms:.3f}; rope+SDPA fp16 with a band mask {lib_ms:.3f})")
+    del q, k_rot, k, v, cos, sin, o
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("fp16 kernels vs plain: " + "; ".join(failures))
+    _log(f"[f16 kernels] phase {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
@@ -1868,12 +2065,12 @@ def _forms_launch_check(label: str, counts: dict, expected: dict, hopper_moved: 
 
 
 def phase_forms_serve(model_cfg, workdir: Path) -> int:
-    """(b) and (c): serving a form beside bf16/64 (a float32 config; a bf16 UNet with attn_dim_head=128),
-    seeded random weights as phase 6's: the 180 s song through ``generate_beatmap`` at DPM-16 and CFG 2.0
-    (444 forwards a map: fp32 the forms forward and no wgmma launch; bf16/128 K1 at D = 128 and no forms
-    launch), the sampler alone on the 180 s cell (s/map), and at 8192 frames the signal through the kernels
-    held to the plain attention's (phase 21's bounds). Returns the forwards of the request and the sampler
-    run (forms forwards at fp32, K1's at bf16/128)."""
+    """(b), (c) and (h): serving a form beside bf16/64 (a float32 config; a bf16 UNet with
+    attn_dim_head=128; a float16 config at D = 64), seeded random weights as phase 6's: the 180 s song
+    through ``generate_beatmap`` at DPM-16 and CFG 2.0 (444 forwards a map: fp32 the forms forward and no
+    wgmma launch; bf16/128 and fp16/64 K1 and no other launch), the sampler alone on the 180 s cell (s/map),
+    and at 8192 frames the signal through the kernels held to the plain attention's (phase 21's bounds).
+    Returns the forwards of the request and the sampler run (forms forwards at fp32, K1's otherwise)."""
     from osufusion_tpu_torch.config import DiffusionConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1886,7 +2083,7 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
     expected = _map_launches(model, params.cfg, "dpmpp-2m", DPM_STEPS)
     wav = workdir / "song_forms.wav"
     synth_song(wav, 180.0, seed=ord("a"))
-    wide = model_cfg.dtype == "bfloat16"  # K1 takes bf16 at D = 128
+    wide = model_cfg.dtype != "float32"  # K1 takes bf16 at D = 128 and fp16 at D = 64
     hopper = _all_launches(fa, ha)
     _forms_counts(reset=True)
     torch.cuda.synchronize()
@@ -1952,9 +2149,9 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     """(d) Gradients at a form beside bf16/64: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
     float32 through the plain versions on the card. fp32: the forms forward, pre-pass, dq, dk/dv and
-    post-pass a site, and no wgmma kernel; bf16 at D = 128: K1 with its LSE and K2 a site (the forms
-    pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv. Returns the launches by
-    entry point (the forms ones, and K1's and K2's as "k1", "k2")."""
+    post-pass a site, and no wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
+    (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv. Returns the launches
+    by entry point (the forms ones, and K1's and K2's as "k1", "k2")."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -2049,14 +2246,15 @@ def phase_forms_train(workdir: Path) -> dict:
     return counts
 
 
-def phase_forms() -> tuple[dict, dict, dict, dict, dict]:
-    """Phase 23, the forms family and the wide heads on the card: (f) fp16 and D > 256 against plain,
-    the kernel-level checks and times of every forms instance, of K1 and K2 at D = 128 ... 256 and of the
-    windowed pair at D = 128 ... 256 (K5a / K5b at 128), (b) and (c) serving, (d) gradients, (g) the bf16
-    DiT step at D = 128, (e) the shard forms, (a) fp32 crop training. Returns the forms kernel records and,
-    by main instance, each forms entry point's launches on the paths driven through the port's entry points
-    ((a), (b) or (c), (d)); then K1's and K2's records by head dim and their launches at D = 128 on (c), (d)
-    and (g); then the windowed pair's records by (wrapper, head dim)."""
+def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
+    """Phase 23, the forms family and the forms beside bf16/64 on the card: (f) fp16 and D > 256 against
+    plain, the kernel-level checks and times of every forms instance, of K1 and K2 at D = 128 ... 256, of
+    the windowed pair at D = 128 ... 256 (K5a / K5b at 128) and of K1 and K2's sweep at fp16, (b), (c) and
+    (h) serving, (d) gradients, (g) the bf16 DiT step at D = 128, (e) the shard forms, (a) fp32 crop
+    training. Returns the forms kernel records and, by instance, each forms entry point's launches on the
+    paths driven through the port's entry points ((a), (b), (c) or (h), (d)); then K1's and K2's records by
+    head dim and their launches at D = 128 on (c), (d) and (g); then the windowed pair's records by (wrapper,
+    head dim); then K1's and K2's fp16 records and their launches on (h) and (d) at fp16/64."""
     from osufusion_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
@@ -2065,22 +2263,28 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict]:
     records = phase_forms_kernels()
     wide_records = phase_wide_kernels()
     pair_records = phase_wide_pair_kernels()
-    runs = {inst: [] for inst in FORMS_MAIN}
-    wide = {"fwd": 0, "bwd": 0}
+    f16_records = phase_f16_kernels()
+    main = (*FORMS_MAIN, F16_MAIN)
+    runs = {inst: [] for inst in main}
+    wide = {"fwd": 0, "bwd": 0}  # K1 and K2 at bf16/128
+    f16 = {"serve": 0, "fwd": 0, "bwd": 0}  # K1 without and with its LSE and K2 at fp16/64
+    configs = (ModelConfig(dim_h=128, dtype="float32"), ModelConfig(dim_h=128, attn_dim_head=128),
+               ModelConfig(dim_h=128, dtype="float16"))
     with tempfile.TemporaryDirectory() as tmp:
-        for inst, cfg in zip(FORMS_MAIN, (ModelConfig(dim_h=128, dtype="float32"), ModelConfig(dim_h=128, attn_dim_head=128))):
+        for inst, cfg in zip(main, configs):
             torch.cuda.empty_cache()
             served = phase_forms_serve(cfg, Path(tmp))
-            if inst[0] == torch.bfloat16:  # K1 at D = 128 serves this one
+            runs[inst].append({"fwd": served if inst[0] == torch.float32 else 0})
+            if inst == F16_MAIN:  # K1 at fp16 serves this one
+                f16["serve"] += served
+            elif inst[0] == torch.bfloat16:  # K1 at D = 128 this one
                 wide["fwd"] += served
-                runs[inst].append({"fwd": 0})
-            else:
-                runs[inst].append({"fwd": served})
-    for (dt, D) in FORMS_MAIN:
+    for (dt, D) in main:
         torch.cuda.empty_cache()
         counts = phase_forms_grad_check(str(dt).split(".")[1], D)
-        wide["fwd"] += counts.pop("k1", 0)
-        wide["bwd"] += counts.pop("k2", 0)
+        into = f16 if (dt, D) == F16_MAIN else wide
+        into["fwd"] += counts.pop("k1", 0)
+        into["bwd"] += counts.pop("k2", 0)
         runs[(dt, D)].append(counts)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2096,12 +2300,14 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict]:
         runs[FORMS_MAIN[0]].append(phase_forms_train(Path(tmp)))
     launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
                 for inst, rs in runs.items()}
-    _log(f"[forms] launches on paths (a)-(d) by instance: "
+    _log(f"[forms] launches on paths (a)-(d) and (h) by instance: "
          + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items())
-         + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}")
+         + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}; K1 and K2 at fp16/64 on (h) and (d): {f16}")
     if not (wide["fwd"] > 0 and wide["bwd"] > 0):
         raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
-    return records, launches, wide_records, {128: wide}, pair_records
+    if not all(f16.values()):
+        raise AssertionError(f"K1 or K2 at fp16 launched no time on the paths: {f16}")
+    return records, launches, wide_records, {128: wide}, pair_records, f16_records, {64: f16}
 
 
 # the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
@@ -2111,13 +2317,13 @@ FORMS_REPLACES = {"fwd": 208, "dq": 435, "dkv": 507, "prep": 575, "post": 575, "
 
 
 def _forms_json(records: dict, launches: dict) -> list:
-    """The kernels line's forms entries: every instance's forward, dq and dk/dv, and the main instances'
-    pre-pass, post-pass and merge, with their launches on paths (a)-(d) (0 where no path runs the
-    instance: the merge runs in the ring alone, which phase 23 drives at kernel level only)."""
+    """The kernels line's forms entries: every instance's forward, dq and dk/dv that it has, and the main
+    instances' pre-pass, post-pass and merge, with their launches on paths (a)-(d) and (h) (0 where no path
+    runs the instance: the merge runs in the ring alone, which phase 23 drives at kernel level only)."""
     entries = []
     for (dt, D), bodies in records.items():
         for body, rec in bodies.items():
-            if body in ("prep", "post", "merge") and (dt, D) not in FORMS_MAIN:
+            if body in ("prep", "post", "merge") and (dt, D) not in (*FORMS_MAIN, F16_MAIN):
                 continue
             entries.append({"name": f"forms_{body}_{_dtype_name(dt)}_d{D}", "route": "cuda",
                             "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
@@ -2149,6 +2355,26 @@ def _wide_json(records: dict, launches: dict) -> list:
                         "replaces": "osufusion_tpu/ops/pallas_attention.py:208", "launches": n["fwd"], **rec["fwd"]})
         entries.append({"name": f"flash_bwd_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd.cu",
                         "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": n["bwd"], **rec["bwd"]})
+    return entries
+
+
+def _f16_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of K1 and K2's sweep at fp16 (``phase_f16_kernels``): K1 with its LSE and
+    the whole global backward at each head dim, and K1 (a) at the serving site, with their launches on (h)
+    and (d) at fp16/64 (no path reaches the wider heads at fp16)."""
+    n = launches.get(64, {"serve": 0, "fwd": 0, "bwd": 0})
+    entries = [{"name": "flash_fwd_f16", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_fwd_f16.cu",
+                "replaces": "osufusion_tpu/ops/pallas_attention.py:208", "launches": n["serve"], **records["serve"]}]
+    for D in F16_DIMS:
+        m = n if D == 64 else {"fwd": 0, "bwd": 0}
+        entries.append({"name": f"flash_fwd_lse_f16_d{D}", "route": "cuda",
+                        "source": "osufusion_tpu_torch/csrc/flash_fwd_f16.cu",
+                        "replaces": "osufusion_tpu/ops/pallas_attention.py:208", "launches": m["fwd"],
+                        **records[D]["fwd"]})
+        entries.append({"name": f"flash_bwd_f16_d{D}", "route": "cuda",
+                        "source": "osufusion_tpu_torch/csrc/flash_bwd_f16.cu",
+                        "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": m["bwd"],
+                        **records[D]["bwd"]})
     return entries
 
 
@@ -3436,7 +3662,7 @@ def main() -> int:
         phase_dpm_check(model, served, song, ddim50)
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
-    forms_records, forms_launches, wide_records, wide_launches, pair_records = phase_forms()
+    forms_records, forms_launches, wide_records, wide_launches, pair_records, f16_records, f16_launches = phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -3512,6 +3738,7 @@ def main() -> int:
         *_forms_json(forms_records, forms_launches),
         *_wide_json(wide_records, wide_launches),
         *_pair_json(pair_records, pair_launches),
+        *_f16_json(f16_records, f16_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

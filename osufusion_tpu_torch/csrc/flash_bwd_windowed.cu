@@ -4,7 +4,7 @@
 // Replaces osufusion_tpu/ops/pallas_attention.py::_dq_kernel and ::_dkv_kernel
 // (both launched by _flash_bwd), the backward of a sliding-window site, and
 // ::_halo_dq_kernel and ::_halo_dkv_kernel (both launched by _halo_flash_bwd),
-// the backward of the halo forward (flash_fwd.cu's HALO instance) in
+// the backward of the halo forward (flash_fwd.cuh's HALO instance) in
 // sequence-parallel training. The two pairs compute the same thing in two
 // frames of the keys (template argument HALO, the frame's numbers in a
 // KeyFrame of key_frame.cuh):
@@ -21,7 +21,7 @@
 // Inputs: q (B, T, H, D) bf16, k and v (B, S, D) bf16, do and o (B, T, H, D)
 // bf16, lse2 (B, T*H) fp32 (the base-2 log-sum-exp that the forward wrote).
 // With qs = q_rot * scale * log2(e) in bf16 (rope_qs.cuh, the forward's bits:
-// flash_fwd.cu stages q with the same function in both frames), p = exp2(qs
+// flash_fwd.cuh stages q with the same function in both frames), p = exp2(qs
 // k_rot^T - lse2) is the forward's
 // probability; a masked key gets p = 0 outright. With ds = p (do v^T - delta),
 // delta = rowsum(do * o):
@@ -944,7 +944,7 @@ int make_rows_map(CUtensorMap* map, const void* ptr, int rows, int B, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {64, ROW_TILE, 1};
-  return make_map_bf16(map, 3, ptr, dims, strides, box);
+  return make_map(map, 3, ptr, dims, strides, box);
 }
 
 // The dq kernel of head dim D in either frame over S keys: tensor maps, shared memory, launch

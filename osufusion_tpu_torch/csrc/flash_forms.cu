@@ -1,14 +1,16 @@
 // Flash attention in fp32 arithmetic on the FMA units, for Hopper (sm_90a):
 // the "forms" family, which serves every attention form that the wgmma
-// kernels (flash_fwd.cu, flash_bwd.cu, flash_bwd_windowed.cu) do not, from one
-// body per kernel templated on the operand type T (float, __nv_bfloat16,
-// __half) and the head dim D (64, 128, 192, 256), and one chunked instance of
-// the forward, dq and dk/dv bodies for any D > 256 that is a multiple of 64
-// (below). ops/flash_forms.py::kernel_form sends here fp32 and fp16 operands
-// at every head dim, bf16 operands at D > 256, and at bf16 with D = 128, 192
-// or 256 the windowed dq / dk-dv pair and the ring's merge; bf16 forwards and
-// global backwards at D <= 256 run the wgmma kernels, and the bf16 forward
-// instances here at those head dims are on no path.
+// kernels (flash_fwd.cuh, flash_bwd_sweep.cuh, flash_bwd.cu,
+// flash_bwd_windowed.cu) do not, from one body per kernel templated on the
+// operand type T (float, __nv_bfloat16, __half) and the head dim D (64, 128,
+// 192, 256), and one chunked instance of the forward, dq and dk/dv bodies for
+// any D > 256 that is a multiple of 64 (below). ops/flash_forms.py::
+// kernel_form sends here fp32 operands at every head dim, every type at D >
+// 256, fp16's windowed dq / dk-dv pair, and the pre-pass and post-pass around
+// K2's sweep and the ring's merge at fp16 and at bf16 above D = 64. bf16 and
+// fp16 forwards at D <= 256 run the wgmma forward (K1), and bf16's dq and
+// dk/dv there the wgmma K2 sweep and windowed pair, so those instances are
+// not built here (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -49,10 +51,11 @@
 // here is an fp32 FFMA, 4 D FLOP per visited (query, key) pair forward and 8 D
 // backward (dq: 2 products, dkv: 3 with the logits again), against 67 TFLOP/s
 // of fp32 FMA on an H100 SXM: compute bound at every site, by far (a row meets
-// up to W + 1 or S keys for a few hundred bytes of traffic). The bf16
-// instances run the same FMA arithmetic, so they can reach at most 67 / 989
-// (~7 %) of their tensor-core bound: a simple, exact design first, to be
-// replaced by wgmma instances (ROADMAP queue 2).
+// up to W + 1 or S keys for a few hundred bytes of traffic). The fp16 dq and
+// dk/dv and the chunked instances at bf16 and fp16 run the same FMA
+// arithmetic, so they can reach at most 67 / 989 (~7 %) of their tensor-core
+// bound: a simple, exact design first, to be replaced by wgmma instances
+// (ROADMAP queue 2).
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
@@ -1166,22 +1169,33 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 
 }  // namespace
 
-// The instance of (dtype, D): CALL(T, D) for each that exists (D = 0: the
-// chunked instance, which takes every D > 256 that is a multiple of 64),
-// else cudaErrorInvalidValue.
-#define FORMS_TYPE(CODE, TT)                                     \
-  case CODE * 1000 + 64: return CALL(TT, 64);                    \
-  case CODE * 1000 + 128: return CALL(TT, 128);                  \
-  case CODE * 1000 + 192: return CALL(TT, 192);                  \
-  case CODE * 1000 + 256: return CALL(TT, 256);                  \
-  case CODE * 1000 + 0: return CALL(TT, 0);
-#define FORMS_DISPATCH(CALL)                                     \
-  if (D <= 0 || D % 64 != 0) return (int)cudaErrorInvalidValue;  \
-  switch (dtype * 1000 + (D > 256 ? 0 : D)) {                    \
-    FORMS_TYPE(DTYPE_F32, float)                                 \
-    FORMS_TYPE(DTYPE_BF16, __nv_bfloat16)                        \
-    FORMS_TYPE(DTYPE_F16, __half)                                \
-    default: return (int)cudaErrorInvalidValue;                  \
+// The instances of (dtype, D) that an entry point has: CALL(T, D) for each
+// (D = 0: the chunked instance, which takes every D > 256 that is a multiple
+// of 64), else cudaErrorInvalidValue. FORMS_DIMS names a type's instances at
+// D = 64 ... 256, FORMS_CHUNKED its chunked one. The forward, dq and dk/dv
+// bodies keep only what a route launches (ops/flash_forms.py::kernel_form):
+//  * FORMS_FWD, the forward: fp32 at every D, and the chunked instance of
+//    every type (bf16 and fp16 at D <= 256 run K1, the wgmma forward);
+//  * FORMS_SWEEPS, dq and dk/dv: those, and fp16 at D <= 256 (the windowed
+//    pair at fp16; bf16 there runs K2's sweep and the wgmma pair);
+//  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
+//    every D.
+#define FORMS_DIMS(CODE, TT)                                                      \
+  case CODE * 1000 + 64: return CALL(TT, 64);                                     \
+  case CODE * 1000 + 128: return CALL(TT, 128);                                   \
+  case CODE * 1000 + 192: return CALL(TT, 192);                                   \
+  case CODE * 1000 + 256: return CALL(TT, 256);
+#define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: return CALL(TT, 0);
+#define FORMS_FWD                                                                 \
+  FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
+  FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_F16, __half)
+#define FORMS_SWEEPS FORMS_FWD FORMS_DIMS(DTYPE_F16, __half)
+#define FORMS_EVERY FORMS_FWD FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_DIMS(DTYPE_F16, __half)
+#define FORMS_DISPATCH(INSTANCES)                                                 \
+  if (D <= 0 || D % 64 != 0) return (int)cudaErrorInvalidValue;                   \
+  switch (dtype * 1000 + (D > 256 ? 0 : D)) {                                     \
+    INSTANCES                                                                     \
+    default: return (int)cudaErrorInvalidValue;                                   \
   }
 
 // The forward: q (B, T, H, D), k and v (B, S, Kv, D) (Kv = 1: (B, S, D)), o
@@ -1194,7 +1208,7 @@ extern "C" int forms_fwd(int dtype, int D, const void* q, const void* k, const v
                          int halo, int g0, int t_global, float scale, void* stream) {
   const KeyFrame frame = frame_of(halo, T, S, window, g0, t_global);
 #define CALL(TT, DD) launch_fwd<TT, DD>(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, window, scale, frame, D, stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_FWD)
 #undef CALL
 }
 
@@ -1207,7 +1221,7 @@ extern "C" int forms_bwd_prep(int dtype, int D, const void* q, const void* dout,
   if ((Kv > 1 && do_g == nullptr) || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
 #define CALL(TT, DD) \
   launch_prep<TT, DD>(q, dout, o, lse, cos_t, sin_t, qs_g, do_g, lse_g, delta_g, B, T, H, Kv, pad, scale, D, stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_EVERY)
 #undef CALL
 }
 
@@ -1222,7 +1236,7 @@ extern "C" int forms_bwd_dq(int dtype, int D, const void* k, const void* v, cons
 #define CALL(TT, DD)                                                                                                  \
   launch_dq<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dq_acc, B, T, S, H, Kv, pad, window, frame, accumulate, D, \
                     stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_SWEEPS)
 #undef CALL
 }
 
@@ -1236,7 +1250,7 @@ extern "C" int forms_bwd_dkv(int dtype, int D, const void* k, const void* v, con
 #define CALL(TT, DD)                                                                                              \
   launch_dkv<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dk, dv, B, T, S, H, Kv, pad, window, frame, accumulate, \
                      D, stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_SWEEPS)
 #undef CALL
 }
 
@@ -1244,7 +1258,7 @@ extern "C" int forms_bwd_dkv(int dtype, int D, const void* k, const void* v, con
 extern "C" int forms_bwd_post(int dtype, int D, const void* dq_acc, const void* cos_t, const void* sin_t, void* dq,
                               int B, int T, int H, int Kv, int pad, float scale, void* stream) {
 #define CALL(TT, DD) launch_post<TT, DD>(dq_acc, cos_t, sin_t, dq, B, T, H, Kv, pad, scale, D, stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_EVERY)
 #undef CALL
 }
 
@@ -1253,6 +1267,6 @@ extern "C" int forms_bwd_post(int dtype, int D, const void* dq_acc, const void* 
 extern "C" int forms_ring_merge(int dtype, int D, void* o_acc, const void* lse_acc, const void* o_j, const void* lse_j,
                                 void* lse_out, void* o, int n_rows, void* stream) {
 #define CALL(TT, DD) launch_merge<TT, DD>(o_acc, lse_acc, o_j, lse_j, lse_out, o, n_rows, D, stream)
-  FORMS_DISPATCH(CALL)
+  FORMS_DISPATCH(FORMS_EVERY)
 #undef CALL
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the merge of osufusion_tpu/ops/pallas_attention.py::_ring_fwd
 // (its `step`: XLA elementwise code around the K1 call of each hop). Hop j of
-// the ring runs the forward kernel (flash_fwd.cu, global, with its base-2 LSE)
+// the ring runs the forward kernel (flash_fwd.cuh, global, with its base-2 LSE)
 // on this rank's queries against the chunk of keys that is here, which gives
 // o_j, normalised over that chunk alone, and lse_j. With lse_acc the LSE over
 // the chunks seen so far:

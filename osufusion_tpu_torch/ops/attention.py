@@ -10,13 +10,13 @@ so one route serves both devices and a rematerialisation policy that keeps
 the op's outputs is the same on both. Any other CPU tensor takes the plain
 forward with native autograd. On the card the form rule
 (``ops/flash_forms.py::attention_form``, on the operands' dtype and head dim)
-decides first, before any launch or gather: bf16 with D = 64, 128, 192 or 256
-runs the wgmma kernels forward and at global sites backward (the windowed
-backward pair at D > 64 runs the forms kernels); fp32 and fp16 operands at
-any of those head dims the forms kernels, and a head dim above 256 that is a
-multiple of 64 their chunked instance; a head dim that is not a multiple of
-64 runs what the JAX package runs there, rope and then the plain grouped
-attention with native autograd (the XLA einsum of
+decides first, before any launch or gather: bf16 and fp16 with D = 64, 128,
+192 or 256 run the wgmma kernels forward and at global sites backward (K2's
+sweep; the windowed backward pair at bf16 too, at fp16 the forms kernels);
+fp32 operands at any of those head dims the forms kernels, and a head dim
+above 256 that is a multiple of 64 their chunked instance; a head dim that
+is not a multiple of 64 runs what the JAX package runs there, rope and then
+the plain grouped attention with native autograd (the XLA einsum of
 ``osufusion_tpu/ops/attention.py``, which no Pallas kernel computes). The CPU
 route takes every form, as before.
 Under a sequence shard (``parallel/sequence.py``) a windowed site that the

@@ -32,15 +32,16 @@ q/o traffic, and each KV tile staged in shared memory serves all heads of
 eight timesteps, so the arithmetic intensity is far above the ~295 FLOP/byte
 ridge; the training sites (global at T = 4096 ... 512, windowed at T = 65536
 ... 8192) are the same. The forward, the global backward and the windowed
-pair (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/flash_bwd_windowed.cu``) are built for Hopper: tiles arrive by TMA
+pair (``csrc/flash_fwd.cuh``, ``csrc/flash_bwd.cu`` with its sweep
+``csrc/flash_bwd_sweep.cuh``, ``csrc/flash_bwd_windowed.cu``) are built for
+Hopper: tiles arrive by TMA
 behind mbarriers from a producer warp or warpgroup, and warpgroups run every
 product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
 softmax stays in fp32 registers in the exp2 domain and only edge tiles are
 masked. Both backward paths start with one pre-pass that rotates and scales
 q once (``csrc/flash_bwd_prep.cuh``). The halo kernels of sequence
 parallelism (``ops/halo_attention.py``) are the same bodies in the halo frame
-(``csrc/key_frame.cuh``): the forward is ``csrc/flash_fwd.cu``'s HALO
+(``csrc/key_frame.cuh``): the forward is ``csrc/flash_fwd.cuh``'s HALO
 instance, the backward the windowed pair's, behind the same pre-pass.
 
 Those kernels take bf16 operands. The forward (K1, ``flash_fwd``, and its
@@ -49,14 +50,19 @@ ring's ``flash_bwd_sweep``) and the windowed pair with its pre-pass (K3a /
 K3b, ``flash_bwd_dq`` / ``flash_bwd_dkv``, and its halo instances) are
 templated on the head dim and take D = 64, 128, 192 and 256; at D > 64 the
 global backward runs the sweep between the forms family's D-generic
-pre-pass and post-pass (same scratch, dq buffer zeroed by the pre-pass). The
-ring's merge takes D = 64. Every other form (fp32 and fp16 operands, bf16 at
-D > 256, and bf16 at D > 64 for the merge and the global backward's
-pre-pass and post-pass: ``flash_forms.kernel_form``) goes to the forms family
-(``ops/flash_forms.py``, ``csrc/flash_forms.cu``): each wrapper here chooses
-the entry point by the operands' (dtype, D) through
-``flash_forms.takes_forms``, and the forms family runs every backward as the
-split pre-pass, dq, dk/dv and post-pass.
+pre-pass and post-pass (same scratch, dq buffer zeroed by the pre-pass). K1
+and K2's sweep are templated on the operand type too and take fp16 at the
+same head dims, each type a library of its own (``flash_fwd_f16``,
+``flash_bwd_f16``): at fp16 every forward is K1 (with its halo instance and
+the ring's hops), and the global backward runs K2's sweep between the forms
+pre-pass and post-pass at every D, as bf16 does above 64. The ring's merge
+takes bf16 at D = 64. Every other form (fp32 operands; fp16's windowed pair,
+merge, pre-pass and post-pass; every type at D > 256; bf16 at D > 64 for the
+merge and the global backward's pre-pass and post-pass:
+``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
+``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
+operands' (dtype, D) through ``flash_forms.takes_forms``, and the forms
+family runs every backward as the split pre-pass, dq, dk/dv and post-pass.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
@@ -86,9 +92,9 @@ HEAD_DIM = 64
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# library name -> source; each becomes a shared library of its own
-SOURCES = {name: _CSRC / f"{name}.cu"
-           for name in ("flash_fwd", "flash_bwd", "flash_bwd_windowed", "ring_merge", "flash_forms")}
+# library name -> source; each becomes a shared library of its own (K1's and K2's sweep's one a type)
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_fwd_f16", "flash_bwd", "flash_bwd_f16",
+                                                   "flash_bwd_windowed", "ring_merge", "flash_forms")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -142,12 +148,14 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     # D | q k v cos sin o lse | B T S H Kv window | scale | stream
     "flash_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "flash_fwd_f16": ("flash_fwd_f16", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # q k v do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | dq dk dv | B T S H Kv | scale | stream
     "flash_bwd_bf16": ("flash_bwd", [_PTR] * 16 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # q do o lse cos sin | qs_g do_g lse_g delta_g dq_acc | B T H Kv | scale | stream
     "flash_bwd_prep_bf16": ("flash_bwd", [_PTR] * 11 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # D | k v qs_g do_rows lse_g delta_g dq_acc dk dv | B T S H Kv accumulate | stream
     "flash_bwd_sweep_bf16": ("flash_bwd", [_INT] + [_PTR] * 9 + [_INT] * 6 + [_PTR]),
+    "flash_bwd_sweep_f16": ("flash_bwd_f16", [_INT] + [_PTR] * 9 + [_INT] * 6 + [_PTR]),
     # dq_acc cos sin dq | B T H Kv | scale | stream
     "flash_bwd_post_bf16": ("flash_bwd", [_PTR] * 4 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # o_acc lse_acc o_j lse_j lse_out o | rows | stream
@@ -160,6 +168,7 @@ _ENTRY_POINTS = {
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # D | q k v o lse | B T H window g0 t_global | scale | stream
     "halo_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "halo_fwd_f16": ("flash_fwd_f16", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
     "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
@@ -178,6 +187,10 @@ _ENTRY_POINTS = {
     # o_acc lse_acc o_j lse_j lse_out o | rows | stream
     "forms_ring_merge": ("flash_forms", [_INT] * 2 + [_PTR] * 6 + [_INT, _PTR]),
 }
+
+
+# operand dtype -> the suffix of the entry points of K1 and K2's sweep of that type
+TYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 @functools.cache
@@ -256,8 +269,8 @@ def flash_fwd(
     return_lse: bool = False,
 ):
     """Launch the forward kernel of q's form (``flash_forms.takes_forms``: K1
-    at bf16 with D = 64, 128, 192 or 256) on the current stream; returns o
-    (B, T, H, D) in q's dtype, or with
+    at bf16 or fp16 with D = 64, 128, 192 or 256) on the current stream;
+    returns o (B, T, H, D) in q's dtype, or with
     ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
     the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
     // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
@@ -277,7 +290,7 @@ def flash_fwd(
     if use_forms:
         forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
         return (o, lse) if return_lse else o
-    err = _kernel("flash_fwd_bf16")(
+    err = _kernel(f"flash_fwd_{TYPE_SUFFIX[q.dtype]}")(
         D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -339,11 +352,11 @@ def flash_bwd(
     atomics accumulate in an fp32 buffer, and a post-pass that un-rotates,
     scales and casts dq; it counts its launches in ``flash_bwd.launches``
     (those of the grouped form, Kv > 1, also in ``flash_bwd.grouped_launches``).
-    At D > 64 (bf16) the sweep of that head dim runs between the forms
-    pre-pass and post-pass (counted in ``flash_forms``), the whole still one
-    ``flash_bwd.launches``. The forms family (fp32, fp16, D > 256) runs its
-    pre-pass, dq, dk/dv and post-pass kernels, each counted in
-    ``flash_forms``."""
+    At D > 64 (bf16), and at fp16 at every D, the sweep of q's type and head
+    dim runs between the forms pre-pass and post-pass (counted in
+    ``flash_forms``), the whole still one ``flash_bwd.launches``. The forms
+    family (fp32, D > 256) runs its pre-pass, dq, dk/dv and post-pass
+    kernels, each counted in ``flash_forms``."""
     B, T, H, kv, use_forms = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
                                              grouped=True)
     if forms.takes_forms("flash_bwd_prep", q):  # every form but bf16 at D = 64: the forms pre-pass and post-pass
@@ -353,7 +366,7 @@ def flash_bwd(
         if use_forms:
             forms.forms_bwd_dq(k, v, prep, -1, None, accumulate=False)
             forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate=False)
-        else:  # bf16 at D = 128, 192, 256: K2's sweep of that head dim
+        else:  # bf16 at D = 128, 192, 256, fp16 at D = 64 ... 256: K2's sweep of that type and head dim
             _launch_sweep("flash_bwd", k, v, prep, dk, dv, accumulate=False)
             flash_bwd.launches += 1
             flash_bwd.grouped_launches += kv > 1
@@ -445,18 +458,17 @@ flash_bwd_prep.launches = 0
 
 
 def _launch_sweep(who: str, k, v, prep: GlobalPrep, dk, dv, accumulate: bool) -> None:
-    """Launch K2's sweep of qs's head dim over the keys of k and v (checked
-    here) into ``prep.dq_acc`` and dk, dv."""
+    """Launch K2's sweep of qs's operand type (bf16 or fp16) and head dim over
+    the keys of k and v (checked here) into ``prep.dq_acc`` and dk, dv."""
     B, T, H, kv = prep.shape
     D = prep.qs.shape[-1]
     if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
             or k.shape[-1] != D or dk.shape != k.shape or dv.shape != k.shape:
         raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
                          f"want (B={B}, S, {'' if kv == 1 else f'{kv}, '}{D}) for {H} query heads")
-    dev = prep.qs.device
-    bf16, f32 = torch.bfloat16, torch.float32
-    _check_operands(who, dev, (("k", k, bf16), ("v", v, bf16), ("dk", dk, f32), ("dv", dv, f32)))
-    err = _kernel("flash_bwd_sweep_bf16")(
+    dev, dt, f32 = prep.qs.device, prep.qs.dtype, torch.float32
+    _check_operands(who, dev, (("k", k, dt), ("v", v, dt), ("dk", dk, f32), ("dv", dv, f32)))
+    err = _kernel(f"flash_bwd_sweep_{TYPE_SUFFIX[dt]}")(
         D, k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(),
         prep.delta.data_ptr(), prep.dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, k.shape[1], H, kv,
         int(accumulate), torch.cuda.current_stream(dev).cuda_stream,

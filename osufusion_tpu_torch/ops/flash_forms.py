@@ -9,17 +9,23 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
 
 * ``"hopper"``: the wgmma kernels. bf16 operands with D = 64 at every wrapper;
   with D = 128, 192 or 256 at the wrappers of ``WIDE_WGMMA``, whose kernels
-  are templated on D: the forward K1 (``csrc/flash_fwd.cu``: ``flash_fwd``,
+  are templated on D: the forward K1 (``csrc/flash_fwd.cuh``: ``flash_fwd``,
   ``halo_fwd`` and the ring's hops), the global backward's sweep K2
-  (``csrc/flash_bwd.cu``: ``flash_bwd`` and the ring's ``flash_bwd_sweep``)
-  and the windowed pair with its pre-pass, K3a / K3b and their halo
-  instances K5a / K5b (``csrc/flash_bwd_windowed.cu``: ``flash_bwd_dq`` /
-  ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``);
+  (``csrc/flash_bwd_sweep.cuh``: ``flash_bwd`` and the ring's
+  ``flash_bwd_sweep``) and the windowed pair with its pre-pass, K3a / K3b and
+  their halo instances K5a / K5b (``csrc/flash_bwd_windowed.cu``:
+  ``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``).
+  fp16 operands with D = 64, 128, 192 or 256 at the wrappers of
+  ``F16_WGMMA``, whose kernels are templated on the operand type too: K1
+  (``flash_fwd``, ``halo_fwd``, the ring's hops) and K2's sweep
+  (``flash_bwd``, ``flash_bwd_sweep``);
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
-  fp32 and fp16 operands at D in ``FORMS_HEAD_DIMS``, and bf16 at D > 64 at
+  fp32 operands at D in ``FORMS_HEAD_DIMS``; fp16 at the windowed pair
+  (``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``),
   the ring's merge and the global backward's pre-pass and post-pass
-  (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at D > 64 runs K2's
-  sweep between these two);
+  (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at fp16 runs K2's
+  sweep between these two); and bf16 at D > 64 at the merge, the pre-pass and
+  the post-pass (``flash_bwd`` at D > 64 likewise);
 * ``"chunked"``: the forms family's chunked instance, for any operand dtype
   at a head dim above 256 that is a multiple of 64 (the forward, dq and dk/dv
   staged 64 columns of the head dim at a time);
@@ -50,12 +56,15 @@ from osufusion_tpu_torch.ops import flash_attention as fa
 # the head dims of the forms instances (csrc/flash_forms.cu's FORMS_DISPATCH); a multiple of 64 above them
 # runs the chunked instance
 FORMS_HEAD_DIMS = (64, 128, 192, 256)
-# the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
+# the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cuh, csrc/flash_bwd_sweep.cuh,
 # csrc/flash_bwd_windowed.cu)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 # the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS; every other wrapper's takes 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
+# the wrappers whose wgmma kernel also takes fp16 operands, at every head dim of WGMMA_HEAD_DIMS: K1 (the
+# forward, its halo instance, the ring's hops) and K2's sweep (csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu)
+F16_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"})
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -73,6 +82,8 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
     if head_dim > FORMS_HEAD_DIMS[-1]:
         return "chunked"
     if dtype == torch.bfloat16 and (head_dim == 64 or (who in WIDE_WGMMA and head_dim in WGMMA_HEAD_DIMS)):
+        return "hopper"
+    if dtype == torch.float16 and who in F16_WGMMA and head_dim in WGMMA_HEAD_DIMS:
         return "hopper"
     return "forms"
 
@@ -121,7 +132,9 @@ def forms_fwd(q, k, v, cos, sin, o, lse, window: int, scale: float, halo: Option
     D) or (B, S, Kv, D), already rotated; with tables q is raw and rotated
     inside. ``halo`` (g0, t_global): the halo slab's frame (S = T + window, q
     rotated, no tables). Operands checked by the calling wrapper. Counts in
-    ``forms_fwd.launches``."""
+    ``forms_fwd.launches``. bf16 and fp16 at D <= 256 have no forms forward
+    (K1 runs there): the entry point returns cudaErrorInvalidValue, and this
+    raises RuntimeError."""
     B, T, H, D = q.shape
     _check_aligned("forms_fwd", q, k, v, o)
     err = fa._kernel("forms_fwd")(
@@ -191,7 +204,8 @@ def forms_bwd_dq(k, v, prep, window: int, halo: Optional[tuple], accumulate: boo
     """Launch the forms dq kernel on the current stream over the keys of k and
     v: ``prep.dq_acc`` (fp32, group-major) gets ds k, stored, or with
     ``accumulate`` added to what it holds. Counts in
-    ``forms_bwd_dq.launches``."""
+    ``forms_bwd_dq.launches``. bf16 at D <= 256 has no forms dq (K2's sweep
+    and the wgmma windowed pair run there): RuntimeError."""
     _check_sweep("forms_bwd_dq", k, v, prep)
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dq")(
@@ -209,7 +223,8 @@ def forms_bwd_dkv(k, v, prep, dk, dv, window: int, halo: Optional[tuple], accumu
     """Launch the forms dk/dv kernel on the current stream over the keys of k
     and v: dk (rotated frame) and dv (k's shape, fp32) stored, or with
     ``accumulate`` added to; in the halo frame the slab rows outside the song
-    get zeros. Counts in ``forms_bwd_dkv.launches``."""
+    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 at D <= 256 has no
+    forms dk/dv: RuntimeError."""
     _check_sweep("forms_bwd_dkv", k, v, prep, (dk, dv))
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dkv")(

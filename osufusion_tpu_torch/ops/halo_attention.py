@@ -4,7 +4,7 @@ the wrappers of its CUDA kernels, the differentiable op that joins them, and
 their plain PyTorch versions.
 
 ``halo_fwd`` replaces ``osufusion_tpu/ops/pallas_attention.py::_halo_fwd_kernel``
-(launched by ``_halo_flash_fwd``): the flash forward of ``csrc/flash_fwd.cu``
+(launched by ``_halo_flash_fwd``): the flash forward of ``csrc/flash_fwd.cuh``
 in the halo frame. ``halo_bwd_dq`` and ``halo_bwd_dkv`` replace
 ``_halo_dq_kernel`` and ``_halo_dkv_kernel`` (launched by
 ``_halo_flash_bwd``): the windowed backward pair of
@@ -27,9 +27,10 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_windowed.cu``. Those take bf16
-operands at D = 64, 128, 192 and 256 (K1's HALO instances, and the windowed
-pair's with its pre-pass); every other form that a kernel takes runs the
+see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cu``. Those take
+bf16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and the
+windowed pair's with its pre-pass), and K1's HALO instances fp16 too; every
+other form that a kernel takes (fp16's dq and dk/dv among them) runs the
 forms family's kernels in the same frame (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
 D).
@@ -154,8 +155,9 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     if use_forms:
         forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
         return o, lse
-    err = _kernel("halo_fwd_bf16")(q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   lse.data_ptr(), B, T, H, window, g0, t_global, scale, _stream(q))
+    err = _kernel(f"halo_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                         o.data_ptr(), lse.data_ptr(), B, T, H, window, g0, t_global,
+                                                         scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
     return o, lse

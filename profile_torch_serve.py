@@ -1,7 +1,8 @@
 """Where the time of the PyTorch port's serving path, or of one training
 step, goes on one NVIDIA GPU.
 
-    python3 profile_torch_serve.py [--groupnorm fused|torch] [--dim-head 64] [--dtype bfloat16|float32]
+    python3 profile_torch_serve.py [--groupnorm fused|torch] [--dim-head 64] [--dtype bfloat16|float16|float32]
+        [--sampler ddim|dpmpp-2m]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096] [--precision full-bf16|bf16]
         [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1] [--dim-head 64]
@@ -13,14 +14,15 @@ At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 - ms per UNet call at B=2 (the doubled CFG batch), by CUDA events;
 - device time by kernel over one UNet call (torch.profiler), largest first,
   with the call's total device time and host time;
-- s/map of the sampler, two maps;
+- s/map of the sampler, two maps (DDIM-50, or with ``--sampler dpmpp-2m``
+  DPM-Solver++(2M) at 16 steps);
 - ms of the log-VQT of a 180 s signal on the GPU, and of the host decode of
   one map to .osu text.
 
 ``--dim-head`` sets the model's ``attn_dim_head`` (a multiple of 64: 128,
 192, 256 run K1 and K2's wider instances; the transformers then have
 512 / dim_head heads), ``--dtype`` the serving model's parameter dtype
-(float32 runs the forms kernels).
+(float32 runs the forms kernels, float16 K1's fp16 instance).
 
 ``--groupnorm torch`` swaps the port's ``GroupNorm1`` for
 ``nn.functional.group_norm`` with one group on (B, C, T), the form it
@@ -220,7 +222,10 @@ def main() -> None:
     p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
     p.add_argument("--mesh-seq", type=int, default=1, help="--train: sequence shards, one process each")
     p.add_argument("--dim-head", type=int, default=64, help="the attention head dim (attn_dim_head)")
-    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16", help="the serving model's dtype")
+    p.add_argument("--dtype", choices=["bfloat16", "float16", "float32"], default="bfloat16",
+                   help="the serving model's dtype")
+    p.add_argument("--sampler", choices=["ddim", "dpmpp-2m"], default="ddim",
+                   help="the sampler of the s/map reading: DDIM-50 or DPM-Solver++(2M) at 16 steps")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs an NVIDIA GPU")
@@ -280,13 +285,14 @@ def main() -> None:
               f"of {CALLS})")
         kernel_table(unet_call)
 
+    steps, name = (16, "DPM-16") if args.sampler == "dpmpp-2m" else (50, "DDIM-50")
     for seed in (1, 2):
         x0 = torch.randn((1, 6, FRAMES), generator=torch.Generator().manual_seed(seed)).cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=50)
+        out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=steps, method=args.sampler)
         torch.cuda.synchronize()
-        print(f"[sampler] {FRAMES} frames, DDIM-50, CFG 2.0, B=1: {time.perf_counter() - t0:.3f} s/map")
+        print(f"[sampler] {FRAMES} frames, {name}, CFG 2.0, B=1: {time.perf_counter() - t0:.3f} s/map")
 
     y = np.random.default_rng(0).standard_normal(180 * 22050).astype(np.float32) * 0.1
     vqt_ms = _cuda_ms(lambda: log_vqt(y, device="cuda"), 5)

@@ -1,10 +1,10 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
-the forms family's instances at fp32, bf16 and fp16 with D = 64 ... 256 and
-its chunked instance above, the instances of K1, K2, the windowed pair and
-its halo frame at D = 128, 192 and 256, and
-the differentiable ops that join them) against
+the forms family's instances (fp32 with D = 64 ... 256, fp16's dq and dk/dv,
+and the chunked instance above), the instances of K1, K2, the windowed pair
+and its halo frame at D = 128, 192 and 256, K1's and K2's sweep's fp16
+instances at D = 64 ... 256, and the differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -627,12 +627,14 @@ NO_WGMMA_SITES = [(torch.float16, 64), (torch.float32, 320), (torch.bfloat16, 32
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D", NO_WGMMA_SITES, ids=["fp16", "fp32-D320", "bf16-D320"])
 @pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
-def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
+def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     """fp16 operands, or a head dim above 256, which the JAX package runs
-    through Pallas: ``sdpa`` raises nothing and runs the forms family (its
-    fp16 instance, its chunked instance above 256), forward and under a
-    gradient, with the forms launch counters moving and no wgmma kernel
-    launched, and matches autograd through the plain attention in fp32."""
+    through Pallas: ``sdpa`` raises nothing, forward and under a gradient,
+    and matches autograd through the plain attention in fp32. Above 256 the
+    forms family's chunked instance runs and no wgmma kernel. fp16 at D = 64
+    runs K1 for both forwards and no forms forward; its global backward K2's
+    sweep between the forms pre-pass and post-pass, its windowed one the
+    forms pre-pass, dq, dk/dv and post-pass (the fp16 windowed pair)."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
     B, T, H = 2, 512, 4
@@ -648,9 +650,14 @@ def test_site_no_kernel_takes_raises_on_the_card(cuda, dtype, D, window):
     out = sdpa(*leaves, window, rope)
     out.backward(do)
     torch.cuda.synchronize()
-    assert _kernel_launches() == before[0]
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     runs = [a - b for a, b in zip(_forms_launches(), before[1])]
-    assert runs == [2, 1, 1, 1, 1, 0], runs
+    if dtype == torch.float16:  # K1 twice; K2 (flash_bwd) at the global site
+        assert kernels == [2, int(window is None)] + [0] * 9, kernels
+        assert runs == ([0, 1, 0, 0, 1, 0] if window is None else [0, 1, 1, 1, 1, 0]), runs
+    else:
+        assert kernels == [0] * 11, kernels
+        assert runs == [2, 1, 1, 1, 1, 0], runs
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, rope)
     ref.backward(do.float())
@@ -711,6 +718,9 @@ def test_dpm16_through_the_kernels_matches_the_plain_attention(cuda):
 
 FORMS = [(dt, D) for dt in (torch.float32, torch.bfloat16) for D in (64, 128, 192, 256)]
 FORMS_IDS = [f"{'fp32' if dt == torch.float32 else 'bf16'}-D{D}" for dt, D in FORMS]
+# the instances with a forms forward, dq and dk/dv at D <= 256: fp32 alone (bf16 and fp16 run K1 forward there,
+# bf16 K2's sweep and the wgmma pair backward)
+FORMS_F32 = FORMS[:4]
 # fp32 against the plain fp32 versions: the same arithmetic summed in another
 # order, a few 1e-7 relative at these lengths (the bound leaves room for
 # fp32's worst case over a few hundred keys); bf16: the wgmma kernels' bounds
@@ -738,12 +748,11 @@ def _forms_inputs(B, T, H, Kv, D, dtype, tables, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,Kv,window,tables", FORMS_SITES, ids=FORMS_SITE_IDS)
-@pytest.mark.parametrize("dtype,D", FORMS, ids=FORMS_IDS)
+@pytest.mark.parametrize("dtype,D", FORMS_F32, ids=FORMS_IDS[:4])
 def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables):
-    """Every instance of the forms family through its wrappers (bf16/64 too,
-    which the form rule gives the wgmma kernels): the forward with its LSE,
-    then the pre-pass, dq, dk/dv and post-pass, against the plain fp32
-    versions; each entry point launched once."""
+    """Every fp32 instance of the forms family through its wrappers: the
+    forward with its LSE, then the pre-pass, dq, dk/dv and post-pass, against
+    the plain fp32 versions; each entry point launched once."""
     rel_tol, lse_tol = _forms_tols(dtype)
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T)
     scale = D**-0.5
@@ -1145,3 +1154,184 @@ def test_wide_halo_pair_matches_plain(cuda, shard):
     assert torch.equal(again[0], dq) and all(torch.equal(a, b) for a, b in
                                              zip(ha.halo_bwd_dkv(k, v, do, again[1], W, g0, t_global), (dk, dv)))
 
+
+
+# ------------------------------------------------- K1 and K2's sweep at fp16 (wgmma, D = 64 ... 256)
+
+F16_DIMS = [64, 128, 192, 256]
+# (B, T, H, Kv, window, tables, with_lse): K1's forms at fp16. (a) windowed with fused q-RoPE, no LSE (serving);
+# (b) global with tables and its LSE, then K2's MQA sweep; (d) windowed with its LSE, then the fp16 windowed pair
+# (the forms pre-pass, dq, dk/dv and post-pass); (c) grouped (G = 2) global without tables and with a ragged
+# last tile, then K2's grouped sweep
+F16_SITES = [(2, 1000, 4, 1, 256, True, False), (2, 1024, 4, 1, -1, True, True), (1, 1000, 4, 1, 256, True, True),
+             (1, 333, 8, 4, -1, False, True)]
+F16_SITE_IDS = ["a-windowed", "b-global-lse", "d-windowed-lse", "c-grouped"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables,with_lse", F16_SITES, ids=F16_SITE_IDS)
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables, with_lse):
+    """K1's fp16 instance in each of its forms, and at the global sites K2's
+    fp16 sweep between the forms pre-pass and post-pass, through their
+    wrappers against the plain fp32 versions on the same fp16 inputs at
+    F16_REL_TOL, with planted faults above it: the forward without its last
+    key tile (global) or with the window one key short on each side
+    (windowed), the backward from an LSE off by 0.05. No forms forward runs."""
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float16, tables, cuda, seed=D + T + Kv)
+    scale = D**-0.5
+    before = _kernel_launches(), _forms_launches()
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True) if with_lse else \
+        (fa.flash_fwd(q, k_rot, v, cos, sin, window, scale), None)
+    glob, grads = window < 0, ()
+    if with_lse and glob:
+        grads = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+    elif with_lse:
+        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+        grads = (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window))
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    formed = [a - b for a, b in zip(_forms_launches(), before[1])]
+    assert kernels == [1, int(glob)] + [0] * 9, kernels
+    assert formed == ([0, 1, 0, 0, 1, 0] if glob else [0, 1, 1, 1, 1, 0] if with_lse else [0] * 6), formed
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    if glob:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
+    else:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0]
+    assert o.dtype == torch.float16 and torch.isfinite(o).all()
+    assert _rel(o, o_ref) < F16_REL_TOL < _rel(o_fault, o_ref), (_rel(o, o_ref), _rel(o_fault, o_ref))
+    if lse is not None:
+        assert (lse - lse_ref).abs().max().item() < F16_LSE_TOL
+    if not grads:
+        return
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse_ref), plain(lse_ref + 0.05)
+    assert grads[0].dtype == torch.float16 and grads[1].dtype == torch.float32
+    for name, a, b, fault in zip(("dq", "dk", "dv"), grads, refs, faults):
+        assert torch.isfinite(a).all() and _rel(a, b) < F16_REL_TOL < _rel(fault, b), \
+            f"{name}: rel L2 {_rel(a, b)}, planted fault {_rel(fault, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 3], ids=["first", "last"])
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_halo_forward_runs_k1(cuda, D, shard):
+    """The halo forward at fp16 runs K1's halo instance (K4), not the forms
+    forward, and matches its plain version at F16_REL_TOL with the slab rows
+    outside the song set large; a slab one row off its frame lies above the
+    bound."""
+    B, T, H, W, n = 1, 512, 4, 256, 4
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).half()
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).half() for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    before = ha.halo_fwd.launches, forms.forms_fwd.launches
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, D**-0.5)
+    torch.cuda.synchronize()
+    assert (ha.halo_fwd.launches, forms.forms_fwd.launches) == (before[0] + 1, before[1])
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
+    assert o.dtype == torch.float16 and _rel(o, o_ref) < F16_REL_TOL < _rel(shifted, o_ref)
+    assert (lse - lse_ref).abs().max().item() < F16_LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
+    """The ring at fp16 over 2 and 4 shards: K1 per hop, the forms merge, and
+    K2's fp16 sweep adding into the travelling dk and dv (and into one dq
+    buffer) between the forms pre-pass and post-pass, against the plain parts
+    at F16_REL_TOL; kernel sweeps that store in place of adding lie above
+    the bound."""
+    from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    class StoringSweeps(KernelParts):  # planted fault: every hop's sweep stores its dk and dv
+        @staticmethod
+        def backward_sweep(state, k, v, dk, dv, accumulate):
+            fa.flash_bwd_sweep(k, v, state, dk, dv, False)
+
+    B, T, H = 1, 512, 4
+    for n in (2, 4):
+        q, k_rot, v, do, cos, sin = _forms_inputs(B, n * T, H, Kv, D, torch.float16, rope, cuda, seed=D + n)
+
+        def run(parts):
+            def rank(r, rotation):
+                sl = slice(r * T, (r + 1) * T)
+                c, s = (None, None) if cos is None else (cos[sl].contiguous(), sin[sl].contiguous())
+                qr, kr, vr, dor = (x[:, sl].contiguous() for x in (q, k_rot, v, do))
+                o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+                return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+            results = LocalRing(n).run(rank)
+            torch.cuda.synchronize()
+            return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+        before = _kernel_launches(), _forms_launches()
+        got = run(None)
+        kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+        formed = [a - b for a, b in zip(_forms_launches(), before[1])]
+        assert kernels == [n * n, 0, 0, 0, 0, n * n, 0, 0, 0, 0, 0], kernels
+        assert formed == [0, n, 0, 0, n, n * n], formed
+        ref = run(PlainParts)
+        stored = run(StoringSweeps)
+        assert got[0].dtype == got[2].dtype == torch.float16
+        assert _rel(got[0], ref[0]) < F16_REL_TOL and (got[1] - ref[1]).abs().max().item() < F16_LSE_TOL
+        for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+            assert torch.isfinite(a).all() and _rel(a, b) < F16_REL_TOL, f"n={n} {name}: rel L2 {_rel(a, b)}"
+        assert _rel(stored[4], ref[4]) > F16_REL_TOL
+
+
+# the forms instances that no route launches since K1 and K2 took bf16 and fp16 (csrc/flash_forms.cu,
+# FORMS_DISPATCH): (entry point, dtype, D)
+PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
+                ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
+                ("forms_bwd_dkv", torch.bfloat16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,dtype,D", PRUNED_FORMS, ids=[f"{e}-{str(d)[6:]}-D{n}" for e, d, n in PRUNED_FORMS])
+def test_pruned_forms_instance_raises(cuda, entry, dtype, D):
+    """A forms instance that is not built returns cudaErrorInvalidValue, and
+    its wrapper raises RuntimeError without counting a launch."""
+    B, T, H = 1, 256, 2
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, dtype, True, cuda, seed=D)
+    scale = D**-0.5
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
+    dk, dv = torch.empty(k_rot.shape, device=cuda), torch.empty(k_rot.shape, device=cuda)
+    call = {"forms_fwd": lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale),
+            "forms_bwd_dq": lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False),
+            "forms_bwd_dkv": lambda: forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, -1, None, accumulate=False)}[entry]
+    before = getattr(forms, entry).launches
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        call()
+    assert getattr(forms, entry).launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
+def test_f16_failed_launch_raises(cuda, monkeypatch, window):
+    """An fp16 site whose kernel launch fails raises RuntimeError, forward
+    and under a gradient: nothing falls back to the forms body or to the
+    plain version."""
+    from osufusion_tpu_torch.ops.attention import sdpa
+
+    B, T, H, D = 1, 512, 4, 64
+    q, k, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float16, True, cuda, seed=9)
+    k, v = k[:, :, None], v[:, :, None]
+    launched = []
+    monkeypatch.setattr(fa, "_kernel", lambda entry: (lambda *args: launched.append(entry) or 719))
+    with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed"):
+        with torch.no_grad():
+            sdpa(q, k, v, window, (cos, sin))
+    with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed"):
+        sdpa(*(t.clone().requires_grad_(True) for t in (q, k, v)), window, (cos, sin))
+    assert launched == ["flash_fwd_f16", "flash_fwd_f16"]

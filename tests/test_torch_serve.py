@@ -2,6 +2,7 @@
 package loads into ``load_model`` and ``generate_beatmap`` turns a short WAV
 into a parseable ``.osz``; and the port imports no JAX."""
 
+import copy
 import io
 import subprocess
 import sys
@@ -75,6 +76,51 @@ def test_jax_checkpoint_serves_through_the_port(tmp_path, sampler):
             z.extract(name, tmp_path)
             Beatmap(tmp_path / name)  # parses
     assert len(texts) == 2 and all("[HitObjects]" in t for t in texts)
+
+
+# the sampled signal at fp16, port against the JAX package on the same converted weights: each package rounds
+# its activations to fp16 at its own points (a UNet call's output differs from the fp32 one by ~2e-3 relative
+# in either), and DPM-Solver++(2M) at CFG 2.0 multiplies a step's eps error by up to 1 / sqrt(alpha_bar) at the
+# first steps: the two fp16 signals read ~2-3e-2 from their fp32 one and ~3e-2 from each other
+F16_SAMPLE_REL_TOL = 5e-2
+
+
+def test_float16_checkpoint_serves_through_the_port(tmp_path):
+    """A float16 config (what ``--mixed-precision fp16`` writes) on the CPU:
+    ``load_model`` gives fp16 parameters, DPM-Solver++(2M) at CFG 2.0 samples
+    through the port's plain path within F16_SAMPLE_REL_TOL of the JAX
+    package sampling the same weights at float16, away from the port's own
+    fp32 signal by fp16's roundings, and ``generate_beatmap`` serves it."""
+    cfg = JConfig(model=JModelConfig(**{**TINY, "dtype": "float16"}))
+    jmodel = jax_build_model(cfg.model, cfg.diffusion)
+    args = (jnp.zeros((1, 32, 6)), jnp.zeros((1, 32, 96)), jnp.zeros((1,)), jnp.zeros((1, 5)), jnp.ones((1,), bool))
+    variables = random_variables(jmodel.unet, *args, seed=0)
+    save_safetensors(variables, tmp_path / "model.safetensors")
+    cfg.save(tmp_path / "config.json")
+    model, params = load_model(tmp_path / "model.safetensors", device="cpu")
+    assert {p.dtype for p in params.parameters()} == {torch.float16}
+
+    B, N = 2, 250
+    rng = np.random.default_rng(5)
+    a = rng.normal(-10.0, 3.0, (B, 96, N)).astype(np.float32)
+    c = rng.uniform(-1, 1, (B, 5)).astype(np.float32)
+    x0 = rng.standard_normal((B, 6, N)).astype(np.float32)
+    kwargs = dict(cond_scale=2.0, sampling_timesteps=4, method="dpmpp-2m")
+    want = np.asarray(jmodel.sample(variables, jnp.asarray(a), jnp.asarray(c), x=jnp.asarray(x0), **kwargs), np.float32)
+    got = model.sample(params, *map(torch.from_numpy, (a, c)), x=torch.from_numpy(x0), **kwargs)
+    fp32 = model.sample(copy.deepcopy(params).float(), *map(torch.from_numpy, (a, c)), x=torch.from_numpy(x0), **kwargs)
+    rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    rel_fp32 = np.linalg.norm(got.numpy() - fp32.numpy()) / np.linalg.norm(fp32.numpy())
+    assert got.shape == (B, 6, N) and np.isfinite(got.numpy()).all()
+    assert rel < F16_SAMPLE_REL_TOL, rel
+    assert rel_fp32 > 1e-3, rel_fp32  # the port's signal went through fp16, not fp32
+
+    wav = tmp_path / "song.wav"
+    _click_track(wav)
+    data, texts = generate_beatmap(model, params, wav, sampling_timesteps=2, sampler="dpmpp-2m", seed=1)
+    with zipfile.ZipFile(io.BytesIO(data)) as z:
+        assert sum(n.endswith(".osu") for n in z.namelist()) == 1
+    assert len(texts) == 1 and "[HitObjects]" in texts[0]
 
 
 def test_port_imports_no_jax():

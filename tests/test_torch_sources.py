@@ -99,14 +99,16 @@ def test_no_source_is_left_on_mma_sync(name):
 
 
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
-@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_windowed.cu", "flash_bwd_prep.cuh"])
+@pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_windowed.cu", "flash_bwd_prep.cuh",
+                                  "flash_fwd_f16.cu", "flash_bwd_f16.cu"])
 def test_k1_and_k2_instantiate_every_wgmma_head_dim(name, D):
     """K1 (the forward and its halo instance), K2's sweep and the windowed
     pair (K3a / K3b and their halo instances) dispatch on the head dim they
     are given to an instance of each of 64, 128, 192, 256, as
-    ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers; the pre-pass is
-    templated on the head dim, and the windowed pair's entry point
-    instantiates it at each of them."""
+    ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers, in the source or a
+    header it includes (K1's and K2's sweep's fp16 libraries too); the
+    pre-pass is templated on the head dim, and the windowed pair's entry
+    point instantiates it at each of them."""
     from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS
 
     assert D in WGMMA_HEAD_DIMS
@@ -117,23 +119,79 @@ def test_k1_and_k2_instantiate_every_wgmma_head_dim(name, D):
         entry = entry[:entry.index('extern "C"', 1)]
         assert "flash_bwd_prep_kernel<DD, true>" in entry and "WINDOWED_HEAD_DIMS(CALL)" in entry
         name = "flash_bwd_windowed.cu"
-    text = _text(name)
+    text = _text(name) + "".join(_text(header) for header in _includes(name))
     assert re.search(rf"case {D}: return CALL\({D}\);", text), f"{name} has no instance of head dim {D}"
 
 
 @pytest.mark.parametrize("instance", ["float", "__nv_bfloat16", "__half", "chunked"])
 def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     """``FORMS_DISPATCH`` (csrc/flash_forms.cu) serves fp32, bf16 and fp16
-    operands at D = 64 ... 256, and the chunked instance (D = 0 there) at
-    every head dim above 256 that is a multiple of 64, for every type."""
+    operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
+    head dim above 256 that is a multiple of 64, for every type, at the
+    pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward keeps
+    only fp32 at D <= 256 (K1 takes bf16 and fp16 there), dq and dk/dv fp32
+    and fp16 (K2's sweep and the wgmma pair take bf16); each of the three
+    keeps every type's chunked instance."""
     text = _text("flash_forms.cu")
-    body = text[text.index("#define FORMS_TYPE"):text.index("#define FORMS_DISPATCH")]
+    dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_CHUNKED")]
+    chunked = text[text.index("#define FORMS_CHUNKED"):text.index("#define FORMS_FWD")]
+    lists = text[text.index("#define FORMS_FWD"):text.index("#define FORMS_DISPATCH")]
     dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_fwd')]
+    for D in (64, 128, 192, 256):
+        assert f"return CALL(TT, {D});" in dims
+    assert "return CALL(TT, 0);" in chunked and "D > 256 ? 0 : D" in dispatch
+
+    def named(macro: str) -> str:  # the instance list of one entry point's macro, the lists it names expanded
+        line = lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
+        return line + "".join(named(m) for m in re.findall(r"\b(FORMS_(?:FWD|SWEEPS))\b", line.split(" ", 2)[2]))
+
+    every, fwd, sweeps = named("FORMS_EVERY"), named("FORMS_FWD"), named("FORMS_SWEEPS")
+    entries = {e: text[text.index(f'extern "C" int {e}('):] for e in
+               ("forms_fwd", "forms_bwd_prep", "forms_bwd_dq", "forms_bwd_dkv", "forms_bwd_post", "forms_ring_merge")}
+    uses = {e: re.search(r"FORMS_DISPATCH\((\w+)\)", body).group(1) for e, body in entries.items()}
+    assert uses == {"forms_fwd": "FORMS_FWD", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_SWEEPS",
+                    "forms_bwd_dkv": "FORMS_SWEEPS", "forms_bwd_post": "FORMS_EVERY", "forms_ring_merge": "FORMS_EVERY"}
     if instance == "chunked":
-        assert "return CALL(TT, 0);" in body and "D > 256 ? 0 : D" in dispatch
         for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
             assert f"{kernel}<" in text, f"{kernel} is never launched"
-    else:
-        assert re.search(rf"FORMS_TYPE\(DTYPE_\w+, {instance}\)", dispatch), f"FORMS_DISPATCH does not name {instance}"
-        for D in (64, 128, 192, 256):
-            assert f"return CALL(TT, {D});" in body
+        for name in ("float", "__nv_bfloat16", "__half"):
+            for listed in (every, fwd, sweeps):
+                assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", listed)
+        return
+    assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
+    at_dims = lambda listed: bool(re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", listed))
+    assert at_dims(fwd) == (instance == "float")
+    assert at_dims(sweeps) == (instance != "__nv_bfloat16")
+
+
+# the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
+WGMMA_WRAPPERS = ["wgmma_ss_n64", "wgmma_ss_n128", "wgmma_rs_n64", "wgmma_rs_n128", "wgmma_rs_n192", "wgmma_rs_n256"]
+
+
+@pytest.mark.parametrize("wrapper", WGMMA_WRAPPERS)
+def test_every_wgmma_wrapper_has_an_f16_form(wrapper):
+    """Every ``wgmma`` wrapper of hopper.cuh spells its instruction at bf16
+    and at fp16 operands (fp32 accumulators), chosen by its operand type;
+    no wrapper is left at one type, and hopper.cuh has no ``mma.sync``."""
+    text = _text("hopper.cuh")
+    wrappers = re.findall(r"void (wgmma_[sr]s_n\d+)\(", text)
+    assert sorted(wrappers) == sorted(WGMMA_WRAPPERS)
+    body = text[text.index(f"void {wrapper}("):]
+    body = body[:body.index("\n}\n")]
+    assert "typename T = __nv_bfloat16" in text[:text.index(f"void {wrapper}(")].rsplit("template", 1)[1]
+    assert "mma_async.sync.aligned.m64n" in body
+    assert '"f32.bf16.bf16"' in body and '"f32.f16.f16"' in body and "IS_F16<T>" in body
+    assert "mma.sync" not in text
+
+
+@pytest.mark.parametrize("entry", ["flash_fwd", "halo_fwd", "flash_bwd_sweep"])
+def test_fp16_entry_point_twins_its_bf16_one(entry):
+    """K1's and K2's sweep's fp16 entry points take the bf16 ones' arguments,
+    from libraries of their own built from sources that instantiate the same
+    header's kernels at __half."""
+    bf16_lib, bf16_args = _ENTRY_POINTS[f"{entry}_bf16"]
+    f16_lib, f16_args = _ENTRY_POINTS[f"{entry}_f16"]
+    assert f16_args == bf16_args and f16_lib != bf16_lib and f16_lib in SOURCES
+    header = {"flash_fwd": "flash_fwd.cuh", "halo_fwd": "flash_fwd.cuh", "flash_bwd_sweep": "flash_bwd_sweep.cuh"}[entry]
+    assert header in _includes(SOURCES[bf16_lib].name) and header in _includes(SOURCES[f16_lib].name)
+    assert "<__half, DD" in _text(SOURCES[f16_lib].name) and "<__nv_bfloat16, DD" in _text(SOURCES[bf16_lib].name)
