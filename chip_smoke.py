@@ -77,9 +77,11 @@ failure raises and the exit code is not 0:
     steps (phase 19's DiT cell holds the sharded save and resume); s/step,
     peak memory and launches per rank, and step 1's loss against phase 9's
     one-card trainer at the same seed. Before it, each rank runs one windowed site with two KV heads (T =
-    65536, W = 4096, H = 16) through ``ops.attention.sdpa`` on its frames:
-    forward and backward against the one-card ``flash_attention``, with the
-    halo kernels launched once per KV head. One card per process over NCCL
+    65536, W = 4096, H = 16) through ``ops.attention.sdpa`` on its frames, at
+    bf16 and at fp16 (the attention of ``--mixed-precision fp16`` under the
+    shard: K4 and the fp16 K5a / K5b): forward and backward against the
+    one-card ``flash_attention``, with the halo kernels launched once per KV
+    head. One card per process over NCCL
     where two or more are visible; with one card both processes share it over
     gloo, whose collectives go through host memory.
 
@@ -149,15 +151,15 @@ failure raises and the exit code is not 0:
     (f) the sites that only a forms or fp16 instance takes, through
     ``ops.attention.sdpa`` under a gradient, against fp32 plain autograd
     with a planted fault above the bound: fp16 at D = 64 ... 256, windowed
-    (K1 forward, the forms windowed pair backward, no forms forward), and
+    (K1 forward, the fp16 wgmma pair backward, no forms kernel), and
     fp32, bf16 and fp16 at D = 320 and 512 (the chunked instance); a D = 32
     site runs the XLA route (rope and the plain attention), launches no
     kernel and equals the plain attention; a refused window raises
     ValueError, a failed bf16, fp16 or forms launch RuntimeError.
     Kernel level: every forms instance that is built (fp32 at D = 64 ... 256:
-    forward, pre-pass, dq, dk/dv, post-pass, merge; fp16 there: all but the
-    forward, which K1 takes; bf16 there: the pre-pass, post-pass and merge
-    around K2's sweep; the chunked instance at bf16/320) on one site's chain
+    forward, pre-pass, dq, dk/dv, post-pass, merge; bf16 and fp16 there: the
+    pre-pass, post-pass and merge around K2's sweep; the chunked instance at
+    bf16/320) on one site's chain
     (K1 and K2's sweep where the forms body is not built) against its plain
     fp32 version at B=2, T=4096, H=16 (global, tables), fp32/64 also windowed
     (B=1, T=16384, W=2048) and fp32/64 and bf16/128 grouped (B=2, T=2048,
@@ -179,9 +181,15 @@ failure raises and the exit code is not 0:
     forms post-pass) against their plain versions at fp16's bounds with
     planted faults, at B=2, T=4096, H=16 (global, tables); K1 (a) also at the
     serving shape (B=2, T=24576, W=4096); each timed beside the same kernel
-    at bf16 on the same values, the bound, the plain version, rope + SDPA at
-    fp16, and the forms fp16 backward (pre-pass, dq, dk/dv, post-pass) it
-    replaces.
+    at bf16 on the same values, the bound, the plain version and rope + SDPA
+    at fp16. The windowed pair at fp16 (``phase_f16_pair_kernels``): K3a with
+    its pre-pass and K3b at D = 64 ... 256 at B=2, T=4096, H=16 (global,
+    tables) and at D = 64 at the whole song's level 0 (B=1, T=65536, W=4096),
+    K5a / K5b at D = 64 and 128 at phase 10's four-shard rank shape, against
+    their plain versions at fp16's bound with planted faults, two launches
+    bit-identical, each timed beside the bf16 pair on the same values, the
+    bound, the plain version and rope + SDPA's backward at fp16 (band mask
+    at the windowed sites).
     (b), (c) and (h): fp32 serving, bf16 serving of a UNet with
     attn_dim_head=128 and fp16 serving of the default UNet (D = 64), each the
     180 s song through ``generate_beatmap`` at DPM-16, CFG 2.0 (444 forms
@@ -206,6 +214,12 @@ failure raises and the exit code is not 0:
     4096; B=1, T=65536, full bf16, ``mixed``), 2 steps: 39 launches of each
     of the wgmma windowed pair at D = 128 a step, 57 of K1 with its LSE, no
     forms forward, dq or dk/dv; s/step, peak memory and a finite loss.
+25. Whole-song training at fp16: ``trainer.train`` at phase 9's cell with
+    ``--mixed-precision fp16`` (float32 weights and moments, the forward at
+    float16 under autocast, the JAX package's static loss scale of 4096), 2
+    steps: 39 launches of each of the fp16 wgmma windowed pair (K3a with its
+    pre-pass, K3b) a step, 57 of K1 with its LSE, no forms forward, dq or
+    dk/dv; s/step, peak memory and finite losses.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1168,11 +1182,11 @@ FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
 
 def _forms_bodies(dtype, D: int) -> tuple:
     """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one at
-    fp32 and above D = 256; at fp16 with D <= 256 all but the forward (K1 takes it); at bf16 there the pre-pass,
-    post-pass and merge (K1, K2's sweep and the wgmma windowed pair take the rest)."""
+    fp32 and above D = 256; at bf16 and fp16 with D <= 256 the pre-pass, post-pass and merge (K1, K2's sweep
+    and the wgmma windowed pair take the rest)."""
     if dtype == torch.float32 or D > 256:
         return FORMS_BODIES
-    return FORMS_BODIES[1:] if dtype == torch.float16 else FORMS_BODIES[3:]
+    return FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
 # ~4096 * 2^-24 = 2.4e-4 relative, its typical error a few 1e-7. The planted faults (the last key tile
@@ -1405,8 +1419,8 @@ def phase_forms_kernels() -> dict:
     return records
 
 
-# (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the forms
-# windowed pair's backward), and each operand dtype at head dims above 256 (the chunked instance); (dtype, D,
+# (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the fp16 wgmma
+# pair's backward), and each operand dtype at head dims above 256 (the chunked instance); (dtype, D,
 # window)
 FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
                    + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
@@ -1417,8 +1431,8 @@ FORMS_F16_REL_TOL = 2e-3
 
 def phase_forms_raise() -> None:
     """(f) Every form that the JAX package runs runs a kernel on the card: through ``ops.attention.sdpa``
-    under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the forms pre-pass, dq, dk/dv
-    and post-pass once each, no forms forward) and fp32, bf16 and fp16 at D = 320 and 512 (global: the
+    under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the fp16 wgmma pair, K3a with
+    its pre-pass and K3b, once each, and no forms kernel) and fp32, bf16 and fp16 at D = 320 and 512 (global: the
     chunked instance's forward, pre-pass, dq, dk/dv and post-pass once each, no wgmma kernel) raise nothing,
     and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
     keys of the last tile dropped, or a window two keys short) above the bound. A site whose head dim is not
@@ -1476,9 +1490,9 @@ def phase_forms_raise() -> None:
         name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
         held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
                     f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}")
-        k1 = dt == torch.float16 and D <= 256  # K1's forward, then the forms windowed pair
-        if moved != [int(k1)] + [0] * 10 or runs != {"fwd": int(not k1), "prep": 1, "dq": 1, "dkv": 1, "post": 1,
-                                                     "merge": 0}:
+        k1 = int(dt == torch.float16 and D <= 256)  # K1's forward, then the fp16 wgmma pair
+        if moved != [k1, 0, k1, k1] + [0] * 7 or runs != {"fwd": 1 - k1, "prep": 1 - k1, "dq": 1 - k1, "dkv": 1 - k1,
+                                                         "post": 1 - k1, "merge": 0}:
             failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}")
         if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
             failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
@@ -1620,14 +1634,13 @@ def phase_f16_kernels() -> dict:
     """K1 with its LSE and the whole global backward (the forms pre-pass, K2's fp16 sweep, the forms
     post-pass) at fp16 and D = 64 ... 256 against their plain fp32 versions on the same fp16 inputs, with
     planted faults above the fp16 bounds, each timed by CUDA events beside the same kernels at bf16 on the
-    same values, the bound, the plain version, rope + SDPA at fp16 (forward; backward by autograd) and the
-    forms fp16 backward that the sweep replaces (pre-pass, dq, dk/dv, post-pass); then K1 (a) at the serving
+    same values, the bound, the plain version and rope + SDPA at fp16 (forward; backward by autograd); then
+    K1 (a) at the serving
     site against plain with a window one key short as the planted fault, fp16 beside bf16. Returns {D:
     {"fwd": record, "bwd": record}} and the serving site's record under "serve"."""
     import torch.nn.functional as F
 
     from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops import flash_forms as forms
     from osufusion_tpu_torch.ops.rope import apply_rope
     from osufusion_tpu_torch.utils.flops import attention_flops
 
@@ -1668,20 +1681,12 @@ def phase_f16_kernels() -> dict:
         prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
         prep_b = fa.flash_bwd_prep(qb, kb, vb, ob, lseb, dob, cos, sin, scale)
         dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
-
-        def forms_backward():  # the route that K2's fp16 sweep replaces: the forms pre-pass, dq, dk/dv, post-pass
-            p = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
-            forms.forms_bwd_dq(k_rot, v, p, -1, None, accumulate=False)
-            forms.forms_bwd_dkv(k_rot, v, p, dk_s, dv_s, -1, None, accumulate=False)
-            return forms.forms_bwd_post(p, cos, sin, scale)
-
         ms = {
             "fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 10),
             "fwd_bf16": _cuda_ms(lambda: fa.flash_fwd(qb, kb, vb, cos, sin, -1, scale, return_lse=True), 10),
             "sweep": _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk_s, dv_s, False), 5),
             "sweep_bf16": _cuda_ms(lambda: fa.flash_bwd_sweep(kb, vb, prep_b, dk_s, dv_s, False), 5),
             "bwd": _cuda_ms(lambda: fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale), 5),
-            "forms_bwd": _cuda_ms(forms_backward, 2),
         }
         del prep, prep_b, qb, kb, vb, dob, ob, lseb
         fwd_plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1)
@@ -1708,9 +1713,7 @@ def phase_f16_kernels() -> dict:
              f"{fwd_bound[0] / ms['fwd']:.1%}; plain {fwd_plain_ms:.3f}; rope+SDPA fp16 {lib_fwd_ms:.3f}); K2's sweep "
              f"fp16 {ms['sweep']:.3f} ms, bf16 {ms['sweep_bf16']:.3f} ms ({ms['sweep'] / ms['sweep_bf16']:.3f}x); "
              f"whole backward fp16 {ms['bwd']:.3f} ms (bound {bwd_bound[0]:.3f} by {bwd_bound[1]}, "
-             f"{bwd_bound[0] / ms['bwd']:.1%}; plain {bwd_plain_ms:.3f}; rope+SDPA fp16 backward {lib_bwd_ms:.3f}) "
-             f"against the forms fp16 backward it replaces {ms['forms_bwd']:.3f} ms "
-             f"({ms['forms_bwd'] / ms['bwd']:.1f}x)")
+             f"{bwd_bound[0] / ms['bwd']:.1%}; plain {bwd_plain_ms:.3f}; rope+SDPA fp16 backward {lib_bwd_ms:.3f})")
         del q, k_rot, k, v, do, cos, sin, o, lse, dk_s, dv_s
         torch.cuda.empty_cache()
 
@@ -1809,9 +1812,10 @@ WIDE_PAIR_SITES = (("forms site", *FORMS_SITE, -1, WIDE_DIMS), ("whole song", 1,
 WIDE_HALO_SHAPE = (1, 16384, 16, 4096, 4, 1)
 
 
-def _pair_records(where: str, grads, refs, faults, failures: list) -> tuple[dict, list]:
-    """dq, dk and dv against the plain versions with the backward bounds; each planted fault (a tuple of dq,
-    dk, dv, or of dq alone) above the bound. Returns the largest error of dq and of dk/dv, and the log parts."""
+def _pair_records(where: str, grads, refs, faults, failures: list, rel_tol: float = BWD_REL_TOL) -> tuple[dict, list]:
+    """dq, dk and dv against the plain versions with the backward bounds (``rel_tol`` on the relative L2:
+    BWD_REL_TOL at bf16, FORMS_F16_REL_TOL at fp16); each planted fault (a tuple of dq, dk, dv, or of dq
+    alone) above it. Returns the largest error of dq and of dk/dv, and the log parts."""
     err, parts = {"dq": 0.0, "dkv": 0.0}, []
     for i, (name, got, ref) in enumerate(zip(("dq", "dk", "dv"), grads, refs)):
         rel, e, top = _rel(got, ref), (got.float() - ref).abs().max().item(), ref.abs().max().item()
@@ -1819,17 +1823,23 @@ def _pair_records(where: str, grads, refs, faults, failures: list) -> tuple[dict
         key = "dq" if name == "dq" else "dkv"
         err[key] = max(err[key], e)
         parts.append(f"{name} rel L2 {rel:.3e} max abs {e:.3e} of {top:.2f} (planted faults >= {fault_rel:.3e})")
-        if not (rel < BWD_REL_TOL and e < BWD_ABS_TOL * top and torch.isfinite(got).all() and fault_rel > BWD_REL_TOL):
+        if not (rel < rel_tol and e < BWD_ABS_TOL * top and torch.isfinite(got).all() and fault_rel > rel_tol):
             failures.append(f"{where}: {name} rel L2 {rel:.3e}, max abs {e:.3e} of {top:.3e}, planted fault {fault_rel:.3e}")
     return err, parts
 
 
-def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, seed: int, failures: list) -> dict:
-    """K3a (with its pre-pass) and K3b at head dim D at one site of WIDE_PAIR_SITES: one launch of each and no
-    forms kernel; dq, dk and dv against the plain fp32 versions on the same inputs (K1's o and LSE) with the
-    D = 64 kernels' bounds, planted faults above them (an LSE off by LSE_FAULT; at a windowed site also the
-    window one key short on each side), two launches bit-identical; CUDA-event times beside the bound, the
-    plain versions and the backward of rope + SDPA (under a dense band mask at a windowed site). Returns
+def _pair_tol(dtype) -> float:
+    return FORMS_F16_REL_TOL if dtype == torch.float16 else BWD_REL_TOL
+
+
+def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, seed: int, failures: list,
+                    dtype=torch.bfloat16) -> dict:
+    """K3a (with its pre-pass) and K3b at head dim D and operand type ``dtype`` at one site of WIDE_PAIR_SITES
+    or F16_PAIR_SITES: one launch of each and no forms kernel; dq, dk and dv against the plain fp32 versions on
+    the same inputs (K1's o and LSE) at ``_pair_tol``'s bound, planted faults above it (an LSE off by
+    LSE_FAULT; at a windowed site also the window one key short on each side), two launches bit-identical;
+    CUDA-event times beside the bound, the plain versions and the backward of rope + SDPA in ``dtype`` (under
+    a dense band mask at a windowed site), and at fp16 beside the bf16 pair on the same values. Returns
     {"dq": record, "dkv": record}."""
     import torch.nn.functional as F
 
@@ -1839,8 +1849,8 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
 
     scale = D**-0.5
     w = None if window < 0 else window
-    where = f"{label} D={D} B={B} T={T} H={H} {'global' if window < 0 else f'W={window}'}"
-    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, seed, D)
+    where = f"{label} {_dtype_name(dtype)} D={D} B={B} T={T} H={H} {'global' if window < 0 else f'W={window}'}"
+    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, seed, D, dtype)
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
 
     def backward():
@@ -1861,12 +1871,22 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
     if not all(torch.equal(a, b) for a, b in zip(grads, backward())):
         failures.append(f"{where}: dq, dk or dv differ between two launches on the same inputs")
     faults = [plain(window, lse + LSE_FAULT)] + ([plain(window - 2, lse)] if window >= 0 else [])
-    err, parts = _pair_records(where, grads, plain(window, lse), faults, failures)
+    err, parts = _pair_records(where, grads, plain(window, lse), faults, failures, _pair_tol(dtype))
     del grads, faults
     prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)[1]
     prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, cos, sin, scale), 5)
     dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale), 5)  # the pre-pass included
     dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, window), 5)
+    twin = ""
+    if dtype == torch.float16:  # the bf16 pair on the same values, K1's bf16 o and LSE
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k_rot, v, do))
+        ob, lseb = fa.flash_fwd(qb, kb, vb, cos, sin, window, scale, return_lse=True)
+        prep_b = fa.flash_bwd_dq(qb, kb, vb, ob, lseb, dob, cos, sin, window, scale)[1]
+        dq_b = _cuda_ms(lambda: fa.flash_bwd_dq(qb, kb, vb, ob, lseb, dob, cos, sin, window, scale), 5)
+        dkv_b = _cuda_ms(lambda: fa.flash_bwd_dkv(kb, vb, dob, prep_b, window), 5)
+        twin = (f"; bf16 on the same values dq {dq_b:.3f} ms, dkv {dkv_b:.3f} ms, the pair fp16/bf16 "
+                f"{(dq_ms + dkv_ms) / (dq_b + dkv_b):.3f}x")
+        del qb, kb, vb, dob, ob, lseb, prep_b
     dq_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
     dkv_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
     # yardstick only: rope on q and k, then PyTorch's fused attention (under a dense band mask at a windowed
@@ -1889,12 +1909,12 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
     # q o do dq, qs out; k v; lse in, lse delta out / qs do; k v, dk dv in fp32; lse delta
     bounds = {"dq": _bound(attention_flops("backward_dq", B, T, H, D, w), _attn_bytes(B, T, H, D, 5, 2, 3)),
               "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, w), _attn_bytes(B, T, H, D, 2, 6, 2))}
-    _log(f"[wide pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
-         f"bit-identical (bounds {BWD_REL_TOL}, {BWD_ABS_TOL} of the largest)")
-    _log(f"[wide pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by "
+    _log(f"[pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
+         f"bit-identical (bounds {_pair_tol(dtype)}, {BWD_ABS_TOL} of the largest)")
+    _log(f"[pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f} by "
          f"{bounds['dq'][1]}, {bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound "
          f"{bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); the pair {dq_ms + dkv_ms:.3f} "
-         f"ms against rope+SDPA's backward {lib_bwd_ms:.3f} ms")
+         f"ms against rope+SDPA's backward {lib_bwd_ms:.3f} ms{twin}")
     del q, k_rot, k, v, do, cos, sin, o, lse, prep
     torch.cuda.empty_cache()
     # the one library backward yields dq, dk and dv: each kernel of the pair is set beside the whole of it
@@ -1903,12 +1923,13 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
             for key, ms, plain_ms in (("dq", dq_ms, dq_plain_ms), ("dkv", dkv_ms, dkv_plain_ms))}
 
 
-def _wide_halo_pair(failures: list) -> dict:
-    """K5a (with the pre-pass) and K5b at D = 128 at WIDE_HALO_SHAPE: one wgmma launch of each and no forms
-    kernel; dq, dk and dv against the plain fp32 versions with the backward bounds, planted faults above them
-    (an LSE off by LSE_FAULT; the window one key short on each side, in dq), two launches bit-identical;
-    CUDA-event times beside the bound, the plain versions and SDPA's backward under the dense band-and-bounds
-    mask (phase 10's yardstick). Returns {"dq": record, "dkv": record}."""
+def _halo_pair(D: int, dtype, seed: int, failures: list) -> dict:
+    """K5a (with the pre-pass) and K5b at head dim D and operand type ``dtype`` at WIDE_HALO_SHAPE: one
+    wgmma launch of each and no forms kernel; dq, dk and dv against the plain fp32 versions at
+    ``_pair_tol``'s bound, planted faults above it (an LSE off by LSE_FAULT; the window one key short on each
+    side, in dq), two launches bit-identical; CUDA-event times beside the bound, the plain versions and SDPA's
+    backward under the dense band-and-bounds mask (phase 10's yardstick), and at fp16 beside the bf16 pair on
+    the same values. Returns {"dq": record, "dkv": record}."""
     import torch.nn.functional as F
 
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1916,13 +1937,13 @@ def _wide_halo_pair(failures: list) -> dict:
     from osufusion_tpu_torch.utils.flops import halo_flops
 
     B, T, H, W, n, shard = WIDE_HALO_SHAPE
-    D, S = 128, T + WIDE_HALO_SHAPE[3]
+    S = T + W
     scale = D**-0.5
     frame = (W, shard * T, n * T)
-    where = f"halo D={D} B={B} T_local={T} W={W} shard {shard + 1} of {n}"
-    g = torch.Generator(device="cuda").manual_seed(1790)
-    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    where = f"halo {_dtype_name(dtype)} D={D} B={B} T_local={T} W={W} shard {shard + 1} of {n}"
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, D), generator=g, device="cuda").to(dtype) for _ in range(2))
     o, lse = ha.halo_fwd(q, k, v, *frame, scale)
 
     def backward():
@@ -1944,12 +1965,22 @@ def _wide_halo_pair(failures: list) -> dict:
         failures.append(f"{where}: dq, dk or dv differ between two launches on the same inputs")
     # the window one key short on each side: the same frame, one slab row less at each end
     short = (ha.halo_bwd_dq_reference(q, k[:, 1:-1], v[:, 1:-1], o, lse, do, W - 2, *frame[1:]),)
-    err, parts = _pair_records(where, grads, plain(lse), [plain(lse + LSE_FAULT), short], failures)
+    err, parts = _pair_records(where, grads, plain(lse), [plain(lse + LSE_FAULT), short], failures, _pair_tol(dtype))
     del grads, short
     prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
     prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, None, None, scale), 5)
     dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 5)  # the pre-pass included
     dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, prep, *frame), 5)
+    twin = ""
+    if dtype == torch.float16:  # the bf16 pair on the same values, K4's bf16 o and LSE
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+        ob, lseb = ha.halo_fwd(qb, kb, vb, *frame, scale)
+        prep_b = ha.halo_bwd_dq(qb, kb, vb, ob, lseb, dob, *frame, scale)[1]
+        dq_b = _cuda_ms(lambda: ha.halo_bwd_dq(qb, kb, vb, ob, lseb, dob, *frame, scale), 5)
+        dkv_b = _cuda_ms(lambda: ha.halo_bwd_dkv(kb, vb, dob, prep_b, *frame), 5)
+        twin = (f"; bf16 on the same values dq {dq_b:.3f} ms, dkv {dkv_b:.3f} ms, the pair fp16/bf16 "
+                f"{(dq_ms + dkv_ms) / (dq_b + dkv_b):.3f}x")
+        del qb, kb, vb, dob, ob, lseb, prep_b
     dq_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dq_reference(q, k, v, o, lse, do, *frame), 1)
     dkv_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dkv_reference(q, k, v, o, lse, do, *frame), 1)
     lo, hi = ha.slab_bounds(T, *frame)
@@ -1963,12 +1994,12 @@ def _wide_halo_pair(failures: list) -> dict:
     del mask, leaves, lib_out, t_idx, s_idx
     bounds = {"dq": _bound(halo_flops("backward_dq", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 5, 2, 3)),
               "dkv": _bound(halo_flops("backward_dkv", 1, T, H, D, *frame), _halo_bytes(T, S, H, D, 2, 2, 2, f32_slabs=2))}
-    _log(f"[wide pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
+    _log(f"[pair] {where}: {'; '.join(parts)}; one wgmma dq and dkv launch, no forms kernel; two launches "
          "bit-identical")
-    _log(f"[wide pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f}, "
+    _log(f"[pair] {where}: dq {dq_ms:.3f} ms with its pre-pass {prep_ms:.3f} ms (bound {bounds['dq'][0]:.3f}, "
          f"{bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}, "
          f"{bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); SDPA's backward under the band-and-bounds mask "
-         f"{lib_bwd_ms:.3f} ms")
+         f"{lib_bwd_ms:.3f} ms{twin}")
     del q, k, v, do, o, lse, prep
     torch.cuda.empty_cache()
     return {key: {"max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
@@ -1978,7 +2009,7 @@ def _wide_halo_pair(failures: list) -> dict:
 
 def phase_wide_pair_kernels() -> dict:
     """The windowed pair at the head dims above 64 (phase 23): K3a / K3b at every site of WIDE_PAIR_SITES and
-    K5a / K5b at WIDE_HALO_SHAPE, each against plain (``_wide_pair_site``, ``_wide_halo_pair``). Returns the
+    K5a / K5b at WIDE_HALO_SHAPE, each against plain (``_wide_pair_site``, ``_halo_pair``). Returns the
     kernels line's records: {(wrapper, D): record}, K3a / K3b at D = 128 from the whole-song site, at 192
     and 256 from the forms site."""
     t_phase = time.perf_counter()
@@ -1987,11 +2018,40 @@ def phase_wide_pair_kernels() -> dict:
         for i, D in enumerate(dims):
             site = _wide_pair_site(label, B, T, H, window, D, 1770 + i + T, failures)
             records[("flash_bwd_dq", D)], records[("flash_bwd_dkv", D)] = site["dq"], site["dkv"]
-    halo = _wide_halo_pair(failures)
+    halo = _halo_pair(128, torch.bfloat16, 1790, failures)
     records[("halo_bwd_dq", 128)], records[("halo_bwd_dkv", 128)] = halo["dq"], halo["dkv"]
     if failures:
         raise AssertionError("wide windowed pair vs plain: " + "; ".join(failures))
     _log(f"[wide pair] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+# the windowed pair at fp16 (K3a with its pre-pass, K3b): (label, B, T, H, window, head dims). The forms site
+# (global) at every head dim, the shape at which the forms fp16 pair that these instances replace was timed,
+# and the whole song's level 0 (B=1, T=65536, W=4096, H=16) at D = 64, the head dim of phase 25's
+# fp16 training path; K5a / K5b at WIDE_HALO_SHAPE at D = 64 and 128
+F16_PAIR_SITES = (("forms site", *FORMS_SITE, -1, F16_DIMS), ("whole song", 1, 65536, 16, 4096, (64,)))
+F16_HALO_DIMS = (64, 128)
+
+
+def phase_f16_pair_kernels() -> dict:
+    """The windowed pair at fp16 (phase 23): K3a / K3b at every site of F16_PAIR_SITES and K5a / K5b at
+    WIDE_HALO_SHAPE for each of F16_HALO_DIMS, each against plain at FORMS_F16_REL_TOL with planted faults,
+    timed beside the bf16 pair on the same values, rope + SDPA at fp16 and the bound (``_wide_pair_site``,
+    ``_halo_pair``). Returns the kernels line's records: {(wrapper, D): record}, K3a / K3b at D = 64 from the
+    whole-song site, at 128 ... 256 from the forms site."""
+    t_phase = time.perf_counter()
+    failures, records = [], {}
+    for label, B, T, H, window, dims in F16_PAIR_SITES:
+        for i, D in enumerate(dims):
+            site = _wide_pair_site(label, B, T, H, window, D, 2170 + i + T, failures, torch.float16)
+            records[("flash_bwd_dq", D)], records[("flash_bwd_dkv", D)] = site["dq"], site["dkv"]
+    for i, D in enumerate(F16_HALO_DIMS):
+        halo = _halo_pair(D, torch.float16, 2190 + i, failures)
+        records[("halo_bwd_dq", D)], records[("halo_bwd_dkv", D)] = halo["dq"], halo["dkv"]
+    if failures:
+        raise AssertionError("fp16 windowed pair vs plain: " + "; ".join(failures))
+    _log(f"[f16 pair] phase {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
@@ -2023,6 +2083,40 @@ def phase_wide_fullsong_train(workdir: Path) -> dict:
     if launches != expected or _all_launches(fa, ha)[4:] != others:
         raise AssertionError(f"full-song D=128: launches {launches}, expected {expected}")
     _forms_launch_check("full-song D=128", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+                        False)
+    return launches
+
+
+def phase_f16_fullsong_train(workdir: Path) -> dict:
+    """Phase 25, whole-song training at fp16: ``trainer.train`` at phase 9's cell (dim_h=512, B=1, T=65536,
+    ``mixed``, 16 heads of 64) with ``--mixed-precision fp16`` (float32 parameters and moments, the forward
+    under autocast at float16, the loss scaled by 4096 and the gradients divided back out), 2 steps: every
+    site windowed, K1 with its LSE (sites and the 18 that ``mixed`` runs again) and the fp16 wgmma pair (K3a
+    with its pre-pass, K3b) once a site and step, no forms forward, dq or dk/dv; finite losses; s/step and
+    peak memory. Returns the launches."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    t_phase = time.perf_counter()
+    steps = 2
+    cfg = _fullsong_config("mixed", workdir / "fullsong_f16", steps, 0)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float16"),
+                              train=dataclasses.replace(cfg.train, full_bf16=False, mixed_precision="fp16"))
+    sites, again = _unet_sites(cfg.model), FULLSONG_PLANS["mixed"][1]
+    others = _all_launches(fa, ha)[4:]
+    _forms_counts(reset=True)
+    history, launches, peak = _train_with_resume(cfg, steps, "full-song fp16")
+    counts = _forms_counts()
+    _log(f"[full-song fp16] dim_h=512 B=1 T={FULLSONG_T} --mixed-precision fp16 (fp32 weights, loss scale 4096) "
+         f"mixed, {steps} steps: loss {[round(h['loss'], 4) for h in history]}; grad_norm "
+         f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 4) for h in history]}; peak "
+         f"memory {peak:.2f} GiB; launches {launches} (sites {sites}, {again} run again per step); forms launches "
+         f"{counts}; phase {time.perf_counter() - t_phase:.1f} s")
+    expected = {"forward": 0, "forward_lse": (sites + again) * steps, "backward_fused": 0,
+                "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
+    if launches != expected or _all_launches(fa, ha)[4:] != others:
+        raise AssertionError(f"full-song fp16: launches {launches}, expected {expected}")
+    _forms_launch_check("full-song fp16", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
                         False)
     return launches
 
@@ -2246,15 +2340,17 @@ def phase_forms_train(workdir: Path) -> dict:
     return counts
 
 
-def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
+def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
     """Phase 23, the forms family and the forms beside bf16/64 on the card: (f) fp16 and D > 256 against
     plain, the kernel-level checks and times of every forms instance, of K1 and K2 at D = 128 ... 256, of
-    the windowed pair at D = 128 ... 256 (K5a / K5b at 128) and of K1 and K2's sweep at fp16, (b), (c) and
+    the windowed pair at D = 128 ... 256 (K5a / K5b at 128), of K1 and K2's sweep at fp16 and of the windowed
+    pair at fp16 (K3a / K3b, K5a / K5b), (b), (c) and
     (h) serving, (d) gradients, (g) the bf16 DiT step at D = 128, (e) the shard forms, (a) fp32 crop
     training. Returns the forms kernel records and, by instance, each forms entry point's launches on the
     paths driven through the port's entry points ((a), (b), (c) or (h), (d)); then K1's and K2's records by
     head dim and their launches at D = 128 on (c), (d) and (g); then the windowed pair's records by (wrapper,
-    head dim); then K1's and K2's fp16 records and their launches on (h) and (d) at fp16/64."""
+    head dim); then K1's and K2's fp16 records and their launches on (h) and (d) at fp16/64; then the fp16
+    windowed pair's records by (wrapper, head dim)."""
     from osufusion_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
@@ -2264,6 +2360,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
     wide_records = phase_wide_kernels()
     pair_records = phase_wide_pair_kernels()
     f16_records = phase_f16_kernels()
+    f16_pair_records = phase_f16_pair_kernels()
     main = (*FORMS_MAIN, F16_MAIN)
     runs = {inst: [] for inst in main}
     wide = {"fwd": 0, "bwd": 0}  # K1 and K2 at bf16/128
@@ -2307,7 +2404,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
         raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
     if not all(f16.values()):
         raise AssertionError(f"K1 or K2 at fp16 launched no time on the paths: {f16}")
-    return records, launches, wide_records, {128: wide}, pair_records, f16_records, {64: f16}
+    return records, launches, wide_records, {128: wide}, pair_records, f16_records, {64: f16}, f16_pair_records
 
 
 # the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
@@ -2376,6 +2473,15 @@ def _f16_json(records: dict, launches: dict) -> list:
                         "replaces": "osufusion_tpu/ops/pallas_attention.py:575", "launches": m["bwd"],
                         **records[D]["bwd"]})
     return entries
+
+
+def _f16_pair_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of the windowed pair at fp16 (``phase_f16_pair_kernels``), with their
+    launches on the paths: K3a / K3b at D = 64 on phase 25's fp16 whole-song trainer, K5a / K5b at D = 64 on
+    phase 12's fp16 site under the sequence shard (rank 0); no path reaches the wider heads at fp16."""
+    return [{"name": f"{who}_f16_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed_f16.cu",
+             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{PAIR_REPLACES[who]}",
+             "launches": launches.get((who, D), 0), **rec} for (who, D), rec in records.items()]
 
 
 # (e): phase 10's rank shape (B=1, 16384 frames a rank, W=4096, the second of four shards) and phase 18's
@@ -2771,12 +2877,13 @@ def _halo_counts(ha, reset: bool = False) -> dict:
 SEQ_GQA_SITE = (HALO_SONG, 4096, 16, 2)
 
 
-def _seq_gqa_site(shard) -> dict:
-    """One windowed site with two KV heads through ``ops.attention.sdpa`` on
-    this rank's frames, forward and backward, against the one-card
-    ``flash_attention`` on the whole song (seeded alike on every rank):
-    relative L2 of o, dq, dk, dv on this rank's frames, and the halo
-    kernels' launches (once per KV head)."""
+def _seq_gqa_site(shard, dtype=torch.bfloat16) -> dict:
+    """One windowed site with two KV heads in ``dtype`` (bf16, or fp16: the
+    attention of ``--mixed-precision fp16`` under ``--mesh-seq``) through
+    ``ops.attention.sdpa`` on this rank's frames, forward and backward,
+    against the one-card ``flash_attention`` on the whole song (seeded alike
+    on every rank): relative L2 of o, dq, dk, dv on this rank's frames, and
+    the halo kernels' launches (once per KV head)."""
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.ops.attention import sdpa
     from osufusion_tpu_torch.ops.flash_attention import flash_attention
@@ -2785,8 +2892,8 @@ def _seq_gqa_site(shard) -> dict:
 
     T, W, H, kv = SEQ_GQA_SITE
     g = torch.Generator(device="cuda").manual_seed(700)
-    q, do = (torch.randn((1, T, H, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((1, T, kv, 64), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    q, do = (torch.randn((1, T, H, 64), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((1, T, kv, 64), generator=g, device="cuda").to(dtype) for _ in range(2))
     rope = rope_tables(T, 64, scale_base=float(W), device="cuda")
     whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = flash_attention(*whole, W, rope)
@@ -2806,7 +2913,7 @@ def _seq_gqa_site(shard) -> dict:
 
 def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
     """One process of phase 12, in torchrun's environment: a windowed GQA
-    site (``_seq_gqa_site``); then every count set to 0, ``trainer.train``
+    site (``_seq_gqa_site``) at bf16 and at fp16; then every count set to 0, ``trainer.train``
     for two steps (the sharded cells' save and resume is phase 19's DiT
     cell's), the counts read; (rank, error, result) put on ``results``."""
     import os
@@ -2826,7 +2933,8 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         cfg = _fullsong_config("mixed", Path(project_dir), steps=2, save_every=0, mesh_seq=SEQ_SHARDS)
         torch.cuda.set_device(local_device())
         maybe_initialize()
-        gqa = _seq_gqa_site(make_mesh(data=1, model=1, seq=SEQ_SHARDS).seq_shard())
+        shard = make_mesh(data=1, model=1, seq=SEQ_SHARDS).seq_shard()
+        gqa = {dtype: _seq_gqa_site(shard, dtype) for dtype in (torch.bfloat16, torch.float16)}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(fa)
@@ -2841,9 +2949,10 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         results.put((rank, traceback.format_exc(), None))
 
 
-def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
+def phase_seq_train(workdir: Path, one_card_losses: list) -> tuple[dict, dict]:
     """Sequence-parallel training in SEQ_SHARDS processes (phase 12); returns
-    rank 0's launches over its two steps."""
+    rank 0's launches over its two steps, and the halo kernels' launches of
+    its fp16 site."""
     import multiprocessing
     import queue as queue_module
 
@@ -2881,14 +2990,18 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
                 p.join()
     T, W, H, kv = SEQ_GQA_SITE
     for rank, r in sorted(got.items()):
-        gqa = r["gqa"]
-        _log(f"[seq train] rank {rank}: a windowed site with {kv} KV heads (T={T} W={W} H={H}) under the shard vs one-card "
-             f"flash_attention: rel L2 {', '.join(f'{n} {x:.3e}' for n, x in gqa['rel'].items())} (bound {REL_TOL}); "
-             f"halo launches {gqa['launches']} (once per KV head)")
-        if gqa["launches"] != {"halo_fwd": kv, "halo_bwd_dq": kv, "halo_bwd_dkv": kv}:
-            raise AssertionError(f"sequence-parallel rank {rank}: the GQA site launched {gqa['launches']}, expected {kv} of each")
-        if not max(gqa["rel"].values()) < REL_TOL:
-            raise AssertionError(f"sequence-parallel rank {rank}: the GQA site differs from one card by {gqa['rel']}")
+        for dtype, gqa in r["gqa"].items():
+            tol = FORMS_F16_REL_TOL if dtype == torch.float16 else REL_TOL
+            _log(f"[seq train] rank {rank}: a windowed {_dtype_name(dtype)} site with {kv} KV heads (T={T} W={W} H={H}) "
+                 f"under the shard vs one-card flash_attention: rel L2 "
+                 f"{', '.join(f'{n} {x:.3e}' for n, x in gqa['rel'].items())} (bound {tol}); halo launches "
+                 f"{gqa['launches']} (once per KV head)")
+            if gqa["launches"] != {"halo_fwd": kv, "halo_bwd_dq": kv, "halo_bwd_dkv": kv}:
+                raise AssertionError(f"sequence-parallel rank {rank}: the {_dtype_name(dtype)} GQA site launched "
+                                     f"{gqa['launches']}, expected {kv} of each")
+            if not max(gqa["rel"].values()) < tol:
+                raise AssertionError(f"sequence-parallel rank {rank}: the {_dtype_name(dtype)} GQA site differs from "
+                                     f"one card by {gqa['rel']}")
     for rank, r in sorted(got.items()):
         history = r["history"]
         _log(f"[seq train] rank {rank} of {SEQ_SHARDS} on {r['device']} ({r['backend']}; {torch.cuda.device_count()} card(s) "
@@ -2910,7 +3023,7 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> dict:
          f"rel {rel:.3e} (bound {LOSS_REL_TOL})")
     if not rel < LOSS_REL_TOL:
         raise AssertionError(f"sequence-parallel step 1 loss {losses[0][0][0]} vs one card {one_card_losses[0]}")
-    return got[0]["launches"]
+    return got[0]["launches"], got[0]["gqa"][torch.float16]["launches"]
 
 
 def phase_serve_trained(workdir: Path) -> None:
@@ -3662,7 +3775,8 @@ def main() -> int:
         phase_dpm_check(model, served, song, ddim50)
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
-    forms_records, forms_launches, wide_records, wide_launches, pair_records, f16_records, f16_launches = phase_forms()
+    (forms_records, forms_launches, wide_records, wide_launches, pair_records, f16_records, f16_launches,
+     f16_pair_records) = phase_forms()
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -3678,7 +3792,12 @@ def main() -> int:
     pair_launches = {("flash_bwd_dq", 128): fullsong_d128["backward_dq"],
                      ("flash_bwd_dkv", 128): fullsong_d128["backward_dkv"]}
     with tempfile.TemporaryDirectory() as tmp:
-        seq = phase_seq_train(Path(tmp), fullsong_losses)
+        fullsong_f16 = phase_f16_fullsong_train(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, seq_f16 = phase_seq_train(Path(tmp), fullsong_losses)
+    f16_pair_launches = {("flash_bwd_dq", 64): fullsong_f16["backward_dq"],
+                         ("flash_bwd_dkv", 64): fullsong_f16["backward_dkv"],
+                         ("halo_bwd_dq", 64): seq_f16["halo_bwd_dq"], ("halo_bwd_dkv", 64): seq_f16["halo_bwd_dkv"]}
     grouped_fwd_lse, grouped_bwd, grouped_fwd = phase_grouped_kernels()
     torch.cuda.empty_cache()
     ring = phase_ring_kernels()
@@ -3739,6 +3858,7 @@ def main() -> int:
         *_wide_json(wide_records, wide_launches),
         *_pair_json(pair_records, pair_launches),
         *_f16_json(f16_records, f16_launches),
+        *_f16_pair_json(f16_pair_records, f16_pair_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

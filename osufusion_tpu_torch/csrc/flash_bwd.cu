@@ -160,7 +160,8 @@ extern "C" int flash_bwd_prep_bf16(const void* q, const void* dout, const void* 
   const int err = bind_device(&dev);
   if (err != 0) return err;
   const int pad = (T * (H / Kv) + BM - 1) / BM * BM;
-  auto prep = cos_t != nullptr ? flash_bwd_prep_kernel<D64, true> : flash_bwd_prep_kernel<D64, false>;
+  auto prep = cos_t != nullptr ? flash_bwd_prep_kernel<__nv_bfloat16, D64, true>
+                              : flash_bwd_prep_kernel<__nv_bfloat16, D64, false>;
   prep<<<dim3(pad * 4 / 256, B * Kv), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse), static_cast<const float*>(cos_t),

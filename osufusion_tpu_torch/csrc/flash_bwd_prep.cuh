@@ -1,10 +1,11 @@
 // The pre-pass of the backward kernels that recompute the forward's
 // probabilities from its LSE: the global backward (flash_bwd.cu) and the split
-// windowed pair (flash_bwd_windowed.cu). One sweep over the (timestep, head)
+// windowed pair (flash_bwd_windowed.cuh). One sweep over the (timestep, head)
 // rows writes, in group-major order (B * Kv, T * G, ...), so that every KV
 // group's rows are contiguous whatever G = H / Kv is (row r: timestep r / G,
 // head kv * G + r % G; at MQA that is the t-major order of q itself):
-//  * qs = rope(q) * qscale in bf16, staged by rope_qs.cuh, so that qs k_rot^T
+//  * qs = rope(q) * qscale in the operand type E (bf16 or fp16), staged by
+//    rope_qs.cuh, so that qs k_rot^T
 //    is the forward's logit in the exp2 domain (rotated and scaled once, not
 //    once per KV tile that meets the row);
 //  * do copied into that order where do_g is not null (Kv > 1);
@@ -12,9 +13,10 @@
 //    a pad row gets LSE = +inf and delta = 0, so its p and ds are 0;
 //  * where dq_acc is not null, a zeroed fp32 row of the dq buffer that the
 //    global backward's atomics add into (the split pair has none).
-// Templated on the head dim D: the global backward takes its D = 64 instance
-// (at wider heads it runs the forms pre-pass), the windowed pair the D of its
-// kernels (64, 128, 192, 256).
+// Templated on the operand type E and the head dim D: the global backward
+// takes its bf16 D = 64 instance (at wider heads and at fp16 it runs the forms
+// pre-pass), the windowed pair the E and D of its kernels (bf16 and fp16; 64,
+// 128, 192, 256).
 //
 // Everything sits in an unnamed namespace, so each library gets its own copy.
 
@@ -31,11 +33,10 @@ namespace {
 // Four threads per group row, each taking the chunks of 8 columns c, c + 4,
 // ... of the low half (D / 64 of them) and their partners D / 2 on; grid
 // (pad * 4 / 256, B * Kv) of 256 threads, pad a multiple of 64.
-template <int D, bool ROPE>
-__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
-                                      const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
-                                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                                      __nv_bfloat16* __restrict__ qs_g, __nv_bfloat16* __restrict__ do_g,
+template <typename E, int D, bool ROPE>
+__global__ void flash_bwd_prep_kernel(const E* __restrict__ q, const E* __restrict__ dout, const E* __restrict__ o,
+                                      const float* __restrict__ lse, const float* __restrict__ cos_t,
+                                      const float* __restrict__ sin_t, E* __restrict__ qs_g, E* __restrict__ do_g,
                                       float* __restrict__ lse_g, float* __restrict__ delta_g,
                                       float* __restrict__ dq_acc, int T, int H, int Kv, int pad, float qscale) {
   static_assert(D % 64 == 0, "whole chunks of 8 columns for each of a row's four threads");
@@ -69,13 +70,11 @@ __global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q, const
         *reinterpret_cast<uint4*>(do_g + dst * D + col) = d4[0];
         *reinterpret_cast<uint4*>(do_g + dst * D + col + D / 2) = d4[1];
       }
-      const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(d4);
-      const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(o4);
+      const E* pd = reinterpret_cast<const E*>(d4);
+      const E* po = reinterpret_cast<const E*>(o4);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float2 x = __bfloat1622float2(pd[e]);
-        const float2 y = __bfloat1622float2(po[e]);
-        part += x.x * y.x + x.y * y.y;
+        part += widen(pd[2 * e]) * widen(po[2 * e]) + widen(pd[2 * e + 1]) * widen(po[2 * e + 1]);
       }
     }
     if (c == 0) lse_g[gr] = lse[src];

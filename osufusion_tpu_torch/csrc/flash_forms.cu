@@ -1,16 +1,16 @@
 // Flash attention in fp32 arithmetic on the FMA units, for Hopper (sm_90a):
 // the "forms" family, which serves every attention form that the wgmma
 // kernels (flash_fwd.cuh, flash_bwd_sweep.cuh, flash_bwd.cu,
-// flash_bwd_windowed.cu) do not, from one body per kernel templated on the
+// flash_bwd_windowed.cuh) do not, from one body per kernel templated on the
 // operand type T (float, __nv_bfloat16, __half) and the head dim D (64, 128,
 // 192, 256), and one chunked instance of the forward, dq and dk/dv bodies for
 // any D > 256 that is a multiple of 64 (below). ops/flash_forms.py::
 // kernel_form sends here fp32 operands at every head dim, every type at D >
-// 256, fp16's windowed dq / dk-dv pair, and the pre-pass and post-pass around
-// K2's sweep and the ring's merge at fp16 and at bf16 above D = 64. bf16 and
-// fp16 forwards at D <= 256 run the wgmma forward (K1), and bf16's dq and
-// dk/dv there the wgmma K2 sweep and windowed pair, so those instances are
-// not built here (FORMS_DISPATCH, below).
+// 256, and the pre-pass and post-pass around K2's sweep and the ring's merge
+// at fp16 and at bf16 above D = 64. bf16 and fp16 forwards at D <= 256 run
+// the wgmma forward (K1), and their dq and dk/dv there the wgmma K2 sweep and
+// windowed pair, so those instances are not built here (FORMS_DISPATCH,
+// below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -51,11 +51,10 @@
 // here is an fp32 FFMA, 4 D FLOP per visited (query, key) pair forward and 8 D
 // backward (dq: 2 products, dkv: 3 with the logits again), against 67 TFLOP/s
 // of fp32 FMA on an H100 SXM: compute bound at every site, by far (a row meets
-// up to W + 1 or S keys for a few hundred bytes of traffic). The fp16 dq and
-// dk/dv and the chunked instances at bf16 and fp16 run the same FMA
-// arithmetic, so they can reach at most 67 / 989 (~7 %) of their tensor-core
-// bound: a simple, exact design first, to be replaced by wgmma instances
-// (ROADMAP queue 2).
+// up to W + 1 or S keys for a few hundred bytes of traffic). The chunked
+// instances at bf16 and fp16 run the same FMA arithmetic, so they can reach
+// at most 67 / 989 (~7 %) of their tensor-core bound: a simple, exact design
+// first, to be replaced by wgmma instances (ROADMAP queue 2).
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
@@ -1176,8 +1175,8 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 // bodies keep only what a route launches (ops/flash_forms.py::kernel_form):
 //  * FORMS_FWD, the forward: fp32 at every D, and the chunked instance of
 //    every type (bf16 and fp16 at D <= 256 run K1, the wgmma forward);
-//  * FORMS_SWEEPS, dq and dk/dv: those, and fp16 at D <= 256 (the windowed
-//    pair at fp16; bf16 there runs K2's sweep and the wgmma pair);
+//  * FORMS_SWEEPS, dq and dk/dv: the same instances (bf16 and fp16 at D <=
+//    256 run K2's sweep and the wgmma windowed pair);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -1189,7 +1188,7 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 #define FORMS_FWD                                                                 \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
   FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_F16, __half)
-#define FORMS_SWEEPS FORMS_FWD FORMS_DIMS(DTYPE_F16, __half)
+#define FORMS_SWEEPS FORMS_FWD
 #define FORMS_EVERY FORMS_FWD FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_DIMS(DTYPE_F16, __half)
 #define FORMS_DISPATCH(INSTANCES)                                                 \
   if (D <= 0 || D % 64 != 0) return (int)cudaErrorInvalidValue;                   \

@@ -7,7 +7,7 @@
 // ::_halo_fwd_kernel (launched by _halo_flash_fwd), the forward of
 // sequence-parallel training. One body serves both, in two frames of the keys
 // (template argument HALO, the frame's numbers in a KeyFrame of
-// key_frame.cuh), as the windowed backward pair does (flash_bwd_windowed.cu):
+// key_frame.cuh), as the windowed backward pair does (flash_bwd_windowed.cuh):
 //  * single device (HALO = false, the frame {0, 0, S} fixed at compile
 //    time): key s is attended by query t iff |t - s| <= window / 2 (window <
 //    0: every key).

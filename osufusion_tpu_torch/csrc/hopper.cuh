@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cuh,
-// flash_bwd_sweep.cuh, flash_bwd.cu, flash_bwd_windowed.cu): the operand
+// flash_bwd_sweep.cuh, flash_bwd.cu, flash_bwd_windowed.cuh): the operand
 // types, mbarriers, TMA loads, wgmma shared-memory descriptors and products,
 // the softmax's exp2, and the host-side encoding of TMA tensor maps.
 //

@@ -1,7 +1,7 @@
 // The frame of the keys that a flash kernel runs in, and the halo frame of
 // sequence-parallel training: the one copy of the edge rule for every kernel
-// with a HALO instance (flash_fwd.cuh's forward, flash_bwd_windowed.cu's dq and
-// dk/dv), as ops/halo_attention.py::slab_bounds is for the plain versions.
+// with a HALO instance (flash_fwd.cuh's forward, flash_bwd_windowed.cuh's dq
+// and dk/dv), as ops/halo_attention.py::slab_bounds is for the plain versions.
 //
 // Key s sits at s - off on the queries' diagonal, and only keys in [lo, hi)
 // exist. The single-device frame is {0, 0, S}, fixed at compile time. The

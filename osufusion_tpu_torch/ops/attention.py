@@ -11,8 +11,8 @@ the op's outputs is the same on both. Any other CPU tensor takes the plain
 forward with native autograd. On the card the form rule
 (``ops/flash_forms.py::attention_form``, on the operands' dtype and head dim)
 decides first, before any launch or gather: bf16 and fp16 with D = 64, 128,
-192 or 256 run the wgmma kernels forward and at global sites backward (K2's
-sweep; the windowed backward pair at bf16 too, at fp16 the forms kernels);
+192 or 256 run the wgmma kernels forward and backward (K2's sweep at global
+sites, the windowed backward pair at windowed ones);
 fp32 operands at any of those head dims the forms kernels, and a head dim
 above 256 that is a multiple of 64 their chunked instance; a head dim that
 is not a multiple of 64 runs what the JAX package runs there, rope and then

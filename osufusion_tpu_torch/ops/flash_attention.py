@@ -33,7 +33,7 @@ eight timesteps, so the arithmetic intensity is far above the ~295 FLOP/byte
 ridge; the training sites (global at T = 4096 ... 512, windowed at T = 65536
 ... 8192) are the same. The forward, the global backward and the windowed
 pair (``csrc/flash_fwd.cuh``, ``csrc/flash_bwd.cu`` with its sweep
-``csrc/flash_bwd_sweep.cuh``, ``csrc/flash_bwd_windowed.cu``) are built for
+``csrc/flash_bwd_sweep.cuh``, ``csrc/flash_bwd_windowed.cuh``) are built for
 Hopper: tiles arrive by TMA
 behind mbarriers from a producer warp or warpgroup, and warpgroups run every
 product as ``wgmma`` with fp32 accumulation (``csrc/hopper.cuh``); the
@@ -50,15 +50,17 @@ ring's ``flash_bwd_sweep``) and the windowed pair with its pre-pass (K3a /
 K3b, ``flash_bwd_dq`` / ``flash_bwd_dkv``, and its halo instances) are
 templated on the head dim and take D = 64, 128, 192 and 256; at D > 64 the
 global backward runs the sweep between the forms family's D-generic
-pre-pass and post-pass (same scratch, dq buffer zeroed by the pre-pass). K1
-and K2's sweep are templated on the operand type too and take fp16 at the
-same head dims, each type a library of its own (``flash_fwd_f16``,
-``flash_bwd_f16``): at fp16 every forward is K1 (with its halo instance and
-the ring's hops), and the global backward runs K2's sweep between the forms
-pre-pass and post-pass at every D, as bf16 does above 64. The ring's merge
-takes bf16 at D = 64. Every other form (fp32 operands; fp16's windowed pair,
-merge, pre-pass and post-pass; every type at D > 256; bf16 at D > 64 for the
-merge and the global backward's pre-pass and post-pass:
+pre-pass and post-pass (same scratch, dq buffer zeroed by the pre-pass). K1,
+K2's sweep and the windowed pair with its pre-pass are templated on the
+operand type too and take fp16 at the same head dims, each type a library of
+its own (``flash_fwd_f16``, ``flash_bwd_f16``, ``flash_bwd_windowed_f16``):
+at fp16 every forward is K1 (with its halo instance and the ring's hops), a
+windowed backward the fp16 pair (and its halo instances), and the global
+backward runs K2's sweep between the forms pre-pass and post-pass at every
+D, as bf16 does above 64. The ring's merge takes bf16 at D = 64. Every other
+form (fp32 operands; fp16's merge and the global backward's pre-pass and
+post-pass; every type at D > 256; bf16 at D > 64 for the merge and the
+global backward's pre-pass and post-pass:
 ``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
 operands' (dtype, D) through ``flash_forms.takes_forms``, and the forms
@@ -92,16 +94,18 @@ HEAD_DIM = 64
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-# library name -> source; each becomes a shared library of its own (K1's and K2's sweep's one a type)
+# library name -> source; each becomes a shared library of its own (K1's, K2's sweep's and the windowed
+# pair's one a type)
 SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_fwd_f16", "flash_bwd", "flash_bwd_f16",
-                                                   "flash_bwd_windowed", "ring_merge", "flash_forms")}
+                                                   "flash_bwd_windowed", "flash_bwd_windowed_f16", "ring_merge",
+                                                   "flash_forms")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
 # its group-major scratch is padded to a multiple of it
 BWD_ROW_TILE = 64
 # the windowed pre-pass pads its LSE and delta to a multiple of this many rows
-# (csrc/flash_bwd_windowed.cu, ROW_PAD): a whole number of the dq kernel's
+# (csrc/flash_bwd_windowed.cuh, ROW_PAD): a whole number of the dq kernel's
 # blocks at every head dim (128 rows a block, 64 at D = 256)
 WINDOWED_ROW_PAD = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -162,17 +166,22 @@ _ENTRY_POINTS = {
     "ring_merge_bf16": ("ring_merge", [_PTR] * 6 + [_INT, _PTR]),
     # D | q do o lse cos sin | qs_g lse_g delta_g | B T H pad | scale | stream
     "flash_bwd_windowed_prep_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
+    "flash_bwd_windowed_prep_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 9 + [_INT] * 4 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g cos sin dq | B T S H pad window | scale | stream
     "flash_bwd_dq_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "flash_bwd_dq_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g dk dv | B T S H pad window | stream
     "flash_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 6 + [_PTR]),
+    "flash_bwd_dkv_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 8 + [_INT] * 6 + [_PTR]),
     # D | q k v o lse | B T H window g0 t_global | scale | stream
     "halo_fwd_bf16": ("flash_fwd", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     "halo_fwd_f16": ("flash_fwd_f16", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g dq | B T H pad window g0 t_global | scale | stream
     "halo_bwd_dq_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
+    "halo_bwd_dq_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 7 + [_INT] * 7 + [ctypes.c_float, _PTR]),
     # D | k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
     "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
+    "halo_bwd_dkv_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
     # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
     # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
     "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
@@ -189,7 +198,7 @@ _ENTRY_POINTS = {
 }
 
 
-# operand dtype -> the suffix of the entry points of K1 and K2's sweep of that type
+# operand dtype -> the suffix of the entry points of K1, K2's sweep and the windowed pair of that type
 TYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
@@ -592,7 +601,7 @@ def ring_merge_reference(o_acc: Optional[torch.Tensor], lse_acc: Optional[torch.
 class WindowedPrep(NamedTuple):
     """What the windowed pair's pre-pass writes (``windowed_prep``) and
     ``flash_bwd_dkv`` (or the halo pair's ``halo_bwd_dkv``) reads: qs (B, T*H,
-    D) bf16, the raw q rotated (or, without tables, the rotated q as it came)
+    D) in the operands' dtype (bf16 or fp16), the raw q rotated (or, without tables, the rotated q as it came)
     and scaled by ``scale * log2(e)`` with the forward's arithmetic; lse and
     delta (B, pad) fp32, pad = T*H rounded up to ``WINDOWED_ROW_PAD``, the pad
     rows +inf and 0."""
@@ -606,39 +615,39 @@ def _windowed_pad(rows: int) -> int:
     return -(-rows // WINDOWED_ROW_PAD) * WINDOWED_ROW_PAD
 
 
-def _check_prep(who: str, prep: WindowedPrep, device, B: int, rows: int, D: int) -> None:
-    """The pre-pass scratch as the dk/dv kernels take it: qs (B, rows, D)
-    bf16, lse and delta (B, rows padded to ``WINDOWED_ROW_PAD``) fp32, all
-    contiguous on ``device``."""
+def _check_prep(who: str, prep: WindowedPrep, device, dtype, B: int, rows: int, D: int) -> None:
+    """The pre-pass scratch as the dk/dv kernels of ``dtype`` operands take
+    it: qs (B, rows, D) of ``dtype``, lse and delta (B, rows padded to
+    ``WINDOWED_ROW_PAD``) fp32, all contiguous on ``device``."""
     pad = _windowed_pad(rows)
     shapes = ((prep.qs, (B, rows, D)), (prep.lse, (B, pad)), (prep.delta, (B, pad)))
     if any(t.shape != shape for t, shape in shapes):
         raise ValueError(f"{who} shapes: qs {tuple(prep.qs.shape)} lse {tuple(prep.lse.shape)} delta "
                          f"{tuple(prep.delta.shape)}; want qs {(B, rows, D)}, lse and delta {(B, pad)}")
-    _check_operands(who, device, (("qs", prep.qs, torch.bfloat16), ("lse", prep.lse, torch.float32),
+    _check_operands(who, device, (("qs", prep.qs, dtype), ("lse", prep.lse, torch.float32),
                                   ("delta", prep.delta, torch.float32)))
 
 
 def windowed_prep(
-    q: torch.Tensor,  # (B, T, H, D) bf16, raw
-    o: torch.Tensor,  # (B, T, H, D) bf16, the forward's output
+    q: torch.Tensor,  # (B, T, H, D) bf16 or fp16, raw
+    o: torch.Tensor,  # (B, T, H, D) q's dtype, the forward's output
     lse: torch.Tensor,  # (B, T*H) fp32, the forward's base-2 LSE
-    do: torch.Tensor,  # (B, T, H, D) bf16
+    do: torch.Tensor,  # (B, T, H, D) q's dtype
     cos: Optional[torch.Tensor],  # (T, D) fp32, or None: q arrives rotated (the halo pair)
     sin: Optional[torch.Tensor],  # (T, D) fp32, or None
     scale: float,
 ) -> WindowedPrep:
-    """Launch the windowed pair's pre-pass of q's head dim on the current
-    stream (the first launch of ``flash_bwd_dq``, and without tables of
+    """Launch the windowed pair's pre-pass of q's dtype and head dim on the
+    current stream (the first launch of ``flash_bwd_dq``, and without tables of
     ``halo_bwd_dq``): one sweep over the rows that writes qs once, delta =
     rowsum(do * o) and the padded LSE; no fp32 dq buffer. Operands as those
     wrappers take them, checked there."""
     B, T, H, D = q.shape
     pad = _windowed_pad(T * H)
-    prep = WindowedPrep(torch.empty((B, T * H, D), dtype=torch.bfloat16, device=q.device),
+    prep = WindowedPrep(torch.empty((B, T * H, D), dtype=q.dtype, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device),
                         torch.empty((B, pad), dtype=torch.float32, device=q.device))
-    err = _kernel("flash_bwd_windowed_prep_bf16")(
+    err = _kernel(f"flash_bwd_windowed_prep_{TYPE_SUFFIX[q.dtype]}")(
         D, q.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(cos), _ptr(sin),
         prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         B, T, H, pad, scale, torch.cuda.current_stream(q.device).cuda_stream,
@@ -660,7 +669,7 @@ def flash_bwd_dq(
     scale: float,
 ):
     """Launch the windowed pre-pass and the dq kernel of q's form (K3a at bf16
-    with D = 64, 128, 192 or 256) on the current stream. Returns (dq, prep):
+    or fp16 with D = 64, 128, 192 or 256) on the current stream. Returns (dq, prep):
     dq (B, T, H, D) in q's dtype and the raw q's frame, written once per row
     (the same bits from run to run), and
     the pre-pass's scratch, which ``flash_bwd_dkv`` takes (``WindowedPrep``:
@@ -676,7 +685,7 @@ def flash_bwd_dq(
         return forms.forms_bwd_post(prep, cos, sin, scale), prep
     prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
-    err = _kernel("flash_bwd_dq_bf16")(
+    err = _kernel(f"flash_bwd_dq_{TYPE_SUFFIX[q.dtype]}")(
         q.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
         prep.delta.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(),
         B, T, T, H, prep.lse.shape[1], window, scale, torch.cuda.current_stream(q.device).cuda_stream,
@@ -716,8 +725,8 @@ def flash_bwd_dkv(
         forms.check_prep(who, prep, B, T, H, 1)
         forms.forms_bwd_dkv(k, v, prep, dk, dv, window, None, accumulate=False)
         return dk, dv
-    _check_prep(who, prep, do.device, B, T * H, D)
-    err = _kernel("flash_bwd_dkv_bf16")(
+    _check_prep(who, prep, do.device, do.dtype, B, T * H, D)
+    err = _kernel(f"flash_bwd_dkv_{TYPE_SUFFIX[do.dtype]}")(
         D, k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(), prep.delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, T, T, H, prep.lse.shape[1], window,
         torch.cuda.current_stream(do.device).cuda_stream,

@@ -13,16 +13,13 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   ``halo_fwd`` and the ring's hops), the global backward's sweep K2
   (``csrc/flash_bwd_sweep.cuh``: ``flash_bwd`` and the ring's
   ``flash_bwd_sweep``) and the windowed pair with its pre-pass, K3a / K3b and
-  their halo instances K5a / K5b (``csrc/flash_bwd_windowed.cu``:
+  their halo instances K5a / K5b (``csrc/flash_bwd_windowed.cuh``:
   ``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``).
-  fp16 operands with D = 64, 128, 192 or 256 at the wrappers of
-  ``F16_WGMMA``, whose kernels are templated on the operand type too: K1
-  (``flash_fwd``, ``halo_fwd``, the ring's hops) and K2's sweep
-  (``flash_bwd``, ``flash_bwd_sweep``);
+  fp16 operands with D = 64, 128, 192 or 256 at the same wrappers, whose
+  kernels are templated on the operand type too;
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
-  fp32 operands at D in ``FORMS_HEAD_DIMS``; fp16 at the windowed pair
-  (``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``),
-  the ring's merge and the global backward's pre-pass and post-pass
+  fp32 operands at D in ``FORMS_HEAD_DIMS``; fp16 at the ring's merge and
+  the global backward's pre-pass and post-pass
   (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at fp16 runs K2's
   sweep between these two); and bf16 at D > 64 at the merge, the pre-pass and
   the post-pass (``flash_bwd`` at D > 64 likewise);
@@ -57,14 +54,13 @@ from osufusion_tpu_torch.ops import flash_attention as fa
 # runs the chunked instance
 FORMS_HEAD_DIMS = (64, 128, 192, 256)
 # the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cuh, csrc/flash_bwd_sweep.cuh,
-# csrc/flash_bwd_windowed.cu)
+# csrc/flash_bwd_windowed.cuh)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
-# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS; every other wrapper's takes 64
+# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS, at bf16 and at fp16 (each operand
+# type's instances a library of their own: csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu,
+# csrc/flash_bwd_windowed_f16.cu); every other wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
-# the wrappers whose wgmma kernel also takes fp16 operands, at every head dim of WGMMA_HEAD_DIMS: K1 (the
-# forward, its halo instance, the ring's hops) and K2's sweep (csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu)
-F16_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"})
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -81,9 +77,9 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
                                   f"not {dtype}")
     if head_dim > FORMS_HEAD_DIMS[-1]:
         return "chunked"
-    if dtype == torch.bfloat16 and (head_dim == 64 or (who in WIDE_WGMMA and head_dim in WGMMA_HEAD_DIMS)):
+    if dtype == torch.bfloat16 and head_dim == 64:
         return "hopper"
-    if dtype == torch.float16 and who in F16_WGMMA and head_dim in WGMMA_HEAD_DIMS:
+    if dtype in (torch.bfloat16, torch.float16) and who in WIDE_WGMMA and head_dim in WGMMA_HEAD_DIMS:
         return "hopper"
     return "forms"
 
@@ -204,8 +200,8 @@ def forms_bwd_dq(k, v, prep, window: int, halo: Optional[tuple], accumulate: boo
     """Launch the forms dq kernel on the current stream over the keys of k and
     v: ``prep.dq_acc`` (fp32, group-major) gets ds k, stored, or with
     ``accumulate`` added to what it holds. Counts in
-    ``forms_bwd_dq.launches``. bf16 at D <= 256 has no forms dq (K2's sweep
-    and the wgmma windowed pair run there): RuntimeError."""
+    ``forms_bwd_dq.launches``. bf16 and fp16 at D <= 256 have no forms dq
+    (K2's sweep and the wgmma windowed pair run there): RuntimeError."""
     _check_sweep("forms_bwd_dq", k, v, prep)
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dq")(
@@ -223,8 +219,8 @@ def forms_bwd_dkv(k, v, prep, dk, dv, window: int, halo: Optional[tuple], accumu
     """Launch the forms dk/dv kernel on the current stream over the keys of k
     and v: dk (rotated frame) and dv (k's shape, fp32) stored, or with
     ``accumulate`` added to; in the halo frame the slab rows outside the song
-    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 at D <= 256 has no
-    forms dk/dv: RuntimeError."""
+    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 and fp16 at D <= 256
+    have no forms dk/dv: RuntimeError."""
     _check_sweep("forms_bwd_dkv", k, v, prep, (dk, dv))
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dkv")(

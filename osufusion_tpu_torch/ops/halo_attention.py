@@ -8,7 +8,7 @@ their plain PyTorch versions.
 in the halo frame. ``halo_bwd_dq`` and ``halo_bwd_dkv`` replace
 ``_halo_dq_kernel`` and ``_halo_dkv_kernel`` (launched by
 ``_halo_flash_bwd``): the windowed backward pair of
-``csrc/flash_bwd_windowed.cu`` in the halo frame, after the windowed pair's
+``csrc/flash_bwd_windowed.cuh`` in the halo frame, after the windowed pair's
 pre-pass without tables (``flash_attention.windowed_prep``), which
 ``halo_bwd_dq`` launches first and which writes qs, delta and the padded LSE
 once for both. The frame's numbers are computed once in C++
@@ -27,11 +27,11 @@ base-2, flat (B, T*H) in t-major order, as ``flash_fwd`` writes it.
 
 What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
-see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cu``. Those take
-bf16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and the
-windowed pair's with its pre-pass), and K1's HALO instances fp16 too; every
-other form that a kernel takes (fp16's dq and dk/dv among them) runs the
-forms family's kernels in the same frame (``ops/flash_forms.py``,
+see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cuh``. Those take
+bf16 and fp16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and
+the windowed pair's with its pre-pass); every other form that a kernel takes
+(fp32, and every type at D > 256) runs the forms family's kernels in the
+same frame (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
 D).
 """
@@ -170,7 +170,7 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     """Launch the pre-pass and the halo dq kernel of q's form on the current
     stream. Returns (dq, prep): dq (B, T, H, D) in q's dtype and rotated
     frame, written once per row (the same bits from run to run), and the
-    pre-pass's scratch (``WindowedPrep``: qs = q * scale * log2(e) in bf16,
+    pre-pass's scratch (``WindowedPrep``: qs = q * scale * log2(e) in q's dtype,
     the padded LSE, delta = rowsum(do * o); the forms family's pre-pass, dq
     kernel and post-pass leave a ``GlobalPrep``), which ``halo_bwd_dkv``
     takes. Counts the wgmma dq kernel's launches in ``halo_bwd_dq.launches``,
@@ -183,7 +183,7 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
         return forms.forms_bwd_post(prep, None, None, scale), prep
     prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
-    err = _kernel("halo_bwd_dq_bf16")(
+    err = _kernel(f"halo_bwd_dq_{fa.TYPE_SUFFIX[q.dtype]}")(
         q.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
         prep.delta.data_ptr(), dq.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global, scale, _stream(q))
     _check_launch("halo_bwd_dq", err)
@@ -208,8 +208,8 @@ def halo_bwd_dkv(k, v, do, prep, window: int, g0: int, t_global: int):
         forms.check_prep("halo_bwd_dkv", prep, B, T, H, 1)
         forms.forms_bwd_dkv(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
         return dk, dv
-    _check_prep("halo_bwd_dkv", prep, do.device, B, T * H, do.shape[-1])
-    err = _kernel("halo_bwd_dkv_bf16")(
+    _check_prep("halo_bwd_dkv", prep, do.device, do.dtype, B, T * H, do.shape[-1])
+    err = _kernel(f"halo_bwd_dkv_{fa.TYPE_SUFFIX[do.dtype]}")(
         do.shape[-1], k.data_ptr(), v.data_ptr(), do.data_ptr(), prep.qs.data_ptr(), prep.lse.data_ptr(),
         prep.delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, prep.lse.shape[1], window, g0, t_global,
         _stream(do))

@@ -18,7 +18,12 @@ What differs from the JAX package, and why:
 - Precision: ``mixed_precision="bf16"`` keeps float32 parameters and moments
   and runs the forward under autocast (``models/base.py``); ``full_bf16``
   holds parameters, gradients and moments in bf16; ``"no"`` is float32
-  throughout. fp16 (static loss scale) and fp8 are not ported and raise.
+  throughout. ``"fp16"`` runs the forward under autocast at float16 (the
+  model config's compute dtype) with the JAX package's static loss scale:
+  each micro-batch's loss is scaled by ``FP16_LOSS_SCALE`` before its
+  backward, and every gradient divided back out in float32 before the norm,
+  the clip and AdamW; no dynamic scaler and no skipped steps, as there. fp8
+  is not ported and raises.
 - Random draws come from a ``torch.Generator`` on the training device that
   the state carries, where the JAX state carries a PRNG key.
 - A checkpoint is one ``torch.save`` file per step,
@@ -55,6 +60,9 @@ from osufusion_tpu_torch.parallel.sequence import SeqShard, all_reduce_, frames_
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
 ADAMW_WEIGHT_DECAY = 1e-4
+# the static loss scale of fp16 training (osufusion_tpu/train/loop.py): 2^12 keeps small gradients above fp16's
+# smallest normal (~6.1e-5) in the backward
+FP16_LOSS_SCALE = 4096.0
 
 
 @dataclass
@@ -87,11 +95,9 @@ def check_supported(cfg: Config) -> None:
     if cfg.train.opt_moments != "dtype":
         raise NotImplementedError(
             f"--opt-moments {cfg.train.opt_moments} is not ported yet (ROADMAP.md, queue 1: train/quant_opt.py)")
-    if cfg.train.mixed_precision == "fp16":
-        raise NotImplementedError("fp16 training with its static loss scale is not ported yet (ROADMAP.md, queue 1, item 4)")
     if cfg.train.mixed_precision == "fp8" or cfg.model.quant != "none":
-        raise NotImplementedError("fp8 training is not ported yet (ROADMAP.md, queue 1: ops/quant.py)")
-    if cfg.train.mixed_precision not in ("no", "bf16"):
+        raise NotImplementedError("fp8 training is not ported yet (ROADMAP.md, queue 1, item 4: ops/quant.py)")
+    if cfg.train.mixed_precision not in ("no", "bf16", "fp16"):
         raise ValueError(f"unknown mixed precision mode: {cfg.train.mixed_precision!r}")
     if cfg.train.mesh_model != 1:
         raise NotImplementedError(
@@ -153,7 +159,8 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
     ``batch`` is (x, a, c, orig_len) as numpy arrays or tensors, (B, ...) or,
     with gradient accumulation, (accum, B, ...). The state is updated in
     place. ``metrics`` holds float32 scalars ``loss`` (mean over micro-batches),
-    ``grad_norm`` (before clipping) and ``lr`` (the rate this step used).
+    ``grad_norm`` (before clipping) and ``lr`` (the rate this step used);
+    under fp16 both are of the unscaled loss.
     ``draws``, one (noise, t, cond_mask) per micro-batch, replaces the
     generator's draws: the tests use it to hold both packages to the same
     random numbers. With ``shard`` every rank of its group passes the same
@@ -162,6 +169,7 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
     schedule = make_lr_schedule(cfg)
     accum = max(1, cfg.train.gradient_accumulation_steps)
     clip = cfg.train.clip_grad_norm
+    loss_scale = FP16_LOSS_SCALE if cfg.train.mixed_precision == "fp16" else 1.0
 
     def step(state: TrainState, batch, draws=None) -> dict:
         params = state.params
@@ -186,7 +194,7 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
                     if shard is not None:
                         noise = frames_of(noise, shard, dim=-1)
                     loss = model.loss_from_draws(params, x, a, c, orig_len, noise, t, cond_mask)
-                (loss / accum).backward()
+                (loss * loss_scale / accum).backward()
                 loss_sum += loss.detach()
         if shard is not None:
             sum_gradients(params, shard)
@@ -195,6 +203,10 @@ def make_train_step(model: GenerativeModel, cfg: Config, shard: Optional[SeqShar
                 p.grad = torch.zeros_like(p)
 
         grads = [p.grad for p in params.parameters()]
+        if loss_scale != 1.0:
+            # in fp32 (the foreach kernels' opmath), each rounded back to its gradient's dtype once, as the JAX
+            # step's astype(float32) / scale astype(dtype): one launch for every leaf, not two a leaf
+            torch._foreach_div_(grads, loss_scale)
         grad_norm = global_norm(grads)
         if clip > 0:
             torch._foreach_mul_(grads, (clip / grad_norm.clamp(min=clip)).to(grads[0].dtype))

@@ -43,8 +43,9 @@ the checkpoints, the data position, the metrics and the final export.
 
 Flags whose feature is not ported raise ``NotImplementedError`` naming the
 ROADMAP.md queue item: ``--model-type rectified-flow``, ``--mixed-precision
-fp16|fp8``, ``--opt-moments int8``, ``--mesh-data`` and ``--mesh-model`` above
-1, and the periodic sample (``--sample-audio``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
+fp8``, ``--opt-moments int8``, ``--mesh-data`` and ``--mesh-model`` above 1,
+and the periodic sample (``--sample-audio``). ``--mixed-precision fp16``
+trains at float16 with the JAX package's static loss scale (``train/loop.py``). Every remat mode of ``--gradient-checkpointing-mode`` runs,
 ``mixed`` with ``--gradient-checkpointing-levels`` included; the audio stack's
 override is ``model.audio_remat_mode`` of the config, which has no flag, as in
 the JAX package.

@@ -6,8 +6,8 @@ chunked instance and the JAX package's XLA route; ``sdpa`` in fp32 at D = 32
 package's ``sdpa`` as its own tests run it on the CPU (the XLA einsum, and
 for D = 128 the Pallas kernel in interpret mode); the plain forward, dq and
 dkv at D = 128 against the Pallas kernels in interpret mode, and the plain
-forward and backward at fp16 / D = 64 and 128 (K1's and K2's sweep's fp16
-instances, and the forms windowed pair's) and at fp32 and bf16 / D = 320
+forward and backward at fp16 / D = 64 and 128 (the fp16 instances of K1,
+K2's sweep and the windowed pair) and at fp32 and bf16 / D = 320
 (the forms kernels' chunked instance) against ``pa.flash_attention`` in
 interpret mode; and the halo rule at D = 128 against the JAX package's.
 
@@ -27,7 +27,7 @@ from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_parallel_available
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
-from osufusion_tpu_torch.ops.flash_forms import F16_WGMMA, FORMS_HEAD_DIMS, WIDE_WGMMA, attention_form, kernel_form
+from osufusion_tpu_torch.ops.flash_forms import FORMS_HEAD_DIMS, WIDE_WGMMA, attention_form, kernel_form
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
 
@@ -54,7 +54,8 @@ def _expected_form(who, dtype, D):
         return "chunked"
     if dtype == torch.bfloat16 and (D == 64 or who in WIDE_WGMMA):
         return "hopper"
-    if dtype == torch.float16 and who in ("flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"):
+    if dtype == torch.float16 and who in ("flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq",
+                                          "flash_bwd_dkv", "halo_bwd_dq", "halo_bwd_dkv"):
         return "hopper"
     return "forms"
 
@@ -72,10 +73,10 @@ def test_attention_form_table(dtype, D):
     raising: per wrapper, the wgmma kernels at bf16 with D = 64, and with D =
     128, 192, 256 for the forward, the global backward's sweep and the
     windowed pair with its halo instances (K1, K2, K3a / K3b, K5a / K5b), and
-    at fp16 with D = 64 ... 256 for the forward and the global backward's
-    sweep (K1 with its halo instance and the ring's hops, K2); the forms
-    kernels at fp32, at fp16 for the windowed pair, the ring's merge and the
-    global backward's pre-pass and post-pass, and at bf16 with D > 64 for the
+    at fp16 with D = 64 ... 256 for the forward, the global backward's sweep
+    and the windowed pair (K1 with its halo instance and the ring's hops, K2,
+    K3a / K3b, K5a / K5b); the forms kernels at fp32, at fp16 for the ring's
+    merge and the global backward's pre-pass and post-pass, and at bf16 with D > 64 for the
     merge, the pre-pass and the post-pass; the chunked forms instance at every
     dtype above D = 256."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
@@ -88,16 +89,15 @@ def test_attention_form_table(dtype, D):
     assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
     assert WIDE_WGMMA == {"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                           "halo_bwd_dq", "halo_bwd_dkv"}
-    assert F16_WGMMA == {"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep"}
     # no wrapper at bf16 with D <= 256 is left on the forms bodies but the merge and the global pre- and post-pass
     if dtype == torch.bfloat16 and D in (128, 192, 256):
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "forms"} == {
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
-    # at fp16 no forward is left on the forms bodies: K1 takes every one, and K2's sweep every global backward
+    # at fp16 no forward or windowed backward is left on the forms bodies: K1 takes every forward, K2's sweep
+    # every global backward and the wgmma pair every windowed one, as at bf16
     if dtype == torch.float16 and D in FORMS_HEAD_DIMS:
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "forms"} == {
-            "flash_bwd_prep", "flash_bwd_post", "ring_merge", "flash_bwd_dq", "flash_bwd_dkv", "halo_bwd_dq",
-            "halo_bwd_dkv"}
+            "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
 
 
 def _qkv(T, H, D, seed):
@@ -206,8 +206,8 @@ def test_seq_parallel_available_keeps_the_jax_rule_at_wider_heads(t, window, d, 
     assert seq_parallel_available(t // n, window, d, n) == jax_seq_parallel_available(t, t, d, window, n)
 
 
-# (dtype, D, window): the fp16 instances of K1 and K2's sweep (and of the forms pre-pass, windowed pair and
-# post-pass) at D = 64 and 128, the forms kernels' chunked instance (D > 256) in fp32 and bf16, and the windowed
+# (dtype, D, window): the fp16 instances of K1, K2's sweep and the windowed pair (and of the forms pre-pass
+# and post-pass) at D = 64 and 128, the forms kernels' chunked instance (D > 256) in fp32 and bf16, and the windowed
 # pair's bf16 instances at D = 192 and 256 (K3a / K3b), each windowed and global
 WIDE_CASES = [(torch.float16, 64, 64), (torch.float16, 64, None), (torch.float16, 128, 64),
               (torch.float16, 128, None), (torch.float32, 320, 64),
@@ -230,7 +230,7 @@ def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D,
     operands in ``dtype`` at head dim ``D``, computed in fp32, against the JAX
     package's ``pa.flash_attention`` and its vjp on the same operands in that
     dtype, in interpret mode: the functions that the fp16 instances of K1,
-    K2's sweep and the forms windowed pair, the forms kernels' chunked
+    K2's sweep and the windowed pair, the forms kernels' chunked
     instances, and the windowed pair's bf16 instances at D = 192 and 256,
     hold on the card."""
     T, H = 128, 2

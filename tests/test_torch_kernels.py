@@ -1,10 +1,11 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
-the forms family's instances (fp32 with D = 64 ... 256, fp16's dq and dk/dv,
-and the chunked instance above), the instances of K1, K2, the windowed pair
-and its halo frame at D = 128, 192 and 256, K1's and K2's sweep's fp16
-instances at D = 64 ... 256, and the differentiable ops that join them) against
+the forms family's instances (fp32 with D = 64 ... 256, and the chunked
+instance above), the instances of K1, K2, the windowed pair and its halo
+frame at D = 128, 192 and 256, the fp16 instances of K1, K2's sweep and the
+windowed pair with its halo frame at D = 64 ... 256, and the differentiable
+ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -634,7 +635,7 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     forms family's chunked instance runs and no wgmma kernel. fp16 at D = 64
     runs K1 for both forwards and no forms forward; its global backward K2's
     sweep between the forms pre-pass and post-pass, its windowed one the
-    forms pre-pass, dq, dk/dv and post-pass (the fp16 windowed pair)."""
+    fp16 wgmma pair (K3a with its pre-pass, K3b) and no forms kernel."""
     from osufusion_tpu_torch.ops.attention import sdpa
 
     B, T, H = 2, 512, 4
@@ -652,9 +653,10 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     runs = [a - b for a, b in zip(_forms_launches(), before[1])]
-    if dtype == torch.float16:  # K1 twice; K2 (flash_bwd) at the global site
-        assert kernels == [2, int(window is None)] + [0] * 9, kernels
-        assert runs == ([0, 1, 0, 0, 1, 0] if window is None else [0, 1, 1, 1, 1, 0]), runs
+    if dtype == torch.float16:  # K1 twice; K2 (flash_bwd) at the global site, K3a and K3b at the windowed one
+        windowed = int(window is not None)
+        assert kernels == [2, 1 - windowed, windowed, windowed] + [0] * 7, kernels
+        assert runs == ([0, 1, 0, 0, 1, 0] if window is None else [0] * 6), runs
     else:
         assert kernels == [0] * 11, kernels
         assert runs == [2, 1, 1, 1, 1, 0], runs
@@ -1161,7 +1163,7 @@ def test_wide_halo_pair_matches_plain(cuda, shard):
 F16_DIMS = [64, 128, 192, 256]
 # (B, T, H, Kv, window, tables, with_lse): K1's forms at fp16. (a) windowed with fused q-RoPE, no LSE (serving);
 # (b) global with tables and its LSE, then K2's MQA sweep; (d) windowed with its LSE, then the fp16 windowed pair
-# (the forms pre-pass, dq, dk/dv and post-pass); (c) grouped (G = 2) global without tables and with a ragged
+# (K3a with its pre-pass, K3b); (c) grouped (G = 2) global without tables and with a ragged
 # last tile, then K2's grouped sweep
 F16_SITES = [(2, 1000, 4, 1, 256, True, False), (2, 1024, 4, 1, -1, True, True), (1, 1000, 4, 1, 256, True, True),
              (1, 333, 8, 4, -1, False, True)]
@@ -1177,7 +1179,8 @@ def test_f16_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables, with_ls
     wrappers against the plain fp32 versions on the same fp16 inputs at
     F16_REL_TOL, with planted faults above it: the forward without its last
     key tile (global) or with the window one key short on each side
-    (windowed), the backward from an LSE off by 0.05. No forms forward runs."""
+    (windowed), the backward from an LSE off by 0.05. No forms forward runs,
+    and at the windowed site (d) the fp16 wgmma pair and no forms kernel."""
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float16, tables, cuda, seed=D + T + Kv)
     scale = D**-0.5
     before = _kernel_launches(), _forms_launches()
@@ -1192,8 +1195,9 @@ def test_f16_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables, with_ls
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
-    assert kernels == [1, int(glob)] + [0] * 9, kernels
-    assert formed == ([0, 1, 0, 0, 1, 0] if glob else [0, 1, 1, 1, 1, 0] if with_lse else [0] * 6), formed
+    pair = int(with_lse and not glob)
+    assert kernels == [1, int(glob), pair, pair] + [0] * 7, kernels
+    assert formed == ([0, 1, 0, 0, 1, 0] if glob else [0] * 6), formed
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     if glob:
         o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
@@ -1289,11 +1293,12 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
         assert _rel(stored[4], ref[4]) > F16_REL_TOL
 
 
-# the forms instances that no route launches since K1 and K2 took bf16 and fp16 (csrc/flash_forms.cu,
-# FORMS_DISPATCH): (entry point, dtype, D)
+# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16
+# (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
 PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
                 ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
-                ("forms_bwd_dkv", torch.bfloat16, 256)]
+                ("forms_bwd_dkv", torch.bfloat16, 256), ("forms_bwd_dq", torch.float16, 128),
+                ("forms_bwd_dkv", torch.float16, 64)]
 
 
 @pytest.mark.cuda
@@ -1335,3 +1340,145 @@ def test_f16_failed_launch_raises(cuda, monkeypatch, window):
     with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed"):
         sdpa(*(t.clone().requires_grad_(True) for t in (q, k, v)), window, (cos, sin))
     assert launched == ["flash_fwd_f16", "flash_fwd_f16"]
+
+
+# ------------------------------------------------- the windowed pair at fp16 (wgmma, D = 64 ... 256)
+
+# (B, T, H, window): the whole song's narrowest level, a ragged row count (T*H = 1665, not a multiple of the
+# 128-row padding) under a window no tile divides, a window longer than the song, a global site
+F16_PAIR_SHAPES = [(1, 8192, 16, 512), (1, 333, 5, 100), (2, 130, 3, 512), (2, 1000, 4, -1)]
+F16_PAIR_IDS = ["T8192-W512", "T333-W100-ragged", "T130-W512", "T1000-global"]
+
+
+def _f16_pair(q, k_rot, v, o, lse, do, cos, sin, window, scale):
+    dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+    return (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window)), prep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,window", F16_PAIR_SHAPES, ids=F16_PAIR_IDS)
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_windowed_pair_matches_plain(cuda, D, B, T, H, window):
+    """K3a (with its pre-pass) and K3b at fp16 through their wrappers: one
+    wgmma launch each and no forms kernel; the pre-pass's qs with the
+    forward's bits at fp16, the LSE and delta padded; dq (fp16), dk and dv
+    (fp32) against the plain fp32 versions on the same fp16 inputs at
+    F16_REL_TOL, the song's first and last rows on their own; a planted
+    fault (an LSE off by 0.05) above it; every bit repeated by a second
+    launch."""
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float16, True, cuda, seed=D + T + H)
+    scale = D**-0.5
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    before = _kernel_launches(), _forms_launches()
+    grads, prep = _f16_pair(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    assert kernels == [0, 0, 1, 1] + [0] * 7 and _forms_launches() == before[1], kernels
+    rows, pad = T * H, prep.lse.shape[1]
+    assert pad % 128 == 0 and pad - 128 < rows <= pad and prep.qs.dtype == torch.float16
+    qscale = float(np.float32(np.float32(scale) * np.float32(fa.LOG2E)))
+    assert torch.equal(prep.qs, (apply_rope(q.float(), cos, sin) * qscale).to(torch.float16).reshape(B, rows, D))
+    assert torch.equal(prep.lse[:, :rows], lse) and bool((prep.lse[:, rows:] == torch.inf).all())
+    assert not prep.delta[:, rows:].any()
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse), plain(lse + 0.05)
+    assert grads[0].dtype == torch.float16 and grads[1].dtype == grads[2].dtype == torch.float32
+    for name, got, ref, fault in zip(("dq", "dk", "dv"), grads, refs, faults):
+        assert torch.isfinite(got).all() and _rel(got, ref) < F16_REL_TOL < _rel(fault, ref), \
+            f"{name}: rel L2 {_rel(got, ref)}, planted fault {_rel(fault, ref)}"
+        for edge in (slice(0, 128), slice(max(0, T - 128), T)):
+            assert _rel(got[:, edge], ref[:, edge]) < F16_REL_TOL, f"{name} at {edge}: {_rel(got[:, edge], ref[:, edge])}"
+    again = _f16_pair(q, k_rot, v, o, lse, do, cos, sin, window, scale)[0]
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_windowed_pair_at_the_loss_scale(cuda, D):
+    """do at fp16 training's loss scale (``train.loop.FP16_LOSS_SCALE``, 4096
+    times a unit-variance do): the fp16 pair's dq, dk and dv stay finite and
+    within F16_REL_TOL of the plain versions on the same inputs."""
+    from osufusion_tpu_torch.train.loop import FP16_LOSS_SCALE
+
+    B, T, H, window = 1, 1024, 4, 256
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float16, True, cuda, seed=D + 7)
+    do = (do.float() * FP16_LOSS_SCALE).half()
+    assert torch.isfinite(do).all()
+    scale = D**-0.5
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    grads, _ = _f16_pair(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+    refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, window),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window))
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(got).all() and _rel(got, ref) < F16_REL_TOL, f"{name}: rel L2 {_rel(got, ref)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 1, 3], ids=["first", "interior", "last"])
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_halo_pair_matches_plain(cuda, D, shard):
+    """K5a and K5b at fp16 over four shards of a song: the slab rows outside
+    the song hold large values that the kernels must ignore, and their dk and
+    dv are exact zeros; one wgmma launch of each and no forms kernel; the
+    window one key short lies above F16_REL_TOL; a second launch repeats
+    every bit."""
+    B, T, H, W, n = 1, 1024, 4, 256, 4
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).half() for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).half() for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    scale = D**-0.5
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+    before = _kernel_launches(), _forms_launches()
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    assert kernels == [0] * 9 + [1, 1] and _forms_launches() == before[1], kernels
+    assert dq.dtype == prep.qs.dtype == torch.float16
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o, lse, do, W, g0, t_global),
+            *ha.halo_bwd_dkv_reference(q, k, v, o, lse, do, W, g0, t_global))
+    fault = ha.halo_bwd_dq_reference(q, k[:, 1:-1], v[:, 1:-1], o, lse, do, W - 2, g0, t_global)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(a).all() and _rel(a, b) < F16_REL_TOL, f"{name}: rel L2 {_rel(a, b)}"
+    assert _rel(fault, refs[0]) > F16_REL_TOL, f"planted fault {_rel(fault, refs[0])}"
+    outside = torch.ones(T + W, dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert (dk[:, outside] == 0).all() and (dv[:, outside] == 0).all()
+    again = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    assert torch.equal(again[0], dq) and all(torch.equal(a, b) for a, b in
+                                             zip(ha.halo_bwd_dkv(k, v, do, again[1], W, g0, t_global), (dk, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", F16_DIMS)
+def test_f16_windowed_gqa_site_under_a_gradient_runs_per_kv_head(cuda, D):
+    """A windowed fp16 site with two KV heads and rotary tables under
+    autograd: one windowed forward with its LSE, and the fp16 pair once per
+    KV head, no forms kernel; o and the gradients against autograd through
+    the plain attention in fp32."""
+    B, T, H, Kv, window = 1, 1024, 8, 2, 256
+    g = torch.Generator(device=cuda).manual_seed(D + Kv)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).half() for _ in range(2))
+    k, v = (torch.randn((B, T, Kv, D), generator=g, device=cuda).half() for _ in range(2))
+    rope = rope_tables(T, D, scale_base=float(T), device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches), _forms_launches()
+    out = fa.flash_attention(*leaves, window, rope)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.lse_launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        n + Kv for n in before[0]) and _forms_launches() == before[1]
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = fa.flash_attention_reference(*ref_leaves, window, rope)
+    ref.backward(do.float())
+    assert out.dtype == torch.float16 and _rel(out, ref.detach()) < F16_REL_TOL
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        assert got.grad.shape == got.shape and torch.isfinite(got.grad).all(), name
+        assert _rel(got.grad, want.grad) < F16_REL_TOL, f"{name}: {_rel(got.grad, want.grad)}"

@@ -100,24 +100,28 @@ def test_no_source_is_left_on_mma_sync(name):
 
 @pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("name", ["flash_fwd.cu", "flash_bwd.cu", "flash_bwd_windowed.cu", "flash_bwd_prep.cuh",
-                                  "flash_fwd_f16.cu", "flash_bwd_f16.cu"])
+                                  "flash_fwd_f16.cu", "flash_bwd_f16.cu", "flash_bwd_windowed_f16.cu"])
 def test_k1_and_k2_instantiate_every_wgmma_head_dim(name, D):
     """K1 (the forward and its halo instance), K2's sweep and the windowed
     pair (K3a / K3b and their halo instances) dispatch on the head dim they
     are given to an instance of each of 64, 128, 192, 256, as
     ``flash_forms.WGMMA_HEAD_DIMS`` promises the wrappers, in the source or a
-    header it includes (K1's and K2's sweep's fp16 libraries too); the
-    pre-pass is templated on the head dim, and the windowed pair's entry
-    point instantiates it at each of them."""
+    header it includes (the fp16 libraries of K1, K2's sweep and the
+    windowed pair too); the pre-pass is templated on the operand type and
+    the head dim, and the windowed pair's entry point instantiates it at
+    each head dim through the header's ``launch_prep``."""
     from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS
 
     assert D in WGMMA_HEAD_DIMS
     if name == "flash_bwd_prep.cuh":
-        assert "template <int D, bool ROPE>" in _text(name)
+        assert "template <typename E, int D, bool ROPE>" in _text(name)
         windowed = _text("flash_bwd_windowed.cu")
         entry = windowed[windowed.index('extern "C" int flash_bwd_windowed_prep_bf16'):]
         entry = entry[:entry.index('extern "C"', 1)]
-        assert "flash_bwd_prep_kernel<DD, true>" in entry and "WINDOWED_HEAD_DIMS(CALL)" in entry
+        assert "launch_prep<__nv_bfloat16, DD>" in entry and "WINDOWED_HEAD_DIMS(CALL)" in entry
+        header = _text("flash_bwd_windowed.cuh")
+        launch = header[header.index("int launch_prep("):]
+        assert "flash_bwd_prep_kernel<E, D, true>" in launch[:launch.index("\n}\n")]
         name = "flash_bwd_windowed.cu"
     text = _text(name) + "".join(_text(header) for header in _includes(name))
     assert re.search(rf"case {D}: return CALL\({D}\);", text), f"{name} has no instance of head dim {D}"
@@ -129,9 +133,9 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
     head dim above 256 that is a multiple of 64, for every type, at the
     pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward keeps
-    only fp32 at D <= 256 (K1 takes bf16 and fp16 there), dq and dk/dv fp32
-    and fp16 (K2's sweep and the wgmma pair take bf16); each of the three
-    keeps every type's chunked instance."""
+    only fp32 at D <= 256 (K1 takes bf16 and fp16 there), and so do dq and
+    dk/dv (K2's sweep and the wgmma pair take bf16 and fp16); each of the
+    three keeps every type's chunked instance."""
     text = _text("flash_forms.cu")
     dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_CHUNKED")]
     chunked = text[text.index("#define FORMS_CHUNKED"):text.index("#define FORMS_FWD")]
@@ -161,7 +165,7 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
     at_dims = lambda listed: bool(re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", listed))
     assert at_dims(fwd) == (instance == "float")
-    assert at_dims(sweeps) == (instance != "__nv_bfloat16")
+    assert at_dims(sweeps) == (instance == "float")
 
 
 # the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
@@ -184,14 +188,22 @@ def test_every_wgmma_wrapper_has_an_f16_form(wrapper):
     assert "mma.sync" not in text
 
 
-@pytest.mark.parametrize("entry", ["flash_fwd", "halo_fwd", "flash_bwd_sweep"])
+# entry point -> the header whose kernels its bf16 and fp16 sources instantiate
+F16_TWINS = {"flash_fwd": "flash_fwd.cuh", "halo_fwd": "flash_fwd.cuh", "flash_bwd_sweep": "flash_bwd_sweep.cuh",
+             "flash_bwd_windowed_prep": "flash_bwd_windowed.cuh", "flash_bwd_dq": "flash_bwd_windowed.cuh",
+             "flash_bwd_dkv": "flash_bwd_windowed.cuh", "halo_bwd_dq": "flash_bwd_windowed.cuh",
+             "halo_bwd_dkv": "flash_bwd_windowed.cuh"}
+
+
+@pytest.mark.parametrize("entry", sorted(F16_TWINS))
 def test_fp16_entry_point_twins_its_bf16_one(entry):
-    """K1's and K2's sweep's fp16 entry points take the bf16 ones' arguments,
-    from libraries of their own built from sources that instantiate the same
-    header's kernels at __half."""
+    """The fp16 entry points of K1, K2's sweep and the windowed pair with its
+    pre-pass take the bf16 ones' arguments, from libraries of their own
+    built from sources that instantiate the same header's kernels at
+    __half."""
     bf16_lib, bf16_args = _ENTRY_POINTS[f"{entry}_bf16"]
     f16_lib, f16_args = _ENTRY_POINTS[f"{entry}_f16"]
     assert f16_args == bf16_args and f16_lib != bf16_lib and f16_lib in SOURCES
-    header = {"flash_fwd": "flash_fwd.cuh", "halo_fwd": "flash_fwd.cuh", "flash_bwd_sweep": "flash_bwd_sweep.cuh"}[entry]
+    header = F16_TWINS[entry]
     assert header in _includes(SOURCES[bf16_lib].name) and header in _includes(SOURCES[f16_lib].name)
     assert "<__half, DD" in _text(SOURCES[f16_lib].name) and "<__nv_bfloat16, DD" in _text(SOURCES[bf16_lib].name)

@@ -215,12 +215,13 @@ def test_resume_takes_the_same_next_steps(tmp_path):
         assert torch.equal(p, q), name
 
 
-@pytest.mark.parametrize("precision", ["full_bf16", "mixed_bf16", "fp32"])
+@pytest.mark.parametrize("precision", ["full_bf16", "mixed_bf16", "fp32", "fp16"])
 def test_precision_modes_take_a_finite_step(precision):
-    model_kw = {**TINY, "dtype": "float32" if precision == "fp32" else "bfloat16"}
+    compute = {"fp32": "float32", "fp16": "float16"}.get(precision, "bfloat16")
+    model_kw = {**TINY, "dtype": compute}
+    mixed = {"fp32": "no", "fp16": "fp16"}.get(precision, "bf16")
     cfg = Config(model=ModelConfig(**model_kw), diffusion=DiffusionConfig(),
-                 train=TrainConfig(**TRAIN, full_bf16=precision == "full_bf16",
-                                   mixed_precision="no" if precision == "fp32" else "bf16"))
+                 train=TrainConfig(**TRAIN, full_bf16=precision == "full_bf16", mixed_precision=mixed))
     model = build_model(cfg.model, cfg.diffusion)
     state = loop.init_state(model, cfg, "cpu")
     want = torch.bfloat16 if precision == "full_bf16" else torch.float32
@@ -236,7 +237,6 @@ def test_precision_modes_take_a_finite_step(precision):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mixed-precision", "fp16"], "fp16"),
     (["--mixed-precision", "fp8"], "fp8"),
     (["--opt-moments", "int8"], "quant_opt"),
     (["--mesh-model", "2"], "parallel"),
