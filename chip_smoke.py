@@ -76,7 +76,12 @@ failure raises and the exit code is not 0:
     of the full-song cell (dim_h=512, B=1, T=65536, full bf16, ``mixed``): two
     steps (phase 19's DiT cell holds the sharded save and resume); s/step,
     peak memory and launches per rank, and step 1's loss against phase 9's
-    one-card trainer at the same seed. Before it, each rank runs one windowed site with two KV heads (T =
+    one-card trainer at the same seed. Then the same two steps at fp16
+    (phase 25's ``--mixed-precision fp16`` under the shard, every count set
+    to 0 before it): K4 and the fp16 K5a / K5b at every site and step, no
+    forms forward, dq or dk/dv; step 1's loss and grad_norm (after the group
+    sum and the loss scale's division) against phase 25's one-card step.
+    Before both, each rank runs one windowed site with two KV heads (T =
     65536, W = 4096, H = 16) through ``ops.attention.sdpa`` on its frames, at
     bf16 and at fp16 (the attention of ``--mixed-precision fp16`` under the
     shard: K4 and the fp16 K5a / K5b): forward and backward against the
@@ -1832,6 +1837,30 @@ def _pair_tol(dtype) -> float:
     return FORMS_F16_REL_TOL if dtype == torch.float16 else BWD_REL_TOL
 
 
+def _pair_ms(q, k_rot, v, do, cos, sin, window: int) -> tuple[float, float]:
+    """Milliseconds (CUDA events, mean of 5) of the windowed pair through its wrappers on K1's o and LSE of
+    these operands, whichever instance the wrappers pick: ``flash_bwd_dq`` with its pre-pass, and
+    ``flash_bwd_dkv``."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)[1]
+    return (_cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale), 5),
+            _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, window), 5))
+
+
+def _halo_pair_ms(q, k, v, do, frame: tuple, scale: float) -> tuple[float, float]:
+    """``_pair_ms`` of the halo instances: ``halo_bwd_dq`` with its pre-pass and ``halo_bwd_dkv`` on K4's o
+    and LSE, in the halo frame ``frame`` (window, first row, song length)."""
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    o, lse = ha.halo_fwd(q, k, v, *frame, scale)
+    prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
+    return (_cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 5),
+            _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, prep, *frame), 5))
+
+
 def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, seed: int, failures: list,
                     dtype=torch.bfloat16) -> dict:
     """K3a (with its pre-pass) and K3b at head dim D and operand type ``dtype`` at one site of WIDE_PAIR_SITES
@@ -1873,20 +1902,13 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
     faults = [plain(window, lse + LSE_FAULT)] + ([plain(window - 2, lse)] if window >= 0 else [])
     err, parts = _pair_records(where, grads, plain(window, lse), faults, failures, _pair_tol(dtype))
     del grads, faults
-    prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)[1]
     prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, cos, sin, scale), 5)
-    dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale), 5)  # the pre-pass included
-    dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, window), 5)
+    dq_ms, dkv_ms = _pair_ms(q, k_rot, v, do, cos, sin, window)
     twin = ""
     if dtype == torch.float16:  # the bf16 pair on the same values, K1's bf16 o and LSE
-        qb, kb, vb, dob = (x.bfloat16() for x in (q, k_rot, v, do))
-        ob, lseb = fa.flash_fwd(qb, kb, vb, cos, sin, window, scale, return_lse=True)
-        prep_b = fa.flash_bwd_dq(qb, kb, vb, ob, lseb, dob, cos, sin, window, scale)[1]
-        dq_b = _cuda_ms(lambda: fa.flash_bwd_dq(qb, kb, vb, ob, lseb, dob, cos, sin, window, scale), 5)
-        dkv_b = _cuda_ms(lambda: fa.flash_bwd_dkv(kb, vb, dob, prep_b, window), 5)
+        dq_b, dkv_b = _pair_ms(*(x.bfloat16() for x in (q, k_rot, v, do)), cos, sin, window)
         twin = (f"; bf16 on the same values dq {dq_b:.3f} ms, dkv {dkv_b:.3f} ms, the pair fp16/bf16 "
                 f"{(dq_ms + dkv_ms) / (dq_b + dkv_b):.3f}x")
-        del qb, kb, vb, dob, ob, lseb, prep_b
     dq_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
     dkv_plain_ms = _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, window), 1)
     # yardstick only: rope on q and k, then PyTorch's fused attention (under a dense band mask at a windowed
@@ -1915,7 +1937,7 @@ def _wide_pair_site(label: str, B: int, T: int, H: int, window: int, D: int, see
          f"{bounds['dq'][1]}, {bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound "
          f"{bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); the pair {dq_ms + dkv_ms:.3f} "
          f"ms against rope+SDPA's backward {lib_bwd_ms:.3f} ms{twin}")
-    del q, k_rot, k, v, do, cos, sin, o, lse, prep
+    del q, k_rot, k, v, do, cos, sin, o, lse
     torch.cuda.empty_cache()
     # the one library backward yields dq, dk and dv: each kernel of the pair is set beside the whole of it
     return {key: {"max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
@@ -1967,20 +1989,13 @@ def _halo_pair(D: int, dtype, seed: int, failures: list) -> dict:
     short = (ha.halo_bwd_dq_reference(q, k[:, 1:-1], v[:, 1:-1], o, lse, do, W - 2, *frame[1:]),)
     err, parts = _pair_records(where, grads, plain(lse), [plain(lse + LSE_FAULT), short], failures, _pair_tol(dtype))
     del grads, short
-    prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)[1]
     prep_ms = _cuda_ms(lambda: fa.windowed_prep(q, o, lse, do, None, None, scale), 5)
-    dq_ms = _cuda_ms(lambda: ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale), 5)  # the pre-pass included
-    dkv_ms = _cuda_ms(lambda: ha.halo_bwd_dkv(k, v, do, prep, *frame), 5)
+    dq_ms, dkv_ms = _halo_pair_ms(q, k, v, do, frame, scale)
     twin = ""
     if dtype == torch.float16:  # the bf16 pair on the same values, K4's bf16 o and LSE
-        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
-        ob, lseb = ha.halo_fwd(qb, kb, vb, *frame, scale)
-        prep_b = ha.halo_bwd_dq(qb, kb, vb, ob, lseb, dob, *frame, scale)[1]
-        dq_b = _cuda_ms(lambda: ha.halo_bwd_dq(qb, kb, vb, ob, lseb, dob, *frame, scale), 5)
-        dkv_b = _cuda_ms(lambda: ha.halo_bwd_dkv(kb, vb, dob, prep_b, *frame), 5)
+        dq_b, dkv_b = _halo_pair_ms(*(x.bfloat16() for x in (q, k, v, do)), frame, scale)
         twin = (f"; bf16 on the same values dq {dq_b:.3f} ms, dkv {dkv_b:.3f} ms, the pair fp16/bf16 "
                 f"{(dq_ms + dkv_ms) / (dq_b + dkv_b):.3f}x")
-        del qb, kb, vb, dob, ob, lseb, prep_b
     dq_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dq_reference(q, k, v, o, lse, do, *frame), 1)
     dkv_plain_ms = _cuda_ms(lambda: ha.halo_bwd_dkv_reference(q, k, v, o, lse, do, *frame), 1)
     lo, hi = ha.slab_bounds(T, *frame)
@@ -2000,7 +2015,7 @@ def _halo_pair(D: int, dtype, seed: int, failures: list) -> dict:
          f"{bounds['dq'][0] / dq_ms:.1%}; plain {dq_plain_ms:.3f}); dkv {dkv_ms:.3f} ms (bound {bounds['dkv'][0]:.3f}, "
          f"{bounds['dkv'][0] / dkv_ms:.1%}; plain {dkv_plain_ms:.3f}); SDPA's backward under the band-and-bounds mask "
          f"{lib_bwd_ms:.3f} ms{twin}")
-    del q, k, v, do, o, lse, prep
+    del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     return {key: {"max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds[key][0],
                   "bound_by": bounds[key][1], "library_ms": lib_bwd_ms}
@@ -2055,6 +2070,59 @@ def phase_f16_pair_kernels() -> dict:
     return records
 
 
+def pair_ab() -> None:
+    """The windowed pair and its halo instances timed alone (``_pair_ms``, ``_halo_pair_ms``) at every site of
+    F16_PAIR_SITES and at WIDE_HALO_SHAPE for each of F16_HALO_DIMS, in bf16 and in fp16 on the same values,
+    with the instances that the wrappers launched (wgmma or forms, from their launch counters); no check.
+    Every bf16 site runs before any fp16 one, so that a bf16 time follows the same work on any tree. It calls
+    the port through nothing but the wrappers, so a copy of this file in another checkout times that
+    checkout's instances on the same values: a parent and a change are compared in one call, each in a
+    process of its own, parent, change, change, parent.
+
+        python3 -c "import chip_smoke as c; c.phase_device(); c.pair_ab()"
+    """
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    forms_pair = {"forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv}
+    windowed = {"wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv, **forms_pair}
+    halo = {"wgmma dq": ha.halo_bwd_dq, "wgmma dk/dv": ha.halo_bwd_dkv, **forms_pair}
+    B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
+    frame = (W, shard * T_h, n * T_h)
+
+    def sites():
+        """(where, counters, timer, fp16 operands, the timer's other arguments) of each site in turn."""
+        for label, B, T, H, window, dims in F16_PAIR_SITES:
+            for D in dims:
+                q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2170 + D + T, D, torch.float16)
+                yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}", windowed,
+                       _pair_ms, (q, k_rot, v, do), (cos, sin, window))
+        for D in F16_HALO_DIMS:
+            g = torch.Generator(device="cuda").manual_seed(2190 + D)
+            q, do = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda").half() for _ in range(2))
+            k, v = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda").half() for _ in range(2))
+            yield (f"halo B={B_h} T_local={T_h} W={W} shard {shard + 1} of {n} D={D}", halo, _halo_pair_ms,
+                   (q, k, v, do), (frame, D**-0.5))
+
+    pairs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for where, counters, time_pair, operands, rest in sites():
+            ops = tuple(x.to(dtype) for x in operands)
+            del operands
+            before = {name: c.launches for name, c in counters.items()}
+            dq_ms, dkv_ms = time_pair(*ops, *rest)
+            launched = {name: c.launches - before[name] for name, c in counters.items() if c.launches > before[name]}
+            pairs[where, dtype] = dq_ms + dkv_ms
+            _log(f"[pair ab] {where} {_dtype_name(dtype)}: dq {dq_ms:.3f} ms (its pre-pass included), dk/dv "
+                 f"{dkv_ms:.3f} ms, the pair {dq_ms + dkv_ms:.3f} ms; launched {launched}")
+            del ops, rest
+            torch.cuda.empty_cache()
+    for (where, dtype), ms in pairs.items():
+        if dtype == torch.float16:
+            _log(f"[pair ab] {where}: the fp16 pair {ms / pairs[where, torch.bfloat16]:.3f}x the bf16 pair")
+
+
 def phase_wide_fullsong_train(workdir: Path) -> dict:
     """Phase 24, whole-song training at a head dim of 128: ``trainer.train`` at phase 9's cell (dim_h=512,
     B=1, T=65536, full bf16, ``mixed``) with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
@@ -2087,21 +2155,26 @@ def phase_wide_fullsong_train(workdir: Path) -> dict:
     return launches
 
 
-def phase_f16_fullsong_train(workdir: Path) -> dict:
+def _f16_config(cfg):
+    """``cfg`` under ``--mixed-precision fp16``: float32 parameters and moments, the forward at float16."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float16"),
+                               train=dataclasses.replace(cfg.train, full_bf16=False, mixed_precision="fp16"))
+
+
+def phase_f16_fullsong_train(workdir: Path) -> tuple[dict, tuple]:
     """Phase 25, whole-song training at fp16: ``trainer.train`` at phase 9's cell (dim_h=512, B=1, T=65536,
     ``mixed``, 16 heads of 64) with ``--mixed-precision fp16`` (float32 parameters and moments, the forward
     under autocast at float16, the loss scaled by 4096 and the gradients divided back out), 2 steps: every
     site windowed, K1 with its LSE (sites and the 18 that ``mixed`` runs again) and the fp16 wgmma pair (K3a
     with its pre-pass, K3b) once a site and step, no forms forward, dq or dk/dv; finite losses; s/step and
-    peak memory. Returns the launches."""
+    peak memory. Returns the launches and step 1's (loss, grad_norm), which phase 12's fp16 run under the
+    shard is held to."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
 
     t_phase = time.perf_counter()
     steps = 2
-    cfg = _fullsong_config("mixed", workdir / "fullsong_f16", steps, 0)
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float16"),
-                              train=dataclasses.replace(cfg.train, full_bf16=False, mixed_precision="fp16"))
+    cfg = _f16_config(_fullsong_config("mixed", workdir / "fullsong_f16", steps, 0))
     sites, again = _unet_sites(cfg.model), FULLSONG_PLANS["mixed"][1]
     others = _all_launches(fa, ha)[4:]
     _forms_counts(reset=True)
@@ -2118,7 +2191,7 @@ def phase_f16_fullsong_train(workdir: Path) -> dict:
         raise AssertionError(f"full-song fp16: launches {launches}, expected {expected}")
     _forms_launch_check("full-song fp16", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
                         False)
-    return launches
+    return launches, (history[0]["loss"], history[0]["grad_norm"])
 
 
 def phase_wide_dit_train(workdir: Path) -> dict:
@@ -2478,7 +2551,7 @@ def _f16_json(records: dict, launches: dict) -> list:
 def _f16_pair_json(records: dict, launches: dict) -> list:
     """The kernels line's entries of the windowed pair at fp16 (``phase_f16_pair_kernels``), with their
     launches on the paths: K3a / K3b at D = 64 on phase 25's fp16 whole-song trainer, K5a / K5b at D = 64 on
-    phase 12's fp16 site under the sequence shard (rank 0); no path reaches the wider heads at fp16."""
+    phase 12's fp16 trainer under the sequence shard (rank 0); no path reaches the wider heads at fp16."""
     return [{"name": f"{who}_f16_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_bwd_windowed_f16.cu",
              "replaces": f"osufusion_tpu/ops/pallas_attention.py:{PAIR_REPLACES[who]}",
              "launches": launches.get((who, D), 0), **rec} for (who, D), rec in records.items()]
@@ -2915,7 +2988,8 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
     """One process of phase 12, in torchrun's environment: a windowed GQA
     site (``_seq_gqa_site``) at bf16 and at fp16; then every count set to 0, ``trainer.train``
     for two steps (the sharded cells' save and resume is phase 19's DiT
-    cell's), the counts read; (rank, error, result) put on ``results``."""
+    cell's), the counts read; then the same at fp16 (``_f16_config``), the
+    forms kernels' counts too; (rank, error, result) put on ``results``."""
     import os
     import traceback
 
@@ -2942,17 +3016,30 @@ def _seq_rank(rank: int, port: int, project_dir: str, results) -> None:
         history = train(cfg)
         torch.cuda.synchronize()
         launches = {**_halo_counts(ha), **_launches(fa)}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = _f16_config(_fullsong_config("mixed", Path(project_dir) / "fp16", steps=2, save_every=0,
+                                           mesh_seq=SEQ_SHARDS))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa)
+        _halo_counts(ha, reset=True)
+        _forms_counts(reset=True)
+        f16_history = train(cfg)
+        torch.cuda.synchronize()
+        f16 = {"history": f16_history, "launches": {**_halo_counts(ha), **_launches(fa)}, "forms": _forms_counts(),
+               "peak": torch.cuda.max_memory_allocated() / 2**30}
         results.put((rank, None, {"history": history, "launches": launches, "backend": dist.get_backend(), "gqa": gqa,
-                                  "device": str(local_device()), "peak": torch.cuda.max_memory_allocated() / 2**30}))
+                                  "device": str(local_device()), "peak": peak, "fp16": f16}))
         dist.destroy_process_group()
     except Exception:  # reported to the parent, which fails on it
         results.put((rank, traceback.format_exc(), None))
 
 
-def phase_seq_train(workdir: Path, one_card_losses: list) -> tuple[dict, dict]:
+def phase_seq_train(workdir: Path, one_card_losses: list, one_card_f16: tuple) -> tuple[dict, dict]:
     """Sequence-parallel training in SEQ_SHARDS processes (phase 12); returns
-    rank 0's launches over its two steps, and the halo kernels' launches of
-    its fp16 site."""
+    rank 0's launches over its two steps at bf16 and over its two at fp16.
+    ``one_card_losses`` are phase 9's losses, ``one_card_f16`` phase 25's
+    step 1 (loss, grad_norm)."""
     import multiprocessing
     import queue as queue_module
 
@@ -3023,7 +3110,35 @@ def phase_seq_train(workdir: Path, one_card_losses: list) -> tuple[dict, dict]:
          f"rel {rel:.3e} (bound {LOSS_REL_TOL})")
     if not rel < LOSS_REL_TOL:
         raise AssertionError(f"sequence-parallel step 1 loss {losses[0][0][0]} vs one card {one_card_losses[0]}")
-    return got[0]["launches"], got[0]["gqa"][torch.float16]["launches"]
+    # the same two steps at fp16: the fp16 halo pair at every site, and the loss scale divided back out after
+    # the group's sum (a scale left in the gradients moves grad_norm 4096-fold)
+    for rank, r in sorted(got.items()):
+        f16 = r["fp16"]
+        history = f16["history"]
+        _log(f"[seq train] rank {rank}: the same at --mixed-precision fp16 (fp32 weights, loss scale 4096), 2 steps: "
+             f"loss {[round(h['loss'], 5) for h in history]}; grad_norm "
+             f"{[round(h['grad_norm'], 4) for h in history]}; s/step {[round(h['seconds'], 3) for h in history]}; "
+             f"peak memory {f16['peak']:.2f} GiB; launches over 2 "
+             f"steps {f16['launches']} (expected {expected}); forms launches {f16['forms']}")
+        if [h["step"] for h in history] != [1, 2]:
+            raise AssertionError(f"sequence-parallel fp16 rank {rank}: steps {[h['step'] for h in history]}")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in history):
+            raise AssertionError(f"sequence-parallel fp16 rank {rank}: non-finite or zero loss or grad_norm {history}")
+        if f16["launches"] != expected:
+            raise AssertionError(f"sequence-parallel fp16 rank {rank}: launches {f16['launches']}, "
+                                 f"expected {expected}")
+        _forms_launch_check(f"sequence-parallel fp16 rank {rank}", {b: f16["forms"][b] for b in ("fwd", "dq", "dkv")},
+                            {"fwd": 0, "dq": 0, "dkv": 0}, False)
+    f16_losses = [[(h["loss"], h["grad_norm"]) for h in r["fp16"]["history"]] for r in got.values()]
+    if any(x != f16_losses[0] for x in f16_losses):
+        raise AssertionError(f"the sequence-parallel ranks report different fp16 losses or norms: {f16_losses}")
+    rel = [abs(got_ - want) / abs(want) for got_, want in zip(f16_losses[0][0], one_card_f16)]
+    _log(f"[seq train] fp16 step 1 loss, grad_norm {f16_losses[0][0][0]:.6f}, {f16_losses[0][0][1]:.6f} vs one card "
+         f"{one_card_f16[0]:.6f}, {one_card_f16[1]:.6f} (phase 25, same seed and batch): rel {rel[0]:.3e}, "
+         f"{rel[1]:.3e} (bound {LOSS_REL_TOL})")
+    if not max(rel) < LOSS_REL_TOL:
+        raise AssertionError(f"sequence-parallel fp16 step 1 {f16_losses[0][0]} vs one card {one_card_f16}")
+    return got[0]["launches"], got[0]["fp16"]["launches"]
 
 
 def phase_serve_trained(workdir: Path) -> None:
@@ -3792,9 +3907,9 @@ def main() -> int:
     pair_launches = {("flash_bwd_dq", 128): fullsong_d128["backward_dq"],
                      ("flash_bwd_dkv", 128): fullsong_d128["backward_dkv"]}
     with tempfile.TemporaryDirectory() as tmp:
-        fullsong_f16 = phase_f16_fullsong_train(Path(tmp))
+        fullsong_f16, one_card_f16 = phase_f16_fullsong_train(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        seq, seq_f16 = phase_seq_train(Path(tmp), fullsong_losses)
+        seq, seq_f16 = phase_seq_train(Path(tmp), fullsong_losses, one_card_f16)
     f16_pair_launches = {("flash_bwd_dq", 64): fullsong_f16["backward_dq"],
                          ("flash_bwd_dkv", 64): fullsong_f16["backward_dkv"],
                          ("halo_bwd_dq", 64): seq_f16["halo_bwd_dq"], ("halo_bwd_dkv", 64): seq_f16["halo_bwd_dkv"]}

@@ -6,8 +6,6 @@ step, goes on one NVIDIA GPU.
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096]
         [--precision full-bf16|bf16|fp16] [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1] [--dim-head 64]
-    python3 profile_torch_serve.py --pair [--dtype float16|bfloat16] [--pair-dims 64,128,192,256] [--batch 2]
-        [--frames 4096] [--window -1]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -49,15 +47,6 @@ visible, else all on one card over gloo), every global site through the ring,
 and reports rank 0's step, memory, launches (the ring's too) and kernel table.
 The kernel table lists the largest kernels and every flash, halo and ring
 kernel below them.
-
-``--pair`` times the windowed backward pair alone through its wrappers
-(``flash_bwd_dq`` with its pre-pass, then ``flash_bwd_dkv``) at one site (B,
-T = ``--frames``, H = 16, MQA with rotary tables, ``--window``, -1 global) for
-each head dim of ``--pair-dims``: ms by CUDA events of dq, dk/dv and the
-pair, in ``--dtype`` and in bf16 on the same values, with the instances the
-wrappers launched (wgmma or forms, read from their launch counters). The
-same command runs on any tree whose wrappers take these arguments, so a
-parent and a change can be read in one call.
 """
 
 from __future__ import annotations
@@ -203,41 +192,6 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
 
-def profile_pair(dtype, B: int, T: int, H: int, D: int, window: int) -> None:
-    """The windowed backward pair alone at one MQA site with rotary tables: K1's o and LSE, then dq (with its
-    pre-pass) and dk/dv through ``flash_bwd_dq`` and ``flash_bwd_dkv``, in ``dtype`` and in bf16 on the same
-    values; ms by CUDA events (mean of 5, queued behind a sleeping kernel) and the launches each wrapper
-    made (its wgmma counter, the forms counters)."""
-    from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops import flash_forms as forms
-    from osufusion_tpu_torch.ops.rope import rope_tables
-
-    g = torch.Generator(device="cuda").manual_seed(D)
-    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype) for _ in range(2))
-    k, v = (torch.randn((B, T, D), generator=g, device="cuda").to(dtype) for _ in range(2))
-    cos, sin = rope_tables(T, D, scale_base=float(T), device="cuda")
-    k_rot, scale = fa.rotated_k(k, cos, sin), D**-0.5
-    where = f"B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}"
-    times = {}
-    for name, (qx, kx, vx, dox) in ((str(dtype).split(".")[1], (q, k_rot, v, do)),
-                                    ("bfloat16 (same values)", tuple(x.bfloat16() for x in (q, k_rot, v, do)))):
-        o, lse = fa.flash_fwd(qx, kx, vx, cos, sin, window, scale, return_lse=True)
-        prep = fa.flash_bwd_dq(qx, kx, vx, o, lse, dox, cos, sin, window, scale)[1]
-        counters = (fa.flash_bwd_dq, fa.flash_bwd_dkv, forms.forms_bwd_dq, forms.forms_bwd_dkv)
-        before = [c.launches for c in counters]
-        fa.flash_bwd_dkv(kx, vx, dox, fa.flash_bwd_dq(qx, kx, vx, o, lse, dox, cos, sin, window, scale)[1], window)
-        torch.cuda.synchronize()
-        ran = dict(zip(("wgmma dq", "wgmma dkv", "forms dq", "forms dkv"), (c.launches - b for c, b in zip(counters, before))))
-        dq_ms = _cuda_ms(lambda: fa.flash_bwd_dq(qx, kx, vx, o, lse, dox, cos, sin, window, scale), 5)
-        dkv_ms = _cuda_ms(lambda: fa.flash_bwd_dkv(kx, vx, dox, prep, window), 5)
-        times[name] = dq_ms + dkv_ms
-        print(f"[pair] {where} {name}: dq {dq_ms:.3f} ms (its pre-pass included), dk/dv {dkv_ms:.3f} ms, the pair "
-              f"{dq_ms + dkv_ms:.3f} ms; launched {ran}")
-        del o, lse, prep
-    first, second = times.values()
-    print(f"[pair] {where}: {first / second:.3f}x the bf16 pair on the same values")
-
-
 def _profile_rank(rank: int, n: int, port: int, args) -> None:
     """One process of ``--train --mesh-seq n``, in torchrun's environment."""
     import os
@@ -271,9 +225,6 @@ def main() -> None:
     p.add_argument("--batch", type=int, default=4, help="--train: batch size (at most 4)")
     p.add_argument("--frames", type=int, default=4096, help="--train: sequence length")
     p.add_argument("--precision", choices=["full-bf16", "bf16", "fp16"], default="full-bf16")
-    p.add_argument("--pair", action="store_true", help="time the windowed backward pair alone (see the docstring)")
-    p.add_argument("--pair-dims", default="64,128,192,256", help="--pair: the head dims")
-    p.add_argument("--window", type=int, default=-1, help="--pair: the window, -1 global")
     p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
     p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
     p.add_argument("--mesh-seq", type=int, default=1, help="--train: sequence shards, one process each")
@@ -317,11 +268,6 @@ def main() -> None:
     if args.train:
         profile_train(args.remat, tuple(args.remat_levels.split(",")), args.precision, args.batch, args.frames,
                       args.backbone, args.kv_heads, dim_head=args.dim_head)
-        return
-    if args.pair:
-        dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}[args.dtype]
-        for D in map(int, args.pair_dims.split(",")):
-            profile_pair(dtype, args.batch, args.frames, 16, D, args.window)
         return
 
     cfg = Config(model=ModelConfig(dim_h=128, attn_dim_head=args.dim_head, dtype=args.dtype))

@@ -7,6 +7,8 @@ windowed, and under the gradient the port runs the plain windowed pair on
 fp16 operands there (``ops/flash_attention.py``), which the card replaces by
 the fp16 instances of K3a / K3b. On the CPU at a tiny width."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +48,23 @@ def _batch(seed: int, n: int):
     return x, a, c, orig_len
 
 
+def _start(jcfg):
+    """The JAX package's model and seeded random variables for it (every leaf random, so every gradient is
+    live at step 0)."""
+    jmodel = jax_build_model(jcfg.model, jcfg.diffusion)
+    args = (jnp.zeros((1, 32, 6)), jnp.zeros((1, 32, 96)), jnp.zeros((1,)), jnp.zeros((1, 5)), jnp.ones((1,), bool))
+    return jmodel, random_variables(jmodel.unet, *args, seed=4)
+
+
+def _torch_state(cfg, start: dict):
+    """The port's model and a fresh train state whose weights are ``start``, carried across."""
+    model = build_model(cfg.model, cfg.diffusion)
+    params = UNet(cfg.model)
+    params.load_state_dict(state_dict_from_jax(start))
+    params.train()
+    return model, loop.TrainState(0, params, loop.make_optimizer(cfg, params), torch.Generator().manual_seed(0))
+
+
 def _jax_draws(rng_step, n: int):
     """The draws ``make_train_step`` hands to the loss (no accumulation)."""
     k_noise, k_t, k_drop = jax.random.split(rng_step, 3)
@@ -61,12 +80,14 @@ def _jax_draws(rng_step, n: int):
 # place (2^-11 = 4.9e-4) per layer. The loss, a mean over ~1500 squared errors, agrees to 2e-3 relative; the
 # gradient, whose every term passes the whole backward at fp16, to 2e-2 in its norm. Adam turns each
 # gradient entry into an update of about the learning rate whatever its size, so after one step a parameter
-# may differ by up to its whole update where the two gradients' signs differ (entries near zero): the
-# parameters are held to the distance moved (1.01 x lr), and the mean over every entry to 10 % of it, which
-# a wrong loss scale (every update the same at any scale but the norm off by 4096) or a missing step fails.
+# may differ by up to its whole update where the two gradients' signs differ (entries near zero). The bound
+# on each entry (1.1 x lr) therefore catches only an update of the wrong sign or size: the mean over every
+# entry, held to 10 % of the rate, and the loss and grad_norm above are the checks with teeth. Adam's update
+# is the same at any scale of the gradient, so the loss scale itself is checked apart
+# (``test_fp16_step_scales_the_loss``).
 LOSS_RTOL = 2e-3
 GRAD_NORM_RTOL = 2e-2
-PARAM_ATOL = 1.1  # times the rate: two steps of Adam's bias-corrected ratio, whose size stays near 1
+PARAM_ATOL = 1.1  # times the rate: Adam's bias-corrected ratio, whose size stays near 1
 PARAM_MEAN_TOL = 0.1  # times the rate
 
 
@@ -78,9 +99,7 @@ def test_fp16_step_matches_jax(n):
     update, whose rate is 0)."""
     jcfg = JConfig(model=JModelConfig(**TINY), diffusion=JDiffusionConfig(), train=JTrainConfig(**TRAIN))
     cfg = Config(model=ModelConfig(**TINY), diffusion=DiffusionConfig(), train=TrainConfig(**TRAIN))
-    jmodel = jax_build_model(jcfg.model, jcfg.diffusion)
-    args = (jnp.zeros((1, 32, 6)), jnp.zeros((1, 32, 96)), jnp.zeros((1,)), jnp.zeros((1, 5)), jnp.ones((1,), bool))
-    variables = random_variables(jmodel.unet, *args, seed=4)
+    jmodel, variables = _start(jcfg)
     start = {name: np.array(value, copy=True) for name, value in flatten_params(variables).items()}
 
     tx = jax_loop.make_optimizer(jcfg)
@@ -88,12 +107,8 @@ def test_fp16_step_matches_jax(n):
                                  rng=jax.random.PRNGKey(11))
     jstep = jax_loop.make_train_step(jmodel, jcfg, make_mesh(data=1, model=1, devices=jax.devices()[:1]))
 
-    model = build_model(cfg.model, cfg.diffusion)
-    params = UNet(cfg.model)
-    params.load_state_dict(state_dict_from_jax(start))
-    params.train()
-    state = loop.TrainState(0, params, loop.make_optimizer(cfg, params), torch.Generator().manual_seed(0))
-    assert all(p.dtype == torch.float32 for p in params.parameters())  # fp32 weights, the forward at fp16
+    model, state = _torch_state(cfg, start)
+    assert all(p.dtype == torch.float32 for p in state.params.parameters())  # fp32 weights, the forward at fp16
     step = loop.make_train_step(model, cfg)
 
     for i in range(2):
@@ -108,7 +123,7 @@ def test_fp16_step_matches_jax(n):
         assert float(metrics["grad_norm"]) == pytest.approx(float(jmetrics["grad_norm"]), rel=GRAD_NORM_RTOL), \
             f"grad_norm, step {i}"
     lr = float(jmetrics["lr"])  # the second step's rate, the only one that moved the parameters
-    want, got = flatten_params(jstate.params), jax_flat_from_state_dict(params.state_dict())
+    want, got = flatten_params(jstate.params), jax_flat_from_state_dict(state.params.state_dict())
     diffs, moved = [], []
     for name, value in want.items():
         value = np.asarray(value)
@@ -122,3 +137,34 @@ def test_fp16_step_matches_jax(n):
     assert np.concatenate(diffs).mean() < PARAM_MEAN_TOL * lr
     assert np.concatenate(moved).mean() > 0.5 * lr  # the step moved the parameters
     assert state.step == int(jstate.step) == 2
+
+
+def test_fp16_step_scales_the_loss():
+    """The backward of an fp16 step runs on 4096 x the loss, and the step divides the scale back out before
+    the norm: a hook on every leaf records the gradient that the backward hands it, beside the same step
+    from the same weights and draws without the scale (``mixed_precision="no"``, the same float16 forward).
+    The recorded norms differ by the scale, within fp16's rounding of the backward (GRAD_NORM_RTOL); the
+    loss is the same to the bit, and grad_norm is of the unscaled loss in both."""
+    cfg = Config(model=ModelConfig(**TINY), diffusion=DiffusionConfig(), train=TrainConfig(**TRAIN))
+    plain = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mixed_precision="no"))
+    _, variables = _start(JConfig(model=JModelConfig(**TINY), diffusion=JDiffusionConfig(), train=JTrainConfig(**TRAIN)))
+    start = {name: np.array(value, copy=True) for name, value in flatten_params(variables).items()}
+    n = 64
+    batch = _batch(40, n)
+    g = torch.Generator().manual_seed(5)
+    draws = [(torch.randn((B, 6, n), generator=g), torch.randint(0, 1000, (B,), generator=g),
+              torch.rand((B,), generator=g) < 0.5)]
+    seen, metrics = {}, {}
+    for label, c in (("fp16", cfg), ("unscaled", plain)):
+        model, state = _torch_state(c, start)
+        norms = []
+        for p in state.params.parameters():
+            p.register_hook(lambda grad, norms=norms: norms.append(torch.linalg.vector_norm(grad.detach().float())))
+        metrics[label] = loop.make_train_step(model, c)(state, batch, draws=draws)
+        seen[label] = float(torch.linalg.vector_norm(torch.stack(norms)))
+        assert len(norms) == len(list(state.params.parameters()))
+    assert seen["fp16"] / seen["unscaled"] == pytest.approx(loop.FP16_LOSS_SCALE, rel=GRAD_NORM_RTOL)
+    assert loop.FP16_LOSS_SCALE == 4096  # the JAX package's static scale
+    assert float(metrics["fp16"]["loss"]) == float(metrics["unscaled"]["loss"])
+    assert float(metrics["fp16"]["grad_norm"]) == pytest.approx(float(metrics["unscaled"]["grad_norm"]),
+                                                                rel=GRAD_NORM_RTOL)
