@@ -157,14 +157,15 @@ failure raises and the exit code is not 0:
     ``ops.attention.sdpa`` under a gradient, against fp32 plain autograd
     with a planted fault above the bound: fp16 at D = 64 ... 256, windowed
     (K1 forward, the fp16 wgmma pair backward, no forms kernel), and
-    fp32, bf16 and fp16 at D = 320 and 512 (the chunked instance); a D = 32
+    fp32, bf16 and fp16 at D = 320 and 512 (fp32: the chunked instance;
+    bf16 and fp16: csrc/flash_xwide.cuh's forward and pair, no chunked
+    launch, asserted); a D = 32
     site runs the XLA route (rope and the plain attention), launches no
     kernel and equals the plain attention; a refused window raises
     ValueError, a failed bf16, fp16 or forms launch RuntimeError.
     Kernel level: every forms instance that is built (fp32 at D = 64 ... 256:
     forward, pre-pass, dq, dk/dv, post-pass, merge; bf16 and fp16 there: the
-    pre-pass, post-pass and merge around K2's sweep; the chunked instance at
-    bf16/320) on one site's chain
+    pre-pass, post-pass and merge around K2's sweep) on one site's chain
     (K1 and K2's sweep where the forms body is not built) against its plain
     fp32 version at B=2, T=4096, H=16 (global, tables), fp32/64 also windowed
     (B=1, T=16384, W=2048) and fp32/64 and bf16/128 grouped (B=2, T=2048,
@@ -225,6 +226,19 @@ failure raises and the exit code is not 0:
     steps: 39 launches of each of the fp16 wgmma windowed pair (K3a with its
     pre-pass, K3b) a step, 57 of K1 with its LSE, no forms forward, dq or
     dk/dv; s/step, peak memory and finite losses.
+26. Above head dim 256 (``phase_xwide_kernels``, ``phase_xwide_paths``): the
+    forward and the backward pair of ``csrc/flash_xwide.cuh`` at bf16 and
+    fp16, D = 320, 384, 448 and 512, at B=2, T=4096, H=16 (global, tables)
+    through the wrappers against the plain fp32 versions with planted faults
+    above the bounds (the last key tile dropped; an LSE off by LSE_FAULT),
+    each kernel timed by CUDA events beside its bound, its plain version and
+    rope + SDPA, fp16 beside bf16 on the same values; at D = 320 and 512 also
+    a windowed site whose window runs past both ends (B=1, T=4097, W=1024), a
+    grouped one (B=2, T=2048, H=8, Kv=2) and the halo pair (shard 2 of 4).
+    Then the paths: a 60 s song served by a bf16 UNet at attn_dim_head=320
+    (DPM-16, CFG 2.0) to a parsed ``.osz``, and (d)'s gradient check at
+    bf16/320 and fp16/512 against fp32 plain; each runs only the new kernels
+    (and the forms pre-pass and post-pass), no chunked launch.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1175,10 +1189,10 @@ def _all_launches(fa, ha) -> tuple:
 
 
 # the forms instances of csrc/flash_forms.cu, (operand dtype, head dim): fp32, bf16 and fp16 at D = 64 ...
-# 256, and the chunked instance at bf16/320, each with the bodies it has (_forms_bodies); the main paths run
-# fp32/64 (fp32 training and serving), and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep.
-FORMS_INSTANCES = ([(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
-                   + [(torch.bfloat16, 320)])
+# 256, each with the bodies it has (_forms_bodies); the main paths run fp32/64 (fp32 training and serving),
+# and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep. The chunked instance runs at fp32
+# above 256 (and at bf16 and fp16 above 512) and is held to plain through ``sdpa`` in (f).
+FORMS_INSTANCES = [(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
 # the main instances that the shard forms (e) and the extra kernel-level sites run; fp16/64 runs on (h) and (d)
 FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
 F16_MAIN = (torch.float16, 64)
@@ -1187,9 +1201,9 @@ FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
 
 def _forms_bodies(dtype, D: int) -> tuple:
     """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one at
-    fp32 and above D = 256; at bf16 and fp16 with D <= 256 the pre-pass, post-pass and merge (K1, K2's sweep
-    and the wgmma windowed pair take the rest)."""
-    if dtype == torch.float32 or D > 256:
+    fp32 and above D = 512; at bf16 and fp16 with D <= 512 the pre-pass, post-pass and merge (K1, K2's sweep,
+    the wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest)."""
+    if dtype == torch.float32 or D > 512:
         return FORMS_BODIES
     return FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
@@ -1425,8 +1439,8 @@ def phase_forms_kernels() -> dict:
 
 
 # (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the fp16 wgmma
-# pair's backward), and each operand dtype at head dims above 256 (the chunked instance); (dtype, D,
-# window)
+# pair's backward), and each operand dtype at head dims above 256 (fp32: the chunked instance; bf16 and fp16:
+# csrc/flash_xwide.cuh's forward and pair, no chunked launch); (dtype, D, window)
 FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
                    + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
 # fp16 against fp32 plain on the same fp16 inputs: P and dS rounded to fp16 (2^-11 relative) where bf16 rounds
@@ -1437,8 +1451,10 @@ FORMS_F16_REL_TOL = 2e-3
 def phase_forms_raise() -> None:
     """(f) Every form that the JAX package runs runs a kernel on the card: through ``ops.attention.sdpa``
     under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the fp16 wgmma pair, K3a with
-    its pre-pass and K3b, once each, and no forms kernel) and fp32, bf16 and fp16 at D = 320 and 512 (global: the
-    chunked instance's forward, pre-pass, dq, dk/dv and post-pass once each, no wgmma kernel) raise nothing,
+    its pre-pass and K3b, once each, and no forms kernel) and fp32, bf16 and fp16 at D = 320 and 512 (global:
+    fp32 the chunked instance's forward, pre-pass, dq, dk/dv and post-pass once each, no wgmma kernel; bf16
+    and fp16 csrc/flash_xwide.cuh's forward, dq and dk/dv once each between the forms pre-pass and post-pass,
+    counted as one K1 and one K2, and no launch of the chunked forward, dq or dk/dv) raise nothing,
     and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
     keys of the last tile dropped, or a window two keys short) above the bound. A site whose head dim is not
     a multiple of 64 (D = 32) launches no kernel and equals the plain attention, as the JAX package sends it
@@ -1466,7 +1482,7 @@ def phase_forms_raise() -> None:
             raised.append((error.__name__, str(e)))
 
     def counts():
-        return _all_launches(fa, ha), _forms_counts()
+        return _all_launches(fa, ha), _forms_counts(), _xwide_counts()
 
     held = []
     for dt, D, window in FORMS_NEW_SITES:
@@ -1481,6 +1497,7 @@ def phase_forms_raise() -> None:
         torch.cuda.synchronize()
         moved = [a - b for a, b in zip(_all_launches(fa, ha), before[0])]
         runs = {name: n - before[1][name] for name, n in _forms_counts().items()}
+        xwide = {name: n - before[2][name] for name, n in _xwide_counts().items()}
         ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         ref = fa.flash_attention_reference(*ref_leaves, w, rope)
         ref.backward(do.float())
@@ -1494,11 +1511,14 @@ def phase_forms_raise() -> None:
         fault_rel = _rel(fault, ref)
         name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
         held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
-                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}")
+                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}, flash_xwide {xwide}")
         k1 = int(dt == torch.float16 and D <= 256)  # K1's forward, then the fp16 wgmma pair
-        if moved != [k1, 0, k1, k1] + [0] * 7 or runs != {"fwd": 1 - k1, "prep": 1 - k1, "dq": 1 - k1, "dkv": 1 - k1,
-                                                         "post": 1 - k1, "merge": 0}:
-            failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}")
+        wide = int(dt != torch.float32 and D > 256)  # flash_xwide's forward (a K1 launch) and pair (a K2 launch)
+        chunked = 1 - k1 - wide
+        if (moved != [k1 + wide, wide, k1, k1] + [0] * 7 or xwide != {"fwd": wide, "dq": wide, "dkv": wide}
+                or runs != {"fwd": chunked, "prep": chunked + wide, "dq": chunked, "dkv": chunked,
+                            "post": chunked + wide, "merge": 0}):
+            failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}, flash_xwide {xwide}")
         if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
             failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
         if not fault_rel > tol:
@@ -2123,6 +2143,353 @@ def pair_ab() -> None:
             _log(f"[pair ab] {where}: the fp16 pair {ms / pairs[where, torch.bfloat16]:.3f}x the bf16 pair")
 
 
+# Above head dim 256 (csrc/flash_xwide.cuh): the forward and the backward pair at bf16 and fp16, D = 320 ... 512,
+# at the forms site (FORMS_SITE: B=2, T=4096, H=16, MQA, global, tables), timed; at D = 320 and 512 also at
+# XWIDE_SITES and XWIDE_HALO, checked. bf16 held to the D = 64 kernels' bounds (REL_TOL, ABS_TOL, LSE_TOL,
+# BWD_REL_TOL, BWD_ABS_TOL), fp16 to (f)'s FORMS_F16_REL_TOL and F16_LSE_TOL beside the same absolute bounds
+XWIDE_DIMS = (320, 384, 448, 512)
+# (label, B, T, H, Kv, window, tables): windowed MQA with tables at a length no 64-tile divides, the window
+# running past both ends of the song; grouped without tables (G = 4), global
+XWIDE_SITES = (("windowed", 1, 4097, 8, 1, 1024, True), ("grouped", 2, 2048, 8, 2, -1, False))
+# the halo site: B, T_local, H, W, shards, shard (the second of four)
+XWIDE_HALO = (1, 4096, 8, 1024, 4, 1)
+# the Pallas body each kernel of csrc/flash_xwide.cuh stands in for (osufusion_tpu/ops/pallas_attention.py)
+XWIDE_REPLACES = {"fwd": 208, "dq": 435, "dkv": 507}
+
+
+def _xwide_counts(reset: bool = False) -> dict:
+    """The launch counters of csrc/flash_xwide.cuh's kernels (set to 0 first with ``reset``)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    if reset:
+        fa.flash_fwd.xwide_launches = ha.halo_fwd.xwide_launches = 0
+        fa.xwide_bwd_dq.launches = fa.xwide_bwd_dkv.launches = 0
+    return {"fwd": fa.flash_fwd.xwide_launches + ha.halo_fwd.xwide_launches, "dq": fa.xwide_bwd_dq.launches,
+            "dkv": fa.xwide_bwd_dkv.launches}
+
+
+def _xwide_tols(dtype) -> tuple:
+    """(o rel L2, lse max abs, gradient rel L2) at ``dtype``; the max-abs bounds are ABS_TOL and BWD_ABS_TOL."""
+    if dtype == torch.float16:
+        return FORMS_F16_REL_TOL, F16_LSE_TOL, FORMS_F16_REL_TOL
+    return REL_TOL, LSE_TOL, BWD_REL_TOL
+
+
+def _xwide_hold(where: str, got: tuple, refs: tuple, faults: tuple, dtype, failures: list) -> tuple[float, str]:
+    """Hold (o, lse, dq, dk, dv) to the plain (o, lse, dq, dk, dv) with ``_xwide_tols``, and the planted faults
+    (o of a forward that misses keys; the gradients from an LSE off by LSE_FAULT) above them. Returns (the
+    largest error, a log line)."""
+    o_tol, lse_tol, g_tol = _xwide_tols(dtype)
+    o, lse = got[:2]
+    o_ref, lse_ref = refs[:2]
+    o_rel, o_err, lse_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item()
+    o_fault = _rel(faults[0], o_ref)
+    worst = o_err
+    if not (o_rel < o_tol and o_err < ABS_TOL and lse_err < lse_tol and torch.isfinite(o).all() and o_fault > o_tol):
+        failures.append(f"{where} forward: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse {lse_err:.3e}, fault "
+                        f"{o_fault:.3e}")
+    parts = [f"o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault:.3e}), lse max abs {lse_err:.3e}"]
+    for name, a, b, fault in zip(("dq", "dk", "dv"), got[2:], refs[2:], faults[1:]):
+        rel, err, top, fault_rel = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item(), _rel(fault, b)
+        worst = max(worst, err)
+        parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+        if not (rel < g_tol and err < BWD_ABS_TOL * top and torch.isfinite(a).all() and fault_rel > g_tol):
+            failures.append(f"{where} backward: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}, fault "
+                            f"{fault_rel:.3e}")
+    return worst, "; ".join(parts) + f" (bounds {o_tol:g}, {g_tol:g})"
+
+
+def _xwide_site(where: str, q, k_rot, v, do, cos, sin, window: int, failures: list) -> float:
+    """One site through the wrappers: the forward with its LSE, then the global backward (``flash_bwd``) or, at
+    a windowed site, the windowed pair's wrappers; against the plain versions with planted faults (the last key
+    tile dropped, or the window one key short each side; an LSE off by LSE_FAULT); csrc/flash_xwide.cuh's
+    forward, dq and dk/dv launched once each and no forms forward, dq or dk/dv. Returns the largest error."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    scale = q.shape[-1] ** -0.5
+    counts, forms_counts = _xwide_counts(), _forms_counts()
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    if window < 0:
+        dq, dk, dv = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+    else:
+        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+        dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, window)
+        del prep
+    torch.cuda.synchronize()
+    moved = {k: n - counts[k] for k, n in _xwide_counts().items()}
+    runs = {k: n - forms_counts[k] for k, n in _forms_counts().items()}
+    if moved != {"fwd": 1, "dq": 1, "dkv": 1} or any(runs[k] for k in ("fwd", "dq", "dkv")):
+        failures.append(f"{where}: flash_xwide launches {moved}, forms launches {runs}")
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    if window < 0:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+    else:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0]
+
+    def plain_backward(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
+
+    worst, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
+                              (o_fault, *plain_backward(lse_ref + LSE_FAULT)), q.dtype, failures)
+    _log(f"[xwide kernels] {where}: {line}")
+    return worst
+
+
+def _xwide_halo(where: str, dtype, D: int, seed: int, failures: list) -> float:
+    """The halo wrappers at XWIDE_HALO, the slab rows outside the song large (the kernels must ignore them; their
+    dk and dv exact zeros), against the halo plain versions with planted faults (the slab one key off its
+    frame; an LSE off by LSE_FAULT). Returns the largest error."""
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    B, T, H, W, n, shard = XWIDE_HALO
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device="cuda").to(dtype) for _ in range(2))
+    frame, scale = (W, shard * T, n * T), D**-0.5
+    lo, hi = ha.slab_bounds(T, *frame)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    counts = _xwide_counts()
+    o, lse = ha.halo_fwd(q, k, v, *frame, scale)
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, *frame, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, *frame)
+    torch.cuda.synchronize()
+    moved = {key: n - counts[key] for key, n in _xwide_counts().items()}
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, *frame)
+    o_fault = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), *frame)[0]
+
+    def plain_backward(lse_in):
+        return (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_in, do, *frame),
+                *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_in, do, *frame))
+
+    worst, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
+                              (o_fault, *plain_backward(lse_ref + LSE_FAULT)), dtype, failures)
+    outside = torch.ones(T + W, dtype=torch.bool, device="cuda")
+    outside[lo:hi] = False
+    zeros = bool((dk[:, outside] == 0).all() and (dv[:, outside] == 0).all())
+    if moved != {"fwd": 1, "dq": 1, "dkv": 1} or not zeros:
+        failures.append(f"{where}: flash_xwide launches {moved}, slab rows outside the song exact zeros {zeros}")
+    _log(f"[xwide kernels] {where}: {line}; outside the song dk = dv = 0: {zeros}")
+    return worst
+
+
+def phase_xwide_kernels() -> dict:
+    """csrc/flash_xwide.cuh's forward and backward pair at bf16 and fp16, D = 320 ... 512, at the forms site
+    (B=2, T=4096, H=16, MQA, global, tables) through the wrappers, against the plain fp32 versions with planted
+    faults above the bounds, each kernel timed by CUDA events (behind the sleeping kernel) beside its bound,
+    its plain version and rope + SDPA (forward; backward by autograd) in its type, fp16 beside bf16 on the same
+    values, and the pair as its callers pay it (``flash_bwd_dq`` with the forms pre-pass and post-pass, plus
+    ``flash_bwd_dkv``); at D = 320 and 512 also the windowed and grouped sites of XWIDE_SITES and the halo
+    pair at XWIDE_HALO, checked only. Returns {(dtype, D): {"fwd" | "dq" | "dkv": record}}."""
+    import torch.nn.functional as F
+
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.ops.rope import apply_rope
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    t_phase = time.perf_counter()
+    B, T, H = FORMS_SITE
+    failures, records, pair = [], {}, {}
+
+    def library(q_in, k_in, v_in, cos, sin):  # yardstick only: rope, then PyTorch's fused attention
+        qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+        kr = apply_rope(k_in, cos, sin)[:, None]
+        return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
+
+    for i, D in enumerate(XWIDE_DIMS):
+        scale = D**-0.5
+        q16, kr16, k16, v16, do16, cos, sin = _attention_inputs(B, T, H, 1, True, 2300 + i, D, torch.float16)
+        for dt in (torch.bfloat16, torch.float16):  # the same values at either type
+            q, k_rot, k, v, do = (x.to(dt) for x in (q16, kr16, k16, v16, do16))
+            name = f"{_dtype_name(dt)}/{D}"
+            err = _xwide_site(f"{name} B={B} T={T} H={H} global, tables", q, k_rot, v, do, cos, sin, -1, failures)
+            o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+            prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
+            dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+            ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 10),
+                  "dq": _cuda_ms(lambda: fa.xwide_bwd_dq(k_rot, v, prep, -1, None, False), 5),
+                  "dkv": _cuda_ms(lambda: fa.xwide_bwd_dkv(k_rot, v, prep, dk_s, dv_s, -1, None, False), 5)}
+            pair[dt, D] = _pair_ms(q, k_rot, v, do, cos, sin, -1)
+            del prep, dk_s, dv_s
+            plain = {"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
+                     "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                     "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1)}
+            with torch.no_grad():
+                lib_fwd_ms = _cuda_ms(lambda: library(q, k, v, cos, sin), 3)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            lib_out = library(*leaves, cos, sin)
+            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 3)
+            del leaves, lib_out
+            rows, keys, stats = B * T * H * D * 2, B * T * D * 2, B * T * H * 4
+            bounds = {
+                "fwd": _bound(attention_flops("forward", B, T, H, D, None), _attn_bytes(B, T, H, D, 2, 2, 1)),
+                # qs do; k v; lse delta; the fp32 dq buffer
+                "dq": _bound(attention_flops("backward_dq", B, T, H, D, None),
+                             2 * rows + 2 * keys + 2 * stats + 2 * rows),
+                # qs do; k v; lse delta; dk dv fp32
+                "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, None),
+                              2 * rows + 2 * keys + 2 * stats + 4 * keys),
+            }
+            library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+            records[dt, D] = {kind: {"max_abs_err": err, "ms": ms[kind], "plain_ms": plain[kind],
+                                     "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
+                                     "library_ms": library_ms[kind]} for kind in ms}
+            dq_ms, dkv_ms = pair[dt, D]
+            bound_pair = bounds["dq"][0] + bounds["dkv"][0]
+            _log(f"[xwide kernels] {name}: forward {ms['fwd']:.3f} ms (bound {bounds['fwd'][0]:.3f} by "
+                 f"{bounds['fwd'][1]}, {bounds['fwd'][0] / ms['fwd']:.1%}; plain {plain['fwd']:.3f}; rope+SDPA "
+                 f"{lib_fwd_ms:.3f}); dq kernel {ms['dq']:.3f} ms (bound {bounds['dq'][0]:.3f}, "
+                 f"{bounds['dq'][0] / ms['dq']:.1%}; plain {plain['dq']:.3f}); dk/dv kernel {ms['dkv']:.3f} ms (bound "
+                 f"{bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / ms['dkv']:.1%}; plain {plain['dkv']:.3f}); the pair "
+                 f"through its wrappers: dq with the forms pre-pass and post-pass {dq_ms:.3f} + dk/dv {dkv_ms:.3f} = "
+                 f"{dq_ms + dkv_ms:.3f} ms (bound {bound_pair:.3f}, {bound_pair / (dq_ms + dkv_ms):.1%}); rope+SDPA "
+                 f"backward {lib_bwd_ms:.3f}")
+            del q, k_rot, k, v, do, o, lse
+            torch.cuda.empty_cache()
+        del q16, kr16, k16, v16, do16, cos, sin
+        for kind in ("fwd", "dq", "dkv"):
+            f16, b16 = records[torch.float16, D][kind]["ms"], records[torch.bfloat16, D][kind]["ms"]
+            _log(f"[xwide kernels] D={D} {kind}: fp16 {f16:.3f} ms, bf16 {b16:.3f} ms on the same values: "
+                 f"{f16 / b16:.3f}x")
+        _log(f"[xwide kernels] D={D} the pair: fp16 {sum(pair[torch.float16, D]):.3f} ms, bf16 "
+             f"{sum(pair[torch.bfloat16, D]):.3f} ms: {sum(pair[torch.float16, D]) / sum(pair[torch.bfloat16, D]):.3f}x")
+    for j, dt in enumerate((torch.bfloat16, torch.float16)):
+        for D in (320, 512):
+            worst = records[dt, D]["fwd"]["max_abs_err"]
+            for m, (label, B_s, T_s, H_s, Kv, window, tables) in enumerate(XWIDE_SITES):
+                q, k_rot, _, v, do, cos, sin = _attention_inputs(B_s, T_s, H_s, Kv, tables, 2350 + 10 * j + m, D, dt)
+                where = (f"{_dtype_name(dt)}/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
+                         + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
+                worst = max(worst, _xwide_site(where, q, k_rot, v, do, cos, sin, window, failures))
+                del q, k_rot, v, do, cos, sin
+            B_h, T_h, H_h, W, n, shard = XWIDE_HALO
+            worst = max(worst, _xwide_halo(f"{_dtype_name(dt)}/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard "
+                                           f"{shard + 1} of {n}", dt, D, 2380 + j + D, failures))
+            for rec in records[dt, D].values():
+                rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("flash_xwide kernels vs plain: " + "; ".join(failures))
+    _log(f"[xwide kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def phase_xwide_serve(workdir: Path) -> int:
+    """Phase 26 (a): a 60 s song served by a bf16 UNet at ``attn_dim_head=320`` (dim_h=128, 16 heads of 320, 1 KV
+    head, context 4096) with seeded random weights as phase 6's, through ``generate_beatmap`` at DPM-16 and
+    CFG 2.0; the ``.osz`` parses. Every forward is csrc/flash_xwide.cuh's (the map's forwards, counted as K1),
+    nothing else launches: no forms or chunked kernel. Returns the forwards."""
+    from osufusion_tpu_torch.config import DiffusionConfig, ModelConfig
+    from osufusion_tpu_torch.models import build_model
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.serve import generate_beatmap
+
+    model = build_model(ModelConfig(dim_h=128, attn_dim_head=320), DiffusionConfig())
+    params = serving_weights(model)
+    expected = _map_launches(model, params.cfg, "dpmpp-2m", DPM_STEPS)
+    wav = workdir / "song_xwide.wav"
+    synth_song(wav, 60.0, seed=ord("x"))
+    before = _all_launches(fa, ha)
+    _forms_counts(reset=True)
+    _xwide_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, osu_texts = generate_beatmap(model, params, wav, title="smoke D=320", num_samples=1,
+                                       sampling_timesteps=DPM_STEPS, sampler="dpmpp-2m", cond_scale=2.0, seed=0)
+    latency = time.perf_counter() - t0
+    hits = check_osz(data, osu_texts, 1)
+    moved = [a - b for a, b in zip(_all_launches(fa, ha), before)]
+    xwide, runs = _xwide_counts(), _forms_counts()
+    _log(f"[xwide serve] bf16 attn_dim_head=320: 60 s song, DPM-{DPM_STEPS}, CFG 2.0 through generate_beatmap "
+         f"{latency:.3f} s end to end; {len(data)} byte .osz; hit objects {hits}; flash_xwide launches {xwide}, K1 "
+         f"{moved[0]} (expected {expected} forwards a map); forms launches {runs}")
+    if xwide != {"fwd": expected, "dq": 0, "dkv": 0} or moved != [expected] + [0] * 10 or any(runs.values()):
+        raise AssertionError(f"xwide serve: flash_xwide {xwide}, wgmma moved {moved}, forms {runs}; expected "
+                             f"{expected} flash_xwide forwards and nothing else")
+    del model, params
+    return expected
+
+
+def phase_xwide_paths(workdir: Path) -> dict:
+    """Phase 26, the main paths above head dim 256 through the port's entry points: (a) ``phase_xwide_serve``;
+    (b) the gradient check of (d) (``phase_forms_grad_check``: the reduced dim_h=512 UNet, 13 global sites,
+    B=2, T=4096, through the kernels against fp32 through the plain versions) at bf16/320 and fp16/512. Returns
+    flash_xwide's launches by (dtype, D, kernel): no forms forward, dq or dk/dv, and so no chunked launch,
+    asserted on every path."""
+    launches = {(torch.bfloat16, 320, "fwd"): phase_xwide_serve(workdir)}
+    for dtype, D in (("bfloat16", 320), ("float16", 512)):
+        torch.cuda.empty_cache()
+        counts = phase_forms_grad_check(dtype, D)
+        for kind, n in counts["xwide"].items():
+            key = (getattr(torch, dtype), D, kind)
+            launches[key] = launches.get(key, 0) + n
+    _log(f"[xwide paths] flash_xwide launches on the paths: "
+         + "; ".join(f"{_dtype_name(dt)}/{D} {kind} {n}" for (dt, D, kind), n in launches.items()))
+    return launches
+
+
+def _xwide_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of csrc/flash_xwide.cuh (``phase_xwide_kernels``' records at the forms site)
+    with their launches on phase 26's paths: the bf16 kernels at D = 320, the fp16 ones at 512 (one body each
+    serves every head dim, which is a run-time argument)."""
+    entries = []
+    for (dt, D), kinds in records.items():
+        for kind, rec in kinds.items():
+            entries.append({"name": f"xwide_{kind}_{_dtype_name(dt)}_d{D}", "route": "cuda",
+                            "source": f"osufusion_tpu_torch/csrc/flash_xwide{'_f16' if dt == torch.float16 else ''}.cu",
+                            "replaces": f"osufusion_tpu/ops/pallas_attention.py:{XWIDE_REPLACES[kind]}",
+                            "launches": launches.get((dt, D, kind), 0), **rec})
+    return entries
+
+
+def xwide_ab() -> None:
+    """The attention kernels timed alone through the wrappers, whichever instance they launch (named from the
+    launch counters of both trees): the forward with its LSE and the pair (``_pair_ms``: ``flash_bwd_dq`` with
+    its pre-pass, plus ``flash_bwd_dkv``) at D = 320 and 512, and K1, K2's sweep (after its pre-pass) and the
+    pair at D = 64, 128 and 256, at the forms site (B=2, T=4096, H=16, MQA, global, tables), in bf16 and then
+    fp16 on the same values; no check. It calls the port through nothing but the wrappers, so a copy of this
+    file in another checkout times that checkout's instances: a parent and a change are compared in one call,
+    each in a process of its own, parent, change, change, parent.
+
+        python3 -c "import chip_smoke as c; c.phase_device(); c.xwide_ab()"
+    """
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+
+    counters = {"forms fwd": forms.forms_fwd, "forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv,
+                "wgmma fwd": fa.flash_fwd, "wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv,
+                "sweep": fa.flash_bwd_sweep}
+    B, T, H = FORMS_SITE
+    times = {}
+    for dt in (torch.bfloat16, torch.float16):
+        for D in (64, 128, 256, 320, 512):
+            q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D, D, torch.float16)
+            q, k_rot, v, do = (x.to(dt) for x in (q, k_rot, v, do))
+            scale = D**-0.5
+            before = {name: c.launches for name, c in counters.items()}
+            ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 5)}
+            if D <= 256:
+                o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+                prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
+                dk, dv = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+                ms["sweep"] = _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, False), 5)
+                del o, lse, prep, dk, dv
+            ms["dq"], ms["dkv"] = _pair_ms(q, k_rot, v, do, cos, sin, -1)
+            ms["pair"] = ms["dq"] + ms["dkv"]
+            launched = {name: c.launches - before[name] for name, c in counters.items() if c.launches > before[name]}
+            times[dt, D] = ms
+            _log(f"[xwide ab] {_dtype_name(dt)}/{D} B={B} T={T} H={H} global: "
+                 + ", ".join(f"{kind} {t:.3f} ms" for kind, t in ms.items()) + f"; launched {launched}")
+            del q, k_rot, v, do, cos, sin
+            torch.cuda.empty_cache()
+    for D in (64, 128, 256, 320, 512):
+        _log(f"[xwide ab] D={D}: fp16 / bf16 " + ", ".join(
+            f"{kind} {times[torch.float16, D][kind] / t:.3f}x" for kind, t in times[torch.bfloat16, D].items()))
+
+
 def phase_wide_fullsong_train(workdir: Path) -> dict:
     """Phase 24, whole-song training at a head dim of 128: ``trainer.train`` at phase 9's cell (dim_h=512,
     B=1, T=65536, full bf16, ``mixed``) with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
@@ -2317,8 +2684,10 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
     float32 through the plain versions on the card. fp32: the forms forward, pre-pass, dq, dk/dv and
     post-pass a site, and no wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
-    (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv. Returns the launches
-    by entry point (the forms ones, and K1's and K2's as "k1", "k2")."""
+    (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv; bf16 and fp16 above
+    D = 256 (phase 26): the same, with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as
+    K1 and K2). Returns the launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and
+    flash_xwide's as "xwide")."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -2352,8 +2721,9 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
 
     hopper = _all_launches(fa, ha)
     _forms_counts(reset=True)
+    _xwide_counts(reset=True)
     loss = run(model, net)
-    counts = _forms_counts()
+    counts, xwide = _forms_counts(), _xwide_counts()
     wgmma = [a - b for a, b in zip(_all_launches(fa, ha), hopper)]
     moved = any(wgmma)
     loss32 = run(model32, ref)
@@ -2367,7 +2737,8 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     sites = _unet_sites(net.cfg)
     _log(f"[forms grad check] {dtype} D={dim_head}, dim_h=512, 13 sites, B={B} T={T}: loss through the forms kernels "
          f"{loss:.6f}, fp32 plain {loss32:.6f} (rel {rel_loss:.3e}, bound {loss_tol}); gradient rel L2 {rel_all:.3e}, "
-         f"attention projections alone {rel_attn:.3e} (bound {grad_tol}); forms launches {counts}")
+         f"attention projections alone {rel_attn:.3e} (bound {grad_tol}); forms launches {counts}; flash_xwide "
+         f"launches {xwide}")
     if not (np.isfinite(loss) and torch.isfinite(g).all()):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: non-finite loss or gradient")
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
@@ -2377,11 +2748,13 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
         _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
                             {"fwd": sites, "prep": sites, "dq": sites, "dkv": sites, "post": sites, "merge": 0}, moved)
         return counts
-    # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family
+    # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family; above D =
+    # 256 those are csrc/flash_xwide.cuh's forward and its pair between the forms pre-pass and post-pass
+    wide = sites if dim_head > 256 else 0
     _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
                         {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
-                        wgmma != [sites, sites] + [0] * 9)
-    return {**counts, "k1": wgmma[0], "k2": wgmma[1]}
+                        wgmma != [sites, sites] + [0] * 9 or xwide != {"fwd": wide, "dq": wide, "dkv": wide})
+    return {**counts, "k1": wgmma[0], "k2": wgmma[1], "xwide": xwide}
 
 
 def phase_forms_train(workdir: Path) -> dict:
@@ -3892,6 +4265,12 @@ def main() -> int:
     del model, served, song, ddim50
     (forms_records, forms_launches, wide_records, wide_launches, pair_records, f16_records, f16_launches,
      f16_pair_records) = phase_forms()
+    torch.cuda.empty_cache()
+    xwide_records = phase_xwide_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        xwide_launches = phase_xwide_paths(Path(tmp))
+    if not all(n > 0 for n in xwide_launches.values()):
+        raise AssertionError(f"a flash_xwide kernel launched no time on the paths: {xwide_launches}")
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -3974,6 +4353,7 @@ def main() -> int:
         *_pair_json(pair_records, pair_launches),
         *_f16_json(f16_records, f16_launches),
         *_f16_pair_json(f16_pair_records, f16_pair_launches),
+        *_xwide_json(xwide_records, xwide_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

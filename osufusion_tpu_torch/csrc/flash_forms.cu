@@ -5,12 +5,13 @@
 // operand type T (float, __nv_bfloat16, __half) and the head dim D (64, 128,
 // 192, 256), and one chunked instance of the forward, dq and dk/dv bodies for
 // any D > 256 that is a multiple of 64 (below). ops/flash_forms.py::
-// kernel_form sends here fp32 operands at every head dim, every type at D >
-// 256, and the pre-pass and post-pass around K2's sweep and the ring's merge
-// at fp16 and at bf16 above D = 64. bf16 and fp16 forwards at D <= 256 run
-// the wgmma forward (K1), and their dq and dk/dv there the wgmma K2 sweep and
-// windowed pair, so those instances are not built here (FORMS_DISPATCH,
-// below).
+// kernel_form sends here fp32 operands at every head dim, bf16 and fp16
+// above D = 512, and the pre-pass and post-pass around K2's sweep (and the
+// wgmma pair of flash_xwide.cuh) and the ring's merge at fp16 and at bf16
+// above D = 64. bf16 and fp16 forwards at D <= 256 run the wgmma forward
+// (K1), at D = 320 ... 512 flash_xwide.cuh's, and their dq and dk/dv there the
+// wgmma K2 sweep and windowed pair, or flash_xwide.cuh's pair, so those
+// instances are not built here (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -53,8 +54,8 @@
 // of fp32 FMA on an H100 SXM: compute bound at every site, by far (a row meets
 // up to W + 1 or S keys for a few hundred bytes of traffic). The chunked
 // instances at bf16 and fp16 run the same FMA arithmetic, so they can reach
-// at most 67 / 989 (~7 %) of their tensor-core bound: a simple, exact design
-// first, to be replaced by wgmma instances (ROADMAP queue 2).
+// at most 67 / 989 (~7 %) of their tensor-core bound; they are left only above
+// D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2).
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
@@ -1171,12 +1172,16 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 // The instances of (dtype, D) that an entry point has: CALL(T, D) for each
 // (D = 0: the chunked instance, which takes every D > 256 that is a multiple
 // of 64), else cudaErrorInvalidValue. FORMS_DIMS names a type's instances at
-// D = 64 ... 256, FORMS_CHUNKED its chunked one. The forward, dq and dk/dv
-// bodies keep only what a route launches (ops/flash_forms.py::kernel_form):
-//  * FORMS_FWD, the forward: fp32 at every D, and the chunked instance of
-//    every type (bf16 and fp16 at D <= 256 run K1, the wgmma forward);
-//  * FORMS_SWEEPS, dq and dk/dv: the same instances (bf16 and fp16 at D <=
-//    256 run K2's sweep and the wgmma windowed pair);
+// D = 64 ... 256, FORMS_CHUNKED its chunked one at every D > 256,
+// FORMS_ABOVE the chunked one above 512 only (the dispatch keys D = 320 ...
+// 512 apart from the head dims above them). The forward, dq and dk/dv bodies
+// keep only what a route launches (ops/flash_forms.py::kernel_form):
+//  * FORMS_FWD, the forward: fp32 at every D; bf16 and fp16 above D = 512
+//    only (K1 takes them at D <= 256, flash_xwide.cuh's forward at 320 ...
+//    512);
+//  * FORMS_SWEEPS, dq and dk/dv: the same instances (K2's sweep and the
+//    wgmma windowed pair take bf16 and fp16 at D <= 256, flash_xwide.cuh's
+//    pair at 320 ... 512);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -1184,15 +1189,19 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
   case CODE * 1000 + 128: return CALL(TT, 128);                                   \
   case CODE * 1000 + 192: return CALL(TT, 192);                                   \
   case CODE * 1000 + 256: return CALL(TT, 256);
-#define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: return CALL(TT, 0);
+#define FORMS_ABOVE(CODE, TT) case CODE * 1000 + 1: return CALL(TT, 0);
+#define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)
 #define FORMS_FWD                                                                 \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
-  FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_F16, __half)
+  FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_SWEEPS FORMS_FWD
-#define FORMS_EVERY FORMS_FWD FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_DIMS(DTYPE_F16, __half)
+#define FORMS_EVERY                                                               \
+  FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
+  FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16)  \
+  FORMS_DIMS(DTYPE_F16, __half) FORMS_CHUNKED(DTYPE_F16, __half)
 #define FORMS_DISPATCH(INSTANCES)                                                 \
   if (D <= 0 || D % 64 != 0) return (int)cudaErrorInvalidValue;                   \
-  switch (dtype * 1000 + (D > 256 ? 0 : D)) {                                     \
+  switch (dtype * 1000 + (D > 512 ? 1 : D > 256 ? 0 : D)) {                       \
     INSTANCES                                                                     \
     default: return (int)cudaErrorInvalidValue;                                   \
   }

@@ -18,14 +18,15 @@
 
 namespace {
 
-// 8 columns col..col+7 of the low half of the raw q row `qr` (D wide, of T)
-// and their partners at +D/2, as qs packed to T (lo, hi). cr / sr: the row of
-// the cos / sin tables (fp32, D wide) of the row's timestep; unread without
-// ROPE.
-template <bool ROPE, int D = 64, typename T>
-__device__ __forceinline__ void rope_qs8(const T* qr, const float* cr, const float* sr, int col, float qscale,
-                                         uint4& lo_out, uint4& hi_out) {
-  constexpr int HALF = D / 2;
+// 8 columns col..col+7 of the low half of the raw q row `qr` (2 * HALF wide,
+// of T) and their partners at +HALF, as qs packed to T (lo, hi). cr / sr: the
+// row of the cos / sin tables (fp32, 2 * HALF wide) of the row's timestep;
+// unread without ROPE. HALF is a run-time argument here (the kernels of
+// flash_xwide.cuh take the head dim at run time), a compile-time one through
+// rope_qs8 below.
+template <bool ROPE, typename T>
+__device__ __forceinline__ void rope_qs8_half(const T* qr, const float* cr, const float* sr, int col, int HALF,
+                                              float qscale, uint4& lo_out, uint4& hi_out) {
   const uint4 ql = *reinterpret_cast<const uint4*>(qr + col);
   const uint4 qh = *reinterpret_cast<const uint4*>(qr + col + HALF);
   const T* xl = reinterpret_cast<const T*>(&ql);
@@ -60,6 +61,13 @@ __device__ __forceinline__ void rope_qs8(const T* qr, const float* cr, const flo
     pl[j] = pack2<T>(lo[2 * j], lo[2 * j + 1]);
     ph[j] = pack2<T>(hi[2 * j], hi[2 * j + 1]);
   }
+}
+
+// rope_qs8_half at a head dim D fixed at compile time
+template <bool ROPE, int D = 64, typename T>
+__device__ __forceinline__ void rope_qs8(const T* qr, const float* cr, const float* sr, int col, float qscale,
+                                         uint4& lo_out, uint4& hi_out) {
+  rope_qs8_half<ROPE>(qr, cr, sr, col, D / 2, qscale, lo_out, hi_out);
 }
 
 }  // namespace

@@ -57,9 +57,14 @@ its own (``flash_fwd_f16``, ``flash_bwd_f16``, ``flash_bwd_windowed_f16``):
 at fp16 every forward is K1 (with its halo instance and the ring's hops), a
 windowed backward the fp16 pair (and its halo instances), and the global
 backward runs K2's sweep between the forms pre-pass and post-pass at every
-D, as bf16 does above 64. The ring's merge takes bf16 at D = 64. Every other
+D, as bf16 does above 64. Above D = 256, at bf16 and fp16 with D = 320 ...
+512, every forward (the halo frame and the ring's hops too) is
+``csrc/flash_xwide.cuh``'s forward, and every backward (global, the ring's
+sweeps, windowed, halo) its dq and dk/dv pair between the forms pre-pass and
+post-pass (``xwide_bwd_dq``, ``xwide_bwd_dkv``); libraries ``flash_xwide``
+and ``flash_xwide_f16``. The ring's merge takes bf16 at D = 64. Every other
 form (fp32 operands; fp16's merge and the global backward's pre-pass and
-post-pass; every type at D > 256; bf16 at D > 64 for the merge and the
+post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the merge and the
 global backward's pre-pass and post-pass:
 ``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
@@ -98,7 +103,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # pair's one a type)
 SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_fwd_f16", "flash_bwd", "flash_bwd_f16",
                                                    "flash_bwd_windowed", "flash_bwd_windowed_f16", "ring_merge",
-                                                   "flash_forms")}
+                                                   "flash_forms", "flash_xwide", "flash_xwide_f16")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -182,6 +187,18 @@ _ENTRY_POINTS = {
     # D | k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
     "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
     "halo_bwd_dkv_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
+    # above head dim 256 (csrc/flash_xwide.cuh): the forward as flash_fwd_* and halo_fwd_* take it
+    "xwide_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_halo_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_halo_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # the pair on the forms scratch, as forms_bwd_dq and forms_bwd_dkv take it without the type code
+    # D | k v qs_g do_rows lse_g delta_g dq_acc | B T S H Kv pad window halo g0 t_global accumulate | stream
+    "xwide_bwd_dq_bf16": ("flash_xwide", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
+    "xwide_bwd_dq_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
+    # D | k v qs_g do_rows lse_g delta_g dk dv | B T S H Kv pad window halo g0 t_global accumulate | stream
+    "xwide_bwd_dkv_bf16": ("flash_xwide", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
+    "xwide_bwd_dkv_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
     # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
     "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
@@ -278,14 +295,16 @@ def flash_fwd(
     return_lse: bool = False,
 ):
     """Launch the forward kernel of q's form (``flash_forms.takes_forms``: K1
-    at bf16 or fp16 with D = 64, 128, 192 or 256) on the current stream;
+    at bf16 or fp16 with D = 64, 128, 192 or 256, csrc/flash_xwide.cuh's
+    forward with D = 320 ... 512) on the current stream;
     returns o (B, T, H, D) in q's dtype, or with
     ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
     the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
     // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
     (those with the LSE also in ``flash_fwd.lse_launches``, those of the
-    grouped form, Kv > 1, in ``flash_fwd.grouped_launches``), the forms
-    kernel's in ``flash_forms.forms_fwd.launches``."""
+    grouped form, Kv > 1, in ``flash_fwd.grouped_launches``, those above D =
+    256 in ``flash_fwd.xwide_launches``), the forms kernel's in
+    ``flash_forms.forms_fwd.launches``."""
     kv = _kv_heads("flash_fwd", q, k)
     B, T, H, D = q.shape
     if v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
@@ -299,13 +318,15 @@ def flash_fwd(
     if use_forms:
         forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
         return (o, lse) if return_lse else o
-    err = _kernel(f"flash_fwd_{TYPE_SUFFIX[q.dtype]}")(
+    xwide = D in forms.XWIDE_HEAD_DIMS
+    err = _kernel(f"{'xwide' if xwide else 'flash'}_fwd_{TYPE_SUFFIX[q.dtype]}")(
         D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.grouped_launches += kv > 1
+    flash_fwd.xwide_launches += xwide
     if return_lse:
         flash_fwd.lse_launches += 1
         return o, lse
@@ -315,6 +336,7 @@ def flash_fwd(
 flash_fwd.launches = 0
 flash_fwd.lse_launches = 0
 flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
+flash_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
 
 
 def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, bool]:
@@ -363,8 +385,10 @@ def flash_bwd(
     (those of the grouped form, Kv > 1, also in ``flash_bwd.grouped_launches``).
     At D > 64 (bf16), and at fp16 at every D, the sweep of q's type and head
     dim runs between the forms pre-pass and post-pass (counted in
-    ``flash_forms``), the whole still one ``flash_bwd.launches``. The forms
-    family (fp32, D > 256) runs its pre-pass, dq, dk/dv and post-pass
+    ``flash_forms``), the whole still one ``flash_bwd.launches``; at D = 320
+    ... 512 that sweep is csrc/flash_xwide.cuh's dq and dk/dv pair
+    (``xwide_bwd_dq``, ``xwide_bwd_dkv``). The forms family (fp32 above D =
+    256, bf16 and fp16 above 512) runs its pre-pass, dq, dk/dv and post-pass
     kernels, each counted in ``flash_forms``."""
     B, T, H, kv, use_forms = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
                                              grouped=True)
@@ -468,9 +492,15 @@ flash_bwd_prep.launches = 0
 
 def _launch_sweep(who: str, k, v, prep: GlobalPrep, dk, dv, accumulate: bool) -> None:
     """Launch K2's sweep of qs's operand type (bf16 or fp16) and head dim over
-    the keys of k and v (checked here) into ``prep.dq_acc`` and dk, dv."""
+    the keys of k and v (checked here) into ``prep.dq_acc`` and dk, dv; above
+    D = 256 the wgmma pair of csrc/flash_xwide.cuh, its dq kernel storing into
+    ``prep.dq_acc`` (or with ``accumulate`` adding), as the forms dq does."""
     B, T, H, kv = prep.shape
     D = prep.qs.shape[-1]
+    if D in forms.XWIDE_HEAD_DIMS:
+        xwide_bwd_dq(k, v, prep, -1, None, accumulate)
+        xwide_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate)
+        return
     if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
             or k.shape[-1] != D or dk.shape != k.shape or dv.shape != k.shape:
         raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
@@ -510,6 +540,49 @@ def flash_bwd_sweep(
 
 
 flash_bwd_sweep.launches = 0
+
+
+def _launch_xwide_pair(who: str, k, v, prep: GlobalPrep, outs, window: int, halo: Optional[tuple],
+                       accumulate: bool) -> None:
+    """Launch ``who`` (csrc/flash_xwide.cuh's dq or dk/dv kernel) of qs's
+    operand type over the keys of k and v on the forms pre-pass's scratch,
+    into ``outs`` (dq: the scratch's fp32 dq buffer; dk/dv: (dk, dv))."""
+    forms._check_sweep(who, k, v, prep, () if who == "xwide_bwd_dq" else outs)
+    B, T, H, kv = prep.shape
+    err = _kernel(f"{who}_{TYPE_SUFFIX[prep.qs.dtype]}")(
+        prep.qs.shape[-1], k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(),
+        prep.delta.data_ptr(), *(t.data_ptr() for t in outs), B, T, k.shape[1], H, kv, prep.lse.shape[1], window,
+        *forms._frame(halo), int(accumulate), torch.cuda.current_stream(k.device).cuda_stream)
+    _check_launch(who, err)
+
+
+def xwide_bwd_dq(k, v, prep: GlobalPrep, window: int, halo: Optional[tuple], accumulate: bool) -> None:
+    """Launch csrc/flash_xwide.cuh's dq kernel of qs's operand type (bf16 or
+    fp16, D = 320 ... 512) on the current stream over the keys of k and v, on
+    the forms pre-pass's scratch: ``prep.dq_acc`` (fp32, group-major) gets ds
+    k, stored, or with ``accumulate`` added to what it holds (the forms
+    post-pass scales and un-rotates it); ``forms_bwd_dq``'s arguments.
+    ``halo`` (g0, t_global): the halo slab's frame. Counts in
+    ``xwide_bwd_dq.launches``; the calling wrapper counts its own."""
+    _launch_xwide_pair("xwide_bwd_dq", k, v, prep, (prep.dq_acc,), window, halo, accumulate)
+    xwide_bwd_dq.launches += 1
+
+
+xwide_bwd_dq.launches = 0
+
+
+def xwide_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tuple], accumulate: bool) -> None:
+    """Launch csrc/flash_xwide.cuh's dk/dv kernel of qs's operand type on the
+    current stream over the keys of k and v, on the forms pre-pass's scratch:
+    dk (rotated frame) and dv (k's shape, fp32) stored, or with
+    ``accumulate`` added to; in the halo frame the slab rows outside the song
+    get zeros; ``forms_bwd_dkv``'s arguments. Counts in
+    ``xwide_bwd_dkv.launches``; the calling wrapper counts its own."""
+    _launch_xwide_pair("xwide_bwd_dkv", k, v, prep, (dk, dv), window, halo, accumulate)
+    xwide_bwd_dkv.launches += 1
+
+
+xwide_bwd_dkv.launches = 0
 
 
 def flash_bwd_post(
@@ -669,19 +742,24 @@ def flash_bwd_dq(
     scale: float,
 ):
     """Launch the windowed pre-pass and the dq kernel of q's form (K3a at bf16
-    or fp16 with D = 64, 128, 192 or 256) on the current stream. Returns (dq, prep):
+    or fp16 with D = 64, 128, 192 or 256; with D = 320 ... 512 the forms
+    pre-pass, csrc/flash_xwide.cuh's dq kernel and the forms post-pass) on the
+    current stream. Returns (dq, prep):
     dq (B, T, H, D) in q's dtype and the raw q's frame, written once per row
     (the same bits from run to run), and
     the pre-pass's scratch, which ``flash_bwd_dkv`` takes (``WindowedPrep``:
     qs, the padded LSE, delta; the forms family's pre-pass, dq kernel and
-    post-pass leave a ``GlobalPrep``). Counts the wgmma dq kernel's launches
-    in ``flash_bwd_dq.launches``, the forms kernels' in ``flash_forms``."""
+    post-pass leave a ``GlobalPrep``, as do the forms pre-pass and post-pass
+    around the wgmma dq kernel above 256). Counts the wgmma dq kernel's
+    launches in ``flash_bwd_dq.launches``, the forms kernels' in
+    ``flash_forms``."""
     B, T, H, _, use_forms = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
                                             sin)
     _check_window("flash_bwd_dq", window)
-    if use_forms:
+    if use_forms or q.shape[-1] in forms.XWIDE_HEAD_DIMS:  # above 256: the forms pre-pass and post-pass
         prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
-        forms.forms_bwd_dq(k, v, prep, window, None, accumulate=False)
+        (forms.forms_bwd_dq if use_forms else xwide_bwd_dq)(k, v, prep, window, None, accumulate=False)
+        flash_bwd_dq.launches += not use_forms
         return forms.forms_bwd_post(prep, cos, sin, scale), prep
     prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
@@ -721,9 +799,10 @@ def flash_bwd_dkv(
     _check_window(who, window)
     dk = torch.empty(k.shape, dtype=f32, device=do.device)
     dv = torch.empty(v.shape, dtype=f32, device=do.device)
-    if use_forms:
+    if use_forms or D in forms.XWIDE_HEAD_DIMS:
         forms.check_prep(who, prep, B, T, H, 1)
-        forms.forms_bwd_dkv(k, v, prep, dk, dv, window, None, accumulate=False)
+        (forms.forms_bwd_dkv if use_forms else xwide_bwd_dkv)(k, v, prep, dk, dv, window, None, accumulate=False)
+        flash_bwd_dkv.launches += not use_forms
         return dk, dv
     _check_prep(who, prep, do.device, do.dtype, B, T * H, D)
     err = _kernel(f"flash_bwd_dkv_{TYPE_SUFFIX[do.dtype]}")(

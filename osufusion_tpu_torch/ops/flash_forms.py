@@ -16,16 +16,22 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   their halo instances K5a / K5b (``csrc/flash_bwd_windowed.cuh``:
   ``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``).
   fp16 operands with D = 64, 128, 192 or 256 at the same wrappers, whose
-  kernels are templated on the operand type too;
+  kernels are templated on the operand type too. bf16 and fp16 with D in
+  ``XWIDE_HEAD_DIMS`` (320 ... 512) at the same wrappers: the forward and the
+  backward pair of ``csrc/flash_xwide.cuh``, which take the head dim at run
+  time (every forward, and between the forms pre-pass and post-pass every
+  backward: global, the ring's sweeps, windowed and halo);
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
-  fp32 operands at D in ``FORMS_HEAD_DIMS``; fp16 at the ring's merge and
-  the global backward's pre-pass and post-pass
-  (``flash_bwd_prep`` / ``flash_bwd_post``; ``flash_bwd`` at fp16 runs K2's
-  sweep between these two); and bf16 at D > 64 at the merge, the pre-pass and
-  the post-pass (``flash_bwd`` at D > 64 likewise);
-* ``"chunked"``: the forms family's chunked instance, for any operand dtype
-  at a head dim above 256 that is a multiple of 64 (the forward, dq and dk/dv
-  staged 64 columns of the head dim at a time);
+  fp32 operands at D in ``FORMS_HEAD_DIMS``, and fp32 at every D for the
+  ring's merge and the global backward's pre-pass and post-pass
+  (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge, the pre-pass
+  and the post-pass at every D (``flash_bwd`` at fp16 runs K2's sweep, or
+  above 256 the wgmma pair, between these two); and bf16 at D > 64 at the
+  merge, the pre-pass and the post-pass (``flash_bwd`` at D > 64 likewise);
+* ``"chunked"``: the forms family's chunked instance of the forward, dq and
+  dk/dv (staged 64 columns of the head dim at a time), at the wrappers of
+  ``WIDE_WGMMA`` for fp32 operands at a head dim above 256 that is a
+  multiple of 64, and for bf16 and fp16 above ``XWIDE_HEAD_DIMS`` (D > 512);
 * a head dim that is not a multiple of 64 raises ValueError: no kernel tiles
   it, and ``attention_form`` gives such a site ``"xla"``, the JAX package's
   XLA route (rope, then the plain grouped attention with native autograd;
@@ -56,9 +62,12 @@ FORMS_HEAD_DIMS = (64, 128, 192, 256)
 # the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cuh, csrc/flash_bwd_sweep.cuh,
 # csrc/flash_bwd_windowed.cuh)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
-# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS, at bf16 and at fp16 (each operand
-# type's instances a library of their own: csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu,
-# csrc/flash_bwd_windowed_f16.cu); every other wrapper's takes bf16 at 64
+# the head dims of the wgmma forward and backward pair above 256 (csrc/flash_xwide.cuh, XW_MIN_D ... XW_MAX_D),
+# at bf16 and fp16; above them the chunked instance
+XWIDE_HEAD_DIMS = (320, 384, 448, 512)
+# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS and XWIDE_HEAD_DIMS, at bf16 and at
+# fp16 (each operand type's instances a library of their own: csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu,
+# csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu); every other wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
 # operand dtype -> the entry points' type code
@@ -75,13 +84,11 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
     if dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"{who}: the attention kernels take float32, bfloat16 and float16 operands, "
                                   f"not {dtype}")
-    if head_dim > FORMS_HEAD_DIMS[-1]:
-        return "chunked"
-    if dtype == torch.bfloat16 and head_dim == 64:
-        return "hopper"
-    if dtype in (torch.bfloat16, torch.float16) and who in WIDE_WGMMA and head_dim in WGMMA_HEAD_DIMS:
-        return "hopper"
-    return "forms"
+    if who not in WIDE_WGMMA:  # the merge, the pre-pass and the post-pass: D-generic forms bodies
+        return "hopper" if dtype == torch.bfloat16 and head_dim == 64 else "forms"
+    if dtype == torch.float32:
+        return "forms" if head_dim in FORMS_HEAD_DIMS else "chunked"
+    return "hopper" if head_dim in WGMMA_HEAD_DIMS or head_dim in XWIDE_HEAD_DIMS else "chunked"
 
 
 def attention_form(dtype: torch.dtype, head_dim: int) -> str:
@@ -128,9 +135,9 @@ def forms_fwd(q, k, v, cos, sin, o, lse, window: int, scale: float, halo: Option
     D) or (B, S, Kv, D), already rotated; with tables q is raw and rotated
     inside. ``halo`` (g0, t_global): the halo slab's frame (S = T + window, q
     rotated, no tables). Operands checked by the calling wrapper. Counts in
-    ``forms_fwd.launches``. bf16 and fp16 at D <= 256 have no forms forward
-    (K1 runs there): the entry point returns cudaErrorInvalidValue, and this
-    raises RuntimeError."""
+    ``forms_fwd.launches``. bf16 and fp16 at D <= 512 have no forms forward
+    (K1 runs there, and csrc/flash_xwide.cuh's forward above 256): the entry
+    point returns cudaErrorInvalidValue, and this raises RuntimeError."""
     B, T, H, D = q.shape
     _check_aligned("forms_fwd", q, k, v, o)
     err = fa._kernel("forms_fwd")(
@@ -200,8 +207,9 @@ def forms_bwd_dq(k, v, prep, window: int, halo: Optional[tuple], accumulate: boo
     """Launch the forms dq kernel on the current stream over the keys of k and
     v: ``prep.dq_acc`` (fp32, group-major) gets ds k, stored, or with
     ``accumulate`` added to what it holds. Counts in
-    ``forms_bwd_dq.launches``. bf16 and fp16 at D <= 256 have no forms dq
-    (K2's sweep and the wgmma windowed pair run there): RuntimeError."""
+    ``forms_bwd_dq.launches``. bf16 and fp16 at D <= 512 have no forms dq
+    (K2's sweep and the wgmma windowed pair run there, and above 256 the
+    wgmma pair of csrc/flash_xwide.cuh): RuntimeError."""
     _check_sweep("forms_bwd_dq", k, v, prep)
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dq")(
@@ -219,7 +227,7 @@ def forms_bwd_dkv(k, v, prep, dk, dv, window: int, halo: Optional[tuple], accumu
     """Launch the forms dk/dv kernel on the current stream over the keys of k
     and v: dk (rotated frame) and dv (k's shape, fp32) stored, or with
     ``accumulate`` added to; in the halo frame the slab rows outside the song
-    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 and fp16 at D <= 256
+    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 and fp16 at D <= 512
     have no forms dk/dv: RuntimeError."""
     _check_sweep("forms_bwd_dkv", k, v, prep, (dk, dv))
     B, T, H, kv = prep.shape

@@ -29,9 +29,11 @@ What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
 see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cuh``. Those take
 bf16 and fp16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and
-the windowed pair's with its pre-pass); every other form that a kernel takes
-(fp32, and every type at D > 256) runs the forms family's kernels in the
-same frame (``ops/flash_forms.py``,
+the windowed pair's with its pre-pass); at D = 320 ... 512 the forward and the
+backward pair of ``csrc/flash_xwide.cuh`` run in the halo frame, the pair
+between the forms pre-pass and post-pass; every other form that a kernel
+takes (fp32, and bf16 and fp16 above D = 512) runs the forms family's
+kernels in the same frame (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
 D).
 """
@@ -147,7 +149,9 @@ def _stream(t: torch.Tensor) -> int:
 def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     """Launch the halo forward kernel of q's form on the current stream;
     returns (o (B, T, H, D) in q's dtype, lse2 (B, T*H) fp32). Counts the
-    wgmma instance's launches in ``halo_fwd.launches``, the forms one's in
+    wgmma instance's launches in ``halo_fwd.launches`` (those of
+    csrc/flash_xwide.cuh's forward, D = 320 ... 512, also in
+    ``halo_fwd.xwide_launches``), the forms one's in
     ``flash_forms.forms_fwd.launches``."""
     B, T, H, use_forms = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
@@ -155,15 +159,18 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     if use_forms:
         forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
         return o, lse
-    err = _kernel(f"halo_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                         o.data_ptr(), lse.data_ptr(), B, T, H, window, g0, t_global,
-                                                         scale, _stream(q))
+    xwide = q.shape[-1] in forms.XWIDE_HEAD_DIMS
+    err = _kernel(f"{'xwide_halo' if xwide else 'halo'}_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(
+        q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, H, window, g0,
+        t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
+    halo_fwd.xwide_launches += xwide
     return o, lse
 
 
 halo_fwd.launches = 0
+halo_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
 
 
 def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale: float):
@@ -172,14 +179,16 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     frame, written once per row (the same bits from run to run), and the
     pre-pass's scratch (``WindowedPrep``: qs = q * scale * log2(e) in q's dtype,
     the padded LSE, delta = rowsum(do * o); the forms family's pre-pass, dq
-    kernel and post-pass leave a ``GlobalPrep``), which ``halo_bwd_dkv``
-    takes. Counts the wgmma dq kernel's launches in ``halo_bwd_dq.launches``,
-    the forms kernels' in ``flash_forms``."""
+    kernel and post-pass leave a ``GlobalPrep``, as do the forms pre-pass and
+    post-pass around csrc/flash_xwide.cuh's dq kernel at D = 320 ... 512),
+    which ``halo_bwd_dkv`` takes. Counts the wgmma dq kernel's launches in
+    ``halo_bwd_dq.launches``, the forms kernels' in ``flash_forms``."""
     B, T, H, use_forms = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
                                      window, g0, t_global)
-    if use_forms:
+    if use_forms or q.shape[-1] in forms.XWIDE_HEAD_DIMS:  # above 256: the forms pre-pass and post-pass
         prep = forms.forms_bwd_prep(q, o, lse, do, None, None, 1, scale)
-        forms.forms_bwd_dq(k, v, prep, window, (g0, t_global), accumulate=False)
+        (forms.forms_bwd_dq if use_forms else fa.xwide_bwd_dq)(k, v, prep, window, (g0, t_global), accumulate=False)
+        halo_bwd_dq.launches += not use_forms
         return forms.forms_bwd_post(prep, None, None, scale), prep
     prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
@@ -204,9 +213,11 @@ def halo_bwd_dkv(k, v, do, prep, window: int, g0: int, t_global: int):
     B, T, H, use_forms = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
     dk = torch.empty(k.shape, dtype=torch.float32, device=do.device)
     dv = torch.empty_like(dk)
-    if use_forms:
+    if use_forms or do.shape[-1] in forms.XWIDE_HEAD_DIMS:
         forms.check_prep("halo_bwd_dkv", prep, B, T, H, 1)
-        forms.forms_bwd_dkv(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
+        sweep = forms.forms_bwd_dkv if use_forms else fa.xwide_bwd_dkv
+        sweep(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
+        halo_bwd_dkv.launches += not use_forms
         return dk, dv
     _check_prep("halo_bwd_dkv", prep, do.device, do.dtype, B, T * H, do.shape[-1])
     err = _kernel(f"halo_bwd_dkv_{fa.TYPE_SUFFIX[do.dtype]}")(

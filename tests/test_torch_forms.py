@@ -8,8 +8,10 @@ for D = 128 the Pallas kernel in interpret mode); the plain forward, dq and
 dkv at D = 128 against the Pallas kernels in interpret mode, and the plain
 forward and backward at fp16 / D = 64 and 128 (the fp16 instances of K1,
 K2's sweep and the windowed pair) and at fp32 and bf16 / D = 320
-(the forms kernels' chunked instance) against ``pa.flash_attention`` in
-interpret mode; and the halo rule at D = 128 against the JAX package's.
+(the forms kernels' chunked instance), and at fp16 / D = 384 at a windowed
+site with a ragged tail (the wgmma kernels above D = 256), against
+``pa.flash_attention`` in interpret mode; and the halo rule at D = 128
+against the JAX package's.
 
 The forms kernels themselves are held against these plain versions on a GPU
 (tests/test_torch_kernels.py, chip_smoke.py)."""
@@ -27,7 +29,8 @@ from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_parallel_available
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
-from osufusion_tpu_torch.ops.flash_forms import FORMS_HEAD_DIMS, WIDE_WGMMA, attention_form, kernel_form
+from osufusion_tpu_torch.ops.flash_forms import (FORMS_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS, attention_form,
+                                                 kernel_form)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
 
@@ -50,7 +53,9 @@ WRAPPERS = ("flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_prep", "flash_bwd_s
 def _expected_form(who, dtype, D):
     if D % 64:
         return "xla"
-    if D > 256:
+    if who in ("flash_bwd_prep", "flash_bwd_post", "ring_merge"):  # D-generic forms bodies beside bf16/64
+        return "hopper" if dtype == torch.bfloat16 and D == 64 else "forms"
+    if D > 512 or (D > 256 and dtype == torch.float32):
         return "chunked"
     if dtype == torch.bfloat16 and (D == 64 or who in WIDE_WGMMA):
         return "hopper"
@@ -61,7 +66,7 @@ def _expected_form(who, dtype, D):
 
 
 FORM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
-FORM_DIMS = [16, 32, 48, 64, 96, 128, 192, 256, 320, 512]
+FORM_DIMS = [16, 32, 48, 64, 96, 128, 192, 256, 320, 384, 448, 512, 576]
 
 
 @pytest.mark.parametrize("D", FORM_DIMS)
@@ -75,10 +80,13 @@ def test_attention_form_table(dtype, D):
     windowed pair with its halo instances (K1, K2, K3a / K3b, K5a / K5b), and
     at fp16 with D = 64 ... 256 for the forward, the global backward's sweep
     and the windowed pair (K1 with its halo instance and the ring's hops, K2,
-    K3a / K3b, K5a / K5b); the forms kernels at fp32, at fp16 for the ring's
-    merge and the global backward's pre-pass and post-pass, and at bf16 with D > 64 for the
-    merge, the pre-pass and the post-pass; the chunked forms instance at every
-    dtype above D = 256."""
+    K3a / K3b, K5a / K5b), and at bf16 and fp16 with D = 320 ... 512 for the
+    same wrappers (the forward and the backward pair of
+    csrc/flash_xwide.cuh); the forms kernels at fp32, at fp16 for the ring's
+    merge and the global backward's pre-pass and post-pass, and at bf16 with
+    D > 64 for the merge, the pre-pass and the post-pass, at every head dim;
+    the chunked forms instance of the forward, dq and dk/dv at fp32 above D =
+    256 and at bf16 and fp16 above D = 512."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
     for who in WRAPPERS:
         if D % 64:
@@ -98,6 +106,14 @@ def test_attention_form_table(dtype, D):
     if dtype == torch.float16 and D in FORMS_HEAD_DIMS:
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "forms"} == {
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
+    # above 256, up to 512, no wrapper at bf16 or fp16 is left on the forms bodies (the chunked instance
+    # included) but the merge and the global pre- and post-pass: the wgmma kernels of csrc/flash_xwide.cuh take
+    # every forward and every backward sweep
+    if dtype != torch.float32 and D in XWIDE_HEAD_DIMS:
+        assert {who for who in WRAPPERS if kernel_form(who, dtype, D) != "hopper"} == {
+            "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
+        assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "hopper"} == WIDE_WGMMA
+    assert XWIDE_HEAD_DIMS == (320, 384, 448, 512)
 
 
 def _qkv(T, H, D, seed):
@@ -223,19 +239,14 @@ _JNP = {torch.float16: jnp.float16, torch.float32: jnp.float32, torch.bfloat16: 
 WIDE_TOLS = {torch.float32: (ATOL, RTOL), torch.float16: (1e-3, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 
 
-@pytest.mark.parametrize("dtype,D,window", WIDE_CASES,
-                         ids=[f"{str(dt).split('.')[1]}-D{d}-{'W' + str(w) if w else 'global'}" for dt, d, w in WIDE_CASES])
-def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D, window):
+def _hold_plain_to_pallas(dtype, D, window, T, H, seed, tols=None):
     """The plain forward (o) and backward (dq, dk, dv in the raw frames) of
-    operands in ``dtype`` at head dim ``D``, computed in fp32, against the JAX
-    package's ``pa.flash_attention`` and its vjp on the same operands in that
-    dtype, in interpret mode: the functions that the fp16 instances of K1,
-    K2's sweep and the windowed pair, the forms kernels' chunked
-    instances, and the windowed pair's bf16 instances at D = 192 and 256,
-    hold on the card."""
-    T, H = 128, 2
-    atol, rtol = WIDE_TOLS[dtype]
-    rounded = [torch.from_numpy(x).to(dtype) for x in _qkv(T, H, D, seed=D + (window or 0))]
+    operands in ``dtype`` at head dim ``D`` (B=1, T, H, MQA, rotary tables),
+    computed in fp32, against the JAX package's ``pa.flash_attention`` and
+    its vjp on the same operands in that dtype, in interpret mode, to
+    ``tols`` (atol, rtol), by default ``WIDE_TOLS``."""
+    atol, rtol = tols or WIDE_TOLS[dtype]
+    rounded = [torch.from_numpy(x).to(dtype) for x in _qkv(T, H, D, seed=seed)]
     q, k, v, do = rounded
     k, v = k.reshape(1, T, D), v.reshape(1, T, D)
     w = -1 if window is None else window
@@ -253,3 +264,32 @@ def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D,
     for name, got, want in (("o", o, want_o), ("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
         want = np.asarray(want.astype(jnp.float32)).reshape(got.shape)
         np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=rtol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,D,window", WIDE_CASES,
+                         ids=[f"{str(dt).split('.')[1]}-D{d}-{'W' + str(w) if w else 'global'}" for dt, d, w in WIDE_CASES])
+def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D, window):
+    """The plain forward (o) and backward (dq, dk, dv in the raw frames) of
+    operands in ``dtype`` at head dim ``D``, computed in fp32, against the JAX
+    package's ``pa.flash_attention`` and its vjp on the same operands in that
+    dtype, in interpret mode: the functions that the fp16 instances of K1,
+    K2's sweep and the windowed pair, the forms kernels' chunked
+    instances, and the windowed pair's bf16 instances at D = 192 and 256,
+    hold on the card."""
+    _hold_plain_to_pallas(dtype, D, window, T=128, H=2, seed=D + (window or 0))
+
+
+# fp16 at D = 384 with three query heads: as WIDE_TOLS' fp16 bound, with dk and dv summing the rounded
+# products of three heads (and dq of up to 97 keys) against two at D <= 256, and the Pallas dk and dv rounded to
+# fp16 at magnitudes up to ~1 (a last place of 2^-11 to 2^-10 there): 2e-3 relative with 2e-3 absolute
+TAIL_TOLS = (2e-3, 2e-3)
+
+
+def test_plain_versions_at_fp16_d384_with_a_tail_match_the_pallas_kernel():
+    """The same at fp16 and D = 384 at a windowed site with a tail: the
+    Pallas kernel tiles only lengths that are a multiple of 64, so the tail
+    is the window's, W = 96 (48 keys each side), which ends inside a 64-key
+    tile on both sides of every row and runs past both ends of the song, and
+    three query heads. The function that the wgmma forward and backward pair
+    of csrc/flash_xwide.cuh hold on the card at head dims above 256."""
+    _hold_plain_to_pallas(torch.float16, 384, 96, T=320, H=3, seed=384, tols=TAIL_TOLS)

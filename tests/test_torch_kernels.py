@@ -4,8 +4,9 @@ windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
 the forms family's instances (fp32 with D = 64 ... 256, and the chunked
 instance above), the instances of K1, K2, the windowed pair and its halo
 frame at D = 128, 192 and 256, the fp16 instances of K1, K2's sweep and the
-windowed pair with its halo frame at D = 64 ... 256, and the differentiable
-ops that join them) against
+windowed pair with its halo frame at D = 64 ... 256, the forward and the
+backward pair above head dim 256 (csrc/flash_xwide.cuh, bf16 and fp16 at D =
+320 ... 512), and the differentiable ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -622,17 +623,18 @@ def _forms_launches() -> tuple:
 # fp16 against the plain fp32 versions on the same fp16 inputs: P and dS are
 # rounded to fp16 (2^-11 relative) where the bf16 kernels round to bf16
 F16_REL_TOL, F16_LSE_TOL = 2e-3, 2e-3
-NO_WGMMA_SITES = [(torch.float16, 64), (torch.float32, 320), (torch.bfloat16, 320)]
+NO_WGMMA_SITES = [(torch.float16, 64), (torch.float32, 320)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D", NO_WGMMA_SITES, ids=["fp16", "fp32-D320", "bf16-D320"])
+@pytest.mark.parametrize("dtype,D", NO_WGMMA_SITES, ids=["fp16", "fp32-D320"])
 @pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
 def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     """fp16 operands, or a head dim above 256, which the JAX package runs
     through Pallas: ``sdpa`` raises nothing, forward and under a gradient,
-    and matches autograd through the plain attention in fp32. Above 256 the
-    forms family's chunked instance runs and no wgmma kernel. fp16 at D = 64
+    and matches autograd through the plain attention in fp32. fp32 above 256
+    runs the forms family's chunked instance and no wgmma kernel (bf16 there:
+    ``test_xwide_site_runs_a_wgmma_kernel``). fp16 at D = 64
     runs K1 for both forwards and no forms forward; its global backward K2's
     sweep between the forms pre-pass and post-pass, its windowed one the
     fp16 wgmma pair (K3a with its pre-pass, K3b) and no forms kernel."""
@@ -1293,10 +1295,13 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
         assert _rel(stored[4], ref[4]) > F16_REL_TOL
 
 
-# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16
-# (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
+# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16, and
+# csrc/flash_xwide.cuh's kernels their chunked instance at D = 320 ... 512 (csrc/flash_forms.cu,
+# FORMS_DISPATCH): (entry point, dtype, D)
 PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
                 ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
+                ("forms_fwd", torch.bfloat16, 320), ("forms_fwd", torch.float16, 512),
+                ("forms_bwd_dq", torch.float16, 384), ("forms_bwd_dkv", torch.bfloat16, 448),
                 ("forms_bwd_dkv", torch.bfloat16, 256), ("forms_bwd_dq", torch.float16, 128),
                 ("forms_bwd_dkv", torch.float16, 64)]
 
@@ -1482,3 +1487,220 @@ def test_f16_windowed_gqa_site_under_a_gradient_runs_per_kv_head(cuda, D):
     for name, got, want in zip(("dq", "dk", "dv"), leaves, ref_leaves):
         assert got.grad.shape == got.shape and torch.isfinite(got.grad).all(), name
         assert _rel(got.grad, want.grad) < F16_REL_TOL, f"{name}: {_rel(got.grad, want.grad)}"
+
+
+# ------------------------------------------------- above head dim 256: csrc/flash_xwide.cuh
+
+
+XWIDE_DIMS = [320, 384, 448, 512]
+XWIDE_TYPES = [torch.bfloat16, torch.float16]
+XWIDE_TYPE_IDS = ["bf16", "fp16"]
+
+
+def _xwide_tols(dtype):
+    """(relative L2, LSE max abs): the bf16 kernels' bounds, or fp16's."""
+    return (REL_TOL, LSE_TOL) if dtype == torch.bfloat16 else (F16_REL_TOL, F16_LSE_TOL)
+
+
+def _xwide_launches() -> tuple:
+    return fa.flash_fwd.xwide_launches + ha.halo_fwd.xwide_launches, fa.xwide_bwd_dq.launches, fa.xwide_bwd_dkv.launches
+
+
+# (B, T, H, Kv, window, tables): MQA with tables, global at a length no 64-tile divides and windowed with the
+# window running past both ends of the song; grouped (G = 4) without tables, global with a ragged last tile
+# and windowed; full MHA (G = 1) without tables
+XWIDE_SITES = [(2, 1000, 4, 1, -1, True), (1, 4097, 4, 1, 1536, True), (2, 640, 8, 2, -1, False),
+               (1, 700, 8, 2, 200, False), (2, 256, 4, 4, -1, False)]
+XWIDE_SITE_IDS = ["mqa-global", "mqa-window-past-both-ends", "grouped-global", "grouped-windowed", "mha"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables", XWIDE_SITES, ids=XWIDE_SITE_IDS)
+@pytest.mark.parametrize("D", XWIDE_DIMS)
+@pytest.mark.parametrize("dtype", XWIDE_TYPES, ids=XWIDE_TYPE_IDS)
+def test_xwide_forward_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables):
+    """csrc/flash_xwide.cuh's forward through ``flash_fwd`` in each of its
+    forms, with and without its LSE, against the plain fp32 version on the
+    same inputs, with a planted fault above the bound (the last key tile
+    dropped, or the window one key short on each side); no forms forward,
+    so no chunked one."""
+    rel_tol, lse_tol = _xwide_tols(dtype)
+    q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T + Kv)
+    scale = D**-0.5
+    before = _xwide_launches(), forms.forms_fwd.launches
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    o_serve = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale)
+    torch.cuda.synchronize()
+    assert _xwide_launches() == (before[0][0] + 2, *before[0][1:]) and forms.forms_fwd.launches == before[1]
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    if window < 0:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
+    else:
+        o_fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0]
+    assert o.dtype == dtype and torch.isfinite(o).all() and torch.equal(o, o_serve)
+    assert _rel(o, o_ref) < rel_tol < _rel(o_fault, o_ref), (_rel(o, o_ref), _rel(o_fault, o_ref))
+    assert (lse - lse_ref).abs().max().item() < lse_tol
+
+
+# (B, T, H, window): global at a length no 64-tile divides, windowed at another, and a window running past
+# both ends of every row
+XWIDE_PAIR_SITES = [(2, 1000, 4, -1), (1, 4097, 4, 512), (1, 1000, 4, 1536)]
+XWIDE_PAIR_IDS = ["global-T1000", "windowed-T4097", "window-past-both-ends"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,window", XWIDE_PAIR_SITES, ids=XWIDE_PAIR_IDS)
+@pytest.mark.parametrize("D", XWIDE_DIMS)
+@pytest.mark.parametrize("dtype", XWIDE_TYPES, ids=XWIDE_TYPE_IDS)
+def test_xwide_pair_matches_plain(cuda, dtype, D, B, T, H, window):
+    """csrc/flash_xwide.cuh's dq and dk/dv kernels (MQA with tables) between
+    the forms pre-pass and post-pass through the global backward
+    (``flash_bwd``) and through the windowed pair's wrappers, on the plain
+    forward's o and LSE, against the plain fp32 versions, with a planted
+    fault above the bound (an LSE off by 0.05); each kernel once a call and
+    no forms dq or dk/dv, so no chunked one."""
+    rel_tol, _ = _xwide_tols(dtype)
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, dtype, True, cuda, seed=D + T)
+    scale = D**-0.5
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    o = o_ref.to(dtype)
+    before = _xwide_launches(), _forms_launches()
+    runs = []
+    if window < 0:
+        runs.append(fa.flash_bwd(q, k_rot, v, o, lse_ref, do, cos, sin, scale))
+    dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse_ref, do, cos, sin, window, scale)
+    runs.append((dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window)))
+    torch.cuda.synchronize()
+    n = len(runs)
+    assert _xwide_launches() == (before[0][0], before[0][1] + n, before[0][2] + n)
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, 0]
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse_ref), plain(lse_ref + 0.05)
+    for grads in runs:
+        assert grads[0].dtype == dtype and grads[1].dtype == grads[2].dtype == torch.float32
+        for name, a, b, fault in zip(("dq", "dk", "dv"), grads, refs, faults):
+            assert torch.isfinite(a).all() and _rel(a, b) < rel_tol < _rel(fault, b), \
+                f"{name}: rel L2 {_rel(a, b)}, planted fault {_rel(fault, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", XWIDE_DIMS)
+@pytest.mark.parametrize("dtype", XWIDE_TYPES, ids=XWIDE_TYPE_IDS)
+def test_xwide_halo_pair_matches_plain(cuda, dtype, D):
+    """The halo forward and pair at shard 2 of 4 through the halo wrappers
+    (csrc/flash_xwide.cuh's kernels in the halo frame), with the slab rows
+    outside the song set large, against the plain halo versions; the slab
+    rows outside the song get exact zeros, and a slab one row off its frame
+    lies above the bound."""
+    B, T, H, W, n, shard = 1, 512, 4, 256, 4, 1
+    rel_tol, lse_tol = _xwide_tols(dtype)
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    scale = D**-0.5
+    before = _xwide_launches(), _forms_launches()
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+    torch.cuda.synchronize()
+    assert _xwide_launches() == tuple(x + 1 for x in before[0])
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
+    assert o.dtype == dtype and _rel(o, o_ref) < rel_tol < _rel(shifted, o_ref)
+    assert (lse - lse_ref).abs().max().item() < lse_tol
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
+            *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert torch.isfinite(a).all() and _rel(a, b) < rel_tol, f"{name}: rel L2 {_rel(a, b)}"
+    outside = torch.ones(T + W, dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert (dk[:, outside] == 0).all() and (dv[:, outside] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("dtype", XWIDE_TYPES, ids=XWIDE_TYPE_IDS)
+def test_xwide_ring_accumulating_pair_matches_its_plain_parts(cuda, dtype, D, Kv, rope):
+    """The ring over two hops above head dim 256: csrc/flash_xwide.cuh's
+    forward per hop, the forms merge, and its pair adding into the
+    travelling dk and dv (and into one dq buffer) between the forms pre-pass
+    and post-pass, against the plain parts; kernel sweeps that store in
+    place of adding lie above the bound."""
+    from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    class StoringSweeps(KernelParts):  # planted fault: every hop's sweep stores its dk and dv
+        @staticmethod
+        def backward_sweep(state, k, v, dk, dv, accumulate):
+            fa.flash_bwd_sweep(k, v, state, dk, dv, False)
+
+    n, B, T, H = 2, 1, 512, 4
+    rel_tol, lse_tol = _xwide_tols(dtype)
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, n * T, H, Kv, D, dtype, rope, cuda, seed=D + Kv)
+
+    def run(parts):
+        def rank(r, rotation):
+            sl = slice(r * T, (r + 1) * T)
+            c, s = (None, None) if cos is None else (cos[sl].contiguous(), sin[sl].contiguous())
+            qr, kr, vr, dor = (x[:, sl].contiguous() for x in (q, k_rot, v, do))
+            o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+            return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+        results = LocalRing(n).run(rank)
+        torch.cuda.synchronize()
+        return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+    before = _xwide_launches(), _forms_launches()
+    got = run(None)
+    assert _xwide_launches() == tuple(x + n * n for x in before[0])
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
+    ref = run(PlainParts)
+    stored = run(StoringSweeps)
+    assert got[0].dtype == got[2].dtype == dtype
+    assert _rel(got[0], ref[0]) < rel_tol and (got[1] - ref[1]).abs().max().item() < lse_tol
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+        assert torch.isfinite(a).all() and _rel(a, b) < rel_tol, f"{name}: rel L2 {_rel(a, b)}"
+    assert _rel(stored[4], ref[4]) > rel_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [256, None], ids=["windowed", "global"])
+def test_xwide_site_runs_a_wgmma_kernel(cuda, window):
+    """A bf16 site at D = 320 through ``sdpa``, forward and under a gradient:
+    csrc/flash_xwide.cuh's forward twice and its dq and dk/dv once each
+    (between the forms pre-pass and post-pass), no launch of the chunked
+    forward, dq or dk/dv; o and the gradients against autograd through the
+    plain attention in fp32."""
+    from osufusion_tpu_torch.ops.attention import sdpa
+
+    B, T, H, D = 2, 512, 4, 320
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).bfloat16() for _ in range(2))
+    rope = rope_tables(T, D, scale_base=512.0, device=cuda)
+    before = _kernel_launches(), _forms_launches(), _xwide_launches()
+    with torch.no_grad():
+        fwd = sdpa(q, k, v, window, rope)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, window, rope)
+    out.backward(do)
+    torch.cuda.synchronize()
+    kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
+    windowed = int(window is not None)
+    assert kernels == [2, 1 - windowed, windowed, windowed] + [0] * 7, kernels
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_xwide_launches(), before[2])] == [2, 1, 1]
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*ref_leaves, window, rope)
+    ref.backward(do.float())
+    assert fwd.dtype == out.dtype == torch.bfloat16 and _rel(fwd, ref) < REL_TOL and _rel(out, ref) < REL_TOL
+    for name, a, b in zip("qkv", leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all() and _rel(a.grad, b.grad) < REL_TOL, f"d{name}: {_rel(a.grad, b.grad)}"

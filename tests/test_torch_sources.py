@@ -135,15 +135,20 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward keeps
     only fp32 at D <= 256 (K1 takes bf16 and fp16 there), and so do dq and
     dk/dv (K2's sweep and the wgmma pair take bf16 and fp16); each of the
-    three keeps every type's chunked instance."""
+    three keeps fp32's chunked instance at every head dim above 256, and bf16's
+    and fp16's only above 512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's
+    kernels take D = 320 ... 512 at those types, so the dispatch keys those
+    head dims apart)."""
     text = _text("flash_forms.cu")
-    dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_CHUNKED")]
-    chunked = text[text.index("#define FORMS_CHUNKED"):text.index("#define FORMS_FWD")]
+    dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_ABOVE")]
+    chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_FWD")]
     lists = text[text.index("#define FORMS_FWD"):text.index("#define FORMS_DISPATCH")]
     dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_fwd')]
     for D in (64, 128, 192, 256):
         assert f"return CALL(TT, {D});" in dims
-    assert "return CALL(TT, 0);" in chunked and "D > 256 ? 0 : D" in dispatch
+    assert "#define FORMS_ABOVE(CODE, TT) case CODE * 1000 + 1: return CALL(TT, 0);" in chunked
+    assert "#define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)" in chunked
+    assert "D > 512 ? 1 : D > 256 ? 0 : D" in dispatch
 
     def named(macro: str) -> str:  # the instance list of one entry point's macro, the lists it names expanded
         line = lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
@@ -159,8 +164,10 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
         for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
             assert f"{kernel}<" in text, f"{kernel} is never launched"
         for name in ("float", "__nv_bfloat16", "__half"):
-            for listed in (every, fwd, sweeps):
-                assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", listed)
+            assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", every)
+            for listed in (fwd, sweeps):  # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512
+                assert bool(re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", listed)) == (name == "float")
+                assert bool(re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", listed)) == (name != "float")
         return
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
     at_dims = lambda listed: bool(re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", listed))
@@ -207,3 +214,41 @@ def test_fp16_entry_point_twins_its_bf16_one(entry):
     header = F16_TWINS[entry]
     assert header in _includes(SOURCES[bf16_lib].name) and header in _includes(SOURCES[f16_lib].name)
     assert "<__half, DD" in _text(SOURCES[f16_lib].name) and "<__nv_bfloat16, DD" in _text(SOURCES[bf16_lib].name)
+
+
+# the entry points of csrc/flash_xwide.cuh's kernels, one per kernel and frame
+XWIDE_ENTRIES = ["xwide_fwd", "xwide_halo_fwd", "xwide_bwd_dq", "xwide_bwd_dkv"]
+
+
+@pytest.mark.parametrize("entry", XWIDE_ENTRIES)
+def test_xwide_instances_are_built_for_sm_90a(entry):
+    """The kernels above head dim 256 (csrc/flash_xwide.cuh) are in the build
+    table at both operand types: a bf16 and an fp16 entry point with the same
+    arguments, in libraries of their own (``flash_xwide``,
+    ``flash_xwide_f16``) built for sm_90a from sources that include the header
+    and instantiate it at ``__nv_bfloat16`` and ``__half``; the forward takes
+    ``flash_fwd_*``'s and ``halo_fwd_*``'s arguments. The header covers the
+    head dims that ``flash_forms.XWIDE_HEAD_DIMS`` promises, is built on
+    ``wgmma`` and has no ``mma.sync``."""
+    from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
+    from osufusion_tpu_torch.ops.flash_forms import XWIDE_HEAD_DIMS
+
+    assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
+    bf16_lib, bf16_args = _ENTRY_POINTS[f"{entry}_bf16"]
+    f16_lib, f16_args = _ENTRY_POINTS[f"{entry}_f16"]
+    assert (bf16_lib, f16_lib) == ("flash_xwide", "flash_xwide_f16") and bf16_args == f16_args
+    twin = {"xwide_fwd": "flash_fwd", "xwide_halo_fwd": "halo_fwd"}.get(entry)
+    if twin is not None:
+        assert bf16_args == _ENTRY_POINTS[f"{twin}_bf16"][1]
+    for lib, tt in ((bf16_lib, "__nv_bfloat16"), (f16_lib, "__half")):
+        source = _text(SOURCES[lib].name)
+        assert "flash_xwide.cuh" in _includes(SOURCES[lib].name)
+        body = source[source.index(f'extern "C" int {entry}_'):]
+        assert f"<{tt}>(" in body[:body.index("\n}\n")]
+    header = _text("flash_xwide.cuh")
+    found = re.search(r"XW_MIN_D = (\d+), XW_MAX_D = (\d+);", header)
+    assert (int(found.group(1)), int(found.group(2))) == (XWIDE_HEAD_DIMS[0], XWIDE_HEAD_DIMS[-1])
+    assert "wgmma_ss<K, 0, 0, E>" in header and "wgmma_rs_n64" in header and "mma.sync" not in header
+    for kernel in ("xwide_fwd_kernel", "xwide_dq_kernel", "xwide_dkv_kernel"):
+        assert re.search(rf"template <typename E>\s+__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(",
+                         header), kernel
