@@ -2090,69 +2090,22 @@ def phase_f16_pair_kernels() -> dict:
     return records
 
 
-def pair_ab() -> None:
-    """The windowed pair and its halo instances timed alone (``_pair_ms``, ``_halo_pair_ms``) at every site of
-    F16_PAIR_SITES and at WIDE_HALO_SHAPE for each of F16_HALO_DIMS, in bf16 and in fp16 on the same values,
-    with the instances that the wrappers launched (wgmma or forms, from their launch counters); no check.
-    Every bf16 site runs before any fp16 one, so that a bf16 time follows the same work on any tree. It calls
-    the port through nothing but the wrappers, so a copy of this file in another checkout times that
-    checkout's instances on the same values: a parent and a change are compared in one call, each in a
-    process of its own, parent, change, change, parent.
-
-        python3 -c "import chip_smoke as c; c.phase_device(); c.pair_ab()"
-    """
-    from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops import flash_forms as forms
-    from osufusion_tpu_torch.ops import halo_attention as ha
-
-    forms_pair = {"forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv}
-    windowed = {"wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv, **forms_pair}
-    halo = {"wgmma dq": ha.halo_bwd_dq, "wgmma dk/dv": ha.halo_bwd_dkv, **forms_pair}
-    B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
-    frame = (W, shard * T_h, n * T_h)
-
-    def sites():
-        """(where, counters, timer, fp16 operands, the timer's other arguments) of each site in turn."""
-        for label, B, T, H, window, dims in F16_PAIR_SITES:
-            for D in dims:
-                q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2170 + D + T, D, torch.float16)
-                yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}", windowed,
-                       _pair_ms, (q, k_rot, v, do), (cos, sin, window))
-        for D in F16_HALO_DIMS:
-            g = torch.Generator(device="cuda").manual_seed(2190 + D)
-            q, do = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda").half() for _ in range(2))
-            k, v = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda").half() for _ in range(2))
-            yield (f"halo B={B_h} T_local={T_h} W={W} shard {shard + 1} of {n} D={D}", halo, _halo_pair_ms,
-                   (q, k, v, do), (frame, D**-0.5))
-
-    pairs = {}
-    for dtype in (torch.bfloat16, torch.float16):
-        for where, counters, time_pair, operands, rest in sites():
-            ops = tuple(x.to(dtype) for x in operands)
-            del operands
-            before = {name: c.launches for name, c in counters.items()}
-            dq_ms, dkv_ms = time_pair(*ops, *rest)
-            launched = {name: c.launches - before[name] for name, c in counters.items() if c.launches > before[name]}
-            pairs[where, dtype] = dq_ms + dkv_ms
-            _log(f"[pair ab] {where} {_dtype_name(dtype)}: dq {dq_ms:.3f} ms (its pre-pass included), dk/dv "
-                 f"{dkv_ms:.3f} ms, the pair {dq_ms + dkv_ms:.3f} ms; launched {launched}")
-            del ops, rest
-            torch.cuda.empty_cache()
-    for (where, dtype), ms in pairs.items():
-        if dtype == torch.float16:
-            _log(f"[pair ab] {where}: the fp16 pair {ms / pairs[where, torch.bfloat16]:.3f}x the bf16 pair")
-
-
 # Above head dim 256 (csrc/flash_xwide.cuh): the forward and the backward pair at bf16 and fp16, D = 320 ... 512,
-# at the forms site (FORMS_SITE: B=2, T=4096, H=16, MQA, global, tables), timed; at D = 320 and 512 also at
-# XWIDE_SITES and XWIDE_HALO, checked. bf16 held to the D = 64 kernels' bounds (REL_TOL, ABS_TOL, LSE_TOL,
-# BWD_REL_TOL, BWD_ABS_TOL), fp16 to (f)'s FORMS_F16_REL_TOL and F16_LSE_TOL beside the same absolute bounds
+# at the forms site (FORMS_SITE: B=2, T=4096, H=16, MQA, global, tables), checked at every D and type and timed in
+# bf16 at every D, in fp16 at XWIDE_F16_TIMED (one body serves every head dim, which is a run-time argument); at
+# D = 320 and 512 also at XWIDE_SITES and XWIDE_HALO, and at bf16/320 at XWIDE_SERVE_SITES, checked. bf16 held to
+# the D = 64 kernels' bounds (REL_TOL, ABS_TOL, LSE_TOL, BWD_REL_TOL, BWD_ABS_TOL), fp16 to (f)'s
+# FORMS_F16_REL_TOL and F16_LSE_TOL beside the same absolute bounds
 XWIDE_DIMS = (320, 384, 448, 512)
+XWIDE_F16_TIMED = (320, 512)
 # (label, B, T, H, Kv, window, tables): windowed MQA with tables at a length no 64-tile divides, the window
 # running past both ends of the song; grouped without tables (G = 4), global
 XWIDE_SITES = (("windowed", 1, 4097, 8, 1, 1024, True), ("grouped", 2, 2048, 8, 2, -1, False))
 # the halo site: B, T_local, H, W, shards, shard (the second of four)
 XWIDE_HALO = (1, 4096, 8, 1024, 4, 1)
+# phase 26 (a)'s serving UNet (bf16, attn_dim_head=320, MQA with tables) at its two widest windowed levels under
+# CFG: (B, T, H, W)
+XWIDE_SERVE_SITES = ((2, 24576, 16, 4096), (2, 12288, 16, 2048))
 # the Pallas body each kernel of csrc/flash_xwide.cuh stands in for (osufusion_tpu/ops/pallas_attention.py)
 XWIDE_REPLACES = {"fwd": 208, "dq": 435, "dkv": 507}
 
@@ -2176,35 +2129,37 @@ def _xwide_tols(dtype) -> tuple:
     return REL_TOL, LSE_TOL, BWD_REL_TOL
 
 
-def _xwide_hold(where: str, got: tuple, refs: tuple, faults: tuple, dtype, failures: list) -> tuple[float, str]:
+def _xwide_hold(where: str, got: tuple, refs: tuple, faults: tuple, dtype, failures: list) -> tuple[dict, str]:
     """Hold (o, lse, dq, dk, dv) to the plain (o, lse, dq, dk, dv) with ``_xwide_tols``, and the planted faults
-    (o of a forward that misses keys; the gradients from an LSE off by LSE_FAULT) above them. Returns (the
-    largest error, a log line)."""
+    (o of a forward that misses keys; the gradients from an LSE off by LSE_FAULT) above them. Returns (each
+    kernel's largest error: {"fwd": o's, "dq": dq's, "dkv": dk's and dv's}, a log line)."""
     o_tol, lse_tol, g_tol = _xwide_tols(dtype)
     o, lse = got[:2]
     o_ref, lse_ref = refs[:2]
     o_rel, o_err, lse_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item()
     o_fault = _rel(faults[0], o_ref)
-    worst = o_err
+    errs = {"fwd": o_err, "dq": 0.0, "dkv": 0.0}
     if not (o_rel < o_tol and o_err < ABS_TOL and lse_err < lse_tol and torch.isfinite(o).all() and o_fault > o_tol):
         failures.append(f"{where} forward: o rel L2 {o_rel:.3e}, max abs {o_err:.3e}, lse {lse_err:.3e}, fault "
                         f"{o_fault:.3e}")
     parts = [f"o rel L2 {o_rel:.3e} max abs {o_err:.3e} (fault {o_fault:.3e}), lse max abs {lse_err:.3e}"]
     for name, a, b, fault in zip(("dq", "dk", "dv"), got[2:], refs[2:], faults[1:]):
         rel, err, top, fault_rel = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item(), _rel(fault, b)
-        worst = max(worst, err)
+        kind = "dq" if name == "dq" else "dkv"
+        errs[kind] = max(errs[kind], err)
         parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
         if not (rel < g_tol and err < BWD_ABS_TOL * top and torch.isfinite(a).all() and fault_rel > g_tol):
             failures.append(f"{where} backward: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}, fault "
                             f"{fault_rel:.3e}")
-    return worst, "; ".join(parts) + f" (bounds {o_tol:g}, {g_tol:g})"
+    return errs, "; ".join(parts) + f" (bounds {o_tol:g}, {g_tol:g})"
 
 
-def _xwide_site(where: str, q, k_rot, v, do, cos, sin, window: int, failures: list) -> float:
+def _xwide_site(where: str, q, k_rot, v, do, cos, sin, window: int, failures: list) -> dict:
     """One site through the wrappers: the forward with its LSE, then the global backward (``flash_bwd``) or, at
     a windowed site, the windowed pair's wrappers; against the plain versions with planted faults (the last key
     tile dropped, or the window one key short each side; an LSE off by LSE_FAULT); csrc/flash_xwide.cuh's
-    forward, dq and dk/dv launched once each and no forms forward, dq or dk/dv. Returns the largest error."""
+    forward, dq and dk/dv launched once each and no forms forward, dq or dk/dv. Returns each kernel's largest
+    error (``_xwide_hold``)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
 
     scale = q.shape[-1] ** -0.5
@@ -2231,16 +2186,16 @@ def _xwide_site(where: str, q, k_rot, v, do, cos, sin, window: int, failures: li
         return (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window),
                 *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_in, do, cos, sin, window))
 
-    worst, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
-                              (o_fault, *plain_backward(lse_ref + LSE_FAULT)), q.dtype, failures)
+    errs, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
+                             (o_fault, *plain_backward(lse_ref + LSE_FAULT)), q.dtype, failures)
     _log(f"[xwide kernels] {where}: {line}")
-    return worst
+    return errs
 
 
-def _xwide_halo(where: str, dtype, D: int, seed: int, failures: list) -> float:
+def _xwide_halo(where: str, dtype, D: int, seed: int, failures: list) -> dict:
     """The halo wrappers at XWIDE_HALO, the slab rows outside the song large (the kernels must ignore them; their
     dk and dv exact zeros), against the halo plain versions with planted faults (the slab one key off its
-    frame; an LSE off by LSE_FAULT). Returns the largest error."""
+    frame; an LSE off by LSE_FAULT). Returns each kernel's largest error (``_xwide_hold``)."""
     from osufusion_tpu_torch.ops import halo_attention as ha
 
     B, T, H, W, n, shard = XWIDE_HALO
@@ -2263,48 +2218,114 @@ def _xwide_halo(where: str, dtype, D: int, seed: int, failures: list) -> float:
         return (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_in, do, *frame),
                 *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_in, do, *frame))
 
-    worst, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
-                              (o_fault, *plain_backward(lse_ref + LSE_FAULT)), dtype, failures)
+    errs, line = _xwide_hold(where, (o, lse, dq, dk, dv), (o_ref, lse_ref, *plain_backward(lse_ref)),
+                             (o_fault, *plain_backward(lse_ref + LSE_FAULT)), dtype, failures)
     outside = torch.ones(T + W, dtype=torch.bool, device="cuda")
     outside[lo:hi] = False
     zeros = bool((dk[:, outside] == 0).all() and (dv[:, outside] == 0).all())
     if moved != {"fwd": 1, "dq": 1, "dkv": 1} or not zeros:
         failures.append(f"{where}: flash_xwide launches {moved}, slab rows outside the song exact zeros {zeros}")
     _log(f"[xwide kernels] {where}: {line}; outside the song dk = dv = 0: {zeros}")
-    return worst
+    return errs
+
+
+def _xwide_serve_site(B: int, T: int, H: int, window: int, seed: int, failures: list) -> float:
+    """csrc/flash_xwide.cuh's bf16 forward at D = 320 at one of XWIDE_SERVE_SITES through ``flash_fwd``, without
+    the LSE (as the serving UNet calls it) and with it, against the plain fp32 forward at K1's bounds (REL_TOL,
+    ABS_TOL, LSE_TOL), the window one key short on each side as the planted fault; timed without the LSE.
+    Returns o's largest error."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    D = 320
+    scale = D**-0.5
+    where = f"serving bf16/{D} B={B} T={T} H={H} Kv=1 W={window}, tables"
+    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, seed, D)
+    del k, do
+    counts = _xwide_counts()
+    o = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale)
+    o_lse, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    torch.cuda.synchronize()
+    moved = {key: n - counts[key] for key, n in _xwide_counts().items()}
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    fault_rel = _rel(fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0], o_ref)
+    o_rel, o_err = _rel(o, o_ref), (o.float() - o_ref).abs().max().item()
+    lse_o_rel, lse_o_err = _rel(o_lse, o_ref), (o_lse.float() - o_ref).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref, o_lse, lse
+    if not (max(o_rel, lse_o_rel) < REL_TOL and max(o_err, lse_o_err) < ABS_TOL and lse_err < LSE_TOL
+            and torch.isfinite(o).all() and fault_rel > REL_TOL and moved == {"fwd": 2, "dq": 0, "dkv": 0}):
+        failures.append(f"{where}: o rel L2 {o_rel:.3e} max abs {o_err:.3e}, with the LSE {lse_o_rel:.3e} "
+                        f"{lse_o_err:.3e}, lse {lse_err:.3e}, fault {fault_rel:.3e}; flash_xwide launches {moved}")
+    ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, window, scale), 5)
+    _log(f"[xwide kernels] {where}: forward o rel L2 {o_rel:.3e} max abs {o_err:.3e}; with the LSE o rel L2 "
+         f"{lse_o_rel:.3e} max abs {lse_o_err:.3e}, lse max abs {lse_err:.3e} (fault {fault_rel:.3e}; bounds "
+         f"{REL_TOL}, {ABS_TOL}, {LSE_TOL}); {ms:.3f} ms without the LSE")
+    return max(o_err, lse_o_err)
+
+
+def _library_ms(q, k, v, do, cos, sin) -> tuple[float, float, str]:
+    """The PyTorch call's time at an MQA site with tables (yardstick only): rope, then
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (SDPA's own choice of route; above D = 256 its math
+    route), and with K and V expanded to the H query heads under the memory-efficient route, each forward
+    (no gradient) and backward (by autograd, on do) by CUDA events. Returns (the faster forward, the faster
+    backward, a line with both)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from osufusion_tpu_torch.ops.rope import apply_rope
+
+    H = q.shape[2]
+
+    def gqa(q_in, k_in, v_in):
+        qr, kr = apply_rope(q_in, cos, sin).transpose(1, 2), apply_rope(k_in, cos, sin)[:, None]
+        return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
+
+    def expanded(q_in, k_in, v_in):
+        qr = apply_rope(q_in, cos, sin).transpose(1, 2)
+        kr, vr = (x[:, None].expand(-1, H, -1, -1).contiguous() for x in (apply_rope(k_in, cos, sin), v_in))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qr, kr, vr).transpose(1, 2)
+
+    times = {}
+    for name, call in (("enable_gqa", gqa), ("memory-efficient, K and V expanded", expanded)):
+        with torch.no_grad():
+            fwd_ms = _cuda_ms(lambda: call(q, k, v), 3)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = call(*leaves)
+        times[name] = fwd_ms, _cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
+        del leaves, out
+    line = "; ".join(f"{name} forward {f:.3f}, backward {b:.3f} ms" for name, (f, b) in times.items())
+    return min(f for f, _ in times.values()), min(b for _, b in times.values()), line
 
 
 def phase_xwide_kernels() -> dict:
     """csrc/flash_xwide.cuh's forward and backward pair at bf16 and fp16, D = 320 ... 512, at the forms site
     (B=2, T=4096, H=16, MQA, global, tables) through the wrappers, against the plain fp32 versions with planted
-    faults above the bounds, each kernel timed by CUDA events (behind the sleeping kernel) beside its bound,
-    its plain version and rope + SDPA (forward; backward by autograd) in its type, fp16 beside bf16 on the same
-    values, and the pair as its callers pay it (``flash_bwd_dq`` with the forms pre-pass and post-pass, plus
-    ``flash_bwd_dkv``); at D = 320 and 512 also the windowed and grouped sites of XWIDE_SITES and the halo
-    pair at XWIDE_HALO, checked only. Returns {(dtype, D): {"fwd" | "dq" | "dkv": record}}."""
-    import torch.nn.functional as F
-
+    faults above the bounds; in bf16 at every D and in fp16 at XWIDE_F16_TIMED each kernel timed by CUDA events
+    (behind the sleeping kernel) beside its bound, its plain version and the PyTorch call (``_library_ms``), fp16
+    beside bf16 on the same values, and the pair as its callers pay it (``flash_bwd_dq`` with the forms pre-pass
+    and post-pass, plus ``flash_bwd_dkv``); at D = 320 and 512 also the windowed and grouped sites of XWIDE_SITES
+    and the halo pair at XWIDE_HALO, and at bf16/320 the forward at the serving levels of XWIDE_SERVE_SITES,
+    checked only. Returns {(dtype, D): {"fwd" | "dq" | "dkv": record}} of the timed instances, each record's
+    max_abs_err its own kernel's largest over every site of its (dtype, D)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
-    from osufusion_tpu_torch.ops.rope import apply_rope
     from osufusion_tpu_torch.utils.flops import attention_flops
 
     t_phase = time.perf_counter()
     B, T, H = FORMS_SITE
-    failures, records, pair = [], {}, {}
-
-    def library(q_in, k_in, v_in, cos, sin):  # yardstick only: rope, then PyTorch's fused attention
-        qr = apply_rope(q_in, cos, sin).transpose(1, 2)
-        kr = apply_rope(k_in, cos, sin)[:, None]
-        return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
-
+    failures, records, pair, errors = [], {}, {}, {}
     for i, D in enumerate(XWIDE_DIMS):
         scale = D**-0.5
         q16, kr16, k16, v16, do16, cos, sin = _attention_inputs(B, T, H, 1, True, 2300 + i, D, torch.float16)
         for dt in (torch.bfloat16, torch.float16):  # the same values at either type
             q, k_rot, k, v, do = (x.to(dt) for x in (q16, kr16, k16, v16, do16))
             name = f"{_dtype_name(dt)}/{D}"
-            err = _xwide_site(f"{name} B={B} T={T} H={H} global, tables", q, k_rot, v, do, cos, sin, -1, failures)
+            errors[dt, D] = _xwide_site(f"{name} B={B} T={T} H={H} global, tables", q, k_rot, v, do, cos, sin, -1,
+                                        failures)
+            if dt == torch.float16 and D not in XWIDE_F16_TIMED:
+                del q, k_rot, k, v, do
+                continue
             o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
             prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
             dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
@@ -2316,12 +2337,7 @@ def phase_xwide_kernels() -> dict:
             plain = {"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
                      "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
                      "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1)}
-            with torch.no_grad():
-                lib_fwd_ms = _cuda_ms(lambda: library(q, k, v, cos, sin), 3)
-            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-            lib_out = library(*leaves, cos, sin)
-            lib_bwd_ms = _cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True), 3)
-            del leaves, lib_out
+            lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
             rows, keys, stats = B * T * H * D * 2, B * T * D * 2, B * T * H * 4
             bounds = {
                 "fwd": _bound(attention_flops("forward", B, T, H, D, None), _attn_bytes(B, T, H, D, 2, 2, 1)),
@@ -2333,43 +2349,49 @@ def phase_xwide_kernels() -> dict:
                               2 * rows + 2 * keys + 2 * stats + 4 * keys),
             }
             library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
-            records[dt, D] = {kind: {"max_abs_err": err, "ms": ms[kind], "plain_ms": plain[kind],
+            records[dt, D] = {kind: {"max_abs_err": 0.0, "ms": ms[kind], "plain_ms": plain[kind],
                                      "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
                                      "library_ms": library_ms[kind]} for kind in ms}
             dq_ms, dkv_ms = pair[dt, D]
             bound_pair = bounds["dq"][0] + bounds["dkv"][0]
             _log(f"[xwide kernels] {name}: forward {ms['fwd']:.3f} ms (bound {bounds['fwd'][0]:.3f} by "
-                 f"{bounds['fwd'][1]}, {bounds['fwd'][0] / ms['fwd']:.1%}; plain {plain['fwd']:.3f}; rope+SDPA "
-                 f"{lib_fwd_ms:.3f}); dq kernel {ms['dq']:.3f} ms (bound {bounds['dq'][0]:.3f}, "
-                 f"{bounds['dq'][0] / ms['dq']:.1%}; plain {plain['dq']:.3f}); dk/dv kernel {ms['dkv']:.3f} ms (bound "
-                 f"{bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / ms['dkv']:.1%}; plain {plain['dkv']:.3f}); the pair "
-                 f"through its wrappers: dq with the forms pre-pass and post-pass {dq_ms:.3f} + dk/dv {dkv_ms:.3f} = "
-                 f"{dq_ms + dkv_ms:.3f} ms (bound {bound_pair:.3f}, {bound_pair / (dq_ms + dkv_ms):.1%}); rope+SDPA "
-                 f"backward {lib_bwd_ms:.3f}")
+                 f"{bounds['fwd'][1]}, {bounds['fwd'][0] / ms['fwd']:.1%}; plain {plain['fwd']:.3f}); dq kernel "
+                 f"{ms['dq']:.3f} ms (bound {bounds['dq'][0]:.3f}, {bounds['dq'][0] / ms['dq']:.1%}; plain "
+                 f"{plain['dq']:.3f}); dk/dv kernel {ms['dkv']:.3f} ms (bound {bounds['dkv'][0]:.3f}, "
+                 f"{bounds['dkv'][0] / ms['dkv']:.1%}; plain {plain['dkv']:.3f}); the pair through its wrappers: dq "
+                 f"with the forms pre-pass and post-pass {dq_ms:.3f} + dk/dv {dkv_ms:.3f} = {dq_ms + dkv_ms:.3f} ms "
+                 f"(bound {bound_pair:.3f}, {bound_pair / (dq_ms + dkv_ms):.1%}); rope + SDPA: {lib_line}")
             del q, k_rot, k, v, do, o, lse
             torch.cuda.empty_cache()
         del q16, kr16, k16, v16, do16, cos, sin
-        for kind in ("fwd", "dq", "dkv"):
-            f16, b16 = records[torch.float16, D][kind]["ms"], records[torch.bfloat16, D][kind]["ms"]
-            _log(f"[xwide kernels] D={D} {kind}: fp16 {f16:.3f} ms, bf16 {b16:.3f} ms on the same values: "
-                 f"{f16 / b16:.3f}x")
-        _log(f"[xwide kernels] D={D} the pair: fp16 {sum(pair[torch.float16, D]):.3f} ms, bf16 "
-             f"{sum(pair[torch.bfloat16, D]):.3f} ms: {sum(pair[torch.float16, D]) / sum(pair[torch.bfloat16, D]):.3f}x")
+        if D in XWIDE_F16_TIMED:
+            for kind in ("fwd", "dq", "dkv"):
+                f16, b16 = records[torch.float16, D][kind]["ms"], records[torch.bfloat16, D][kind]["ms"]
+                _log(f"[xwide kernels] D={D} {kind}: fp16 {f16:.3f} ms, bf16 {b16:.3f} ms on the same values: "
+                     f"{f16 / b16:.3f}x")
+            f16, b16 = sum(pair[torch.float16, D]), sum(pair[torch.bfloat16, D])
+            _log(f"[xwide kernels] D={D} the pair: fp16 {f16:.3f} ms, bf16 {b16:.3f} ms: {f16 / b16:.3f}x")
     for j, dt in enumerate((torch.bfloat16, torch.float16)):
         for D in (320, 512):
-            worst = records[dt, D]["fwd"]["max_abs_err"]
+            found = [errors[dt, D]]
             for m, (label, B_s, T_s, H_s, Kv, window, tables) in enumerate(XWIDE_SITES):
                 q, k_rot, _, v, do, cos, sin = _attention_inputs(B_s, T_s, H_s, Kv, tables, 2350 + 10 * j + m, D, dt)
                 where = (f"{_dtype_name(dt)}/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
                          + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
-                worst = max(worst, _xwide_site(where, q, k_rot, v, do, cos, sin, window, failures))
+                found.append(_xwide_site(where, q, k_rot, v, do, cos, sin, window, failures))
                 del q, k_rot, v, do, cos, sin
             B_h, T_h, H_h, W, n, shard = XWIDE_HALO
-            worst = max(worst, _xwide_halo(f"{_dtype_name(dt)}/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard "
-                                           f"{shard + 1} of {n}", dt, D, 2380 + j + D, failures))
-            for rec in records[dt, D].values():
-                rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+            found.append(_xwide_halo(f"{_dtype_name(dt)}/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard "
+                                     f"{shard + 1} of {n}", dt, D, 2380 + j + D, failures))
+            errors[dt, D] = {kind: max(e[kind] for e in found) for kind in found[0]}
             torch.cuda.empty_cache()
+    for m, (B_s, T_s, H_s, window) in enumerate(XWIDE_SERVE_SITES):
+        err = _xwide_serve_site(B_s, T_s, H_s, window, 2390 + m, failures)
+        errors[torch.bfloat16, 320]["fwd"] = max(errors[torch.bfloat16, 320]["fwd"], err)
+        torch.cuda.empty_cache()
+    for key, kinds in records.items():
+        for kind, rec in kinds.items():
+            rec["max_abs_err"] = errors[key][kind]
     if failures:
         raise AssertionError("flash_xwide kernels vs plain: " + "; ".join(failures))
     _log(f"[xwide kernels] phase {time.perf_counter() - t_phase:.1f} s")
@@ -2416,18 +2438,20 @@ def phase_xwide_serve(workdir: Path) -> int:
 def phase_xwide_paths(workdir: Path) -> dict:
     """Phase 26, the main paths above head dim 256 through the port's entry points: (a) ``phase_xwide_serve``;
     (b) the gradient check of (d) (``phase_forms_grad_check``: the reduced dim_h=512 UNet, 13 global sites,
-    B=2, T=4096, through the kernels against fp32 through the plain versions) at bf16/320 and fp16/512. Returns
-    flash_xwide's launches by (dtype, D, kernel): no forms forward, dq or dk/dv, and so no chunked launch,
-    asserted on every path."""
+    here at B=1, T=4096, through the kernels against fp32 through the plain versions) at bf16/320 and
+    fp16/512. Returns flash_xwide's launches by (dtype, D, kernel): no forms forward, dq or dk/dv, and so no
+    chunked launch, asserted on every path."""
+    t_phase = time.perf_counter()
     launches = {(torch.bfloat16, 320, "fwd"): phase_xwide_serve(workdir)}
     for dtype, D in (("bfloat16", 320), ("float16", 512)):
         torch.cuda.empty_cache()
-        counts = phase_forms_grad_check(dtype, D)
+        counts = phase_forms_grad_check(dtype, D, B=1)
         for kind, n in counts["xwide"].items():
             key = (getattr(torch, dtype), D, kind)
             launches[key] = launches.get(key, 0) + n
     _log(f"[xwide paths] flash_xwide launches on the paths: "
-         + "; ".join(f"{_dtype_name(dt)}/{D} {kind} {n}" for (dt, D, kind), n in launches.items()))
+         + "; ".join(f"{_dtype_name(dt)}/{D} {kind} {n}" for (dt, D, kind), n in launches.items())
+         + f"; phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2445,49 +2469,84 @@ def _xwide_json(records: dict, launches: dict) -> list:
     return entries
 
 
-def xwide_ab() -> None:
-    """The attention kernels timed alone through the wrappers, whichever instance they launch (named from the
-    launch counters of both trees): the forward with its LSE and the pair (``_pair_ms``: ``flash_bwd_dq`` with
-    its pre-pass, plus ``flash_bwd_dkv``) at D = 320 and 512, and K1, K2's sweep (after its pre-pass) and the
-    pair at D = 64, 128 and 256, at the forms site (B=2, T=4096, H=16, MQA, global, tables), in bf16 and then
-    fp16 on the same values; no check. It calls the port through nothing but the wrappers, so a copy of this
-    file in another checkout times that checkout's instances: a parent and a change are compared in one call,
-    each in a process of its own, parent, change, change, parent.
+# the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables
+AB_SITES = (("forms site", *FORMS_SITE, -1, (64, 128, 256, 320, 512)),)
 
-        python3 -c "import chip_smoke as c; c.phase_device(); c.xwide_ab()"
+
+def ab(sites=AB_SITES, halo_dims=()) -> None:
+    """The attention kernels timed alone through the wrappers, whichever instance they launch (named from the
+    wrappers' launch counters): at each site of ``sites`` ((label, B, T, H, window, head dims), MQA with
+    tables) and head dim the forward with its LSE, at a global site K2's sweep after its pre-pass, and the pair
+    (``_pair_ms``: ``flash_bwd_dq`` with its pre-pass, plus ``flash_bwd_dkv``); for each of ``halo_dims`` the
+    halo forward and pair (``_halo_pair_ms``) at WIDE_HALO_SHAPE. Every site in bf16 first, then in fp16 on the
+    same values, so that a bf16 time follows the same work on any tree; no check. It calls the port through
+    nothing but the wrappers, so a copy of this file in another checkout times that checkout's instances on the
+    same values: a parent and a change are compared in one call, each in a process of its own, parent, change,
+    change, parent.
+
+        python3 -c "import chip_smoke as c; c.phase_device(); c.ab()"
+        python3 -c "import chip_smoke as c; c.phase_device(); c.ab(c.F16_PAIR_SITES, c.F16_HALO_DIMS)"
     """
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.ops import halo_attention as ha
 
     counters = {"forms fwd": forms.forms_fwd, "forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv,
                 "wgmma fwd": fa.flash_fwd, "wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv,
-                "sweep": fa.flash_bwd_sweep}
-    B, T, H = FORMS_SITE
+                "sweep": fa.flash_bwd_sweep, "halo fwd": ha.halo_fwd, "halo dq": ha.halo_bwd_dq,
+                "halo dk/dv": ha.halo_bwd_dkv}
+    B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
+    frame = (W, shard * T_h, n * T_h)
+
+    def windowed(q, k_rot, v, do, cos, sin, window):
+        scale = q.shape[-1] ** -0.5
+        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True), 5)}
+        if window < 0:
+            o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+            prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
+            dk, dv = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+            ms["sweep"] = _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, False), 5)
+            del o, lse, prep, dk, dv
+        ms["dq"], ms["dkv"] = _pair_ms(q, k_rot, v, do, cos, sin, window)
+        return ms
+
+    def halo(q, k, v, do):
+        scale = q.shape[-1] ** -0.5
+        ms = {"fwd": _cuda_ms(lambda: ha.halo_fwd(q, k, v, *frame, scale), 5)}
+        ms["dq"], ms["dkv"] = _halo_pair_ms(q, k, v, do, frame, scale)
+        return ms
+
+    def each_site():
+        """(where, the fp16 operands, their timer, its other arguments) of each site in turn."""
+        for label, B, T, H, window, dims in sites:
+            for D in dims:
+                q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D + T, D, torch.float16)
+                yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}",
+                       (q, k_rot, v, do), windowed, (cos, sin, window))
+        for D in halo_dims:
+            g = torch.Generator(device="cuda").manual_seed(2190 + D)
+            q, do = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda").half() for _ in range(2))
+            k, v = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda").half() for _ in range(2))
+            yield f"halo B={B_h} T_local={T_h} W={W} shard {shard + 1} of {n} D={D}", (q, k, v, do), halo, ()
+
     times = {}
     for dt in (torch.bfloat16, torch.float16):
-        for D in (64, 128, 256, 320, 512):
-            q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D, D, torch.float16)
-            q, k_rot, v, do = (x.to(dt) for x in (q, k_rot, v, do))
-            scale = D**-0.5
+        for where, operands, timer, rest in each_site():
+            ops = tuple(x.to(dt) for x in operands)
+            del operands
             before = {name: c.launches for name, c in counters.items()}
-            ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 5)}
-            if D <= 256:
-                o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
-                prep = fa.flash_bwd_prep(q, k_rot, v, o, lse, do, cos, sin, scale)
-                dk, dv = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
-                ms["sweep"] = _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, False), 5)
-                del o, lse, prep, dk, dv
-            ms["dq"], ms["dkv"] = _pair_ms(q, k_rot, v, do, cos, sin, -1)
+            ms = timer(*ops, *rest)
             ms["pair"] = ms["dq"] + ms["dkv"]
             launched = {name: c.launches - before[name] for name, c in counters.items() if c.launches > before[name]}
-            times[dt, D] = ms
-            _log(f"[xwide ab] {_dtype_name(dt)}/{D} B={B} T={T} H={H} global: "
-                 + ", ".join(f"{kind} {t:.3f} ms" for kind, t in ms.items()) + f"; launched {launched}")
-            del q, k_rot, v, do, cos, sin
+            times[where, dt] = ms
+            _log(f"[ab] {where} {_dtype_name(dt)}: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in ms.items())
+                 + f" (dq with its pre-pass); launched {launched}")
+            del ops, rest
             torch.cuda.empty_cache()
-    for D in (64, 128, 256, 320, 512):
-        _log(f"[xwide ab] D={D}: fp16 / bf16 " + ", ".join(
-            f"{kind} {times[torch.float16, D][kind] / t:.3f}x" for kind, t in times[torch.bfloat16, D].items()))
+    for (where, dt), ms in times.items():
+        if dt == torch.float16:
+            _log(f"[ab] {where}: fp16 / bf16 " + ", ".join(
+                f"{kind} {t / times[where, torch.bfloat16][kind]:.3f}x" for kind, t in ms.items()))
 
 
 def phase_wide_fullsong_train(workdir: Path) -> dict:

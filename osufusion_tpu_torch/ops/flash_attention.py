@@ -68,7 +68,7 @@ post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the merge and the
 global backward's pre-pass and post-pass:
 ``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
-operands' (dtype, D) through ``flash_forms.takes_forms``, and the forms
+operands' (dtype, D) through ``flash_forms.route``, and the forms
 family runs every backward as the split pre-pass, dq, dk/dv and post-pass.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
@@ -294,7 +294,7 @@ def flash_fwd(
     scale: float,
     return_lse: bool = False,
 ):
-    """Launch the forward kernel of q's form (``flash_forms.takes_forms``: K1
+    """Launch the forward kernel of q's route (``flash_forms.route``: K1
     at bf16 or fp16 with D = 64, 128, 192 or 256, csrc/flash_xwide.cuh's
     forward with D = 320 ... 512) on the current stream;
     returns o (B, T, H, D) in q's dtype, or with
@@ -309,24 +309,23 @@ def flash_fwd(
     B, T, H, D = q.shape
     if v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
         raise ValueError(f"flash_fwd shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    use_forms = forms.takes_forms("flash_fwd", q)
+    route = forms.route("flash_fwd", q)
     tables = _tables("flash_fwd", cos, sin, T, D)
     _check_operands("flash_fwd", q.device, (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype), *tables))
     _check_window("flash_fwd", window)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device) if return_lse else None
-    if use_forms:
+    if route == "forms":
         forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
         return (o, lse) if return_lse else o
-    xwide = D in forms.XWIDE_HEAD_DIMS
-    err = _kernel(f"{'xwide' if xwide else 'flash'}_fwd_{TYPE_SUFFIX[q.dtype]}")(
+    err = _kernel(f"{'flash' if route == 'wgmma' else route}_fwd_{TYPE_SUFFIX[q.dtype]}")(
         D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.grouped_launches += kv > 1
-    flash_fwd.xwide_launches += xwide
+    flash_fwd.xwide_launches += route == "xwide"
     if return_lse:
         flash_fwd.lse_launches += 1
         return o, lse
@@ -339,13 +338,13 @@ flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
 flash_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
 
 
-def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, bool]:
+def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, str]:
     """The backward kernels' operands: q and every tensor of ``rows``
     (B, T, H, D), k and v (B, T, D) (``grouped``: or (B, T, Kv, D)), all in
     q's dtype, every tensor of ``stats`` (B, T*H) fp32, the tables (T, D) fp32
     (``grouped``: or both None); all contiguous on q's CUDA device. ``rows``
-    and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv, whether the
-    forms family takes q's form)."""
+    and ``stats`` hold (name, tensor) pairs. Returns (B, T, H, Kv, q's route:
+    ``flash_forms.route``)."""
     kv = _kv_heads(who, q, k)
     if not grouped and (k.ndim != 3 or cos is None):
         raise ValueError(f"{who} (K3a/K3b) takes MQA (k (B,T,D)) with rotary tables; got k {tuple(k.shape)}, "
@@ -356,12 +355,12 @@ def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = Fa
     if k.shape[:2] != (B, T) or k.shape[-1] != D or any(t.shape != shape for t, shape in shapes):
         raise ValueError(f"{who} shapes: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          + " ".join(f"{n} {tuple(t.shape)}" for n, t in (*rows, *stats)))
-    use_forms = forms.takes_forms(who, q)
+    route = forms.route(who, q)
     tables = _tables(who, cos, sin, T, D)
     dt, f32 = q.dtype, torch.float32
     _check_operands(who, q.device, (("q", q, dt), ("k", k, dt), ("v", v, dt), *((n, t, dt) for n, t in rows),
                                     *((n, t, f32) for n, t in stats), *tables))
-    return B, T, H, kv, use_forms
+    return B, T, H, kv, route
 
 
 def flash_bwd(
@@ -390,19 +389,15 @@ def flash_bwd(
     (``xwide_bwd_dq``, ``xwide_bwd_dkv``). The forms family (fp32 above D =
     256, bf16 and fp16 above 512) runs its pre-pass, dq, dk/dv and post-pass
     kernels, each counted in ``flash_forms``."""
-    B, T, H, kv, use_forms = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
-                                             grouped=True)
-    if forms.takes_forms("flash_bwd_prep", q):  # every form but bf16 at D = 64: the forms pre-pass and post-pass
+    B, T, H, kv, route = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
+                                         grouped=True)
+    if forms.route("flash_bwd_prep", q) == "forms":  # every form but bf16 at D = 64: the forms pre-pass and post-pass
         prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
         dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.empty_like(dk)
-        if use_forms:
-            forms.forms_bwd_dq(k, v, prep, -1, None, accumulate=False)
-            forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate=False)
-        else:  # bf16 at D = 128, 192, 256, fp16 at D = 64 ... 256: K2's sweep of that type and head dim
-            _launch_sweep("flash_bwd", k, v, prep, dk, dv, accumulate=False)
-            flash_bwd.launches += 1
-            flash_bwd.grouped_launches += kv > 1
+        _launch_sweep(route, "flash_bwd", k, v, prep, dk, dv, accumulate=False)
+        flash_bwd.launches += route != "forms"
+        flash_bwd.grouped_launches += route != "forms" and kv > 1
         return forms.forms_bwd_post(prep, cos, sin, scale), dk, dv
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)  # rows of one KV group
@@ -466,9 +461,9 @@ def flash_bwd_prep(
     D = 64) in ``flash_bwd_prep.launches``, the forms one's (every other form;
     K2's sweep of a head dim above 64 reads it) in
     ``flash_forms.forms_bwd_prep.launches``."""
-    B, T, H, kv, use_forms = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
-                                             sin, grouped=True)
-    if use_forms:
+    B, T, H, kv, route = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
+                                         sin, grouped=True)
+    if route == "forms":
         return forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)
@@ -490,17 +485,20 @@ def flash_bwd_prep(
 flash_bwd_prep.launches = 0
 
 
-def _launch_sweep(who: str, k, v, prep: GlobalPrep, dk, dv, accumulate: bool) -> None:
-    """Launch K2's sweep of qs's operand type (bf16 or fp16) and head dim over
-    the keys of k and v (checked here) into ``prep.dq_acc`` and dk, dv; above
-    D = 256 the wgmma pair of csrc/flash_xwide.cuh, its dq kernel storing into
-    ``prep.dq_acc`` (or with ``accumulate`` adding), as the forms dq does."""
+def _launch_sweep(route: str, who: str, k, v, prep: GlobalPrep, dk, dv, accumulate: bool) -> None:
+    """Launch the global backward's sweep of ``route`` over the keys of k and
+    v into ``prep.dq_acc`` and dk, dv: K2's sweep of qs's operand type (bf16
+    or fp16) and head dim ("wgmma", checked here), or the dq and dk/dv
+    kernels on the forms pre-pass's scratch (``scratch_sweeps``: "forms",
+    "xwide"), whose dq kernel stores into ``prep.dq_acc`` (or with
+    ``accumulate`` adds)."""
+    if route != "wgmma":
+        dq_kernel, dkv_kernel = scratch_sweeps(route)
+        dq_kernel(k, v, prep, -1, None, accumulate)
+        dkv_kernel(k, v, prep, dk, dv, -1, None, accumulate)
+        return
     B, T, H, kv = prep.shape
     D = prep.qs.shape[-1]
-    if D in forms.XWIDE_HEAD_DIMS:
-        xwide_bwd_dq(k, v, prep, -1, None, accumulate)
-        xwide_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate)
-        return
     if k.shape != v.shape or k.shape[0] != B or k.ndim != (3 if kv == 1 else 4) or (kv > 1 and k.shape[2] != kv) \
             or k.shape[-1] != D or dk.shape != k.shape or dv.shape != k.shape:
         raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} dk {tuple(dk.shape)} dv {tuple(dv.shape)}; "
@@ -527,16 +525,13 @@ def flash_bwd_sweep(
     current stream: dq adds into ``prep.dq_acc`` (the wgmma sweep's atomics;
     the forms dq kernel stores there unless ``accumulate``); dk and dv are
     stored, or with ``accumulate`` added into what they hold. Counts the
-    wgmma sweep's launches (any head dim) in ``flash_bwd_sweep.launches``;
-    the forms family launches its dq and dk/dv kernels, counted in
-    ``flash_forms``."""
-    who = "flash_bwd_sweep"
-    if forms.takes_forms(who, prep.qs):
-        forms.forms_bwd_dq(k, v, prep, -1, None, accumulate)
-        forms.forms_bwd_dkv(k, v, prep, dk, dv, -1, None, accumulate)
-        return
-    _launch_sweep(who, k, v, prep, dk, dv, accumulate)
-    flash_bwd_sweep.launches += 1
+    wgmma sweep's launches (any head dim; above 256 csrc/flash_xwide.cuh's
+    dq and dk/dv, each also in its own counter) in
+    ``flash_bwd_sweep.launches``; the forms family launches its dq and dk/dv
+    kernels, counted in ``flash_forms``."""
+    route = forms.route("flash_bwd_sweep", prep.qs)
+    _launch_sweep(route, "flash_bwd_sweep", k, v, prep, dk, dv, accumulate)
+    flash_bwd_sweep.launches += route != "forms"
 
 
 flash_bwd_sweep.launches = 0
@@ -585,6 +580,13 @@ def xwide_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tu
 xwide_bwd_dkv.launches = 0
 
 
+def scratch_sweeps(route: str) -> tuple:
+    """(dq, dk/dv) of ``route`` on the forms pre-pass's scratch, both with
+    ``forms_bwd_dq``'s and ``forms_bwd_dkv``'s arguments: the forms family's
+    ("forms") or csrc/flash_xwide.cuh's ("xwide")."""
+    return (forms.forms_bwd_dq, forms.forms_bwd_dkv) if route == "forms" else (xwide_bwd_dq, xwide_bwd_dkv)
+
+
 def flash_bwd_post(
     prep: GlobalPrep,
     cos: Optional[torch.Tensor],  # (T, D) fp32, the pre-pass's tables, or None
@@ -597,7 +599,7 @@ def flash_bwd_post(
     at D = 64) in ``flash_bwd_post.launches``, the forms one's (every other
     form; it serves K2's sweep of a head dim above 64 too) in
     ``flash_forms``."""
-    if forms.takes_forms("flash_bwd_post", prep.qs):
+    if forms.route("flash_bwd_post", prep.qs) == "forms":
         return forms.forms_bwd_post(prep, cos, sin, scale)
     B, T, H, kv = prep.shape
     dev = prep.qs.device
@@ -634,7 +636,7 @@ def ring_merge(
         raise ValueError(f"{who} shapes: o_j {tuple(o_j.shape)} lse_j {tuple(lse_j.shape)} o_acc "
                          f"{None if o_acc is None else tuple(o_acc.shape)} lse_acc "
                          f"{None if lse_acc is None else tuple(lse_acc.shape)}; both accumulators or neither")
-    use_forms = forms.takes_forms(who, o_j)
+    use_forms = forms.route(who, o_j) == "forms"
     f32 = torch.float32
     accumulators = () if o_acc is None else (("o_acc", o_acc, f32), ("lse_acc", lse_acc, f32))
     _check_operands(who, o_j.device, (("o_j", o_j, o_j.dtype), ("lse_j", lse_j, f32), *accumulators))
@@ -753,13 +755,13 @@ def flash_bwd_dq(
     around the wgmma dq kernel above 256). Counts the wgmma dq kernel's
     launches in ``flash_bwd_dq.launches``, the forms kernels' in
     ``flash_forms``."""
-    B, T, H, _, use_forms = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
-                                            sin)
+    B, T, H, _, route = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
+                                        sin)
     _check_window("flash_bwd_dq", window)
-    if use_forms or q.shape[-1] in forms.XWIDE_HEAD_DIMS:  # above 256: the forms pre-pass and post-pass
+    if route != "wgmma":  # the forms pre-pass and post-pass around the forms or csrc/flash_xwide.cuh's dq kernel
         prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
-        (forms.forms_bwd_dq if use_forms else xwide_bwd_dq)(k, v, prep, window, None, accumulate=False)
-        flash_bwd_dq.launches += not use_forms
+        scratch_sweeps(route)[0](k, v, prep, window, None, accumulate=False)
+        flash_bwd_dq.launches += route == "xwide"
         return forms.forms_bwd_post(prep, cos, sin, scale), prep
     prep = windowed_prep(q, o, lse, do, cos, sin, scale)
     dq = torch.empty_like(q)
@@ -793,16 +795,16 @@ def flash_bwd_dkv(
     B, T, H, D = do.shape
     if k.shape != (B, T, D) or v.shape != (B, T, D):
         raise ValueError(f"{who} shapes: k {tuple(k.shape)} v {tuple(v.shape)} do {tuple(do.shape)}")
-    use_forms = forms.takes_forms(who, do)
+    route = forms.route(who, do)
     f32 = torch.float32
     _check_operands(who, do.device, (("do", do, do.dtype), ("k", k, do.dtype), ("v", v, do.dtype)))
     _check_window(who, window)
     dk = torch.empty(k.shape, dtype=f32, device=do.device)
     dv = torch.empty(v.shape, dtype=f32, device=do.device)
-    if use_forms or D in forms.XWIDE_HEAD_DIMS:
+    if route != "wgmma":  # on the forms pre-pass's scratch
         forms.check_prep(who, prep, B, T, H, 1)
-        (forms.forms_bwd_dkv if use_forms else xwide_bwd_dkv)(k, v, prep, dk, dv, window, None, accumulate=False)
-        flash_bwd_dkv.launches += not use_forms
+        scratch_sweeps(route)[1](k, v, prep, dk, dv, window, None, accumulate=False)
+        flash_bwd_dkv.launches += route == "xwide"
         return dk, dv
     _check_prep(who, prep, do.device, do.dtype, B, T * H, D)
     err = _kernel(f"flash_bwd_dkv_{TYPE_SUFFIX[do.dtype]}")(

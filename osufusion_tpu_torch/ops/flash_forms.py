@@ -38,8 +38,9 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   ``ops/attention.py``).
 
 Every wrapper of ``ops/flash_attention.py`` and ``ops/halo_attention.py``
-chooses its instance through ``takes_forms``: its own wgmma entry point, or
-the forms entry point of the same function here. The forms family runs every
+chooses its instance by one value, ``route``: its own wgmma entry point
+("wgmma"), csrc/flash_xwide.cuh's ("xwide"), or the forms entry point of the
+same function here ("forms"). The forms family runs every
 backward as K2's split does: a pre-pass (``forms_bwd_prep``: qs in the
 operands' dtype, do in group-major order, the padded LSE and delta), the dq
 and dk/dv kernels over the keys at hand (``forms_bwd_dq``, ``forms_bwd_dkv``,
@@ -100,12 +101,18 @@ def attention_form(dtype: torch.dtype, head_dim: int) -> str:
     return kernel_form("flash_fwd", dtype, head_dim)
 
 
-def takes_forms(who: str, t: torch.Tensor) -> bool:
-    """The kernel instance of ``t``'s (dtype, head dim) at the wrapper
-    ``who``, by which every wrapper chooses its entry point: False for its
-    wgmma kernel, True for the forms family (the chunked instance included).
-    A head dim that no kernel tiles raises ValueError."""
-    return kernel_form(who, t.dtype, t.shape[-1]) != "hopper"
+def route(who: str, t: torch.Tensor) -> str:
+    """The entry point by which the wrapper ``who`` serves ``t``'s (dtype,
+    head dim) on the card, the one value each wrapper branches on: "wgmma"
+    for its own wgmma kernel, "xwide" for csrc/flash_xwide.cuh's (the form
+    "hopper" at a head dim of ``XWIDE_HEAD_DIMS``; its backward runs on this
+    module's pre-pass and post-pass), "forms" for this module's family (the
+    chunked instance included). A head dim that no kernel tiles raises
+    ValueError."""
+    D = t.shape[-1]
+    if kernel_form(who, t.dtype, D) != "hopper":
+        return "forms"
+    return "xwide" if D in XWIDE_HEAD_DIMS else "wgmma"
 
 
 def _stream(t: torch.Tensor) -> int:

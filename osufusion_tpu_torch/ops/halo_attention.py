@@ -115,13 +115,13 @@ def halo_bwd_dkv_reference(q, k, v, o, lse, do, window: int, g0: int, t_global: 
     return dk * LN2, dv
 
 
-def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int, bool]:
+def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int) -> tuple[int, int, int, str]:
     """The kernels' operands: every tensor of ``rows`` (B, T, H, D), the
     first setting the shape and the dtype, k and v (B, T + window, D) in that
     dtype, every tensor of ``stats`` (B, T*H) fp32, all contiguous on the
     first row tensor's CUDA device; an even window, and a shard inside the
     song. ``rows`` and ``stats`` hold (name, tensor) pairs. Returns (B, T, H,
-    whether the forms family takes the form)."""
+    the route: ``flash_forms.route``)."""
     first = rows[0][1]
     if first.ndim != 4 or k.ndim != 3:
         raise ValueError(f"{who} wants {rows[0][0]} (B,T,H,D), k/v (B,T+window,D); got {tuple(first.shape)}, "
@@ -135,11 +135,11 @@ def _check_halo(who: str, k, v, rows, stats, window: int, g0: int, t_global: int
     if window < 2 or window % 2 or not 0 <= g0 <= t_global - T:
         raise ValueError(f"{who}: window must be even and >= 2 and the shard [g0, g0 + T) inside the song; "
                          f"got window {window}, g0 {g0}, T {T}, t_global {t_global}")
-    use_forms = forms.takes_forms(who, first)
+    route = forms.route(who, first)
     dt, f32 = first.dtype, torch.float32
     _check_operands(who, first.device, (*((n, t, dt) for n, t in rows), ("k", k, dt), ("v", v, dt),
                                         *((n, t, f32) for n, t in stats)))
-    return B, T, H, use_forms
+    return B, T, H, route
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -153,19 +153,18 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     csrc/flash_xwide.cuh's forward, D = 320 ... 512, also in
     ``halo_fwd.xwide_launches``), the forms one's in
     ``flash_forms.forms_fwd.launches``."""
-    B, T, H, use_forms = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
+    B, T, H, route = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
-    if use_forms:
+    if route == "forms":
         forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
         return o, lse
-    xwide = q.shape[-1] in forms.XWIDE_HEAD_DIMS
-    err = _kernel(f"{'xwide_halo' if xwide else 'halo'}_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(
+    err = _kernel(f"{'halo' if route == 'wgmma' else 'xwide_halo'}_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(
         q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, H, window, g0,
         t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
-    halo_fwd.xwide_launches += xwide
+    halo_fwd.xwide_launches += route == "xwide"
     return o, lse
 
 
@@ -183,12 +182,12 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     post-pass around csrc/flash_xwide.cuh's dq kernel at D = 320 ... 512),
     which ``halo_bwd_dkv`` takes. Counts the wgmma dq kernel's launches in
     ``halo_bwd_dq.launches``, the forms kernels' in ``flash_forms``."""
-    B, T, H, use_forms = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
-                                     window, g0, t_global)
-    if use_forms or q.shape[-1] in forms.XWIDE_HEAD_DIMS:  # above 256: the forms pre-pass and post-pass
+    B, T, H, route = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
+                                 window, g0, t_global)
+    if route != "wgmma":  # the forms pre-pass and post-pass around the forms or csrc/flash_xwide.cuh's dq kernel
         prep = forms.forms_bwd_prep(q, o, lse, do, None, None, 1, scale)
-        (forms.forms_bwd_dq if use_forms else fa.xwide_bwd_dq)(k, v, prep, window, (g0, t_global), accumulate=False)
-        halo_bwd_dq.launches += not use_forms
+        fa.scratch_sweeps(route)[0](k, v, prep, window, (g0, t_global), accumulate=False)
+        halo_bwd_dq.launches += route == "xwide"
         return forms.forms_bwd_post(prep, None, None, scale), prep
     prep = fa.windowed_prep(q, o, lse, do, None, None, scale)
     dq = torch.empty_like(q)
@@ -210,14 +209,13 @@ def halo_bwd_dkv(k, v, do, prep, window: int, g0: int, t_global: int):
     window, D) fp32 over the whole slab, halo rows included (zero outside the
     song), each row written once. Counts the wgmma kernel's launches in
     ``halo_bwd_dkv.launches``, the forms one's in ``flash_forms``."""
-    B, T, H, use_forms = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
+    B, T, H, route = _check_halo("halo_bwd_dkv", k, v, (("do", do),), (), window, g0, t_global)
     dk = torch.empty(k.shape, dtype=torch.float32, device=do.device)
     dv = torch.empty_like(dk)
-    if use_forms or do.shape[-1] in forms.XWIDE_HEAD_DIMS:
+    if route != "wgmma":  # on the forms pre-pass's scratch
         forms.check_prep("halo_bwd_dkv", prep, B, T, H, 1)
-        sweep = forms.forms_bwd_dkv if use_forms else fa.xwide_bwd_dkv
-        sweep(k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
-        halo_bwd_dkv.launches += not use_forms
+        fa.scratch_sweeps(route)[1](k, v, prep, dk, dv, window, (g0, t_global), accumulate=False)
+        halo_bwd_dkv.launches += route == "xwide"
         return dk, dv
     _check_prep("halo_bwd_dkv", prep, do.device, do.dtype, B, T * H, do.shape[-1])
     err = _kernel(f"halo_bwd_dkv_{fa.TYPE_SUFFIX[do.dtype]}")(

@@ -30,7 +30,7 @@ from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_pa
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
 from osufusion_tpu_torch.ops.flash_forms import (FORMS_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS, attention_form,
-                                                 kernel_form)
+                                                 kernel_form, route)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
 
@@ -114,6 +114,23 @@ def test_attention_form_table(dtype, D):
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "hopper"} == WIDE_WGMMA
     assert XWIDE_HEAD_DIMS == (320, 384, 448, 512)
+
+
+@pytest.mark.parametrize("D", [d for d in FORM_DIMS if d % 64 == 0])
+@pytest.mark.parametrize("dtype", FORM_DTYPES, ids=["fp32", "bf16", "fp16"])
+def test_route_is_the_entry_point_of_the_form(dtype, D):
+    """``route``, the one value each wrapper branches on: "forms" wherever
+    the form is not "hopper" (the chunked instance included), "xwide"
+    (csrc/flash_xwide.cuh) for the form "hopper" above D = 256, "wgmma" (the
+    wrapper's own kernel) for the form "hopper" at D <= 256; the xwide entry
+    points serve exactly the wrappers of WIDE_WGMMA at bf16 and fp16 with D =
+    320 ... 512."""
+    t = torch.empty((1, 1, 1, D), dtype=dtype)
+    for who in WRAPPERS:
+        form = kernel_form(who, dtype, D)
+        assert route(who, t) == ("forms" if form != "hopper" else "xwide" if D > 256 else "wgmma"), who
+    want = WIDE_WGMMA if dtype != torch.float32 and D in XWIDE_HEAD_DIMS else set()
+    assert {who for who in WRAPPERS if route(who, t) == "xwide"} == want
 
 
 def _qkv(T, H, D, seed):
