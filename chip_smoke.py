@@ -164,11 +164,11 @@ failure raises and the exit code is not 0:
     kernel and equals the plain attention; a refused window raises
     ValueError, a failed bf16, fp16 or forms launch RuntimeError.
     Kernel level: every forms instance that is built (fp32 at D = 64 ... 256:
-    forward, pre-pass, dq, dk/dv, post-pass, merge; bf16 and fp16 there: the
-    pre-pass, post-pass and merge around K2's sweep) on one site's chain
-    (K1 and K2's sweep where the forms body is not built) against its plain
-    fp32 version at B=2, T=4096, H=16 (global, tables), fp32/64 also windowed
-    (B=1, T=16384, W=2048) and fp32/64 and bf16/128 grouped (B=2, T=2048,
+    forward, pre-pass, post-pass, merge, with csrc/flash_f32x6.cuh's dq and
+    dk/dv on the sweep's wrapper; bf16 and fp16 there: the pre-pass,
+    post-pass and merge around K2's sweep) on one site's chain (K1 and K2's
+    sweep where the forms body is not built) against its plain fp32 version
+    at B=2, T=4096, H=16 (global, tables), fp32/64 and bf16/128 also grouped (B=2, T=2048,
     H=8, Kv=2); planted faults (the last key tile dropped or a window one key
     short; an LSE off by 0.05) above the bounds (fp32: summation order only;
     bf16 and fp16: phase 3's); CUDA-event times beside the bound (fp32 FLOP
@@ -204,7 +204,8 @@ failure raises and the exit code is not 0:
     phase 21's signal check at 8192 frames. (d) the gradients of a
     dim_h=512 UNet of one block a level (13 sites, B=2, T=4096) through the
     kernels at fp32/64, bf16/128 and fp16/64 against fp32 through the plain
-    versions (fp32: the forms kernels alone; bf16/128 and fp16/64: K1 with its
+    versions (fp32: the forms forward, pre-pass and post-pass and the fp32
+    pair of phase 27, no other wgmma kernel; bf16/128 and fp16/64: K1 with its
     LSE and K2 a site, the forms pre-pass and post-pass around K2's sweep, no
     forms forward, dq or dk/dv). (e) the shard forms at kernel
     level: the halo instances at phase 10's rank shape (B=1, T_local=16384,
@@ -213,7 +214,9 @@ failure raises and the exit code is not 0:
     each with planted faults (bf16/128: the halo pair through K5a / K5b's
     wgmma instances, no forms dq or dk/dv). (a) fp32 crop training: ``trainer.train`` with
     ``mixed_precision="no"`` at dim_h=512, B=4, T=4096, 2 steps: 39 forms
-    forwards, pre-passes, dq, dk/dv and post-passes a step, no wgmma launch.
+    forwards, pre-passes and post-passes and 39 of phase 27's dq and dk/dv
+    (six splits each site) a step, no forms dq or dk/dv and no other wgmma
+    launch.
 
 24. Whole-song training at a head dim of 128: ``trainer.train`` at phase 9's
     cell with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
@@ -239,6 +242,18 @@ failure raises and the exit code is not 0:
     (DPM-16, CFG 2.0) to a parsed ``.osz``, and (d)'s gradient check at
     bf16/320 and fp16/512 against fp32 plain; each runs only the new kernels
     (and the forms pre-pass and post-pass), no chunked launch.
+27. The fp32 backward pair on the tensor cores (``phase_f32x6_kernels``):
+    ``csrc/flash_f32x6.cuh``'s dq and dk/dv (six bf16 products per fp32
+    product) and its split at D = 64, 128, 192 and 256, at B=2, T=4096, H=16
+    (global, tables) through the global backward against the plain fp32
+    versions at the forms family's fp32 bounds (1e-4 relative L2, 1e-4 of the
+    largest magnitude) with a planted fault above them (an LSE off by
+    LSE_FAULT), each kernel timed by CUDA events beside its six-product bound,
+    the FMA bound of the forms pair it replaced, its plain version and rope +
+    SDPA at fp32; at D = 64 and 256 also the windowed (B=1, T=16384, W=2048),
+    grouped (B=2, T=2048, H=8, Kv=2) and halo (phase 10's rank shape) sites;
+    the split bit for bit against its plain version. Its launches on the
+    paths are phase 23 (a) and (d)'s.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1200,11 +1215,14 @@ FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
 
 
 def _forms_bodies(dtype, D: int) -> tuple:
-    """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one at
-    fp32 and above D = 512; at bf16 and fp16 with D <= 512 the pre-pass, post-pass and merge (K1, K2's sweep,
-    the wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest)."""
-    if dtype == torch.float32 or D > 512:
+    """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one
+    above D = 512 and at fp32 above 256; at fp32 with D <= 256 all but dq and dk/dv (csrc/flash_f32x6.cuh's
+    pair takes those); at bf16 and fp16 with D <= 512 the pre-pass, post-pass and merge (K1, K2's sweep, the
+    wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest)."""
+    if D > 512 or (dtype == torch.float32 and D > 256):
         return FORMS_BODIES
+    if dtype == torch.float32:
+        return ("fwd", *FORMS_BODIES[3:])
     return FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
@@ -1270,8 +1288,8 @@ def _attention_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int, 
 def _forms_call(q, k_rot, v, do, cos, sin, window: int):
     """One site through the forms instance of q's (dtype, D), directly through its wrappers, and where the
     instance has no such body through the wgmma kernel that the route takes (K1 for the forward, K2's sweep
-    for a global site's dq and dk/dv): (o, lse), then the backward's (dq, dk_rot, dv) from them, and the
-    pre-pass's scratch."""
+    or at fp32 csrc/flash_f32x6.cuh's pair for a global site's dq and dk/dv): (o, lse), then the backward's
+    (dq, dk_rot, dv) from them, and the pre-pass's scratch."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
 
@@ -1285,14 +1303,15 @@ def _forms_call(q, k_rot, v, do, cos, sin, window: int):
         forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
     else:
         o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
-    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+    prep = fa.scratch_prep("forms" if "dq" in bodies else forms.route("flash_bwd_sweep", q), q, o, lse, do, cos, sin,
+                           kv, scale)
     dk = torch.empty(k_rot.shape, dtype=torch.float32, device="cuda")
     dv = torch.empty_like(dk)
     if "dq" in bodies:
         forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
         forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
     else:
-        assert window < 0, "K2's sweep takes the global sites"
+        assert window < 0, "K2's sweep and the fp32 pair on the sweep's wrapper take the global sites"
         fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, accumulate=False)
     return o, lse, forms.forms_bwd_post(prep, cos, sin, scale), dk, dv, prep
 
@@ -2469,20 +2488,207 @@ def _xwide_json(records: dict, launches: dict) -> list:
     return entries
 
 
-# the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables
+# csrc/flash_f32x6.cuh: the fp32 backward pair on the tensor cores, six bf16 products per fp32 product, at every
+# head dim of the forms instances it replaced; checked and timed at the forms site (FORMS_SITE: B=2, T=4096,
+# H=16, MQA, global, tables), and checked at the windowed and grouped forms sites and the halo rank shape at
+# the narrowest and the widest head dim
+X6_DIMS = (64, 128, 192, 256)
+X6_SITES = (("windowed", *FORMS_WINDOWED[:3], 1, FORMS_WINDOWED[3], True), ("grouped", *FORMS_GROUPED, -1, False))
+X6_CHECKED_DIMS = (64, 256)
+# the Pallas body each entry point stands in for: dq (_dq_kernel; also :1054, :575, :1338), dk/dv (_dkv_kernel;
+# also :1099, :575, :1338), and the split, which serves both at _bwd_fused_kernel's sites and the rest
+X6_REPLACES = {"dq": 435, "dkv": 507, "split": 575}
+
+
+def _x6_counts(reset: bool = False) -> dict:
+    """The launch counters of csrc/flash_f32x6.cuh's entry points (set to 0 first with ``reset``)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    fns = {"dq": fa.f32x6_bwd_dq, "dkv": fa.f32x6_bwd_dkv, "split": fa.f32x6_split}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {kind: fn.launches for kind, fn in fns.items()}
+
+
+def _x6_hold(where: str, got: tuple, refs: tuple, faults: tuple, failures: list) -> tuple[dict, str]:
+    """Hold (dq, dk, dv) to the plain fp32 ones within FORMS_F32_REL_TOL (relative L2) and FORMS_F32_ABS_TOL
+    (max abs as a share of the largest magnitude), and the planted faults (from an LSE off by LSE_FAULT)
+    above them. Returns (each kernel's largest error: {"dq": dq's, "dkv": dk's and dv's}, a log line)."""
+    errors, parts = {"dq": 0.0, "dkv": 0.0}, []
+    for name, a, b, fault in zip(("dq", "dk", "dv"), got, refs, faults):
+        rel, err, top, fault_rel = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item(), _rel(fault, b)
+        kind = "dq" if name == "dq" else "dkv"
+        errors[kind] = max(errors[kind], err)
+        parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
+        if not (rel < FORMS_F32_REL_TOL and err < FORMS_F32_ABS_TOL * top and torch.isfinite(a).all()):
+            failures.append(f"{where}: {name} rel L2 {rel:.3e}, max abs {err:.3e} of {top:.3e}")
+        if not fault_rel > FORMS_F32_REL_TOL:
+            failures.append(f"{where}: planted fault in {name} {fault_rel:.3e} would pass {FORMS_F32_REL_TOL}")
+    return errors, "; ".join(parts) + f" (bounds {FORMS_F32_REL_TOL:g} rel L2, {FORMS_F32_ABS_TOL:g} of the largest)"
+
+
+def _x6_backward(q, k_rot, v, o, lse, do, cos, sin, window: int, halo=None):
+    """(dq, dk, dv) of one site at fp32 through the wrappers that the site's form takes, and the plain
+    versions' from the same o and LSE, and from an LSE off by LSE_FAULT: the global backward (``flash_bwd``),
+    the windowed pair, or in the halo frame ``halo`` (g0, t_global; window = W) the halo pair."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+
+    scale = q.shape[-1] ** -0.5
+    if halo is not None:
+        dq, prep = ha.halo_bwd_dq(q, k_rot, v, o, lse, do, window, *halo, scale)
+        got = (dq, *ha.halo_bwd_dkv(k_rot, v, do, prep, window, *halo))
+
+        def plain(lse_in):
+            return (ha.halo_bwd_dq_reference(q, k_rot, v, o, lse_in, do, window, *halo),
+                    *ha.halo_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, window, *halo))
+    else:
+        if window < 0:
+            got = fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale)
+        else:
+            dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+            got = (dq, *fa.flash_bwd_dkv(k_rot, v, do, prep, window))
+
+        def plain(lse_in):
+            return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
+                    *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, window))
+    torch.cuda.synchronize()
+    return got, plain(lse), plain(lse + LSE_FAULT)
+
+
+def phase_f32x6_kernels() -> dict:
+    """csrc/flash_f32x6.cuh's dq and dk/dv (fp32, six bf16 products per fp32 product) and its split, at
+    X6_DIMS at the forms site through the global backward against the plain fp32 versions at the forms
+    family's fp32 bounds with planted faults above them; each kernel timed by CUDA events (behind the
+    sleeping kernel) beside its bound (the six products at the tensor cores' bf16 rate, and the FMA bound of
+    the forms bodies it replaced), its plain version and the PyTorch call (``_library_ms``: rope + SDPA at
+    fp32, the faster of ``enable_gqa`` and the memory-efficient route on K and V expanded), and the pair as
+    its callers pay it (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus
+    ``flash_bwd_dkv``); at X6_CHECKED_DIMS also the windowed and grouped sites of X6_SITES and the halo pair
+    at FORMS_HALO, checked only, and the split bit for bit against its plain version. Returns {D: {"dq" |
+    "dkv" | "split": record}}, each record's max_abs_err its own kernel's largest over every site of its
+    head dim (the split's: 0.0, bit for bit)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    t_phase = time.perf_counter()
+    B, T, H = FORMS_SITE
+    f32 = torch.float32
+    failures, records = [], {}
+    before = _x6_counts()
+    for i, D in enumerate(X6_DIMS):
+        scale = D**-0.5
+        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2500 + i, D, f32)
+        o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        got, refs, faults = _x6_backward(q, k_rot, v, o, lse, do, cos, sin, -1)
+        errors, line = _x6_hold(f"fp32/{D} B={B} T={T} H={H} global", got, refs, faults, failures)
+        _log(f"[f32x6 kernels] fp32/{D} B={B} T={T} H={H} global, tables, through flash_bwd: {line}")
+        del got, refs, faults
+        prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, 1, scale)
+        split = fa.f32x6_split(prep.qs)
+        if not torch.equal(split, fa.f32x6_split_reference(prep.qs)):
+            failures.append(f"fp32/{D}: the split of qs differs from its plain version")
+        dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+        ms = {"dq": _cuda_ms(lambda: fa.f32x6_bwd_dq(k_rot, v, prep, -1, None, False), 5),
+              "dkv": _cuda_ms(lambda: fa.f32x6_bwd_dkv(k_rot, v, prep, dk_s, dv_s, -1, None, False), 5),
+              "split": _cuda_ms(lambda: fa.f32x6_split(prep.qs), 10)}
+        dq_ms, dkv_ms = _pair_ms(q, k_rot, v, do, cos, sin, -1)
+        plain = {"dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                 "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                 "split": _cuda_ms(lambda: fa.f32x6_split_reference(prep.qs), 3)}
+        del prep, split, dk_s, dv_s
+        _, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
+        rows, keys, stats = B * T * H * D, B * T * D, B * T * H * 4
+        flops = {kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}
+        # the pieces of qs and do (6 bytes an element each); k and v in fp32, which the wrapper splits; lse and
+        # delta; the fp32 dq buffer, or dk and dv
+        nbytes = {"dq": 12 * rows + 8 * keys + 2 * stats + 4 * rows, "dkv": 12 * rows + 8 * keys + 2 * stats + 8 * keys}
+        bounds = {kind: _bound(6 * flops[kind], nbytes[kind]) for kind in ("dq", "dkv")}
+        bounds["split"] = _bound(0, 10 * rows)  # read fp32, write three bf16 pieces
+        fma = {kind: flops[kind] / PEAK_FP32_FLOPS * 1e3 for kind in ("dq", "dkv")}
+        library = {"dq": lib_bwd_ms, "dkv": lib_bwd_ms, "split": None}
+        records[D] = {kind: {"max_abs_err": errors.get(kind, 0.0), "ms": ms[kind], "plain_ms": plain[kind],
+                             "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1], "library_ms": library[kind]}
+                      for kind in ms}
+        pair_bound = bounds["dq"][0] + bounds["dkv"][0]
+        _log(f"[f32x6 kernels] fp32/{D}: dq kernel {ms['dq']:.3f} ms (six-product bound {bounds['dq'][0]:.3f} by "
+             f"{bounds['dq'][1]}, {bounds['dq'][0] / ms['dq']:.1%}; FMA bound {fma['dq']:.3f}; plain {plain['dq']:.3f}); "
+             f"dk/dv kernel {ms['dkv']:.3f} ms (bound {bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / ms['dkv']:.1%}; FMA "
+             f"bound {fma['dkv']:.3f}; plain {plain['dkv']:.3f}); the split of qs {ms['split']:.3f} ms (bound "
+             f"{bounds['split'][0]:.3f} by bytes; plain {plain['split']:.3f}); the pair through its wrappers: dq with "
+             f"the forms pre-pass, the split and the post-pass {dq_ms:.3f} + dk/dv {dkv_ms:.3f} = {dq_ms + dkv_ms:.3f} "
+             f"ms (six-product bound {pair_bound:.3f}, {pair_bound / (dq_ms + dkv_ms):.1%}; FMA bound "
+             f"{fma['dq'] + fma['dkv']:.3f}); rope + SDPA at fp32: {lib_line}")
+        if D in X6_CHECKED_DIMS:
+            for j, (label, B_s, T_s, H_s, Kv, window, tables) in enumerate(X6_SITES):
+                q_s, kr_s, _, v_s, do_s, cos_s, sin_s = _attention_inputs(B_s, T_s, H_s, Kv, tables, 2550 + 10 * i + j,
+                                                                          D, f32)
+                o_s, lse_s = fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window)
+                where = (f"fp32/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
+                         + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
+                site_errors, line = _x6_hold(where, *_x6_backward(q_s, kr_s, v_s, o_s, lse_s, do_s, cos_s, sin_s, window),
+                                             failures)
+                _log(f"[f32x6 kernels] {where}: {line}")
+                for kind, err in site_errors.items():
+                    records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
+                del q_s, kr_s, v_s, do_s, o_s, lse_s
+            B_h, T_h, H_h, W, n, shard = FORMS_HALO
+            g = torch.Generator(device="cuda").manual_seed(2590 + D)
+            q_h, do_h = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda") for _ in range(2))
+            k_h, v_h = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda") for _ in range(2))
+            frame = (shard * T_h, n * T_h)
+            o_h, lse_h = ha.halo_fwd_reference(q_h, k_h, v_h, W, *frame)
+            where = f"fp32/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard {shard + 1} of {n}"
+            site_errors, line = _x6_hold(where, *_x6_backward(q_h, k_h, v_h, o_h, lse_h, do_h, None, None, W, frame),
+                                         failures)
+            _log(f"[f32x6 kernels] {where}: {line}")
+            for kind, err in site_errors.items():
+                records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
+            del q_h, do_h, k_h, v_h, o_h, lse_h
+        del q, k_rot, k, v, do, o, lse, cos, sin
+        torch.cuda.empty_cache()
+    moved = {kind: n - before[kind] for kind, n in _x6_counts().items()}
+    if not (moved["dq"] > 0 and moved["dkv"] > 0 and moved["split"] > 0):
+        failures.append(f"the checks launched no f32x6 kernel: {moved}")
+    if failures:
+        raise AssertionError("flash_f32x6 kernels vs plain: " + "; ".join(failures))
+    _log(f"[f32x6 kernels] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def _x6_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of csrc/flash_f32x6.cuh (``phase_f32x6_kernels``' records at the forms site)
+    with their launches on phase 23's fp32 paths ((a) the crop trainer, (d) the gradient check), which run D
+    = 64: one body of each kernel serves every head dim, a run-time argument."""
+    entries = []
+    for D, kinds in records.items():
+        for kind, rec in kinds.items():
+            entries.append({"name": f"f32x6_{kind}_d{D}", "route": "cuda",
+                            "source": "osufusion_tpu_torch/csrc/flash_f32x6.cu",
+                            "replaces": f"osufusion_tpu/ops/pallas_attention.py:{X6_REPLACES[kind]}",
+                            "launches": launches.get(kind, 0) if D == 64 else 0, **rec})
+    return entries
+
+
+# the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables; and the head dims at which it times
+# them at fp32 too
 AB_SITES = (("forms site", *FORMS_SITE, -1, (64, 128, 256, 320, 512)),)
+AB_F32_DIMS = (64, 128, 192, 256)
 
 
-def ab(sites=AB_SITES, halo_dims=()) -> None:
+def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
     """The attention kernels timed alone through the wrappers, whichever instance they launch (named from the
     wrappers' launch counters): at each site of ``sites`` ((label, B, T, H, window, head dims), MQA with
-    tables) and head dim the forward with its LSE, at a global site K2's sweep after its pre-pass, and the pair
-    (``_pair_ms``: ``flash_bwd_dq`` with its pre-pass, plus ``flash_bwd_dkv``); for each of ``halo_dims`` the
-    halo forward and pair (``_halo_pair_ms``) at WIDE_HALO_SHAPE. Every site in bf16 first, then in fp16 on the
-    same values, so that a bf16 time follows the same work on any tree; no check. It calls the port through
-    nothing but the wrappers, so a copy of this file in another checkout times that checkout's instances on the
-    same values: a parent and a change are compared in one call, each in a process of its own, parent, change,
-    change, parent.
+    tables) and head dim the forward with its LSE, at a global site the sweep after its pre-pass (K2's, or at
+    fp32 the dq and dk/dv pair alone), and the pair (``_pair_ms``: ``flash_bwd_dq`` with its pre-pass, plus
+    ``flash_bwd_dkv``); for each of ``halo_dims`` the halo forward and pair (``_halo_pair_ms``) at
+    WIDE_HALO_SHAPE. Every site in bf16 first, then in fp16 on the same values, then at fp32 on the same values
+    at the head dims of ``f32_dims``, so that a time follows the same work on any tree; no check. It calls the
+    port through nothing but the wrappers, so a copy of this file in another checkout times that checkout's
+    instances on the same values: a parent and a change are compared in one call, each in a process of its
+    own, parent, change, change, parent.
 
         python3 -c "import chip_smoke as c; c.phase_device(); c.ab()"
         python3 -c "import chip_smoke as c; c.phase_device(); c.ab(c.F16_PAIR_SITES, c.F16_HALO_DIMS)"
@@ -2495,6 +2701,9 @@ def ab(sites=AB_SITES, halo_dims=()) -> None:
                 "wgmma fwd": fa.flash_fwd, "wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv,
                 "sweep": fa.flash_bwd_sweep, "halo fwd": ha.halo_fwd, "halo dq": ha.halo_bwd_dq,
                 "halo dk/dv": ha.halo_bwd_dkv}
+    counters.update({f"f32x6 {kind}": getattr(fa, name) for kind, name in (("dq", "f32x6_bwd_dq"),
+                                                                           ("dk/dv", "f32x6_bwd_dkv"))
+                     if hasattr(fa, name)})  # a parent before csrc/flash_f32x6.cuh has none
     B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
     frame = (W, shard * T_h, n * T_h)
 
@@ -2516,22 +2725,23 @@ def ab(sites=AB_SITES, halo_dims=()) -> None:
         ms["dq"], ms["dkv"] = _halo_pair_ms(q, k, v, do, frame, scale)
         return ms
 
-    def each_site():
-        """(where, the fp16 operands, their timer, its other arguments) of each site in turn."""
+    def each_site(f32: bool):
+        """(where, the fp16 operands, their timer, its other arguments) of each site in turn (``f32``: at the
+        head dims of ``f32_dims``, and no halo)."""
         for label, B, T, H, window, dims in sites:
-            for D in dims:
+            for D in f32_dims if f32 else dims:
                 q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D + T, D, torch.float16)
                 yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}",
                        (q, k_rot, v, do), windowed, (cos, sin, window))
-        for D in halo_dims:
+        for D in () if f32 else halo_dims:
             g = torch.Generator(device="cuda").manual_seed(2190 + D)
             q, do = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda").half() for _ in range(2))
             k, v = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda").half() for _ in range(2))
             yield f"halo B={B_h} T_local={T_h} W={W} shard {shard + 1} of {n} D={D}", (q, k, v, do), halo, ()
 
     times = {}
-    for dt in (torch.bfloat16, torch.float16):
-        for where, operands, timer, rest in each_site():
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for where, operands, timer, rest in each_site(dt == torch.float32):
             ops = tuple(x.to(dt) for x in operands)
             del operands
             before = {name: c.launches for name, c in counters.items()}
@@ -2742,11 +2952,12 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     """(d) Gradients at a form beside bf16/64: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
     float32 through the plain versions on the card. fp32: the forms forward, pre-pass, dq, dk/dv and
-    post-pass a site, and no wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
+    post-pass a site and csrc/flash_f32x6.cuh's dq and dk/dv (no forms dq or dk/dv), and no other wgmma
+    kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
     (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv; bf16 and fp16 above
     D = 256 (phase 26): the same, with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as
     K1 and K2). Returns the launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and
-    flash_xwide's as "xwide")."""
+    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_dq", "x6_dkv", "x6_split")."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -2781,8 +2992,9 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     hopper = _all_launches(fa, ha)
     _forms_counts(reset=True)
     _xwide_counts(reset=True)
+    _x6_counts(reset=True)
     loss = run(model, net)
-    counts, xwide = _forms_counts(), _xwide_counts()
+    counts, xwide, x6 = _forms_counts(), _xwide_counts(), _x6_counts()
     wgmma = [a - b for a, b in zip(_all_launches(fa, ha), hopper)]
     moved = any(wgmma)
     loss32 = run(model32, ref)
@@ -2797,16 +3009,17 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     _log(f"[forms grad check] {dtype} D={dim_head}, dim_h=512, 13 sites, B={B} T={T}: loss through the forms kernels "
          f"{loss:.6f}, fp32 plain {loss32:.6f} (rel {rel_loss:.3e}, bound {loss_tol}); gradient rel L2 {rel_all:.3e}, "
          f"attention projections alone {rel_attn:.3e} (bound {grad_tol}); forms launches {counts}; flash_xwide "
-         f"launches {xwide}")
+         f"launches {xwide}; flash_f32x6 launches {x6}")
     if not (np.isfinite(loss) and torch.isfinite(g).all()):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: non-finite loss or gradient")
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
                              f"{rel_all:.3e}, attention {rel_attn:.3e}")
-    if f32:
+    if f32:  # the forms forward, pre-pass and post-pass, and csrc/flash_f32x6.cuh's pair (k, v, qs and do split)
         _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                            {"fwd": sites, "prep": sites, "dq": sites, "dkv": sites, "post": sites, "merge": 0}, moved)
-        return counts
+                            {"fwd": sites, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                            moved or x6 != {"dq": sites, "dkv": sites, "split": 6 * sites})
+        return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}}
     # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family; above D =
     # 256 those are csrc/flash_xwide.cuh's forward and its pair between the forms pre-pass and post-pass
     wide = sites if dim_head > 256 else 0
@@ -2819,7 +3032,9 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
 def phase_forms_train(workdir: Path) -> dict:
     """(a) fp32 crop training: ``trainer.train`` with ``mixed_precision="no"`` (float32 throughout) at
     dim_h=512, B=4, T=4096, dummy data, 2 steps, every site global, no rematerialisation: one forms forward,
-    pre-pass, dq, dk/dv and post-pass a site and step, no wgmma launch. Returns the forms launches."""
+    pre-pass and post-pass and one dq and dk/dv of csrc/flash_f32x6.cuh a site and step, no forms dq or
+    dk/dv and no other wgmma launch. Returns the forms launches and flash_f32x6's ("x6_dq", "x6_dkv",
+    "x6_split")."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
@@ -2833,19 +3048,21 @@ def phase_forms_train(workdir: Path) -> dict:
     # _train_with_resume sets K1-K3's counters to 0 and returns their launches; the others must not move
     others = _all_launches(fa, ha)[4:]
     _forms_counts(reset=True)
+    _x6_counts(reset=True)
     history, launches, peak = _train_with_resume(cfg, steps, "forms train fp32")
-    counts = _forms_counts()
+    counts, x6 = _forms_counts(), _x6_counts()
     _log(f"[forms train] fp32 (mixed precision no) dim_h=512 B=4 T=4096, {steps} steps: loss "
          f"{[round(h['loss'], 4) for h in history]}; grad_norm {[round(h['grad_norm'], 4) for h in history]}; "
          f"{[round(h['seconds'], 4) for h in history]} s/step; peak memory {peak:.2f} GiB; forms launches {counts} "
-         f"(sites {sites}); wgmma launches {launches}")
-    _forms_launch_check("forms train fp32", counts, {"fwd": sites * steps, "prep": sites * steps, "dq": sites * steps,
-                                                      "dkv": sites * steps, "post": sites * steps, "merge": 0},
-                        _all_launches(fa, ha)[4:] != others or any(launches.values()))
-    return counts
+         f"(sites {sites}); flash_f32x6 launches {x6}; other wgmma launches {launches}")
+    n = sites * steps
+    _forms_launch_check("forms train fp32", counts, {"fwd": n, "prep": n, "dq": 0, "dkv": 0, "post": n, "merge": 0},
+                        _all_launches(fa, ha)[4:] != others or any(launches.values())
+                        or x6 != {"dq": n, "dkv": n, "split": 6 * n})
+    return {**counts, **{f"x6_{kind}": m for kind, m in x6.items()}}
 
 
-def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
+def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]:
     """Phase 23, the forms family and the forms beside bf16/64 on the card: (f) fp16 and D > 256 against
     plain, the kernel-level checks and times of every forms instance, of K1 and K2 at D = 128 ... 256, of
     the windowed pair at D = 128 ... 256 (K5a / K5b at 128), of K1 and K2's sweep at fp16 and of the windowed
@@ -2855,7 +3072,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
     paths driven through the port's entry points ((a), (b), (c) or (h), (d)); then K1's and K2's records by
     head dim and their launches at D = 128 on (c), (d) and (g); then the windowed pair's records by (wrapper,
     head dim); then K1's and K2's fp16 records and their launches on (h) and (d) at fp16/64; then the fp16
-    windowed pair's records by (wrapper, head dim)."""
+    windowed pair's records by (wrapper, head dim); then csrc/flash_f32x6.cuh's launches on (a) and (d)."""
     from osufusion_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
@@ -2902,14 +3119,20 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict]:
         runs[FORMS_MAIN[0]].append(phase_forms_train(Path(tmp)))
     launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
                 for inst, rs in runs.items()}
+    # csrc/flash_f32x6.cuh's kernels on (a) and (d) at fp32/64
+    x6 = {kind: sum(r.get(f"x6_{kind}", 0) for r in runs[FORMS_MAIN[0]]) for kind in ("dq", "dkv", "split")}
     _log(f"[forms] launches on paths (a)-(d) and (h) by instance: "
          + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items())
-         + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}; K1 and K2 at fp16/64 on (h) and (d): {f16}")
+         + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}; K1 and K2 at fp16/64 on (h) and (d): {f16}; "
+         + f"flash_f32x6 at fp32/64 on (a) and (d): {x6}")
     if not (wide["fwd"] > 0 and wide["bwd"] > 0):
         raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
     if not all(f16.values()):
         raise AssertionError(f"K1 or K2 at fp16 launched no time on the paths: {f16}")
-    return records, launches, wide_records, {128: wide}, pair_records, f16_records, {64: f16}, f16_pair_records
+    if not all(x6.values()):
+        raise AssertionError(f"a flash_f32x6 kernel launched no time on the paths: {x6}")
+    return (records, launches, wide_records, {128: wide}, pair_records, f16_records, {64: f16}, f16_pair_records,
+            x6)
 
 
 # the Pallas body each forms entry point stands in for (osufusion_tpu/ops/pallas_attention.py): the forward
@@ -3000,7 +3223,8 @@ def phase_forms_shards() -> dict:
     dq and dk/dv at FORMS_HALO against their plain versions, the slab's rows outside the song random
     (planted faults: the slab one key off its frame, an LSE off by LSE_FAULT), and the ring over two shards as ``LocalRing``
     threads at FORMS_RING against its plain parts (planted faults: the second hop left out of the merge, the
-    second sweep storing). At fp32/64 every launch is a forms kernel's; at bf16/128 the halo pair is the
+    second sweep storing). At fp32/64 the forward and the helpers are forms kernels and dq and dk/dv
+    csrc/flash_f32x6.cuh's; at bf16/128 the halo pair is the
     wgmma pair's halo instances K5a / K5b and the forward K1's, with no forms forward, dq or dk/dv. Returns
     the forms launches and the ring's largest error of o (the merge's output), each by instance."""
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -3013,6 +3237,7 @@ def phase_forms_shards() -> dict:
         name, scale = f"{_dtype_name(dt)}/{D}", D**-0.5
         o_rel_tol, o_abs_tol, lse_tol, g_rel_tol, g_abs_tol = _forms_tols(dt)
         _forms_counts(reset=True)
+        _x6_counts(reset=True)
         halo_before = ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches
         B, T, H, W, n, shard = FORMS_HALO
         g0, t_global = shard * T, n * T
@@ -3075,13 +3300,17 @@ def phase_forms_shards() -> dict:
                                       halo_before)]
         _log(f"[forms shards] {name}: forms launches {counts}; wgmma halo forward, dq, dk/dv launches {halo}")
         # bf16/128: the halo pair runs K1's and the windowed pair's wgmma instances, the ring K1 and K2's sweep, so
-        # no forms forward, dq or dk/dv; fp32/64: the forms kernels throughout, no wgmma halo kernel
+        # no forms forward, dq or dk/dv; fp32/64: the forms forward, pre-pass, post-pass and merge with
+        # csrc/flash_f32x6.cuh's dq and dk/dv, no forms dq or dk/dv and no other wgmma halo kernel
         wgmma = dt == torch.bfloat16
+        x6 = _x6_counts()
         if wgmma and not (counts["fwd"] == counts["dq"] == counts["dkv"] == 0 and min(halo) > 0):
             failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want no forms forward, dq or "
                             "dk/dv and the wgmma halo kernels")
-        if not wgmma and not (not any(halo) and counts["dq"] > 0 and counts["dkv"] > 0):
-            failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want the forms kernels alone")
+        if not wgmma and not (not any(halo) and counts["dq"] == counts["dkv"] == 0 and counts["fwd"] > 0
+                              and x6["dq"] > 0 and x6["dkv"] > 0):
+            failures.append(f"{name}: forms launches {counts}, flash_f32x6 {x6}, wgmma halo launches {halo}; want the "
+                            "forms forward and helpers with the fp32 pair")
     if failures:
         raise AssertionError("forms shards: " + "; ".join(failures))
     return {"launches": launches, "merge_err": merge_err}
@@ -4323,9 +4552,11 @@ def main() -> int:
         phase_dpm_request(model, served, Path(tmp))
     del model, served, song, ddim50
     (forms_records, forms_launches, wide_records, wide_launches, pair_records, f16_records, f16_launches,
-     f16_pair_records) = phase_forms()
+     f16_pair_records, x6_launches) = phase_forms()
     torch.cuda.empty_cache()
     xwide_records = phase_xwide_kernels()
+    torch.cuda.empty_cache()
+    x6_records = phase_f32x6_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         xwide_launches = phase_xwide_paths(Path(tmp))
     if not all(n > 0 for n in xwide_launches.values()):
@@ -4413,6 +4644,7 @@ def main() -> int:
         *_f16_json(f16_records, f16_launches),
         *_f16_pair_json(f16_pair_records, f16_pair_launches),
         *_xwide_json(xwide_records, xwide_launches),
+        *_x6_json(x6_records, x6_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,769 @@
+// The fp32 attention backward pair (dq, dk/dv) on the tensor cores, for
+// Hopper (sm_90a), at D = 64, 128, 192 and 256: every fp32 product as six
+// bf16 wgmma products summed in fp32 (XLA's BF16_BF16_F32_X6), in place of
+// flash_forms.cu's FMA bodies (forms_dq_kernel<float, D>, forms_dkv_kernel<
+// float, D>). The entry points are flash_f32x6.cu's.
+//
+// Replaces, at fp32 and those head dims, osufusion_tpu/ops/pallas_attention.py::
+//  * _dq_kernel (:435), _halo_dq_kernel (:1054) and the dq part of
+//    _bwd_fused_kernel (:575, also each hop of _ring_bwd :1338):
+//    x6_dq_kernel;
+//  * _dkv_kernel (:507), _halo_dkv_kernel (:1099) and the dk/dv part of
+//    _bwd_fused_kernel: x6_dkv_kernel, which sums the G query heads of a KV
+//    head.
+// Both read the forms pre-pass's scratch (flash_forms.cu's forms_prep_kernel:
+// qs in fp32, do in group-major order, the LSE and delta padded to 64-row
+// tiles), and take qs and do, and k and v, as their bf16 pieces (x6_split,
+// below). dq_acc, dk and dv are stored, or with `accumulate` added to (the
+// ring's hops); the forms post-pass scales and un-rotates dq, as for the FMA
+// bodies. Every backward wrapper at fp32 and these head dims runs them: the
+// global backward, the ring's sweeps, the windowed pair and the halo pair.
+//
+// The function is the FMA bodies' (flash_forms.cu at T = float):
+//   dq_acc  (+)= ds k                 ds = p (do v^T - delta), p = exp2(qs k^T - lse2)
+//   dk      (+)= ln(2) ds^T qs,  dv (+)= p^T do
+// The arithmetic. Hopper has no full-fp32 tensor-core product (TF32 keeps 10
+// bits of mantissa), so each fp32 value x is split exactly into three bf16
+// pieces, x = b0 + b1 + b2 with b0 = rn(x), b1 = rn(x - b0), b2 = x - b0 - b1
+// (8 + 8 + 8 bits of x's 24, each piece carrying its own sign, so b2 needs
+// no rounding), and each fp32 product X Y becomes the six bf16 products
+// X_i Y_j with i + j <= 2, accumulated in one fp32 accumulator. The terms
+// left out (i + j >= 3) are below 2^-24 of the product, so the result is as
+// exact as the fp32 arithmetic it replaces (5.8e-9 relative L2 against fp64
+// on a 256 x 4096 x 256 product, fp32's own SGEMM 2.9e-7). The operands
+// streamed through shared memory (k, v in dq; qs, do in dk/dv) are split once
+// in device memory by x6_split_kernel, as rows [b0 | b1 | b2] of 3 D bf16;
+// P and dS (P^T, dS^T) are split in registers, from the fp32 accumulator into
+// the A fragments of wgmma (x6_frags). Per 64-column atom a of a product the
+// six terms are issued as three groups, one per streamed piece, the small
+// terms first: Y2 (X0 Y2), Y1 (X1 Y1, X0 Y1), then Y0 (X2 Y0, X1 Y0, X0 Y0).
+// One level-two term (X2 Y0) follows a level-one term (X0 Y1); each addition
+// rounds relative to the accumulator, which from the second atom on holds the
+// whole sum of the atoms before, so the order costs nothing measurable
+// (tests/test_torch_f32x6.py emulates it).
+// X6 accumulation. On the H100 the error of a wgmma fp32 accumulator grows
+// with the number of products added into it, about 1.3e-8 of the sum per
+// 16-wide K step, as a rounding that is not to nearest would (dk and dv over
+// 65536 rows, 24576 steps, read 3.1e-4 relative L2 against fp32; dq over 4096
+// keys, 1536 steps, 2.6e-5), where fp32 FMAs rounding to nearest stay near
+// 1e-7. So every accumulator of dq, dk and dv
+// starts from zero each X6_FLUSH_TILES tiles and its sum goes to device
+// memory (stored by the first flush of a launch that does not accumulate,
+// added after by red.global.add, which rounds to nearest and does not wait),
+// so that it takes at most 8 x 24 steps while it holds about 8 / n_tiles of
+// the sum: the error is bounded by the flush period, not by the length of
+// the song.
+//
+// Bound: compute, 6 x (6 D FLOP per visited (query, key) pair in dq, 8 D in
+// dk/dv) at the tensor cores' bf16 rate, 989 / 6 = 164.8 TFLOP/s of fp32
+// work; a row meets up to W + 1 or S keys for a few kilobytes of traffic.
+//
+// Design: flash_xwide.cuh's pair (two consumer warpgroups behind a producer
+// warpgroup that feeds one ring of 64-column atoms to each; the head dim at
+// run time; its rings, XwRing / XwFeed, and helpers are used as they are),
+// with three changes for the pieces:
+//  * Shared memory. A 64-row tile of three pieces takes 3 x 2 x 64 x D bytes,
+//    96 KB at D = 256, and the block keeps two such operands resident (qs and
+//    do in dq, k and v in dk/dv): 192 KB, which leaves no room for the rings.
+//    So only pieces 0 and 1 of the resident rows stay in shared memory (4 D / 64
+//    atoms of 8 KB, 128 KB at D = 256), and piece 2 (X2) streams through the
+//    ring each tile beside Y0, the group that needs it; the rings get the
+//    rest: 11 / 9 / 7 / 5 slots each at D = 64 / 128 / 192 / 256.
+//  * Groups of one or two atoms (X6Take): a group's atoms are released
+//    together once the group after it is issued and the group itself is done,
+//    so at most four atoms are held; five slots keep one group loading.
+//  * The hand-overs stay fp32: P (P^T) crosses from warpgroup 0 to 1
+//    unrounded, in dq dS crosses back over P in the same buffer (each thread
+//    reads and writes only its own column of it), and each warpgroup splits
+//    what it needs into its own fragments. In dk/dv one P^T buffer serves
+//    both warpgroups: warpgroup 1 signals on barrier 4 once it has read it.
+//  * Per tile of 64 keys (dq) or 64 rows (dk/dv):
+//      dq:    warpgroup 0 S = qs K^T, P, to 1; 1 dP = do V^T and dS = P (dP -
+//             delta), back to 0; both dQ[:, own atoms] += dS K (0 the first
+//             ceil(A / 2) atoms, 1 the rest);
+//      dk/dv: warpgroup 0 S^T = K qs^T, P^T, to 1, and dV += P^T do;
+//             1 dP^T = V do^T, dS^T = P^T (dP^T - delta), dK += dS^T qs.
+//  * Registers (a consumer thread, of 240): S or dP 32 + the three pieces'
+//    fragments 48 + dQ at most 2 x 32, or dV or dK at most 4 x 32; in dk/dv
+//    the fragments are done with before the next S^T or dP^T begins, and the
+//    tile's LSE or delta is prefetched into L1 and read after the products,
+//    so that neither takes registers beside them.
+//  * Masks as in flash_xwide.cuh: only a tile at the window's edge or past
+//    the keys that exist ([kf.lo, kf.hi)) is masked.
+//
+// C ABI (loaded with ctypes): f32x6_bwd_dq and f32x6_bwd_dkv take
+// flash_forms.cu's forms_bwd_dq's and forms_bwd_dkv's arguments without the
+// type code (the head dim first; k, v, qs_g and do_rows as their pieces),
+// and return a cudaError_t (cudaErrorInvalidValue for a head dim outside 64
+// ... 256 or not a multiple of 64), or minus the CUresult of a TMA descriptor
+// that failed to encode; f32x6_split writes the pieces.
+//
+// Everything sits in an unnamed namespace, so each library gets its own copy.
+
+#pragma once
+
+#include "flash_xwide.cuh"
+
+namespace {
+
+constexpr int X6_MAX_D = 256;
+constexpr int X6_DQ_ATOMS = 2;   // dq atoms of either warpgroup at most
+constexpr int X6_DKV_ATOMS = 4;  // dk (and dv) atoms of a block: every atom up to X6_MAX_D
+constexpr int X6_SPLIT_THREADS = 256;
+// tiles whose products a wgmma accumulator takes before its sum goes to device memory (X6 accumulation, below)
+constexpr int X6_FLUSH_TILES = 8;
+
+// ---- the split ----
+
+// x (n_rows, D) fp32 -> out (n_rows, 3 D) bf16, row [b0 | b1 | b2]: eight
+// elements a thread, two 16-byte loads and three 16-byte stores
+__global__ void x6_split_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ out, size_t n_rows, int D) {
+  const size_t chunks = n_rows * (D / 8);
+  for (size_t c = blockIdx.x * (size_t)X6_SPLIT_THREADS + threadIdx.x; c < chunks;
+       c += (size_t)gridDim.x * X6_SPLIT_THREADS) {
+    const size_t row = c / (D / 8);
+    const int col = (int)(c % (D / 8)) * 8;
+    const float4* src = reinterpret_cast<const float4*>(x + row * D + col);
+    const float4 lo = src[0], hi = src[1];
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t p[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 b0 = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      const float2 h0 = __bfloat1622float2(b0);
+      const float r0 = v[2 * e] - h0.x, r1 = v[2 * e + 1] - h0.y;  // exact
+      const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
+      const float2 h1 = __bfloat1622float2(b1);
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0 - h1.x, r1 - h1.y);  // exact in bf16
+      p[0][e] = *reinterpret_cast<const uint32_t*>(&b0);
+      p[1][e] = *reinterpret_cast<const uint32_t*>(&b1);
+      p[2][e] = *reinterpret_cast<const uint32_t*>(&b2);
+    }
+    __nv_bfloat16* dst = out + row * 3 * D + col;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      *reinterpret_cast<uint4*>(dst + i * D) = make_uint4(p[i][0], p[i][1], p[i][2], p[i][3]);
+  }
+}
+
+// the three pieces of a 64 x 64 fp32 accumulator (one per thread: s[32]) as
+// the A fragments of four 16-wide K steps each, hopper.cuh's a_frag layout
+__device__ __forceinline__ void x6_frags(uint32_t (&f)[3][4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = s[8 * j + 2 * e], x1 = s[8 * j + 2 * e + 1];
+      const __nv_bfloat162 b0 = __floats2bfloat162_rn(x0, x1);
+      const float2 h0 = __bfloat1622float2(b0);
+      const float r0 = x0 - h0.x, r1 = x1 - h0.y;
+      const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
+      const float2 h1 = __bfloat1622float2(b1);
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0 - h1.x, r1 - h1.y);
+      f[0][j][e] = *reinterpret_cast<const uint32_t*>(&b0);
+      f[1][j][e] = *reinterpret_cast<const uint32_t*>(&b1);
+      f[2][j][e] = *reinterpret_cast<const uint32_t*>(&b2);
+    }
+}
+
+__device__ __forceinline__ void x6_fence(uint32_t (&f)[3][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) reg_fence(f[i]);
+}
+
+// brings the 128-byte line at p into L1 (no register holds it)
+__device__ __forceinline__ void x6_prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// *p (+)= x, y at two neighbouring floats: stored, or added by the L2's
+// atomic units (rounding to nearest; no wait for the old value)
+__device__ __forceinline__ void x6_put2(float* p, float x, float y, bool store) {
+  if (store) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(x) : "memory");
+    asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p + 1), "f"(y) : "memory");
+  }
+}
+
+// arrive on named barrier `id` without waiting (the other side syncs on it)
+__device__ __forceinline__ void x6_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- the consumer's side of a ring, in groups of one or two atoms ----
+
+// A warpgroup takes the atoms of its ring in order, a product group reading
+// the atoms taken since the last issued(); a group's atoms go back to the
+// producer together, once the group after it is issued and it is done (two
+// groups in flight, at most four atoms held)
+struct X6Take {
+  XwRing r;
+  int lane;
+  XwPos at;
+  XwPos first;      // the first atom of the group being taken
+  int taking = 0;   // its atoms so far
+  XwPos held_at;    // the first atom of the last group issued, not yet released
+  int held = 0;     // its atoms; 0: none
+  // the next atom, once it has arrived
+  __device__ __forceinline__ const void* take() {
+    if (taking++ == 0) first = at;
+    mbar_wait(&r.full[at.st], at.phase);
+    const void* p = r.slots + at.st * r.bytes;
+    at.advance(r.n);
+    return p;
+  }
+  // after the group that reads the atoms taken is committed: the group before
+  // it is done, so its atoms go back to the producer
+  __device__ __forceinline__ void issued() {
+    if (held > 0) {
+      wgmma_wait<1>();
+      release(held_at, held);
+    }
+    held_at = first;
+    held = taking;
+    taking = 0;
+  }
+  // every group of the warpgroup is done and every atom released
+  __device__ __forceinline__ void drain() {
+    wgmma_wait<0>();
+    if (held > 0) release(held_at, held);
+    held = 0;
+  }
+  __device__ __forceinline__ void release(XwPos p, int n) {
+    __syncwarp();
+    if (lane == 0)
+      for (int i = 0; i < n; ++i) {
+        mbar_arrive(&r.empty[p.st]);
+        p.advance(r.n);
+      }
+  }
+};
+
+// The producer's order of one product's stream per atom a, the same for
+// every product of a resident X and a streamed Y (X6Take's groups): Y2[a],
+// Y1[a], X2[a], Y0[a]. y(dst, bar, piece, a) and x2(dst, bar, a) load one atom.
+template <typename LoadY, typename LoadX2>
+__device__ __forceinline__ void x6_feed_dots(XwFeed& feed, int A, LoadY y, LoadX2 x2) {
+  for (int a = 0; a < A; ++a) {
+    feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 2, a); });
+    feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 1, a); });
+    feed.push([&](void* dst, uint64_t* bar) { x2(dst, bar, a); });
+    feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 0, a); });
+  }
+}
+
+// ... and of an outer product's over atoms [c0, c1): Y2[a], Y1[a], Y0[a]
+template <typename LoadY>
+__device__ __forceinline__ void x6_feed_outer(XwFeed& feed, int c0, int c1, LoadY y) {
+  for (int a = c0; a < c1; ++a)
+    for (int p = 2; p >= 0; --p) feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, p, a); });
+}
+
+// S (64 x 64, fp32) = sum over the A atoms of X_a Y_a^T in six products,
+// both K-major: X's pieces 0 and 1 resident (piece i of atom a at x01 + (i A
+// + a) XW_ATOM), its piece 2 and Y's three pieces from the ring in
+// x6_feed_dots' order
+__device__ __forceinline__ void x6_dots(float (&s)[32], const __nv_bfloat16* x01, int A, X6Take& rd) {
+  using E = __nv_bfloat16;
+  for (int a = 0; a < A; ++a) {
+    const uint64_t x0 = desc_kmajor(x01 + a * XW_ATOM), x1 = desc_kmajor(x01 + (A + a) * XW_ATOM);
+    const uint64_t y2 = desc_kmajor(rd.take());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y2 + 2 * kk, a > 0 || kk > 0);
+    wgmma_commit();
+    rd.issued();
+    const uint64_t y1 = desc_kmajor(rd.take());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y1 + 2 * kk, 1);
+    wgmma_commit();
+    rd.issued();
+    const uint64_t x2 = desc_kmajor(rd.take()), y0 = desc_kmajor(rd.take());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x1 + 2 * kk, y0 + 2 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y0 + 2 * kk, 1);
+    wgmma_commit();
+    rd.issued();
+  }
+}
+
+// acc[i] (64 x 64 columns of the i-th atom, fp32) += F Y_i for the first n
+// of the N atoms in six products: F (64 x 64) as its three pieces' fragments,
+// Y_i's pieces from the ring in x6_feed_outer's order, read MN-major (their
+// 64 rows are the reduction)
+template <int N>
+__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][4][4], int n, X6Take& rd) {
+  using E = __nv_bfloat16;
+  constexpr uint64_t K_STEP = 16 * 128 >> 4;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) {
+      const uint64_t y2 = desc_mnmajor(rd.take());
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y2 + j * K_STEP, 1);
+      wgmma_commit();
+      rd.issued();
+      const uint64_t y1 = desc_mnmajor(rd.take());
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y1 + j * K_STEP, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y1 + j * K_STEP, 1);
+      wgmma_commit();
+      rd.issued();
+      const uint64_t y0 = desc_mnmajor(rd.take());
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[2][j], y0 + j * K_STEP, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y0 + j * K_STEP, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y0 + j * K_STEP, 1);
+      wgmma_commit();
+      rd.issued();
+    }
+  }
+}
+
+// the shared memory before the two rings at A = D / 64 atoms: pieces 0 and 1
+// of the two resident operands, the fp32 hand-over buffer, the barriers
+__host__ __device__ constexpr int x6_fixed(int A) { return xw_align(4 * A * XW_ATOM_BYTES + 32 * 128 * 4 + XW_BARS); }
+static_assert(xw_slots(x6_fixed(X6_MAX_D / 64)) >= 5, "each ring keeps a group loading beside four held atoms");
+static_assert(X6_MAX_D / 64 <= 2 * X6_DQ_ATOMS && X6_MAX_D / 64 <= X6_DKV_ATOMS, "one block keeps every column");
+
+// ---- dq ----
+
+// dq_acc (group-major, fp32) (+)= ds k for the block's 64 group rows over
+// the keys they see. grid (pad / 64, B * Kv). kmap / vmap: the pieces of k
+// and v (B, S, Kv, 3 D); qmap / domap: those of qs and do (B * Kv, rows, 3 D).
+__global__ void __launch_bounds__(XW_THREADS, 1)
+x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+             const float* __restrict__ lse_g, const float* __restrict__ delta_g, float* __restrict__ dq_acc, int T,
+             int H, int Kv, int D, int pad, int window, KeyFrame kf, int accumulate, int slots) {
+  using E = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int A = D / 64;
+  E* Qs = reinterpret_cast<E*>(smem);  // [2 pieces][A][64][64] qs
+  E* Os = Qs + 2 * A * XW_ATOM;        // [2][A][64][64] do
+  float* xp = reinterpret_cast<float*>(Os + 2 * A * XW_ATOM);  // [32][128] P, then dS, fp32
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xp + 32 * 128);
+  unsigned char* rings = smem + x6_fixed(A);
+  const XwRing ring0 = xw_ring(rings, bars, slots);
+  const XwRing ring1 = xw_ring(rings + slots * XW_ATOM_BYTES, bars + 2 * XW_MAX_SLOTS, slots);
+  uint64_t* row_bar = bars + 4 * XW_MAX_SLOTS;
+
+  const size_t grp = blockIdx.y;
+  const int b = grp / Kv, kv = grp % Kv;
+  const int G = H / Kv, rows = T * G;
+  const int r0 = blockIdx.x * XW_ROWS;
+  const bool local = window >= 0;
+  const int w2 = window / 2;
+  const int t_lo = r0 / G, t_hi = (min(r0 + XW_ROWS, rows) - 1) / G;
+  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);
+  const int kv_lo = span.lo;
+  const int n_tiles = (span.hi - kv_lo + XW_ROWS - 1) / XW_ROWS;
+  const int n0 = A - A / 2, n1 = A / 2;  // dq atoms of warpgroup 0 (the first), 1 (the rest)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    xw_init_ring(ring0);
+    xw_init_ring(ring1);
+    mbar_init(row_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads the rows and feeds ring 0, warp 9 ring 1
+    setmaxnreg_dec<XW_PRODUCER_REGS>();
+    if (lane == 0 && warp == 8) {
+      mbar_expect_tx(row_bar, 4 * A * XW_ATOM_BYTES);
+      for (int i = 0; i < 2; ++i)
+        for (int a = 0; a < A; ++a) {  // rows past T*G arrive as zeros
+          tma_load_3d(Qs + (i * A + a) * XW_ATOM, &qmap, row_bar, i * D + 64 * a, r0, (int)grp);
+          tma_load_3d(Os + (i * A + a) * XW_ATOM, &domap, row_bar, i * D + 64 * a, r0, (int)grp);
+        }
+    }
+    if (lane == 0 && warp < 10) {
+      XwFeed feed{warp == 8 ? ring0 : ring1};
+      const CUtensorMap* rows_map = warp == 8 ? &qmap : &domap;  // X2 of S (qs) or of dP (do)
+      const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // Y of S (k) or of dP (v)
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s0 = kv_lo + it * XW_ROWS;  // keys past S arrive as zeros
+        auto keys = [&](const CUtensorMap* map) {
+          return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b); };
+        };
+        x6_feed_dots(feed, A, keys(keys_map), [&](void* dst, uint64_t* bar, int a) {
+          tma_load_3d(dst, rows_map, bar, 2 * D + 64 * a, r0, (int)grp);
+        });
+        if (warp == 8)
+          x6_feed_outer(feed, 0, n0, keys(&kmap));  // warpgroup 0's dQ += dS K
+        else
+          x6_feed_outer(feed, n0, A, keys(&kmap));  // warpgroup 1's
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<XW_CONSUMER_REGS>();
+
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  float s[32];            // warpgroup 0: S, then P; 1: dP, then dS
+  uint32_t f[3][4][4];    // dS's pieces, the A operand of dQ += dS K
+  float acc[X6_DQ_ATOMS][32];
+  xw_zero(acc);
+  const int mine = wg == 0 ? n0 : n1, first = wg == 0 ? 0 : n0;
+  // the rows' LSE (warpgroup 0) or delta (1) (the scratch is padded to whole tiles, a pad row has +inf and 0),
+  // and the keys each row sees
+  const float* stat = (wg == 0 ? lse_g : delta_g) + grp * pad;
+  const float st[2] = {stat[row_a], stat[row_b]};
+  int vis_lo[2], vis_n[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = (i == 0 ? row_a : row_b) / G;
+    const KeySpan seen = keys_seen(kf, local, w2, t, t);
+    vis_lo[i] = seen.lo;
+    vis_n[i] = max(seen.hi - seen.lo, 0);
+  }
+  mbar_wait(row_bar, 0);
+
+  bool stored = accumulate;  // whether dq_acc holds this launch's first sum (or, accumulating, the hops before)
+  for (int it0 = 0; it0 < n_tiles; it0 += X6_FLUSH_TILES) {
+    const int it1 = min(n_tiles, it0 + X6_FLUSH_TILES);
+    for (int it = it0; it < it1; ++it) {
+      reg_fence(s);
+      wgmma_fence();
+      x6_dots(s, wg == 0 ? Qs : Os, A, rd);  // S = qs K^T (warpgroup 0) or dP = do V^T (1)
+      rd.drain();
+      reg_fence(s);
+      xw_fence(acc);
+      x6_fence(f);
+      if (wg == 0) {
+        const int s0 = kv_lo + it * XW_ROWS;
+        const bool interior = s0 + XW_ROWS <= kf.hi &&
+                              (!local || (s0 - kf.off >= t_hi - w2 && s0 - kf.off + XW_ROWS - 1 <= t_lo + w2));
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2_ftz(s[4 * i + e] - st[e >> 1]);
+            if (!interior) {
+              const int key = s0 + i * 8 + 2 * tq + (e & 1);
+              if ((unsigned)(key - vis_lo[e >> 1]) >= (unsigned)vis_n[e >> 1]) p = 0.f;
+            }
+            xp[(4 * i + e) * 128 + tid] = p;
+          }
+        named_bar_sync(2, 256);  // P is in place
+        named_bar_sync(3, 256);  // warpgroup 1's dS is, over it
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = xp[i * 128 + tid];
+      } else {
+        named_bar_sync(2, 256);  // P is in place
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] = xp[i * 128 + tid] * (s[i] - st[(i >> 1) & 1]);
+          xp[i * 128 + tid] = s[i];
+        }
+        named_bar_sync(3, 256);  // dS is in place; warpgroup 0 reads it before it writes the next tile's P
+      }
+      x6_frags(f, s);
+      x6_fence(f);
+      wgmma_fence();
+      x6_outer<X6_DQ_ATOMS>(acc, f, mine, rd);  // dQ += dS K over the warpgroup's atoms
+    }
+    // the warpgroup's atoms of the rows' dq (no scale: the forms post-pass applies it) go to dq_acc, stored the
+    // first time unless accumulating, added after; acc starts again from zero
+    rd.drain();
+    xw_fence(acc);
+#pragma unroll
+    for (int i = 0; i < X6_DQ_ATOMS; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h == 0 ? row_a : row_b;
+        float* dst = dq_acc + (grp * pad + row) * D + (first + i) * 64 + 2 * tq;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float x = acc[i][4 * t + 2 * h], y = acc[i][4 * t + 2 * h + 1];
+          if (i < mine && row < rows) x6_put2(dst + 8 * t, x, y, !stored);
+        }
+      }
+    stored = true;
+    xw_zero(acc);
+    xw_fence(acc);
+  }
+}
+
+// ---- dk/dv ----
+
+// dk, dv (B, S, Kv, D) fp32 (+)= ln(2) ds^T qs, p^T do over the group rows
+// that see the block's 64 keys; keys outside [kf.lo, kf.hi) get zeros. grid
+// (ceil(S / 64), B * Kv). Maps as x6_dq_kernel's.
+__global__ void __launch_bounds__(XW_THREADS, 1)
+x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
+              const float* __restrict__ lse_g, const float* __restrict__ delta_g, float* __restrict__ dk,
+              float* __restrict__ dv, int T, int S, int H, int Kv, int D, int pad, int window, KeyFrame kf,
+              int accumulate, int slots) {
+  using E = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int A = D / 64;
+  E* Ks = reinterpret_cast<E*>(smem);  // [2 pieces][A][64][64] k of the block's keys
+  E* Vs = Ks + 2 * A * XW_ATOM;        // [2][A][64][64] v
+  float* xp = reinterpret_cast<float*>(Vs + 2 * A * XW_ATOM);  // [32][128] P^T, fp32
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xp + 32 * 128);
+  unsigned char* rings = smem + x6_fixed(A);
+  const XwRing ring0 = xw_ring(rings, bars, slots);
+  const XwRing ring1 = xw_ring(rings + slots * XW_ATOM_BYTES, bars + 2 * XW_MAX_SLOTS, slots);
+  uint64_t* kv_bar = bars + 4 * XW_MAX_SLOTS;
+
+  const size_t grp = blockIdx.y;
+  const int b = grp / Kv, kv = grp % Kv;
+  const int G = H / Kv;
+  const int s0 = blockIdx.x * XW_ROWS;
+  const bool local = window >= 0;
+  const int w2 = window / 2;
+  // the block's keys that exist, [k_lo, k_hi], and the group rows whose window reaches them, [row_lo, row_hi),
+  // from a whole tile on (the rows before the window are masked); no tile for a block with no key inside
+  const int s_last = min(S, s0 + XW_ROWS) - 1;
+  const int k_lo = max(s0, kf.lo), k_hi = min(s_last, kf.hi - 1);
+  const int row_lo = local ? max(0, k_lo - kf.off - w2) * G / XW_ROWS * XW_ROWS : 0;
+  const int row_hi = (local ? min(T, k_hi - kf.off + w2 + 1) : T) * G;
+  const int n_tiles = k_lo <= k_hi ? (row_hi - row_lo + XW_ROWS - 1) / XW_ROWS : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (n_tiles <= 0) {  // no key of the block inside the song: zeros (nothing to add), no sweep
+    if (!accumulate) {
+      for (int i = threadIdx.x; i < XW_ROWS * D / 4; i += XW_THREADS) {
+        const int key = s0 + i / (D / 4);
+        if (key >= S) continue;
+        const size_t at = (((size_t)b * S + key) * Kv + kv) * D + (i % (D / 4)) * 4;
+        *reinterpret_cast<float4*>(dk + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    xw_init_ring(ring0);
+    xw_init_ring(ring1);
+    mbar_init(kv_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads k and v and feeds ring 0, warp 9 ring 1
+    setmaxnreg_dec<XW_PRODUCER_REGS>();
+    if (lane == 0 && warp == 8) {
+      mbar_expect_tx(kv_bar, 4 * A * XW_ATOM_BYTES);
+      for (int i = 0; i < 2; ++i)
+        for (int a = 0; a < A; ++a) {  // keys past S arrive as zeros
+          tma_load_4d(Ks + (i * A + a) * XW_ATOM, &kmap, kv_bar, i * D + 64 * a, kv, s0, b);
+          tma_load_4d(Vs + (i * A + a) * XW_ATOM, &vmap, kv_bar, i * D + 64 * a, kv, s0, b);
+        }
+    }
+    if (lane == 0 && warp < 10) {
+      XwFeed feed{warp == 8 ? ring0 : ring1};
+      const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // X2 of S^T (k) or of dP^T (v)
+      const CUtensorMap* dots_map = warp == 8 ? &qmap : &domap;  // Y of S^T (qs) or of dP^T (do)
+      const CUtensorMap* outer_map = warp == 8 ? &domap : &qmap;  // Y of dV (do) or of dK (qs)
+      for (int it = 0; it < n_tiles; ++it) {
+        const int r0 = row_lo + it * XW_ROWS;  // below pad: rows past T*G arrive as zeros, their lse is +inf
+        auto rows = [&](const CUtensorMap* map) {
+          return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_3d(dst, map, bar, p * D + 64 * a, r0, (int)grp); };
+        };
+        x6_feed_dots(feed, A, rows(dots_map), [&](void* dst, uint64_t* bar, int a) {
+          tma_load_4d(dst, keys_map, bar, 2 * D + 64 * a, kv, s0, b);
+        });
+        x6_feed_outer(feed, 0, A, rows(outer_map));
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<XW_CONSUMER_REGS>();
+
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int g = lane >> 2, tq = lane & 3;
+  const int key_a = s0 + (warp % 4) * 16 + g, key_b = key_a + 8;  // this thread's two keys
+  const bool in_a = key_a >= kf.lo && key_a < kf.hi, in_b = key_b >= kf.lo && key_b < kf.hi;
+  // the timesteps each key is seen from, [vis, vis + vis_n]: the window around its place on the queries'
+  // diagonal; none for a key outside [kf.lo, kf.hi)
+  const int vis_n = local ? 2 * w2 : INT_MAX;
+  const int vis_a = !in_a ? 1 << 30 : local ? key_a - kf.off - w2 : 0;
+  const int vis_b = !in_b ? 1 << 30 : local ? key_b - kf.off - w2 : 0;
+  const bool keys_inside = s0 >= kf.lo && s0 + XW_ROWS <= kf.hi;
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  float s[32];           // warpgroup 0: S^T, then P^T; 1: dP^T, then dS^T (keys x the tile's rows)
+  uint32_t f[3][4][4];   // P^T's or dS^T's pieces, the A operand of the kept product
+  float acc[X6_DKV_ATOMS][32];  // warpgroup 0: dV; 1: dK (times ln 2 when it leaves)
+  xw_zero(acc);
+  mbar_wait(kv_bar, 0);
+
+  bool stored = accumulate;  // whether dk / dv hold this launch's first sum (or, accumulating, the hops before)
+  for (int it0 = 0; it0 < n_tiles; it0 += X6_FLUSH_TILES) {
+    const int it1 = min(n_tiles, it0 + X6_FLUSH_TILES);
+    for (int it = it0; it < it1; ++it) {
+      const int r0 = row_lo + it * XW_ROWS;
+      // the tile's lse (warpgroup 0) or delta (1), 64 rows in two lines, into L1 while the products run: read
+      // after them, so that no register holds them beside the dK or dV accumulators at D = 256 (nor does the
+      // pointer: the kernel's arguments sit in the constant bank)
+      const float* stat = (wg == 0 ? lse_g : delta_g) + grp * pad + r0;
+      if (lane < 2) x6_prefetch_l1(stat + 32 * lane);
+      reg_fence(s);
+      wgmma_fence();
+      x6_dots(s, wg == 0 ? Ks : Vs, A, rd);  // S^T = K qs^T or dP^T = V do^T
+      rd.drain();
+      reg_fence(s);
+      xw_fence(acc);
+      x6_fence(f);
+      // this thread's columns of them: rows r0 + 8 i + 2 tq, + 1
+      float2 st[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) st[i] = *reinterpret_cast<const float2*>(stat + 8 * i + 2 * tq);
+      if (wg == 0) {
+        // p = exp2(s - lse2), zero outside the window and for a key outside [kf.lo, kf.hi); only a tile whose
+        // timesteps touch the window's edge, or a block with such keys, is masked
+        const int t_a = r0 / G, t_b = (r0 + XW_ROWS - 1) / G;
+        const bool interior = keys_inside && (!local || (s_last - kf.off - t_a <= w2 && t_b - (s0 - kf.off) <= w2));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[4 * i] = exp2_ftz(s[4 * i] - st[i].x);
+          s[4 * i + 1] = exp2_ftz(s[4 * i + 1] - st[i].y);
+          s[4 * i + 2] = exp2_ftz(s[4 * i + 2] - st[i].x);
+          s[4 * i + 3] = exp2_ftz(s[4 * i + 3] - st[i].y);
+          if (!interior) {
+            const int row = r0 + 8 * i + 2 * tq;  // this thread's two columns: rows row, row + 1
+            const int tx = row / G, ty = (row + 1) / G;
+            if ((unsigned)(tx - vis_a) > (unsigned)vis_n) s[4 * i] = 0.f;
+            if ((unsigned)(ty - vis_a) > (unsigned)vis_n) s[4 * i + 1] = 0.f;
+            if ((unsigned)(tx - vis_b) > (unsigned)vis_n) s[4 * i + 2] = 0.f;
+            if ((unsigned)(ty - vis_b) > (unsigned)vis_n) s[4 * i + 3] = 0.f;
+          }
+        }
+        if (it > 0) named_bar_sync(4, 256);  // warpgroup 1 has read the last tile's P^T
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xp[i * 128 + tid] = s[i];
+        named_bar_sync(2, 256);  // P^T of tile it is in place
+      } else {
+        named_bar_sync(2, 256);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[4 * i] = xp[(4 * i) * 128 + tid] * (s[4 * i] - st[i].x);
+          s[4 * i + 1] = xp[(4 * i + 1) * 128 + tid] * (s[4 * i + 1] - st[i].y);
+          s[4 * i + 2] = xp[(4 * i + 2) * 128 + tid] * (s[4 * i + 2] - st[i].x);
+          s[4 * i + 3] = xp[(4 * i + 3) * 128 + tid] * (s[4 * i + 3] - st[i].y);
+        }
+        if (it + 1 < n_tiles) x6_bar_arrive(4, 256);  // the buffer is free for the next tile's P^T
+      }
+      x6_frags(f, s);
+      x6_fence(f);
+      wgmma_fence();
+      x6_outer<X6_DKV_ATOMS>(acc, f, A, rd);  // dV += P^T do or dK += dS^T qs
+      // the first group of the next tile's products would wait for these anyway (X6Take::issued); done here,
+      // the fragments are free before S^T or dP^T takes its registers, so that at D = 256 the accumulators,
+      // the fragments and S^T or dP^T are never live together
+      rd.drain();
+      x6_fence(f);
+    }
+    // dv (warpgroup 0) or dk (1) of the block's keys goes to device memory, stored the first time unless
+    // accumulating (a key outside [kf.lo, kf.hi) gets zeros), added after; acc starts again from zero
+    rd.drain();
+    xw_fence(acc);
+    const float mul = wg == 0 ? 1.f : XW_LN2;
+    float* out = (wg == 0 ? dv : dk) + ((size_t)b * S * Kv + kv) * D + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < X6_DKV_ATOMS; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = h == 0 ? key_a : key_b;
+        const bool in = h == 0 ? in_a : in_b;
+        float* dst = out + (size_t)key * Kv * D + i * 64;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const float x = in ? acc[i][4 * t + 2 * h] * mul : 0.f, y = in ? acc[i][4 * t + 2 * h + 1] * mul : 0.f;
+          if (i < A && key < S && (in || !stored)) x6_put2(dst + 8 * t, x, y, !stored);
+        }
+      }
+    stored = true;
+    xw_zero(acc);
+    xw_fence(acc);
+  }
+}
+
+// ---- host ----
+
+inline bool x6_takes(int D) { return D >= 64 && D <= X6_MAX_D && D % 64 == 0; }
+
+// The pair's tensor maps, over the pieces (rows of 3 D bf16): k and v (B, S, Kv, 3 D) in boxes of 64 keys, qs
+// and do rows group-major (B * Kv, T * G, 3 D); boxes of one 64-column atom
+inline int x6_maps(CUtensorMap* maps, const void* k, const void* v, const void* qs_g, const void* do_rows, int B,
+                   int T, int S, int H, int Kv, int D) {
+  using E = __nv_bfloat16;
+  int err = make_kv_map<E>(&maps[0], k, B, S, Kv, XW_ROWS, 3 * D);
+  if (err == 0) err = make_kv_map<E>(&maps[1], v, B, S, Kv, XW_ROWS, 3 * D);
+  if (err == 0) err = xw_rows_map<E>(&maps[2], qs_g, T * (H / Kv), B * Kv, 3 * D);
+  if (err == 0) err = xw_rows_map<E>(&maps[3], do_rows, T * (H / Kv), B * Kv, 3 * D);
+  return err;
+}
+
+inline int launch_x6_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
+                        const void* delta_g, void* dq_acc, int B, int T, int S, int H, int Kv, int D, int pad,
+                        int window, KeyFrame frame, int accumulate, void* stream) {
+  if (!x6_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};
+  CUtensorMap maps[4];
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = x6_maps(maps, k, v, qs_g, do_rows, B, T, S, H, Kv, D);
+  if (err == 0) err = allow_smem(x6_dq_kernel, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int fixed = x6_fixed(D / 64), slots = xw_slots(fixed);
+  x6_dq_kernel<<<dim3(pad / XW_ROWS, B * Kv), XW_THREADS, 1024 + fixed + 2 * slots * XW_ATOM_BYTES,
+                 static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+      static_cast<float*>(dq_acc), T, H, Kv, D, pad, window, frame, accumulate, slots);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_x6_dkv(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
+                         const void* delta_g, void* dk, void* dv, int B, int T, int S, int H, int Kv, int D, int pad,
+                         int window, KeyFrame frame, int accumulate, void* stream) {
+  if (!x6_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> smem_set{0};
+  CUtensorMap maps[4];
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = x6_maps(maps, k, v, qs_g, do_rows, B, T, S, H, Kv, D);
+  if (err == 0) err = allow_smem(x6_dkv_kernel, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int fixed = x6_fixed(D / 64), slots = xw_slots(fixed);
+  x6_dkv_kernel<<<dim3((S + XW_ROWS - 1) / XW_ROWS, B * Kv), XW_THREADS, 1024 + fixed + 2 * slots * XW_ATOM_BYTES,
+                  static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+      static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, D, pad, window, frame, accumulate, slots);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_x6_split(const void* x, void* out, long long n_rows, int D, void* stream) {
+  if (!x6_takes(D) || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  int dev;
+  const int err = bind_device(&dev);
+  if (err != 0) return err;
+  const long long chunks = n_rows * (D / 8);
+  const unsigned blocks = (unsigned)(chunks < 132LL * 64 * X6_SPLIT_THREADS ? (chunks + X6_SPLIT_THREADS - 1) / X6_SPLIT_THREADS
+                                                                           : 132LL * 64);
+  x6_split_kernel<<<blocks, X6_SPLIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), (size_t)n_rows, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,17 +1,20 @@
 // Flash attention in fp32 arithmetic on the FMA units, for Hopper (sm_90a):
 // the "forms" family, which serves every attention form that the wgmma
 // kernels (flash_fwd.cuh, flash_bwd_sweep.cuh, flash_bwd.cu,
-// flash_bwd_windowed.cuh) do not, from one body per kernel templated on the
-// operand type T (float, __nv_bfloat16, __half) and the head dim D (64, 128,
-// 192, 256), and one chunked instance of the forward, dq and dk/dv bodies for
-// any D > 256 that is a multiple of 64 (below). ops/flash_forms.py::
-// kernel_form sends here fp32 operands at every head dim, bf16 and fp16
-// above D = 512, and the pre-pass and post-pass around K2's sweep (and the
-// wgmma pair of flash_xwide.cuh) and the ring's merge at fp16 and at bf16
-// above D = 64. bf16 and fp16 forwards at D <= 256 run the wgmma forward
-// (K1), at D = 320 ... 512 flash_xwide.cuh's, and their dq and dk/dv there the
-// wgmma K2 sweep and windowed pair, or flash_xwide.cuh's pair, so those
-// instances are not built here (FORMS_DISPATCH, below).
+// flash_bwd_windowed.cuh, flash_xwide.cuh, flash_f32x6.cuh) do not: a
+// forward templated on the operand type T (float, __nv_bfloat16, __half) and
+// the head dim D (64, 128, 192, 256), one chunked instance of the forward, dq
+// and dk/dv for any D > 256 that is a multiple of 64 (below), and the pre-pass,
+// post-pass and merge at every T and D. ops/flash_forms.py::
+// kernel_form sends here the fp32 forward at every head dim and the fp32 dq
+// and dk/dv above D = 256, bf16 and fp16 above D = 512, and the pre-pass
+// and post-pass around K2's sweep (and the wgmma pairs of flash_xwide.cuh and
+// flash_f32x6.cuh) and the ring's merge at fp32, at fp16 and at bf16 above D
+// = 64. bf16 and fp16 forwards at D <= 256 run the wgmma forward (K1), at D =
+// 320 ... 512 flash_xwide.cuh's, and their dq and dk/dv there the wgmma K2
+// sweep and windowed pair, or flash_xwide.cuh's pair; fp32's dq and dk/dv at
+// D <= 256 run flash_f32x6.cuh's pair; so those instances are not built here
+// (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -20,10 +23,11 @@
 //    reads KV head h / (H / Kv)), optional fused q-RoPE, o in T and the base-2
 //    LSE in fp32, in the single-device or the halo frame (key_frame.cuh);
 //  * _dq_kernel (:435), _halo_dq_kernel (:1054) and the dq part of
-//    _bwd_fused_kernel (:575): forms_dq_kernel;
+//    _bwd_fused_kernel (:575), above the head dims of the wgmma pairs:
+//    forms_dq_chunked_kernel;
 //  * _dkv_kernel (:507), _halo_dkv_kernel (:1099) and the dk/dv part of
-//    _bwd_fused_kernel: forms_dkv_kernel, which sums the G query heads of a
-//    KV head.
+//    _bwd_fused_kernel, likewise: forms_dkv_chunked_kernel, which sums the G
+//    query heads of a KV head.
 // Global sites take the split pair too: the same function as the fused
 // sweep, without atomics. Beside them are the T- and D-generic instances of
 // the three helpers of the wgmma family: the pre-pass of flash_bwd_prep.cuh
@@ -55,7 +59,10 @@
 // up to W + 1 or S keys for a few hundred bytes of traffic). The chunked
 // instances at bf16 and fp16 run the same FMA arithmetic, so they can reach
 // at most 67 / 989 (~7 %) of their tensor-core bound; they are left only above
-// D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2).
+// D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2). The
+// fp32 dq and dk/dv at D <= 256 moved to the tensor cores as six bf16
+// products per fp32 product (flash_f32x6.cuh); the forward and the chunked
+// instances above 256 stay here.
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
@@ -401,213 +408,6 @@ forms_prep_kernel(const T* __restrict__ q, const T* __restrict__ dout, const T* 
   if (lane == 0) {
     lse_g[grp * pad + r] = lse[((size_t)b * Tq + t) * H + kv * G + r % G];
     delta_g[grp * pad + r] = part;
-  }
-}
-
-// dq_acc (B * Kv, pad, D) fp32, group-major, (+)= ds k over the keys the
-// block's rows see. grid (ceil(T*G / BQ), B * Kv).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-forms_dq_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ qs_g,
-                const T* __restrict__ do_rows, const float* __restrict__ lse_g, const float* __restrict__ delta_g,
-                float* __restrict__ dq_acc, int Tq, int S, int H, int Kv, int pad, int window, KeyFrame frame,
-                int accumulate) {
-  using TL = Tile<D>;
-  constexpr int BK = TL::BK, KPT = TL::KPT, LD = TL::LD, PLD = TL::PLD, CPT = TL::CPT;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* Os = Qs + BQ * LD;                     // do, [BQ][LD]
-  float* Ks = Os + BQ * LD;                     // [BK][LD]
-  float* Vs = Ks + BK * LD;                     // [BK][LD]
-  float* Ds = Vs + BK * LD;                     // dS, [BQ][PLD]
-
-  const size_t grp = blockIdx.y;
-  const int b = grp / Kv, kv = grp % Kv;
-  const int G = H / Kv, rows = Tq * G;
-  const int r0 = blockIdx.x * BQ;
-  const bool local = window >= 0;
-  const int w2 = window / 2;
-  const KeySpan span = keys_seen(frame, local, w2, r0 / G, (min(r0 + BQ, rows) - 1) / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  stage_rows<T, D>(Qs, BQ, [&](int i) { return r0 + i < rows ? qs_g + (grp * rows + r0 + i) * D : nullptr; });
-  stage_rows<T, D>(Os, BQ, [&](int i) { return r0 + i < rows ? do_rows + (grp * rows + r0 + i) * D : nullptr; });
-  float lse_r[RPT], delta_r[RPT], acc[RPT][CPT][4];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    lse_r[i] = lse_g[grp * pad + r0 + ty + 16 * i];  // pad rows: +inf
-    delta_r[i] = delta_g[grp * pad + r0 + ty + 16 * i];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
-  }
-  auto key_ptr = [&](const T* base, int s) { return base + (((size_t)b * S + s) * Kv + kv) * D; };
-  for (int s0 = span.lo; s0 < span.hi; s0 += BK) {
-    __syncthreads();
-    stage_rows<T, D>(Ks, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(k, s0 + j) : nullptr; });
-    stage_rows<T, D>(Vs, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(v, s0 + j) : nullptr; });
-    __syncthreads();
-    float s[RPT][KPT], dp[RPT][KPT];
-    row_key_dots<D>(Qs, Ks, ty, tx, s);
-    row_key_dots<D>(Os, Vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int t = (r0 + ty + 16 * i) / G;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int key = s0 + tx + 16 * j;
-        const float p = key < span.hi && sees(frame, local, w2, t, key) ? exp2f(s[i][j] - lse_r[i]) : 0.f;
-        Ds[(ty + 16 * i) * PLD + tx + 16 * j] = round_t<T>(p * (dp[i][j] - delta_r[i]));
-      }
-    }
-    __syncthreads();
-    rows_times_tile<D>(Ds, Ks, BK, ty, tx, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= rows) continue;
-    float* dst = dq_acc + (grp * pad + r) * D + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      float4* d4 = reinterpret_cast<float4*>(dst + 64 * c);
-      float4 x = make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
-      if (accumulate) {
-        const float4 old = *d4;
-        x.x += old.x;
-        x.y += old.y;
-        x.z += old.z;
-        x.w += old.w;
-      }
-      *d4 = x;
-    }
-  }
-}
-
-// dk, dv (B, S, Kv, D) fp32 (+)= ln(2) ds^T qs, p^T do over the group rows
-// that see the block's BK keys; keys outside [frame.lo, frame.hi) get zeros.
-// grid (ceil(S / BK), B * Kv).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-forms_dkv_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ qs_g,
-                 const T* __restrict__ do_rows, const float* __restrict__ lse_g, const float* __restrict__ delta_g,
-                 float* __restrict__ dk, float* __restrict__ dv, int Tq, int S, int H, int Kv, int pad, int window,
-                 KeyFrame frame, int accumulate) {
-  using TL = Tile<D>;
-  constexpr int BK = TL::BK, KPT = TL::KPT, LD = TL::LD, PLD = TL::PLD, CPT = TL::CPT;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BK][LD]
-  float* Vs = Ks + BK * LD;                     // [BK][LD]
-  float* Qs = Vs + BK * LD;                     // [BQ][LD]
-  float* Os = Qs + BQ * LD;                     // do, [BQ][LD]
-  float* Ps = Os + BQ * LD;                     // [BQ][PLD]
-  float* Ds = Ps + BQ * PLD;                    // [BQ][PLD]
-  float* Ls = Ds + BQ * PLD;                    // [BQ]
-  float* Es = Ls + BQ;                          // delta, [BQ]
-
-  const size_t grp = blockIdx.y;
-  const int b = grp / Kv, kv = grp % Kv;
-  const int G = H / Kv, rows = Tq * G;
-  const int s0 = blockIdx.x * BK;
-  const bool local = window >= 0;
-  const int w2 = window / 2;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // the keys of the block that exist, and the group rows that see them
-  const int k_lo = max(s0, frame.lo), k_hi = min(s0 + BK, frame.hi);
-  int row_lo = 0, row_hi = rows;
-  if (local) {
-    row_lo = max(0, k_lo - frame.off - w2) * G;
-    row_hi = min(Tq, k_hi - 1 - frame.off + w2 + 1) * G;
-  }
-  if (k_hi <= k_lo) row_hi = row_lo;  // no key of the block exists: zeros
-
-  auto key_ptr = [&](const T* base, int s) { return base + (((size_t)b * S + s) * Kv + kv) * D; };
-  stage_rows<T, D>(Ks, BK, [&](int j) { return s0 + j >= k_lo && s0 + j < k_hi ? key_ptr(k, s0 + j) : nullptr; });
-  stage_rows<T, D>(Vs, BK, [&](int j) { return s0 + j >= k_lo && s0 + j < k_hi ? key_ptr(v, s0 + j) : nullptr; });
-  float dk_acc[KPT][CPT][4], dv_acc[KPT][CPT][4];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) dk_acc[i][c][u] = dv_acc[i][c][u] = 0.f;
-
-  for (int r0 = row_lo; r0 < row_hi; r0 += BQ) {
-    __syncthreads();
-    stage_rows<T, D>(Qs, BQ, [&](int i) { return r0 + i < row_hi ? qs_g + (grp * rows + r0 + i) * D : nullptr; });
-    stage_rows<T, D>(Os, BQ, [&](int i) { return r0 + i < row_hi ? do_rows + (grp * rows + r0 + i) * D : nullptr; });
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const bool in = r0 + i < row_hi;
-      Ls[i] = in ? lse_g[grp * pad + r0 + i] : INFINITY;
-      Es[i] = in ? delta_g[grp * pad + r0 + i] : 0.f;
-    }
-    __syncthreads();
-    float s[RPT][KPT], dp[RPT][KPT];
-    row_key_dots<D>(Qs, Ks, ty, tx, s);
-    row_key_dots<D>(Os, Vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int ri = ty + 16 * i;
-      const int t = (r0 + ri) / G;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int key = s0 + tx + 16 * j;
-        const float p = key < S && sees(frame, local, w2, t, key) ? exp2f(s[i][j] - Ls[ri]) : 0.f;
-        Ps[ri * PLD + tx + 16 * j] = round_t<T>(p);
-        Ds[ri * PLD + tx + 16 * j] = round_t<T>(p * (dp[i][j] - Es[ri]));
-      }
-    }
-    __syncthreads();
-    // dv[key] += sum_r P[r][key] do[r], dk[key] += sum_r dS[r][key] qs[r]: keys ty + 16 i
-#pragma unroll 1
-    for (int r = 0; r < BQ; ++r) {
-      float pk[KPT], dk_r[KPT];
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        pk[i] = Ps[r * PLD + ty + 16 * i];
-        dk_r[i] = Ds[r * PLD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float4 dov = *reinterpret_cast<const float4*>(Os + r * LD + 4 * tx + 64 * c);
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + r * LD + 4 * tx + 64 * c);
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          dv_acc[i][c][0] += pk[i] * dov.x;
-          dv_acc[i][c][1] += pk[i] * dov.y;
-          dv_acc[i][c][2] += pk[i] * dov.z;
-          dv_acc[i][c][3] += pk[i] * dov.w;
-          dk_acc[i][c][0] += dk_r[i] * qv.x;
-          dk_acc[i][c][1] += dk_r[i] * qv.y;
-          dk_acc[i][c][2] += dk_r[i] * qv.z;
-          dk_acc[i][c][3] += dk_r[i] * qv.w;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int key = s0 + ty + 16 * i;
-    if (key >= S) continue;
-    const bool in = key >= frame.lo && key < frame.hi;  // a key outside the song gets exact zeros
-    const size_t at = (((size_t)b * S + key) * Kv + kv) * D + 4 * tx;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      float4* k4 = reinterpret_cast<float4*>(dk + at + 64 * c);
-      float4* v4 = reinterpret_cast<float4*>(dv + at + 64 * c);
-      float4 x = in ? make_float4(dk_acc[i][c][0] * LN2, dk_acc[i][c][1] * LN2, dk_acc[i][c][2] * LN2,
-                                  dk_acc[i][c][3] * LN2)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 y = in ? make_float4(dv_acc[i][c][0], dv_acc[i][c][1], dv_acc[i][c][2], dv_acc[i][c][3])
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      if (accumulate) {
-        const float4 xo = *k4, yo = *v4;
-        x.x += xo.x; x.y += xo.y; x.z += xo.z; x.w += xo.w;
-        y.x += yo.x; y.y += yo.y; y.z += yo.z; y.w += yo.w;
-      }
-      *k4 = x;
-      *v4 = y;
-    }
   }
 }
 
@@ -1013,20 +813,18 @@ constexpr int fwd_smem() {
   using TL = Tile<D ? D : CH>;
   return ((BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
 }
-template <int D>
+// the chunked dq's and dk/dv's, CH columns at a time
 constexpr int dq_smem() {
-  using TL = Tile<D ? D : CH>;
+  using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
 }
-template <int D>
 constexpr int dkv_smem() {
-  using TL = Tile<D ? D : CH>;
+  using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + 2 * BQ * TL::PLD + 2 * BQ) * 4;
 }
-static_assert(dkv_smem<256>() <= 232448 && dq_smem<256>() <= 232448 && dkv_smem<128>() <= 232448,
+static_assert(fwd_smem<256>() <= 232448 && dq_smem() <= 232448 && dkv_smem() <= 232448,
               "every instance's tiles fit one SM's shared memory");
-static_assert(dkv_smem<0>() == dkv_smem<CH>() && dq_smem<0>() == dq_smem<CH>() && fwd_smem<0>() == fwd_smem<CH>(),
-              "the chunked instance keeps the D = 64 instance's shared memory");
+static_assert(fwd_smem<0>() == fwd_smem<CH>(), "the chunked forward keeps the D = 64 instance's shared memory");
 
 KeyFrame frame_of(int halo, int T, int S, int window, int g0, int t_global) {
   return halo ? halo_frame(T, window, g0, t_global) : KeyFrame{0, 0, S};
@@ -1085,29 +883,21 @@ int launch_prep(const void* q, const void* dout, const void* o, const void* lse,
   return (int)cudaGetLastError();
 }
 
+// dq and dk/dv: the chunked instances alone (D = 0; FORMS_SWEEPS), over `dim` / CH column chunks
 template <typename T, int D>
 int launch_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
               const void* delta_g, void* dq_acc, int B, int Tq, int S, int H, int Kv, int pad, int window,
               KeyFrame frame, int accumulate, int dim, void* stream) {
+  static_assert(D == 0, "the D-templated dq went to flash_f32x6.cuh (fp32) and the wgmma kernels");
   static std::atomic<unsigned long long> smem_set{0};
-  const dim3 grid((Tq * (H / Kv) + BQ - 1) / BQ, B * Kv, D ? 1 : dim / CH);
-  if constexpr (D == 0) {
-    auto chunked = forms_dq_chunked_kernel<T>;
-    const int err = launch_prologue(chunked, dq_smem<D>(), smem_set);
-    if (err != 0) return err;
-    chunked<<<grid, THREADS, dq_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g),
-        static_cast<const T*>(do_rows), static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-        static_cast<float*>(dq_acc), Tq, S, H, Kv, pad, window, frame, accumulate, dim);
-  } else {
-    auto kernel = forms_dq_kernel<T, D>;
-    const int err = launch_prologue(kernel, dq_smem<D>(), smem_set);
-    if (err != 0) return err;
-    kernel<<<grid, THREADS, dq_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g),
-        static_cast<const T*>(do_rows), static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-        static_cast<float*>(dq_acc), Tq, S, H, Kv, pad, window, frame, accumulate);
-  }
+  const dim3 grid((Tq * (H / Kv) + BQ - 1) / BQ, B * Kv, dim / CH);
+  auto kernel = forms_dq_chunked_kernel<T>;
+  const int err = launch_prologue(kernel, dq_smem(), smem_set);
+  if (err != 0) return err;
+  kernel<<<grid, THREADS, dq_smem(), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g), static_cast<const T*>(do_rows),
+      static_cast<const float*>(lse_g), static_cast<const float*>(delta_g), static_cast<float*>(dq_acc), Tq, S, H, Kv,
+      pad, window, frame, accumulate, dim);
   return (int)cudaGetLastError();
 }
 
@@ -1115,26 +905,16 @@ template <typename T, int D>
 int launch_dkv(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
                const void* delta_g, void* dk, void* dv, int B, int Tq, int S, int H, int Kv, int pad, int window,
                KeyFrame frame, int accumulate, int dim, void* stream) {
+  static_assert(D == 0, "the D-templated dk/dv went to flash_f32x6.cuh (fp32) and the wgmma kernels");
   static std::atomic<unsigned long long> smem_set{0};
-  constexpr int BK = Tile<D ? D : CH>::BK;
-  const dim3 grid((S + BK - 1) / BK, B * Kv, D ? 1 : dim / CH);
-  if constexpr (D == 0) {
-    auto kernel = forms_dkv_chunked_kernel<T>;
-    const int err = launch_prologue(kernel, dkv_smem<D>(), smem_set);
-    if (err != 0) return err;
-    kernel<<<grid, THREADS, dkv_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g),
-        static_cast<const T*>(do_rows), static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-        static_cast<float*>(dk), static_cast<float*>(dv), Tq, S, H, Kv, pad, window, frame, accumulate, dim);
-  } else {
-    auto kernel = forms_dkv_kernel<T, D>;
-    const int err = launch_prologue(kernel, dkv_smem<D>(), smem_set);
-    if (err != 0) return err;
-    kernel<<<grid, THREADS, dkv_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g),
-        static_cast<const T*>(do_rows), static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-        static_cast<float*>(dk), static_cast<float*>(dv), Tq, S, H, Kv, pad, window, frame, accumulate);
-  }
+  const dim3 grid((S + Tile<CH>::BK - 1) / Tile<CH>::BK, B * Kv, dim / CH);
+  auto kernel = forms_dkv_chunked_kernel<T>;
+  const int err = launch_prologue(kernel, dkv_smem(), smem_set);
+  if (err != 0) return err;
+  kernel<<<grid, THREADS, dkv_smem(), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(qs_g), static_cast<const T*>(do_rows),
+      static_cast<const float*>(lse_g), static_cast<const float*>(delta_g), static_cast<float*>(dk),
+      static_cast<float*>(dv), Tq, S, H, Kv, pad, window, frame, accumulate, dim);
   return (int)cudaGetLastError();
 }
 
@@ -1179,9 +959,10 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 //  * FORMS_FWD, the forward: fp32 at every D; bf16 and fp16 above D = 512
 //    only (K1 takes them at D <= 256, flash_xwide.cuh's forward at 320 ...
 //    512);
-//  * FORMS_SWEEPS, dq and dk/dv: the same instances (K2's sweep and the
-//    wgmma windowed pair take bf16 and fp16 at D <= 256, flash_xwide.cuh's
-//    pair at 320 ... 512);
+//  * FORMS_SWEEPS, dq and dk/dv: the chunked instances alone, fp32's above
+//    D = 256 and bf16's and fp16's above 512 (flash_f32x6.cuh's pair takes
+//    fp32 at D <= 256, K2's sweep and the wgmma windowed pair bf16 and fp16
+//    there, flash_xwide.cuh's pair bf16 and fp16 at 320 ... 512);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -1194,7 +975,8 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 #define FORMS_FWD                                                                 \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
   FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
-#define FORMS_SWEEPS FORMS_FWD
+#define FORMS_SWEEPS                                                              \
+  FORMS_CHUNKED(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_EVERY                                                               \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
   FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16)  \

@@ -62,10 +62,15 @@ D, as bf16 does above 64. Above D = 256, at bf16 and fp16 with D = 320 ...
 ``csrc/flash_xwide.cuh``'s forward, and every backward (global, the ring's
 sweeps, windowed, halo) its dq and dk/dv pair between the forms pre-pass and
 post-pass (``xwide_bwd_dq``, ``xwide_bwd_dkv``); libraries ``flash_xwide``
-and ``flash_xwide_f16``. The ring's merge takes bf16 at D = 64. Every other
-form (fp32 operands; fp16's merge and the global backward's pre-pass and
-post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the merge and the
-global backward's pre-pass and post-pass:
+and ``flash_xwide_f16``. fp32 backwards at D = 64 ... 256 (global, the
+ring's sweeps, windowed, halo) run ``csrc/flash_f32x6.cuh``'s dq and dk/dv
+pair, each fp32 product as six bf16 products on the tensor cores, on the
+bf16 pieces of its operands (``f32x6_split``), between the forms pre-pass and
+post-pass (``f32x6_bwd_dq``, ``f32x6_bwd_dkv``; library ``flash_f32x6``).
+The ring's merge takes bf16 at D = 64. Every other form (fp32 forwards, and
+fp32 backwards above D = 256; fp16's merge and the global backward's
+pre-pass and post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the
+merge and the global backward's pre-pass and post-pass:
 ``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
 ``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
 operands' (dtype, D) through ``flash_forms.route``, and the forms
@@ -103,7 +108,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # pair's one a type)
 SOURCES = {name: _CSRC / f"{name}.cu" for name in ("flash_fwd", "flash_fwd_f16", "flash_bwd", "flash_bwd_f16",
                                                    "flash_bwd_windowed", "flash_bwd_windowed_f16", "ring_merge",
-                                                   "flash_forms", "flash_xwide", "flash_xwide_f16")}
+                                                   "flash_forms", "flash_xwide", "flash_xwide_f16", "flash_f32x6")}
 # built at first use, beside the checkout: <repo>/build/osufusion_tpu_torch/
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osufusion_tpu_torch"
 # query rows per tile of the global backward's sweep (csrc/flash_bwd.cu, BM):
@@ -199,6 +204,11 @@ _ENTRY_POINTS = {
     # D | k v qs_g do_rows lse_g delta_g dk dv | B T S H Kv pad window halo g0 t_global accumulate | stream
     "xwide_bwd_dkv_bf16": ("flash_xwide", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     "xwide_bwd_dkv_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
+    # the fp32 pair on the tensor cores (csrc/flash_f32x6.cu), on the forms scratch as the xwide pair takes it,
+    # k v qs_g do_rows as their bf16 pieces; and the split that makes them: x out | rows D | stream
+    "f32x6_split": ("flash_f32x6", [_PTR] * 2 + [ctypes.c_longlong, _INT, _PTR]),
+    "f32x6_bwd_dq": ("flash_f32x6", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
+    "f32x6_bwd_dkv": ("flash_f32x6", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
     # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
     "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
@@ -386,18 +396,22 @@ def flash_bwd(
     dim runs between the forms pre-pass and post-pass (counted in
     ``flash_forms``), the whole still one ``flash_bwd.launches``; at D = 320
     ... 512 that sweep is csrc/flash_xwide.cuh's dq and dk/dv pair
-    (``xwide_bwd_dq``, ``xwide_bwd_dkv``). The forms family (fp32 above D =
-    256, bf16 and fp16 above 512) runs its pre-pass, dq, dk/dv and post-pass
-    kernels, each counted in ``flash_forms``."""
+    (``xwide_bwd_dq``, ``xwide_bwd_dkv``). fp32 at D <= 256 runs the forms
+    pre-pass, the split of its qs and do, csrc/flash_f32x6.cuh's pair and the
+    forms post-pass, each counted on its own wrapper and not in
+    ``flash_bwd.launches``. The forms family (fp32 above D = 256, bf16 and
+    fp16 above 512) runs its pre-pass, dq, dk/dv and post-pass kernels, each
+    counted in ``flash_forms``."""
     B, T, H, kv, route = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
                                          grouped=True)
     if forms.route("flash_bwd_prep", q) == "forms":  # every form but bf16 at D = 64: the forms pre-pass and post-pass
-        prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+        prep = scratch_prep(route, q, o, lse, do, cos, sin, kv, scale)
         dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
         dv = torch.empty_like(dk)
         _launch_sweep(route, "flash_bwd", k, v, prep, dk, dv, accumulate=False)
-        flash_bwd.launches += route != "forms"
-        flash_bwd.grouped_launches += route != "forms" and kv > 1
+        wgmma = route in ("wgmma", "xwide")
+        flash_bwd.launches += wgmma
+        flash_bwd.grouped_launches += wgmma and kv > 1
         return forms.forms_bwd_post(prep, cos, sin, scale), dk, dv
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)  # rows of one KV group
@@ -434,7 +448,9 @@ class GlobalPrep(NamedTuple):
     which is already in that order), lse and delta (fp32, padded to
     ``BWD_ROW_TILE`` rows with +inf and 0), the fp32 dq buffer that every
     sweep adds into (the wgmma sweep's atomics; the forms dq kernel stores on
-    the first sweep), and the site's (B, T, H, Kv)."""
+    the first sweep), and the site's (B, T, H, Kv); for the sweeps of
+    csrc/flash_f32x6.cuh also ``pieces``, the bf16 pieces of qs and do
+    (``f32x6_pieces``), else None."""
 
     qs: torch.Tensor
     do: torch.Tensor
@@ -442,6 +458,7 @@ class GlobalPrep(NamedTuple):
     delta: torch.Tensor
     dq_acc: torch.Tensor
     shape: tuple
+    pieces: Optional[tuple] = None
 
 
 def flash_bwd_prep(
@@ -460,11 +477,12 @@ def flash_bwd_prep(
     and the dq buffer zeroed. Counts the wgmma pre-pass's launches (bf16 at
     D = 64) in ``flash_bwd_prep.launches``, the forms one's (every other form;
     K2's sweep of a head dim above 64 reads it) in
-    ``flash_forms.forms_bwd_prep.launches``."""
+    ``flash_forms.forms_bwd_prep.launches``; at fp32 with D <= 256 the
+    scratch holds the pieces of qs and do too (``scratch_prep``)."""
     B, T, H, kv, route = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
                                          sin, grouped=True)
-    if route == "forms":
-        return forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+    if route == "forms":  # with the pieces of qs and do where the sweeps are csrc/flash_f32x6.cuh's
+        return scratch_prep(forms.route("flash_bwd_sweep", q), q, o, lse, do, cos, sin, kv, scale)
     f32, dev = torch.float32, q.device
     rows = T * (H // kv)
     pad = -(-rows // BWD_ROW_TILE) * BWD_ROW_TILE
@@ -490,7 +508,7 @@ def _launch_sweep(route: str, who: str, k, v, prep: GlobalPrep, dk, dv, accumula
     v into ``prep.dq_acc`` and dk, dv: K2's sweep of qs's operand type (bf16
     or fp16) and head dim ("wgmma", checked here), or the dq and dk/dv
     kernels on the forms pre-pass's scratch (``scratch_sweeps``: "forms",
-    "xwide"), whose dq kernel stores into ``prep.dq_acc`` (or with
+    "xwide", "f32x6"), whose dq kernel stores into ``prep.dq_acc`` (or with
     ``accumulate`` adds)."""
     if route != "wgmma":
         dq_kernel, dkv_kernel = scratch_sweeps(route)
@@ -528,27 +546,38 @@ def flash_bwd_sweep(
     wgmma sweep's launches (any head dim; above 256 csrc/flash_xwide.cuh's
     dq and dk/dv, each also in its own counter) in
     ``flash_bwd_sweep.launches``; the forms family launches its dq and dk/dv
-    kernels, counted in ``flash_forms``."""
+    kernels, counted in ``flash_forms``, and fp32 at D <= 256
+    csrc/flash_f32x6.cuh's, counted in ``f32x6_bwd_dq`` and
+    ``f32x6_bwd_dkv``."""
     route = forms.route("flash_bwd_sweep", prep.qs)
     _launch_sweep(route, "flash_bwd_sweep", k, v, prep, dk, dv, accumulate)
-    flash_bwd_sweep.launches += route != "forms"
+    flash_bwd_sweep.launches += route in ("wgmma", "xwide")
 
 
 flash_bwd_sweep.launches = 0
 
 
+def _launch_scratch_pair(who: str, entry: str, operands: tuple, prep: GlobalPrep, outs, window: int,
+                         halo: Optional[tuple], accumulate: bool) -> None:
+    """Launch ``entry``, a dq or dk/dv kernel on the forms pre-pass's scratch
+    with ``forms_bwd_dq``'s or ``forms_bwd_dkv``'s arguments without the type
+    code, on ``operands`` (k, v, qs rows, do rows, as the kernel reads them)
+    into ``outs`` (dq: the scratch's fp32 dq buffer; dk/dv: (dk, dv))."""
+    B, T, H, kv = prep.shape
+    err = _kernel(entry)(
+        prep.qs.shape[-1], *(t.data_ptr() for t in operands), prep.lse.data_ptr(), prep.delta.data_ptr(),
+        *(t.data_ptr() for t in outs), B, T, operands[0].shape[1], H, kv, prep.lse.shape[1], window,
+        *forms._frame(halo), int(accumulate), torch.cuda.current_stream(operands[0].device).cuda_stream)
+    _check_launch(who, err)
+
+
 def _launch_xwide_pair(who: str, k, v, prep: GlobalPrep, outs, window: int, halo: Optional[tuple],
                        accumulate: bool) -> None:
     """Launch ``who`` (csrc/flash_xwide.cuh's dq or dk/dv kernel) of qs's
-    operand type over the keys of k and v on the forms pre-pass's scratch,
-    into ``outs`` (dq: the scratch's fp32 dq buffer; dk/dv: (dk, dv))."""
+    operand type over the keys of k and v on the forms pre-pass's scratch."""
     forms._check_sweep(who, k, v, prep, () if who == "xwide_bwd_dq" else outs)
-    B, T, H, kv = prep.shape
-    err = _kernel(f"{who}_{TYPE_SUFFIX[prep.qs.dtype]}")(
-        prep.qs.shape[-1], k.data_ptr(), v.data_ptr(), prep.qs.data_ptr(), prep.do.data_ptr(), prep.lse.data_ptr(),
-        prep.delta.data_ptr(), *(t.data_ptr() for t in outs), B, T, k.shape[1], H, kv, prep.lse.shape[1], window,
-        *forms._frame(halo), int(accumulate), torch.cuda.current_stream(k.device).cuda_stream)
-    _check_launch(who, err)
+    _launch_scratch_pair(who, f"{who}_{TYPE_SUFFIX[prep.qs.dtype]}", (k, v, prep.qs, prep.do), prep, outs, window,
+                         halo, accumulate)
 
 
 def xwide_bwd_dq(k, v, prep: GlobalPrep, window: int, halo: Optional[tuple], accumulate: bool) -> None:
@@ -580,11 +609,96 @@ def xwide_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tu
 xwide_bwd_dkv.launches = 0
 
 
+def f32x6_split(x: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/flash_f32x6.cuh's split on the current stream: the bf16
+    pieces of x (..., D) fp32, contiguous, D in 64 ... 256, as rows (...,
+    3 D) [b0 | b1 | b2] with x = b0 + b1 + b2 exactly (``f32x6_split_reference``
+    is its plain version). Counts in ``f32x6_split.launches``."""
+    D = x.shape[-1]
+    _check_operands("f32x6_split", x.device, (("x", x, torch.float32),))
+    forms._check_aligned("f32x6_split", x)
+    out = torch.empty((*x.shape[:-1], 3 * D), dtype=torch.bfloat16, device=x.device)
+    err = _kernel("f32x6_split")(x.data_ptr(), out.data_ptr(), x.numel() // D, D,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch("f32x6_split", err)
+    f32x6_split.launches += 1
+    return out
+
+
+f32x6_split.launches = 0
+
+
+def f32x6_split_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``f32x6_split``: b0 = x rounded to bf16 (to nearest
+    even), b1 = the rest rounded, b2 = what is left, exact in bf16; (...,
+    3 D) bf16."""
+    x = x.float()
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    return torch.cat([b0, b1, (r - b1.float()).to(torch.bfloat16)], dim=-1)
+
+
+def f32x6_pieces(prep: GlobalPrep) -> GlobalPrep:
+    """``prep`` with the bf16 pieces of its qs and do (``f32x6_split``), which
+    csrc/flash_f32x6.cuh's pair reads in their place."""
+    return prep._replace(pieces=(f32x6_split(prep.qs), f32x6_split(prep.do)))
+
+
+def scratch_prep(route: str, q, o, lse, do, cos, sin, kv: int, scale: float) -> GlobalPrep:
+    """The forms pre-pass's scratch for the sweeps of ``route``
+    (``scratch_sweeps``): with the pieces of qs and do for "f32x6"."""
+    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, kv, scale)
+    return f32x6_pieces(prep) if route == "f32x6" else prep
+
+
+def _launch_f32x6_pair(who: str, k, v, prep: GlobalPrep, outs, window: int, halo: Optional[tuple],
+                       accumulate: bool) -> None:
+    """Launch ``who`` (csrc/flash_f32x6.cuh's dq or dk/dv kernel) over the keys
+    of k and v, split here, on the forms pre-pass's scratch with its pieces."""
+    if prep.pieces is None:
+        raise ValueError(f"{who}: the scratch holds no pieces of qs and do (scratch_prep with route 'f32x6')")
+    forms._check_sweep(who, k, v, prep, () if who == "f32x6_bwd_dq" else outs)
+    _launch_scratch_pair(who, who, (f32x6_split(k), f32x6_split(v), *prep.pieces), prep, outs, window, halo,
+                         accumulate)
+
+
+def f32x6_bwd_dq(k, v, prep: GlobalPrep, window: int, halo: Optional[tuple], accumulate: bool) -> None:
+    """Launch csrc/flash_f32x6.cuh's dq kernel (fp32, D = 64 ... 256, each
+    product as six bf16 products) on the current stream over the keys of k
+    and v, on the forms pre-pass's scratch with the pieces of qs and do
+    (``scratch_prep``): ``prep.dq_acc`` (fp32, group-major) gets ds k, stored,
+    or with ``accumulate`` added to what it holds (the forms post-pass scales
+    and un-rotates it); ``forms_bwd_dq``'s arguments. Splits k and v first.
+    Counts in ``f32x6_bwd_dq.launches``."""
+    _launch_f32x6_pair("f32x6_bwd_dq", k, v, prep, (prep.dq_acc,), window, halo, accumulate)
+    f32x6_bwd_dq.launches += 1
+
+
+f32x6_bwd_dq.launches = 0
+
+
+def f32x6_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tuple], accumulate: bool) -> None:
+    """Launch csrc/flash_f32x6.cuh's dk/dv kernel on the current stream over
+    the keys of k and v, on the forms pre-pass's scratch with its pieces: dk
+    (rotated frame) and dv (k's shape, fp32) stored, or with ``accumulate``
+    added to; in the halo frame the slab rows outside the song get zeros;
+    ``forms_bwd_dkv``'s arguments. Splits k and v first. Counts in
+    ``f32x6_bwd_dkv.launches``."""
+    _launch_f32x6_pair("f32x6_bwd_dkv", k, v, prep, (dk, dv), window, halo, accumulate)
+    f32x6_bwd_dkv.launches += 1
+
+
+f32x6_bwd_dkv.launches = 0
+
+
 def scratch_sweeps(route: str) -> tuple:
     """(dq, dk/dv) of ``route`` on the forms pre-pass's scratch, both with
     ``forms_bwd_dq``'s and ``forms_bwd_dkv``'s arguments: the forms family's
-    ("forms") or csrc/flash_xwide.cuh's ("xwide")."""
-    return (forms.forms_bwd_dq, forms.forms_bwd_dkv) if route == "forms" else (xwide_bwd_dq, xwide_bwd_dkv)
+    ("forms"), csrc/flash_xwide.cuh's ("xwide") or csrc/flash_f32x6.cuh's
+    ("f32x6", on ``scratch_prep``'s pieces)."""
+    return {"forms": (forms.forms_bwd_dq, forms.forms_bwd_dkv), "xwide": (xwide_bwd_dq, xwide_bwd_dkv),
+            "f32x6": (f32x6_bwd_dq, f32x6_bwd_dkv)}[route]
 
 
 def flash_bwd_post(
@@ -745,21 +859,23 @@ def flash_bwd_dq(
 ):
     """Launch the windowed pre-pass and the dq kernel of q's form (K3a at bf16
     or fp16 with D = 64, 128, 192 or 256; with D = 320 ... 512 the forms
-    pre-pass, csrc/flash_xwide.cuh's dq kernel and the forms post-pass) on the
-    current stream. Returns (dq, prep):
+    pre-pass, csrc/flash_xwide.cuh's dq kernel and the forms post-pass; at
+    fp32 with D <= 256 the same with csrc/flash_f32x6.cuh's) on the current
+    stream. Returns (dq, prep):
     dq (B, T, H, D) in q's dtype and the raw q's frame, written once per row
     (the same bits from run to run), and
     the pre-pass's scratch, which ``flash_bwd_dkv`` takes (``WindowedPrep``:
     qs, the padded LSE, delta; the forms family's pre-pass, dq kernel and
     post-pass leave a ``GlobalPrep``, as do the forms pre-pass and post-pass
-    around the wgmma dq kernel above 256). Counts the wgmma dq kernel's
-    launches in ``flash_bwd_dq.launches``, the forms kernels' in
+    around the wgmma dq kernels above 256 and at fp32). Counts the wgmma dq
+    kernel's launches in ``flash_bwd_dq.launches`` (the fp32 pair's in
+    ``f32x6_bwd_dq.launches`` alone), the forms kernels' in
     ``flash_forms``."""
     B, T, H, _, route = _check_backward("flash_bwd_dq", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
                                         sin)
     _check_window("flash_bwd_dq", window)
-    if route != "wgmma":  # the forms pre-pass and post-pass around the forms or csrc/flash_xwide.cuh's dq kernel
-        prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
+    if route != "wgmma":  # the forms pre-pass and post-pass around the forms, xwide or f32x6 dq kernel
+        prep = scratch_prep(route, q, o, lse, do, cos, sin, 1, scale)
         scratch_sweeps(route)[0](k, v, prep, window, None, accumulate=False)
         flash_bwd_dq.launches += route == "xwide"
         return forms.forms_bwd_post(prep, cos, sin, scale), prep
@@ -788,7 +904,8 @@ def flash_bwd_dkv(
     """Launch the windowed dk/dv kernel of do's form on the current stream.
     Returns (dk_rot, dv), both (B, T, D) fp32, dk_rot still in the rotated
     frame, each row written once. Counts the wgmma kernel's launches in
-    ``flash_bwd_dkv.launches``, the forms one's in ``flash_forms``."""
+    ``flash_bwd_dkv.launches`` (the fp32 pair's in ``f32x6_bwd_dkv.launches``
+    alone), the forms one's in ``flash_forms``."""
     who = "flash_bwd_dkv"
     if do.ndim != 4 or k.ndim != 3:
         raise ValueError(f"{who} (K3b) takes MQA: k (B,T,D), do (B,T,H,D); got k {tuple(k.shape)}, do {tuple(do.shape)}")

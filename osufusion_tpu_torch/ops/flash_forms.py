@@ -20,9 +20,12 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   ``XWIDE_HEAD_DIMS`` (320 ... 512) at the same wrappers: the forward and the
   backward pair of ``csrc/flash_xwide.cuh``, which take the head dim at run
   time (every forward, and between the forms pre-pass and post-pass every
-  backward: global, the ring's sweeps, windowed and halo);
+  backward: global, the ring's sweeps, windowed and halo). fp32 operands with
+  D in ``FORMS_HEAD_DIMS`` at the backward wrappers of ``F32X6_WRAPPERS``: the
+  dq and dk/dv pair of ``csrc/flash_f32x6.cuh``, each fp32 product as six
+  bf16 products, between the forms pre-pass and post-pass;
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
-  fp32 operands at D in ``FORMS_HEAD_DIMS``, and fp32 at every D for the
+  fp32 forwards at D in ``FORMS_HEAD_DIMS``, and fp32 at every D for the
   ring's merge and the global backward's pre-pass and post-pass
   (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge, the pre-pass
   and the post-pass at every D (``flash_bwd`` at fp16 runs K2's sweep, or
@@ -39,8 +42,9 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
 
 Every wrapper of ``ops/flash_attention.py`` and ``ops/halo_attention.py``
 chooses its instance by one value, ``route``: its own wgmma entry point
-("wgmma"), csrc/flash_xwide.cuh's ("xwide"), or the forms entry point of the
-same function here ("forms"). The forms family runs every
+("wgmma"), csrc/flash_xwide.cuh's ("xwide"), csrc/flash_f32x6.cuh's
+("f32x6"), or the forms entry point of the same function here ("forms").
+The forms family runs every
 backward as K2's split does: a pre-pass (``forms_bwd_prep``: qs in the
 operands' dtype, do in group-major order, the padded LSE and delta), the dq
 and dk/dv kernels over the keys at hand (``forms_bwd_dq``, ``forms_bwd_dkv``,
@@ -71,6 +75,9 @@ XWIDE_HEAD_DIMS = (320, 384, 448, 512)
 # csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu); every other wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
+# the backward wrappers whose fp32 dq and dk/dv at FORMS_HEAD_DIMS run on the tensor cores, six bf16 products per
+# fp32 product (csrc/flash_f32x6.cuh); the fp32 forwards stay on the forms bodies
+F32X6_WRAPPERS = WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -88,7 +95,9 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
     if who not in WIDE_WGMMA:  # the merge, the pre-pass and the post-pass: D-generic forms bodies
         return "hopper" if dtype == torch.bfloat16 and head_dim == 64 else "forms"
     if dtype == torch.float32:
-        return "forms" if head_dim in FORMS_HEAD_DIMS else "chunked"
+        if head_dim not in FORMS_HEAD_DIMS:
+            return "chunked"
+        return "hopper" if who in F32X6_WRAPPERS else "forms"
     return "hopper" if head_dim in WGMMA_HEAD_DIMS or head_dim in XWIDE_HEAD_DIMS else "chunked"
 
 
@@ -106,12 +115,15 @@ def route(who: str, t: torch.Tensor) -> str:
     head dim) on the card, the one value each wrapper branches on: "wgmma"
     for its own wgmma kernel, "xwide" for csrc/flash_xwide.cuh's (the form
     "hopper" at a head dim of ``XWIDE_HEAD_DIMS``; its backward runs on this
-    module's pre-pass and post-pass), "forms" for this module's family (the
-    chunked instance included). A head dim that no kernel tiles raises
-    ValueError."""
+    module's pre-pass and post-pass), "f32x6" for csrc/flash_f32x6.cuh's
+    pair (the form "hopper" at fp32; on the same pre-pass and post-pass),
+    "forms" for this module's family (the chunked instance included). A head
+    dim that no kernel tiles raises ValueError."""
     D = t.shape[-1]
     if kernel_form(who, t.dtype, D) != "hopper":
         return "forms"
+    if t.dtype == torch.float32:
+        return "f32x6"
     return "xwide" if D in XWIDE_HEAD_DIMS else "wgmma"
 
 
@@ -216,7 +228,8 @@ def forms_bwd_dq(k, v, prep, window: int, halo: Optional[tuple], accumulate: boo
     ``accumulate`` added to what it holds. Counts in
     ``forms_bwd_dq.launches``. bf16 and fp16 at D <= 512 have no forms dq
     (K2's sweep and the wgmma windowed pair run there, and above 256 the
-    wgmma pair of csrc/flash_xwide.cuh): RuntimeError."""
+    wgmma pair of csrc/flash_xwide.cuh), nor has fp32 at D <= 256 (the pair
+    of csrc/flash_f32x6.cuh): RuntimeError."""
     _check_sweep("forms_bwd_dq", k, v, prep)
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dq")(
@@ -235,7 +248,7 @@ def forms_bwd_dkv(k, v, prep, dk, dv, window: int, halo: Optional[tuple], accumu
     and v: dk (rotated frame) and dv (k's shape, fp32) stored, or with
     ``accumulate`` added to; in the halo frame the slab rows outside the song
     get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 and fp16 at D <= 512
-    have no forms dk/dv: RuntimeError."""
+    have no forms dk/dv, nor has fp32 at D <= 256: RuntimeError."""
     _check_sweep("forms_bwd_dkv", k, v, prep, (dk, dv))
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dkv")(

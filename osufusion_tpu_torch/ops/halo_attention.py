@@ -179,13 +179,16 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     pre-pass's scratch (``WindowedPrep``: qs = q * scale * log2(e) in q's dtype,
     the padded LSE, delta = rowsum(do * o); the forms family's pre-pass, dq
     kernel and post-pass leave a ``GlobalPrep``, as do the forms pre-pass and
-    post-pass around csrc/flash_xwide.cuh's dq kernel at D = 320 ... 512),
-    which ``halo_bwd_dkv`` takes. Counts the wgmma dq kernel's launches in
-    ``halo_bwd_dq.launches``, the forms kernels' in ``flash_forms``."""
+    post-pass around csrc/flash_xwide.cuh's dq kernel at D = 320 ... 512 and
+    around csrc/flash_f32x6.cuh's at fp32 with D <= 256), which
+    ``halo_bwd_dkv`` takes. Counts the wgmma dq kernel's launches in
+    ``halo_bwd_dq.launches`` (the fp32 pair's in
+    ``flash_attention.f32x6_bwd_dq.launches`` alone), the forms kernels' in
+    ``flash_forms``."""
     B, T, H, route = _check_halo("halo_bwd_dq", k, v, (("q", q), ("o", o), ("do", do)), (("lse", lse),),
                                  window, g0, t_global)
-    if route != "wgmma":  # the forms pre-pass and post-pass around the forms or csrc/flash_xwide.cuh's dq kernel
-        prep = forms.forms_bwd_prep(q, o, lse, do, None, None, 1, scale)
+    if route != "wgmma":  # the forms pre-pass and post-pass around the forms, xwide or f32x6 dq kernel
+        prep = fa.scratch_prep(route, q, o, lse, do, None, None, 1, scale)
         fa.scratch_sweeps(route)[0](k, v, prep, window, (g0, t_global), accumulate=False)
         halo_bwd_dq.launches += route == "xwide"
         return forms.forms_bwd_post(prep, None, None, scale), prep

@@ -5,7 +5,7 @@ step, goes on one NVIDIA GPU.
         [--sampler ddim|dpmpp-2m]
     python3 profile_torch_serve.py --train [--remat none|block|save-attn|save-attn-out|ff|resnet|resnet-dots|mixed]
         [--remat-levels save-attn-out,save-attn-out,block,block] [--batch 4] [--frames 4096]
-        [--precision full-bf16|bf16|fp16] [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1] [--dim-head 64]
+        [--precision full-bf16|bf16|fp16|fp32] [--backbone unet|dit|mmdit] [--kv-heads 1] [--mesh-seq 1] [--dim-head 64]
 
 At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 24576 padded frames; DDIM-50, CFG 2.0) it prints:
@@ -40,7 +40,9 @@ whole blocks), with its MFU (3 x the forward's model FLOPs over the step and
 989 TFLOP/s). ``--precision`` sets the step's precision: ``full-bf16``
 (bf16 weights and moments), ``bf16`` or ``fp16`` (``--mixed-precision``:
 float32 weights and moments, the forward under autocast at bfloat16 or
-float16, fp16 with its static loss scale). ``--kv-heads 2`` gives the UNet two KV heads (the whole-song
+float16, fp16 with its static loss scale), or ``fp32`` (``--mixed-precision
+no`` with float32 weights: every attention site in fp32, the forms forward
+and the fp32 backward pair, whose kernels' share of the step it prints). ``--kv-heads 2`` gives the UNet two KV heads (the whole-song
 cell with it is ``chip_smoke.py``'s phase 17). ``--mesh-seq N`` runs the
 step sequence-parallel in N processes (one card each over NCCL where N are
 visible, else all on one card over gloo), every global site through the ring,
@@ -83,9 +85,10 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def kernel_table(fn, what: str = "one UNet call") -> float:
-    """Profile one call of fn; print device time by kernel name and return
-    the summed device time in ms."""
+def kernel_table(fn, what: str = "one UNet call", groups: dict = None) -> float:
+    """Profile one call of fn; print device time by kernel name, and for each
+    of ``groups`` (label -> substrings of kernel names) the summed time of the
+    kernels whose names hold one; return the summed device time in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,6 +114,11 @@ def kernel_table(fn, what: str = "one UNet call") -> float:
     attention = [(name, us) for name, us in ranked[TOP:] if any(k in name for k in ("flash_", "halo_", "ring_"))]
     for name, us in ranked[:TOP] + attention:
         print(f"[profile] {us / 1e3:9.3f} ms {100 * us / 1e3 / device_ms:5.1f} % {count[name]:5d}x  {name[:110]}")
+    for label, parts in (groups or {}).items():
+        names = [name for name in total_us if any(part in name for part in parts)]
+        ms = sum(total_us[name] for name in names) / 1e3
+        print(f"[profile] {label}: {ms:.3f} ms {100 * ms / device_ms:.1f} % of the device time in "
+              f"{sum(count[name] for name in names)} launches")
     return device_ms
 
 
@@ -122,6 +130,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
     from osufusion_tpu_torch.train.loop import init_state, make_train_step
     from osufusion_tpu_torch.utils.flops import dit_fwd_flops, mmdit_fwd_flops
 
@@ -131,10 +140,11 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
         model=ModelConfig(dim_h=512, backbone=backbone, remat=remat != "none", attn_dim_head=dim_head,
                           remat_mode=remat if remat != "none" else "save-attn", remat_level_modes=levels, **transformer),
         train=TrainConfig(batch_size=B, full_bf16=precision == "full-bf16", lr=1e-5, warmup_steps=2, total_steps=100,
-                          mixed_precision="fp16" if precision == "fp16" else "bf16"),
+                          mixed_precision={"fp16": "fp16", "fp32": "no"}.get(precision, "bf16")),
     )
-    if precision == "fp16":
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="float16"))
+    if precision in ("fp16", "fp32"):
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype={"fp16": "float16",
+                                                                                   "fp32": "float32"}[precision]))
     model = build_model(cfg.model, cfg.diffusion)
     state = init_state(model, cfg, "cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -164,6 +174,11 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
     fa.flash_fwd.grouped_launches = fa.flash_bwd.grouped_launches = 0
     fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     fa.ring_merge.launches = fa.flash_bwd_prep.launches = fa.flash_bwd_sweep.launches = fa.flash_bwd_post.launches = 0
+    # the forms family's dq and dk/dv and the fp32 pair on the tensor cores (a tree before it has none)
+    pairs = {"forms": (forms.forms_bwd_dq, forms.forms_bwd_dkv),
+             "f32x6": tuple(getattr(fa, name) for name in ("f32x6_bwd_dq", "f32x6_bwd_dkv") if hasattr(fa, name))}
+    for fn in (*pairs["forms"], *pairs["f32x6"]):
+        fn.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -187,8 +202,12 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
           f"loss {float(metrics['loss']):.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches per step: forward with LSE {fa.flash_fwd.lse_launches // 3}, fused backward {fa.flash_bwd.launches // 3}, "
           f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}; grouped forward "
-          f"{fa.flash_fwd.grouped_launches // 3}, grouped backward {fa.flash_bwd.grouped_launches // 3}")
-    device_ms = kernel_table(lambda: step(state, batch), "one training step")
+          f"{fa.flash_fwd.grouped_launches // 3}, grouped backward {fa.flash_bwd.grouped_launches // 3}; dq, dk/dv of "
+          + ", ".join(f"{name} {[fn.launches // 3 for fn in fns]}" for name, fns in pairs.items() if fns))
+    groups = {"the fp32 backward pair (forms FMA dq, dk/dv)": ("forms_dq_kernel", "forms_dkv_kernel"),
+              "the fp32 backward pair (six-product dq, dk/dv, split)": ("x6_dq_kernel", "x6_dkv_kernel",
+                                                                         "x6_split_kernel")} if precision == "fp32" else {}
+    device_ms = kernel_table(lambda: step(state, batch), "one training step", groups)
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
 
@@ -224,7 +243,7 @@ def main() -> None:
     p.add_argument("--remat-levels", default="save-attn-out,save-attn-out,block,block", help="per-level modes of --remat mixed")
     p.add_argument("--batch", type=int, default=4, help="--train: batch size (at most 4)")
     p.add_argument("--frames", type=int, default=4096, help="--train: sequence length")
-    p.add_argument("--precision", choices=["full-bf16", "bf16", "fp16"], default="full-bf16")
+    p.add_argument("--precision", choices=["full-bf16", "bf16", "fp16", "fp32"], default="full-bf16")
     p.add_argument("--backbone", choices=["unet", "dit", "mmdit"], default="unet", help="--train: the denoiser")
     p.add_argument("--kv-heads", type=int, default=1, help="--train: the UNet's KV heads")
     p.add_argument("--mesh-seq", type=int, default=1, help="--train: sequence shards, one process each")

@@ -29,8 +29,8 @@ from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_parallel_available
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
-from osufusion_tpu_torch.ops.flash_forms import (FORMS_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS, attention_form,
-                                                 kernel_form, route)
+from osufusion_tpu_torch.ops.flash_forms import (F32X6_WRAPPERS, FORMS_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS,
+                                                 attention_form, kernel_form, route)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
 
@@ -57,6 +57,8 @@ def _expected_form(who, dtype, D):
         return "hopper" if dtype == torch.bfloat16 and D == 64 else "forms"
     if D > 512 or (D > 256 and dtype == torch.float32):
         return "chunked"
+    if dtype == torch.float32 and who in F32X6_WRAPPERS:  # the backward pair of six bf16 products per fp32 product
+        return "hopper"
     if dtype == torch.bfloat16 and (D == 64 or who in WIDE_WGMMA):
         return "hopper"
     if dtype == torch.float16 and who in ("flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq",
@@ -82,9 +84,12 @@ def test_attention_form_table(dtype, D):
     and the windowed pair (K1 with its halo instance and the ring's hops, K2,
     K3a / K3b, K5a / K5b), and at bf16 and fp16 with D = 320 ... 512 for the
     same wrappers (the forward and the backward pair of
-    csrc/flash_xwide.cuh); the forms kernels at fp32, at fp16 for the ring's
-    merge and the global backward's pre-pass and post-pass, and at bf16 with
-    D > 64 for the merge, the pre-pass and the post-pass, at every head dim;
+    csrc/flash_xwide.cuh), and at fp32 with D = 64 ... 256 for the global
+    backward's sweep and the windowed pair with its halo instances (the pair
+    of csrc/flash_f32x6.cuh); the forms kernels at fp32 for the forward, and
+    at fp32 and fp16 for the ring's merge and the global backward's pre-pass
+    and post-pass, and at bf16 with D > 64 for the merge, the pre-pass and
+    the post-pass, at every head dim;
     the chunked forms instance of the forward, dq and dk/dv at fp32 above D =
     256 and at bf16 and fp16 above D = 512."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
@@ -120,17 +125,22 @@ def test_attention_form_table(dtype, D):
 @pytest.mark.parametrize("dtype", FORM_DTYPES, ids=["fp32", "bf16", "fp16"])
 def test_route_is_the_entry_point_of_the_form(dtype, D):
     """``route``, the one value each wrapper branches on: "forms" wherever
-    the form is not "hopper" (the chunked instance included), "xwide"
+    the form is not "hopper" (the chunked instance included), "f32x6"
+    (csrc/flash_f32x6.cuh) for the form "hopper" at fp32, "xwide"
     (csrc/flash_xwide.cuh) for the form "hopper" above D = 256, "wgmma" (the
     wrapper's own kernel) for the form "hopper" at D <= 256; the xwide entry
     points serve exactly the wrappers of WIDE_WGMMA at bf16 and fp16 with D =
-    320 ... 512."""
+    320 ... 512, the f32x6 ones exactly the backward wrappers of
+    F32X6_WRAPPERS at fp32 with D = 64 ... 256."""
     t = torch.empty((1, 1, 1, D), dtype=dtype)
     for who in WRAPPERS:
         form = kernel_form(who, dtype, D)
-        assert route(who, t) == ("forms" if form != "hopper" else "xwide" if D > 256 else "wgmma"), who
+        want = "forms" if form != "hopper" else "f32x6" if dtype == torch.float32 else "xwide" if D > 256 else "wgmma"
+        assert route(who, t) == want, who
     want = WIDE_WGMMA if dtype != torch.float32 and D in XWIDE_HEAD_DIMS else set()
     assert {who for who in WRAPPERS if route(who, t) == "xwide"} == want
+    want = F32X6_WRAPPERS if dtype == torch.float32 and D in FORMS_HEAD_DIMS else set()
+    assert {who for who in WRAPPERS if route(who, t) == "f32x6"} == want
 
 
 def _qkv(T, H, D, seed):

@@ -6,7 +6,9 @@ instance above), the instances of K1, K2, the windowed pair and its halo
 frame at D = 128, 192 and 256, the fp16 instances of K1, K2's sweep and the
 windowed pair with its halo frame at D = 64 ... 256, the forward and the
 backward pair above head dim 256 (csrc/flash_xwide.cuh, bf16 and fp16 at D =
-320 ... 512), and the differentiable ops that join them) against
+320 ... 512), the fp32 backward pair on the tensor cores (csrc/flash_f32x6.cuh,
+six bf16 products per fp32 product at D = 64 ... 256), and the differentiable
+ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
 elsewhere). Imports no JAX, so it also runs where JAX is not installed:
@@ -620,6 +622,10 @@ def _forms_launches() -> tuple:
             forms.forms_bwd_dkv.launches, forms.forms_bwd_post.launches, forms.forms_ring_merge.launches)
 
 
+def _f32x6_launches() -> tuple:
+    return fa.f32x6_bwd_dq.launches, fa.f32x6_bwd_dkv.launches
+
+
 # fp16 against the plain fp32 versions on the same fp16 inputs: P and dS are
 # rounded to fp16 (2^-11 relative) where the bf16 kernels round to bf16
 F16_REL_TOL, F16_LSE_TOL = 2e-3, 2e-3
@@ -755,23 +761,26 @@ def _forms_inputs(B, T, H, Kv, D, dtype, tables, device, seed=0):
 @pytest.mark.parametrize("dtype,D", FORMS_F32, ids=FORMS_IDS[:4])
 def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables):
     """Every fp32 instance of the forms family through its wrappers: the
-    forward with its LSE, then the pre-pass, dq, dk/dv and post-pass, against
-    the plain fp32 versions; each entry point launched once."""
+    forward with its LSE, then the pre-pass and, on its scratch with the
+    pieces of qs and do, csrc/flash_f32x6.cuh's dq and dk/dv (the forms dq
+    and dk/dv at D <= 256 are pruned), and the post-pass, against the plain
+    fp32 versions; each entry point launched once."""
     rel_tol, lse_tol = _forms_tols(dtype)
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T)
     scale = D**-0.5
-    before = _forms_launches()
+    before = _forms_launches(), _f32x6_launches()
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=cuda)
     forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
-    prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, Kv, scale)
+    prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, Kv, scale)
     dk = torch.empty(k_rot.shape, dtype=torch.float32, device=cuda)
     dv = torch.empty_like(dk)
-    forms.forms_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
-    forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    fa.f32x6_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
+    fa.f32x6_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
     dq = forms.forms_bwd_post(prep, cos, sin, scale)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_forms_launches(), before)] == [1, 1, 1, 1, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[0])] == [1, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_f32x6_launches(), before[1])] == [1, 1]
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window),
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window))
@@ -818,8 +827,9 @@ def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
                                              (torch.float32, 256, 4, False)], ids=["fp32-D64", "bf16-D128", "fp32-D256"])
 def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope):
     """The ring at a form beside bf16/64: the kernel parts against the plain
-    parts, over 2 shards. fp32: the forms forward, merge, pre-pass, dq and
-    dk/dv sweeps storing on the first hop and adding after, post-pass. bf16
+    parts, over 2 shards. fp32: the forms forward, merge, pre-pass and
+    post-pass, and csrc/flash_f32x6.cuh's dq and dk/dv sweeps storing on the
+    first hop and adding after. bf16
     at D = 128: K1 per hop and K2's accumulating sweep of that head dim,
     between the forms pre-pass and post-pass, with the forms merge."""
     from osufusion_tpu_torch.ops.ring_attention import LocalRing, PlainParts, ring_bwd, ring_fwd
@@ -840,13 +850,13 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
         torch.cuda.synchronize()
         return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
 
-    before = _kernel_launches(), _forms_launches()
+    before = _kernel_launches(), _forms_launches(), _f32x6_launches()
     got = run(None)
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     wgmma = dtype == torch.bfloat16  # K1's hops (flash_fwd) and K2's sweeps (flash_bwd_sweep)
     assert kernels == [n * n * wgmma, 0, 0, 0, 0, n * n * wgmma, 0, 0, 0, 0, 0], kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [
-        n * n * (not wgmma), n, n * n * (not wgmma), n * n * (not wgmma), n, n * n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n * (not wgmma), n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_f32x6_launches(), before[2])] == [n * n * (not wgmma)] * 2
     ref = run(PlainParts)
     assert got[0].dtype == got[2].dtype == dtype and got[3].dtype == torch.float32
     assert _rel(got[0], ref[0]) < rel_tol and (got[1] - ref[1]).abs().max().item() < lse_tol
@@ -859,8 +869,9 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
 @pytest.mark.parametrize("window", [96, None], ids=["windowed", "global"])
 def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window):
     """``sdpa`` under a gradient at fp32/64 and bf16/128 on the card, against
-    autograd through the plain attention in fp32. fp32: the forms kernels and
-    none of the wgmma ones, forward and backward. bf16/128: K1 forward; a
+    autograd through the plain attention in fp32. fp32: the forms forward,
+    pre-pass and post-pass and csrc/flash_f32x6.cuh's dq and dk/dv, none of
+    the other wgmma kernels. bf16/128: K1 forward; a
     global site K2's sweep between the forms pre-pass and post-pass, a
     windowed one the wgmma dq / dk-dv pair (K3a / K3b at D = 128)."""
     from osufusion_tpu_torch.ops.attention import sdpa
@@ -869,7 +880,7 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     rel_tol, _ = _forms_tols(dtype)
     q, k, v, do, cos, sin = _forms_inputs(B, T, H, 2, D, dtype, True, cuda, seed=3)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = _kernel_launches(), _forms_launches()
+    before = _kernel_launches(), _forms_launches(), _f32x6_launches()
     out = sdpa(*leaves, window, (cos, sin))
     out.backward(do)
     torch.cuda.synchronize()
@@ -877,8 +888,9 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     runs = 2 if window is not None else 1
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
+    x6 = [a - b for a, b in zip(_f32x6_launches(), before[2])]
     if dtype == torch.float32:
-        assert kernels == [0] * 11 and formed == [runs] * 5 + [0]
+        assert kernels == [0] * 11 and formed == [runs, runs, 0, 0, runs, 0] and x6 == [runs, runs]
     elif window is None:  # K1 and K2 (flash_bwd), the forms pre-pass and post-pass around the sweep
         assert kernels == [1, 1] + [0] * 9 and formed == [0, 1, 0, 0, 1, 0]
     else:  # K1 per KV head, then the wgmma pair
@@ -1295,15 +1307,17 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
         assert _rel(stored[4], ref[4]) > F16_REL_TOL
 
 
-# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16, and
-# csrc/flash_xwide.cuh's kernels their chunked instance at D = 320 ... 512 (csrc/flash_forms.cu,
-# FORMS_DISPATCH): (entry point, dtype, D)
+# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16,
+# csrc/flash_xwide.cuh's kernels their chunked instance at D = 320 ... 512, and csrc/flash_f32x6.cuh's pair fp32's
+# dq and dk/dv at D <= 256 (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
 PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
                 ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
                 ("forms_fwd", torch.bfloat16, 320), ("forms_fwd", torch.float16, 512),
                 ("forms_bwd_dq", torch.float16, 384), ("forms_bwd_dkv", torch.bfloat16, 448),
                 ("forms_bwd_dkv", torch.bfloat16, 256), ("forms_bwd_dq", torch.float16, 128),
-                ("forms_bwd_dkv", torch.float16, 64)]
+                ("forms_bwd_dkv", torch.float16, 64), ("forms_bwd_dq", torch.float32, 64),
+                ("forms_bwd_dkv", torch.float32, 128), ("forms_bwd_dq", torch.float32, 192),
+                ("forms_bwd_dkv", torch.float32, 256)]
 
 
 @pytest.mark.cuda
@@ -1704,3 +1718,171 @@ def test_xwide_site_runs_a_wgmma_kernel(cuda, window):
     assert fwd.dtype == out.dtype == torch.bfloat16 and _rel(fwd, ref) < REL_TOL and _rel(out, ref) < REL_TOL
     for name, a, b in zip("qkv", leaves, ref_leaves):
         assert torch.isfinite(a.grad).all() and _rel(a.grad, b.grad) < REL_TOL, f"d{name}: {_rel(a.grad, b.grad)}"
+
+
+# ------------------------------------------------- the fp32 pair on the tensor cores (csrc/flash_f32x6.cuh)
+
+F32X6_DIMS = [64, 128, 192, 256]
+# (B, T, H, Kv, window, tables): MQA with tables, global at a length no 64-tile divides and windowed with the
+# window running past both ends of the song; grouped (G = 4) without tables, global and windowed; full MHA
+F32X6_SITES = [(2, 1000, 4, 1, -1, True), (1, 1100, 4, 1, 1536, True), (2, 640, 8, 2, -1, False),
+               (1, 700, 8, 2, 200, False), (2, 256, 4, 4, -1, False)]
+F32X6_SITE_IDS = ["mqa-global", "mqa-window-past-both-ends", "grouped-global", "grouped-windowed", "mha"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64), (2, 5, 128), (1000, 192), (7, 256)], ids=["D64", "D128", "D192", "D256"])
+def test_f32x6_split_matches_plain(cuda, shape):
+    """The split of fp32 rows into their three bf16 pieces, [b0 | b1 | b2],
+    bit for bit against its plain version, over values of magnitudes from
+    1e-25 to 1e20 and both signs; the pieces sum back to x (down to 2^-102,
+    below which the third piece falls under bf16's smallest normal)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda).sign() * (1.0 + torch.rand(shape, generator=g, device=cuda)) \
+        * 10.0 ** torch.randint(-25, 21, shape, generator=g, device=cuda)
+    before = fa.f32x6_split.launches
+    got = fa.f32x6_split(x)
+    torch.cuda.synchronize()
+    assert fa.f32x6_split.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (*shape[:-1], 3 * shape[-1])
+    assert torch.equal(got, fa.f32x6_split_reference(x))
+    b0, b1, b2 = (p.float() for p in got.split(shape[-1], dim=-1))
+    assert torch.equal((b0 + b1) + b2, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables", F32X6_SITES, ids=F32X6_SITE_IDS)
+@pytest.mark.parametrize("D", F32X6_DIMS)
+def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
+    """csrc/flash_f32x6.cuh's dq and dk/dv on the forms pre-pass's scratch
+    with the pieces of qs and do, between the pre-pass and the post-pass, at
+    fp32 in each site's form, against the plain fp32 versions within the
+    fp32 bounds, with a planted fault above them (an LSE off by 0.05); the
+    same through the wrappers where they take the site (the global backward,
+    and at MQA with tables the windowed pair), each kernel once a call and no
+    forms dq or dk/dv."""
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float32, tables, cuda, seed=D + T + Kv)
+    scale = D**-0.5
+    o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    before = _f32x6_launches(), _forms_launches()
+    prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, Kv, scale)
+    dk, dv = torch.empty(k_rot.shape, device=cuda), torch.empty(k_rot.shape, device=cuda)
+    fa.f32x6_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
+    fa.f32x6_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
+    runs = [(forms.forms_bwd_post(prep, cos, sin, scale), dk, dv)]
+    if window < 0:
+        runs.append(fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, scale))
+    elif Kv == 1 and tables:
+        dq, prep_w = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, window, scale)
+        runs.append((dq, *fa.flash_bwd_dkv(k_rot, v, do, prep_w, window)))
+    torch.cuda.synchronize()
+    n = len(runs)
+    assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n, n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, 0]
+
+    def plain(lse_in):
+        return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
+                *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, window))
+
+    refs, faults = plain(lse), plain(lse + 0.05)
+    for grads in runs:
+        assert all(g.dtype == torch.float32 for g in grads)
+        for name, a, b, fault in zip(("dq", "dk", "dv"), grads, refs, faults):
+            assert torch.isfinite(a).all() and _rel(a, b) < F32_REL_TOL < _rel(fault, b), \
+                f"{name}: rel L2 {_rel(a, b)}, planted fault {_rel(fault, b)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [0, 1, 3], ids=["first", "interior", "last"])
+@pytest.mark.parametrize("D", F32X6_DIMS)
+def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
+    """The halo pair at fp32 through the halo wrappers (csrc/flash_f32x6.cuh's
+    kernels in the halo frame, the forms forward), with the slab rows outside
+    the song set large, against the plain halo versions within the fp32
+    bounds; the slab rows outside the song get exact zeros, an LSE off by
+    0.05 lies above the bound, and no forms dq or dk/dv runs."""
+    B, T, H, W, n = 1, 512, 4, 256, 4
+    g = torch.Generator(device=cuda).manual_seed(D + shard)
+    q, do = (torch.randn((B, T, H, D), generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda) for _ in range(2))
+    g0, t_global = shard * T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    scale = D**-0.5
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
+    before = _f32x6_launches(), _forms_launches()
+    dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
+    dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [1, 1]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
+            *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
+    faults = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref + 0.05, do, W, g0, t_global),
+              *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref + 0.05, do, W, g0, t_global))
+    for name, a, b, fault in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, faults):
+        assert torch.isfinite(a).all() and _rel(a, b) < F32_REL_TOL < _rel(fault, b), \
+            f"{name}: rel L2 {_rel(a, b)}, planted fault {_rel(fault, b)}"
+    outside = torch.ones(T + W, dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert (dk[:, outside] == 0).all() and (dv[:, outside] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
+@pytest.mark.parametrize("D", F32X6_DIMS)
+def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope):
+    """The ring over two hops at fp32: the forms forward per hop and merge,
+    and csrc/flash_f32x6.cuh's pair adding into the travelling dk and dv (and
+    into one dq buffer) between the forms pre-pass and post-pass, against the
+    plain parts within the fp32 bounds; kernel sweeps that store in place of
+    adding lie above the bound."""
+    from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_bwd, ring_fwd
+
+    class StoringSweeps(KernelParts):  # planted fault: every hop's sweep stores its dk and dv
+        @staticmethod
+        def backward_sweep(state, k, v, dk, dv, accumulate):
+            fa.flash_bwd_sweep(k, v, state, dk, dv, False)
+
+    n, B, T, H = 2, 1, 512, 4
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, n * T, H, Kv, D, torch.float32, rope, cuda, seed=D + Kv)
+
+    def run(parts):
+        def rank(r, rotation):
+            sl = slice(r * T, (r + 1) * T)
+            c, s = (None, None) if cos is None else (cos[sl].contiguous(), sin[sl].contiguous())
+            qr, kr, vr, dor = (x[:, sl].contiguous() for x in (q, k_rot, v, do))
+            o, lse = ring_fwd(qr, kr, vr, c, s, rotation, parts)
+            return (o, lse, *ring_bwd(qr, kr, vr, o, lse, dor, c, s, rotation, parts))
+
+        results = LocalRing(n).run(rank)
+        torch.cuda.synchronize()
+        return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
+
+    before = _f32x6_launches(), _forms_launches()
+    got = run(None)
+    assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n * n, n * n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n, n, 0, 0, n, n * n]
+    ref = run(PlainParts)
+    stored = run(StoringSweeps)
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
+        assert torch.isfinite(a).all() and _rel(a, b) < F32_REL_TOL, f"{name}: rel L2 {_rel(a, b)}"
+    assert _rel(stored[4], ref[4]) > F32_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["f32x6_bwd_dq", "f32x6_bwd_dkv", "f32x6_split"])
+def test_f32x6_failed_launch_raises(cuda, monkeypatch, entry):
+    """A launch of the pair (or of its split) that fails raises RuntimeError
+    out of the fp32 global backward: nothing gives way to the forms bodies or
+    the plain versions, and no forms dq or dk/dv is launched."""
+    B, T, H, D = 1, 256, 2, 128
+    q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float32, True, cuda, seed=5)
+    o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    kernel = fa._kernel
+    monkeypatch.setattr(fa, "_kernel", lambda name: (lambda *args: 719) if name == entry else kernel(name))
+    before = _forms_launches()
+    with pytest.raises(RuntimeError, match=f"{entry} kernel launch failed"):
+        fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, D**-0.5)
+    assert [a - b for a, b in zip(_forms_launches(), before)][2:4] == [0, 0]

@@ -133,12 +133,12 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
     head dim above 256 that is a multiple of 64, for every type, at the
     pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward keeps
-    only fp32 at D <= 256 (K1 takes bf16 and fp16 there), and so do dq and
-    dk/dv (K2's sweep and the wgmma pair take bf16 and fp16); each of the
-    three keeps fp32's chunked instance at every head dim above 256, and bf16's
-    and fp16's only above 512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's
-    kernels take D = 320 ... 512 at those types, so the dispatch keys those
-    head dims apart)."""
+    only fp32 at D <= 256 (K1 takes bf16 and fp16 there); dq and dk/dv keep
+    no type at D <= 256 (csrc/flash_f32x6.cuh's pair takes fp32, K2's sweep
+    and the wgmma pair bf16 and fp16); each of the three keeps fp32's chunked
+    instance at every head dim above 256, and bf16's and fp16's only above
+    512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's kernels take D = 320 ... 512
+    at those types, so the dispatch keys those head dims apart)."""
     text = _text("flash_forms.cu")
     dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_ABOVE")]
     chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_FWD")]
@@ -172,7 +172,7 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
     at_dims = lambda listed: bool(re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", listed))
     assert at_dims(fwd) == (instance == "float")
-    assert at_dims(sweeps) == (instance == "float")
+    assert not at_dims(sweeps)
 
 
 # the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
@@ -252,3 +252,28 @@ def test_xwide_instances_are_built_for_sm_90a(entry):
     for kernel in ("xwide_fwd_kernel", "xwide_dq_kernel", "xwide_dkv_kernel"):
         assert re.search(rf"template <typename E>\s+__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(",
                          header), kernel
+
+
+def test_f32x6_pair_is_built_for_sm_90a():
+    """The fp32 backward pair on the tensor cores (csrc/flash_f32x6.cuh) is
+    in the build table: a library of its own (``flash_f32x6``) built for
+    sm_90a from a source that includes the header, with its split, dq and
+    dk/dv entry points bound, the pair taking the xwide pair's arguments
+    (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s without the type code). The
+    header covers the head dims ``flash_forms.FORMS_HEAD_DIMS`` names, is
+    built on bf16 ``wgmma`` products from shared memory and from registers,
+    and has none of the pre-Hopper tokens."""
+    from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
+    from osufusion_tpu_torch.ops.flash_forms import FORMS_HEAD_DIMS
+
+    assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
+    assert "flash_f32x6.cuh" in _includes(SOURCES["flash_f32x6"].name)
+    entries = {e for e, (lib, _) in _ENTRY_POINTS.items() if lib == "flash_f32x6"}
+    assert entries == {"f32x6_split", "f32x6_bwd_dq", "f32x6_bwd_dkv"}
+    assert _ENTRY_POINTS["f32x6_bwd_dq"][1] == _ENTRY_POINTS["xwide_bwd_dq_bf16"][1]
+    assert _ENTRY_POINTS["f32x6_bwd_dkv"][1] == _ENTRY_POINTS["xwide_bwd_dkv_bf16"][1]
+    header = _text("flash_f32x6.cuh")
+    assert "X6_MAX_D = 256;" in header and "D >= 64 && D <= X6_MAX_D && D % 64 == 0" in header
+    assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
+    assert "wgmma_ss<64, 0, 0, E>" in header and "wgmma_rs_n64<1, E>" in header
+    assert not [token for token in ("mma.sync", "ldmatrix", "cp.async.cg") if token in header]
