@@ -162,12 +162,11 @@ failure raises and the exit code is not 0:
     launch, asserted); a D = 32
     site runs the XLA route (rope and the plain attention), launches no
     kernel and equals the plain attention; a refused window raises
-    ValueError, a failed bf16, fp16 or forms launch RuntimeError.
-    Kernel level: every forms instance that is built (fp32 at D = 64 ... 256:
-    forward, pre-pass, post-pass, merge, with csrc/flash_f32x6.cuh's dq and
-    dk/dv on the sweep's wrapper; bf16 and fp16 there: the pre-pass,
-    post-pass and merge around K2's sweep) on one site's chain (K1 and K2's
-    sweep where the forms body is not built) against its plain fp32 version
+    ValueError, a failed bf16, fp16 or fp32 launch RuntimeError.
+    Kernel level: every forms instance that is built at D = 64 ... 256 (the
+    pre-pass, post-pass and merge: fp32 around csrc/flash_f32x6.cuh's forward
+    and pair, bf16 and fp16 around K1 and K2's sweep) on one site's chain
+    against its plain fp32 version
     at B=2, T=4096, H=16 (global, tables), fp32/64 and bf16/128 also grouped (B=2, T=2048,
     H=8, Kv=2); planted faults (the last key tile dropped or a window one key
     short; an LSE off by 0.05) above the bounds (fp32: summation order only;
@@ -198,25 +197,27 @@ failure raises and the exit code is not 0:
     at the windowed sites).
     (b), (c) and (h): fp32 serving, bf16 serving of a UNet with
     attn_dim_head=128 and fp16 serving of the default UNet (D = 64), each the
-    180 s song through ``generate_beatmap`` at DPM-16, CFG 2.0 (444 forms
-    forwards a map at fp32 and no wgmma launch; 444 K1 launches at bf16/128
-    and fp16 and no other), the sampler alone on the 180 s cell (s/map), and
-    phase 21's signal check at 8192 frames. (d) the gradients of a
-    dim_h=512 UNet of one block a level (13 sites, B=2, T=4096) through the
-    kernels at fp32/64, bf16/128 and fp16/64 against fp32 through the plain
-    versions (fp32: the forms forward, pre-pass and post-pass and the fp32
-    pair of phase 27, no other wgmma kernel; bf16/128 and fp16/64: K1 with its
+    180 s song through ``generate_beatmap`` at DPM-16, CFG 2.0 (444
+    ``flash_fwd`` launches a map: at fp32 phase 27's forward with two splits
+    each, at bf16/128 and fp16 K1; no forms kernel and no other launch), the
+    sampler alone on the 180 s cell (s/map), and phase 21's signal check at
+    8192 frames. (d) the gradients of a dim_h=512 UNet of one block a level
+    (13 sites, B=2, T=4096) through the kernels at fp32/64, bf16/128 and
+    fp16/64 against fp32 through the plain versions (fp32: phase 27's
+    forward, dq and dk/dv and the forms pre-pass and post-pass, no forms
+    forward, dq or dk/dv and no other wgmma kernel; bf16/128 and fp16/64: K1 with its
     LSE and K2 a site, the forms pre-pass and post-pass around K2's sweep, no
     forms forward, dq or dk/dv). (e) the shard forms at kernel
     level: the halo instances at phase 10's rank shape (B=1, T_local=16384,
     W=4096, the second of four shards) and the ring over two shards as
     threads at phase 18's UNet and DiT rank shapes, fp32/64 and bf16/128,
     each with planted faults (bf16/128: the halo pair through K5a / K5b's
-    wgmma instances, no forms dq or dk/dv). (a) fp32 crop training: ``trainer.train`` with
-    ``mixed_precision="no"`` at dim_h=512, B=4, T=4096, 2 steps: 39 forms
-    forwards, pre-passes and post-passes and 39 of phase 27's dq and dk/dv
-    (six splits each site) a step, no forms dq or dk/dv and no other wgmma
-    launch.
+    wgmma instances; fp32/64: phase 27's forward in the halo frame and on each
+    hop, and its pair; no forms forward, dq or dk/dv). (a) fp32 crop
+    training: ``trainer.train`` with ``mixed_precision="no"`` at dim_h=512,
+    B=4, T=4096, 2 steps: 39 of phase 27's forward, dq and dk/dv and of the
+    forms pre-pass and post-pass (eight splits each site) a step, no forms
+    forward, dq or dk/dv and no other wgmma launch.
 
 24. Whole-song training at a head dim of 128: ``trainer.train`` at phase 9's
     cell with ``attn_dim_head=128`` (16 heads of 128, 1 KV head, context
@@ -242,18 +243,28 @@ failure raises and the exit code is not 0:
     (DPM-16, CFG 2.0) to a parsed ``.osz``, and (d)'s gradient check at
     bf16/320 and fp16/512 against fp32 plain; each runs only the new kernels
     (and the forms pre-pass and post-pass), no chunked launch.
-27. The fp32 backward pair on the tensor cores (``phase_f32x6_kernels``):
-    ``csrc/flash_f32x6.cuh``'s dq and dk/dv (six bf16 products per fp32
-    product) and its split at D = 64, 128, 192 and 256, at B=2, T=4096, H=16
-    (global, tables) through the global backward against the plain fp32
-    versions at the forms family's fp32 bounds (1e-4 relative L2, 1e-4 of the
-    largest magnitude) with a planted fault above them (an LSE off by
-    LSE_FAULT), each kernel timed by CUDA events beside its six-product bound,
-    the FMA bound of the forms pair it replaced, its plain version and rope +
-    SDPA at fp32; at D = 64 and 256 also the windowed (B=1, T=16384, W=2048),
-    grouped (B=2, T=2048, H=8, Kv=2) and halo (phase 10's rank shape) sites;
-    the split bit for bit against its plain version. Its launches on the
-    paths are phase 23 (a) and (d)'s.
+27. fp32 on the tensor cores (``phase_f32x6_kernels``):
+    ``csrc/flash_f32x6.cuh``'s forward, dq and dk/dv (six bf16 products per
+    fp32 product) and its split at D = 64, 128, 192 and 256, at B=2, T=4096,
+    H=16 (global, tables; the forward with its LSE through ``flash_fwd``, the
+    pair through the global backward) against the plain fp32 versions at the
+    forms family's fp32 bounds (1e-4 relative L2, 1e-4 of the largest
+    magnitude, 1e-4 on the LSE) with planted faults above them (the last key
+    tile left out; an LSE off by LSE_FAULT), each kernel timed by CUDA events
+    beside its six-product bound, the FMA bound of the forms body it
+    replaced, its plain version and rope + SDPA at fp32 (both calls); at D =
+    64 and 256 also the windowed (B=1, T=16384, W=2048; the forward without
+    its LSE, planted fault a window two keys short), grouped (B=2, T=2048,
+    H=8, Kv=2, no tables) and halo (phase 10's rank shape; the slab one key
+    off its frame) sites, and the forward over 24576 keys (B=1, H=8, global),
+    whose 384 tiles would drift one wgmma accumulator past the bound; the
+    split bit for bit against its plain version. Their launches on the paths
+    are phase 23 (a), (b) and (d)'s, the ring's hops and the halo frame
+    phase 23 (e)'s. Then the forms family's chunked instance at fp32
+    (``phase_f32_chunked_kernels``), which fp32 runs above D = 256: the
+    forward, dq with its pre-pass and post-pass, and dk/dv at D = 320 and
+    512 at the same site, checked and timed beside the FMA bound, the
+    six-product bound, the plain version and rope + SDPA.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1216,13 +1227,11 @@ FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
 
 def _forms_bodies(dtype, D: int) -> tuple:
     """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one
-    above D = 512 and at fp32 above 256; at fp32 with D <= 256 all but dq and dk/dv (csrc/flash_f32x6.cuh's
-    pair takes those); at bf16 and fp16 with D <= 512 the pre-pass, post-pass and merge (K1, K2's sweep, the
-    wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest)."""
+    above D = 512 and at fp32 above 256; below, the pre-pass, post-pass and merge (K1, K2's sweep, the wgmma
+    windowed pair and csrc/flash_xwide.cuh's kernels take the rest at bf16 and fp16, csrc/flash_f32x6.cuh's
+    forward and pair at fp32)."""
     if D > 512 or (dtype == torch.float32 and D > 256):
         return FORMS_BODIES
-    if dtype == torch.float32:
-        return ("fwd", *FORMS_BODIES[3:])
     return FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
@@ -1287,8 +1296,9 @@ def _attention_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int, 
 
 def _forms_call(q, k_rot, v, do, cos, sin, window: int):
     """One site through the forms instance of q's (dtype, D), directly through its wrappers, and where the
-    instance has no such body through the wgmma kernel that the route takes (K1 for the forward, K2's sweep
-    or at fp32 csrc/flash_f32x6.cuh's pair for a global site's dq and dk/dv): (o, lse), then the backward's
+    instance has no such body through the wgmma kernel that the route takes (K1, or at fp32
+    csrc/flash_f32x6.cuh's forward; K2's sweep or at fp32 csrc/flash_f32x6.cuh's pair for a global site's dq
+    and dk/dv): (o, lse), then the backward's
     (dq, dk_rot, dv) from them, and the pre-pass's scratch."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
@@ -1477,7 +1487,7 @@ def phase_forms_raise() -> None:
     and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
     keys of the last tile dropped, or a window two keys short) above the bound. A site whose head dim is not
     a multiple of 64 (D = 32) launches no kernel and equals the plain attention, as the JAX package sends it
-    to XLA. A bf16, D = 64 site whose window the wrapper refuses raises ValueError; a bf16, fp16 or forms
+    to XLA. A bf16, D = 64 site whose window the wrapper refuses raises ValueError; a bf16, fp16 or fp32
     launch that fails raises RuntimeError."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
@@ -2305,15 +2315,18 @@ def _library_ms(q, k, v, do, cos, sin) -> tuple[float, float, str]:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return F.scaled_dot_product_attention(qr, kr, vr).transpose(1, 2)
 
-    times = {}
+    times, refused = {}, []
     for name, call in (("enable_gqa", gqa), ("memory-efficient, K and V expanded", expanded)):
-        with torch.no_grad():
-            fwd_ms = _cuda_ms(lambda: call(q, k, v), 3)
-        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = call(*leaves)
-        times[name] = fwd_ms, _cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
-        del leaves, out
-    line = "; ".join(f"{name} forward {f:.3f}, backward {b:.3f} ms" for name, (f, b) in times.items())
+        try:
+            with torch.no_grad():
+                fwd_ms = _cuda_ms(lambda: call(q, k, v), 3)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = call(*leaves)
+            times[name] = fwd_ms, _cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
+            del leaves, out
+        except RuntimeError as e:  # a route that PyTorch has no kernel for at this (dtype, D): no yardstick there
+            refused.append(f"{name} not available ({str(e).splitlines()[0][:80]})")
+    line = "; ".join([f"{name} forward {f:.3f}, backward {b:.3f} ms" for name, (f, b) in times.items()] + refused)
     return min(f for f, _ in times.values()), min(b for _, b in times.values()), line
 
 
@@ -2495,20 +2508,29 @@ def _xwide_json(records: dict, launches: dict) -> list:
 X6_DIMS = (64, 128, 192, 256)
 X6_SITES = (("windowed", *FORMS_WINDOWED[:3], 1, FORMS_WINDOWED[3], True), ("grouped", *FORMS_GROUPED, -1, False))
 X6_CHECKED_DIMS = (64, 256)
-# the Pallas body each entry point stands in for: dq (_dq_kernel; also :1054, :575, :1338), dk/dv (_dkv_kernel;
-# also :1099, :575, :1338), and the split, which serves both at _bwd_fused_kernel's sites and the rest
-X6_REPLACES = {"dq": 435, "dkv": 507, "split": 575}
+# the forward over a long key range: a global site of the serving song's length (B=1, T=24576, H=8, tables), whose
+# 384 tiles of P V would drift one wgmma accumulator above the fp32 bounds (PERF.md open question 9)
+X6_LONG = (1, 24576, 8)
+# the Pallas body each entry point stands in for: the forward (_fwd_kernel; also :938 and the ring's hops, :1310),
+# dq (_dq_kernel; also :1054, :575, :1338), dk/dv (_dkv_kernel; also :1099, :575, :1338), and the split, which
+# serves all three at _bwd_fused_kernel's sites and the rest
+X6_REPLACES = {"fwd": 208, "dq": 435, "dkv": 507, "split": 575}
 
 
 def _x6_counts(reset: bool = False) -> dict:
-    """The launch counters of csrc/flash_f32x6.cuh's entry points (set to 0 first with ``reset``)."""
+    """The launch counters of csrc/flash_f32x6.cuh's entry points (set to 0 first with ``reset``): the forward
+    on one device ("fwd", counted by ``flash_fwd``) and in the halo frame ("halo_fwd"), dq, dk/dv and the
+    split."""
     from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
 
-    fns = {"dq": fa.f32x6_bwd_dq, "dkv": fa.f32x6_bwd_dkv, "split": fa.f32x6_split}
+    counters = {"fwd": (fa.flash_fwd, "f32x6_launches"), "halo_fwd": (ha.halo_fwd, "f32x6_launches"),
+                "dq": (fa.f32x6_bwd_dq, "launches"), "dkv": (fa.f32x6_bwd_dkv, "launches"),
+                "split": (fa.f32x6_split, "launches")}
     if reset:
-        for fn in fns.values():
-            fn.launches = 0
-    return {kind: fn.launches for kind, fn in fns.items()}
+        for owner, attr in counters.values():
+            setattr(owner, attr, 0)
+    return {kind: getattr(owner, attr) for kind, (owner, attr) in counters.items()}
 
 
 def _x6_hold(where: str, got: tuple, refs: tuple, faults: tuple, failures: list) -> tuple[dict, str]:
@@ -2526,6 +2548,23 @@ def _x6_hold(where: str, got: tuple, refs: tuple, faults: tuple, failures: list)
         if not fault_rel > FORMS_F32_REL_TOL:
             failures.append(f"{where}: planted fault in {name} {fault_rel:.3e} would pass {FORMS_F32_REL_TOL}")
     return errors, "; ".join(parts) + f" (bounds {FORMS_F32_REL_TOL:g} rel L2, {FORMS_F32_ABS_TOL:g} of the largest)"
+
+
+def _x6_fwd_hold(where: str, got, ref: tuple, fault, failures: list) -> tuple[float, str]:
+    """Hold a forward's o (and its LSE, where ``got`` is (o, lse)) to the plain fp32 ``ref`` (o, lse) within
+    FORMS_F32_REL_TOL (relative L2), FORMS_F32_ABS_TOL (max abs) and FORMS_F32_LSE_TOL, and a planted fault's o
+    above the first. Returns (the largest error of o, a log line)."""
+    o, lse = got if isinstance(got, tuple) else (got, None)
+    rel, err, fault_rel = _rel(o, ref[0]), (o - ref[0]).abs().max().item(), _rel(fault, ref[0])
+    lse_err = 0.0 if lse is None else (lse - ref[1]).abs().max().item()
+    if not (rel < FORMS_F32_REL_TOL and err < FORMS_F32_ABS_TOL and lse_err < FORMS_F32_LSE_TOL
+            and torch.isfinite(o).all()):
+        failures.append(f"{where}: forward o rel L2 {rel:.3e}, max abs {err:.3e}, lse max abs {lse_err:.3e}")
+    if not fault_rel > FORMS_F32_REL_TOL:
+        failures.append(f"{where}: planted fault in o {fault_rel:.3e} would pass {FORMS_F32_REL_TOL}")
+    lse_part = "" if lse is None else f", lse max abs {lse_err:.3e}"
+    return err, (f"o rel L2 {rel:.3e} max abs {err:.3e} (fault {fault_rel:.3e}){lse_part} (bounds "
+                 f"{FORMS_F32_REL_TOL:g} rel L2 and max abs, {FORMS_F32_LSE_TOL:g} lse)")
 
 
 def _x6_backward(q, k_rot, v, o, lse, do, cos, sin, window: int, halo=None):
@@ -2558,17 +2597,19 @@ def _x6_backward(q, k_rot, v, o, lse, do, cos, sin, window: int, halo=None):
 
 
 def phase_f32x6_kernels() -> dict:
-    """csrc/flash_f32x6.cuh's dq and dk/dv (fp32, six bf16 products per fp32 product) and its split, at
-    X6_DIMS at the forms site through the global backward against the plain fp32 versions at the forms
-    family's fp32 bounds with planted faults above them; each kernel timed by CUDA events (behind the
-    sleeping kernel) beside its bound (the six products at the tensor cores' bf16 rate, and the FMA bound of
-    the forms bodies it replaced), its plain version and the PyTorch call (``_library_ms``: rope + SDPA at
-    fp32, the faster of ``enable_gqa`` and the memory-efficient route on K and V expanded), and the pair as
-    its callers pay it (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus
-    ``flash_bwd_dkv``); at X6_CHECKED_DIMS also the windowed and grouped sites of X6_SITES and the halo pair
-    at FORMS_HALO, checked only, and the split bit for bit against its plain version. Returns {D: {"dq" |
-    "dkv" | "split": record}}, each record's max_abs_err its own kernel's largest over every site of its
-    head dim (the split's: 0.0, bit for bit)."""
+    """csrc/flash_f32x6.cuh's forward, dq and dk/dv (fp32, six bf16 products per fp32 product) and its
+    split, at X6_DIMS at the forms site (the forward with its LSE through ``flash_fwd``, the pair through the
+    global backward) against the plain fp32 versions at the forms family's fp32 bounds with planted faults
+    above them; each kernel timed by CUDA events (behind the sleeping kernel) beside its bound (the six
+    products at the tensor cores' bf16 rate, and the FMA bound of the forms bodies it replaced), its plain
+    version and the PyTorch call (``_library_ms``: rope + SDPA at fp32, the faster of ``enable_gqa`` and the
+    memory-efficient route on K and V expanded; both in the log), and the pair as its callers pay it
+    (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus ``flash_bwd_dkv``); at
+    X6_CHECKED_DIMS also the forward and the pair at the windowed (forward without its LSE) and grouped
+    (without tables) sites of X6_SITES and in the halo frame at FORMS_HALO, and the forward over the long
+    key range of X6_LONG, checked only, and the split bit for bit against its plain version. Returns {D:
+    {"fwd" | "dq" | "dkv" | "split": record}}, each record's max_abs_err its own kernel's largest over every
+    site of its head dim (the split's: 0.0, bit for bit)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
     from osufusion_tpu_torch.utils.flops import attention_flops
@@ -2582,6 +2623,12 @@ def phase_f32x6_kernels() -> dict:
         scale = D**-0.5
         q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2500 + i, D, f32)
         o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+        fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+        torch.cuda.synchronize()
+        fwd_err, line = _x6_fwd_hold(f"fp32/{D} B={B} T={T} H={H} global", got, (o, lse), fault, failures)
+        _log(f"[f32x6 kernels] fp32/{D} B={B} T={T} H={H} global, tables, the forward with its LSE: {line}")
+        del got, fault
         got, refs, faults = _x6_backward(q, k_rot, v, o, lse, do, cos, sin, -1)
         errors, line = _x6_hold(f"fp32/{D} B={B} T={T} H={H} global", got, refs, faults, failures)
         _log(f"[f32x6 kernels] fp32/{D} B={B} T={T} H={H} global, tables, through flash_bwd: {line}")
@@ -2591,29 +2638,37 @@ def phase_f32x6_kernels() -> dict:
         if not torch.equal(split, fa.f32x6_split_reference(prep.qs)):
             failures.append(f"fp32/{D}: the split of qs differs from its plain version")
         dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
-        ms = {"dq": _cuda_ms(lambda: fa.f32x6_bwd_dq(k_rot, v, prep, -1, None, False), 5),
+        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 5),
+              "dq": _cuda_ms(lambda: fa.f32x6_bwd_dq(k_rot, v, prep, -1, None, False), 5),
               "dkv": _cuda_ms(lambda: fa.f32x6_bwd_dkv(k_rot, v, prep, dk_s, dv_s, -1, None, False), 5),
               "split": _cuda_ms(lambda: fa.f32x6_split(prep.qs), 10)}
         dq_ms, dkv_ms = _pair_ms(q, k_rot, v, do, cos, sin, -1)
-        plain = {"dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+        plain = {"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
+                 "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
                  "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
                  "split": _cuda_ms(lambda: fa.f32x6_split_reference(prep.qs), 3)}
         del prep, split, dk_s, dv_s
-        _, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
+        lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
         rows, keys, stats = B * T * H * D, B * T * D, B * T * H * 4
-        flops = {kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}
-        # the pieces of qs and do (6 bytes an element each); k and v in fp32, which the wrapper splits; lse and
-        # delta; the fp32 dq buffer, or dk and dv
-        nbytes = {"dq": 12 * rows + 8 * keys + 2 * stats + 4 * rows, "dkv": 12 * rows + 8 * keys + 2 * stats + 8 * keys}
-        bounds = {kind: _bound(6 * flops[kind], nbytes[kind]) for kind in ("dq", "dkv")}
+        flops = {"fwd": attention_flops("forward", B, T, H, D, None),
+                 **{kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}}
+        # forward: q and o fp32, k and v in fp32 (the wrapper splits them), the LSE; the pair: the pieces of qs
+        # and do (6 bytes an element each), k and v in fp32, lse and delta, the fp32 dq buffer or dk and dv
+        nbytes = {"fwd": 8 * rows + 8 * keys + stats, "dq": 12 * rows + 8 * keys + 2 * stats + 4 * rows,
+                  "dkv": 12 * rows + 8 * keys + 2 * stats + 8 * keys}
+        bounds = {kind: _bound(6 * flops[kind], nbytes[kind]) for kind in ("fwd", "dq", "dkv")}
         bounds["split"] = _bound(0, 10 * rows)  # read fp32, write three bf16 pieces
-        fma = {kind: flops[kind] / PEAK_FP32_FLOPS * 1e3 for kind in ("dq", "dkv")}
-        library = {"dq": lib_bwd_ms, "dkv": lib_bwd_ms, "split": None}
+        fma = {kind: flops[kind] / PEAK_FP32_FLOPS * 1e3 for kind in ("fwd", "dq", "dkv")}
+        library = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms, "split": None}
+        errors["fwd"] = fwd_err
         records[D] = {kind: {"max_abs_err": errors.get(kind, 0.0), "ms": ms[kind], "plain_ms": plain[kind],
                              "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1], "library_ms": library[kind]}
                       for kind in ms}
         pair_bound = bounds["dq"][0] + bounds["dkv"][0]
-        _log(f"[f32x6 kernels] fp32/{D}: dq kernel {ms['dq']:.3f} ms (six-product bound {bounds['dq'][0]:.3f} by "
+        _log(f"[f32x6 kernels] fp32/{D}: the forward with its LSE and the split of k and v {ms['fwd']:.3f} ms "
+             f"(six-product bound {bounds['fwd'][0]:.3f} by {bounds['fwd'][1]}, {bounds['fwd'][0] / ms['fwd']:.1%}; "
+             f"FMA bound {fma['fwd']:.3f}; plain {plain['fwd']:.3f}; the faster PyTorch call {lib_fwd_ms:.3f}); "
+             f"dq kernel {ms['dq']:.3f} ms (six-product bound {bounds['dq'][0]:.3f} by "
              f"{bounds['dq'][1]}, {bounds['dq'][0] / ms['dq']:.1%}; FMA bound {fma['dq']:.3f}; plain {plain['dq']:.3f}); "
              f"dk/dv kernel {ms['dkv']:.3f} ms (bound {bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / ms['dkv']:.1%}; FMA "
              f"bound {fma['dkv']:.3f}; plain {plain['dkv']:.3f}); the split of qs {ms['split']:.3f} ms (bound "
@@ -2628,6 +2683,16 @@ def phase_f32x6_kernels() -> dict:
                 o_s, lse_s = fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window)
                 where = (f"fp32/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
                          + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
+                # the forward: without its LSE at the windowed site (planted fault: a window two keys short), with it
+                # at the grouped one (the last key tile left out)
+                got = fa.flash_fwd(q_s, kr_s, v_s, cos_s, sin_s, window, scale, return_lse=window < 0)
+                fault = (fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window - 2) if window >= 0 else
+                         fa.flash_fwd_lse_reference(q_s, kr_s[:, :-FAULT_TILE], v_s[:, :-FAULT_TILE], cos_s, sin_s))[0]
+                torch.cuda.synchronize()
+                err, line = _x6_fwd_hold(where, got, (o_s, lse_s), fault, failures)
+                records[D]["fwd"]["max_abs_err"] = max(records[D]["fwd"]["max_abs_err"], err)
+                _log(f"[f32x6 kernels] {where}, the forward{' with its LSE' if window < 0 else ''}: {line}")
+                del got, fault
                 site_errors, line = _x6_hold(where, *_x6_backward(q_s, kr_s, v_s, o_s, lse_s, do_s, cos_s, sin_s, window),
                                              failures)
                 _log(f"[f32x6 kernels] {where}: {line}")
@@ -2641,16 +2706,34 @@ def phase_f32x6_kernels() -> dict:
             frame = (shard * T_h, n * T_h)
             o_h, lse_h = ha.halo_fwd_reference(q_h, k_h, v_h, W, *frame)
             where = f"fp32/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard {shard + 1} of {n}"
+            got = ha.halo_fwd(q_h, k_h, v_h, W, *frame, scale)  # planted fault: the slab one key off its frame
+            fault = ha.halo_fwd_reference(q_h, k_h.roll(1, dims=1), v_h.roll(1, dims=1), W, *frame)[0]
+            torch.cuda.synchronize()
+            err, line = _x6_fwd_hold(where, got, (o_h, lse_h), fault, failures)
+            records[D]["fwd"]["max_abs_err"] = max(records[D]["fwd"]["max_abs_err"], err)
+            _log(f"[f32x6 kernels] {where}, the forward with its LSE: {line}")
+            del got, fault
             site_errors, line = _x6_hold(where, *_x6_backward(q_h, k_h, v_h, o_h, lse_h, do_h, None, None, W, frame),
                                          failures)
             _log(f"[f32x6 kernels] {where}: {line}")
             for kind, err in site_errors.items():
                 records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
             del q_h, do_h, k_h, v_h, o_h, lse_h
+            B_l, T_l, H_l = X6_LONG
+            q_l, kr_l, _, v_l, _, cos_l, sin_l = _attention_inputs(B_l, T_l, H_l, 1, True, 2595 + D, D, f32)
+            got = fa.flash_fwd(q_l, kr_l, v_l, cos_l, sin_l, -1, scale, return_lse=True)
+            torch.cuda.synchronize()
+            ref = fa.flash_fwd_lse_reference(q_l, kr_l, v_l, cos_l, sin_l)
+            fault = fa.flash_fwd_lse_reference(q_l, kr_l[:, :-FAULT_TILE], v_l[:, :-FAULT_TILE], cos_l, sin_l)[0]
+            where = f"fp32/{D} long B={B_l} T={T_l} H={H_l} global, tables ({T_l // 64} key tiles)"
+            err, line = _x6_fwd_hold(where, got, ref, fault, failures)
+            records[D]["fwd"]["max_abs_err"] = max(records[D]["fwd"]["max_abs_err"], err)
+            _log(f"[f32x6 kernels] {where}, the forward with its LSE: {line}")
+            del q_l, kr_l, v_l, cos_l, sin_l, got, ref, fault
         del q, k_rot, k, v, do, o, lse, cos, sin
         torch.cuda.empty_cache()
     moved = {kind: n - before[kind] for kind, n in _x6_counts().items()}
-    if not (moved["dq"] > 0 and moved["dkv"] > 0 and moved["split"] > 0):
+    if not all(moved.values()):
         failures.append(f"the checks launched no f32x6 kernel: {moved}")
     if failures:
         raise AssertionError("flash_f32x6 kernels vs plain: " + "; ".join(failures))
@@ -2660,8 +2743,8 @@ def phase_f32x6_kernels() -> dict:
 
 def _x6_json(records: dict, launches: dict) -> list:
     """The kernels line's entries of csrc/flash_f32x6.cuh (``phase_f32x6_kernels``' records at the forms site)
-    with their launches on phase 23's fp32 paths ((a) the crop trainer, (d) the gradient check), which run D
-    = 64: one body of each kernel serves every head dim, a run-time argument."""
+    with their launches on phase 23's fp32 paths ((a) the crop trainer, (b) serving, (d) the gradient check),
+    which run D = 64: one body of each kernel serves every head dim, a run-time argument."""
     entries = []
     for D, kinds in records.items():
         for kind, rec in kinds.items():
@@ -2670,6 +2753,94 @@ def _x6_json(records: dict, launches: dict) -> list:
                             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{X6_REPLACES[kind]}",
                             "launches": launches.get(kind, 0) if D == 64 else 0, **rec})
     return entries
+
+
+# the head dims at which fp32 runs the forms family's chunked instance (above 256), timed at the forms site
+X6_CHUNKED_DIMS = (320, 512)
+
+
+def phase_f32_chunked_kernels() -> dict:
+    """The forms family's chunked instance at fp32 (csrc/flash_forms.cu's forms_fwd_chunked_kernel,
+    forms_dq_chunked_kernel and forms_dkv_chunked_kernel on the FMA units), which fp32 runs at every head dim
+    above 256, at X6_CHUNKED_DIMS at the forms site (B=2, T=4096, H=16, global, tables) through the wrappers:
+    the forward with its LSE (``flash_fwd``), dq with the forms pre-pass and post-pass (``flash_bwd_dq``) and
+    dk/dv (``flash_bwd_dkv``), checked against the plain fp32 versions at the fp32 bounds with planted faults
+    (the last key tile left out; an LSE off by LSE_FAULT) and each timed by CUDA events (one call behind one
+    warm-up: the instance takes 0.1 to 1 s a call) beside its FMA bound, the six-product bound of
+    csrc/flash_f32x6.cuh's kernels, its plain version and the PyTorch call (``_library_ms``, both in the log).
+    Returns {D: {"fwd" | "dq" | "dkv": record}}, bound_ms the FMA bound (the instance's own arithmetic)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import flash_forms as forms
+    from osufusion_tpu_torch.utils.flops import attention_flops
+
+    t_phase = time.perf_counter()
+    B, T, H = FORMS_SITE
+    failures, records = [], {}
+    before = _forms_counts()
+    for i, D in enumerate(X6_CHUNKED_DIMS):
+        scale, where = D**-0.5, f"fp32/{D} B={B} T={T} H={H} global, tables"
+        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2700 + i, D, torch.float32)
+        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+        fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+        torch.cuda.synchronize()
+        fwd_err, fwd_line = _x6_fwd_hold(where, got, (o_ref, lse_ref), fault, failures)
+        o, lse = got
+        del got, fault
+        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, scale)
+        dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, -1)
+        torch.cuda.synchronize()
+
+        def plain(lse_in):
+            return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, -1),
+                    *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, -1))
+
+        errors, bwd_line = _x6_hold(where, (dq, dk, dv), plain(lse), plain(lse + LSE_FAULT), failures)
+        errors["fwd"] = fwd_err
+        del dq, dk, dv
+        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 1),
+              "dq": _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, scale), 1),
+              "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, -1), 1)}
+        plain_ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
+                    "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                    "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1)}
+        del prep
+        lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
+        rows, keys, stats = B * T * H * D, B * T * D, B * T * H * 4
+        flops = {"fwd": attention_flops("forward", B, T, H, D, None),
+                 **{kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}}
+        # q and o, k and v, the LSE; the pair: qs and do, k and v, lse and delta, the dq buffer, or dk and dv
+        nbytes = {"fwd": 8 * rows + 8 * keys + stats, "dq": 12 * rows + 8 * keys + 2 * stats,
+                  "dkv": 8 * rows + 16 * keys + 2 * stats}
+        fma = {kind: _forms_bound(flops[kind], nbytes[kind], torch.float32) for kind in ms}
+        six = {kind: _bound(6 * flops[kind], nbytes[kind])[0] for kind in ms}
+        library = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+        records[D] = {kind: {"max_abs_err": errors[kind], "ms": ms[kind], "plain_ms": plain_ms[kind],
+                             "bound_ms": fma[kind][0], "bound_by": fma[kind][1], "library_ms": library[kind]}
+                      for kind in ms}
+        _log(f"[f32 chunked] {where}: forward {fwd_line}; backward {bwd_line}")
+        _log(f"[f32 chunked] fp32/{D}: " + "; ".join(
+            f"{kind} {ms[kind]:.3f} ms (FMA bound {fma[kind][0]:.3f}, {fma[kind][0] / ms[kind]:.1%}; six-product bound "
+            f"{six[kind]:.3f}; plain {plain_ms[kind]:.3f})" for kind in ms)
+             + f" (dq with the forms pre-pass and post-pass); rope + SDPA at fp32: {lib_line}")
+        del q, k_rot, k, v, do, cos, sin, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    moved = {kind: n - before[kind] for kind, n in _forms_counts().items()}
+    if not (moved["fwd"] > 0 and moved["dq"] > 0 and moved["dkv"] > 0):
+        failures.append(f"the checks launched no chunked forward, dq or dk/dv: {moved}")
+    if failures:
+        raise AssertionError("fp32 chunked instance vs plain: " + "; ".join(failures))
+    _log(f"[f32 chunked] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def _chunked_json(records: dict) -> list:
+    """The kernels line's entries of the chunked instance at fp32 (``phase_f32_chunked_kernels``); no main path
+    runs a head dim above 256 (phase 23 (f) runs it once a site at kernel level), so no launches."""
+    return [{"name": f"forms_{kind}_chunked_fp32_d{D}", "route": "cuda",
+             "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
+             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[kind]}", "launches": 0, **rec}
+            for D, kinds in records.items() for kind, rec in kinds.items()]
 
 
 # the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables; and the head dims at which it times
@@ -2704,6 +2875,9 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
     counters.update({f"f32x6 {kind}": getattr(fa, name) for kind, name in (("dq", "f32x6_bwd_dq"),
                                                                            ("dk/dv", "f32x6_bwd_dkv"))
                      if hasattr(fa, name)})  # a parent before csrc/flash_f32x6.cuh has none
+    counts = {name: (lambda c=c: c.launches) for name, c in counters.items()}
+    if hasattr(fa.flash_fwd, "f32x6_launches"):  # a parent before csrc/flash_f32x6.cuh's forward has none
+        counts["f32x6 fwd"] = lambda: fa.flash_fwd.f32x6_launches
     B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
     frame = (W, shard * T_h, n * T_h)
 
@@ -2744,10 +2918,10 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
         for where, operands, timer, rest in each_site(dt == torch.float32):
             ops = tuple(x.to(dt) for x in operands)
             del operands
-            before = {name: c.launches for name, c in counters.items()}
+            before = {name: count() for name, count in counts.items()}
             ms = timer(*ops, *rest)
             ms["pair"] = ms["dq"] + ms["dkv"]
-            launched = {name: c.launches - before[name] for name, c in counters.items() if c.launches > before[name]}
+            launched = {name: count() - before[name] for name, count in counts.items() if count() > before[name]}
             times[where, dt] = ms
             _log(f"[ab] {where} {_dtype_name(dt)}: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in ms.items())
                  + f" (dq with its pre-pass); launched {launched}")
@@ -2870,10 +3044,11 @@ def _forms_launch_check(label: str, counts: dict, expected: dict, hopper_moved: 
 def phase_forms_serve(model_cfg, workdir: Path) -> int:
     """(b), (c) and (h): serving a form beside bf16/64 (a float32 config; a bf16 UNet with
     attn_dim_head=128; a float16 config at D = 64), seeded random weights as phase 6's: the 180 s song
-    through ``generate_beatmap`` at DPM-16 and CFG 2.0 (444 forwards a map: fp32 the forms forward and no
-    wgmma launch; bf16/128 and fp16/64 K1 and no other launch), the sampler alone on the 180 s cell (s/map),
-    and at 8192 frames the signal through the kernels held to the plain attention's (phase 21's bounds).
-    Returns the forwards of the request and the sampler run (forms forwards at fp32, K1's otherwise)."""
+    through ``generate_beatmap`` at DPM-16 and CFG 2.0 (444 forwards a map through ``flash_fwd``: fp32
+    csrc/flash_f32x6.cuh's forward on the split k and v, bf16/128 and fp16/64 K1; no forms kernel and no other
+    wgmma launch), the sampler alone on the 180 s cell (s/map), and at 8192 frames the signal through the
+    kernels held to the plain attention's (phase 21's bounds). Returns the forwards of the request and the
+    sampler run (``flash_fwd``'s: at fp32 csrc/flash_f32x6.cuh's)."""
     from osufusion_tpu_torch.config import DiffusionConfig
     from osufusion_tpu_torch.models import build_model
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -2886,15 +3061,16 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
     expected = _map_launches(model, params.cfg, "dpmpp-2m", DPM_STEPS)
     wav = workdir / "song_forms.wav"
     synth_song(wav, 180.0, seed=ord("a"))
-    wide = model_cfg.dtype != "float32"  # K1 takes bf16 at D = 128 and fp16 at D = 64
+    f32 = model_cfg.dtype == "float32"  # csrc/flash_f32x6.cuh's forward; K1 takes bf16 at D = 128, fp16 at D = 64
     hopper = _all_launches(fa, ha)
     _forms_counts(reset=True)
+    _x6_counts(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     data, osu_texts = generate_beatmap(model, params, wav, title="smoke forms", num_samples=1,
                                        sampling_timesteps=DPM_STEPS, sampler="dpmpp-2m", cond_scale=2.0, seed=0)
     latency = time.perf_counter() - t0
-    request = _forms_counts()
+    request, x6_request = _forms_counts(), _x6_counts()
     k1_request = fa.flash_fwd.launches - hopper[0]
     hits = check_osz(data, osu_texts, 1)
     g = torch.Generator().manual_seed(0)
@@ -2903,33 +3079,34 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
     c = (torch.rand((1, 5), generator=g) * 2 - 1).cuda()
     x0 = torch.randn((1, 6, frames), generator=torch.Generator().manual_seed(1)).cuda()
     _forms_counts(reset=True)
+    _x6_counts(reset=True)
     between = _all_launches(fa, ha)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model.sample(params, a, c, x=x0, cond_scale=2.0, sampling_timesteps=DPM_STEPS, method="dpmpp-2m")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    sampler = _forms_counts()
+    sampler, x6_sampler = _forms_counts(), _x6_counts()
     after = _all_launches(fa, ha)
     k1_sampler = after[0] - between[0]
     _log(f"[forms serve] {label}: 180 s song, DPM-{DPM_STEPS}, CFG 2.0 through generate_beatmap {latency:.3f} s end to "
-         f"end, hit objects {hits}, forms launches {request}, K1 launches {k1_request}; the sampler alone on 24576 "
-         f"frames {seconds:.3f} s/map, forms launches {sampler}, K1 launches {k1_sampler} (expected {expected} "
-         f"forwards a map)")
-    if wide:  # K1 serves every site, nothing else launches
-        want = {"fwd": 0, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
-        others = [a - b for a, b in zip(after[1:], hopper[1:])]
-        moved = k1_request != expected or k1_sampler != expected or any(others)
-    else:
-        want = {"fwd": expected, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
-        moved = after != hopper
+         f"end, hit objects {hits}, forms launches {request}, flash_fwd launches {k1_request}, flash_f32x6 "
+         f"{x6_request}; the sampler alone on 24576 frames {seconds:.3f} s/map, forms launches {sampler}, "
+         f"flash_fwd launches {k1_sampler}, flash_f32x6 {x6_sampler} (expected {expected} forwards a map)")
+    # flash_fwd serves every site (at fp32 csrc/flash_f32x6.cuh's forward on k and v split), nothing else launches
+    want = {"fwd": 0, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+    others = [a - b for a, b in zip(after[1:], hopper[1:])]
+    for x6, n in ((x6_request, k1_request), (x6_sampler, k1_sampler)):
+        want_x6 = {"fwd": n, "halo_fwd": 0, "dq": 0, "dkv": 0, "split": 2 * n} if f32 else dict.fromkeys(x6, 0)
+        others.append(x6 != want_x6)
+    moved = k1_request != expected or k1_sampler != expected or any(others)
     _forms_launch_check(f"forms serve {label} request", request, want, moved)
     _forms_launch_check(f"forms serve {label} sampler", sampler, want, moved)
     if not torch.isfinite(out).all():
         raise AssertionError(f"forms serve {label}: non-finite sampled signal")
     del a, c, x0, out
     phase_sampler_check(model, params, check_song(workdir), "dpmpp-2m", DPM_STEPS)
-    return k1_request + k1_sampler if wide else request["fwd"] + sampler["fwd"]
+    return k1_request + k1_sampler
 
 
 def _forms_unet(dim_head: int, dtype: str, remat: bool = False):
@@ -2951,13 +3128,13 @@ FORMS_GRAD_F32_REL_TOL = 1e-3
 def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096) -> dict:
     """(d) Gradients at a form beside bf16/64: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
-    float32 through the plain versions on the card. fp32: the forms forward, pre-pass, dq, dk/dv and
-    post-pass a site and csrc/flash_f32x6.cuh's dq and dk/dv (no forms dq or dk/dv), and no other wgmma
-    kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
+    float32 through the plain versions on the card. fp32: csrc/flash_f32x6.cuh's forward (counted by
+    ``flash_fwd``), dq and dk/dv and the forms pre-pass and post-pass a site (no forms forward, dq or dk/dv),
+    and no other wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
     (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv; bf16 and fp16 above
     D = 256 (phase 26): the same, with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as
     K1 and K2). Returns the launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and
-    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_dq", "x6_dkv", "x6_split")."""
+    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_fwd", "x6_dq", "x6_dkv", "x6_split")."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -3015,10 +3192,11 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
                              f"{rel_all:.3e}, attention {rel_attn:.3e}")
-    if f32:  # the forms forward, pre-pass and post-pass, and csrc/flash_f32x6.cuh's pair (k, v, qs and do split)
+    if f32:  # csrc/flash_f32x6.cuh's forward and pair (k and v split for each, qs and do once), the forms helpers
         _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                            {"fwd": sites, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
-                            moved or x6 != {"dq": sites, "dkv": sites, "split": 6 * sites})
+                            {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                            wgmma != [sites] + [0] * 10
+                            or x6 != {"fwd": sites, "halo_fwd": 0, "dq": sites, "dkv": sites, "split": 8 * sites})
         return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}}
     # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family; above D =
     # 256 those are csrc/flash_xwide.cuh's forward and its pair between the forms pre-pass and post-pass
@@ -3031,10 +3209,10 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
 
 def phase_forms_train(workdir: Path) -> dict:
     """(a) fp32 crop training: ``trainer.train`` with ``mixed_precision="no"`` (float32 throughout) at
-    dim_h=512, B=4, T=4096, dummy data, 2 steps, every site global, no rematerialisation: one forms forward,
-    pre-pass and post-pass and one dq and dk/dv of csrc/flash_f32x6.cuh a site and step, no forms dq or
-    dk/dv and no other wgmma launch. Returns the forms launches and flash_f32x6's ("x6_dq", "x6_dkv",
-    "x6_split")."""
+    dim_h=512, B=4, T=4096, dummy data, 2 steps, every site global, no rematerialisation: one forward, dq and
+    dk/dv of csrc/flash_f32x6.cuh and one forms pre-pass and post-pass a site and step, no forms forward, dq
+    or dk/dv and no other wgmma launch. Returns the forms launches and flash_f32x6's ("x6_fwd", "x6_dq",
+    "x6_dkv", "x6_split")."""
     from osufusion_tpu_torch.config import Config, ModelConfig, TrainConfig
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
@@ -3056,9 +3234,11 @@ def phase_forms_train(workdir: Path) -> dict:
          f"{[round(h['seconds'], 4) for h in history]} s/step; peak memory {peak:.2f} GiB; forms launches {counts} "
          f"(sites {sites}); flash_f32x6 launches {x6}; other wgmma launches {launches}")
     n = sites * steps
-    _forms_launch_check("forms train fp32", counts, {"fwd": n, "prep": n, "dq": 0, "dkv": 0, "post": n, "merge": 0},
-                        _all_launches(fa, ha)[4:] != others or any(launches.values())
-                        or x6 != {"dq": n, "dkv": n, "split": 6 * n})
+    # the forward with its LSE through flash_fwd (csrc/flash_f32x6.cuh's), no other wgmma launch
+    k1 = {key: n * (key == "forward_lse") for key in launches}
+    _forms_launch_check("forms train fp32", counts, {"fwd": 0, "prep": n, "dq": 0, "dkv": 0, "post": n, "merge": 0},
+                        _all_launches(fa, ha)[4:] != others or launches != k1
+                        or x6 != {"fwd": n, "halo_fwd": 0, "dq": n, "dkv": n, "split": 8 * n})
     return {**counts, **{f"x6_{kind}": m for kind, m in x6.items()}}
 
 
@@ -3072,7 +3252,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]
     paths driven through the port's entry points ((a), (b), (c) or (h), (d)); then K1's and K2's records by
     head dim and their launches at D = 128 on (c), (d) and (g); then the windowed pair's records by (wrapper,
     head dim); then K1's and K2's fp16 records and their launches on (h) and (d) at fp16/64; then the fp16
-    windowed pair's records by (wrapper, head dim); then csrc/flash_f32x6.cuh's launches on (a) and (d)."""
+    windowed pair's records by (wrapper, head dim); then csrc/flash_f32x6.cuh's launches on (a), (b) and (d)."""
     from osufusion_tpu_torch.config import ModelConfig
 
     t0 = time.perf_counter()
@@ -3093,8 +3273,9 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]
         for inst, cfg in zip(main, configs):
             torch.cuda.empty_cache()
             served = phase_forms_serve(cfg, Path(tmp))
-            runs[inst].append({"fwd": served if inst[0] == torch.float32 else 0})
-            if inst == F16_MAIN:  # K1 at fp16 serves this one
+            if inst[0] == torch.float32:  # csrc/flash_f32x6.cuh's forward serves this one
+                runs[inst].append({"x6_fwd": served})
+            elif inst == F16_MAIN:  # K1 at fp16 serves this one
                 f16["serve"] += served
             elif inst[0] == torch.bfloat16:  # K1 at D = 128 this one
                 wide["fwd"] += served
@@ -3119,12 +3300,12 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]
         runs[FORMS_MAIN[0]].append(phase_forms_train(Path(tmp)))
     launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
                 for inst, rs in runs.items()}
-    # csrc/flash_f32x6.cuh's kernels on (a) and (d) at fp32/64
-    x6 = {kind: sum(r.get(f"x6_{kind}", 0) for r in runs[FORMS_MAIN[0]]) for kind in ("dq", "dkv", "split")}
+    # csrc/flash_f32x6.cuh's kernels on (a), (b) and (d) at fp32/64
+    x6 = {kind: sum(r.get(f"x6_{kind}", 0) for r in runs[FORMS_MAIN[0]]) for kind in ("fwd", "dq", "dkv", "split")}
     _log(f"[forms] launches on paths (a)-(d) and (h) by instance: "
          + "; ".join(f"{_dtype_name(dt)}/{D} {n}" for (dt, D), n in launches.items())
          + f"; K1 and K2 at D = 128 on (c), (d) and (g): {wide}; K1 and K2 at fp16/64 on (h) and (d): {f16}; "
-         + f"flash_f32x6 at fp32/64 on (a) and (d): {x6}")
+         + f"flash_f32x6 at fp32/64 on (a), (b) and (d): {x6}")
     if not (wide["fwd"] > 0 and wide["bwd"] > 0):
         raise AssertionError(f"K1 or K2 at D = 128 launched no time on the paths: {wide}")
     if not all(f16.values()):
@@ -3223,8 +3404,8 @@ def phase_forms_shards() -> dict:
     dq and dk/dv at FORMS_HALO against their plain versions, the slab's rows outside the song random
     (planted faults: the slab one key off its frame, an LSE off by LSE_FAULT), and the ring over two shards as ``LocalRing``
     threads at FORMS_RING against its plain parts (planted faults: the second hop left out of the merge, the
-    second sweep storing). At fp32/64 the forward and the helpers are forms kernels and dq and dk/dv
-    csrc/flash_f32x6.cuh's; at bf16/128 the halo pair is the
+    second sweep storing). At fp32/64 the forward, dq and dk/dv are csrc/flash_f32x6.cuh's and the helpers
+    forms kernels; at bf16/128 the halo pair is the
     wgmma pair's halo instances K5a / K5b and the forward K1's, with no forms forward, dq or dk/dv. Returns
     the forms launches and the ring's largest error of o (the merge's output), each by instance."""
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -3299,18 +3480,18 @@ def phase_forms_shards() -> dict:
         halo = [a - b for a, b in zip((ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches),
                                       halo_before)]
         _log(f"[forms shards] {name}: forms launches {counts}; wgmma halo forward, dq, dk/dv launches {halo}")
-        # bf16/128: the halo pair runs K1's and the windowed pair's wgmma instances, the ring K1 and K2's sweep, so
-        # no forms forward, dq or dk/dv; fp32/64: the forms forward, pre-pass, post-pass and merge with
-        # csrc/flash_f32x6.cuh's dq and dk/dv, no forms dq or dk/dv and no other wgmma halo kernel
+        # bf16/128: the halo pair runs K1's and the windowed pair's wgmma instances, the ring K1 and K2's sweep;
+        # fp32/64: csrc/flash_f32x6.cuh's forward (in the halo frame, and each hop's) and its dq and dk/dv, with
+        # the forms pre-pass, post-pass and merge. Neither runs a forms forward, dq or dk/dv
         wgmma = dt == torch.bfloat16
         x6 = _x6_counts()
-        if wgmma and not (counts["fwd"] == counts["dq"] == counts["dkv"] == 0 and min(halo) > 0):
+        if not (counts["fwd"] == counts["dq"] == counts["dkv"] == 0 and halo[0] > 0):
             failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want no forms forward, dq or "
-                            "dk/dv and the wgmma halo kernels")
-        if not wgmma and not (not any(halo) and counts["dq"] == counts["dkv"] == 0 and counts["fwd"] > 0
-                              and x6["dq"] > 0 and x6["dkv"] > 0):
-            failures.append(f"{name}: forms launches {counts}, flash_f32x6 {x6}, wgmma halo launches {halo}; want the "
-                            "forms forward and helpers with the fp32 pair")
+                            "dk/dv and the halo forward")
+        if wgmma and not min(halo) > 0:
+            failures.append(f"{name}: wgmma halo launches {halo}; want the wgmma halo pair")
+        if not wgmma and (any(halo[1:]) or not all(x6[kind] > 0 for kind in ("fwd", "halo_fwd", "dq", "dkv"))):
+            failures.append(f"{name}: flash_f32x6 {x6}, wgmma halo launches {halo}; want the fp32 forward and pair")
     if failures:
         raise AssertionError("forms shards: " + "; ".join(failures))
     return {"launches": launches, "merge_err": merge_err}
@@ -4557,6 +4738,8 @@ def main() -> int:
     xwide_records = phase_xwide_kernels()
     torch.cuda.empty_cache()
     x6_records = phase_f32x6_kernels()
+    torch.cuda.empty_cache()
+    chunked_records = phase_f32_chunked_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         xwide_launches = phase_xwide_paths(Path(tmp))
     if not all(n > 0 for n in xwide_launches.values()):
@@ -4645,6 +4828,7 @@ def main() -> int:
         *_f16_pair_json(f16_pair_records, f16_pair_launches),
         *_xwide_json(xwide_records, xwide_launches),
         *_x6_json(x6_records, x6_launches),
+        *_chunked_json(chunked_records),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,25 +1,34 @@
-// The fp32 attention backward pair (dq, dk/dv) on the tensor cores, for
-// Hopper (sm_90a), at D = 64, 128, 192 and 256: every fp32 product as six
-// bf16 wgmma products summed in fp32 (XLA's BF16_BF16_F32_X6), in place of
-// flash_forms.cu's FMA bodies (forms_dq_kernel<float, D>, forms_dkv_kernel<
-// float, D>). The entry points are flash_f32x6.cu's.
+// fp32 flash attention on the tensor cores, for Hopper (sm_90a), at D = 64,
+// 128, 192 and 256: the forward and the backward pair (dq, dk/dv), every fp32
+// product as six bf16 wgmma products summed in fp32 (XLA's BF16_BF16_F32_X6),
+// in place of flash_forms.cu's FMA bodies (forms_fwd_kernel<float, D, ROPE>,
+// forms_dq_kernel<float, D>, forms_dkv_kernel<float, D>, all deleted). The
+// entry points are flash_f32x6.cu's.
 //
 // Replaces, at fp32 and those head dims, osufusion_tpu/ops/pallas_attention.py::
+//  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
+//    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310):
+//    x6_fwd_kernel, windowed or global, MQA / GQA / full MHA (query head h
+//    reads KV head h / (H / Kv)), fused q-RoPE or none, o and the base-2 LSE
+//    in fp32, in the single-device or the halo frame (key_frame.cuh);
 //  * _dq_kernel (:435), _halo_dq_kernel (:1054) and the dq part of
 //    _bwd_fused_kernel (:575, also each hop of _ring_bwd :1338):
 //    x6_dq_kernel;
 //  * _dkv_kernel (:507), _halo_dkv_kernel (:1099) and the dk/dv part of
 //    _bwd_fused_kernel: x6_dkv_kernel, which sums the G query heads of a KV
 //    head.
-// Both read the forms pre-pass's scratch (flash_forms.cu's forms_prep_kernel:
-// qs in fp32, do in group-major order, the LSE and delta padded to 64-row
-// tiles), and take qs and do, and k and v, as their bf16 pieces (x6_split,
-// below). dq_acc, dk and dv are stored, or with `accumulate` added to (the
-// ring's hops); the forms post-pass scales and un-rotates dq, as for the FMA
-// bodies. Every backward wrapper at fp32 and these head dims runs them: the
-// global backward, the ring's sweeps, the windowed pair and the halo pair.
+// The pair reads the forms pre-pass's scratch (flash_forms.cu's
+// forms_prep_kernel: qs in fp32, do in group-major order, the LSE and delta
+// padded to 64-row tiles), and takes qs and do, and k and v, as their bf16
+// pieces (x6_split, below); the forward takes k and v as their pieces and q
+// raw, and stages qs itself with the pre-pass's bits (below). dq_acc, dk and
+// dv are stored, or with `accumulate` added to (the ring's hops); the forms
+// post-pass scales and un-rotates dq, as for the FMA bodies. Every forward
+// and backward wrapper at fp32 and these head dims runs them: one device, the
+// ring's hops and sweeps, the windowed pair, the halo frame.
 //
 // The function is the FMA bodies' (flash_forms.cu at T = float):
+//   forward: o = softmax2(qs k^T) v,  lse2 = log2 sum exp2(qs k^T)
 //   dq_acc  (+)= ds k                 ds = p (do v^T - delta), p = exp2(qs k^T - lse2)
 //   dk      (+)= ln(2) ds^T qs,  dv (+)= p^T do
 // The arithmetic. Hopper has no full-fp32 tensor-core product (TF32 keeps 10
@@ -31,10 +40,11 @@
 // left out (i + j >= 3) are below 2^-24 of the product, so the result is as
 // exact as the fp32 arithmetic it replaces (5.8e-9 relative L2 against fp64
 // on a 256 x 4096 x 256 product, fp32's own SGEMM 2.9e-7). The operands
-// streamed through shared memory (k, v in dq; qs, do in dk/dv) are split once
-// in device memory by x6_split_kernel, as rows [b0 | b1 | b2] of 3 D bf16;
-// P and dS (P^T, dS^T) are split in registers, from the fp32 accumulator into
-// the A fragments of wgmma (x6_frags). Per 64-column atom a of a product the
+// streamed through shared memory (k, v in the forward and dq; qs, do in
+// dk/dv) are split once in device memory by x6_split_kernel, as rows [b0 |
+// b1 | b2] of 3 D bf16; the forward splits its qs as it stages it; P and dS
+// (P^T, dS^T) are split in registers, from the fp32 accumulator into the A
+// fragments of wgmma (x6_frags). Per 64-column atom a of a product the
 // six terms are issued as three groups, one per streamed piece, the small
 // terms first: Y2 (X0 Y2), Y1 (X1 Y1, X0 Y1), then Y0 (X2 Y0, X1 Y0, X0 Y0).
 // One level-two term (X2 Y0) follows a level-one term (X0 Y1); each addition
@@ -52,16 +62,47 @@
 // added after by red.global.add, which rounds to nearest and does not wait),
 // so that it takes at most 8 x 24 steps while it holds about 8 / n_tiles of
 // the sum: the error is bounded by the flush period, not by the length of
-// the song.
+// the song. The forward's O likewise: each X6_FLUSH_TILES tiles its
+// accumulator goes to o in device memory, stored the first time and after
+// added by fp32 FMA to what o holds rescaled to the softmax's current base
+// (the product of the tiles' rescales since), and starts again from zero: on
+// an H100, 24576 keys (384 tiles) read 3.5e-6 to 4.6e-6 relative L2 against
+// fp32 at D = 64 and 256.
 //
-// Bound: compute, 6 x (6 D FLOP per visited (query, key) pair in dq, 8 D in
-// dk/dv) at the tensor cores' bf16 rate, 989 / 6 = 164.8 TFLOP/s of fp32
-// work; a row meets up to W + 1 or S keys for a few kilobytes of traffic.
+// Bound: compute, 6 x (4 D FLOP per visited (query, key) pair forward, 6 D
+// in dq, 8 D in dk/dv) at the tensor cores' bf16 rate, 989 / 6 = 164.8
+// TFLOP/s of fp32 work; a row meets up to W + 1 or S keys for a few kilobytes
+// of traffic. Every 64-row block reads the keys it sees as three pieces, 12 D
+// bytes a key for k and v (three times K1's bf16 traffic), mostly from L2.
 //
-// Design: flash_xwide.cuh's pair (two consumer warpgroups behind a producer
-// warpgroup that feeds one ring of 64-column atoms to each; the head dim at
-// run time; its rings, XwRing / XwFeed, and helpers are used as they are),
-// with three changes for the pieces:
+// Design of the forward: flash_xwide.cuh's forward (two consumer warpgroups
+// behind a producer warpgroup that feeds one ring of 64-column atoms to each,
+// the head dim at run time), one instance per key tile: 128 keys up to D =
+// X6_FWD_WIDE_MAX_D (1.12x / 1.07x faster than 64 at D = 64 / 128 on an
+// H100), 64 above, where warpgroup 1's O and P's fragments of 128 keys would
+// not fit its registers.
+//  * Shared memory: the three pieces of the block's 64 rows of qs stay
+//    resident, 3 x 2 x 64 x D bytes (24 / 48 / 72 / 96 KB at D = 64 / 128 /
+//    192 / 256), staged by both consumer warpgroups from the raw q (rotated
+//    and scaled with the forms pre-pass's bits, flash_forms.cu's qs_pair at
+//    fp32, so that the backward recomputes the same logits), then split. k's
+//    pieces stream through ring 0 and v's through ring 1, each atom of a
+//    tile's keys and 64 columns in x6_feed_outer's order (piece 2, 1, 0): 5 /
+//    4 slots of 16 KB a ring at D = 64 / 128, 8 / 6 of 8 KB at D = 192 / 256.
+//  * Per tile: warpgroup 0 S = qs K^T in six products (x6_dots, qs's third
+//    piece resident), the online softmax in the exp2 domain, and P in fp32
+//    (with the rows' rescale) to warpgroup 1 through one buffer; warpgroup 1
+//    splits P into its pieces' fragments and O[:, every atom] += P V
+//    (x6_outer). Two named barriers a tile: P is in place, and (an arrive)
+//    warpgroup 1 has read it; warpgroup 0 computes S of the next tile while
+//    warpgroup 1 runs P V of this one.
+//  * Registers (a consumer thread, of 240): warpgroup 0 S 64 or 32 and the
+//    row statistics; warpgroup 1 O 2 x 32 with P's fragments of 128 keys 96,
+//    or O 4 x 32 with those of 64 keys 48: 168 at launch, no spill.
+// Design of the pair: flash_xwide.cuh's pair (two consumer warpgroups behind a
+// producer warpgroup that feeds one ring of 64-column atoms to each; the head
+// dim at run time; its rings, XwRing / XwFeed, and helpers are used as they
+// are), with three changes for the pieces:
 //  * Shared memory. A 64-row tile of three pieces takes 3 x 2 x 64 x D bytes,
 //    96 KB at D = 256, and the block keeps two such operands resident (qs and
 //    do in dq, k and v in dk/dv): 192 KB, which leaves no room for the rings.
@@ -91,10 +132,12 @@
 //  * Masks as in flash_xwide.cuh: only a tile at the window's edge or past
 //    the keys that exist ([kf.lo, kf.hi)) is masked.
 //
-// C ABI (loaded with ctypes): f32x6_bwd_dq and f32x6_bwd_dkv take
+// C ABI (loaded with ctypes): f32x6_fwd and f32x6_halo_fwd take
+// flash_xwide.cu's xwide_fwd_bf16's and xwide_halo_fwd_bf16's arguments (q
+// and o fp32, k and v as their pieces); f32x6_bwd_dq and f32x6_bwd_dkv take
 // flash_forms.cu's forms_bwd_dq's and forms_bwd_dkv's arguments without the
-// type code (the head dim first; k, v, qs_g and do_rows as their pieces),
-// and return a cudaError_t (cudaErrorInvalidValue for a head dim outside 64
+// type code (the head dim first; k, v, qs_g and do_rows as their pieces);
+// each returns a cudaError_t (cudaErrorInvalidValue for a head dim outside 64
 // ... 256 or not a multiple of 64), or minus the CUresult of a TMA descriptor
 // that failed to encode; f32x6_split writes the pieces.
 //
@@ -109,11 +152,38 @@ namespace {
 constexpr int X6_MAX_D = 256;
 constexpr int X6_DQ_ATOMS = 2;   // dq atoms of either warpgroup at most
 constexpr int X6_DKV_ATOMS = 4;  // dk (and dv) atoms of a block: every atom up to X6_MAX_D
+// the forward's tiles: 128 keys up to X6_FWD_WIDE_MAX_D (two atoms of O in warpgroup 1 beside P's fragments of
+// 128 keys), 64 above (four atoms of O)
+constexpr int X6_FWD_WIDE_MAX_D = 128;
 constexpr int X6_SPLIT_THREADS = 256;
 // tiles whose products a wgmma accumulator takes before its sum goes to device memory (X6 accumulation, below)
 constexpr int X6_FLUSH_TILES = 8;
 
 // ---- the split ----
+
+// the three bf16 pieces of two neighbouring fp32 values, each pair packed in
+// one register (x0 in the low half): b0 = rn(x), b1 = rn(x - b0), b2 = x - b0 -
+// b1, whose subtractions are exact and b2 exact in bf16
+__device__ __forceinline__ void x6_pieces2(float x0, float x1, uint32_t& p0, uint32_t& p1, uint32_t& p2) {
+  const __nv_bfloat162 b0 = __floats2bfloat162_rn(x0, x1);
+  const float2 h0 = __bfloat1622float2(b0);
+  const float r0 = x0 - h0.x, r1 = x1 - h0.y;
+  const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
+  const float2 h1 = __bfloat1622float2(b1);
+  const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0 - h1.x, r1 - h1.y);
+  p0 = *reinterpret_cast<const uint32_t*>(&b0);
+  p1 = *reinterpret_cast<const uint32_t*>(&b1);
+  p2 = *reinterpret_cast<const uint32_t*>(&b2);
+}
+
+// the pieces of eight fp32 values as three 16-byte rows of eight bf16 (p[i]: piece i)
+__device__ __forceinline__ void x6_pieces8(const float (&v)[8], uint4 (&p)[3]) {
+  uint32_t w[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x6_pieces2(v[2 * e], v[2 * e + 1], w[0][e], w[1][e], w[2][e]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p[i] = make_uint4(w[i][0], w[i][1], w[i][2], w[i][3]);
+}
 
 // x (n_rows, D) fp32 -> out (n_rows, 3 D) bf16, row [b0 | b1 | b2]: eight
 // elements a thread, two 16-byte loads and three 16-byte stores
@@ -126,47 +196,26 @@ __global__ void x6_split_kernel(const float* __restrict__ x, __nv_bfloat16* __re
     const float4* src = reinterpret_cast<const float4*>(x + row * D + col);
     const float4 lo = src[0], hi = src[1];
     const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    uint32_t p[3][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 b0 = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      const float2 h0 = __bfloat1622float2(b0);
-      const float r0 = v[2 * e] - h0.x, r1 = v[2 * e + 1] - h0.y;  // exact
-      const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
-      const float2 h1 = __bfloat1622float2(b1);
-      const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0 - h1.x, r1 - h1.y);  // exact in bf16
-      p[0][e] = *reinterpret_cast<const uint32_t*>(&b0);
-      p[1][e] = *reinterpret_cast<const uint32_t*>(&b1);
-      p[2][e] = *reinterpret_cast<const uint32_t*>(&b2);
-    }
+    uint4 p[3];
+    x6_pieces8(v, p);
     __nv_bfloat16* dst = out + row * 3 * D + col;
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      *reinterpret_cast<uint4*>(dst + i * D) = make_uint4(p[i][0], p[i][1], p[i][2], p[i][3]);
+    for (int i = 0; i < 3; ++i) *reinterpret_cast<uint4*>(dst + i * D) = p[i];
   }
 }
 
-// the three pieces of a 64 x 64 fp32 accumulator (one per thread: s[32]) as
-// the A fragments of four 16-wide K steps each, hopper.cuh's a_frag layout
-__device__ __forceinline__ void x6_frags(uint32_t (&f)[3][4][4], const float (&s)[32]) {
+// the three pieces of a 64 x 16 F fp32 accumulator (one per thread: s[8 F])
+// as the A fragments of F 16-wide K steps each, hopper.cuh's a_frag layout
+template <int F>
+__device__ __forceinline__ void x6_frags(uint32_t (&f)[3][F][4], const float (&s)[8 * F]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < F; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x0 = s[8 * j + 2 * e], x1 = s[8 * j + 2 * e + 1];
-      const __nv_bfloat162 b0 = __floats2bfloat162_rn(x0, x1);
-      const float2 h0 = __bfloat1622float2(b0);
-      const float r0 = x0 - h0.x, r1 = x1 - h0.y;
-      const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
-      const float2 h1 = __bfloat1622float2(b1);
-      const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0 - h1.x, r1 - h1.y);
-      f[0][j][e] = *reinterpret_cast<const uint32_t*>(&b0);
-      f[1][j][e] = *reinterpret_cast<const uint32_t*>(&b1);
-      f[2][j][e] = *reinterpret_cast<const uint32_t*>(&b2);
-    }
+    for (int e = 0; e < 4; ++e) x6_pieces2(s[8 * j + 2 * e], s[8 * j + 2 * e + 1], f[0][j][e], f[1][j][e], f[2][j][e]);
 }
 
-__device__ __forceinline__ void x6_fence(uint32_t (&f)[3][4][4]) {
+template <int F>
+__device__ __forceinline__ void x6_fence(uint32_t (&f)[3][F][4]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) reg_fence(f[i]);
 }
@@ -261,44 +310,48 @@ __device__ __forceinline__ void x6_feed_outer(XwFeed& feed, int c0, int c1, Load
     for (int p = 2; p >= 0; --p) feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, p, a); });
 }
 
-// S (64 x 64, fp32) = sum over the A atoms of X_a Y_a^T in six products,
+// S (64 x N, fp32; N = 64 or 128 rows of Y) = sum over the A atoms of X_a
+// Y_a^T in six products,
 // both K-major: X's pieces 0 and 1 resident (piece i of atom a at x01 + (i A
-// + a) XW_ATOM), its piece 2 and Y's three pieces from the ring in
-// x6_feed_dots' order
-__device__ __forceinline__ void x6_dots(float (&s)[32], const __nv_bfloat16* x01, int A, X6Take& rd) {
+// + a) XW_ATOM), Y's three pieces from the ring in x6_feed_dots' order, and
+// X's piece 2 of atom a where x2(a) says, taken just before Y0[a]: from the
+// ring in the pair (x6_feed_dots' X2), resident in the forward
+template <int N = 64, typename PieceX2>
+__device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, X6Take& rd,
+                                        PieceX2 x2_of) {
   using E = __nv_bfloat16;
   for (int a = 0; a < A; ++a) {
     const uint64_t x0 = desc_kmajor(x01 + a * XW_ATOM), x1 = desc_kmajor(x01 + (A + a) * XW_ATOM);
     const uint64_t y2 = desc_kmajor(rd.take());
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y2 + 2 * kk, a > 0 || kk > 0);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y2 + 2 * kk, a > 0 || kk > 0);
     wgmma_commit();
     rd.issued();
     const uint64_t y1 = desc_kmajor(rd.take());
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y1 + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y1 + 2 * kk, 1);
     wgmma_commit();
     rd.issued();
-    const uint64_t x2 = desc_kmajor(rd.take()), y0 = desc_kmajor(rd.take());
+    const uint64_t x2 = desc_kmajor(x2_of(a)), y0 = desc_kmajor(rd.take());
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x1 + 2 * kk, y0 + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1 + 2 * kk, y0 + 2 * kk, 1);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<64, 0, 0, E>(s, x0 + 2 * kk, y0 + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y0 + 2 * kk, 1);
     wgmma_commit();
     rd.issued();
   }
 }
 
-// acc[i] (64 x 64 columns of the i-th atom, fp32) += F Y_i for the first n
-// of the N atoms in six products: F (64 x 64) as its three pieces' fragments,
-// Y_i's pieces from the ring in x6_feed_outer's order, read MN-major (their
-// 64 rows are the reduction)
-template <int N>
-__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][4][4], int n, X6Take& rd) {
+// acc[i] (64 x 64 columns of the i-th atom, fp32) += X Y_i for the first n
+// of the N atoms in six products: X (64 x 16 F) as its three pieces'
+// fragments, Y_i's pieces (16 F rows of 64 columns) from the ring in
+// x6_feed_outer's order, read MN-major (their rows are the reduction)
+template <int N, int F>
+__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][F][4], int n, X6Take& rd) {
   using E = __nv_bfloat16;
   constexpr uint64_t K_STEP = 16 * 128 >> 4;
 #pragma unroll
@@ -306,23 +359,23 @@ __device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f
     if (i < n) {
       const uint64_t y2 = desc_mnmajor(rd.take());
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y2 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y2 + j * K_STEP, 1);
       wgmma_commit();
       rd.issued();
       const uint64_t y1 = desc_mnmajor(rd.take());
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y1 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y1 + j * K_STEP, 1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y1 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y1 + j * K_STEP, 1);
       wgmma_commit();
       rd.issued();
       const uint64_t y0 = desc_mnmajor(rd.take());
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[2][j], y0 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[2][j], y0 + j * K_STEP, 1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y0 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[1][j], y0 + j * K_STEP, 1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y0 + j * K_STEP, 1);
+      for (int j = 0; j < F; ++j) wgmma_rs_n64<1, E>(acc[i], f[0][j], y0 + j * K_STEP, 1);
       wgmma_commit();
       rd.issued();
     }
@@ -415,6 +468,7 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const int g = lane >> 2, tq = lane & 3;
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
   X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  auto from_ring = [&](int) { return rd.take(); };  // the resident rows' third piece
   float s[32];            // warpgroup 0: S, then P; 1: dP, then dS
   uint32_t f[3][4][4];    // dS's pieces, the A operand of dQ += dS K
   float acc[X6_DQ_ATOMS][32];
@@ -440,7 +494,7 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     for (int it = it0; it < it1; ++it) {
       reg_fence(s);
       wgmma_fence();
-      x6_dots(s, wg == 0 ? Qs : Os, A, rd);  // S = qs K^T (warpgroup 0) or dP = do V^T (1)
+      x6_dots(s, wg == 0 ? Qs : Os, A, rd, from_ring);  // S = qs K^T (warpgroup 0) or dP = do V^T (1)
       rd.drain();
       reg_fence(s);
       xw_fence(acc);
@@ -601,6 +655,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int vis_b = !in_b ? 1 << 30 : local ? key_b - kf.off - w2 : 0;
   const bool keys_inside = s0 >= kf.lo && s0 + XW_ROWS <= kf.hi;
   X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  auto from_ring = [&](int) { return rd.take(); };  // the resident keys' third piece
   float s[32];           // warpgroup 0: S^T, then P^T; 1: dP^T, then dS^T (keys x the tile's rows)
   uint32_t f[3][4][4];   // P^T's or dS^T's pieces, the A operand of the kept product
   float acc[X6_DKV_ATOMS][32];  // warpgroup 0: dV; 1: dK (times ln 2 when it leaves)
@@ -619,7 +674,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       if (lane < 2) x6_prefetch_l1(stat + 32 * lane);
       reg_fence(s);
       wgmma_fence();
-      x6_dots(s, wg == 0 ? Ks : Vs, A, rd);  // S^T = K qs^T or dP^T = V do^T
+      x6_dots(s, wg == 0 ? Ks : Vs, A, rd, from_ring);  // S^T = K qs^T or dP^T = V do^T
       rd.drain();
       reg_fence(s);
       xw_fence(acc);
@@ -698,6 +753,285 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   }
 }
 
+// ---- the forward ----
+
+// the shared memory before the forward's two rings at A atoms and tiles of BN
+// keys: the three pieces of qs, one tile's P in fp32, its rows' rescale, the
+// rows' 1 / l, the barriers
+__host__ __device__ constexpr int x6_fwd_fixed(int A, int BN) {
+  return xw_align(3 * A * XW_ATOM_BYTES + (BN / 2) * 128 * 4 + 2 * 128 * 4 + 2 * 128 * 4 + XW_BARS);
+}
+static_assert(xw_slots(x6_fwd_fixed(X6_MAX_D / 64, 64)) >= 4 &&
+                  xw_slots(x6_fwd_fixed(X6_FWD_WIDE_MAX_D / 64, 128), 128 * 64 * 2) >= 4,
+              "each ring keeps two atoms loading beside two held");
+
+// o (B, T, H, D) fp32 = softmax2(qs k^T) v over the keys the block's 64 group
+// rows see, and lse (B, T*H) their base-2 LSE (null: none), in tiles of BN
+// keys (64, or 128 up to ATOMS = 2 atoms of the head dim). q raw (B, T, H, D)
+// fp32, rotated here with the tables cos_t, sin_t (T, D), or without them
+// (null) only scaled; kmap / vmap: the pieces of k and v (B, S, Kv, 3 D) in
+// boxes of BN keys. grid (ceil(T*G / 64), B * Kv); frame {0, 0, S} on one
+// device, halo_frame in the halo slab.
+template <int BN, int ATOMS>
+__global__ void __launch_bounds__(XW_THREADS, 1)
+x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+              const float* __restrict__ q, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+              float* __restrict__ o, float* __restrict__ lse, int T, int H, int Kv, int D, int window, float scale,
+              KeyFrame kf, int slots) {
+  using E = __nv_bfloat16;
+  constexpr int F = BN / 16;                                 // 16-key steps of a tile: P's fragments a piece
+  constexpr int FLUSH = X6_FLUSH_TILES * XW_ROWS / BN;       // tiles that O's accumulator takes (X6 accumulation)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int A = D / 64;
+  E* Qs = reinterpret_cast<E*>(smem);                          // [3 pieces][A][64][64] qs
+  float* xp = reinterpret_cast<float*>(Qs + 3 * A * XW_ATOM);  // [BN / 2][128] P, fp32
+  float* xc = xp + (BN / 2) * 128;                             // [2][128] O's rescale
+  float* xl = xc + 2 * 128;                                    // [2][128] 1 / l
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xl + 2 * 128);
+  unsigned char* rings = smem + x6_fwd_fixed(A, BN);
+  const XwRing ring0 = xw_ring(rings, bars, slots, BN * 64 * 2);
+  const XwRing ring1 = xw_ring(rings + slots * BN * 64 * 2, bars + 2 * XW_MAX_SLOTS, slots, BN * 64 * 2);
+
+  const int b = blockIdx.y / Kv, kv = blockIdx.y % Kv;
+  const int G = H / Kv, rows = T * G;  // the group's rows: group row r is timestep r / G, head kv * G + r % G
+  const int r0 = blockIdx.x * XW_ROWS;
+  const bool local = window >= 0;
+  const int w2 = window / 2;
+  const int t_lo = r0 / G, t_hi = (min(r0 + XW_ROWS, rows) - 1) / G;
+  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
+  const int kv_lo = span.lo;
+  const int n_tiles = (span.hi - kv_lo + BN - 1) / BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    xw_init_ring(ring0);
+    xw_init_ring(ring1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: warp 8 feeds ring 0 with k's pieces, warp 9 ring 1 with v's
+    setmaxnreg_dec<XW_PRODUCER_REGS>();
+    if (lane == 0 && warp < 10) {
+      XwFeed feed{warp == 8 ? ring0 : ring1};
+      const CUtensorMap* map = warp == 8 ? &kmap : &vmap;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s0 = kv_lo + it * BN;  // keys past S arrive as zeros
+        x6_feed_outer(feed, 0, A, [&](void* dst, uint64_t* bar, int p, int a) {
+          tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b);
+        });
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<XW_CONSUMER_REGS>();
+
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int g = lane >> 2, tq = lane & 3;  // accumulator row (and row + 8) in the warp's 16; column pair
+  auto mem = [&](int r) { return (size_t)(r / G) * H + r % G; };  // the (timestep, head) row of group row r
+  const float* qb = q + ((size_t)b * T * H + kv * G) * D;
+  float* ob = o + ((size_t)b * T * H + kv * G) * D;
+
+  // both warpgroups stage the block's 64 rows as the pieces of qs, qs bit for bit the forms pre-pass's
+  // (flash_forms.cu's qs_pair at fp32: each product rounded alone), 8 columns of the low half and their
+  // partners D / 2 on at a time; a pad row is zeros
+  {
+    const int half = D / 2, chunks = D / 16;
+    const float qscale = scale * XW_LOG2E;
+    for (int c = threadIdx.x; c < XW_ROWS * chunks; c += 256) {
+      const int r = c / chunks, col = (c % chunks) * 8, row = r0 + r;
+      float lo[8], hi[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
+      if (row < rows) {
+        const float* qr = qb + mem(row) * D;
+        const float4 q4[4] = {*reinterpret_cast<const float4*>(qr + col),
+                              *reinterpret_cast<const float4*>(qr + col + 4),
+                              *reinterpret_cast<const float4*>(qr + col + half),
+                              *reinterpret_cast<const float4*>(qr + col + half + 4)};
+        const float* a = reinterpret_cast<const float*>(q4);  // a[j] = q[col + j], a[8 + j] = q[col + half + j]
+        if (cos_t != nullptr) {
+          const size_t t = row / G;
+          const float* cr = cos_t + t * D;
+          const float* sr = sin_t + t * D;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            lo[j] = __fmul_rn(__fsub_rn(__fmul_rn(a[j], cr[col + j]), __fmul_rn(a[8 + j], sr[col + j])), qscale);
+            hi[j] = __fmul_rn(__fadd_rn(__fmul_rn(a[8 + j], cr[col + half + j]), __fmul_rn(a[j], sr[col + half + j])),
+                              qscale);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            lo[j] = __fmul_rn(a[j], qscale);
+            hi[j] = __fmul_rn(a[8 + j], qscale);
+          }
+        }
+      }
+      uint4 pl[3], ph[3];
+      x6_pieces8(lo, pl);
+      x6_pieces8(hi, ph);
+      const int hcol = col + half;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        *reinterpret_cast<uint4*>(Qs + (i * A + col / 64) * XW_ATOM + sw128(r, (col % 64) / 8)) = pl[i];
+        *reinterpret_cast<uint4*>(Qs + (i * A + hcol / 64) * XW_ATOM + sw128(r, (hcol % 64) / 8)) = ph[i];
+      }
+    }
+  }
+  fence_proxy_async();
+  named_bar_sync(1, 256);
+
+  const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
+  const size_t mem_a = mem(row_a), mem_b = mem(row_b);
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+
+  if (wg == 0) {  // S = qs K^T and the online softmax; P goes to warpgroup 1
+    // the keys each of the thread's two rows sees, vis_n of them from vis_lo on (none for a pad row)
+    int vis_lo[2], vis_n[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = (i == 0 ? row_a : row_b) / G;
+      const KeySpan seen = keys_seen(kf, local, w2, t, t);
+      vis_lo[i] = seen.lo;
+      vis_n[i] = max(seen.hi - seen.lo, 0);
+    }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float s[BN / 2];  // the logits of the tile in hand, then its probabilities
+    for (int it = 0; it < n_tiles; ++it) {
+      reg_fence(s);
+      wgmma_fence();
+      x6_dots<BN>(s, Qs, A, rd, [&](int a) { return Qs + (2 * A + a) * XW_ATOM; });
+      rd.drain();
+      reg_fence(s);
+      // the online softmax of the tile (flash_xwide.cuh's): mask at an edge, s becomes p = exp2(s - base)
+      const int s0 = kv_lo + it * BN;
+      const bool interior = s0 + BN <= kf.hi &&
+                            (!local || (s0 - kf.off >= t_hi - w2 && s0 - kf.off + BN - 1 <= t_lo + w2));
+      if (!interior) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = s0 + i * 8 + 2 * tq + (e & 1);
+            if ((unsigned)(key - vis_lo[e >> 1]) >= (unsigned)vis_n[e >> 1]) s[4 * i + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {m[0], m[1]}, base[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet stays at zero
+        corr[r] = exp2_ftz(m[r] - base[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        s[i] = exp2_ftz(s[i] - base[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+      l[0] = l[0] * corr[0] + rs[0];  // per-thread partial sums, reduced at the end
+      l[1] = l[1] * corr[1] + rs[1];
+      if (it > 0) named_bar_sync(3, 256);  // warpgroup 1 has read the last tile's P
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) xp[i * 128 + tid] = s[i];
+      xc[tid] = corr[0];
+      xc[128 + tid] = corr[1];
+      named_bar_sync(2, 256);  // P of tile it is in place
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
+      xl[r * 128 + tid] = inv[r];
+    }
+    named_bar_sync(2, 256);  // 1 / l is in place
+    if (lse != nullptr && tq == 0) {  // the 4 threads of a quad hold the same row statistics
+      float* lb = lse + (size_t)b * T * H + kv * G;
+      if (row_a < rows) lb[mem_a] = m[0] + log2f(l[0]);
+      if (row_b < rows) lb[mem_b] = m[1] + log2f(l[1]);
+    }
+    return;
+  }
+
+  // warpgroup 1: O += P V over every atom, P split into its three pieces here. The accumulator takes at most
+  // FLUSH tiles (X6 accumulation, above): then its sum goes to o in device memory (stored, or added to what o
+  // holds rescaled to the current base: `held`, the product of the rescales since o was written)
+  uint32_t f[3][F][4];  // P's pieces, the A operand of O += P V
+  float acc[ATOMS][32];
+  xw_zero(acc);
+  float held[2] = {1.f, 1.f};
+  bool stored = false;  // whether o holds an earlier part of the sum
+  // acc (times `mul` per row) into the rows' o, plus what o holds times held
+  auto flush = [&](const float (&mul)[2]) {
+#pragma unroll
+    for (int i = 0; i < ATOMS; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h == 0 ? row_a : row_b;
+        float* dst = ob + (h == 0 ? mem_a : mem_b) * D + i * 64 + 2 * tq;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (i >= A || row >= rows) continue;
+          float2 x = make_float2(acc[i][4 * t + 2 * h], acc[i][4 * t + 2 * h + 1]);
+          float2* d2 = reinterpret_cast<float2*>(dst + 8 * t);
+          if (stored) {
+            const float2 old = *d2;
+            x.x = fmaf(old.x, held[h], x.x);
+            x.y = fmaf(old.y, held[h], x.y);
+          }
+          *d2 = make_float2(x.x * mul[h], x.y * mul[h]);
+        }
+      }
+  };
+  for (int it = 0; it < n_tiles; ++it) {
+    named_bar_sync(2, 256);  // warpgroup 0's P of tile it
+    rd.drain();              // the previous tile's P V: f and acc are free
+    xw_fence(acc);
+    x6_fence(f);
+    if (it > 0 && it % FLUSH == 0) {
+      const float one[2] = {1.f, 1.f};
+      flush(one);
+      xw_zero(acc);
+      held[0] = held[1] = 1.f;
+      stored = true;
+    }
+    const float corr[2] = {xc[tid], xc[128 + tid]};
+#pragma unroll
+    for (int j = 0; j < F; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x6_pieces2(xp[(8 * j + 2 * e) * 128 + tid], xp[(8 * j + 2 * e + 1) * 128 + tid], f[0][j][e], f[1][j][e],
+                   f[2][j][e]);
+    if (it + 1 < n_tiles) x6_bar_arrive(3, 256);  // the buffer is free for the next tile's P
+    held[0] *= corr[0];
+    held[1] *= corr[1];
+#pragma unroll
+    for (int i = 0; i < ATOMS; ++i)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[i][j] *= corr[(j >> 1) & 1];
+    xw_fence(acc);
+    x6_fence(f);
+    wgmma_fence();
+    x6_outer<ATOMS>(acc, f, A, rd);  // O += P V
+  }
+  rd.drain();
+  xw_fence(acc);
+  x6_fence(f);
+  named_bar_sync(2, 256);
+  const float inv[2] = {xl[tid], xl[128 + tid]};
+  flush(inv);
+}
+
 // ---- host ----
 
 inline bool x6_takes(int D) { return D >= 64 && D <= X6_MAX_D && D % 64 == 0; }
@@ -712,6 +1046,38 @@ inline int x6_maps(CUtensorMap* maps, const void* k, const void* v, const void* 
   if (err == 0) err = xw_rows_map<E>(&maps[2], qs_g, T * (H / Kv), B * Kv, 3 * D);
   if (err == 0) err = xw_rows_map<E>(&maps[3], do_rows, T * (H / Kv), B * Kv, 3 * D);
   return err;
+}
+
+template <int BN, int ATOMS>
+int launch_x6_fwd_tiles(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, const void* cos_t,
+                        const void* sin_t, void* o, void* lse, int B, int T, int H, int Kv, int D, int window,
+                        float scale, KeyFrame frame, int dev, void* stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  const int err = allow_smem(x6_fwd_kernel<BN, ATOMS>, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int fixed = x6_fwd_fixed(D / 64, BN), slots = xw_slots(fixed, BN * 64 * 2);
+  x6_fwd_kernel<BN, ATOMS><<<dim3((T * (H / Kv) + XW_ROWS - 1) / XW_ROWS, B * Kv), XW_THREADS,
+                             1024 + fixed + 2 * slots * BN * 64 * 2, static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, static_cast<const float*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<float*>(o), static_cast<float*>(lse), T, H, Kv, D, window, scale, frame, slots);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_x6_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o,
+                         void* lse, int B, int T, int S, int H, int Kv, int D, int window, float scale, KeyFrame frame,
+                         void* stream) {
+  if (!x6_takes(D)) return (int)cudaErrorInvalidValue;
+  const int keys = D <= X6_FWD_WIDE_MAX_D ? 128 : 64;
+  CUtensorMap kmap, vmap;
+  int dev;
+  int err = bind_device(&dev);
+  if (err == 0) err = make_kv_map<__nv_bfloat16>(&kmap, k, B, S, Kv, keys, 3 * D);
+  if (err == 0) err = make_kv_map<__nv_bfloat16>(&vmap, v, B, S, Kv, keys, 3 * D);
+  if (err != 0) return err;
+  return keys == 128 ? launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64>(kmap, vmap, q, cos_t, sin_t, o, lse, B, T, H,
+                                                                       Kv, D, window, scale, frame, dev, stream)
+                     : launch_x6_fwd_tiles<64, X6_MAX_D / 64>(kmap, vmap, q, cos_t, sin_t, o, lse, B, T, H, Kv, D,
+                                                              window, scale, frame, dev, stream);
 }
 
 inline int launch_x6_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,

@@ -1,30 +1,28 @@
 // Flash attention in fp32 arithmetic on the FMA units, for Hopper (sm_90a):
 // the "forms" family, which serves every attention form that the wgmma
 // kernels (flash_fwd.cuh, flash_bwd_sweep.cuh, flash_bwd.cu,
-// flash_bwd_windowed.cuh, flash_xwide.cuh, flash_f32x6.cuh) do not: a
-// forward templated on the operand type T (float, __nv_bfloat16, __half) and
-// the head dim D (64, 128, 192, 256), one chunked instance of the forward, dq
-// and dk/dv for any D > 256 that is a multiple of 64 (below), and the pre-pass,
-// post-pass and merge at every T and D. ops/flash_forms.py::
-// kernel_form sends here the fp32 forward at every head dim and the fp32 dq
-// and dk/dv above D = 256, bf16 and fp16 above D = 512, and the pre-pass
-// and post-pass around K2's sweep (and the wgmma pairs of flash_xwide.cuh and
+// flash_bwd_windowed.cuh, flash_xwide.cuh, flash_f32x6.cuh) do not: one
+// chunked instance of the forward, dq and dk/dv for any D > 256 that is a
+// multiple of 64, templated on the operand type T (float, __nv_bfloat16,
+// __half; below), and the pre-pass, post-pass and merge at every T and D.
+// ops/flash_forms.py::kernel_form sends here the fp32 forward, dq and dk/dv
+// above D = 256, bf16 and fp16 above D = 512, and the pre-pass and post-pass
+// around K2's sweep (and the wgmma pairs of flash_xwide.cuh and
 // flash_f32x6.cuh) and the ring's merge at fp32, at fp16 and at bf16 above D
-// = 64. bf16 and fp16 forwards at D <= 256 run the wgmma forward (K1), at D =
-// 320 ... 512 flash_xwide.cuh's, and their dq and dk/dv there the wgmma K2
-// sweep and windowed pair, or flash_xwide.cuh's pair; fp32's dq and dk/dv at
-// D <= 256 run flash_f32x6.cuh's pair; so those instances are not built here
-// (FORMS_DISPATCH, below).
+// = 64. bf16 and fp16 at D <= 256 run the wgmma forward (K1), K2's sweep and
+// the windowed pair, at D = 320 ... 512 flash_xwide.cuh's kernels; fp32 at D
+// <= 256 runs flash_f32x6.cuh's forward and pair; so those instances are not
+// built here (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
-//    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310):
-//    forms_fwd_kernel, windowed or global, MQA / GQA / full MHA (query head h
-//    reads KV head h / (H / Kv)), optional fused q-RoPE, o in T and the base-2
-//    LSE in fp32, in the single-device or the halo frame (key_frame.cuh);
+//    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310), above the
+//    head dims of the wgmma forwards: forms_fwd_chunked_kernel, windowed or
+//    global, MQA / GQA / full MHA (query head h reads KV head h / (H / Kv)),
+//    optional fused q-RoPE, o in T and the base-2 LSE in fp32, in the
+//    single-device or the halo frame (key_frame.cuh);
 //  * _dq_kernel (:435), _halo_dq_kernel (:1054) and the dq part of
-//    _bwd_fused_kernel (:575), above the head dims of the wgmma pairs:
-//    forms_dq_chunked_kernel;
+//    _bwd_fused_kernel (:575), likewise: forms_dq_chunked_kernel;
 //  * _dkv_kernel (:507), _halo_dkv_kernel (:1099) and the dk/dv part of
 //    _bwd_fused_kernel, likewise: forms_dkv_chunked_kernel, which sums the G
 //    query heads of a KV head.
@@ -60,25 +58,24 @@
 // instances at bf16 and fp16 run the same FMA arithmetic, so they can reach
 // at most 67 / 989 (~7 %) of their tensor-core bound; they are left only above
 // D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2). The
-// fp32 dq and dk/dv at D <= 256 moved to the tensor cores as six bf16
-// products per fp32 product (flash_f32x6.cuh); the forward and the chunked
-// instances above 256 stay here.
+// fp32 forward, dq and dk/dv at D <= 256 moved to the tensor cores as six
+// bf16 products per fp32 product (flash_f32x6.cuh); the chunked instances
+// above 256 stay here.
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
 // head kv * G + r % G) or BK keys of it (dk/dv), and sweeps the tiles of the
 // other side that its rows or keys see (keys_seen of key_frame.cuh). Tiles
-// are staged in shared memory as fp32, rows padded to D + 4 floats, so that
+// are staged in shared memory as fp32, CH = 64 columns of the head dim at a
+// time (the chunked instance, below), rows padded to CH + 4 floats, so that
 // the 16-byte loads of eight neighbouring threads hit eight different bank
 // groups. A thread computes a 4 x (BK / 16) block of the logits (rows ty + 16 i,
 // keys tx + 16 j) with 16-byte shared loads along D, keeps its rows' share of
-// the output (columns 4 tx + 64 j .. + 3) in registers, and reads P or dS back
-// from shared memory for the second product. The online softmax keeps each
-// row's max and sum in the 16 threads of its row (shuffles inside a half
+// the output (columns 4 tx .. + 3 of its chunk) in registers, and reads P or
+// dS back from shared memory for the second product. The online softmax keeps
+// each row's max and sum in the 16 threads of its row (shuffles inside a half
 // warp), in the exp2 domain; a row that has seen no key yet keeps a zero base.
-// BK = 64 keys at D <= 128, 32 above, so that every instance's tiles fit one
-// SM's 227 KB of shared memory. Loads are plain 16-byte loads from device
-// memory; nothing is asynchronous.
+// Loads are plain 16-byte loads from device memory; nothing is asynchronous.
 //
 // fp16 operands run the bf16 arithmetic with fp16 roundings: operands widened
 // to fp32 on load, products accumulated in fp32, P and dS rounded to fp16, as
@@ -204,19 +201,13 @@ __device__ __forceinline__ bool sees(const KeyFrame& f, bool local, int w2, int 
   return s >= f.lo && s < f.hi && (!local || abs(t + f.off - s) <= w2);
 }
 
-// acc[i][x] (rows ty + 16 i of A) = sum over d of A[row][d] * B[key][d], for
-// the thread's keys tx + 16 j: the logits-shaped product of two staged tiles
-// (ZERO = false: added to what acc holds, one chunk of the head dim at a time)
-template <int D, bool ZERO = true>
+// acc[i][x] (rows ty + 16 i of A) += sum over d of A[row][d] * B[key][d], for
+// the thread's keys tx + 16 j: the logits-shaped product of two staged tiles,
+// one chunk of the head dim at a time
+template <int D>
 __device__ __forceinline__ void row_key_dots(const float* A, const float* Bt, int ty, int tx,
                                              float (&acc)[RPT][Tile<D>::KPT]) {
   constexpr int LD = Tile<D>::LD, KPT = Tile<D>::KPT;
-  if (ZERO) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) acc[i][j] = 0.f;
-  }
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     float4 a[RPT], b[KPT];
@@ -259,106 +250,6 @@ __device__ __forceinline__ void rows_times_tile(const float* P, const float* V, 
         }
       }
     }
-  }
-}
-
-// ---- forward ----
-
-// grid (ceil(T*G / BQ), B * Kv). frame: {0, 0, S} on one device, halo_frame
-// in the halo slab; q raw with tables (rotated here), else already rotated.
-template <typename T, int D, bool ROPE>
-__global__ void __launch_bounds__(THREADS, 1)
-forms_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ cos_t, const float* __restrict__ sin_t, T* __restrict__ o,
-                 float* __restrict__ lse, int Tq, int S, int H, int Kv, int window, float qscale, KeyFrame frame) {
-  using TL = Tile<D>;
-  constexpr int BK = TL::BK, KPT = TL::KPT, LD = TL::LD, PLD = TL::PLD, CPT = TL::CPT;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* Ks = Qs + BQ * LD;                     // [BK][LD]
-  float* Vs = Ks + BK * LD;                     // [BK][LD]
-  float* Ps = Vs + BK * LD;                     // [BQ][PLD]
-
-  const int b = blockIdx.y / Kv, kv = blockIdx.y % Kv;
-  const int G = H / Kv, rows = Tq * G;
-  const int r0 = blockIdx.x * BQ;
-  const bool local = window >= 0;
-  const int w2 = window / 2;
-  const KeySpan span = keys_seen(frame, local, w2, r0 / G, (min(r0 + BQ, rows) - 1) / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  auto row_of = [&](int r) { return ((size_t)b * Tq + r / G) * H + kv * G + r % G; };  // the (b, t, h) row
-
-  stage_rows<T, D>(Qs, BQ, [&](int i) { return r0 + i < rows ? q + row_of(r0 + i) * D : nullptr; });
-  __syncthreads();
-  constexpr int HALF = D / 2;
-  for (int idx = threadIdx.x; idx < BQ * HALF; idx += THREADS) {
-    const int i = idx / HALF, d = idx % HALF;
-    if (r0 + i >= rows) continue;
-    const size_t t = (size_t)((r0 + i) / G);
-    float* row = Qs + i * LD;
-    qs_pair<T, ROPE>(row[d], row[d + HALF], ROPE ? cos_t + t * D : nullptr, ROPE ? sin_t + t * D : nullptr, d,
-                     HALF, qscale, row[d], row[d + HALF]);
-  }
-
-  float acc[RPT][CPT][4], m[RPT], l[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
-  }
-  auto key_ptr = [&](const T* base, int s) { return base + (((size_t)b * S + s) * Kv + kv) * D; };
-  for (int s0 = span.lo; s0 < span.hi; s0 += BK) {
-    __syncthreads();  // the previous tile's P V is done with Ks, Vs, Ps (and Qs is staged)
-    stage_rows<T, D>(Ks, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(k, s0 + j) : nullptr; });
-    stage_rows<T, D>(Vs, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(v, s0 + j) : nullptr; });
-    __syncthreads();
-    float s[RPT][KPT];
-    row_key_dots<D>(Qs, Ks, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int t = (r0 + ty + 16 * i) / G;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int key = s0 + tx + 16 * j;
-        if (key >= span.hi || !sees(frame, local, w2, t, key)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_reduce<false>(mx));
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[i] - base);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float p = exp2f(s[i][j] - base);
-        sum += p;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = round_t<T>(p);
-      }
-      l[i] = l[i] * corr + sum;  // this thread's share of the row sum
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][c][u] *= corr;
-    }
-    __syncthreads();
-    rows_times_tile<D>(Ps, Vs, BK, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + ty + 16 * i;
-    const float total = row_reduce<true>(l[i]);
-    if (r >= rows) continue;
-    const size_t row = row_of(r);
-    const float inv = 1.f / total;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) o[row * D + 4 * tx + 64 * c + u] = from_f<T>(acc[i][c][u] * inv);
-    if (lse != nullptr && tx == 0) lse[row] = m[i] + log2f(total);
   }
 }
 
@@ -482,15 +373,15 @@ forms_merge_kernel(float* __restrict__ o_acc, const float* __restrict__ lse_acc,
 
 // ---- the chunked instance: any head dim above 256 that is a multiple of 64 ----
 //
-// The bodies above keep a row's whole head dim in shared memory, which at D >
-// 256 would not fit. Here a block owns CH = 64 columns of the output (grid
-// axis z: o, dq or dk/dv columns 64 z .. 64 z + 63), which are independent
-// given P (o = P V) or given P and dS (dq = dS k, dv = P^T do, dk = dS^T qs),
-// and recomputes the logits (and dP) over the whole head dim, staging it 64
-// columns at a time in the tiles of the D = 64 instance: shared memory stays
-// that instance's whatever D is. The arithmetic, and so every rounding, is
-// the bodies' above; only the order of the sums over D changes. Speed is not
-// the point: no configuration of either package reaches D > 256.
+// A row's whole head dim in shared memory would not fit at D > 256. Here a
+// block owns CH = 64 columns of the output (grid axis z: o, dq or dk/dv
+// columns 64 z .. 64 z + 63), which are independent given P (o = P V) or
+// given P and dS (dq = dS k, dv = P^T do, dk = dS^T qs), and recomputes the
+// logits (and dP) over the whole head dim, staging it 64 columns at a time in
+// tiles of CH columns: shared memory stays the same whatever D is. The
+// arithmetic, and so every rounding, is the one at the top of this file; only
+// the order of the sums over D changes. Speed is not the point: no
+// configuration of either package reaches D > 256.
 
 // grid (ceil(T*G / BQ), B * Kv, dim / CH)
 template <typename T, bool ROPE>
@@ -545,7 +436,7 @@ forms_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const
       }
       stage_rows<T, CH>(Ks, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(k, s0 + j) + c * CH : nullptr; });
       __syncthreads();
-      row_key_dots<CH, false>(Qs, Ks, ty, tx, s);
+      row_key_dots<CH>(Qs, Ks, ty, tx, s);
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -638,8 +529,8 @@ forms_dq_chunked_kernel(const T* __restrict__ k, const T* __restrict__ v, const 
       stage_rows<T, CH>(Ks, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(k, s0 + j) + c * CH : nullptr; });
       stage_rows<T, CH>(Vs, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(v, s0 + j) + c * CH : nullptr; });
       __syncthreads();
-      row_key_dots<CH, false>(Qs, Ks, ty, tx, s);
-      row_key_dots<CH, false>(Os, Vs, ty, tx, dp);
+      row_key_dots<CH>(Qs, Ks, ty, tx, s);
+      row_key_dots<CH>(Os, Vs, ty, tx, dp);
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -743,8 +634,8 @@ forms_dkv_chunked_kernel(const T* __restrict__ k, const T* __restrict__ v, const
         }
       }
       __syncthreads();
-      row_key_dots<CH, false>(Qs, Ks, ty, tx, s);
-      row_key_dots<CH, false>(Os, Vs, ty, tx, dp);
+      row_key_dots<CH>(Qs, Ks, ty, tx, s);
+      row_key_dots<CH>(Os, Vs, ty, tx, dp);
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -807,13 +698,11 @@ forms_dkv_chunked_kernel(const T* __restrict__ k, const T* __restrict__ v, const
 
 // ---- host ----
 
-// the tiles' bytes of an instance; D = 0, the chunked instance, stages CH columns at a time
-template <int D>
+// the tiles' bytes of the chunked forward's, dq's and dk/dv's, CH columns at a time
 constexpr int fwd_smem() {
-  using TL = Tile<D ? D : CH>;
+  using TL = Tile<CH>;
   return ((BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
 }
-// the chunked dq's and dk/dv's, CH columns at a time
 constexpr int dq_smem() {
   using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
@@ -822,9 +711,8 @@ constexpr int dkv_smem() {
   using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + 2 * BQ * TL::PLD + 2 * BQ) * 4;
 }
-static_assert(fwd_smem<256>() <= 232448 && dq_smem() <= 232448 && dkv_smem() <= 232448,
+static_assert(fwd_smem() <= 232448 && dq_smem() <= 232448 && dkv_smem() <= 232448,
               "every instance's tiles fit one SM's shared memory");
-static_assert(fwd_smem<0>() == fwd_smem<CH>(), "the chunked forward keeps the D = 64 instance's shared memory");
 
 KeyFrame frame_of(int halo, int T, int S, int window, int g0, int t_global) {
   return halo ? halo_frame(T, window, g0, t_global) : KeyFrame{0, 0, S};
@@ -840,31 +728,22 @@ int launch_prologue(Kernel kernel, int smem, std::atomic<unsigned long long>& do
 
 // Each launcher takes the run-time head dim `dim` beside its instance's D (D
 // = 0: the chunked instance, whose grid gains the axis of dim / CH column
-// chunks).
+// chunks). The forward, dq and dk/dv have the chunked instance alone
+// (FORMS_CHUNKS).
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o, void* lse,
                int B, int Tq, int S, int H, int Kv, int window, float scale, KeyFrame frame, int dim, void* stream) {
+  static_assert(D == 0, "the D-templated forward went to flash_f32x6.cuh (fp32) and the wgmma kernels");
   static std::atomic<unsigned long long> smem_set[2];  // per instance: devices whose limit is raised
   const bool rope = cos_t != nullptr;
-  const dim3 grid((Tq * (H / Kv) + BQ - 1) / BQ, B * Kv, D ? 1 : dim / CH);
-  const float qscale = scale * LOG2E;
-  if constexpr (D == 0) {
-    auto kernel = rope ? forms_fwd_chunked_kernel<T, true> : forms_fwd_chunked_kernel<T, false>;
-    const int err = launch_prologue(kernel, fwd_smem<D>(), smem_set[rope]);
-    if (err != 0) return err;
-    kernel<<<grid, THREADS, fwd_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(cos_t),
-        static_cast<const float*>(sin_t), static_cast<T*>(o), static_cast<float*>(lse), Tq, S, H, Kv, window, qscale,
-        frame, dim);
-  } else {
-    auto kernel = rope ? forms_fwd_kernel<T, D, true> : forms_fwd_kernel<T, D, false>;
-    const int err = launch_prologue(kernel, fwd_smem<D>(), smem_set[rope]);
-    if (err != 0) return err;
-    kernel<<<grid, THREADS, fwd_smem<D>(), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(cos_t),
-        static_cast<const float*>(sin_t), static_cast<T*>(o), static_cast<float*>(lse), Tq, S, H, Kv, window, qscale,
-        frame);
-  }
+  auto kernel = rope ? forms_fwd_chunked_kernel<T, true> : forms_fwd_chunked_kernel<T, false>;
+  const int err = launch_prologue(kernel, fwd_smem(), smem_set[rope]);
+  if (err != 0) return err;
+  kernel<<<dim3((Tq * (H / Kv) + BQ - 1) / BQ, B * Kv, dim / CH), THREADS, fwd_smem(),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<T*>(o), static_cast<float*>(lse), Tq, S, H, Kv, window,
+      scale * LOG2E, frame, dim);
   return (int)cudaGetLastError();
 }
 
@@ -883,7 +762,7 @@ int launch_prep(const void* q, const void* dout, const void* o, const void* lse,
   return (int)cudaGetLastError();
 }
 
-// dq and dk/dv: the chunked instances alone (D = 0; FORMS_SWEEPS), over `dim` / CH column chunks
+// dq and dk/dv over `dim` / CH column chunks
 template <typename T, int D>
 int launch_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
               const void* delta_g, void* dq_acc, int B, int Tq, int S, int H, int Kv, int pad, int window,
@@ -956,13 +835,11 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 // FORMS_ABOVE the chunked one above 512 only (the dispatch keys D = 320 ...
 // 512 apart from the head dims above them). The forward, dq and dk/dv bodies
 // keep only what a route launches (ops/flash_forms.py::kernel_form):
-//  * FORMS_FWD, the forward: fp32 at every D; bf16 and fp16 above D = 512
-//    only (K1 takes them at D <= 256, flash_xwide.cuh's forward at 320 ...
-//    512);
-//  * FORMS_SWEEPS, dq and dk/dv: the chunked instances alone, fp32's above
-//    D = 256 and bf16's and fp16's above 512 (flash_f32x6.cuh's pair takes
-//    fp32 at D <= 256, K2's sweep and the wgmma windowed pair bf16 and fp16
-//    there, flash_xwide.cuh's pair bf16 and fp16 at 320 ... 512);
+//  * FORMS_CHUNKS, the forward, dq and dk/dv: the chunked instances alone,
+//    fp32's above D = 256 and bf16's and fp16's above 512 (flash_f32x6.cuh's
+//    forward and pair take fp32 at D <= 256; K1, K2's sweep and the wgmma
+//    windowed pair bf16 and fp16 there; flash_xwide.cuh's kernels bf16 and
+//    fp16 at 320 ... 512);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -972,10 +849,7 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
   case CODE * 1000 + 256: return CALL(TT, 256);
 #define FORMS_ABOVE(CODE, TT) case CODE * 1000 + 1: return CALL(TT, 0);
 #define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)
-#define FORMS_FWD                                                                 \
-  FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
-  FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
-#define FORMS_SWEEPS                                                              \
+#define FORMS_CHUNKS                                                              \
   FORMS_CHUNKED(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_EVERY                                                               \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
@@ -998,7 +872,7 @@ extern "C" int forms_fwd(int dtype, int D, const void* q, const void* k, const v
                          int halo, int g0, int t_global, float scale, void* stream) {
   const KeyFrame frame = frame_of(halo, T, S, window, g0, t_global);
 #define CALL(TT, DD) launch_fwd<TT, DD>(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, window, scale, frame, D, stream)
-  FORMS_DISPATCH(FORMS_FWD)
+  FORMS_DISPATCH(FORMS_CHUNKS)
 #undef CALL
 }
 
@@ -1026,7 +900,7 @@ extern "C" int forms_bwd_dq(int dtype, int D, const void* k, const void* v, cons
 #define CALL(TT, DD)                                                                                                  \
   launch_dq<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dq_acc, B, T, S, H, Kv, pad, window, frame, accumulate, D, \
                     stream)
-  FORMS_DISPATCH(FORMS_SWEEPS)
+  FORMS_DISPATCH(FORMS_CHUNKS)
 #undef CALL
 }
 
@@ -1040,7 +914,7 @@ extern "C" int forms_bwd_dkv(int dtype, int D, const void* k, const void* v, con
 #define CALL(TT, DD)                                                                                              \
   launch_dkv<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dk, dv, B, T, S, H, Kv, pad, window, frame, accumulate, \
                      D, stream)
-  FORMS_DISPATCH(FORMS_SWEEPS)
+  FORMS_DISPATCH(FORMS_CHUNKS)
 #undef CALL
 }
 

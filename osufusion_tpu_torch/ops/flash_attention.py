@@ -62,13 +62,15 @@ D, as bf16 does above 64. Above D = 256, at bf16 and fp16 with D = 320 ...
 ``csrc/flash_xwide.cuh``'s forward, and every backward (global, the ring's
 sweeps, windowed, halo) its dq and dk/dv pair between the forms pre-pass and
 post-pass (``xwide_bwd_dq``, ``xwide_bwd_dkv``); libraries ``flash_xwide``
-and ``flash_xwide_f16``. fp32 backwards at D = 64 ... 256 (global, the
-ring's sweeps, windowed, halo) run ``csrc/flash_f32x6.cuh``'s dq and dk/dv
-pair, each fp32 product as six bf16 products on the tensor cores, on the
-bf16 pieces of its operands (``f32x6_split``), between the forms pre-pass and
-post-pass (``f32x6_bwd_dq``, ``f32x6_bwd_dkv``; library ``flash_f32x6``).
-The ring's merge takes bf16 at D = 64. Every other form (fp32 forwards, and
-fp32 backwards above D = 256; fp16's merge and the global backward's
+and ``flash_xwide_f16``. fp32 at D = 64 ... 256 runs
+``csrc/flash_f32x6.cuh``, each fp32 product as six bf16 products on the
+tensor cores, on the bf16 pieces of its operands (``f32x6_split``): every
+forward (the halo frame and the ring's hops too; ``f32x6_fwd``,
+``f32x6_halo_fwd``) and every backward (global, the ring's sweeps, windowed,
+halo) through its dq and dk/dv pair between the forms pre-pass and post-pass
+(``f32x6_bwd_dq``, ``f32x6_bwd_dkv``); library ``flash_f32x6``. The ring's
+merge takes bf16 at D = 64. Every other form (fp32 above D = 256; fp16's
+merge and the global backward's
 pre-pass and post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the
 merge and the global backward's pre-pass and post-pass:
 ``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
@@ -204,8 +206,11 @@ _ENTRY_POINTS = {
     # D | k v qs_g do_rows lse_g delta_g dk dv | B T S H Kv pad window halo g0 t_global accumulate | stream
     "xwide_bwd_dkv_bf16": ("flash_xwide", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     "xwide_bwd_dkv_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
-    # the fp32 pair on the tensor cores (csrc/flash_f32x6.cu), on the forms scratch as the xwide pair takes it,
-    # k v qs_g do_rows as their bf16 pieces; and the split that makes them: x out | rows D | stream
+    # fp32 on the tensor cores (csrc/flash_f32x6.cu): the forward as xwide_fwd_* and xwide_halo_fwd_* take it,
+    # q and o fp32, k and v as their bf16 pieces; the pair on the forms scratch as the xwide pair takes it, k v
+    # qs_g do_rows as their pieces; and the split that makes them: x out | rows D | stream
+    "f32x6_fwd": ("flash_f32x6", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "f32x6_halo_fwd": ("flash_f32x6", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     "f32x6_split": ("flash_f32x6", [_PTR] * 2 + [ctypes.c_longlong, _INT, _PTR]),
     "f32x6_bwd_dq": ("flash_f32x6", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
     "f32x6_bwd_dkv": ("flash_f32x6", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
@@ -227,6 +232,17 @@ _ENTRY_POINTS = {
 
 # operand dtype -> the suffix of the entry points of K1, K2's sweep and the windowed pair of that type
 TYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def fwd_entry(frame: str, route: str, dtype: torch.dtype) -> str:
+    """The forward's entry point for ``frame`` ("flash" on one device, "halo"
+    in the halo slab) at ``route`` (``flash_forms.route``, not "forms"): K1's
+    of the dtype ("wgmma"), csrc/flash_xwide.cuh's ("xwide") or
+    csrc/flash_f32x6.cu's, which has one type ("f32x6")."""
+    if route == "f32x6":
+        return "f32x6_fwd" if frame == "flash" else "f32x6_halo_fwd"
+    prefix = frame if route == "wgmma" else "xwide" if frame == "flash" else "xwide_halo"
+    return f"{prefix}_fwd_{TYPE_SUFFIX[dtype]}"
 
 
 @functools.cache
@@ -306,15 +322,17 @@ def flash_fwd(
 ):
     """Launch the forward kernel of q's route (``flash_forms.route``: K1
     at bf16 or fp16 with D = 64, 128, 192 or 256, csrc/flash_xwide.cuh's
-    forward with D = 320 ... 512) on the current stream;
-    returns o (B, T, H, D) in q's dtype, or with
+    forward with D = 320 ... 512, csrc/flash_f32x6.cuh's at fp32 with D = 64
+    ... 256, on the pieces of k and v that ``f32x6_split`` makes here) on the
+    current stream; returns o (B, T, H, D) in q's dtype, or with
     ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
     the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
     // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
     (those with the LSE also in ``flash_fwd.lse_launches``, those of the
     grouped form, Kv > 1, in ``flash_fwd.grouped_launches``, those above D =
-    256 in ``flash_fwd.xwide_launches``), the forms kernel's in
-    ``flash_forms.forms_fwd.launches``."""
+    256 in ``flash_fwd.xwide_launches``, those at fp32 in
+    ``flash_fwd.f32x6_launches``), the forms kernel's (the chunked instance)
+    in ``flash_forms.forms_fwd.launches``."""
     kv = _kv_heads("flash_fwd", q, k)
     B, T, H, D = q.shape
     if v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
@@ -328,7 +346,10 @@ def flash_fwd(
     if route == "forms":
         forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
         return (o, lse) if return_lse else o
-    err = _kernel(f"{'flash' if route == 'wgmma' else route}_fwd_{TYPE_SUFFIX[q.dtype]}")(
+    if route == "f32x6":
+        forms._check_aligned("flash_fwd", q, o)
+        k, v = f32x6_split(k), f32x6_split(v)
+    err = _kernel(fwd_entry("flash", route, q.dtype))(
         D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
         B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -336,6 +357,7 @@ def flash_fwd(
     flash_fwd.launches += 1
     flash_fwd.grouped_launches += kv > 1
     flash_fwd.xwide_launches += route == "xwide"
+    flash_fwd.f32x6_launches += route == "f32x6"
     if return_lse:
         flash_fwd.lse_launches += 1
         return o, lse
@@ -346,6 +368,7 @@ flash_fwd.launches = 0
 flash_fwd.lse_launches = 0
 flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
 flash_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
+flash_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32, D = 64 ... 256)
 
 
 def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, str]:

@@ -21,14 +21,14 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   backward pair of ``csrc/flash_xwide.cuh``, which take the head dim at run
   time (every forward, and between the forms pre-pass and post-pass every
   backward: global, the ring's sweeps, windowed and halo). fp32 operands with
-  D in ``FORMS_HEAD_DIMS`` at the backward wrappers of ``F32X6_WRAPPERS``: the
-  dq and dk/dv pair of ``csrc/flash_f32x6.cuh``, each fp32 product as six
-  bf16 products, between the forms pre-pass and post-pass;
+  D in ``FORMS_HEAD_DIMS`` at the wrappers of ``F32X6_WRAPPERS`` (those of
+  ``WIDE_WGMMA``): the forward and the dq and dk/dv pair of
+  ``csrc/flash_f32x6.cuh``, each fp32 product as six bf16 products, the pair
+  between the forms pre-pass and post-pass;
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
-  fp32 forwards at D in ``FORMS_HEAD_DIMS``, and fp32 at every D for the
-  ring's merge and the global backward's pre-pass and post-pass
-  (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge, the pre-pass
-  and the post-pass at every D (``flash_bwd`` at fp16 runs K2's sweep, or
+  fp32 at every D for the ring's merge and the global backward's pre-pass
+  and post-pass (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge,
+  the pre-pass and the post-pass at every D (``flash_bwd`` at fp16 runs K2's sweep, or
   above 256 the wgmma pair, between these two); and bf16 at D > 64 at the
   merge, the pre-pass and the post-pass (``flash_bwd`` at D > 64 likewise);
 * ``"chunked"``: the forms family's chunked instance of the forward, dq and
@@ -75,9 +75,9 @@ XWIDE_HEAD_DIMS = (320, 384, 448, 512)
 # csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu); every other wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
-# the backward wrappers whose fp32 dq and dk/dv at FORMS_HEAD_DIMS run on the tensor cores, six bf16 products per
-# fp32 product (csrc/flash_f32x6.cuh); the fp32 forwards stay on the forms bodies
-F32X6_WRAPPERS = WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
+# the wrappers whose fp32 kernel at FORMS_HEAD_DIMS runs on the tensor cores, six bf16 products per fp32 product
+# (csrc/flash_f32x6.cuh): every forward (the ring's hops through flash_fwd) and the dq and dk/dv of every backward
+F32X6_WRAPPERS = WIDE_WGMMA
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -116,7 +116,8 @@ def route(who: str, t: torch.Tensor) -> str:
     for its own wgmma kernel, "xwide" for csrc/flash_xwide.cuh's (the form
     "hopper" at a head dim of ``XWIDE_HEAD_DIMS``; its backward runs on this
     module's pre-pass and post-pass), "f32x6" for csrc/flash_f32x6.cuh's
-    pair (the form "hopper" at fp32; on the same pre-pass and post-pass),
+    forward and pair (the form "hopper" at fp32; the pair on the same
+    pre-pass and post-pass),
     "forms" for this module's family (the chunked instance included). A head
     dim that no kernel tiles raises ValueError."""
     D = t.shape[-1]
@@ -154,9 +155,11 @@ def forms_fwd(q, k, v, cos, sin, o, lse, window: int, scale: float, halo: Option
     D) or (B, S, Kv, D), already rotated; with tables q is raw and rotated
     inside. ``halo`` (g0, t_global): the halo slab's frame (S = T + window, q
     rotated, no tables). Operands checked by the calling wrapper. Counts in
-    ``forms_fwd.launches``. bf16 and fp16 at D <= 512 have no forms forward
-    (K1 runs there, and csrc/flash_xwide.cuh's forward above 256): the entry
-    point returns cudaErrorInvalidValue, and this raises RuntimeError."""
+    ``forms_fwd.launches``. Only the chunked instance is built: bf16 and fp16
+    at D <= 512 and fp32 at D <= 256 have no forms forward (K1 runs there,
+    csrc/flash_xwide.cuh's forward above 256, csrc/flash_f32x6.cuh's at
+    fp32): the entry point returns cudaErrorInvalidValue, and this raises
+    RuntimeError."""
     B, T, H, D = q.shape
     _check_aligned("forms_fwd", q, k, v, o)
     err = fa._kernel("forms_fwd")(

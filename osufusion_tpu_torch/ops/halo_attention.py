@@ -151,7 +151,9 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     returns (o (B, T, H, D) in q's dtype, lse2 (B, T*H) fp32). Counts the
     wgmma instance's launches in ``halo_fwd.launches`` (those of
     csrc/flash_xwide.cuh's forward, D = 320 ... 512, also in
-    ``halo_fwd.xwide_launches``), the forms one's in
+    ``halo_fwd.xwide_launches``, those of csrc/flash_f32x6.cuh's, fp32 with D
+    = 64 ... 256 on the pieces of k and v, in ``halo_fwd.f32x6_launches``),
+    the forms one's (the chunked instance) in
     ``flash_forms.forms_fwd.launches``."""
     B, T, H, route = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
@@ -159,17 +161,22 @@ def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     if route == "forms":
         forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
         return o, lse
-    err = _kernel(f"{'halo' if route == 'wgmma' else 'xwide_halo'}_fwd_{fa.TYPE_SUFFIX[q.dtype]}")(
+    if route == "f32x6":
+        forms._check_aligned("halo_fwd", q, o)
+        k, v = fa.f32x6_split(k), fa.f32x6_split(v)
+    err = _kernel(fa.fwd_entry("halo", route, q.dtype))(
         q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, H, window, g0,
         t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
     halo_fwd.xwide_launches += route == "xwide"
+    halo_fwd.f32x6_launches += route == "f32x6"
     return o, lse
 
 
 halo_fwd.launches = 0
 halo_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
+halo_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32, D = 64 ... 256)
 
 
 def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale: float):

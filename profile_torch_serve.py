@@ -22,7 +22,8 @@ At the serving cell (dim_h=128, default config, seeded weights; a 180 s song,
 ``--dim-head`` sets the model's ``attn_dim_head`` (a multiple of 64: 128,
 192, 256 run K1 and K2's wider instances; the transformers then have
 512 / dim_head heads), ``--dtype`` the serving model's parameter dtype
-(float32 runs the forms kernels, float16 K1's fp16 instance).
+(float32 runs the fp32 forward, whose kernels' share of the call it prints;
+float16 K1's fp16 instance).
 
 ``--groupnorm torch`` swaps the port's ``GroupNorm1`` for
 ``nn.functional.group_norm`` with one group on (B, C, T), the form it
@@ -41,8 +42,9 @@ whole blocks), with its MFU (3 x the forward's model FLOPs over the step and
 (bf16 weights and moments), ``bf16`` or ``fp16`` (``--mixed-precision``:
 float32 weights and moments, the forward under autocast at bfloat16 or
 float16, fp16 with its static loss scale), or ``fp32`` (``--mixed-precision
-no`` with float32 weights: every attention site in fp32, the forms forward
-and the fp32 backward pair, whose kernels' share of the step it prints). ``--kv-heads 2`` gives the UNet two KV heads (the whole-song
+no`` with float32 weights: every attention site in fp32, the fp32 forward
+and backward pair, whose kernels' share of the step it prints).
+``--kv-heads 2`` gives the UNet two KV heads (the whole-song
 cell with it is ``chip_smoke.py``'s phase 17). ``--mesh-seq N`` runs the
 step sequence-parallel in N processes (one card each over NCCL where N are
 visible, else all on one card over gloo), every global site through the ring,
@@ -83,6 +85,14 @@ def _cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+# the fp32 attention's kernels by part, forms FMA bodies and six-product ones (a tree has the one or the other)
+FP32_GROUPS = {"the fp32 forward (forms FMA)": ("forms_fwd_kernel",),
+               "the fp32 forward (six-product)": ("x6_fwd_kernel",),
+               "the fp32 backward pair (forms FMA dq, dk/dv)": ("forms_dq_kernel", "forms_dkv_kernel"),
+               "the fp32 backward pair (six-product dq, dk/dv)": ("x6_dq_kernel", "x6_dkv_kernel"),
+               "the split into bf16 pieces (k and v for the forward and the pair, qs and do)": ("x6_split_kernel",)}
 
 
 def kernel_table(fn, what: str = "one UNet call", groups: dict = None) -> float:
@@ -204,9 +214,7 @@ def profile_train(remat: str, levels: tuple, precision: str, B: int, T: int, bac
           f"dq {fa.flash_bwd_dq.launches // 3}, dkv {fa.flash_bwd_dkv.launches // 3}; grouped forward "
           f"{fa.flash_fwd.grouped_launches // 3}, grouped backward {fa.flash_bwd.grouped_launches // 3}; dq, dk/dv of "
           + ", ".join(f"{name} {[fn.launches // 3 for fn in fns]}" for name, fns in pairs.items() if fns))
-    groups = {"the fp32 backward pair (forms FMA dq, dk/dv)": ("forms_dq_kernel", "forms_dkv_kernel"),
-              "the fp32 backward pair (six-product dq, dk/dv, split)": ("x6_dq_kernel", "x6_dkv_kernel",
-                                                                         "x6_split_kernel")} if precision == "fp32" else {}
+    groups = FP32_GROUPS if precision == "fp32" else {}
     device_ms = kernel_table(lambda: step(state, batch), "one training step", groups)
     print(f"[train] device busy {device_ms:.1f} ms of a {step_s * 1e3:.1f} ms step: idle share {1 - device_ms / (step_s * 1e3):.3f}")
 
@@ -309,7 +317,7 @@ def main() -> None:
         ms = _cuda_ms(unet_call, CALLS)
         print(f"[unet] {args.dtype} dim_head={args.dim_head} B=2 T={FRAMES}: {ms:.3f} ms per call (CUDA events, mean "
               f"of {CALLS})")
-        kernel_table(unet_call)
+        kernel_table(unet_call, groups=FP32_GROUPS if args.dtype == "float32" else {})
 
     steps, name = (16, "DPM-16") if args.sampler == "dpmpp-2m" else (50, "DDIM-50")
     for seed in (1, 2):

@@ -57,16 +57,19 @@ def test_split_is_exact(case):
 ORDER = ((0, 2), (1, 1), (0, 1), (2, 0), (1, 0), (0, 0))
 
 
-def x6_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def x6_mm(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None, chunk: int = 64) -> torch.Tensor:
     """a (..., M, K) @ b (..., N, K)^T as the kernels compute it: both split
-    into their three bf16 pieces, and per 64-wide chunk of K the six products
-    of ORDER added in turn into one fp32 accumulator."""
+    into their three bf16 pieces, and per ``chunk``-wide chunk of K (a 64-wide
+    atom, or the forward's key tile in P V) the six products of ORDER added in
+    turn into one fp32 accumulator (zeros, or ``acc``)."""
     K = a.shape[-1]
     pieces_a, pieces_b = (fa.f32x6_split_reference(x).float() for x in (a, b))
-    acc = torch.zeros((*a.shape[:-1], b.shape[-2]), dtype=torch.float32)
-    for c in range(0, K, 64):
+    if acc is None:
+        acc = torch.zeros((*a.shape[:-1], b.shape[-2]), dtype=torch.float32)
+    for c in range(0, K, chunk):
+        e = min(c + chunk, K)  # a last chunk of fewer keys: the kernels' tile padded with zeros
         for i, j in ORDER:
-            x, y = pieces_a[..., i * K + c:i * K + c + 64], pieces_b[..., j * K + c:j * K + c + 64]
+            x, y = pieces_a[..., i * K + c:i * K + e], pieces_b[..., j * K + c:j * K + e]
             acc = acc + x @ y.transpose(-1, -2)
     return acc
 
@@ -138,14 +141,128 @@ def test_six_product_pair_matches_the_jax_fp32_backward(D, window):
         assert rel < PAIR_REL_TOL, f"{name}: rel L2 {rel:.3e}"
 
 
+# the forward kernel's constants (csrc/flash_f32x6.cuh): rows of a block (XW_ROWS), the keys that O's accumulator
+# takes before its sum goes to device memory (X6_FLUSH_TILES tiles of 64), and its key tile at a head dim: 128
+# up to X6_FWD_WIDE_MAX_D, 64 above
+ROWS, FLUSH_KEYS, WIDE_MAX_D = 64, 8 * 64, 128
+
+
+def _key_tile(D: int) -> int:
+    return 128 if D <= WIDE_MAX_D else 64
+
+
+def _kernel_qs(q, cos, sin):
+    """qs of an MQA site (B, T, H, D) as the forward kernel stages it: each
+    (d, d + D / 2) pair rotated with every product rounded alone (or, without
+    tables, only scaled), times the fp32 scale fp32(D^-0.5) * fp32(log2 e)."""
+    D = q.shape[-1]
+    qscale = float(np.float32(np.float32(D**-0.5) * np.float32(fa.LOG2E)))
+    a, h = q[..., :D // 2], q[..., D // 2:]
+    if cos is None:
+        return torch.cat([a * qscale, h * qscale], dim=-1)
+    c, s = cos[None, :, None], sin[None, :, None]
+    lo = (a * c[..., :D // 2] - h * s[..., :D // 2]) * qscale
+    hi = (h * c[..., D // 2:] + a * s[..., D // 2:]) * qscale
+    return torch.cat([lo, hi], dim=-1)
+
+
+def _forward_emulated(q, k_rot, v, cos, sin, window, flush_tiles=None):
+    """The forward kernel's arithmetic on an MQA site (B, T, H, D): per block
+    of 64 group rows (row r: timestep r // H) the key tiles (``_key_tile``)
+    from the first key the block sees, S = qs K^T (six terms a 64-wide atom of
+    D) and O += P V (six terms over the tile's keys) through ``x6_mm`` in the
+    kernel's order of terms, the online softmax in the exp2 domain, and O's
+    accumulator flushed into the running o (rescaled to the current base)
+    each ``flush_tiles`` tiles (the kernel's: FLUSH_KEYS keys). Returns (o (B,
+    T, H, D), lse2 (B, T*H))."""
+    B, T, H, D = q.shape
+    tile = _key_tile(D)
+    flush_tiles = flush_tiles or FLUSH_KEYS // tile
+    qs = _kernel_qs(q, cos, sin).reshape(B, T * H, D)
+    w2 = window // 2
+    o = torch.empty((B, T * H, D))
+    lse = torch.empty((B, T * H))
+    for r0 in range(0, T * H, ROWS):
+        rows = torch.arange(r0, min(r0 + ROWS, T * H))
+        t = rows // H
+        lo, hi = (0, T) if window < 0 else (max(0, int(t[0]) - w2), min(T, int(t[-1]) + w2 + 1))
+        m = torch.full((B, len(rows), 1), -torch.inf)
+        l = torch.zeros((B, len(rows), 1))
+        acc, o_run, held = torch.zeros((B, len(rows), D)), torch.zeros((B, len(rows), D)), torch.ones((B, len(rows), 1))
+        for it, s0 in enumerate(range(lo, hi, tile)):
+            if it > 0 and it % flush_tiles == 0:
+                o_run, acc, held = o_run * held + acc, torch.zeros_like(acc), torch.ones_like(held)
+            keys = torch.arange(s0, min(s0 + tile, hi))
+            seen = torch.ones(len(rows), len(keys), dtype=torch.bool) if window < 0 else \
+                (t[:, None] - keys[None, :]).abs() <= w2
+            s = torch.where(seen, x6_mm(qs[:, rows], k_rot[:, keys]), -torch.inf)
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            base = torch.where(mx == -torch.inf, 0.0, mx)
+            corr = torch.exp2(m - base)
+            p = torch.exp2(s - base)
+            l, m, held = l * corr + p.sum(-1, keepdim=True), mx, held * corr
+            acc = x6_mm(p, v[:, keys].transpose(1, 2), acc * corr, chunk=tile)
+        o[:, rows] = (o_run * held + acc) / l
+        lse[:, rows] = (m + torch.log2(l))[..., 0]
+    return o.reshape(B, T, H, D), lse
+
+
+# (D, window, tables) at T = 256, H = 2: global and windowed, with rotary tables and without
+FWD_CASES = [(D, w, tables) for D in (64, 128) for w in (None, 96) for tables in (True, False)]
+FWD_IDS = [f"D{d}-{'W' + str(w) if w else 'global'}-{'tables' if t else 'plain'}" for d, w, t in FWD_CASES]
+# against the JAX package's fp32 forward: both as exact as fp32, summed in other orders
+FWD_REL_TOL, FWD_LSE_TOL = 1e-5, 1e-5
+
+
+@pytest.mark.parametrize("D,window,tables", FWD_CASES, ids=FWD_IDS)
+def test_six_product_forward_matches_the_jax_fp32_forward(D, window, tables):
+    """The forward's arithmetic (``_forward_emulated``: six bf16 products per
+    fp32 product in the kernel's order and key tile, O's accumulator flushed
+    each FLUSH_KEYS keys) against the JAX package's fp32 ``pa._flash_fwd`` in
+    interpret mode on the same seeded inputs: o within 1e-5 relative L2 and
+    the base-2 LSE within 1e-5, also with a flush after every tile (at T =
+    256 a block sees at most two tiles, fewer than the kernel flushes after);
+    the emulated qs is the forms pre-pass's plain qs bit for bit."""
+    T, H = 256, 2
+    rng = np.random.default_rng(D + (window or 0) + tables)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((1, T, H, D), (1, T, D), (1, T, D)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    cos, sin = rope_tables(T, D, scale_base=float(T)) if tables else (None, None)
+    k_rot = apply_rope(tk, cos, sin) if tables else tk
+    runs = [_forward_emulated(tq, k_rot, tv, cos, sin, -1 if window is None else window, flush)
+            for flush in (None, 1)]
+    qscale = float(np.float32(np.float32(D**-0.5) * np.float32(fa.LOG2E)))
+    plain_qs = (apply_rope(tq, cos, sin) if tables else tq) * qscale  # the pre-pass's (flash_forms.cu's qs_pair)
+    assert torch.equal(_kernel_qs(tq, cos, sin), plain_qs)
+    scale = D**-0.5 * pa.LOG2E
+    _, bk, fold = pa._choose_blocks(T, T, H)
+    bq = pa._pick_block(T, max(64, 1024 // H))
+    if tables:
+        jcos, jsin = jax_rope_tables(T, D, scale_base=float(T))
+        rope = (jnp.repeat(jcos * scale, fold, axis=0), jnp.repeat(jsin * scale, fold, axis=0))
+        jq, jk = jnp.asarray(q), pa._rotate_rank3(jnp.asarray(k), jcos, jsin)
+    else:
+        rope, jq, jk = None, jnp.asarray(q) * scale, jnp.asarray(k)
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = pa._flash_fwd(jq, jk, jnp.asarray(v), fold, bq, bk, window, fast=False, rope=rope,
+                                         dense=False)
+    want_o = torch.from_numpy(np.array(want_o)).reshape(tq.shape)
+    want_lse = torch.from_numpy(np.array(want_lse)).reshape(1, T * H)
+    for o, lse in runs:
+        rel = ((o - want_o).norm() / want_o.norm()).item()
+        assert rel < FWD_REL_TOL, f"o: rel L2 {rel:.3e}"
+        assert (lse - want_lse).abs().max().item() < FWD_LSE_TOL
+
+
 @pytest.mark.parametrize("D", FORMS_HEAD_DIMS)
 def test_fp32_backward_wrappers_route_to_the_six_product_pair(D):
     """At fp32 with D = 64 ... 256 every backward wrapper of the form rule
     (the global backward, the ring's sweep, the windowed and the halo pair)
-    takes csrc/flash_f32x6.cuh's pair, and nothing else does: the forwards
-    stay on the forms bodies, and so do the pre-pass, post-pass and merge;
-    bf16 and fp16 never take it, nor fp32 above 256 (the chunked instance)."""
-    assert F32X6_WRAPPERS == WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
+    takes csrc/flash_f32x6.cuh's pair, and every forward (``flash_fwd``, the
+    ring's hops through it, and ``halo_fwd``) its forward; nothing else
+    does: the pre-pass, post-pass and merge stay on the forms bodies; bf16
+    and fp16 never take it, nor fp32 above 256 (the chunked instance)."""
+    assert F32X6_WRAPPERS == WIDE_WGMMA and {"flash_fwd", "halo_fwd"} <= F32X6_WRAPPERS
     t = torch.empty((1, 1, 1, D), dtype=torch.float32)
     wrappers = sorted(WIDE_WGMMA | {"flash_bwd_prep", "flash_bwd_post", "ring_merge"})
     assert {who for who in wrappers if route(who, t) == "f32x6"} == F32X6_WRAPPERS

@@ -1,13 +1,14 @@
 """The hand-written CUDA flash kernels (forward, forward with its LSE, fused
 global backward, each also in its grouped form for DiT and MMDiT, the
 windowed dq / dkv pair, the halo forward / dq / dkv of sequence parallelism,
-the forms family's instances (fp32 with D = 64 ... 256, and the chunked
-instance above), the instances of K1, K2, the windowed pair and its halo
+the forms family's instances (the pre-pass, post-pass and merge at fp32 with D
+= 64 ... 256, and the chunked instance above), the instances of K1, K2, the windowed pair and its halo
 frame at D = 128, 192 and 256, the fp16 instances of K1, K2's sweep and the
 windowed pair with its halo frame at D = 64 ... 256, the forward and the
 backward pair above head dim 256 (csrc/flash_xwide.cuh, bf16 and fp16 at D =
-320 ... 512), the fp32 backward pair on the tensor cores (csrc/flash_f32x6.cuh,
-six bf16 products per fp32 product at D = 64 ... 256), and the differentiable
+320 ... 512), the fp32 forward and backward pair on the tensor cores
+(csrc/flash_f32x6.cuh, six bf16 products per fp32 product at D = 64 ... 256),
+and the differentiable
 ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
 edges of the Hopper kernels' tiles. Needs an NVIDIA GPU with nvcc (marked ``cuda``; skips
@@ -626,6 +627,10 @@ def _f32x6_launches() -> tuple:
     return fa.f32x6_bwd_dq.launches, fa.f32x6_bwd_dkv.launches
 
 
+def _f32x6_fwd_launches() -> tuple:
+    return fa.flash_fwd.f32x6_launches, ha.halo_fwd.f32x6_launches
+
+
 # fp16 against the plain fp32 versions on the same fp16 inputs: P and dS are
 # rounded to fp16 (2^-11 relative) where the bf16 kernels round to bf16
 F16_REL_TOL, F16_LSE_TOL = 2e-3, 2e-3
@@ -760,18 +765,17 @@ def _forms_inputs(B, T, H, Kv, D, dtype, tables, device, seed=0):
 @pytest.mark.parametrize("B,T,H,Kv,window,tables", FORMS_SITES, ids=FORMS_SITE_IDS)
 @pytest.mark.parametrize("dtype,D", FORMS_F32, ids=FORMS_IDS[:4])
 def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables):
-    """Every fp32 instance of the forms family through its wrappers: the
-    forward with its LSE, then the pre-pass and, on its scratch with the
-    pieces of qs and do, csrc/flash_f32x6.cuh's dq and dk/dv (the forms dq
-    and dk/dv at D <= 256 are pruned), and the post-pass, against the plain
-    fp32 versions; each entry point launched once."""
+    """Every fp32 chain at D <= 256 through its wrappers: csrc/flash_f32x6.cuh's
+    forward with its LSE (the forms forward at D <= 256 is pruned), then the
+    forms pre-pass and, on its scratch with the pieces of qs and do,
+    csrc/flash_f32x6.cuh's dq and dk/dv (the forms dq and dk/dv at D <= 256
+    are pruned too), and the forms post-pass, against the plain fp32
+    versions; each entry point launched once."""
     rel_tol, lse_tol = _forms_tols(dtype)
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T)
     scale = D**-0.5
-    before = _forms_launches(), _f32x6_launches()
-    o = torch.empty_like(q)
-    lse = torch.empty((B, T * H), dtype=torch.float32, device=cuda)
-    forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
+    before = _forms_launches(), _f32x6_launches(), _f32x6_fwd_launches()
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
     prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, Kv, scale)
     dk = torch.empty(k_rot.shape, dtype=torch.float32, device=cuda)
     dv = torch.empty_like(dk)
@@ -779,8 +783,9 @@ def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, table
     fa.f32x6_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
     dq = forms.forms_bwd_post(prep, cos, sin, scale)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_forms_launches(), before[0])] == [1, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[0])] == [0, 1, 0, 0, 1, 0]
     assert [a - b for a, b in zip(_f32x6_launches(), before[1])] == [1, 1]
+    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [1, 0]
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     refs = (fa.flash_bwd_dq_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window),
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o_ref, lse_ref, do, cos, sin, window))
@@ -807,10 +812,14 @@ def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
     lo, hi = ha.slab_bounds(T, W, g0, t_global)
     k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
     scale = D**-0.5
+    before = _f32x6_fwd_launches(), forms.forms_fwd.launches
     o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
     dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
     dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
     torch.cuda.synchronize()
+    f32 = int(dtype == torch.float32)  # csrc/flash_f32x6.cuh's forward in the halo frame, no forms forward
+    moved = [a - b for a, b in zip(_f32x6_fwd_launches(), before[0])]
+    assert (moved, forms.forms_fwd.launches) == ([0, f32], before[1])
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
             *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
@@ -827,9 +836,9 @@ def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
                                              (torch.float32, 256, 4, False)], ids=["fp32-D64", "bf16-D128", "fp32-D256"])
 def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope):
     """The ring at a form beside bf16/64: the kernel parts against the plain
-    parts, over 2 shards. fp32: the forms forward, merge, pre-pass and
-    post-pass, and csrc/flash_f32x6.cuh's dq and dk/dv sweeps storing on the
-    first hop and adding after. bf16
+    parts, over 2 shards. fp32: csrc/flash_f32x6.cuh's forward per hop, the
+    forms merge, pre-pass and post-pass, and csrc/flash_f32x6.cuh's dq and
+    dk/dv sweeps storing on the first hop and adding after. bf16
     at D = 128: K1 per hop and K2's accumulating sweep of that head dim,
     between the forms pre-pass and post-pass, with the forms merge."""
     from osufusion_tpu_torch.ops.ring_attention import LocalRing, PlainParts, ring_bwd, ring_fwd
@@ -854,8 +863,9 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
     got = run(None)
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     wgmma = dtype == torch.bfloat16  # K1's hops (flash_fwd) and K2's sweeps (flash_bwd_sweep)
-    assert kernels == [n * n * wgmma, 0, 0, 0, 0, n * n * wgmma, 0, 0, 0, 0, 0], kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n * (not wgmma), n, 0, 0, n, n * n]
+    # every hop's forward is flash_fwd's: K1's, or at fp32 csrc/flash_f32x6.cuh's
+    assert kernels == [n * n, 0, 0, 0, 0, n * n * wgmma, 0, 0, 0, 0, 0], kernels
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
     assert [a - b for a, b in zip(_f32x6_launches(), before[2])] == [n * n * (not wgmma)] * 2
     ref = run(PlainParts)
     assert got[0].dtype == got[2].dtype == dtype and got[3].dtype == torch.float32
@@ -869,9 +879,9 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
 @pytest.mark.parametrize("window", [96, None], ids=["windowed", "global"])
 def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window):
     """``sdpa`` under a gradient at fp32/64 and bf16/128 on the card, against
-    autograd through the plain attention in fp32. fp32: the forms forward,
-    pre-pass and post-pass and csrc/flash_f32x6.cuh's dq and dk/dv, none of
-    the other wgmma kernels. bf16/128: K1 forward; a
+    autograd through the plain attention in fp32. fp32: csrc/flash_f32x6.cuh's
+    forward (counted by ``flash_fwd``), dq and dk/dv and the forms pre-pass
+    and post-pass, none of the other wgmma kernels. bf16/128: K1 forward; a
     global site K2's sweep between the forms pre-pass and post-pass, a
     windowed one the wgmma dq / dk-dv pair (K3a / K3b at D = 128)."""
     from osufusion_tpu_torch.ops.attention import sdpa
@@ -890,7 +900,7 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
     x6 = [a - b for a, b in zip(_f32x6_launches(), before[2])]
     if dtype == torch.float32:
-        assert kernels == [0] * 11 and formed == [runs, runs, 0, 0, runs, 0] and x6 == [runs, runs]
+        assert kernels == [runs] + [0] * 10 and formed == [0, runs, 0, 0, runs, 0] and x6 == [runs, runs]
     elif window is None:  # K1 and K2 (flash_bwd), the forms pre-pass and post-pass around the sweep
         assert kernels == [1, 1] + [0] * 9 and formed == [0, 1, 0, 0, 1, 0]
     else:  # K1 per KV head, then the wgmma pair
@@ -1793,11 +1803,78 @@ def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,window,tables", F32X6_SITES, ids=F32X6_SITE_IDS)
+@pytest.mark.parametrize("D", F32X6_DIMS)
+def test_f32x6_forward_matches_plain(cuda, D, B, T, H, Kv, window, tables):
+    """csrc/flash_f32x6.cuh's forward through ``flash_fwd`` at fp32 in each
+    site's form, with its LSE at the global sites and without it at the
+    windowed ones, against the plain fp32 forward within the fp32 bounds,
+    with a planted fault above them (the last 64 keys left out, or a window
+    two keys short); one launch a call, counted as the wrapper's and as
+    ``f32x6_launches``, and no forms forward."""
+    q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float32, tables, cuda, seed=3 * D + T + Kv)
+    before = fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, forms.forms_fwd.launches
+    got = fa.flash_fwd(q, k_rot, v, cos, sin, window, D**-0.5, return_lse=window < 0)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, forms.forms_fwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    o = got[0] if window < 0 else got
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
+    if window < 0:
+        fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
+        assert (got[1] - lse_ref).abs().max().item() < F32_LSE_TOL
+    else:
+        fault = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window - 2)[0]
+    assert o.dtype == torch.float32 and torch.isfinite(o).all()
+    assert _rel(o, o_ref) < F32_REL_TOL < _rel(fault, o_ref), f"rel L2 {_rel(o, o_ref)}, fault {_rel(fault, o_ref)}"
+    assert (o - o_ref).abs().max().item() < F32_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 256])
+def test_f32x6_forward_over_a_long_key_range(cuda, D):
+    """The forward over 24576 keys (B=1, H=2, global, tables): 384 tiles of
+    P V, where one wgmma accumulator taking them all would drift above the
+    bound (~1.3e-8 of the sum per K step, PERF.md open question 9); the
+    kernel's accumulator goes to device memory each X6_FLUSH_TILES tiles, so
+    o and the LSE hold within the fp32 bounds."""
+    B, T, H = 1, 24576, 2
+    q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float32, True, cuda, seed=D)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, D**-0.5, return_lse=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    assert _rel(o, o_ref) < F32_REL_TOL and (lse - lse_ref).abs().max().item() < F32_LSE_TOL, \
+        f"rel L2 {_rel(o, o_ref)}, lse {(lse - lse_ref).abs().max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["flash", "halo"])
+def test_f32x6_forward_failed_launch_raises(cuda, monkeypatch, frame):
+    """A launch of the fp32 forward that fails raises RuntimeError out of its
+    wrapper: nothing gives way to the forms bodies or the plain versions, and
+    nothing is counted."""
+    B, T, H, D, W = 1, 256, 2, 128, 64
+    q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, 1, D, torch.float32, True, cuda, seed=6)
+    entry = "f32x6_fwd" if frame == "flash" else "f32x6_halo_fwd"
+    kernel = fa._kernel
+    monkeypatch.setattr(fa, "_kernel", lambda name: (lambda *args: 719) if name == entry else kernel(name))
+    monkeypatch.setattr(ha, "_kernel", fa._kernel)
+    before = _f32x6_fwd_launches(), forms.forms_fwd.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        if frame == "flash":
+            fa.flash_fwd(q, k_rot, v, cos, sin, -1, D**-0.5)
+        else:
+            slab = torch.zeros((B, T + W, D), device=cuda)
+            ha.halo_fwd(q, slab, slab, W, 0, 2 * T, D**-0.5)
+    assert (_f32x6_fwd_launches(), forms.forms_fwd.launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shard", [0, 1, 3], ids=["first", "interior", "last"])
 @pytest.mark.parametrize("D", F32X6_DIMS)
 def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
     """The halo pair at fp32 through the halo wrappers (csrc/flash_f32x6.cuh's
-    kernels in the halo frame, the forms forward), with the slab rows outside
+    kernels in the halo frame, its forward too), with the slab rows outside
     the song set large, against the plain halo versions within the fp32
     bounds; the slab rows outside the song get exact zeros, an LSE off by
     0.05 lies above the bound, and no forms dq or dk/dv runs."""
@@ -1833,11 +1910,12 @@ def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
 @pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
 @pytest.mark.parametrize("D", F32X6_DIMS)
 def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope):
-    """The ring over two hops at fp32: the forms forward per hop and merge,
-    and csrc/flash_f32x6.cuh's pair adding into the travelling dk and dv (and
-    into one dq buffer) between the forms pre-pass and post-pass, against the
-    plain parts within the fp32 bounds; kernel sweeps that store in place of
-    adding lie above the bound."""
+    """The ring over two hops at fp32: csrc/flash_f32x6.cuh's forward per hop
+    and the forms merge, and csrc/flash_f32x6.cuh's pair adding into the
+    travelling dk and dv (and into one dq buffer) between the forms pre-pass
+    and post-pass, against the plain parts within the fp32 bounds (o, the LSE
+    and the gradients); kernel sweeps that store in place of adding, and a
+    merge that leaves out the second hop, lie above the bound."""
     from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_bwd, ring_fwd
 
     class StoringSweeps(KernelParts):  # planted fault: every hop's sweep stores its dk and dv
@@ -1860,12 +1938,20 @@ def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope)
         torch.cuda.synchronize()
         return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
 
-    before = _f32x6_launches(), _forms_launches()
+    class FirstHopOnly(KernelParts):  # planted fault: the merge keeps the first hop alone
+        @staticmethod
+        def merge(o_acc, lse_acc, o_j, lse_j, last):
+            return KernelParts.merge(o_acc, lse_acc, o_j, lse_j - 1e4 * (lse_acc is not None), last)
+
+    before = _f32x6_launches(), _forms_launches(), _f32x6_fwd_launches()
     got = run(None)
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n * n, n * n]
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n, n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [n * n, 0]
     ref = run(PlainParts)
-    stored = run(StoringSweeps)
+    stored, first_hop = run(StoringSweeps), run(FirstHopOnly)
+    assert _rel(got[0], ref[0]) < F32_REL_TOL < _rel(first_hop[0], ref[0])
+    assert (got[1] - ref[1]).abs().max().item() < F32_LSE_TOL
     for name, a, b in zip(("dq", "dk", "dv"), got[2:], ref[2:]):
         assert torch.isfinite(a).all() and _rel(a, b) < F32_REL_TOL, f"{name}: rel L2 {_rel(a, b)}"
     assert _rel(stored[4], ref[4]) > F32_REL_TOL

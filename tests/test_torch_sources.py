@@ -132,17 +132,18 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     """``FORMS_DISPATCH`` (csrc/flash_forms.cu) serves fp32, bf16 and fp16
     operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
     head dim above 256 that is a multiple of 64, for every type, at the
-    pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward keeps
-    only fp32 at D <= 256 (K1 takes bf16 and fp16 there); dq and dk/dv keep
-    no type at D <= 256 (csrc/flash_f32x6.cuh's pair takes fp32, K2's sweep
-    and the wgmma pair bf16 and fp16); each of the three keeps fp32's chunked
-    instance at every head dim above 256, and bf16's and fp16's only above
-    512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's kernels take D = 320 ... 512
-    at those types, so the dispatch keys those head dims apart)."""
+    pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward, dq
+    and dk/dv keep no type at D <= 256 (``FORMS_CHUNKS``: csrc/flash_f32x6.cuh's
+    forward and pair take fp32 there, K1, K2's sweep and the wgmma pair bf16
+    and fp16), and no D-templated forward body is left; each of the three
+    keeps fp32's chunked instance at every head dim above 256, and bf16's and
+    fp16's only above 512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's kernels
+    take D = 320 ... 512 at those types, so the dispatch keys those head dims
+    apart)."""
     text = _text("flash_forms.cu")
     dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_ABOVE")]
-    chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_FWD")]
-    lists = text[text.index("#define FORMS_FWD"):text.index("#define FORMS_DISPATCH")]
+    chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_CHUNKS")]
+    lists = text[text.index("#define FORMS_CHUNKS"):text.index("#define FORMS_DISPATCH")]
     dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_fwd')]
     for D in (64, 128, 192, 256):
         assert f"return CALL(TT, {D});" in dims
@@ -150,29 +151,27 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     assert "#define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)" in chunked
     assert "D > 512 ? 1 : D > 256 ? 0 : D" in dispatch
 
-    def named(macro: str) -> str:  # the instance list of one entry point's macro, the lists it names expanded
-        line = lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
-        return line + "".join(named(m) for m in re.findall(r"\b(FORMS_(?:FWD|SWEEPS))\b", line.split(" ", 2)[2]))
+    def named(macro: str) -> str:  # the instance list of one entry point's macro
+        return lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
 
-    every, fwd, sweeps = named("FORMS_EVERY"), named("FORMS_FWD"), named("FORMS_SWEEPS")
+    every, chunks = named("FORMS_EVERY"), named("FORMS_CHUNKS")
     entries = {e: text[text.index(f'extern "C" int {e}('):] for e in
                ("forms_fwd", "forms_bwd_prep", "forms_bwd_dq", "forms_bwd_dkv", "forms_bwd_post", "forms_ring_merge")}
     uses = {e: re.search(r"FORMS_DISPATCH\((\w+)\)", body).group(1) for e, body in entries.items()}
-    assert uses == {"forms_fwd": "FORMS_FWD", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_SWEEPS",
-                    "forms_bwd_dkv": "FORMS_SWEEPS", "forms_bwd_post": "FORMS_EVERY", "forms_ring_merge": "FORMS_EVERY"}
+    assert uses == {"forms_fwd": "FORMS_CHUNKS", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_CHUNKS",
+                    "forms_bwd_dkv": "FORMS_CHUNKS", "forms_bwd_post": "FORMS_EVERY", "forms_ring_merge": "FORMS_EVERY"}
+    assert "forms_fwd_kernel<" not in text and "FORMS_FWD" not in text and "FORMS_SWEEPS" not in text
     if instance == "chunked":
         for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
             assert f"{kernel}<" in text, f"{kernel} is never launched"
         for name in ("float", "__nv_bfloat16", "__half"):
             assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", every)
-            for listed in (fwd, sweeps):  # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512
-                assert bool(re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", listed)) == (name == "float")
-                assert bool(re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", listed)) == (name != "float")
+            # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512
+            assert bool(re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", chunks)) == (name == "float")
+            assert bool(re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", chunks)) == (name != "float")
         return
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
-    at_dims = lambda listed: bool(re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", listed))
-    assert at_dims(fwd) == (instance == "float")
-    assert not at_dims(sweeps)
+    assert not re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", chunks)
 
 
 # the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
@@ -255,25 +254,38 @@ def test_xwide_instances_are_built_for_sm_90a(entry):
 
 
 def test_f32x6_pair_is_built_for_sm_90a():
-    """The fp32 backward pair on the tensor cores (csrc/flash_f32x6.cuh) is
-    in the build table: a library of its own (``flash_f32x6``) built for
-    sm_90a from a source that includes the header, with its split, dq and
-    dk/dv entry points bound, the pair taking the xwide pair's arguments
-    (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s without the type code). The
-    header covers the head dims ``flash_forms.FORMS_HEAD_DIMS`` names, is
-    built on bf16 ``wgmma`` products from shared memory and from registers,
-    and has none of the pre-Hopper tokens."""
+    """The fp32 forward and backward pair on the tensor cores
+    (csrc/flash_f32x6.cuh) are in the build table: a library of their own
+    (``flash_f32x6``) built for sm_90a from a source that includes the
+    header, with its split, forward (one device and the halo frame), dq and
+    dk/dv entry points bound, the forward taking the xwide forward's
+    arguments (``flash_fwd_*``'s and ``halo_fwd_*``'s) and the pair the xwide
+    pair's (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s without the type
+    code). The header covers the head dims ``flash_forms.FORMS_HEAD_DIMS``
+    names, is built on bf16 ``wgmma`` products from shared memory and from
+    registers, and has none of the pre-Hopper tokens."""
     from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
     from osufusion_tpu_torch.ops.flash_forms import FORMS_HEAD_DIMS
 
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert "flash_f32x6.cuh" in _includes(SOURCES["flash_f32x6"].name)
     entries = {e for e, (lib, _) in _ENTRY_POINTS.items() if lib == "flash_f32x6"}
-    assert entries == {"f32x6_split", "f32x6_bwd_dq", "f32x6_bwd_dkv"}
+    assert entries == {"f32x6_split", "f32x6_fwd", "f32x6_halo_fwd", "f32x6_bwd_dq", "f32x6_bwd_dkv"}
+    assert _ENTRY_POINTS["f32x6_fwd"][1] == _ENTRY_POINTS["xwide_fwd_bf16"][1] == _ENTRY_POINTS["flash_fwd_bf16"][1]
+    assert _ENTRY_POINTS["f32x6_halo_fwd"][1] == _ENTRY_POINTS["xwide_halo_fwd_bf16"][1]
     assert _ENTRY_POINTS["f32x6_bwd_dq"][1] == _ENTRY_POINTS["xwide_bwd_dq_bf16"][1]
     assert _ENTRY_POINTS["f32x6_bwd_dkv"][1] == _ENTRY_POINTS["xwide_bwd_dkv_bf16"][1]
+    source = _text(SOURCES["flash_f32x6"].name)
+    for entry in ("f32x6_fwd", "f32x6_halo_fwd"):
+        body = source[source.index(f'extern "C" int {entry}('):]
+        assert "launch_x6_fwd(" in body[:body.index("\n}\n")]
     header = _text("flash_f32x6.cuh")
     assert "X6_MAX_D = 256;" in header and "D >= 64 && D <= X6_MAX_D && D % 64 == 0" in header
     assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
-    assert "wgmma_ss<64, 0, 0, E>" in header and "wgmma_rs_n64<1, E>" in header
+    assert "wgmma_ss<N, 0, 0, E>" in header and "wgmma_rs_n64<1, E>" in header  # S over N = 64 or 128 keys
     assert not [token for token in ("mma.sync", "ldmatrix", "cp.async.cg") if token in header]
+    for kernel in ("x6_fwd_kernel", "x6_dq_kernel", "x6_dkv_kernel"):
+        assert re.search(rf"__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(", header), kernel
+    # the forward's key tiles, as tests/test_torch_f32x6.py emulates them: 128 keys up to D = 128, 64 above
+    assert "X6_FWD_WIDE_MAX_D = 128;" in header and "const int keys = D <= X6_FWD_WIDE_MAX_D ? 128 : 64;" in header
+    assert "launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64>" in header and "launch_x6_fwd_tiles<64, X6_MAX_D / 64>" in header
