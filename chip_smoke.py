@@ -409,7 +409,7 @@ _TEMPLATE_ARG = r"Lb[01]E|Li\d+E|f|13__nv_bfloat16|6__half"
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name with its template arguments, from ptxas's mangled one."""
-    found = re.search(rf"([a-z][a-z_]*_kernel)(I(?:{_TEMPLATE_ARG})+E)?", mangled)
+    found = re.search(rf"((?:x6_)?[a-z][a-z_]*_kernel)(I(?:{_TEMPLATE_ARG})+E)?", mangled)
     if found is None:
         return mangled
     names = {"Lb0E": "false", "Lb1E": "true", "f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
