@@ -157,7 +157,8 @@ failure raises and the exit code is not 0:
     ``ops.attention.sdpa`` under a gradient, against fp32 plain autograd
     with a planted fault above the bound: fp16 at D = 64 ... 256, windowed
     (K1 forward, the fp16 wgmma pair backward, no forms kernel), and
-    fp32, bf16 and fp16 at D = 320 and 512 (fp32: the chunked instance;
+    fp32, bf16 and fp16 at D = 320 and 512 (fp32: the chunked forward and
+    csrc/flash_f32x6.cuh's pair, no chunked dq or dk/dv;
     bf16 and fp16: csrc/flash_xwide.cuh's forward and pair, no chunked
     launch, asserted); a D = 32
     site runs the XLA route (rope and the plain attention), launches no
@@ -242,7 +243,10 @@ failure raises and the exit code is not 0:
     Then the paths: a 60 s song served by a bf16 UNet at attn_dim_head=320
     (DPM-16, CFG 2.0) to a parsed ``.osz``, and (d)'s gradient check at
     bf16/320 and fp16/512 against fp32 plain; each runs only the new kernels
-    (and the forms pre-pass and post-pass), no chunked launch.
+    (and the forms pre-pass and post-pass), no chunked launch; and (d)'s
+    gradient check at fp32/320 (B=1): the forms chunked forward, then
+    csrc/flash_f32x6.cuh's dq and dk/dv (13 each, its instance above 256),
+    no chunked dq or dk/dv.
 27. fp32 on the tensor cores (``phase_f32x6_kernels``):
     ``csrc/flash_f32x6.cuh``'s forward, dq and dk/dv (six bf16 products per
     fp32 product) and its split at D = 64, 128, 192 and 256, at B=2, T=4096,
@@ -260,11 +264,18 @@ failure raises and the exit code is not 0:
     whose 384 tiles would drift one wgmma accumulator past the bound; the
     split bit for bit against its plain version. Their launches on the paths
     are phase 23 (a), (b) and (d)'s, the ring's hops and the halo frame
-    phase 23 (e)'s. Then the forms family's chunked instance at fp32
-    (``phase_f32_chunked_kernels``), which fp32 runs above D = 256: the
-    forward, dq with its pre-pass and post-pass, and dk/dv at D = 320 and
-    512 at the same site, checked and timed beside the FMA bound, the
-    six-product bound, the plain version and rope + SDPA.
+    phase 23 (e)'s. Then fp32 above head dim 256
+    (``phase_f32_wide_kernels``): csrc/flash_f32x6.cuh's dq and dk/dv at D =
+    320, 384, 448 and 512 at the same site (one piece of the resident rows in
+    shared memory, dk/dv's columns in two chunks), held to the same bounds
+    with planted faults above them (the last key tile left out; an LSE off by
+    LSE_FAULT) and timed beside the six-product bound, the plain version and
+    PyTorch's fp32 backward; at D = 320 and 512 also the windowed, grouped
+    and halo sites; the forms chunked forward (fp32's above 256) at D = 320
+    and 512, checked and timed beside its FMA bound; and the chunked
+    instance at D = 576, the first head dim that it serves at every type:
+    its forward, dq and dk/dv at fp32, bf16 and fp16, checked and timed once
+    each beside its bound and the PyTorch call.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -1216,8 +1227,8 @@ def _all_launches(fa, ha) -> tuple:
 
 # the forms instances of csrc/flash_forms.cu, (operand dtype, head dim): fp32, bf16 and fp16 at D = 64 ...
 # 256, each with the bodies it has (_forms_bodies); the main paths run fp32/64 (fp32 training and serving),
-# and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep. The chunked instance runs at fp32
-# above 256 (and at bf16 and fp16 above 512) and is held to plain through ``sdpa`` in (f).
+# and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep. The chunked forward runs at fp32
+# above 256 (and every chunked body at every type above 512) and is held to plain through ``sdpa`` in (f).
 FORMS_INSTANCES = [(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
 # the main instances that the shard forms (e) and the extra kernel-level sites run; fp16/64 runs on (h) and (d)
 FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
@@ -1227,12 +1238,12 @@ FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
 
 def _forms_bodies(dtype, D: int) -> tuple:
     """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one
-    above D = 512 and at fp32 above 256; below, the pre-pass, post-pass and merge (K1, K2's sweep, the wgmma
-    windowed pair and csrc/flash_xwide.cuh's kernels take the rest at bf16 and fp16, csrc/flash_f32x6.cuh's
-    forward and pair at fp32)."""
-    if D > 512 or (dtype == torch.float32 and D > 256):
+    above D = 512, the forward too at fp32 above 256; below, the pre-pass, post-pass and merge (K1, K2's sweep,
+    the wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest at bf16 and fp16,
+    csrc/flash_f32x6.cuh's forward up to 256 and pair up to 512 at fp32)."""
+    if D > 512:
         return FORMS_BODIES
-    return FORMS_BODIES[3:]
+    return FORMS_BODIES[:1] + FORMS_BODIES[3:] if dtype == torch.float32 and D > 256 else FORMS_BODIES[3:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
 # ~4096 * 2^-24 = 2.4e-4 relative, its typical error a few 1e-7. The planted faults (the last key tile
@@ -1468,8 +1479,9 @@ def phase_forms_kernels() -> dict:
 
 
 # (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the fp16 wgmma
-# pair's backward), and each operand dtype at head dims above 256 (fp32: the chunked instance; bf16 and fp16:
-# csrc/flash_xwide.cuh's forward and pair, no chunked launch); (dtype, D, window)
+# pair's backward), and each operand dtype at head dims above 256 (fp32: the chunked forward and
+# csrc/flash_f32x6.cuh's pair; bf16 and fp16: csrc/flash_xwide.cuh's forward and pair, no chunked launch);
+# (dtype, D, window)
 FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
                    + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
 # fp16 against fp32 plain on the same fp16 inputs: P and dS rounded to fp16 (2^-11 relative) where bf16 rounds
@@ -1481,7 +1493,8 @@ def phase_forms_raise() -> None:
     """(f) Every form that the JAX package runs runs a kernel on the card: through ``ops.attention.sdpa``
     under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the fp16 wgmma pair, K3a with
     its pre-pass and K3b, once each, and no forms kernel) and fp32, bf16 and fp16 at D = 320 and 512 (global:
-    fp32 the chunked instance's forward, pre-pass, dq, dk/dv and post-pass once each, no wgmma kernel; bf16
+    fp32 the chunked forward, then csrc/flash_f32x6.cuh's dq and dk/dv between the forms pre-pass and
+    post-pass once each, no chunked dq or dk/dv and no wgmma kernel; bf16
     and fp16 csrc/flash_xwide.cuh's forward, dq and dk/dv once each between the forms pre-pass and post-pass,
     counted as one K1 and one K2, and no launch of the chunked forward, dq or dk/dv) raise nothing,
     and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
@@ -1511,7 +1524,7 @@ def phase_forms_raise() -> None:
             raised.append((error.__name__, str(e)))
 
     def counts():
-        return _all_launches(fa, ha), _forms_counts(), _xwide_counts()
+        return _all_launches(fa, ha), _forms_counts(), _xwide_counts(), _x6_wide_counts()
 
     held = []
     for dt, D, window in FORMS_NEW_SITES:
@@ -1527,6 +1540,7 @@ def phase_forms_raise() -> None:
         moved = [a - b for a, b in zip(_all_launches(fa, ha), before[0])]
         runs = {name: n - before[1][name] for name, n in _forms_counts().items()}
         xwide = {name: n - before[2][name] for name, n in _xwide_counts().items()}
+        x6_wide = {name: n - before[3][name] for name, n in _x6_wide_counts().items()}
         ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         ref = fa.flash_attention_reference(*ref_leaves, w, rope)
         ref.backward(do.float())
@@ -1540,14 +1554,16 @@ def phase_forms_raise() -> None:
         fault_rel = _rel(fault, ref)
         name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
         held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
-                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}, flash_xwide {xwide}")
+                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}, flash_xwide {xwide}, flash_f32x6's wide pair "
+                    f"{x6_wide}")
         k1 = int(dt == torch.float16 and D <= 256)  # K1's forward, then the fp16 wgmma pair
         wide = int(dt != torch.float32 and D > 256)  # flash_xwide's forward (a K1 launch) and pair (a K2 launch)
-        chunked = 1 - k1 - wide
+        x6 = int(dt == torch.float32 and D > 256)  # the chunked forward, then flash_f32x6's pair
         if (moved != [k1 + wide, wide, k1, k1] + [0] * 7 or xwide != {"fwd": wide, "dq": wide, "dkv": wide}
-                or runs != {"fwd": chunked, "prep": chunked + wide, "dq": chunked, "dkv": chunked,
-                            "post": chunked + wide, "merge": 0}):
-            failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}, flash_xwide {xwide}")
+                or x6_wide != {"dq": x6, "dkv": x6}
+                or runs != {"fwd": x6, "prep": x6 + wide, "dq": 0, "dkv": 0, "post": x6 + wide, "merge": 0}):
+            failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}, flash_xwide {xwide}, "
+                            f"flash_f32x6's wide pair {x6_wide}")
         if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
             failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
         if not fault_rel > tol:
@@ -2467,12 +2483,13 @@ def phase_xwide_serve(workdir: Path) -> int:
     return expected
 
 
-def phase_xwide_paths(workdir: Path) -> dict:
+def phase_xwide_paths(workdir: Path) -> tuple[dict, dict]:
     """Phase 26, the main paths above head dim 256 through the port's entry points: (a) ``phase_xwide_serve``;
     (b) the gradient check of (d) (``phase_forms_grad_check``: the reduced dim_h=512 UNet, 13 global sites,
     here at B=1, T=4096, through the kernels against fp32 through the plain versions) at bf16/320 and
-    fp16/512. Returns flash_xwide's launches by (dtype, D, kernel): no forms forward, dq or dk/dv, and so no
-    chunked launch, asserted on every path."""
+    fp16/512, and at fp32/320. Returns flash_xwide's launches by (dtype, D, kernel): no forms forward, dq or
+    dk/dv, and so no chunked launch, asserted on every path; and csrc/flash_f32x6.cuh's wide dq's and dk/dv's
+    on the fp32/320 check ({"dq": n, "dkv": n}): 13 each, no chunked dq or dk/dv, asserted."""
     t_phase = time.perf_counter()
     launches = {(torch.bfloat16, 320, "fwd"): phase_xwide_serve(workdir)}
     for dtype, D in (("bfloat16", 320), ("float16", 512)):
@@ -2481,10 +2498,12 @@ def phase_xwide_paths(workdir: Path) -> dict:
         for kind, n in counts["xwide"].items():
             key = (getattr(torch, dtype), D, kind)
             launches[key] = launches.get(key, 0) + n
+    torch.cuda.empty_cache()
+    x6_wide = phase_forms_grad_check("float32", 320, B=1)["x6_wide"]
     _log(f"[xwide paths] flash_xwide launches on the paths: "
          + "; ".join(f"{_dtype_name(dt)}/{D} {kind} {n}" for (dt, D, kind), n in launches.items())
-         + f"; phase {time.perf_counter() - t_phase:.1f} s")
-    return launches
+         + f"; flash_f32x6's pair at fp32/320 {x6_wide}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, x6_wide
 
 
 def _xwide_json(records: dict, launches: dict) -> list:
@@ -2533,13 +2552,15 @@ def _x6_counts(reset: bool = False) -> dict:
     return {kind: getattr(owner, attr) for kind, (owner, attr) in counters.items()}
 
 
-def _x6_hold(where: str, got: tuple, refs: tuple, faults: tuple, failures: list) -> tuple[dict, str]:
+def _x6_hold(where: str, got: tuple, refs: tuple, faults: tuple, failures: list, *more_faults) -> tuple[dict, str]:
     """Hold (dq, dk, dv) to the plain fp32 ones within FORMS_F32_REL_TOL (relative L2) and FORMS_F32_ABS_TOL
-    (max abs as a share of the largest magnitude), and the planted faults (from an LSE off by LSE_FAULT)
-    above them. Returns (each kernel's largest error: {"dq": dq's, "dkv": dk's and dv's}, a log line)."""
+    (max abs as a share of the largest magnitude), and the planted faults (from an LSE off by LSE_FAULT, and
+    each of ``more_faults``: (dq, dk, dv) of another fault) above them, the nearest reported. Returns (each
+    kernel's largest error: {"dq": dq's, "dkv": dk's and dv's}, a log line)."""
     errors, parts = {"dq": 0.0, "dkv": 0.0}, []
-    for name, a, b, fault in zip(("dq", "dk", "dv"), got, refs, faults):
-        rel, err, top, fault_rel = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item(), _rel(fault, b)
+    for i, (name, a, b) in enumerate(zip(("dq", "dk", "dv"), got, refs)):
+        rel, err, top = _rel(a, b), (a.float() - b).abs().max().item(), b.abs().max().item()
+        fault_rel = min(_rel(fault[i], b) for fault in (faults, *more_faults))
         kind = "dq" if name == "dq" else "dkv"
         errors[kind] = max(errors[kind], err)
         parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e} of {top:.2f} (fault {fault_rel:.3e})")
@@ -2755,98 +2776,230 @@ def _x6_json(records: dict, launches: dict) -> list:
     return entries
 
 
-# the head dims at which fp32 runs the forms family's chunked instance (above 256), timed at the forms site
+# csrc/flash_f32x6.cuh's pair above head dim 256 (one piece of the resident rows in shared memory, dk/dv in two
+# column chunks), checked and timed at every head dim of XWIDE_DIMS at the forms site, and at X6_WIDE_CHECKED also
+# at the windowed and grouped sites of X6_SITES and the halo rank shape; the forms chunked forward, which fp32
+# still runs above 256, at X6_CHUNKED_DIMS; and the chunked instance at the first head dim that it serves at every
+# type (CHUNKED_FIRST_D), its forward, dq and dk/dv timed once each at fp32, bf16 and fp16
+X6_WIDE_CHECKED = (320, 512)
 X6_CHUNKED_DIMS = (320, 512)
+CHUNKED_FIRST_D = 576
 
 
-def phase_f32_chunked_kernels() -> dict:
-    """The forms family's chunked instance at fp32 (csrc/flash_forms.cu's forms_fwd_chunked_kernel,
-    forms_dq_chunked_kernel and forms_dkv_chunked_kernel on the FMA units), which fp32 runs at every head dim
-    above 256, at X6_CHUNKED_DIMS at the forms site (B=2, T=4096, H=16, global, tables) through the wrappers:
-    the forward with its LSE (``flash_fwd``), dq with the forms pre-pass and post-pass (``flash_bwd_dq``) and
-    dk/dv (``flash_bwd_dkv``), checked against the plain fp32 versions at the fp32 bounds with planted faults
-    (the last key tile left out; an LSE off by LSE_FAULT) and each timed by CUDA events (one call behind one
-    warm-up: the instance takes 0.1 to 1 s a call) beside its FMA bound, the six-product bound of
-    csrc/flash_f32x6.cuh's kernels, its plain version and the PyTorch call (``_library_ms``, both in the log).
-    Returns {D: {"fwd" | "dq" | "dkv": record}}, bound_ms the FMA bound (the instance's own arithmetic)."""
+def _x6_wide_counts() -> dict:
+    """The launch counters of csrc/flash_f32x6.cuh's pair above head dim 256."""
     from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops import flash_forms as forms
+
+    return {"dq": fa.f32x6_bwd_dq.wide_launches, "dkv": fa.f32x6_bwd_dkv.wide_launches}
+
+
+def _pair_flops_bytes(B: int, T: int, H: int, D: int, item: int) -> tuple[dict, dict]:
+    """The FLOP of one fp32 product (``utils/flops.py``) of the forward, dq and dk/dv at a global MQA site
+    (B, T, H, D), and the bytes each moves once: q and o, k and v, the LSE; the pair: qs and do (fp32; ``item``
+    bytes an element in the operands' type elsewhere), k and v, lse and delta, the dq buffer or dk and dv."""
     from osufusion_tpu_torch.utils.flops import attention_flops
+
+    rows, keys, stats = B * T * H * D, B * T * D, B * T * H * 4
+    flops = {"fwd": attention_flops("forward", B, T, H, D, None),
+             **{kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}}
+    nbytes = {"fwd": 2 * item * rows + 2 * item * keys + stats, "dq": 3 * item * rows + 2 * item * keys + 2 * stats,
+              "dkv": 2 * item * rows + 4 * item * keys + 2 * stats}
+    return flops, nbytes
+
+
+def _cut_pair(q, k_rot, v, o, lse, do, cos, sin):
+    """Planted fault of a global site's pair: the plain (dq, dk, dv) with the last key tile left out (its dk and
+    dv zeros)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+
+    kc, vc = k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE]
+    dk, dv = fa.flash_bwd_dkv_reference(q, kc, vc, o, lse, do, cos, sin, -1)
+    pad = torch.zeros((dk.shape[0], FAULT_TILE, *dk.shape[2:]), device="cuda")
+    return (fa.flash_bwd_dq_reference(q, kc, vc, o, lse, do, cos, sin, -1), torch.cat([dk, pad], dim=1),
+            torch.cat([dv, pad], dim=1))
+
+
+def phase_f32_wide_kernels() -> tuple[dict, dict]:
+    """fp32 above head dim 256: csrc/flash_f32x6.cuh's dq and dk/dv (six bf16 products per fp32 product, one
+    piece of the resident rows in shared memory, dk/dv's columns in two chunks) at XWIDE_DIMS at the forms site
+    (B=2, T=4096, H=16, global, tables) through the global backward, against the plain fp32 versions at the
+    fp32 bounds (FORMS_F32_REL_TOL relative L2, FORMS_F32_ABS_TOL of the largest magnitude) with planted faults
+    above them (the last key tile left out; an LSE off by LSE_FAULT), each kernel timed by CUDA events beside its
+    six-product bound, its plain version and PyTorch's fp32 backward (``_library_ms``: rope + SDPA, the faster of
+    ``enable_gqa`` and the memory-efficient route on K and V expanded; both in the log), and the pair as its
+    callers pay it (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus
+    ``flash_bwd_dkv``); at X6_WIDE_CHECKED also the windowed and grouped sites of X6_SITES and the halo rank
+    shape, checked only. The forms chunked forward (fp32's above 256) at X6_CHUNKED_DIMS, checked (the last key
+    tile left out) and timed beside its FMA bound; the chunked instance at CHUNKED_FIRST_D at fp32, bf16 and
+    fp16, its forward, dq with the forms pre-pass and post-pass, and dk/dv each held to the plain fp32 version
+    (``_forms_tols``) and timed once (it takes about half a second a call) beside its bound and the PyTorch
+    call. Returns ({D: {"dq" | "dkv": record}} of the pair, {(dtype, D): {"fwd" | "dq" | "dkv": record}} of the
+    chunked instance, bound_ms its own arithmetic's: fp32 on the FMA units, bf16 and fp16 at the tensor cores'
+    rate)."""
+    from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
 
     t_phase = time.perf_counter()
     B, T, H = FORMS_SITE
-    failures, records = [], {}
-    before = _forms_counts()
-    for i, D in enumerate(X6_CHUNKED_DIMS):
+    f32 = torch.float32
+    failures, records, chunked = [], {}, {}
+    before, forms_before = _x6_wide_counts(), _forms_counts()
+    for i, D in enumerate(XWIDE_DIMS):
         scale, where = D**-0.5, f"fp32/{D} B={B} T={T} H={H} global, tables"
-        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2700 + i, D, torch.float32)
-        o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
-        got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
-        fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
-        torch.cuda.synchronize()
-        fwd_err, fwd_line = _x6_fwd_hold(where, got, (o_ref, lse_ref), fault, failures)
-        o, lse = got
-        del got, fault
-        dq, prep = fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, scale)
-        dk, dv = fa.flash_bwd_dkv(k_rot, v, do, prep, -1)
-        torch.cuda.synchronize()
-
-        def plain(lse_in):
-            return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, -1),
-                    *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse_in, do, cos, sin, -1))
-
-        errors, bwd_line = _x6_hold(where, (dq, dk, dv), plain(lse), plain(lse + LSE_FAULT), failures)
-        errors["fwd"] = fwd_err
-        del dq, dk, dv
-        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 1),
-              "dq": _cuda_ms(lambda: fa.flash_bwd_dq(q, k_rot, v, o, lse, do, cos, sin, -1, scale), 1),
-              "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv(k_rot, v, do, prep, -1), 1)}
-        plain_ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
-                    "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
-                    "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1)}
-        del prep
+        q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2700 + i, D, f32)
+        o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+        flops, nbytes = _pair_flops_bytes(B, T, H, D, 4)
         lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
-        rows, keys, stats = B * T * H * D, B * T * D, B * T * H * 4
-        flops = {"fwd": attention_flops("forward", B, T, H, D, None),
-                 **{kind: attention_flops(f"backward_{kind}", B, T, H, D, None) for kind in ("dq", "dkv")}}
-        # q and o, k and v, the LSE; the pair: qs and do, k and v, lse and delta, the dq buffer, or dk and dv
-        nbytes = {"fwd": 8 * rows + 8 * keys + stats, "dq": 12 * rows + 8 * keys + 2 * stats,
-                  "dkv": 8 * rows + 16 * keys + 2 * stats}
-        fma = {kind: _forms_bound(flops[kind], nbytes[kind], torch.float32) for kind in ms}
-        six = {kind: _bound(6 * flops[kind], nbytes[kind])[0] for kind in ms}
-        library = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
-        records[D] = {kind: {"max_abs_err": errors[kind], "ms": ms[kind], "plain_ms": plain_ms[kind],
-                             "bound_ms": fma[kind][0], "bound_by": fma[kind][1], "library_ms": library[kind]}
+        if D in X6_CHUNKED_DIMS:  # the forms chunked forward, which fp32 runs above 256
+            got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+            fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
+            torch.cuda.synchronize()
+            fwd_err, fwd_line = _x6_fwd_hold(where, got, (o, lse), fault, failures)
+            del got, fault
+            ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 1)
+            plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1)
+            bound = _forms_bound(flops["fwd"], nbytes["fwd"], f32)
+            chunked[f32, D] = {"fwd": {"max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                                       "bound_by": bound[1], "library_ms": lib_fwd_ms}}
+            _log(f"[f32 wide] {where}, the forms chunked forward with its LSE: {fwd_line}; {ms:.3f} ms (FMA bound "
+                 f"{bound[0]:.3f}, {bound[0] / ms:.1%}; six-product bound {_bound(6 * flops['fwd'], nbytes['fwd'])[0]:.3f}; "
+                 f"plain {plain_ms:.3f}; the faster PyTorch call {lib_fwd_ms:.3f})")
+        got, refs, faults = _x6_backward(q, k_rot, v, o, lse, do, cos, sin, -1)
+        errors, line = _x6_hold(where, got, refs, faults, failures, _cut_pair(q, k_rot, v, o, lse, do, cos, sin))
+        _log(f"[f32 wide] {where}, through flash_bwd: {line}")
+        del got, refs, faults
+        prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, 1, scale)
+        dk_s, dv_s = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
+        ms = {"dq": _cuda_ms(lambda: fa.f32x6_bwd_dq(k_rot, v, prep, -1, None, False), 5),
+              "dkv": _cuda_ms(lambda: fa.f32x6_bwd_dkv(k_rot, v, prep, dk_s, dv_s, -1, None, False), 5)}
+        dq_ms, dkv_ms = _pair_ms(q, k_rot, v, do, cos, sin, -1)
+        plain = {"dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
+                 "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1)}
+        del prep, dk_s, dv_s
+        # the pair reads the pieces of qs and do (6 bytes an element each) and k and v in fp32
+        x6_bytes = {kind: nbytes[kind] + 4 * B * T * H * D for kind in ("dq", "dkv")}
+        bounds = {kind: _bound(6 * flops[kind], x6_bytes[kind]) for kind in ms}
+        records[D] = {kind: {"max_abs_err": errors[kind], "ms": ms[kind], "plain_ms": plain[kind],
+                             "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1], "library_ms": lib_bwd_ms}
                       for kind in ms}
-        _log(f"[f32 chunked] {where}: forward {fwd_line}; backward {bwd_line}")
-        _log(f"[f32 chunked] fp32/{D}: " + "; ".join(
-            f"{kind} {ms[kind]:.3f} ms (FMA bound {fma[kind][0]:.3f}, {fma[kind][0] / ms[kind]:.1%}; six-product bound "
-            f"{six[kind]:.3f}; plain {plain_ms[kind]:.3f})" for kind in ms)
-             + f" (dq with the forms pre-pass and post-pass); rope + SDPA at fp32: {lib_line}")
-        del q, k_rot, k, v, do, cos, sin, o, lse, o_ref, lse_ref
+        pair_bound = bounds["dq"][0] + bounds["dkv"][0]
+        _log(f"[f32 wide] fp32/{D}: dq kernel {ms['dq']:.3f} ms (six-product bound {bounds['dq'][0]:.3f} by "
+             f"{bounds['dq'][1]}, {bounds['dq'][0] / ms['dq']:.1%}; plain {plain['dq']:.3f}); dk/dv kernel "
+             f"{ms['dkv']:.3f} ms (bound {bounds['dkv'][0]:.3f}, {bounds['dkv'][0] / ms['dkv']:.1%}; plain "
+             f"{plain['dkv']:.3f}); the pair through its wrappers: dq with the forms pre-pass, the split and the "
+             f"post-pass {dq_ms:.3f} + dk/dv {dkv_ms:.3f} = {dq_ms + dkv_ms:.3f} ms (six-product bound {pair_bound:.3f}, "
+             f"{pair_bound / (dq_ms + dkv_ms):.1%}; {(dq_ms + dkv_ms) / lib_bwd_ms:.2f}x PyTorch's fp32 backward "
+             f"{lib_bwd_ms:.3f}); rope + SDPA at fp32: {lib_line}")
+        if D in X6_WIDE_CHECKED:
+            for j, (label, B_s, T_s, H_s, Kv, window, tables) in enumerate(X6_SITES):
+                q_s, kr_s, _, v_s, do_s, cos_s, sin_s = _attention_inputs(B_s, T_s, H_s, Kv, tables, 2750 + 10 * i + j,
+                                                                          D, f32)
+                o_s, lse_s = fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window)
+                where_s = (f"fp32/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
+                           + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
+                site_errors, line = _x6_hold(where_s, *_x6_backward(q_s, kr_s, v_s, o_s, lse_s, do_s, cos_s, sin_s,
+                                                                    window), failures)
+                _log(f"[f32 wide] {where_s}: {line}")
+                for kind, err in site_errors.items():
+                    records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
+                del q_s, kr_s, v_s, do_s, o_s, lse_s
+            B_h, T_h, H_h, W, n, shard = FORMS_HALO
+            g = torch.Generator(device="cuda").manual_seed(2790 + D)
+            q_h, do_h = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda") for _ in range(2))
+            k_h, v_h = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda") for _ in range(2))
+            frame = (shard * T_h, n * T_h)
+            o_h, lse_h = ha.halo_fwd_reference(q_h, k_h, v_h, W, *frame)
+            where_h = f"fp32/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard {shard + 1} of {n}"
+            site_errors, line = _x6_hold(where_h, *_x6_backward(q_h, k_h, v_h, o_h, lse_h, do_h, None, None, W, frame),
+                                         failures)
+            _log(f"[f32 wide] {where_h}: {line}")
+            for kind, err in site_errors.items():
+                records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
+            del q_h, do_h, k_h, v_h, o_h, lse_h
+        del q, k_rot, k, v, do, o, lse, cos, sin
         torch.cuda.empty_cache()
-    moved = {kind: n - before[kind] for kind, n in _forms_counts().items()}
-    if not (moved["fwd"] > 0 and moved["dq"] > 0 and moved["dkv"] > 0):
-        failures.append(f"the checks launched no chunked forward, dq or dk/dv: {moved}")
+    moved = {kind: n - before[kind] for kind, n in _x6_wide_counts().items()}
+    runs = {kind: n - forms_before[kind] for kind, n in _forms_counts().items()}
+    if not (all(moved.values()) and runs["fwd"] > 0 and runs["dq"] == runs["dkv"] == 0):
+        failures.append(f"the checks launched the wide pair {moved}, the forms kernels {runs}: want the pair and the "
+                        f"chunked forward, no chunked dq or dk/dv")
+    D = CHUNKED_FIRST_D
+    q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2800, D, f32)
+    o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    refs = (o, fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1),
+            *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1))
+    for dt in (f32, torch.bfloat16, torch.float16):
+        where, scale = f"{_dtype_name(dt)}/{D} B={B} T={T} H={H} global, tables", D**-0.5
+        ops = tuple(x.to(dt) for x in (q, k_rot, k, v, do))
+        qd, kd, _, vd, dod = ops
+        before = _forms_counts()
+        o_d, lse_d = fa.flash_fwd(qd, kd, vd, cos, sin, -1, scale, return_lse=True)
+        dq, prep = fa.flash_bwd_dq(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1, scale)
+        dk, dv = fa.flash_bwd_dkv(kd, vd, dod, prep, -1)
+        torch.cuda.synchronize()
+        runs = {kind: n - before[kind] for kind, n in _forms_counts().items()}
+        if runs != {"fwd": 1, "prep": 1, "dq": 1, "dkv": 1, "post": 1, "merge": 0}:
+            failures.append(f"{where}: forms launches {runs}, want the chunked instance once each")
+        tols = _forms_tols(dt)
+        errs, parts = {}, []
+        for kind, name, a, b, tol in zip(("fwd", "dq", "dkv", "dkv"), ("o", "dq", "dk", "dv"), (o_d, dq, dk, dv), refs,
+                                         (tols[0], tols[3], tols[3], tols[3])):
+            rel, err = _rel(a, b), (a.float() - b).abs().max().item()
+            errs[kind] = max(errs.get(kind, 0.0), err)
+            parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e}")
+            if not (rel < tol and torch.isfinite(a).all()):
+                failures.append(f"{where}: {name} rel L2 {rel:.3e} above {tol}")
+        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(qd, kd, vd, cos, sin, -1, scale, return_lse=True), 1),
+              "dq": _cuda_ms(lambda: fa.flash_bwd_dq(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1, scale), 1),
+              "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv(kd, vd, dod, prep, -1), 1)}
+        plain = ({"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(qd, kd, vd, cos, sin), 1),
+                  "dq": _cuda_ms(lambda: fa.flash_bwd_dq_reference(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1), 1),
+                  "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1), 1)})
+        lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(qd, ops[2], vd, dod, cos, sin)
+        flops, nbytes = _pair_flops_bytes(B, T, H, D, 4 if dt == f32 else 2)
+        bounds = {kind: _forms_bound(flops[kind], nbytes[kind], dt) for kind in ms}
+        chunked[dt, D] = {kind: {"max_abs_err": errs[kind], "ms": ms[kind], "plain_ms": plain[kind],
+                                 "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
+                                 "library_ms": lib_fwd_ms if kind == "fwd" else lib_bwd_ms} for kind in ms}
+        _log(f"[f32 wide] {where}, the forms chunked instance: " + "; ".join(parts) + "; " + "; ".join(
+            f"{kind} {ms[kind]:.3f} ms (bound {bounds[kind][0]:.3f}, {bounds[kind][0] / ms[kind]:.1%}; plain "
+            f"{plain[kind]:.3f})" for kind in ms) + f" (dq with the forms pre-pass and post-pass); rope + SDPA: "
+             f"{lib_line}; {(ms['dq'] + ms['dkv']) / lib_bwd_ms:.1f}x behind the backward, {ms['fwd'] / lib_fwd_ms:.1f}x "
+             f"behind the forward")
+        del ops, qd, kd, vd, dod, o_d, lse_d, dq, prep, dk, dv
+        torch.cuda.empty_cache()
+    del q, k_rot, k, v, do, cos, sin, o, lse, refs
+    torch.cuda.empty_cache()
     if failures:
-        raise AssertionError("fp32 chunked instance vs plain: " + "; ".join(failures))
-    _log(f"[f32 chunked] phase {time.perf_counter() - t_phase:.1f} s")
-    return records
+        raise AssertionError("fp32 above head dim 256 vs plain: " + "; ".join(failures))
+    _log(f"[f32 wide] phase {time.perf_counter() - t_phase:.1f} s")
+    return records, chunked
+
+
+def _x6_wide_json(records: dict, launches: dict) -> list:
+    """The kernels line's entries of csrc/flash_f32x6.cuh's pair above head dim 256 (``phase_f32_wide_kernels``'
+    records at the forms site) with their launches on phase 26's fp32/320 gradient check (one instance of each
+    kernel serves D = 320 ... 512, a run-time argument)."""
+    return [{"name": f"f32x6_wide_{kind}_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_f32x6.cu",
+             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{X6_REPLACES[kind]}",
+             "launches": launches.get(kind, 0) if D == 320 else 0, **rec}
+            for D, kinds in records.items() for kind, rec in kinds.items()]
 
 
 def _chunked_json(records: dict) -> list:
-    """The kernels line's entries of the chunked instance at fp32 (``phase_f32_chunked_kernels``); no main path
-    runs a head dim above 256 (phase 23 (f) runs it once a site at kernel level), so no launches."""
-    return [{"name": f"forms_{kind}_chunked_fp32_d{D}", "route": "cuda",
+    """The kernels line's entries of the chunked instance (``phase_f32_wide_kernels``): fp32's forward at D = 320
+    and 512, and every body at D = 576 at each type; no main path runs it (phase 23 (f) runs the fp32 forward
+    once a site at D = 320 and 512 under ``sdpa``), so no launches."""
+    return [{"name": f"forms_{kind}_chunked_{_dtype_name(dt)}_d{D}", "route": "cuda",
              "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
              "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[kind]}", "launches": 0, **rec}
-            for D, kinds in records.items() for kind, rec in kinds.items()]
+            for (dt, D), kinds in records.items() for kind, rec in kinds.items()]
 
 
 # the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables; and the head dims at which it times
 # them at fp32 too
 AB_SITES = (("forms site", *FORMS_SITE, -1, (64, 128, 256, 320, 512)),)
-AB_F32_DIMS = (64, 128, 192, 256)
+AB_F32_DIMS = (64, 128, 192, 256, 320, 512)
 
 
 def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
@@ -3130,11 +3283,15 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
     float32 through the plain versions on the card. fp32: csrc/flash_f32x6.cuh's forward (counted by
     ``flash_fwd``), dq and dk/dv and the forms pre-pass and post-pass a site (no forms forward, dq or dk/dv),
-    and no other wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site
+    and no other wgmma kernel; fp32 above D = 256 (phase 26): the forms chunked forward, then
+    csrc/flash_f32x6.cuh's dq and dk/dv (counted as its wide instance too) between the forms pre-pass and
+    post-pass a site, no chunked dq or dk/dv and no wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with
+    its LSE and K2 a site
     (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv; bf16 and fp16 above
     D = 256 (phase 26): the same, with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as
     K1 and K2). Returns the launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and
-    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_fwd", "x6_dq", "x6_dkv", "x6_split")."""
+    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_fwd", "x6_dq", "x6_dkv", "x6_split", and its wide
+    instance's as "x6_wide": {"dq": n, "dkv": n})."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -3170,8 +3327,10 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     _forms_counts(reset=True)
     _xwide_counts(reset=True)
     _x6_counts(reset=True)
+    wide_before = _x6_wide_counts()
     loss = run(model, net)
     counts, xwide, x6 = _forms_counts(), _xwide_counts(), _x6_counts()
+    x6_wide = {kind: n - wide_before[kind] for kind, n in _x6_wide_counts().items()}
     wgmma = [a - b for a, b in zip(_all_launches(fa, ha), hopper)]
     moved = any(wgmma)
     loss32 = run(model32, ref)
@@ -3186,16 +3345,22 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     _log(f"[forms grad check] {dtype} D={dim_head}, dim_h=512, 13 sites, B={B} T={T}: loss through the forms kernels "
          f"{loss:.6f}, fp32 plain {loss32:.6f} (rel {rel_loss:.3e}, bound {loss_tol}); gradient rel L2 {rel_all:.3e}, "
          f"attention projections alone {rel_attn:.3e} (bound {grad_tol}); forms launches {counts}; flash_xwide "
-         f"launches {xwide}; flash_f32x6 launches {x6}")
+         f"launches {xwide}; flash_f32x6 launches {x6}, of them above D = 256 {x6_wide}")
     if not (np.isfinite(loss) and torch.isfinite(g).all()):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: non-finite loss or gradient")
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
                              f"{rel_all:.3e}, attention {rel_attn:.3e}")
+    if f32 and dim_head > 256:  # the chunked forward, then csrc/flash_f32x6.cuh's pair (k and v split for each)
+        _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
+                            {"fwd": sites, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                            wgmma != [0] * 11 or x6_wide != {"dq": sites, "dkv": sites}
+                            or x6 != {"fwd": 0, "halo_fwd": 0, "dq": sites, "dkv": sites, "split": 6 * sites})
+        return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}, "x6_wide": x6_wide}
     if f32:  # csrc/flash_f32x6.cuh's forward and pair (k and v split for each, qs and do once), the forms helpers
         _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
                             {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
-                            wgmma != [sites] + [0] * 10
+                            wgmma != [sites] + [0] * 10 or any(x6_wide.values())
                             or x6 != {"fwd": sites, "halo_fwd": 0, "dq": sites, "dkv": sites, "split": 8 * sites})
         return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}}
     # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family; above D =
@@ -4739,11 +4904,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     x6_records = phase_f32x6_kernels()
     torch.cuda.empty_cache()
-    chunked_records = phase_f32_chunked_kernels()
+    x6_wide_records, chunked_records = phase_f32_wide_kernels()
     with tempfile.TemporaryDirectory() as tmp:
-        xwide_launches = phase_xwide_paths(Path(tmp))
-    if not all(n > 0 for n in xwide_launches.values()):
-        raise AssertionError(f"a flash_xwide kernel launched no time on the paths: {xwide_launches}")
+        xwide_launches, x6_wide_launches = phase_xwide_paths(Path(tmp))
+    if not all(n > 0 for n in (*xwide_launches.values(), *x6_wide_launches.values())):
+        raise AssertionError(f"a flash_xwide or wide flash_f32x6 kernel launched no time on the paths: "
+                             f"{xwide_launches}, {x6_wide_launches}")
     for B, T in ((2, 4096), (1, 16384)):
         torch.cuda.empty_cache()
         phase_grad_check(B, T)
@@ -4828,6 +4994,7 @@ def main() -> int:
         *_f16_pair_json(f16_pair_records, f16_pair_launches),
         *_xwide_json(xwide_records, xwide_launches),
         *_x6_json(x6_records, x6_launches),
+        *_x6_wide_json(x6_wide_records, x6_wide_launches),
         *_chunked_json(chunked_records),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

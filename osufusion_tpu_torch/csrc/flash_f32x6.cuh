@@ -1,11 +1,14 @@
-// fp32 flash attention on the tensor cores, for Hopper (sm_90a), at D = 64,
-// 128, 192 and 256: the forward and the backward pair (dq, dk/dv), every fp32
-// product as six bf16 wgmma products summed in fp32 (XLA's BF16_BF16_F32_X6),
-// in place of flash_forms.cu's FMA bodies (forms_fwd_kernel<float, D, ROPE>,
-// forms_dq_kernel<float, D>, forms_dkv_kernel<float, D>, all deleted). The
-// entry points are flash_f32x6.cu's.
+// fp32 flash attention on the tensor cores, for Hopper (sm_90a): the forward
+// at D = 64, 128, 192 and 256 and the backward pair (dq, dk/dv) at those and
+// at D = 320, 384, 448 and 512, every fp32 product as six bf16 wgmma products
+// summed in fp32 (XLA's BF16_BF16_F32_X6), in place of flash_forms.cu's FMA
+// bodies (forms_fwd_kernel<float, D, ROPE>, forms_dq_kernel<float, D>,
+// forms_dkv_kernel<float, D>, all deleted, and the chunked dq and dk/dv at fp32
+// above 256, forms_dq_chunked_kernel / forms_dkv_chunked_kernel<float>, no
+// longer built). The entry points are flash_f32x6.cu's.
 //
-// Replaces, at fp32 and those head dims, osufusion_tpu/ops/pallas_attention.py::
+// Replaces, at fp32 and those head dims (the forward up to 256),
+// osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
 //    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310):
 //    x6_fwd_kernel, windowed or global, MQA / GQA / full MHA (query head h
@@ -24,8 +27,9 @@
 // raw, and stages qs itself with the pre-pass's bits (below). dq_acc, dk and
 // dv are stored, or with `accumulate` added to (the ring's hops); the forms
 // post-pass scales and un-rotates dq, as for the FMA bodies. Every forward
-// and backward wrapper at fp32 and these head dims runs them: one device, the
-// ring's hops and sweeps, the windowed pair, the halo frame.
+// wrapper at fp32 up to D = 256, and every backward wrapper up to 512, runs
+// them: one device, the ring's hops and sweeps, the windowed pair, the halo
+// frame.
 //
 // The function is the FMA bodies' (flash_forms.cu at T = float):
 //   forward: o = softmax2(qs k^T) v,  lse2 = log2 sum exp2(qs k^T)
@@ -131,6 +135,34 @@
 //    so that neither takes registers beside them.
 //  * Masks as in flash_xwide.cuh: only a tile at the window's edge or past
 //    the keys that exist ([kf.lo, kf.hi)) is masked.
+// Above D = 256 (x6_res: RES = 1 in place of 2, the same bodies):
+//  * Shared memory. Two pieces of two resident operands take 4 D / 64 atoms,
+//    160-256 KB: only piece 0 stays (80 / 96 / 112 / 128 KB at D = 320 / 384
+//    / 448 / 512), and piece 1 (X1) streams through the ring too, after Y1
+//    (x6_feed_dots). It is read by the group of Y1 and by that of Y0, so the
+//    first group peeks at it and the second takes it (X6Take::peek): at most
+//    four atoms stay held, and the rings get 8 / 7 / 6 / 5 slots each.
+//  * Registers: dQ takes up to X6_DQ_WIDE_ATOMS = 4 atoms a warpgroup (S or
+//    dP 32 + fragments 48 + 128); dK and dV keep 4 atoms a warpgroup (five
+//    spilled 2288 bytes), so the grid's z axis splits their columns in two
+//    chunks (3 + 2, 3 + 3, 4 + 3, 4 + 4 atoms), each chunk's block computing
+//    S^T and dP^T again: at most 2 / 3 of the bound.
+//  * Traffic. A block streams each tile's pieces from L2: dq 13 D / 64 atoms
+//    of 8 KB a 64-key tile (k three times a product, v, X1 and X2 of qs and
+//    do), dk/dv 10 D / 64 + 6 n a 64-row tile, about 4.5 TB/s across the card
+//    at the speed the tensor cores would allow, near what L2 gives. So the two
+//    blocks that read the same atoms are a cluster (x6_cluster_sync, the
+//    launches' cluster dimension) and each such atom is loaded once into both
+//    by TMA multicast, the two producers taking turns: in dq two neighbouring
+//    64-row blocks, which share the keys' pieces (9 D / 64 of the 13; the pair
+//    sweeps the union of the keys either block's rows see, a tile that its own
+//    rows do not see masked whole, and a block past the last rows reads no
+//    scratch); in dk/dv the two column chunks of a key block, which share every
+//    atom of S^T and dP^T (10 D / 64; the smaller chunk streams its last atom
+//    again, unread, to keep the rings in step). Each slot then waits for both
+//    blocks' consuming warps (an empty barrier of 8 arrivals, half of them
+//    from the other block, X6Take::release), and neither block leaves before
+//    the other is done with its slots.
 //
 // C ABI (loaded with ctypes): f32x6_fwd and f32x6_halo_fwd take
 // flash_xwide.cu's xwide_fwd_bf16's and xwide_halo_fwd_bf16's arguments (q
@@ -138,8 +170,9 @@
 // flash_forms.cu's forms_bwd_dq's and forms_bwd_dkv's arguments without the
 // type code (the head dim first; k, v, qs_g and do_rows as their pieces);
 // each returns a cudaError_t (cudaErrorInvalidValue for a head dim outside 64
-// ... 256 or not a multiple of 64), or minus the CUresult of a TMA descriptor
-// that failed to encode; f32x6_split writes the pieces.
+// ... 256, the pair's outside 64 ... 512, or not a multiple of 64), or minus
+// the CUresult of a TMA descriptor that failed to encode; f32x6_split writes
+// the pieces (D = 64 ... 512).
 //
 // Everything sits in an unnamed namespace, so each library gets its own copy.
 
@@ -149,9 +182,14 @@
 
 namespace {
 
-constexpr int X6_MAX_D = 256;
-constexpr int X6_DQ_ATOMS = 2;   // dq atoms of either warpgroup at most
-constexpr int X6_DKV_ATOMS = 4;  // dk (and dv) atoms of a block: every atom up to X6_MAX_D
+constexpr int X6_MAX_D = 256;       // the forward's widest head dim, and the pair's with two resident pieces
+constexpr int X6_PAIR_MAX_D = 512;  // the pair's widest
+// dq atoms of either warpgroup at most: up to X6_MAX_D, and above it (where four atoms of dQ stand in registers
+// beside S and the fragments: 128 + 32 + 48)
+constexpr int X6_DQ_ATOMS = 2, X6_DQ_WIDE_ATOMS = 4;
+// dk (and dv) atoms of a block: every atom up to X6_MAX_D; above it the grid's z axis splits them in chunks of
+// at most this many (two chunks at D = 320 ... 512), each block recomputing S^T and dP^T
+constexpr int X6_DKV_ATOMS = 4;
 // the forward's tiles: 128 keys up to X6_FWD_WIDE_MAX_D (two atoms of O in warpgroup 1 beside P's fragments of
 // 128 keys), 64 above (four atoms of O)
 constexpr int X6_FWD_WIDE_MAX_D = 128;
@@ -236,6 +274,59 @@ __device__ __forceinline__ void x6_put2(float* p, float x, float y, bool store) 
   }
 }
 
+// ---- two-block clusters ----
+
+__device__ __forceinline__ uint32_t x6_cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// every thread of both blocks of the cluster: the barriers initialised (or the last remote access done)
+__device__ __forceinline__ void x6_cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address in the cluster's shared window of the shared-memory address `addr` of block `cta`
+__device__ __forceinline__ uint32_t x6_mapa(uint32_t addr, uint32_t cta) {
+  uint32_t mapped;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(mapped) : "r"(addr), "r"(cta));
+  return mapped;
+}
+
+// arrive on the barrier at `bar`, an address in the cluster's shared window (x6_mapa)
+__device__ __forceinline__ void x6_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// tma_load_3d / tma_load_4d into dst's offset in every block of the cluster that `mask` names, each completing
+// on the barrier at bar's offset in its block
+__device__ __forceinline__ void x6_tma_load_3d_mc(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                  int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%4, "
+      "%5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void x6_tma_load_4d_mc(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                  int c2, int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%4, "
+      "%5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a ring's barriers, each slot's empty barrier waiting for the warps of `blocks` blocks' consuming warpgroups
+__device__ __forceinline__ void x6_init_ring(const XwRing& r, int blocks) {
+  for (int s = 0; s < r.n; ++s) {
+    mbar_init(&r.full[s], 1);
+    mbar_init(&r.empty[s], 4 * blocks);
+  }
+}
+
 // arrive on named barrier `id` without waiting (the other side syncs on it)
 __device__ __forceinline__ void x6_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -246,15 +337,28 @@ __device__ __forceinline__ void x6_bar_arrive(int id, int count) {
 // A warpgroup takes the atoms of its ring in order, a product group reading
 // the atoms taken since the last issued(); a group's atoms go back to the
 // producer together, once the group after it is issued and it is done (two
-// groups in flight, at most four atoms held)
+// groups in flight, at most four atoms held). With CLUSTER they go back to the
+// producers of both blocks of a two-block cluster, which fill the slots of
+// both: `remote` is the other block's empty barriers' address in the cluster
+template <bool CLUSTER = false>
 struct X6Take {
   XwRing r;
   int lane;
+  uint32_t remote = 0;
   XwPos at;
   XwPos first;      // the first atom of the group being taken
   int taking = 0;   // its atoms so far
   XwPos held_at;    // the first atom of the last group issued, not yet released
   int held = 0;     // its atoms; 0: none
+  __device__ __forceinline__ X6Take(const XwRing& ring, int lane_) : r(ring), lane(lane_) {
+    if (CLUSTER) remote = x6_mapa(smem_u32(r.empty), x6_cluster_rank() ^ 1);
+  }
+  // the atom after the last taken, once it has arrived, without taking it: the next group takes it, so that
+  // it goes back to the producer with that group (the resident rows' piece 1 above X6_MAX_D, read by two groups)
+  __device__ __forceinline__ const void* peek() {
+    mbar_wait(&r.full[at.st], at.phase);
+    return r.slots + at.st * r.bytes;
+  }
   // the next atom, once it has arrived
   __device__ __forceinline__ const void* take() {
     if (taking++ == 0) first = at;
@@ -280,11 +384,19 @@ struct X6Take {
     if (held > 0) release(held_at, held);
     held = 0;
   }
+  // the next k atoms taken and released unread (a stream padded to keep step with the other block's)
+  __device__ __forceinline__ void skip(int k) {
+    drain();
+    for (int i = 0; i < k; ++i) take();
+    issued();
+    drain();
+  }
   __device__ __forceinline__ void release(XwPos p, int n) {
     __syncwarp();
     if (lane == 0)
       for (int i = 0; i < n; ++i) {
         mbar_arrive(&r.empty[p.st]);
+        if (CLUSTER) x6_arrive_cluster(remote + 8 * p.st);
         p.advance(r.n);
       }
   }
@@ -292,13 +404,16 @@ struct X6Take {
 
 // The producer's order of one product's stream per atom a, the same for
 // every product of a resident X and a streamed Y (X6Take's groups): Y2[a],
-// Y1[a], X2[a], Y0[a]. y(dst, bar, piece, a) and x2(dst, bar, a) load one atom.
-template <typename LoadY, typename LoadX2>
-__device__ __forceinline__ void x6_feed_dots(XwFeed& feed, int A, LoadY y, LoadX2 x2) {
+// Y1[a], X2[a], Y0[a] with RES = 2 of X's pieces resident; with RES = 1 X1[a]
+// too, after Y1[a]. y(dst, bar, piece, a) and x(dst, bar, piece, a) load one
+// atom.
+template <int RES, typename LoadY, typename LoadX>
+__device__ __forceinline__ void x6_feed_dots(XwFeed& feed, int A, LoadY y, LoadX x) {
   for (int a = 0; a < A; ++a) {
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 2, a); });
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 1, a); });
-    feed.push([&](void* dst, uint64_t* bar) { x2(dst, bar, a); });
+    if (RES == 1) feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 1, a); });
+    feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 2, a); });
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 0, a); });
   }
 }
@@ -312,28 +427,33 @@ __device__ __forceinline__ void x6_feed_outer(XwFeed& feed, int c0, int c1, Load
 
 // S (64 x N, fp32; N = 64 or 128 rows of Y) = sum over the A atoms of X_a
 // Y_a^T in six products,
-// both K-major: X's pieces 0 and 1 resident (piece i of atom a at x01 + (i A
+// both K-major: X's first RES pieces resident (piece i of atom a at x01 + (i A
 // + a) XW_ATOM), Y's three pieces from the ring in x6_feed_dots' order, and
 // X's piece 2 of atom a where x2(a) says, taken just before Y0[a]: from the
-// ring in the pair (x6_feed_dots' X2), resident in the forward
-template <int N = 64, typename PieceX2>
-__device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, X6Take& rd,
+// ring in the pair (x6_feed_dots' X2), resident in the forward. With RES = 1
+// X's piece 1 comes from the ring too: read by the group of Y1 and by that of
+// Y0, it is peeked by the first and taken by the second, so that it stays
+// until both are done
+template <int N = 64, int RES = 2, typename Take, typename PieceX2>
+__device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, Take& rd,
                                         PieceX2 x2_of) {
   using E = __nv_bfloat16;
   for (int a = 0; a < A; ++a) {
-    const uint64_t x0 = desc_kmajor(x01 + a * XW_ATOM), x1 = desc_kmajor(x01 + (A + a) * XW_ATOM);
+    const uint64_t x0 = desc_kmajor(x01 + a * XW_ATOM);
     const uint64_t y2 = desc_kmajor(rd.take());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y2 + 2 * kk, a > 0 || kk > 0);
     wgmma_commit();
     rd.issued();
     const uint64_t y1 = desc_kmajor(rd.take());
+    const uint64_t x1 = desc_kmajor(RES == 2 ? x01 + (A + a) * XW_ATOM : rd.peek());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y1 + 2 * kk, 1);
     wgmma_commit();
     rd.issued();
+    if (RES == 1) rd.take();  // X1[a], peeked above: this group releases it
     const uint64_t x2 = desc_kmajor(x2_of(a)), y0 = desc_kmajor(rd.take());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
@@ -350,8 +470,8 @@ __device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* 
 // of the N atoms in six products: X (64 x 16 F) as its three pieces'
 // fragments, Y_i's pieces (16 F rows of 64 columns) from the ring in
 // x6_feed_outer's order, read MN-major (their rows are the reduction)
-template <int N, int F>
-__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][F][4], int n, X6Take& rd) {
+template <int N, int F, typename Take>
+__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][F][4], int n, Take& rd) {
   using E = __nv_bfloat16;
   constexpr uint64_t K_STEP = 16 * 128 >> 4;
 #pragma unroll
@@ -382,17 +502,26 @@ __device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f
   }
 }
 
-// the shared memory before the two rings at A = D / 64 atoms: pieces 0 and 1
-// of the two resident operands, the fp32 hand-over buffer, the barriers
-__host__ __device__ constexpr int x6_fixed(int A) { return xw_align(4 * A * XW_ATOM_BYTES + 32 * 128 * 4 + XW_BARS); }
-static_assert(xw_slots(x6_fixed(X6_MAX_D / 64)) >= 5, "each ring keeps a group loading beside four held atoms");
-static_assert(X6_MAX_D / 64 <= 2 * X6_DQ_ATOMS && X6_MAX_D / 64 <= X6_DKV_ATOMS, "one block keeps every column");
+// the shared memory before the two rings at A = D / 64 atoms: the first RES
+// pieces of the two resident operands, the fp32 hand-over buffer, the barriers
+__host__ __device__ constexpr int x6_fixed(int A, int RES) {
+  return xw_align(2 * RES * A * XW_ATOM_BYTES + 32 * 128 * 4 + XW_BARS);
+}
+// the resident pieces at a head dim: two up to X6_MAX_D, one above
+__host__ __device__ constexpr int x6_res(int D) { return D <= X6_MAX_D ? 2 : 1; }
+static_assert(xw_slots(x6_fixed(X6_MAX_D / 64, 2)) >= 5 && xw_slots(x6_fixed(X6_PAIR_MAX_D / 64, 1)) >= 5,
+              "each ring keeps a group loading beside four held atoms");
+static_assert(X6_MAX_D / 64 <= 2 * X6_DQ_ATOMS && X6_PAIR_MAX_D / 64 <= 2 * X6_DQ_WIDE_ATOMS &&
+                  X6_MAX_D / 64 <= X6_DKV_ATOMS && X6_PAIR_MAX_D / 64 <= 2 * X6_DKV_ATOMS,
+              "dq keeps every column in one block, dk/dv in at most two chunks");
 
 // ---- dq ----
 
 // dq_acc (group-major, fp32) (+)= ds k for the block's 64 group rows over
 // the keys they see. grid (pad / 64, B * Kv). kmap / vmap: the pieces of k
 // and v (B, S, Kv, 3 D); qmap / domap: those of qs and do (B * Kv, rows, 3 D).
+// RES (x6_res): the pieces of qs and do that stay in shared memory.
+template <int RES>
 __global__ void __launch_bounds__(XW_THREADS, 1)
 x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
              const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
@@ -401,16 +530,22 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   using E = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
+  constexpr int DQA = RES == 2 ? X6_DQ_ATOMS : X6_DQ_WIDE_ATOMS;
   const int A = D / 64;
-  E* Qs = reinterpret_cast<E*>(smem);  // [2 pieces][A][64][64] qs
-  E* Os = Qs + 2 * A * XW_ATOM;        // [2][A][64][64] do
-  float* xp = reinterpret_cast<float*>(Os + 2 * A * XW_ATOM);  // [32][128] P, then dS, fp32
+  E* Qs = reinterpret_cast<E*>(smem);  // [RES pieces][A][64][64] qs
+  E* Os = Qs + RES * A * XW_ATOM;      // [RES][A][64][64] do
+  float* xp = reinterpret_cast<float*>(Os + RES * A * XW_ATOM);  // [32][128] P, then dS, fp32
   uint64_t* bars = reinterpret_cast<uint64_t*>(xp + 32 * 128);
-  unsigned char* rings = smem + x6_fixed(A);
+  unsigned char* rings = smem + x6_fixed(A, RES);
   const XwRing ring0 = xw_ring(rings, bars, slots);
   const XwRing ring1 = xw_ring(rings + slots * XW_ATOM_BYTES, bars + 2 * XW_MAX_SLOTS, slots);
   uint64_t* row_bar = bars + 4 * XW_MAX_SLOTS;
 
+  // above X6_MAX_D two neighbouring row blocks are a cluster, which sweeps the keys that either block's rows see
+  // (a tile that the block's own rows do not see is masked whole) and whose producers load every atom of the keys
+  // (k and v, which both read) once into both blocks, in turn; the grid's x axis is then even, and a block past
+  // the last rows reads no scratch and writes nothing
+  constexpr bool MC = RES == 1;
   const size_t grp = blockIdx.y;
   const int b = grp / Kv, kv = grp % Kv;
   const int G = H / Kv, rows = T * G;
@@ -418,25 +553,30 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const bool local = window >= 0;
   const int w2 = window / 2;
   const int t_lo = r0 / G, t_hi = (min(r0 + XW_ROWS, rows) - 1) / G;
-  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);
+  const int c0 = MC ? (blockIdx.x & ~1) * XW_ROWS : r0;  // the cluster's first row
+  const KeySpan span =
+      keys_seen(kf, local, w2, c0 / G, (min(c0 + (MC ? 2 : 1) * XW_ROWS, rows) - 1) / G);
   const int kv_lo = span.lo;
   const int n_tiles = (span.hi - kv_lo + XW_ROWS - 1) / XW_ROWS;
   const int n0 = A - A / 2, n1 = A / 2;  // dq atoms of warpgroup 0 (the first), 1 (the rest)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    xw_init_ring(ring0);
-    xw_init_ring(ring1);
+    x6_init_ring(ring0, MC ? 2 : 1);
+    x6_init_ring(ring1, MC ? 2 : 1);
     mbar_init(row_bar, 1);
     fence_barrier_init();
   }
-  __syncthreads();
+  if (MC)
+    x6_cluster_sync();  // the other block's barriers are initialised before its loads and arrivals reach them
+  else
+    __syncthreads();
 
   if (warp >= 8) {  // the producer warpgroup: warp 8 loads the rows and feeds ring 0, warp 9 ring 1
     setmaxnreg_dec<XW_PRODUCER_REGS>();
     if (lane == 0 && warp == 8) {
-      mbar_expect_tx(row_bar, 4 * A * XW_ATOM_BYTES);
-      for (int i = 0; i < 2; ++i)
+      mbar_expect_tx(row_bar, 2 * RES * A * XW_ATOM_BYTES);
+      for (int i = 0; i < RES; ++i)
         for (int a = 0; a < A; ++a) {  // rows past T*G arrive as zeros
           tma_load_3d(Qs + (i * A + a) * XW_ATOM, &qmap, row_bar, i * D + 64 * a, r0, (int)grp);
           tma_load_3d(Os + (i * A + a) * XW_ATOM, &domap, row_bar, i * D + 64 * a, r0, (int)grp);
@@ -444,21 +584,31 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     }
     if (lane == 0 && warp < 10) {
       XwFeed feed{warp == 8 ? ring0 : ring1};
-      const CUtensorMap* rows_map = warp == 8 ? &qmap : &domap;  // X2 of S (qs) or of dP (do)
+      const int rank = MC ? (int)x6_cluster_rank() : 0;  // with MC, this block's turn among the shared loads
+      const CUtensorMap* rows_map = warp == 8 ? &qmap : &domap;  // X1 and X2 of S (qs) or of dP (do)
       const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // Y of S (k) or of dP (v)
       for (int it = 0; it < n_tiles; ++it) {
         const int s0 = kv_lo + it * XW_ROWS;  // keys past S arrive as zeros
-        auto keys = [&](const CUtensorMap* map) {
-          return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b); };
+        auto keys = [&](const CUtensorMap* map) {  // with MC each atom is multicast by block (piece + atom) % 2
+          return [=](void* dst, uint64_t* bar, int p, int a) {
+            if (!MC)
+              tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b);
+            else if (((p + a) & 1) == rank)
+              x6_tma_load_4d_mc(dst, map, bar, p * D + 64 * a, kv, s0, b, 3);
+          };
         };
-        x6_feed_dots(feed, A, keys(keys_map), [&](void* dst, uint64_t* bar, int a) {
-          tma_load_3d(dst, rows_map, bar, 2 * D + 64 * a, r0, (int)grp);
+        x6_feed_dots<RES>(feed, A, keys(keys_map), [&](void* dst, uint64_t* bar, int p, int a) {
+          tma_load_3d(dst, rows_map, bar, p * D + 64 * a, r0, (int)grp);
         });
         if (warp == 8)
           x6_feed_outer(feed, 0, n0, keys(&kmap));  // warpgroup 0's dQ += dS K
         else
           x6_feed_outer(feed, n0, A, keys(&kmap));  // warpgroup 1's
       }
+    }
+    if (MC) {
+      __syncwarp();
+      x6_cluster_sync();  // the other block is done with this one's barriers and slots
     }
     return;
   }
@@ -467,17 +617,18 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const int g = lane >> 2, tq = lane & 3;
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
-  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  X6Take<MC> rd(wg == 0 ? ring0 : ring1, lane);
   auto from_ring = [&](int) { return rd.take(); };  // the resident rows' third piece
   float s[32];            // warpgroup 0: S, then P; 1: dP, then dS
   uint32_t f[3][4][4];    // dS's pieces, the A operand of dQ += dS K
-  float acc[X6_DQ_ATOMS][32];
+  float acc[DQA][32];
   xw_zero(acc);
   const int mine = wg == 0 ? n0 : n1, first = wg == 0 ? 0 : n0;
   // the rows' LSE (warpgroup 0) or delta (1) (the scratch is padded to whole tiles, a pad row has +inf and 0),
   // and the keys each row sees
   const float* stat = (wg == 0 ? lse_g : delta_g) + grp * pad;
-  const float st[2] = {stat[row_a], stat[row_b]};
+  const float none = wg == 0 ? INFINITY : 0.f;  // a row past the scratch (a cluster's block past the last rows)
+  const float st[2] = {row_a < pad ? stat[row_a] : none, row_b < pad ? stat[row_b] : none};
   int vis_lo[2], vis_n[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -494,7 +645,7 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     for (int it = it0; it < it1; ++it) {
       reg_fence(s);
       wgmma_fence();
-      x6_dots(s, wg == 0 ? Qs : Os, A, rd, from_ring);  // S = qs K^T (warpgroup 0) or dP = do V^T (1)
+      x6_dots<64, RES>(s, wg == 0 ? Qs : Os, A, rd, from_ring);  // S = qs K^T (warpgroup 0) or dP = do V^T (1)
       rd.drain();
       reg_fence(s);
       xw_fence(acc);
@@ -530,14 +681,14 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
       x6_frags(f, s);
       x6_fence(f);
       wgmma_fence();
-      x6_outer<X6_DQ_ATOMS>(acc, f, mine, rd);  // dQ += dS K over the warpgroup's atoms
+      x6_outer<DQA>(acc, f, mine, rd);  // dQ += dS K over the warpgroup's atoms
     }
     // the warpgroup's atoms of the rows' dq (no scale: the forms post-pass applies it) go to dq_acc, stored the
     // first time unless accumulating, added after; acc starts again from zero
     rd.drain();
     xw_fence(acc);
 #pragma unroll
-    for (int i = 0; i < X6_DQ_ATOMS; ++i)
+    for (int i = 0; i < DQA; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = h == 0 ? row_a : row_b;
@@ -552,13 +703,17 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     xw_zero(acc);
     xw_fence(acc);
   }
+  if (MC) x6_cluster_sync();  // the other block is done with this one's barriers and slots
 }
 
 // ---- dk/dv ----
 
-// dk, dv (B, S, Kv, D) fp32 (+)= ln(2) ds^T qs, p^T do over the group rows
-// that see the block's 64 keys; keys outside [kf.lo, kf.hi) get zeros. grid
-// (ceil(S / 64), B * Kv). Maps as x6_dq_kernel's.
+// dk, dv (B, S, Kv, D) fp32, columns of the block's chunk, (+)= ln(2) ds^T
+// qs, p^T do over the group rows that see the block's 64 keys; keys outside
+// [kf.lo, kf.hi) get zeros. grid (ceil(S / 64), B * Kv, ceil(A /
+// X6_DKV_ATOMS)). Maps as x6_dq_kernel's; RES the pieces of k and v that stay
+// in shared memory.
+template <int RES>
 __global__ void __launch_bounds__(XW_THREADS, 1)
 x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
               const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
@@ -569,11 +724,11 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int A = D / 64;
-  E* Ks = reinterpret_cast<E*>(smem);  // [2 pieces][A][64][64] k of the block's keys
-  E* Vs = Ks + 2 * A * XW_ATOM;        // [2][A][64][64] v
-  float* xp = reinterpret_cast<float*>(Vs + 2 * A * XW_ATOM);  // [32][128] P^T, fp32
+  E* Ks = reinterpret_cast<E*>(smem);  // [RES pieces][A][64][64] k of the block's keys
+  E* Vs = Ks + RES * A * XW_ATOM;      // [RES][A][64][64] v
+  float* xp = reinterpret_cast<float*>(Vs + RES * A * XW_ATOM);  // [32][128] P^T, fp32
   uint64_t* bars = reinterpret_cast<uint64_t*>(xp + 32 * 128);
-  unsigned char* rings = smem + x6_fixed(A);
+  unsigned char* rings = smem + x6_fixed(A, RES);
   const XwRing ring0 = xw_ring(rings, bars, slots);
   const XwRing ring1 = xw_ring(rings + slots * XW_ATOM_BYTES, bars + 2 * XW_MAX_SLOTS, slots);
   uint64_t* kv_bar = bars + 4 * XW_MAX_SLOTS;
@@ -584,6 +739,11 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int s0 = blockIdx.x * XW_ROWS;
   const bool local = window >= 0;
   const int w2 = window / 2;
+  // above X6_MAX_D the two column chunks of the block's keys are a cluster, whose producers load every atom that
+  // both read (the tile's pieces of qs and do, and those of the keys' k and v) once into both blocks, in turn
+  constexpr bool MC = RES == 1;
+  const XwChunk ch = xw_chunk(A);
+  const int n = ch.c1 - ch.c0;  // dk and dv atoms of the block
   // the block's keys that exist, [k_lo, k_hi], and the group rows whose window reaches them, [row_lo, row_hi),
   // from a whole tile on (the rows before the window are masked); no tile for a block with no key inside
   const int s_last = min(S, s0 + XW_ROWS) - 1;
@@ -593,12 +753,13 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int n_tiles = k_lo <= k_hi ? (row_hi - row_lo + XW_ROWS - 1) / XW_ROWS : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if (n_tiles <= 0) {  // no key of the block inside the song: zeros (nothing to add), no sweep
+  if (n_tiles <= 0) {  // no key of the block inside the song: zeros in the chunk (nothing to add), no sweep
     if (!accumulate) {
-      for (int i = threadIdx.x; i < XW_ROWS * D / 4; i += XW_THREADS) {
-        const int key = s0 + i / (D / 4);
+      const int width = n * 64;
+      for (int i = threadIdx.x; i < XW_ROWS * width / 4; i += XW_THREADS) {
+        const int key = s0 + i / (width / 4);
         if (key >= S) continue;
-        const size_t at = (((size_t)b * S + key) * Kv + kv) * D + (i % (D / 4)) * 4;
+        const size_t at = (((size_t)b * S + key) * Kv + kv) * D + ch.c0 * 64 + (i % (width / 4)) * 4;
         *reinterpret_cast<float4*>(dk + at) = make_float4(0.f, 0.f, 0.f, 0.f);
         *reinterpret_cast<float4*>(dv + at) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -607,18 +768,21 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   }
 
   if (threadIdx.x == 0) {
-    xw_init_ring(ring0);
-    xw_init_ring(ring1);
+    x6_init_ring(ring0, MC ? 2 : 1);
+    x6_init_ring(ring1, MC ? 2 : 1);
     mbar_init(kv_bar, 1);
     fence_barrier_init();
   }
-  __syncthreads();
+  if (MC)
+    x6_cluster_sync();  // the other block's barriers are initialised before its loads and arrivals reach them
+  else
+    __syncthreads();
 
   if (warp >= 8) {  // the producer warpgroup: warp 8 loads k and v and feeds ring 0, warp 9 ring 1
     setmaxnreg_dec<XW_PRODUCER_REGS>();
     if (lane == 0 && warp == 8) {
-      mbar_expect_tx(kv_bar, 4 * A * XW_ATOM_BYTES);
-      for (int i = 0; i < 2; ++i)
+      mbar_expect_tx(kv_bar, 2 * RES * A * XW_ATOM_BYTES);
+      for (int i = 0; i < RES; ++i)
         for (int a = 0; a < A; ++a) {  // keys past S arrive as zeros
           tma_load_4d(Ks + (i * A + a) * XW_ATOM, &kmap, kv_bar, i * D + 64 * a, kv, s0, b);
           tma_load_4d(Vs + (i * A + a) * XW_ATOM, &vmap, kv_bar, i * D + 64 * a, kv, s0, b);
@@ -626,7 +790,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
     }
     if (lane == 0 && warp < 10) {
       XwFeed feed{warp == 8 ? ring0 : ring1};
-      const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // X2 of S^T (k) or of dP^T (v)
+      const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // X1 and X2 of S^T (k) or of dP^T (v)
       const CUtensorMap* dots_map = warp == 8 ? &qmap : &domap;  // Y of S^T (qs) or of dP^T (do)
       const CUtensorMap* outer_map = warp == 8 ? &domap : &qmap;  // Y of dV (do) or of dK (qs)
       for (int it = 0; it < n_tiles; ++it) {
@@ -634,11 +798,30 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
         auto rows = [&](const CUtensorMap* map) {
           return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_3d(dst, map, bar, p * D + 64 * a, r0, (int)grp); };
         };
-        x6_feed_dots(feed, A, rows(dots_map), [&](void* dst, uint64_t* bar, int a) {
-          tma_load_4d(dst, keys_map, bar, 2 * D + 64 * a, kv, s0, b);
-        });
-        x6_feed_outer(feed, 0, A, rows(outer_map));
+        if (MC) {  // S^T's and dP^T's atoms, each multicast by block (piece + atom) % 2 (the other only expects it)
+          x6_feed_dots<RES>(
+              feed, A,
+              [&](void* dst, uint64_t* bar, int p, int a) {
+                if (((p + a) & 1) == (int)x6_cluster_rank())
+                  x6_tma_load_3d_mc(dst, dots_map, bar, p * D + 64 * a, r0, (int)grp, 3);
+              },
+              [&](void* dst, uint64_t* bar, int p, int a) {
+                if (((p + a) & 1) == (int)x6_cluster_rank())
+                  x6_tma_load_4d_mc(dst, keys_map, bar, p * D + 64 * a, kv, s0, b, 3);
+              });
+        } else {
+          x6_feed_dots<RES>(feed, A, rows(dots_map), [&](void* dst, uint64_t* bar, int p, int a) {
+            tma_load_4d(dst, keys_map, bar, p * D + 64 * a, kv, s0, b);
+          });
+        }
+        // with MC each block streams the atoms of a whole first chunk, ceil(A / 2): the second chunk of an odd A
+        // one past its own (loaded and skipped unread), in step with the first
+        x6_feed_outer(feed, ch.c0, MC ? ch.c0 + (A + 1) / 2 : ch.c1, rows(outer_map));
       }
+    }
+    if (MC) {
+      __syncwarp();
+      x6_cluster_sync();  // the other block is done with this one's barriers and slots
     }
     return;
   }
@@ -654,11 +837,11 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int vis_a = !in_a ? 1 << 30 : local ? key_a - kf.off - w2 : 0;
   const int vis_b = !in_b ? 1 << 30 : local ? key_b - kf.off - w2 : 0;
   const bool keys_inside = s0 >= kf.lo && s0 + XW_ROWS <= kf.hi;
-  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  X6Take<MC> rd(wg == 0 ? ring0 : ring1, lane);
   auto from_ring = [&](int) { return rd.take(); };  // the resident keys' third piece
   float s[32];           // warpgroup 0: S^T, then P^T; 1: dP^T, then dS^T (keys x the tile's rows)
   uint32_t f[3][4][4];   // P^T's or dS^T's pieces, the A operand of the kept product
-  float acc[X6_DKV_ATOMS][32];  // warpgroup 0: dV; 1: dK (times ln 2 when it leaves)
+  float acc[X6_DKV_ATOMS][32];  // warpgroup 0: dV; 1: dK (times ln 2 when it leaves), the chunk's atoms
   xw_zero(acc);
   mbar_wait(kv_bar, 0);
 
@@ -674,7 +857,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       if (lane < 2) x6_prefetch_l1(stat + 32 * lane);
       reg_fence(s);
       wgmma_fence();
-      x6_dots(s, wg == 0 ? Ks : Vs, A, rd, from_ring);  // S^T = K qs^T or dP^T = V do^T
+      x6_dots<64, RES>(s, wg == 0 ? Ks : Vs, A, rd, from_ring);  // S^T = K qs^T or dP^T = V do^T
       rd.drain();
       reg_fence(s);
       xw_fence(acc);
@@ -721,7 +904,8 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       x6_frags(f, s);
       x6_fence(f);
       wgmma_fence();
-      x6_outer<X6_DKV_ATOMS>(acc, f, A, rd);  // dV += P^T do or dK += dS^T qs
+      x6_outer<X6_DKV_ATOMS>(acc, f, n, rd);  // dV += P^T do or dK += dS^T qs over the chunk's atoms
+      if (MC && blockIdx.z == 1 && (A & 1)) rd.skip(3);
       // the first group of the next tile's products would wait for these anyway (X6Take::issued); done here,
       // the fragments are free before S^T or dP^T takes its registers, so that at D = 256 the accumulators,
       // the fragments and S^T or dP^T are never live together
@@ -733,7 +917,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
     rd.drain();
     xw_fence(acc);
     const float mul = wg == 0 ? 1.f : XW_LN2;
-    float* out = (wg == 0 ? dv : dk) + ((size_t)b * S * Kv + kv) * D + 2 * tq;
+    float* out = (wg == 0 ? dv : dk) + ((size_t)b * S * Kv + kv) * D + ch.c0 * 64 + 2 * tq;
 #pragma unroll
     for (int i = 0; i < X6_DKV_ATOMS; ++i)
 #pragma unroll
@@ -744,13 +928,14 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           const float x = in ? acc[i][4 * t + 2 * h] * mul : 0.f, y = in ? acc[i][4 * t + 2 * h + 1] * mul : 0.f;
-          if (i < A && key < S && (in || !stored)) x6_put2(dst + 8 * t, x, y, !stored);
+          if (i < n && key < S && (in || !stored)) x6_put2(dst + 8 * t, x, y, !stored);
         }
       }
     stored = true;
     xw_zero(acc);
     xw_fence(acc);
   }
+  if (MC) x6_cluster_sync();  // the other block is done with this one's barriers and slots
 }
 
 // ---- the forward ----
@@ -885,7 +1070,7 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
   const size_t mem_a = mem(row_a), mem_b = mem(row_b);
-  X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  X6Take<> rd(wg == 0 ? ring0 : ring1, lane);
 
   if (wg == 0) {  // S = qs K^T and the online softmax; P goes to warpgroup 1
     // the keys each of the thread's two rows sees, vis_n of them from vis_lo on (none for a pad row)
@@ -1034,7 +1219,9 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 
 // ---- host ----
 
-inline bool x6_takes(int D) { return D >= 64 && D <= X6_MAX_D && D % 64 == 0; }
+// the head dims of the forward, and of the pair and the split
+inline bool x6_fwd_takes(int D) { return D >= 64 && D <= X6_MAX_D && D % 64 == 0; }
+inline bool x6_pair_takes(int D) { return D >= 64 && D <= X6_PAIR_MAX_D && D % 64 == 0; }
 
 // The pair's tensor maps, over the pieces (rows of 3 D bf16): k and v (B, S, Kv, 3 D) in boxes of 64 keys, qs
 // and do rows group-major (B * Kv, T * G, 3 D); boxes of one 64-column atom
@@ -1066,7 +1253,7 @@ int launch_x6_fwd_tiles(const CUtensorMap& kmap, const CUtensorMap& vmap, const 
 inline int launch_x6_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o,
                          void* lse, int B, int T, int S, int H, int Kv, int D, int window, float scale, KeyFrame frame,
                          void* stream) {
-  if (!x6_takes(D)) return (int)cudaErrorInvalidValue;
+  if (!x6_fwd_takes(D)) return (int)cudaErrorInvalidValue;
   const int keys = D <= X6_FWD_WIDE_MAX_D ? 128 : 64;
   CUtensorMap kmap, vmap;
   int dev;
@@ -1080,46 +1267,94 @@ inline int launch_x6_fwd(const void* q, const void* k, const void* v, const void
                                                               window, scale, frame, dev, stream);
 }
 
+// above X6_MAX_D (RES = 1) neighbouring row blocks run as clusters of two (x6_dq_kernel), the grid's x axis even
+template <int RES>
+int launch_x6_dq_res(const CUtensorMap (&maps)[4], const void* lse_g, const void* delta_g, void* dq_acc, int B, int T,
+                     int H, int Kv, int D, int pad, int window, KeyFrame frame, int accumulate, int dev, void* stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  int err = allow_smem(x6_dq_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int fixed = x6_fixed(D / 64, RES), slots = xw_slots(fixed);
+  const int blocks = pad / XW_ROWS, cluster = RES == 1 ? 2 : 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((blocks + cluster - 1) / cluster * cluster, B * Kv);
+  config.blockDim = dim3(XW_THREADS);
+  config.dynamicSmemBytes = 1024 + fixed + 2 * slots * XW_ATOM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = RES == 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&config, x6_dq_kernel<RES>, maps[0], maps[1], maps[2], maps[3],
+                                static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+                                static_cast<float*>(dq_acc), T, H, Kv, D, pad, window, frame, accumulate, slots);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
 inline int launch_x6_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
                         const void* delta_g, void* dq_acc, int B, int T, int S, int H, int Kv, int D, int pad,
                         int window, KeyFrame frame, int accumulate, void* stream) {
-  if (!x6_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned long long> smem_set{0};
+  if (!x6_pair_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   int dev;
   int err = bind_device(&dev);
   if (err == 0) err = x6_maps(maps, k, v, qs_g, do_rows, B, T, S, H, Kv, D);
-  if (err == 0) err = allow_smem(x6_dq_kernel, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
-  const int fixed = x6_fixed(D / 64), slots = xw_slots(fixed);
-  x6_dq_kernel<<<dim3(pad / XW_ROWS, B * Kv), XW_THREADS, 1024 + fixed + 2 * slots * XW_ATOM_BYTES,
-                 static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-      static_cast<float*>(dq_acc), T, H, Kv, D, pad, window, frame, accumulate, slots);
-  return (int)cudaGetLastError();
+  return x6_res(D) == 2
+             ? launch_x6_dq_res<2>(maps, lse_g, delta_g, dq_acc, B, T, H, Kv, D, pad, window, frame, accumulate, dev, stream)
+             : launch_x6_dq_res<1>(maps, lse_g, delta_g, dq_acc, B, T, H, Kv, D, pad, window, frame, accumulate, dev, stream);
+}
+
+// above X6_MAX_D (RES = 1) the grid's two column chunks of a key block run as a cluster (x6_dkv_kernel)
+template <int RES>
+int launch_x6_dkv_res(const CUtensorMap (&maps)[4], const void* lse_g, const void* delta_g, void* dk, void* dv, int B,
+                      int T, int S, int H, int Kv, int D, int pad, int window, KeyFrame frame, int accumulate, int dev,
+                      void* stream) {
+  static std::atomic<unsigned long long> smem_set{0};
+  int err = allow_smem(x6_dkv_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int A = D / 64, fixed = x6_fixed(A, RES), slots = xw_slots(fixed);
+  const int chunks = (A + X6_DKV_ATOMS - 1) / X6_DKV_ATOMS;
+  if (chunks != (RES == 1 ? 2 : 1)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((S + XW_ROWS - 1) / XW_ROWS, B * Kv, chunks);
+  config.blockDim = dim3(XW_THREADS);
+  config.dynamicSmemBytes = 1024 + fixed + 2 * slots * XW_ATOM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = chunks;
+  config.attrs = cluster;
+  config.numAttrs = RES == 1 ? 1 : 0;
+  err = (int)cudaLaunchKernelEx(&config, x6_dkv_kernel<RES>, maps[0], maps[1], maps[2], maps[3],
+                                static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+                                static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, D, pad, window, frame,
+                                accumulate, slots);
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 inline int launch_x6_dkv(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
                          const void* delta_g, void* dk, void* dv, int B, int T, int S, int H, int Kv, int D, int pad,
                          int window, KeyFrame frame, int accumulate, void* stream) {
-  if (!x6_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned long long> smem_set{0};
+  if (!x6_pair_takes(D) || pad % XW_ROWS != 0 || pad < T * (H / Kv)) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   int dev;
   int err = bind_device(&dev);
   if (err == 0) err = x6_maps(maps, k, v, qs_g, do_rows, B, T, S, H, Kv, D);
-  if (err == 0) err = allow_smem(x6_dkv_kernel, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
-  const int fixed = x6_fixed(D / 64), slots = xw_slots(fixed);
-  x6_dkv_kernel<<<dim3((S + XW_ROWS - 1) / XW_ROWS, B * Kv), XW_THREADS, 1024 + fixed + 2 * slots * XW_ATOM_BYTES,
-                  static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-      static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, D, pad, window, frame, accumulate, slots);
-  return (int)cudaGetLastError();
+  return x6_res(D) == 2 ? launch_x6_dkv_res<2>(maps, lse_g, delta_g, dk, dv, B, T, S, H, Kv, D, pad, window, frame,
+                                               accumulate, dev, stream)
+                        : launch_x6_dkv_res<1>(maps, lse_g, delta_g, dk, dv, B, T, S, H, Kv, D, pad, window, frame,
+                                               accumulate, dev, stream);
 }
 
 inline int launch_x6_split(const void* x, void* out, long long n_rows, int D, void* stream) {
-  if (!x6_takes(D) || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (!x6_pair_takes(D) || n_rows < 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   int dev;
   const int err = bind_device(&dev);

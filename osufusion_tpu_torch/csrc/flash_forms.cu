@@ -5,14 +5,14 @@
 // chunked instance of the forward, dq and dk/dv for any D > 256 that is a
 // multiple of 64, templated on the operand type T (float, __nv_bfloat16,
 // __half; below), and the pre-pass, post-pass and merge at every T and D.
-// ops/flash_forms.py::kernel_form sends here the fp32 forward, dq and dk/dv
-// above D = 256, bf16 and fp16 above D = 512, and the pre-pass and post-pass
+// ops/flash_forms.py::kernel_form sends here the fp32 forward above D = 256,
+// every type's forward, dq and dk/dv above D = 512, and the pre-pass and post-pass
 // around K2's sweep (and the wgmma pairs of flash_xwide.cuh and
 // flash_f32x6.cuh) and the ring's merge at fp32, at fp16 and at bf16 above D
 // = 64. bf16 and fp16 at D <= 256 run the wgmma forward (K1), K2's sweep and
 // the windowed pair, at D = 320 ... 512 flash_xwide.cuh's kernels; fp32 at D
-// <= 256 runs flash_f32x6.cuh's forward and pair; so those instances are not
-// built here (FORMS_DISPATCH, below).
+// <= 256 runs flash_f32x6.cuh's forward and pair, at 320 ... 512 its pair; so
+// those instances are not built here (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -59,8 +59,9 @@
 // at most 67 / 989 (~7 %) of their tensor-core bound; they are left only above
 // D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2). The
 // fp32 forward, dq and dk/dv at D <= 256 moved to the tensor cores as six
-// bf16 products per fp32 product (flash_f32x6.cuh); the chunked instances
-// above 256 stay here.
+// bf16 products per fp32 product (flash_f32x6.cuh), and so did dq and dk/dv
+// at 320 ... 512; the chunked forward above 256 and the chunked dq and dk/dv
+// above 512 stay here.
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
 // of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
@@ -835,11 +836,14 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 // FORMS_ABOVE the chunked one above 512 only (the dispatch keys D = 320 ...
 // 512 apart from the head dims above them). The forward, dq and dk/dv bodies
 // keep only what a route launches (ops/flash_forms.py::kernel_form):
-//  * FORMS_CHUNKS, the forward, dq and dk/dv: the chunked instances alone,
-//    fp32's above D = 256 and bf16's and fp16's above 512 (flash_f32x6.cuh's
-//    forward and pair take fp32 at D <= 256; K1, K2's sweep and the wgmma
-//    windowed pair bf16 and fp16 there; flash_xwide.cuh's kernels bf16 and
-//    fp16 at 320 ... 512);
+//  * FORMS_CHUNKS, the forward: the chunked instances alone, fp32's above D =
+//    256 and bf16's and fp16's above 512 (flash_f32x6.cuh's forward takes
+//    fp32 at D <= 256; K1 bf16 and fp16 there; flash_xwide.cuh's forward bf16
+//    and fp16 at 320 ... 512);
+//  * FORMS_PAIR_CHUNKS, dq and dk/dv: the chunked instances above 512 alone
+//    (flash_f32x6.cuh's pair takes fp32 at D <= 512; K2's sweep and the wgmma
+//    windowed pair bf16 and fp16 at D <= 256, flash_xwide.cuh's pair at 320
+//    ... 512);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -851,6 +855,8 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 #define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)
 #define FORMS_CHUNKS                                                              \
   FORMS_CHUNKED(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
+#define FORMS_PAIR_CHUNKS                                                         \
+  FORMS_ABOVE(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_EVERY                                                               \
   FORMS_DIMS(DTYPE_F32, float) FORMS_CHUNKED(DTYPE_F32, float)                    \
   FORMS_DIMS(DTYPE_BF16, __nv_bfloat16) FORMS_CHUNKED(DTYPE_BF16, __nv_bfloat16)  \
@@ -900,7 +906,7 @@ extern "C" int forms_bwd_dq(int dtype, int D, const void* k, const void* v, cons
 #define CALL(TT, DD)                                                                                                  \
   launch_dq<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dq_acc, B, T, S, H, Kv, pad, window, frame, accumulate, D, \
                     stream)
-  FORMS_DISPATCH(FORMS_CHUNKS)
+  FORMS_DISPATCH(FORMS_PAIR_CHUNKS)
 #undef CALL
 }
 
@@ -914,7 +920,7 @@ extern "C" int forms_bwd_dkv(int dtype, int D, const void* k, const void* v, con
 #define CALL(TT, DD)                                                                                              \
   launch_dkv<TT, DD>(k, v, qs_g, do_rows, lse_g, delta_g, dk, dv, B, T, S, H, Kv, pad, window, frame, accumulate, \
                      D, stream)
-  FORMS_DISPATCH(FORMS_CHUNKS)
+  FORMS_DISPATCH(FORMS_PAIR_CHUNKS)
 #undef CALL
 }
 

@@ -68,8 +68,9 @@ tensor cores, on the bf16 pieces of its operands (``f32x6_split``): every
 forward (the halo frame and the ring's hops too; ``f32x6_fwd``,
 ``f32x6_halo_fwd``) and every backward (global, the ring's sweeps, windowed,
 halo) through its dq and dk/dv pair between the forms pre-pass and post-pass
-(``f32x6_bwd_dq``, ``f32x6_bwd_dkv``); library ``flash_f32x6``. The ring's
-merge takes bf16 at D = 64. Every other form (fp32 above D = 256; fp16's
+(``f32x6_bwd_dq``, ``f32x6_bwd_dkv``); library ``flash_f32x6``. At D = 320
+... 512 fp32's backward runs the same pair. The ring's
+merge takes bf16 at D = 64. Every other form (fp32's forward above D = 256; fp16's
 merge and the global backward's
 pre-pass and post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the
 merge and the global backward's pre-pass and post-pass:
@@ -419,12 +420,12 @@ def flash_bwd(
     dim runs between the forms pre-pass and post-pass (counted in
     ``flash_forms``), the whole still one ``flash_bwd.launches``; at D = 320
     ... 512 that sweep is csrc/flash_xwide.cuh's dq and dk/dv pair
-    (``xwide_bwd_dq``, ``xwide_bwd_dkv``). fp32 at D <= 256 runs the forms
+    (``xwide_bwd_dq``, ``xwide_bwd_dkv``). fp32 at D <= 512 runs the forms
     pre-pass, the split of its qs and do, csrc/flash_f32x6.cuh's pair and the
     forms post-pass, each counted on its own wrapper and not in
-    ``flash_bwd.launches``. The forms family (fp32 above D = 256, bf16 and
-    fp16 above 512) runs its pre-pass, dq, dk/dv and post-pass kernels, each
-    counted in ``flash_forms``."""
+    ``flash_bwd.launches``. The forms family (every type above D = 512) runs
+    its pre-pass, dq, dk/dv and post-pass kernels, each counted in
+    ``flash_forms``."""
     B, T, H, kv, route = _check_backward("flash_bwd", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos, sin,
                                          grouped=True)
     if forms.route("flash_bwd_prep", q) == "forms":  # every form but bf16 at D = 64: the forms pre-pass and post-pass
@@ -500,7 +501,7 @@ def flash_bwd_prep(
     and the dq buffer zeroed. Counts the wgmma pre-pass's launches (bf16 at
     D = 64) in ``flash_bwd_prep.launches``, the forms one's (every other form;
     K2's sweep of a head dim above 64 reads it) in
-    ``flash_forms.forms_bwd_prep.launches``; at fp32 with D <= 256 the
+    ``flash_forms.forms_bwd_prep.launches``; at fp32 with D <= 512 the
     scratch holds the pieces of qs and do too (``scratch_prep``)."""
     B, T, H, kv, route = _check_backward("flash_bwd_prep", q, k, v, (("o", o), ("do", do)), (("lse", lse),), cos,
                                          sin, grouped=True)
@@ -569,7 +570,7 @@ def flash_bwd_sweep(
     wgmma sweep's launches (any head dim; above 256 csrc/flash_xwide.cuh's
     dq and dk/dv, each also in its own counter) in
     ``flash_bwd_sweep.launches``; the forms family launches its dq and dk/dv
-    kernels, counted in ``flash_forms``, and fp32 at D <= 256
+    kernels, counted in ``flash_forms``, and fp32 at D <= 512
     csrc/flash_f32x6.cuh's, counted in ``f32x6_bwd_dq`` and
     ``f32x6_bwd_dkv``."""
     route = forms.route("flash_bwd_sweep", prep.qs)
@@ -634,7 +635,7 @@ xwide_bwd_dkv.launches = 0
 
 def f32x6_split(x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/flash_f32x6.cuh's split on the current stream: the bf16
-    pieces of x (..., D) fp32, contiguous, D in 64 ... 256, as rows (...,
+    pieces of x (..., D) fp32, contiguous, D in 64 ... 512, as rows (...,
     3 D) [b0 | b1 | b2] with x = b0 + b1 + b2 exactly (``f32x6_split_reference``
     is its plain version). Counts in ``f32x6_split.launches``."""
     D = x.shape[-1]
@@ -687,18 +688,21 @@ def _launch_f32x6_pair(who: str, k, v, prep: GlobalPrep, outs, window: int, halo
 
 
 def f32x6_bwd_dq(k, v, prep: GlobalPrep, window: int, halo: Optional[tuple], accumulate: bool) -> None:
-    """Launch csrc/flash_f32x6.cuh's dq kernel (fp32, D = 64 ... 256, each
+    """Launch csrc/flash_f32x6.cuh's dq kernel (fp32, D = 64 ... 512, each
     product as six bf16 products) on the current stream over the keys of k
     and v, on the forms pre-pass's scratch with the pieces of qs and do
     (``scratch_prep``): ``prep.dq_acc`` (fp32, group-major) gets ds k, stored,
     or with ``accumulate`` added to what it holds (the forms post-pass scales
     and un-rotates it); ``forms_bwd_dq``'s arguments. Splits k and v first.
-    Counts in ``f32x6_bwd_dq.launches``."""
+    Counts in ``f32x6_bwd_dq.launches``, those above D = 256 (the instance
+    with one piece of qs and do resident) also in ``wide_launches``."""
     _launch_f32x6_pair("f32x6_bwd_dq", k, v, prep, (prep.dq_acc,), window, halo, accumulate)
     f32x6_bwd_dq.launches += 1
+    f32x6_bwd_dq.wide_launches += prep.qs.shape[-1] > forms.WGMMA_HEAD_DIMS[-1]
 
 
 f32x6_bwd_dq.launches = 0
+f32x6_bwd_dq.wide_launches = 0  # of them, D = 320 ... 512
 
 
 def f32x6_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tuple], accumulate: bool) -> None:
@@ -707,12 +711,16 @@ def f32x6_bwd_dkv(k, v, prep: GlobalPrep, dk, dv, window: int, halo: Optional[tu
     (rotated frame) and dv (k's shape, fp32) stored, or with ``accumulate``
     added to; in the halo frame the slab rows outside the song get zeros;
     ``forms_bwd_dkv``'s arguments. Splits k and v first. Counts in
-    ``f32x6_bwd_dkv.launches``."""
+    ``f32x6_bwd_dkv.launches``, those above D = 256 (the instance with one
+    piece of k and v resident, its columns in two chunks) also in
+    ``wide_launches``."""
     _launch_f32x6_pair("f32x6_bwd_dkv", k, v, prep, (dk, dv), window, halo, accumulate)
     f32x6_bwd_dkv.launches += 1
+    f32x6_bwd_dkv.wide_launches += prep.qs.shape[-1] > forms.WGMMA_HEAD_DIMS[-1]
 
 
 f32x6_bwd_dkv.launches = 0
+f32x6_bwd_dkv.wide_launches = 0  # of them, D = 320 ... 512
 
 
 def scratch_sweeps(route: str) -> tuple:
@@ -883,7 +891,7 @@ def flash_bwd_dq(
     """Launch the windowed pre-pass and the dq kernel of q's form (K3a at bf16
     or fp16 with D = 64, 128, 192 or 256; with D = 320 ... 512 the forms
     pre-pass, csrc/flash_xwide.cuh's dq kernel and the forms post-pass; at
-    fp32 with D <= 256 the same with csrc/flash_f32x6.cuh's) on the current
+    fp32 with D <= 512 the same with csrc/flash_f32x6.cuh's) on the current
     stream. Returns (dq, prep):
     dq (B, T, H, D) in q's dtype and the raw q's frame, written once per row
     (the same bits from run to run), and

@@ -21,10 +21,10 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   backward pair of ``csrc/flash_xwide.cuh``, which take the head dim at run
   time (every forward, and between the forms pre-pass and post-pass every
   backward: global, the ring's sweeps, windowed and halo). fp32 operands with
-  D in ``FORMS_HEAD_DIMS`` at the wrappers of ``F32X6_WRAPPERS`` (those of
-  ``WIDE_WGMMA``): the forward and the dq and dk/dv pair of
-  ``csrc/flash_f32x6.cuh``, each fp32 product as six bf16 products, the pair
-  between the forms pre-pass and post-pass;
+  D in ``WGMMA_HEAD_DIMS`` at the wrappers of ``WIDE_WGMMA``, and with D in
+  ``XWIDE_HEAD_DIMS`` at those of ``BACKWARD_WRAPPERS``: the forward and the
+  dq and dk/dv pair of ``csrc/flash_f32x6.cuh``, each fp32 product as six
+  bf16 products, the pair between the forms pre-pass and post-pass;
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
   fp32 at every D for the ring's merge and the global backward's pre-pass
   and post-pass (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge,
@@ -33,8 +33,9 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   merge, the pre-pass and the post-pass (``flash_bwd`` at D > 64 likewise);
 * ``"chunked"``: the forms family's chunked instance of the forward, dq and
   dk/dv (staged 64 columns of the head dim at a time), at the wrappers of
-  ``WIDE_WGMMA`` for fp32 operands at a head dim above 256 that is a
-  multiple of 64, and for bf16 and fp16 above ``XWIDE_HEAD_DIMS`` (D > 512);
+  ``WIDE_WGMMA`` for every type above ``XWIDE_HEAD_DIMS`` (D > 512), and for
+  fp32 at the forwards (``flash_fwd``, ``halo_fwd``) with D in
+  ``XWIDE_HEAD_DIMS``;
 * a head dim that is not a multiple of 64 raises ValueError: no kernel tiles
   it, and ``attention_form`` gives such a site ``"xla"``, the JAX package's
   XLA route (rope, then the plain grouped attention with native autograd;
@@ -61,11 +62,9 @@ import torch
 
 from osufusion_tpu_torch.ops import flash_attention as fa
 
-# the head dims of the forms instances (csrc/flash_forms.cu's FORMS_DISPATCH); a multiple of 64 above them
-# runs the chunked instance
-FORMS_HEAD_DIMS = (64, 128, 192, 256)
 # the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cuh, csrc/flash_bwd_sweep.cuh,
-# csrc/flash_bwd_windowed.cuh)
+# csrc/flash_bwd_windowed.cuh), of csrc/flash_f32x6.cuh's forward, and of the forms family's D-templated
+# instances (csrc/flash_forms.cu's FORMS_DIMS); a multiple of 64 above them runs the chunked forms instance
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 # the head dims of the wgmma forward and backward pair above 256 (csrc/flash_xwide.cuh, XW_MIN_D ... XW_MAX_D),
 # at bf16 and fp16; above them the chunked instance
@@ -75,9 +74,9 @@ XWIDE_HEAD_DIMS = (320, 384, 448, 512)
 # csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu); every other wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
-# the wrappers whose fp32 kernel at FORMS_HEAD_DIMS runs on the tensor cores, six bf16 products per fp32 product
-# (csrc/flash_f32x6.cuh): every forward (the ring's hops through flash_fwd) and the dq and dk/dv of every backward
-F32X6_WRAPPERS = WIDE_WGMMA
+# the backward wrappers of WIDE_WGMMA: at fp32 their kernel is csrc/flash_f32x6.cuh's dq and dk/dv pair (six bf16
+# products per fp32 product) at WGMMA_HEAD_DIMS and XWIDE_HEAD_DIMS alike, where the forward's is only at the first
+BACKWARD_WRAPPERS = WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -95,9 +94,8 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
     if who not in WIDE_WGMMA:  # the merge, the pre-pass and the post-pass: D-generic forms bodies
         return "hopper" if dtype == torch.bfloat16 and head_dim == 64 else "forms"
     if dtype == torch.float32:
-        if head_dim not in FORMS_HEAD_DIMS:
-            return "chunked"
-        return "hopper" if who in F32X6_WRAPPERS else "forms"
+        wide = head_dim in XWIDE_HEAD_DIMS and who in BACKWARD_WRAPPERS
+        return "hopper" if head_dim in WGMMA_HEAD_DIMS or wide else "chunked"
     return "hopper" if head_dim in WGMMA_HEAD_DIMS or head_dim in XWIDE_HEAD_DIMS else "chunked"
 
 
@@ -116,8 +114,8 @@ def route(who: str, t: torch.Tensor) -> str:
     for its own wgmma kernel, "xwide" for csrc/flash_xwide.cuh's (the form
     "hopper" at a head dim of ``XWIDE_HEAD_DIMS``; its backward runs on this
     module's pre-pass and post-pass), "f32x6" for csrc/flash_f32x6.cuh's
-    forward and pair (the form "hopper" at fp32; the pair on the same
-    pre-pass and post-pass),
+    forward and pair (the form "hopper" at fp32, the pair up to D = 512; the
+    pair on the same pre-pass and post-pass),
     "forms" for this module's family (the chunked instance included). A head
     dim that no kernel tiles raises ValueError."""
     D = t.shape[-1]
@@ -231,7 +229,7 @@ def forms_bwd_dq(k, v, prep, window: int, halo: Optional[tuple], accumulate: boo
     ``accumulate`` added to what it holds. Counts in
     ``forms_bwd_dq.launches``. bf16 and fp16 at D <= 512 have no forms dq
     (K2's sweep and the wgmma windowed pair run there, and above 256 the
-    wgmma pair of csrc/flash_xwide.cuh), nor has fp32 at D <= 256 (the pair
+    wgmma pair of csrc/flash_xwide.cuh), nor has fp32 at D <= 512 (the pair
     of csrc/flash_f32x6.cuh): RuntimeError."""
     _check_sweep("forms_bwd_dq", k, v, prep)
     B, T, H, kv = prep.shape
@@ -250,8 +248,8 @@ def forms_bwd_dkv(k, v, prep, dk, dv, window: int, halo: Optional[tuple], accumu
     """Launch the forms dk/dv kernel on the current stream over the keys of k
     and v: dk (rotated frame) and dv (k's shape, fp32) stored, or with
     ``accumulate`` added to; in the halo frame the slab rows outside the song
-    get zeros. Counts in ``forms_bwd_dkv.launches``. bf16 and fp16 at D <= 512
-    have no forms dk/dv, nor has fp32 at D <= 256: RuntimeError."""
+    get zeros. Counts in ``forms_bwd_dkv.launches``. No type has a forms dk/dv at
+    D <= 512: RuntimeError."""
     _check_sweep("forms_bwd_dkv", k, v, prep, (dk, dv))
     B, T, H, kv = prep.shape
     err = fa._kernel("forms_bwd_dkv")(

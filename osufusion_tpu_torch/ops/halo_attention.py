@@ -31,11 +31,12 @@ see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cuh``. Those take
 bf16 and fp16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and
 the windowed pair's with its pre-pass); at D = 320 ... 512 the forward and the
 backward pair of ``csrc/flash_xwide.cuh`` run in the halo frame, the pair
-between the forms pre-pass and post-pass; every other form that a kernel
-takes (fp32, and bf16 and fp16 above D = 512) runs the forms family's
-kernels in the same frame (``ops/flash_forms.py``,
-``csrc/flash_forms.cu``), chosen by each wrapper from the operands' (dtype,
-D).
+between the forms pre-pass and post-pass; fp32 runs ``csrc/flash_f32x6.cuh``'s
+forward up to D = 256 and its backward pair up to D = 512 in the same frame;
+every other form that a kernel takes (fp32's forward above D = 256, and every
+type above D = 512) runs the forms family's kernels in the same frame
+(``ops/flash_forms.py``, ``csrc/flash_forms.cu``), chosen by each wrapper from
+the operands' (dtype, D).
 """
 
 from __future__ import annotations
@@ -187,7 +188,7 @@ def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale:
     the padded LSE, delta = rowsum(do * o); the forms family's pre-pass, dq
     kernel and post-pass leave a ``GlobalPrep``, as do the forms pre-pass and
     post-pass around csrc/flash_xwide.cuh's dq kernel at D = 320 ... 512 and
-    around csrc/flash_f32x6.cuh's at fp32 with D <= 256), which
+    around csrc/flash_f32x6.cuh's at fp32 with D <= 512), which
     ``halo_bwd_dkv`` takes. Counts the wgmma dq kernel's launches in
     ``halo_bwd_dq.launches`` (the fp32 pair's in
     ``flash_attention.f32x6_bwd_dq.launches`` alone), the forms kernels' in

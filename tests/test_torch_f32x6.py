@@ -5,7 +5,7 @@ kernels' split), the six bf16 products per fp32 product emulated in torch in
 the kernels' order of terms, the dq and dk/dv pair so emulated against the
 JAX package's fp32 backward (``pa.flash_attention``'s vjp in interpret mode,
 as its own tests run it on the CPU), and the form rule that sends every fp32
-backward wrapper at D = 64 ... 256 to the pair.
+backward wrapper at D = 64 ... 512 to the pair.
 
 The kernels themselves run only on a GPU: tests/test_torch_kernels.py and
 chip_smoke.py hold them to the plain fp32 versions there."""
@@ -20,8 +20,8 @@ from jax.experimental.pallas import tpu as pltpu
 from osufusion_tpu.ops import pallas_attention as pa
 from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu_torch.ops import flash_attention as fa
-from osufusion_tpu_torch.ops.flash_forms import (F32X6_WRAPPERS, FORMS_HEAD_DIMS, WIDE_WGMMA, kernel_form,
-                                                 route)
+from osufusion_tpu_torch.ops.flash_forms import (BACKWARD_WRAPPERS, WGMMA_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS,
+                                                 kernel_form, route)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 
 torch.set_num_threads(2)
@@ -106,8 +106,9 @@ def _pair_emulated(q, k, v, o, lse, do, cos, sin, window):
     return dq, unapply_rope(dk_rot, cos, sin), dv
 
 
-# (D, window) at T = 256, H = 2: global and windowed at the two narrowest head dims of the pair
-PAIR_CASES = [(64, None), (64, 128), (128, None), (128, 128)]
+# (D, window) at T = 256, H = 2: global and windowed at the two narrowest head dims of the pair, and above 256
+# (one resident piece of the rows, dk/dv in two column chunks) at the narrowest and the widest
+PAIR_CASES = [(64, None), (64, 128), (128, None), (128, 128), (320, None), (512, None), (320, 128)]
 # against the JAX package's fp32 backward: both sides as exact as fp32, summed in other orders, ~6e-7 at these
 # sizes; the bound lies below what the products without their three smallest terms give (X3's four products:
 # ~6.5e-6), so it holds the pair to all six
@@ -254,25 +255,27 @@ def test_six_product_forward_matches_the_jax_fp32_forward(D, window, tables):
         assert (lse - want_lse).abs().max().item() < FWD_LSE_TOL
 
 
-@pytest.mark.parametrize("D", FORMS_HEAD_DIMS)
+@pytest.mark.parametrize("D", WGMMA_HEAD_DIMS + XWIDE_HEAD_DIMS)
 def test_fp32_backward_wrappers_route_to_the_six_product_pair(D):
-    """At fp32 with D = 64 ... 256 every backward wrapper of the form rule
+    """At fp32 with D = 64 ... 512 every backward wrapper of the form rule
     (the global backward, the ring's sweep, the windowed and the halo pair)
-    takes csrc/flash_f32x6.cuh's pair, and every forward (``flash_fwd``, the
-    ring's hops through it, and ``halo_fwd``) its forward; nothing else
-    does: the pre-pass, post-pass and merge stay on the forms bodies; bf16
-    and fp16 never take it, nor fp32 above 256 (the chunked instance)."""
-    assert F32X6_WRAPPERS == WIDE_WGMMA and {"flash_fwd", "halo_fwd"} <= F32X6_WRAPPERS
+    takes csrc/flash_f32x6.cuh's pair, and up to 256 every forward
+    (``flash_fwd``, the ring's hops through it, and ``halo_fwd``) its
+    forward; nothing else does: the pre-pass, post-pass and merge stay on the
+    forms bodies, the forwards above 256 and every wrapper above 512 on the
+    chunked instance; bf16 and fp16 never take it."""
+    assert BACKWARD_WRAPPERS == WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
+    takes = WIDE_WGMMA if D in WGMMA_HEAD_DIMS else BACKWARD_WRAPPERS
     t = torch.empty((1, 1, 1, D), dtype=torch.float32)
     wrappers = sorted(WIDE_WGMMA | {"flash_bwd_prep", "flash_bwd_post", "ring_merge"})
-    assert {who for who in wrappers if route(who, t) == "f32x6"} == F32X6_WRAPPERS
-    assert {who for who in wrappers if kernel_form(who, torch.float32, D) == "hopper"} == F32X6_WRAPPERS
-    assert {who for who in wrappers if route(who, t) == "forms"} == set(wrappers) - F32X6_WRAPPERS
+    assert {who for who in wrappers if route(who, t) == "f32x6"} == takes
+    assert {who for who in wrappers if kernel_form(who, torch.float32, D) == "hopper"} == takes
+    assert {who for who in wrappers if route(who, t) == "forms"} == set(wrappers) - takes
+    assert {who for who in WIDE_WGMMA - takes if kernel_form(who, torch.float32, D) == "chunked"} == WIDE_WGMMA - takes
     for dtype in (torch.bfloat16, torch.float16):
         assert not any(route(who, t.to(dtype)) == "f32x6" for who in wrappers)
-    wide = torch.empty((1, 1, 1, D + 256), dtype=torch.float32)
-    assert all(route(who, wide) == "forms" and kernel_form(who, torch.float32, D + 256) != "hopper"
-               for who in F32X6_WRAPPERS)
+    wide = torch.empty((1, 1, 1, 576), dtype=torch.float32)
+    assert all(route(who, wide) == "forms" and kernel_form(who, torch.float32, 576) == "chunked" for who in WIDE_WGMMA)
     assert fa.scratch_sweeps("f32x6") == (fa.f32x6_bwd_dq, fa.f32x6_bwd_dkv)
 
 

@@ -29,7 +29,7 @@ from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_parallel_available
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
-from osufusion_tpu_torch.ops.flash_forms import (F32X6_WRAPPERS, FORMS_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS,
+from osufusion_tpu_torch.ops.flash_forms import (BACKWARD_WRAPPERS, WGMMA_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS,
                                                  attention_form, kernel_form, route)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
@@ -55,9 +55,9 @@ def _expected_form(who, dtype, D):
         return "xla"
     if who in ("flash_bwd_prep", "flash_bwd_post", "ring_merge"):  # D-generic forms bodies beside bf16/64
         return "hopper" if dtype == torch.bfloat16 and D == 64 else "forms"
-    if D > 512 or (D > 256 and dtype == torch.float32):
+    if D > 512 or (D > 256 and dtype == torch.float32 and who not in BACKWARD_WRAPPERS):
         return "chunked"
-    if dtype == torch.float32 and who in F32X6_WRAPPERS:  # the backward pair of six bf16 products per fp32 product
+    if dtype == torch.float32:  # csrc/flash_f32x6.cuh: six bf16 products per fp32 product
         return "hopper"
     if dtype == torch.bfloat16 and (D == 64 or who in WIDE_WGMMA):
         return "hopper"
@@ -84,14 +84,15 @@ def test_attention_form_table(dtype, D):
     and the windowed pair (K1 with its halo instance and the ring's hops, K2,
     K3a / K3b, K5a / K5b), and at bf16 and fp16 with D = 320 ... 512 for the
     same wrappers (the forward and the backward pair of
-    csrc/flash_xwide.cuh), and at fp32 with D = 64 ... 256 for the global
-    backward's sweep and the windowed pair with its halo instances (the pair
-    of csrc/flash_f32x6.cuh); the forms kernels at fp32 for the forward, and
-    at fp32 and fp16 for the ring's merge and the global backward's pre-pass
-    and post-pass, and at bf16 with D > 64 for the merge, the pre-pass and
-    the post-pass, at every head dim;
-    the chunked forms instance of the forward, dq and dk/dv at fp32 above D =
-    256 and at bf16 and fp16 above D = 512."""
+    csrc/flash_xwide.cuh), and at fp32 with D = 64 ... 256 for the forward,
+    the global backward's sweep and the windowed pair with its halo instances
+    (the forward and the pair of csrc/flash_f32x6.cuh) and with D = 320 ...
+    512 for the backward wrappers (its pair); the forms kernels at fp32 and
+    fp16 for the ring's merge and the global backward's pre-pass and
+    post-pass, and at bf16 with D > 64 for the merge, the pre-pass and the
+    post-pass, at every head dim; the chunked forms instance of the forward
+    at fp32 above D = 256, and of the forward, dq and dk/dv at every type
+    above D = 512."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
     for who in WRAPPERS:
         if D % 64:
@@ -99,7 +100,7 @@ def test_attention_form_table(dtype, D):
                 kernel_form(who, dtype, D)
         else:
             assert kernel_form(who, dtype, D) == _expected_form(who, dtype, D), who
-    assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
+    assert WGMMA_HEAD_DIMS == (64, 128, 192, 256)
     assert WIDE_WGMMA == {"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                           "halo_bwd_dq", "halo_bwd_dkv"}
     # no wrapper at bf16 with D <= 256 is left on the forms bodies but the merge and the global pre- and post-pass
@@ -108,7 +109,7 @@ def test_attention_form_table(dtype, D):
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
     # at fp16 no forward or windowed backward is left on the forms bodies: K1 takes every forward, K2's sweep
     # every global backward and the wgmma pair every windowed one, as at bf16
-    if dtype == torch.float16 and D in FORMS_HEAD_DIMS:
+    if dtype == torch.float16 and D in WGMMA_HEAD_DIMS:
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "forms"} == {
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
     # above 256, up to 512, no wrapper at bf16 or fp16 is left on the forms bodies (the chunked instance
@@ -130,8 +131,9 @@ def test_route_is_the_entry_point_of_the_form(dtype, D):
     (csrc/flash_xwide.cuh) for the form "hopper" above D = 256, "wgmma" (the
     wrapper's own kernel) for the form "hopper" at D <= 256; the xwide entry
     points serve exactly the wrappers of WIDE_WGMMA at bf16 and fp16 with D =
-    320 ... 512, the f32x6 ones exactly the backward wrappers of
-    F32X6_WRAPPERS at fp32 with D = 64 ... 256."""
+    320 ... 512, the f32x6 ones exactly the wrappers of WIDE_WGMMA at fp32
+    with D = 64 ... 256 and those of BACKWARD_WRAPPERS at fp32 with D = 320
+    ... 512."""
     t = torch.empty((1, 1, 1, D), dtype=dtype)
     for who in WRAPPERS:
         form = kernel_form(who, dtype, D)
@@ -139,7 +141,8 @@ def test_route_is_the_entry_point_of_the_form(dtype, D):
         assert route(who, t) == want, who
     want = WIDE_WGMMA if dtype != torch.float32 and D in XWIDE_HEAD_DIMS else set()
     assert {who for who in WRAPPERS if route(who, t) == "xwide"} == want
-    want = F32X6_WRAPPERS if dtype == torch.float32 and D in FORMS_HEAD_DIMS else set()
+    want = set() if dtype != torch.float32 else WIDE_WGMMA if D in WGMMA_HEAD_DIMS else \
+        BACKWARD_WRAPPERS if D in XWIDE_HEAD_DIMS else set()
     assert {who for who in WRAPPERS if route(who, t) == "f32x6"} == want
 
 

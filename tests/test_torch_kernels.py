@@ -7,7 +7,8 @@ frame at D = 128, 192 and 256, the fp16 instances of K1, K2's sweep and the
 windowed pair with its halo frame at D = 64 ... 256, the forward and the
 backward pair above head dim 256 (csrc/flash_xwide.cuh, bf16 and fp16 at D =
 320 ... 512), the fp32 forward and backward pair on the tensor cores
-(csrc/flash_f32x6.cuh, six bf16 products per fp32 product at D = 64 ... 256),
+(csrc/flash_f32x6.cuh, six bf16 products per fp32 product at D = 64 ... 256,
+the pair also at D = 320 ... 512),
 and the differentiable
 ops that join them) against
 their plain PyTorch versions, at small and production shapes and at the
@@ -631,6 +632,10 @@ def _f32x6_fwd_launches() -> tuple:
     return fa.flash_fwd.f32x6_launches, ha.halo_fwd.f32x6_launches
 
 
+def _f32x6_wide_launches() -> tuple:
+    return fa.f32x6_bwd_dq.wide_launches, fa.f32x6_bwd_dkv.wide_launches
+
+
 # fp16 against the plain fp32 versions on the same fp16 inputs: P and dS are
 # rounded to fp16 (2^-11 relative) where the bf16 kernels round to bf16
 F16_REL_TOL, F16_LSE_TOL = 2e-3, 2e-3
@@ -644,7 +649,9 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     """fp16 operands, or a head dim above 256, which the JAX package runs
     through Pallas: ``sdpa`` raises nothing, forward and under a gradient,
     and matches autograd through the plain attention in fp32. fp32 above 256
-    runs the forms family's chunked instance and no wgmma kernel (bf16 there:
+    runs the forms family's chunked forward, and csrc/flash_f32x6.cuh's dq
+    and dk/dv between the forms pre-pass and post-pass, no chunked dq or dk/dv
+    and no other wgmma kernel (bf16 there:
     ``test_xwide_site_runs_a_wgmma_kernel``). fp16 at D = 64
     runs K1 for both forwards and no forms forward; its global backward K2's
     sweep between the forms pre-pass and post-pass, its windowed one the
@@ -657,7 +664,7 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     q, do = (torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype) for _ in range(2))
     k, v = (torch.randn((B, T, 1, D), generator=g, device=cuda).to(dtype) for _ in range(2))
     rope = rope_tables(T, D, scale_base=512.0, device=cuda)
-    before = _kernel_launches(), _forms_launches()
+    before = _kernel_launches(), _forms_launches(), _f32x6_wide_launches()
     with torch.no_grad():
         fwd = sdpa(q, k, v, window, rope)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -666,13 +673,16 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     runs = [a - b for a, b in zip(_forms_launches(), before[1])]
+    wide = [a - b for a, b in zip(_f32x6_wide_launches(), before[2])]
     if dtype == torch.float16:  # K1 twice; K2 (flash_bwd) at the global site, K3a and K3b at the windowed one
         windowed = int(window is not None)
         assert kernels == [2, 1 - windowed, windowed, windowed] + [0] * 7, kernels
         assert runs == ([0, 1, 0, 0, 1, 0] if window is None else [0] * 6), runs
-    else:
+        assert wide == [0, 0], wide
+    else:  # the chunked forward twice, then the forms pre-pass, the six-product pair and the forms post-pass
         assert kernels == [0] * 11, kernels
-        assert runs == [2, 1, 1, 1, 1, 0], runs
+        assert runs == [2, 1, 0, 0, 1, 0], runs
+        assert wide == [1, 1], wide
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, rope)
     ref.backward(do.float())
@@ -1319,7 +1329,7 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
 
 # the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16,
 # csrc/flash_xwide.cuh's kernels their chunked instance at D = 320 ... 512, and csrc/flash_f32x6.cuh's pair fp32's
-# dq and dk/dv at D <= 256 (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
+# dq and dk/dv at D <= 512 (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
 PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
                 ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
                 ("forms_fwd", torch.bfloat16, 320), ("forms_fwd", torch.float16, 512),
@@ -1327,7 +1337,8 @@ PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16,
                 ("forms_bwd_dkv", torch.bfloat16, 256), ("forms_bwd_dq", torch.float16, 128),
                 ("forms_bwd_dkv", torch.float16, 64), ("forms_bwd_dq", torch.float32, 64),
                 ("forms_bwd_dkv", torch.float32, 128), ("forms_bwd_dq", torch.float32, 192),
-                ("forms_bwd_dkv", torch.float32, 256)]
+                ("forms_bwd_dkv", torch.float32, 256), ("forms_bwd_dq", torch.float32, 320),
+                ("forms_bwd_dkv", torch.float32, 512)]
 
 
 @pytest.mark.cuda
@@ -1733,6 +1744,8 @@ def test_xwide_site_runs_a_wgmma_kernel(cuda, window):
 # ------------------------------------------------- the fp32 pair on the tensor cores (csrc/flash_f32x6.cuh)
 
 F32X6_DIMS = [64, 128, 192, 256]
+# the pair's: one piece of the resident rows in shared memory above 256, dk/dv's columns in two chunks
+F32X6_PAIR_DIMS = F32X6_DIMS + [320, 512]
 # (B, T, H, Kv, window, tables): MQA with tables, global at a length no 64-tile divides and windowed with the
 # window running past both ends of the song; grouped (G = 4) without tables, global and windowed; full MHA
 F32X6_SITES = [(2, 1000, 4, 1, -1, True), (1, 1100, 4, 1, 1536, True), (2, 640, 8, 2, -1, False),
@@ -1741,7 +1754,8 @@ F32X6_SITE_IDS = ["mqa-global", "mqa-window-past-both-ends", "grouped-global", "
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64), (2, 5, 128), (1000, 192), (7, 256)], ids=["D64", "D128", "D192", "D256"])
+@pytest.mark.parametrize("shape", [(3, 64), (2, 5, 128), (1000, 192), (7, 256), (9, 320), (2, 3, 512)],
+                         ids=["D64", "D128", "D192", "D256", "D320", "D512"])
 def test_f32x6_split_matches_plain(cuda, shape):
     """The split of fp32 rows into their three bf16 pieces, [b0 | b1 | b2],
     bit for bit against its plain version, over values of magnitudes from
@@ -1762,19 +1776,19 @@ def test_f32x6_split_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,Kv,window,tables", F32X6_SITES, ids=F32X6_SITE_IDS)
-@pytest.mark.parametrize("D", F32X6_DIMS)
+@pytest.mark.parametrize("D", F32X6_PAIR_DIMS)
 def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
     """csrc/flash_f32x6.cuh's dq and dk/dv on the forms pre-pass's scratch
     with the pieces of qs and do, between the pre-pass and the post-pass, at
     fp32 in each site's form, against the plain fp32 versions within the
     fp32 bounds, with a planted fault above them (an LSE off by 0.05); the
     same through the wrappers where they take the site (the global backward,
-    and at MQA with tables the windowed pair), each kernel once a call and no
-    forms dq or dk/dv."""
+    and at MQA with tables the windowed pair), each kernel once a call (above
+    D = 256 its wide instance) and no forms dq or dk/dv."""
     q, k_rot, v, do, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float32, tables, cuda, seed=D + T + Kv)
     scale = D**-0.5
     o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
-    before = _f32x6_launches(), _forms_launches()
+    before = _f32x6_launches(), _forms_launches(), _f32x6_wide_launches()
     prep = fa.scratch_prep("f32x6", q, o, lse, do, cos, sin, Kv, scale)
     dk, dv = torch.empty(k_rot.shape, device=cuda), torch.empty(k_rot.shape, device=cuda)
     fa.f32x6_bwd_dq(k_rot, v, prep, window, None, accumulate=False)
@@ -1789,6 +1803,7 @@ def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
     n = len(runs)
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n, n]
     assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, 0]
+    assert [a - b for a, b in zip(_f32x6_wide_launches(), before[2])] == [n * (D > 256)] * 2
 
     def plain(lse_in):
         return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
@@ -1871,10 +1886,11 @@ def test_f32x6_forward_failed_launch_raises(cuda, monkeypatch, frame):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shard", [0, 1, 3], ids=["first", "interior", "last"])
-@pytest.mark.parametrize("D", F32X6_DIMS)
+@pytest.mark.parametrize("D", F32X6_PAIR_DIMS)
 def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
     """The halo pair at fp32 through the halo wrappers (csrc/flash_f32x6.cuh's
-    kernels in the halo frame, its forward too), with the slab rows outside
+    kernels in the halo frame, its forward too up to D = 256, the forms
+    chunked forward above), with the slab rows outside
     the song set large, against the plain halo versions within the fp32
     bounds; the slab rows outside the song get exact zeros, an LSE off by
     0.05 lies above the bound, and no forms dq or dk/dv runs."""
@@ -1887,12 +1903,13 @@ def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
     k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
     scale = D**-0.5
     o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
-    before = _f32x6_launches(), _forms_launches()
+    before = _f32x6_launches(), _forms_launches(), _f32x6_wide_launches()
     dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
     dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [1, 1]
     assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_f32x6_wide_launches(), before[2])] == [int(D > 256)] * 2
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
             *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
@@ -1908,10 +1925,11 @@ def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Kv,rope", [(1, True), (2, False)], ids=["mqa-tables", "gqa"])
-@pytest.mark.parametrize("D", F32X6_DIMS)
+@pytest.mark.parametrize("D", F32X6_PAIR_DIMS)
 def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope):
     """The ring over two hops at fp32: csrc/flash_f32x6.cuh's forward per hop
-    and the forms merge, and csrc/flash_f32x6.cuh's pair adding into the
+    (above D = 256 the forms chunked forward) and the forms merge, and
+    csrc/flash_f32x6.cuh's pair adding into the
     travelling dk and dv (and into one dq buffer) between the forms pre-pass
     and post-pass, against the plain parts within the fp32 bounds (o, the LSE
     and the gradients); kernel sweeps that store in place of adding, and a
@@ -1943,11 +1961,13 @@ def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope)
         def merge(o_acc, lse_acc, o_j, lse_j, last):
             return KernelParts.merge(o_acc, lse_acc, o_j, lse_j - 1e4 * (lse_acc is not None), last)
 
-    before = _f32x6_launches(), _forms_launches(), _f32x6_fwd_launches()
+    before = _f32x6_launches(), _forms_launches(), _f32x6_fwd_launches(), _f32x6_wide_launches()
     got = run(None)
+    wide = int(D > 256)
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n * n, n * n]
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
-    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [n * n, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n * wide, n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [n * n * (1 - wide), 0]
+    assert [a - b for a, b in zip(_f32x6_wide_launches(), before[3])] == [n * n * wide] * 2
     ref = run(PlainParts)
     stored, first_hop = run(StoringSweeps), run(FirstHopOnly)
     assert _rel(got[0], ref[0]) < F32_REL_TOL < _rel(first_hop[0], ref[0])

@@ -133,13 +133,14 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
     head dim above 256 that is a multiple of 64, for every type, at the
     pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward, dq
-    and dk/dv keep no type at D <= 256 (``FORMS_CHUNKS``: csrc/flash_f32x6.cuh's
-    forward and pair take fp32 there, K1, K2's sweep and the wgmma pair bf16
-    and fp16), and no D-templated forward body is left; each of the three
-    keeps fp32's chunked instance at every head dim above 256, and bf16's and
-    fp16's only above 512 (``FORMS_ABOVE``: csrc/flash_xwide.cuh's kernels
-    take D = 320 ... 512 at those types, so the dispatch keys those head dims
-    apart)."""
+    and dk/dv keep no type at D <= 256 (``FORMS_CHUNKS``, ``FORMS_PAIR_CHUNKS``:
+    csrc/flash_f32x6.cuh's forward and pair take fp32 there, K1, K2's sweep
+    and the wgmma pair bf16 and fp16), and no D-templated forward body is
+    left; the forward keeps fp32's chunked instance at every head dim above
+    256, and bf16's and fp16's only above 512 (``FORMS_ABOVE``:
+    csrc/flash_xwide.cuh's kernels take D = 320 ... 512 at those types, so
+    the dispatch keys those head dims apart); dq and dk/dv keep every type's
+    only above 512 (csrc/flash_f32x6.cuh's pair takes fp32 at 320 ... 512)."""
     text = _text("flash_forms.cu")
     dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_ABOVE")]
     chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_CHUNKS")]
@@ -154,24 +155,27 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     def named(macro: str) -> str:  # the instance list of one entry point's macro
         return lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
 
-    every, chunks = named("FORMS_EVERY"), named("FORMS_CHUNKS")
+    every, chunks, pair = named("FORMS_EVERY"), named("FORMS_CHUNKS"), named("FORMS_PAIR_CHUNKS")
     entries = {e: text[text.index(f'extern "C" int {e}('):] for e in
                ("forms_fwd", "forms_bwd_prep", "forms_bwd_dq", "forms_bwd_dkv", "forms_bwd_post", "forms_ring_merge")}
     uses = {e: re.search(r"FORMS_DISPATCH\((\w+)\)", body).group(1) for e, body in entries.items()}
-    assert uses == {"forms_fwd": "FORMS_CHUNKS", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_CHUNKS",
-                    "forms_bwd_dkv": "FORMS_CHUNKS", "forms_bwd_post": "FORMS_EVERY", "forms_ring_merge": "FORMS_EVERY"}
+    assert uses == {"forms_fwd": "FORMS_CHUNKS", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_PAIR_CHUNKS",
+                    "forms_bwd_dkv": "FORMS_PAIR_CHUNKS", "forms_bwd_post": "FORMS_EVERY",
+                    "forms_ring_merge": "FORMS_EVERY"}
     assert "forms_fwd_kernel<" not in text and "FORMS_FWD" not in text and "FORMS_SWEEPS" not in text
     if instance == "chunked":
         for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
             assert f"{kernel}<" in text, f"{kernel} is never launched"
         for name in ("float", "__nv_bfloat16", "__half"):
             assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", every)
-            # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512
+            # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512; fp32: no chunked dq or dk/dv there
             assert bool(re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", chunks)) == (name == "float")
             assert bool(re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", chunks)) == (name != "float")
+            assert re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", pair)
+            assert not re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", pair)
         return
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
-    assert not re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", chunks)
+    assert not re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", chunks + pair)
 
 
 # the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
@@ -261,11 +265,14 @@ def test_f32x6_pair_is_built_for_sm_90a():
     dk/dv entry points bound, the forward taking the xwide forward's
     arguments (``flash_fwd_*``'s and ``halo_fwd_*``'s) and the pair the xwide
     pair's (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s without the type
-    code). The header covers the head dims ``flash_forms.FORMS_HEAD_DIMS``
-    names, is built on bf16 ``wgmma`` products from shared memory and from
-    registers, and has none of the pre-Hopper tokens."""
+    code). The header's forward covers the head dims
+    ``flash_forms.WGMMA_HEAD_DIMS`` names, its pair and split those and
+    ``flash_forms.XWIDE_HEAD_DIMS`` (an instance with two pieces of the
+    resident rows in shared memory up to 256, one above, its dk/dv columns in
+    chunks there); it is built on bf16 ``wgmma`` products from shared memory
+    and from registers, and has none of the pre-Hopper tokens."""
     from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
-    from osufusion_tpu_torch.ops.flash_forms import FORMS_HEAD_DIMS
+    from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS, XWIDE_HEAD_DIMS
 
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert "flash_f32x6.cuh" in _includes(SOURCES["flash_f32x6"].name)
@@ -281,7 +288,11 @@ def test_f32x6_pair_is_built_for_sm_90a():
         assert "launch_x6_fwd(" in body[:body.index("\n}\n")]
     header = _text("flash_f32x6.cuh")
     assert "X6_MAX_D = 256;" in header and "D >= 64 && D <= X6_MAX_D && D % 64 == 0" in header
-    assert FORMS_HEAD_DIMS == (64, 128, 192, 256)
+    assert WGMMA_HEAD_DIMS == (64, 128, 192, 256) and XWIDE_HEAD_DIMS == (320, 384, 448, 512)
+    assert "X6_PAIR_MAX_D = 512;" in header and "D >= 64 && D <= X6_PAIR_MAX_D && D % 64 == 0" in header
+    assert "D <= X6_MAX_D ? 2 : 1" in header  # the resident pieces of the pair's rows
+    for kind in ("dq", "dkv"):
+        assert f"launch_x6_{kind}_res<2>(" in header and f"launch_x6_{kind}_res<1>(" in header, kind
     assert "wgmma_ss<N, 0, 0, E>" in header and "wgmma_rs_n64<1, E>" in header  # S over N = 64 or 128 keys
     assert not [token for token in ("mma.sync", "ldmatrix", "cp.async.cg") if token in header]
     for kernel in ("x6_fwd_kernel", "x6_dq_kernel", "x6_dkv_kernel"):
