@@ -144,25 +144,16 @@
 //    four atoms stay held, and the rings get 8 / 7 / 6 / 5 slots each.
 //  * Registers: dQ takes up to X6_DQ_WIDE_ATOMS = 4 atoms a warpgroup (S or
 //    dP 32 + fragments 48 + 128); dK and dV keep 4 atoms a warpgroup (five
-//    spilled 2288 bytes), so the grid's z axis splits their columns in two
-//    chunks (3 + 2, 3 + 3, 4 + 3, 4 + 4 atoms), each chunk's block computing
-//    S^T and dP^T again: at most 2 / 3 of the bound.
+//    spilled 2288 bytes on an H100's ptxas), so the grid's z axis splits
+//    their columns in two chunks (3 + 2, 3 + 3, 4 + 3, 4 + 4 atoms), each
+//    chunk's block computing S^T and dP^T again: at most 2 / 3 of the bound.
 //  * Traffic. A block streams each tile's pieces from L2: dq 13 D / 64 atoms
-//    of 8 KB a 64-key tile (k three times a product, v, X1 and X2 of qs and
-//    do), dk/dv 10 D / 64 + 6 n a 64-row tile, about 4.5 TB/s across the card
-//    at the speed the tensor cores would allow, near what L2 gives. So the two
-//    blocks that read the same atoms are a cluster (x6_cluster_sync, the
-//    launches' cluster dimension) and each such atom is loaded once into both
-//    by TMA multicast, the two producers taking turns: in dq two neighbouring
-//    64-row blocks, which share the keys' pieces (9 D / 64 of the 13; the pair
-//    sweeps the union of the keys either block's rows see, a tile that its own
-//    rows do not see masked whole, and a block past the last rows reads no
-//    scratch); in dk/dv the two column chunks of a key block, which share every
-//    atom of S^T and dP^T (10 D / 64; the smaller chunk streams its last atom
-//    again, unread, to keep the rings in step). Each slot then waits for both
-//    blocks' consuming warps (an empty barrier of 8 arrivals, half of them
-//    from the other block, X6Take::release), and neither block leaves before
-//    the other is done with its slots.
+//    of 8 KB a 64-key tile, dk/dv 10 D / 64 + 6 n a 64-row tile, about 4.5
+//    TB/s across the card at the measured speed. Loading the pieces that two
+//    blocks share once into both, by TMA multicast in two-block clusters
+//    (neighbouring row blocks in dq, the two column chunks in dk/dv), moved
+//    dq by -4 % to +1 % and dk/dv by -6 % to +7 % on an H100: L2 is not what
+//    holds the pair back, and the clusters are not used.
 //
 // C ABI (loaded with ctypes): f32x6_fwd and f32x6_halo_fwd take
 // flash_xwide.cu's xwide_fwd_bf16's and xwide_halo_fwd_bf16's arguments (q
@@ -274,59 +265,6 @@ __device__ __forceinline__ void x6_put2(float* p, float x, float y, bool store) 
   }
 }
 
-// ---- two-block clusters ----
-
-__device__ __forceinline__ uint32_t x6_cluster_rank() {
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-  return rank;
-}
-
-// every thread of both blocks of the cluster: the barriers initialised (or the last remote access done)
-__device__ __forceinline__ void x6_cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// the address in the cluster's shared window of the shared-memory address `addr` of block `cta`
-__device__ __forceinline__ uint32_t x6_mapa(uint32_t addr, uint32_t cta) {
-  uint32_t mapped;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(mapped) : "r"(addr), "r"(cta));
-  return mapped;
-}
-
-// arrive on the barrier at `bar`, an address in the cluster's shared window (x6_mapa)
-__device__ __forceinline__ void x6_arrive_cluster(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// tma_load_3d / tma_load_4d into dst's offset in every block of the cluster that `mask` names, each completing
-// on the barrier at bar's offset in its block
-__device__ __forceinline__ void x6_tma_load_3d_mc(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                                  int c2, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%4, "
-      "%5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void x6_tma_load_4d_mc(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                                  int c2, int c3, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1, {%4, "
-      "%5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a ring's barriers, each slot's empty barrier waiting for the warps of `blocks` blocks' consuming warpgroups
-__device__ __forceinline__ void x6_init_ring(const XwRing& r, int blocks) {
-  for (int s = 0; s < r.n; ++s) {
-    mbar_init(&r.full[s], 1);
-    mbar_init(&r.empty[s], 4 * blocks);
-  }
-}
-
 // arrive on named barrier `id` without waiting (the other side syncs on it)
 __device__ __forceinline__ void x6_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -337,22 +275,15 @@ __device__ __forceinline__ void x6_bar_arrive(int id, int count) {
 // A warpgroup takes the atoms of its ring in order, a product group reading
 // the atoms taken since the last issued(); a group's atoms go back to the
 // producer together, once the group after it is issued and it is done (two
-// groups in flight, at most four atoms held). With CLUSTER they go back to the
-// producers of both blocks of a two-block cluster, which fill the slots of
-// both: `remote` is the other block's empty barriers' address in the cluster
-template <bool CLUSTER = false>
+// groups in flight, at most four atoms held)
 struct X6Take {
   XwRing r;
   int lane;
-  uint32_t remote = 0;
   XwPos at;
   XwPos first;      // the first atom of the group being taken
   int taking = 0;   // its atoms so far
   XwPos held_at;    // the first atom of the last group issued, not yet released
   int held = 0;     // its atoms; 0: none
-  __device__ __forceinline__ X6Take(const XwRing& ring, int lane_) : r(ring), lane(lane_) {
-    if (CLUSTER) remote = x6_mapa(smem_u32(r.empty), x6_cluster_rank() ^ 1);
-  }
   // the atom after the last taken, once it has arrived, without taking it: the next group takes it, so that
   // it goes back to the producer with that group (the resident rows' piece 1 above X6_MAX_D, read by two groups)
   __device__ __forceinline__ const void* peek() {
@@ -384,19 +315,11 @@ struct X6Take {
     if (held > 0) release(held_at, held);
     held = 0;
   }
-  // the next k atoms taken and released unread (a stream padded to keep step with the other block's)
-  __device__ __forceinline__ void skip(int k) {
-    drain();
-    for (int i = 0; i < k; ++i) take();
-    issued();
-    drain();
-  }
   __device__ __forceinline__ void release(XwPos p, int n) {
     __syncwarp();
     if (lane == 0)
       for (int i = 0; i < n; ++i) {
         mbar_arrive(&r.empty[p.st]);
-        if (CLUSTER) x6_arrive_cluster(remote + 8 * p.st);
         p.advance(r.n);
       }
   }
@@ -434,8 +357,8 @@ __device__ __forceinline__ void x6_feed_outer(XwFeed& feed, int c0, int c1, Load
 // X's piece 1 comes from the ring too: read by the group of Y1 and by that of
 // Y0, it is peeked by the first and taken by the second, so that it stays
 // until both are done
-template <int N = 64, int RES = 2, typename Take, typename PieceX2>
-__device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, Take& rd,
+template <int N = 64, int RES = 2, typename PieceX2>
+__device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, X6Take& rd,
                                         PieceX2 x2_of) {
   using E = __nv_bfloat16;
   for (int a = 0; a < A; ++a) {
@@ -470,8 +393,8 @@ __device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* 
 // of the N atoms in six products: X (64 x 16 F) as its three pieces'
 // fragments, Y_i's pieces (16 F rows of 64 columns) from the ring in
 // x6_feed_outer's order, read MN-major (their rows are the reduction)
-template <int N, int F, typename Take>
-__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][F][4], int n, Take& rd) {
+template <int N, int F>
+__device__ __forceinline__ void x6_outer(float (&acc)[N][32], const uint32_t (&f)[3][F][4], int n, X6Take& rd) {
   using E = __nv_bfloat16;
   constexpr uint64_t K_STEP = 16 * 128 >> 4;
 #pragma unroll
@@ -541,11 +464,6 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const XwRing ring1 = xw_ring(rings + slots * XW_ATOM_BYTES, bars + 2 * XW_MAX_SLOTS, slots);
   uint64_t* row_bar = bars + 4 * XW_MAX_SLOTS;
 
-  // above X6_MAX_D two neighbouring row blocks are a cluster, which sweeps the keys that either block's rows see
-  // (a tile that the block's own rows do not see is masked whole) and whose producers load every atom of the keys
-  // (k and v, which both read) once into both blocks, in turn; the grid's x axis is then even, and a block past
-  // the last rows reads no scratch and writes nothing
-  constexpr bool MC = RES == 1;
   const size_t grp = blockIdx.y;
   const int b = grp / Kv, kv = grp % Kv;
   const int G = H / Kv, rows = T * G;
@@ -553,24 +471,19 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const bool local = window >= 0;
   const int w2 = window / 2;
   const int t_lo = r0 / G, t_hi = (min(r0 + XW_ROWS, rows) - 1) / G;
-  const int c0 = MC ? (blockIdx.x & ~1) * XW_ROWS : r0;  // the cluster's first row
-  const KeySpan span =
-      keys_seen(kf, local, w2, c0 / G, (min(c0 + (MC ? 2 : 1) * XW_ROWS, rows) - 1) / G);
+  const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);
   const int kv_lo = span.lo;
   const int n_tiles = (span.hi - kv_lo + XW_ROWS - 1) / XW_ROWS;
   const int n0 = A - A / 2, n1 = A / 2;  // dq atoms of warpgroup 0 (the first), 1 (the rest)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    x6_init_ring(ring0, MC ? 2 : 1);
-    x6_init_ring(ring1, MC ? 2 : 1);
+    xw_init_ring(ring0);
+    xw_init_ring(ring1);
     mbar_init(row_bar, 1);
     fence_barrier_init();
   }
-  if (MC)
-    x6_cluster_sync();  // the other block's barriers are initialised before its loads and arrivals reach them
-  else
-    __syncthreads();
+  __syncthreads();
 
   if (warp >= 8) {  // the producer warpgroup: warp 8 loads the rows and feeds ring 0, warp 9 ring 1
     setmaxnreg_dec<XW_PRODUCER_REGS>();
@@ -584,18 +497,12 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     }
     if (lane == 0 && warp < 10) {
       XwFeed feed{warp == 8 ? ring0 : ring1};
-      const int rank = MC ? (int)x6_cluster_rank() : 0;  // with MC, this block's turn among the shared loads
       const CUtensorMap* rows_map = warp == 8 ? &qmap : &domap;  // X1 and X2 of S (qs) or of dP (do)
       const CUtensorMap* keys_map = warp == 8 ? &kmap : &vmap;   // Y of S (k) or of dP (v)
       for (int it = 0; it < n_tiles; ++it) {
         const int s0 = kv_lo + it * XW_ROWS;  // keys past S arrive as zeros
-        auto keys = [&](const CUtensorMap* map) {  // with MC each atom is multicast by block (piece + atom) % 2
-          return [=](void* dst, uint64_t* bar, int p, int a) {
-            if (!MC)
-              tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b);
-            else if (((p + a) & 1) == rank)
-              x6_tma_load_4d_mc(dst, map, bar, p * D + 64 * a, kv, s0, b, 3);
-          };
+        auto keys = [&](const CUtensorMap* map) {
+          return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b); };
         };
         x6_feed_dots<RES>(feed, A, keys(keys_map), [&](void* dst, uint64_t* bar, int p, int a) {
           tma_load_3d(dst, rows_map, bar, p * D + 64 * a, r0, (int)grp);
@@ -606,10 +513,6 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
           x6_feed_outer(feed, n0, A, keys(&kmap));  // warpgroup 1's
       }
     }
-    if (MC) {
-      __syncwarp();
-      x6_cluster_sync();  // the other block is done with this one's barriers and slots
-    }
     return;
   }
   setmaxnreg_inc<XW_CONSUMER_REGS>();
@@ -617,7 +520,7 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const int g = lane >> 2, tq = lane & 3;
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
-  X6Take<MC> rd(wg == 0 ? ring0 : ring1, lane);
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
   auto from_ring = [&](int) { return rd.take(); };  // the resident rows' third piece
   float s[32];            // warpgroup 0: S, then P; 1: dP, then dS
   uint32_t f[3][4][4];    // dS's pieces, the A operand of dQ += dS K
@@ -627,8 +530,7 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
   // the rows' LSE (warpgroup 0) or delta (1) (the scratch is padded to whole tiles, a pad row has +inf and 0),
   // and the keys each row sees
   const float* stat = (wg == 0 ? lse_g : delta_g) + grp * pad;
-  const float none = wg == 0 ? INFINITY : 0.f;  // a row past the scratch (a cluster's block past the last rows)
-  const float st[2] = {row_a < pad ? stat[row_a] : none, row_b < pad ? stat[row_b] : none};
+  const float st[2] = {stat[row_a], stat[row_b]};
   int vis_lo[2], vis_n[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -703,7 +605,6 @@ x6_dq_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ C
     xw_zero(acc);
     xw_fence(acc);
   }
-  if (MC) x6_cluster_sync();  // the other block is done with this one's barriers and slots
 }
 
 // ---- dk/dv ----
@@ -739,9 +640,6 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int s0 = blockIdx.x * XW_ROWS;
   const bool local = window >= 0;
   const int w2 = window / 2;
-  // above X6_MAX_D the two column chunks of the block's keys are a cluster, whose producers load every atom that
-  // both read (the tile's pieces of qs and do, and those of the keys' k and v) once into both blocks, in turn
-  constexpr bool MC = RES == 1;
   const XwChunk ch = xw_chunk(A);
   const int n = ch.c1 - ch.c0;  // dk and dv atoms of the block
   // the block's keys that exist, [k_lo, k_hi], and the group rows whose window reaches them, [row_lo, row_hi),
@@ -768,15 +666,12 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   }
 
   if (threadIdx.x == 0) {
-    x6_init_ring(ring0, MC ? 2 : 1);
-    x6_init_ring(ring1, MC ? 2 : 1);
+    xw_init_ring(ring0);
+    xw_init_ring(ring1);
     mbar_init(kv_bar, 1);
     fence_barrier_init();
   }
-  if (MC)
-    x6_cluster_sync();  // the other block's barriers are initialised before its loads and arrivals reach them
-  else
-    __syncthreads();
+  __syncthreads();
 
   if (warp >= 8) {  // the producer warpgroup: warp 8 loads k and v and feeds ring 0, warp 9 ring 1
     setmaxnreg_dec<XW_PRODUCER_REGS>();
@@ -798,30 +693,11 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
         auto rows = [&](const CUtensorMap* map) {
           return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_3d(dst, map, bar, p * D + 64 * a, r0, (int)grp); };
         };
-        if (MC) {  // S^T's and dP^T's atoms, each multicast by block (piece + atom) % 2 (the other only expects it)
-          x6_feed_dots<RES>(
-              feed, A,
-              [&](void* dst, uint64_t* bar, int p, int a) {
-                if (((p + a) & 1) == (int)x6_cluster_rank())
-                  x6_tma_load_3d_mc(dst, dots_map, bar, p * D + 64 * a, r0, (int)grp, 3);
-              },
-              [&](void* dst, uint64_t* bar, int p, int a) {
-                if (((p + a) & 1) == (int)x6_cluster_rank())
-                  x6_tma_load_4d_mc(dst, keys_map, bar, p * D + 64 * a, kv, s0, b, 3);
-              });
-        } else {
-          x6_feed_dots<RES>(feed, A, rows(dots_map), [&](void* dst, uint64_t* bar, int p, int a) {
-            tma_load_4d(dst, keys_map, bar, p * D + 64 * a, kv, s0, b);
-          });
-        }
-        // with MC each block streams the atoms of a whole first chunk, ceil(A / 2): the second chunk of an odd A
-        // one past its own (loaded and skipped unread), in step with the first
-        x6_feed_outer(feed, ch.c0, MC ? ch.c0 + (A + 1) / 2 : ch.c1, rows(outer_map));
+        x6_feed_dots<RES>(feed, A, rows(dots_map), [&](void* dst, uint64_t* bar, int p, int a) {
+          tma_load_4d(dst, keys_map, bar, p * D + 64 * a, kv, s0, b);
+        });
+        x6_feed_outer(feed, ch.c0, ch.c1, rows(outer_map));
       }
-    }
-    if (MC) {
-      __syncwarp();
-      x6_cluster_sync();  // the other block is done with this one's barriers and slots
     }
     return;
   }
@@ -837,7 +713,7 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int vis_a = !in_a ? 1 << 30 : local ? key_a - kf.off - w2 : 0;
   const int vis_b = !in_b ? 1 << 30 : local ? key_b - kf.off - w2 : 0;
   const bool keys_inside = s0 >= kf.lo && s0 + XW_ROWS <= kf.hi;
-  X6Take<MC> rd(wg == 0 ? ring0 : ring1, lane);
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
   auto from_ring = [&](int) { return rd.take(); };  // the resident keys' third piece
   float s[32];           // warpgroup 0: S^T, then P^T; 1: dP^T, then dS^T (keys x the tile's rows)
   uint32_t f[3][4][4];   // P^T's or dS^T's pieces, the A operand of the kept product
@@ -905,7 +781,6 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       x6_fence(f);
       wgmma_fence();
       x6_outer<X6_DKV_ATOMS>(acc, f, n, rd);  // dV += P^T do or dK += dS^T qs over the chunk's atoms
-      if (MC && blockIdx.z == 1 && (A & 1)) rd.skip(3);
       // the first group of the next tile's products would wait for these anyway (X6Take::issued); done here,
       // the fragments are free before S^T or dP^T takes its registers, so that at D = 256 the accumulators,
       // the fragments and S^T or dP^T are never live together
@@ -935,7 +810,6 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
     xw_zero(acc);
     xw_fence(acc);
   }
-  if (MC) x6_cluster_sync();  // the other block is done with this one's barriers and slots
 }
 
 // ---- the forward ----
@@ -1070,7 +944,7 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
   const size_t mem_a = mem(row_a), mem_b = mem(row_b);
-  X6Take<> rd(wg == 0 ? ring0 : ring1, lane);
+  X6Take rd{wg == 0 ? ring0 : ring1, lane};
 
   if (wg == 0) {  // S = qs K^T and the online softmax; P goes to warpgroup 1
     // the keys each of the thread's two rows sees, vis_n of them from vis_lo on (none for a pad row)
@@ -1267,31 +1141,18 @@ inline int launch_x6_fwd(const void* q, const void* k, const void* v, const void
                                                               window, scale, frame, dev, stream);
 }
 
-// above X6_MAX_D (RES = 1) neighbouring row blocks run as clusters of two (x6_dq_kernel), the grid's x axis even
 template <int RES>
 int launch_x6_dq_res(const CUtensorMap (&maps)[4], const void* lse_g, const void* delta_g, void* dq_acc, int B, int T,
                      int H, int Kv, int D, int pad, int window, KeyFrame frame, int accumulate, int dev, void* stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  int err = allow_smem(x6_dq_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
+  const int err = allow_smem(x6_dq_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
   const int fixed = x6_fixed(D / 64, RES), slots = xw_slots(fixed);
-  const int blocks = pad / XW_ROWS, cluster = RES == 1 ? 2 : 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((blocks + cluster - 1) / cluster * cluster, B * Kv);
-  config.blockDim = dim3(XW_THREADS);
-  config.dynamicSmemBytes = 1024 + fixed + 2 * slots * XW_ATOM_BYTES;
-  config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = RES == 1 ? 1 : 0;
-  err = (int)cudaLaunchKernelEx(&config, x6_dq_kernel<RES>, maps[0], maps[1], maps[2], maps[3],
-                                static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-                                static_cast<float*>(dq_acc), T, H, Kv, D, pad, window, frame, accumulate, slots);
-  return err != 0 ? err : (int)cudaGetLastError();
+  x6_dq_kernel<RES><<<dim3(pad / XW_ROWS, B * Kv), XW_THREADS, 1024 + fixed + 2 * slots * XW_ATOM_BYTES,
+                      static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+      static_cast<float*>(dq_acc), T, H, Kv, D, pad, window, frame, accumulate, slots);
+  return (int)cudaGetLastError();
 }
 
 inline int launch_x6_dq(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
@@ -1308,34 +1169,19 @@ inline int launch_x6_dq(const void* k, const void* v, const void* qs_g, const vo
              : launch_x6_dq_res<1>(maps, lse_g, delta_g, dq_acc, B, T, H, Kv, D, pad, window, frame, accumulate, dev, stream);
 }
 
-// above X6_MAX_D (RES = 1) the grid's two column chunks of a key block run as a cluster (x6_dkv_kernel)
 template <int RES>
 int launch_x6_dkv_res(const CUtensorMap (&maps)[4], const void* lse_g, const void* delta_g, void* dk, void* dv, int B,
                       int T, int S, int H, int Kv, int D, int pad, int window, KeyFrame frame, int accumulate, int dev,
                       void* stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  int err = allow_smem(x6_dkv_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
+  const int err = allow_smem(x6_dkv_kernel<RES>, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
   const int A = D / 64, fixed = x6_fixed(A, RES), slots = xw_slots(fixed);
-  const int chunks = (A + X6_DKV_ATOMS - 1) / X6_DKV_ATOMS;
-  if (chunks != (RES == 1 ? 2 : 1)) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((S + XW_ROWS - 1) / XW_ROWS, B * Kv, chunks);
-  config.blockDim = dim3(XW_THREADS);
-  config.dynamicSmemBytes = 1024 + fixed + 2 * slots * XW_ATOM_BYTES;
-  config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = chunks;
-  config.attrs = cluster;
-  config.numAttrs = RES == 1 ? 1 : 0;
-  err = (int)cudaLaunchKernelEx(&config, x6_dkv_kernel<RES>, maps[0], maps[1], maps[2], maps[3],
-                                static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
-                                static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, D, pad, window, frame,
-                                accumulate, slots);
-  return err != 0 ? err : (int)cudaGetLastError();
+  x6_dkv_kernel<RES><<<dim3((S + XW_ROWS - 1) / XW_ROWS, B * Kv, (A + X6_DKV_ATOMS - 1) / X6_DKV_ATOMS), XW_THREADS,
+                       1024 + fixed + 2 * slots * XW_ATOM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse_g), static_cast<const float*>(delta_g),
+      static_cast<float*>(dk), static_cast<float*>(dv), T, S, H, Kv, D, pad, window, frame, accumulate, slots);
+  return (int)cudaGetLastError();
 }
 
 inline int launch_x6_dkv(const void* k, const void* v, const void* qs_g, const void* do_rows, const void* lse_g,
