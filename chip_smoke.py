@@ -2778,11 +2778,10 @@ def _x6_json(records: dict, launches: dict) -> list:
 
 # csrc/flash_f32x6.cuh's pair above head dim 256 (one piece of the resident rows in shared memory, dk/dv in two
 # column chunks), checked and timed at every head dim of XWIDE_DIMS at the forms site, and at X6_WIDE_CHECKED also
-# at the windowed and grouped sites of X6_SITES and the halo rank shape; the forms chunked forward, which fp32
-# still runs above 256, at X6_CHUNKED_DIMS; and the chunked instance at the first head dim that it serves at every
-# type (CHUNKED_FIRST_D), its forward, dq and dk/dv timed once each at fp32, bf16 and fp16
+# at the windowed and grouped sites of X6_SITES and the halo rank shape, beside the forms chunked forward that fp32
+# still runs there; and the chunked instance at the first head dim that it serves at every type
+# (CHUNKED_FIRST_D), its forward, dq and dk/dv timed once each at fp32, bf16 and fp16
 X6_WIDE_CHECKED = (320, 512)
-X6_CHUNKED_DIMS = (320, 512)
 CHUNKED_FIRST_D = 576
 
 
@@ -2829,7 +2828,7 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
     ``enable_gqa`` and the memory-efficient route on K and V expanded; both in the log), and the pair as its
     callers pay it (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus
     ``flash_bwd_dkv``); at X6_WIDE_CHECKED also the windowed and grouped sites of X6_SITES and the halo rank
-    shape, checked only. The forms chunked forward (fp32's above 256) at X6_CHUNKED_DIMS, checked (the last key
+    shape, checked only. The forms chunked forward (fp32's above 256) at X6_WIDE_CHECKED, checked (the last key
     tile left out) and timed beside its FMA bound; the chunked instance at CHUNKED_FIRST_D at fp32, bf16 and
     fp16, its forward, dq with the forms pre-pass and post-pass, and dk/dv each held to the plain fp32 version
     (``_forms_tols``) and timed once (it takes about half a second a call) beside its bound and the PyTorch
@@ -2850,7 +2849,7 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
         o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
         flops, nbytes = _pair_flops_bytes(B, T, H, D, 4)
         lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
-        if D in X6_CHUNKED_DIMS:  # the forms chunked forward, which fp32 runs above 256
+        if D in X6_WIDE_CHECKED:  # the forms chunked forward, which fp32 runs above 256
             got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
             fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
             torch.cuda.synchronize()

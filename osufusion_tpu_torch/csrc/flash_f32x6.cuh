@@ -140,8 +140,9 @@
 //    160-256 KB: only piece 0 stays (80 / 96 / 112 / 128 KB at D = 320 / 384
 //    / 448 / 512), and piece 1 (X1) streams through the ring too, after Y1
 //    (x6_feed_dots). It is read by the group of Y1 and by that of Y0, so the
-//    first group peeks at it and the second takes it (X6Take::peek): at most
-//    four atoms stay held, and the rings get 8 / 7 / 6 / 5 slots each.
+//    first group takes it and carries it into the second (X6Take::
+//    issued_carry): at most four atoms stay held, and the rings get 8 / 7 /
+//    6 / 5 slots each.
 //  * Registers: dQ takes up to X6_DQ_WIDE_ATOMS = 4 atoms a warpgroup (S or
 //    dP 32 + fragments 48 + 128); dK and dV keep 4 atoms a warpgroup (five
 //    spilled 2288 bytes on an H100's ptxas), so the grid's z axis splits
@@ -284,12 +285,6 @@ struct X6Take {
   int taking = 0;   // its atoms so far
   XwPos held_at;    // the first atom of the last group issued, not yet released
   int held = 0;     // its atoms; 0: none
-  // the atom after the last taken, once it has arrived, without taking it: the next group takes it, so that
-  // it goes back to the producer with that group (the resident rows' piece 1 above X6_MAX_D, read by two groups)
-  __device__ __forceinline__ const void* peek() {
-    mbar_wait(&r.full[at.st], at.phase);
-    return r.slots + at.st * r.bytes;
-  }
   // the next atom, once it has arrived
   __device__ __forceinline__ const void* take() {
     if (taking++ == 0) first = at;
@@ -308,6 +303,18 @@ struct X6Take {
     held_at = first;
     held = taking;
     taking = 0;
+  }
+  // issued() for a group of two atoms whose second (the resident rows' piece 1 above X6_MAX_D, which the next
+  // group reads too) is carried into the next group, and goes back to the producer with it
+  __device__ __forceinline__ void issued_carry() {
+    if (held > 0) {
+      wgmma_wait<1>();
+      release(held_at, held);
+    }
+    held_at = first;
+    held = 1;
+    first.advance(r.n);  // the carried atom, the one after the group's first
+    taking = 1;
   }
   // every group of the warpgroup is done and every atom released
   __device__ __forceinline__ void drain() {
@@ -355,8 +362,9 @@ __device__ __forceinline__ void x6_feed_outer(XwFeed& feed, int c0, int c1, Load
 // X's piece 2 of atom a where x2(a) says, taken just before Y0[a]: from the
 // ring in the pair (x6_feed_dots' X2), resident in the forward. With RES = 1
 // X's piece 1 comes from the ring too: read by the group of Y1 and by that of
-// Y0, it is peeked by the first and taken by the second, so that it stays
-// until both are done
+// Y0, it is taken by the first and carried into the second (issued_carry), so
+// that it stays until both are done (a wait for it outside a take, in its
+// place, made ptxas serialise dk/dv's wgmma: C7520)
 template <int N = 64, int RES = 2, typename PieceX2>
 __device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* x01, int A, X6Take& rd,
                                         PieceX2 x2_of) {
@@ -369,14 +377,16 @@ __device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* 
     wgmma_commit();
     rd.issued();
     const uint64_t y1 = desc_kmajor(rd.take());
-    const uint64_t x1 = desc_kmajor(RES == 2 ? x01 + (A + a) * XW_ATOM : rd.peek());
+    const uint64_t x1 = desc_kmajor(RES == 2 ? x01 + (A + a) * XW_ATOM : rd.take());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y1 + 2 * kk, 1);
     wgmma_commit();
-    rd.issued();
-    if (RES == 1) rd.take();  // X1[a], peeked above: this group releases it
+    if (RES == 1)
+      rd.issued_carry();  // X1[a] goes back with the next group, which reads it too
+    else
+      rd.issued();
     const uint64_t x2 = desc_kmajor(x2_of(a)), y0 = desc_kmajor(rd.take());
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
