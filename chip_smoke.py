@@ -955,7 +955,6 @@ def phase_sampler_check(model, params, song: tuple, method: str = "ddim", steps:
     signal through the kernels."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.ops import flash_attention as fa
-    from osufusion_tpu_torch.ops import flash_forms as forms
 
     a, c, x0 = song
     plain, zero = copy.deepcopy(params), copy.deepcopy(params)
@@ -965,10 +964,10 @@ def phase_sampler_check(model, params, song: tuple, method: str = "ddim", steps:
     with torch.no_grad():
         zero.final_conv.weight.zero_()
         zero.final_conv.bias.zero_()
-    before = fa.flash_fwd.launches + forms.forms_fwd.launches
+    before = fa.flash_fwd.launches
     signals = [model.sample(p, a, c, x=x0, cond_scale=2.0, sampling_timesteps=steps, method=method)
                for p in (params, plain, zero)]
-    launches = fa.flash_fwd.launches + forms.forms_fwd.launches - before
+    launches = fa.flash_fwd.launches - before
     through_kernels, through_plain, zero_eps = signals
     rel_plain, rel_zero = _rel(through_kernels, through_plain), _rel(through_kernels, zero_eps)
     flipped = ((through_kernels > 0) != (zero_eps > 0)).float().mean().item()
@@ -1227,23 +1226,22 @@ def _all_launches(fa, ha) -> tuple:
 
 # the forms instances of csrc/flash_forms.cu, (operand dtype, head dim): fp32, bf16 and fp16 at D = 64 ...
 # 256, each with the bodies it has (_forms_bodies); the main paths run fp32/64 (fp32 training and serving),
-# and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep. The chunked forward runs at fp32
-# above 256 (and every chunked body at every type above 512) and is held to plain through ``sdpa`` in (f).
+# and bf16/128's and fp16/64's pre-pass and post-pass around K2's sweep. The chunked dq and dk/dv run at every
+# type above 512 (phase_f32_wide_kernels); the family has no forward.
 FORMS_INSTANCES = [(dt, D) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (64, 128, 192, 256)]
 # the main instances that the shard forms (e) and the extra kernel-level sites run; fp16/64 runs on (h) and (d)
 FORMS_MAIN = ((torch.float32, 64), (torch.bfloat16, 128))
 F16_MAIN = (torch.float16, 64)
-FORMS_BODIES = ("fwd", "dq", "dkv", "prep", "post", "merge")
+FORMS_BODIES = ("dq", "dkv", "prep", "post", "merge")
 
 
 def _forms_bodies(dtype, D: int) -> tuple:
-    """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): every one
-    above D = 512, the forward too at fp32 above 256; below, the pre-pass, post-pass and merge (K1, K2's sweep,
-    the wgmma windowed pair and csrc/flash_xwide.cuh's kernels take the rest at bf16 and fp16,
-    csrc/flash_f32x6.cuh's forward up to 256 and pair up to 512 at fp32)."""
-    if D > 512:
-        return FORMS_BODIES
-    return FORMS_BODIES[:1] + FORMS_BODIES[3:] if dtype == torch.float32 and D > 256 else FORMS_BODIES[3:]
+    """The bodies that the forms instance (dtype, D) has (csrc/flash_forms.cu, FORMS_DISPATCH): the chunked dq
+    and dk/dv above D = 512, and the pre-pass, post-pass and merge at every D (K1, K2's sweep, the wgmma
+    windowed pair and csrc/flash_xwide.cuh's kernels take the rest at bf16 and fp16, csrc/flash_f32x6.cuh's
+    forward and pair up to 512 at fp32, and every forward above 256 runs csrc/flash_xwide.cuh's or
+    csrc/flash_f32x6.cuh's)."""
+    return FORMS_BODIES if D > 512 else FORMS_BODIES[2:]
 # fp32 instances vs their plain fp32 versions on the same inputs: the same arithmetic (every rounding to the
 # operand type is the identity), summed in another order: over 4096 keys of O(1) terms fp32's worst case is
 # ~4096 * 2^-24 = 2.4e-4 relative, its typical error a few 1e-7. The planted faults (the last key tile
@@ -1282,7 +1280,7 @@ def _forms_counts(reset: bool = False) -> dict:
     """The forms entry points' launch counters (set to 0 first with ``reset``)."""
     from osufusion_tpu_torch.ops import flash_forms as forms
 
-    fns = {"fwd": forms.forms_fwd, "prep": forms.forms_bwd_prep, "dq": forms.forms_bwd_dq, "dkv": forms.forms_bwd_dkv,
+    fns = {"prep": forms.forms_bwd_prep, "dq": forms.forms_bwd_dq, "dkv": forms.forms_bwd_dkv,
            "post": forms.forms_bwd_post, "merge": forms.forms_ring_merge}
     if reset:
         for fn in fns.values():
@@ -1307,7 +1305,7 @@ def _attention_inputs(B: int, T: int, H: int, Kv: int, tables: bool, seed: int, 
 
 def _forms_call(q, k_rot, v, do, cos, sin, window: int):
     """One site through the forms instance of q's (dtype, D), directly through its wrappers, and where the
-    instance has no such body through the wgmma kernel that the route takes (K1, or at fp32
+    instance has no such body through the wgmma kernel that the route takes (every forward: K1, or at fp32
     csrc/flash_f32x6.cuh's forward; K2's sweep or at fp32 csrc/flash_f32x6.cuh's pair for a global site's dq
     and dk/dv): (o, lse), then the backward's
     (dq, dk_rot, dv) from them, and the pre-pass's scratch."""
@@ -1318,12 +1316,7 @@ def _forms_call(q, k_rot, v, do, cos, sin, window: int):
     kv = 1 if k_rot.ndim == 3 else k_rot.shape[2]
     scale = D**-0.5
     bodies = _forms_bodies(q.dtype, D)
-    if "fwd" in bodies:
-        o = torch.empty_like(q)
-        lse = torch.empty((B, T * H), dtype=torch.float32, device="cuda")
-        forms.forms_fwd(q, k_rot, v, cos, sin, o, lse, window, scale)
-    else:
-        o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
     prep = fa.scratch_prep("forms" if "dq" in bodies else forms.route("flash_bwd_sweep", q), q, o, lse, do, cos, sin,
                            kv, scale)
     dk = torch.empty(k_rot.shape, dtype=torch.float32, device="cuda")
@@ -1380,8 +1373,8 @@ def phase_forms_kernels() -> dict:
     """Every forms instance against its plain fp32 version at FORMS_SITE (global, MQA, tables) with planted
     faults above the bounds, on ``_forms_call``'s chain, its bodies timed by CUDA events beside their bounds,
     their plain versions and rope + SDPA; the main instances also at FORMS_GROUPED, and those with a forms dq
-    at FORMS_WINDOWED. Returns {(dtype, D): {body: record}} for the bodies each instance has of fwd, dq, dkv
-    and the helpers prep, post, merge."""
+    at FORMS_WINDOWED. Returns {(dtype, D): {body: record}} for the bodies each instance has of dq, dkv and
+    the helpers prep, post, merge."""
     import torch.nn.functional as F
 
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -1413,7 +1406,6 @@ def phase_forms_kernels() -> dict:
             scale = D**-0.5
             o_acc, lse_acc = o.float(), lse.clone()
             timed = {
-                "fwd": (lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale), 3),
                 "prep": (lambda: forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale), 5),
                 "dq": (lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False), 3),
                 "dkv": (lambda: forms.forms_bwd_dkv(k_rot, v, prep, torch.empty(k.shape, device="cuda"),
@@ -1423,7 +1415,6 @@ def phase_forms_kernels() -> dict:
             }
             ms = {body: _cuda_ms(*timed[body]) for body in bodies}
             plain_timed = {
-                "fwd": (lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1),
                 "dq": (lambda: fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
                 "dkv": (lambda: fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1), 1),
                 "merge": (lambda: fa.ring_merge_reference(o_acc, lse_acc, o, lse), 3),
@@ -1439,10 +1430,7 @@ def phase_forms_kernels() -> dict:
                 kr = apply_rope(k_in, cos, sin)[:, None]
                 return F.scaled_dot_product_attention(qr, kr, v_in[:, None], enable_gqa=True).transpose(1, 2)
 
-            lib_fwd_ms = lib_bwd_ms = None
-            if "fwd" in bodies:
-                with torch.no_grad():
-                    lib_fwd_ms = _cuda_ms(lambda: library(q, k, v), 3)
+            lib_bwd_ms = None
             if "dq" in bodies:
                 leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
                 lib_out = library(*leaves)
@@ -1450,7 +1438,6 @@ def phase_forms_kernels() -> dict:
                 del leaves, lib_out
             rows_bytes, keys_bytes, stats = B * T * H * D * size, B * T * D * size, B * T * H * 4
             bounds = {
-                "fwd": _forms_bound(attention_flops("forward", B, T, H, D, None), 2 * rows_bytes + 2 * keys_bytes + stats, dt),
                 "dq": _forms_bound(attention_flops("backward_dq", B, T, H, D, None),  # qs do; k v; lse delta; dq fp32
                                    2 * rows_bytes + 2 * keys_bytes + 2 * stats + B * T * H * D * 4, dt),
                 "dkv": _forms_bound(attention_flops("backward_dkv", B, T, H, D, None),  # qs do; k v; lse delta; dk dv fp32
@@ -1460,7 +1447,7 @@ def phase_forms_kernels() -> dict:
                 "post": _forms_bound(B * T * H * D * 3, B * T * H * D * 4 + rows_bytes + 2 * T * D * 4, dt),  # dq_acc; dq; tables
                 "merge": _forms_bound(B * T * H * (4 * D + 10), B * T * H * D * 8 + rows_bytes + 3 * stats, dt),
             }
-            library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+            library_ms = {"dq": lib_bwd_ms, "dkv": lib_bwd_ms}
             records[(dt, D)] = {
                 body: {"max_abs_err": err, "ms": ms[body],
                        "plain_ms": plain[body], "bound_ms": bounds[body][0], "bound_by": bounds[body][1],
@@ -1468,7 +1455,7 @@ def phase_forms_kernels() -> dict:
             _log(f"[forms kernels] {name} B={B} T={T} H={H} global: "
                  + "; ".join(f"{body} {ms[body]:.3f} ms (bound {bounds[body][0]:.3f} by {bounds[body][1]}, "
                              f"{bounds[body][0] / ms[body]:.1%}; plain {plain[body]:.3f})" for body in ms)
-                 + f"; rope+SDPA forward {lib_fwd_ms} ms, backward {lib_bwd_ms} ms")
+                 + f"; rope+SDPA backward {lib_bwd_ms} ms")
             del q, k_rot, k, v, do, got, o, lse, prep, o_acc, lse_acc
             torch.cuda.empty_cache()
         for rec in records[(dt, D)].values():
@@ -1479,8 +1466,9 @@ def phase_forms_kernels() -> dict:
 
 
 # (f): the sites beyond bf16 at D <= 256: fp16 at every head dim of K1 (windowed: K1's forward, the fp16 wgmma
-# pair's backward), and each operand dtype at head dims above 256 (fp32: the chunked forward and
-# csrc/flash_f32x6.cuh's pair; bf16 and fp16: csrc/flash_xwide.cuh's forward and pair, no chunked launch);
+# pair's backward), and each operand dtype at head dims above 256 (fp32: csrc/flash_f32x6.cuh's forward on qs's
+# pieces from its pre-pass, and its pair; bf16 and fp16: csrc/flash_xwide.cuh's forward and pair; no chunked
+# launch);
 # (dtype, D, window)
 FORMS_NEW_SITES = ([(torch.float16, D, 256) for D in (64, 128, 192, 256)]
                    + [(dt, D, -1) for dt in (torch.float32, torch.bfloat16, torch.float16) for D in (320, 512)])
@@ -1493,8 +1481,8 @@ def phase_forms_raise() -> None:
     """(f) Every form that the JAX package runs runs a kernel on the card: through ``ops.attention.sdpa``
     under a gradient, fp16 operands at D = 64 ... 256 (windowed: K1 once, then the fp16 wgmma pair, K3a with
     its pre-pass and K3b, once each, and no forms kernel) and fp32, bf16 and fp16 at D = 320 and 512 (global:
-    fp32 the chunked forward, then csrc/flash_f32x6.cuh's dq and dk/dv between the forms pre-pass and
-    post-pass once each, no chunked dq or dk/dv and no wgmma kernel; bf16
+    fp32 csrc/flash_f32x6.cuh's forward on qs's pieces (counted as one K1 and one streamed forward), then its
+    dq and dk/dv between the forms pre-pass and post-pass once each, no chunked dq or dk/dv; bf16
     and fp16 csrc/flash_xwide.cuh's forward, dq and dk/dv once each between the forms pre-pass and post-pass,
     counted as one K1 and one K2, and no launch of the chunked forward, dq or dk/dv) raise nothing,
     and hold o and the gradients to autograd through the plain attention in fp32, with a planted fault (the
@@ -1554,16 +1542,16 @@ def phase_forms_raise() -> None:
         fault_rel = _rel(fault, ref)
         name = f"{_dtype_name(dt)}/{D}{'' if w is None else f' W={w}'}"
         held.append(f"{name}: o {rels[0]:.2e}, dq {rels[1]:.2e}, dk {rels[2]:.2e}, dv {rels[3]:.2e} (fault "
-                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}, flash_xwide {xwide}, flash_f32x6's wide pair "
+                    f"{fault_rel:.2e}), forms {runs}, K1 {moved[0]}, flash_xwide {xwide}, flash_f32x6 above 256 "
                     f"{x6_wide}")
         k1 = int(dt == torch.float16 and D <= 256)  # K1's forward, then the fp16 wgmma pair
         wide = int(dt != torch.float32 and D > 256)  # flash_xwide's forward (a K1 launch) and pair (a K2 launch)
-        x6 = int(dt == torch.float32 and D > 256)  # the chunked forward, then flash_f32x6's pair
-        if (moved != [k1 + wide, wide, k1, k1] + [0] * 7 or xwide != {"fwd": wide, "dq": wide, "dkv": wide}
-                or x6_wide != {"dq": x6, "dkv": x6}
-                or runs != {"fwd": x6, "prep": x6 + wide, "dq": 0, "dkv": 0, "post": x6 + wide, "merge": 0}):
+        x6 = int(dt == torch.float32 and D > 256)  # flash_f32x6's streamed forward (a K1 launch), then its pair
+        if (moved != [k1 + wide + x6, wide, k1, k1] + [0] * 7 or xwide != {"fwd": wide, "dq": wide, "dkv": wide}
+                or x6_wide != {"fwd": x6, "dq": x6, "dkv": x6}
+                or runs != {"prep": x6 + wide, "dq": 0, "dkv": 0, "post": x6 + wide, "merge": 0}):
             failures.append(f"{name}: forms launches {runs}, wgmma launches moved {moved}, flash_xwide {xwide}, "
-                            f"flash_f32x6's wide pair {x6_wide}")
+                            f"flash_f32x6 above 256 {x6_wide}")
         if not (max(rels) < tol and torch.isfinite(out).all() and all(torch.isfinite(t.grad).all() for t in leaves)):
             failures.append(f"{name}: rel L2 o, dq, dk, dv {rels} above {tol}")
         if not fault_rel > tol:
@@ -2219,7 +2207,7 @@ def _xwide_site(where: str, q, k_rot, v, do, cos, sin, window: int, failures: li
     torch.cuda.synchronize()
     moved = {k: n - counts[k] for k, n in _xwide_counts().items()}
     runs = {k: n - forms_counts[k] for k, n in _forms_counts().items()}
-    if moved != {"fwd": 1, "dq": 1, "dkv": 1} or any(runs[k] for k in ("fwd", "dq", "dkv")):
+    if moved != {"fwd": 1, "dq": 1, "dkv": 1} or any(runs[k] for k in ("dq", "dkv")):
         failures.append(f"{where}: flash_xwide launches {moved}, forms launches {runs}")
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     if window < 0:
@@ -2396,7 +2384,7 @@ def phase_xwide_kernels() -> dict:
                 "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, None),
                               2 * rows + 2 * keys + 2 * stats + 4 * keys),
             }
-            library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+            library_ms = {"dq": lib_bwd_ms, "dkv": lib_bwd_ms}
             records[dt, D] = {kind: {"max_abs_err": 0.0, "ms": ms[kind], "plain_ms": plain[kind],
                                      "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
                                      "library_ms": library_ms[kind]} for kind in ms}
@@ -2502,7 +2490,7 @@ def phase_xwide_paths(workdir: Path) -> tuple[dict, dict]:
     x6_wide = phase_forms_grad_check("float32", 320, B=1)["x6_wide"]
     _log(f"[xwide paths] flash_xwide launches on the paths: "
          + "; ".join(f"{_dtype_name(dt)}/{D} {kind} {n}" for (dt, D, kind), n in launches.items())
-         + f"; flash_f32x6's pair at fp32/320 {x6_wide}; phase {time.perf_counter() - t_phase:.1f} s")
+         + f"; flash_f32x6's instances above 256 at fp32/320 {x6_wide}; phase {time.perf_counter() - t_phase:.1f} s")
     return launches, x6_wide
 
 
@@ -2776,20 +2764,26 @@ def _x6_json(records: dict, launches: dict) -> list:
     return entries
 
 
-# csrc/flash_f32x6.cuh's pair above head dim 256 (one piece of the resident rows in shared memory, dk/dv in two
+# csrc/flash_f32x6.cuh above head dim 256: its pair (one piece of the resident rows in shared memory, dk/dv in two
 # column chunks), checked and timed at every head dim of XWIDE_DIMS at the forms site, and at X6_WIDE_CHECKED also
-# at the windowed and grouped sites of X6_SITES and the halo rank shape, beside the forms chunked forward that fp32
-# still runs there; and the chunked instance at the first head dim that it serves at every type
-# (CHUNKED_FIRST_D), its forward, dq and dk/dv timed once each at fp32, bf16 and fp16
+# at the windowed and grouped sites of X6_SITES and the halo rank shape; its forward on qs's pieces from its
+# pre-pass (O's atoms on both warpgroups) checked and timed at X6_WIDE_CHECKED, checked at the same sites; and at
+# the first head dim above 512 (CHUNKED_FIRST_D) the forward at every type (csrc/flash_f32x6.cuh's at fp32,
+# csrc/flash_xwide.cuh's at bf16 and fp16, both streaming qs and splitting O's columns in chunks over blocks) and
+# the chunked dq and dk/dv that the forms family still runs there, each timed
 X6_WIDE_CHECKED = (320, 512)
 CHUNKED_FIRST_D = 576
 
 
 def _x6_wide_counts() -> dict:
-    """The launch counters of csrc/flash_f32x6.cuh's pair above head dim 256."""
+    """The launch counters of csrc/flash_f32x6.cuh's instances above head dim 256: the forward on qs's pieces
+    (``flash_fwd``'s and ``halo_fwd``'s streamed launches, which at bf16 and fp16 count csrc/flash_xwide.cuh's
+    above 512 too), dq and dk/dv."""
     from osufusion_tpu_torch.ops import flash_attention as fa
+    from osufusion_tpu_torch.ops import halo_attention as ha
 
-    return {"dq": fa.f32x6_bwd_dq.wide_launches, "dkv": fa.f32x6_bwd_dkv.wide_launches}
+    return {"fwd": fa.flash_fwd.streamed_launches + ha.halo_fwd.streamed_launches,
+            "dq": fa.f32x6_bwd_dq.wide_launches, "dkv": fa.f32x6_bwd_dkv.wide_launches}
 
 
 def _pair_flops_bytes(B: int, T: int, H: int, D: int, item: int) -> tuple[dict, dict]:
@@ -2818,7 +2812,13 @@ def _cut_pair(q, k_rot, v, o, lse, do, cos, sin):
             torch.cat([dv, pad], dim=1))
 
 
-def phase_f32_wide_kernels() -> tuple[dict, dict]:
+def _x6_fwd_bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The forward's bound on the tensor cores: six bf16 products per fp32 product at fp32, one at bf16 and
+    fp16."""
+    return _bound((6 if dtype == torch.float32 else 1) * flops, nbytes)
+
+
+def phase_f32_wide_kernels() -> tuple[dict, dict, dict]:
     """fp32 above head dim 256: csrc/flash_f32x6.cuh's dq and dk/dv (six bf16 products per fp32 product, one
     piece of the resident rows in shared memory, dk/dv's columns in two chunks) at XWIDE_DIMS at the forms site
     (B=2, T=4096, H=16, global, tables) through the global backward, against the plain fp32 versions at the
@@ -2827,21 +2827,25 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
     six-product bound, its plain version and PyTorch's fp32 backward (``_library_ms``: rope + SDPA, the faster of
     ``enable_gqa`` and the memory-efficient route on K and V expanded; both in the log), and the pair as its
     callers pay it (``flash_bwd_dq`` with the forms pre-pass, the split and the post-pass, plus
-    ``flash_bwd_dkv``); at X6_WIDE_CHECKED also the windowed and grouped sites of X6_SITES and the halo rank
-    shape, checked only. The forms chunked forward (fp32's above 256) at X6_WIDE_CHECKED, checked (the last key
-    tile left out) and timed beside its FMA bound; the chunked instance at CHUNKED_FIRST_D at fp32, bf16 and
-    fp16, its forward, dq with the forms pre-pass and post-pass, and dk/dv each held to the plain fp32 version
-    (``_forms_tols``) and timed once (it takes about half a second a call) beside its bound and the PyTorch
-    call. Returns ({D: {"dq" | "dkv": record}} of the pair, {(dtype, D): {"fwd" | "dq" | "dkv": record}} of the
-    chunked instance, bound_ms its own arithmetic's: fp32 on the FMA units, bf16 and fp16 at the tensor cores'
-    rate)."""
+    ``flash_bwd_dkv``); at X6_WIDE_CHECKED also its forward with its LSE (qs's pieces from its pre-pass, O's
+    atoms on both warpgroups; the split of k and v included), held to the plain forward (the last key tile
+    left out above the bounds) and timed the same way, and the windowed and grouped sites of X6_SITES and the
+    halo rank shape, forward and backward, checked only. At CHUNKED_FIRST_D, at fp32, bf16 and fp16: the
+    forward (csrc/flash_f32x6.cuh's at fp32, csrc/flash_xwide.cuh's at bf16 and fp16; O's columns in two chunks
+    on the grid's z axis) held to the plain version (``_forms_tols``; the last key tile left out above them) and
+    timed beside its tensor-core bound, its plain version and the faster PyTorch call; dq with the forms pre-pass
+    and post-pass and dk/dv, the chunked instance (the forms family's FMA bodies), held to the plain fp32
+    versions and timed once (it takes about half a second a call) beside its FMA bound. Returns ({D: {"fwd" |
+    "dq" | "dkv": record}} of csrc/flash_f32x6.cuh above 256, the forward at CHUNKED_FIRST_D included,
+    {(dtype, D): {"fwd": record}} of csrc/flash_xwide.cuh's forward there, {(dtype, D): {"dq" | "dkv":
+    record}} of the chunked instance)."""
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import halo_attention as ha
 
     t_phase = time.perf_counter()
     B, T, H = FORMS_SITE
     f32 = torch.float32
-    failures, records, chunked = [], {}, {}
+    failures, records, xwide, chunked = [], {}, {}, {}
     before, forms_before = _x6_wide_counts(), _forms_counts()
     for i, D in enumerate(XWIDE_DIMS):
         scale, where = D**-0.5, f"fp32/{D} B={B} T={T} H={H} global, tables"
@@ -2849,20 +2853,21 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
         o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
         flops, nbytes = _pair_flops_bytes(B, T, H, D, 4)
         lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(q, k, v, do, cos, sin)
-        if D in X6_WIDE_CHECKED:  # the forms chunked forward, which fp32 runs above 256
+        records[D] = {}
+        if D in X6_WIDE_CHECKED:  # the forward on qs's pieces
             got = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
             fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
             torch.cuda.synchronize()
             fwd_err, fwd_line = _x6_fwd_hold(where, got, (o, lse), fault, failures)
             del got, fault
-            ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 1)
+            ms = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True), 3)
             plain_ms = _cuda_ms(lambda: fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin), 1)
-            bound = _forms_bound(flops["fwd"], nbytes["fwd"], f32)
-            chunked[f32, D] = {"fwd": {"max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                                       "bound_by": bound[1], "library_ms": lib_fwd_ms}}
-            _log(f"[f32 wide] {where}, the forms chunked forward with its LSE: {fwd_line}; {ms:.3f} ms (FMA bound "
-                 f"{bound[0]:.3f}, {bound[0] / ms:.1%}; six-product bound {_bound(6 * flops['fwd'], nbytes['fwd'])[0]:.3f}; "
-                 f"plain {plain_ms:.3f}; the faster PyTorch call {lib_fwd_ms:.3f})")
+            bound = _x6_fwd_bound(flops["fwd"], nbytes["fwd"], f32)
+            records[D]["fwd"] = {"max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                                 "bound_by": bound[1], "library_ms": lib_fwd_ms}
+            _log(f"[f32 wide] {where}, the forward with its LSE on qs's pieces: {fwd_line}; {ms:.3f} ms with the "
+                 f"split of k and v (six-product bound {bound[0]:.3f} by {bound[1]}, {bound[0] / ms:.1%}; plain "
+                 f"{plain_ms:.3f}; the faster PyTorch call {lib_fwd_ms:.3f}, {ms / lib_fwd_ms:.2f}x it)")
         got, refs, faults = _x6_backward(q, k_rot, v, o, lse, do, cos, sin, -1)
         errors, line = _x6_hold(where, got, refs, faults, failures, _cut_pair(q, k_rot, v, o, lse, do, cos, sin))
         _log(f"[f32 wide] {where}, through flash_bwd: {line}")
@@ -2878,9 +2883,9 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
         # the pair reads the pieces of qs and do (6 bytes an element each) and k and v in fp32
         x6_bytes = {kind: nbytes[kind] + 4 * B * T * H * D for kind in ("dq", "dkv")}
         bounds = {kind: _bound(6 * flops[kind], x6_bytes[kind]) for kind in ms}
-        records[D] = {kind: {"max_abs_err": errors[kind], "ms": ms[kind], "plain_ms": plain[kind],
-                             "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1], "library_ms": lib_bwd_ms}
-                      for kind in ms}
+        records[D].update({kind: {"max_abs_err": errors[kind], "ms": ms[kind], "plain_ms": plain[kind],
+                                  "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1], "library_ms": lib_bwd_ms}
+                           for kind in ms})
         pair_bound = bounds["dq"][0] + bounds["dkv"][0]
         _log(f"[f32 wide] fp32/{D}: dq kernel {ms['dq']:.3f} ms (six-product bound {bounds['dq'][0]:.3f} by "
              f"{bounds['dq'][1]}, {bounds['dq'][0] / ms['dq']:.1%}; plain {plain['dq']:.3f}); dk/dv kernel "
@@ -2896,9 +2901,15 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
                 o_s, lse_s = fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window)
                 where_s = (f"fp32/{D} {label} B={B_s} T={T_s} H={H_s} Kv={Kv}"
                            + (f" W={window}" if window >= 0 else " global") + (", tables" if tables else ""))
+                got = fa.flash_fwd(q_s, kr_s, v_s, cos_s, sin_s, window, scale, return_lse=True)
+                cut = (fa.flash_fwd_lse_reference(q_s, kr_s[:, :-FAULT_TILE], v_s[:, :-FAULT_TILE], cos_s, sin_s)[0]
+                       if window < 0 else fa.flash_fwd_lse_reference(q_s, kr_s, v_s, cos_s, sin_s, window - 2)[0])
+                fwd_err, fwd_line = _x6_fwd_hold(where_s, got, (o_s, lse_s), cut, failures)
+                records[D]["fwd"]["max_abs_err"] = max(records[D]["fwd"]["max_abs_err"], fwd_err)
+                del got, cut
                 site_errors, line = _x6_hold(where_s, *_x6_backward(q_s, kr_s, v_s, o_s, lse_s, do_s, cos_s, sin_s,
                                                                     window), failures)
-                _log(f"[f32 wide] {where_s}: {line}")
+                _log(f"[f32 wide] {where_s}: forward {fwd_line}; backward {line}")
                 for kind, err in site_errors.items():
                     records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
                 del q_s, kr_s, v_s, do_s, o_s, lse_s
@@ -2909,46 +2920,56 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
             frame = (shard * T_h, n * T_h)
             o_h, lse_h = ha.halo_fwd_reference(q_h, k_h, v_h, W, *frame)
             where_h = f"fp32/{D} halo B={B_h} T_local={T_h} H={H_h} W={W} shard {shard + 1} of {n}"
+            shifted = ha.halo_fwd_reference(q_h, k_h.roll(1, dims=1), v_h.roll(1, dims=1), W, *frame)[0]
+            fwd_err, fwd_line = _x6_fwd_hold(where_h, ha.halo_fwd(q_h, k_h, v_h, W, *frame, scale), (o_h, lse_h),
+                                             shifted, failures)
+            records[D]["fwd"]["max_abs_err"] = max(records[D]["fwd"]["max_abs_err"], fwd_err)
             site_errors, line = _x6_hold(where_h, *_x6_backward(q_h, k_h, v_h, o_h, lse_h, do_h, None, None, W, frame),
                                          failures)
-            _log(f"[f32 wide] {where_h}: {line}")
+            _log(f"[f32 wide] {where_h}: forward {fwd_line}; backward {line}")
             for kind, err in site_errors.items():
                 records[D][kind]["max_abs_err"] = max(records[D][kind]["max_abs_err"], err)
-            del q_h, do_h, k_h, v_h, o_h, lse_h
+            del q_h, do_h, k_h, v_h, o_h, lse_h, shifted
         del q, k_rot, k, v, do, o, lse, cos, sin
         torch.cuda.empty_cache()
     moved = {kind: n - before[kind] for kind, n in _x6_wide_counts().items()}
     runs = {kind: n - forms_before[kind] for kind, n in _forms_counts().items()}
-    if not (all(moved.values()) and runs["fwd"] > 0 and runs["dq"] == runs["dkv"] == 0):
-        failures.append(f"the checks launched the wide pair {moved}, the forms kernels {runs}: want the pair and the "
-                        f"chunked forward, no chunked dq or dk/dv")
+    if not (all(moved.values()) and runs["dq"] == runs["dkv"] == 0):
+        failures.append(f"the checks launched flash_f32x6 above 256 {moved}, the forms kernels {runs}: want its "
+                        f"forward and pair, no chunked dq or dk/dv")
     D = CHUNKED_FIRST_D
     q, k_rot, k, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2800, D, f32)
     o, lse = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
     refs = (o, fa.flash_bwd_dq_reference(q, k_rot, v, o, lse, do, cos, sin, -1),
             *fa.flash_bwd_dkv_reference(q, k_rot, v, o, lse, do, cos, sin, -1))
+    fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-FAULT_TILE], v[:, :-FAULT_TILE], cos, sin)[0]
     for dt in (f32, torch.bfloat16, torch.float16):
         where, scale = f"{_dtype_name(dt)}/{D} B={B} T={T} H={H} global, tables", D**-0.5
         ops = tuple(x.to(dt) for x in (q, k_rot, k, v, do))
         qd, kd, _, vd, dod = ops
-        before = _forms_counts()
+        before, streamed = _forms_counts(), _x6_wide_counts()["fwd"]
         o_d, lse_d = fa.flash_fwd(qd, kd, vd, cos, sin, -1, scale, return_lse=True)
         dq, prep = fa.flash_bwd_dq(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1, scale)
         dk, dv = fa.flash_bwd_dkv(kd, vd, dod, prep, -1)
         torch.cuda.synchronize()
         runs = {kind: n - before[kind] for kind, n in _forms_counts().items()}
-        if runs != {"fwd": 1, "prep": 1, "dq": 1, "dkv": 1, "post": 1, "merge": 0}:
-            failures.append(f"{where}: forms launches {runs}, want the chunked instance once each")
-        tols = _forms_tols(dt)
+        if runs != {"prep": 1, "dq": 1, "dkv": 1, "post": 1, "merge": 0} or _x6_wide_counts()["fwd"] != streamed + 1:
+            failures.append(f"{where}: forms launches {runs}, streamed forwards {_x6_wide_counts()['fwd'] - streamed}; "
+                            f"want the streamed forward and the chunked dq and dk/dv once each")
+        o_rel_tol, _, lse_tol, g_rel_tol, _ = _forms_tols(dt)
         errs, parts = {}, []
         for kind, name, a, b, tol in zip(("fwd", "dq", "dkv", "dkv"), ("o", "dq", "dk", "dv"), (o_d, dq, dk, dv), refs,
-                                         (tols[0], tols[3], tols[3], tols[3])):
+                                         (o_rel_tol, g_rel_tol, g_rel_tol, g_rel_tol)):
             rel, err = _rel(a, b), (a.float() - b).abs().max().item()
             errs[kind] = max(errs.get(kind, 0.0), err)
             parts.append(f"{name} rel L2 {rel:.3e} max abs {err:.3e}")
             if not (rel < tol and torch.isfinite(a).all()):
                 failures.append(f"{where}: {name} rel L2 {rel:.3e} above {tol}")
-        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(qd, kd, vd, cos, sin, -1, scale, return_lse=True), 1),
+        lse_err, fault_rel = (lse_d - lse).abs().max().item(), _rel(fault, o)
+        parts.append(f"lse max abs {lse_err:.3e}; the fault in o {fault_rel:.3e}")
+        if not (lse_err < lse_tol and fault_rel > o_rel_tol):
+            failures.append(f"{where}: lse max abs {lse_err:.3e} (bound {lse_tol}), planted fault {fault_rel:.3e}")
+        ms = {"fwd": _cuda_ms(lambda: fa.flash_fwd(qd, kd, vd, cos, sin, -1, scale, return_lse=True), 3),
               "dq": _cuda_ms(lambda: fa.flash_bwd_dq(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1, scale), 1),
               "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv(kd, vd, dod, prep, -1), 1)}
         plain = ({"fwd": _cuda_ms(lambda: fa.flash_fwd_lse_reference(qd, kd, vd, cos, sin), 1),
@@ -2956,80 +2977,105 @@ def phase_f32_wide_kernels() -> tuple[dict, dict]:
                   "dkv": _cuda_ms(lambda: fa.flash_bwd_dkv_reference(qd, kd, vd, o_d, lse_d, dod, cos, sin, -1), 1)})
         lib_fwd_ms, lib_bwd_ms, lib_line = _library_ms(qd, ops[2], vd, dod, cos, sin)
         flops, nbytes = _pair_flops_bytes(B, T, H, D, 4 if dt == f32 else 2)
-        bounds = {kind: _forms_bound(flops[kind], nbytes[kind], dt) for kind in ms}
-        chunked[dt, D] = {kind: {"max_abs_err": errs[kind], "ms": ms[kind], "plain_ms": plain[kind],
-                                 "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
-                                 "library_ms": lib_fwd_ms if kind == "fwd" else lib_bwd_ms} for kind in ms}
-        _log(f"[f32 wide] {where}, the forms chunked instance: " + "; ".join(parts) + "; " + "; ".join(
-            f"{kind} {ms[kind]:.3f} ms (bound {bounds[kind][0]:.3f}, {bounds[kind][0] / ms[kind]:.1%}; plain "
-            f"{plain[kind]:.3f})" for kind in ms) + f" (dq with the forms pre-pass and post-pass); rope + SDPA: "
-             f"{lib_line}; {(ms['dq'] + ms['dkv']) / lib_bwd_ms:.1f}x behind the backward, {ms['fwd'] / lib_fwd_ms:.1f}x "
-             f"behind the forward")
+        bounds = {"fwd": _x6_fwd_bound(flops["fwd"], nbytes["fwd"], dt),
+                  **{kind: _forms_bound(flops[kind], nbytes[kind], dt) for kind in ("dq", "dkv")}}
+        rec = {kind: {"max_abs_err": errs[kind], "ms": ms[kind], "plain_ms": plain[kind], "bound_ms": bounds[kind][0],
+                      "bound_by": bounds[kind][1], "library_ms": lib_fwd_ms if kind == "fwd" else lib_bwd_ms}
+               for kind in ms}
+        if dt == f32:
+            records[D] = {"fwd": rec.pop("fwd")}
+        else:
+            xwide[dt, D] = {"fwd": rec.pop("fwd")}
+        chunked[dt, D] = rec
+        _log(f"[f32 wide] {where}: " + "; ".join(parts) + f"; the forward (csrc/"
+             f"{'flash_f32x6' if dt == f32 else 'flash_xwide'}.cuh, O's columns in two chunks) {ms['fwd']:.3f} ms "
+             f"(tensor-core bound {bounds['fwd'][0]:.3f}, {bounds['fwd'][0] / ms['fwd']:.1%}; plain "
+             f"{plain['fwd']:.3f}; "
+             f"{ms['fwd'] / lib_fwd_ms:.2f}x the faster PyTorch call {lib_fwd_ms:.3f}); the chunked instance: "
+             + "; ".join(f"{kind} {ms[kind]:.3f} ms (FMA bound {bounds[kind][0]:.3f}, "
+                         f"{bounds[kind][0] / ms[kind]:.1%}; plain {plain[kind]:.3f})" for kind in ("dq", "dkv"))
+             + f" (dq with the forms pre-pass and post-pass), {(ms['dq'] + ms['dkv']) / lib_bwd_ms:.1f}x behind the "
+             f"backward {lib_bwd_ms:.3f}; rope + SDPA: {lib_line}")
         del ops, qd, kd, vd, dod, o_d, lse_d, dq, prep, dk, dv
         torch.cuda.empty_cache()
-    del q, k_rot, k, v, do, cos, sin, o, lse, refs
+    del q, k_rot, k, v, do, cos, sin, o, lse, refs, fault
     torch.cuda.empty_cache()
     if failures:
-        raise AssertionError("fp32 above head dim 256 vs plain: " + "; ".join(failures))
+        raise AssertionError("fp32 above head dim 256 and every type above 512 vs plain: " + "; ".join(failures))
     _log(f"[f32 wide] phase {time.perf_counter() - t_phase:.1f} s")
-    return records, chunked
+    return records, xwide, chunked
 
 
 def _x6_wide_json(records: dict, launches: dict) -> list:
-    """The kernels line's entries of csrc/flash_f32x6.cuh's pair above head dim 256 (``phase_f32_wide_kernels``'
-    records at the forms site) with their launches on phase 26's fp32/320 gradient check (one instance of each
-    kernel serves D = 320 ... 512, a run-time argument)."""
+    """The kernels line's entries of csrc/flash_f32x6.cuh above head dim 256 (``phase_f32_wide_kernels``'
+    records at the forms site: the pair at 320 ... 512, the forward at 320, 512 and CHUNKED_FIRST_D) with their
+    launches on phase 26's fp32/320 gradient check (one instance of each kernel serves every head dim of its
+    range, a run-time argument; no path runs D > 512)."""
     return [{"name": f"f32x6_wide_{kind}_d{D}", "route": "cuda", "source": "osufusion_tpu_torch/csrc/flash_f32x6.cu",
              "replaces": f"osufusion_tpu/ops/pallas_attention.py:{X6_REPLACES[kind]}",
              "launches": launches.get(kind, 0) if D == 320 else 0, **rec}
             for D, kinds in records.items() for kind, rec in kinds.items()]
 
 
+def _above_512_json(records: dict) -> list:
+    """The kernels line's entries of csrc/flash_xwide.cuh's forward above 512 (``phase_f32_wide_kernels``: bf16
+    and fp16 at CHUNKED_FIRST_D, qs streamed, O's columns in chunks); no path runs it, so no launches."""
+    return [{"name": f"xwide_fwd_{_dtype_name(dt)}_d{D}", "route": "cuda",
+             "source": f"osufusion_tpu_torch/csrc/flash_xwide{'_f16' if dt == torch.float16 else ''}.cu",
+             "replaces": f"osufusion_tpu/ops/pallas_attention.py:{XWIDE_REPLACES['fwd']}", "launches": 0, **rec["fwd"]}
+            for (dt, D), rec in records.items()]
+
+
 def _chunked_json(records: dict) -> list:
-    """The kernels line's entries of the chunked instance (``phase_f32_wide_kernels``): fp32's forward at D = 320
-    and 512, and every body at D = 576 at each type; no main path runs it (phase 23 (f) runs the fp32 forward
-    once a site at D = 320 and 512 under ``sdpa``), so no launches."""
+    """The kernels line's entries of the chunked instance (``phase_f32_wide_kernels``): dq and dk/dv at D = 576
+    at each type; no main path runs it, so no launches."""
     return [{"name": f"forms_{kind}_chunked_{_dtype_name(dt)}_d{D}", "route": "cuda",
              "source": "osufusion_tpu_torch/csrc/flash_forms.cu",
              "replaces": f"osufusion_tpu/ops/pallas_attention.py:{FORMS_REPLACES[kind]}", "launches": 0, **rec}
             for (dt, D), kinds in records.items() for kind, rec in kinds.items()]
 
 
-# the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables; and the head dims at which it times
-# them at fp32 too
-AB_SITES = (("forms site", *FORMS_SITE, -1, (64, 128, 256, 320, 512)),)
+# the sites of ``ab``: (label, B, T, H, window, head dims), MQA with tables (the forms site, and K1 (a)'s serving
+# site); the head dims at which it times the forms site at fp32 too; and those at which it times the forms site's
+# forward alone, at every type
+AB_SITES = (("forms site", *FORMS_SITE, -1, (64, 128, 256, 320, 512)), ("serving (a)", 2, 24576, 16, 4096, (64,)))
 AB_F32_DIMS = (64, 128, 192, 256, 320, 512)
+AB_FWD_DIMS = (CHUNKED_FIRST_D,)
 
 
-def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
+def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS, fwd_dims=AB_FWD_DIMS) -> None:
     """The attention kernels timed alone through the wrappers, whichever instance they launch (named from the
     wrappers' launch counters): at each site of ``sites`` ((label, B, T, H, window, head dims), MQA with
-    tables) and head dim the forward with its LSE, at a global site the sweep after its pre-pass (K2's, or at
-    fp32 the dq and dk/dv pair alone), and the pair (``_pair_ms``: ``flash_bwd_dq`` with its pre-pass, plus
-    ``flash_bwd_dkv``); for each of ``halo_dims`` the halo forward and pair (``_halo_pair_ms``) at
-    WIDE_HALO_SHAPE. Every site in bf16 first, then in fp16 on the same values, then at fp32 on the same values
-    at the head dims of ``f32_dims``, so that a time follows the same work on any tree; no check. It calls the
-    port through nothing but the wrappers, so a copy of this file in another checkout times that checkout's
-    instances on the same values: a parent and a change are compared in one call, each in a process of its
-    own, parent, change, change, parent.
+    tables) and head dim the forward with its LSE (at a windowed site also without it, as serving calls it),
+    at a global site the sweep after its pre-pass (K2's, or at fp32 the dq and dk/dv pair alone), and the pair
+    (``_pair_ms``: ``flash_bwd_dq`` with its pre-pass, plus ``flash_bwd_dkv``); for each of ``halo_dims`` the
+    halo forward and pair (``_halo_pair_ms``) at WIDE_HALO_SHAPE; for each of ``fwd_dims`` the first site's
+    forward with its LSE alone. Every site in bf16 first, then in fp16 on the same values, then at fp32 on the
+    same values (the first site at the head dims of ``f32_dims``, and ``fwd_dims``), so that a time follows
+    the same work on any tree; no check. It calls the port through nothing but the wrappers, so a copy of this
+    file in another checkout times that checkout's instances on the same values: a parent and a change are
+    compared in one call, each in a process of its own, parent, change, change, parent.
 
         python3 -c "import chip_smoke as c; c.phase_device(); c.ab()"
-        python3 -c "import chip_smoke as c; c.phase_device(); c.ab(c.F16_PAIR_SITES, c.F16_HALO_DIMS)"
+        python3 -c "import chip_smoke as c; c.phase_device(); c.ab(c.F16_PAIR_SITES, c.F16_HALO_DIMS, (), ())"
     """
     from osufusion_tpu_torch.ops import flash_attention as fa
     from osufusion_tpu_torch.ops import flash_forms as forms
     from osufusion_tpu_torch.ops import halo_attention as ha
 
-    counters = {"forms fwd": forms.forms_fwd, "forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv,
+    counters = {"forms dq": forms.forms_bwd_dq, "forms dk/dv": forms.forms_bwd_dkv,
                 "wgmma fwd": fa.flash_fwd, "wgmma dq": fa.flash_bwd_dq, "wgmma dk/dv": fa.flash_bwd_dkv,
                 "sweep": fa.flash_bwd_sweep, "halo fwd": ha.halo_fwd, "halo dq": ha.halo_bwd_dq,
                 "halo dk/dv": ha.halo_bwd_dkv}
+    if hasattr(forms, "forms_fwd"):  # a parent whose forms family still has its chunked forward
+        counters["forms fwd"] = forms.forms_fwd
     counters.update({f"f32x6 {kind}": getattr(fa, name) for kind, name in (("dq", "f32x6_bwd_dq"),
                                                                            ("dk/dv", "f32x6_bwd_dkv"))
                      if hasattr(fa, name)})  # a parent before csrc/flash_f32x6.cuh has none
     counts = {name: (lambda c=c: c.launches) for name, c in counters.items()}
-    if hasattr(fa.flash_fwd, "f32x6_launches"):  # a parent before csrc/flash_f32x6.cuh's forward has none
-        counts["f32x6 fwd"] = lambda: fa.flash_fwd.f32x6_launches
+    for kind in ("f32x6", "streamed"):  # a parent before csrc/flash_f32x6.cuh's forward, or its wide one, has none
+        if hasattr(fa.flash_fwd, f"{kind}_launches"):
+            counts[f"{kind} fwd"] = lambda kind=kind: getattr(fa.flash_fwd, f"{kind}_launches")
     B_h, T_h, H_h, W, n, shard = WIDE_HALO_SHAPE
     frame = (W, shard * T_h, n * T_h)
 
@@ -3042,20 +3088,28 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
             dk, dv = torch.empty(k_rot.shape, device="cuda"), torch.empty(k_rot.shape, device="cuda")
             ms["sweep"] = _cuda_ms(lambda: fa.flash_bwd_sweep(k_rot, v, prep, dk, dv, False), 5)
             del o, lse, prep, dk, dv
+        else:
+            ms["fwd (no lse)"] = _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, window, scale), 5)
         ms["dq"], ms["dkv"] = _pair_ms(q, k_rot, v, do, cos, sin, window)
+        ms["pair"] = ms["dq"] + ms["dkv"]
         return ms
+
+    def forward(q, k_rot, v, do, cos, sin, window):
+        scale = q.shape[-1] ** -0.5
+        return {"fwd": _cuda_ms(lambda: fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True), 2)}
 
     def halo(q, k, v, do):
         scale = q.shape[-1] ** -0.5
         ms = {"fwd": _cuda_ms(lambda: ha.halo_fwd(q, k, v, *frame, scale), 5)}
         ms["dq"], ms["dkv"] = _halo_pair_ms(q, k, v, do, frame, scale)
+        ms["pair"] = ms["dq"] + ms["dkv"]
         return ms
 
     def each_site(f32: bool):
-        """(where, the fp16 operands, their timer, its other arguments) of each site in turn (``f32``: at the
-        head dims of ``f32_dims``, and no halo)."""
-        for label, B, T, H, window, dims in sites:
-            for D in f32_dims if f32 else dims:
+        """(where, the fp16 operands, their timer, its other arguments) of each site in turn (``f32``: the first
+        site at the head dims of ``f32_dims``, and no halo), then the first site's forward at ``fwd_dims``."""
+        for s_i, (label, B, T, H, window, dims) in enumerate(sites):
+            for D in (f32_dims if s_i == 0 else ()) if f32 else dims:
                 q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D + T, D, torch.float16)
                 yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}",
                        (q, k_rot, v, do), windowed, (cos, sin, window))
@@ -3064,6 +3118,11 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
             q, do = (torch.randn((B_h, T_h, H_h, D), generator=g, device="cuda").half() for _ in range(2))
             k, v = (torch.randn((B_h, T_h + W, D), generator=g, device="cuda").half() for _ in range(2))
             yield f"halo B={B_h} T_local={T_h} W={W} shard {shard + 1} of {n} D={D}", (q, k, v, do), halo, ()
+        label, B, T, H, window, _ = sites[0]
+        for D in fwd_dims:
+            q, k_rot, _, v, do, cos, sin = _attention_inputs(B, T, H, 1, True, 2400 + D + T, D, torch.float16)
+            yield (f"{label} B={B} T={T} H={H} D={D} {'global' if window < 0 else f'W={window}'}, the forward",
+                   (q, k_rot, v, do), forward, (cos, sin, window))
 
     times = {}
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -3072,7 +3131,6 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
             del operands
             before = {name: count() for name, count in counts.items()}
             ms = timer(*ops, *rest)
-            ms["pair"] = ms["dq"] + ms["dkv"]
             launched = {name: count() - before[name] for name, count in counts.items() if count() > before[name]}
             times[where, dt] = ms
             _log(f"[ab] {where} {_dtype_name(dt)}: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in ms.items())
@@ -3080,7 +3138,7 @@ def ab(sites=AB_SITES, halo_dims=(), f32_dims=AB_F32_DIMS) -> None:
             del ops, rest
             torch.cuda.empty_cache()
     for (where, dt), ms in times.items():
-        if dt == torch.float16:
+        if dt == torch.float16 and (where, torch.bfloat16) in times:
             _log(f"[ab] {where}: fp16 / bf16 " + ", ".join(
                 f"{kind} {t / times[where, torch.bfloat16][kind]:.3f}x" for kind, t in ms.items()))
 
@@ -3112,7 +3170,7 @@ def phase_wide_fullsong_train(workdir: Path) -> dict:
                 "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
     if launches != expected or _all_launches(fa, ha)[4:] != others:
         raise AssertionError(f"full-song D=128: launches {launches}, expected {expected}")
-    _forms_launch_check("full-song D=128", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+    _forms_launch_check("full-song D=128", {b: counts[b] for b in ("dq", "dkv")}, {"dq": 0, "dkv": 0},
                         False)
     return launches
 
@@ -3151,7 +3209,7 @@ def phase_f16_fullsong_train(workdir: Path) -> tuple[dict, tuple]:
                 "backward_dq": sites * steps, "backward_dkv": sites * steps, "forward_grouped": 0, "backward_grouped": 0}
     if launches != expected or _all_launches(fa, ha)[4:] != others:
         raise AssertionError(f"full-song fp16: launches {launches}, expected {expected}")
-    _forms_launch_check("full-song fp16", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+    _forms_launch_check("full-song fp16", {b: counts[b] for b in ("dq", "dkv")}, {"dq": 0, "dkv": 0},
                         False)
     return launches, (history[0]["loss"], history[0]["grad_norm"])
 
@@ -3183,7 +3241,7 @@ def phase_wide_dit_train(workdir: Path) -> dict:
                 "backward_dkv": 0, "forward_grouped": depth * steps, "backward_grouped": depth * steps}
     if launches != expected or _all_launches(fa, ha)[4:] != others:
         raise AssertionError(f"wide dit train: launches {launches}, expected {expected}")
-    _forms_launch_check("wide dit train", {b: counts[b] for b in ("fwd", "dq", "dkv")}, {"fwd": 0, "dq": 0, "dkv": 0},
+    _forms_launch_check("wide dit train", {b: counts[b] for b in ("dq", "dkv")}, {"dq": 0, "dkv": 0},
                         False)
     return launches
 
@@ -3246,7 +3304,7 @@ def phase_forms_serve(model_cfg, workdir: Path) -> int:
          f"{x6_request}; the sampler alone on 24576 frames {seconds:.3f} s/map, forms launches {sampler}, "
          f"flash_fwd launches {k1_sampler}, flash_f32x6 {x6_sampler} (expected {expected} forwards a map)")
     # flash_fwd serves every site (at fp32 csrc/flash_f32x6.cuh's forward on k and v split), nothing else launches
-    want = {"fwd": 0, "prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
+    want = {"prep": 0, "dq": 0, "dkv": 0, "post": 0, "merge": 0}
     others = [a - b for a, b in zip(after[1:], hopper[1:])]
     for x6, n in ((x6_request, k1_request), (x6_sampler, k1_sampler)):
         want_x6 = {"fwd": n, "halo_fwd": 0, "dq": 0, "dkv": 0, "split": 2 * n} if f32 else dict.fromkeys(x6, 0)
@@ -3281,16 +3339,15 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     """(d) Gradients at a form beside bf16/64: the reduced UNet (``_forms_unet``) at B=2, T=4096 (every
     site global), weights random everywhere, in ``dtype`` with ``dim_head`` through the kernels against
     float32 through the plain versions on the card. fp32: csrc/flash_f32x6.cuh's forward (counted by
-    ``flash_fwd``), dq and dk/dv and the forms pre-pass and post-pass a site (no forms forward, dq or dk/dv),
-    and no other wgmma kernel; fp32 above D = 256 (phase 26): the forms chunked forward, then
-    csrc/flash_f32x6.cuh's dq and dk/dv (counted as its wide instance too) between the forms pre-pass and
-    post-pass a site, no chunked dq or dk/dv and no wgmma kernel; bf16 at D = 128 and fp16 at D = 64: K1 with
-    its LSE and K2 a site
-    (the forms pre-pass and post-pass around K2's sweep), no forms forward, dq or dk/dv; bf16 and fp16 above
-    D = 256 (phase 26): the same, with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as
-    K1 and K2). Returns the launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and
-    flash_xwide's as "xwide"; at fp32 flash_f32x6's as "x6_fwd", "x6_dq", "x6_dkv", "x6_split", and its wide
-    instance's as "x6_wide": {"dq": n, "dkv": n})."""
+    ``flash_fwd``), dq and dk/dv and the forms pre-pass and post-pass a site (no forms dq or dk/dv), and no
+    other wgmma kernel; above D = 256 (phase 26) those instances that stream qs's pieces (the forward, counted
+    as a streamed launch too) and keep one piece of the rows resident (dq and dk/dv), and no chunked dq or
+    dk/dv; bf16 at D = 128 and fp16 at D = 64: K1 with its LSE and K2 a site (the forms pre-pass and
+    post-pass around K2's sweep), no forms dq or dk/dv; bf16 and fp16 above D = 256 (phase 26): the same,
+    with csrc/flash_xwide.cuh's forward, dq and dk/dv once a site (counted as K1 and K2). Returns the
+    launches by entry point (the forms ones, K1's and K2's as "k1", "k2", and flash_xwide's as "xwide"; at
+    fp32 flash_f32x6's as "x6_fwd", "x6_dq", "x6_dkv", "x6_split", and its instances above 256 as "x6_wide":
+    {"fwd": n, "dq": n, "dkv": n})."""
     from osufusion_tpu_torch.nn import blocks
     from osufusion_tpu_torch.nn.unet import UNetBlock
     from osufusion_tpu_torch.ops import flash_attention as fa
@@ -3350,23 +3407,18 @@ def phase_forms_grad_check(dtype: str, dim_head: int, B: int = 2, T: int = 4096)
     if not (rel_loss < loss_tol and rel_all < grad_tol and rel_attn < grad_tol):
         raise AssertionError(f"forms grad check {dtype} D={dim_head}: loss rel {rel_loss:.3e}, gradient rel L2 "
                              f"{rel_all:.3e}, attention {rel_attn:.3e}")
-    if f32 and dim_head > 256:  # the chunked forward, then csrc/flash_f32x6.cuh's pair (k and v split for each)
-        _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                            {"fwd": sites, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
-                            wgmma != [0] * 11 or x6_wide != {"dq": sites, "dkv": sites}
-                            or x6 != {"fwd": 0, "halo_fwd": 0, "dq": sites, "dkv": sites, "split": 6 * sites})
-        return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}, "x6_wide": x6_wide}
     if f32:  # csrc/flash_f32x6.cuh's forward and pair (k and v split for each, qs and do once), the forms helpers
+        wide_x6 = sites if dim_head > 256 else 0  # above 256 every one of them its wide instance
         _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                            {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
-                            wgmma != [sites] + [0] * 10 or any(x6_wide.values())
+                            {"prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                            wgmma != [sites] + [0] * 10 or x6_wide != dict.fromkeys(x6_wide, wide_x6)
                             or x6 != {"fwd": sites, "halo_fwd": 0, "dq": sites, "dkv": sites, "split": 8 * sites})
-        return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}}
+        return {**counts, **{f"x6_{kind}": n for kind, n in x6.items()}, "x6_wide": x6_wide}
     # K1 with its LSE (flash_fwd) and K2 (flash_bwd) once a site, nothing else of the wgmma family; above D =
     # 256 those are csrc/flash_xwide.cuh's forward and its pair between the forms pre-pass and post-pass
     wide = sites if dim_head > 256 else 0
     _forms_launch_check(f"forms grad check {dtype} D={dim_head}", counts,
-                        {"fwd": 0, "prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
+                        {"prep": sites, "dq": 0, "dkv": 0, "post": sites, "merge": 0},
                         wgmma != [sites, sites] + [0] * 9 or xwide != {"fwd": wide, "dq": wide, "dkv": wide})
     return {**counts, "k1": wgmma[0], "k2": wgmma[1], "xwide": xwide}
 
@@ -3400,7 +3452,7 @@ def phase_forms_train(workdir: Path) -> dict:
     n = sites * steps
     # the forward with its LSE through flash_fwd (csrc/flash_f32x6.cuh's), no other wgmma launch
     k1 = {key: n * (key == "forward_lse") for key in launches}
-    _forms_launch_check("forms train fp32", counts, {"fwd": 0, "prep": n, "dq": 0, "dkv": 0, "post": n, "merge": 0},
+    _forms_launch_check("forms train fp32", counts, {"prep": n, "dq": 0, "dkv": 0, "post": n, "merge": 0},
                         _all_launches(fa, ha)[4:] != others or launches != k1
                         or x6 != {"fwd": n, "halo_fwd": 0, "dq": n, "dkv": n, "split": 8 * n})
     return {**counts, **{f"x6_{kind}": m for kind, m in x6.items()}}
@@ -3462,7 +3514,7 @@ def phase_forms() -> tuple[dict, dict, dict, dict, dict, dict, dict, dict, dict]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         runs[FORMS_MAIN[0]].append(phase_forms_train(Path(tmp)))
-    launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in ("fwd", "prep", "dq", "dkv", "post", "merge")}
+    launches = {inst: {body: sum(r.get(body, 0) for r in rs) for body in FORMS_BODIES}
                 for inst, rs in runs.items()}
     # csrc/flash_f32x6.cuh's kernels on (a), (b) and (d) at fp32/64
     x6 = {kind: sum(r.get(f"x6_{kind}", 0) for r in runs[FORMS_MAIN[0]]) for kind in ("fwd", "dq", "dkv", "split")}
@@ -3646,12 +3698,12 @@ def phase_forms_shards() -> dict:
         _log(f"[forms shards] {name}: forms launches {counts}; wgmma halo forward, dq, dk/dv launches {halo}")
         # bf16/128: the halo pair runs K1's and the windowed pair's wgmma instances, the ring K1 and K2's sweep;
         # fp32/64: csrc/flash_f32x6.cuh's forward (in the halo frame, and each hop's) and its dq and dk/dv, with
-        # the forms pre-pass, post-pass and merge. Neither runs a forms forward, dq or dk/dv
+        # the forms pre-pass, post-pass and merge. Neither runs a forms dq or dk/dv (the family has no forward)
         wgmma = dt == torch.bfloat16
         x6 = _x6_counts()
-        if not (counts["fwd"] == counts["dq"] == counts["dkv"] == 0 and halo[0] > 0):
-            failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want no forms forward, dq or "
-                            "dk/dv and the halo forward")
+        if not (counts["dq"] == counts["dkv"] == 0 and halo[0] > 0):
+            failures.append(f"{name}: forms launches {counts}, wgmma halo launches {halo}; want no forms dq or dk/dv "
+                            "and the halo forward")
         if wgmma and not min(halo) > 0:
             failures.append(f"{name}: wgmma halo launches {halo}; want the wgmma halo pair")
         if not wgmma and (any(halo[1:]) or not all(x6[kind] > 0 for kind in ("fwd", "halo_fwd", "dq", "dkv"))):
@@ -4133,8 +4185,8 @@ def phase_seq_train(workdir: Path, one_card_losses: list, one_card_f16: tuple) -
         if f16["launches"] != expected:
             raise AssertionError(f"sequence-parallel fp16 rank {rank}: launches {f16['launches']}, "
                                  f"expected {expected}")
-        _forms_launch_check(f"sequence-parallel fp16 rank {rank}", {b: f16["forms"][b] for b in ("fwd", "dq", "dkv")},
-                            {"fwd": 0, "dq": 0, "dkv": 0}, False)
+        _forms_launch_check(f"sequence-parallel fp16 rank {rank}", {b: f16["forms"][b] for b in ("dq", "dkv")},
+                            {"dq": 0, "dkv": 0}, False)
     f16_losses = [[(h["loss"], h["grad_norm"]) for h in r["fp16"]["history"]] for r in got.values()]
     if any(x != f16_losses[0] for x in f16_losses):
         raise AssertionError(f"the sequence-parallel ranks report different fp16 losses or norms: {f16_losses}")
@@ -4903,7 +4955,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     x6_records = phase_f32x6_kernels()
     torch.cuda.empty_cache()
-    x6_wide_records, chunked_records = phase_f32_wide_kernels()
+    x6_wide_records, above_512_records, chunked_records = phase_f32_wide_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         xwide_launches, x6_wide_launches = phase_xwide_paths(Path(tmp))
     if not all(n > 0 for n in (*xwide_launches.values(), *x6_wide_launches.values())):
@@ -4994,6 +5046,7 @@ def main() -> int:
         *_xwide_json(xwide_records, xwide_launches),
         *_x6_json(x6_records, x6_launches),
         *_x6_wide_json(x6_wide_records, x6_wide_launches),
+        *_above_512_json(above_512_records),
         *_chunked_json(chunked_records),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,29 +1,34 @@
-// The entry points of the fp32 attention forward and backward pair on the
-// tensor cores (D = 64 ... 256, six bf16 products per fp32 product) and of
-// their split. The kernels and their design are flash_f32x6.cuh's.
+// The entry points of the fp32 attention forward (every head dim that is a
+// multiple of 64) and backward pair (D = 64 ... 512) on the tensor cores, six
+// bf16 products per fp32 product, and of their split. The kernels and their
+// design are flash_f32x6.cuh's.
 
 #include "flash_f32x6.cuh"
 
 // q (B, T, H, D) fp32, raw; k and v as their pieces (B, S, Kv, 3 D) bf16
-// (f32x6_split); o like q, lse (B, T*H) fp32 or null; cos_t and sin_t (T, D)
-// fp32, or null for no rotary embedding: xwide_fwd_bf16's arguments
+// (f32x6_split); o like q, lse (B, T*H) fp32 or null; qs: scratch of qs's
+// pieces (B * Kv, T * H / Kv, 3 D) bf16 for D > 256, else null; cos_t and
+// sin_t (T, D) fp32, or null for no rotary embedding: xwide_fwd_bf16's
+// arguments
 extern "C" int f32x6_fwd(int D, const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
-                         void* o, void* lse, int B, int T, int S, int H, int Kv, int window, float scale,
+                         void* o, void* lse, void* qs, int B, int T, int S, int H, int Kv, int window, float scale,
                          void* stream) {
-  return launch_x6_fwd(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, D, window, scale, KeyFrame{0, 0, S}, stream);
+  return launch_x6_fwd(q, k, v, cos_t, sin_t, o, lse, qs, B, T, S, H, Kv, D, window, scale, KeyFrame{0, 0, S},
+                       stream);
 }
 
 // The halo forward: q (B, T, H, D) fp32 already rotated, the pieces of the
 // slab's k (rotated) and v (B, T + window, 3 D); xwide_halo_fwd_bf16's
 // arguments
-extern "C" int f32x6_halo_fwd(int D, const void* q, const void* k, const void* v, void* o, void* lse, int B, int T,
-                              int H, int window, int g0, int t_global, float scale, void* stream) {
-  return launch_x6_fwd(q, k, v, nullptr, nullptr, o, lse, B, T, T + window, H, 1, D, window, scale,
+extern "C" int f32x6_halo_fwd(int D, const void* q, const void* k, const void* v, void* o, void* lse, void* qs, int B,
+                              int T, int H, int window, int g0, int t_global, float scale, void* stream) {
+  return launch_x6_fwd(q, k, v, nullptr, nullptr, o, lse, qs, B, T, T + window, H, 1, D, window, scale,
                        halo_frame(T, window, g0, t_global), stream);
 }
 
 // out (n_rows, 3 D) bf16 = the pieces [b0 | b1 | b2] of each row of x
-// (n_rows, D) fp32, x = b0 + b1 + b2 exactly; both 16-byte aligned
+// (n_rows, D) fp32, x = b0 + b1 + b2 exactly; both 16-byte aligned; D a
+// multiple of 64
 extern "C" int f32x6_split(const void* x, void* out, long long n_rows, int D, void* stream) {
   return launch_x6_split(x, out, n_rows, D, stream);
 }

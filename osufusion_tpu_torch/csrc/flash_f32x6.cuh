@@ -1,13 +1,14 @@
 // fp32 flash attention on the tensor cores, for Hopper (sm_90a): the forward
-// at D = 64, 128, 192 and 256 and the backward pair (dq, dk/dv) at those and
-// at D = 320, 384, 448 and 512, every fp32 product as six bf16 wgmma products
+// at every head dim that is a multiple of 64 and the backward pair (dq,
+// dk/dv) at D = 64 ... 512, every fp32 product as six bf16 wgmma products
 // summed in fp32 (XLA's BF16_BF16_F32_X6), in place of flash_forms.cu's FMA
 // bodies (forms_fwd_kernel<float, D, ROPE>, forms_dq_kernel<float, D>,
-// forms_dkv_kernel<float, D>, all deleted, and the chunked dq and dk/dv at fp32
-// above 256, forms_dq_chunked_kernel / forms_dkv_chunked_kernel<float>, no
-// longer built). The entry points are flash_f32x6.cu's.
+// forms_dkv_kernel<float, D> and the chunked forward
+// forms_fwd_chunked_kernel<float, ROPE>, all deleted, and the chunked dq and
+// dk/dv at fp32 up to 512, no longer built). The entry points are
+// flash_f32x6.cu's.
 //
-// Replaces, at fp32 and those head dims (the forward up to 256),
+// Replaces, at fp32 and those head dims,
 // osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
 //    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310):
@@ -24,12 +25,12 @@
 // forms_prep_kernel: qs in fp32, do in group-major order, the LSE and delta
 // padded to 64-row tiles), and takes qs and do, and k and v, as their bf16
 // pieces (x6_split, below); the forward takes k and v as their pieces and q
-// raw, and stages qs itself with the pre-pass's bits (below). dq_acc, dk and
+// raw, and stages qs itself with the pre-pass's bits (below; above D = 256
+// x6_qs_kernel writes qs's pieces into device memory first). dq_acc, dk and
 // dv are stored, or with `accumulate` added to (the ring's hops); the forms
 // post-pass scales and un-rotates dq, as for the FMA bodies. Every forward
-// wrapper at fp32 up to D = 256, and every backward wrapper up to 512, runs
-// them: one device, the ring's hops and sweeps, the windowed pair, the halo
-// frame.
+// wrapper at fp32, and every backward wrapper up to D = 512, runs them: one
+// device, the ring's hops and sweeps, the windowed pair, the halo frame.
 //
 // The function is the FMA bodies' (flash_forms.cu at T = float):
 //   forward: o = softmax2(qs k^T) v,  lse2 = log2 sum exp2(qs k^T)
@@ -46,7 +47,8 @@
 // on a 256 x 4096 x 256 product, fp32's own SGEMM 2.9e-7). The operands
 // streamed through shared memory (k, v in the forward and dq; qs, do in
 // dk/dv) are split once in device memory by x6_split_kernel, as rows [b0 |
-// b1 | b2] of 3 D bf16; the forward splits its qs as it stages it; P and dS
+// b1 | b2] of 3 D bf16; the forward splits its qs as it stages it (above 256
+// x6_qs_kernel does, into rows of the same form); P and dS
 // (P^T, dS^T) are split in registers, from the fp32 accumulator into the A
 // fragments of wgmma (x6_frags). Per 64-column atom a of a product the
 // six terms are issued as three groups, one per streamed piece, the small
@@ -103,6 +105,32 @@
 //  * Registers (a consumer thread, of 240): warpgroup 0 S 64 or 32 and the
 //    row statistics; warpgroup 1 O 2 x 32 with P's fragments of 128 keys 96,
 //    or O 4 x 32 with those of 64 keys 48: 168 at launch, no spill.
+// Above D = 256 (x6_fwd_res: RES = 1 or 0 of qs's pieces resident, in place of
+// the three; tiles of 64 keys), what stops the design above:
+//  * Shared memory. qs's three pieces take 3 x 2 x 64 x D bytes, 120 KB at
+//    320 and 192 KB at 512. x6_qs_kernel writes them to device memory
+//    (group-major rows [b0 | b1 | b2], the bits the staging holds), piece 0
+//    is loaded by TMA and held (A atoms of 8 KB), and pieces 1 and 2 stream
+//    through ring 0 beside k's, in x6_dots' order with RES = 1 (the pair's
+//    issued_carry), the rings keeping X6_FWD_RES1_SLOTS slots or more (up to
+//    D = 960). Above that piece 0 streams too (RES = 0): each of x6_dots'
+//    three groups takes the X pieces it reads beside its Y piece (X0 three
+//    times, X1 twice), groups of two, three and four atoms.
+//  * Registers. O's atoms no longer fit warpgroup 1 alone: warpgroup 0 takes
+//    up to X6_FWD_ATOMS0 of them beside S and the softmax (its fragments of P
+//    split from its own S, its O += P V issued after P is handed over and
+//    done before the next tile's S, its flush before the next tile's S), and
+//    warpgroup 1 up to X6_MAX_D / 64 as below. Four atoms on warpgroup 0
+//    spilled 32 / 44 bytes (stores; 48 / 60 of loads) at RES = 0 / 1 on an
+//    H100's ptxas (CUDA 12.8); three compile with no spill. So one block holds
+//    7 atoms (D <= 448); above, the grid's z axis splits O's columns in chunks
+//    of at most 7 atoms (xw_chunk: 4 + 4 at 512, 5 + 4 at 576, 6 + 6 + 4 at
+//    1024), each chunk's block computing S again over the whole head dim;
+//    only the block of chunk 0 writes the LSE.
+//  * Every instance of the forward, narrow or wide, gets ptxas's C7520
+//    (wgmma serialised by a compiler-inserted WG.AR in a divergent path: the
+//    warpgroup branches), as the pair's x6_dq_kernel and flash_xwide.cuh's
+//    kernels do; no C7512.
 // Design of the pair: flash_xwide.cuh's pair (two consumer warpgroups behind a
 // producer warpgroup that feeds one ring of 64-column atoms to each; the head
 // dim at run time; its rings, XwRing / XwFeed, and helpers are used as they
@@ -158,13 +186,14 @@
 //
 // C ABI (loaded with ctypes): f32x6_fwd and f32x6_halo_fwd take
 // flash_xwide.cu's xwide_fwd_bf16's and xwide_halo_fwd_bf16's arguments (q
-// and o fp32, k and v as their pieces); f32x6_bwd_dq and f32x6_bwd_dkv take
-// flash_forms.cu's forms_bwd_dq's and forms_bwd_dkv's arguments without the
-// type code (the head dim first; k, v, qs_g and do_rows as their pieces);
-// each returns a cudaError_t (cudaErrorInvalidValue for a head dim outside 64
-// ... 256, the pair's outside 64 ... 512, or not a multiple of 64), or minus
-// the CUresult of a TMA descriptor that failed to encode; f32x6_split writes
-// the pieces (D = 64 ... 512).
+// and o fp32, k and v as their pieces, the scratch of qs's pieces above
+// 256); f32x6_bwd_dq and f32x6_bwd_dkv take flash_forms.cu's forms_bwd_dq's
+// and forms_bwd_dkv's arguments without the type code (the head dim first;
+// k, v, qs_g and do_rows as their pieces); each returns a cudaError_t
+// (cudaErrorInvalidValue for a head dim that is not a multiple of 64, the
+// pair's also outside 64 ... 512, or the forward above 256 without its
+// scratch), or minus the CUresult of a TMA descriptor that failed to encode;
+// f32x6_split writes the pieces (every multiple of 64).
 //
 // Everything sits in an unnamed namespace, so each library gets its own copy.
 
@@ -174,7 +203,7 @@
 
 namespace {
 
-constexpr int X6_MAX_D = 256;       // the forward's widest head dim, and the pair's with two resident pieces
+constexpr int X6_MAX_D = 256;       // the forward's widest head dim that stages qs, the pair's with two resident pieces
 constexpr int X6_PAIR_MAX_D = 512;  // the pair's widest
 // dq atoms of either warpgroup at most: up to X6_MAX_D, and above it (where four atoms of dQ stand in registers
 // beside S and the fragments: 128 + 32 + 48)
@@ -185,6 +214,10 @@ constexpr int X6_DKV_ATOMS = 4;
 // the forward's tiles: 128 keys up to X6_FWD_WIDE_MAX_D (two atoms of O in warpgroup 1 beside P's fragments of
 // 128 keys), 64 above (four atoms of O)
 constexpr int X6_FWD_WIDE_MAX_D = 128;
+// above X6_MAX_D the forward's O atoms of a block at most on warpgroup 0, beside S and the softmax (four spilled,
+// below); warpgroup 1 holds X6_MAX_D / 64, and the grid's z axis splits wider heads in chunks of both, each block
+// computing S again
+constexpr int X6_FWD_ATOMS0 = 3;
 constexpr int X6_SPLIT_THREADS = 256;
 // tiles whose products a wgmma accumulator takes before its sum goes to device memory (X6 accumulation, below)
 constexpr int X6_FLUSH_TILES = 8;
@@ -340,6 +373,18 @@ struct X6Take {
 template <int RES, typename LoadY, typename LoadX>
 __device__ __forceinline__ void x6_feed_dots(XwFeed& feed, int A, LoadY y, LoadX x) {
   for (int a = 0; a < A; ++a) {
+    if (RES == 0) {  // none of X's pieces resident: each group's X pieces stream beside its Y piece (x6_dots)
+      feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 2, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 0, a); });
+      feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 1, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 1, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 0, a); });
+      feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 0, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 2, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 1, a); });
+      feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 0, a); });
+      continue;
+    }
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 2, a); });
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 1, a); });
     if (RES == 1) feed.push([&](void* dst, uint64_t* bar) { x(dst, bar, 1, a); });
@@ -347,6 +392,9 @@ __device__ __forceinline__ void x6_feed_dots(XwFeed& feed, int A, LoadY y, LoadX
     feed.push([&](void* dst, uint64_t* bar) { y(dst, bar, 0, a); });
   }
 }
+
+// With RES = 0: Y2[a], X0[a] | Y1[a], X1[a], X0[a] | Y0[a], X2[a], X1[a], X0[a],
+// the three groups of x6_dots (X's pieces streamed once for each group that reads them).
 
 // ... and of an outer product's over atoms [c0, c1): Y2[a], Y1[a], Y0[a]
 template <typename LoadY>
@@ -370,6 +418,31 @@ __device__ __forceinline__ void x6_dots(float (&s)[N / 2], const __nv_bfloat16* 
                                         PieceX2 x2_of) {
   using E = __nv_bfloat16;
   for (int a = 0; a < A; ++a) {
+    if (RES == 0) {  // every piece from the ring, in the same three groups and order of terms
+      const uint64_t y2 = desc_kmajor(rd.take()), x0 = desc_kmajor(rd.take());
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0 + 2 * kk, y2 + 2 * kk, a > 0 || kk > 0);
+      wgmma_commit();
+      rd.issued();
+      const uint64_t y1 = desc_kmajor(rd.take()), x1 = desc_kmajor(rd.take()), x0b = desc_kmajor(rd.take());
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1 + 2 * kk, y1 + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0b + 2 * kk, y1 + 2 * kk, 1);
+      wgmma_commit();
+      rd.issued();
+      const uint64_t y0 = desc_kmajor(rd.take()), x2 = desc_kmajor(rd.take()), x1b = desc_kmajor(rd.take()),
+                     x0c = desc_kmajor(rd.take());
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x2 + 2 * kk, y0 + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x1b + 2 * kk, y0 + 2 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<N, 0, 0, E>(s, x0c + 2 * kk, y0 + 2 * kk, 1);
+      wgmma_commit();
+      rd.issued();
+      continue;
+    }
     const uint64_t x0 = desc_kmajor(x01 + a * XW_ATOM);
     const uint64_t y2 = desc_kmajor(rd.take());
 #pragma unroll
@@ -824,43 +897,113 @@ x6_dkv_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 
 // ---- the forward ----
 
-// the shared memory before the forward's two rings at A atoms and tiles of BN
-// keys: the three pieces of qs, one tile's P in fp32, its rows' rescale, the
-// rows' 1 / l, the barriers
-__host__ __device__ constexpr int x6_fwd_fixed(int A, int BN) {
-  return xw_align(3 * A * XW_ATOM_BYTES + (BN / 2) * 128 * 4 + 2 * 128 * 4 + 2 * 128 * 4 + XW_BARS);
+// qs's eight columns col .. col + 7 of the low half of the raw q row `qr` (fp32, D = 2 half wide) and their
+// partners half on, the forms pre-pass's bits (flash_forms.cu's qs_pair at fp32: each product rounded alone):
+// rotated with the tables' rows cr, sr (null: only scaled), times qscale
+__device__ __forceinline__ void x6_qs16(const float* qr, const float* cr, const float* sr, int col, int half,
+                                        float qscale, float (&lo)[8], float (&hi)[8]) {
+  const float4 q4[4] = {*reinterpret_cast<const float4*>(qr + col), *reinterpret_cast<const float4*>(qr + col + 4),
+                        *reinterpret_cast<const float4*>(qr + col + half),
+                        *reinterpret_cast<const float4*>(qr + col + half + 4)};
+  const float* a = reinterpret_cast<const float*>(q4);  // a[j] = q[col + j], a[8 + j] = q[col + half + j]
+  if (cr != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      lo[j] = __fmul_rn(__fsub_rn(__fmul_rn(a[j], cr[col + j]), __fmul_rn(a[8 + j], sr[col + j])), qscale);
+      hi[j] = __fmul_rn(__fadd_rn(__fmul_rn(a[8 + j], cr[col + half + j]), __fmul_rn(a[j], sr[col + half + j])),
+                        qscale);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      lo[j] = __fmul_rn(a[j], qscale);
+      hi[j] = __fmul_rn(a[8 + j], qscale);
+    }
+  }
 }
-static_assert(xw_slots(x6_fwd_fixed(X6_MAX_D / 64, 64)) >= 4 &&
-                  xw_slots(x6_fwd_fixed(X6_FWD_WIDE_MAX_D / 64, 128), 128 * 64 * 2) >= 4,
+
+// qs's pieces (B * Kv, T * G, 3 D) bf16, group-major rows [b0 | b1 | b2] (group
+// row r of KV head kv: timestep r / G, head kv * G + r % G), for the forward
+// above X6_MAX_D: x6_qs16's values, split. q (B, T, H, D) raw fp32, the tables
+// (T, D) or null.
+__global__ void x6_qs_kernel(const float* __restrict__ q, const float* __restrict__ cos_t,
+                             const float* __restrict__ sin_t, __nv_bfloat16* __restrict__ qs, int B, int T, int H,
+                             int Kv, int D, float qscale) {
+  const int G = H / Kv, chunks = D / 16;
+  const size_t n = (size_t)B * T * H * chunks;
+  for (size_t c = blockIdx.x * (size_t)X6_SPLIT_THREADS + threadIdx.x; c < n;
+       c += (size_t)gridDim.x * X6_SPLIT_THREADS) {
+    const size_t row = c / chunks;  // (b, t, h) of q
+    const int col = (int)(c % chunks) * 8, h = (int)(row % H);
+    const size_t t = (row / H) % T, b = row / ((size_t)T * H);
+    float lo[8], hi[8];
+    x6_qs16(q + row * D, cos_t == nullptr ? nullptr : cos_t + t * D, sin_t == nullptr ? nullptr : sin_t + t * D, col,
+            D / 2, qscale, lo, hi);
+    uint4 pl[3], ph[3];
+    x6_pieces8(lo, pl);
+    x6_pieces8(hi, ph);
+    __nv_bfloat16* dst = qs + ((b * Kv + h / G) * T * G + t * G + h % G) * 3 * D;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      *reinterpret_cast<uint4*>(dst + i * D + col) = pl[i];
+      *reinterpret_cast<uint4*>(dst + i * D + col + D / 2) = ph[i];
+    }
+  }
+}
+
+// the shared memory before the forward's two rings at A atoms, tiles of BN
+// keys and RES of qs's pieces resident: those pieces, one tile's P in fp32,
+// its rows' rescale, the rows' 1 / l, the barriers
+__host__ __device__ constexpr int x6_fwd_fixed(int A, int BN, int RES) {
+  return xw_align(RES * A * XW_ATOM_BYTES + (BN / 2) * 128 * 4 + 2 * 128 * 4 + 2 * 128 * 4 + XW_BARS);
+}
+// the pieces of qs that stay resident above X6_MAX_D: piece 0 where its atoms leave rings of
+// X6_FWD_RES1_SLOTS slots (four held, one group loading), none above
+constexpr int X6_FWD_RES1_SLOTS = 5, X6_FWD_RES0_SLOTS = 8;
+__host__ __device__ constexpr int x6_fwd_res(int D) {
+  return D <= X6_MAX_D ? 3 : xw_slots(x6_fwd_fixed(D / 64, 64, 1)) >= X6_FWD_RES1_SLOTS ? 1 : 0;
+}
+static_assert(xw_slots(x6_fwd_fixed(X6_MAX_D / 64, 64, 3)) >= 4 &&
+                  xw_slots(x6_fwd_fixed(X6_FWD_WIDE_MAX_D / 64, 128, 3), 128 * 64 * 2) >= 4,
               "each ring keeps two atoms loading beside two held");
+static_assert(x6_fwd_res(X6_PAIR_MAX_D) == 1 && xw_slots(x6_fwd_fixed(1, 64, 0)) >= X6_FWD_RES0_SLOTS,
+              "piece 0 of qs stays resident up to D = 512 at least; without it, a group of four atoms loads beside "
+              "the three and four of the two groups held");
 
 // o (B, T, H, D) fp32 = softmax2(qs k^T) v over the keys the block's 64 group
 // rows see, and lse (B, T*H) their base-2 LSE (null: none), in tiles of BN
-// keys (64, or 128 up to ATOMS = 2 atoms of the head dim). q raw (B, T, H, D)
-// fp32, rotated here with the tables cos_t, sin_t (T, D), or without them
-// (null) only scaled; kmap / vmap: the pieces of k and v (B, S, Kv, 3 D) in
-// boxes of BN keys. grid (ceil(T*G / 64), B * Kv); frame {0, 0, S} on one
-// device, halo_frame in the halo slab.
-template <int BN, int ATOMS>
+// keys (64, or 128 up to ATOMS = 2 atoms of the head dim). kmap / vmap: the
+// pieces of k and v (B, S, Kv, 3 D) in boxes of BN keys. grid (ceil(T*G /
+// 64), B * Kv, column chunks); frame {0, 0, S} on one device, halo_frame in
+// the halo slab. RES = 3 (D <= X6_MAX_D): q raw (B, T, H, D) fp32, staged here
+// as qs (rotated with the tables cos_t, sin_t (T, D), or without them (null)
+// only scaled) and its three pieces held; warpgroup 1 holds O, ATOMS atoms.
+// RES = 1 or 0 (above): qmap holds qs's pieces (x6_qs_kernel, boxes of one
+// atom of 64 rows), piece 0 resident (RES = 1) or none, the rest streamed
+// through ring 0 beside k's pieces; O's atoms of the block's z chunk split
+// over both warpgroups, X6_FWD_ATOMS0 at most on warpgroup 0 and ATOMS on 1.
+template <int BN, int ATOMS, int RES>
 __global__ void __launch_bounds__(XW_THREADS, 1)
 x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-              const float* __restrict__ q, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-              float* __restrict__ o, float* __restrict__ lse, int T, int H, int Kv, int D, int window, float scale,
-              KeyFrame kf, int slots) {
+              const __grid_constant__ CUtensorMap qmap, const float* __restrict__ q, const float* __restrict__ cos_t,
+              const float* __restrict__ sin_t, float* __restrict__ o, float* __restrict__ lse, int T, int H, int Kv,
+              int D, int window, float scale, KeyFrame kf, int slots) {
   using E = __nv_bfloat16;
   constexpr int F = BN / 16;                                 // 16-key steps of a tile: P's fragments a piece
   constexpr int FLUSH = X6_FLUSH_TILES * XW_ROWS / BN;       // tiles that O's accumulator takes (X6 accumulation)
+  constexpr int ATOMS0 = RES == 3 ? 1 : X6_FWD_ATOMS0;       // warpgroup 0's O atoms (none with RES = 3)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int A = D / 64;
-  E* Qs = reinterpret_cast<E*>(smem);                          // [3 pieces][A][64][64] qs
-  float* xp = reinterpret_cast<float*>(Qs + 3 * A * XW_ATOM);  // [BN / 2][128] P, fp32
-  float* xc = xp + (BN / 2) * 128;                             // [2][128] O's rescale
-  float* xl = xc + 2 * 128;                                    // [2][128] 1 / l
+  E* Qs = reinterpret_cast<E*>(smem);                            // [RES pieces][A][64][64] qs
+  float* xp = reinterpret_cast<float*>(Qs + RES * A * XW_ATOM);  // [BN / 2][128] P, fp32
+  float* xc = xp + (BN / 2) * 128;                               // [2][128] O's rescale
+  float* xl = xc + 2 * 128;                                      // [2][128] 1 / l
   uint64_t* bars = reinterpret_cast<uint64_t*>(xl + 2 * 128);
-  unsigned char* rings = smem + x6_fwd_fixed(A, BN);
+  unsigned char* rings = smem + x6_fwd_fixed(A, BN, RES);
   const XwRing ring0 = xw_ring(rings, bars, slots, BN * 64 * 2);
   const XwRing ring1 = xw_ring(rings + slots * BN * 64 * 2, bars + 2 * XW_MAX_SLOTS, slots, BN * 64 * 2);
+  uint64_t* row_bar = bars + 4 * XW_MAX_SLOTS;
 
   const int b = blockIdx.y / Kv, kv = blockIdx.y % Kv;
   const int G = H / Kv, rows = T * G;  // the group's rows: group row r is timestep r / G, head kv * G + r % G
@@ -871,25 +1014,42 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
   const int kv_lo = span.lo;
   const int n_tiles = (span.hi - kv_lo + BN - 1) / BN;
+  const XwChunk ch = xw_chunk(A);  // the block's O atoms [c0, c1): every atom with RES = 3
+  const int n0 = RES == 3 ? 0 : max(0, ch.c1 - ch.c0 - ATOMS), n1 = ch.c1 - ch.c0 - n0;  // warpgroup 0's, 1's
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     xw_init_ring(ring0);
     xw_init_ring(ring1);
+    mbar_init(row_bar, 1);
     fence_barrier_init();
   }
   __syncthreads();
 
   if (warp >= 8) {  // the producer warpgroup: warp 8 feeds ring 0 with k's pieces, warp 9 ring 1 with v's
     setmaxnreg_dec<XW_PRODUCER_REGS>();
+    if (lane == 0 && warp == 8 && RES == 1) {  // piece 0 of the block's rows of qs (rows past T*G arrive as zeros)
+      mbar_expect_tx(row_bar, A * XW_ATOM_BYTES);
+      for (int a = 0; a < A; ++a) tma_load_3d(Qs + a * XW_ATOM, &qmap, row_bar, 64 * a, r0, (int)blockIdx.y);
+    }
     if (lane == 0 && warp < 10) {
       XwFeed feed{warp == 8 ? ring0 : ring1};
       const CUtensorMap* map = warp == 8 ? &kmap : &vmap;
       for (int it = 0; it < n_tiles; ++it) {
         const int s0 = kv_lo + it * BN;  // keys past S arrive as zeros
-        x6_feed_outer(feed, 0, A, [&](void* dst, uint64_t* bar, int p, int a) {
-          tma_load_4d(dst, map, bar, p * D + 64 * a, kv, s0, b);
-        });
+        auto keys = [&](const CUtensorMap* m) {
+          return [=](void* dst, uint64_t* bar, int p, int a) { tma_load_4d(dst, m, bar, p * D + 64 * a, kv, s0, b); };
+        };
+        if (RES == 3) {
+          x6_feed_outer(feed, 0, A, keys(map));  // S (k's pieces as x6_dots takes them with qs resident), or P V
+        } else if (warp == 8) {
+          x6_feed_dots<RES>(feed, A, keys(&kmap), [&](void* dst, uint64_t* bar, int p, int a) {
+            tma_load_3d(dst, &qmap, bar, p * D + 64 * a, r0, (int)blockIdx.y);
+          });
+          x6_feed_outer(feed, ch.c0, ch.c0 + n0, keys(&vmap));  // warpgroup 0's O += P V
+        } else {
+          x6_feed_outer(feed, ch.c0 + n0, ch.c1, keys(&vmap));  // warpgroup 1's
+        }
       }
     }
     return;
@@ -899,13 +1059,12 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const int g = lane >> 2, tq = lane & 3;  // accumulator row (and row + 8) in the warp's 16; column pair
   auto mem = [&](int r) { return (size_t)(r / G) * H + r % G; };  // the (timestep, head) row of group row r
-  const float* qb = q + ((size_t)b * T * H + kv * G) * D;
   float* ob = o + ((size_t)b * T * H + kv * G) * D;
 
-  // both warpgroups stage the block's 64 rows as the pieces of qs, qs bit for bit the forms pre-pass's
-  // (flash_forms.cu's qs_pair at fp32: each product rounded alone), 8 columns of the low half and their
-  // partners D / 2 on at a time; a pad row is zeros
-  {
+  if (RES == 3) {
+    // both warpgroups stage the block's 64 rows as the pieces of qs (x6_qs16), 8 columns of the low half and
+    // their partners D / 2 on at a time; a pad row is zeros
+    const float* qb = q + ((size_t)b * T * H + kv * G) * D;
     const int half = D / 2, chunks = D / 16;
     const float qscale = scale * XW_LOG2E;
     for (int c = threadIdx.x; c < XW_ROWS * chunks; c += 256) {
@@ -914,29 +1073,9 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
 #pragma unroll
       for (int j = 0; j < 8; ++j) lo[j] = hi[j] = 0.f;
       if (row < rows) {
-        const float* qr = qb + mem(row) * D;
-        const float4 q4[4] = {*reinterpret_cast<const float4*>(qr + col),
-                              *reinterpret_cast<const float4*>(qr + col + 4),
-                              *reinterpret_cast<const float4*>(qr + col + half),
-                              *reinterpret_cast<const float4*>(qr + col + half + 4)};
-        const float* a = reinterpret_cast<const float*>(q4);  // a[j] = q[col + j], a[8 + j] = q[col + half + j]
-        if (cos_t != nullptr) {
-          const size_t t = row / G;
-          const float* cr = cos_t + t * D;
-          const float* sr = sin_t + t * D;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            lo[j] = __fmul_rn(__fsub_rn(__fmul_rn(a[j], cr[col + j]), __fmul_rn(a[8 + j], sr[col + j])), qscale);
-            hi[j] = __fmul_rn(__fadd_rn(__fmul_rn(a[8 + j], cr[col + half + j]), __fmul_rn(a[j], sr[col + half + j])),
-                              qscale);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            lo[j] = __fmul_rn(a[j], qscale);
-            hi[j] = __fmul_rn(a[8 + j], qscale);
-          }
-        }
+        const size_t t = row / G;
+        x6_qs16(qb + mem(row) * D, cos_t == nullptr ? nullptr : cos_t + t * D,
+                sin_t == nullptr ? nullptr : sin_t + t * D, col, half, qscale, lo, hi);
       }
       uint4 pl[3], ph[3];
       x6_pieces8(lo, pl);
@@ -948,15 +1087,38 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
         *reinterpret_cast<uint4*>(Qs + (i * A + hcol / 64) * XW_ATOM + sw128(r, (hcol % 64) / 8)) = ph[i];
       }
     }
+    fence_proxy_async();
+    named_bar_sync(1, 256);
   }
-  fence_proxy_async();
-  named_bar_sync(1, 256);
 
   const int row_a = r0 + (warp % 4) * 16 + g, row_b = row_a + 8;
   const size_t mem_a = mem(row_a), mem_b = mem(row_b);
   X6Take rd{wg == 0 ? ring0 : ring1, lane};
+  // n atoms of acc (times `mul` per row) into the rows' o from atom c on, plus what o holds times held
+  auto flush = [&](auto& acc, int n, int c, bool stored, const float (&held)[2], const float (&mul)[2]) {
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(acc) / sizeof(acc[0])); ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h == 0 ? row_a : row_b;
+        float* dst = ob + (h == 0 ? mem_a : mem_b) * D + (c + i) * 64 + 2 * tq;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (i >= n || row >= rows) continue;
+          float2 x = make_float2(acc[i][4 * t + 2 * h], acc[i][4 * t + 2 * h + 1]);
+          float2* d2 = reinterpret_cast<float2*>(dst + 8 * t);
+          if (stored) {
+            const float2 old = *d2;
+            x.x = fmaf(old.x, held[h], x.x);
+            x.y = fmaf(old.y, held[h], x.y);
+          }
+          *d2 = make_float2(x.x * mul[h], x.y * mul[h]);
+        }
+      }
+  };
+  const float one[2] = {1.f, 1.f};
 
-  if (wg == 0) {  // S = qs K^T and the online softmax; P goes to warpgroup 1
+  if (wg == 0) {  // S = qs K^T and the online softmax; P goes to warpgroup 1; above X6_MAX_D O += P V too
     // the keys each of the thread's two rows sees, vis_n of them from vis_lo on (none for a pad row)
     int vis_lo[2], vis_n[2];
 #pragma unroll
@@ -967,11 +1129,27 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       vis_n[i] = max(seen.hi - seen.lo, 0);
     }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float s[BN / 2];  // the logits of the tile in hand, then its probabilities
+    float s[BN / 2];            // the logits of the tile in hand, then its probabilities
+    uint32_t f[3][F][4];        // above X6_MAX_D: P's pieces, the A operand of O += P V
+    float acc[ATOMS0][32];      // ... and O's atoms of warpgroup 0 (X6 accumulation, as warpgroup 1's below)
+    float held[2] = {1.f, 1.f};
+    bool stored = false;
+    if (RES != 3) xw_zero(acc);
+    if (RES == 1) mbar_wait(row_bar, 0);
+    auto from_ring = [&](int) { return rd.take(); };  // qs's third piece above X6_MAX_D
     for (int it = 0; it < n_tiles; ++it) {
+      if (RES != 3 && n0 > 0 && it > 0 && it % FLUSH == 0) {  // before S takes its registers (acc is done)
+        flush(acc, n0, ch.c0, stored, held, one);
+        xw_zero(acc);
+        held[0] = held[1] = 1.f;
+        stored = true;
+      }
       reg_fence(s);
       wgmma_fence();
-      x6_dots<BN>(s, Qs, A, rd, [&](int a) { return Qs + (2 * A + a) * XW_ATOM; });
+      if (RES == 3)
+        x6_dots<BN>(s, Qs, A, rd, [&](int a) { return Qs + (2 * A + a) * XW_ATOM; });
+      else
+        x6_dots<BN, RES == 1 ? 1 : 0>(s, Qs, A, rd, from_ring);
       rd.drain();
       reg_fence(s);
       // the online softmax of the tile (flash_xwide.cuh's): mask at an edge, s becomes p = exp2(s - base)
@@ -1014,6 +1192,22 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       xc[tid] = corr[0];
       xc[128 + tid] = corr[1];
       named_bar_sync(2, 256);  // P of tile it is in place
+      if (RES != 3 && n0 > 0) {  // O[:, warpgroup 0's atoms] += P V, done before the next tile's S
+        held[0] *= corr[0];
+        held[1] *= corr[1];
+#pragma unroll
+        for (int i = 0; i < ATOMS0; ++i)
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc[i][j] *= corr[(j >> 1) & 1];
+        x6_frags(f, s);
+        x6_fence(f);
+        xw_fence(acc);
+        wgmma_fence();
+        x6_outer<ATOMS0>(acc, f, n0, rd);
+        rd.drain();  // f is free before the next tile's S takes its registers
+        x6_fence(f);
+        xw_fence(acc);
+      }
     }
     float inv[2];
 #pragma unroll
@@ -1024,15 +1218,16 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
       xl[r * 128 + tid] = inv[r];
     }
     named_bar_sync(2, 256);  // 1 / l is in place
-    if (lse != nullptr && tq == 0) {  // the 4 threads of a quad hold the same row statistics
+    if (lse != nullptr && tq == 0 && blockIdx.z == 0) {  // the 4 threads of a quad hold the same row statistics
       float* lb = lse + (size_t)b * T * H + kv * G;
       if (row_a < rows) lb[mem_a] = m[0] + log2f(l[0]);
       if (row_b < rows) lb[mem_b] = m[1] + log2f(l[1]);
     }
+    if (RES != 3 && n0 > 0) flush(acc, n0, ch.c0, stored, held, inv);
     return;
   }
 
-  // warpgroup 1: O += P V over every atom, P split into its three pieces here. The accumulator takes at most
+  // warpgroup 1: O += P V over its atoms, P split into its three pieces here. The accumulator takes at most
   // FLUSH tiles (X6 accumulation, above): then its sum goes to o in device memory (stored, or added to what o
   // holds rescaled to the current base: `held`, the product of the rescales since o was written)
   uint32_t f[3][F][4];  // P's pieces, the A operand of O += P V
@@ -1040,36 +1235,14 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
   xw_zero(acc);
   float held[2] = {1.f, 1.f};
   bool stored = false;  // whether o holds an earlier part of the sum
-  // acc (times `mul` per row) into the rows' o, plus what o holds times held
-  auto flush = [&](const float (&mul)[2]) {
-#pragma unroll
-    for (int i = 0; i < ATOMS; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = h == 0 ? row_a : row_b;
-        float* dst = ob + (h == 0 ? mem_a : mem_b) * D + i * 64 + 2 * tq;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          if (i >= A || row >= rows) continue;
-          float2 x = make_float2(acc[i][4 * t + 2 * h], acc[i][4 * t + 2 * h + 1]);
-          float2* d2 = reinterpret_cast<float2*>(dst + 8 * t);
-          if (stored) {
-            const float2 old = *d2;
-            x.x = fmaf(old.x, held[h], x.x);
-            x.y = fmaf(old.y, held[h], x.y);
-          }
-          *d2 = make_float2(x.x * mul[h], x.y * mul[h]);
-        }
-      }
-  };
+  const int c1 = ch.c0 + n0;  // warpgroup 1's first atom
   for (int it = 0; it < n_tiles; ++it) {
     named_bar_sync(2, 256);  // warpgroup 0's P of tile it
     rd.drain();              // the previous tile's P V: f and acc are free
     xw_fence(acc);
     x6_fence(f);
     if (it > 0 && it % FLUSH == 0) {
-      const float one[2] = {1.f, 1.f};
-      flush(one);
+      flush(acc, n1, c1, stored, held, one);
       xw_zero(acc);
       held[0] = held[1] = 1.f;
       stored = true;
@@ -1091,20 +1264,19 @@ x6_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ 
     xw_fence(acc);
     x6_fence(f);
     wgmma_fence();
-    x6_outer<ATOMS>(acc, f, A, rd);  // O += P V
+    x6_outer<ATOMS>(acc, f, n1, rd);  // O += P V
   }
   rd.drain();
   xw_fence(acc);
   x6_fence(f);
   named_bar_sync(2, 256);
   const float inv[2] = {xl[tid], xl[128 + tid]};
-  flush(inv);
+  flush(acc, n1, c1, stored, held, inv);
 }
 
 // ---- host ----
 
-// the head dims of the forward, and of the pair and the split
-inline bool x6_fwd_takes(int D) { return D >= 64 && D <= X6_MAX_D && D % 64 == 0; }
+// the head dims of the pair and the split (the forward takes every multiple of 64)
 inline bool x6_pair_takes(int D) { return D >= 64 && D <= X6_PAIR_MAX_D && D % 64 == 0; }
 
 // The pair's tensor maps, over the pieces (rows of 3 D bf16): k and v (B, S, Kv, 3 D) in boxes of 64 keys, qs
@@ -1119,36 +1291,57 @@ inline int x6_maps(CUtensorMap* maps, const void* k, const void* v, const void* 
   return err;
 }
 
-template <int BN, int ATOMS>
-int launch_x6_fwd_tiles(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, const void* cos_t,
-                        const void* sin_t, void* o, void* lse, int B, int T, int H, int Kv, int D, int window,
-                        float scale, KeyFrame frame, int dev, void* stream) {
+template <int BN, int ATOMS, int RES>
+int launch_x6_fwd_tiles(const CUtensorMap& kmap, const CUtensorMap& vmap, const CUtensorMap& qmap, const void* q,
+                        const void* cos_t, const void* sin_t, void* o, void* lse, int B, int T, int H, int Kv, int D,
+                        int window, float scale, KeyFrame frame, int dev, void* stream) {
   static std::atomic<unsigned long long> smem_set{0};
-  const int err = allow_smem(x6_fwd_kernel<BN, ATOMS>, XW_SMEM_LIMIT, dev, smem_set);
+  const int err = allow_smem(x6_fwd_kernel<BN, ATOMS, RES>, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
-  const int fixed = x6_fwd_fixed(D / 64, BN), slots = xw_slots(fixed, BN * 64 * 2);
-  x6_fwd_kernel<BN, ATOMS><<<dim3((T * (H / Kv) + XW_ROWS - 1) / XW_ROWS, B * Kv), XW_THREADS,
-                             1024 + fixed + 2 * slots * BN * 64 * 2, static_cast<cudaStream_t>(stream)>>>(
-      kmap, vmap, static_cast<const float*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<float*>(o), static_cast<float*>(lse), T, H, Kv, D, window, scale, frame, slots);
+  const int A = D / 64, fixed = x6_fwd_fixed(A, BN, RES), slots = xw_slots(fixed, BN * 64 * 2);
+  const int per = RES == 3 ? A : X6_FWD_ATOMS0 + ATOMS;  // O atoms a block holds at most
+  x6_fwd_kernel<BN, ATOMS, RES><<<dim3((T * (H / Kv) + XW_ROWS - 1) / XW_ROWS, B * Kv, (A + per - 1) / per),
+                                  XW_THREADS, 1024 + fixed + 2 * slots * BN * 64 * 2,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, qmap, static_cast<const float*>(q), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<float*>(o), static_cast<float*>(lse), T, H, Kv, D, window, scale,
+      frame, slots);
   return (int)cudaGetLastError();
 }
 
+// The forward at any head dim that is a multiple of 64. Above X6_MAX_D
+// x6_qs_kernel first writes qs's pieces into `qs` ((B * Kv, T * H / Kv, 3 D)
+// bf16; unread below), which the forward reads by TMA.
 inline int launch_x6_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o,
-                         void* lse, int B, int T, int S, int H, int Kv, int D, int window, float scale, KeyFrame frame,
-                         void* stream) {
-  if (!x6_fwd_takes(D)) return (int)cudaErrorInvalidValue;
+                         void* lse, void* qs, int B, int T, int S, int H, int Kv, int D, int window, float scale,
+                         KeyFrame frame, void* stream) {
+  if (D <= 0 || D % 64 != 0 || (D > X6_MAX_D && qs == nullptr)) return (int)cudaErrorInvalidValue;
   const int keys = D <= X6_FWD_WIDE_MAX_D ? 128 : 64;
-  CUtensorMap kmap, vmap;
+  CUtensorMap kmap, vmap, qmap{};
   int dev;
   int err = bind_device(&dev);
   if (err == 0) err = make_kv_map<__nv_bfloat16>(&kmap, k, B, S, Kv, keys, 3 * D);
   if (err == 0) err = make_kv_map<__nv_bfloat16>(&vmap, v, B, S, Kv, keys, 3 * D);
   if (err != 0) return err;
-  return keys == 128 ? launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64>(kmap, vmap, q, cos_t, sin_t, o, lse, B, T, H,
-                                                                       Kv, D, window, scale, frame, dev, stream)
-                     : launch_x6_fwd_tiles<64, X6_MAX_D / 64>(kmap, vmap, q, cos_t, sin_t, o, lse, B, T, H, Kv, D,
-                                                              window, scale, frame, dev, stream);
+  if (D <= X6_MAX_D)
+    return keys == 128 ? launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64, 3>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse,
+                                                                            B, T, H, Kv, D, window, scale, frame, dev,
+                                                                            stream)
+                       : launch_x6_fwd_tiles<64, X6_MAX_D / 64, 3>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse, B, T, H,
+                                                                   Kv, D, window, scale, frame, dev, stream);
+  const long long n = (long long)B * T * H * (D / 16);
+  x6_qs_kernel<<<(unsigned)(n < 132LL * 64 * X6_SPLIT_THREADS ? (n + X6_SPLIT_THREADS - 1) / X6_SPLIT_THREADS
+                                                              : 132LL * 64),
+                 X6_SPLIT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<__nv_bfloat16*>(qs), B, T, H, Kv, D, scale * XW_LOG2E);
+  err = (int)cudaGetLastError();
+  if (err == 0) err = xw_rows_map<__nv_bfloat16>(&qmap, qs, T * (H / Kv), B * Kv, 3 * D);
+  if (err != 0) return err;
+  return x6_fwd_res(D) == 1 ? launch_x6_fwd_tiles<64, X6_MAX_D / 64, 1>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse, B,
+                                                                        T, H, Kv, D, window, scale, frame, dev, stream)
+                            : launch_x6_fwd_tiles<64, X6_MAX_D / 64, 0>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse, B,
+                                                                        T, H, Kv, D, window, scale, frame, dev, stream);
 }
 
 template <int RES>
@@ -1210,7 +1403,7 @@ inline int launch_x6_dkv(const void* k, const void* v, const void* qs_g, const v
 }
 
 inline int launch_x6_split(const void* x, void* out, long long n_rows, int D, void* stream) {
-  if (!x6_pair_takes(D) || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % 64 != 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   int dev;
   const int err = bind_device(&dev);

@@ -2,27 +2,25 @@
 // the "forms" family, which serves every attention form that the wgmma
 // kernels (flash_fwd.cuh, flash_bwd_sweep.cuh, flash_bwd.cu,
 // flash_bwd_windowed.cuh, flash_xwide.cuh, flash_f32x6.cuh) do not: one
-// chunked instance of the forward, dq and dk/dv for any D > 256 that is a
-// multiple of 64, templated on the operand type T (float, __nv_bfloat16,
-// __half; below), and the pre-pass, post-pass and merge at every T and D.
-// ops/flash_forms.py::kernel_form sends here the fp32 forward above D = 256,
-// every type's forward, dq and dk/dv above D = 512, and the pre-pass and post-pass
-// around K2's sweep (and the wgmma pairs of flash_xwide.cuh and
-// flash_f32x6.cuh) and the ring's merge at fp32, at fp16 and at bf16 above D
-// = 64. bf16 and fp16 at D <= 256 run the wgmma forward (K1), K2's sweep and
-// the windowed pair, at D = 320 ... 512 flash_xwide.cuh's kernels; fp32 at D
-// <= 256 runs flash_f32x6.cuh's forward and pair, at 320 ... 512 its pair; so
-// those instances are not built here (FORMS_DISPATCH, below).
+// chunked instance of dq and dk/dv for any D > 512 that is a multiple of 64,
+// templated on the operand type T (float, __nv_bfloat16, __half; below), and
+// the pre-pass, post-pass and merge at every T and D. ops/flash_forms.py::
+// kernel_form sends here every type's dq and dk/dv above D = 512, and the
+// pre-pass and post-pass around K2's sweep (and the wgmma pairs of
+// flash_xwide.cuh and flash_f32x6.cuh) and the ring's merge at fp32, at fp16
+// and at bf16 above D = 64. Every forward runs on the tensor cores
+// (flash_fwd.cuh's K1 at bf16 and fp16 up to D = 256, flash_xwide.cuh's above,
+// flash_f32x6.cuh's at fp32); bf16 and fp16 dq and dk/dv at D <= 256 run K2's
+// sweep and the windowed pair, at D = 320 ... 512 flash_xwide.cuh's pair;
+// fp32's at D <= 512 flash_f32x6.cuh's pair; so those instances are not built
+// here (FORMS_DISPATCH, below).
 //
 // Replaces, at those forms, osufusion_tpu/ops/pallas_attention.py::
-//  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
-//    launched by _halo_flash_fwd) and one hop of _ring_fwd (:1310), above the
-//    head dims of the wgmma forwards: forms_fwd_chunked_kernel, windowed or
-//    global, MQA / GQA / full MHA (query head h reads KV head h / (H / Kv)),
-//    optional fused q-RoPE, o in T and the base-2 LSE in fp32, in the
-//    single-device or the halo frame (key_frame.cuh);
 //  * _dq_kernel (:435), _halo_dq_kernel (:1054) and the dq part of
-//    _bwd_fused_kernel (:575), likewise: forms_dq_chunked_kernel;
+//    _bwd_fused_kernel (:575, also each hop of _ring_bwd :1338), above the
+//    head dims of the wgmma pairs: forms_dq_chunked_kernel, windowed or
+//    global, MQA / GQA / full MHA (query head h reads KV head h / (H / Kv)),
+//    in the single-device or the halo frame (key_frame.cuh);
 //  * _dkv_kernel (:507), _halo_dkv_kernel (:1099) and the dk/dv part of
 //    _bwd_fused_kernel, likewise: forms_dkv_chunked_kernel, which sums the G
 //    query heads of a KV head.
@@ -36,12 +34,10 @@
 //
 // The arithmetic is the Pallas bodies': logits in the exp2 domain, qs =
 // rope(q) * D^-0.5 * log2(e) rounded to T (rotated as rope_qs.cuh does, each
-// product rounded alone, so that the forward and the pre-pass hold the same
-// bits), products accumulated in fp32, P rounded to T before P V
-// (`p.astype(v.dtype)`, :284), P before dV and dS before dQ and dK likewise
-// (:492, :564, :641-644). At T = float every rounding is the identity, and
+// product rounded alone, so that the forwards and the pre-pass hold the same
+// bits), products accumulated in fp32, P rounded to T before dV and dS before
+// dQ and dK (:492, :564, :641-644). At T = float every rounding is the identity, and
 // the kernels differ from their plain fp32 versions by summation order only.
-//   forward: o = softmax2(qs k^T) v,  lse2 = log2 sum exp2(qs k^T)
 //   dq_acc  (+)= ds k                 ds = p (do v^T - delta), p = exp2(qs k^T - lse2)
 //   dk      (+)= ln(2) ds^T qs,  dv (+)= p^T do
 // dq_acc is fp32 in group-major order; the post-pass scales it by D^-0.5 and
@@ -51,20 +47,18 @@
 // tensor-core path: wgmma takes TF32, which keeps about three decimal digits
 // where a float32 matmul in PyTorch, and the JAX bodies' fp32 dots, keep
 // full fp32 (and TF32 wgmma would want V K-major for P V). So every product
-// here is an fp32 FFMA, 4 D FLOP per visited (query, key) pair forward and 8 D
-// backward (dq: 2 products, dkv: 3 with the logits again), against 67 TFLOP/s
+// here is an fp32 FFMA, 8 D FLOP per visited (query, key) pair (dq: 2 products, dkv: 3 with the logits again), against 67 TFLOP/s
 // of fp32 FMA on an H100 SXM: compute bound at every site, by far (a row meets
 // up to W + 1 or S keys for a few hundred bytes of traffic). The chunked
 // instances at bf16 and fp16 run the same FMA arithmetic, so they can reach
 // at most 67 / 989 (~7 %) of their tensor-core bound; they are left only above
-// D = 512, where flash_xwide.cuh's wgmma kernels stop (ROADMAP queue 2). The
-// fp32 forward, dq and dk/dv at D <= 256 moved to the tensor cores as six
-// bf16 products per fp32 product (flash_f32x6.cuh), and so did dq and dk/dv
-// at 320 ... 512; the chunked forward above 256 and the chunked dq and dk/dv
-// above 512 stay here.
+// D = 512, where flash_xwide.cuh's wgmma pair stops (ROADMAP queue 2). The
+// fp32 dq and dk/dv at D <= 512 moved to the tensor cores as six bf16
+// products per fp32 product (flash_f32x6.cuh), and every forward went to the
+// tensor cores; the chunked dq and dk/dv above 512 stay here.
 //
 // Design. A block of 256 threads (16 x 16) owns a tile of BQ = 64 group rows
-// of one (batch, KV head) group (forward and dq; group row r: timestep r / G,
+// of one (batch, KV head) group (dq; group row r: timestep r / G,
 // head kv * G + r % G) or BK keys of it (dk/dv), and sweeps the tiles of the
 // other side that its rows or keys see (keys_seen of key_frame.cuh). Tiles
 // are staged in shared memory as fp32, CH = 64 columns of the head dim at a
@@ -169,23 +163,6 @@ __device__ __forceinline__ void qs_pair(float a, float h, const float* cr, const
   hi = round_t<T>(hi);
 }
 
-// qs[d] of the raw row qr of `dim` columns: qs_pair's arithmetic for the one
-// element d (low half: d and its partner d + dim / 2; high half: d and d -
-// dim / 2), so that the chunked instance holds the bits of the others and of
-// the pre-pass
-template <typename T, bool ROPE>
-__device__ __forceinline__ float qs_elem(const T* qr, const float* cr, const float* sr, int d, int dim,
-                                         float qscale) {
-  const int half = dim / 2;
-  float lo, hi;
-  if (d < half) {
-    qs_pair<T, ROPE>(to_f(qr[d]), to_f(qr[d + half]), cr, sr, d, half, qscale, lo, hi);
-    return lo;
-  }
-  qs_pair<T, ROPE>(to_f(qr[d - half]), to_f(qr[d]), cr, sr, d - half, half, qscale, lo, hi);
-  return hi;
-}
-
 // The sum (SUM) or max over the 16 threads of a row (one half of a warp)
 template <bool SUM>
 __device__ __forceinline__ float row_reduce(float x) {
@@ -225,8 +202,8 @@ __device__ __forceinline__ void row_key_dots(const float* A, const float* Bt, in
 }
 
 // out[i][c][u] (rows ty + 16 i, columns 4 tx + 64 c + u) += sum over the n
-// keys s of P[row][s] * V[s][column]: the second product of the forward and
-// of dq, P (rows x keys, PLD floats a row) and V (keys x D) staged
+// keys s of P[row][s] * V[s][column]: the second product of dq (dS k), P
+// (rows x keys, PLD floats a row) and V (keys x D) staged
 template <int D>
 __device__ __forceinline__ void rows_times_tile(const float* P, const float* V, int n, int ty, int tx,
                                                 float (&out)[RPT][Tile<D>::CPT][4]) {
@@ -375,112 +352,14 @@ forms_merge_kernel(float* __restrict__ o_acc, const float* __restrict__ lse_acc,
 // ---- the chunked instance: any head dim above 256 that is a multiple of 64 ----
 //
 // A row's whole head dim in shared memory would not fit at D > 256. Here a
-// block owns CH = 64 columns of the output (grid axis z: o, dq or dk/dv
-// columns 64 z .. 64 z + 63), which are independent given P (o = P V) or
-// given P and dS (dq = dS k, dv = P^T do, dk = dS^T qs), and recomputes the
-// logits (and dP) over the whole head dim, staging it 64 columns at a time in
+// block owns CH = 64 columns of the output (grid axis z: dq or dk/dv columns
+// 64 z .. 64 z + 63), which are independent given P and dS (dq = dS k, dv =
+// P^T do, dk = dS^T qs), and recomputes the logits and dP over the whole head
+// dim, staging it 64 columns at a time in
 // tiles of CH columns: shared memory stays the same whatever D is. The
 // arithmetic, and so every rounding, is the one at the top of this file; only
 // the order of the sums over D changes. Speed is not the point: no
 // configuration of either package reaches D > 256.
-
-// grid (ceil(T*G / BQ), B * Kv, dim / CH)
-template <typename T, bool ROPE>
-__global__ void __launch_bounds__(THREADS, 1)
-forms_fwd_chunked_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const float* __restrict__ cos_t, const float* __restrict__ sin_t, T* __restrict__ o,
-                         float* __restrict__ lse, int Tq, int S, int H, int Kv, int window, float qscale,
-                         KeyFrame frame, int dim) {
-  using TL = Tile<CH>;
-  constexpr int BK = TL::BK, KPT = TL::KPT, LD = TL::LD, PLD = TL::PLD;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* Ks = Qs + BQ * LD;                     // [BK][LD]
-  float* Vs = Ks + BK * LD;                     // [BK][LD]
-  float* Ps = Vs + BK * LD;                     // [BQ][PLD]
-
-  const int b = blockIdx.y / Kv, kv = blockIdx.y % Kv;
-  const int G = H / Kv, rows = Tq * G;
-  const int r0 = blockIdx.x * BQ;
-  const int z = blockIdx.z, chunks = dim / CH;
-  const bool local = window >= 0;
-  const int w2 = window / 2;
-  const KeySpan span = keys_seen(frame, local, w2, r0 / G, (min(r0 + BQ, rows) - 1) / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  auto row_of = [&](int r) { return ((size_t)b * Tq + r / G) * H + kv * G + r % G; };  // the (b, t, h) row
-  auto key_ptr = [&](const T* base, int s) { return base + (((size_t)b * S + s) * Kv + kv) * dim; };
-
-  float acc[RPT][1][4], m[RPT], l[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc[i][0][0] = acc[i][0][1] = acc[i][0][2] = acc[i][0][3] = 0.f;
-  }
-  for (int s0 = span.lo; s0 < span.hi; s0 += BK) {
-    float s[RPT][KPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      __syncthreads();  // the last chunk's dots (and the last tile's P V) are done with Qs, Ks, Vs, Ps
-      for (int idx = threadIdx.x; idx < BQ * CH; idx += THREADS) {
-        const int i = idx / CH, d = c * CH + idx % CH;
-        float x = 0.f;
-        if (r0 + i < rows) {
-          const size_t t = (size_t)((r0 + i) / G);
-          x = qs_elem<T, ROPE>(q + row_of(r0 + i) * dim, ROPE ? cos_t + t * dim : nullptr,
-                               ROPE ? sin_t + t * dim : nullptr, d, dim, qscale);
-        }
-        Qs[i * LD + idx % CH] = x;
-      }
-      stage_rows<T, CH>(Ks, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(k, s0 + j) + c * CH : nullptr; });
-      __syncthreads();
-      row_key_dots<CH>(Qs, Ks, ty, tx, s);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int t = (r0 + ty + 16 * i) / G;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int key = s0 + tx + 16 * j;
-        if (key >= span.hi || !sees(frame, local, w2, t, key)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_reduce<false>(mx));
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[i] - base);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float p = exp2f(s[i][j] - base);
-        sum += p;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = round_t<T>(p);
-      }
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][0][u] *= corr;
-    }
-    stage_rows<T, CH>(Vs, BK, [&](int j) { return s0 + j < span.hi ? key_ptr(v, s0 + j) + z * CH : nullptr; });
-    __syncthreads();
-    rows_times_tile<CH>(Ps, Vs, BK, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + ty + 16 * i;
-    const float total = row_reduce<true>(l[i]);
-    if (r >= rows) continue;
-    const size_t row = row_of(r);
-    const float inv = 1.f / total;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) o[row * dim + z * CH + 4 * tx + u] = from_f<T>(acc[i][0][u] * inv);
-    if (lse != nullptr && z == 0 && tx == 0) lse[row] = m[i] + log2f(total);
-  }
-}
 
 // dq_acc columns 64 z .. 64 z + 63 (+)= ds k. grid (ceil(T*G / BQ), B * Kv, dim / CH).
 template <typename T>
@@ -699,11 +578,7 @@ forms_dkv_chunked_kernel(const T* __restrict__ k, const T* __restrict__ v, const
 
 // ---- host ----
 
-// the tiles' bytes of the chunked forward's, dq's and dk/dv's, CH columns at a time
-constexpr int fwd_smem() {
-  using TL = Tile<CH>;
-  return ((BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
-}
+// the tiles' bytes of the chunked dq's and dk/dv's, CH columns at a time
 constexpr int dq_smem() {
   using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + BQ * TL::PLD) * 4;
@@ -712,7 +587,7 @@ constexpr int dkv_smem() {
   using TL = Tile<CH>;
   return ((2 * BQ + 2 * TL::BK) * TL::LD + 2 * BQ * TL::PLD + 2 * BQ) * 4;
 }
-static_assert(fwd_smem() <= 232448 && dq_smem() <= 232448 && dkv_smem() <= 232448,
+static_assert(dq_smem() <= 232448 && dkv_smem() <= 232448,
               "every instance's tiles fit one SM's shared memory");
 
 KeyFrame frame_of(int halo, int T, int S, int window, int g0, int t_global) {
@@ -729,25 +604,7 @@ int launch_prologue(Kernel kernel, int smem, std::atomic<unsigned long long>& do
 
 // Each launcher takes the run-time head dim `dim` beside its instance's D (D
 // = 0: the chunked instance, whose grid gains the axis of dim / CH column
-// chunks). The forward, dq and dk/dv have the chunked instance alone
-// (FORMS_CHUNKS).
-template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o, void* lse,
-               int B, int Tq, int S, int H, int Kv, int window, float scale, KeyFrame frame, int dim, void* stream) {
-  static_assert(D == 0, "the D-templated forward went to flash_f32x6.cuh (fp32) and the wgmma kernels");
-  static std::atomic<unsigned long long> smem_set[2];  // per instance: devices whose limit is raised
-  const bool rope = cos_t != nullptr;
-  auto kernel = rope ? forms_fwd_chunked_kernel<T, true> : forms_fwd_chunked_kernel<T, false>;
-  const int err = launch_prologue(kernel, fwd_smem(), smem_set[rope]);
-  if (err != 0) return err;
-  kernel<<<dim3((Tq * (H / Kv) + BQ - 1) / BQ, B * Kv, dim / CH), THREADS, fwd_smem(),
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<T*>(o), static_cast<float*>(lse), Tq, S, H, Kv, window,
-      scale * LOG2E, frame, dim);
-  return (int)cudaGetLastError();
-}
-
+// chunks). dq and dk/dv have the chunked instance alone (FORMS_PAIR_CHUNKS).
 template <typename T, int D>
 int launch_prep(const void* q, const void* dout, const void* o, const void* lse, const void* cos_t, const void* sin_t,
                 void* qs_g, void* do_g, void* lse_g, void* delta_g, int B, int Tq, int H, int Kv, int pad, float scale,
@@ -834,16 +691,14 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
 // of 64), else cudaErrorInvalidValue. FORMS_DIMS names a type's instances at
 // D = 64 ... 256, FORMS_CHUNKED its chunked one at every D > 256,
 // FORMS_ABOVE the chunked one above 512 only (the dispatch keys D = 320 ...
-// 512 apart from the head dims above them). The forward, dq and dk/dv bodies
-// keep only what a route launches (ops/flash_forms.py::kernel_form):
-//  * FORMS_CHUNKS, the forward: the chunked instances alone, fp32's above D =
-//    256 and bf16's and fp16's above 512 (flash_f32x6.cuh's forward takes
-//    fp32 at D <= 256; K1 bf16 and fp16 there; flash_xwide.cuh's forward bf16
-//    and fp16 at 320 ... 512);
+// 512 apart from the head dims above them). The bodies keep only what a route
+// launches (ops/flash_forms.py::kernel_form):
 //  * FORMS_PAIR_CHUNKS, dq and dk/dv: the chunked instances above 512 alone
 //    (flash_f32x6.cuh's pair takes fp32 at D <= 512; K2's sweep and the wgmma
 //    windowed pair bf16 and fp16 at D <= 256, flash_xwide.cuh's pair at 320
-//    ... 512);
+//    ... 512); no forward is left here (flash_f32x6.cuh's and
+//    flash_xwide.cuh's forwards take every head dim, K1 bf16 and fp16 up to
+//    256);
 //  * FORMS_EVERY, the pre-pass, the post-pass and the merge: every type at
 //    every D.
 #define FORMS_DIMS(CODE, TT)                                                      \
@@ -853,8 +708,6 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
   case CODE * 1000 + 256: return CALL(TT, 256);
 #define FORMS_ABOVE(CODE, TT) case CODE * 1000 + 1: return CALL(TT, 0);
 #define FORMS_CHUNKED(CODE, TT) case CODE * 1000 + 0: FORMS_ABOVE(CODE, TT)
-#define FORMS_CHUNKS                                                              \
-  FORMS_CHUNKED(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_PAIR_CHUNKS                                                         \
   FORMS_ABOVE(DTYPE_F32, float) FORMS_ABOVE(DTYPE_BF16, __nv_bfloat16) FORMS_ABOVE(DTYPE_F16, __half)
 #define FORMS_EVERY                                                               \
@@ -867,20 +720,6 @@ int launch_merge(void* o_acc, const void* lse_acc, const void* o_j, const void* 
     INSTANCES                                                                     \
     default: return (int)cudaErrorInvalidValue;                                   \
   }
-
-// The forward: q (B, T, H, D), k and v (B, S, Kv, D) (Kv = 1: (B, S, D)), o
-// like q, lse (B, T*H) fp32 or null. halo = 0: one device, S keys on the
-// queries' diagonal (S == T); halo = 1: the halo slab of S = T + window keys
-// of the shard [g0, g0 + T) of a song of t_global frames (q already rotated,
-// no tables). cos_t, sin_t (T, D) fp32, or null.
-extern "C" int forms_fwd(int dtype, int D, const void* q, const void* k, const void* v, const void* cos_t,
-                         const void* sin_t, void* o, void* lse, int B, int T, int S, int H, int Kv, int window,
-                         int halo, int g0, int t_global, float scale, void* stream) {
-  const KeyFrame frame = frame_of(halo, T, S, window, g0, t_global);
-#define CALL(TT, DD) launch_fwd<TT, DD>(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, window, scale, frame, D, stream)
-  FORMS_DISPATCH(FORMS_CHUNKS)
-#undef CALL
-}
 
 // The pre-pass into scratch allocated by the caller: qs_g (B*Kv, T*G, D) in
 // T; do_g the same, or null at Kv == 1; lse_g and delta_g (B*Kv, pad) fp32,
@@ -896,8 +735,10 @@ extern "C" int forms_bwd_prep(int dtype, int D, const void* q, const void* dout,
 }
 
 // dq_acc (B*Kv, pad, D) fp32 written, or with `accumulate` added to, over the
-// S keys of k and v; do_rows is do_g at Kv > 1, do itself at Kv == 1. Frames
-// as forms_fwd's.
+// S keys of k and v; do_rows is do_g at Kv > 1, do itself at Kv == 1. halo =
+// 0: one device, S keys on the queries' diagonal (S == T); halo = 1: the halo
+// slab of S = T + window keys of the shard [g0, g0 + T) of a song of t_global
+// frames.
 extern "C" int forms_bwd_dq(int dtype, int D, const void* k, const void* v, const void* qs_g, const void* do_rows,
                             const void* lse_g, const void* delta_g, void* dq_acc, int B, int T, int S, int H, int Kv,
                             int pad, int window, int halo, int g0, int t_global, int accumulate, void* stream) {

@@ -1,8 +1,10 @@
 // Flash attention above head dim 256 on the tensor cores, for Hopper
-// (sm_90a): the forward and the backward pair (dq, dk/dv) at D = 320, 384,
-// 448 and 512, templated on the operand type E (bf16 or fp16). The entry
-// points are flash_xwide.cu's (bf16) and flash_xwide_f16.cu's (fp16), one
-// library each, so that the two types compile side by side.
+// (sm_90a): the forward at every head dim above 256 that is a multiple of 64
+// (the forms family's chunked forward, forms_fwd_chunked_kernel, which served
+// D > 512 on the FMA units, is deleted) and the backward pair (dq, dk/dv) at
+// D = 320, 384, 448 and 512, templated on the operand type E (bf16 or fp16).
+// The entry points are flash_xwide.cu's (bf16) and flash_xwide_f16.cu's
+// (fp16), one library each, so that the two types compile side by side.
 //
 // Replaces, at those head dims, osufusion_tpu/ops/pallas_attention.py::
 //  * _fwd_kernel (:208, launched by _flash_fwd), _halo_fwd_kernel (:938,
@@ -94,13 +96,29 @@
 //  * Masks as in flash_fwd.cuh and flash_bwd_windowed.cuh: only a tile at
 //    the window's edge or past the keys that exist ([kf.lo, kf.hi)) is
 //    masked, each entry with one unsigned compare.
+// The forward above XW_MAX_D (xwide_fwd_kernel<E, STREAM = true>): O's atoms
+// no longer fit the two warpgroups (XW_FWD_ATOMS0 + XW_FWD_ATOMS1 = 8), nor q
+// shared memory beside rings of three slots above D = 704. So
+//  * O's columns go in chunks of at most 8 atoms on the grid's z axis
+//    (xw_chunk: 5 + 4 at 576, 8 + 8 at 1024), each chunk's block computing S
+//    again over the whole head dim (1.5x the tensor-core work of S and P V
+//    at 576 against one chunk); only chunk 0's block writes the LSE;
+//  * xw_qs_kernel writes qs (rope_qs.cuh's bits, group-major rows) to device
+//    memory first, and each atom of it streams through ring 0 in the slot of
+//    the K atom it multiplies (slots of 16 + 8 KB there, 4 a ring), at every
+//    head dim above XW_MAX_D, so that one instance takes all of them.
+//    ptxas: 168 registers at launch, no spill; C7520 (wgmma serialised by a
+//    compiler-inserted WG.AR in a divergent path) on both forward instances,
+//    as on the pair.
 //
 // C ABI (loaded with ctypes), each entry point taking the head dim first and
-// returning a cudaError_t (cudaErrorInvalidValue for a head dim outside
-// XW_MIN_D ... XW_MAX_D or not a multiple of 64), or minus the CUresult of a
+// returning a cudaError_t (cudaErrorInvalidValue for a head dim that is not a
+// multiple of 64, the pair's also outside XW_MIN_D ... XW_MAX_D, or the
+// forward above XW_MAX_D without its scratch), or minus the CUresult of a
 // TMA descriptor that failed to encode: xwide_fwd_<type> and
 // xwide_halo_fwd_<type> take flash_fwd_<type>'s and halo_fwd_<type>'s
-// arguments (flash_fwd.cuh), xwide_bwd_dq_<type> and xwide_bwd_dkv_<type>
+// arguments (flash_fwd.cuh) and the scratch of qs above XW_MAX_D (the
+// forward takes every multiple of 64), xwide_bwd_dq_<type> and xwide_bwd_dkv_<type>
 // those of flash_forms.cu's forms_bwd_dq and forms_bwd_dkv without the type
 // code.
 //
@@ -152,13 +170,18 @@ __host__ __device__ constexpr int xw_dq_fixed(int A) {
   return xw_align(2 * A * XW_ATOM_BYTES + 32 * 128 * 4 + 16 * 128 * 4 + XW_BARS);
 }
 __host__ __device__ constexpr int xw_dkv_fixed(int A) { return xw_align(2 * A * XW_ATOM_BYTES + 2 * 32 * 128 * 4 + XW_BARS); }
-// the slots of `bytes` of each of the two rings that the rest of the block's shared memory holds (the 1024
-// bytes of alignment aside), at most XW_MAX_SLOTS
-__host__ __device__ constexpr int xw_slots(int fixed, int bytes = XW_ATOM_BYTES) {
-  return (XW_SMEM_LIMIT - 1024 - fixed) / (2 * bytes) < XW_MAX_SLOTS ? (XW_SMEM_LIMIT - 1024 - fixed) / (2 * bytes)
-                                                                      : XW_MAX_SLOTS;
+// the slots of each of the two rings, of `bytes0` and `bytes1` a slot, that the rest of the block's shared memory
+// holds (the 1024 bytes of alignment aside), at most XW_MAX_SLOTS
+__host__ __device__ constexpr int xw_slots2(int fixed, int bytes0, int bytes1) {
+  return (XW_SMEM_LIMIT - 1024 - fixed) / (bytes0 + bytes1) < XW_MAX_SLOTS
+             ? (XW_SMEM_LIMIT - 1024 - fixed) / (bytes0 + bytes1)
+             : XW_MAX_SLOTS;
 }
-static_assert(xw_slots(xw_fwd_fixed(XW_MAX_D / 64), XW_FWD_SLOT) >= 3 && xw_slots(xw_dq_fixed(XW_MAX_D / 64)) >= 4 &&
+// ... of `bytes` a slot on both rings
+__host__ __device__ constexpr int xw_slots(int fixed, int bytes = XW_ATOM_BYTES) { return xw_slots2(fixed, bytes, bytes); }
+static_assert(xw_slots(xw_fwd_fixed(XW_MAX_D / 64), XW_FWD_SLOT) >= 3 &&
+                  xw_slots2(xw_fwd_fixed(0), XW_FWD_SLOT + XW_ATOM_BYTES, XW_FWD_SLOT) >= 3 &&
+                  xw_slots(xw_dq_fixed(XW_MAX_D / 64)) >= 4 &&
                   xw_slots(xw_dkv_fixed(XW_MAX_D / 64)) >= 4,
               "every kernel keeps three atoms or more in flight on each ring at XW_MAX_D");
 
@@ -198,11 +221,12 @@ struct XwPos {
 struct XwFeed {
   XwRing r;
   XwPos at;
-  // load(dst, bar) issues the copy of one atom into dst, completing on bar
+  // load(dst, bar) issues the copy of one atom into dst, completing on bar; `bytes` of the slot filled (the whole
+  // slot unless given)
   template <typename Load>
-  __device__ __forceinline__ void push(Load load) {
+  __device__ __forceinline__ void push(Load load, int bytes = 0) {
     mbar_wait(&r.empty[at.st], at.phase ^ 1);
-    mbar_expect_tx(&r.full[at.st], r.bytes);
+    mbar_expect_tx(&r.full[at.st], bytes > 0 ? bytes : r.bytes);
     load(r.slots + at.st * r.bytes, &r.full[at.st]);
     at.advance(r.n);
   }
@@ -260,11 +284,14 @@ __device__ __forceinline__ void xw_zero(float (&acc)[N][32]) {
 // S (64 x K, fp32; K = 64 or 128 keys or rows) = sum over the a atoms of
 // A_a B_a^T, both K-major: A resident (atom i at a_base + i * XW_ATOM), B
 // the next `atoms` atoms of the ring (K rows of 64 columns each); the
-// logits-shaped product of every kernel here
-template <typename E, int K>
+// logits-shaped product of every kernel here. STREAM: A_a streamed too, in
+// B_a's slot after its K rows (the forward above XW_MAX_D)
+template <typename E, int K, bool STREAM = false>
 __device__ __forceinline__ void xw_dots(float (&s)[K / 2], const E* a_base, int atoms, XwTake& rd) {
   for (int a = 0; a < atoms; ++a) {
-    const uint64_t bd = desc_kmajor(rd.take()), ad = desc_kmajor(a_base + a * XW_ATOM);
+    const unsigned char* slot = static_cast<const unsigned char*>(rd.take());
+    const uint64_t bd = desc_kmajor(slot);
+    const uint64_t ad = STREAM ? desc_kmajor(slot + K * 128) : desc_kmajor(a_base + a * XW_ATOM);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss<K, 0, 0, E>(s, ad + 2 * kk, bd + 2 * kk, a > 0 || kk > 0);
     wgmma_commit();
@@ -327,26 +354,33 @@ __device__ __forceinline__ XwChunk xw_chunk(int A) {
 
 // ---- the forward ----
 
-// grid (ceil(T*G / 64), B * Kv); frame {0, 0, S} on one device,
-// halo_frame in the halo slab (q rotated, no tables)
-template <typename E>
+// grid (ceil(T*G / 64), B * Kv, column chunks); frame {0, 0, S} on one
+// device, halo_frame in the halo slab (q rotated, no tables). STREAM (D >
+// XW_MAX_D): qs comes from xw_qs_kernel (qmap: its group-major rows, boxes of
+// one atom of 64 rows), each of its atoms streamed through ring 0 in the slot
+// of the K atom it multiplies, and the block's O columns are the grid's z
+// chunk; else (D <= XW_MAX_D) the block stages qs from the raw q and holds it,
+// and one chunk holds every column. qmap is unread without STREAM.
+template <typename E, bool STREAM>
 __global__ void __launch_bounds__(XW_THREADS, 1)
 xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-                 const E* __restrict__ q, const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                 E* __restrict__ o, float* __restrict__ lse, int T, int H, int Kv, int D, int window, float scale,
-                 KeyFrame kf, int slots) {
+                 const __grid_constant__ CUtensorMap qmap, const E* __restrict__ q, const float* __restrict__ cos_t,
+                 const float* __restrict__ sin_t, E* __restrict__ o, float* __restrict__ lse, int T, int H, int Kv,
+                 int D, int window, float scale, KeyFrame kf, int slots) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const int A = D / 64;
   constexpr int BN = XW_FWD_KEYS, F = BN / 16;  // keys of a tile; P's fragment registers
-  E* Qs = reinterpret_cast<E*>(smem);  // [A][64][64] qs, swizzled
-  uint32_t* xp = reinterpret_cast<uint32_t*>(smem + A * XW_ATOM_BYTES);  // [2][4 F][128] P in E
-  float* xc = reinterpret_cast<float*>(xp + 2 * 4 * F * 128);            // [2][2][128] O's rescale
-  float* xl = xc + 2 * 2 * 128;                                          // [2][128] 1 / l
-  uint64_t* bars = reinterpret_cast<uint64_t*>(xl + 2 * 128);            // [2 rings][full, empty][XW_MAX_SLOTS]
-  unsigned char* rings = smem + xw_fwd_fixed(A);                         // [2][slots][BN][64]
-  const XwRing ring0 = xw_ring(rings, bars, slots, XW_FWD_SLOT);
-  const XwRing ring1 = xw_ring(rings + slots * XW_FWD_SLOT, bars + 2 * XW_MAX_SLOTS, slots, XW_FWD_SLOT);
+  constexpr int SLOT0 = STREAM ? XW_FWD_SLOT + XW_ATOM_BYTES : XW_FWD_SLOT;  // ring 0's slot: a K atom (and a qs one)
+  E* Qs = reinterpret_cast<E*>(smem);  // [A][64][64] qs, swizzled (none with STREAM)
+  const int resident = STREAM ? 0 : A;
+  uint32_t* xp = reinterpret_cast<uint32_t*>(smem + resident * XW_ATOM_BYTES);  // [2][4 F][128] P in E
+  float* xc = reinterpret_cast<float*>(xp + 2 * 4 * F * 128);                  // [2][2][128] O's rescale
+  float* xl = xc + 2 * 2 * 128;                                                // [2][128] 1 / l
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xl + 2 * 128);  // [2 rings][full, empty][XW_MAX_SLOTS]
+  unsigned char* rings = smem + xw_fwd_fixed(resident);        // [slots][SLOT0], then [slots][BN][64]
+  const XwRing ring0 = xw_ring(rings, bars, slots, SLOT0);
+  const XwRing ring1 = xw_ring(rings + slots * SLOT0, bars + 2 * XW_MAX_SLOTS, slots, XW_FWD_SLOT);
 
   const int b = blockIdx.y / Kv, kv = blockIdx.y % Kv;
   const int G = H / Kv, rows = T * G;  // the group's rows: group row r is timestep r / G, head kv * G + r % G
@@ -357,7 +391,8 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   const KeySpan span = keys_seen(kf, local, w2, t_lo, t_hi);  // the keys the block's rows see
   const int kv_lo = span.lo;
   const int n_tiles = (span.hi - kv_lo + BN - 1) / BN;
-  const int n0 = max(0, A - XW_FWD_ATOMS1), n1 = A - n0;  // o atoms of warpgroup 0 (the first), 1 (the rest)
+  const XwChunk ch = xw_chunk(A);  // the block's o atoms [c0, c1): every atom below XW_MAX_D
+  const int n0 = max(0, ch.c1 - ch.c0 - XW_FWD_ATOMS1), n1 = ch.c1 - ch.c0 - n0;  // warpgroup 0's (the first), 1's
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -374,13 +409,21 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       for (int it = 0; it < n_tiles; ++it) {
         const int s0 = kv_lo + it * BN;  // keys past S arrive as zeros
         auto atom = [&](const CUtensorMap* map, int a) {
-          feed.push([&](void* dst, uint64_t* bar) { tma_load_4d(dst, map, bar, 64 * a, kv, s0, b); });
+          feed.push([&](void* dst, uint64_t* bar) { tma_load_4d(dst, map, bar, 64 * a, kv, s0, b); }, XW_FWD_SLOT);
         };
         if (warp == 8) {
-          for (int a = 0; a < A; ++a) atom(&kmap, a);  // S
-          for (int a = 0; a < n0; ++a) atom(&vmap, a);  // warpgroup 0's P V
+          for (int a = 0; a < A; ++a) {  // S; with STREAM qs's atom a beside K's (rows past T*G arrive as zeros)
+            if (STREAM)
+              feed.push([&](void* dst, uint64_t* bar) {
+                tma_load_4d(dst, &kmap, bar, 64 * a, kv, s0, b);
+                tma_load_3d(static_cast<unsigned char*>(dst) + XW_FWD_SLOT, &qmap, bar, 64 * a, r0, (int)blockIdx.y);
+              });
+            else
+              atom(&kmap, a);
+          }
+          for (int a = ch.c0; a < ch.c0 + n0; ++a) atom(&vmap, a);  // warpgroup 0's P V
         } else {
-          for (int a = n0; a < A; ++a) atom(&vmap, a);  // warpgroup 1's P V
+          for (int a = ch.c0 + n0; a < ch.c1; ++a) atom(&vmap, a);  // warpgroup 1's P V
         }
       }
     }
@@ -395,8 +438,8 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   E* ob = o + ((size_t)b * T * H + kv * G) * D;
 
   // both warpgroups stage the block's 64 rows as qs (rope_qs.cuh's bits), D / 16 pieces a row, each 8
-  // columns of the low half and their partners D / 2 on
-  {
+  // columns of the low half and their partners D / 2 on; with STREAM xw_qs_kernel did
+  if (!STREAM) {
     const int pieces = D / 16;
     const float qscale = scale * XW_LOG2E;
     for (int c = threadIdx.x; c < XW_ROWS * pieces; c += 256) {
@@ -440,7 +483,7 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
     for (int it = 0; it < n_tiles; ++it) {
       reg_fence(s);
       wgmma_fence();
-      xw_dots<E, BN>(s, Qs, A, rd);  // S = qs K^T, its atoms from the ring
+      xw_dots<E, BN, STREAM>(s, Qs, A, rd);  // S = qs K^T, its atoms from the ring
       rd.drain();                    // and the previous tile's P V: pa and acc are free
       reg_fence(s);
       xw_fence(acc);
@@ -507,7 +550,7 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       xl[r * 128 + tid] = inv[r];
     }
     named_bar_sync(2, 256);  // 1 / l is in place
-    if (lse != nullptr && tq == 0) {  // the 4 threads of a quad hold the same row statistics
+    if (lse != nullptr && tq == 0 && blockIdx.z == 0) {  // the 4 threads of a quad hold the same row statistics
       float* lb = lse + (size_t)b * T * H + kv * G;
       if (row_a < rows) lb[mem_a] = m[0] + log2f(l[0]);
       if (row_b < rows) lb[mem_b] = m[1] + log2f(l[1]);
@@ -515,7 +558,7 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
 #pragma unroll
     for (int i = 0; i < XW_FWD_ATOMS0; ++i) {
       if (i >= n0) continue;
-      const int c = i * 64;
+      const int c = (ch.c0 + i) * 64;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int col = c + 8 * t + 2 * tq;
@@ -556,7 +599,7 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
 #pragma unroll
     for (int i = 0; i < XW_FWD_ATOMS1; ++i) {
       if (i >= n1) continue;
-      const int c = (n0 + i) * 64;
+      const int c = (ch.c0 + n0 + i) * 64;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int col = c + 8 * t + 2 * tq;
@@ -567,6 +610,31 @@ xwide_fwd_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant
               pack2<E>(acc[i][4 * t + 2] * inv[1], acc[i][4 * t + 3] * inv[1]);
       }
     }
+  }
+}
+
+// qs (B * Kv, T * G, D) in E, group-major (group row r of KV head kv: timestep
+// r / G, head kv * G + r % G): the forward's qs above XW_MAX_D, rope_qs.cuh's
+// bits as the staging above; eight columns of the low half and their
+// partners a thread. q (B, T, H, D) raw, the tables (T, D) or null.
+template <typename E>
+__global__ void xw_qs_kernel(const E* __restrict__ q, const float* __restrict__ cos_t,
+                             const float* __restrict__ sin_t, E* __restrict__ qs, int B, int T, int H, int Kv, int D,
+                             float qscale) {
+  const int G = H / Kv, pieces = D / 16;
+  const size_t n = (size_t)B * T * H * pieces;
+  for (size_t c = blockIdx.x * (size_t)blockDim.x + threadIdx.x; c < n; c += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = c / pieces;  // (b, t, h) of q
+    const int col = (int)(c % pieces) * 8, h = (int)(row % H);
+    const size_t t = (row / H) % T, b = row / ((size_t)T * H);
+    uint4 lo, hi;
+    if (cos_t != nullptr)
+      rope_qs8_half<true>(q + row * D, cos_t + t * D, sin_t + t * D, col, D / 2, qscale, lo, hi);
+    else
+      rope_qs8_half<false>(q + row * D, nullptr, nullptr, col, D / 2, qscale, lo, hi);
+    E* dst = qs + ((b * Kv + h / G) * T * G + t * G + h % G) * D;
+    *reinterpret_cast<uint4*>(dst + col) = lo;
+    *reinterpret_cast<uint4*>(dst + col + D / 2) = hi;
   }
 }
 
@@ -952,27 +1020,52 @@ int xw_rows_map(CUtensorMap* map, const void* ptr, int rows, int groups, int D) 
   return make_map<E>(map, 3, ptr, dims, strides, box);
 }
 
+template <typename E, bool STREAM>
+int launch_xwide_fwd_kernel(const CUtensorMap& kmap, const CUtensorMap& vmap, const CUtensorMap& qmap, const void* q,
+                            const void* cos_t, const void* sin_t, void* o, void* lse, int B, int T, int H, int Kv,
+                            int D, int window, float scale, KeyFrame frame, int dev, void* stream) {
+  static std::atomic<unsigned long long> smem_set{0};  // devices whose limit is raised
+  const int err = allow_smem(xwide_fwd_kernel<E, STREAM>, XW_SMEM_LIMIT, dev, smem_set);
+  if (err != 0) return err;
+  const int A = D / 64, slot0 = STREAM ? XW_FWD_SLOT + XW_ATOM_BYTES : XW_FWD_SLOT;
+  const int fixed = xw_fwd_fixed(STREAM ? 0 : A), slots = xw_slots2(fixed, slot0, XW_FWD_SLOT);
+  const int per = XW_FWD_ATOMS0 + XW_FWD_ATOMS1;  // o atoms a block holds at most
+  const dim3 grid((T * (H / Kv) + XW_ROWS - 1) / XW_ROWS, B * Kv, STREAM ? (A + per - 1) / per : 1);
+  xwide_fwd_kernel<E, STREAM><<<grid, XW_THREADS, 1024 + fixed + slots * (slot0 + XW_FWD_SLOT),
+                                static_cast<cudaStream_t>(stream)>>>(
+      kmap, vmap, qmap, static_cast<const E*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<E*>(o), static_cast<float*>(lse), T, H, Kv, D, window, scale, frame, slots);
+  return (int)cudaGetLastError();
+}
+
+// The forward at any head dim that is a multiple of 64: up to XW_MAX_D the
+// block stages qs and holds it; above, xw_qs_kernel writes qs (group-major,
+// into `qs`: (B * Kv, T * H / Kv, D) of E, unread below) and the forward
+// streams it, its o columns in chunks on the grid's z axis
 template <typename E>
 int launch_xwide_fwd(const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t, void* o,
-                     void* lse, int B, int T, int S, int H, int Kv, int D, int window, float scale, KeyFrame frame,
-                     void* stream) {
-  if (!xw_takes(D)) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned long long> smem_set{0};  // devices whose limit is raised
-  const int A = D / 64;
-  CUtensorMap kmap, vmap;
+                     void* lse, void* qs, int B, int T, int S, int H, int Kv, int D, int window, float scale,
+                     KeyFrame frame, void* stream) {
+  if (D <= 0 || D % 64 != 0 || (D > XW_MAX_D && qs == nullptr)) return (int)cudaErrorInvalidValue;
+  CUtensorMap kmap, vmap, qmap{};
   int dev;
   int err = bind_device(&dev);
   if (err == 0) err = make_kv_map<E>(&kmap, k, B, S, Kv, XW_FWD_KEYS, D);
   if (err == 0) err = make_kv_map<E>(&vmap, v, B, S, Kv, XW_FWD_KEYS, D);
-  if (err == 0) err = allow_smem(xwide_fwd_kernel<E>, XW_SMEM_LIMIT, dev, smem_set);
   if (err != 0) return err;
-  const dim3 grid((T * (H / Kv) + XW_ROWS - 1) / XW_ROWS, B * Kv);
-  const int fixed = xw_fwd_fixed(A), slots = xw_slots(fixed, XW_FWD_SLOT);
-  xwide_fwd_kernel<E><<<grid, XW_THREADS, 1024 + fixed + 2 * slots * XW_FWD_SLOT,
-                        static_cast<cudaStream_t>(stream)>>>(
-      kmap, vmap, static_cast<const E*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<E*>(o), static_cast<float*>(lse), T, H, Kv, D, window, scale, frame, slots);
-  return (int)cudaGetLastError();
+  if (D <= XW_MAX_D)
+    return launch_xwide_fwd_kernel<E, false>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse, B, T, H, Kv, D, window, scale,
+                                             frame, dev, stream);
+  const long long n = (long long)B * T * H * (D / 16);
+  xw_qs_kernel<E><<<(unsigned)(n < 132LL * 64 * 256 ? (n + 255) / 256 : 132LL * 64), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const E*>(q), static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<E*>(qs), B, T, H, Kv, D, scale * XW_LOG2E);
+  err = (int)cudaGetLastError();
+  if (err == 0) err = xw_rows_map<E>(&qmap, qs, T * (H / Kv), B * Kv, D);
+  if (err != 0) return err;
+  return launch_xwide_fwd_kernel<E, true>(kmap, vmap, qmap, q, cos_t, sin_t, o, lse, B, T, H, Kv, D, window, scale,
+                                          frame, dev, stream);
 }
 
 // The pair's tensor maps: k and v (B, S, Kv, D) in boxes of 64 keys, qs and do rows group-major

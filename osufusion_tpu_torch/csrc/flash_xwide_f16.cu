@@ -1,25 +1,27 @@
-// The entry points of the flash forward and the backward pair above head dim
-// 256 (D = 320 ... 512) at fp16 operands. The kernels and their design are
-// flash_xwide.cuh's; the other operand type's entry points (bf16:
-// flash_xwide.cu) are a library of their own, so that the two compile side by side.
+// The entry points of the flash forward (every head dim above 256 that is a
+// multiple of 64) and the backward pair (D = 320 ... 512) at fp16 operands.
+// The kernels and their design are flash_xwide.cuh's; the other operand
+// type's entry points (bf16: flash_xwide.cu) are a library of their own, so that
+// the two compile side by side.
 
 #include "flash_xwide.cuh"
 
 // q (B, T, H, D), k and v (B, S, D) or (B, S, Kv, D); Kv KV heads (H % Kv ==
 // 0, checked by the caller); cos_t and sin_t (T, D) fp32, or null for no
-// rotary embedding: flash_fwd_f16's arguments
+// rotary embedding; qs: scratch of (B * Kv, T * H / Kv, D) for D > 512, else
+// null: flash_fwd_f16's arguments and qs
 extern "C" int xwide_fwd_f16(int D, const void* q, const void* k, const void* v, const void* cos_t,
-                              const void* sin_t, void* o, void* lse, int B, int T, int S, int H, int Kv, int window,
-                              float scale, void* stream) {
-  return launch_xwide_fwd<__half>(q, k, v, cos_t, sin_t, o, lse, B, T, S, H, Kv, D, window, scale, KeyFrame{0, 0, S},
-                                stream);
+                              const void* sin_t, void* o, void* lse, void* qs, int B, int T, int S, int H, int Kv,
+                              int window, float scale, void* stream) {
+  return launch_xwide_fwd<__half>(q, k, v, cos_t, sin_t, o, lse, qs, B, T, S, H, Kv, D, window, scale,
+                                KeyFrame{0, 0, S}, stream);
 }
 
 // The halo forward: q (B, T, H, D) already rotated, the slab k (rotated) and
-// v (B, T + window, D); halo_fwd_f16's arguments
-extern "C" int xwide_halo_fwd_f16(int D, const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                                   int T, int H, int window, int g0, int t_global, float scale, void* stream) {
-  return launch_xwide_fwd<__half>(q, k, v, nullptr, nullptr, o, lse, B, T, T + window, H, 1, D, window, scale,
+// v (B, T + window, D); halo_fwd_f16's arguments and qs, as xwide_fwd_f16's
+extern "C" int xwide_halo_fwd_f16(int D, const void* q, const void* k, const void* v, void* o, void* lse, void* qs,
+                                   int B, int T, int H, int window, int g0, int t_global, float scale, void* stream) {
+  return launch_xwide_fwd<__half>(q, k, v, nullptr, nullptr, o, lse, qs, B, T, T + window, H, 1, D, window, scale,
                                 halo_frame(T, window, g0, t_global), stream);
 }
 

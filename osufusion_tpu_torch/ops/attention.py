@@ -12,10 +12,11 @@ forward with native autograd. On the card the form rule
 (``ops/flash_forms.py::attention_form``, on the operands' dtype and head dim)
 decides first, before any launch or gather: bf16 and fp16 with D = 64, 128,
 192 or 256 run the wgmma kernels forward and backward (K2's sweep at global
-sites, the windowed backward pair at windowed ones);
-fp32 operands at any of those head dims csrc/flash_f32x6.cuh's kernels (up
-to D = 512 its backward pair), and a head dim above 256 that is a multiple
-of 64 otherwise the forms family's chunked instance; a head dim that
+sites, the windowed backward pair at windowed ones), above 256
+csrc/flash_xwide.cuh's forward at every head dim that is a multiple of 64 and
+its backward pair up to D = 512; fp32 operands csrc/flash_f32x6.cuh's
+forward at every such head dim and its backward pair up to D = 512; the
+backward above 512 the forms family's chunked dq and dk/dv; a head dim that
 is not a multiple of 64 runs what the JAX package runs there, rope and then
 the plain grouped attention with native autograd (the XLA einsum of
 ``osufusion_tpu/ops/attention.py``, which no Pallas kernel computes). The CPU

@@ -57,27 +57,28 @@ its own (``flash_fwd_f16``, ``flash_bwd_f16``, ``flash_bwd_windowed_f16``):
 at fp16 every forward is K1 (with its halo instance and the ring's hops), a
 windowed backward the fp16 pair (and its halo instances), and the global
 backward runs K2's sweep between the forms pre-pass and post-pass at every
-D, as bf16 does above 64. Above D = 256, at bf16 and fp16 with D = 320 ...
-512, every forward (the halo frame and the ring's hops too) is
-``csrc/flash_xwide.cuh``'s forward, and every backward (global, the ring's
-sweeps, windowed, halo) its dq and dk/dv pair between the forms pre-pass and
-post-pass (``xwide_bwd_dq``, ``xwide_bwd_dkv``); libraries ``flash_xwide``
-and ``flash_xwide_f16``. fp32 at D = 64 ... 256 runs
-``csrc/flash_f32x6.cuh``, each fp32 product as six bf16 products on the
-tensor cores, on the bf16 pieces of its operands (``f32x6_split``): every
-forward (the halo frame and the ring's hops too; ``f32x6_fwd``,
-``f32x6_halo_fwd``) and every backward (global, the ring's sweeps, windowed,
-halo) through its dq and dk/dv pair between the forms pre-pass and post-pass
-(``f32x6_bwd_dq``, ``f32x6_bwd_dkv``); library ``flash_f32x6``. At D = 320
-... 512 fp32's backward runs the same pair. The ring's
-merge takes bf16 at D = 64. Every other form (fp32's forward above D = 256; fp16's
-merge and the global backward's
-pre-pass and post-pass; bf16 and fp16 above D = 512; bf16 at D > 64 for the
-merge and the global backward's pre-pass and post-pass:
-``flash_forms.kernel_form``) goes to the forms family (``ops/flash_forms.py``,
-``csrc/flash_forms.cu``): each wrapper here chooses the entry point by the
-operands' (dtype, D) through ``flash_forms.route``, and the forms
-family runs every backward as the split pre-pass, dq, dk/dv and post-pass.
+D, as bf16 does above 64. Above D = 256, at bf16 and fp16, every forward (the
+halo frame and the ring's hops too) is ``csrc/flash_xwide.cuh``'s forward, at
+every head dim (above 512 it streams qs from a pre-pass and splits its
+output's columns over blocks), and at D = 320 ... 512 every backward (global,
+the ring's sweeps, windowed, halo) its dq and dk/dv pair between the forms
+pre-pass and post-pass (``xwide_bwd_dq``, ``xwide_bwd_dkv``); libraries
+``flash_xwide`` and ``flash_xwide_f16``. fp32 runs ``csrc/flash_f32x6.cuh``,
+each fp32 product as six bf16 products on the tensor cores, on the bf16
+pieces of its operands (``f32x6_split``): every forward at every head dim
+(the halo frame and the ring's hops too; ``f32x6_fwd``, ``f32x6_halo_fwd``;
+above 256 on the pieces of qs from a pre-pass, its output's columns split
+over blocks above 512) and up to D = 512 every backward (global, the ring's
+sweeps, windowed, halo) through its dq and dk/dv pair between the forms
+pre-pass and post-pass (``f32x6_bwd_dq``, ``f32x6_bwd_dkv``); library
+``flash_f32x6``. The ring's merge takes bf16 at D = 64. Every other form
+(fp16's merge and the global backward's pre-pass and post-pass; every type's
+dq and dk/dv above D = 512; bf16 at D > 64 for the merge and the global
+backward's pre-pass and post-pass: ``flash_forms.kernel_form``) goes to the
+forms family (``ops/flash_forms.py``, ``csrc/flash_forms.cu``): each wrapper
+here chooses the entry point by the operands' (dtype, D) through
+``flash_forms.route``, and the forms family runs every backward as the split
+pre-pass, dq, dk/dv and post-pass.
 
 The wrappers launch the kernels for CUDA tensors and raise on anything the
 kernels do not take, a CPU tensor included. ``flash_attention_op`` is the
@@ -195,11 +196,12 @@ _ENTRY_POINTS = {
     # D | k v do qs_g lse_g delta_g dk dv | B T H pad window g0 t_global | stream
     "halo_bwd_dkv_bf16": ("flash_bwd_windowed", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
     "halo_bwd_dkv_f16": ("flash_bwd_windowed_f16", [_INT] + [_PTR] * 8 + [_INT] * 7 + [_PTR]),
-    # above head dim 256 (csrc/flash_xwide.cuh): the forward as flash_fwd_* and halo_fwd_* take it
-    "xwide_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    "xwide_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    "xwide_halo_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    "xwide_halo_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # above head dim 256 (csrc/flash_xwide.cuh): the forward as flash_fwd_* and halo_fwd_* take it, and the
+    # scratch of its qs above 512 (``fwd_scratch``) after the LSE
+    "xwide_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_halo_fwd_bf16": ("flash_xwide", [_INT] + [_PTR] * 6 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "xwide_halo_fwd_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 6 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     # the pair on the forms scratch, as forms_bwd_dq and forms_bwd_dkv take it without the type code
     # D | k v qs_g do_rows lse_g delta_g dq_acc | B T S H Kv pad window halo g0 t_global accumulate | stream
     "xwide_bwd_dq_bf16": ("flash_xwide", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
@@ -208,16 +210,15 @@ _ENTRY_POINTS = {
     "xwide_bwd_dkv_bf16": ("flash_xwide", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     "xwide_bwd_dkv_f16": ("flash_xwide_f16", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     # fp32 on the tensor cores (csrc/flash_f32x6.cu): the forward as xwide_fwd_* and xwide_halo_fwd_* take it,
-    # q and o fp32, k and v as their bf16 pieces; the pair on the forms scratch as the xwide pair takes it, k v
-    # qs_g do_rows as their pieces; and the split that makes them: x out | rows D | stream
-    "f32x6_fwd": ("flash_f32x6", [_INT] + [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR]),
-    "f32x6_halo_fwd": ("flash_f32x6", [_INT] + [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    # q and o fp32, k and v as their bf16 pieces, the scratch of qs's pieces above 256; the pair on the forms
+    # scratch as the xwide pair takes it, k v qs_g do_rows as their pieces; and the split that makes them: x out |
+    # rows D | stream
+    "f32x6_fwd": ("flash_f32x6", [_INT] + [_PTR] * 8 + [_INT] * 6 + [ctypes.c_float, _PTR]),
+    "f32x6_halo_fwd": ("flash_f32x6", [_INT] + [_PTR] * 6 + [_INT] * 6 + [ctypes.c_float, _PTR]),
     "f32x6_split": ("flash_f32x6", [_PTR] * 2 + [ctypes.c_longlong, _INT, _PTR]),
     "f32x6_bwd_dq": ("flash_f32x6", [_INT] + [_PTR] * 7 + [_INT] * 11 + [_PTR]),
     "f32x6_bwd_dkv": ("flash_f32x6", [_INT] + [_PTR] * 8 + [_INT] * 11 + [_PTR]),
     # the forms family (csrc/flash_forms.cu): each entry point takes the type code and D first
-    # q k v cos sin o lse | B T S H Kv window halo g0 t_global | scale | stream
-    "forms_fwd": ("flash_forms", [_INT] * 2 + [_PTR] * 7 + [_INT] * 9 + [ctypes.c_float, _PTR]),
     # q do o lse cos sin | qs_g do_g lse_g delta_g | B T H Kv pad | scale | stream
     "forms_bwd_prep": ("flash_forms", [_INT] * 2 + [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR]),
     # k v qs_g do_rows lse_g delta_g dq_acc | B T S H Kv pad window halo g0 t_global accumulate | stream
@@ -237,13 +238,28 @@ TYPE_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 def fwd_entry(frame: str, route: str, dtype: torch.dtype) -> str:
     """The forward's entry point for ``frame`` ("flash" on one device, "halo"
-    in the halo slab) at ``route`` (``flash_forms.route``, not "forms"): K1's
-    of the dtype ("wgmma"), csrc/flash_xwide.cuh's ("xwide") or
-    csrc/flash_f32x6.cu's, which has one type ("f32x6")."""
+    in the halo slab) at ``route`` (``flash_forms.route``): K1's of the dtype
+    ("wgmma"), csrc/flash_xwide.cuh's ("xwide") or csrc/flash_f32x6.cu's,
+    which has one type ("f32x6")."""
     if route == "f32x6":
         return "f32x6_fwd" if frame == "flash" else "f32x6_halo_fwd"
     prefix = frame if route == "wgmma" else "xwide" if frame == "flash" else "xwide_halo"
     return f"{prefix}_fwd_{TYPE_SUFFIX[dtype]}"
+
+
+def fwd_scratch(route: str, q: torch.Tensor, kv: int) -> Optional[torch.Tensor]:
+    """The scratch into which the forward entry point of ``route`` writes qs
+    in group-major order (B * Kv, T * H / Kv, ...) before its kernel streams
+    it, at the head dims whose block does not stage and hold qs itself:
+    csrc/flash_f32x6.cuh's above 256 (qs's three bf16 pieces, 3 D a row),
+    csrc/flash_xwide.cuh's above 512 (qs in q's dtype); else None (K1 and
+    the narrower instances stage qs from the raw q)."""
+    B, T, H, D = q.shape
+    if route == "f32x6" and D > forms.WGMMA_HEAD_DIMS[-1]:
+        return torch.empty((B * kv, T * (H // kv), 3 * D), dtype=torch.bfloat16, device=q.device)
+    if route == "xwide" and D > forms.XWIDE_HEAD_DIMS[-1]:
+        return torch.empty((B * kv, T * (H // kv), D), dtype=q.dtype, device=q.device)
+    return None
 
 
 @functools.cache
@@ -323,17 +339,18 @@ def flash_fwd(
 ):
     """Launch the forward kernel of q's route (``flash_forms.route``: K1
     at bf16 or fp16 with D = 64, 128, 192 or 256, csrc/flash_xwide.cuh's
-    forward with D = 320 ... 512, csrc/flash_f32x6.cuh's at fp32 with D = 64
-    ... 256, on the pieces of k and v that ``f32x6_split`` makes here) on the
-    current stream; returns o (B, T, H, D) in q's dtype, or with
+    forward at every head dim above 256, csrc/flash_f32x6.cuh's at fp32 at
+    every head dim, on the pieces of k and v that ``f32x6_split`` makes here)
+    on the current stream; returns o (B, T, H, D) in q's dtype, or with
     ``return_lse`` (o, lse2): lse2 (B, T*H) fp32 is the base-2 log-sum-exp of
     the logits q_rot k_rot^T * scale * log2(e), query head h against KV head h
-    // (H / Kv). Counts the wgmma kernel's launches in ``flash_fwd.launches``
-    (those with the LSE also in ``flash_fwd.lse_launches``, those of the
-    grouped form, Kv > 1, in ``flash_fwd.grouped_launches``, those above D =
-    256 in ``flash_fwd.xwide_launches``, those at fp32 in
-    ``flash_fwd.f32x6_launches``), the forms kernel's (the chunked instance)
-    in ``flash_forms.forms_fwd.launches``."""
+    // (H / Kv). Counts its launches in ``flash_fwd.launches`` (those with
+    the LSE also in ``flash_fwd.lse_launches``, those of the grouped form, Kv
+    > 1, in ``flash_fwd.grouped_launches``, those above D = 256 at bf16 and
+    fp16 in ``flash_fwd.xwide_launches``, those at fp32 in
+    ``flash_fwd.f32x6_launches``, and of these two those whose qs the entry
+    point writes first into ``fwd_scratch``, fp32 above 256 and every type
+    above 512, in ``flash_fwd.streamed_launches``)."""
     kv = _kv_heads("flash_fwd", q, k)
     B, T, H, D = q.shape
     if v.shape != k.shape or k.shape[:2] != (B, T) or k.shape[-1] != D:
@@ -344,21 +361,21 @@ def flash_fwd(
     _check_window("flash_fwd", window)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device) if return_lse else None
-    if route == "forms":
-        forms.forms_fwd(q, k, v, cos, sin, o, lse, window, scale)
-        return (o, lse) if return_lse else o
     if route == "f32x6":
         forms._check_aligned("flash_fwd", q, o)
         k, v = f32x6_split(k), f32x6_split(v)
+    qs = fwd_scratch(route, q, kv)
     err = _kernel(fwd_entry("flash", route, q.dtype))(
         D, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), o.data_ptr(), _ptr(lse),
-        B, T, T, H, kv, window, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        *(() if route == "wgmma" else (_ptr(qs),)), B, T, T, H, kv, window, scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check_launch("flash_fwd", err)
     flash_fwd.launches += 1
     flash_fwd.grouped_launches += kv > 1
     flash_fwd.xwide_launches += route == "xwide"
     flash_fwd.f32x6_launches += route == "f32x6"
+    flash_fwd.streamed_launches += qs is not None
     if return_lse:
         flash_fwd.lse_launches += 1
         return o, lse
@@ -368,8 +385,9 @@ def flash_fwd(
 flash_fwd.launches = 0
 flash_fwd.lse_launches = 0
 flash_fwd.grouped_launches = 0  # of them, the grouped form (Kv > 1: DiT, MMDiT)
-flash_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
-flash_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32, D = 64 ... 256)
+flash_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D > 256)
+flash_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32)
+flash_fwd.streamed_launches = 0  # of those two, the instances that stream qs (fwd_scratch: fp32 > 256, D > 512)
 
 
 def _check_backward(who: str, q, k, v, rows, stats, cos, sin, grouped: bool = False) -> tuple[int, int, int, int, str]:
@@ -635,7 +653,7 @@ xwide_bwd_dkv.launches = 0
 
 def f32x6_split(x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/flash_f32x6.cuh's split on the current stream: the bf16
-    pieces of x (..., D) fp32, contiguous, D in 64 ... 512, as rows (...,
+    pieces of x (..., D) fp32, contiguous, D a multiple of 64, as rows (...,
     3 D) [b0 | b1 | b2] with x = b0 + b1 + b2 exactly (``f32x6_split_reference``
     is its plain version). Counts in ``f32x6_split.launches``."""
     D = x.shape[-1]

@@ -16,26 +16,24 @@ per kernel, by ``kernel_form(who, dtype, head_dim)`` for the wrapper ``who``:
   their halo instances K5a / K5b (``csrc/flash_bwd_windowed.cuh``:
   ``flash_bwd_dq`` / ``flash_bwd_dkv``, ``halo_bwd_dq`` / ``halo_bwd_dkv``).
   fp16 operands with D = 64, 128, 192 or 256 at the same wrappers, whose
-  kernels are templated on the operand type too. bf16 and fp16 with D in
-  ``XWIDE_HEAD_DIMS`` (320 ... 512) at the same wrappers: the forward and the
-  backward pair of ``csrc/flash_xwide.cuh``, which take the head dim at run
-  time (every forward, and between the forms pre-pass and post-pass every
-  backward: global, the ring's sweeps, windowed and halo). fp32 operands with
-  D in ``WGMMA_HEAD_DIMS`` at the wrappers of ``WIDE_WGMMA``, and with D in
-  ``XWIDE_HEAD_DIMS`` at those of ``BACKWARD_WRAPPERS``: the forward and the
-  dq and dk/dv pair of ``csrc/flash_f32x6.cuh``, each fp32 product as six
-  bf16 products, the pair between the forms pre-pass and post-pass;
+  kernels are templated on the operand type too. Above 256, bf16 and fp16 at
+  the same wrappers run ``csrc/flash_xwide.cuh``, which takes the head dim at
+  run time: its forward at every head dim (``FORWARD_WRAPPERS``), and with D
+  in ``XWIDE_HEAD_DIMS`` (320 ... 512) its backward pair between the forms
+  pre-pass and post-pass (global, the ring's sweeps, windowed and halo). fp32
+  operands at the wrappers of ``WIDE_WGMMA`` run ``csrc/flash_f32x6.cuh``,
+  each fp32 product as six bf16 products: its forward at every head dim, its
+  dq and dk/dv pair (``BACKWARD_WRAPPERS``) with D up to 512, between the
+  forms pre-pass and post-pass;
 * ``"forms"``: this module's kernels, which compute in fp32 on the FMA units:
   fp32 at every D for the ring's merge and the global backward's pre-pass
   and post-pass (``flash_bwd_prep`` / ``flash_bwd_post``); fp16 at the merge,
   the pre-pass and the post-pass at every D (``flash_bwd`` at fp16 runs K2's sweep, or
   above 256 the wgmma pair, between these two); and bf16 at D > 64 at the
   merge, the pre-pass and the post-pass (``flash_bwd`` at D > 64 likewise);
-* ``"chunked"``: the forms family's chunked instance of the forward, dq and
-  dk/dv (staged 64 columns of the head dim at a time), at the wrappers of
-  ``WIDE_WGMMA`` for every type above ``XWIDE_HEAD_DIMS`` (D > 512), and for
-  fp32 at the forwards (``flash_fwd``, ``halo_fwd``) with D in
-  ``XWIDE_HEAD_DIMS``;
+* ``"chunked"``: the forms family's chunked instance of dq and dk/dv (staged
+  64 columns of the head dim at a time), at the wrappers of
+  ``BACKWARD_WRAPPERS`` for every type above ``XWIDE_HEAD_DIMS`` (D > 512);
 * a head dim that is not a multiple of 64 raises ValueError: no kernel tiles
   it, and ``attention_form`` gives such a site ``"xla"``, the JAX package's
   XLA route (rope, then the plain grouped attention with native autograd;
@@ -63,20 +61,22 @@ import torch
 from osufusion_tpu_torch.ops import flash_attention as fa
 
 # the head dims of K1, K2's sweep and the windowed pair (csrc/flash_fwd.cuh, csrc/flash_bwd_sweep.cuh,
-# csrc/flash_bwd_windowed.cuh), of csrc/flash_f32x6.cuh's forward, and of the forms family's D-templated
-# instances (csrc/flash_forms.cu's FORMS_DIMS); a multiple of 64 above them runs the chunked forms instance
+# csrc/flash_bwd_windowed.cuh) and of the forms family's D-templated instances (csrc/flash_forms.cu's
+# FORMS_DIMS); above them bf16 and fp16 run csrc/flash_xwide.cuh
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
-# the head dims of the wgmma forward and backward pair above 256 (csrc/flash_xwide.cuh, XW_MIN_D ... XW_MAX_D),
-# at bf16 and fp16; above them the chunked instance
+# the head dims of the backward pairs above 256 (csrc/flash_xwide.cuh, XW_MIN_D ... XW_MAX_D, at bf16 and fp16;
+# csrc/flash_f32x6.cuh's above 256 at fp32); above them the chunked dq and dk/dv
 XWIDE_HEAD_DIMS = (320, 384, 448, 512)
-# the wrappers whose wgmma kernel takes every head dim of WGMMA_HEAD_DIMS and XWIDE_HEAD_DIMS, at bf16 and at
+# the wrappers whose wgmma kernels take every head dim of WGMMA_HEAD_DIMS and XWIDE_HEAD_DIMS, at bf16 and at
 # fp16 (each operand type's instances a library of their own: csrc/flash_fwd_f16.cu, csrc/flash_bwd_f16.cu,
-# csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu); every other wrapper's takes bf16 at 64
+# csrc/flash_bwd_windowed_f16.cu, csrc/flash_xwide_f16.cu), and at fp32 (csrc/flash_f32x6.cuh); every other
+# wrapper's takes bf16 at 64
 WIDE_WGMMA = frozenset({"flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq", "flash_bwd_dkv",
                         "halo_bwd_dq", "halo_bwd_dkv"})
-# the backward wrappers of WIDE_WGMMA: at fp32 their kernel is csrc/flash_f32x6.cuh's dq and dk/dv pair (six bf16
-# products per fp32 product) at WGMMA_HEAD_DIMS and XWIDE_HEAD_DIMS alike, where the forward's is only at the first
-BACKWARD_WRAPPERS = WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
+# the forward wrappers of WIDE_WGMMA: their kernels take every head dim that is a multiple of 64, at every type
+FORWARD_WRAPPERS = frozenset({"flash_fwd", "halo_fwd"})
+# the backward wrappers of WIDE_WGMMA: the chunked dq and dk/dv above XWIDE_HEAD_DIMS
+BACKWARD_WRAPPERS = WIDE_WGMMA - FORWARD_WRAPPERS
 # operand dtype -> the entry points' type code
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -93,10 +93,7 @@ def kernel_form(who: str, dtype: torch.dtype, head_dim: int) -> str:
                                   f"not {dtype}")
     if who not in WIDE_WGMMA:  # the merge, the pre-pass and the post-pass: D-generic forms bodies
         return "hopper" if dtype == torch.bfloat16 and head_dim == 64 else "forms"
-    if dtype == torch.float32:
-        wide = head_dim in XWIDE_HEAD_DIMS and who in BACKWARD_WRAPPERS
-        return "hopper" if head_dim in WGMMA_HEAD_DIMS or wide else "chunked"
-    return "hopper" if head_dim in WGMMA_HEAD_DIMS or head_dim in XWIDE_HEAD_DIMS else "chunked"
+    return "hopper" if who in FORWARD_WRAPPERS or head_dim <= XWIDE_HEAD_DIMS[-1] else "chunked"
 
 
 def attention_form(dtype: torch.dtype, head_dim: int) -> str:
@@ -112,18 +109,18 @@ def route(who: str, t: torch.Tensor) -> str:
     """The entry point by which the wrapper ``who`` serves ``t``'s (dtype,
     head dim) on the card, the one value each wrapper branches on: "wgmma"
     for its own wgmma kernel, "xwide" for csrc/flash_xwide.cuh's (the form
-    "hopper" at a head dim of ``XWIDE_HEAD_DIMS``; its backward runs on this
+    "hopper" above D = 256 at bf16 and fp16; its backward runs on this
     module's pre-pass and post-pass), "f32x6" for csrc/flash_f32x6.cuh's
-    forward and pair (the form "hopper" at fp32, the pair up to D = 512; the
-    pair on the same pre-pass and post-pass),
-    "forms" for this module's family (the chunked instance included). A head
-    dim that no kernel tiles raises ValueError."""
+    forward and pair (the form "hopper" at fp32; the pair on the same
+    pre-pass and post-pass), "forms" for this module's family (the chunked
+    dq and dk/dv included). A head dim that no kernel tiles raises
+    ValueError."""
     D = t.shape[-1]
     if kernel_form(who, t.dtype, D) != "hopper":
         return "forms"
     if t.dtype == torch.float32:
         return "f32x6"
-    return "xwide" if D in XWIDE_HEAD_DIMS else "wgmma"
+    return "wgmma" if D <= WGMMA_HEAD_DIMS[-1] else "xwide"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -145,29 +142,6 @@ def _frame(halo: Optional[tuple]) -> tuple:
 
 def _kv(k: torch.Tensor) -> int:
     return 1 if k.ndim == 3 else k.shape[2]
-
-
-def forms_fwd(q, k, v, cos, sin, o, lse, window: int, scale: float, halo: Optional[tuple] = None) -> None:
-    """Launch the forms forward on the current stream into o (q's shape and
-    dtype) and lse ((B, T*H) fp32, or None): q (B, T, H, D), k and v (B, S,
-    D) or (B, S, Kv, D), already rotated; with tables q is raw and rotated
-    inside. ``halo`` (g0, t_global): the halo slab's frame (S = T + window, q
-    rotated, no tables). Operands checked by the calling wrapper. Counts in
-    ``forms_fwd.launches``. Only the chunked instance is built: bf16 and fp16
-    at D <= 512 and fp32 at D <= 256 have no forms forward (K1 runs there,
-    csrc/flash_xwide.cuh's forward above 256, csrc/flash_f32x6.cuh's at
-    fp32): the entry point returns cudaErrorInvalidValue, and this raises
-    RuntimeError."""
-    B, T, H, D = q.shape
-    _check_aligned("forms_fwd", q, k, v, o)
-    err = fa._kernel("forms_fwd")(
-        _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(), fa._ptr(cos), fa._ptr(sin), o.data_ptr(),
-        fa._ptr(lse), B, T, k.shape[1], H, _kv(k), window, *_frame(halo), scale, _stream(q))
-    fa._check_launch("forms_fwd", err)
-    forms_fwd.launches += 1
-
-
-forms_fwd.launches = 0
 
 
 def forms_bwd_prep(q, o, lse, do, cos, sin, kv: int, scale: float):

@@ -29,12 +29,12 @@ What bounds the kernels on an H100: compute, as at the single-device windowed
 sites (each q row meets up to W + 1 keys for a few hundred bytes of traffic);
 see ``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd_windowed.cuh``. Those take
 bf16 and fp16 operands at D = 64, 128, 192 and 256 (K1's HALO instances, and
-the windowed pair's with its pre-pass); at D = 320 ... 512 the forward and the
-backward pair of ``csrc/flash_xwide.cuh`` run in the halo frame, the pair
-between the forms pre-pass and post-pass; fp32 runs ``csrc/flash_f32x6.cuh``'s
-forward up to D = 256 and its backward pair up to D = 512 in the same frame;
-every other form that a kernel takes (fp32's forward above D = 256, and every
-type above D = 512) runs the forms family's kernels in the same frame
+the windowed pair's with its pre-pass); above D = 256 the forward of
+``csrc/flash_xwide.cuh`` runs in the halo frame at every head dim, its
+backward pair at D = 320 ... 512, between the forms pre-pass and post-pass;
+fp32 runs ``csrc/flash_f32x6.cuh``'s forward at every head dim and its
+backward pair up to D = 512 in the same frame; the backward above D = 512, at
+every type, runs the forms family's chunked dq and dk/dv in the same frame
 (``ops/flash_forms.py``, ``csrc/flash_forms.cu``), chosen by each wrapper from
 the operands' (dtype, D).
 """
@@ -149,35 +149,35 @@ def _stream(t: torch.Tensor) -> int:
 
 def halo_fwd(q, k, v, window: int, g0: int, t_global: int, scale: float):
     """Launch the halo forward kernel of q's form on the current stream;
-    returns (o (B, T, H, D) in q's dtype, lse2 (B, T*H) fp32). Counts the
-    wgmma instance's launches in ``halo_fwd.launches`` (those of
-    csrc/flash_xwide.cuh's forward, D = 320 ... 512, also in
-    ``halo_fwd.xwide_launches``, those of csrc/flash_f32x6.cuh's, fp32 with D
-    = 64 ... 256 on the pieces of k and v, in ``halo_fwd.f32x6_launches``),
-    the forms one's (the chunked instance) in
-    ``flash_forms.forms_fwd.launches``."""
+    returns (o (B, T, H, D) in q's dtype, lse2 (B, T*H) fp32). Counts its
+    launches in ``halo_fwd.launches`` (those of csrc/flash_xwide.cuh's
+    forward, bf16 and fp16 above D = 256, also in ``halo_fwd.xwide_launches``,
+    those of csrc/flash_f32x6.cuh's, fp32 on the pieces of k and v, in
+    ``halo_fwd.f32x6_launches``, and of these two those that stream qs from
+    ``flash_attention.fwd_scratch``, fp32 above 256 and every type above 512,
+    in ``halo_fwd.streamed_launches``)."""
     B, T, H, route = _check_halo("halo_fwd", k, v, (("q", q),), (), window, g0, t_global)
     o = torch.empty_like(q)
     lse = torch.empty((B, T * H), dtype=torch.float32, device=q.device)
-    if route == "forms":
-        forms.forms_fwd(q, k, v, None, None, o, lse, window, scale, halo=(g0, t_global))
-        return o, lse
     if route == "f32x6":
         forms._check_aligned("halo_fwd", q, o)
         k, v = fa.f32x6_split(k), fa.f32x6_split(v)
+    qs = fa.fwd_scratch(route, q, 1)
     err = _kernel(fa.fwd_entry("halo", route, q.dtype))(
-        q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, T, H, window, g0,
-        t_global, scale, _stream(q))
+        q.shape[-1], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        *(() if route == "wgmma" else (fa._ptr(qs),)), B, T, H, window, g0, t_global, scale, _stream(q))
     _check_launch("halo_fwd", err)
     halo_fwd.launches += 1
     halo_fwd.xwide_launches += route == "xwide"
     halo_fwd.f32x6_launches += route == "f32x6"
+    halo_fwd.streamed_launches += qs is not None
     return o, lse
 
 
 halo_fwd.launches = 0
-halo_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D = 320 ... 512)
-halo_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32, D = 64 ... 256)
+halo_fwd.xwide_launches = 0  # of them, csrc/flash_xwide.cuh's forward (D > 256)
+halo_fwd.f32x6_launches = 0  # of them, csrc/flash_f32x6.cuh's forward (fp32)
+halo_fwd.streamed_launches = 0  # of those two, the instances that stream qs (fp32 > 256, D > 512)
 
 
 def halo_bwd_dq(q, k, v, o, lse, do, window: int, g0: int, t_global: int, scale: float):

@@ -100,7 +100,8 @@ def unet_batch_and_draws():
 def unet_step(cfg: Config, shard=None):
     """One AdamW step of the tiny UNet (seeded weights, the final conv made
     random so every gradient behind it is nonzero); returns (loss, grad_norm,
-    state_dict after the step)."""
+    state_dict after the step, every parameter's gradient that the step
+    took: the group's sum under a shard)."""
     model = build_model(cfg.model, cfg.diffusion)
     params = model.init_params(seed=3, device="cpu", dtype=torch.float32).train()
     with torch.no_grad():
@@ -108,7 +109,8 @@ def unet_step(cfg: Config, shard=None):
     state = loop.TrainState(1, params, loop.make_optimizer(cfg, params), torch.Generator().manual_seed(0))
     batch, draws = unet_batch_and_draws()
     metrics = loop.make_train_step(model, cfg, shard)(state, batch, draws=draws)
-    return float(metrics["loss"]), float(metrics["grad_norm"]), {k: v.clone() for k, v in params.state_dict().items()}
+    return (float(metrics["loss"]), float(metrics["grad_norm"]), {k: v.clone() for k, v in params.state_dict().items()},
+            {k: p.grad.clone() for k, p in params.named_parameters()})
 
 
 # ------------------------------------------------------------------ per rank
@@ -163,8 +165,9 @@ def case_blocks(shard):
 
 
 def case_unet(shard, **model_kw):
-    loss, norm, params = unet_step(unet_config(**model_kw), shard)
-    return {"loss": loss, "grad_norm": norm, "params": params if shard.index == 0 else None,
+    loss, norm, params, grads = unet_step(unet_config(**model_kw), shard)
+    first = shard.index == 0
+    return {"loss": loss, "grad_norm": norm, "params": params if first else None, "grads": grads if first else None,
             "checksum": float(sum(v.double().sum() for v in params.values()))}
 
 

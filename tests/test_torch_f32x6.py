@@ -1,11 +1,13 @@
-"""The fp32 attention backward on the tensor cores (``csrc/flash_f32x6.cuh``)
-on the CPU: the exact split of an fp32 value into three bf16 pieces
-(``flash_attention.f32x6_split_reference``, the plain version of the
-kernels' split), the six bf16 products per fp32 product emulated in torch in
-the kernels' order of terms, the dq and dk/dv pair so emulated against the
-JAX package's fp32 backward (``pa.flash_attention``'s vjp in interpret mode,
-as its own tests run it on the CPU), and the form rule that sends every fp32
-backward wrapper at D = 64 ... 512 to the pair.
+"""The fp32 attention forward and backward on the tensor cores
+(``csrc/flash_f32x6.cuh``) on the CPU: the exact split of an fp32 value into
+three bf16 pieces (``flash_attention.f32x6_split_reference``, the plain
+version of the kernels' split), the six bf16 products per fp32 product
+emulated in torch in the kernels' order of terms, the forward and the dq and
+dk/dv pair so emulated against the JAX package's fp32 forward and backward
+(``pa._flash_fwd`` and ``pa.flash_attention``'s vjp in interpret mode, as its
+own tests run them on the CPU), and the form rule that sends every fp32
+forward wrapper at every head dim, and every backward wrapper at D = 64 ...
+512, to these kernels.
 
 The kernels themselves run only on a GPU: tests/test_torch_kernels.py and
 chip_smoke.py hold them to the plain fp32 versions there."""
@@ -208,8 +210,11 @@ def _forward_emulated(q, k_rot, v, cos, sin, window, flush_tiles=None):
     return o.reshape(B, T, H, D), lse
 
 
-# (D, window, tables) at T = 256, H = 2: global and windowed, with rotary tables and without
-FWD_CASES = [(D, w, tables) for D in (64, 128) for w in (None, 96) for tables in (True, False)]
+# (D, window, tables) at T = 256, H = 2: global and windowed, with rotary tables and without, at the two
+# narrowest head dims (128-key tiles); above 256 (qs's pieces from a pre-pass, O's atoms on both warpgroups) at
+# the narrowest and the widest head dim that one block holds, and at the first whose O columns go in two chunks
+FWD_CASES = [(D, w, tables) for D in (64, 128) for w in (None, 96) for tables in (True, False)] + [
+    (320, None, True), (320, 96, False), (512, None, False), (512, 96, True), (576, None, True)]
 FWD_IDS = [f"D{d}-{'W' + str(w) if w else 'global'}-{'tables' if t else 'plain'}" for d, w, t in FWD_CASES]
 # against the JAX package's fp32 forward: both as exact as fp32, summed in other orders
 FWD_REL_TOL, FWD_LSE_TOL = 1e-5, 1e-5
@@ -259,23 +264,29 @@ def test_six_product_forward_matches_the_jax_fp32_forward(D, window, tables):
 def test_fp32_backward_wrappers_route_to_the_six_product_pair(D):
     """At fp32 with D = 64 ... 512 every backward wrapper of the form rule
     (the global backward, the ring's sweep, the windowed and the halo pair)
-    takes csrc/flash_f32x6.cuh's pair, and up to 256 every forward
-    (``flash_fwd``, the ring's hops through it, and ``halo_fwd``) its
-    forward; nothing else does: the pre-pass, post-pass and merge stay on the
-    forms bodies, the forwards above 256 and every wrapper above 512 on the
-    chunked instance; bf16 and fp16 never take it."""
+    takes csrc/flash_f32x6.cuh's pair, and every forward (``flash_fwd``, the
+    ring's hops through it, and ``halo_fwd``) its forward, above 256 on the
+    pieces of qs that the entry point writes into ``fwd_scratch`` first;
+    nothing else does: the pre-pass, post-pass and merge stay on the forms
+    bodies, and above 512 the forwards alone take it, every backward wrapper
+    the chunked dq and dk/dv; bf16 and fp16 never take it."""
     assert BACKWARD_WRAPPERS == WIDE_WGMMA - {"flash_fwd", "halo_fwd"}
-    takes = WIDE_WGMMA if D in WGMMA_HEAD_DIMS else BACKWARD_WRAPPERS
     t = torch.empty((1, 1, 1, D), dtype=torch.float32)
     wrappers = sorted(WIDE_WGMMA | {"flash_bwd_prep", "flash_bwd_post", "ring_merge"})
-    assert {who for who in wrappers if route(who, t) == "f32x6"} == takes
-    assert {who for who in wrappers if kernel_form(who, torch.float32, D) == "hopper"} == takes
-    assert {who for who in wrappers if route(who, t) == "forms"} == set(wrappers) - takes
-    assert {who for who in WIDE_WGMMA - takes if kernel_form(who, torch.float32, D) == "chunked"} == WIDE_WGMMA - takes
+    assert {who for who in wrappers if route(who, t) == "f32x6"} == WIDE_WGMMA
+    assert {who for who in wrappers if kernel_form(who, torch.float32, D) == "hopper"} == WIDE_WGMMA
+    assert {who for who in wrappers if route(who, t) == "forms"} == set(wrappers) - WIDE_WGMMA
+    assert not any(kernel_form(who, torch.float32, D) == "chunked" for who in wrappers)
     for dtype in (torch.bfloat16, torch.float16):
         assert not any(route(who, t.to(dtype)) == "f32x6" for who in wrappers)
-    wide = torch.empty((1, 1, 1, 576), dtype=torch.float32)
-    assert all(route(who, wide) == "forms" and kernel_form(who, torch.float32, 576) == "chunked" for who in WIDE_WGMMA)
+    scratch = fa.fwd_scratch("f32x6", torch.empty((2, 8, 4, D)), 2)
+    assert (scratch is None) == (D <= 256)
+    assert scratch is None or (scratch.shape, scratch.dtype) == ((4, 16, 3 * D), torch.bfloat16)
+    for wide_d in (576, 1024):
+        wide = torch.empty((1, 1, 1, wide_d), dtype=torch.float32)
+        assert {who for who in WIDE_WGMMA if route(who, wide) == "f32x6"} == {"flash_fwd", "halo_fwd"}
+        assert all(route(who, wide) == "forms" and kernel_form(who, torch.float32, wide_d) == "chunked"
+                   for who in BACKWARD_WRAPPERS)
     assert fa.scratch_sweeps("f32x6") == (fa.f32x6_bwd_dq, fa.f32x6_bwd_dkv)
 
 

@@ -1,14 +1,14 @@
 """The attention forms beside bf16 at head dim 64, on the CPU: the form rule
 (``ops/flash_forms.py::attention_form`` and, per wrapper, ``kernel_form``),
 which decides on the card between the wgmma kernels, the forms kernels, their
-chunked instance and the JAX package's XLA route; ``sdpa`` in fp32 at D = 32
+chunked dq and dk/dv and the JAX package's XLA route; ``sdpa`` in fp32 at D = 32
 (the XLA route) and D = 128 (a forms kernel's form) against the JAX
 package's ``sdpa`` as its own tests run it on the CPU (the XLA einsum, and
 for D = 128 the Pallas kernel in interpret mode); the plain forward, dq and
 dkv at D = 128 against the Pallas kernels in interpret mode, and the plain
 forward and backward at fp16 / D = 64 and 128 (the fp16 instances of K1,
 K2's sweep and the windowed pair) and at fp32 and bf16 / D = 320
-(the forms kernels' chunked instance), and at fp16 / D = 384 at a windowed
+(csrc/flash_f32x6.cuh's and csrc/flash_xwide.cuh's kernels), and at fp16 / D = 384 at a windowed
 site with a ragged tail (the wgmma kernels above D = 256), against
 ``pa.flash_attention`` in interpret mode; and the halo rule at D = 128
 against the JAX package's.
@@ -29,8 +29,8 @@ from osufusion_tpu.ops.rope import rope_tables as jax_rope_tables
 from osufusion_tpu.parallel.sequence import seq_parallel_available as jax_seq_parallel_available
 from osufusion_tpu_torch.ops import flash_attention as fa
 from osufusion_tpu_torch.ops.attention import sdpa
-from osufusion_tpu_torch.ops.flash_forms import (BACKWARD_WRAPPERS, WGMMA_HEAD_DIMS, WIDE_WGMMA, XWIDE_HEAD_DIMS,
-                                                 attention_form, kernel_form, route)
+from osufusion_tpu_torch.ops.flash_forms import (BACKWARD_WRAPPERS, FORWARD_WRAPPERS, WGMMA_HEAD_DIMS, WIDE_WGMMA,
+                                                 XWIDE_HEAD_DIMS, attention_form, kernel_form, route)
 from osufusion_tpu_torch.ops.rope import apply_rope, rope_tables, unapply_rope
 from osufusion_tpu_torch.parallel.sequence import seq_parallel_available
 
@@ -55,20 +55,16 @@ def _expected_form(who, dtype, D):
         return "xla"
     if who in ("flash_bwd_prep", "flash_bwd_post", "ring_merge"):  # D-generic forms bodies beside bf16/64
         return "hopper" if dtype == torch.bfloat16 and D == 64 else "forms"
-    if D > 512 or (D > 256 and dtype == torch.float32 and who not in BACKWARD_WRAPPERS):
+    if D > 512 and who not in ("flash_fwd", "halo_fwd"):  # the chunked dq and dk/dv
         return "chunked"
-    if dtype == torch.float32:  # csrc/flash_f32x6.cuh: six bf16 products per fp32 product
-        return "hopper"
-    if dtype == torch.bfloat16 and (D == 64 or who in WIDE_WGMMA):
-        return "hopper"
-    if dtype == torch.float16 and who in ("flash_fwd", "halo_fwd", "flash_bwd", "flash_bwd_sweep", "flash_bwd_dq",
-                                          "flash_bwd_dkv", "halo_bwd_dq", "halo_bwd_dkv"):
-        return "hopper"
-    return "forms"
+    # K1, K2's sweep and the windowed pair up to 256 at bf16 and fp16, csrc/flash_xwide.cuh above (its forward
+    # at every head dim), csrc/flash_f32x6.cuh at fp32 (six bf16 products per fp32 product; its forward at every
+    # head dim)
+    return "hopper"
 
 
 FORM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
-FORM_DIMS = [16, 32, 48, 64, 96, 128, 192, 256, 320, 384, 448, 512, 576]
+FORM_DIMS = [16, 32, 48, 64, 96, 128, 192, 256, 320, 384, 448, 512, 576, 1024]
 
 
 @pytest.mark.parametrize("D", FORM_DIMS)
@@ -84,15 +80,16 @@ def test_attention_form_table(dtype, D):
     and the windowed pair (K1 with its halo instance and the ring's hops, K2,
     K3a / K3b, K5a / K5b), and at bf16 and fp16 with D = 320 ... 512 for the
     same wrappers (the forward and the backward pair of
-    csrc/flash_xwide.cuh), and at fp32 with D = 64 ... 256 for the forward,
+    csrc/flash_xwide.cuh), and at fp32 with D = 64 ... 512 for the forward,
     the global backward's sweep and the windowed pair with its halo instances
-    (the forward and the pair of csrc/flash_f32x6.cuh) and with D = 320 ...
-    512 for the backward wrappers (its pair); the forms kernels at fp32 and
-    fp16 for the ring's merge and the global backward's pre-pass and
+    (the forward and the pair of csrc/flash_f32x6.cuh); above D = 512 the
+    forwards' wgmma kernels at every type (csrc/flash_xwide.cuh's and
+    csrc/flash_f32x6.cuh's forward take every head dim); the forms kernels at
+    fp32 and fp16 for the ring's merge and the global backward's pre-pass and
     post-pass, and at bf16 with D > 64 for the merge, the pre-pass and the
-    post-pass, at every head dim; the chunked forms instance of the forward
-    at fp32 above D = 256, and of the forward, dq and dk/dv at every type
-    above D = 512."""
+    post-pass, at every head dim; the chunked forms instance of dq and dk/dv
+    at every type above D = 512, and no forward on the forms kernels at any
+    head dim or type."""
     assert attention_form(dtype, D) == _expected_form("flash_fwd", dtype, D)
     for who in WRAPPERS:
         if D % 64:
@@ -120,30 +117,34 @@ def test_attention_form_table(dtype, D):
             "flash_bwd_prep", "flash_bwd_post", "ring_merge"}
         assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "hopper"} == WIDE_WGMMA
     assert XWIDE_HEAD_DIMS == (320, 384, 448, 512)
+    # every forward takes a wgmma kernel at every multiple of 64 and every type; above 512 every backward wrapper
+    # the chunked dq and dk/dv, and nothing else does
+    if D % 64 == 0:
+        assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "hopper"} >= FORWARD_WRAPPERS
+        assert {who for who in WRAPPERS if kernel_form(who, dtype, D) == "chunked"} == (
+            BACKWARD_WRAPPERS if D > 512 else set())
 
 
 @pytest.mark.parametrize("D", [d for d in FORM_DIMS if d % 64 == 0])
 @pytest.mark.parametrize("dtype", FORM_DTYPES, ids=["fp32", "bf16", "fp16"])
 def test_route_is_the_entry_point_of_the_form(dtype, D):
     """``route``, the one value each wrapper branches on: "forms" wherever
-    the form is not "hopper" (the chunked instance included), "f32x6"
+    the form is not "hopper" (the chunked dq and dk/dv included), "f32x6"
     (csrc/flash_f32x6.cuh) for the form "hopper" at fp32, "xwide"
     (csrc/flash_xwide.cuh) for the form "hopper" above D = 256, "wgmma" (the
     wrapper's own kernel) for the form "hopper" at D <= 256; the xwide entry
     points serve exactly the wrappers of WIDE_WGMMA at bf16 and fp16 with D =
-    320 ... 512, the f32x6 ones exactly the wrappers of WIDE_WGMMA at fp32
-    with D = 64 ... 256 and those of BACKWARD_WRAPPERS at fp32 with D = 320
-    ... 512."""
+    320 ... 512 and the forwards above, the f32x6 ones exactly the wrappers of
+    WIDE_WGMMA at fp32 with D = 64 ... 512 and the forwards above."""
     t = torch.empty((1, 1, 1, D), dtype=dtype)
     for who in WRAPPERS:
         form = kernel_form(who, dtype, D)
         want = "forms" if form != "hopper" else "f32x6" if dtype == torch.float32 else "xwide" if D > 256 else "wgmma"
         assert route(who, t) == want, who
-    want = WIDE_WGMMA if dtype != torch.float32 and D in XWIDE_HEAD_DIMS else set()
+    served = WIDE_WGMMA if D <= 512 else FORWARD_WRAPPERS  # by csrc/flash_xwide.cuh or csrc/flash_f32x6.cuh
+    want = served if dtype != torch.float32 and D > 256 else set()
     assert {who for who in WRAPPERS if route(who, t) == "xwide"} == want
-    want = set() if dtype != torch.float32 else WIDE_WGMMA if D in WGMMA_HEAD_DIMS else \
-        BACKWARD_WRAPPERS if D in XWIDE_HEAD_DIMS else set()
-    assert {who for who in WRAPPERS if route(who, t) == "f32x6"} == want
+    assert {who for who in WRAPPERS if route(who, t) == "f32x6"} == (served if dtype == torch.float32 else set())
 
 
 def _qkv(T, H, D, seed):
@@ -253,7 +254,8 @@ def test_seq_parallel_available_keeps_the_jax_rule_at_wider_heads(t, window, d, 
 
 
 # (dtype, D, window): the fp16 instances of K1, K2's sweep and the windowed pair (and of the forms pre-pass
-# and post-pass) at D = 64 and 128, the forms kernels' chunked instance (D > 256) in fp32 and bf16, and the windowed
+# and post-pass) at D = 64 and 128, csrc/flash_f32x6.cuh's kernels in fp32 and csrc/flash_xwide.cuh's in bf16
+# above D = 256, and the windowed
 # pair's bf16 instances at D = 192 and 256 (K3a / K3b), each windowed and global
 WIDE_CASES = [(torch.float16, 64, 64), (torch.float16, 64, None), (torch.float16, 128, 64),
               (torch.float16, 128, None), (torch.float32, 320, 64),
@@ -303,9 +305,9 @@ def test_plain_versions_at_fp16_and_wide_heads_match_the_pallas_kernel(dtype, D,
     operands in ``dtype`` at head dim ``D``, computed in fp32, against the JAX
     package's ``pa.flash_attention`` and its vjp on the same operands in that
     dtype, in interpret mode: the functions that the fp16 instances of K1,
-    K2's sweep and the windowed pair, the forms kernels' chunked
-    instances, and the windowed pair's bf16 instances at D = 192 and 256,
-    hold on the card."""
+    K2's sweep and the windowed pair, csrc/flash_f32x6.cuh's and
+    csrc/flash_xwide.cuh's kernels above D = 256, and the windowed pair's
+    bf16 instances at D = 192 and 256, hold on the card."""
     _hold_plain_to_pallas(dtype, D, window, T=128, H=2, seed=D + (window or 0))
 
 

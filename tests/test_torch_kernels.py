@@ -619,8 +619,8 @@ def _kernel_launches() -> tuple:
             fa.ring_merge.launches, ha.halo_fwd.launches, ha.halo_bwd_dq.launches, ha.halo_bwd_dkv.launches)
 
 
-def _forms_launches() -> tuple:
-    return (forms.forms_fwd.launches, forms.forms_bwd_prep.launches, forms.forms_bwd_dq.launches,
+def _forms_launches() -> tuple:  # the forms family has no forward: every forward runs a wgmma kernel
+    return (forms.forms_bwd_prep.launches, forms.forms_bwd_dq.launches,
             forms.forms_bwd_dkv.launches, forms.forms_bwd_post.launches, forms.forms_ring_merge.launches)
 
 
@@ -649,9 +649,10 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     """fp16 operands, or a head dim above 256, which the JAX package runs
     through Pallas: ``sdpa`` raises nothing, forward and under a gradient,
     and matches autograd through the plain attention in fp32. fp32 above 256
-    runs the forms family's chunked forward, and csrc/flash_f32x6.cuh's dq
-    and dk/dv between the forms pre-pass and post-pass, no chunked dq or dk/dv
-    and no other wgmma kernel (bf16 there:
+    runs csrc/flash_f32x6.cuh's forward on qs's pieces from its pre-pass
+    (counted by ``flash_fwd``), and its dq and dk/dv between the forms
+    pre-pass and post-pass, no chunked dq or dk/dv and no other wgmma
+    kernel (bf16 there:
     ``test_xwide_site_runs_a_wgmma_kernel``). fp16 at D = 64
     runs K1 for both forwards and no forms forward; its global backward K2's
     sweep between the forms pre-pass and post-pass, its windowed one the
@@ -677,11 +678,11 @@ def test_fp16_or_wide_head_site_runs_on_the_card(cuda, dtype, D, window):
     if dtype == torch.float16:  # K1 twice; K2 (flash_bwd) at the global site, K3a and K3b at the windowed one
         windowed = int(window is not None)
         assert kernels == [2, 1 - windowed, windowed, windowed] + [0] * 7, kernels
-        assert runs == ([0, 1, 0, 0, 1, 0] if window is None else [0] * 6), runs
+        assert runs == ([1, 0, 0, 1, 0] if window is None else [0] * 5), runs
         assert wide == [0, 0], wide
-    else:  # the chunked forward twice, then the forms pre-pass, the six-product pair and the forms post-pass
-        assert kernels == [0] * 11, kernels
-        assert runs == [2, 1, 0, 0, 1, 0], runs
+    else:  # the six-product forward twice, then the forms pre-pass, the six-product pair and the forms post-pass
+        assert kernels == [2] + [0] * 10, kernels
+        assert runs == [1, 0, 0, 1, 0], runs
         assert wide == [1, 1], wide
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, rope)
@@ -793,7 +794,7 @@ def test_forms_instance_matches_plain(cuda, dtype, D, B, T, H, Kv, window, table
     fa.f32x6_bwd_dkv(k_rot, v, prep, dk, dv, window, None, accumulate=False)
     dq = forms.forms_bwd_post(prep, cos, sin, scale)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_forms_launches(), before[0])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[0])] == [1, 0, 0, 1, 0]
     assert [a - b for a, b in zip(_f32x6_launches(), before[1])] == [1, 1]
     assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [1, 0]
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
@@ -822,14 +823,14 @@ def test_forms_halo_instance_matches_plain(cuda, dtype, D, shard):
     lo, hi = ha.slab_bounds(T, W, g0, t_global)
     k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
     scale = D**-0.5
-    before = _f32x6_fwd_launches(), forms.forms_fwd.launches
+    before = _f32x6_fwd_launches(), ha.halo_fwd.launches
     o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, scale)
     dq, prep = ha.halo_bwd_dq(q, k, v, o, lse, do, W, g0, t_global, scale)
     dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
     torch.cuda.synchronize()
-    f32 = int(dtype == torch.float32)  # csrc/flash_f32x6.cuh's forward in the halo frame, no forms forward
+    f32 = int(dtype == torch.float32)  # csrc/flash_f32x6.cuh's forward in the halo frame at fp32, K1 at bf16
     moved = [a - b for a, b in zip(_f32x6_fwd_launches(), before[0])]
-    assert (moved, forms.forms_fwd.launches) == ([0, f32], before[1])
+    assert (moved, ha.halo_fwd.launches) == ([0, f32], before[1] + 1)
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
             *ha.halo_bwd_dkv_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global))
@@ -875,7 +876,7 @@ def test_forms_ring_over_shards_matches_its_plain_parts(cuda, dtype, D, Kv, rope
     wgmma = dtype == torch.bfloat16  # K1's hops (flash_fwd) and K2's sweeps (flash_bwd_sweep)
     # every hop's forward is flash_fwd's: K1's, or at fp32 csrc/flash_f32x6.cuh's
     assert kernels == [n * n, 0, 0, 0, 0, n * n * wgmma, 0, 0, 0, 0, 0], kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n, 0, 0, n, n * n]
     assert [a - b for a, b in zip(_f32x6_launches(), before[2])] == [n * n * (not wgmma)] * 2
     ref = run(PlainParts)
     assert got[0].dtype == got[2].dtype == dtype and got[3].dtype == torch.float32
@@ -910,11 +911,11 @@ def test_sdpa_runs_a_forms_site_through_the_forms_kernels(cuda, dtype, D, window
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
     x6 = [a - b for a, b in zip(_f32x6_launches(), before[2])]
     if dtype == torch.float32:
-        assert kernels == [runs] + [0] * 10 and formed == [0, runs, 0, 0, runs, 0] and x6 == [runs, runs]
+        assert kernels == [runs] + [0] * 10 and formed == [runs, 0, 0, runs, 0] and x6 == [runs, runs]
     elif window is None:  # K1 and K2 (flash_bwd), the forms pre-pass and post-pass around the sweep
-        assert kernels == [1, 1] + [0] * 9 and formed == [0, 1, 0, 0, 1, 0]
+        assert kernels == [1, 1] + [0] * 9 and formed == [1, 0, 0, 1, 0]
     else:  # K1 per KV head, then the wgmma pair
-        assert kernels == [runs, 0, runs, runs] + [0] * 7 and formed == [0] * 6
+        assert kernels == [runs, 0, runs, runs] + [0] * 7 and formed == [0] * 5
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, (cos, sin))
     ref.backward(do.float())
@@ -988,7 +989,7 @@ def test_wide_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables):
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
     windowed = window >= 0
     assert kernels == [1, int(not windowed), int(windowed), int(windowed)] + [0] * 7, kernels
-    assert formed == ([0, 1, 0, 0, 1, 0] if window < 0 else [0] * 6), formed
+    assert formed == ([1, 0, 0, 1, 0] if window < 0 else [0] * 5), formed
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     cut = slice(0, T - 64 if window < 0 else T)
     o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, cut], v[:, cut], cos, sin, window if window < 0 else window - 32)[0]
@@ -1021,10 +1022,10 @@ def test_wide_halo_forward_runs_k1(cuda, D, shard):
     g0, t_global = shard * T, n * T
     lo, hi = ha.slab_bounds(T, W, g0, t_global)
     k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
-    before = ha.halo_fwd.launches, forms.forms_fwd.launches
+    before = ha.halo_fwd.launches, ha.halo_fwd.streamed_launches
     o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, D**-0.5)
     torch.cuda.synchronize()
-    assert (ha.halo_fwd.launches, forms.forms_fwd.launches) == (before[0] + 1, before[1])
+    assert (ha.halo_fwd.launches, ha.halo_fwd.streamed_launches) == (before[0] + 1, before[1])
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
     assert _rel(o, o_ref) < REL_TOL < _rel(shifted, o_ref)
@@ -1063,10 +1064,10 @@ def test_wide_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope)
             torch.cuda.synchronize()
             return [torch.cat([r[i] for r in results], dim=1) for i in range(5)]
 
-        before = fa.flash_fwd.launches, fa.flash_bwd_sweep.launches, forms.forms_fwd.launches
+        before = fa.flash_fwd.launches, fa.flash_bwd_sweep.launches, fa.flash_fwd.xwide_launches
         got = run(None)
         assert (fa.flash_fwd.launches - before[0], fa.flash_bwd_sweep.launches - before[1]) == (n * n, n * n)
-        assert forms.forms_fwd.launches == before[2]
+        assert fa.flash_fwd.xwide_launches == before[2]
         ref = run(PlainParts)
         stored = run(StoringSweeps)
         assert _rel(got[0], ref[0]) < REL_TOL and (got[1] - ref[1]).abs().max().item() < LSE_TOL
@@ -1093,7 +1094,7 @@ def test_wide_whole_song_gradient_through_k1_and_the_wgmma_pair(cuda):
     torch.cuda.synchronize()
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     assert kernels == [1, 0, 1, 1] + [0] * 7, kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0] * 6
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0] * 5
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, W, rope)
     ref.backward(do.float())
@@ -1231,7 +1232,7 @@ def test_f16_k1_and_k2_match_plain(cuda, D, B, T, H, Kv, window, tables, with_ls
     formed = [a - b for a, b in zip(_forms_launches(), before[1])]
     pair = int(with_lse and not glob)
     assert kernels == [1, int(glob), pair, pair] + [0] * 7, kernels
-    assert formed == ([0, 1, 0, 0, 1, 0] if glob else [0] * 6), formed
+    assert formed == ([1, 0, 0, 1, 0] if glob else [0] * 5), formed
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     if glob:
         o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
@@ -1270,10 +1271,10 @@ def test_f16_halo_forward_runs_k1(cuda, D, shard):
     g0, t_global = shard * T, n * T
     lo, hi = ha.slab_bounds(T, W, g0, t_global)
     k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
-    before = ha.halo_fwd.launches, forms.forms_fwd.launches
+    before = ha.halo_fwd.launches, ha.halo_fwd.streamed_launches
     o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, D**-0.5)
     torch.cuda.synchronize()
-    assert (ha.halo_fwd.launches, forms.forms_fwd.launches) == (before[0] + 1, before[1])
+    assert (ha.halo_fwd.launches, ha.halo_fwd.streamed_launches) == (before[0] + 1, before[1])
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
     assert o.dtype == torch.float16 and _rel(o, o_ref) < F16_REL_TOL < _rel(shifted, o_ref)
@@ -1317,7 +1318,7 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
         kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
         formed = [a - b for a, b in zip(_forms_launches(), before[1])]
         assert kernels == [n * n, 0, 0, 0, 0, n * n, 0, 0, 0, 0, 0], kernels
-        assert formed == [0, n, 0, 0, n, n * n], formed
+        assert formed == [n, 0, 0, n, n * n], formed
         ref = run(PlainParts)
         stored = run(StoringSweeps)
         assert got[0].dtype == got[2].dtype == torch.float16
@@ -1327,12 +1328,12 @@ def test_f16_ring_accumulating_sweep_matches_its_plain_parts(cuda, D, Kv, rope):
         assert _rel(stored[4], ref[4]) > F16_REL_TOL
 
 
-# the forms instances that no route launches since K1, K2 and the windowed pair took bf16 and fp16,
-# csrc/flash_xwide.cuh's kernels their chunked instance at D = 320 ... 512, and csrc/flash_f32x6.cuh's pair fp32's
-# dq and dk/dv at D <= 512 (csrc/flash_forms.cu, FORMS_DISPATCH): (entry point, dtype, D)
-PRUNED_FORMS = [("forms_fwd", torch.bfloat16, 128), ("forms_fwd", torch.float16, 64),
-                ("forms_fwd", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
-                ("forms_fwd", torch.bfloat16, 320), ("forms_fwd", torch.float16, 512),
+# the forms instances that no route launches since K2 and the windowed pair took bf16 and fp16, csrc/flash_xwide.cuh's
+# pair their chunked instance at D = 320 ... 512, and csrc/flash_f32x6.cuh's pair fp32's dq and dk/dv at D <= 512
+# (csrc/flash_forms.cu, FORMS_DISPATCH; the family has no forward left): (entry point, dtype, D)
+PRUNED_FORMS = [("forms_bwd_dkv", torch.bfloat16, 128), ("forms_bwd_dq", torch.float16, 64),
+                ("forms_bwd_dkv", torch.float16, 256), ("forms_bwd_dq", torch.bfloat16, 64),
+                ("forms_bwd_dq", torch.bfloat16, 320), ("forms_bwd_dkv", torch.float16, 512),
                 ("forms_bwd_dq", torch.float16, 384), ("forms_bwd_dkv", torch.bfloat16, 448),
                 ("forms_bwd_dkv", torch.bfloat16, 256), ("forms_bwd_dq", torch.float16, 128),
                 ("forms_bwd_dkv", torch.float16, 64), ("forms_bwd_dq", torch.float32, 64),
@@ -1352,8 +1353,7 @@ def test_pruned_forms_instance_raises(cuda, entry, dtype, D):
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
     prep = forms.forms_bwd_prep(q, o, lse, do, cos, sin, 1, scale)
     dk, dv = torch.empty(k_rot.shape, device=cuda), torch.empty(k_rot.shape, device=cuda)
-    call = {"forms_fwd": lambda: forms.forms_fwd(q, k_rot, v, cos, sin, torch.empty_like(q), lse, -1, scale),
-            "forms_bwd_dq": lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False),
+    call = {"forms_bwd_dq": lambda: forms.forms_bwd_dq(k_rot, v, prep, -1, None, accumulate=False),
             "forms_bwd_dkv": lambda: forms.forms_bwd_dkv(k_rot, v, prep, dk, dv, -1, None, accumulate=False)}[entry]
     before = getattr(forms, entry).launches
     with pytest.raises(RuntimeError, match="CUDA error 1$"):
@@ -1558,15 +1558,15 @@ def test_xwide_forward_matches_plain(cuda, dtype, D, B, T, H, Kv, window, tables
     forms, with and without its LSE, against the plain fp32 version on the
     same inputs, with a planted fault above the bound (the last key tile
     dropped, or the window one key short on each side); no forms forward,
-    so no chunked one."""
+    so no chunked one; the instance that stages qs itself (no scratch)."""
     rel_tol, lse_tol = _xwide_tols(dtype)
     q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, Kv, D, dtype, tables, cuda, seed=D + T + Kv)
     scale = D**-0.5
-    before = _xwide_launches(), forms.forms_fwd.launches
+    before = _xwide_launches(), fa.flash_fwd.streamed_launches
     o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale, return_lse=True)
     o_serve = fa.flash_fwd(q, k_rot, v, cos, sin, window, scale)
     torch.cuda.synchronize()
-    assert _xwide_launches() == (before[0][0] + 2, *before[0][1:]) and forms.forms_fwd.launches == before[1]
+    assert _xwide_launches() == (before[0][0] + 2, *before[0][1:]) and fa.flash_fwd.streamed_launches == before[1]
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     if window < 0:
         o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
@@ -1608,7 +1608,7 @@ def test_xwide_pair_matches_plain(cuda, dtype, D, B, T, H, window):
     torch.cuda.synchronize()
     n = len(runs)
     assert _xwide_launches() == (before[0][0], before[0][1] + n, before[0][2] + n)
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n, 0, 0, n, 0]
 
     def plain(lse_in):
         return (fa.flash_bwd_dq_reference(q, k_rot, v, o, lse_in, do, cos, sin, window),
@@ -1646,7 +1646,7 @@ def test_xwide_halo_pair_matches_plain(cuda, dtype, D):
     dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
     torch.cuda.synchronize()
     assert _xwide_launches() == tuple(x + 1 for x in before[0])
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [1, 0, 0, 1, 0]
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
     assert o.dtype == dtype and _rel(o, o_ref) < rel_tol < _rel(shifted, o_ref)
@@ -1696,7 +1696,7 @@ def test_xwide_ring_accumulating_pair_matches_its_plain_parts(cuda, dtype, D, Kv
     before = _xwide_launches(), _forms_launches()
     got = run(None)
     assert _xwide_launches() == tuple(x + n * n for x in before[0])
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n, 0, 0, n, n * n]
     ref = run(PlainParts)
     stored = run(StoringSweeps)
     assert got[0].dtype == got[2].dtype == dtype
@@ -1731,7 +1731,7 @@ def test_xwide_site_runs_a_wgmma_kernel(cuda, window):
     kernels = [a - b for a, b in zip(_kernel_launches(), before[0])]
     windowed = int(window is not None)
     assert kernels == [2, 1 - windowed, windowed, windowed] + [0] * 7, kernels
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [1, 0, 0, 1, 0]
     assert [a - b for a, b in zip(_xwide_launches(), before[2])] == [2, 1, 1]
     ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
     ref = fa.flash_attention_reference(*ref_leaves, window, rope)
@@ -1754,8 +1754,9 @@ F32X6_SITE_IDS = ["mqa-global", "mqa-window-past-both-ends", "grouped-global", "
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64), (2, 5, 128), (1000, 192), (7, 256), (9, 320), (2, 3, 512)],
-                         ids=["D64", "D128", "D192", "D256", "D320", "D512"])
+@pytest.mark.parametrize("shape", [(3, 64), (2, 5, 128), (1000, 192), (7, 256), (9, 320), (2, 3, 512), (5, 576),
+                                   (3, 2048)],
+                         ids=["D64", "D128", "D192", "D256", "D320", "D512", "D576", "D2048"])
 def test_f32x6_split_matches_plain(cuda, shape):
     """The split of fp32 rows into their three bf16 pieces, [b0 | b1 | b2],
     bit for bit against its plain version, over values of magnitudes from
@@ -1802,7 +1803,7 @@ def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
     torch.cuda.synchronize()
     n = len(runs)
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n, n]
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, n, 0, 0, n, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n, 0, 0, n, 0]
     assert [a - b for a, b in zip(_f32x6_wide_launches(), before[2])] == [n * (D > 256)] * 2
 
     def plain(lse_in):
@@ -1819,20 +1820,21 @@ def test_f32x6_pair_matches_plain(cuda, D, B, T, H, Kv, window, tables):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,Kv,window,tables", F32X6_SITES, ids=F32X6_SITE_IDS)
-@pytest.mark.parametrize("D", F32X6_DIMS)
+@pytest.mark.parametrize("D", F32X6_DIMS + XWIDE_DIMS)
 def test_f32x6_forward_matches_plain(cuda, D, B, T, H, Kv, window, tables):
     """csrc/flash_f32x6.cuh's forward through ``flash_fwd`` at fp32 in each
     site's form, with its LSE at the global sites and without it at the
     windowed ones, against the plain fp32 forward within the fp32 bounds,
     with a planted fault above them (the last 64 keys left out, or a window
     two keys short); one launch a call, counted as the wrapper's and as
-    ``f32x6_launches``, and no forms forward."""
+    ``f32x6_launches``, above 256 also as ``streamed_launches`` (qs's pieces
+    from the entry point's pre-pass; O's atoms on both warpgroups)."""
     q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, Kv, D, torch.float32, tables, cuda, seed=3 * D + T + Kv)
-    before = fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, forms.forms_fwd.launches
+    before = fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, fa.flash_fwd.streamed_launches
     got = fa.flash_fwd(q, k_rot, v, cos, sin, window, D**-0.5, return_lse=window < 0)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, forms.forms_fwd.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert (fa.flash_fwd.launches, fa.flash_fwd.f32x6_launches, fa.flash_fwd.streamed_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(D > 256))
     o = got[0] if window < 0 else got
     o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin, window)
     if window < 0:
@@ -1874,14 +1876,14 @@ def test_f32x6_forward_failed_launch_raises(cuda, monkeypatch, frame):
     kernel = fa._kernel
     monkeypatch.setattr(fa, "_kernel", lambda name: (lambda *args: 719) if name == entry else kernel(name))
     monkeypatch.setattr(ha, "_kernel", fa._kernel)
-    before = _f32x6_fwd_launches(), forms.forms_fwd.launches
+    before = _f32x6_fwd_launches(), fa.flash_fwd.launches, ha.halo_fwd.launches
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         if frame == "flash":
             fa.flash_fwd(q, k_rot, v, cos, sin, -1, D**-0.5)
         else:
             slab = torch.zeros((B, T + W, D), device=cuda)
             ha.halo_fwd(q, slab, slab, W, 0, 2 * T, D**-0.5)
-    assert (_f32x6_fwd_launches(), forms.forms_fwd.launches) == before
+    assert (_f32x6_fwd_launches(), fa.flash_fwd.launches, ha.halo_fwd.launches) == before
 
 
 @pytest.mark.cuda
@@ -1889,8 +1891,7 @@ def test_f32x6_forward_failed_launch_raises(cuda, monkeypatch, frame):
 @pytest.mark.parametrize("D", F32X6_PAIR_DIMS)
 def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
     """The halo pair at fp32 through the halo wrappers (csrc/flash_f32x6.cuh's
-    kernels in the halo frame, its forward too up to D = 256, the forms
-    chunked forward above), with the slab rows outside
+    kernels in the halo frame, its forward too), with the slab rows outside
     the song set large, against the plain halo versions within the fp32
     bounds; the slab rows outside the song get exact zeros, an LSE off by
     0.05 lies above the bound, and no forms dq or dk/dv runs."""
@@ -1908,7 +1909,7 @@ def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
     dk, dv = ha.halo_bwd_dkv(k, v, do, prep, W, g0, t_global)
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [1, 1]
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [0, 1, 0, 0, 1, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [1, 0, 0, 1, 0]
     assert [a - b for a, b in zip(_f32x6_wide_launches(), before[2])] == [int(D > 256)] * 2
     o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
     refs = (ha.halo_bwd_dq_reference(q, k, v, o_ref, lse_ref, do, W, g0, t_global),
@@ -1928,7 +1929,7 @@ def test_f32x6_halo_pair_matches_plain(cuda, D, shard):
 @pytest.mark.parametrize("D", F32X6_PAIR_DIMS)
 def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope):
     """The ring over two hops at fp32: csrc/flash_f32x6.cuh's forward per hop
-    (above D = 256 the forms chunked forward) and the forms merge, and
+    (above D = 256 on qs's pieces from its pre-pass) and the forms merge, and
     csrc/flash_f32x6.cuh's pair adding into the
     travelling dk and dv (and into one dq buffer) between the forms pre-pass
     and post-pass, against the plain parts within the fp32 bounds (o, the LSE
@@ -1965,8 +1966,8 @@ def test_f32x6_ring_accumulating_pair_matches_its_plain_parts(cuda, D, Kv, rope)
     got = run(None)
     wide = int(D > 256)
     assert [a - b for a, b in zip(_f32x6_launches(), before[0])] == [n * n, n * n]
-    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n * n * wide, n, 0, 0, n, n * n]
-    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [n * n * (1 - wide), 0]
+    assert [a - b for a, b in zip(_forms_launches(), before[1])] == [n, 0, 0, n, n * n]
+    assert [a - b for a, b in zip(_f32x6_fwd_launches(), before[2])] == [n * n, 0]
     assert [a - b for a, b in zip(_f32x6_wide_launches(), before[3])] == [n * n * wide] * 2
     ref = run(PlainParts)
     stored, first_hop = run(StoringSweeps), run(FirstHopOnly)
@@ -1991,4 +1992,110 @@ def test_f32x6_failed_launch_raises(cuda, monkeypatch, entry):
     before = _forms_launches()
     with pytest.raises(RuntimeError, match=f"{entry} kernel launch failed"):
         fa.flash_bwd(q, k_rot, v, o, lse, do, cos, sin, D**-0.5)
-    assert [a - b for a, b in zip(_forms_launches(), before)][2:4] == [0, 0]
+    assert [a - b for a, b in zip(_forms_launches(), before)][1:3] == [0, 0]
+
+
+# ------------------------------------------------- the forwards above the head dims a block holds qs at
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", XWIDE_DIMS)
+def test_f32x6_wide_forward_in_the_halo_frame_and_the_ring(cuda, D):
+    """csrc/flash_f32x6.cuh's forward above 256 (qs's pieces from its
+    pre-pass) in the other frames: ``halo_fwd`` with the slab rows outside
+    the song set large, against the plain halo forward within the fp32
+    bounds (a slab one row off its frame lies above them), and the ring's
+    hops over two shards with their LSE and the forms merge, against the
+    plain parts (a merge that keeps the first hop alone lies above them);
+    each forward counted as a streamed launch."""
+    from osufusion_tpu_torch.ops.ring_attention import KernelParts, LocalRing, PlainParts, ring_fwd
+
+    B, T, H, W, n = 1, 512, 4, 256, 4
+    g = torch.Generator(device=cuda).manual_seed(D + 7)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda)
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda) for _ in range(2))
+    g0, t_global = T, n * T
+    lo, hi = ha.slab_bounds(T, W, g0, t_global)
+    k[:, :lo], k[:, hi:], v[:, :lo], v[:, hi:] = 30.0, 30.0, 30.0, 30.0
+    before = ha.halo_fwd.f32x6_launches, ha.halo_fwd.streamed_launches
+    o, lse = ha.halo_fwd(q, k, v, W, g0, t_global, D**-0.5)
+    torch.cuda.synchronize()
+    assert (ha.halo_fwd.f32x6_launches, ha.halo_fwd.streamed_launches) == (before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, g0, t_global)
+    shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, g0, t_global)[0]
+    assert _rel(o, o_ref) < F32_REL_TOL < _rel(shifted, o_ref), (_rel(o, o_ref), _rel(shifted, o_ref))
+    assert (lse - lse_ref).abs().max().item() < F32_LSE_TOL
+
+    class FirstHopOnly(KernelParts):  # planted fault: the merge keeps the first hop alone
+        @staticmethod
+        def merge(o_acc, lse_acc, o_j, lse_j, last):
+            return KernelParts.merge(o_acc, lse_acc, o_j, lse_j - 1e4 * (lse_acc is not None), last)
+
+    shards = 2
+    q, k_rot, v, _, cos, sin = _forms_inputs(1, shards * T, H, 1, D, torch.float32, True, cuda, seed=D + 8)
+
+    def run(parts):
+        def rank(r, rotation):
+            sl = slice(r * T, (r + 1) * T)
+            return ring_fwd(q[:, sl].contiguous(), k_rot[:, sl].contiguous(), v[:, sl].contiguous(),
+                            cos[sl].contiguous(), sin[sl].contiguous(), rotation, parts)
+
+        results = LocalRing(shards).run(rank)
+        torch.cuda.synchronize()
+        return [torch.cat([r[i] for r in results], dim=1) for i in range(2)]
+
+    before = fa.flash_fwd.streamed_launches
+    got = run(None)
+    assert fa.flash_fwd.streamed_launches == before + shards * shards
+    ref, first_hop = run(PlainParts), run(FirstHopOnly)
+    assert _rel(got[0], ref[0]) < F32_REL_TOL < _rel(first_hop[0], ref[0])
+    assert (got[1] - ref[1]).abs().max().item() < F32_LSE_TOL
+
+
+# above 512 O's columns go in chunks on the grid's z axis at every type (each block computing S again), and qs
+# streams: at 576 and 640 two chunks, at 1024 two of eight atoms, at 2048 four (at fp32 with no piece of qs
+# resident from 1024 on)
+ABOVE_512_DIMS = [576, 640, 1024, 2048]
+ABOVE_512_TYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", ABOVE_512_DIMS)
+@pytest.mark.parametrize("dtype", ABOVE_512_TYPES, ids=["fp32", "bf16", "fp16"])
+def test_forward_above_512_matches_plain(cuda, dtype, D):
+    """The forward above 512 through ``flash_fwd`` (csrc/flash_f32x6.cuh's at
+    fp32, csrc/flash_xwide.cuh's at bf16 and fp16) at an MQA global site with
+    tables and its LSE at a length no tile divides, and at a grouped windowed
+    site without tables, and ``halo_fwd``, against the plain versions at the
+    fp32 bounds or the wgmma kernels' (``_forms_tols``), with planted faults
+    above them (the last key tile left out, a window two keys short, a slab
+    one row off its frame); every call a streamed launch (B=1, T=256, H=2 at
+    D = 2048). No head dim that is a multiple of 64 is refused."""
+    rel_tol, lse_tol = _forms_tols(dtype)
+    B, T, H = (1, 256, 2) if D == 2048 else (2, 1000, 4)
+    q, k_rot, v, _, cos, sin = _forms_inputs(B, T, H, 1, D, dtype, True, cuda, seed=D + 9)
+    scale = D**-0.5
+    before = fa.flash_fwd.streamed_launches, ha.halo_fwd.streamed_launches
+    o, lse = fa.flash_fwd(q, k_rot, v, cos, sin, -1, scale, return_lse=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_lse_reference(q, k_rot, v, cos, sin)
+    o_fault = fa.flash_fwd_lse_reference(q, k_rot[:, :-64], v[:, :-64], cos, sin)[0]
+    assert o.dtype == dtype and torch.isfinite(o).all()
+    assert _rel(o, o_ref) < rel_tol < _rel(o_fault, o_ref), (_rel(o, o_ref), _rel(o_fault, o_ref))
+    assert (lse - lse_ref).abs().max().item() < lse_tol
+    window = 128
+    q, k, v, _, _, _ = _forms_inputs(B, T, 4, 2, D, dtype, False, cuda, seed=D + 10)
+    o = fa.flash_fwd(q, k, v, None, None, window, scale)
+    torch.cuda.synchronize()
+    o_ref = fa.flash_fwd_lse_reference(q, k, v, None, None, window)[0]
+    o_fault = fa.flash_fwd_lse_reference(q, k, v, None, None, window - 2)[0]
+    assert _rel(o, o_ref) < rel_tol < _rel(o_fault, o_ref), (_rel(o, o_ref), _rel(o_fault, o_ref))
+    W, n = 128, 4
+    g = torch.Generator(device=cuda).manual_seed(D + 11)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, T + W, D), generator=g, device=cuda).to(dtype) for _ in range(2))
+    o, lse = ha.halo_fwd(q, k, v, W, 0, n * T, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = ha.halo_fwd_reference(q, k, v, W, 0, n * T)
+    shifted = ha.halo_fwd_reference(q, k.roll(1, dims=1), v.roll(1, dims=1), W, 0, n * T)[0]
+    assert _rel(o, o_ref) < rel_tol < _rel(shifted, o_ref) and (lse - lse_ref).abs().max().item() < lse_tol
+    assert (fa.flash_fwd.streamed_launches, ha.halo_fwd.streamed_launches) == (before[0] + 2, before[1] + 1)

@@ -9,6 +9,7 @@ Reads files only, so it runs on the CPU; the card-only tests
 (``tests/test_torch_kernels.py``) would catch a wrong table only on the card.
 """
 
+import ctypes
 import re
 
 import pytest
@@ -132,20 +133,20 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     """``FORMS_DISPATCH`` (csrc/flash_forms.cu) serves fp32, bf16 and fp16
     operands at D = 64 ... 256 and the chunked instance (D = 0 there) at every
     head dim above 256 that is a multiple of 64, for every type, at the
-    pre-pass, the post-pass and the merge (``FORMS_EVERY``). The forward, dq
-    and dk/dv keep no type at D <= 256 (``FORMS_CHUNKS``, ``FORMS_PAIR_CHUNKS``:
-    csrc/flash_f32x6.cuh's forward and pair take fp32 there, K1, K2's sweep
-    and the wgmma pair bf16 and fp16), and no D-templated forward body is
-    left; the forward keeps fp32's chunked instance at every head dim above
-    256, and bf16's and fp16's only above 512 (``FORMS_ABOVE``:
-    csrc/flash_xwide.cuh's kernels take D = 320 ... 512 at those types, so
-    the dispatch keys those head dims apart); dq and dk/dv keep every type's
-    only above 512 (csrc/flash_f32x6.cuh's pair takes fp32 at 320 ... 512)."""
+    pre-pass, the post-pass and the merge (``FORMS_EVERY``). dq and dk/dv
+    keep every type's chunked instance only above 512 (``FORMS_PAIR_CHUNKS``,
+    ``FORMS_ABOVE``: csrc/flash_f32x6.cuh's pair takes fp32 at D <= 512, K2's
+    sweep, the wgmma windowed pair and csrc/flash_xwide.cuh's pair bf16 and
+    fp16 there, so the dispatch keys D = 320 ... 512 apart from the head dims
+    above them), and no type at D <= 256. No forward is left in the family:
+    no forward entry point, no chunked forward body and no list of its
+    instances (csrc/flash_f32x6.cuh's and csrc/flash_xwide.cuh's forwards take
+    every head dim above K1's)."""
     text = _text("flash_forms.cu")
     dims = text[text.index("#define FORMS_DIMS"):text.index("#define FORMS_ABOVE")]
-    chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_CHUNKS")]
-    lists = text[text.index("#define FORMS_CHUNKS"):text.index("#define FORMS_DISPATCH")]
-    dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_fwd')]
+    chunked = text[text.index("#define FORMS_ABOVE"):text.index("#define FORMS_PAIR_CHUNKS")]
+    lists = text[text.index("#define FORMS_PAIR_CHUNKS"):text.index("#define FORMS_DISPATCH")]
+    dispatch = text[text.index("#define FORMS_DISPATCH"):text.index('extern "C" int forms_bwd_prep')]
     for D in (64, 128, 192, 256):
         assert f"return CALL(TT, {D});" in dims
     assert "#define FORMS_ABOVE(CODE, TT) case CODE * 1000 + 1: return CALL(TT, 0);" in chunked
@@ -155,27 +156,28 @@ def test_forms_dispatch_names_every_type_and_the_chunked_instance(instance):
     def named(macro: str) -> str:  # the instance list of one entry point's macro
         return lists[lists.index(f"#define {macro} "):].split("\n#define")[0]
 
-    every, chunks, pair = named("FORMS_EVERY"), named("FORMS_CHUNKS"), named("FORMS_PAIR_CHUNKS")
+    every, pair = named("FORMS_EVERY"), named("FORMS_PAIR_CHUNKS")
     entries = {e: text[text.index(f'extern "C" int {e}('):] for e in
-               ("forms_fwd", "forms_bwd_prep", "forms_bwd_dq", "forms_bwd_dkv", "forms_bwd_post", "forms_ring_merge")}
+               ("forms_bwd_prep", "forms_bwd_dq", "forms_bwd_dkv", "forms_bwd_post", "forms_ring_merge")}
     uses = {e: re.search(r"FORMS_DISPATCH\((\w+)\)", body).group(1) for e, body in entries.items()}
-    assert uses == {"forms_fwd": "FORMS_CHUNKS", "forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_PAIR_CHUNKS",
+    assert uses == {"forms_bwd_prep": "FORMS_EVERY", "forms_bwd_dq": "FORMS_PAIR_CHUNKS",
                     "forms_bwd_dkv": "FORMS_PAIR_CHUNKS", "forms_bwd_post": "FORMS_EVERY",
                     "forms_ring_merge": "FORMS_EVERY"}
-    assert "forms_fwd_kernel<" not in text and "FORMS_FWD" not in text and "FORMS_SWEEPS" not in text
+    for gone in ("forms_fwd", "forms_fwd_kernel<", "forms_fwd_chunked_kernel", "FORMS_CHUNKS", "FORMS_FWD",
+                 "FORMS_SWEEPS", "launch_fwd"):
+        assert gone not in text, gone
+    assert "forms_fwd" not in _ENTRY_POINTS
     if instance == "chunked":
-        for kernel in ("forms_fwd_chunked_kernel", "forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
+        for kernel in ("forms_dq_chunked_kernel", "forms_dkv_chunked_kernel"):
             assert f"{kernel}<" in text, f"{kernel} is never launched"
         for name in ("float", "__nv_bfloat16", "__half"):
             assert re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", every)
-            # bf16 and fp16: no chunked forward, dq or dk/dv at D = 320 ... 512; fp32: no chunked dq or dk/dv there
-            assert bool(re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", chunks)) == (name == "float")
-            assert bool(re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", chunks)) == (name != "float")
+            # no chunked dq or dk/dv at D = 320 ... 512 at any type
             assert re.search(rf"FORMS_ABOVE\(DTYPE_\w+, {name}\)", pair)
             assert not re.search(rf"FORMS_CHUNKED\(DTYPE_\w+, {name}\)", pair)
         return
     assert re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", every), f"FORMS_EVERY does not name {instance}"
-    assert not re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", chunks + pair)
+    assert not re.search(rf"FORMS_DIMS\(DTYPE_\w+, {instance}\)", pair)
 
 
 # the wgmma wrappers of hopper.cuh, each with a bf16 and an fp16 instruction
@@ -230,9 +232,11 @@ def test_xwide_instances_are_built_for_sm_90a(entry):
     arguments, in libraries of their own (``flash_xwide``,
     ``flash_xwide_f16``) built for sm_90a from sources that include the header
     and instantiate it at ``__nv_bfloat16`` and ``__half``; the forward takes
-    ``flash_fwd_*``'s and ``halo_fwd_*``'s arguments. The header covers the
-    head dims that ``flash_forms.XWIDE_HEAD_DIMS`` promises, is built on
-    ``wgmma`` and has no ``mma.sync``."""
+    ``flash_fwd_*``'s and ``halo_fwd_*``'s arguments and the scratch of its qs
+    (a pointer after the LSE). The header's pair covers the head dims that
+    ``flash_forms.XWIDE_HEAD_DIMS`` promises, its forward every multiple of
+    64 (an instance that stages and holds qs up to XW_MAX_D, one that streams
+    it above); it is built on ``wgmma`` and has no ``mma.sync``."""
     from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
     from osufusion_tpu_torch.ops.flash_forms import XWIDE_HEAD_DIMS
 
@@ -242,7 +246,9 @@ def test_xwide_instances_are_built_for_sm_90a(entry):
     assert (bf16_lib, f16_lib) == ("flash_xwide", "flash_xwide_f16") and bf16_args == f16_args
     twin = {"xwide_fwd": "flash_fwd", "xwide_halo_fwd": "halo_fwd"}.get(entry)
     if twin is not None:
-        assert bf16_args == _ENTRY_POINTS[f"{twin}_bf16"][1]
+        twin_args = _ENTRY_POINTS[f"{twin}_bf16"][1]
+        at = twin_args.index(ctypes.c_int, 1)  # the pointers end before B
+        assert bf16_args == twin_args[:at] + [ctypes.c_void_p] + twin_args[at:]
     for lib, tt in ((bf16_lib, "__nv_bfloat16"), (f16_lib, "__half")):
         source = _text(SOURCES[lib].name)
         assert "flash_xwide.cuh" in _includes(SOURCES[lib].name)
@@ -253,8 +259,11 @@ def test_xwide_instances_are_built_for_sm_90a(entry):
     assert (int(found.group(1)), int(found.group(2))) == (XWIDE_HEAD_DIMS[0], XWIDE_HEAD_DIMS[-1])
     assert "wgmma_ss<K, 0, 0, E>" in header and "wgmma_rs_n64" in header and "mma.sync" not in header
     for kernel in ("xwide_fwd_kernel", "xwide_dq_kernel", "xwide_dkv_kernel"):
-        assert re.search(rf"template <typename E>\s+__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(",
+        template = "template <typename E, bool STREAM>" if kernel == "xwide_fwd_kernel" else "template <typename E>"
+        assert re.search(rf"{template}\s+__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(",
                          header), kernel
+    assert "launch_xwide_fwd_kernel<E, false>(" in header and "launch_xwide_fwd_kernel<E, true>(" in header
+    assert "if (D <= 0 || D % 64 != 0 || (D > XW_MAX_D && qs == nullptr)) return (int)cudaErrorInvalidValue;" in header
 
 
 def test_f32x6_pair_is_built_for_sm_90a():
@@ -263,14 +272,16 @@ def test_f32x6_pair_is_built_for_sm_90a():
     (``flash_f32x6``) built for sm_90a from a source that includes the
     header, with its split, forward (one device and the halo frame), dq and
     dk/dv entry points bound, the forward taking the xwide forward's
-    arguments (``flash_fwd_*``'s and ``halo_fwd_*``'s) and the pair the xwide
-    pair's (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s without the type
-    code). The header's forward covers the head dims
-    ``flash_forms.WGMMA_HEAD_DIMS`` names, its pair and split those and
-    ``flash_forms.XWIDE_HEAD_DIMS`` (an instance with two pieces of the
-    resident rows in shared memory up to 256, one above, its dk/dv columns in
-    chunks there); it is built on bf16 ``wgmma`` products from shared memory
-    and from registers, and has none of the pre-Hopper tokens."""
+    arguments (``flash_fwd_*``'s and ``halo_fwd_*``'s and the scratch of qs)
+    and the pair the xwide pair's (``forms_bwd_dq``'s and ``forms_bwd_dkv``'s
+    without the type code). The header's forward takes every multiple of 64
+    (qs staged and its three pieces held up to 256, which
+    ``flash_forms.WGMMA_HEAD_DIMS`` names; above, qs's pieces from a pre-pass,
+    piece 0 held or none), its pair those and ``flash_forms.XWIDE_HEAD_DIMS``
+    (an instance with two pieces of the resident rows in shared memory up to
+    256, one above, its dk/dv columns in chunks there), and its split every
+    multiple of 64; it is built on bf16 ``wgmma`` products from shared
+    memory and from registers, and has none of the pre-Hopper tokens."""
     from osufusion_tpu_torch.ops.flash_attention import NVCC_FLAGS
     from osufusion_tpu_torch.ops.flash_forms import WGMMA_HEAD_DIMS, XWIDE_HEAD_DIMS
 
@@ -278,7 +289,7 @@ def test_f32x6_pair_is_built_for_sm_90a():
     assert "flash_f32x6.cuh" in _includes(SOURCES["flash_f32x6"].name)
     entries = {e for e, (lib, _) in _ENTRY_POINTS.items() if lib == "flash_f32x6"}
     assert entries == {"f32x6_split", "f32x6_fwd", "f32x6_halo_fwd", "f32x6_bwd_dq", "f32x6_bwd_dkv"}
-    assert _ENTRY_POINTS["f32x6_fwd"][1] == _ENTRY_POINTS["xwide_fwd_bf16"][1] == _ENTRY_POINTS["flash_fwd_bf16"][1]
+    assert _ENTRY_POINTS["f32x6_fwd"][1] == _ENTRY_POINTS["xwide_fwd_bf16"][1]
     assert _ENTRY_POINTS["f32x6_halo_fwd"][1] == _ENTRY_POINTS["xwide_halo_fwd_bf16"][1]
     assert _ENTRY_POINTS["f32x6_bwd_dq"][1] == _ENTRY_POINTS["xwide_bwd_dq_bf16"][1]
     assert _ENTRY_POINTS["f32x6_bwd_dkv"][1] == _ENTRY_POINTS["xwide_bwd_dkv_bf16"][1]
@@ -287,7 +298,8 @@ def test_f32x6_pair_is_built_for_sm_90a():
         body = source[source.index(f'extern "C" int {entry}('):]
         assert "launch_x6_fwd(" in body[:body.index("\n}\n")]
     header = _text("flash_f32x6.cuh")
-    assert "X6_MAX_D = 256;" in header and "D >= 64 && D <= X6_MAX_D && D % 64 == 0" in header
+    assert "X6_MAX_D = 256;" in header
+    assert "if (D <= 0 || D % 64 != 0 || (D > X6_MAX_D && qs == nullptr)) return (int)cudaErrorInvalidValue;" in header
     assert WGMMA_HEAD_DIMS == (64, 128, 192, 256) and XWIDE_HEAD_DIMS == (320, 384, 448, 512)
     assert "X6_PAIR_MAX_D = 512;" in header and "D >= 64 && D <= X6_PAIR_MAX_D && D % 64 == 0" in header
     assert "D <= X6_MAX_D ? 2 : 1" in header  # the resident pieces of the pair's rows
@@ -297,6 +309,9 @@ def test_f32x6_pair_is_built_for_sm_90a():
     assert not [token for token in ("mma.sync", "ldmatrix", "cp.async.cg") if token in header]
     for kernel in ("x6_fwd_kernel", "x6_dq_kernel", "x6_dkv_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\(XW_THREADS, 1\)\s+{kernel}\(", header), kernel
-    # the forward's key tiles, as tests/test_torch_f32x6.py emulates them: 128 keys up to D = 128, 64 above
+    # the forward's key tiles, as tests/test_torch_f32x6.py emulates them: 128 keys up to D = 128, 64 above; three
+    # pieces of qs resident up to X6_MAX_D, piece 0 or none above (x6_fwd_res)
     assert "X6_FWD_WIDE_MAX_D = 128;" in header and "const int keys = D <= X6_FWD_WIDE_MAX_D ? 128 : 64;" in header
-    assert "launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64>" in header and "launch_x6_fwd_tiles<64, X6_MAX_D / 64>" in header
+    assert "launch_x6_fwd_tiles<128, X6_FWD_WIDE_MAX_D / 64, 3>" in header
+    for res in (3, 1, 0):
+        assert f"launch_x6_fwd_tiles<64, X6_MAX_D / 64, {res}>" in header, res
