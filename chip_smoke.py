@@ -2384,7 +2384,7 @@ def phase_xwide_kernels() -> dict:
                 "dkv": _bound(attention_flops("backward_dkv", B, T, H, D, None),
                               2 * rows + 2 * keys + 2 * stats + 4 * keys),
             }
-            library_ms = {"dq": lib_bwd_ms, "dkv": lib_bwd_ms}
+            library_ms = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": lib_bwd_ms}
             records[dt, D] = {kind: {"max_abs_err": 0.0, "ms": ms[kind], "plain_ms": plain[kind],
                                      "bound_ms": bounds[kind][0], "bound_by": bounds[kind][1],
                                      "library_ms": library_ms[kind]} for kind in ms}
