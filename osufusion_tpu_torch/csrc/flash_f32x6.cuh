@@ -115,7 +115,10 @@
 //    issued_carry), the rings keeping X6_FWD_RES1_SLOTS slots or more (up to
 //    D = 960). Above that piece 0 streams too (RES = 0): each of x6_dots'
 //    three groups takes the X pieces it reads beside its Y piece (X0 three
-//    times, X1 twice), groups of two, three and four atoms.
+//    times, X1 twice), groups of two, three and four atoms. Holding piece 0
+//    pays: RES = 0 forced at D = 320 / 448 / 512 / 576 read 1.10 / 1.09 /
+//    1.12 / 1.12x RES = 1's time (B=2, T=4096, H=16, MQA, global, tables, LSE;
+//    chip_smoke.ab's forward, an H100 80GB HBM3 at 700 W).
 //  * Registers. O's atoms no longer fit warpgroup 1 alone: warpgroup 0 takes
 //    up to X6_FWD_ATOMS0 of them beside S and the softmax (its fragments of P
 //    split from its own S, its O += P V issued after P is handed over and

@@ -85,7 +85,7 @@ def _jax_draws(rng_step, n: int):
 # each moment entry into an update of about the learning rate whatever its size, so a parameter whose
 # reference moment stands clear of that bound (same sign on both sides) is held to 1.1 x lr (Adam's
 # bias-corrected ratio, whose size stays near 1), and one whose moment lies within it may have flipped and is
-# allowed twice that (``tests/adam_check.py``). These bounds catch an update of the wrong sign or size: the
+# allowed 2.2 x lr, two opposite updates of at most 1.1 x lr each (``tests/adam_check.py``). These bounds catch an update of the wrong sign or size: the
 # mean over every entry, held to 10 % of the rate, and the loss and grad_norm above are the checks with
 # teeth. Adam's update is the same at any scale of the gradient, so the loss scale itself is checked apart
 # (``test_fp16_step_scales_the_loss``).
